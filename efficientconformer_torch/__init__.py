@@ -6,6 +6,9 @@ code is PyTorch; each Pallas kernel of the JAX package becomes a kernel
 written by hand for Hopper, under csrc/, built by ops/_kernels.py at first
 use. Nothing here imports JAX or the JAX package.
 
-Ported so far: batched greedy CTC inference of the Efficient Conformer CTC
-models (models/model_ctc.py:build_model, greedy_decode).
+Ported so far, for the Efficient Conformer CTC models: batched greedy CTC
+inference (models/model_ctc.py:build_model, greedy_decode) and the training
+step (training/trainer.py:Trainer: SpecAugment, dropout, batch-statistics
+BatchNorm, CTC loss, gradient accumulation, torch-semantics Adam under the
+config's schedule, bf16 mixed precision).
 """

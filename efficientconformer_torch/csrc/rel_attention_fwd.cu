@@ -22,7 +22,8 @@
 //
 // What the design does about it: one thread block per (64 query rows, head,
 // batch). The block forms its A rows once, in shared memory beside the qu
-// tile (stored feature-major, so 4 rows are one 16-byte load), and the score
+// tile (stored feature-major, so 4 rows are one 16-byte load), as a
+// register-tiled product with W staged through shared memory, and the score
 // of a (row, key) pair is one dot product of the augmented features
 // [qu | A] and [k | keytab]. Each thread owns a 4x4 tile of scores: per
 // feature it makes one 16-byte load and four 4-byte loads for 16 FMAs. Keys
@@ -55,6 +56,7 @@ constexpr int LDK = BK + 1;     // kaT row stride: [feature][key], odd for the s
 constexpr int CHUNK_PER_THREAD = DC * BK / NTHREADS;
 constexpr float MASKED = -1e30f;
 constexpr size_t MAX_SMEM = 232448;  // 227 KB a block may use on sm_90
+constexpr int WCHUNK = 32;      // rows of W staged at a time while forming A
 
 static_assert(NTHREADS == 16 * 16 && BQ == 4 * 16 && BK == 4 * 16, "thread grid");
 static_assert(DC * BK % NTHREADS == 0 && NTHREADS % DC == 0, "chunk loader");
@@ -95,6 +97,7 @@ __host__ __device__ inline int jmax_for(int dh) {
 
 // the key chunks and the probabilities are never live together: one region
 constexpr int SHARED_REGION = BK * LDP > 2 * DC * LDK ? BK * LDP : 2 * DC * LDK;
+static_assert(WCHUNK * 128 <= SHARED_REGION, "the staged W chunk fits the key-chunk region");
 
 __host__ __device__ inline size_t smem_floats(int dh, int d2) {
   const size_t da = dh + d2;
@@ -129,29 +132,69 @@ __global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
     const int qi = q0 + r;
     qaT[d * LDQ + r] = qi < p.n ? to_f32(qu[qi * p.qu_sn + d]) : 0.f;
   }
-  __syncthreads();
 
-  // 2. the A rows: [P | Q] = (qu + delta) W_h, rotated by the row table
+  // 2. the A rows: [P | Q] = (qu + delta) W_h, rotated by the row table.
+  //    A register-tiled product: thread (ty, tx) forms rows tx + 16 i of
+  //    columns ty + 16 m (i, m < 4) of both halves, 64 columns of each at a
+  //    time, with W staged through the (still unused) key-chunk region 32
+  //    rows at a time, so each shared-memory load feeds 4 to 8 FMAs.
   const float* wh = p.w + static_cast<int64_t>(h) * dh * d2;
-  for (int i = tid; i < BQ * hd; i += NTHREADS) {
-    const int r = i % BQ, j = i / BQ;
-    const int qi = q0 + r;
-    float a_even = 0.f, a_odd = 0.f;
-    if (qi < p.n) {
-      float pacc = 0.f, qacc = 0.f;
-      for (int d = 0; d < dh; ++d) {
-        const float qv = qaT[d * LDQ + r] + dl[d];
-        pacc = fmaf(qv, wh[d * d2 + j], pacc);
-        qacc = fmaf(qv, wh[d * d2 + hd + j], qacc);
+  float* ws = kaT;
+  for (int j0 = 0; j0 < hd; j0 += 64) {
+    float pacc[4][4], qacc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) pacc[i][m] = qacc[i][m] = 0.f;
+    for (int d0 = 0; d0 < dh; d0 += WCHUNK) {
+      const int dc = min(WCHUNK, dh - d0);
+      __syncthreads();   // qu is in place; the previous chunk's readers are done
+      for (int i = tid; i < dc * 128; i += NTHREADS) {
+        const int row = i / 128, c = i % 128;
+        const int j = j0 + (c & 63);
+        ws[i] = j < hd ? wh[(d0 + row) * d2 + (c < 64 ? j : hd + j)] : 0.f;
       }
-      const float s = p.rowtab[static_cast<int64_t>(qi) * d2 + j];
-      const float c = p.rowtab[static_cast<int64_t>(qi) * d2 + hd + j];
-      a_even = s * pacc + c * qacc;
-      a_odd = s * qacc - c * pacc;
+      __syncthreads();
+#pragma unroll 4
+      for (int dd = 0; dd < dc; ++dd) {
+        const int d = d0 + dd;
+        const float dv = dl[d];
+        float x[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = qaT[d * LDQ + tx + 16 * i] + dv;
+        const float* wrow = ws + dd * 128 + ty;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const float wp = wrow[16 * m], wq = wrow[64 + 16 * m];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            pacc[i][m] = fmaf(x[i], wp, pacc[i][m]);
+            qacc[i][m] = fmaf(x[i], wq, qacc[i][m]);
+          }
+        }
+      }
     }
-    qaT[(dh + j) * LDQ + r] = a_even;
-    qaT[(dh + hd + j) * LDQ + r] = a_odd;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = tx + 16 * i;
+      const int qi = q0 + r;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int j = j0 + ty + 16 * m;
+        if (j >= hd) continue;
+        float a_even = 0.f, a_odd = 0.f;
+        if (qi < p.n) {
+          const float sn = p.rowtab[static_cast<int64_t>(qi) * d2 + j];
+          const float cs = p.rowtab[static_cast<int64_t>(qi) * d2 + hd + j];
+          a_even = sn * pacc[i][m] + cs * qacc[i][m];
+          a_odd = sn * qacc[i][m] - cs * pacc[i][m];
+        }
+        qaT[(dh + j) * LDQ + r] = a_even;
+        qaT[(dh + hd + j) * LDQ + r] = a_odd;
+      }
+    }
   }
+  __syncthreads();   // the key loop overwrites the staged W
 
   float m[4], l[4], o[4][JMAX];
 #pragma unroll

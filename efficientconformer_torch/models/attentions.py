@@ -5,8 +5,11 @@ two branches every attention layer of the shipped Efficient Conformer CTC
 configs takes: non-causal rel-pos attention with a key-only mask, either
 grouped with an odd group size G (efficientconformer_tpu/models/
 attentions.py:249-349) or plain (:448-519). Both call the fused rel-pos
-attention (ops/rel_attention.py), a CUDA kernel on the card. Every other
-variant raises NotImplementedError naming its ROADMAP item.
+attention (ops/rel_attention.py), a CUDA kernel in each direction on the
+card; its autograd Function carries the gradients back to the query, key,
+value and pos projections and to u and v (through delta = v - u and the
+folded weights W, whose gather scatters dW back onto pos_layer.weight).
+Every other variant raises NotImplementedError naming its ROADMAP item.
 
 Parameter names are the original PyTorch repo's (query_layer, key_layer,
 value_layer, output_layer, pos_layer, u, v), so utils/weights.py maps them.

@@ -3,7 +3,9 @@
 Counterpart of efficientconformer_tpu/models/blocks.py:ConformerBlock:
 x + ½FFN -> x + MHSA -> residual + Conv -> x + ½FFN -> LayerNorm. The residual
 around the convolution module is a strided pointwise conv when the width
-expands, a strided slice when the block only strides.
+expands, a strided slice when the block only strides. The training state is
+the module's own (``train()``/``eval()``); the generator for dropout is
+handed down to each module.
 """
 
 from __future__ import annotations
@@ -43,14 +45,14 @@ class ConformerBlock(nn.Module):
             c.dim_expand, c.dim_expand * c.ff_ratio, c.dropout)
         self.norm = LayerNorm(c.dim_expand)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, generator=None):
         c = self.cfg
-        x = x + 0.5 * self.feed_forward_module1(x)
-        x = x + self.multi_head_self_attention_module(x, mask)
+        x = x + 0.5 * self.feed_forward_module1(x, generator)
+        x = x + self.multi_head_self_attention_module(x, mask, generator)
         if c.dim_model != c.dim_expand:
             res = self.conv_res(x)
         else:
             res = x[:, :: c.conv_stride]
-        x = res + self.convolution_module(x)
-        x = x + 0.5 * self.feed_forward_module2(x)
+        x = res + self.convolution_module(x, generator)
+        x = x + 0.5 * self.feed_forward_module2(x, generator)
         return self.norm(x)

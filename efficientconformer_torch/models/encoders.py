@@ -1,11 +1,13 @@
-"""Conformer encoder, inference path.
+"""Conformer encoder.
 
 Counterpart of efficientconformer_tpu/models/encoders.py:ConformerEncoder:
-log-mel frontend (fp32) -> optional cast to ``compute_dtype`` -> Conv2d
-subsampling -> key-padding mask -> linear projection -> Conformer blocks.
-After a strided block the (B, 1, 1, T) mask is sliced ``[::s, ::s]`` and the
-lengths become (l-1)//s + 1. Training (SpecAugment, dropout, batch
-statistics) comes with the training slice.
+log-mel frontend (fp32) -> SpecAugment (training, fp32) -> optional cast to
+``compute_dtype`` -> Conv2d subsampling -> key-padding mask -> linear
+projection -> dropout -> Conformer blocks. After a strided block the
+(B, 1, 1, T) mask is sliced ``[::s, ::s]`` and the lengths become
+(l-1)//s + 1. In training mode (``train()``) SpecAugment and dropout draw
+from the generator passed to ``forward`` and BatchNorm uses batch
+statistics; ``remat`` is not ported.
 """
 
 from __future__ import annotations
@@ -17,8 +19,12 @@ from torch import nn
 
 from efficientconformer_torch.config import resolve_block_configs
 from efficientconformer_torch.models.blocks import ConformerBlock
-from efficientconformer_torch.models.layers import Linear
-from efficientconformer_torch.models.modules import AudioPreprocessing, Conv2dSubsampling
+from efficientconformer_torch.models.layers import Dropout, Linear
+from efficientconformer_torch.models.modules import (
+    AudioPreprocessing,
+    Conv2dSubsampling,
+    SpecAugment,
+)
 from efficientconformer_torch.ops.masks import padding_mask
 
 
@@ -31,6 +37,8 @@ class ConformerEncoder(nn.Module):
                 f"{p['subsampling_module']} subsampling: ROADMAP Queue 1 item 3")
         if p.get("causal", False):
             raise NotImplementedError("causal encoder: ROADMAP Queue 1 item 12")
+        if p.get("remat"):
+            raise NotImplementedError("remat (activation recomputation): ROADMAP Queue 1 item 8")
         blocks = resolve_block_configs(p)
         dtype = p.get("compute_dtype")
         self.compute_dtype = getattr(torch, dtype) if dtype else None
@@ -39,6 +47,8 @@ class ConformerEncoder(nn.Module):
         self.preprocessing = AudioPreprocessing(
             p["sample_rate"], p["n_fft"], p["win_length_ms"], p["hop_length_ms"],
             p["n_mels"], p["normalize"], p["mean"], p["std"])
+        self.augment = SpecAugment(p.get("spec_augment", False), p.get("mF", 0), p.get("F", 0),
+                                   p.get("mT", 0), p.get("pS", 0.0))
         self.subsampling_module = Conv2dSubsampling(
             p["subsampling_layers"], p["subsampling_filters"], p["subsampling_kernel_size"],
             p["subsampling_norm"], p["subsampling_act"])
@@ -46,13 +56,16 @@ class ConformerEncoder(nn.Module):
         for _ in range(p["subsampling_layers"]):
             mel = (mel - 1) // 2 + 1
         self.linear = Linear(p["subsampling_filters"][-1] * mel, blocks[0].dim_model)
+        self.dropout = Dropout(p["Pdrop"])
         self.blocks = nn.ModuleList(ConformerBlock(cfg) for cfg in blocks)
 
-    def forward(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None):
-        """x: (B, T_audio) raw waveform -> (features (B, T, D), lengths)."""
-        if self.training:
-            raise NotImplementedError("encoder training: ROADMAP Queue 1 item 8")
+    def forward(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """x: (B, T_audio) raw waveform -> (features (B, T, D), lengths).
+        ``generator`` (on x's device) feeds SpecAugment and dropout in
+        training mode."""
         x, x_len = self.preprocessing(x, x_len)
+        x = self.augment(x, x_len, generator)
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         x, x_len = self.subsampling_module(x, x_len)
@@ -61,9 +74,9 @@ class ConformerEncoder(nn.Module):
             raise NotImplementedError(
                 "limited attention context (streaming mask): ROADMAP Queue 1 item 12")
         mask = padding_mask(t, x_len)
-        x = self.linear(x)
+        x = self.dropout(self.linear(x), generator)
         for block in self.blocks:
-            x = block(x, mask)
+            x = block(x, mask, generator)
             s = block.cfg.stride
             if s > 1:
                 if mask is not None:

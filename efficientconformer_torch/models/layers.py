@@ -3,7 +3,9 @@
 Counterpart of efficientconformer_tpu/models/layers.py. Parameters are kept
 in fp32 and cast to the activation dtype at each use, as the JAX package
 does under its bf16 policy. LayerNorm and BatchNorm compute in fp32 and cast
-their output back to the input dtype.
+their output back to the input dtype. Dropout draws from an explicit
+generator. Variational noise (the JAX package's ``vn_std``) is not ported:
+models/factory.py refuses a config that sets it.
 
 The layers subclass torch's own, so parameter names and layouts are the
 original PyTorch repo's (``weight`` (out, in[, k...]), ``bias``,
@@ -91,23 +93,56 @@ class LayerNorm(nn.LayerNorm):
         return y.to(x.dtype)
 
 
-class _EvalBatchNorm:
-    """Batch norm from the running statistics (eps 1e-5) in fp32, output in
-    the input dtype. Batch statistics come with the training slice; the
-    encoder refuses training mode until then."""
+class _BatchNorm:
+    """Batch norm (eps 1e-5) in fp32, output in the input dtype, with the JAX
+    package's (flax) semantics. Eval: the running statistics. Training: the
+    batch mean and *biased* variance over every axis but the features,
+    padded frames included, and the running statistics updated as
+    0.9 * old + 0.1 * batch with that biased variance (flax BatchNorm,
+    momentum 0.9). torch's own training-mode update would use the unbiased
+    variance for running_var, which differs at small batches."""
+
+    MOMENTUM = 0.9
 
     def forward(self, x):
-        y = F.batch_norm(x.to(torch.float32), self.running_mean, self.running_var,
-                         self.weight, self.bias, False, 0.0, self.eps)
+        x32 = x.to(torch.float32)
+        if not self.training:
+            y = F.batch_norm(x32, self.running_mean, self.running_var, self.weight, self.bias,
+                             False, 0.0, self.eps)
+            return y.to(x.dtype)
+        y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            dims = [0] + list(range(2, x.dim()))
+            var, mean = torch.var_mean(x32, dim=dims, correction=0)
+            self.running_mean.lerp_(mean, 1.0 - self.MOMENTUM)
+            self.running_var.lerp_(var, 1.0 - self.MOMENTUM)
         return y.to(x.dtype)
 
 
-class BatchNorm1d(_EvalBatchNorm, nn.BatchNorm1d):
+class BatchNorm1d(_BatchNorm, nn.BatchNorm1d):
     pass
 
 
-class BatchNorm2d(_EvalBatchNorm, nn.BatchNorm2d):
+class BatchNorm2d(_BatchNorm, nn.BatchNorm2d):
     pass
+
+
+class Dropout(nn.Module):
+    """Dropout whose keep-mask is drawn from an explicit ``torch.Generator``
+    (on the tensor's device), kept values scaled by 1/(1-p), as flax's
+    Dropout. The identity in eval mode or when p = 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, generator=None):
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("Dropout in training mode needs a torch.Generator")
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=generator)
+        return x * keep / (1.0 - self.p)
 
 
 def init_uniform_(module: nn.Module, generator: torch.Generator) -> None:

@@ -23,9 +23,10 @@ class ModelCTC(nn.Module):
         d = encoder_params["dim_model"]
         self.fc = Linear(d[-1] if isinstance(d, list) else d, vocab_size)
 
-    def forward(self, x, x_len):
-        """(B, T_audio) -> (logits (B, T, V), logits_len (B,))."""
-        enc, enc_len = self.encoder(x, x_len)
+    def forward(self, x, x_len, generator=None):
+        """(B, T_audio) -> (logits (B, T, V), logits_len (B,)). ``generator``
+        feeds SpecAugment and dropout in training mode."""
+        enc, enc_len = self.encoder(x, x_len, generator)
         return self.fc(enc), enc_len
 
 

@@ -4,6 +4,8 @@ Counterpart of efficientconformer_tpu/models/modules.py. Activations are
 (B, T, D) between modules. The subsampling convolution and the convolution
 module run in torch's channels-first layout internally, as the original
 PyTorch repo does, so that their parameters keep its names and layouts.
+In training mode BatchNorm uses batch statistics (models/layers.py) and
+dropout and SpecAugment draw from the generator passed to ``forward``.
 """
 
 from __future__ import annotations
@@ -18,13 +20,22 @@ from efficientconformer_torch.models.layers import (
     BatchNorm2d,
     Conv1d,
     Conv2d,
+    Dropout,
     Glu,
     LayerNorm,
     Linear,
     Swish,
     Transpose,
 )
+from efficientconformer_torch.ops import specaugment
 from efficientconformer_torch.ops.audio import log_mel_spectrogram
+
+
+def run_layers(layers: nn.Sequential, x, generator):
+    """Apply ``layers`` in order, handing the generator to the dropouts."""
+    for layer in layers:
+        x = layer(x, generator) if isinstance(layer, Dropout) else layer(x)
+    return x
 
 
 class AudioPreprocessing(nn.Module):
@@ -39,6 +50,23 @@ class AudioPreprocessing(nn.Module):
 
     def forward(self, x, x_len):
         return log_mel_spectrogram(x, x_len, **self.kwargs)
+
+
+class SpecAugment(nn.Module):
+    """SpecAugment (ops/specaugment.py) in training mode when enabled; the
+    identity otherwise."""
+
+    def __init__(self, spec_augment: bool, mF: int, F: int, mT: int, pS: float):
+        super().__init__()
+        self.enabled = spec_augment
+        self.kwargs = dict(mF=mF, F=F, mT=mT, pS=pS)
+
+    def forward(self, x, x_len, generator=None):
+        if not (self.enabled and self.training):
+            return x
+        if generator is None:
+            raise ValueError("SpecAugment in training mode needs a torch.Generator")
+        return specaugment.spec_augment(x, x_len, generator, **self.kwargs)
 
 
 class Conv2dSubsampling(nn.Module):
@@ -83,13 +111,13 @@ class FeedForwardModule(nn.Module):
             LayerNorm(dim_model),
             Linear(dim_model, dim_ffn),
             Swish(),
-            nn.Dropout(dropout),
+            Dropout(dropout),
             Linear(dim_ffn, dim_model),
-            nn.Dropout(dropout),
+            Dropout(dropout),
         )
 
-    def forward(self, x):
-        return self.layers(x)
+    def forward(self, x, generator=None):
+        return run_layers(self.layers, x, generator)
 
 
 class MultiHeadSelfAttentionModule(nn.Module):
@@ -105,10 +133,10 @@ class MultiHeadSelfAttentionModule(nn.Module):
             kernel_size=kernel_size, stride=stride, linear_att=linear_att,
             relative_pos_enc=relative_pos_enc,
         )
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x, mask=None):
-        return self.dropout(self.mhsa(self.norm(x), mask))
+    def forward(self, x, mask=None, generator=None):
+        return self.dropout(self.mhsa(self.norm(x), mask), generator)
 
 
 class ConvolutionModule(nn.Module):
@@ -128,9 +156,9 @@ class ConvolutionModule(nn.Module):
             BatchNorm1d(dim_expand),
             Swish(),
             Conv1d(dim_expand, dim_expand, 1),
-            nn.Dropout(dropout),
+            Dropout(dropout),
             Transpose(1, 2),
         )
 
-    def forward(self, x):
-        return self.layers(x)
+    def forward(self, x, generator=None):
+        return run_layers(self.layers, x, generator)

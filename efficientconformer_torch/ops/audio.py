@@ -63,13 +63,15 @@ def mel_filterbank(
 def _frontend_matrices(win_length: int, n_fft: int, n_mels: int, sample_rate: int,
                        device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """(windowed DFT (n_fft, 2*(n_fft//2+1)) = diag(window) [cos | -sin],
-    mel filterbank (n_fft//2+1, n_mels)), fp32 on ``device``."""
+    mel filterbank (n_fft//2+1, n_mels)), fp32 on ``device``; made outside
+    inference mode, so that a cache filled by inference serves training."""
     cos_m, sin_m = dft_matrices(n_fft)
     window = hann_window_padded(win_length, n_fft)[:, None]
     dft = np.concatenate([cos_m, sin_m], axis=1) * window
     fb = mel_filterbank(n_fft // 2 + 1, n_mels, sample_rate, 0.0, 8000.0)
-    return (torch.as_tensor(dft, dtype=torch.float32, device=device),
-            torch.as_tensor(fb, device=device))
+    with torch.inference_mode(False):
+        return (torch.as_tensor(dft, dtype=torch.float32, device=device),
+                torch.as_tensor(fb, device=device))
 
 
 def log_mel_spectrogram(

@@ -56,9 +56,12 @@ def rel_keytab_halves(n_keys: int, dim: int, hdp: int, stride: int = 1,
 def rel_tables(n: int, n_keys: int, dim: int, stride: int,
                device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """(rowtab, keytab) in fp32 on ``device`` at half-width D/2, without a
-    cached history (hidden_len 0), cached: position constants of the shapes."""
-    return (rel_rowtab(n, dim, dim // 2, stride=stride, device=device),
-            rel_keytab_halves(n_keys, dim, dim // 2, stride=stride, device=device))
+    cached history (hidden_len 0), cached: position constants of the shapes.
+    Made outside inference mode, so that training can save them for the
+    backward even when inference filled the cache."""
+    with torch.inference_mode(False):
+        return (rel_rowtab(n, dim, dim // 2, stride=stride, device=device),
+                rel_keytab_halves(n_keys, dim, dim // 2, stride=stride, device=device))
 
 
 def rel_w_plain(pos_kernel: torch.Tensor, num_heads: int, hdp: int) -> torch.Tensor:
@@ -107,10 +110,12 @@ def _grouped_fold_weights(h: int, dhg: int, pos_kernel: torch.Tensor, g: int,
 @functools.lru_cache(maxsize=64)
 def _fold_tables(features: int, d: int, g: int, hidden_len: int, device: torch.device):
     """(kernel column of each grouped feature, X_r and Y_r per feature
-    (features, D/2) in fp32) on ``device``: static, so cached."""
+    (features, D/2) in fp32) on ``device``: static, so cached (outside
+    inference mode, as rel_tables)."""
     f = np.arange(features)
     c_r = (g - 1 - g // 2 + hidden_len) - np.arange(g)
     ang = (c_r[:, None] * _freqs(d)[None, :])[f // d]
-    return (torch.as_tensor(f % d, device=device),
-            torch.as_tensor(np.cos(ang), dtype=torch.float32, device=device),
-            torch.as_tensor(np.sin(ang), dtype=torch.float32, device=device))
+    with torch.inference_mode(False):
+        return (torch.as_tensor(f % d, device=device),
+                torch.as_tensor(np.cos(ang), dtype=torch.float32, device=device),
+                torch.as_tensor(np.sin(ang), dtype=torch.float32, device=device))

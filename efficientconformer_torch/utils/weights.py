@@ -6,6 +6,10 @@ package's ``utils/torch_compat.convert_ctc(port.state_dict())`` is the
 port -> JAX map, and published reference checkpoints load into the port
 directly. ``from_jax`` is its inverse: the JAX ``{"params", "batch_stats"}``
 tree of a ModelCTC (numpy or array leaves) -> a state dict the port loads.
+``load_adam_state`` carries optimizer state across too: the optax Adam
+moments (``mu``, ``nu``, trees shaped like the params) and ``count`` become
+``torch.optim.Adam`` state, through the same layout map (moments are
+elementwise, so they transpose with their parameters).
 
 Layouts, JAX -> torch:
   Dense kernel (in, out)                  -> Linear weight (out, in)
@@ -50,9 +54,10 @@ def _norm(sd, key, p):
 
 def _batch_norm(sd, key, p, stats):
     _norm(sd, key, p)
-    sd[f"{key}.running_mean"] = _np(stats["mean"])
-    sd[f"{key}.running_var"] = _np(stats["var"])
-    sd[f"{key}.num_batches_tracked"] = np.array(0, np.int64)
+    if stats is not None:
+        sd[f"{key}.running_mean"] = _np(stats["mean"])
+        sd[f"{key}.running_var"] = _np(stats["var"])
+        sd[f"{key}.num_batches_tracked"] = np.array(0, np.int64)
 
 
 def _indexed(tree, prefix: str) -> list:
@@ -63,19 +68,30 @@ def _indexed(tree, prefix: str) -> list:
 
 def from_jax(variables) -> dict[str, torch.Tensor]:
     """JAX ModelCTC variables -> port ``state_dict`` (fp32, CPU tensors)."""
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    enc, enc_stats = params["encoder"], stats["encoder"]
+    return _state_dict(variables["params"], variables.get("batch_stats", {}))
+
+
+def params_from_jax(params) -> dict[str, torch.Tensor]:
+    """A tree shaped like the JAX ModelCTC params -> the port's parameters
+    by name (no BatchNorm statistics)."""
+    return _state_dict(params, None)
+
+
+def _state_dict(params, stats) -> dict[str, torch.Tensor]:
+    enc = params["encoder"]
+    enc_stats = stats["encoder"] if stats is not None else None
     sd: dict = {}
 
-    sub, sub_stats = enc["subsampling"], enc_stats["subsampling"]
+    sub = enc["subsampling"]
     convs = _indexed(sub, "conv_")
-    for i, (conv, bn, bn_stats) in enumerate(
-            zip(convs, _indexed(sub, "bn_"), _indexed(sub_stats, "bn_"), strict=True)):
+    bns = _indexed(sub, "bn_")
+    bn_stats = (_indexed(enc_stats["subsampling"], "bn_") if stats is not None
+                else [None] * len(bns))
+    for i, (conv, bn, bn_stat) in enumerate(zip(convs, bns, bn_stats, strict=True)):
         key = f"encoder.subsampling_module.layers.{i}"
         sd[f"{key}.0.weight"] = _np(conv["kernel"]).transpose(3, 2, 1, 0)
         sd[f"{key}.0.bias"] = _np(conv["bias"])
-        _batch_norm(sd, f"{key}.1", bn, bn_stats)
+        _batch_norm(sd, f"{key}.1", bn, bn_stat)
     channels = _np(convs[-1]["kernel"]).shape[-1]
     lin = _np(enc["linear"]["kernel"])                       # (mel*C, D), mel-major
     in_f, out_f = lin.shape
@@ -83,8 +99,9 @@ def from_jax(variables) -> dict[str, torch.Tensor]:
         lin.T.reshape(out_f, in_f // channels, channels).transpose(0, 2, 1).reshape(out_f, in_f))
     sd["encoder.linear.bias"] = _np(enc["linear"]["bias"])
 
-    for i, (blk, blk_stats) in enumerate(
-            zip(_indexed(enc, "block_"), _indexed(enc_stats, "block_"), strict=True)):
+    blocks = _indexed(enc, "block_")
+    blk_stats = (_indexed(enc_stats, "block_") if stats is not None else [None] * len(blocks))
+    for i, (blk, blk_stat) in enumerate(zip(blocks, blk_stats, strict=True)):
         key = f"encoder.blocks.{i}"
         for j in (1, 2):
             ffn, fkey = blk[f"ffn{j}"], f"{key}.feed_forward_module{j}.layers"
@@ -101,7 +118,8 @@ def from_jax(variables) -> dict[str, torch.Tensor]:
         _norm(sd, f"{ckey}.0", conv["ln"])
         _pointwise(sd, f"{ckey}.2", conv["pw1"])
         _conv1d(sd, f"{ckey}.4", conv["dw"])
-        _batch_norm(sd, f"{ckey}.5", conv["bn"], blk_stats["conv_module"]["bn"])
+        _batch_norm(sd, f"{ckey}.5", conv["bn"],
+                    blk_stat["conv_module"]["bn"] if blk_stat is not None else None)
         _pointwise(sd, f"{ckey}.7", conv["pw2"])
         if "conv_res" in blk:
             _conv1d(sd, f"{key}.conv_res.1", blk["conv_res"])
@@ -109,3 +127,16 @@ def from_jax(variables) -> dict[str, torch.Tensor]:
 
     _dense(sd, "fc", params["fc"])
     return {k: torch.as_tensor(np.array(v, order="C")) for k, v in sd.items()}
+
+
+def load_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module, mu, nu, count) -> None:
+    """Set ``optimizer``'s state for ``model``'s parameters from the JAX
+    package's optax Adam state: ``mu`` and ``nu`` (trees shaped like the
+    ModelCTC params, numpy leaves) and ``count`` (updates taken so far)."""
+    mu_sd, nu_sd = params_from_jax(mu), params_from_jax(nu)
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(np.asarray(count))),
+            "exp_avg": mu_sd[name].to(p.device, p.dtype).clone(),
+            "exp_avg_sq": nu_sd[name].to(p.device, p.dtype).clone(),
+        }

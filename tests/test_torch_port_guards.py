@@ -62,6 +62,8 @@ def test_weight_bridge_loads_into_a_fresh_model():
 
 
 def test_port_runs_without_jax():
+    """Greedy decoding and one train step of the port in a fresh process load
+    no module of JAX, flax or the JAX package."""
     code = textwrap.dedent(f"""
         import json, sys
         import torch
@@ -73,6 +75,17 @@ def test_port_runs_without_jax():
         model = ModelCTC(p, 16)
         init_params_(model, torch.Generator().manual_seed(0))
         tokens, counts = greedy_decode(model.eval(), torch.randn(2, 8000), torch.tensor([8000, 5000]))
+        from efficientconformer_torch.training.trainer import Trainer
+        with open({FLAGSHIP!r}) as f:
+            cfg = json.load(f)
+        cfg["encoder_params"] = p
+        cfg["tokenizer_params"]["vocab_size"] = 16
+        trainer = Trainer(cfg, device="cpu")
+        loss, grad_norm = trainer.train_step({{
+            "audio": torch.randn(2, 2, 8000), "audio_len": torch.tensor([[8000, 5000]] * 2),
+            "labels": torch.tensor([[[3, 4], [5, 0]]] * 2),
+            "label_len": torch.tensor([[2, 1]] * 2)}})
+        assert torch.isfinite(loss) and torch.isfinite(grad_norm)
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "jaxlib", "flax",
                                                        "efficientconformer_tpu")))
@@ -107,3 +120,14 @@ def test_wrapper_has_no_path_for_other_devices():
     args = [torch.empty(1, 2, 3, 4, device="meta")] * 3
     with pytest.raises(ValueError, match="no kernel for device"):
         RA.relpos_attention(*args, None, None, None, None, None, 1.0)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        RA.relpos_attention_bwd(*args, None, None, None, None, None, args[0], args[0], None, 1.0)
+
+
+def test_trainer_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """The trainer never moves to the CPU on its own."""
+    from efficientconformer_torch.training.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(FLAGSHIP)

@@ -187,9 +187,13 @@ def test_ctc_greedy_collapse():
 
 
 def test_encoder_refuses_training_mode():
+    """Training mode draws SpecAugment and dropout masks from an explicit
+    generator; without one the encoder refuses to train."""
     model = port_model(narrow_flagship()).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="Generator"):
         model(torch.zeros(1, 4000), torch.tensor([4000]))
+    logits, _ = model(torch.zeros(1, 4000), torch.tensor([4000]), torch.Generator())
+    assert torch.isfinite(logits).all()
 
 
 def test_bf16_compute_tracks_fp32():

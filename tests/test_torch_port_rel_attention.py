@@ -148,3 +148,74 @@ def test_full_attention_mask_raises():
     mod = port_mhsa(16, 2, 1, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mod(torch.zeros(1, 4, 16), torch.zeros(1, 1, 4, 4))
+
+
+# ------------------------------------------------------------------ backward
+
+def fold_dbias(dbias_hb, bias_b):
+    db = dbias_hb.sum(1)
+    return (db.sum(0, keepdim=True) if bias_b == 1 else db)[:, None, None, :]
+
+
+@pytest.mark.parametrize("layout", ["plain", "grouped"])
+@pytest.mark.parametrize("n,bias_b", [(11, 2), (16, 1)])
+def test_plain_backward_matches_pallas_bwd_rule(interpret_mode, layout, n, bias_b):
+    """reference_relpos_attention_bwd vs the TPU kernel's _bwd_rule in
+    interpret mode, on the same o/LSE and cotangent, including the in-kernel
+    dW and ddelta sums over the batch and the dbias fold (per-batch and
+    broadcast bias); n = 11 has padded query rows on the TPU side."""
+    args = list(inputs(layout, b=2, h=2, n=n, d=16, bias_b=bias_b, hdp=PRA.lane_half(16),
+                       seed=n))
+    args[7] = args[7] * 1e-9 * 0.3                 # a bias of moderate size, not a mask
+    jargs = to_jax(args)
+    _, lse_pad = PRA._forward(*jargs)
+    do = rand(*args[0].shape, seed=n + 50)
+    want = PRA._bwd_rule(args[8], None, tuple(jargs[:8]) + (lse_pad,), jnp.asarray(do))
+    targs = to_torch(args)
+    _, lse = RA.reference_relpos_attention(*targs)
+    got = RA.reference_relpos_attention_bwd(*targs[:8], torch.from_numpy(do), lse, args[8])
+    for g_, w_ in zip(got[:5], want[:5]):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=0, atol=TOL)
+    np.testing.assert_allclose(fold_dbias(got[5], bias_b).numpy(), np.asarray(want[7]),
+                               rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("layout", ["plain", "grouped"])
+@pytest.mark.parametrize("bias_b", [0, 1, 2])
+def test_autograd_function_matches_jax_vjp(layout, bias_b):
+    """Gradients through the port's autograd Function on the CPU (plain
+    forward, plain backward) vs jax.vjp of the JAX reference, for qu, k, v,
+    delta, W and the bias (none, broadcast, per batch); the tables get no
+    gradient."""
+    args = list(inputs(layout, n=14, bias_b=max(bias_b, 1), seed=20 + bias_b))
+    args[7] = args[7] * 1e-9 * 0.3 if bias_b else None
+    do = rand(*args[0].shape, seed=90)
+    diff = [0, 1, 2, 3, 4] + ([7] if bias_b else [])
+
+    def jax_fn(*xs):
+        full = list(to_jax(args))
+        for i, x in zip(diff, xs):
+            full[i] = x
+        return PRA.reference_relpos_attention(*full)
+
+    _, vjp = jax.vjp(jax_fn, *[jnp.asarray(args[i]) for i in diff])
+    want = vjp(jnp.asarray(do))
+    targs = to_torch(args)
+    for i in diff + [5, 6]:
+        targs[i] = targs[i].requires_grad_(True)
+    RA.relpos_attention_bwd.launches = 0
+    o, _ = RA.relpos_attention(*targs)
+    o.backward(torch.from_numpy(do))
+    assert RA.relpos_attention_bwd.launches == 0       # CPU tensors: the plain version
+    for i, w_ in zip(diff, want):
+        np.testing.assert_allclose(targs[i].grad.numpy(), np.asarray(w_), rtol=0, atol=TOL,
+                                   err_msg=str(i))
+    assert targs[5].grad is None and targs[6].grad is None
+
+
+def test_mask_bias_gets_no_gradient_unless_asked():
+    args = to_torch(inputs("plain", n=9, seed=2))
+    qu = args[0].requires_grad_(True)
+    o, _ = RA.relpos_attention(qu, *args[1:])
+    o.sum().backward()
+    assert qu.grad is not None and args[7].grad is None
