@@ -3,43 +3,65 @@
 
     python3 chip_smoke.py [--profile]
 
-Drives the port's two paths at the full width of the flagship
-configs/EfficientConformerCTCSmall.json with seeded random weights: batched
-greedy CTC inference, and the CTC training step with the config's own
-training_params. Holds every hand-written kernel on those paths to its plain
-PyTorch version on the card. Phases, one line each; any failure exits
-non-zero:
+Drives the port's four paths at full width with seeded random weights: the
+flagship configs/EfficientConformerCTCSmall.json (batched greedy CTC
+inference, the CTC training step) and configs/EfficientConformerTransducer
+Small.json (batched greedy Transducer decoding, the Transducer training
+step), each with its config's own training_params. Holds every hand-written
+kernel on those paths to its plain PyTorch version on the card. Phases, one
+line each; any failure exits non-zero:
 
   1. device     CUDA present; card name and power limit; TF32 off
-  2. build      both kernels, from the sources in this checkout, one nvcc
-                each, started together; ptxas registers, shared memory, spills
-  3. kernel     the forward kernel vs its plain version at the inference
-                shapes (10 s of audio, batch 8, ragged key masks), fp32 and
-                bf16; then kernel, plain and library timed at batch 128
-  4. kernel-bwd the backward kernel vs its plain version at the training
-                shapes (16 s, batch 8, ragged key masks), fp32 and bf16;
-                then kernel, plain and library timed at batch 32, bf16
+  2. build      all four kernels, from the sources in this checkout, one
+                nvcc each, started together; ptxas registers, spills; the
+                rel-pos kernels' shared memory at both models' stage shapes
+  3. kernel     the rel-pos forward kernel vs its plain version at the CTC
+                inference shapes (10 s of audio, batch 8, ragged key masks),
+                fp32 and bf16; then kernel, plain and library timed at b128
+  4. kernel-bwd the rel-pos backward kernel vs its plain version at the CTC
+                training shapes (16 s, batch 8), fp32 and bf16; then timed
+                at batch 32, bf16
   5. requests   a ragged batch (2.5 s, 6 s, 10 s) decoded through
-                greedy_decode in bf16; the forward kernel launches 15 times
-  6. slice      full-width fp32 logits of that batch through the kernel vs
-                through the plain version on the card, and vs the CPU
-  7. rate       batch 128 x 10 s greedy decode in bf16: audio-s/s
-  8. train-slice  one fp32 optimizer step (2 microbatches x 4 ragged
-                utterances of 4-8 s, dropout 0, SpecAugment off) through the
-                kernels vs through the plain versions on the card, and vs
-                the CPU: loss, gradient norm, gradients, BatchNorm statistics;
-                the backward kernel launches 15 times per microbatch
-  9. train-learns  30 steps on one fixed batch (8 x 4 s, random labels),
-                Constant lr 1e-3, dropout and SpecAugment on: the loss falls
- 10. train-rate the config's own step: 2 microbatches x 32 x 16 s, bf16,
-                dropout 0.1, SpecAugment, Adam + Transformer schedule:
-                ms per step, audio-s/s, peak memory, launches per step
+                greedy_decode (CTC) in bf16; 15 forward launches
+  6. slice      full-width fp32 CTC logits through the kernel vs the plain
+                version on the card, and vs the CPU
+  7. rate       batch 128 x 10 s greedy CTC decode in bf16: audio-s/s
+  8. train-slice  one fp32 CTC step (2 x 4 ragged utterances of 4-8 s,
+                dropout 0, SpecAugment off), kernels vs plain versions on the
+                card and vs the CPU; 15 backward launches per microbatch
+  9. train-learns  30 CTC steps on one batch: the loss falls
+ 10. train-rate the CTC config's own step, 2 x 32 x 16 s, bf16: ms per step,
+                audio-s/s, peak memory, launches per step
+ 11. t-kernel   both rel-pos kernels vs their plain versions at Transducer
+                Small's 16 s stage shapes (head widths 75/35/50, rel widths
+                100/140/200, batch 8, ragged key masks), fp32 and bf16
+ 12. rnnt-kernel  both RNN-T lattice kernels vs their plain versions at the
+                Transducer's training shape (B 16, T 201, U+1 91, ragged
+                lengths with f_len = T, y_len = 0 and y_len = U) and at
+                U+1 = 150 (more than 128 threads a block); both timed at the
+                training shape beside the plain versions and the bound
+ 13. t-requests the ragged batch decoded by the Transducer in bf16 with the
+                label-looping greedy loop: 15 forward launches, tokens equal
+                to the frame-synchronous loop's
+ 14. t-slice    full-width fp32 lattice logits through the kernels vs the
+                plain versions on the card and vs the CPU; greedy tokens
+                through the kernels equal to those through the plain versions
+ 15. t-rate     batch 16 x 10 s Transducer greedy decode in bf16: audio-s/s,
+                tokens per utterance, loop iterations
+ 16. t-train-slice  one fp32 Transducer step (2 x 4 ragged utterances of
+                4-8 s, labels of 10-30 tokens, dropout 0, SpecAugment and VN
+                off), kernels vs plain versions on the card and vs the CPU
+ 17. t-train-learns  30 Transducer steps on one batch: the loss falls
+ 18. t-train-rate  the Transducer config's own step, 4 x 16 x 16 s with
+                90-token labels, bf16: ms per step, audio-s/s, peak memory,
+                launches per step (4 / 4 RNN-T, 60 / 60 rel-pos); one more
+                step with variational noise on
 
 Then one JSON line with each kernel's launches, error, times and bound, and
 last {"ok": true, "device": {...}}. With --profile it also prints a
-torch.profiler device-time breakdown of one inference batch and of one
-training step. There is no CPU path: without a GPU the script exits non-zero
-and prints no result. Imports nothing of JAX.
+torch.profiler device-time breakdown of one batch or step of each path.
+There is no CPU path: without a GPU the script exits non-zero and prints no
+result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -60,6 +82,7 @@ import torch
 import torch.nn.functional as F
 
 CONFIG = "configs/EfficientConformerCTCSmall.json"
+T_CONFIG = "configs/EfficientConformerTransducerSmall.json"
 SEED = 0
 SAMPLE_RATE = 16000
 REQUEST_SECONDS = (2.5, 6.0, 10.0)
@@ -81,7 +104,13 @@ TRAIN_GRAD_TOL = 1e-3        # per parameter, relative to max(max|g|, 1): fp32 s
 TRAIN_STATS_TOL = 1e-4       # BatchNorm running statistics, relative to max(|x|, 1)
 LEARN_STEPS = 30
 LEARN_RATIO = 0.7            # the last loss of train-learns below 0.7 x the first
+MAX_CONSEC = 5               # max_consec_dec_steps of the greedy Transducer loops
+T_RATE_BATCH = 16
+RNNT_LOSS_RTOL = 1e-5        # RNN-T kernels vs plain: the same fp32 recursion, same order
+RNNT_GRAD_TOL = 1e-5         # their gradients are probabilities, at most 1
+RNNT_WIDE = (4, 60, 150)     # (B, T, U+1) with U+1 > 128: more than 128 threads a block
 BF16_PEAK = 989e12           # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet, 700 W)
+FP32_PEAK = 67e12            # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s
 
 
@@ -114,10 +143,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """(ms, what bounds it): the larger of FLOPs over the bf16 peak and bytes
-    over the HBM rate."""
-    t_ops, t_bytes = flops / BF16_PEAK, nbytes / HBM_RATE
+def bound(flops: float, nbytes: float, peak: float = BF16_PEAK) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of FLOPs over the peak of their type
+    (bf16 tensor cores unless given) and bytes over the HBM rate."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -208,7 +237,18 @@ def make_model(device, dtype):
     norm parameters and BatchNorm running statistics."""
     from efficientconformer_torch.models.model_ctc import build_model
 
-    model = build_model(CONFIG, device, dtype, torch.Generator().manual_seed(SEED))
+    return perturb_norms_(build_model(CONFIG, device, dtype, torch.Generator().manual_seed(SEED)))
+
+
+def make_transducer(device, dtype):
+    """Transducer Small at full width, as make_model."""
+    from efficientconformer_torch.models.transducer import build_model
+
+    return perturb_norms_(build_model(T_CONFIG, device, dtype,
+                                      torch.Generator().manual_seed(SEED)))
+
+
+def perturb_norms_(model):
     gen = torch.Generator().manual_seed(SEED + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -225,13 +265,13 @@ def make_model(device, dtype):
 # ---------------------------------------------------------------- phases
 
 
-def phase_kernel(enc_params):
+def check_forward(phase, enc_params, seconds, gen):
+    """The rel-pos forward kernel vs its plain version at the stage shapes
+    of ``seconds`` of audio, fp32 and bf16; the largest fp32 error."""
     from efficientconformer_torch.ops import rel_attention as RA
 
-    gen = torch.Generator().manual_seed(SEED)
-    shapes = stage_shapes(enc_params, TIME_SECONDS)
     max_err = 0.0
-    for name, n, dh, d, h, g in shapes:
+    for name, n, dh, d, h, g in stage_shapes(enc_params, seconds):
         args = attention_inputs(CHECK_BATCH, n, dh, d, h, g, "cuda", gen)
         o_k, lse_k = RA.relpos_attention(*args)
         o_p, lse_p = RA.reference_relpos_attention(*args)
@@ -247,9 +287,17 @@ def phase_kernel(enc_params):
         check(o_b.dtype == torch.bfloat16 and err_b <= KERNEL_BF16_TOL,
               f"{name} bf16: |O| {err_b} > {KERNEL_BF16_TOL}")
         max_err = max(max_err, err_o, err_lse)
-        say("kernel", shape=name, B=CHECK_BATCH, N=n, dh=dh, D=d, H=h, G=g,
+        say(phase, shape=name, B=CHECK_BATCH, N=n, dh=dh, D=d, H=h, G=g,
             fp32_err_o=f"{err_o:.3g}", fp32_err_lse=f"{err_lse:.3g}", bf16_err_o=f"{err_b:.3g}")
+    return max_err
 
+
+def phase_kernel(enc_params):
+    from efficientconformer_torch.ops import rel_attention as RA
+
+    gen = torch.Generator().manual_seed(SEED)
+    shapes = stage_shapes(enc_params, TIME_SECONDS)
+    max_err = check_forward("kernel", enc_params, TIME_SECONDS, gen)
     times = {"kernel": 0.0, "plain": 0.0, "kernel_fp32": 0.0, "plain_fp32": 0.0,
              "library": 0.0, "bound": 0.0}
     for name, n, dh, d, h, g in shapes:
@@ -280,18 +328,15 @@ def grad_errors(got, want):
             for n, g, w in zip(names, got, want)}
 
 
-def phase_kernel_bwd(enc_params):
-    """The backward kernel at the training stage shapes: fp32 against the
-    plain backward on the same o, LSE and dO; bf16 against the plain
-    backward on the same bf16-rounded inputs. Then timed at batch 32, bf16,
-    beside the plain version and the library yardstick (forward and
-    backward of scaled_dot_product_attention on the augmented features)."""
+def check_backward(phase, enc_params, seconds, gen):
+    """The rel-pos backward kernel at the stage shapes of ``seconds`` of
+    audio: fp32 against the plain backward on the same o, LSE and dO; bf16
+    against the plain backward on the same bf16-rounded inputs. The largest
+    fp32 error."""
     from efficientconformer_torch.ops import rel_attention as RA
 
-    gen = torch.Generator().manual_seed(SEED + 2)
-    shapes = stage_shapes(enc_params, TRAIN_SECONDS)
     max_err = 0.0
-    for name, n, dh, d, h, g in shapes:
+    for name, n, dh, d, h, g in stage_shapes(enc_params, seconds):
         args = attention_inputs(CHECK_BATCH, n, dh, d, h, g, "cuda", gen)
         o, lse = RA.reference_relpos_attention(*args)
         do = torch.randn(o.shape, generator=gen).cuda()
@@ -309,9 +354,21 @@ def phase_kernel_bwd(enc_params):
               f"{name} bf16 backward: {err16} > {GRAD_BF16_TOL}")
         max_err = max(max_err, *[(a.float() - b.float()).abs().max().item()
                                  for a, b in zip(got, want)])
-        say("kernel-bwd", shape=name, B=CHECK_BATCH, N=n, dh=dh, D=d, H=h, G=g,
+        say(phase, shape=name, B=CHECK_BATCH, N=n, dh=dh, D=d, H=h, G=g,
             fp32_rel_err=f"{max(err.values()):.3g}", bf16_rel_err=f"{max(err16.values()):.3g}")
+    return max_err
 
+
+def phase_kernel_bwd(enc_params):
+    """The backward kernel checked at the training stage shapes, then timed
+    at batch 32, bf16, beside the plain version and the library yardstick
+    (forward and backward of scaled_dot_product_attention on the augmented
+    features)."""
+    from efficientconformer_torch.ops import rel_attention as RA
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    shapes = stage_shapes(enc_params, TRAIN_SECONDS)
+    max_err = check_backward("kernel-bwd", enc_params, TRAIN_SECONDS, gen)
     times = {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0}
     for name, n, dh, d, h, g in shapes:
         args = attention_inputs(TRAIN_BATCH, n, dh, d, h, g, "cuda", gen)
@@ -421,11 +478,11 @@ def phase_rate(card_line: str):
 # ---------------------------------------------------------------- training
 
 
-def train_config(**training) -> dict:
-    """The flagship's config, its training_params updated by ``training``."""
+def train_config(path=CONFIG, **training) -> dict:
+    """The config at ``path``, its training_params updated by ``training``."""
     from efficientconformer_torch.config import load_config
 
-    cfg = load_config(CONFIG)
+    cfg = load_config(path)
     cfg["training_params"].update(training)
     return cfg
 
@@ -439,7 +496,7 @@ def train_batch(accum, batch, seconds, label_len, device, rng):
     t = int(n.max())
     audio = (rng.standard_normal((accum, batch, t)) * 0.1).astype(np.float32)
     audio[np.arange(t)[None, None, :] >= n[..., None]] = 0.0
-    labels = rng.integers(1, 256, (accum, batch, max(label_len)))
+    labels = rng.integers(1, 256, (accum, batch, int(np.max(label_len))))
     y_len = np.broadcast_to(np.asarray(label_len), (accum, batch)).copy()
     labels[np.arange(labels.shape[-1])[None, None, :] >= y_len[..., None]] = 0
     return {"audio": torch.from_numpy(audio).to(device), "audio_len": torch.from_numpy(n),
@@ -454,14 +511,24 @@ def plain_relpos_bwd(qu, k, v, delta, w, rowtab, keytab, bias, o, do, lse, scale
                                              lse, scale)
 
 
+def plain_rnnt_alphas(blank_lp, emit_lp, f_len, y_len):
+    from efficientconformer_torch.ops import rnnt_loss as RL
+
+    alphas = RL.reference_rnnt_alphas(blank_lp, emit_lp)
+    return alphas, RL.loss_from_alphas(alphas, blank_lp, f_len, y_len)
+
+
 @contextlib.contextmanager
-def plain_attention():
-    """Both directions of the rel-pos attention through their plain versions,
-    on whatever device the tensors lie."""
+def plain_kernels():
+    """Both directions of the rel-pos attention and of the RNN-T lattice
+    through their plain versions, on whatever device the tensors lie."""
     from efficientconformer_torch.ops import rel_attention as RA
+    from efficientconformer_torch.ops import rnnt_loss as RL
 
     with mock.patch.object(RA, "relpos_attention_fwd", RA.reference_relpos_attention), \
-            mock.patch.object(RA, "relpos_attention_bwd", plain_relpos_bwd):
+            mock.patch.object(RA, "relpos_attention_bwd", plain_relpos_bwd), \
+            mock.patch.object(RL, "rnnt_alphas", plain_rnnt_alphas), \
+            mock.patch.object(RL, "rnnt_grads", RL.reference_rnnt_grads):
         yield
 
 
@@ -471,7 +538,7 @@ def one_step(cfg, device, batch, plain=False):
     from efficientconformer_torch.training.trainer import Trainer
 
     trainer = Trainer(cfg, device=device, seed=SEED)
-    with plain_attention() if plain else contextlib.nullcontext():
+    with plain_kernels() if plain else contextlib.nullcontext():
         loss, grad_norm = trainer.train_step(batch)
     grads = {n: p.grad.float().cpu() for n, p in trainer.model.named_parameters()}
     stats = {n: b.cpu() for n, b in trainer.model.named_buffers() if "running" in n}
@@ -481,6 +548,25 @@ def one_step(cfg, device, batch, plain=False):
 def rel_diff(got: dict, want: dict) -> float:
     return max((got[k] - want[k]).abs().max().item() / max(want[k].abs().max().item(), 1.0)
                for k in want)
+
+
+def compare_steps(kernel, cfg, batch) -> dict:
+    """Hold one step through the kernels (``kernel``, from one_step) to the
+    same step through the plain versions on the card and on the CPU: loss,
+    gradient norm, gradients, BatchNorm statistics. The errors, by name."""
+    out = {}
+    for label, other in (("plain", one_step(cfg, "cuda", batch, plain=True)),
+                         ("cpu", one_step(cfg, "cpu", batch))):
+        loss_err = abs(kernel[0] - other[0]) / abs(other[0])
+        norm_err = abs(kernel[1] - other[1]) / abs(other[1])
+        grad_err, stats_err = rel_diff(kernel[2], other[2]), rel_diff(kernel[3], other[3])
+        check(loss_err <= TRAIN_LOSS_RTOL and norm_err <= TRAIN_LOSS_RTOL,
+              f"kernel vs {label}: loss {kernel[0]} / {other[0]}, norm {kernel[1]} / {other[1]}")
+        check(grad_err <= TRAIN_GRAD_TOL, f"kernel vs {label}: gradients {grad_err}")
+        check(stats_err <= TRAIN_STATS_TOL, f"kernel vs {label}: BatchNorm statistics {stats_err}")
+        out.update({f"{label}_loss_rel": f"{loss_err:.3g}", f"{label}_norm_rel": f"{norm_err:.3g}",
+                    f"{label}_grad_rel": f"{grad_err:.3g}", f"{label}_stats_rel": f"{stats_err:.3g}"})
+    return out
 
 
 def phase_train_slice():
@@ -497,19 +583,7 @@ def phase_train_slice():
     n_att = cfg["encoder_params"]["num_blocks"] * 2      # one attention layer per block
     check(fwd == n_att and bwd == n_att, f"{fwd} forward / {bwd} backward launches, "
           f"expected {n_att} each for 2 microbatches")
-    plain = one_step(cfg, "cuda", batch, plain=True)
-    cpu = one_step(cfg, "cpu", batch)
-    out = {}
-    for label, other in (("plain", plain), ("cpu", cpu)):
-        loss_err = abs(kernel[0] - other[0]) / abs(other[0])
-        norm_err = abs(kernel[1] - other[1]) / abs(other[1])
-        grad_err, stats_err = rel_diff(kernel[2], other[2]), rel_diff(kernel[3], other[3])
-        check(loss_err <= TRAIN_LOSS_RTOL and norm_err <= TRAIN_LOSS_RTOL,
-              f"kernel vs {label}: loss {kernel[0]} / {other[0]}, norm {kernel[1]} / {other[1]}")
-        check(grad_err <= TRAIN_GRAD_TOL, f"kernel vs {label}: gradients {grad_err}")
-        check(stats_err <= TRAIN_STATS_TOL, f"kernel vs {label}: BatchNorm statistics {stats_err}")
-        out.update({f"{label}_loss_rel": f"{loss_err:.3g}", f"{label}_norm_rel": f"{norm_err:.3g}",
-                    f"{label}_grad_rel": f"{grad_err:.3g}", f"{label}_stats_rel": f"{stats_err:.3g}"})
+    out = compare_steps(kernel, cfg, batch)
     say("train-slice", dtype="float32", loss=f"{kernel[0]:.6f}", grad_norm=f"{kernel[1]:.6f}",
         fwd_launches=fwd, bwd_launches=bwd, **out)
 
@@ -574,6 +648,304 @@ def phase_train_rate(card_line: str):
     return bwd
 
 
+# ---------------------------------------------------------------- Transducer
+
+
+def phase_t_kernel(t_enc):
+    """Both rel-pos kernels at Transducer Small's 16 s stage shapes."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+    return (check_forward("t-kernel", t_enc, TRAIN_SECONDS, gen),
+            check_backward("t-kernel-bwd", t_enc, TRAIN_SECONDS, gen))
+
+
+def rnnt_inputs(b, t, u1, seed):
+    """Gathered blank / emit log-probs (B, T, U+1) of about the size a
+    1000-token vocabulary gives, and ragged lengths on the card: the first
+    utterance has f_len = T and y_len = U, the last y_len = 0."""
+    gen = torch.Generator().manual_seed(seed)
+    lp = (torch.randn(b, t, u1, 3, generator=gen) * 2).log_softmax(-1) - math.log(333.0)
+    f_len = torch.linspace(t, max(t // 3, 1), b).round().int()
+    y_len = torch.linspace(0, u1 - 1, b).round().int().flip(0)
+    y_len[-1] = 0
+    return [x.cuda() for x in (lp[..., 0].contiguous(), lp[..., 1].contiguous(), f_len, y_len)]
+
+
+def rnnt_cost(blank, f_len, y_len, backward):
+    """(operations, bytes) the lattice pass must do at these lengths: the
+    forward covers the whole (T, U+1) lattice (reads blank and emit, writes
+    the alphas and the loss), about 10 fp32 operations a cell; the backward
+    reads alpha, blank and emit inside each utterance's lattice and writes
+    both gradients everywhere, about 20 operations an inside cell."""
+    b, t, u1 = blank.shape
+    cells = b * t * u1
+    if not backward:
+        return 10 * cells, 4 * (3 * cells + b) + 8 * b
+    inside = int((f_len.long() * (y_len.long() + 1)).sum())
+    return 20 * inside, 4 * (3 * inside + 2 * cells + b) + 8 * b
+
+
+def phase_rnnt_kernel(t_cfg):
+    """Both RNN-T kernels vs their plain versions on the same inputs (the
+    backward on the kernel's alphas and loss), at the training shape and at
+    U+1 > 128; then both timed at the training shape."""
+    from efficientconformer_torch.config import encoder_output_frames
+    from efficientconformer_torch.ops import rnnt_loss as RL
+
+    tp = t_cfg["training_params"]
+    shape = (tp["batch_size"], encoder_output_frames(t_cfg["encoder_params"],
+                                                     tp["train_audio_max_length"]),
+             tp["train_label_max_length"] + 1)
+    err_f = err_b = 0.0
+    for i, (b, t, u1) in enumerate((shape, RNNT_WIDE)):
+        blank, emit, f_len, y_len = rnnt_inputs(b, t, u1, SEED + 6 + i)
+        alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
+        want_a, want_l = plain_rnnt_alphas(blank, emit, f_len, y_len)
+        grads = RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+        want_g = RL.reference_rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+        torch.cuda.synchronize()
+        alpha_err = (alphas - want_a).abs().max().item()
+        alpha_rel = alpha_err / max(want_a.abs().max().item(), 1.0)
+        loss_rel = ((loss - want_l).abs() / want_l.abs()).max().item()
+        grad_err = max((g - w).abs().max().item() for g, w in zip(grads, want_g))
+        check(loss_rel <= RNNT_LOSS_RTOL and alpha_rel <= RNNT_LOSS_RTOL,
+              f"RNN-T forward {b}x{t}x{u1}: loss {loss_rel}, alphas {alpha_rel} > {RNNT_LOSS_RTOL}")
+        check(grad_err <= RNNT_GRAD_TOL, f"RNN-T backward {b}x{t}x{u1}: {grad_err}")
+        inside = ((torch.arange(t, device="cuda")[None, :, None] < f_len[:, None, None].long())
+                  & (torch.arange(u1, device="cuda")[None, None, :] <= y_len[:, None, None].long()))
+        check(all(bool((g[~inside] == 0).all()) for g in grads), "non-zero outside a lattice")
+        err_f = max(err_f, alpha_err, (loss - want_l).abs().max().item())
+        err_b = max(err_b, grad_err)
+        say("rnnt-kernel", B=b, T=t, U1=u1, f_len=f"{int(f_len.min())}..{int(f_len.max())}",
+            y_len=f"{int(y_len.min())}..{int(y_len.max())}", loss_rel_err=f"{loss_rel:.3g}",
+            alpha_abs_err=f"{alpha_err:.3g}", alpha_rel_err=f"{alpha_rel:.3g}",
+            grad_abs_err=f"{grad_err:.3g}")
+
+    blank, emit, f_len, y_len = rnnt_inputs(*shape, SEED + 6)
+    alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
+    times = []
+    for backward, kernel, plain in (
+            (False, lambda: RL.rnnt_alphas(blank, emit, f_len, y_len),
+             lambda: plain_rnnt_alphas(blank, emit, f_len, y_len)),
+            (True, lambda: RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss),
+             lambda: RL.reference_rnnt_grads(blank, emit, alphas, f_len, y_len, -loss))):
+        row = {"kernel": cuda_ms(kernel), "plain": cuda_ms(plain, iters=3, warmup=1),
+               "library": None}
+        row["bound"], row["bound_by"] = bound(*rnnt_cost(blank, f_len, y_len, backward),
+                                              peak=FP32_PEAK)
+        n_diag = shape[1] + shape[2] - 1 if not backward else int((f_len + y_len).max())
+        say("rnnt-kernel-time", direction="backward" if backward else "forward",
+            B=shape[0], T=shape[1], U1=shape[2], bound_by=row["bound_by"],
+            kernel_ms=f"{row['kernel']:.4f}", plain_ms=f"{row['plain']:.4f}",
+            bound_ms=f"{row['bound']:.6f}", library_ms="none (no torchaudio)", n_diag=n_diag,
+            us_per_diagonal=f"{1e3 * row['kernel'] / n_diag:.3f}")
+        times.append(row)
+    return err_f, times[0], err_b, times[1]
+
+
+def t_batch_labels(n, u_max, seed):
+    """Random labels in [1, 1000) for n utterances, u_max and shorter."""
+    rng = np.random.default_rng(seed)
+    y_len = np.linspace(u_max, u_max // 3, n).astype(np.int64)
+    y = rng.integers(1, 1000, (n, u_max))
+    y[np.arange(u_max)[None] >= y_len[:, None]] = 0
+    return torch.from_numpy(y), torch.from_numpy(y_len)
+
+
+def t_encoder_params() -> dict:
+    from efficientconformer_torch.config import load_config
+
+    return load_config(T_CONFIG)["encoder_params"]
+
+
+def phase_t_requests():
+    from efficientconformer_torch.config import encoder_output_frames
+    from efficientconformer_torch.models import transducer as T
+    from efficientconformer_torch.ops import rel_attention as RA
+
+    t_enc = t_encoder_params()
+    model = make_transducer("cuda", torch.bfloat16)
+    x, x_len = ragged_audio(REQUEST_SECONDS, "cuda", np.random.default_rng(SEED))
+    cap = T.greedy_token_cap(t_enc, x.shape[1], MAX_CONSEC)
+    RA.relpos_attention.launches = 0
+    tokens, counts = T.greedy_decode(model, x, x_len, cap, MAX_CONSEC)
+    torch.cuda.synchronize()
+    launches = RA.relpos_attention.launches
+    n_att = len(model.encoder.blocks)
+    check(launches == n_att, f"{launches} kernel launches for one encode, expected {n_att}")
+    frame_tokens, frame_counts = T.greedy_decode(model, x, x_len, cap, MAX_CONSEC, algo="frame")
+    check(torch.equal(tokens, frame_tokens) and torch.equal(counts, frame_counts),
+          f"label loop {counts.tolist()} != frame loop {frame_counts.tolist()}")
+    frames = [encoder_output_frames(t_enc, int(s * SAMPLE_RATE)) for s in REQUEST_SECONDS]
+    counts = counts.tolist()
+    check(all(0 < c <= MAX_CONSEC * f for c, f in zip(counts, frames)), f"counts {counts}")
+    check(tokens.shape == (len(REQUEST_SECONDS), cap), f"tokens {tuple(tokens.shape)}")
+    say("t-requests", seconds=list(REQUEST_SECONDS), frames=frames, tokens=counts, cap=cap,
+        launches=launches, frame_loop="equal")
+    return launches
+
+
+def phase_t_slice():
+    from efficientconformer_torch.models import transducer as T
+
+    model = make_transducer("cuda", torch.float32)
+    x, x_len = ragged_audio(REQUEST_SECONDS, "cuda", np.random.default_rng(SEED))
+    y, y_len = t_batch_labels(len(REQUEST_SECONDS), 30, SEED)
+    y = y.cuda()
+    with torch.inference_mode():
+        logits_k, len_k = model(x, y, x_len, y_len.cuda())
+        with plain_kernels():
+            logits_p, len_p = model(x, y, x_len, y_len.cuda())
+    check(torch.equal(len_k, len_p), f"lengths {len_k.tolist()} / {len_p.tolist()}")
+    check(bool(torch.isfinite(logits_k).all()), "non-finite lattice logits")
+    valid = torch.arange(logits_k.shape[1], device="cuda")[None, :] < len_k[:, None]
+    err = (logits_k - logits_p).abs()[valid].max().item()
+    check(err <= SLICE_TOL, f"kernel vs plain lattice |diff| {err} > {SLICE_TOL}")
+    cpu_model = make_transducer("cpu", torch.float32)
+    with torch.inference_mode():
+        logits_c, _ = cpu_model(x.cpu(), y.cpu(), x_len.cpu(), y_len)
+    err_cpu = (logits_k.cpu() - logits_c).abs()[valid.cpu()].max().item()
+    check(err_cpu <= SLICE_TOL, f"card vs CPU lattice |diff| {err_cpu} > {SLICE_TOL}")
+    agree = (logits_k.cpu().argmax(-1) == logits_c.argmax(-1))[valid.cpu()].float().mean().item()
+    check(agree >= SLICE_ARGMAX_AGREEMENT, f"card vs CPU argmax agreement {agree}")
+
+    cap = T.greedy_token_cap(t_encoder_params(), x.shape[1], MAX_CONSEC)
+    tok_k, n_k = T.greedy_decode(model, x, x_len, cap, MAX_CONSEC)
+    with plain_kernels():
+        tok_p, n_p = T.greedy_decode(model, x, x_len, cap, MAX_CONSEC)
+    check(torch.equal(tok_k, tok_p) and torch.equal(n_k, n_p),
+          f"greedy tokens kernel {n_k.tolist()} vs plain {n_p.tolist()}")
+    say("t-slice", dtype="float32", lattice=tuple(logits_k.shape), max_abs_diff=f"{err:.3g}",
+        cpu_max_abs_diff=f"{err_cpu:.3g}", cpu_argmax_agreement=f"{agree:.6f}",
+        greedy_tokens=n_k.tolist(), greedy_kernel_vs_plain="equal")
+
+
+def phase_t_rate(card_line: str):
+    from efficientconformer_torch.models import transducer as T
+
+    model = make_transducer("cuda", torch.bfloat16)
+    n = int(TIME_SECONDS * SAMPLE_RATE)
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy((rng.standard_normal((T_RATE_BATCH, n)) * 0.1).astype(np.float32)).cuda()
+    x_len = torch.full((T_RATE_BATCH,), n, device="cuda")
+    cap = T.greedy_token_cap(t_encoder_params(), n, MAX_CONSEC)
+    T.greedy_decode(model, x, x_len, cap, MAX_CONSEC)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        tokens, counts = T.greedy_decode(model, x, x_len, cap, MAX_CONSEC)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    check(bool((counts > 0).all()), "an utterance decoded to no token")
+    say("t-rate", batch=T_RATE_BATCH, seconds=TIME_SECONDS, dtype="bfloat16", algo="label",
+        ms_per_batch=f"{dt * 1e3:.2f}", audio_s_per_s=f"{T_RATE_BATCH * TIME_SECONDS / dt:.1f}",
+        tokens_per_utt=f"{counts.float().mean().item():.1f}", token_cap=cap,
+        loop_iterations=int(counts.max()) + 1,
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", card=f"'{card_line}'")
+
+
+def launch_counts():
+    from efficientconformer_torch.ops import rel_attention as RA
+    from efficientconformer_torch.ops import rnnt_loss as RL
+
+    return (RL.rnnt_alphas.launches, RL.rnnt_grads.launches, RA.relpos_attention.launches,
+            RA.relpos_attention_bwd.launches)
+
+
+def reset_launch_counts():
+    from efficientconformer_torch.ops import rel_attention as RA
+    from efficientconformer_torch.ops import rnnt_loss as RL
+
+    RL.rnnt_alphas.launches = RL.rnnt_grads.launches = 0
+    RA.relpos_attention.launches = RA.relpos_attention_bwd.launches = 0
+
+
+def phase_t_train_slice():
+    cfg = train_config(T_CONFIG, mixed_precision=False, vn_start_step=None)
+    cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+    seconds = [[4.0, 5.5, 7.0, 8.0], [8.0, 6.5, 4.5, 5.0]]
+    labels = [[12, 30, 10, 20], [25, 10, 18, 30]]
+    batch = train_batch(2, 4, seconds, labels, "cpu", np.random.default_rng(SEED + 7))
+    reset_launch_counts()
+    kernel = one_step(cfg, "cuda", batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n_att = cfg["encoder_params"]["num_blocks"] * 2
+    check(counts == (2, 2, n_att, n_att), f"launches (RNN-T fwd, bwd, rel-pos fwd, bwd) "
+          f"{counts}, expected (2, 2, {n_att}, {n_att}) for 2 microbatches")
+    out = compare_steps(kernel, cfg, batch)
+    say("t-train-slice", dtype="float32", loss=f"{kernel[0]:.6f}", grad_norm=f"{kernel[1]:.6f}",
+        launches=counts, **out)
+
+
+def phase_t_train_learns():
+    from efficientconformer_torch.training.trainer import Trainer
+
+    cfg = train_config(T_CONFIG, lr_schedule="Constant", lr_value=1e-3)
+    trainer = Trainer(cfg, device="cuda", seed=SEED)
+    batch = train_batch(1, 8, 4.0, [10, 14, 18, 12, 16, 8, 20, 11], "cuda",
+                        np.random.default_rng(SEED + 8))
+    losses = trainer.fit(itertools.repeat(batch), LEARN_STEPS)
+    check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
+    check(losses[-1] < LEARN_RATIO * losses[0], f"loss {losses[0]} -> {losses[-1]}")
+    say("t-train-learns", steps=LEARN_STEPS, batch="8x4s", first_loss=f"{losses[0]:.4f}",
+        last_loss=f"{losses[-1]:.4f}", min_loss=f"{min(losses):.4f}")
+
+
+def t_rate_trainer():
+    """The Transducer config's own training step (bf16, dropout 0.1,
+    SpecAugment, Adam + Transformer schedule) and its batch: 4 microbatches
+    of 16 x 16 s with labels of 90 tokens, on the card."""
+    from efficientconformer_torch.training.trainer import Trainer
+
+    cfg = train_config(T_CONFIG)
+    tp = cfg["training_params"]
+    trainer = Trainer(cfg, device="cuda", seed=SEED)
+    batch = train_batch(tp["accumulated_steps"], tp["batch_size"],
+                        tp["train_audio_max_length"] / SAMPLE_RATE,
+                        [tp["train_label_max_length"]], "cuda", np.random.default_rng(SEED + 9))
+    return trainer, batch
+
+
+def phase_t_train_rate(card_line: str):
+    trainer, batch = t_rate_trainer()
+    accum, b, t = batch["audio"].shape
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n_att = trainer.config["encoder_params"]["num_blocks"] * accum
+    check(counts == (accum, accum, n_att, n_att), f"launches (RNN-T fwd, bwd, rel-pos fwd, "
+          f"bwd) {counts} in one step, expected ({accum}, {accum}, {n_att}, {n_att})")
+    torch.cuda.reset_peak_memory_stats()
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss, grad_norm = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    check(math.isfinite(float(loss)) and math.isfinite(float(grad_norm)), f"loss {float(loss)}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # one step with the config's variational noise on (from vn_start_step)
+    trainer.step = trainer.vn_start_step
+    t0 = time.perf_counter()
+    loss_vn, _ = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    dt_vn = time.perf_counter() - t0
+    check(math.isfinite(float(loss_vn)), f"VN step loss {float(loss_vn)}")
+    audio_s = accum * b * t / SAMPLE_RATE
+    say("t-train-rate", microbatches=accum, batch=b, seconds=t / SAMPLE_RATE,
+        labels=batch["labels"].shape[-1], dtype="bfloat16", ms_per_step=f"{dt * 1e3:.2f}",
+        audio_s_per_s=f"{audio_s / dt:.1f}", peak_mem_gib=f"{peak:.2f}",
+        loss=f"{float(loss):.4f}", grad_norm=f"{float(grad_norm):.4f}",
+        launches=counts, vn_step_ms=f"{dt_vn * 1e3:.2f}", vn_loss=f"{float(loss_vn):.4f}",
+        card=f"'{card_line}'")
+    return counts
+
+
 def wall_ms(fn, iters: int = 3) -> float:
     """Host-clock ms per call of ``fn`` after two warm-up calls."""
     for _ in range(2):
@@ -611,16 +983,23 @@ def profile(label: str, fn, wall: float, iters: int = 3) -> None:
 
 
 def phase_profile():
+    from efficientconformer_torch.models import transducer as T
     from efficientconformer_torch.models.model_ctc import greedy_decode
 
-    model = make_model("cuda", torch.bfloat16)
     n = int(TIME_SECONDS * SAMPLE_RATE)
-    x = torch.from_numpy((np.random.default_rng(SEED).standard_normal((TIME_BATCH, n)) * 0.1)
-                         .astype(np.float32)).cuda()
+    audio = (np.random.default_rng(SEED).standard_normal((TIME_BATCH, n)) * 0.1).astype(np.float32)
+    x = torch.from_numpy(audio).cuda()
     x_len = torch.full((TIME_BATCH,), n, device="cuda")
+    model = make_model("cuda", torch.bfloat16)
+    t_model = make_transducer("cuda", torch.bfloat16)
+    cap = T.greedy_token_cap(t_encoder_params(), n, MAX_CONSEC)
     trainer, batch = rate_trainer()
+    t_trainer, t_batch = t_rate_trainer()
     paths = {"infer": lambda: greedy_decode(model, x, x_len),
-             "train": lambda: trainer.train_step(batch)}
+             "train": lambda: trainer.train_step(batch),
+             "t-infer": lambda: T.greedy_decode(t_model, x[:T_RATE_BATCH], x_len[:T_RATE_BATCH],
+                                                cap, MAX_CONSEC),
+             "t-train": lambda: t_trainer.train_step(t_batch)}
     walls = {label: wall_ms(fn) for label, fn in paths.items()}
     for label, fn in paths.items():
         profile(label, fn, walls[label])
@@ -642,9 +1021,10 @@ def main() -> int:
 
     from efficientconformer_torch.config import load_config
     from efficientconformer_torch.ops import _kernels, rel_attention as RA
+    from efficientconformer_torch.ops import rnnt_loss as RL
 
     t0 = time.perf_counter()
-    kernels = (RA.KERNEL, RA.KERNEL_BWD)
+    kernels = (RA.KERNEL, RA.KERNEL_BWD, RL.KERNEL_FWD, RL.KERNEL_BWD)
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         reports = list(pool.map(_kernels.build, kernels))
     for name in kernels:
@@ -653,15 +1033,24 @@ def main() -> int:
     for line in "\n".join(reports).splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
-    # the kernels' shared memory is dynamic, so ptxas does not report it
+    # the rel-pos kernels' shared memory is dynamic, so ptxas does not report it
     enc_params = load_config(CONFIG)["encoder_params"]
+    t_cfg = load_config(T_CONFIG)
     fwd_lib, bwd_lib = _kernels.load(RA.KERNEL), _kernels.load(RA.KERNEL_BWD)
     RA._bind(fwd_lib)
     RA._bind_bwd(bwd_lib)
-    for name, n, dh, d, h, g in stage_shapes(enc_params, TRAIN_SECONDS):
-        say("build-smem", shape=name, dh=dh, rel_width=d,
-            fwd_bytes=fwd_lib.ecf_relpos_attention_fwd_smem(dh, d),
-            bwd_bytes=bwd_lib.ecf_relpos_attention_bwd_smem(dh, d), limit=RA._SMEM_LIMIT)
+    # at the widths of the other Efficient Conformer Transducers too, which
+    # the port refuses (ROADMAP Queue 1 item 16)
+    for path in (CONFIG, T_CONFIG, "configs/EfficientConformerTransducerMedium.json",
+                 "configs/EfficientConformerTransducerLarge.json"):
+        for name, n, dh, d, h, g in stage_shapes(load_config(path)["encoder_params"],
+                                                 TRAIN_SECONDS):
+            fwd_b = fwd_lib.ecf_relpos_attention_fwd_smem(dh, d)
+            bwd_b = bwd_lib.ecf_relpos_attention_bwd_smem(dh, d)
+            takes = dh <= 128 and max(fwd_b, bwd_b) <= RA._SMEM_LIMIT and dh + d <= 416
+            say("build-smem", config=path.split("/")[-1].removesuffix(".json"), shape=name,
+                dh=dh, rel_width=d, fwd_bytes=fwd_b, bwd_bytes=bwd_b, limit=RA._SMEM_LIMIT,
+                takes="yes" if takes else "no")
 
     max_err, times = phase_kernel(enc_params)
     max_err_bwd, times_bwd = phase_kernel_bwd(enc_params)
@@ -671,6 +1060,15 @@ def main() -> int:
     phase_train_slice()
     phase_train_learns()
     launches_bwd = phase_train_rate(card_line)
+    t_err, t_err_bwd = phase_t_kernel(t_cfg["encoder_params"])
+    err_rnnt, times_rnnt, err_rnnt_bwd, times_rnnt_bwd = phase_rnnt_kernel(t_cfg)
+    t_launches = phase_t_requests()
+    phase_t_slice()
+    phase_t_rate(card_line)
+    phase_t_train_slice()
+    phase_t_train_learns()
+    rnnt_fwd, rnnt_bwd, t_fwd, t_bwd = phase_t_train_rate(card_line)
+    check(t_launches > 0 and t_fwd > 0 and t_bwd > 0, "the Transducer paths missed a kernel")
     if opts.profile:
         phase_profile()
 
@@ -681,11 +1079,16 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry(RA.KERNEL, "efficientconformer_torch/csrc/rel_attention_fwd.cu",
-              "efficientconformer_tpu/ops/pallas_rel_attention.py:122", launches, max_err,
-              times),
+              "efficientconformer_tpu/ops/pallas_rel_attention.py:122", launches,
+              max(max_err, t_err), times),
         entry(RA.KERNEL_BWD, "efficientconformer_torch/csrc/rel_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:139", launches_bwd,
-              max_err_bwd, times_bwd),
+              max(max_err_bwd, t_err_bwd), times_bwd),
+        entry(RL.KERNEL_FWD, "efficientconformer_torch/csrc/rnnt_fwd.cu",
+              "efficientconformer_tpu/ops/pallas_rnnt.py:73", rnnt_fwd, err_rnnt, times_rnnt),
+        entry(RL.KERNEL_BWD, "efficientconformer_torch/csrc/rnnt_bwd.cu",
+              "efficientconformer_tpu/ops/pallas_rnnt.py:96", rnnt_bwd, err_rnnt_bwd,
+              times_rnnt_bwd),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

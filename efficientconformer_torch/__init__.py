@@ -10,5 +10,8 @@ Ported so far, for the Efficient Conformer CTC models: batched greedy CTC
 inference (models/model_ctc.py:build_model, greedy_decode) and the training
 step (training/trainer.py:Trainer: SpecAugment, dropout, batch-statistics
 BatchNorm, CTC loss, gradient accumulation, torch-semantics Adam under the
-config's schedule, bf16 mixed precision).
+config's schedule, bf16 mixed precision). For the Transducers with an RNN
+prediction network: batched greedy decoding (models/transducer.py:
+build_model, greedy_decode) and the same training step with the RNN-T loss
+and variational noise.
 """

@@ -1,4 +1,4 @@
-"""Per-block encoder configuration.
+"""Per-block encoder configuration, and the port's default device.
 
 The same resolution of the reference JSON schema as
 efficientconformer_tpu/config.py (``resolve_block_configs``,
@@ -12,6 +12,16 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Any, Optional, Sequence
+
+import torch
+
+
+def default_device() -> torch.device:
+    """The card: the port's entry points run there unless the caller names
+    another device, and raise without one rather than move to the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
 @dataclasses.dataclass(frozen=True)

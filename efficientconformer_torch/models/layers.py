@@ -4,8 +4,14 @@ Counterpart of efficientconformer_tpu/models/layers.py. Parameters are kept
 in fp32 and cast to the activation dtype at each use, as the JAX package
 does under its bf16 policy. LayerNorm and BatchNorm compute in fp32 and cast
 their output back to the input dtype. Dropout draws from an explicit
-generator. Variational noise (the JAX package's ``vn_std``) is not ported:
-models/factory.py refuses a config that sets it.
+generator.
+
+Variational noise (the JAX package's ``vn_std``, layers.py:40-46): a Linear,
+Embedding or LSTM built with ``vn_std`` uses its weights as
+w + vn_std * N(0, 1) while a draw is set on it. ``draw_variational_noise_``
+sets one draw from an explicit generator on every such layer of a module,
+``clear_variational_noise_`` removes it; the trainer draws once per optimizer
+step, so every microbatch of the step sees the same noise. Biases get none.
 
 The layers subclass torch's own, so parameter names and layouts are the
 original PyTorch repo's (``weight`` (out, in[, k...]), ``bias``,
@@ -15,6 +21,7 @@ original PyTorch repo's (``weight`` (out, in[, k...]), ``bias``,
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -57,9 +64,106 @@ def _cast(p, x):
     return None if p is None else p.to(x.dtype)
 
 
-class Linear(nn.Linear):
+class VariationalNoise:
+    """Mixin of the layers that take variational noise on the weights named
+    in ``vn_weights``."""
+
+    vn_std: Optional[float] = None
+    vn_noise: Optional[dict] = None     # weight name -> N(0, 1) draw, while set
+
+    def vn_weights(self) -> tuple:
+        return ("weight",)
+
+    def noisy(self, name: str) -> torch.Tensor:
+        w = getattr(self, name)
+        if self.vn_noise is None:
+            return w
+        return w + self.vn_std * self.vn_noise[name]
+
+
+def draw_variational_noise_(module: nn.Module, generator: torch.Generator) -> None:
+    """One N(0, 1) draw from ``generator`` (on the weights' device) for every
+    weight of every layer of ``module`` built with a ``vn_std``."""
+    for m in module.modules():
+        if isinstance(m, VariationalNoise) and m.vn_std:
+            m.vn_noise = {name: torch.randn(getattr(m, name).shape, generator=generator,
+                                            device=getattr(m, name).device)
+                          for name in m.vn_weights()}
+
+
+def clear_variational_noise_(module: nn.Module) -> None:
+    for m in module.modules():
+        if isinstance(m, VariationalNoise):
+            m.vn_noise = None
+
+
+class Linear(VariationalNoise, nn.Linear):
+    def __init__(self, in_features: int, out_features: int, vn_std: Optional[float] = None):
+        super().__init__(in_features, out_features)
+        self.vn_std = vn_std
+
     def forward(self, x):
-        return F.linear(x, _cast(self.weight, x), _cast(self.bias, x))
+        return F.linear(x, _cast(self.noisy("weight"), x), _cast(self.bias, x))
+
+
+class Embedding(VariationalNoise, nn.Embedding):
+    """Token embedding whose id 0 embeds to zeros, by a mask on the output
+    (layers.py:188-196): the table's row 0 is a drawn row like any other, so
+    ``padding_idx`` (which pins the row at zero) would not give the JAX
+    package's output from the same table."""
+
+    def __init__(self, num_embeddings: int, features: int, vn_std: Optional[float] = None):
+        super().__init__(num_embeddings, features)
+        self.vn_std = vn_std
+
+    def forward(self, ids):
+        y = F.embedding(ids, self.noisy("weight"))
+        return y * (ids != 0)[..., None].to(y.dtype)
+
+
+class LSTM(VariationalNoise, nn.LSTM):
+    """Unidirectional multi-layer LSTM over (B, T, D), torch gate order
+    (i, f, g, o), two biases per layer (layers.py:199-264). The weights are
+    cast to the activation dtype at each call, and carry variational noise
+    on w_ih and w_hh. The carry (h, c) is (num_layers, B, H) each, in the
+    activation dtype.
+
+    Computed by ``torch.lstm``, the function under ``nn.LSTM``, which on
+    the card is cuDNN's LSTM (the JAX package's ``lax.scan`` is no Pallas
+    kernel, so this is no kernel of the port). In fp32 its result is the
+    scan's up to the order of the sums. In bf16 cuDNN takes bf16 inputs,
+    weights and states and computes the gate sums and the cell update in
+    fp32 (its kernels are elemWiseRNNcell<bf16, bf16, float> on an H100),
+    where the JAX package's scan rounds the gate sums to bf16 as well. The
+    weights passed per call are not one flat buffer, so cuDNN copies them
+    into one at each call (and warns once)."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
+                 vn_std: Optional[float] = None):
+        super().__init__(input_size, hidden_size, num_layers, batch_first=True)
+        self.vn_std = vn_std
+
+    def vn_weights(self) -> tuple:
+        return tuple(f"weight_{w}_l{i}" for i in range(self.num_layers) for w in ("ih", "hh"))
+
+    def init_carry(self, batch: int, device, dtype=torch.float32):
+        shape = (self.num_layers, batch, self.hidden_size)
+        return (torch.zeros(shape, device=device, dtype=dtype),
+                torch.zeros(shape, device=device, dtype=dtype))
+
+    def forward(self, x, carry=None):
+        """x (B, T, D) -> (out (B, T, H), (h, c))."""
+        if carry is None:
+            carry = self.init_carry(x.shape[0], x.device, x.dtype)
+        weights = []
+        for i in range(self.num_layers):
+            weights += [self.noisy(f"weight_ih_l{i}"), self.noisy(f"weight_hh_l{i}"),
+                        getattr(self, f"bias_ih_l{i}"), getattr(self, f"bias_hh_l{i}")]
+        weights = [w.to(x.dtype) for w in weights]
+        h, c = (s.to(x.dtype) for s in carry)
+        out, h, c = torch.lstm(x, (h, c), weights, True, self.num_layers, 0.0, self.training,
+                               False, True)
+        return out, (h, c)
 
 
 class Conv1d(nn.Conv1d):
@@ -145,10 +249,12 @@ class Dropout(nn.Module):
         return x * keep / (1.0 - self.p)
 
 
-def init_uniform_(module: nn.Module, generator: torch.Generator) -> None:
-    """torch-default init of every Linear and Conv in ``module`` from
-    ``generator``: weight and bias uniform in +-1/sqrt(fan_in), the
-    distribution of models/layers.py in the JAX package."""
+def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
+    """torch-default init of every Linear, Conv, Embedding and LSTM in
+    ``module`` from ``generator``, the distributions of models/layers.py in
+    the JAX package: Linear and Conv weight and bias uniform in
+    +-1/sqrt(fan_in), LSTM weights and biases uniform in +-1/sqrt(H),
+    embedding tables N(0, 1)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
@@ -156,3 +262,9 @@ def init_uniform_(module: nn.Module, generator: torch.Generator) -> None:
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if m.bias is not None:
                     m.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, nn.LSTM):
+                bound = 1.0 / math.sqrt(m.hidden_size)
+                for p in m.parameters():
+                    p.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(generator=generator)

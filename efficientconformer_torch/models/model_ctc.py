@@ -13,7 +13,7 @@ from torch import nn
 from efficientconformer_torch.config import load_config
 from efficientconformer_torch.models.attentions import MultiHeadSelfAttention
 from efficientconformer_torch.models.encoders import ConformerEncoder
-from efficientconformer_torch.models.layers import Linear, init_uniform_
+from efficientconformer_torch.models.layers import Linear, init_weights_
 
 
 class ModelCTC(nn.Module):
@@ -37,7 +37,8 @@ def build_model(config_path: str, device, dtype: torch.dtype,
     ``generator`` (a CPU generator) with the torch-default distributions."""
     cfg = load_config(config_path)
     if cfg["model_type"] != "CTC":
-        raise NotImplementedError(f"{cfg['model_type']} models: ROADMAP Queue 1 items 9-11")
+        raise ValueError(f"{config_path} is a {cfg['model_type']} config (a Transducer's "
+                         "build_model is in models/transducer.py)")
     enc_params = dict(cfg["encoder_params"])
     if dtype != torch.float32:
         enc_params["compute_dtype"] = str(dtype).removeprefix("torch.")
@@ -47,9 +48,9 @@ def build_model(config_path: str, device, dtype: torch.dtype,
 
 
 def init_params_(model: nn.Module, generator: torch.Generator) -> None:
-    """Draw every Linear/Conv weight and bias and the rel-pos biases u, v
-    from ``generator``, in module order."""
-    init_uniform_(model, generator)
+    """Draw every Linear/Conv/Embedding/LSTM parameter and the rel-pos
+    biases u, v from ``generator``, in module order."""
+    init_weights_(model, generator)
     for m in model.modules():
         if isinstance(m, MultiHeadSelfAttention):
             m.init_rel_biases_(generator)

@@ -1,4 +1,4 @@
-"""Trainer: the training step of the CTC models.
+"""Trainer: the training step of the CTC and Transducer models.
 
 Counterpart of the train step of efficientconformer_tpu/training/trainer.py
 (``Trainer.train_step_fn``, ``fit``): one optimizer update per batch of A
@@ -9,13 +9,15 @@ averaged over the A microbatches and the reported loss is their mean loss.
 ``freeze_encoder`` (while step <= ``encoder_frozen_steps``) zeroes the
 encoder's gradients and its updates: the optimizer still advances its
 moments (with the weight-decay term, as optax does), and the encoder's
-weights are put back after the step.
+weights are put back after the step. From ``vn_start_step`` on, variational
+noise is drawn once per step, before the first microbatch, and every
+microbatch of the step sees that draw (trainer.py:130-134, :263-266).
 
 The device is explicit and defaults to the card: without a GPU the default
-raises, and the trainer never moves to the CPU on its own. Dropout and
-SpecAugment draw from an explicit ``torch.Generator`` on that device.
-Checkpoints, SWA, data loaders and the CLI are not ported (ROADMAP Queue 1
-items 8 and 13).
+raises, and the trainer never moves to the CPU on its own. Dropout,
+SpecAugment and the variational noise draw from an explicit
+``torch.Generator`` on that device. Checkpoints, SWA, data loaders and the
+CLI are not ported (ROADMAP Queue 1 items 8 and 13).
 """
 
 from __future__ import annotations
@@ -26,15 +28,13 @@ from typing import Iterable, Optional, Union
 import numpy as np
 import torch
 
-from efficientconformer_torch.config import encoder_output_frames, load_config
+from efficientconformer_torch.config import default_device, encoder_output_frames, load_config
 from efficientconformer_torch.models import factory
+from efficientconformer_torch.models.layers import (
+    clear_variational_noise_,
+    draw_variational_noise_,
+)
 from efficientconformer_torch.training import optimizers
-
-
-def default_device() -> torch.device:
-    if not torch.cuda.is_available():
-        raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
-    return torch.device("cuda")
 
 
 class Trainer:
@@ -45,8 +45,6 @@ class Trainer:
                  generator: Optional[torch.Generator] = None):
         self.config = load_config(config) if isinstance(config, str) else config
         tp = self.config["training_params"]
-        if tp.get("vn_start_step") is not None:
-            raise NotImplementedError("variational noise (vn_start_step): ROADMAP Queue 1 item 8")
         self.device = torch.device(device) if device is not None else default_device()
         self.model, self.loss_fn = factory.create_model(
             self.config, self.device, torch.Generator().manual_seed(seed))
@@ -55,6 +53,7 @@ class Trainer:
         self.generator = generator if generator is not None else torch.Generator(
             device=self.device).manual_seed(seed + 1)
         self.encoder_frozen_steps = tp.get("encoder_frozen_steps")
+        self.vn_start_step = tp.get("vn_start_step")
         self.step = 0
 
     def train_step(self, batch: dict, freeze_encoder: Optional[bool] = None):
@@ -65,7 +64,7 @@ class Trainer:
 
         The lengths are read on the host once, at the start of the step: the
         encoder's output lengths follow from them by the config's arithmetic,
-        so the CTC loss gets host lengths and copies none back from the
+        so the loss gets host lengths and copies none back from the
         device."""
         if freeze_encoder is None:
             freeze_encoder = (self.encoder_frozen_steps is not None
@@ -82,16 +81,21 @@ class Trainer:
         accum = batch["audio"].shape[0]
         model.train()
         opt.zero_grad(set_to_none=True)
+        if self.vn_start_step is not None and self.step >= self.vn_start_step:
+            draw_variational_noise_(model, self.generator)
         total = torch.zeros((), device=self.device)
-        for a in range(accum):
-            mb = {"audio": batch["audio"][a].to(self.device, non_blocking=True),
-                  "audio_len": audio_len_dev[a],
-                  "labels": batch["labels"][a].to(self.device, non_blocking=True),
-                  "label_len": label_len[a]}
-            logits, _ = factory.apply_model(model, mb, True, self.generator)
-            loss = self.loss_fn((logits, logit_len[a]), mb)
-            (loss / accum).backward()
-            total += loss.detach()
+        try:
+            for a in range(accum):
+                mb = {"audio": batch["audio"][a].to(self.device, non_blocking=True),
+                      "audio_len": audio_len_dev[a],
+                      "labels": batch["labels"][a].to(self.device, non_blocking=True),
+                      "label_len": label_len[a]}
+                logits, _ = factory.apply_model(model, mb, True, self.generator)
+                loss = self.loss_fn((logits, logit_len[a]), mb)
+                (loss / accum).backward()
+                total += loss.detach()
+        finally:
+            clear_variational_noise_(model)
 
         params = list(model.parameters())
         for p in params:

@@ -1,11 +1,14 @@
 """Weights carried between the JAX package and the port.
 
 The port's ``state_dict`` has the original PyTorch repo's keys and layouts
-(``encoder.blocks.N.feed_forward_module1.layers.1.weight``, ...), so the JAX
-package's ``utils/torch_compat.convert_ctc(port.state_dict())`` is the
-port -> JAX map, and published reference checkpoints load into the port
-directly. ``from_jax`` is its inverse: the JAX ``{"params", "batch_stats"}``
-tree of a ModelCTC (numpy or array leaves) -> a state dict the port loads.
+(``encoder.blocks.N.feed_forward_module1.layers.1.weight``,
+``decoder.embedding.weight``, ``decoder.rnn.weight_ih_l0``,
+``joint_network.linear_encoder.weight``, ...), so the JAX package's
+``utils/torch_compat.convert_ctc`` / ``convert_transducer(port.state_dict())``
+is the port -> JAX map, and published reference checkpoints load into the
+port directly. ``from_jax`` is its inverse: the JAX ``{"params",
+"batch_stats"}`` tree of a ModelCTC or a Transducer (numpy or array leaves)
+-> a state dict the port loads.
 ``load_adam_state`` carries optimizer state across too: the optax Adam
 moments (``mu``, ``nu``, trees shaped like the params) and ``count`` become
 ``torch.optim.Adam`` state, through the same layout map (moments are
@@ -13,6 +16,8 @@ elementwise, so they transpose with their parameters).
 
 Layouts, JAX -> torch:
   Dense kernel (in, out)                  -> Linear weight (out, in)
+  LSTM w_ih_lN / w_hh_lN (in, 4H)         -> rnn.weight_ih_lN / weight_hh_lN (4H, in)
+  Embedding table (V, D)                  -> embedding.weight (V, D)
   pointwise Dense kernel (in, out)        -> Conv1d weight (out, in, 1)
   Conv1d kernel (k, in/g, out)            -> Conv1d weight (out, in/g, k)
   Conv2d kernel (k_time, k_mel, in, out)  -> Conv2d weight (out, in, k_mel, k_time)
@@ -67,13 +72,14 @@ def _indexed(tree, prefix: str) -> list:
 
 
 def from_jax(variables) -> dict[str, torch.Tensor]:
-    """JAX ModelCTC variables -> port ``state_dict`` (fp32, CPU tensors)."""
+    """JAX ModelCTC or Transducer variables -> port ``state_dict`` (fp32, CPU
+    tensors)."""
     return _state_dict(variables["params"], variables.get("batch_stats", {}))
 
 
 def params_from_jax(params) -> dict[str, torch.Tensor]:
-    """A tree shaped like the JAX ModelCTC params -> the port's parameters
-    by name (no BatchNorm statistics)."""
+    """A tree shaped like the JAX ModelCTC or Transducer params -> the
+    port's parameters by name (no BatchNorm statistics)."""
     return _state_dict(params, None)
 
 
@@ -125,14 +131,25 @@ def _state_dict(params, stats) -> dict[str, torch.Tensor]:
             _conv1d(sd, f"{key}.conv_res.1", blk["conv_res"])
         _norm(sd, f"{key}.norm", blk["norm"])
 
-    _dense(sd, "fc", params["fc"])
+    if "fc" in params:
+        _dense(sd, "fc", params["fc"])
+    if "decoder" in params:
+        dec = params["decoder"]
+        sd["decoder.embedding.weight"] = _np(dec["embedding"]["embedding"])
+        for name, val in dec["rnn"].items():
+            kind, which, layer = re.fullmatch(r"([wb])_(ih|hh)_l(\d+)", name).groups()
+            key = f"decoder.rnn.{'weight' if kind == 'w' else 'bias'}_{which}_l{layer}"
+            sd[key] = _np(val).T if kind == "w" else _np(val)
+        for name, p in params["joint_network"].items():
+            _dense(sd, f"joint_network.{name}", p)
     return {k: torch.as_tensor(np.array(v, order="C")) for k, v in sd.items()}
 
 
 def load_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module, mu, nu, count) -> None:
     """Set ``optimizer``'s state for ``model``'s parameters from the JAX
     package's optax Adam state: ``mu`` and ``nu`` (trees shaped like the
-    ModelCTC params, numpy leaves) and ``count`` (updates taken so far)."""
+    ModelCTC or Transducer params, numpy leaves) and ``count`` (updates
+    taken so far)."""
     mu_sd, nu_sd = params_from_jax(mu), params_from_jax(nu)
     for name, p in model.named_parameters():
         optimizer.state[p] = {

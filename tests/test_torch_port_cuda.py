@@ -1,4 +1,6 @@
-"""The port's CUDA kernels vs their plain PyTorch versions, on the card.
+"""The port's CUDA kernels vs their plain PyTorch versions, on the card:
+the rel-pos attention forward and backward, and the RNN-T lattice forward
+and backward.
 
 Every test here needs a CUDA device and skips without one. This file imports
 neither JAX nor the JAX package, so on a machine without JAX it runs with
@@ -15,6 +17,7 @@ import torch
 
 from efficientconformer_torch.ops import rel_attention as RA
 from efficientconformer_torch.ops import rel_factorize as RF
+from efficientconformer_torch.ops import rnnt_loss as RL
 from efficientconformer_torch.ops.attention import NEG_INF
 
 FP32_TOL = 1e-4   # fp32 on both sides, summation order only
@@ -53,8 +56,11 @@ def inputs(device, b, h, n, d, g, bias_b, seed=0):
 @pytest.mark.parametrize("n,d,h,g,bias_b", [
     (37, 24, 2, 1, 3), (37, 24, 2, 3, 3), (65, 40, 4, 1, 1), (130, 48, 2, 3, 0),
     (1, 16, 2, 1, 3), (200, 240, 4, 1, 3),
+    (267, 100, 4, 3, 3), (401, 140, 4, 1, 3), (201, 200, 4, 1, 3),
 ])
 def test_kernel_matches_plain_version(cuda, n, d, h, g, bias_b):
+    """The last three cases are Transducer Small's 16 s stage shapes: head
+    widths 75, 35 and 50 (two of them odd), rel widths 100, 140, 200."""
     args = inputs(cuda, 3, h, n, d, g, bias_b, seed=n)
     RA.relpos_attention.launches = 0
     o, lse = RA.relpos_attention(*args)
@@ -132,11 +138,12 @@ def bwd_case(device, b, h, n, d, g, bias_b, seed, dtype=torch.float32):
 @pytest.mark.parametrize("n,d,h,g,bias_b", [
     (37, 24, 2, 1, 3), (37, 24, 2, 3, 3), (65, 40, 4, 1, 1), (130, 48, 2, 3, 0),
     (1, 16, 2, 1, 3), (267, 120, 4, 3, 3), (401, 168, 4, 1, 3), (201, 240, 4, 1, 3),
+    (267, 100, 4, 3, 3), (401, 140, 4, 1, 3), (201, 200, 4, 1, 3),
 ])
 def test_backward_kernel_matches_plain_version(cuda, n, d, h, g, bias_b):
     """fp32: the kernel's six gradients vs reference_relpos_attention_bwd on
-    the same o, LSE and dO (the last three cases are the 16 s stage shapes
-    of the flagship). bf16: the same on bf16-rounded inputs, the kernel's
+    the same o, LSE and dO (the last six cases are the 16 s stage shapes of
+    the flagship and of Transducer Small). bf16: the same on bf16-rounded inputs, the kernel's
     token gradients rounded to bf16."""
     args, o, lse, do = bwd_case(cuda, 3, h, n, d, g, bias_b, seed=n)
     RA.relpos_attention_bwd.launches = 0
@@ -195,3 +202,83 @@ def test_autograd_through_both_kernels(cuda, bias_b):
         grads.append([leaves[i].grad for i in (0, 1, 2, 3, 4, 7) if leaves[i] is not None])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * max(1.0, want.abs().max().item()))
+
+
+# ------------------------------------------------------------ RNN-T lattice
+
+RNNT_LOSS_RTOL = 1e-5   # the same fp32 recursion in the same order on both sides
+RNNT_GRAD_TOL = 1e-5    # gradients are probabilities, at most 1
+
+
+def rnnt_case(device, b, t, u1, seed):
+    """Gathered log-probs of about the size a 1000-token vocabulary gives,
+    ragged lengths with f_len = T, y_len = 0 and y_len = U among them."""
+    gen = torch.Generator().manual_seed(seed)
+    lp = (torch.randn(b, t, u1, 3, generator=gen) * 2).log_softmax(-1) - math.log(333.0)
+    f_len = torch.linspace(t, max(t // 3, 1), b).round().int()
+    y_len = torch.linspace(0, u1 - 1, b).round().int().flip(0)
+    y_len[-1] = 0
+    return (lp[..., 0].contiguous().to(device), lp[..., 1].contiguous().to(device),
+            f_len.to(device), y_len.to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,u1", [(16, 201, 91), (4, 60, 150), (3, 1, 5), (2, 7, 1),
+                                    (5, 33, 300)])
+def test_rnnt_kernels_match_plain_versions(cuda, b, t, u1):
+    """Alphas and loss of the forward kernel, both gradients of the backward
+    kernel on the same alphas, vs reference_rnnt_alphas / _grads on the
+    card; exact zeros outside each utterance's lattice. (16, 201, 91) is the
+    Transducer's training shape; U+1 = 150 and 300 take more than 128
+    threads a block."""
+    blank, emit, f_len, y_len = rnnt_case(cuda, b, t, u1, seed=t + u1)
+    RL.rnnt_alphas.launches = RL.rnnt_grads.launches = 0
+    alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
+    want_alphas = RL.reference_rnnt_alphas(blank, emit)
+    want_loss = RL.loss_from_alphas(want_alphas, blank, f_len, y_len)
+    torch.testing.assert_close(alphas, want_alphas, rtol=RNNT_LOSS_RTOL, atol=RNNT_GRAD_TOL)
+    torch.testing.assert_close(loss, want_loss, rtol=RNNT_LOSS_RTOL, atol=0)
+    got = RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+    want = RL.reference_rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+    assert RL.rnnt_alphas.launches == 1 and RL.rnnt_grads.launches == 1
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=0, atol=RNNT_GRAD_TOL)
+        for i in range(b):
+            f, y = int(f_len[i]), int(y_len[i])
+            assert (g_[i, f:] == 0).all() and (g_[i, :, y + 1:] == 0).all()
+    torch.testing.assert_close(got[0][torch.arange(b), f_len.long() - 1, y_len.long()],
+                               torch.ones(b, device=cuda), rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_rnnt_loss_through_both_kernels(cuda):
+    """rnnt_loss from bf16 logits and its logit gradients, kernels vs the
+    plain versions (the wrappers' CPU path) on the same inputs."""
+    gen = torch.Generator().manual_seed(1)
+    b, t, u, v = 4, 40, 12, 50
+    logits = torch.randn(b, t, u + 1, v, generator=gen).bfloat16()
+    labels = torch.randint(1, v, (b, u), generator=gen)
+    f_len, y_len = torch.tensor([40, 31, 20, 9]), torch.tensor([12, 0, 7, 3])
+    w = torch.tensor([1.0, 0.5, 2.0, 1.5])
+    out = []
+    for device in (cuda, "cpu"):
+        lg = logits.to(device).requires_grad_(True)
+        RL.rnnt_alphas.launches = RL.rnnt_grads.launches = 0
+        loss = RL.rnnt_loss(lg, labels.to(device), f_len, y_len)
+        (loss * w.to(device)).sum().backward()
+        launched = 1 if device == cuda else 0
+        assert RL.rnnt_alphas.launches == launched and RL.rnnt_grads.launches == launched
+        out.append((loss.detach().cpu(), lg.grad.float().cpu()))
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=RNNT_LOSS_RTOL, atol=0)
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=0, atol=2e-2)   # bf16 gradient
+
+
+@pytest.mark.gpu
+def test_rnnt_kernels_refuse_what_they_do_not_take(cuda):
+    blank, emit, f_len, y_len = rnnt_case(cuda, 2, 5, 4, seed=0)
+    with pytest.raises(ValueError, match="emit"):
+        RL.rnnt_alphas(blank, emit[:, :, :3], f_len, y_len)
+    wide = torch.zeros(1, 2, RL.MAX_U1 + 1, device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="label positions"):
+        RL.rnnt_alphas(wide, wide, one, one)

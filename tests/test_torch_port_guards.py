@@ -1,5 +1,6 @@
 """Guards of the PyTorch port: the weight bridge round trip, that the port
-runs without JAX, and that chip_smoke.py has no CPU fallback."""
+runs without JAX, that its entry points default to the card and never fall
+back to the CPU, and that chip_smoke.py has no CPU fallback."""
 
 import os
 import shutil
@@ -16,6 +17,8 @@ from efficientconformer_torch.models.model_ctc import ModelCTC, build_model
 from efficientconformer_torch.ops import rel_attention as RA
 from efficientconformer_torch.utils.weights import from_jax
 from test_torch_port_model import FLAGSHIP, narrow_flagship, port_model
+
+TRANSDUCER = "configs/EfficientConformerTransducerSmall.json"
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -62,8 +65,8 @@ def test_weight_bridge_loads_into_a_fresh_model():
 
 
 def test_port_runs_without_jax():
-    """Greedy decoding and one train step of the port in a fresh process load
-    no module of JAX, flax or the JAX package."""
+    """Greedy decoding and one train step of the port, CTC and Transducer,
+    in a fresh process load no module of JAX, flax or the JAX package."""
     code = textwrap.dedent(f"""
         import json, sys
         import torch
@@ -80,21 +83,38 @@ def test_port_runs_without_jax():
             cfg = json.load(f)
         cfg["encoder_params"] = p
         cfg["tokenizer_params"]["vocab_size"] = 16
+        batch = {{"audio": torch.randn(2, 2, 8000), "audio_len": torch.tensor([[8000, 5000]] * 2),
+                  "labels": torch.tensor([[[3, 4], [5, 0]]] * 2),
+                  "label_len": torch.tensor([[2, 1]] * 2)}}
         trainer = Trainer(cfg, device="cpu")
-        loss, grad_norm = trainer.train_step({{
-            "audio": torch.randn(2, 2, 8000), "audio_len": torch.tensor([[8000, 5000]] * 2),
-            "labels": torch.tensor([[[3, 4], [5, 0]]] * 2),
-            "label_len": torch.tensor([[2, 1]] * 2)}})
+        loss, grad_norm = trainer.train_step(batch)
+        assert torch.isfinite(loss) and torch.isfinite(grad_norm)
+
+        from efficientconformer_torch.models import transducer as T
+        with open({TRANSDUCER!r}) as f:
+            tcfg = json.load(f)
+        tcfg["encoder_params"] = p
+        tcfg["decoder_params"].update(dim_model=16, vocab_size=16)
+        tcfg["joint_params"].update(dim_model=12)
+        tcfg["tokenizer_params"]["vocab_size"] = 16
+        tmodel = T.Transducer(p, tcfg["decoder_params"], tcfg["joint_params"], 16)
+        init_params_(tmodel, torch.Generator().manual_seed(0))
+        cap = T.greedy_token_cap(p, 8000, 5)
+        ttokens, tcounts = T.greedy_decode(tmodel.eval(), torch.randn(2, 8000),
+                                           torch.tensor([8000, 5000]), cap)
+        tcfg["training_params"].update(vn_start_step=0)
+        trainer = Trainer(tcfg, device="cpu")
+        loss, grad_norm = trainer.train_step(batch)
         assert torch.isfinite(loss) and torch.isfinite(grad_norm)
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "jaxlib", "flax",
                                                        "efficientconformer_tpu")))
-        print("LOADED", loaded, tuple(tokens.shape))
+        print("LOADED", loaded, tuple(tokens.shape), tuple(ttokens.shape))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "LOADED [] (2, 13)" in out.stdout, out.stdout
+    assert "LOADED [] (2, 13) (2, 96)" in out.stdout, out.stdout
 
 
 def run_chip_smoke(cwd):
@@ -131,3 +151,13 @@ def test_trainer_defaults_to_the_card_and_raises_without_one(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(FLAGSHIP)
+
+
+def test_transducer_build_model_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    from efficientconformer_torch.models import transducer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transducer.build_model(TRANSDUCER)
+    with pytest.raises(ValueError, match="CTC config"):
+        transducer.build_model(FLAGSHIP, "cpu")

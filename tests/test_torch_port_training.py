@@ -384,10 +384,15 @@ def test_optimizer_matches_optax_from_the_same_state(opt):
 
 
 def test_unported_training_options_raise():
-    cfg = train_config(vn_std=0.075, vn_start_step=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, device="cpu")
+    """remat and the InterCTC and LM model types raise with their ROADMAP
+    items. Variational noise is ported, for the Transducer: a CTC model
+    takes none, as in the JAX package, whose ModelCTC has no vn_std."""
     cfg = copy.deepcopy(train_config())
     cfg["encoder_params"]["remat"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu")
+    for mtype in ("InterCTC", "LM"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(dict(train_config(), model_type=mtype), device="cpu")
+    trainer = Trainer(train_config(vn_std=0.075, vn_start_step=0), device="cpu")
+    assert all(getattr(m, "vn_std", None) is None for m in trainer.model.modules())
