@@ -3,16 +3,17 @@
 
     python3 chip_smoke.py [--profile]
 
-Drives the port's four paths at full width with seeded random weights: the
+Drives the port's six paths at full width with seeded random weights: the
 flagship configs/EfficientConformerCTCSmall.json (batched greedy CTC
-inference, the CTC training step) and configs/EfficientConformerTransducer
+inference, the CTC training step), configs/EfficientConformerTransducer
 Small.json (batched greedy Transducer decoding, the Transducer training
-step), each with its config's own training_params. Holds every hand-written
-kernel on those paths to its plain PyTorch version on the card. Phases, one
-line each; any failure exits non-zero:
+step) and configs/LM-Transformer.json (scoring: eval loss and perplexity;
+the LM training step), each with its config's own training_params. Holds
+every hand-written kernel on those paths to its plain PyTorch version on
+the card. Phases, one line each; any failure exits non-zero:
 
   1. device     CUDA present; card name and power limit; TF32 off
-  2. build      all four kernels, from the sources in this checkout, one
+  2. build      all six kernels, from the sources in this checkout, one
                 nvcc each, started together; ptxas registers, spills; the
                 rel-pos kernels' shared memory at both models' stage shapes
   3. kernel     the rel-pos forward kernel vs its plain version at the CTC
@@ -56,6 +57,24 @@ line each; any failure exits non-zero:
                 90-token labels, bf16: ms per step, audio-s/s, peak memory,
                 launches per step (4 / 4 RNN-T, 60 / 60 rel-pos); one more
                 step with variational noise on
+ 19. lm-kernel  both bias-attention kernels vs their plain versions, fp32 and
+                bf16: at the LM's shape (B 8, H 12, N 101, dh 64) with its
+                causal + padding + rel-pos bias and ragged lengths; a
+                (B, 1, Nq, Nk) and a (1, H, Nq, Nk) bias, a key mask,
+                dqk 90 / dv 70 at N 130, one fully masked row; then both
+                timed at B 64, bf16, beside the plain versions, the bound and
+                scaled_dot_product_attention
+ 20. lm-slice   full-width fp32 LM-Transformer logits of 8 ragged sequences
+                (10-100 tokens) through the kernel vs the plain version on
+                the card, and vs the CPU; 12 forward launches
+ 21. lm-score-rate  eval loss and perplexity of 64 x 100 tokens (+ the
+                blank) in bf16: ms per batch, tokens/s, 12 launches a batch
+ 22. lm-train-slice  one fp32 LM step (2 x 4 ragged sequences, dropout 0),
+                kernels vs plain versions on the card and vs the CPU
+ 23. lm-train-learns  30 LM steps on one batch: the loss falls
+ 24. lm-train-rate  the LM config's own step, 5 x 64 x 100 tokens, bf16,
+                dropout 0.1: ms per step, tokens/s, peak memory, launches per
+                step (60 / 60), model FLOPs over the bf16 peak
 
 Then one JSON line with each kernel's launches, error, times and bound, and
 last {"ok": true, "device": {...}}. With --profile it also prints a
@@ -83,6 +102,7 @@ import torch.nn.functional as F
 
 CONFIG = "configs/EfficientConformerCTCSmall.json"
 T_CONFIG = "configs/EfficientConformerTransducerSmall.json"
+LM_CONFIG = "configs/LM-Transformer.json"
 SEED = 0
 SAMPLE_RATE = 16000
 REQUEST_SECONDS = (2.5, 6.0, 10.0)
@@ -109,6 +129,9 @@ T_RATE_BATCH = 16
 RNNT_LOSS_RTOL = 1e-5        # RNN-T kernels vs plain: the same fp32 recursion, same order
 RNNT_GRAD_TOL = 1e-5         # their gradients are probabilities, at most 1
 RNNT_WIDE = (4, 60, 150)     # (B, T, U+1) with U+1 > 128: more than 128 threads a block
+LM_CHECK_BATCH = 8
+LM_TIME_BATCH = 64           # the LM config's batch_size
+LM_SLICE_LENGTHS = (10, 100)  # ragged sequences of 10..100 tokens
 BF16_PEAK = 989e12           # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet, 700 W)
 FP32_PEAK = 67e12            # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s
@@ -518,17 +541,27 @@ def plain_rnnt_alphas(blank_lp, emit_lp, f_len, y_len):
     return alphas, RL.loss_from_alphas(alphas, blank_lp, f_len, y_len)
 
 
+def plain_bias_bwd(q, k, v, bias, o, do, lse, scale, need_dbias=True):
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    return BA.reference_bias_attention_bwd(q, k, v, bias, do, scale)
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """Both directions of the rel-pos attention and of the RNN-T lattice
-    through their plain versions, on whatever device the tensors lie."""
+    """Both directions of the rel-pos attention, of the RNN-T lattice and of
+    the bias attention through their plain versions, on whatever device the
+    tensors lie."""
+    from efficientconformer_torch.ops import bias_attention as BA
     from efficientconformer_torch.ops import rel_attention as RA
     from efficientconformer_torch.ops import rnnt_loss as RL
 
     with mock.patch.object(RA, "relpos_attention_fwd", RA.reference_relpos_attention), \
             mock.patch.object(RA, "relpos_attention_bwd", plain_relpos_bwd), \
             mock.patch.object(RL, "rnnt_alphas", plain_rnnt_alphas), \
-            mock.patch.object(RL, "rnnt_grads", RL.reference_rnnt_grads):
+            mock.patch.object(RL, "rnnt_grads", RL.reference_rnnt_grads), \
+            mock.patch.object(BA, "bias_attention_fwd", BA.reference_bias_attention), \
+            mock.patch.object(BA, "bias_attention_bwd", plain_bias_bwd):
         yield
 
 
@@ -546,8 +579,8 @@ def one_step(cfg, device, batch, plain=False):
 
 
 def rel_diff(got: dict, want: dict) -> float:
-    return max((got[k] - want[k]).abs().max().item() / max(want[k].abs().max().item(), 1.0)
-               for k in want)
+    return max(((got[k] - want[k]).abs().max().item() / max(want[k].abs().max().item(), 1.0)
+                for k in want), default=0.0)
 
 
 def compare_steps(kernel, cfg, batch) -> dict:
@@ -854,11 +887,19 @@ def launch_counts():
 
 
 def reset_launch_counts():
+    from efficientconformer_torch.ops import bias_attention as BA
     from efficientconformer_torch.ops import rel_attention as RA
     from efficientconformer_torch.ops import rnnt_loss as RL
 
     RL.rnnt_alphas.launches = RL.rnnt_grads.launches = 0
     RA.relpos_attention.launches = RA.relpos_attention_bwd.launches = 0
+    BA.bias_attention.launches = BA.bias_attention_bwd.launches = 0
+
+
+def bias_launch_counts():
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    return BA.bias_attention.launches, BA.bias_attention_bwd.launches
 
 
 def phase_t_train_slice():
@@ -946,6 +987,348 @@ def phase_t_train_rate(card_line: str):
     return counts
 
 
+# ---------------------------------------------------------------- LM-Transformer
+
+
+def lm_params() -> dict:
+    from efficientconformer_torch.config import load_config
+
+    return load_config(LM_CONFIG)["lm_params"]
+
+
+def bias_inputs(b, h, nq, nk, dqk, dv, layout, gen, masked_row=False):
+    """(q, k, v, bias, scale) on the card. q, k, v are head-split views of
+    (B, N, H, d) projections, as the attention module passes them. The
+    bias: "causal", the LM's (B, H, N, N) rel-pos scores plus its causal and
+    ragged padding mask; "batch" (B, 1, Nq, Nk) and "head" (1, H, Nq, Nk)
+    broadcasts of such scores; "keymask" (B, 1, 1, Nk). ``masked_row`` masks
+    every key of query row 1 of the first (batch, head)."""
+    from efficientconformer_torch.ops import masks as M
+    from efficientconformer_torch.ops.attention import NEG_INF
+
+    def heads(n, w):
+        return torch.randn(b, n, h, w, generator=gen).cuda().transpose(1, 2)
+
+    q, k, v = heads(nq, dqk), heads(nk, dqk), heads(nk, dv)
+    lengths = torch.linspace(max(nk // 3, 1), nk, b).round().long()
+    shape = {"causal": (b, h, nq, nk), "batch": (b, 1, nq, nk), "head": (1, h, nq, nk),
+             "keymask": (b, 1, 1, nk)}[layout]
+    bias = torch.randn(shape, generator=gen) if layout != "keymask" else torch.zeros(shape)
+    if layout == "causal":
+        bias = bias + M.look_ahead_mask(nq, lengths) * NEG_INF
+    elif layout != "head":
+        bias = bias + M.padding_mask(nk, lengths) * NEG_INF
+    if masked_row:
+        bias[0, 0, 1] = NEG_INF
+    return q, k, v, bias.cuda(), 1.0 / math.sqrt(dqk)
+
+
+def bias_grad_errors(got, want):
+    """max |diff| / max(max|want|, 1) of dq, dk, dv and dS."""
+    return {n: (g.float() - w.float()).abs().max().item() / max(w.abs().max().item(), 1.0)
+            for n, g, w in zip(("dq", "dk", "dv", "ds"), got, want)}
+
+
+def check_bias_case(name, args, gen):
+    """Both bias kernels vs their plain versions on ``args``: fp32 (O, LSE;
+    the four gradients on the same dO), then bf16 on bf16-rounded q, k, v
+    (the plain versions compute in fp32 from the same bf16 inputs, so the
+    difference is the kernels' bf16 outputs, 8 mantissa bits, plus the fp32
+    order; the JAX package's XLA route also rounds P to bf16 before P V,
+    which neither does). The largest fp32 errors, forward and backward."""
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    q, k, v, bias, scale = args
+    o, lse = BA.bias_attention_fwd(*args)
+    want_o, want_lse = BA.reference_bias_attention(*args)
+    do = torch.randn(o.shape, generator=gen).cuda()
+    got = BA.bias_attention_bwd(q, k, v, bias, o, do, lse, scale)
+    want = BA.reference_bias_attention_bwd(q, k, v, bias, do, scale)
+    torch.cuda.synchronize()
+    err_o = (o - want_o).abs().max().item()
+    err_lse = (lse - want_lse).abs().max().item()
+    check(err_o <= KERNEL_FP32_TOL and err_lse <= KERNEL_FP32_TOL,
+          f"{name} fp32: |O| {err_o} |LSE| {err_lse} > {KERNEL_FP32_TOL}")
+    err = bias_grad_errors(got, want)
+    check(max(err.values()) <= GRAD_TOL, f"{name} fp32 backward: {err} > {GRAD_TOL}")
+
+    q16, k16, v16 = (t.to(torch.bfloat16) for t in (q, k, v))
+    o16, lse16 = BA.bias_attention_fwd(q16, k16, v16, bias, scale)
+    want16, _ = BA.reference_bias_attention(q16, k16, v16, bias, scale)
+    err16 = (o16.float() - want16.float()).abs().max().item()
+    check(o16.dtype == torch.bfloat16 and err16 <= KERNEL_BF16_TOL,
+          f"{name} bf16: |O| {err16} > {KERNEL_BF16_TOL}")
+    got16 = BA.bias_attention_bwd(q16, k16, v16, bias, o16, do.bfloat16(), lse16, scale)
+    want16 = BA.reference_bias_attention_bwd(q16, k16, v16, bias, do.bfloat16(), scale)
+    err16b = bias_grad_errors(got16, want16)
+    check(got16[0].dtype == torch.bfloat16 and max(err16b.values()) <= GRAD_BF16_TOL,
+          f"{name} bf16 backward: {err16b} > {GRAD_BF16_TOL}")
+    say("lm-kernel", case=name, B=q.shape[0], H=q.shape[1], Nq=q.shape[2], Nk=k.shape[2],
+        dqk=q.shape[3], dv=v.shape[3], bias=tuple(bias.shape), fp32_err_o=f"{err_o:.3g}",
+        fp32_err_lse=f"{err_lse:.3g}", fp32_bwd_rel_err=f"{max(err.values()):.3g}",
+        bf16_err_o=f"{err16:.3g}", bf16_bwd_rel_err=f"{max(err16b.values()):.3g}")
+    return max(err_o, err_lse), max((a.float() - b.float()).abs().max().item()
+                                    for a, b in zip(got, want))
+
+
+def bias_cost(b, h, nq, nk, dqk, dv, itemsize, backward):
+    """(FLOPs, bytes) of the bias attention: the dense products (forward
+    q k^T and P V; backward the scores again, dP, dv, dq and dk) and each
+    input read once and each output written once: q, k, v, O (and dO, dq,
+    dk, dv) in the input type, the bias and dS in fp32, the LSE in fp64."""
+    qk, ov = b * h * nq * dqk * itemsize, b * h * nq * dv * itemsize
+    kk, vv = b * h * nk * dqk * itemsize, b * h * nk * dv * itemsize
+    scores, lse = b * h * nq * nk * 4, b * h * nq * 8
+    if backward:
+        return (2 * b * h * nq * nk * (3 * dqk + 2 * dv),
+                qk + kk + vv + 2 * ov + scores + lse + qk + kk + vv + scores)
+    return 2 * b * h * nq * nk * (dqk + dv), qk + kk + vv + scores + ov + lse
+
+
+def phase_lm_kernel():
+    """Both bias kernels checked on the LM's shapes and the other bias
+    layouts, then timed at the LM's training shape (B 64, bf16), beside the
+    plain versions, the bound and scaled_dot_product_attention with the same
+    bias as attn_mask (in bf16, the type it takes; forward + backward with
+    the mask requiring a gradient, as the LM's bias does)."""
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    p = lm_params()
+    h, dh, n = p["num_heads"], p["dim_model"] // p["num_heads"], 101
+    gen = torch.Generator().manual_seed(SEED + 10)
+    err_f = err_b = 0.0
+    for name, b, hh, nq, dqk, dv, layout, masked in (
+            ("lm-causal", LM_CHECK_BATCH, h, n, dh, dh, "causal", False),
+            ("batch-bias", LM_CHECK_BATCH, h, n, dh, dh, "batch", False),
+            ("head-bias", LM_CHECK_BATCH, h, n, dh, dh, "head", False),
+            ("keymask", LM_CHECK_BATCH, h, n, dh, dh, "keymask", False),
+            ("dqk90-dv70", 4, 4, 130, 90, 70, "causal", False),
+            ("masked-row", LM_CHECK_BATCH, h, n, dh, dh, "causal", True)):
+        args = bias_inputs(b, hh, nq, nq, dqk, dv, layout, gen, masked)
+        ef, eb = check_bias_case(name, args, gen)
+        err_f, err_b = max(err_f, ef), max(err_b, eb)
+
+    q, k, v, bias, scale = bias_inputs(LM_TIME_BATCH, h, n, n, dh, dh, "causal", gen)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    o, lse = BA.bias_attention_fwd(q, k, v, bias, scale)
+    do = torch.randn(o.shape, generator=gen).to("cuda", torch.bfloat16)
+    mask16 = bias.to(torch.bfloat16)
+    lq, lk, lv, lmask = (t.detach().clone().requires_grad_() for t in (q, k, v, mask16))
+
+    def library_bwd():
+        F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask, scale=scale).backward(do)
+
+    fwd = {"kernel": cuda_ms(lambda: BA.bias_attention_fwd(q, k, v, bias, scale)),
+           "plain": cuda_ms(lambda: BA.reference_bias_attention(q, k, v, bias, scale)),
+           "library": cuda_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=mask16, scale=scale))}
+    bwd = {"kernel": cuda_ms(lambda: BA.bias_attention_bwd(q, k, v, bias, o, do, lse, scale)),
+           "plain": cuda_ms(lambda: BA.reference_bias_attention_bwd(q, k, v, bias, do, scale)),
+           "library": cuda_ms(library_bwd)}
+    check(lmask.grad is not None, "scaled_dot_product_attention gave the mask no gradient")
+    for label, row, backward in (("forward", fwd, False), ("backward", bwd, True)):
+        row["bound"], row["bound_by"] = bound(*bias_cost(LM_TIME_BATCH, h, n, n, dh, dh, 2,
+                                                         backward))
+        say("lm-kernel-time", direction=label, B=LM_TIME_BATCH, H=h, N=n, dh=dh,
+            dtype="bfloat16", bound_by=row["bound_by"],
+            library="sdpa fwd" if not backward else "sdpa fwd+bwd, mask grad",
+            **{f"{k}_ms": f"{v:.4f}" for k, v in row.items() if k != "bound_by"})
+    return err_f, fwd, err_b, bwd
+
+
+def make_lm(device, dtype):
+    """The LM-Transformer at full width and depth, weights from SEED, with
+    non-trivial LayerNorm parameters."""
+    from efficientconformer_torch.models.lm import build_model
+
+    return perturb_norms_(build_model(LM_CONFIG, device, dtype,
+                                      torch.Generator().manual_seed(SEED)))
+
+
+def lm_batch(accum, batch, lengths, device, rng):
+    """Stacked LM microbatches (accum, batch, ...): random tokens in [1, V)
+    of the given lengths, 0 past them; targets the tokens, then 0, then -1
+    (data/loader.py:223-229)."""
+    vocab = lm_params()["vocab_size"]
+    n = np.broadcast_to(np.asarray(lengths, dtype=np.int64), (accum, batch)).copy()
+    u = int(n.max())
+    tokens = rng.integers(1, vocab, (accum, batch, u))
+    past = np.arange(u)[None, None, :] >= n[..., None]
+    tokens[past] = 0
+    targets = np.full((accum, batch, u + 1), -1, np.int64)
+    targets[..., :u] = np.where(past, -1, tokens)
+    np.put_along_axis(targets, n[..., None], 0, axis=-1)
+    return {"tokens": torch.from_numpy(tokens).to(device),
+            "token_len": torch.from_numpy(n).to(device),
+            "targets": torch.from_numpy(targets).to(device)}
+
+
+def phase_lm_slice():
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    model = make_lm("cuda", torch.float32)
+    lengths = np.linspace(*LM_SLICE_LENGTHS, LM_CHECK_BATCH).round().astype(np.int64)
+    mb = {k: v[0] for k, v in lm_batch(1, LM_CHECK_BATCH, lengths, "cuda",
+                                        np.random.default_rng(SEED)).items()}
+    BA.bias_attention.launches = 0
+    with torch.inference_mode():
+        logits_k = model(mb["tokens"], mb["token_len"])
+        torch.cuda.synchronize()
+        launches = BA.bias_attention.launches
+        with plain_kernels():
+            logits_p = model(mb["tokens"], mb["token_len"])
+    n_blocks = lm_params()["num_blocks"]
+    check(launches == n_blocks, f"{launches} bias kernel launches for one forward, "
+          f"expected {n_blocks}")
+    check(bool(torch.isfinite(logits_k).all()), "non-finite LM logits")
+    valid = (torch.arange(logits_k.shape[1], device="cuda")[None, :]
+             <= mb["token_len"][:, None])
+    err = (logits_k - logits_p).abs()[valid].max().item()
+    check(err <= SLICE_TOL, f"kernel vs plain LM logits |diff| {err} > {SLICE_TOL}")
+    cpu_model = make_lm("cpu", torch.float32)
+    with torch.inference_mode():
+        logits_c = cpu_model(mb["tokens"].cpu(), mb["token_len"].cpu())
+    err_cpu = (logits_k.cpu() - logits_c).abs()[valid.cpu()].max().item()
+    agree = (logits_k.cpu().argmax(-1) == logits_c.argmax(-1))[valid.cpu()].float().mean().item()
+    check(err_cpu <= SLICE_TOL, f"card vs CPU LM logits |diff| {err_cpu} > {SLICE_TOL}")
+    check(agree >= SLICE_ARGMAX_AGREEMENT, f"card vs CPU argmax agreement {agree}")
+    say("lm-slice", dtype="float32", logits=tuple(logits_k.shape), lengths=lengths.tolist(),
+        max_abs_diff=f"{err:.3g}", cpu_max_abs_diff=f"{err_cpu:.3g}",
+        cpu_argmax_agreement=f"{agree:.6f}", launches=launches)
+
+
+def lm_score_setup():
+    """The LM config's trainer (bf16, its mixed_precision) and one scoring
+    batch of 64 full-length sequences (100 tokens + the blank)."""
+    from efficientconformer_torch.training.trainer import Trainer
+
+    cfg = train_config(LM_CONFIG)
+    tp = cfg["training_params"]
+    trainer = Trainer(cfg, device="cuda", seed=SEED)
+    batch = lm_batch(1, LM_TIME_BATCH, [tp["train_label_max_length"]], "cuda",
+                     np.random.default_rng(SEED + 11))
+    return trainer, {k: v[0] for k, v in batch.items()}
+
+
+def phase_lm_score_rate(card_line: str):
+    trainer, mb = lm_score_setup()
+    for _ in range(2):
+        trainer.eval_loss(mb)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    loss = trainer.eval_loss(mb)
+    torch.cuda.synchronize()
+    fwd, bwd = bias_launch_counts()
+    n_blocks = lm_params()["num_blocks"]
+    check((fwd, bwd) == (n_blocks, 0), f"bias launches {fwd}/{bwd} for one scoring batch, "
+          f"expected {n_blocks}/0")
+    torch.cuda.reset_peak_memory_stats()
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss = trainer.eval_loss(mb)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    tokens = int((mb["token_len"] + 1).sum())
+    check(math.isfinite(float(loss)), f"eval loss {float(loss)}")
+    say("lm-score-rate", batch=LM_TIME_BATCH, positions=mb["targets"].shape[-1],
+        dtype="bfloat16", ms_per_batch=f"{dt * 1e3:.3f}", tokens_per_s=f"{tokens / dt:.1f}",
+        eval_loss=f"{float(loss):.4f}", perplexity=f"{math.exp(min(float(loss), 30.0)):.2f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", launches=fwd,
+        card=f"'{card_line}'")
+    return fwd
+
+
+def phase_lm_train_slice():
+    cfg = train_config(LM_CONFIG, mixed_precision=False)
+    cfg["lm_params"]["Pdrop"] = 0.0
+    lengths = [[20, 55, 100, 10], [70, 35, 90, 45]]
+    batch = lm_batch(2, 4, lengths, "cpu", np.random.default_rng(SEED + 12))
+    reset_launch_counts()
+    kernel = one_step(cfg, "cuda", batch)
+    torch.cuda.synchronize()
+    counts = bias_launch_counts()
+    n_att = cfg["lm_params"]["num_blocks"] * 2
+    check(counts == (n_att, n_att), f"bias launches (fwd, bwd) {counts}, expected "
+          f"({n_att}, {n_att}) for 2 microbatches")
+    out = compare_steps(kernel, cfg, batch)
+    say("lm-train-slice", dtype="float32", loss=f"{kernel[0]:.6f}", grad_norm=f"{kernel[1]:.6f}",
+        launches=counts, **out)
+
+
+def phase_lm_train_learns():
+    from efficientconformer_torch.training.trainer import Trainer
+
+    lr = train_config(LM_CONFIG)["training_params"]["lr_max"]
+    cfg = train_config(LM_CONFIG, lr_schedule="Constant", lr_value=lr)
+    trainer = Trainer(cfg, device="cuda", seed=SEED)
+    lengths = np.linspace(20, 60, 8).round().astype(np.int64)
+    batch = lm_batch(1, 8, lengths, "cuda", np.random.default_rng(SEED + 13))
+    losses = trainer.fit(itertools.repeat(batch), LEARN_STEPS)
+    check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
+    check(losses[-1] < LEARN_RATIO * losses[0], f"loss {losses[0]} -> {losses[-1]}")
+    say("lm-train-learns", steps=LEARN_STEPS, batch="8x20-60", lr=lr,
+        first_loss=f"{losses[0]:.4f}", last_loss=f"{losses[-1]:.4f}",
+        min_loss=f"{min(losses):.4f}")
+
+
+def lm_rate_trainer():
+    """The LM config's own training step (bf16, dropout 0.1, Adam with betas
+    0.9/0.95 under the Cosine schedule) and its batch: 5 microbatches of 64
+    sequences of 100 tokens, on the card."""
+    from efficientconformer_torch.training.trainer import Trainer
+
+    cfg = train_config(LM_CONFIG)
+    tp = cfg["training_params"]
+    trainer = Trainer(cfg, device="cuda", seed=SEED)
+    batch = lm_batch(tp["accumulated_steps"], tp["batch_size"], [tp["train_label_max_length"]],
+                     "cuda", np.random.default_rng(SEED + 14))
+    return trainer, batch
+
+
+def lm_step_flops(trainer, batch) -> float:
+    """Model FLOPs of one step: 6 per parameter per token for the matrix
+    products, plus the attention's (B, H, T, T) products (q k^T, P V and the
+    rel-pos scores qv e^T), three times for forward and backward."""
+    p = trainer.config["lm_params"]
+    accum, b, u = batch["tokens"].shape
+    t, d = u + 1, p["dim_model"]
+    n_params = sum(x.numel() for x in trainer.model.parameters())
+    attention = 3 * p["num_blocks"] * accum * 2 * b * t * t * d * 3
+    return 6 * n_params * accum * b * t + attention
+
+
+def phase_lm_train_rate(card_line: str):
+    trainer, batch = lm_rate_trainer()
+    accum, b, u = batch["tokens"].shape
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    counts = bias_launch_counts()
+    n_att = trainer.config["lm_params"]["num_blocks"] * accum
+    check(counts == (n_att, n_att), f"bias launches (fwd, bwd) {counts} in one step, "
+          f"expected ({n_att}, {n_att})")
+    torch.cuda.reset_peak_memory_stats()
+    iters = 5
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss, grad_norm = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    check(math.isfinite(float(loss)) and math.isfinite(float(grad_norm)), f"loss {float(loss)}")
+    tokens = accum * b * (u + 1)
+    flops = lm_step_flops(trainer, batch)
+    say("lm-train-rate", microbatches=accum, batch=b, positions=u + 1, dtype="bfloat16",
+        ms_per_step=f"{dt * 1e3:.2f}", tokens_per_s=f"{tokens / dt:.1f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        loss=f"{float(loss):.4f}", grad_norm=f"{float(grad_norm):.4f}", launches=counts,
+        model_tflop=f"{flops / 1e12:.2f}", bf16_peak_share=f"{flops / dt / BF16_PEAK:.4f}",
+        card=f"'{card_line}'")
+    return counts
+
+
 def wall_ms(fn, iters: int = 3) -> float:
     """Host-clock ms per call of ``fn`` after two warm-up calls."""
     for _ in range(2):
@@ -995,11 +1378,15 @@ def phase_profile():
     cap = T.greedy_token_cap(t_encoder_params(), n, MAX_CONSEC)
     trainer, batch = rate_trainer()
     t_trainer, t_batch = t_rate_trainer()
+    lm_scorer, lm_mb = lm_score_setup()
+    lm_trainer, lm_train_batch = lm_rate_trainer()
     paths = {"infer": lambda: greedy_decode(model, x, x_len),
              "train": lambda: trainer.train_step(batch),
              "t-infer": lambda: T.greedy_decode(t_model, x[:T_RATE_BATCH], x_len[:T_RATE_BATCH],
                                                 cap, MAX_CONSEC),
-             "t-train": lambda: t_trainer.train_step(t_batch)}
+             "t-train": lambda: t_trainer.train_step(t_batch),
+             "lm-score": lambda: lm_scorer.eval_loss(lm_mb),
+             "lm-train": lambda: lm_trainer.train_step(lm_train_batch)}
     walls = {label: wall_ms(fn) for label, fn in paths.items()}
     for label, fn in paths.items():
         profile(label, fn, walls[label])
@@ -1008,7 +1395,7 @@ def phase_profile():
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also print a torch.profiler breakdown of both paths")
+                        help="also print a torch.profiler breakdown of every path")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
@@ -1021,10 +1408,11 @@ def main() -> int:
 
     from efficientconformer_torch.config import load_config
     from efficientconformer_torch.ops import _kernels, rel_attention as RA
+    from efficientconformer_torch.ops import bias_attention as BA
     from efficientconformer_torch.ops import rnnt_loss as RL
 
     t0 = time.perf_counter()
-    kernels = (RA.KERNEL, RA.KERNEL_BWD, RL.KERNEL_FWD, RL.KERNEL_BWD)
+    kernels = (RA.KERNEL, RA.KERNEL_BWD, RL.KERNEL_FWD, RL.KERNEL_BWD, BA.KERNEL, BA.KERNEL_BWD)
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         reports = list(pool.map(_kernels.build, kernels))
     for name in kernels:
@@ -1069,9 +1457,18 @@ def main() -> int:
     phase_t_train_learns()
     rnnt_fwd, rnnt_bwd, t_fwd, t_bwd = phase_t_train_rate(card_line)
     check(t_launches > 0 and t_fwd > 0 and t_bwd > 0, "the Transducer paths missed a kernel")
+    err_bias, times_bias, err_bias_bwd, times_bias_bwd = phase_lm_kernel()
+    phase_lm_slice()
+    lm_score_launches = phase_lm_score_rate(card_line)
+    phase_lm_train_slice()
+    phase_lm_train_learns()
+    lm_fwd, lm_bwd = phase_lm_train_rate(card_line)
+    check(lm_score_launches > 0 and lm_fwd > 0 and lm_bwd > 0, "the LM paths missed a kernel")
     if opts.profile:
         phase_profile()
 
+    # bias_attention_fwd also replaces _flash_kernel (pallas_attention.py:272),
+    # bias_attention_bwd also _bwd_dkv_kernel (:446)
     def entry(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n, "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
@@ -1089,6 +1486,11 @@ def main() -> int:
         entry(RL.KERNEL_BWD, "efficientconformer_torch/csrc/rnnt_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rnnt.py:96", rnnt_bwd, err_rnnt_bwd,
               times_rnnt_bwd),
+        entry(BA.KERNEL, "efficientconformer_torch/csrc/bias_attention_fwd.cu",
+              "efficientconformer_tpu/ops/pallas_attention.py:55", lm_fwd, err_bias, times_bias),
+        entry(BA.KERNEL_BWD, "efficientconformer_torch/csrc/bias_attention_bwd.cu",
+              "efficientconformer_tpu/ops/pallas_attention.py:412", lm_bwd, err_bias_bwd,
+              times_bias_bwd),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,22 @@
-"""Multi-head self-attention: the factorized relative-position branches.
+"""Multi-head self-attention: the relative-position branches.
 
 Counterpart of efficientconformer_tpu/models/attentions.py. The port has the
-two branches every attention layer of the shipped Efficient Conformer CTC
-configs takes: non-causal rel-pos attention with a key-only mask, either
-grouped with an odd group size G (efficientconformer_tpu/models/
-attentions.py:249-349) or plain (:448-519). Both call the fused rel-pos
-attention (ops/rel_attention.py), a CUDA kernel in each direction on the
-card; its autograd Function carries the gradients back to the query, key,
-value and pos projections and to u and v (through delta = v - u and the
-folded weights W, whose gather scatters dW back onto pos_layer.weight).
+branches the shipped configs take:
+  * non-causal rel-pos attention with a key-only mask, either grouped with
+    an odd group size G (efficientconformer_tpu/models/attentions.py:249-349)
+    or plain (:448-519), every attention layer of the Efficient Conformer
+    encoders. Both call the fused rel-pos attention (ops/rel_attention.py),
+    a CUDA kernel in each direction on the card; its autograd Function
+    carries the gradients back to the query, key, value and pos projections
+    and to u and v (through delta = v - u and the folded weights W, whose
+    gather scatters dW back onto pos_layer.weight);
+  * causal plain rel-pos attention with any mask (:504-519), the
+    LM-Transformer's: the Transformer-XL skewing path. The rel-pos scores
+    qv . e over the causal window are skewed to absolute key positions
+    (ops/attention.rel_to_abs_causal), scaled and added to the mask, and the
+    resulting (B, H, T, T) bias goes to the bias attention
+    (ops/bias_attention.py), a CUDA kernel in each direction on the card,
+    which returns the bias's gradient to the skewing path.
 Every other variant raises NotImplementedError naming its ROADMAP item.
 
 Parameter names are the original PyTorch repo's (query_layer, key_layer,
@@ -25,7 +33,9 @@ from torch import nn
 
 from efficientconformer_torch.models.layers import Linear
 from efficientconformer_torch.ops import attention as A
+from efficientconformer_torch.ops import bias_attention as BA
 from efficientconformer_torch.ops import masks as M
+from efficientconformer_torch.ops import pos_enc as P
 from efficientconformer_torch.ops import rel_attention as RA
 from efficientconformer_torch.ops import rel_factorize as RF
 
@@ -41,13 +51,11 @@ class MultiHeadSelfAttention(nn.Module):
         if linear_att or kernel_size is not None or stride > 1:
             raise NotImplementedError(
                 "local, strided and linear attention: ROADMAP Queue 1 item 15")
-        if causal:
+        if group_size % 2 == 0 or (causal and group_size > 1):
             raise NotImplementedError(
-                "causal rel-pos attention (skewing path): ROADMAP Queue 1 item 11")
-        if group_size % 2 == 0:
-            raise NotImplementedError(
-                "grouped attention with even G: ROADMAP Queue 1 item 15")
+                "grouped attention with even G or causal: ROADMAP Queue 1 item 15")
         self.dim_model, self.num_heads, self.group_size = dim_model, num_heads, group_size
+        self.causal = causal
         self.query_layer = Linear(dim_model, dim_model)
         self.key_layer = Linear(dim_model, dim_model)
         self.value_layer = Linear(dim_model, dim_model)
@@ -65,7 +73,10 @@ class MultiHeadSelfAttention(nn.Module):
             self.v.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B, T, D), mask (B, 1, 1, T) with 1.0 at padded keys, or None."""
+        """x (B, T, D); mask (B or 1, 1, 1, T) with 1.0 at padded keys, or
+        None; a causal layer also takes a full (B or 1, 1, T, T) mask."""
+        if self.causal:
+            return self._causal(x, mask)
         if mask is not None and mask.shape[-2] != 1:
             raise NotImplementedError(
                 "full (T, T) attention masks (streaming): ROADMAP Queue 1 item 12")
@@ -108,3 +119,25 @@ class MultiHeadSelfAttention(nn.Module):
                                    1.0 / math.sqrt(dh))
         # ungroup_time is merge_heads when G = 1
         return self.output_layer(A.ungroup_time(o, d)[:, :t_in])
+
+    def _causal(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The Transformer-XL skewing path (attentions.py:448-459, 504-519):
+        qu = q + u attends to the keys under the bias rel_to_abs_causal(qv .
+        e) / sqrt(dh) + mask * NEG_INF, with qv = q + v and e the pos
+        projection of the causal relative window. In bf16 the rel scores are
+        bf16 and the mask fp32, so the bias is fp32, as in the JAX package."""
+        d, h = self.dim_model, self.num_heads
+        dh = d // h
+        t = x.shape[1]
+        q = self.query_layer(x)
+        qu = A.split_heads(q + self.u.to(x.dtype), h)
+        qv = A.split_heads(q + self.v.to(x.dtype), h)
+        kh = A.split_heads(self.key_layer(x), h)
+        vh = A.split_heads(self.value_layer(x), h)
+        e = self.pos_layer(P.relative_encoding(t, d, causal=True, device=x.device).to(x.dtype))
+        rel = torch.einsum("bhqd,lhd->bhql", qv, e.reshape(t, h, dh))
+        bias = A.rel_to_abs_causal(rel) / math.sqrt(dh)
+        if mask is not None:
+            bias = bias + mask * A.NEG_INF
+        o, _ = BA.bias_attention(qu, kh, vh, bias, 1.0 / math.sqrt(dh))
+        return self.output_layer(A.merge_heads(o))

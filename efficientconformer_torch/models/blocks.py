@@ -1,11 +1,12 @@
-"""Conformer block.
+"""Conformer and Transformer blocks.
 
-Counterpart of efficientconformer_tpu/models/blocks.py:ConformerBlock:
+Counterpart of efficientconformer_tpu/models/blocks.py. ConformerBlock:
 x + ½FFN -> x + MHSA -> residual + Conv -> x + ½FFN -> LayerNorm. The residual
 around the convolution module is a strided pointwise conv when the width
-expands, a strided slice when the block only strides. The training state is
-the module's own (``train()``/``eval()``); the generator for dropout is
-handed down to each module.
+expands, a strided slice when the block only strides. TransformerBlock (the
+LM-Transformer's): pre-LN, x + MHSA -> x + FFN (relu, no inner dropout), no
+final norm. The training state is the module's own (``train()``/``eval()``);
+the generator for dropout is handed down to each module.
 """
 
 from __future__ import annotations
@@ -56,3 +57,20 @@ class ConformerBlock(nn.Module):
         x = res + self.convolution_module(x, generator)
         x = x + 0.5 * self.feed_forward_module2(x, generator)
         return self.norm(x)
+
+
+class TransformerBlock(nn.Module):
+    """blocks.py:90-125, a causal rel-pos (or absolute) self-attention
+    module and a relu feed-forward module."""
+
+    def __init__(self, dim_model: int, ff_ratio: int, num_heads: int, dropout: float,
+                 relative_pos_enc: bool):
+        super().__init__()
+        self.multi_head_self_attention_module = MultiHeadSelfAttentionModule(
+            dim_model, num_heads, dropout, relative_pos_enc=relative_pos_enc, causal=True)
+        self.feed_forward_module = FeedForwardModule(
+            dim_model, dim_model * ff_ratio, dropout, act="relu", inner_dropout=False)
+
+    def forward(self, x, mask=None, generator=None):
+        x = x + self.multi_head_self_attention_module(x, mask, generator)
+        return x + self.feed_forward_module(x, generator)

@@ -1,15 +1,16 @@
-"""Prediction networks.
+"""Prediction networks and LM decoders.
 
-Counterpart of efficientconformer_tpu/models/decoders.py for the one decoder
-every shipped Transducer config uses, the RNN. Two entry points, as the JAX
-package's:
+Counterpart of efficientconformer_tpu/models/decoders.py for the RNN (every
+shipped Transducer config and LM-RNN) and the Transformer (LM-Transformer).
+Two entry points, as the JAX package's:
   * ``forward(y, y_len)``: the teacher-forced pass over a whole label
     sequence, cast to the compute dtype after the embedding
     (``_compute_cast``, decoders.py:28-35);
-  * ``step(y_t, carry)``: one token with an explicit carry (h, c), each
-    (num_layers, B, H), for the greedy decode loops, which stay fp32 as in
-    the JAX package.
-The Transformer and Conformer decoders raise with their ROADMAP item.
+  * ``step(y_t, carry)``: one token with an explicit carry, for the decode
+    loops, which stay fp32 as in the JAX package. The RNN's carry is (h, c),
+    each (num_layers, B, H); the Transformer's KV-cache step is not ported
+    and raises with its ROADMAP item.
+The Conformer decoder raises with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from efficientconformer_torch.models.layers import LSTM, Embedding
+from efficientconformer_torch.models.blocks import TransformerBlock
+from efficientconformer_torch.models.layers import LSTM, Dropout, Embedding
+from efficientconformer_torch.ops.masks import streaming_mask
 
 
 class RnnDecoder(nn.Module):
@@ -34,8 +37,10 @@ class RnnDecoder(nn.Module):
         dtype = p.get("compute_dtype")
         self.compute_dtype = getattr(torch, dtype) if dtype else None
 
-    def forward(self, y: torch.Tensor, y_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """y (B, U) int -> (B, U, D) in the compute dtype."""
+    def forward(self, y: torch.Tensor, y_len: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """y (B, U) int -> (B, U, D) in the compute dtype. It has no dropout,
+        so it takes no generator."""
         e = self.embedding(y)
         if self.compute_dtype is not None:
             e = e.to(self.compute_dtype)
@@ -51,10 +56,51 @@ class RnnDecoder(nn.Module):
         return self.rnn.init_carry(batch, device)
 
 
-def make_decoder(params: dict, vn_std: Optional[float] = None) -> RnnDecoder:
-    arch = params["arch"]
-    if arch != "RNN":
+class TransformerDecoder(nn.Module):
+    """Embedding (id 0 embeds to zeros) + dropout + causal rel-pos
+    Transformer blocks (decoders.py:73-112), the LM-Transformer's decoder."""
+
+    def __init__(self, params: dict):
+        super().__init__()
+        p = self.params = params
+        self.embedding = Embedding(p["vocab_size"], p["dim_model"])
+        self.dropout = Dropout(p["Pdrop"])
+        self.blocks = nn.ModuleList(
+            TransformerBlock(p["dim_model"], p["ff_ratio"], p["num_heads"], p["Pdrop"],
+                             p["relative_pos_enc"])
+            for _ in range(p["num_blocks"]))
+        dtype = p.get("compute_dtype")
+        self.compute_dtype = getattr(torch, dtype) if dtype else None
+
+    def forward(self, y: torch.Tensor, y_len: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """y (B, U) int -> (B, U, D) in the compute dtype. The mask is
+        causal, reaches back ``left_context`` (default max_pos_encoding)
+        tokens and hides the keys past y_len. In training mode the dropouts
+        draw from ``generator``."""
+        p = self.params
+        t = y.shape[1]
+        mask = streaming_mask(t, y_len, p.get("left_context", p["max_pos_encoding"]), 0,
+                              device=y.device)
+        x = self.embedding(y)
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        x = self.dropout(x, generator)
+        for block in self.blocks:
+            x = block(x, mask, generator)
+        return x
+
+    def step(self, y_t, carry):
         raise NotImplementedError(
-            f"{arch} prediction network: ROADMAP Queue 1 item 10 (Transformer and Conformer "
-            "decoders, which no shipped Transducer config uses)")
-    return RnnDecoder(params, vn_std)
+            "the Transformer decoder's KV-cache step: ROADMAP Queue 1 item 11")
+
+
+def make_decoder(params: dict, vn_std: Optional[float] = None):
+    arch = params["arch"]
+    if arch == "RNN":
+        return RnnDecoder(params, vn_std)
+    if arch == "Transformer" and vn_std is None:
+        return TransformerDecoder(params)
+    raise NotImplementedError(
+        f"{arch} decoder{' with variational noise' if vn_std is not None else ''}: ROADMAP "
+        "Queue 1 items 10-11 (no shipped config uses it)")

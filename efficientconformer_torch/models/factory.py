@@ -1,13 +1,18 @@
 """Model factory: the task model and its loss from a parsed config.
 
 Counterpart of efficientconformer_tpu/models/factory.py for the model types
-the port trains so far, CTC and the Transducer. ``mixed_precision`` in
-training_params maps to the JAX package's bf16 compute policy: fp32
-frontend and master weights, bf16 activations in the encoder, and for the
-Transducer in the prediction and joint networks on the lattice path.
-``vn_std`` (variational noise) reaches the Transducer's prediction and
-joint networks; a CTC model takes none, as in the JAX package. InterCTC and
-the LM are not ported and raise with their ROADMAP items.
+the port trains so far, CTC, the Transducer and the LM. ``mixed_precision``
+in training_params maps to the JAX package's bf16 compute policy: fp32
+frontend and master weights, bf16 activations in the encoder, for the
+Transducer in the prediction and joint networks on the lattice path, and
+for the LM after the embedding. ``vn_std`` (variational noise) reaches the
+Transducer's prediction and joint networks; a CTC model and an LM take
+none, as in the JAX package. InterCTC is not ported and raises with its
+ROADMAP item.
+
+Batches, as the JAX package's: ASR {audio (B, T), audio_len (B,), labels
+(B, U), label_len (B,)}; LM {tokens (B, U), token_len (B,), targets
+(B, U+1) with -1 padding}.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from efficientconformer_torch.models.lm import LanguageModel, ce_loss
 from efficientconformer_torch.models.model_ctc import ModelCTC, init_params_
 from efficientconformer_torch.models.transducer import Transducer
 from efficientconformer_torch.ops.ctc_loss import ctc_loss
@@ -24,9 +30,9 @@ from efficientconformer_torch.ops.rnnt_loss import rnnt_loss
 
 
 def create_model(config: dict, device, generator: torch.Generator):
-    """(model, loss_fn) of a CTC or Transducer config on ``device``, weights
-    drawn from ``generator`` (a CPU generator). loss_fn(outputs, batch) ->
-    scalar."""
+    """(model, loss_fn) of a CTC, Transducer or LM config on ``device``,
+    weights drawn from ``generator`` (a CPU generator). loss_fn(outputs,
+    batch) -> scalar."""
     mtype = config["model_type"]
     tp = config.get("training_params", {})
 
@@ -36,16 +42,19 @@ def create_model(config: dict, device, generator: torch.Generator):
             params["compute_dtype"] = "bfloat16"
         return params
 
-    enc_params = with_policy(config["encoder_params"])
+    vocab = config["tokenizer_params"]["vocab_size"]
     if mtype == "CTC":
-        model, loss = ModelCTC(enc_params, config["tokenizer_params"]["vocab_size"]), ctc_loss_fn
+        model, loss = ModelCTC(with_policy(config["encoder_params"]), vocab), ctc_loss_fn
     elif mtype == "Transducer":
-        model = Transducer(enc_params, with_policy(config["decoder_params"]),
+        model = Transducer(with_policy(config["encoder_params"]),
+                           with_policy(config["decoder_params"]),
                            with_policy(config["joint_params"]),
                            config["decoder_params"]["vocab_size"], tp.get("vn_std"))
         loss = transducer_loss_fn
+    elif mtype == "LM":
+        model, loss = LanguageModel(with_policy(config["lm_params"]), vocab), lm_loss_fn
     else:
-        raise NotImplementedError(f"{mtype} models: ROADMAP Queue 1 items 9 and 11")
+        raise NotImplementedError(f"{mtype} models: ROADMAP Queue 1 item 9")
     init_params_(model, generator)
     return model.to(device), loss
 
@@ -63,13 +72,20 @@ def transducer_loss_fn(outputs, batch) -> torch.Tensor:
     return rnnt_loss(logits, batch["labels"], f_len, batch["label_len"]).mean()
 
 
+def lm_loss_fn(logits, batch) -> torch.Tensor:
+    """Mean cross entropy over the positions with a target (factory.py:96-104)."""
+    return ce_loss(logits, batch["targets"])
+
+
 def apply_model(model, batch, train: bool, generator=None):
     """Forward pass in training or eval mode, dispatched on the model type:
-    (logits, logits_len). In training mode SpecAugment and dropout draw
-    from ``generator`` and BatchNorm updates its running statistics; eval
-    runs without autograd."""
+    (logits, logits_len) of an ASR model, the logits of an LM. In training
+    mode SpecAugment and dropout draw from ``generator`` and BatchNorm
+    updates its running statistics; eval runs without autograd."""
     model.train(train)
     with contextlib.nullcontext() if train else torch.no_grad():
+        if isinstance(model, LanguageModel):
+            return model(batch["tokens"], batch["token_len"], generator)
         if isinstance(model, Transducer):
             return model(batch["audio"], batch["labels"], batch["audio_len"],
                          batch["label_len"], generator)

@@ -103,15 +103,19 @@ class Conv2dSubsampling(nn.Module):
 
 
 class FeedForwardModule(nn.Module):
-    """LN -> Linear(ffn) -> swish -> drop -> Linear(dim) -> drop."""
+    """LN -> Linear(ffn) -> act -> [drop] -> Linear(dim) -> drop: swish with
+    the inner dropout in a Conformer block, relu without it in a
+    Transformer block (modules.py:247-267)."""
 
-    def __init__(self, dim_model: int, dim_ffn: int, dropout: float):
+    def __init__(self, dim_model: int, dim_ffn: int, dropout: float, act: str = "swish",
+                 inner_dropout: bool = True):
         super().__init__()
+        inner = [Dropout(dropout)] if inner_dropout else []
         self.layers = nn.Sequential(
             LayerNorm(dim_model),
             Linear(dim_model, dim_ffn),
-            Swish(),
-            Dropout(dropout),
+            {"swish": Swish, "relu": nn.ReLU}[act](),
+            *inner,
             Linear(dim_ffn, dim_model),
             Dropout(dropout),
         )

@@ -1,15 +1,31 @@
-"""Head and group layouts for attention.
+"""Head and group layouts for attention, and the causal skewing.
 
-Counterpart of the layout helpers of efficientconformer_tpu/ops/attention.py.
-The functions return views where the layout allows it; the rel-pos kernel
-takes strided (B, H, N, dh) inputs, so no copy is made on the way in.
+Counterpart of the layout helpers and ``rel_to_abs_causal`` of
+efficientconformer_tpu/ops/attention.py. The layout functions return views
+where the layout allows it; the attention kernels take strided (B, H, N, dh)
+inputs, so no copy is made on the way in.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e9
+
+
+def rel_to_abs_causal(scores: torch.Tensor) -> torch.Tensor:
+    """(..., T, Th + T) scores indexed by relative position (column l is
+    offset Th + T - 1 - l, most distant past first) -> (..., T, Th + T)
+    indexed by absolute key position: pad, flatten, pad, reshape, slice (the
+    Music Transformer skewing). Plain tensor ops, so autograd differentiates
+    it."""
+    *lead, t, l = scores.shape
+    s = F.pad(scores, (1, 0))
+    s = s.reshape(*lead, t * (l + 1))
+    s = F.pad(s, (l - t, 0))
+    s = s.reshape(*lead, t + 1, l)
+    return s[..., 1:, :]
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 Counterpart of efficientconformer_tpu/ops/masks.py. Masks are float tensors
 where 1.0 marks a masked (disallowed) position and 0.0 an attendable one;
-they are applied additively as ``scores + mask * NEG_INF``. The streaming
-(windowed) mask is not ported yet: the encoder raises when one is configured.
+they are applied additively as ``scores + mask * NEG_INF``. The windowed
+mask serves the causal LM-Transformer; the encoder's attention still raises
+on a full (T, T) mask (streaming, ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -21,6 +22,24 @@ def padding_mask(seq_len: int, x_len: Optional[torch.Tensor]) -> Optional[torch.
     idx = torch.arange(seq_len, device=x_len.device)
     mask = (idx[None, :] >= x_len[:, None]).to(torch.float32)
     return mask[:, None, None, :]
+
+
+def look_ahead_mask(seq_len: int, x_len: Optional[torch.Tensor], device=None) -> torch.Tensor:
+    """Causal + padding mask: (B or 1, 1, T, T)."""
+    return streaming_mask(seq_len, x_len, seq_len, 0, device)
+
+
+def streaming_mask(seq_len: int, x_len: Optional[torch.Tensor], left_context: int,
+                   right_context: int, device=None) -> torch.Tensor:
+    """Window + padding mask (B or 1, 1, T, T): query i may attend keys j
+    with i - left_context <= j <= i + right_context and j < x_len. On the
+    device of ``x_len``, else on ``device``."""
+    device = x_len.device if x_len is not None else device
+    i = torch.arange(seq_len, device=device)[:, None]
+    j = torch.arange(seq_len, device=device)[None, :]
+    window = ((j > i + right_context) | (j < i - left_context)).to(torch.float32)[None, None]
+    pad = padding_mask(seq_len, x_len)
+    return window if pad is None else torch.maximum(window, pad)
 
 
 def pad_to_multiple(x: torch.Tensor, chunk: int) -> tuple[torch.Tensor, int]:

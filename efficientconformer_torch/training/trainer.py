@@ -1,11 +1,14 @@
-"""Trainer: the training step of the CTC and Transducer models.
+"""Trainer: the training step of the CTC, Transducer and LM models, and the
+eval loss.
 
-Counterpart of the train step of efficientconformer_tpu/training/trainer.py
-(``Trainer.train_step_fn``, ``fit``): one optimizer update per batch of A
-stacked microbatches (``accumulated_steps``). Each microbatch runs forward
-and backward in turn, so BatchNorm's running statistics are updated
-microbatch by microbatch, as the JAX package's scan does; the gradients are
-averaged over the A microbatches and the reported loss is their mean loss.
+Counterpart of the train and eval steps of
+efficientconformer_tpu/training/trainer.py (``Trainer.train_step_fn``,
+``eval_loss_fn``, ``fit``): one optimizer update per batch of A stacked
+microbatches (``accumulated_steps``). Each microbatch runs forward and
+backward in turn, so BatchNorm's running statistics are updated microbatch
+by microbatch, as the JAX package's scan does; the gradients are averaged
+over the A microbatches and the reported loss is their mean loss. An LM has
+no encoder, so it has nothing to freeze.
 ``freeze_encoder`` (while step <= ``encoder_frozen_steps``) zeroes the
 encoder's gradients and its updates: the optimizer still advances its
 moments (with the weight-decay term, as optax does), and the encoder's
@@ -57,42 +60,33 @@ class Trainer:
         self.step = 0
 
     def train_step(self, batch: dict, freeze_encoder: Optional[bool] = None):
-        """One optimizer update. ``batch``: audio (A, B, T), audio_len (A, B),
-        labels (A, B, U), label_len (A, B) as tensors or numpy arrays; audio
-        and labels may already lie on the device. Returns (mean loss, global
-        gradient norm) as 0-d tensors on the device.
-
-        The lengths are read on the host once, at the start of the step: the
-        encoder's output lengths follow from them by the config's arithmetic,
-        so the loss gets host lengths and copies none back from the
-        device."""
+        """One optimizer update. ``batch``, as tensors or numpy arrays, for
+        an ASR model: audio (A, B, T), audio_len (A, B), labels (A, B, U),
+        label_len (A, B); for an LM: tokens (A, B, U), token_len (A, B),
+        targets (A, B, U+1) with -1 padding. Audio, labels, tokens and
+        targets may already lie on the device. Returns (mean loss, global
+        gradient norm) as 0-d tensors on the device."""
         if freeze_encoder is None:
             freeze_encoder = (self.encoder_frozen_steps is not None
                               and self.step <= self.encoder_frozen_steps)
         model, opt = self.model, self.optimizer
+        if freeze_encoder and not hasattr(model, "encoder"):
+            raise ValueError("freeze_encoder: the model has no encoder")
         batch = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
                  for k, v in batch.items()}
-        enc_params = self.config["encoder_params"]
-        audio_len = batch["audio_len"].cpu()
-        label_len = batch["label_len"].cpu()
-        logit_len = torch.tensor([[encoder_output_frames(enc_params, n) for n in row]
-                                  for row in audio_len.tolist()])
-        audio_len_dev = audio_len.to(self.device)
-        accum = batch["audio"].shape[0]
         model.train()
         opt.zero_grad(set_to_none=True)
         if self.vn_start_step is not None and self.step >= self.vn_start_step:
             draw_variational_noise_(model, self.generator)
         total = torch.zeros((), device=self.device)
+        microbatches = self._microbatches(batch)
         try:
-            for a in range(accum):
-                mb = {"audio": batch["audio"][a].to(self.device, non_blocking=True),
-                      "audio_len": audio_len_dev[a],
-                      "labels": batch["labels"][a].to(self.device, non_blocking=True),
-                      "label_len": label_len[a]}
-                logits, _ = factory.apply_model(model, mb, True, self.generator)
-                loss = self.loss_fn((logits, logit_len[a]), mb)
-                (loss / accum).backward()
+            for mb, out_len in microbatches:
+                outputs = factory.apply_model(model, mb, True, self.generator)
+                if out_len is not None:
+                    outputs = (outputs[0], out_len)
+                loss = self.loss_fn(outputs, mb)
+                (loss / len(microbatches)).backward()
                 total += loss.detach()
         finally:
             clear_variational_noise_(model)
@@ -115,7 +109,41 @@ class Trainer:
             for p, old in zip(encoder, kept):
                 p.copy_(old)
         self.step += 1
-        return total / accum, grad_norm
+        return total / len(microbatches), grad_norm
+
+    def _microbatches(self, batch: dict) -> list:
+        """(microbatch on the device, the output lengths the loss takes) for
+        each of the A microbatches. An LM's loss takes none. An ASR model's
+        lengths are read on the host once: the encoder's output lengths
+        follow from them by the config's arithmetic, so the loss gets host
+        lengths and copies none back from the device."""
+        dev = self.device
+        if "tokens" in batch:
+            return [({k: batch[k][a].to(dev, non_blocking=True)
+                      for k in ("tokens", "token_len", "targets")}, None)
+                    for a in range(batch["tokens"].shape[0])]
+        enc_params = self.config["encoder_params"]
+        audio_len = batch["audio_len"].cpu()
+        label_len = batch["label_len"].cpu()
+        logit_len = torch.tensor([[encoder_output_frames(enc_params, n) for n in row]
+                                  for row in audio_len.tolist()])
+        audio_len_dev = audio_len.to(dev)
+        return [({"audio": batch["audio"][a].to(dev, non_blocking=True),
+                  "audio_len": audio_len_dev[a],
+                  "labels": batch["labels"][a].to(dev, non_blocking=True),
+                  "label_len": label_len[a]}, logit_len[a])
+                for a in range(batch["audio"].shape[0])]
+
+    def eval_loss(self, batch: dict) -> torch.Tensor:
+        """The eval-mode loss of one batch without the accumulation axis
+        (``Trainer.eval_loss_fn``), as a 0-d tensor on the device: for an LM
+        batch, tokens (B, U), token_len (B,), targets (B, U+1), the mean
+        cross entropy, whose exponential is the perplexity."""
+        mb = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
+              for k, v in batch.items()}
+        mb = {k: v.to(self.device, non_blocking=True) for k, v in mb.items()}
+        with torch.no_grad():
+            return self.loss_fn(factory.apply_model(self.model, mb, False), mb)
 
     def fit(self, batches: Iterable[dict], steps: int) -> list[float]:
         """``train_step`` over up to ``steps`` batches; the losses."""

@@ -1,6 +1,6 @@
 """The port's CUDA kernels vs their plain PyTorch versions, on the card:
-the rel-pos attention forward and backward, and the RNN-T lattice forward
-and backward.
+the rel-pos attention forward and backward, the RNN-T lattice forward and
+backward, and the bias attention forward and backward.
 
 Every test here needs a CUDA device and skips without one. This file imports
 neither JAX nor the JAX package, so on a machine without JAX it runs with
@@ -15,6 +15,7 @@ import math
 import pytest
 import torch
 
+from efficientconformer_torch.ops import bias_attention as BA
 from efficientconformer_torch.ops import rel_attention as RA
 from efficientconformer_torch.ops import rel_factorize as RF
 from efficientconformer_torch.ops import rnnt_loss as RL
@@ -282,3 +283,148 @@ def test_rnnt_kernels_refuse_what_they_do_not_take(cuda):
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="label positions"):
         RL.rnnt_alphas(wide, wide, one, one)
+
+
+# ------------------------------------------------------------ bias attention
+
+BIAS_LAYOUTS = {"full": "bhqk", "batch": "b1qk", "head": "1hqk", "keymask": "b11k",
+                "none": None}
+
+
+def bias_case(device, b, h, nq, nk, dqk, dv, layout, seed, dtype=torch.float32,
+              masked_row=False):
+    """(q, k, v, bias, scale) on the card: a bias of the given layout, random
+    rel-pos-like scores with ragged key lengths as -1e9 columns, and with
+    ``masked_row`` one query row of the first (batch, head) (every row, for
+    a key mask) whose keys are all masked."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(b, h, n, w, generator=gen) for n, w in ((nq, dqk), (nk, dqk), (nk, dv)))
+    bias = None
+    if layout is not None:
+        shape = tuple({"b": b, "h": h, "q": nq, "k": nk, "1": 1}[c] for c in layout)
+        bias = torch.randn(shape, generator=gen) * 0.5 if layout[2] == "q" else torch.zeros(shape)
+        lengths = torch.linspace(max(nk // 2, 1), nk, shape[0]).long()
+        bias = bias.masked_fill(torch.arange(nk) >= lengths[:, None, None, None], NEG_INF)
+        if masked_row:
+            bias[0, 0, min(1, shape[2] - 1)] = NEG_INF
+        bias = bias.to(device)
+    return (q.to(device, dtype), k.to(device, dtype), v.to(device, dtype), bias,
+            1.0 / math.sqrt(dqk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,nq,nk,dqk,dv,layout", [
+    (8, 12, 101, 101, 64, 64, "full"),     # the LM-Transformer's shape
+    (3, 2, 37, 37, 64, 64, "batch"), (3, 2, 65, 130, 32, 32, "head"),
+    (3, 2, 70, 70, 16, 16, "keymask"), (2, 2, 130, 65, 90, 70, "full"),
+    (2, 3, 1, 1, 128, 128, "full"), (2, 2, 64, 64, 8, 24, "none"),
+])
+def test_bias_kernel_matches_plain_version(cuda, b, h, nq, nk, dqk, dv, layout):
+    """fp32 O and LSE, then bf16 O on bf16-rounded inputs; a fully masked
+    row averages over the real keys, not over the tile's padding."""
+    masked = layout != "none"
+    args = bias_case(cuda, b, h, nq, nk, dqk, dv, BIAS_LAYOUTS[layout], seed=nq,
+                     masked_row=masked)
+    BA.bias_attention.launches = 0
+    o, lse = BA.bias_attention(*args)
+    want_o, want_lse = BA.reference_bias_attention(*args)
+    assert BA.bias_attention.launches == 1 and lse.dtype == torch.float64
+    torch.testing.assert_close(o, want_o, rtol=0, atol=FP32_TOL)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=FP32_TOL)
+    if masked and BIAS_LAYOUTS[layout][2] == "q" and nq > 1:
+        torch.testing.assert_close(o[0, 0, 1], args[2][0, 0].mean(0), rtol=0, atol=FP32_TOL)
+
+    a16 = [t.to(torch.bfloat16) for t in args[:3]]
+    o16, _ = BA.bias_attention(*a16, *args[3:])
+    want16, _ = BA.reference_bias_attention(*[t.float() for t in a16], *args[3:])
+    assert o16.dtype == torch.bfloat16
+    torch.testing.assert_close(o16.float(), want16, rtol=0, atol=BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_bias_kernel_takes_strided_heads_and_a_bf16_bias(cuda):
+    """q, k, v as head-split views of (B, N, D) projections, as the
+    attention module passes them, and a bf16 bias, read in place."""
+    q, k, v, bias, scale = bias_case(cuda, 2, 3, 45, 45, 16, 16, "bhqk", seed=5)
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert not q.is_contiguous()
+    for b_ in (bias, bias.bfloat16()):
+        o, lse = BA.bias_attention(q, k, v, b_, scale)
+        want_o, want_lse = BA.reference_bias_attention(q, k, v, b_, scale)
+        torch.testing.assert_close(o, want_o, rtol=0, atol=FP32_TOL)
+        torch.testing.assert_close(lse, want_lse, rtol=0, atol=FP32_TOL)
+
+
+@pytest.mark.gpu
+def test_bias_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v, bias, scale = bias_case(cuda, 1, 2, 8, 8, 16, 16, "bhqk", seed=1)
+    with pytest.raises(ValueError, match="dtype"):
+        BA.bias_attention(q.half(), k.half(), v.half(), bias, scale)
+    with pytest.raises(ValueError, match="at most 128"):
+        wide = torch.zeros(1, 2, 8, 130, device=cuda)
+        BA.bias_attention(wide, wide, v, bias, scale)
+    with pytest.raises(ValueError, match="bias"):
+        BA.bias_attention(q, k, v, bias[:, :, :3], scale)
+
+
+def assert_bias_grads_close(got, want, tol):
+    """dq, dk, dv and dS within ``tol`` relative to max(max|.|, 1)."""
+    for name, g_, w_ in zip(("dq", "dk", "dv", "ds"), got, want):
+        err = (g_.float() - w_.float()).abs().max().item()
+        size = max(w_.abs().max().item(), 1.0)
+        assert err <= tol * size, f"{name}: |diff| {err} > {tol * size}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,nq,nk,dqk,dv,layout", [
+    (8, 12, 101, 101, 64, 64, "full"), (3, 2, 37, 37, 64, 64, "batch"),
+    (3, 2, 65, 130, 32, 32, "head"), (3, 2, 70, 70, 16, 16, "keymask"),
+    (2, 2, 130, 65, 90, 70, "full"), (2, 3, 1, 1, 128, 128, "full"),
+])
+def test_bias_backward_kernel_matches_plain_version(cuda, b, h, nq, nk, dqk, dv, layout):
+    """fp32 dq, dk, dv and dS vs reference_bias_attention_bwd on the same
+    inputs and dO, with one fully masked row; bf16 the same on bf16-rounded
+    inputs."""
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        args = bias_case(cuda, b, h, nq, nk, dqk, dv, BIAS_LAYOUTS[layout], seed=nk,
+                         dtype=dtype, masked_row=True)
+        o, lse = BA.bias_attention_fwd(*args)
+        gen = torch.Generator().manual_seed(nq)
+        do = torch.randn(o.shape, generator=gen).to(cuda, dtype)
+        BA.bias_attention_bwd.launches = 0
+        got = BA.bias_attention_bwd(*args[:4], o, do, lse, args[4])
+        want = BA.reference_bias_attention_bwd(*args[:4], do, args[4])
+        assert BA.bias_attention_bwd.launches == 1 and got[0].dtype == dtype
+        assert_bias_grads_close(got, want, tol)
+        _, _, _, none = BA.bias_attention_bwd(*args[:4], o, do, lse, args[4], need_dbias=False)
+        assert none is None
+
+
+@pytest.mark.gpu
+def test_bias_backward_kernel_is_bitwise_repeatable(cuda):
+    args = bias_case(cuda, 8, 12, 101, 101, 64, 64, "bhqk", seed=3)
+    o, lse = BA.bias_attention_fwd(*args)
+    do = torch.randn_like(o)
+    first = BA.bias_attention_bwd(*args[:4], o, do, lse, args[4])
+    second = BA.bias_attention_bwd(*args[:4], o, do, lse, args[4])
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["full", "batch", "head", "keymask"])
+def test_bias_autograd_through_both_kernels(cuda, layout):
+    """Gradients of sum(sin(o)) in q, k, v and the bias through
+    bias_attention (both kernels) vs autograd of the plain forward; the
+    bias's gradient folded to its own shape."""
+    args = bias_case(cuda, 3, 2, 45, 45, 24, 24, BIAS_LAYOUTS[layout], seed=4)
+    grads = []
+    for fn, launches in ((BA.bias_attention, 1), (BA.reference_bias_attention, 0)):
+        leaves = [t.detach().clone().requires_grad_(True) for t in args[:4]]
+        BA.bias_attention_bwd.launches = 0
+        o, _ = fn(*leaves, args[4])
+        torch.sin(o).sum().backward()
+        assert BA.bias_attention_bwd.launches == launches
+        grads.append([t.grad for t in leaves])
+    assert grads[0][3].shape == args[3].shape
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * max(1.0, want.abs().max().item()))

@@ -14,11 +14,13 @@ import torch
 
 from efficientconformer_tpu.utils import torch_compat as TC
 from efficientconformer_torch.models.model_ctc import ModelCTC, build_model
+from efficientconformer_torch.ops import bias_attention as BA
 from efficientconformer_torch.ops import rel_attention as RA
 from efficientconformer_torch.utils.weights import from_jax
 from test_torch_port_model import FLAGSHIP, narrow_flagship, port_model
 
 TRANSDUCER = "configs/EfficientConformerTransducerSmall.json"
+LM_TRANSFORMER = "configs/LM-Transformer.json"
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -117,6 +119,40 @@ def test_port_runs_without_jax():
     assert "LOADED [] (2, 13) (2, 96)" in out.stdout, out.stdout
 
 
+def test_lm_runs_without_jax():
+    """Scoring and one train step of a narrowed LM-Transformer, and the
+    LM-RNN's logits, in a fresh process load no module of JAX, flax or the
+    JAX package."""
+    code = textwrap.dedent(f"""
+        import json, sys
+        import torch
+        from efficientconformer_torch.models import lm
+        from efficientconformer_torch.training.trainer import Trainer
+        with open({LM_TRANSFORMER!r}) as f:
+            cfg = json.load(f)
+        cfg["lm_params"].update(num_blocks=2, dim_model=32, num_heads=2, vocab_size=16)
+        cfg["tokenizer_params"]["vocab_size"] = 16
+        tokens = torch.tensor([[[3, 4, 5], [6, 0, 0]]] * 2)
+        batch = {{"tokens": tokens, "token_len": torch.tensor([[3, 1]] * 2),
+                  "targets": torch.tensor([[[3, 4, 5, 0], [6, 0, -1, -1]]] * 2)}}
+        trainer = Trainer(cfg, device="cpu")
+        loss, grad_norm = trainer.train_step(batch)
+        assert torch.isfinite(loss) and torch.isfinite(grad_norm)
+        score = trainer.eval_loss({{k: v[0] for k, v in batch.items()}})
+        rnn = lm.LanguageModel({{"arch": "RNN", "num_layers": 1, "dim_model": 8,
+                                "vocab_size": 16}}, 16)
+        logits = rnn(tokens[0], torch.tensor([3, 1]))
+        loaded = sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "jaxlib", "flax",
+                                                       "efficientconformer_tpu")))
+        print("LOADED", loaded, tuple(logits.shape), bool(torch.isfinite(score)))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED [] (2, 4, 16) True" in out.stdout, out.stdout
+
+
 def run_chip_smoke(cwd):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
@@ -142,6 +178,29 @@ def test_wrapper_has_no_path_for_other_devices():
         RA.relpos_attention(*args, None, None, None, None, None, 1.0)
     with pytest.raises(ValueError, match="no kernel for device"):
         RA.relpos_attention_bwd(*args, None, None, None, None, None, args[0], args[0], None, 1.0)
+
+
+def test_bias_attention_has_no_path_for_other_devices():
+    q = torch.empty(1, 2, 3, 4, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        BA.bias_attention(q, q, q, None, 1.0)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        BA.bias_attention_bwd(q, q, q, None, q, q, None, 1.0)
+
+
+def test_lm_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """The LM's build_model and its Trainer never move to the CPU on their
+    own."""
+    from efficientconformer_torch.models import lm
+    from efficientconformer_torch.training.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.build_model(LM_TRANSFORMER)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(LM_TRANSFORMER)
+    with pytest.raises(ValueError, match="CTC config"):
+        lm.build_model(FLAGSHIP, "cpu")
 
 
 def test_trainer_defaults_to_the_card_and_raises_without_one(monkeypatch):

@@ -135,7 +135,7 @@ def test_attention_module_matches_jax(g, n):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=MODULE_TOL)
 
 
-@pytest.mark.parametrize("kwargs", [dict(relative_pos_enc=False), dict(causal=True),
+@pytest.mark.parametrize("kwargs", [dict(relative_pos_enc=False), dict(causal=True, group_size=3),
                                     dict(group_size=2), dict(kernel_size=4),
                                     dict(stride=2), dict(linear_att=True)])
 def test_unported_attention_variants_raise(kwargs):

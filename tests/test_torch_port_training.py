@@ -384,15 +384,15 @@ def test_optimizer_matches_optax_from_the_same_state(opt):
 
 
 def test_unported_training_options_raise():
-    """remat and the InterCTC and LM model types raise with their ROADMAP
-    items. Variational noise is ported, for the Transducer: a CTC model
-    takes none, as in the JAX package, whose ModelCTC has no vn_std."""
+    """remat and the InterCTC model type raise with their ROADMAP items
+    (the LM is ported: tests/test_torch_port_lm.py). Variational noise is
+    ported, for the Transducer: a CTC model takes none, as in the JAX
+    package, whose ModelCTC has no vn_std."""
     cfg = copy.deepcopy(train_config())
     cfg["encoder_params"]["remat"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu")
-    for mtype in ("InterCTC", "LM"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(dict(train_config(), model_type=mtype), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(dict(train_config(), model_type="InterCTC"), device="cpu")
     trainer = Trainer(train_config(vn_std=0.075, vn_start_step=0), device="cpu")
     assert all(getattr(m, "vn_std", None) is None for m in trainer.model.modules())

@@ -409,8 +409,15 @@ def test_trainer_draws_the_noise_once_per_step_from_vn_start_step():
 
 
 def test_unported_decoders_raise():
-    params = {"arch": "Transformer", "num_blocks": 1, "dim_model": 8, "vocab_size": VOCAB}
+    """The Transformer decoder builds (the LM-Transformer's), but its
+    KV-cache step, which the decode loops drive, raises, and so do a
+    Transformer decoder with variational noise and the Conformer decoder."""
+    params = {"arch": "Transformer", "num_blocks": 1, "dim_model": 8, "ff_ratio": 2,
+              "num_heads": 2, "Pdrop": 0.0, "relative_pos_enc": True, "max_pos_encoding": 16,
+              "vocab_size": VOCAB}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_decoder(params)
+        make_decoder(params).step(torch.zeros(2, dtype=torch.long), None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_decoder(params, vn_std=0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_decoder(dict(params, arch="Conformer"))
