@@ -15,7 +15,9 @@ the card. Phases, one line each; any failure exits non-zero:
   1. device     CUDA present; card name and power limit; TF32 off
   2. build      all six kernels, from the sources in this checkout, one
                 nvcc each, started together; ptxas registers, spills; the
-                rel-pos kernels' shared memory at both models' stage shapes
+                rel-pos kernels' shared memory at both models' stage shapes,
+                the bias kernels' at the LM's widths on both routes (bf16:
+                the tensor-core kernels, fp32: the FMA kernels)
   3. kernel     the rel-pos forward kernel vs its plain version at the CTC
                 inference shapes (10 s of audio, batch 8, ragged key masks),
                 fp32 and bf16; then kernel, plain and library timed at b128
@@ -57,24 +59,30 @@ the card. Phases, one line each; any failure exits non-zero:
                 90-token labels, bf16: ms per step, audio-s/s, peak memory,
                 launches per step (4 / 4 RNN-T, 60 / 60 rel-pos); one more
                 step with variational noise on
- 19. lm-kernel  both bias-attention kernels vs their plain versions, fp32 and
-                bf16: at the LM's shape (B 8, H 12, N 101, dh 64) with its
-                causal + padding + rel-pos bias and ragged lengths; a
-                (B, 1, Nq, Nk) and a (1, H, Nq, Nk) bias, a key mask,
+ 19. lm-kernel  both bias-attention kernels vs their plain versions, fp32
+                (the FMA kernels) and bf16 (the tensor-core kernels, by the
+                route counters): at the LM's shape (B 8, H 12, N 101, dh 64)
+                with its causal + padding + rel-pos bias and ragged lengths;
+                a (B, 1, Nq, Nk) and a (1, H, Nq, Nk) bias, a key mask,
                 dqk 90 / dv 70 at N 130, one fully masked row; then both
                 timed at B 64, bf16, beside the plain versions, the bound and
-                scaled_dot_product_attention
+                scaled_dot_product_attention, from CUDA graphs (device time)
+                and per eager call (host time included)
  20. lm-slice   full-width fp32 LM-Transformer logits of 8 ragged sequences
                 (10-100 tokens) through the kernel vs the plain version on
-                the card, and vs the CPU; 12 forward launches
+                the card, and vs the CPU; 12 forward launches, all on the
+                FMA route
  21. lm-score-rate  eval loss and perplexity of 64 x 100 tokens (+ the
-                blank) in bf16: ms per batch, tokens/s, 12 launches a batch
+                blank) in bf16: ms per batch, tokens/s, 12 launches a batch,
+                all on the tensor-core route
  22. lm-train-slice  one fp32 LM step (2 x 4 ragged sequences, dropout 0),
-                kernels vs plain versions on the card and vs the CPU
+                kernels vs plain versions on the card and vs the CPU; every
+                launch on the FMA route
  23. lm-train-learns  30 LM steps on one batch: the loss falls
  24. lm-train-rate  the LM config's own step, 5 x 64 x 100 tokens, bf16,
                 dropout 0.1: ms per step, tokens/s, peak memory, launches per
-                step (60 / 60), model FLOPs over the bf16 peak
+                step (60 / 60, all on the tensor-core route), model FLOPs
+                over the bf16 peak
 
 Then one JSON line with each kernel's launches, error, times and bound, and
 last {"ok": true, "device": {...}}. With --profile it also prints a
@@ -164,6 +172,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed and timed with CUDA events. Unlike cuda_ms it leaves out
+    the host's time per call (Python, allocations, the launch: 40-120 us for
+    the bias-attention wrappers), which back-to-back eager calls expose once
+    a kernel takes about as long."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def bound(flops: float, nbytes: float, peak: float = BF16_PEAK) -> tuple[float, str]:
@@ -894,6 +928,15 @@ def reset_launch_counts():
     RL.rnnt_alphas.launches = RL.rnnt_grads.launches = 0
     RA.relpos_attention.launches = RA.relpos_attention_bwd.launches = 0
     BA.bias_attention.launches = BA.bias_attention_bwd.launches = 0
+    BA.bias_attention.tc_launches = BA.bias_attention_bwd.tc_launches = 0
+
+
+def bias_tc_counts():
+    """Of the bias launches, those of the tensor-core route (bf16):
+    (forward, backward)."""
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    return BA.bias_attention.tc_launches, BA.bias_attention_bwd.tc_launches
 
 
 def bias_launch_counts():
@@ -1039,6 +1082,7 @@ def check_bias_case(name, args, gen):
     from efficientconformer_torch.ops import bias_attention as BA
 
     q, k, v, bias, scale = args
+    reset_launch_counts()
     o, lse = BA.bias_attention_fwd(*args)
     want_o, want_lse = BA.reference_bias_attention(*args)
     do = torch.randn(o.shape, generator=gen).cuda()
@@ -1051,6 +1095,7 @@ def check_bias_case(name, args, gen):
           f"{name} fp32: |O| {err_o} |LSE| {err_lse} > {KERNEL_FP32_TOL}")
     err = bias_grad_errors(got, want)
     check(max(err.values()) <= GRAD_TOL, f"{name} fp32 backward: {err} > {GRAD_TOL}")
+    check(bias_tc_counts() == (0, 0), f"{name} fp32 went through the tensor-core kernels")
 
     q16, k16, v16 = (t.to(torch.bfloat16) for t in (q, k, v))
     o16, lse16 = BA.bias_attention_fwd(q16, k16, v16, bias, scale)
@@ -1063,6 +1108,9 @@ def check_bias_case(name, args, gen):
     err16b = bias_grad_errors(got16, want16)
     check(got16[0].dtype == torch.bfloat16 and max(err16b.values()) <= GRAD_BF16_TOL,
           f"{name} bf16 backward: {err16b} > {GRAD_BF16_TOL}")
+    check(bias_launch_counts() == (2, 2) and bias_tc_counts() == (1, 1),
+          f"{name}: launches {bias_launch_counts()}, tensor-core {bias_tc_counts()}, "
+          "expected the bf16 pair on the tensor cores")
     say("lm-kernel", case=name, B=q.shape[0], H=q.shape[1], Nq=q.shape[2], Nk=k.shape[2],
         dqk=q.shape[3], dv=v.shape[3], bias=tuple(bias.shape), fp32_err_o=f"{err_o:.3g}",
         fp32_err_lse=f"{err_lse:.3g}", fp32_bwd_rel_err=f"{max(err.values()):.3g}",
@@ -1090,7 +1138,10 @@ def phase_lm_kernel():
     layouts, then timed at the LM's training shape (B 64, bf16), beside the
     plain versions, the bound and scaled_dot_product_attention with the same
     bias as attn_mask (in bf16, the type it takes; forward + backward with
-    the mask requiring a gradient, as the LM's bias does)."""
+    the mask requiring a gradient, as the LM's bias does). Each is timed
+    from a CUDA graph (device time, graph_ms: the kernels' ms) and from
+    back-to-back eager calls (cuda_ms: *_call_ms, the host's time per call
+    included)."""
     from efficientconformer_torch.ops import bias_attention as BA
 
     p = lm_params()
@@ -1116,24 +1167,31 @@ def phase_lm_kernel():
     lq, lk, lv, lmask = (t.detach().clone().requires_grad_() for t in (q, k, v, mask16))
 
     def library_bwd():
-        F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask, scale=scale).backward(do)
+        out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask, scale=scale)
+        return torch.autograd.grad(out, (lq, lk, lv, lmask), do)
 
-    fwd = {"kernel": cuda_ms(lambda: BA.bias_attention_fwd(q, k, v, bias, scale)),
-           "plain": cuda_ms(lambda: BA.reference_bias_attention(q, k, v, bias, scale)),
-           "library": cuda_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, attn_mask=mask16, scale=scale))}
-    bwd = {"kernel": cuda_ms(lambda: BA.bias_attention_bwd(q, k, v, bias, o, do, lse, scale)),
-           "plain": cuda_ms(lambda: BA.reference_bias_attention_bwd(q, k, v, bias, do, scale)),
-           "library": cuda_ms(library_bwd)}
-    check(lmask.grad is not None, "scaled_dot_product_attention gave the mask no gradient")
-    for label, row, backward in (("forward", fwd, False), ("backward", bwd, True)):
+    check(library_bwd()[3] is not None, "scaled_dot_product_attention gave the mask no gradient")
+    calls = {"forward": {
+        "kernel": lambda: BA.bias_attention_fwd(q, k, v, bias, scale),
+        "plain": lambda: BA.reference_bias_attention(q, k, v, bias, scale),
+        "library": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask16,
+                                                          scale=scale)}, "backward": {
+        "kernel": lambda: BA.bias_attention_bwd(q, k, v, bias, o, do, lse, scale),
+        "plain": lambda: BA.reference_bias_attention_bwd(q, k, v, bias, do, scale),
+        "library": library_bwd}}
+    rows = {}
+    for label, fns in calls.items():
+        backward = label == "backward"
+        row = {name: graph_ms(fn) for name, fn in fns.items()}
+        per_call = {f"{name}_call": cuda_ms(fn) for name, fn in fns.items()}
         row["bound"], row["bound_by"] = bound(*bias_cost(LM_TIME_BATCH, h, n, n, dh, dh, 2,
                                                          backward))
         say("lm-kernel-time", direction=label, B=LM_TIME_BATCH, H=h, N=n, dh=dh,
             dtype="bfloat16", bound_by=row["bound_by"],
             library="sdpa fwd" if not backward else "sdpa fwd+bwd, mask grad",
-            **{f"{k}_ms": f"{v:.4f}" for k, v in row.items() if k != "bound_by"})
-    return err_f, fwd, err_b, bwd
+            **{f"{k}_ms": f"{v:.4f}" for k, v in {**row, **per_call}.items() if k != "bound_by"})
+        rows[label] = row
+    return err_f, rows["forward"], err_b, rows["backward"]
 
 
 def make_lm(device, dtype):
@@ -1170,16 +1228,16 @@ def phase_lm_slice():
     lengths = np.linspace(*LM_SLICE_LENGTHS, LM_CHECK_BATCH).round().astype(np.int64)
     mb = {k: v[0] for k, v in lm_batch(1, LM_CHECK_BATCH, lengths, "cuda",
                                         np.random.default_rng(SEED)).items()}
-    BA.bias_attention.launches = 0
+    reset_launch_counts()
     with torch.inference_mode():
         logits_k = model(mb["tokens"], mb["token_len"])
         torch.cuda.synchronize()
-        launches = BA.bias_attention.launches
+        launches, tc = BA.bias_attention.launches, BA.bias_attention.tc_launches
         with plain_kernels():
             logits_p = model(mb["tokens"], mb["token_len"])
     n_blocks = lm_params()["num_blocks"]
-    check(launches == n_blocks, f"{launches} bias kernel launches for one forward, "
-          f"expected {n_blocks}")
+    check(launches == n_blocks and tc == 0, f"{launches} bias kernel launches for one "
+          f"forward, {tc} of them on the tensor cores, expected {n_blocks} on the FMA route")
     check(bool(torch.isfinite(logits_k).all()), "non-finite LM logits")
     valid = (torch.arange(logits_k.shape[1], device="cuda")[None, :]
              <= mb["token_len"][:, None])
@@ -1194,7 +1252,7 @@ def phase_lm_slice():
     check(agree >= SLICE_ARGMAX_AGREEMENT, f"card vs CPU argmax agreement {agree}")
     say("lm-slice", dtype="float32", logits=tuple(logits_k.shape), lengths=lengths.tolist(),
         max_abs_diff=f"{err:.3g}", cpu_max_abs_diff=f"{err_cpu:.3g}",
-        cpu_argmax_agreement=f"{agree:.6f}", launches=launches)
+        cpu_argmax_agreement=f"{agree:.6f}", launches=launches, route="fma")
 
 
 def lm_score_setup():
@@ -1219,9 +1277,11 @@ def phase_lm_score_rate(card_line: str):
     loss = trainer.eval_loss(mb)
     torch.cuda.synchronize()
     fwd, bwd = bias_launch_counts()
+    tc = bias_tc_counts()
     n_blocks = lm_params()["num_blocks"]
     check((fwd, bwd) == (n_blocks, 0), f"bias launches {fwd}/{bwd} for one scoring batch, "
           f"expected {n_blocks}/0")
+    check(tc == (n_blocks, 0), f"tensor-core launches {tc}, expected every bias launch")
     torch.cuda.reset_peak_memory_stats()
     iters = 10
     t0 = time.perf_counter()
@@ -1235,7 +1295,7 @@ def phase_lm_score_rate(card_line: str):
         dtype="bfloat16", ms_per_batch=f"{dt * 1e3:.3f}", tokens_per_s=f"{tokens / dt:.1f}",
         eval_loss=f"{float(loss):.4f}", perplexity=f"{math.exp(min(float(loss), 30.0)):.2f}",
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", launches=fwd,
-        card=f"'{card_line}'")
+        tc_launches=tc[0], card=f"'{card_line}'")
     return fwd
 
 
@@ -1251,9 +1311,10 @@ def phase_lm_train_slice():
     n_att = cfg["lm_params"]["num_blocks"] * 2
     check(counts == (n_att, n_att), f"bias launches (fwd, bwd) {counts}, expected "
           f"({n_att}, {n_att}) for 2 microbatches")
+    check(bias_tc_counts() == (0, 0), f"fp32 step: tensor-core launches {bias_tc_counts()}")
     out = compare_steps(kernel, cfg, batch)
     say("lm-train-slice", dtype="float32", loss=f"{kernel[0]:.6f}", grad_norm=f"{kernel[1]:.6f}",
-        launches=counts, **out)
+        launches=counts, route="fma", **out)
 
 
 def phase_lm_train_learns():
@@ -1307,9 +1368,11 @@ def phase_lm_train_rate(card_line: str):
     trainer.train_step(batch)
     torch.cuda.synchronize()
     counts = bias_launch_counts()
+    tc = bias_tc_counts()
     n_att = trainer.config["lm_params"]["num_blocks"] * accum
     check(counts == (n_att, n_att), f"bias launches (fwd, bwd) {counts} in one step, "
           f"expected ({n_att}, {n_att})")
+    check(tc == counts, f"tensor-core launches {tc}, expected every bias launch {counts}")
     torch.cuda.reset_peak_memory_stats()
     iters = 5
     t0 = time.perf_counter()
@@ -1324,7 +1387,8 @@ def phase_lm_train_rate(card_line: str):
         ms_per_step=f"{dt * 1e3:.2f}", tokens_per_s=f"{tokens / dt:.1f}",
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         loss=f"{float(loss):.4f}", grad_norm=f"{float(grad_norm):.4f}", launches=counts,
-        model_tflop=f"{flops / 1e12:.2f}", bf16_peak_share=f"{flops / dt / BF16_PEAK:.4f}",
+        tc_launches=tc, model_tflop=f"{flops / 1e12:.2f}",
+        bf16_peak_share=f"{flops / dt / BF16_PEAK:.4f}",
         card=f"'{card_line}'")
     return counts
 
@@ -1439,6 +1503,14 @@ def main() -> int:
             say("build-smem", config=path.split("/")[-1].removesuffix(".json"), shape=name,
                 dh=dh, rel_width=d, fwd_bytes=fwd_b, bwd_bytes=bwd_b, limit=RA._SMEM_LIMIT,
                 takes="yes" if takes else "no")
+
+    dh = lm_params()["dim_model"] // lm_params()["num_heads"]
+    for dtype, route in ((torch.bfloat16, "tensor-core"), (torch.float32, "fma")):
+        for n in (101, 130):   # the LM's N, and the two-pass backward's
+            fwd_b, bwd_b = BA.smem_bytes(dtype, n, dh, dh)
+            say("build-smem", config="LM-Transformer", kernels="bias_attention", route=route,
+                N=n, dh=dh, fwd_bytes=fwd_b,
+                bwd_bytes="/".join(map(str, bwd_b)) + (" (one pass)" if len(bwd_b) == 1 else ""))
 
     max_err, times = phase_kernel(enc_params)
     max_err_bwd, times_bwd = phase_kernel_bwd(enc_params)

@@ -4,7 +4,8 @@ Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. At first
 use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/kernels/`` at the repository root (listed in ``.gitignore``)
 and loaded with ``ctypes``. The library's file name carries a hash of its
-source, so an edited source is rebuilt and a stale library is never loaded.
+source and of the headers it may include (``csrc/*.cuh``), so an edited
+source is rebuilt and a stale library is never loaded.
 Nothing is compiled or loaded when this module is imported.
 """
 
@@ -36,7 +37,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

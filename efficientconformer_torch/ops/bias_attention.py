@@ -19,7 +19,10 @@ Layout contract:
 ``bias_attention`` is differentiable: forward and backward are one
 ``torch.autograd.Function``. Each direction runs its plain PyTorch version
 for CPU tensors and its CUDA kernel (csrc/bias_attention_fwd.cu,
-csrc/bias_attention_bwd.cu) for CUDA tensors; it has no other path. The
+csrc/bias_attention_bwd.cu) for CUDA tensors; it has no other path. On the
+card the inputs' type picks the route inside each kernel file, never a
+failure: bf16 runs the tensor-core kernels (mma.sync, bf16 tiles; counted
+in ``tc_launches``), fp32 the fp32 FMA kernels, which keep fp32 products. The
 forward returns (O in the dtype of q, LSE (B, H, Nq)) and saves the LSE for
 the backward kernel, which recomputes the probabilities from it; the plain
 backward recomputes them with a softmax, as the TPU launcher's _fused_bwd.
@@ -95,35 +98,41 @@ def bias_attention(q, k, v, bias, scale):
 
 
 bias_attention.launches = 0  # forward kernel launches since the caller last reset it
+bias_attention.tc_launches = 0  # of those, the bf16 tensor-core route's
 
 
 def bias_attention_fwd(q, k, v, bias, scale):
     """The forward alone: the plain version for CPU tensors, the kernel for
-    CUDA tensors (counted in ``bias_attention.launches``)."""
+    CUDA tensors (counted in ``bias_attention.launches``, and the bf16
+    tensor-core route's also in ``bias_attention.tc_launches``)."""
     if q.device.type == "cpu":
         return reference_bias_attention(q, k, v, bias, scale)
     if q.device.type != "cuda":
         raise ValueError(f"bias_attention: no kernel for device {q.device}")
     o, lse = _launch(q, k, v, bias, scale)
     bias_attention.launches += 1
+    bias_attention.tc_launches += q.dtype == torch.bfloat16
     return o, lse
 
 
 def bias_attention_bwd(q, k, v, bias, o, do, lse, scale, need_dbias=True):
     """The backward alone, (dq, dk, dv, ds): the plain version for CPU
     tensors, the kernel for CUDA tensors (counted in
-    ``bias_attention_bwd.launches``). The kernel writes ds only when asked
-    for it, and returns None in its place otherwise."""
+    ``bias_attention_bwd.launches``, the bf16 tensor-core route's also in
+    ``bias_attention_bwd.tc_launches``). The kernel writes ds only when
+    asked for it, and returns None in its place otherwise."""
     if q.device.type == "cpu":
         return reference_bias_attention_bwd(q, k, v, bias, do, scale)
     if q.device.type != "cuda":
         raise ValueError(f"bias_attention_bwd: no kernel for device {q.device}")
     grads = _launch_bwd(q, k, v, bias, o, do, lse, scale, need_dbias)
     bias_attention_bwd.launches += 1
+    bias_attention_bwd.tc_launches += q.dtype == torch.bfloat16
     return grads
 
 
 bias_attention_bwd.launches = 0  # backward kernel launches since the caller last reset it
+bias_attention_bwd.tc_launches = 0  # of those, the bf16 tensor-core route's
 
 
 class _BiasAttention(torch.autograd.Function):
@@ -194,6 +203,21 @@ def _checked_inputs(q, k, v, bias):
     return bias, strides, bias.dtype == torch.bfloat16
 
 
+def smem_bytes(dtype, n, dqk, dv):
+    """Dynamic shared memory a block of each kernel takes on the route for
+    ``dtype`` at Nq = Nk = n and these widths, in bytes: (forward, backward),
+    the backward a tuple of one entry per kernel it launches (the bf16 route
+    at N <= 128 and widths <= 64 runs one pass). Builds the kernels if
+    needed (a CUDA machine)."""
+    fwd_fn = _kernels.load(KERNEL).ecf_bias_attention_fwd_smem
+    bwd_fn = _kernels.load(KERNEL_BWD).ecf_bias_attention_bwd_smem
+    fwd_fn.argtypes, fwd_fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    bwd_fn.argtypes, bwd_fn.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    code = _DTYPE_CODE[dtype]
+    bwd = bwd_fn(code, n, n, dqk, dv)
+    return fwd_fn(code, dqk, dv), tuple(x for x in (bwd & 0xFFFFFFFF, bwd >> 32) if x)
+
+
 def _raise_on(err: int, lib, kernel: str):
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: "
@@ -225,13 +249,13 @@ def _launch(q, k, v, bias, scale):
 
 
 def _launch_bwd(q, k, v, bias, o, do, lse, scale, need_dbias):
-    """Both passes of csrc/bias_attention_bwd.cu. q, k, v, o and dO are
-    taken with their batch/head/row strides (dO as autograd hands it over);
-    a dO without a unit feature stride is copied. dq, dk and dv are written
-    in (B, N, H, d) order, so that merging heads is a view. Scratch: Di
-    (B, H, Nq) fp32, which the query-side pass writes for the key-side pass.
-    ds (B, H, Nq, Nk) fp32 is written by the query-side pass when asked
-    for."""
+    """csrc/bias_attention_bwd.cu: one pass (bf16, Nq and Nk <= 128, widths
+    <= 64) or two. q, k, v, o and dO are taken with their batch/head/row
+    strides (dO as autograd hands it over); a dO without a unit feature
+    stride is copied. dq, dk and dv are written in (B, N, H, d) order, so
+    that merging heads is a view. Scratch: Di (B, H, Nq) fp32, which the
+    query-side pass writes for the key-side pass. ds (B, H, Nq, Nk) fp32 is
+    written when asked for."""
     b, h, nq, dqk = q.shape
     nk, dv = k.shape[2], v.shape[3]
     dev = q.device

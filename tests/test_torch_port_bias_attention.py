@@ -7,6 +7,11 @@ interpret mode, as tests/test_pallas_attention.py runs them: the forward to
 backward to ``_fused_bwd`` (through ``jax.vjp``) and to ``_flash_backward``.
 The CUDA kernels themselves are held to the plain versions on the card
 (tests/test_torch_port_cuda.py, chip_smoke.py).
+
+Each comparison runs in fp32 and in bf16. The bf16 cases feed both sides the
+same bf16-rounded q, k, v (and dO) with the LM's fp32 bias: they hold the
+plain versions, which the kernels' bf16 route is held to on the card, to the
+TPU kernels' own bf16 rounding (P rounded before P V; bf16 outputs).
 """
 
 import functools
@@ -22,7 +27,11 @@ import efficientconformer_tpu.ops.pallas_attention as pa
 from efficientconformer_torch.ops import bias_attention as BA
 
 TOL = 1e-5          # fp32, same algorithm, summation order only
+BF16_O_TOL = 2e-2   # bf16: O rounded to bf16 (8 mantissa bits), P rounded by the TPU kernels
+BF16_LSE_TOL = 1e-4  # bf16 inputs, fp32 scores on both sides
+BF16_GRAD_TOL = 1e-2  # bf16 gradients, relative to max(max|.|, 1); _fused_bwd rounds S to bf16
 NEG_INF = -1e9
+DTYPES = ("float32", "bfloat16")
 
 # (name, B, H, Nq, Nk, dqk, dv, bias shape) of each case; the bias shapes
 # are the ones the attention paths give: a full (B, H, Nq, Nk) rel-pos +
@@ -34,6 +43,7 @@ CASES = {
     "keymask": (2, 2, 13, 19, 16, 16, "b11k"),
     "keymask-shared": (2, 2, 7, 10, 12, 12, "111k"),
     "dqk-ne-dv": (2, 2, 21, 29, 90, 70, "bhqk"),
+    "lm-causal": (2, 3, 37, 37, 64, 64, "bhqk"),   # the LM's head width and causal mask
 }
 
 
@@ -54,6 +64,8 @@ def case_inputs(name, seed=0, masked_row=False):
         bias = np.zeros(shape, np.float32)
     lengths = np.linspace(nk // 2, nk, shape[0]).astype(int)
     bias = np.where(np.arange(nk) >= lengths[:, None, None, None], NEG_INF, bias)
+    if name == "lm-causal":
+        bias = np.where(np.arange(nk) > np.arange(nq)[:, None], NEG_INF, bias)
     if masked_row:
         bias[0, 0, min(1, shape[2] - 1), :] = NEG_INF
     q = rng.standard_normal((b, h, nq, dqk)).astype(np.float32)
@@ -62,31 +74,55 @@ def case_inputs(name, seed=0, masked_row=False):
     return q, k, v, bias.astype(np.float32), 1.0 / np.sqrt(dqk)
 
 
-def port_forward(q, k, v, bias, scale):
-    o, lse = BA.bias_attention(*map(torch.from_numpy, (q, k, v, bias)), scale)
-    return o.numpy(), lse.numpy()
+def port_forward(q, k, v, bias, scale, dtype="float32"):
+    """(o, lse) as fp32 / fp64 numpy; q, k, v rounded to ``dtype``, the
+    bias fp32."""
+    t = getattr(torch, dtype)
+    o, lse = BA.bias_attention(*(torch.from_numpy(a).to(t) for a in (q, k, v)),
+                               torch.from_numpy(bias), scale)
+    assert o.dtype == t
+    return o.float().numpy(), lse.numpy()
 
 
+def jax_inputs(q, k, v, bias, dtype="float32"):
+    """The same inputs for the JAX package: q, k, v as ``dtype``, the bias fp32."""
+    return [jnp.asarray(a, dtype=getattr(jnp, dtype)) for a in (q, k, v)] + [jnp.asarray(bias)]
+
+
+def f32(x):
+    return np.asarray(x, dtype=np.float32)
+
+
+def o_tol(dtype):
+    return TOL if dtype == "float32" else BF16_O_TOL
+
+
+def lse_tol(dtype):
+    return TOL if dtype == "float32" else BF16_LSE_TOL
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", list(CASES))
-def test_forward_matches_the_single_block_kernel(interpret_mode, name):
+def test_forward_matches_the_single_block_kernel(interpret_mode, name, dtype):
     """O against fused_bias_attention, O and LSE against _fused_forward."""
     q, k, v, bias, scale = case_inputs(name)
-    o, lse = port_forward(q, k, v, bias, scale)
-    jq, jk, jv, jb = map(jnp.asarray, (q, k, v, bias))
+    o, lse = port_forward(q, k, v, bias, scale, dtype)
+    jq, jk, jv, jb = jax_inputs(q, k, v, bias, dtype)
     want = pa.fused_bias_attention(jq, jk, jv, jb, scale)
-    np.testing.assert_allclose(o, np.asarray(want), rtol=0, atol=TOL)
+    np.testing.assert_allclose(o, f32(want), rtol=0, atol=o_tol(dtype))
     want_o, want_lse = pa._fused_forward(jq, jk, jv, jb, scale)
-    np.testing.assert_allclose(o, np.asarray(want_o), rtol=0, atol=TOL)
-    np.testing.assert_allclose(lse, np.asarray(want_lse), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(o, f32(want_o), rtol=0, atol=o_tol(dtype))
+    np.testing.assert_allclose(lse, np.asarray(want_lse), rtol=lse_tol(dtype), atol=lse_tol(dtype))
 
 
-@pytest.mark.parametrize("name", ["full", "keymask", "dqk-ne-dv"])
-def test_forward_matches_the_key_tiled_kernel(interpret_mode, name):
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["full", "keymask", "dqk-ne-dv", "lm-causal"])
+def test_forward_matches_the_key_tiled_kernel(interpret_mode, name, dtype):
     q, k, v, bias, scale = case_inputs(name, seed=1)
-    o, lse = port_forward(q, k, v, bias, scale)
-    want_o, want_lse = pa._flash_forward(*map(jnp.asarray, (q, k, v, bias)), scale)
-    np.testing.assert_allclose(o, np.asarray(want_o), rtol=0, atol=TOL)
-    np.testing.assert_allclose(lse, np.asarray(want_lse), rtol=TOL, atol=TOL)
+    o, lse = port_forward(q, k, v, bias, scale, dtype)
+    want_o, want_lse = pa._flash_forward(*jax_inputs(q, k, v, bias, dtype), scale)
+    np.testing.assert_allclose(o, f32(want_o), rtol=0, atol=o_tol(dtype))
+    np.testing.assert_allclose(lse, np.asarray(want_lse), rtol=lse_tol(dtype), atol=lse_tol(dtype))
 
 
 def test_fully_masked_row_averages_the_real_keys(interpret_mode):
@@ -110,34 +146,46 @@ def test_fully_masked_row_averages_the_real_keys(interpret_mode):
     np.testing.assert_allclose(o, np.asarray(want_o), rtol=0, atol=TOL)
 
 
-def port_grads(q, k, v, bias, scale, do, bias_grad=True):
-    """(dq, dk, dv, dbias) of <O, dO> through the port's autograd Function."""
-    tq, tk, tv, tb = (torch.from_numpy(a).requires_grad_() for a in (q, k, v, bias))
-    tb.requires_grad_(bias_grad)
+def port_grads(q, k, v, bias, scale, do, bias_grad=True, dtype="float32"):
+    """(dq, dk, dv, dbias) of <O, dO> through the port's autograd Function,
+    as fp32 numpy; q, k, v and dO rounded to ``dtype``, the bias fp32."""
+    t = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(t).requires_grad_() for a in (q, k, v))
+    tb = torch.from_numpy(bias).requires_grad_(bias_grad)
     o, _ = BA.bias_attention(tq, tk, tv, tb, scale)
-    o.backward(torch.from_numpy(do))
-    return tuple(t.grad.numpy() if t.grad is not None else None for t in (tq, tk, tv, tb))
+    o.backward(torch.from_numpy(do).to(t))
+    assert tq.grad.dtype == t and (tb.grad is None or tb.grad.dtype == torch.float32)
+    return tuple(x.grad.float().numpy() if x.grad is not None else None for x in (tq, tk, tv, tb))
 
 
+def assert_grad_close(got, want, dtype, label):
+    """fp32: within TOL; bf16: within BF16_GRAD_TOL of max(max|want|, 1)."""
+    want = f32(want)
+    tol = TOL if dtype == "float32" else BF16_GRAD_TOL * max(np.abs(want).max(), 1.0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=label)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("masked_row", [False, True])
 @pytest.mark.parametrize("name", list(CASES))
-def test_backward_matches_fused_bwd(interpret_mode, name, masked_row):
+def test_backward_matches_fused_bwd(interpret_mode, name, masked_row, dtype):
     """dq, dk, dv and the bias gradient, summed over the bias's broadcast
     axes, against jax.vjp through fused_bias_attention (its _fused_bwd)."""
     q, k, v, bias, scale = case_inputs(name, seed=3, masked_row=masked_row)
     do = np.random.default_rng(4).standard_normal(q.shape[:3] + v.shape[-1:]).astype(np.float32)
-    got = port_grads(q, k, v, bias, scale, do)
+    got = port_grads(q, k, v, bias, scale, do, dtype=dtype)
     _, vjp = jax.vjp(lambda *a: pa.fused_bias_attention(*a, scale),
-                     *map(jnp.asarray, (q, k, v, bias)))
-    want = vjp(jnp.asarray(do))
+                     *jax_inputs(q, k, v, bias, dtype))
+    want = vjp(jnp.asarray(do, dtype=getattr(jnp, dtype)))
     assert got[3].shape == bias.shape
     for label, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
-        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=TOL, err_msg=label)
-    np.testing.assert_allclose(got[3].sum(), float(np.asarray(want[3]).sum()), rtol=0, atol=TOL)
+        assert_grad_close(g, w, dtype, label)
+    assert_grad_close(got[3].sum(), f32(want[3]).sum(), dtype, "sum of dbias")
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", ["keymask", "keymask-shared", "dqk-ne-dv"])
-def test_backward_matches_the_tiled_pallas_backward(interpret_mode, monkeypatch, name):
+def test_backward_matches_the_tiled_pallas_backward(interpret_mode, monkeypatch, name, dtype):
     """dq, dk, dv against _flash_backward (the JAX package's Pallas backward
     for a key mask, forced with PALLAS_BWD) on a key mask; the port's mask
     takes no gradient."""
@@ -146,13 +194,13 @@ def test_backward_matches_the_tiled_pallas_backward(interpret_mode, monkeypatch,
     if name == "dqk-ne-dv":
         bias = bias[:, :1, :1, :]
     do = np.random.default_rng(6).standard_normal(q.shape[:3] + v.shape[-1:]).astype(np.float32)
-    got = port_grads(q, k, v, bias, scale, do, bias_grad=False)
-    jargs = list(map(jnp.asarray, (q, k, v, bias)))
+    got = port_grads(q, k, v, bias, scale, do, bias_grad=False, dtype=dtype)
+    jargs = jax_inputs(q, k, v, bias, dtype)
     o, lse = pa._dispatch_forward(*jargs, scale, with_lse=True)
-    want = pa._flash_backward(*jargs, o, lse, jnp.asarray(do), scale)
+    want = pa._flash_backward(*jargs, o, lse, jnp.asarray(do, dtype=getattr(jnp, dtype)), scale)
     assert got[3] is None
     for label, g, w in zip(("dq", "dk", "dv"), got, want):
-        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=TOL, err_msg=label)
+        assert_grad_close(g, w, dtype, label)
 
 
 def test_plain_backward_is_the_vjp_of_the_plain_forward():

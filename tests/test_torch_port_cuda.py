@@ -428,3 +428,74 @@ def test_bias_autograd_through_both_kernels(cuda, layout):
     assert grads[0][3].shape == args[3].shape
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * max(1.0, want.abs().max().item()))
+
+
+def heads_view(t):
+    """A (B, H, N, d) tensor as the attention module passes it: a head-split
+    view of a (B, N, H, d) projection."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,nq,nk,dqk,dv,bias16", [
+    (8, 12, 101, 101, 64, 64, False),      # the LM's shape and fp32 bias: the one-pass backward
+    (8, 12, 101, 101, 64, 64, True),       # the same with a bf16 bias
+    (4, 4, 130, 130, 90, 70, False),       # two passes: N > 128, widths not multiples of 16,
+                                           # rows not 16-byte aligned
+    (3, 2, 45, 70, 32, 48, False),         # one pass, Nq != Nk
+    (2, 3, 50, 50, 36, 20, False),         # one pass, rows copied element by element
+    (2, 2, 40, 140, 64, 64, False),        # two passes: Nk > 128
+])
+def test_bias_tensor_core_route_matches_plain_version(cuda, b, h, nq, nk, dqk, dv, bias16):
+    """bf16 forward and backward through the tensor-core kernels, on
+    strided heads with one fully masked row, vs the plain versions on the
+    same bf16 inputs; the route counters show that both went through them.
+    The backward runs in one pass at Nq, Nk <= 128 and widths <= 64, else
+    in two."""
+    q, k, v, bias, scale = bias_case(cuda, b, h, nq, nk, dqk, dv, "bhqk", seed=nq + dqk,
+                                     dtype=torch.bfloat16, masked_row=True)
+    q, k, v = (heads_view(t) for t in (q, k, v))
+    assert not q.is_contiguous()
+    if bias16:
+        bias = bias.bfloat16()
+    BA.bias_attention.launches = BA.bias_attention.tc_launches = 0
+    BA.bias_attention_bwd.launches = BA.bias_attention_bwd.tc_launches = 0
+    o, lse = BA.bias_attention_fwd(q, k, v, bias, scale)
+    want_o, want_lse = BA.reference_bias_attention(q, k, v, bias, scale)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float64
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=0, atol=BF16_TOL)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=BF16_TOL)
+    torch.testing.assert_close(o[0, 0, 1].float(), v[0, 0].float().mean(0), rtol=0, atol=BF16_TOL)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(nk)).to(cuda, torch.bfloat16)
+    got = BA.bias_attention_bwd(q, k, v, bias, o, do, lse, scale)
+    want = BA.reference_bias_attention_bwd(q, k, v, bias, do, scale)
+    assert got[0].dtype == torch.bfloat16 and got[3].dtype == torch.float32
+    assert_bias_grads_close(got, want, BF16_TOL)
+    assert (BA.bias_attention.launches, BA.bias_attention.tc_launches) == (1, 1)
+    assert (BA.bias_attention_bwd.launches, BA.bias_attention_bwd.tc_launches) == (1, 1)
+
+
+@pytest.mark.gpu
+def test_bias_route_is_chosen_by_dtype(cuda):
+    """fp32 goes through the FMA kernels, bf16 through the tensor-core ones,
+    forward and backward, by the route counters."""
+    args = bias_case(cuda, 2, 3, 45, 45, 64, 64, "bhqk", seed=6)
+    for dtype, tc in ((torch.float32, 0), (torch.bfloat16, 1)):
+        q, k, v = (t.to(dtype).requires_grad_() for t in args[:3])
+        BA.bias_attention.launches = BA.bias_attention.tc_launches = 0
+        BA.bias_attention_bwd.launches = BA.bias_attention_bwd.tc_launches = 0
+        o, _ = BA.bias_attention(q, k, v, args[3], args[4])
+        o.float().sum().backward()
+        assert (BA.bias_attention.launches, BA.bias_attention.tc_launches) == (1, tc)
+        assert (BA.bias_attention_bwd.launches, BA.bias_attention_bwd.tc_launches) == (1, tc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d", [(101, 64), (130, 64)])   # one pass, two passes
+def test_bias_tensor_core_backward_is_bitwise_repeatable(cuda, n, d):
+    args = bias_case(cuda, 8, 12, n, n, d, d, "bhqk", seed=3, dtype=torch.bfloat16)
+    o, lse = BA.bias_attention_fwd(*args)
+    do = torch.randn_like(o)
+    first = BA.bias_attention_bwd(*args[:4], o, do, lse, args[4])
+    second = BA.bias_attention_bwd(*args[:4], o, do, lse, args[4])
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

@@ -172,6 +172,26 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
     assert '"ok": true' not in out.stdout
 
 
+def test_bias_probe_fails_without_a_gpu_and_loads_no_jax():
+    """scripts/torch_bias_attention_probe.py, like chip_smoke.py, measures
+    on a card only, and loads nothing of JAX or the JAX package."""
+    code = textwrap.dedent("""
+        import runpy, sys
+        sys.argv = ["torch_bias_attention_probe.py", "probe"]
+        try:
+            runpy.run_path("scripts/torch_bias_attention_probe.py", run_name="__main__")
+        except SystemExit as exit_:
+            print("EXIT", exit_.code)
+        print("LOADED", sorted(m for m in sys.modules if m == "jax" or m.startswith(
+            ("jax.", "jaxlib", "flax", "efficientconformer_tpu"))))
+    """)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert "EXIT torch_bias_attention_probe: no CUDA device" in out.stdout, out.stdout + out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_wrapper_has_no_path_for_other_devices():
     args = [torch.empty(1, 2, 3, 4, device="meta")] * 3
     with pytest.raises(ValueError, match="no kernel for device"):
