@@ -15,17 +15,24 @@ the card. Phases, one line each; any failure exits non-zero:
   1. device     CUDA present; card name and power limit; TF32 off
   2. build      all six kernels, from the sources in this checkout, one
                 nvcc each, started together; ptxas registers, spills; the
-                rel-pos kernels' shared memory at both models' stage shapes,
+                rel-pos kernels' shared memory on both routes at the stage
+                shapes of all twelve ASR configs and which route takes each,
                 the bias kernels' at the LM's widths on both routes (bf16:
                 the tensor-core kernels, fp32: the FMA kernels)
   3. kernel     the rel-pos forward kernel vs its plain version at the CTC
-                inference shapes (10 s of audio, batch 8, ragged key masks),
-                fp32 and bf16; then kernel, plain and library timed at b128
-  4. kernel-bwd the rel-pos backward kernel vs its plain version at the CTC
-                training shapes (16 s, batch 8), fp32 and bf16; then timed
-                at batch 32, bf16
+                inference shapes (10 s of audio, batch 8, ragged key masks):
+                fp32 on the FMA kernel, bf16 on the tensor-core kernel
+                (route counters), each vs the fp32 plain version on the
+                same inputs; then timed at b128 from CUDA graphs (device
+                time) beside eager calls, the plain version, the bound and
+                the library (SDPA's memory-efficient kernel on the
+                augmented features)
+  4. kernel-bwd the rel-pos backward kernels likewise at the CTC training
+                shapes (16 s, batch 8); then timed at batch 32, bf16
   5. requests   a ragged batch (2.5 s, 6 s, 10 s) decoded through
-                greedy_decode (CTC) in bf16; 15 forward launches
+                greedy_decode (CTC) in bf16; 15 forward launches, all on the
+                tensor-core route (as in every bf16 phase below; every fp32
+                slice is all on the FMA route)
   6. slice      full-width fp32 CTC logits through the kernel vs the plain
                 version on the card, and vs the CPU
   7. rate       batch 128 x 10 s greedy CTC decode in bf16: audio-s/s
@@ -37,7 +44,8 @@ the card. Phases, one line each; any failure exits non-zero:
                 audio-s/s, peak memory, launches per step
  11. t-kernel   both rel-pos kernels vs their plain versions at Transducer
                 Small's 16 s stage shapes (head widths 75/35/50, rel widths
-                100/140/200, batch 8, ragged key masks), fp32 and bf16
+                100/140/200, batch 8, ragged key masks), fp32 and bf16, as
+                in 3 and 4
  12. rnnt-kernel  both RNN-T lattice kernels vs their plain versions at the
                 Transducer's training shape (B 16, T 201, U+1 91, ragged
                 lengths with f_len = T, y_len = 0 and y_len = U) and at
@@ -84,8 +92,9 @@ the card. Phases, one line each; any failure exits non-zero:
                 step (60 / 60, all on the tensor-core route), model FLOPs
                 over the bf16 peak
 
-Then one JSON line with each kernel's launches, error, times and bound, and
-last {"ok": true, "device": {...}}. With --profile it also prints a
+Then one JSON line with each kernel's launches, error, times and bound (the
+rel-pos entries also with their bf16 error, tensor-core launches and eager
+per-call ms), and last {"ok": true, "device": {...}}. With --profile it also prints a
 torch.profiler device-time breakdown of one batch or step of each path.
 There is no CPU path: without a GPU the script exits non-zero and prints no
 result. Imports nothing of JAX.
@@ -109,6 +118,8 @@ import torch
 import torch.nn.functional as F
 
 CONFIG = "configs/EfficientConformerCTCSmall.json"
+ASR_CONFIGS = [f"configs/{arch}{head}{size}.json" for arch in ("Conformer", "EfficientConformer")
+               for head in ("CTC", "Transducer") for size in ("Small", "Medium", "Large")]
 T_CONFIG = "configs/EfficientConformerTransducerSmall.json"
 LM_CONFIG = "configs/LM-Transformer.json"
 SEED = 0
@@ -126,6 +137,9 @@ TRAIN_BATCH = 32             # the config's batch_size; accumulated_steps 2
 GRAD_TOL = 1e-4              # fp32 backward kernel vs plain, relative to max(max|.|, 1):
                              # per-token gradients and the batch sums dW, ddelta, dbias
 GRAD_BF16_TOL = 2e-2         # bf16: gradients rounded to bf16, Di from the bf16 O
+# The rel-pos tensor-core kernels also round W, delta, the tables, qv, A, P,
+# dS and dpq to bf16 where the TPU kernel does; they are held within the two
+# bf16 bounds above to the fp32 plain version on the same bf16 qu, k and v.
 TRAIN_LOSS_RTOL = 1e-4       # fp32 step, kernels vs plain versions, and card vs CPU
 TRAIN_GRAD_TOL = 1e-3        # per parameter, relative to max(max|g|, 1): fp32 sums in
                              # another order through 15 blocks and 31 BatchNorms
@@ -222,8 +236,11 @@ def attention_cost(b, n, dh, d, h, itemsize, backward):
 
 
 def augmented(args):
-    """[qu | A] and [k | keytab] of the factorized attention (A formed with
-    plain torch), the inputs of the library yardstick."""
+    """[qu | A], [k | keytab] (A formed with plain torch) and v, each
+    zero-padded to a multiple of 8 columns, and the key mask in bf16: the
+    inputs of the library yardstick. Zero columns change neither the scores
+    nor the other columns of O; without them (widths 210, 300, 90, 42, 60)
+    scaled_dot_product_attention falls back to its fp32 math path."""
     qu, k, v, delta, w, rowtab, keytab, bias, scale = args
     qv = qu.float() + delta[None, :, None, :]
     pq = torch.einsum("bhnd,hdk->bhnk", qv, w)
@@ -233,7 +250,34 @@ def augmented(args):
                    sin * pq[..., hd:] - cos * pq[..., :hd]], dim=-1)
     qa = torch.cat([qu, a.to(qu.dtype)], dim=-1)
     ka = torch.cat([k, keytab.to(k.dtype).expand(k.shape[0], k.shape[1], -1, -1)], dim=-1)
-    return qa.contiguous(), ka.contiguous(), v.contiguous(), bias.to(qu.dtype)
+    return pad8(qa), pad8(ka), pad8(v), bias.to(qu.dtype)
+
+
+def pad8(t):
+    return F.pad(t, (0, -t.shape[-1] % 8)).contiguous()
+
+
+def sdpa_yardstick(qa, ka, v, mask, scale, do=None):
+    """(fn, backend): scaled_dot_product_attention on the augmented features
+    (forward, or forward and backward against ``do``) restricted to its
+    memory-efficient kernel, the one that takes these widths and a float
+    mask; where that refuses them, PyTorch's own choice ("default")."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        o = F.scaled_dot_product_attention(qa, ka, v, attn_mask=mask, scale=scale)
+        return o if do is None else torch.autograd.grad(o, (qa, ka, v), do)
+
+    def efficient():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return call()
+
+    try:
+        efficient()
+        torch.cuda.synchronize()
+    except RuntimeError:
+        return call, "default"
+    return efficient, "efficient"
 
 
 # ---------------------------------------------------------------- inputs
@@ -322,60 +366,84 @@ def perturb_norms_(model):
 # ---------------------------------------------------------------- phases
 
 
-def check_forward(phase, enc_params, seconds, gen):
-    """The rel-pos forward kernel vs its plain version at the stage shapes
-    of ``seconds`` of audio, fp32 and bf16; the largest fp32 error."""
+def rel_counts():
     from efficientconformer_torch.ops import rel_attention as RA
 
-    max_err = 0.0
+    return (RA.relpos_attention.launches, RA.relpos_attention.tc_launches,
+            RA.relpos_attention_bwd.launches, RA.relpos_attention_bwd.tc_launches)
+
+
+def reset_rel_counts():
+    from efficientconformer_torch.ops import rel_attention as RA
+
+    RA.relpos_attention.launches = RA.relpos_attention.tc_launches = 0
+    RA.relpos_attention_bwd.launches = RA.relpos_attention_bwd.tc_launches = 0
+
+
+def check_forward(phase, enc_params, seconds, gen):
+    """The rel-pos forward kernel vs its plain version at the stage shapes
+    of ``seconds`` of audio: fp32 (the FMA kernel) and bf16 (the
+    tensor-core kernel, by the route counters), each vs the fp32 plain
+    version on the same inputs. The largest fp32 and bf16 errors."""
+    from efficientconformer_torch.ops import rel_attention as RA
+
+    max_err = max_err16 = 0.0
     for name, n, dh, d, h, g in stage_shapes(enc_params, seconds):
         args = attention_inputs(CHECK_BATCH, n, dh, d, h, g, "cuda", gen)
+        reset_rel_counts()
         o_k, lse_k = RA.relpos_attention(*args)
         o_p, lse_p = RA.reference_relpos_attention(*args)
         torch.cuda.synchronize()
+        check(rel_counts()[:2] == (1, 0), f"{name} fp32: route counts {rel_counts()}")
         err_o = (o_k - o_p).abs().max().item()
         err_lse = (lse_k - lse_p).abs().max().item()
         check(err_o <= KERNEL_FP32_TOL and err_lse <= KERNEL_FP32_TOL,
               f"{name} fp32: |O| {err_o} |LSE| {err_lse} > {KERNEL_FP32_TOL}")
-        qkv16 = [t.to(torch.bfloat16) for t in args[:3]]
-        o_b, _ = RA.relpos_attention(*qkv16, *args[3:])
-        o_bp, _ = RA.reference_relpos_attention(*[t.float() for t in qkv16], *args[3:])
+        args16 = [t.to(torch.bfloat16) for t in args[:3]] + list(args[3:])
+        o_b, _ = RA.relpos_attention(*args16)
+        o_bp, _ = RA.reference_relpos_attention(*[t.float() for t in args16[:3]], *args[3:])
+        torch.cuda.synchronize()
+        check(rel_counts()[:2] == (2, 1), f"{name} bf16: route counts {rel_counts()}, "
+              "expected the tensor-core kernel")
         err_b = (o_b.float() - o_bp).abs().max().item()
         check(o_b.dtype == torch.bfloat16 and err_b <= KERNEL_BF16_TOL,
               f"{name} bf16: |O| {err_b} > {KERNEL_BF16_TOL}")
-        max_err = max(max_err, err_o, err_lse)
+        max_err, max_err16 = max(max_err, err_o, err_lse), max(max_err16, err_b)
         say(phase, shape=name, B=CHECK_BATCH, N=n, dh=dh, D=d, H=h, G=g,
-            fp32_err_o=f"{err_o:.3g}", fp32_err_lse=f"{err_lse:.3g}", bf16_err_o=f"{err_b:.3g}")
-    return max_err
+            fp32_err_o=f"{err_o:.3g}", fp32_err_lse=f"{err_lse:.3g}", bf16_err_o=f"{err_b:.3g}",
+            route="fma/tensor-core")
+    return max_err, max_err16
 
 
 def phase_kernel(enc_params):
+    """The forward checked at the inference stage shapes, then timed at
+    b128 in bf16: the kernel, its fp32 route and the library from CUDA
+    graphs (device time; *_ms), the kernel also per eager call (host time
+    included; kernel_call_ms), the plain version per eager call, and the
+    bound. The library's backend stands in each line."""
     from efficientconformer_torch.ops import rel_attention as RA
 
     gen = torch.Generator().manual_seed(SEED)
     shapes = stage_shapes(enc_params, TIME_SECONDS)
-    max_err = check_forward("kernel", enc_params, TIME_SECONDS, gen)
-    times = {"kernel": 0.0, "plain": 0.0, "kernel_fp32": 0.0, "plain_fp32": 0.0,
+    max_err, max_err16 = check_forward("kernel", enc_params, TIME_SECONDS, gen)
+    times = {"kernel": 0.0, "kernel_call": 0.0, "plain": 0.0, "kernel_fp32": 0.0,
              "library": 0.0, "bound": 0.0}
     for name, n, dh, d, h, g in shapes:
         args = attention_inputs(TIME_BATCH, n, dh, d, h, g, "cuda", gen)
         args16 = [t.to(torch.bfloat16) for t in args[:3]] + list(args[3:])
-        qa, ka, v, mask = augmented(args16)
-        row = {}
-        for label, fn, a in (("plain_fp32", RA.reference_relpos_attention, args),
-                             ("kernel_fp32", RA.relpos_attention, args),
-                             ("plain", RA.reference_relpos_attention, args16),
-                             ("kernel", RA.relpos_attention, args16)):
-            row[label] = cuda_ms(lambda: fn(*a))
-        row["library"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qa, ka, v, attn_mask=mask, scale=args[8]))
+        library, backend = sdpa_yardstick(*augmented(args16), args[8])
+        row = {"kernel": graph_ms(lambda: RA.relpos_attention_fwd(*args16)),
+               "kernel_call": cuda_ms(lambda: RA.relpos_attention_fwd(*args16)),
+               "plain": cuda_ms(lambda: RA.reference_relpos_attention(*args16)),
+               "kernel_fp32": graph_ms(lambda: RA.relpos_attention_fwd(*args)),
+               "library": graph_ms(library)}
         row["bound"], bound_by = bound(*attention_cost(TIME_BATCH, n, dh, d, h, 2, False))
         for label, value in row.items():
             times[label] += value
         say("kernel-time", shape=name, B=TIME_BATCH, bound_by=bound_by,
-            **{f"{k}_ms": f"{v:.4f}" for k, v in row.items()})
+            library=f"sdpa_{backend}", **{f"{k}_ms": f"{v:.4f}" for k, v in row.items()})
     times["bound_by"] = bound_by
-    return max_err, times
+    return max_err, max_err16, times
 
 
 def grad_errors(got, want):
@@ -386,17 +454,20 @@ def grad_errors(got, want):
 
 
 def check_backward(phase, enc_params, seconds, gen):
-    """The rel-pos backward kernel at the stage shapes of ``seconds`` of
-    audio: fp32 against the plain backward on the same o, LSE and dO; bf16
-    against the plain backward on the same bf16-rounded inputs. The largest
-    fp32 error."""
+    """The rel-pos backward kernels at the stage shapes of ``seconds`` of
+    audio: fp32 (the FMA kernels) against the plain backward on the same o,
+    LSE and dO; bf16 (the tensor-core kernels, by the route counters)
+    against the plain backward on the same bf16 inputs, twice, the second
+    bitwise equal to the first. The largest fp32 error
+    and the largest bf16 relative error."""
     from efficientconformer_torch.ops import rel_attention as RA
 
-    max_err = 0.0
+    max_err = max_err16 = 0.0
     for name, n, dh, d, h, g in stage_shapes(enc_params, seconds):
         args = attention_inputs(CHECK_BATCH, n, dh, d, h, g, "cuda", gen)
         o, lse = RA.reference_relpos_attention(*args)
         do = torch.randn(o.shape, generator=gen).cuda()
+        reset_rel_counts()
         got = RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
         want = RA.reference_relpos_attention_bwd(*args[:8], do, lse, args[8])
         torch.cuda.synchronize()
@@ -405,77 +476,87 @@ def check_backward(phase, enc_params, seconds, gen):
         args16 = [t.to(torch.bfloat16) for t in args[:3]] + list(args[3:])
         o16, lse16 = RA.relpos_attention_fwd(*args16)
         got16 = RA.relpos_attention_bwd(*args16[:8], o16, do.bfloat16(), lse16, args[8])
+        again = RA.relpos_attention_bwd(*args16[:8], o16, do.bfloat16(), lse16, args[8])
         want16 = RA.reference_relpos_attention_bwd(*args16[:8], do.bfloat16(), lse16, args[8])
+        torch.cuda.synchronize()
+        check(rel_counts()[2:] == (3, 2), f"{name}: backward route counts {rel_counts()[2:]}, "
+              "expected fp32 on the FMA kernels and bf16 on the tensor cores")
+        check(all(torch.equal(a, b) for a, b in zip(got16, again)),
+              f"{name} bf16 backward is not bitwise repeatable")
         err16 = grad_errors(got16, want16)
         check(got16[0].dtype == torch.bfloat16 and max(err16.values()) <= GRAD_BF16_TOL,
               f"{name} bf16 backward: {err16} > {GRAD_BF16_TOL}")
         max_err = max(max_err, *[(a.float() - b.float()).abs().max().item()
                                  for a, b in zip(got, want)])
+        max_err16 = max(max_err16, *err16.values())
         say(phase, shape=name, B=CHECK_BATCH, N=n, dh=dh, D=d, H=h, G=g,
-            fp32_rel_err=f"{max(err.values()):.3g}", bf16_rel_err=f"{max(err16.values()):.3g}")
-    return max_err
+            fp32_rel_err=f"{max(err.values()):.3g}", bf16_rel_err=f"{max(err16.values()):.3g}",
+            bf16_repeatable="bitwise")
+    return max_err, max_err16
 
 
 def phase_kernel_bwd(enc_params):
-    """The backward kernel checked at the training stage shapes, then timed
-    at batch 32, bf16, beside the plain version and the library yardstick
-    (forward and backward of scaled_dot_product_attention on the augmented
-    features)."""
+    """The backward kernels checked at the training stage shapes, then timed
+    at batch 32, bf16, as phase_kernel times the forward; the library
+    yardstick is the forward and backward of scaled_dot_product_attention
+    on the augmented features."""
     from efficientconformer_torch.ops import rel_attention as RA
 
     gen = torch.Generator().manual_seed(SEED + 2)
     shapes = stage_shapes(enc_params, TRAIN_SECONDS)
-    max_err = check_backward("kernel-bwd", enc_params, TRAIN_SECONDS, gen)
-    times = {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0}
+    max_err, max_err16 = check_backward("kernel-bwd", enc_params, TRAIN_SECONDS, gen)
+    times = {"kernel": 0.0, "kernel_call": 0.0, "plain": 0.0, "kernel_fp32": 0.0,
+             "library": 0.0, "bound": 0.0}
     for name, n, dh, d, h, g in shapes:
         args = attention_inputs(TRAIN_BATCH, n, dh, d, h, g, "cuda", gen)
         args16 = [t.to(torch.bfloat16) for t in args[:3]] + list(args[3:])
         o, lse = RA.relpos_attention_fwd(*args16)
+        o32, lse32 = RA.relpos_attention_fwd(*args)
         do = torch.randn(o.shape, generator=gen).to("cuda", torch.bfloat16)
+        do32 = do.float()
         qa, ka, v, mask = augmented(args16)
         qa, ka, v = (t.detach().requires_grad_() for t in (qa, ka, v))
-        do_lib = do.contiguous()
+        library, backend = sdpa_yardstick(qa, ka, v, mask, args[8], pad8(do))
 
-        def library():
-            F.scaled_dot_product_attention(qa, ka, v, attn_mask=mask, scale=args[8]).backward(do_lib)
+        def kernel():
+            return RA.relpos_attention_bwd(*args16[:8], o, do, lse, args[8], need_dbias=False)
 
-        row = {
-            "plain": cuda_ms(lambda: RA.reference_relpos_attention_bwd(
-                *args16[:8], do, lse, args[8])),
-            "kernel": cuda_ms(lambda: RA.relpos_attention_bwd(
-                *args16[:8], o, do, lse, args[8], need_dbias=False)),
-            "library": cuda_ms(library),
-        }
+        row = {"kernel": graph_ms(kernel), "kernel_call": cuda_ms(kernel),
+               "plain": cuda_ms(lambda: RA.reference_relpos_attention_bwd(
+                   *args16[:8], do, lse, args[8])),
+               "kernel_fp32": graph_ms(lambda: RA.relpos_attention_bwd(
+                   *args[:8], o32, do32, lse32, args[8], need_dbias=False)),
+               "library": graph_ms(library)}
         row["bound"], bound_by = bound(*attention_cost(TRAIN_BATCH, n, dh, d, h, 2, True))
         for label, value in row.items():
             times[label] += value
         say("kernel-bwd-time", shape=name, B=TRAIN_BATCH, N=n, bound_by=bound_by,
-            **{f"{k}_ms": f"{v:.4f}" for k, v in row.items()})
+            library=f"sdpa_{backend}", **{f"{k}_ms": f"{v:.4f}" for k, v in row.items()})
     times["bound_by"] = bound_by
-    return max_err, times
+    return max_err, max_err16, times
 
 
 def phase_requests():
     from efficientconformer_torch.config import encoder_output_frames, load_config
     from efficientconformer_torch.models.model_ctc import greedy_decode
-    from efficientconformer_torch.ops import rel_attention as RA
 
     enc_params = load_config(CONFIG)["encoder_params"]
     model = make_model("cuda", torch.bfloat16)
     x, x_len = ragged_audio(REQUEST_SECONDS, "cuda", np.random.default_rng(SEED))
-    RA.relpos_attention.launches = 0
+    reset_rel_counts()
     tokens, counts = greedy_decode(model, x, x_len)
     torch.cuda.synchronize()
-    launches = RA.relpos_attention.launches
+    launches, tc = rel_counts()[:2]
     n_att = len(model.encoder.blocks)
-    check(launches == n_att, f"{launches} kernel launches for one forward, expected {n_att}")
+    check(launches == n_att and tc == n_att, f"{launches} kernel launches for one forward, "
+          f"{tc} on the tensor cores, expected {n_att} each")
     frames = [encoder_output_frames(enc_params, int(s * SAMPLE_RATE)) for s in REQUEST_SECONDS]
     counts = counts.tolist()
     check(all(0 <= c <= f for c, f in zip(counts, frames)), f"token counts {counts} vs {frames}")
     check(tokens.shape == (len(REQUEST_SECONDS), max(frames)), f"tokens {tuple(tokens.shape)}")
     say("requests", seconds=list(REQUEST_SECONDS), frames=frames, tokens=counts,
-        launches=launches)
-    return launches
+        launches=launches, tc_launches=tc)
+    return launches, tc
 
 
 def phase_slice():
@@ -485,8 +566,13 @@ def phase_slice():
     enc_params = load_config(CONFIG)["encoder_params"]
     model = make_model("cuda", torch.float32)
     x, x_len = ragged_audio(REQUEST_SECONDS, "cuda", np.random.default_rng(SEED))
+    reset_rel_counts()
     with torch.inference_mode():
         logits_k, len_k = model(x, x_len)
+        torch.cuda.synchronize()
+        counts = rel_counts()[:2]
+        check(counts == (len(model.encoder.blocks), 0), f"fp32 launches {counts}, expected "
+              "every one on the FMA route")
         with mock.patch.object(RA, "relpos_attention", RA.reference_relpos_attention):
             logits_p, len_p = model(x, x_len)
     frames = [encoder_output_frames(enc_params, int(s * SAMPLE_RATE)) for s in REQUEST_SECONDS]
@@ -505,7 +591,7 @@ def phase_slice():
     err_cpu = (logits_k.cpu() - logits_c).abs()[valid.cpu()].max().item()
     check(err_cpu <= SLICE_TOL, f"card vs CPU logits |diff| {err_cpu} > {SLICE_TOL}")
     say("slice", dtype="float32", max_abs_diff=f"{err:.3g}", argmax_agreement=f"{agree:.6f}",
-        cpu_max_abs_diff=f"{err_cpu:.3g}", frames=frames)
+        cpu_max_abs_diff=f"{err_cpu:.3g}", frames=frames, launches=counts[0], route="fma")
 
 
 def phase_rate(card_line: str):
@@ -516,9 +602,13 @@ def phase_rate(card_line: str):
     rng = np.random.default_rng(SEED)
     x = torch.from_numpy((rng.standard_normal((TIME_BATCH, n)) * 0.1).astype(np.float32)).cuda()
     x_len = torch.full((TIME_BATCH,), n, device="cuda")
-    for _ in range(2):
-        greedy_decode(model, x, x_len)
+    greedy_decode(model, x, x_len)
+    reset_rel_counts()
+    greedy_decode(model, x, x_len)
     torch.cuda.synchronize()
+    launches, tc = rel_counts()[:2]
+    check(launches == tc == len(model.encoder.blocks),
+          f"rel-pos launches {launches}, {tc} on the tensor cores, for one batch")
     torch.cuda.reset_peak_memory_stats()
     iters = 10
     t0 = time.perf_counter()
@@ -529,7 +619,8 @@ def phase_rate(card_line: str):
     check(bool((counts >= 0).all()), "negative token counts")
     say("rate", batch=TIME_BATCH, seconds=TIME_SECONDS, dtype="bfloat16",
         ms_per_batch=f"{dt * 1e3:.2f}", audio_s_per_s=f"{TIME_BATCH * TIME_SECONDS / dt:.1f}",
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", card=f"'{card_line}'")
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", launches=launches,
+        tc_launches=tc, card=f"'{card_line}'")
 
 
 # ---------------------------------------------------------------- training
@@ -637,22 +728,21 @@ def compare_steps(kernel, cfg, batch) -> dict:
 
 
 def phase_train_slice():
-    from efficientconformer_torch.ops import rel_attention as RA
-
     cfg = train_config(mixed_precision=False)
     cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
     seconds = [[4.0, 5.5, 7.0, 8.0], [8.0, 6.5, 4.5, 5.0]]
     batch = train_batch(2, 4, seconds, [12, 30, 0, 20], "cpu", np.random.default_rng(SEED))
-    RA.relpos_attention.launches = RA.relpos_attention_bwd.launches = 0
+    reset_rel_counts()
     kernel = one_step(cfg, "cuda", batch)
     torch.cuda.synchronize()
-    fwd, bwd = RA.relpos_attention.launches, RA.relpos_attention_bwd.launches
+    fwd, fwd_tc, bwd, bwd_tc = rel_counts()
     n_att = cfg["encoder_params"]["num_blocks"] * 2      # one attention layer per block
     check(fwd == n_att and bwd == n_att, f"{fwd} forward / {bwd} backward launches, "
           f"expected {n_att} each for 2 microbatches")
+    check(fwd_tc == bwd_tc == 0, f"fp32 step: tensor-core launches {fwd_tc} / {bwd_tc}")
     out = compare_steps(kernel, cfg, batch)
     say("train-slice", dtype="float32", loss=f"{kernel[0]:.6f}", grad_norm=f"{kernel[1]:.6f}",
-        fwd_launches=fwd, bwd_launches=bwd, **out)
+        fwd_launches=fwd, bwd_launches=bwd, route="fma", **out)
 
 
 def phase_train_learns():
@@ -685,19 +775,19 @@ def rate_trainer():
 
 
 def phase_train_rate(card_line: str):
-    from efficientconformer_torch.ops import rel_attention as RA
-
     trainer, batch = rate_trainer()
     accum, b, t = batch["audio"].shape
     trainer.train_step(batch)
     torch.cuda.synchronize()
-    RA.relpos_attention.launches = RA.relpos_attention_bwd.launches = 0
+    reset_rel_counts()
     trainer.train_step(batch)
     torch.cuda.synchronize()
-    fwd, bwd = RA.relpos_attention.launches, RA.relpos_attention_bwd.launches
+    fwd, fwd_tc, bwd, bwd_tc = rel_counts()
     n_att = trainer.config["encoder_params"]["num_blocks"] * accum
     check(fwd == n_att and bwd == n_att,
           f"{fwd} forward / {bwd} backward launches in one step, expected {n_att} each")
+    check(fwd_tc == fwd and bwd_tc == bwd, f"tensor-core launches {fwd_tc} / {bwd_tc}, "
+          "expected every launch")
     torch.cuda.reset_peak_memory_stats()
     iters = 5
     t0 = time.perf_counter()
@@ -711,8 +801,8 @@ def phase_train_rate(card_line: str):
         ms_per_step=f"{dt * 1e3:.2f}", audio_s_per_s=f"{audio_s / dt:.1f}",
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         loss=f"{float(loss):.4f}", grad_norm=f"{float(grad_norm):.4f}",
-        fwd_launches=fwd, bwd_launches=bwd, card=f"'{card_line}'")
-    return bwd
+        fwd_launches=fwd, bwd_launches=bwd, tc_launches=(fwd_tc, bwd_tc), card=f"'{card_line}'")
+    return bwd, bwd_tc
 
 
 # ---------------------------------------------------------------- Transducer
@@ -827,18 +917,18 @@ def t_encoder_params() -> dict:
 def phase_t_requests():
     from efficientconformer_torch.config import encoder_output_frames
     from efficientconformer_torch.models import transducer as T
-    from efficientconformer_torch.ops import rel_attention as RA
 
     t_enc = t_encoder_params()
     model = make_transducer("cuda", torch.bfloat16)
     x, x_len = ragged_audio(REQUEST_SECONDS, "cuda", np.random.default_rng(SEED))
     cap = T.greedy_token_cap(t_enc, x.shape[1], MAX_CONSEC)
-    RA.relpos_attention.launches = 0
+    reset_rel_counts()
     tokens, counts = T.greedy_decode(model, x, x_len, cap, MAX_CONSEC)
     torch.cuda.synchronize()
-    launches = RA.relpos_attention.launches
+    launches, tc = rel_counts()[:2]
     n_att = len(model.encoder.blocks)
-    check(launches == n_att, f"{launches} kernel launches for one encode, expected {n_att}")
+    check(launches == n_att and tc == n_att, f"{launches} kernel launches for one encode, "
+          f"{tc} on the tensor cores, expected {n_att} each")
     frame_tokens, frame_counts = T.greedy_decode(model, x, x_len, cap, MAX_CONSEC, algo="frame")
     check(torch.equal(tokens, frame_tokens) and torch.equal(counts, frame_counts),
           f"label loop {counts.tolist()} != frame loop {frame_counts.tolist()}")
@@ -847,8 +937,8 @@ def phase_t_requests():
     check(all(0 < c <= MAX_CONSEC * f for c, f in zip(counts, frames)), f"counts {counts}")
     check(tokens.shape == (len(REQUEST_SECONDS), cap), f"tokens {tuple(tokens.shape)}")
     say("t-requests", seconds=list(REQUEST_SECONDS), frames=frames, tokens=counts, cap=cap,
-        launches=launches, frame_loop="equal")
-    return launches
+        launches=launches, tc_launches=tc, frame_loop="equal")
+    return launches, tc
 
 
 def phase_t_slice():
@@ -858,8 +948,13 @@ def phase_t_slice():
     x, x_len = ragged_audio(REQUEST_SECONDS, "cuda", np.random.default_rng(SEED))
     y, y_len = t_batch_labels(len(REQUEST_SECONDS), 30, SEED)
     y = y.cuda()
+    reset_rel_counts()
     with torch.inference_mode():
         logits_k, len_k = model(x, y, x_len, y_len.cuda())
+        torch.cuda.synchronize()
+        counts = rel_counts()[:2]
+        check(counts == (len(model.encoder.blocks), 0), f"fp32 launches {counts}, expected "
+              "every one on the FMA route")
         with plain_kernels():
             logits_p, len_p = model(x, y, x_len, y_len.cuda())
     check(torch.equal(len_k, len_p), f"lengths {len_k.tolist()} / {len_p.tolist()}")
@@ -883,7 +978,7 @@ def phase_t_slice():
           f"greedy tokens kernel {n_k.tolist()} vs plain {n_p.tolist()}")
     say("t-slice", dtype="float32", lattice=tuple(logits_k.shape), max_abs_diff=f"{err:.3g}",
         cpu_max_abs_diff=f"{err_cpu:.3g}", cpu_argmax_agreement=f"{agree:.6f}",
-        greedy_tokens=n_k.tolist(), greedy_kernel_vs_plain="equal")
+        greedy_tokens=n_k.tolist(), greedy_kernel_vs_plain="equal", route="fma")
 
 
 def phase_t_rate(card_line: str):
@@ -895,8 +990,12 @@ def phase_t_rate(card_line: str):
     x = torch.from_numpy((rng.standard_normal((T_RATE_BATCH, n)) * 0.1).astype(np.float32)).cuda()
     x_len = torch.full((T_RATE_BATCH,), n, device="cuda")
     cap = T.greedy_token_cap(t_encoder_params(), n, MAX_CONSEC)
+    reset_rel_counts()
     T.greedy_decode(model, x, x_len, cap, MAX_CONSEC)
     torch.cuda.synchronize()
+    launches, tc = rel_counts()[:2]
+    check(launches == tc == len(model.encoder.blocks),
+          f"rel-pos launches {launches}, {tc} on the tensor cores, for one batch")
     torch.cuda.reset_peak_memory_stats()
     iters = 3
     t0 = time.perf_counter()
@@ -909,7 +1008,8 @@ def phase_t_rate(card_line: str):
         ms_per_batch=f"{dt * 1e3:.2f}", audio_s_per_s=f"{T_RATE_BATCH * TIME_SECONDS / dt:.1f}",
         tokens_per_utt=f"{counts.float().mean().item():.1f}", token_cap=cap,
         loop_iterations=int(counts.max()) + 1,
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", card=f"'{card_line}'")
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", launches=launches,
+        tc_launches=tc, card=f"'{card_line}'")
 
 
 def launch_counts():
@@ -922,11 +1022,10 @@ def launch_counts():
 
 def reset_launch_counts():
     from efficientconformer_torch.ops import bias_attention as BA
-    from efficientconformer_torch.ops import rel_attention as RA
     from efficientconformer_torch.ops import rnnt_loss as RL
 
     RL.rnnt_alphas.launches = RL.rnnt_grads.launches = 0
-    RA.relpos_attention.launches = RA.relpos_attention_bwd.launches = 0
+    reset_rel_counts()
     BA.bias_attention.launches = BA.bias_attention_bwd.launches = 0
     BA.bias_attention.tc_launches = BA.bias_attention_bwd.tc_launches = 0
 
@@ -958,9 +1057,10 @@ def phase_t_train_slice():
     n_att = cfg["encoder_params"]["num_blocks"] * 2
     check(counts == (2, 2, n_att, n_att), f"launches (RNN-T fwd, bwd, rel-pos fwd, bwd) "
           f"{counts}, expected (2, 2, {n_att}, {n_att}) for 2 microbatches")
+    check(rel_counts()[1::2] == (0, 0), f"fp32 step: tensor-core launches {rel_counts()}")
     out = compare_steps(kernel, cfg, batch)
     say("t-train-slice", dtype="float32", loss=f"{kernel[0]:.6f}", grad_norm=f"{kernel[1]:.6f}",
-        launches=counts, **out)
+        launches=counts, route="fma", **out)
 
 
 def phase_t_train_learns():
@@ -1004,6 +1104,8 @@ def phase_t_train_rate(card_line: str):
     n_att = trainer.config["encoder_params"]["num_blocks"] * accum
     check(counts == (accum, accum, n_att, n_att), f"launches (RNN-T fwd, bwd, rel-pos fwd, "
           f"bwd) {counts} in one step, expected ({accum}, {accum}, {n_att}, {n_att})")
+    tc = rel_counts()[1::2]
+    check(tc == (n_att, n_att), f"rel-pos tensor-core launches {tc}, expected every launch")
     torch.cuda.reset_peak_memory_stats()
     iters = 3
     t0 = time.perf_counter()
@@ -1025,9 +1127,9 @@ def phase_t_train_rate(card_line: str):
         labels=batch["labels"].shape[-1], dtype="bfloat16", ms_per_step=f"{dt * 1e3:.2f}",
         audio_s_per_s=f"{audio_s / dt:.1f}", peak_mem_gib=f"{peak:.2f}",
         loss=f"{float(loss):.4f}", grad_norm=f"{float(grad_norm):.4f}",
-        launches=counts, vn_step_ms=f"{dt_vn * 1e3:.2f}", vn_loss=f"{float(loss_vn):.4f}",
-        card=f"'{card_line}'")
-    return counts
+        launches=counts, tc_launches=tc, vn_step_ms=f"{dt_vn * 1e3:.2f}",
+        vn_loss=f"{float(loss_vn):.4f}", card=f"'{card_line}'")
+    return counts + tc
 
 
 # ---------------------------------------------------------------- LM-Transformer
@@ -1488,21 +1590,20 @@ def main() -> int:
     # the rel-pos kernels' shared memory is dynamic, so ptxas does not report it
     enc_params = load_config(CONFIG)["encoder_params"]
     t_cfg = load_config(T_CONFIG)
-    fwd_lib, bwd_lib = _kernels.load(RA.KERNEL), _kernels.load(RA.KERNEL_BWD)
-    RA._bind(fwd_lib)
-    RA._bind_bwd(bwd_lib)
-    # at the widths of the other Efficient Conformer Transducers too, which
-    # the port refuses (ROADMAP Queue 1 item 16)
-    for path in (CONFIG, T_CONFIG, "configs/EfficientConformerTransducerMedium.json",
-                 "configs/EfficientConformerTransducerLarge.json"):
+    # at the stage shapes of all twelve ASR configs (ROADMAP Queue 1 item 16),
+    # on both routes
+    for path in ASR_CONFIGS:
         for name, n, dh, d, h, g in stage_shapes(load_config(path)["encoder_params"],
                                                  TRAIN_SECONDS):
-            fwd_b = fwd_lib.ecf_relpos_attention_fwd_smem(dh, d)
-            bwd_b = bwd_lib.ecf_relpos_attention_bwd_smem(dh, d)
-            takes = dh <= 128 and max(fwd_b, bwd_b) <= RA._SMEM_LIMIT and dh + d <= 416
+            row = {}
+            for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "fma")):
+                fwd_b, bwd_b = RA.smem_bytes(dtype, dh, d)
+                takes = [RA.refusal(dtype, dh, d, backward) is None for backward in (0, 1)]
+                row.update({f"{route}_fwd_bytes": fwd_b, f"{route}_bwd_bytes": bwd_b,
+                            f"{route}_takes": "both" if all(takes) else
+                            "forward" if takes[0] else "no"})
             say("build-smem", config=path.split("/")[-1].removesuffix(".json"), shape=name,
-                dh=dh, rel_width=d, fwd_bytes=fwd_b, bwd_bytes=bwd_b, limit=RA._SMEM_LIMIT,
-                takes="yes" if takes else "no")
+                dh=dh, rel_width=d, limit=RA.SMEM_LIMIT, **row)
 
     dh = lm_params()["dim_model"] // lm_params()["num_heads"]
     for dtype, route in ((torch.bfloat16, "tensor-core"), (torch.float32, "fma")):
@@ -1512,23 +1613,25 @@ def main() -> int:
                 N=n, dh=dh, fwd_bytes=fwd_b,
                 bwd_bytes="/".join(map(str, bwd_b)) + (" (one pass)" if len(bwd_b) == 1 else ""))
 
-    max_err, times = phase_kernel(enc_params)
-    max_err_bwd, times_bwd = phase_kernel_bwd(enc_params)
-    launches = phase_requests()
+    max_err, err16, times = phase_kernel(enc_params)
+    max_err_bwd, err16_bwd, times_bwd = phase_kernel_bwd(enc_params)
+    launches, fwd_tc = phase_requests()
     phase_slice()
     phase_rate(card_line)
     phase_train_slice()
     phase_train_learns()
-    launches_bwd = phase_train_rate(card_line)
-    t_err, t_err_bwd = phase_t_kernel(t_cfg["encoder_params"])
+    launches_bwd, tc_bwd = phase_train_rate(card_line)
+    (t_err, t_err16), (t_err_bwd, t_err16_bwd) = phase_t_kernel(t_cfg["encoder_params"])
     err_rnnt, times_rnnt, err_rnnt_bwd, times_rnnt_bwd = phase_rnnt_kernel(t_cfg)
-    t_launches = phase_t_requests()
+    t_launches, t_tc = phase_t_requests()
     phase_t_slice()
     phase_t_rate(card_line)
     phase_t_train_slice()
     phase_t_train_learns()
-    rnnt_fwd, rnnt_bwd, t_fwd, t_bwd = phase_t_train_rate(card_line)
+    rnnt_fwd, rnnt_bwd, t_fwd, t_bwd, t_fwd_tc, t_bwd_tc = phase_t_train_rate(card_line)
     check(t_launches > 0 and t_fwd > 0 and t_bwd > 0, "the Transducer paths missed a kernel")
+    check(t_tc == t_launches and t_fwd_tc == t_fwd and t_bwd_tc == t_bwd,
+          "a bf16 Transducer path missed the tensor-core route")
     err_bias, times_bias, err_bias_bwd, times_bias_bwd = phase_lm_kernel()
     phase_lm_slice()
     lm_score_launches = phase_lm_score_rate(card_line)
@@ -1541,18 +1644,25 @@ def main() -> int:
 
     # bias_attention_fwd also replaces _flash_kernel (pallas_attention.py:272),
     # bias_attention_bwd also _bwd_dkv_kernel (:446)
-    def entry(name, source, replaces, n, err, t):
+    def entry(name, source, replaces, n, err, t, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n, "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
-                "bound_ms": t["bound"], "bound_by": t["bound_by"], "library_ms": t["library"]}
+                "bound_ms": t["bound"], "bound_by": t["bound_by"], "library_ms": t["library"],
+                **extra}
 
+    # the rel-pos entries: ms and library_ms from CUDA graphs (device time),
+    # eager_ms per eager call; max_abs_err fp32 (the FMA route), bf16_max_err
+    # the tensor-core route's (the backward's relative to max(max|g|, 1))
     print(json.dumps({"kernels": [
         entry(RA.KERNEL, "efficientconformer_torch/csrc/rel_attention_fwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:122", launches,
-              max(max_err, t_err), times),
+              max(max_err, t_err), times, bf16_max_err=max(err16, t_err16),
+              tc_launches=fwd_tc, graph_ms=times["kernel"], eager_ms=times["kernel_call"]),
         entry(RA.KERNEL_BWD, "efficientconformer_torch/csrc/rel_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:139", launches_bwd,
-              max(max_err_bwd, t_err_bwd), times_bwd),
+              max(max_err_bwd, t_err_bwd), times_bwd,
+              bf16_max_err=max(err16_bwd, t_err16_bwd), tc_launches=tc_bwd,
+              graph_ms=times_bwd["kernel"], eager_ms=times_bwd["kernel_call"]),
         entry(RL.KERNEL_FWD, "efficientconformer_torch/csrc/rnnt_fwd.cu",
               "efficientconformer_tpu/ops/pallas_rnnt.py:73", rnnt_fwd, err_rnnt, times_rnnt),
         entry(RL.KERNEL_BWD, "efficientconformer_torch/csrc/rnnt_bwd.cu",

@@ -126,6 +126,60 @@ inline bool vec16(const void* ptr, int64_t sb, int64_t sh, int64_t sn, int width
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 
+// The widest piece (16, 4 or 2 bytes) in which every row of a strided bf16
+// matrix can be copied: 16 as vec16; 4 when the base is 4-byte aligned and
+// the strides and the width are even; 2 otherwise (an odd head width).
+inline int copy_bytes(const void* ptr, int64_t sb, int64_t sh, int64_t sn, int width) {
+  if (vec16(ptr, sb, sh, sn, width)) return 16;
+  if (reinterpret_cast<uintptr_t>(ptr) % 4 == 0 && sb % 2 == 0 && sh % 2 == 0 && sn % 2 == 0 &&
+      width % 2 == 0) {
+    return 4;
+  }
+  return 2;
+}
+
+// Eight bf16 into 16-byte-aligned shared dst: elements [0, n) from src, the
+// rest zero; src must be a valid address even when n <= 0 (nothing is read
+// then). bytes is what the source allows (copy_bytes): one 16-byte cp.async,
+// four 4-byte ones (n even), or 2-byte loads and stores (done on return);
+// cp.async completes through cp_async_wait.
+__device__ __forceinline__ void copy8(bf16* dst, const bf16* src, int n, int bytes) {
+  if (n >= 8 && bytes == 16) {
+    cp_async16(dst, src, true);
+  } else if (n <= 0) {
+    cp_async16(dst, src, false);
+  } else if (bytes >= 4 && (n & 1) == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) cp_async4(dst + 2 * i, 2 * i < n ? src + 2 * i : src, 2 * i < n);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[i] = i < n ? src[i] : __float2bfloat16(0.f);
+  }
+}
+
+// Rows [0, rows) of shared [.][lds] (runtime stride) to rows [row0, row0 +
+// rows) of a (nrows, width) bf16 matrix with row stride ld_g, by `nlanes`
+// threads numbered `lane`, in pieces of `bytes` (copy_bytes of the output).
+__device__ __forceinline__ void store_rows_rt(bf16* dst, int64_t ld_g, const bf16* src, int lds,
+                                              int rows, int row0, int nrows, int width,
+                                              int bytes, int lane, int nlanes) {
+  const int per = bytes == 16 ? 8 : bytes == 4 ? 2 : 1;   // elements a piece
+  const int npc = width / per;
+  for (int i = lane; i < rows * npc; i += nlanes) {
+    const int r = i / npc, col = (i - r * npc) * per;
+    if (row0 + r >= nrows) continue;
+    bf16* d = dst + (row0 + r) * ld_g + col;
+    const bf16* s = src + r * lds + col;
+    if (per == 8) {
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+    } else if (per == 2) {
+      *reinterpret_cast<uint32_t*>(d) = *reinterpret_cast<const uint32_t*>(s);
+    } else {
+      *d = *s;
+    }
+  }
+}
+
 // Rows [row0, row0 + ROWS) of a (nrows, width) bf16 matrix with row stride
 // ld_g into shared [ROWS][LD], by all NTHREADS threads; width <= DMAX.
 // Rows past nrows and columns in [width, round16(width)) are zero. With vec,

@@ -12,37 +12,53 @@
 // and writes O in the input type and the row log-sum-exp in fp32. The plain
 // PyTorch version is reference_relpos_attention in ops/rel_attention.py.
 //
-// What bounds it on the H100: at the flagship's sizes (N = 126..251 rows,
-// head widths 42/60/90, rel widths 120..240) a (batch, head) is a few MFLOP
-// over a few tens of KB, so the kernel is compute-bound on the SM, not on
-// HBM. None of the widths is a multiple of 16, which the tensor-core
-// instructions need, so this kernel runs fp32 FMAs, and what limits FMAs fed
-// from shared memory is the shared-memory bandwidth (32 words per clock per
-// SM, against 128 FMA per clock).
+// What bounds it on the H100: at the flagship's inference shapes (b128 x
+// 10 s: N = 167/251/126 rows, head widths 90/42/60, rel widths
+// 120/168/240) the bytes (qu, k, v and O in bf16, small tables) and the
+// products (2 B H N (N (2 dh + D) + dh D) = 4-18 GFLOP a shape, on the bf16
+// tensor cores) bound it about equally: 0.046 ms over the three shapes. What
+// sets the pace is the instructions around the products (PERF.md).
 //
-// What the design does about it: one thread block per (64 query rows, head,
-// batch). The block forms its A rows once, in shared memory beside the qu
-// tile (stored feature-major, so 4 rows are one 16-byte load), as a
-// register-tiled product with W staged through shared memory, and the score
-// of a (row, key) pair is one dot product of the augmented features
-// [qu | A] and [k | keytab]. Each thread owns a 4x4 tile of scores: per
-// feature it makes one 16-byte load and four 4-byte loads for 16 FMAs. Keys
-// stream in tiles of 64, their augmented features in double-buffered chunks
-// of 32 (they share shared memory with the probabilities, which are never
-// live at the same time, so two blocks fit on an SM at every flagship
-// shape). The online softmax (running max, denominator) lives in registers,
-// and so does each thread's 4-row slice of the output accumulator, so no
-// (N, Nk) tensor exists anywhere. Padding to tensor-core shapes (mma/wgmma,
-// TMA) is later work.
+// Two routes, chosen by the inputs' type:
 //
-// Inputs: qu, k, v of type T (float or bf16) with arbitrary batch/head/row
-// strides and unit feature stride; delta, w, rowtab, keytab and bias in fp32
-// and contiguous; bias is (B or 1, Nk) with batch stride bias_sb (0 when it
-// broadcasts). The kernel allocates nothing and does not synchronise.
+//   * bf16, relpos_fwd_tc_kernel: the tensor-core design (relpos_tc.cuh).
+//     One block of four warps per (64 query rows, head, batch), each warp 16
+//     rows. The block copies its qu rows into shared memory (bf16, widths
+//     zero-padded to 16; 16-byte cp.async where the strides allow, 4-byte
+//     where they are even, 2-byte for an odd head width) and forms A beside
+//     them on mma.sync: [P | Q] = bf16(qu + delta) W in chunks of 32 paired
+//     columns, each warp rotating its own rows in fp32 registers and
+//     rounding A to bf16 (the TPU kernel's a.astype(keytab.dtype)). Keys
+//     then stream in tiles of 64: a content step brings the tile's k and v
+//     (S = qu k^T), then the keytab rows come in chunks of 64 columns (S +=
+//     A keytab^T, into the same accumulators), double-buffered: the next
+//     step's copies fly while this step's products run, so no width is
+//     bounded by shared memory (the widest shipped shape, D 720, takes
+//     177,152 bytes). The online softmax keeps each row's max and sum in
+//     fp32 registers; P, rounded to bf16, is the A fragment of P v straight
+//     from the accumulators (FlashAttention-2's register reuse). About 100
+//     KB of shared memory at the flagship's shapes: two blocks an SM.
+//   * fp32, relpos_fwd_kernel<float, J>: fp32 FMAs from shared memory (TF32
+//     products would miss the fp32 checks). The block forms its A rows
+//     feature-major beside the qu tile as a register-tiled product; each
+//     thread owns a 4 x 4 tile of scores, one 16-byte and four 4-byte loads
+//     per 16 FMAs, keys in tiles of 64 and their augmented features in
+//     double-buffered chunks of 32. It takes head widths up to 128.
+//
+// Both keep the online softmax in registers, so no (N, Nk) tensor exists
+// anywhere; keys past Nk are excluded by the kernels themselves.
+//
+// Inputs: qu, k, v (fp32 or bf16) with arbitrary batch/head/row strides and
+// unit feature stride; the fp32 route takes delta, w, rowtab and keytab in
+// fp32, the bf16 route in bf16 at the padded widths of relpos_tc.cuh, all
+// contiguous; bias is fp32 (B or 1, Nk) with batch stride bias_sb (0 when it
+// broadcasts). The kernels allocate nothing and do not synchronise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "relpos_tc.cuh"
 
 namespace {
 
@@ -61,14 +77,10 @@ constexpr int WCHUNK = 32;      // rows of W staged at a time while forming A
 static_assert(NTHREADS == 16 * 16 && BQ == 4 * 16 && BK == 4 * 16, "thread grid");
 static_assert(DC * BK % NTHREADS == 0 && NTHREADS % DC == 0, "chunk loader");
 
+// the FMA kernel's element type is float (bf16 takes the tensor cores)
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Params {
   const void* qu;
@@ -347,45 +359,302 @@ __global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
   }
 }
 
-template <typename T, int JMAX>
-cudaError_t launch_j(const Params& p, int batch, int heads, size_t bytes, cudaStream_t stream) {
-  const void* fn = reinterpret_cast<const void*>(&relpos_fwd_kernel<T, JMAX>);
+// ------------------------------------------------ bf16: the tensor cores
+
+constexpr int TC_BK = 64;   // keys a tile
+
+struct TcParams {
+  const tc::bf16* qu;
+  const tc::bf16* k;
+  const tc::bf16* v;
+  rtc::RelTab rt;       // padded bf16 delta, W and tables
+  const float* bias;    // (B or 1, Nk) or null
+  tc::bf16* o;
+  float* lse;           // (B, H, N)
+  int n, nk, dh;
+  int64_t qu_sb, qu_sh, qu_sn;
+  int64_t k_sb, k_sh, k_sn;
+  int64_t v_sb, v_sh, v_sn;
+  int64_t o_sb, o_sh, o_sn;
+  int64_t bias_sb;
+  float scale;
+  int qu_bytes, k_bytes, v_bytes, o_bytes;   // widest copies the strides allow (tc::copy_bytes)
+};
+
+// bytes of shared memory: [qu | A] of the rows, then one region that first
+// holds form_a's scratch (qv, a W chunk) and then the key ring (two (k, v)
+// tile pairs and two keytab chunks)
+__host__ __device__ inline size_t tc_smem_bytes(int dhp, int d2p) {
+  const size_t lda = dhp + d2p + 8, ldt = dhp + 8;
+  const size_t prep = rtc::BQ * ldt + dhp * rtc::LDC;
+  const size_t ring = 2 * 2 * TC_BK * ldt + 2 * TC_BK * rtc::LDC;
+  return (rtc::BQ * lda + (prep > ring ? prep : ring)) * sizeof(tc::bf16);
+}
+
+// DMAX: the padded head width the registers are sized for (64, 96 or 144);
+// the loops stop at the real dhp.
+template <int DMAX>
+__global__ void __launch_bounds__(rtc::THREADS) relpos_fwd_tc_kernel(TcParams p) {
+  using tc::bf16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dhp = p.rt.dhp, hdp = p.rt.hdp, d2p = 2 * hdp;
+  const int lda = dhp + d2p + 8, ldt = dhp + 8, nd = dhp >> 4, ngr = dhp >> 3;
+  bf16* qa = reinterpret_cast<bf16*>(smem_raw);   // [64][lda]: [qu | A] of the rows
+  bf16* region = qa + rtc::BQ * lda;
+  bf16* kv = region;                              // [2][k [64][ldt], v [64][ldt]]
+  bf16* ch = region + 2 * 2 * TC_BK * ldt;        // [2][64][LDC]: keytab chunks
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int q0 = blockIdx.x * rtc::BQ, h = blockIdx.y, b = blockIdx.z;
+  const bf16* kp = p.k + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = p.v + b * p.v_sb + h * p.v_sh;
+  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
+
+  // 1. the qu rows (zero past N and dh), then A beside them
+  rtc::load_rows<rtc::BQ, DMAX / 8>(qa, lda, p.qu + b * p.qu_sb + h * p.qu_sh, p.qu_sn, q0, p.n,
+                                    p.dh, ngr, p.qu_bytes);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  rtc::form_a<DMAX>(qa, lda, region, region + rtc::BQ * ldt, p.rt, p.n, q0, h);
+
+  // 2. the key tiles: step 0 of a tile brings its k and v (and forms the
+  //    content scores), steps 1..nrel bring keytab chunks (the rel scores)
+  const int nrel = (d2p + rtc::KC - 1) / rtc::KC, nsteps = 1 + nrel;
+  const int total = (p.nk + TC_BK - 1) / TC_BK * nsteps;
+  auto load_step = [&](int st) {
+    const int t = st / nsteps, f = st - t * nsteps, k0 = t * TC_BK;
+    if (f == 0) {
+      bf16* kt = kv + (t & 1) * 2 * TC_BK * ldt;
+      rtc::load_rows<TC_BK, DMAX / 8>(kt, ldt, kp, p.k_sn, k0, p.nk, p.dh, ngr, p.k_bytes);
+      rtc::load_rows<TC_BK, DMAX / 8>(kt + TC_BK * ldt, ldt, vp, p.v_sn, k0, p.nk, p.dh, ngr,
+                                      p.v_bytes);
+    } else {
+      const int c0 = (f - 1) * rtc::KC;
+      rtc::load_rows<TC_BK, rtc::KC / 8>(ch + (st & 1) * TC_BK * rtc::LDC, rtc::LDC,
+                                         p.rt.keytab + c0, d2p, k0, p.nk, d2p - c0,
+                                         rtc::KC / 8, 16);
+    }
+  };
+
+  float o[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // rows g and g + 8 of the warp
+  float s[8][4];
+  // this lane's ldmatrix addresses (tc::a_lane / b_lane / bt_lane with the
+  // runtime row strides)
+  const uint32_t qa_a = tc::smem_addr(qa + (warp * 16 + (lane & 15)) * lda + ((lane >> 4) << 3));
+  const uint32_t k_b = tc::smem_addr(kv + ((lane & 7) + ((lane >> 4) << 3)) * ldt +
+                                     (((lane >> 3) & 1) << 3));
+  const uint32_t v_bt = tc::smem_addr(kv + TC_BK * ldt +
+                                      ((lane & 7) + (((lane >> 3) & 1) << 3)) * ldt +
+                                      ((lane >> 4) << 3));
+  const uint32_t ch_b = tc::b_lane<rtc::LDC>(ch, lane);
+  const uint32_t tile_bytes = 2 * TC_BK * ldt * 2, blk_row = 16 * ldt * 2;
+  constexpr uint32_t CH_BYTES = TC_BK * rtc::LDC * 2;
+
+  load_step(0);
+  tc::cp_async_commit();
+  for (int st = 0; st < total; ++st) {
+    tc::cp_async_wait<0>();
+    __syncthreads();   // step st landed for every thread; step st - 1's buffers are free
+    if (st + 1 < total) load_step(st + 1);
+    tc::cp_async_commit();
+    const int t = st / nsteps, f = st - t * nsteps;
+    if (f == 0) {   // S = qu k^T
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const uint32_t kb = k_b + (t & 1) * tile_bytes;
+#pragma unroll
+      for (int kk = 0; kk < DMAX / 16; ++kk) {
+        if (kk < nd) {
+          uint32_t a[4];
+          tc::ldsm_x4(a, qa_a + kk * 32);
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t bf[4];
+            tc::ldsm_x4(bf, kb + np * blk_row + kk * 32);
+            tc::mma_bf16(s[2 * np], a, bf[0], bf[1]);
+            tc::mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+          }
+        }
+      }
+    } else {        // S += A keytab^T over this chunk's features
+      const int c0 = (f - 1) * rtc::KC, ksteps = (d2p - c0) >> 4;
+      const uint32_t cb = ch_b + (st & 1) * CH_BYTES, ab = qa_a + (dhp + c0) * 2;
+#pragma unroll
+      for (int kk = 0; kk < rtc::KC / 16; ++kk) {
+        if (kk < ksteps) {
+          uint32_t a[4];
+          tc::ldsm_x4(a, ab + kk * 32);
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t bf[4];
+            tc::ldsm_x4(bf, cb + tc::blk<rtc::LDC>(np, kk));
+            tc::mma_bf16(s[2 * np], a, bf[0], bf[1]);
+            tc::mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    if (f != nsteps - 1) continue;
+
+    // scale and key bias in the accumulator's layout; keys past Nk excluded
+    const int k0 = t * TC_BK;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kj = k0 + j * 8 + 2 * c + e;
+        const bool ok = kj < p.nk;
+        const float kb = ok && bias ? bias[kj] : 0.f;
+        s[j][e] = ok ? s[j][e] * p.scale + kb : -INFINITY;
+        s[j][2 + e] = ok ? s[j][2 + e] * p.scale + kb : -INFINITY;
+      }
+    }
+    // online softmax; the four lanes of a quad share a row
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      const float alpha = __expf(m[hr] - m_new);   // key 0 is valid: m_new is finite
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][2 * hr] = __expf(s[j][2 * hr] - m_new);
+        s[j][2 * hr + 1] = __expf(s[j][2 * hr + 1] - m_new);
+        sum += s[j][2 * hr] + s[j][2 * hr + 1];
+      }
+      l[hr] = l[hr] * alpha + sum;   // this lane's part; the quad is summed at the end
+      m[hr] = m_new;
+#pragma unroll
+      for (int j = 0; j < DMAX / 8; ++j) {
+        o[j][2 * hr] *= alpha;
+        o[j][2 * hr + 1] *= alpha;
+      }
+    }
+    // O += P v, P as bf16 A fragments straight from the registers
+    const uint32_t vb = v_bt + (t & 1) * tile_bytes;
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      uint32_t a[4];
+      tc::acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < DMAX / 16; ++n2) {
+        if (n2 < nd) {
+          uint32_t bf[4];
+          tc::ldsm_x4_t(bf, vb + kk * blk_row + n2 * 32);
+          tc::mma_bf16(o[2 * n2], a, bf[0], bf[1]);
+          tc::mma_bf16(o[2 * n2 + 1], a, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // 3. normalise; O through the warp's own rows of qa (no other warp reads
+  //    them) to whole-row stores; the LSE in fp32
+  bf16* stage = qa + warp * 16 * lda;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    const float inv = 1.f / l[hr];
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+      if (j < 2 * nd) {
+        *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8 * hr) * lda + j * 8 + 2 * c) =
+            __floats2bfloat162_rn(o[j][2 * hr] * inv, o[j][2 * hr + 1] * inv);
+      }
+    }
+    const int qi = q0 + warp * 16 + g + 8 * hr;
+    if (c == 0 && qi < p.n) {
+      p.lse[(static_cast<int64_t>(b) * gridDim.y + h) * p.n + qi] = m[hr] + logf(l[hr]);
+    }
+  }
+  __syncwarp();
+  tc::store_rows_rt(p.o + b * p.o_sb + h * p.o_sh, p.o_sn, stage, lda, 16, q0 + warp * 16, p.n,
+                    p.dh, p.o_bytes, lane, 32);
+}
+
+cudaError_t prepare(const void* fn, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
+  return cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int JMAX>
+cudaError_t launch_j(const Params& p, int batch, int heads, size_t bytes, cudaStream_t stream) {
+  cudaError_t err = prepare(reinterpret_cast<const void*>(&relpos_fwd_kernel<float, JMAX>), bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.n + BQ - 1) / BQ, heads, batch);
-  relpos_fwd_kernel<T, JMAX><<<grid, NTHREADS, bytes, stream>>>(p);
+  relpos_fwd_kernel<float, JMAX><<<grid, NTHREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const Params& p, int batch, int heads, cudaStream_t stream) {
+cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stream) {
   const size_t bytes = smem_floats(p.dh, p.d2) * sizeof(float);
   if (p.dh > 128 || bytes > MAX_SMEM) return cudaErrorInvalidValue;
   switch (jmax_for(p.dh)) {
-    case 2: return launch_j<T, 2>(p, batch, heads, bytes, stream);
-    case 4: return launch_j<T, 4>(p, batch, heads, bytes, stream);
-    case 6: return launch_j<T, 6>(p, batch, heads, bytes, stream);
-    default: return launch_j<T, 8>(p, batch, heads, bytes, stream);
+    case 2: return launch_j<2>(p, batch, heads, bytes, stream);
+    case 4: return launch_j<4>(p, batch, heads, bytes, stream);
+    case 6: return launch_j<6>(p, batch, heads, bytes, stream);
+    default: return launch_j<8>(p, batch, heads, bytes, stream);
   }
 }
+
+// the padded head width the tensor-core kernel's registers are sized for
+inline int tc_dmax(int dhp) { return dhp <= 64 ? 64 : dhp <= 96 ? 96 : 144; }
+
+template <int DMAX>
+cudaError_t launch_tc_d(const TcParams& p, int batch, int heads, size_t bytes,
+                        cudaStream_t stream) {
+  cudaError_t err = prepare(reinterpret_cast<const void*>(&relpos_fwd_tc_kernel<DMAX>), bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n + rtc::BQ - 1) / rtc::BQ, heads, batch);
+  relpos_fwd_tc_kernel<DMAX><<<grid, rtc::THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const TcParams& p, int batch, int heads, cudaStream_t stream) {
+  const size_t bytes = tc_smem_bytes(p.rt.dhp, 2 * p.rt.hdp);
+  if (p.rt.dhp > 144 || bytes > MAX_SMEM) return cudaErrorInvalidValue;
+  switch (tc_dmax(p.rt.dhp)) {
+    case 64: return launch_tc_d<64>(p, batch, heads, bytes, stream);
+    case 96: return launch_tc_d<96>(p, batch, heads, bytes, stream);
+    default: return launch_tc_d<144>(p, batch, heads, bytes, stream);
+  }
+}
+
+// the bf16 route's padded widths
+inline int tc_dhp(int dh) { return tc::round16(dh); }
+inline int tc_d2p(int d2) { return 2 * rtc::round8(d2 / 2); }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs, in bytes, for head width dh and rel width d2.
-size_t ecf_relpos_attention_fwd_smem(int dh, int d2) {
+// Shared memory one block of the route for `dtype` (0 float32: the FMA
+// kernel, 1 bfloat16: the tensor-core kernel) needs at head width dh and rel
+// width d2, in bytes (ptxas reports none: it is sized at launch).
+size_t ecf_relpos_attention_fwd_smem(int dtype, int dh, int d2) {
+  if (dtype == 1) return tc_smem_bytes(tc_dhp(dh), tc_d2p(d2));
   return smem_floats(dh, d2) * sizeof(float);
 }
 
-// dtype: 0 = float32, 1 = bfloat16 for qu, k, v and o. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 for qu, k, v and o. float32 takes delta,
+// w, rowtab and keytab in fp32 at widths dh and d2; bfloat16 takes them in
+// bf16, padded as relpos_tc.cuh describes, with d2 the padded rel width.
+// Returns a cudaError_t.
 int ecf_relpos_attention_fwd(
-    int dtype, const void* qu, const void* k, const void* v, const float* delta,
-    const float* w, const float* rowtab, const float* keytab, const float* bias,
+    int dtype, const void* qu, const void* k, const void* v, const void* delta,
+    const void* w, const void* rowtab, const void* keytab, const float* bias,
     void* o, float* lse, int batch, int heads, int n, int nk, int dh, int d2,
     int64_t qu_sb, int64_t qu_sh, int64_t qu_sn, int64_t k_sb, int64_t k_sh,
     int64_t k_sn, int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb,
@@ -393,13 +662,26 @@ int ecf_relpos_attention_fwd(
   if (n <= 0 || nk <= 0 || dh <= 0 || d2 <= 0 || d2 % 2 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p{qu, k, v, delta, w, rowtab, keytab, bias, o, lse, n, nk, dh, d2,
-           qu_sb, qu_sh, qu_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn,
-           o_sb, o_sh, o_sn, bias_sb, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch<float>(p, batch, heads, s));
-  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16>(p, batch, heads, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    Params p{qu, k, v, static_cast<const float*>(delta), static_cast<const float*>(w),
+             static_cast<const float*>(rowtab), static_cast<const float*>(keytab), bias, o, lse,
+             n, nk, dh, d2, qu_sb, qu_sh, qu_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn,
+             o_sb, o_sh, o_sn, bias_sb, scale};
+    return static_cast<int>(launch_fp32(p, batch, heads, s));
+  }
+  if (dtype != 1 || d2 % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  using tc::bf16;
+  TcParams p{static_cast<const bf16*>(qu), static_cast<const bf16*>(k),
+             static_cast<const bf16*>(v),
+             {static_cast<const bf16*>(delta), static_cast<const bf16*>(w),
+              static_cast<const bf16*>(rowtab), static_cast<const bf16*>(keytab), tc_dhp(dh),
+              d2 / 2},
+             bias, static_cast<bf16*>(o), lse, n, nk, dh, qu_sb, qu_sh, qu_sn, k_sb, k_sh, k_sn,
+             v_sb, v_sh, v_sn, o_sb, o_sh, o_sn, bias_sb, scale,
+             tc::copy_bytes(qu, qu_sb, qu_sh, qu_sn, dh), tc::copy_bytes(k, k_sb, k_sh, k_sn, dh),
+             tc::copy_bytes(v, v_sb, v_sh, v_sn, dh), tc::copy_bytes(o, o_sb, o_sh, o_sn, dh)};
+  return static_cast<int>(launch_bf16(p, batch, heads, s));
 }
 
 const char* ecf_cuda_error_string(int err) {

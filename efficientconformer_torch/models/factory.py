@@ -66,6 +66,11 @@ def ctc_loss_fn(outputs, batch) -> torch.Tensor:
     return ctc_loss(lp, batch["labels"], f_len, batch["label_len"]).mean()
 
 
+# the CTC loss decides on the host which lattices are feasible, without a
+# synchronisation when it is given host labels: the Trainer keeps them there
+ctc_loss_fn.host_labels = True
+
+
 def transducer_loss_fn(outputs, batch) -> torch.Tensor:
     """Batch mean of the RNN-T loss of the joint lattice (factory.py:60-64)."""
     logits, f_len = outputs

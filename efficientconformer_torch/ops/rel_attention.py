@@ -21,17 +21,27 @@ Layout contract:
 
 ``relpos_attention`` is differentiable: forward and backward are one
 ``torch.autograd.Function``. Each direction runs its plain PyTorch version
-for CPU tensors and its CUDA kernel (csrc/rel_attention_fwd.cu,
-csrc/rel_attention_bwd.cu) for CUDA tensors; it has no other path. The
-forward returns (o in the dtype of qu, row log-sum-exp (B, H, N) fp32) and
-saves the log-sum-exp for the backward, which recomputes the probabilities
-from it. The tables get no gradient; the bias gets one only when it
-requires it.
+for CPU tensors and its CUDA kernels (csrc/rel_attention_fwd.cu,
+csrc/rel_attention_bwd.cu) for CUDA tensors; it has no other path. On the
+card the type of qu picks the route inside each kernel file, never a
+failure: bf16 runs the tensor-core kernels (mma.sync on bf16 tiles; counted
+in ``tc_launches``), which take delta, W and the tables in bf16 with the
+head width padded to a multiple of 16 and each half of the rel width to a
+multiple of 8 (``tc_layout``), as the JAX package casts the pos kernel and
+delta to the compute type; fp32 runs the FMA kernels in fp32 throughout.
+The forward returns (o in the dtype of qu, row log-sum-exp (B, H, N) fp32)
+and saves the log-sum-exp for the backward, which recomputes the
+probabilities from it. The tables get no gradient; the bias gets one only
+when it requires it. The plain versions compute in fp32 from the given
+inputs; the tensor-core kernels round where the TPU kernel rounds in bf16
+(qv, A before A keytab^T, P before P V and P^T dO, dS, dpq) and are held to
+the plain versions on the same bf16 qu, k, v.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,8 +50,54 @@ from efficientconformer_torch.ops import _kernels
 KERNEL = "rel_attention_fwd"
 KERNEL_BWD = "rel_attention_bwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
-_BQ = 64              # query rows per block of the backward's query-side pass
+SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
+FMA_MAX_DH = 128      # widest head the fp32 kernels take
+FMA_MAX_DA = 416      # widest dh + rel width the fp32 backward takes (the forward: any)
+TC_MAX_DHP = 144      # widest padded head the tensor-core kernels take
+_BQ = 64              # query rows per block of the backward's query-side passes
+
+
+def _round(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def tc_widths(dh: int, d2: int) -> tuple[int, int]:
+    """(dhp, hdp) of the bf16 route: the head width rounded up to 16, half
+    the rel width rounded up to 8."""
+    return _round(dh, 16), _round(d2 // 2, 8)
+
+
+def tc_layout(delta, w, rowtab, keytab):
+    """delta, W and the tables as the bf16 route takes them: bf16,
+    contiguous, the head width zero-padded to dhp and each half of the rel
+    width to hdp (``tc_widths``). Fed to the plain version with qu, k and v
+    zero-padded alike, they give the plain version's result on the
+    bf16-rounded values. Two launches a tensor (a zero fill and one cast
+    copy), one where nothing is padded."""
+    h, dh, d2 = w.shape
+    dhp, hdp = tc_widths(dh, d2)
+    hd = d2 // 2
+
+    def padded(t, real, shape):
+        if real == shape:
+            return t.to(torch.bfloat16).contiguous()
+        out = torch.zeros(shape, dtype=torch.bfloat16, device=t.device)
+        out[tuple(slice(0, r) for r in real)] = t.reshape(real)
+        return out
+
+    def halves(t, rows):
+        return padded(t, (rows, 2, hd), (rows, 2, hdp)).reshape(rows, 2 * hdp)
+
+    return (padded(delta, (h, dh), (h, dhp)),
+            padded(w, (h, dh, 2, hd), (h, dhp, 2, hdp)).reshape(h, dhp, 2 * hdp),
+            halves(rowtab, rowtab.shape[0]), halves(keytab, keytab.shape[0]))
+
+
+def tc_unpad(ddelta, dw, dh: int, d2: int):
+    """ddelta (H, dhp) and dW (H, dhp, 2 hdp) of the bf16 route back at
+    widths dh and d2: the inverse of tc_layout's padding."""
+    hd, hdp = d2 // 2, dw.shape[-1] // 2
+    return ddelta[:, :dh], torch.cat([dw[:, :dh, :hd], dw[:, :dh, hdp:hdp + hd]], dim=-1)
 
 
 def _scores(qu, k, delta, w, rowtab, keytab, bias, scale):
@@ -103,18 +159,21 @@ def relpos_attention(qu, k, v, delta, w, rowtab, keytab, bias, scale):
     return relpos_attention_fwd(qu, k, v, delta, w, rowtab, keytab, bias, scale)
 
 
-relpos_attention.launches = 0  # forward kernel launches since the caller last reset it
+relpos_attention.launches = 0     # forward kernel launches since the caller last reset it
+relpos_attention.tc_launches = 0  # of those, the bf16 tensor-core route's
 
 
 def relpos_attention_fwd(qu, k, v, delta, w, rowtab, keytab, bias, scale):
     """The forward alone: the plain version for CPU tensors, the kernel for
-    CUDA tensors (counted in ``relpos_attention.launches``)."""
+    CUDA tensors (counted in ``relpos_attention.launches``, the tensor-core
+    route's also in ``relpos_attention.tc_launches``)."""
     if qu.device.type == "cpu":
         return reference_relpos_attention(qu, k, v, delta, w, rowtab, keytab, bias, scale)
     if qu.device.type != "cuda":
         raise ValueError(f"relpos_attention: no kernel for device {qu.device}")
     o, lse = _launch(qu, k, v, delta, w, rowtab, keytab, bias, scale)
     relpos_attention.launches += 1
+    relpos_attention.tc_launches += qu.dtype == torch.bfloat16
     return o, lse
 
 
@@ -122,8 +181,9 @@ def relpos_attention_bwd(qu, k, v, delta, w, rowtab, keytab, bias, o, do, lse, s
                          need_dbias=True):
     """The backward alone, (dqu, dk, dv, ddelta, dw, dbias_hb): the plain
     version for CPU tensors, the kernel for CUDA tensors (counted in
-    ``relpos_attention_bwd.launches``). dbias_hb is None when the kernel is
-    not asked for it."""
+    ``relpos_attention_bwd.launches``, the tensor-core route's also in
+    ``relpos_attention_bwd.tc_launches``). dbias_hb is None when the kernel
+    is not asked for it."""
     if qu.device.type == "cpu":
         return reference_relpos_attention_bwd(qu, k, v, delta, w, rowtab, keytab, bias, do,
                                               lse, scale)
@@ -131,10 +191,12 @@ def relpos_attention_bwd(qu, k, v, delta, w, rowtab, keytab, bias, o, do, lse, s
         raise ValueError(f"relpos_attention_bwd: no kernel for device {qu.device}")
     grads = _launch_bwd(qu, k, v, delta, w, rowtab, keytab, bias, o, do, lse, scale, need_dbias)
     relpos_attention_bwd.launches += 1
+    relpos_attention_bwd.tc_launches += qu.dtype == torch.bfloat16
     return grads
 
 
-relpos_attention_bwd.launches = 0  # backward kernel launches since the caller last reset it
+relpos_attention_bwd.launches = 0     # backward kernel launches since the caller last reset it
+relpos_attention_bwd.tc_launches = 0  # of those, the bf16 tensor-core route's
 
 
 class _RelPosAttention(torch.autograd.Function):
@@ -168,34 +230,56 @@ class _RelPosAttention(torch.autograd.Function):
                 dw.to(w.dtype), None, None, dbias, None)
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.ecf_relpos_attention_fwd
+def _lib(kernel: str, fn_name: str, n_ptrs: int, n_strides: int) -> tuple:
+    lib = _kernels.load(kernel)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-            + [ctypes.c_int64] * 13 + [ctypes.c_float, ctypes.c_void_p]
-        )
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
+                       + [ctypes.c_int64] * n_strides + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.ecf_relpos_attention_fwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.ecf_relpos_attention_fwd_smem.restype = ctypes.c_size_t
+        smem = getattr(lib, f"{fn_name}_smem")
+        smem.argtypes = [ctypes.c_int] * 3
+        smem.restype = ctypes.c_size_t
         lib.ecf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ecf_cuda_error_string.restype = ctypes.c_char_p
-    return fn
+    return lib, fn
 
 
-def _bind_bwd(lib: ctypes.CDLL):
-    fn = lib.ecf_relpos_attention_bwd
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6
-            + [ctypes.c_int64] * 25 + [ctypes.c_float, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        lib.ecf_relpos_attention_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.ecf_relpos_attention_bwd_smem.restype = ctypes.c_size_t
-        lib.ecf_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.ecf_cuda_error_string.restype = ctypes.c_char_p
-    return fn
+def _bind():
+    return _lib(KERNEL, "ecf_relpos_attention_fwd", 10, 13)
+
+
+def _bind_bwd():
+    return _lib(KERNEL_BWD, "ecf_relpos_attention_bwd", 22, 25)
+
+
+def smem_bytes(dtype, dh: int, d2: int) -> tuple[int, int]:
+    """Shared memory a block of the route for ``dtype`` needs at head width
+    dh and rel width d2, (forward, the backward's largest pass), in bytes
+    (builds the kernels if needed)."""
+    code = _DTYPE_CODE[dtype]
+    return (_bind()[0].ecf_relpos_attention_fwd_smem(code, dh, d2),
+            _bind_bwd()[0].ecf_relpos_attention_bwd_smem(code, dh, d2))
+
+
+@functools.lru_cache(maxsize=None)
+def refusal(dtype, dh: int, d2: int, backward: bool = False) -> str | None:
+    """Why the route for ``dtype`` refuses head width dh and rel width d2 in
+    the forward (or the backward): its widths, and its shared memory need
+    against the 227 KB a block may use. None when it takes them."""
+    need = smem_bytes(dtype, dh, d2)[int(backward)]
+    if dtype == torch.bfloat16:
+        dhp = tc_widths(dh, d2)[0]
+        if dhp > TC_MAX_DHP:
+            return f"padded head width {dhp} > {TC_MAX_DHP}"
+    elif dh > FMA_MAX_DH:
+        return f"head width {dh} > {FMA_MAX_DH}"
+    elif backward and dh + d2 > FMA_MAX_DA:
+        return f"dh + rel width {dh + d2} > {FMA_MAX_DA} in the backward"
+    if need > SMEM_LIMIT:
+        return (f"head width {dh} + rel width {d2} need {need} B of shared memory in the "
+                f"{'backward' if backward else 'forward'}, more than {SMEM_LIMIT}")
+    return None
 
 
 def _check(cond: bool, msg: str):
@@ -203,10 +287,11 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"relpos_attention: {msg}")
 
 
-def _checked_inputs(qu, k, v, delta, w, rowtab, keytab, bias):
+def _checked_inputs(qu, k, v, delta, w, rowtab, keytab, bias, backward=False):
     """Shape, dtype and device checks shared by both kernels; returns delta,
-    w, rowtab, keytab in contiguous fp32, the bias as (B or 1, Nk) fp32 and
-    its batch stride (0 when it broadcasts)."""
+    w, rowtab, keytab as the route takes them (fp32 and contiguous, or the
+    bf16 route's padded layout, tc_layout), the bias as (B or 1, Nk) fp32
+    and its batch stride (0 when it broadcasts)."""
     b, h, n, dh = qu.shape
     nk, d2 = k.shape[2], w.shape[-1]
     _check(qu.dtype in _DTYPE_CODE, f"unsupported dtype {qu.dtype}")
@@ -214,7 +299,6 @@ def _checked_inputs(qu, k, v, delta, w, rowtab, keytab, bias):
     _check(k.shape == (b, h, nk, dh) and v.shape == (b, h, nk, dh),
            f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match qu {tuple(qu.shape)}")
     _check(tuple(delta.shape) == (h, dh), f"delta {tuple(delta.shape)} != {(h, dh)}")
-    _check(dh <= 128, f"head width {dh} > 128")
     _check(tuple(w.shape) == (h, dh, d2) and d2 % 2 == 0, f"w {tuple(w.shape)}")
     _check(tuple(rowtab.shape) == (n, d2), f"rowtab {tuple(rowtab.shape)} != {(n, d2)}")
     _check(tuple(keytab.shape) == (nk, d2), f"keytab {tuple(keytab.shape)} != {(nk, d2)}")
@@ -222,13 +306,18 @@ def _checked_inputs(qu, k, v, delta, w, rowtab, keytab, bias):
         _check(t.stride(-1) == 1, f"{name} needs a unit feature stride")
     tensors = [qu, k, v, delta, w, rowtab, keytab] + ([bias] if bias is not None else [])
     _check(all(t.device == qu.device for t in tensors), "tensors lie on different devices")
-    f32 = torch.float32
-    delta, w, rowtab, keytab = (t.to(f32).contiguous() for t in (delta, w, rowtab, keytab))
+    why = refusal(qu.dtype, dh, d2, backward)
+    _check(why is None, f"the {qu.dtype} route refuses: {why}")
+    if qu.dtype == torch.bfloat16:
+        delta, w, rowtab, keytab = tc_layout(delta, w, rowtab, keytab)
+    else:
+        delta, w, rowtab, keytab = (t.to(torch.float32).contiguous()
+                                    for t in (delta, w, rowtab, keytab))
     bias_sb = 0
     if bias is not None:
         _check(bias.dim() == 4 and bias.shape[1:] == (1, 1, nk) and bias.shape[0] in (1, b),
                f"bias {tuple(bias.shape)} is not (B or 1, 1, 1, Nk)")
-        bias = bias.to(f32).reshape(bias.shape[0], nk).contiguous()
+        bias = bias.to(torch.float32).reshape(bias.shape[0], nk).contiguous()
         bias_sb = nk if bias.shape[0] > 1 else 0
     return delta, w, rowtab, keytab, bias, bias_sb
 
@@ -241,17 +330,11 @@ def _raise_on(err: int, lib, kernel: str):
 
 def _launch(qu, k, v, delta, w, rowtab, keytab, bias, scale):
     b, h, n, dh = qu.shape
-    nk, d2 = k.shape[2], w.shape[-1]
+    nk = k.shape[2]
     dev = qu.device
     delta, w, rowtab, keytab, bias, bias_sb = _checked_inputs(
         qu, k, v, delta, w, rowtab, keytab, bias)
-
-    lib = _kernels.load(KERNEL)
-    fn = _bind(lib)
-    smem = lib.ecf_relpos_attention_fwd_smem(dh, d2)
-    _check(smem <= _SMEM_LIMIT, f"head width {dh} + rel width {d2} need {smem} B of "
-           f"shared memory, more than {_SMEM_LIMIT}")
-
+    lib, fn = _bind()
     # o is written in (B, N, H, dh) memory order, so merging the heads after
     # the call is a view
     o = torch.empty((b, n, h, dh), dtype=qu.dtype, device=dev).permute(0, 2, 1, 3)
@@ -262,7 +345,7 @@ def _launch(qu, k, v, delta, w, rowtab, keytab, bias, scale):
             _DTYPE_CODE[qu.dtype], qu.data_ptr(), k.data_ptr(), v.data_ptr(),
             delta.data_ptr(), w.data_ptr(), rowtab.data_ptr(), keytab.data_ptr(),
             bias.data_ptr() if bias is not None else None,
-            o.data_ptr(), lse.data_ptr(), b, h, n, nk, dh, d2,
+            o.data_ptr(), lse.data_ptr(), b, h, n, nk, dh, w.shape[-1],
             *qu.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             bias_sb, float(scale), stream,
         )
@@ -271,20 +354,23 @@ def _launch(qu, k, v, delta, w, rowtab, keytab, bias, scale):
 
 
 def _launch_bwd(qu, k, v, delta, w, rowtab, keytab, bias, o, do, lse, scale, need_dbias):
-    """Both passes of csrc/rel_attention_bwd.cu. qu, k, v, o and dO are
-    taken with their batch/head/row strides (dO as autograd hands it over:
-    the forward wrote O in (B, N, H, dh) order, so dO usually arrives in that
+    """The passes of csrc/rel_attention_bwd.cu. qu, k, v, o and dO are taken
+    with their batch/head/row strides (dO as autograd hands it over: the
+    forward wrote O in (B, N, H, dh) order, so dO usually arrives in that
     order too); a dO without a unit feature stride is copied. dqu, dk and dv
     are written in (B, N, H, dh) order, so that merging heads is a view. The
-    kernel writes one dW and one ddelta partial per (query tile, batch,
+    kernels write one dW and one ddelta partial per (query tile, batch,
     head); they are summed here, in a fixed order, so the gradients are the
-    same from run to run. Scratch: Di (B, H, N) and the A rows (B, H, N, 2hd)
-    in fp32, which the query-side pass writes for the key-side pass."""
+    same from run to run. Scratch: Di (B, H, N) fp32, and by route: fp32,
+    the A rows (B, H, N, 2hd) fp32; bf16, the [qu | A] rows (B, H, Np,
+    dhp + 2hdp), the padded dO rows (B, H, Np, dhp) and dS^T (B, H, Nkp, Np)
+    in bf16, Np and Nkp being N and Nk rounded up to 64."""
     b, h, n, dh = qu.shape
     nk, d2 = k.shape[2], w.shape[-1]
     dev = qu.device
+    tc = qu.dtype == torch.bfloat16
     delta, w, rowtab, keytab, bias, bias_sb = _checked_inputs(
-        qu, k, v, delta, w, rowtab, keytab, bias)
+        qu, k, v, delta, w, rowtab, keytab, bias, backward=True)
     _check(o.shape == qu.shape and do.shape == qu.shape, "o / dO do not match qu")
     _check(o.dtype == qu.dtype and o.stride(-1) == 1, "o must be the forward's output")
     _check(tuple(lse.shape) == (b, h, n) and lse.dtype == torch.float32
@@ -292,38 +378,47 @@ def _launch_bwd(qu, k, v, delta, w, rowtab, keytab, bias, o, do, lse, scale, nee
     do = do.to(qu.dtype)
     if do.stride(-1) != 1:
         do = do.contiguous()
-    wt = w.transpose(1, 2).contiguous()          # (H, 2hd, dh): W^T per head
+    lib, fn = _bind_bwd()
 
-    lib = _kernels.load(KERNEL_BWD)
-    fn = _bind_bwd(lib)
-    smem = lib.ecf_relpos_attention_bwd_smem(dh, d2)
-    _check(smem <= _SMEM_LIMIT, f"head width {dh} + rel width {d2} need {smem} B of "
-           f"shared memory in the backward, more than {_SMEM_LIMIT}")
-
-    f32 = torch.float32
+    f32, bf = torch.float32, torch.bfloat16
+    dhw, d2w = (w.shape[1], w.shape[2])          # the route's (padded) widths
     n_tiles = -(-n // _BQ)
     dqu = torch.empty((b, n, h, dh), dtype=qu.dtype, device=dev).permute(0, 2, 1, 3)
     dk = torch.empty((b, nk, h, dh), dtype=qu.dtype, device=dev).permute(0, 2, 1, 3)
     dv = torch.empty((b, nk, h, dh), dtype=qu.dtype, device=dev).permute(0, 2, 1, 3)
-    dw_part = torch.empty((b * n_tiles, h, dh, d2), dtype=f32, device=dev)
-    ddelta_part = torch.empty((b * n_tiles, h, dh), dtype=f32, device=dev)
+    dw_part = torch.empty((b * n_tiles, h, dhw, d2w), dtype=f32, device=dev)
+    ddelta_part = torch.empty((b * n_tiles, h, dhw), dtype=f32, device=dev)
     di = torch.empty((b, h, n), dtype=f32, device=dev)
-    atab = torch.empty((b, h, n, d2), dtype=f32, device=dev)
     dbias_hb = torch.empty((b, h, nk), dtype=f32, device=dev) if need_dbias else None
+    if tc:
+        n_p, nk_p = _round(n, 64), _round(nk, 64)
+        wt = None
+        atab = torch.empty((b, h, n_p, dhw + d2w), dtype=bf, device=dev)
+        qa_do = torch.empty((b, h, n_p, dhw), dtype=bf, device=dev)
+        ds = torch.empty((b, h, nk_p, n_p), dtype=bf, device=dev)
+    else:
+        wt = w.transpose(1, 2).contiguous()      # (H, 2hd, dh): W^T per head
+        atab = torch.empty((b, h, n, d2), dtype=f32, device=dev)
+        qa_do = ds = None
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             _DTYPE_CODE[qu.dtype], qu.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), w.data_ptr(), wt.data_ptr(),
-            rowtab.data_ptr(), keytab.data_ptr(),
-            bias.data_ptr() if bias is not None else None,
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), w.data_ptr(), ptr(wt),
+            rowtab.data_ptr(), keytab.data_ptr(), ptr(bias),
             dqu.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw_part.data_ptr(),
-            ddelta_part.data_ptr(), di.data_ptr(), atab.data_ptr(),
-            dbias_hb.data_ptr() if dbias_hb is not None else None,
-            b, h, n, nk, dh, d2,
+            ddelta_part.data_ptr(), di.data_ptr(), atab.data_ptr(), ptr(qa_do), ptr(ds),
+            ptr(dbias_hb), b, h, n, nk, dh, d2w,
             *qu.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             *do.stride()[:3], *dqu.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
             bias_sb, float(scale), stream,
         )
     _raise_on(err, lib, KERNEL_BWD)
-    return dqu, dk, dv, ddelta_part.sum(0), dw_part.sum(0), dbias_hb
+    ddelta, dw = ddelta_part.sum(0), dw_part.sum(0)
+    if tc:
+        ddelta, dw = tc_unpad(ddelta, dw, dh, d2)
+    return dqu, dk, dv, ddelta, dw, dbias_hb

@@ -116,7 +116,10 @@ class Trainer:
         each of the A microbatches. An LM's loss takes none. An ASR model's
         lengths are read on the host once: the encoder's output lengths
         follow from them by the config's arithmetic, so the loss gets host
-        lengths and copies none back from the device."""
+        lengths and copies none back from the device. The labels stay on the
+        host where the loss asks for them there (``loss_fn.host_labels``):
+        they are copied back, if given on the card, before any of the step's
+        work is queued."""
         dev = self.device
         if "tokens" in batch:
             return [({k: batch[k][a].to(dev, non_blocking=True)
@@ -125,12 +128,14 @@ class Trainer:
         enc_params = self.config["encoder_params"]
         audio_len = batch["audio_len"].cpu()
         label_len = batch["label_len"].cpu()
+        host_labels = getattr(self.loss_fn, "host_labels", False)
+        labels = batch["labels"].cpu() if host_labels else batch["labels"]
         logit_len = torch.tensor([[encoder_output_frames(enc_params, n) for n in row]
                                   for row in audio_len.tolist()])
         audio_len_dev = audio_len.to(dev)
         return [({"audio": batch["audio"][a].to(dev, non_blocking=True),
                   "audio_len": audio_len_dev[a],
-                  "labels": batch["labels"][a].to(dev, non_blocking=True),
+                  "labels": labels[a] if host_labels else labels[a].to(dev, non_blocking=True),
                   "label_len": label_len[a]}, logit_len[a])
                 for a in range(batch["audio"].shape[0])]
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Device-time probe of the PyTorch port's bias-attention kernels, and an
-A/B of the LM paths between two checkouts, on one NVIDIA GPU.
+A/B of the LM or CTC paths between two checkouts, on one NVIDIA GPU.
 
     python3 scripts/torch_bias_attention_probe.py probe
-    python3 scripts/torch_bias_attention_probe.py ab PARENT_DIR [CHANGE_DIR]
+    python3 scripts/torch_bias_attention_probe.py ab PARENT_DIR [CHANGE_DIR] [--ctc]
 
 ``probe`` times the bias attention's forward and backward at the
 LM-Transformer's training shape (B 64, H 12, N 101, dh 64, bf16, the causal
@@ -15,8 +15,10 @@ scaled_dot_product_attention (the bias as a bf16 mask), and at N 256 and
 device-time profile of one scoring batch and one training step in each
 checkout, in turns (parent, change, change, parent), each in its own
 process from the checkout's root, so that both are measured on the same
-card within one call. Make the parent's checkout with
-``git archive <commit> | tar -x -C build/parent``.
+card within one call; with ``--ctc`` the CTC flagship's phases (rate,
+train-rate) and profiles of one inference batch and one training step
+instead, with the rel-pos kernels' profile rows. Make the parent's checkout
+with ``git archive <commit> | tar -x -C build/parent``.
 
 Imports nothing of JAX; exits non-zero without a GPU.
 """
@@ -44,6 +46,27 @@ C.profile("lm-train", step, C.wall_ms(step))
 scorer, mb = C.lm_score_setup()
 score = lambda: scorer.eval_loss(mb)
 C.profile("lm-score", score, C.wall_ms(score))
+"""
+
+AB_PHASES_CTC = """
+import numpy as np, torch, chip_smoke as C
+from efficientconformer_torch.models.model_ctc import greedy_decode
+card = C.card()
+print(card, flush=True)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+C.phase_rate(card)
+C.phase_train_rate(card)
+trainer, batch = C.rate_trainer()
+step = lambda: trainer.train_step(batch)
+C.profile("train", step, C.wall_ms(step))
+model = C.make_model("cuda", torch.bfloat16)
+n = int(C.TIME_SECONDS * C.SAMPLE_RATE)
+x = torch.from_numpy((np.random.default_rng(0).standard_normal((C.TIME_BATCH, n)) * 0.1)
+                     .astype(np.float32)).cuda()
+x_len = torch.full((C.TIME_BATCH,), n, device="cuda")
+infer = lambda: greedy_decode(model, x, x_len)
+C.profile("infer", infer, C.wall_ms(infer))
 """
 
 
@@ -104,15 +127,18 @@ def probe() -> None:
                 lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)), flops)
 
 
-def ab(parent: str, change: str) -> int:
+def ab(parent: str, change: str, phases: str = AB_PHASES, kernels: str = "bias_") -> int:
+    """``phases`` (Python run from each checkout's root) in parent, change,
+    change, parent; prints the phase lines, the card and the profile rows
+    that name ``kernels``."""
     failed = 0
     for label, where in (("parent", parent), ("change", change), ("change", change),
                          ("parent", parent)):
         print(f"==== {label}: {where}", flush=True)
-        res = subprocess.run([sys.executable, "-c", AB_PHASES], cwd=where, capture_output=True,
+        res = subprocess.run([sys.executable, "-c", phases], cwd=where, capture_output=True,
                              text=True, check=False)
         for line in res.stdout.splitlines():
-            if line.startswith(("[", "NVIDIA")) or "bias_" in line:
+            if line.startswith(("[", "NVIDIA")) or kernels in line:
                 print(line[:240], flush=True)
         if res.returncode:
             print(res.stderr[-3000:], flush=True)
@@ -128,8 +154,12 @@ def main() -> int:
     if len(sys.argv) >= 2 and sys.argv[1] == "probe":
         probe()
         return 0
-    if len(sys.argv) >= 3 and sys.argv[1] == "ab":
-        return ab(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else str(ROOT))
+    args = [a for a in sys.argv[1:] if a != "--ctc"]
+    if len(args) >= 2 and args[0] == "ab":
+        change = args[2] if len(args) > 2 else str(ROOT)
+        if "--ctc" in sys.argv:
+            return ab(args[1], change, AB_PHASES_CTC, "relpos_")
+        return ab(args[1], change)
     raise SystemExit(__doc__)
 
 

@@ -22,7 +22,9 @@ from efficientconformer_torch.ops import rnnt_loss as RL
 from efficientconformer_torch.ops.attention import NEG_INF
 
 FP32_TOL = 1e-4   # fp32 on both sides, summation order only
-BF16_TOL = 2e-2   # O rounded to bf16 (8 mantissa bits)
+BF16_TOL = 2e-2   # O rounded to bf16 (8 mantissa bits); the rel-pos tensor-core kernels also
+                  # round W, delta, the tables, qv, A, P, dS and dpq where the TPU kernel does,
+                  # and so move their scores and LSE by up to ~1e-2 from the fp32 plain version
 
 
 @pytest.fixture
@@ -53,28 +55,40 @@ def inputs(device, b, h, n, d, g, bias_b, seed=0):
             randn(h, dh, scale=0.1), w, rowtab, keytab, bias, 1.0 / math.sqrt(dh))
 
 
+STAGE_SHAPES = [   # (N, D, H, G) at 16 s: the flagship's, then Transducer Small's
+    (267, 120, 4, 3), (401, 168, 4, 1), (201, 240, 4, 1),
+    (267, 100, 4, 3), (401, 140, 4, 1), (201, 200, 4, 1),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,d,h,g,bias_b", [
     (37, 24, 2, 1, 3), (37, 24, 2, 3, 3), (65, 40, 4, 1, 1), (130, 48, 2, 3, 0),
     (1, 16, 2, 1, 3), (200, 240, 4, 1, 3),
     (267, 100, 4, 3, 3), (401, 140, 4, 1, 3), (201, 200, 4, 1, 3),
+    (267, 120, 4, 3, 1), (401, 168, 4, 1, 3), (201, 240, 4, 1, 0),
 ])
 def test_kernel_matches_plain_version(cuda, n, d, h, g, bias_b):
-    """The last three cases are Transducer Small's 16 s stage shapes: head
-    widths 75, 35 and 50 (two of them odd), rel widths 100, 140, 200."""
+    """Cases 7-9 are Transducer Small's 16 s stage shapes (head widths 75,
+    35 and 50, two of them odd; rel widths 100, 140, 200), 10-12 the
+    flagship's (90, 42, 60; 120, 168, 240). fp32 runs the FMA kernel, bf16
+    the tensor-core kernel (the route counter says so), held to the fp32
+    plain version on the same bf16 qu, k and v."""
     args = inputs(cuda, 3, h, n, d, g, bias_b, seed=n)
-    RA.relpos_attention.launches = 0
+    RA.relpos_attention.launches = RA.relpos_attention.tc_launches = 0
     o, lse = RA.relpos_attention(*args)
     want_o, want_lse = RA.reference_relpos_attention(*args)
-    assert RA.relpos_attention.launches == 1
+    assert (RA.relpos_attention.launches, RA.relpos_attention.tc_launches) == (1, 0)
     torch.testing.assert_close(o, want_o, rtol=0, atol=FP32_TOL)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=FP32_TOL)
 
     qkv16 = [t.to(torch.bfloat16) for t in args[:3]]
-    o16, _ = RA.relpos_attention(*qkv16, *args[3:])
-    want16, _ = RA.reference_relpos_attention(*[t.float() for t in qkv16], *args[3:])
+    o16, lse16 = RA.relpos_attention(*qkv16, *args[3:])
+    want16, want_lse16 = RA.reference_relpos_attention(*[t.float() for t in qkv16], *args[3:])
+    assert (RA.relpos_attention.launches, RA.relpos_attention.tc_launches) == (2, 1)
     assert o16.dtype == torch.bfloat16
     torch.testing.assert_close(o16.float(), want16, rtol=0, atol=BF16_TOL)
+    torch.testing.assert_close(lse16, want_lse16, rtol=0, atol=BF16_TOL)
 
 
 @pytest.mark.gpu
@@ -90,15 +104,44 @@ def test_kernel_takes_strided_heads(cuda):
     want_o, want_lse = RA.reference_relpos_attention(*args)
     torch.testing.assert_close(o, want_o, rtol=0, atol=FP32_TOL)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=FP32_TOL)
+    # bf16 heads of dh 12 and 15 (odd: 2-byte copies) at odd offsets
+    for dd, hh, gg in ((24, 2, 1), (20, 4, 3)):
+        args = list(inputs(cuda, b, hh, n, dd, gg, 2, seed=2))
+        for i in range(3):
+            args[i] = args[i].to(torch.bfloat16).transpose(1, 2).contiguous().transpose(1, 2)
+        o, _ = RA.relpos_attention(*args)
+        want_o, _ = RA.reference_relpos_attention(*[t.float() for t in args[:3]], *args[3:])
+        torch.testing.assert_close(o.float(), want_o, rtol=0, atol=BF16_TOL)
 
 
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take(cuda):
+    """A dtype, a shape mismatch; fp32 past its widths (dh 135 of the
+    Medium and Large Efficient Conformers; in the backward dh + D = 576 of
+    Conformer Large), which the bf16 route takes both ways; bf16 past its
+    own (a padded head over 144, a rel width whose shared memory need
+    passes 227 KB), with the bytes named."""
     args = list(inputs(cuda, 1, 2, 8, 16, 1, 1))
     with pytest.raises(ValueError, match="dtype"):
         RA.relpos_attention(*[t.half() for t in args[:3]], *args[3:])
     with pytest.raises(ValueError, match="keytab"):
         RA.relpos_attention(*args[:6], args[6][:4], *args[7:])
+    args = list(inputs(cuda, 1, 4, 20, 180, 3, 1))     # dh 135
+    with pytest.raises(ValueError, match="float32 route refuses: head width 135 > 128"):
+        RA.relpos_attention(*args)
+    args, o, lse, do = bwd_case(cuda, 1, 8, 20, 512, 1, 1, seed=5)   # dh 64, D 512
+    with pytest.raises(ValueError, match="float32 route refuses: dh \\+ rel width 576"):
+        RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
+    assert RA.refusal(torch.float32, 64, 512) is None  # its forward fits
+    for dh, d in ((135, 180), (64, 512), (90, 720)):
+        assert RA.refusal(torch.bfloat16, dh, d) is None
+        assert RA.refusal(torch.bfloat16, dh, d, backward=True) is None
+    assert "padded head width 160" in RA.refusal(torch.bfloat16, 150, 64)
+    why = RA.refusal(torch.bfloat16, 64, 4000, backward=True)
+    assert why is not None and "shared memory in the backward" in why
+    args = list(inputs(cuda, 1, 1, 8, 200, 1, 1))        # dh 200
+    with pytest.raises(ValueError, match="bfloat16 route refuses: padded head width 208"):
+        RA.relpos_attention(*[t.to(torch.bfloat16) for t in args[:3]], *args[3:])
 
 
 # ------------------------------------------------------------ backward kernel
@@ -138,26 +181,45 @@ def bwd_case(device, b, h, n, d, g, bias_b, seed, dtype=torch.float32):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,d,h,g,bias_b", [
     (37, 24, 2, 1, 3), (37, 24, 2, 3, 3), (65, 40, 4, 1, 1), (130, 48, 2, 3, 0),
-    (1, 16, 2, 1, 3), (267, 120, 4, 3, 3), (401, 168, 4, 1, 3), (201, 240, 4, 1, 3),
-    (267, 100, 4, 3, 3), (401, 140, 4, 1, 3), (201, 200, 4, 1, 3),
+    (1, 16, 2, 1, 3), (267, 120, 4, 3, 3), (401, 168, 4, 1, 1), (201, 240, 4, 1, 0),
+    (267, 100, 4, 3, 3), (401, 140, 4, 1, 1), (201, 200, 4, 1, 0),
 ])
 def test_backward_kernel_matches_plain_version(cuda, n, d, h, g, bias_b):
-    """fp32: the kernel's six gradients vs reference_relpos_attention_bwd on
-    the same o, LSE and dO (the last six cases are the 16 s stage shapes of
-    the flagship and of Transducer Small). bf16: the same on bf16-rounded inputs, the kernel's
-    token gradients rounded to bf16."""
+    """fp32: the FMA kernels' six gradients vs reference_relpos_attention_bwd
+    on the same o, LSE and dO (the last six cases are the 16 s stage shapes
+    of the flagship and of Transducer Small, with a per-batch, a broadcast
+    and no key mask). bf16: the tensor-core kernels (the route counter says
+    so) vs the plain version on the same bf16 inputs, the token gradients
+    rounded to bf16."""
     args, o, lse, do = bwd_case(cuda, 3, h, n, d, g, bias_b, seed=n)
-    RA.relpos_attention_bwd.launches = 0
+    RA.relpos_attention_bwd.launches = RA.relpos_attention_bwd.tc_launches = 0
     got = RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
     want = RA.reference_relpos_attention_bwd(*args[:8], do, lse, args[8])
-    assert RA.relpos_attention_bwd.launches == 1
+    assert (RA.relpos_attention_bwd.launches, RA.relpos_attention_bwd.tc_launches) == (1, 0)
     assert got[0].dtype == got[1].dtype == got[2].dtype == torch.float32
     assert_grads_close(got, want, FP32_TOL, FP32_TOL)
 
     args, o, lse, do = bwd_case(cuda, 3, h, n, d, g, bias_b, seed=n, dtype=torch.bfloat16)
     got = RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
     want = RA.reference_relpos_attention_bwd(*args[:8], do, lse, args[8])
+    assert (RA.relpos_attention_bwd.launches, RA.relpos_attention_bwd.tc_launches) == (2, 1)
     assert got[0].dtype == torch.bfloat16
+    assert_grads_close(got, want, BF16_TOL, BF16_TOL, rel_token=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,h,g", [(267, 180, 4, 3), (401, 512, 8, 1), (201, 720, 8, 1)])
+def test_tensor_core_route_takes_the_medium_and_large_widths(cuda, n, d, h, g):
+    """The widths the fp32 route refuses: dh 135 (Efficient Conformer Medium
+    and Large, stage 1), D 512 (Conformer Large) and D 720 (Efficient
+    Conformer Large, stage 3), at their 16 s lengths, both directions on the
+    tensor cores vs the plain version on the same bf16 inputs."""
+    args, o, lse, do = bwd_case(cuda, 2, h, n, d, g, 2, seed=n, dtype=torch.bfloat16)
+    o16, lse16 = RA.relpos_attention_fwd(*args)
+    want_o, _ = RA.reference_relpos_attention(*[t.float() for t in args[:3]], *args[3:])
+    torch.testing.assert_close(o16.float(), want_o, rtol=0, atol=BF16_TOL)
+    got = RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
+    want = RA.reference_relpos_attention_bwd(*args[:8], do, lse, args[8])
     assert_grads_close(got, want, BF16_TOL, BF16_TOL, rel_token=True)
 
 
@@ -173,36 +235,52 @@ def test_backward_kernel_takes_strided_heads(cuda):
     got = RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
     want = RA.reference_relpos_attention_bwd(*args[:8], do, lse, args[8])
     assert_grads_close(got, want, FP32_TOL, FP32_TOL)
+    for dd, hh, gg in ((24, 2, 1), (20, 4, 3)):   # bf16 heads of dh 12 and 15 (odd)
+        args, o, lse, do = bwd_case(cuda, b, hh, n, dd, gg, 2, seed=3, dtype=torch.bfloat16)
+        args[:3] = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in args[:3]]
+        do, o = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (do, o))
+        got = RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
+        want = RA.reference_relpos_attention_bwd(*args[:8], do, lse, args[8])
+        assert_grads_close(got, want, BF16_TOL, BF16_TOL, rel_token=True)
 
 
 @pytest.mark.gpu
-def test_backward_kernel_weight_gradients_are_bitwise_repeatable(cuda):
-    args, o, lse, do = bwd_case(cuda, 8, 4, 267, 120, 3, 8, seed=9)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_weight_gradients_are_bitwise_repeatable(cuda, dtype):
+    args, o, lse, do = bwd_case(cuda, 8, 4, 267, 120, 3, 8, seed=9, dtype=dtype)
     first = RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
     second = RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
-    assert torch.equal(first[3], second[3]) and torch.equal(first[4], second[4])
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bias_b", [0, 1, 3])
-def test_autograd_through_both_kernels(cuda, bias_b):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_through_both_kernels(cuda, bias_b, dtype):
     """Gradients of sum(sin(o)) through relpos_attention (both kernels) vs
     autograd of the plain forward, for qu, k, v, delta, W and the bias (no
-    bias, a broadcast one, a per-batch one)."""
+    bias, a broadcast one, a per-batch one); in bf16 (the tensor-core
+    kernels) relative to max(max|g|, 1)."""
     args = list(inputs(cuda, 3, 2, 45, 24, 3, bias_b, seed=4))
+    args[:3] = [t.to(dtype) for t in args[:3]]
     if args[7] is not None:
         args[7] = args[7] * 1e-9 * 0.3      # a bias of moderate size, not a mask
+    tc = dtype == torch.bfloat16
     grads = []
     for fn, launches in ((RA.relpos_attention, 1), (RA.reference_relpos_attention, 0)):
         leaves = [t.detach().clone().requires_grad_(True) if t is not None else None
                   for t in args[:8]]
-        RA.relpos_attention_bwd.launches = 0
+        RA.relpos_attention_bwd.launches = RA.relpos_attention_bwd.tc_launches = 0
         o, _ = fn(*leaves, args[8])
-        torch.sin(o).sum().backward()
+        torch.sin(o.float()).sum().backward()
         assert RA.relpos_attention_bwd.launches == launches
+        assert RA.relpos_attention_bwd.tc_launches == (launches if tc else 0)
         grads.append([leaves[i].grad for i in (0, 1, 2, 3, 4, 7) if leaves[i] is not None])
+    tol = BF16_TOL if tc else 1e-4
     for got, want in zip(*grads):
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * max(1.0, want.abs().max().item()))
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=tol * max(1.0, want.abs().max().item()))
 
 
 # ------------------------------------------------------------ RNN-T lattice

@@ -219,3 +219,51 @@ def test_mask_bias_gets_no_gradient_unless_asked():
     o, _ = RA.relpos_attention(qu, *args[1:])
     o.sum().backward()
     assert qu.grad is not None and args[7].grad is None
+
+
+# ------------------------------------------------------- the bf16 route's inputs
+
+def bf16_round(x):
+    return torch.from_numpy(np.array(x)).to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("layout,d,h", [("plain", 24, 2), ("grouped", 20, 4), ("plain", 28, 2)])
+def test_tc_layout_is_exact(layout, d, h):
+    """What the wrapper hands the bf16 route: delta, W and the tables cast
+    to bf16 with the head width zero-padded to 16 and each rel half to 8
+    (here dh 12 -> 16, 15 -> 16, 14 -> 16; hd 12 -> 16, 10 -> 16, 14 ->
+    16), qu, k and v padded alike. Through the plain version, forward and
+    backward (dW and ddelta brought back by tc_unpad), it gives the plain
+    version's result on the bf16-rounded values: the padding adds exact
+    zeros, so only the fp32 order of the sums may differ (1e-6)."""
+    args = list(inputs(layout, b=2, h=h, n=13, d=d, seed=d))
+    args[7] = args[7] * 1e-9 * 0.3
+    qu, k, v = (bf16_round(a) for a in args[:3])
+    delta, w, rowtab, keytab = (bf16_round(a) for a in args[3:7])
+    bias, scale = torch.from_numpy(args[7]), args[8]
+    dh, d2 = qu.shape[-1], w.shape[-1]
+    dhp, hdp = RA.tc_widths(dh, d2)
+    assert dhp == 16 and hdp == 16 and (dhp, hdp) != (dh, d2 // 2)
+    padded = RA.tc_layout(*[torch.from_numpy(np.array(a)) for a in args[3:7]])
+    assert all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in padded)
+    assert padded[1].shape == (h, dhp, 2 * hdp) and padded[2].shape == (13, 2 * hdp)
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, dhp - dh))
+
+    dp_, wp, rp, kp = (t.float() for t in padded)
+    o_p, lse_p = RA.reference_relpos_attention(pad(qu), pad(k), pad(v), dp_, wp, rp, kp, bias,
+                                               scale)
+    o, lse = RA.reference_relpos_attention(qu, k, v, delta, w, rowtab, keytab, bias, scale)
+    torch.testing.assert_close(o_p[..., :dh], o, rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse_p, lse, rtol=0, atol=1e-6)
+    do = bf16_round(rand(*qu.shape, seed=d + 1))
+    got = RA.reference_relpos_attention_bwd(pad(qu), pad(k), pad(v), dp_, wp, rp, kp, bias,
+                                            pad(do), lse, scale)
+    want = RA.reference_relpos_attention_bwd(qu, k, v, delta, w, rowtab, keytab, bias, do, lse,
+                                             scale)
+    ddelta, dw = RA.tc_unpad(got[3], got[4], dh, d2)
+    for name, g_, w_ in (("dqu", got[0][..., :dh], want[0]), ("dk", got[1][..., :dh], want[1]),
+                         ("dv", got[2][..., :dh], want[2]), ("ddelta", ddelta, want[3]),
+                         ("dw", dw, want[4]), ("dbias", got[5], want[5])):
+        torch.testing.assert_close(g_, w_, rtol=0, atol=1e-6, msg=name)

@@ -94,7 +94,7 @@ def with_adam_state(opt_state, mu, nu, count):
     return tuple(replace(s) for s in opt_state)
 
 
-def run_both(cfg, freeze_encoder=False, adam_count=None):
+def run_both(cfg, freeze_encoder=False, adam_count=None, batch=None):
     """One step of each package from the same weights: (port trainer, its
     (loss, grad_norm), the weights before, JAX's new state and metrics)."""
     port = Trainer(cfg, device="cpu", seed=0)
@@ -109,7 +109,7 @@ def run_both(cfg, freeze_encoder=False, adam_count=None):
         port.step = step = adam_count
     state = TrainerState(params=jparams, batch_stats=jax.tree.map(jnp.asarray, stats),
                          opt_state=opt_state, step=jnp.asarray(step, jnp.int32))
-    batch = train_batch()
+    batch = train_batch() if batch is None else batch
     new, metrics = jt.train_step_fn(freeze_encoder=freeze_encoder)(
         state, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
     got = port.train_step(batch, freeze_encoder=freeze_encoder)
@@ -160,6 +160,29 @@ def test_train_step_gradients_match_jax():
                                          before, new.params))
     for name, p in port.model.named_parameters():
         assert rel_err(p.grad, grads[name]) <= GRAD_TOL, name
+
+
+def test_train_step_with_an_infeasible_utterance_matches_jax():
+    """An utterance of 5 frames with 8 labels in the second microbatch: the
+    JAX step averages its ~1e30 loss in and stays finite; the port's step
+    matches it (loss, gradient norm, updated parameters) from the same
+    non-zero Adam state, and every parameter stays finite."""
+    batch = train_batch()
+    rng = np.random.default_rng(7)
+    labels = rng.integers(1, VOCAB, (2, 3, 8)).astype(np.int32)
+    label_len = np.array([[4, 2, 0], [3, 4, 8]], np.int32)     # 6000 samples: 5 frames
+    labels[np.arange(8)[None, None, :] >= label_len[..., None]] = 0
+    batch.update(labels=labels, label_len=label_len)
+    port, (loss, grad_norm), _, new, metrics = run_both(train_config(), adam_count=10,
+                                                         batch=batch)
+    assert float(metrics["loss"]) > 1e28
+    np.testing.assert_allclose(float(loss), float(metrics["loss"]), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(float(grad_norm), float(metrics["grad_norm"]), rtol=LOSS_RTOL)
+    want_params = params_from_jax(jax.tree.map(np.asarray, new.params))
+    for name, p in port.model.named_parameters():
+        assert bool(torch.isfinite(p).all()), name
+        torch.testing.assert_close(p.detach(), want_params[name], rtol=0, atol=PARAM_TOL,
+                                   msg=name)
 
 
 def test_fit_trains_and_stops_with_the_batches():
@@ -307,15 +330,34 @@ def test_ctc_loss_and_gradient_match_jax():
     assert (lg.grad.numpy()[1, 17:] == 0).all()          # frames past f_len
 
 
-def test_ctc_loss_of_an_infeasible_lattice_is_inf():
-    """Three labels with a repeat need 4 frames; 3 are given. The JAX
-    recursion returns about 1e30 there, the port returns +inf."""
-    lp = torch.log_softmax(torch.randn(1, 6, 5), -1)
-    labels, f_len, y_len = torch.tensor([[2, 2, 3]]), torch.tensor([3]), torch.tensor([3])
-    got = ctc_loss(lp, labels, f_len, y_len)
-    want = jax_ctc_loss(jnp.asarray(lp.numpy()), jnp.asarray(labels.numpy()),
-                        jnp.asarray(f_len.numpy()), jnp.asarray(y_len.numpy()))
-    assert torch.isinf(got).all() and float(want[0]) > 1e29
+def test_ctc_loss_of_an_infeasible_lattice_matches_jax():
+    """B 2, T 5, V 6: sample 0 has 7 labels in 5 frames (no path), sample 1
+    3 labels with a repeat in 5 frames. The infeasible row gets the JAX
+    recursion's loss (about 1e30) and its finite gradient; the feasible one
+    stays on F.ctc_loss, which matches JAX as before."""
+    rng = np.random.default_rng(3)
+    logits = rng.standard_normal((2, 5, 6)).astype(np.float32)
+    labels = np.array([[1, 2, 3, 4, 5, 1, 2], [3, 3, 1, 0, 0, 0, 0]], np.int32)
+    f_len, y_len = np.array([5, 5], np.int32), np.array([7, 3], np.int32)
+
+    def jax_loss(lg):
+        return jnp.sum(jax_ctc_loss(jax.nn.log_softmax(lg, -1), jnp.asarray(labels),
+                                    jnp.asarray(f_len), jnp.asarray(y_len)))
+
+    want_nll = jax_ctc_loss(jax.nn.log_softmax(jnp.asarray(logits), -1), jnp.asarray(labels),
+                            jnp.asarray(f_len), jnp.asarray(y_len))
+    want_grad = np.asarray(jax.grad(jax_loss)(jnp.asarray(logits)))
+    lg = torch.from_numpy(logits).requires_grad_(True)
+    nll = ctc_loss(torch.log_softmax(lg, -1), torch.from_numpy(labels), torch.from_numpy(f_len),
+                   torch.from_numpy(y_len))
+    nll.sum().backward()
+    assert float(want_nll[0]) > 1e29
+    np.testing.assert_allclose(nll.detach().numpy(), np.asarray(want_nll), rtol=1e-5)
+    assert np.isfinite(lg.grad.numpy()).all()
+    np.testing.assert_allclose(lg.grad.numpy(), want_grad, rtol=0, atol=1e-5)
+    feasible = ctc_loss(torch.log_softmax(lg.detach(), -1)[1:], torch.from_numpy(labels)[1:],
+                        torch.from_numpy(f_len)[1:], torch.from_numpy(y_len)[1:])
+    assert torch.equal(feasible, nll.detach()[1:])      # the feasible row: F.ctc_loss, bitwise
 
 
 @pytest.mark.parametrize("bad", [0, 9])
