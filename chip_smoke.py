@@ -48,9 +48,11 @@ the card. Phases, one line each; any failure exits non-zero:
                 in 3 and 4
  12. rnnt-kernel  both RNN-T lattice kernels vs their plain versions at the
                 Transducer's training shape (B 16, T 201, U+1 91, ragged
-                lengths with f_len = T, y_len = 0 and y_len = U) and at
-                U+1 = 150 (more than 128 threads a block); both timed at the
-                training shape beside the plain versions and the bound
+                lengths with f_len = T, y_len = 0 and y_len = U; whether
+                they are equal bit for bit there) and at U+1 = 150 (more
+                than 128 threads a block); both timed at the training shape
+                (device time from a CUDA graph, and per eager call) beside
+                the plain versions and the bound
  13. t-requests the ragged batch decoded by the Transducer in bf16 with the
                 label-looping greedy loop: 15 forward launches, tokens equal
                 to the frame-synchronous loop's
@@ -65,7 +67,8 @@ the card. Phases, one line each; any failure exits non-zero:
  17. t-train-learns  30 Transducer steps on one batch: the loss falls
  18. t-train-rate  the Transducer config's own step, 4 x 16 x 16 s with
                 90-token labels, bf16: ms per step, audio-s/s, peak memory,
-                launches per step (4 / 4 RNN-T, 60 / 60 rel-pos); one more
+                launches per step (4 / 8 RNN-T: the backward's four calls
+                launch two kernels each; 60 / 60 rel-pos); one more
                 step with variational noise on
  19. lm-kernel  both bias-attention kernels vs their plain versions, fp32
                 (the FMA kernels) and bf16 (the tensor-core kernels, by the
@@ -872,29 +875,34 @@ def phase_rnnt_kernel(t_cfg):
         check(all(bool((g[~inside] == 0).all()) for g in grads), "non-zero outside a lattice")
         err_f = max(err_f, alpha_err, (loss - want_l).abs().max().item())
         err_b = max(err_b, grad_err)
+        bitwise = (torch.equal(alphas, want_a) and torch.equal(loss, want_l)
+                   and all(torch.equal(g, w) for g, w in zip(grads, want_g)))
         say("rnnt-kernel", B=b, T=t, U1=u1, f_len=f"{int(f_len.min())}..{int(f_len.max())}",
             y_len=f"{int(y_len.min())}..{int(y_len.max())}", loss_rel_err=f"{loss_rel:.3g}",
             alpha_abs_err=f"{alpha_err:.3g}", alpha_rel_err=f"{alpha_rel:.3g}",
-            grad_abs_err=f"{grad_err:.3g}")
+            grad_abs_err=f"{grad_err:.3g}", bitwise_equal=bitwise)
 
     blank, emit, f_len, y_len = rnnt_inputs(*shape, SEED + 6)
     alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
+    n_diags = (shape[1] + shape[2] - 1, int((f_len + y_len).max()))
+    calls = ((lambda: RL.rnnt_alphas(blank, emit, f_len, y_len),
+              lambda: plain_rnnt_alphas(blank, emit, f_len, y_len)),
+             (lambda: RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss),
+              lambda: RL.reference_rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)))
     times = []
-    for backward, kernel, plain in (
-            (False, lambda: RL.rnnt_alphas(blank, emit, f_len, y_len),
-             lambda: plain_rnnt_alphas(blank, emit, f_len, y_len)),
-            (True, lambda: RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss),
-             lambda: RL.reference_rnnt_grads(blank, emit, alphas, f_len, y_len, -loss))):
-        row = {"kernel": cuda_ms(kernel), "plain": cuda_ms(plain, iters=3, warmup=1),
+    for backward, (kernel, plain) in enumerate(calls):
+        row = {"kernel": graph_ms(kernel), "plain": cuda_ms(plain, iters=3, warmup=1),
                "library": None}
         row["bound"], row["bound_by"] = bound(*rnnt_cost(blank, f_len, y_len, backward),
                                               peak=FP32_PEAK)
-        n_diag = shape[1] + shape[2] - 1 if not backward else int((f_len + y_len).max())
+        threads, ring, smem = RL.launch_geometry(shape[2])
         say("rnnt-kernel-time", direction="backward" if backward else "forward",
-            B=shape[0], T=shape[1], U1=shape[2], bound_by=row["bound_by"],
-            kernel_ms=f"{row['kernel']:.4f}", plain_ms=f"{row['plain']:.4f}",
-            bound_ms=f"{row['bound']:.6f}", library_ms="none (no torchaudio)", n_diag=n_diag,
-            us_per_diagonal=f"{1e3 * row['kernel'] / n_diag:.3f}")
+            B=shape[0], T=shape[1], U1=shape[2], threads=threads, ring=ring, smem_bytes=smem,
+            bound_by=row["bound_by"], kernel_ms=f"{row['kernel']:.4f}",
+            eager_ms=f"{cuda_ms(kernel):.4f}", plain_ms=f"{row['plain']:.4f}",
+            bound_ms=f"{row['bound']:.6f}", library_ms="none (no torchaudio)",
+            n_diag=n_diags[backward],
+            us_per_diagonal=f"{1e3 * row['kernel'] / n_diags[backward]:.3f}")
         times.append(row)
     return err_f, times[0], err_b, times[1]
 
@@ -1055,8 +1063,9 @@ def phase_t_train_slice():
     torch.cuda.synchronize()
     counts = launch_counts()
     n_att = cfg["encoder_params"]["num_blocks"] * 2
-    check(counts == (2, 2, n_att, n_att), f"launches (RNN-T fwd, bwd, rel-pos fwd, bwd) "
-          f"{counts}, expected (2, 2, {n_att}, {n_att}) for 2 microbatches")
+    check(counts == (2, 4, n_att, n_att), f"launches (RNN-T fwd, bwd, rel-pos fwd, bwd) "
+          f"{counts}, expected (2, 4, {n_att}, {n_att}) for 2 microbatches (the RNN-T "
+          f"backward: two kernels a call)")
     check(rel_counts()[1::2] == (0, 0), f"fp32 step: tensor-core launches {rel_counts()}")
     out = compare_steps(kernel, cfg, batch)
     say("t-train-slice", dtype="float32", loss=f"{kernel[0]:.6f}", grad_norm=f"{kernel[1]:.6f}",
@@ -1102,8 +1111,9 @@ def phase_t_train_rate(card_line: str):
     torch.cuda.synchronize()
     counts = launch_counts()
     n_att = trainer.config["encoder_params"]["num_blocks"] * accum
-    check(counts == (accum, accum, n_att, n_att), f"launches (RNN-T fwd, bwd, rel-pos fwd, "
-          f"bwd) {counts} in one step, expected ({accum}, {accum}, {n_att}, {n_att})")
+    check(counts == (accum, 2 * accum, n_att, n_att), f"launches (RNN-T fwd, bwd, rel-pos "
+          f"fwd, bwd) {counts} in one step, expected ({accum}, {2 * accum}, {n_att}, {n_att}) "
+          f"(the RNN-T backward: two kernels a call)")
     tc = rel_counts()[1::2]
     check(tc == (n_att, n_att), f"rel-pos tensor-core launches {tc}, expected every launch")
     torch.cuda.reset_peak_memory_stats()
@@ -1612,6 +1622,11 @@ def main() -> int:
             say("build-smem", config="LM-Transformer", kernels="bias_attention", route=route,
                 N=n, dh=dh, fwd_bytes=fwd_b,
                 bwd_bytes="/".join(map(str, bwd_b)) + (" (one pass)" if len(bwd_b) == 1 else ""))
+
+    for u1 in (91, 150, 1024):   # the Transducer's U+1, RNNT_WIDE's, and the most taken
+        threads, ring, smem = RL.launch_geometry(u1)
+        say("build-smem", kernels="rnnt_fwd,rnnt_bwd", U1=u1, threads=threads, ring=ring,
+            bytes=smem, limit=RL.SMEM_LIMIT)
 
     max_err, err16, times = phase_kernel(enc_params)
     max_err_bwd, err16_bwd, times_bwd = phase_kernel_bwd(enc_params)

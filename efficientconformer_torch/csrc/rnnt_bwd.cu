@@ -21,120 +21,177 @@
 // with the precise expf and log1pf (no fast math).
 //
 // What bounds it on the H100: as for the forward, the chain of f + y
-// dependent diagonals per utterance (up to 291 at the Transducer's training
-// shape), not the bytes (about 5.9 MB at B = 16, T = 201, U+1 = 91: under
-// 2 us at 3.35 TB/s); one block per utterance keeps B of the 132 SMs busy.
+// dependent diagonals of an utterance (up to 291 at the Transducer's
+// training shape, B 16, T 201, U+1 91), not the bytes (about 5.9 MB there,
+// under 2 us at 3.35 TB/s); one block per utterance keeps B of the 132 SMs
+// busy. A diagonal of the betas costs about 0.19 us there, the gradient
+// kernel included (chip_smoke.py, [rnnt-kernel-time]). Computed in the
+// chain, as the TPU kernel does, the gradients' exponentials, loads and
+// stores are issued in order by the same warps between the chain's steps;
+// that form was tried and measured slower than the two kernels below.
 //
-// What the design does about it: one block per utterance, one thread per
-// label position u, and a loop over the diagonals from d = f - 1 + y down to
-// 0, so a short utterance stops early. Thread u reads alpha, blank and emit
-// at (d-u, u) from the unskewed (B, T, U+1) tensors one diagonal ahead; it
-// keeps beta[t+1, u] (its own value of the last diagonal) in a register and
-// reads beta[t, u+1] (its neighbour's) from shared memory, double-buffered,
-// with one __syncthreads() per diagonal. The zeros outside the lattice are
-// written first, coalesced, by the whole block.
+// What the design does about it: two kernels on the stream.
+//  - rnnt_bwd_kernel runs only the beta recursion, as the forward runs the
+//    alphas: one block per utterance, one thread per label position u, a
+//    loop over the diagonals from d = f - 1 + y down to 0 (a short
+//    utterance stops early) whose body is one basic block, and the betas
+//    inside the lattice stored into a scratch tensor. Its operands, blank
+//    and emit at (d-u, u), are staged in shared memory ahead of the chain:
+//    a ring of RING diagonals (skewed: one slot per thread and operand)
+//    filled with 4-byte cp.async, one commit group a diagonal; only cells
+//    inside the lattice are copied, and each thread reads back only its own
+//    slots, so the ring needs no barrier. beta[t+1, u] is the thread's own
+//    last value; beta[t, u+1] comes from the lane above by
+//    __shfl_down_sync, and across a warp boundary lane 0 leaves its value in
+//    shared memory (double-buffered) under one __syncthreads() a diagonal,
+//    which a block of one warp skips (the forward's head comment says what
+//    was tried in its place). After a diagonal's beta the thread publishes
+//    and shuffles it, stages diagonal d - RING and loads d - 1's operands
+//    before the barrier, and stores it after.
+//  - rnnt_grad_kernel then writes both gradients of every cell, one thread
+//    each across the whole card, exact zeros outside the lattice included,
+//    with the same expressions in the same order.
 //
 // Inputs: blank, emit, alphas (B, T, U1) fp32 contiguous; f_len, y_len (B,)
-// int32; ll (B,) fp32. Outputs: g_blank, g_emit (B, T, U1) fp32. The kernel
-// allocates nothing and does not synchronise.
+// int32; ll (B,) fp32; the launch geometry of rnnt_loss.launch_geometry
+// (threads, RING, shared bytes). Outputs: g_blank, g_emit (B, T, U1) fp32;
+// betas (B, T, U1) fp32 is the caller's scratch, written inside each
+// lattice only. The kernels allocate nothing and do not synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rnnt_wavefront.cuh"
+
 namespace {
 
-constexpr float LOG_EPS = -1e30f;
-constexpr int MAX_THREADS = 1024;
+using namespace rnnt;
 
-__device__ __forceinline__ float logaddexp(float a, float b) {
-  const float m = fmaxf(a, b);
-  return m + log1pf(expf(-fabsf(a - b)));
-}
+constexpr int OPERANDS = 2;   // blank and emit
 
-__global__ void rnnt_bwd_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
-                                const float* __restrict__ alphas, const int* __restrict__ f_len,
-                                const int* __restrict__ y_len, const float* __restrict__ ll,
-                                float* __restrict__ g_blank, float* __restrict__ g_emit,
-                                int t_max, int u1) {
-  extern __shared__ float nxt[];   // 2 x (blockDim + 1): beta of a diagonal at u, slot u;
-                                   // slot blockDim stays LOG_EPS
-  const int u = threadIdx.x;
+constexpr int GRAD_THREADS = 256;
+
+// the betas inside each utterance's lattice, into `betas`; nothing else of it
+// is written
+__global__ void __launch_bounds__(MAX_THREADS)
+    rnnt_bwd_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
+                    const int* __restrict__ f_len, const int* __restrict__ y_len,
+                    float* __restrict__ betas, int t_max, int u1) {
+  extern __shared__ float smem[];   // edge (EDGE) | ring (RING x (blank, emit) x threads)
+  const int nt = blockDim.x, u = threadIdx.x, lane = u & 31, warp = u >> 5;
+  const bool warps = nt > 32;
   const int b = blockIdx.x;
   const int64_t base = static_cast<int64_t>(b) * t_max * u1;
   const float* bl = blank + base;
   const float* em = emit + base;
-  const float* al = alphas + base;
-  float* gb = g_blank + base;
-  float* ge = g_emit + base;
+  float* be = betas + base;
   const int f = f_len[b], y = y_len[b];
-  const float llb = ll[b];
-  const int stride = blockDim.x + 1;
+  const uint32_t edge = smem_addr(smem);   // warp w's first beta of diagonal d at (d & 1) * 32 + w
+  const uint32_t mine_slot = edge + 4 * (EDGE + u);
+  // diagonal d >= -RING in slot (d + RING) % RING
+  auto slot = [&](int d) { return mine_slot + 4 * OPERANDS * nt * ((d + RING) % RING); };
 
-  // zeros outside the utterance's lattice
-  for (int i = u; i < t_max * u1; i += blockDim.x) {
-    const int t = i / u1, uu = i - t * u1;
-    if (t >= f || uu > y) {
-      gb[i] = 0.f;
-      ge[i] = 0.f;
-    }
-  }
-  for (int i = u; i < 2 * stride; i += blockDim.x) nxt[i] = LOG_EPS;
-
-  // alpha, blank and emit of this thread's cell on diagonal d (if inside)
-  auto load = [&](int d, float& a, float& sb, float& se) {
-    const int t = d - u;
-    if (t >= 0 && t < f && u <= y) {
-      const int64_t cell = static_cast<int64_t>(t) * u1 + u;
-      a = al[cell];
-      sb = bl[cell];
-      se = em[cell];
-    } else {
-      a = sb = se = 0.f;
-    }
+  // copy blank and emit of this thread's cell on diagonal d where it lies
+  // inside the utterance's lattice; then close the diagonal's group, empty
+  // or not, so that every thread counts the same groups. Called for
+  // d = d_final, d_final - 1, ... in turn: `at` follows the cell (d - u, u)
+  // up its column.
+  const int d_final = f - 1 + y;
+  const bool col = u <= y;
+  int64_t at = static_cast<int64_t>(d_final - u) * u1 + u;
+  auto stage = [&](int d) {
+    const uint32_t s = slot(d);
+    const bool cell = col && d >= 0 && static_cast<unsigned>(d - u) < static_cast<unsigned>(f);
+    cp_async4_if(s, bl + at, cell);
+    cp_async4_if(s + 4 * nt, em + at, cell);
+    cp_async_commit();
+    at -= u1;
   };
 
-  const int d_final = f - 1 + y;
-  float own = LOG_EPS;   // beta[t+1, u]: this thread's value on diagonal d + 1
-  float na, nb, ne;
-  load(d_final, na, nb, ne);
+  for (int i = 0; i < RING; ++i) stage(d_final - i);
+  if (u < EDGE) smem[u] = LOG_EPS;
+  float own = LOG_EPS;   // beta[t+1, u]: this thread's value on the last diagonal
+  cp_async_wait<RING - 1>();
+  float sb = ld_shared(slot(d_final)), se = ld_shared(slot(d_final) + 4 * nt);
+  float right = LOG_EPS;   // beta[t, u+1]
+  int64_t out = static_cast<int64_t>(d_final - u) * u1 + u;   // cell (d - u, u)
   __syncthreads();
   for (int d = d_final; d >= 0; --d) {
-    const float* up = nxt + ((d + 1) & 1) * stride;
-    float* cur = nxt + (d & 1) * stride;
-    const float a = na, sb = nb, se = ne;
-    if (d > 0) load(d - 1, na, nb, ne);
-    const int t = d - u;
-    float beta = LOG_EPS;
-    if (t >= 0 && t < f && u <= y) {
-      const bool terminal = t == f - 1 && u == y;
-      const float bup = up[u + 1];                 // beta[t, u+1]
-      const float bn = terminal ? 0.f : own;
-      const int64_t cell = static_cast<int64_t>(t) * u1 + u;
-      gb[cell] = expf(a + sb + bn - llb);
-      ge[cell] = expf(a + se + bup - llb);
-      beta = terminal ? sb : logaddexp(sb + own, se + bup);
+    if (lane == 31) {
+      right = warp + 1 < nt / 32 ? ld_shared(edge + 4 * (((d + 1) & 1) * 32 + warp + 1))
+                                 : LOG_EPS;
     }
-    cur[u] = beta;
-    own = beta;
-    __syncthreads();
+    const int t = d - u;
+    const bool cell = col && static_cast<unsigned>(t) < static_cast<unsigned>(f);
+    const float beta = t == f - 1 && u == y ? sb : logaddexp(sb + own, se + right);
+    own = cell ? beta : LOG_EPS;
+    if (warps && lane == 0) st_shared(edge + 4 * ((d & 1) * 32 + warp), own);
+    right = __shfl_down_sync(0xffffffffu, own, 1);
+    stage(d - RING);   // into the slot of diagonal d, read already
+    cp_async_wait<RING - 1>();
+    sb = ld_shared(slot(d - 1));
+    se = ld_shared(slot(d - 1) + 4 * nt);
+    if (warps) __syncthreads();
+    if (cell) be[out] = own;   // after the barrier, off the chain
+    out -= u1;
   }
+  cp_async_wait<0>();
+}
+
+// the gradients of every cell (b, t, u), one thread each, from the betas of
+// rnnt_bwd_kernel: exact zeros outside the lattice, beta = LOG_EPS past its
+// edge, beta[t+1, u] := 0 at the terminal cell
+__global__ void __launch_bounds__(GRAD_THREADS)
+    rnnt_grad_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
+                     const float* __restrict__ alphas, const float* __restrict__ betas,
+                     const int* __restrict__ f_len, const int* __restrict__ y_len,
+                     const float* __restrict__ ll, float* __restrict__ g_blank,
+                     float* __restrict__ g_emit, int t_max, int u1) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * GRAD_THREADS + threadIdx.x;
+  if (i >= t_max * u1) return;
+  const int t = i / u1, u = i - t * u1;
+  const int f = f_len[b], y = y_len[b];
+  const int64_t at = static_cast<int64_t>(b) * t_max * u1 + i;
+  float g_b = 0.f, g_e = 0.f;
+  if (t < f && u <= y) {
+    const float a = alphas[at], llb = ll[b];
+    const float bn = t == f - 1 ? (u == y ? 0.f : LOG_EPS) : betas[at + u1];   // beta[t+1, u]
+    const float bup = u < y ? betas[at + 1] : LOG_EPS;                         // beta[t, u+1]
+    g_b = expf(a + blank[at] + bn - llb);
+    g_e = expf(a + emit[at] + bup - llb);
+  }
+  g_blank[at] = g_b;
+  g_emit[at] = g_e;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t.
+// Returns a cudaError_t. threads, ring and smem are the launch geometry:
+// threads a multiple of 32 that covers u1, ring equal to RING, smem at least
+// what they need. Launches two kernels: the betas, then the gradients.
 int ecf_rnnt_bwd(const float* blank, const float* emit, const float* alphas, const int* f_len,
-                 const int* y_len, const float* ll, float* g_blank, float* g_emit, int batch,
-                 int t_max, int u1, void* stream) {
-  if (batch <= 0 || t_max <= 0 || u1 <= 0 || u1 > MAX_THREADS) {
+                 const int* y_len, const float* ll, float* g_blank, float* g_emit, float* betas,
+                 int batch, int t_max, int u1, int threads, int ring, int smem, void* stream) {
+  if (batch <= 0 || batch > 65535 || t_max <= 0 ||
+      !geometry_ok(u1, threads, ring, smem, OPERANDS)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = (u1 + 31) / 32 * 32;
-  const size_t smem = 2 * (threads + 1) * sizeof(float);
-  rnnt_bwd_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      blank, emit, alphas, f_len, y_len, ll, g_blank, g_emit, t_max, u1);
+  const auto kernel = rnnt_bwd_kernel;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  kernel<<<batch, threads, smem, s>>>(blank, emit, f_len, y_len, betas, t_max, u1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((t_max * u1 + GRAD_THREADS - 1) / GRAD_THREADS, batch);
+  rnnt_grad_kernel<<<grid, GRAD_THREADS, 0, s>>>(blank, emit, alphas, betas, f_len, y_len, ll,
+                                                 g_blank, g_emit, t_max, u1);
   return static_cast<int>(cudaGetLastError());
 }
 

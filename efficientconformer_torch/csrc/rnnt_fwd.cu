@@ -15,93 +15,124 @@
 // math: __expf and __logf would not keep the fp32 tolerance), and
 // logaddexp(LOG_EPS, LOG_EPS) stays finite.
 //
-// What bounds it on the H100: not the bytes. The cells of one anti-diagonal
-// d = t + u are independent, but each diagonal needs the one before, so an
-// utterance is a chain of T + U dependent steps (291 at the Transducer's
-// training shape, B = 16, T = 201, U+1 = 91), each a few hundred
-// nanoseconds of load latency and a barrier; the 3.5 MB the kernel must move
-// take about 1 us at 3.35 TB/s. With one block per utterance only B of the
-// 132 SMs are busy.
+// What bounds it on the H100: the chain of T + U dependent anti-diagonals of
+// an utterance (291 at the Transducer's training shape, B 16, T 201,
+// U+1 91), not the bytes (3.5 MB there, about 1 us at 3.35 TB/s). The cells
+// of a diagonal d = t + u are independent, each needs the one before, and
+// one block per utterance keeps B of the 132 SMs busy. A diagonal costs
+// about 0.16 us there (chip_smoke.py, [rnnt-kernel-time]): the logaddexp,
+// the barrier and the loop's own dependent shared-memory, shuffle and copy
+// operations, which a warp issues in order. The loads are off the chain:
+// staged RING diagonals ahead, they have arrived when they are read.
 //
-// What the design does about it: one block per utterance and one thread per
-// label position u, looping over the diagonals. Thread u reads
-// blank[b, d-1-u, u] and emit[b, d-u, u-1] straight from the unskewed
-// (B, T, U+1) tensors (the TPU kernel's skew to (T+U, B, U+1) and its
-// 128-lane padding are not carried over), one diagonal ahead, so that the
-// loads are in flight while the previous diagonal finishes. The previous
-// diagonal's alphas live in shared memory, double-buffered, so one
-// __syncthreads() per diagonal orders them. Filling the other SMs (several
-// utterances or a split of U per block) is later work.
+// What the design does about it: one block per utterance, one thread per
+// label position u, a loop over the diagonals whose body is one basic block
+// (predicates, no branches, so the compiler can interleave the independent
+// work with the chain).
+//  - Staging: the operands, blank at (d-1-u, u) and emit at (d-u, u-1), are
+//    copied into a ring of RING diagonals in shared memory (skewed: one
+//    slot per thread and operand) with 4-byte cp.async, one commit group a
+//    diagonal, RING diagonals ahead of the chain. Each thread reads back
+//    only its own slots, so the ring needs no barrier; cells off the lattice
+//    are not copied. RING (8, rnnt_wavefront.cuh) was chosen from a sweep
+//    of 1 to 16 at U+1 91: a ring of 1 was slower, 2 to 8 alike, and 16,
+//    with twice the shared memory, slower again.
+//  - Exchange: alpha[t, u-1] of the last diagonal comes from the lane below
+//    by __shfl_up_sync; across a warp boundary lane 31 leaves its value in
+//    shared memory (double-buffered) and one __syncthreads() a diagonal
+//    orders it, which a block of one warp (U+1 <= 32) skips. A flag per
+//    warp pair and a split-phase mbarrier in its place were tried and
+//    measured slower at U+1 91; their code is not kept.
+//  - Order: after diagonal d's value the thread publishes and shuffles it,
+//    stages diagonal d + RING and loads d + 1's operands before the barrier,
+//    and stores it after, so that after the barrier only the boundary value
+//    and the arithmetic stand on the chain. Addresses follow the thread's
+//    column by running offsets, and a cell's test is one unsigned compare:
+//    the fewer instructions a diagonal, the shorter the chain, since a warp
+//    issues them in order.
 //
-// Inputs: blank, emit (B, T, U1) fp32 contiguous; f_len, y_len (B,) int32.
-// Outputs: alphas (B, T, U1) fp32; loss (B,) fp32. The kernel allocates
-// nothing and does not synchronise.
+// Inputs: blank, emit (B, T, U1) fp32 contiguous; f_len, y_len (B,) int32;
+// the launch geometry of rnnt_loss.launch_geometry (threads, RING, shared
+// bytes). Outputs: alphas (B, T, U1) fp32; loss (B,) fp32. The kernel
+// allocates nothing and does not synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rnnt_wavefront.cuh"
+
 namespace {
 
-constexpr float LOG_EPS = -1e30f;
-constexpr int MAX_THREADS = 1024;
+using namespace rnnt;
 
-__device__ __forceinline__ float logaddexp(float a, float b) {
-  const float m = fmaxf(a, b);
-  return m + log1pf(expf(-fabsf(a - b)));
-}
+constexpr int OPERANDS = 2;   // blank and emit
 
-__global__ void rnnt_fwd_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
-                                const int* __restrict__ f_len, const int* __restrict__ y_len,
-                                float* __restrict__ alphas, float* __restrict__ loss,
-                                int t_max, int u1) {
-  extern __shared__ float prev[];   // 2 x (blockDim + 1): alpha of the last diagonal at u,
-                                    // slot u + 1; slot 0 stays LOG_EPS
-  const int u = threadIdx.x;
+__global__ void __launch_bounds__(MAX_THREADS)
+    rnnt_fwd_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
+                    const int* __restrict__ f_len, const int* __restrict__ y_len,
+                    float* __restrict__ alphas, float* __restrict__ loss, int t_max, int u1) {
+  extern __shared__ float smem[];   // edge (EDGE) | ring (RING x (blank, emit) x threads)
+  const int nt = blockDim.x, u = threadIdx.x, lane = u & 31, warp = u >> 5;
+  const bool warps = nt > 32;
   const int b = blockIdx.x;
   const int64_t base = static_cast<int64_t>(b) * t_max * u1;
   const float* bl = blank + base;
   const float* em = emit + base;
   float* al = alphas + base;
-  const int stride = blockDim.x + 1;
-  const bool lane = u < u1;
+  const int n_diag = t_max + u1 - 1;
+  const uint32_t edge = smem_addr(smem);   // warp w's last alpha of diagonal d at (d & 1) * 32 + w
+  const uint32_t mine_slot = edge + 4 * (EDGE + u);
+  auto slot = [&](int d) { return mine_slot + 4 * OPERANDS * nt * (d % RING); };
 
-  // the operands of diagonal d for this thread: blank at (d-1-u, u) and emit
-  // at (d-u, u-1), LOG_EPS where they fall off the lattice
-  auto load = [&](int d, float& sb, float& se) {
+  // copy diagonal d's operands of this thread: blank at (t-1, u) where the
+  // stay term reads it (1 <= t < T), emit at (t, u-1) where the move term
+  // does (u >= 1, 0 <= t < T); then close the diagonal's group, empty or
+  // not, so that every thread counts the same groups. Called for d = 1, 2,
+  // ... in turn: `at` follows the cell (d - u, u) down its column.
+  const bool col = u < u1;
+  int64_t at = static_cast<int64_t>(1 - u) * u1 + u;
+  auto stage = [&](int d) {
+    const uint32_t s = slot(d);
     const int t = d - u;
-    sb = (lane && t >= 1 && t <= t_max) ? bl[static_cast<int64_t>(t - 1) * u1 + u] : 0.f;
-    se = (lane && u >= 1 && t >= 0 && t < t_max) ? em[static_cast<int64_t>(t) * u1 + u - 1] : 0.f;
+    const bool cell =
+        col && d < n_diag && static_cast<unsigned>(t) < static_cast<unsigned>(t_max);
+    cp_async4_if(s, bl + at - u1, cell && t >= 1);
+    cp_async4_if(s + 4 * nt, em + at - 1, cell && u >= 1);
+    cp_async_commit();
+    at += u1;
   };
 
-  prev[u + 1] = u == 0 ? 0.f : LOG_EPS;
-  prev[stride + u + 1] = LOG_EPS;
-  if (u == 0) {
-    prev[0] = LOG_EPS;
-    prev[stride] = LOG_EPS;
-    al[0] = 0.f;
-  }
+  for (int d = 1; d <= RING; ++d) stage(d);
   float mine = u == 0 ? 0.f : LOG_EPS;   // this thread's alpha on the last diagonal
-  const int n_diag = t_max + u1 - 1;
-  float nb, ne;
-  load(1, nb, ne);
+  if (u == 0) al[0] = 0.f;
+  if (u < EDGE) smem[u] = LOG_EPS;
+  cp_async_wait<RING - 1>();
+  float sb = ld_shared(slot(1)), se = ld_shared(slot(1) + 4 * nt);   // diagonal 1's operands
+  float left = __shfl_up_sync(0xffffffffu, mine, 1);                 // alpha[t, u-1]
+  int64_t out = static_cast<int64_t>(1 - u) * u1 + u;                // cell (d - u, u)
   __syncthreads();
   for (int d = 1; d < n_diag; ++d) {
-    const float* last = prev + ((d - 1) & 1) * stride;
-    float* cur = prev + (d & 1) * stride;
-    const float sb = nb, se = ne;
-    if (d + 1 < n_diag) load(d + 1, nb, ne);
-    const int t = d - u;
-    float alpha = LOG_EPS;
-    if (lane && t >= 0 && t < t_max) {
-      const float stay = t >= 1 ? mine + sb : LOG_EPS;
-      const float move = u >= 1 ? last[u] + se : LOG_EPS;   // last[u] is alpha at (t, u-1)
-      alpha = logaddexp(stay, move);
-      al[static_cast<int64_t>(t) * u1 + u] = alpha;
+    if (lane == 0) {
+      left = warp > 0 ? ld_shared(edge + 4 * (((d - 1) & 1) * 32 + warp - 1)) : LOG_EPS;
     }
-    cur[u + 1] = alpha;
-    mine = alpha;
-    __syncthreads();
+    const int t = d - u;
+    const float stay = t >= 1 ? mine + sb : LOG_EPS;
+    const float move = u >= 1 ? left + se : LOG_EPS;
+    const float value = logaddexp(stay, move);
+    const bool cell = col && static_cast<unsigned>(t) < static_cast<unsigned>(t_max);
+    const float next = cell ? value : LOG_EPS;
+    if (warps && lane == 31) st_shared(edge + 4 * ((d & 1) * 32 + warp), next);
+    left = __shfl_up_sync(0xffffffffu, next, 1);
+    mine = next;
+    stage(d + RING);   // into the slot of diagonal d, read already
+    cp_async_wait<RING - 1>();
+    sb = ld_shared(slot(d + 1));
+    se = ld_shared(slot(d + 1) + 4 * nt);
+    if (warps) __syncthreads();
+    if (cell) al[out] = next;   // after the barrier, off the chain
+    out += u1;
   }
+  cp_async_wait<0>();
 
   if (u == y_len[b]) {
     const int64_t cell = static_cast<int64_t>(f_len[b] - 1) * u1 + u;
@@ -113,15 +144,22 @@ __global__ void rnnt_fwd_kernel(const float* __restrict__ blank, const float* __
 
 extern "C" {
 
-// Returns a cudaError_t.
+// Returns a cudaError_t. threads, ring and smem are the launch geometry:
+// threads a multiple of 32 that covers u1, ring equal to RING, smem at least
+// what they need.
 int ecf_rnnt_fwd(const float* blank, const float* emit, const int* f_len, const int* y_len,
-                 float* alphas, float* loss, int batch, int t_max, int u1, void* stream) {
-  if (batch <= 0 || t_max <= 0 || u1 <= 0 || u1 > MAX_THREADS) {
+                 float* alphas, float* loss, int batch, int t_max, int u1, int threads,
+                 int ring, int smem, void* stream) {
+  if (batch <= 0 || t_max <= 0 || !geometry_ok(u1, threads, ring, smem, OPERANDS)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = (u1 + 31) / 32 * 32;
-  const size_t smem = 2 * (threads + 1) * sizeof(float);
-  rnnt_fwd_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = rnnt_fwd_kernel;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       blank, emit, f_len, y_len, alphas, loss, t_max, u1);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,7 +25,8 @@ utterance's lattice (the warp_rnnt formulation, as the TPU kernel).
 ``rnnt_loss_from_gathered`` is one ``torch.autograd.Function`` over both
 directions: for CPU tensors it runs the plain versions
 (``reference_rnnt_alphas``, ``reference_rnnt_grads``), for CUDA tensors the
-kernels csrc/rnnt_fwd.cu and csrc/rnnt_bwd.cu, and it has no other path.
+kernels csrc/rnnt_fwd.cu and csrc/rnnt_bwd.cu (the beta recursion, then the
+gradients of every cell in a second kernel), and it has no other path.
 Both versions run the same arithmetic in the same order: cells are visited
 one anti-diagonal d = t + u at a time, and logaddexp(a, b) is
 max(a, b) + log1p(exp(-|a - b|)).
@@ -48,6 +49,8 @@ LOG_EPS = -1e30
 KERNEL_FWD = "rnnt_fwd"
 KERNEL_BWD = "rnnt_bwd"
 MAX_U1 = 1024   # one thread per label position, at most 1024 threads a block
+RING = 8        # diagonals staged ahead of the chain, as the kernels' RING (rnnt_wavefront.cuh)
+SMEM_LIMIT = 232448   # shared memory a block may use on the H100 (227 KB), as the kernels check
 
 
 def _logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -158,17 +161,18 @@ rnnt_alphas.launches = 0  # forward kernel launches since the caller last reset 
 
 def rnnt_grads(blank_lp, emit_lp, alphas, f_len, y_len, ll):
     """(d ll / d blank, d ll / d emit): the plain version for CPU tensors, the
-    kernel for CUDA tensors (counted in ``rnnt_grads.launches``)."""
+    two kernels for CUDA tensors, the betas then the gradients (each counted
+    in ``rnnt_grads.launches``)."""
     if blank_lp.device.type == "cpu":
         return reference_rnnt_grads(blank_lp, emit_lp, alphas, f_len, y_len, ll)
     if blank_lp.device.type != "cuda":
         raise ValueError(f"rnnt_grads: no kernel for device {blank_lp.device}")
     out = _launch_bwd(blank_lp, emit_lp, alphas, f_len, y_len, ll)
-    rnnt_grads.launches += 1
+    rnnt_grads.launches += 2
     return out
 
 
-rnnt_grads.launches = 0  # backward kernel launches since the caller last reset it
+rnnt_grads.launches = 0  # backward kernel launches (two a call) since the caller last reset it
 
 
 class _RNNTLoss(torch.autograd.Function):
@@ -231,10 +235,22 @@ def rnnt_loss(logits: torch.Tensor, labels: torch.Tensor, f_len: torch.Tensor,
 # ---------------------------------------------------------------- launch
 
 
+def launch_geometry(u1: int) -> tuple[int, int, int]:
+    """(threads, ring, shared bytes) of one block of either kernel at
+    U+1 = u1: one thread per label position, rounded up to whole warps; a
+    ring of RING diagonals of the two staged operands (blank and emit), one
+    fp32 slot per thread each; and 2 x 32 slots that carry a value a
+    diagonal across each warp boundary."""
+    if not 1 <= u1 <= MAX_U1:
+        raise ValueError(f"rnnt: U+1 = {u1} outside [1, {MAX_U1}] label positions")
+    threads = -(-u1 // 32) * 32
+    return threads, RING, 4 * (2 * 32 + RING * 2 * threads)
+
+
 def _bind(lib: ctypes.CDLL, name: str, n_ptr: int):
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.ecf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ecf_cuda_error_string.restype = ctypes.c_char_p
@@ -269,7 +285,7 @@ def _launch_fwd(blank_lp, emit_lp, f_len, y_len):
     with torch.cuda.device(blank_lp.device):
         stream = torch.cuda.current_stream(blank_lp.device).cuda_stream
         err = fn(blank_lp.data_ptr(), emit_lp.data_ptr(), f_len.data_ptr(), y_len.data_ptr(),
-                 alphas.data_ptr(), loss.data_ptr(), b, t_max, u1, stream)
+                 alphas.data_ptr(), loss.data_ptr(), b, t_max, u1, *launch_geometry(u1), stream)
     _raise_on(err, lib, KERNEL_FWD)
     return alphas, loss
 
@@ -282,13 +298,14 @@ def _launch_bwd(blank_lp, emit_lp, alphas, f_len, y_len, ll):
                                      for x in (blank_lp, emit_lp, alphas, ll))
     f_len, y_len = (x.to(torch.int32).contiguous() for x in (f_len, y_len))
     lib = _kernels.load(KERNEL_BWD)
-    fn = _bind(lib, "ecf_rnnt_bwd", 8)
+    fn = _bind(lib, "ecf_rnnt_bwd", 9)
     g_blank = torch.empty((b, t_max, u1), dtype=torch.float32, device=blank_lp.device)
     g_emit = torch.empty_like(g_blank)
+    betas = torch.empty_like(g_blank)   # scratch: the kernel's betas inside each lattice
     with torch.cuda.device(blank_lp.device):
         stream = torch.cuda.current_stream(blank_lp.device).cuda_stream
         err = fn(blank_lp.data_ptr(), emit_lp.data_ptr(), alphas.data_ptr(), f_len.data_ptr(),
                  y_len.data_ptr(), ll.data_ptr(), g_blank.data_ptr(), g_emit.data_ptr(),
-                 b, t_max, u1, stream)
+                 betas.data_ptr(), b, t_max, u1, *launch_geometry(u1), stream)
     _raise_on(err, lib, KERNEL_BWD)
     return g_blank, g_emit

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Device-time probe of the PyTorch port's bias-attention kernels, and an
-A/B of the LM or CTC paths between two checkouts, on one NVIDIA GPU.
+A/B of the LM, CTC or RNN-T paths between two checkouts, on one NVIDIA GPU.
 
     python3 scripts/torch_bias_attention_probe.py probe
-    python3 scripts/torch_bias_attention_probe.py ab PARENT_DIR [CHANGE_DIR] [--ctc]
+    python3 scripts/torch_bias_attention_probe.py ab PARENT_DIR [CHANGE_DIR] [--ctc | --rnnt]
 
 ``probe`` times the bias attention's forward and backward at the
 LM-Transformer's training shape (B 64, H 12, N 101, dh 64, bf16, the causal
@@ -17,8 +17,12 @@ checkout, in turns (parent, change, change, parent), each in its own
 process from the checkout's root, so that both are measured on the same
 card within one call; with ``--ctc`` the CTC flagship's phases (rate,
 train-rate) and profiles of one inference batch and one training step
-instead, with the rel-pos kernels' profile rows. Make the parent's checkout
-with ``git archive <commit> | tar -x -C build/parent``.
+instead, with the rel-pos kernels' profile rows; with ``--rnnt`` the RNN-T
+lattice kernels' training step first (t-train-rate), then their phase
+(rnnt-kernel) and both kernels' device time from a CUDA graph
+(``[rnnt-ab]``, the same measure in both checkouts) at the Transducer's
+training shape and at the widest lattice the kernels take (U+1 1024). Make the parent's checkout with
+``git archive <commit> | tar -x -C build/parent``.
 
 Imports nothing of JAX; exits non-zero without a GPU.
 """
@@ -67,6 +71,32 @@ x = torch.from_numpy((np.random.default_rng(0).standard_normal((C.TIME_BATCH, n)
 x_len = torch.full((C.TIME_BATCH,), n, device="cuda")
 infer = lambda: greedy_decode(model, x, x_len)
 C.profile("infer", infer, C.wall_ms(infer))
+"""
+
+AB_PHASES_RNNT = """
+import concurrent.futures, torch, chip_smoke as C
+from efficientconformer_torch.config import encoder_output_frames, load_config
+from efficientconformer_torch.ops import _kernels, rel_attention as RA, rnnt_loss as RL
+card = C.card()
+print(card, flush=True)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+names = (RA.KERNEL, RA.KERNEL_BWD, RL.KERNEL_FWD, RL.KERNEL_BWD)
+with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    list(pool.map(_kernels.build, names))
+C.phase_t_train_rate(card)   # first, before any CUDA graph of the kernel phase
+cfg = load_config(C.T_CONFIG)
+C.phase_rnnt_kernel(cfg)
+tp = cfg["training_params"]
+t = encoder_output_frames(cfg["encoder_params"], tp["train_audio_max_length"])
+for u1 in (tp["train_label_max_length"] + 1, RL.MAX_U1):   # the training shape, the widest
+    blank, emit, f_len, y_len = C.rnnt_inputs(tp["batch_size"], t, u1, C.SEED + 6)
+    alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
+    fwd = lambda: RL.rnnt_alphas(blank, emit, f_len, y_len)
+    bwd = lambda: RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+    print(f"[rnnt-ab] shape={tuple(blank.shape)} fwd_graph_ms={C.graph_ms(fwd):.4f} "
+          f"bwd_graph_ms={C.graph_ms(bwd):.4f} fwd_eager_ms={C.cuda_ms(fwd):.4f} "
+          f"bwd_eager_ms={C.cuda_ms(bwd):.4f}", flush=True)
 """
 
 
@@ -154,11 +184,13 @@ def main() -> int:
     if len(sys.argv) >= 2 and sys.argv[1] == "probe":
         probe()
         return 0
-    args = [a for a in sys.argv[1:] if a != "--ctc"]
+    args = [a for a in sys.argv[1:] if a not in ("--ctc", "--rnnt")]
     if len(args) >= 2 and args[0] == "ab":
         change = args[2] if len(args) > 2 else str(ROOT)
         if "--ctc" in sys.argv:
             return ab(args[1], change, AB_PHASES_CTC, "relpos_")
+        if "--rnnt" in sys.argv:
+            return ab(args[1], change, AB_PHASES_RNNT, "rnnt_")
         return ab(args[1], change)
     raise SystemExit(__doc__)
 

@@ -303,13 +303,17 @@ def rnnt_case(device, b, t, u1, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,t,u1", [(16, 201, 91), (4, 60, 150), (3, 1, 5), (2, 7, 1),
-                                    (5, 33, 300)])
+                                    (5, 33, 300), (3, 40, 32), (3, 40, 33), (3, 20, 64),
+                                    (3, 20, 65), (2, 6, 1024), (4, 2, 40)])
 def test_rnnt_kernels_match_plain_versions(cuda, b, t, u1):
     """Alphas and loss of the forward kernel, both gradients of the backward
     kernel on the same alphas, vs reference_rnnt_alphas / _grads on the
     card; exact zeros outside each utterance's lattice. (16, 201, 91) is the
     Transducer's training shape; U+1 = 150 and 300 take more than 128
-    threads a block."""
+    threads a block, 32/33 and 64/65 end on and just past a warp, 1024 is
+    the most a block takes; T = 1 and 2 are shorter than the ring of staged
+    diagonals, and at (4, 2, 40) the third utterance has f_len 1, y_len 13.
+    The backward counts two launches: the betas, then the gradients."""
     blank, emit, f_len, y_len = rnnt_case(cuda, b, t, u1, seed=t + u1)
     RL.rnnt_alphas.launches = RL.rnnt_grads.launches = 0
     alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
@@ -319,7 +323,7 @@ def test_rnnt_kernels_match_plain_versions(cuda, b, t, u1):
     torch.testing.assert_close(loss, want_loss, rtol=RNNT_LOSS_RTOL, atol=0)
     got = RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
     want = RL.reference_rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
-    assert RL.rnnt_alphas.launches == 1 and RL.rnnt_grads.launches == 1
+    assert RL.rnnt_alphas.launches == 1 and RL.rnnt_grads.launches == 2
     for g_, w_ in zip(got, want):
         torch.testing.assert_close(g_, w_, rtol=0, atol=RNNT_GRAD_TOL)
         for i in range(b):
@@ -327,6 +331,21 @@ def test_rnnt_kernels_match_plain_versions(cuda, b, t, u1):
             assert (g_[i, f:] == 0).all() and (g_[i, :, y + 1:] == 0).all()
     torch.testing.assert_close(got[0][torch.arange(b), f_len.long() - 1, y_len.long()],
                                torch.ones(b, device=cuda), rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_rnnt_kernels_equal_plain_versions_bitwise_at_the_training_shape(cuda):
+    """At the Transducer's training shape (B 16, T 201, U+1 91) both kernels
+    run the plain versions' fp32 arithmetic in the same order, so their
+    alphas, loss and gradients are equal bit for bit."""
+    blank, emit, f_len, y_len = rnnt_case(cuda, 16, 201, 91, seed=0)
+    alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
+    want_alphas = RL.reference_rnnt_alphas(blank, emit)
+    assert torch.equal(alphas, want_alphas)
+    assert torch.equal(loss, RL.loss_from_alphas(want_alphas, blank, f_len, y_len))
+    got = RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+    want = RL.reference_rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+    assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
 
 
 @pytest.mark.gpu
@@ -345,8 +364,8 @@ def test_rnnt_loss_through_both_kernels(cuda):
         RL.rnnt_alphas.launches = RL.rnnt_grads.launches = 0
         loss = RL.rnnt_loss(lg, labels.to(device), f_len, y_len)
         (loss * w.to(device)).sum().backward()
-        launched = 1 if device == cuda else 0
-        assert RL.rnnt_alphas.launches == launched and RL.rnnt_grads.launches == launched
+        launched = 1 if device == cuda else 0   # the backward: two kernels a call
+        assert RL.rnnt_alphas.launches == launched and RL.rnnt_grads.launches == 2 * launched
         out.append((loss.detach().cpu(), lg.grad.float().cpu()))
     torch.testing.assert_close(out[0][0], out[1][0], rtol=RNNT_LOSS_RTOL, atol=0)
     torch.testing.assert_close(out[0][1], out[1][1], rtol=0, atol=2e-2)   # bf16 gradient
@@ -361,6 +380,22 @@ def test_rnnt_kernels_refuse_what_they_do_not_take(cuda):
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="label positions"):
         RL.rnnt_alphas(wide, wide, one, one)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geometry", [(64, 8, 4 * (64 + 8 * 2 * 96)),   # fewer threads than U+1
+                                      (96, 3, 4 * (64 + 3 * 2 * 96)),   # another ring than the kernels'
+                                      (96, 8, 4 * 64)])                 # too little shared memory
+def test_rnnt_entry_points_refuse_a_geometry_they_do_not_take(cuda, monkeypatch, geometry):
+    """The C entry points check the launch geometry the wrapper hands them
+    and launch nothing on what they do not take; the wrapper raises."""
+    blank, emit, f_len, y_len = rnnt_case(cuda, 2, 5, 91, seed=0)
+    alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
+    monkeypatch.setattr(RL, "launch_geometry", lambda u1: geometry)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        RL.rnnt_alphas(blank, emit, f_len, y_len)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
 
 
 # ------------------------------------------------------------ bias attention

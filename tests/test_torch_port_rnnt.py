@@ -13,6 +13,8 @@ up to T + U dependent steps, so losses within 1e-5 relative and gradients
 """
 
 import functools
+import re
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -170,3 +172,33 @@ def test_wrappers_have_no_path_for_other_devices():
         RL.rnnt_alphas(x, x, lengths, lengths)
     with pytest.raises(ValueError, match="no kernel for device"):
         RL.rnnt_grads(x, x, x, lengths, lengths, torch.empty(1, device="meta"))
+
+
+@pytest.mark.parametrize("u1", [1, 32, 33, 91, 1024])
+def test_launch_geometry_covers_the_lattice(u1):
+    """The kernels' block at U+1 = u1: whole warps, one thread per label
+    position with no warp to spare, the kernels' ring of at least one
+    diagonal, and shared memory within what a block may use (the C entry
+    points refuse anything else)."""
+    threads, ring, smem = RL.launch_geometry(u1)
+    assert threads % 32 == 0 and u1 <= threads < u1 + 32
+    assert ring == RL.RING >= 1
+    assert 4 * ring * 2 * threads < smem <= RL.SMEM_LIMIT   # blank and emit a diagonal
+
+
+@pytest.mark.parametrize("u1", [0, 1025])
+def test_launch_geometry_refuses_more_label_positions_than_threads(u1):
+    with pytest.raises(ValueError, match="label positions"):
+        RL.launch_geometry(u1)
+
+
+@pytest.mark.parametrize("name,header_name", [("RING", "RING"), ("SMEM_LIMIT", "MAX_SMEM"),
+                                              ("MAX_U1", "MAX_THREADS"), ("LOG_EPS", "LOG_EPS")])
+def test_wrapper_constants_match_the_kernels_header(name, header_name):
+    """The wrapper's copies of the kernels' compile-time constants agree with
+    csrc/rnnt_wavefront.cuh: a ring or a limit that differs would make the C
+    entry points refuse every launch, or LOG_EPS differ off the lattice."""
+    header = (Path(RL.__file__).parents[1] / "csrc" / "rnnt_wavefront.cuh").read_text()
+    found = re.search(rf"constexpr (?:int|float) {header_name} = ([^;]+);", header)
+    assert found, header_name
+    assert float(found.group(1).rstrip("f")) == getattr(RL, name)
