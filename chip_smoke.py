@@ -95,9 +95,44 @@ the card. Phases, one line each; any failure exits non-zero:
                 step (60 / 60, all on the tensor-core route), model FLOPs
                 over the bf16 peak
 
+ 25-32. the CLI (``python -m efficientconformer_torch.main``) driven in this
+                process at the configs' published widths and depths, on a
+                synthetic LibriSpeech tree written under build/ (removed
+                after); only the dataset, tokenizer and callback paths are
+                redirected, and the epochs set:
+      cli-data  128 training utterances of 8.5-16 s, 8 dev and 8 test of
+                8-16 s (seeded noise, one of each split as FLAC, transcripts
+                from a seeded lexicon) and a 700-line LM corpus; byte sizes;
+                the FLAC files through the native decoder, bit for bit
+      cli-train  CTC Small: --create_tokenizer (native BPE trainer) -p,
+                2 epochs of 2 steps with validation WER and a checkpoint
+                each; 30 / 30 tensor-core rel-pos launches every step,
+                validation's apart; ms a step through the CLI beside
+                [train-rate]'s, the rel-pos table cache's misses; then the
+                loader's host ms a batch at CTC Small's 2 x 32
+      cli-buckets  the rel-pos table caches over the lengths a LibriSpeech
+                epoch pads to (8 training and 8 evaluation buckets), two
+                epochs: misses, rebuilds after an eviction, ms a miss
+      cli-resume  checkpoints_1.ckpt into a fresh trainer bit for bit (the
+                parameters, BatchNorm buffers, Adam state and step saved);
+                -i 1 runs epoch 2, its steps profiled: device ms a step and
+                the idle share of [cli-train]'s second epoch
+      cli-test  test-clean -i 2 --gready: the WER line, predictions string
+                for string greedy_decode's over the same loader batches
+      cli-swa   --swa --swa_epochs 1 2: parameters the checkpoints' mean
+                (<= 1e-6), BatchNorm statistics refreshed, no optimizer
+      cli-eval-time  eval_time, eval_time_encoder; test-clean without
+                --gready refuses beam search (NotImplementedError)
+      cli-transducer  Transducer Small: its own tokenizer and manifests,
+                1 step (RNN-T 4 / 8 and rel-pos 60 / 60 launches) with
+                validation, test-clean --gready, eval_time_decoder
+      cli-lm    LM-Transformer: 1 step on the corpus (bias 60 / 60, all on
+                the tensor cores) with lm_mode validation, validation-clean
+
 Then one JSON line with each kernel's launches, error, times and bound (the
 rel-pos entries also with their bf16 error, tensor-core launches and eager
-per-call ms), and last {"ok": true, "device": {...}}. With --profile it also prints a
+per-call ms; every entry with ``cli_launches``, its launches over the CLI's
+runs, each counted from 0), and last {"ok": true, "device": {...}}. With --profile it also prints a
 torch.profiler device-time breakdown of one batch or step of each path.
 There is no CPU path: without a GPU the script exits non-zero and prints no
 result. Imports nothing of JAX.
@@ -106,11 +141,15 @@ result. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ast
 import concurrent.futures
 import contextlib
+import io
 import itertools
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -160,6 +199,17 @@ LM_SLICE_LENGTHS = (10, 100)  # ragged sequences of 10..100 tokens
 BF16_PEAK = 989e12           # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet, 700 W)
 FP32_PEAK = 67e12            # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s
+# the CLI phases' synthetic LibriSpeech: split -> (utterances, shortest and
+# longest seconds). 128 training utterances of 8.5-16 s fill two of CTC
+# Small's 2 x 32 batches (every one lies above the lower of the loader's two
+# length buckets) and two of the Transducer's 4 x 16.
+CLI_SPLITS = {"train-clean-100": (128, 8.5, 16.0), "dev-clean": (8, 8.0, 16.0),
+              "test-clean": (8, 8.0, 16.0)}
+CLI_LM_LINES = 700           # LM-Transformer's step takes 5 x 64 lines
+CLI_WORKERS = 8              # the CLI's default -j
+DEV_MAX_SECONDS = 33.0       # an evaluation split's longest utterance, from which its
+                             # loader cuts its 8 buckets (assumed: no LibriSpeech here)
+SWA_TOL = 1e-6               # SWA parameters vs the mean of the checkpoints
 
 
 def check(cond: bool, msg: str) -> None:
@@ -805,7 +855,7 @@ def phase_train_rate(card_line: str):
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         loss=f"{float(loss):.4f}", grad_norm=f"{float(grad_norm):.4f}",
         fwd_launches=fwd, bwd_launches=bwd, tc_launches=(fwd_tc, bwd_tc), card=f"'{card_line}'")
-    return bwd, bwd_tc
+    return bwd, bwd_tc, dt * 1e3
 
 
 # ---------------------------------------------------------------- Transducer
@@ -1505,6 +1555,559 @@ def phase_lm_train_rate(card_line: str):
     return counts
 
 
+# ---------------------------------------------------------------- the CLI
+
+
+class Tee(io.TextIOBase):
+    """Writes to every stream it holds."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for stream in self.streams:
+            stream.write(s)
+        return len(s)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+# every kernel's launches (all_counts' order) summed over the run_cli calls
+# since phase_cli began: only the CLI's own launches
+CLI_LAUNCHES = [0] * 10
+
+
+def run_cli(*args) -> str:
+    """``python -m efficientconformer_torch.main *args`` in this process;
+    its standard output, which is printed as well. The kernel counters are
+    set to 0 just before the run and read just after, into CLI_LAUNCHES."""
+    from efficientconformer_torch.main import main as cli_main
+
+    buf = io.StringIO()
+    reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(Tee(sys.stdout, buf)):
+            rc = cli_main([str(a) for a in args])
+    finally:
+        for i, n in enumerate(all_counts()):
+            CLI_LAUNCHES[i] += n
+    check(rc == 0, f"the CLI returned {rc} for {args}")
+    return buf.getvalue()
+
+
+def all_counts() -> tuple:
+    """Every kernel counter: rel-pos fwd, fwd on the tensor cores, bwd, bwd
+    on the tensor cores, RNN-T fwd, bwd, bias fwd, fwd on the tensor cores,
+    bwd, bwd on the tensor cores."""
+    return rel_counts() + launch_counts()[:2] + tuple(
+        x for pair in zip(bias_launch_counts(), bias_tc_counts()) for x in pair)
+
+
+@contextlib.contextmanager
+def spied_trainer(profile=False):
+    """Records each ``Trainer.train_step`` call made inside: the kernel
+    launches it made (the counters' increase over the call, so
+    validation's launches fall outside), its batch's shape, its loss and,
+    with ``profile``, its device ms (the step under the profiler, then
+    synchronized: its wall clock no longer counts); and each
+    ``Trainer.save``: a copy of what was saved. Yields (steps, saves)."""
+    import copy
+
+    from efficientconformer_torch.training.trainer import Trainer
+
+    steps, saves = [], {}
+    train_step, save = Trainer.train_step, Trainer.save
+
+    def spy_step(self, batch, *args, **kw):
+        before = all_counts()
+        outs = []
+        ms = (device_ms(lambda: outs.append(train_step(self, batch, *args, **kw)), 1)[0]
+              if profile else outs.append(train_step(self, batch, *args, **kw)))
+        steps.append({"launches": tuple(a - b for a, b in zip(all_counts(), before)),
+                      "shape": tuple((batch.get("audio", batch.get("tokens"))).shape),
+                      "loss": outs[0][0], "device_ms": ms})
+        return outs[0]
+
+    def spy_save(self, path, save_optimizer=True):
+        save(self, path, save_optimizer)
+        saves[path] = {"model": {k: v.detach().clone() for k, v in
+                                 self.model.state_dict().items()},
+                       "optimizer": copy.deepcopy(self.optimizer.state_dict()),
+                       "step": self.step}
+
+    with mock.patch.object(Trainer, "train_step", spy_step), \
+            mock.patch.object(Trainer, "save", spy_save):
+        yield steps, saves
+
+
+def same_state(got, want) -> bool:
+    """Bitwise equality of nested dicts, lists and tensors."""
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(same_state(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        return len(got) == len(want) and all(same_state(g, w) for g, w in zip(got, want))
+    if torch.is_tensor(want):
+        return (got.dtype == want.dtype and got.shape == want.shape
+                and torch.equal(got.to(want.device), want))
+    return got == want
+
+
+def lexicon(rng, n_words=4000):
+    """Made-up words of 1-4 consonant-vowel syllables, distinct, seeded."""
+    syllables = [c + v for c in "bcdfghjklmnprstvwz" for v in "aeiou"]
+    words = set()
+    while len(words) < n_words:
+        words.add("".join(rng.choice(syllables, rng.integers(1, 5))))
+    return sorted(words)
+
+
+def sentence(rng, words, n) -> str:
+    """``n`` words drawn with Zipf-like frequencies."""
+    return " ".join(words[(int(rng.zipf(1.2)) - 1) % len(words)] for _ in range(n))
+
+
+def load_flac_encoder():
+    """tests/flac_encoder.py (numpy only), loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("flac_encoder", "tests/flac_encoder.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_librispeech(root, rng, words) -> dict:
+    """A LibriSpeech-layout tree of seeded noise: split/speaker/chapter/
+    {utt}.wav|.flac and {speaker}-{chapter}.trans.txt, about 2.2 words a
+    second; the first utterance of each split as FLAC. The int16 samples of
+    the FLAC files, by path."""
+    import wave
+
+    encoder = load_flac_encoder()
+    flacs = {}
+    for split, (n, lo, hi) in CLI_SPLITS.items():
+        for i in range(n):
+            spk, chap = 100 + i // 32, 1
+            d = os.path.join(root, split, str(spk), str(chap))
+            os.makedirs(d, exist_ok=True)
+            utt = f"{spk}-{chap}-{i:04d}"
+            samples = int(rng.uniform(lo, hi) * SAMPLE_RATE)
+            x = (rng.standard_normal(samples) * 0.05 * 32767).astype(np.int16)
+            if i == 0:
+                path = os.path.join(d, utt + ".flac")
+                with open(path, "wb") as f:
+                    f.write(encoder.encode_flac(x[None].astype(np.int64), blocksize=4096))
+                flacs[path] = x
+            else:
+                with wave.open(os.path.join(d, utt + ".wav"), "wb") as w:
+                    w.setnchannels(1)
+                    w.setsampwidth(2)
+                    w.setframerate(SAMPLE_RATE)
+                    w.writeframes(x.tobytes())
+            text = sentence(rng, words, max(3, round(samples / SAMPLE_RATE * 2.2))).upper()
+            with open(os.path.join(d, f"{spk}-{chap}.trans.txt"), "a") as f:
+                f.write(f"{utt} {text}\n")
+    return flacs
+
+
+def cli_config(path, tmp, name, epochs, **paths) -> str:
+    """``path``'s config with its dataset, tokenizer and callback paths
+    under ``tmp`` and its epochs set; everything else its own. The new
+    config's path."""
+    from efficientconformer_torch.config import load_config
+
+    cfg = load_config(path)
+    tp = cfg["training_params"]
+    root = os.path.join(tmp, "LibriSpeech") + "/"
+    cfg["tokenizer_params"]["tokenizer_path"] = os.path.join(
+        root, os.path.basename(cfg["tokenizer_params"]["tokenizer_path"]))
+    tp.update(training_dataset_path=root, evaluation_dataset_path=root,
+              callback_path=os.path.join(tmp, "callbacks", name) + "/", epochs=epochs, **paths)
+    out = os.path.join(tmp, f"{name}.json")
+    with open(out, "w") as f:
+        json.dump(cfg, f)
+    return out
+
+
+def epoch_lines(out) -> list:
+    """(epoch, mean loss, steps, ms a step) of each epoch line the CLI printed."""
+    return [(int(e), float(x), int(n), float(ms)) for e, x, n, ms in re.findall(
+        r"epoch (\d+)/\d+ loss (\S+) \([\d.]+s, (\d+) steps, ([\d.]+) ms/step\)", out)]
+
+
+def phase_cli_data(tmp):
+    """The synthetic LibriSpeech tree and the LM corpus; the native FLAC
+    decoder on it."""
+    from efficientconformer_torch.data import audio_io
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 20)
+    words = lexicon(rng)
+    flacs = write_librispeech(os.path.join(tmp, "LibriSpeech"), rng, words)
+    corpus = os.path.join(tmp, "librispeech-lm-norm.txt")
+    with open(corpus, "w") as f:
+        for _ in range(CLI_LM_LINES):
+            f.write(sentence(rng, words, int(rng.integers(5, 40))).upper() + "\n")
+    write_s = time.perf_counter() - t0
+    check(audio_io.flac_backend() == "native", f"FLAC backend {audio_io.flac_backend()}")
+    for path, x in flacs.items():
+        got, sr = audio_io.load_audio(path)
+        check(sr == SAMPLE_RATE and np.array_equal(got, x.astype(np.float32) / 32768.0),
+              f"{path}: the native decoder's samples differ from those encoded")
+    sizes = {split: sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                        os.walk(os.path.join(tmp, "LibriSpeech", split)) for f in fs)
+             for split in CLI_SPLITS}
+    say("cli-data", bytes=sizes, lm_corpus_bytes=os.path.getsize(corpus),
+        flac_files=len(flacs), flac_backend="native", write_s=f"{write_s:.2f}")
+
+
+@contextlib.contextmanager
+def native_bpe_spy():
+    """Counts the tokenizer trainings of data/preparation.py by route:
+    yields {"native": trainings that returned a tokenizer, "python": the
+    pure-Python fallback's}."""
+    from efficientconformer_torch.data import preparation
+
+    calls = {"native": 0, "python": 0}
+    native, python = preparation.train_bpe_native, preparation.train_bpe
+
+    def spy_native(*args, **kw):
+        tok = native(*args, **kw)
+        calls["native"] += tok is not None
+        return tok
+
+    def spy_python(*args, **kw):
+        calls["python"] += 1
+        return python(*args, **kw)
+
+    with mock.patch.object(preparation, "train_bpe_native", spy_native), \
+            mock.patch.object(preparation, "train_bpe", spy_python):
+        yield calls
+
+
+def check_steps(phase, steps, want, n):
+    """``n`` steps, each with the launches ``want`` (a dict of all_counts
+    indices -> count) and a finite loss."""
+    check(len(steps) == n, f"{phase}: {len(steps)} training steps, expected {n}")
+    for s in steps:
+        got = {i: s["launches"][i] for i in want}
+        check(got == want, f"{phase}: launches {s['launches']} in a step, expected {want}")
+        check(math.isfinite(float(s["loss"])), f"{phase}: loss {float(s['loss'])}")
+
+
+def phase_cli_train(tmp, card_line, train_rate_ms):
+    """CTC Small through the CLI: tokenizer, manifests, 2 epochs of 2 steps
+    with validation and a checkpoint each, its ms a step beside
+    [train-rate]'s; then the loader alone over the manifests the run wrote,
+    its host ms a batch."""
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.data.datasets import LibriSpeechDataset
+    from efficientconformer_torch.data.loader import AsrBatchLoader
+    from efficientconformer_torch.ops import rel_factorize as RF
+
+    cfg_path = cli_config(CONFIG, tmp, "ctc", 2)
+    cfg = load_config(cfg_path)
+    tp, kp = cfg["training_params"], cfg["tokenizer_params"]
+    cb = tp["callback_path"]
+    tables0, folds0 = RF.rel_tables.cache_info(), RF._fold_tables.cache_info()
+    before = tuple(CLI_LAUNCHES)
+    t0 = time.perf_counter()
+    with spied_trainer() as (steps, saves), native_bpe_spy() as bpe:
+        out = run_cli("-c", cfg_path, "-m", "training", "--create_tokenizer", "-p",
+                      "--steps_per_epoch", 2, "--val_steps", 1)
+    cli_s = time.perf_counter() - t0
+    total = tuple(a - b for a, b in zip(CLI_LAUNCHES, before))
+    tables, folds = RF.rel_tables.cache_info(), RF._fold_tables.cache_info()
+    check(bpe == {"native": 1, "python": 0}, f"tokenizer trainings {bpe}")
+    n_att = cfg["encoder_params"]["num_blocks"] * tp["accumulated_steps"]
+    check_steps("cli-train", steps, {0: n_att, 1: n_att, 2: n_att, 3: n_att}, 4)
+    val_fwd = total[0] - sum(s["launches"][0] for s in steps)
+    check(val_fwd > 0 and total[2] == sum(s["launches"][2] for s in steps),
+          f"validation launches: {val_fwd} forward, {total[2]} backward in all")
+    epochs = epoch_lines(out)
+    check([e[:1] + e[2:3] for e in epochs] == [(1, 2), (2, 2)], f"epoch lines {epochs}")
+    check(all(math.isfinite(e[1]) for e in epochs), f"epoch losses {epochs}")
+    wers = re.findall(r"val: \{'WER': ([\d.]+), 'MeanLoss': ([\d.]+)\}", out)
+    check(len(wers) == 2, "the validation WER lines")
+    for e in (1, 2):
+        check(os.path.exists(os.path.join(cb, f"checkpoints_{e}.ckpt")), f"checkpoints_{e}.ckpt")
+    audio_s = int(np.prod(steps[-1]["shape"])) / SAMPLE_RATE
+
+    ds = LibriSpeechDataset(tp["training_dataset_path"], "train", vocab_size=kp["vocab_size"],
+                            audio_max_length=tp["train_audio_max_length"],
+                            label_max_length=tp["train_label_max_length"])
+    loader = AsrBatchLoader(ds, tp["batch_size"], accum_steps=tp["accumulated_steps"],
+                            num_workers=CLI_WORKERS)
+    t0 = time.perf_counter()
+    batches = list(loader.epoch(0))
+    load_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    load_audio_s = sum(int(b["audio_len"].sum()) for b in batches) / SAMPLE_RATE / len(batches)
+    check(len(batches) >= 2, f"{len(batches)} CTC Small batches in the training split")
+    # the second epoch's ms a step: the mean of its 2 steps, its first batch's
+    # wait included
+    say("cli-train", config="EfficientConformerCTCSmall", seconds=f"{cli_s:.2f}",
+        epochs=[(e, f"{x:.4f}", n_) for e, x, n_, _ in epochs],
+        val_wer=[float(w) for w, _ in wers], step_launches=steps[0]["launches"][:4],
+        val_fwd_launches=val_fwd, cli_ms_per_step=epochs[-1][3],
+        cli_audio_s_per_s=f"{audio_s / epochs[-1][3] * 1e3:.1f}",
+        train_rate_ms_per_step=f"{train_rate_ms:.2f}",
+        rel_tables_misses=tables.misses - tables0.misses, rel_tables_hits=tables.hits - tables0.hits,
+        fold_tables_misses=folds.misses - folds0.misses, loader_batches=len(batches),
+        loader_shape=tuple(batches[0]["audio"].shape), loader_workers=CLI_WORKERS,
+        loader_host_ms_per_batch=f"{load_ms:.1f}",
+        loader_audio_s_per_s=f"{load_audio_s / load_ms * 1e3:.1f}", card=f"'{card_line}'")
+    return cfg_path, cfg, saves, epochs[-1][3]
+
+
+def phase_cli_buckets(card_line):
+    """The rel-pos table caches over the padded lengths a LibriSpeech epoch
+    gives CTC Small: the 8 training buckets of its train_audio_max_length
+    and the 8 evaluation buckets of DEV_MAX_SECONDS, a forward at each
+    length. An epoch: each training length twice in a seeded order, then
+    each evaluation length (validation). Two epochs from empty caches: the
+    first epoch's misses fill them, the second's are rebuilds after an
+    eviction. And the host ms one miss costs."""
+    import random
+
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.data.loader import make_buckets
+    from efficientconformer_torch.models.model_ctc import greedy_decode
+    from efficientconformer_torch.ops import rel_factorize as RF
+
+    train = make_buckets(load_config(CONFIG)["training_params"]["train_audio_max_length"], 8)
+    dev = make_buckets(int(DEV_MAX_SECONDS * SAMPLE_RATE), 8)
+    model = make_model("cuda", torch.bfloat16).eval()
+    rng = random.Random(SEED)
+    RF.rel_tables.cache_clear()
+    RF._fold_tables.cache_clear()
+    misses = []
+    with torch.inference_mode():
+        for _ in range(2):
+            before = RF.rel_tables.cache_info().misses
+            order = train * 2
+            rng.shuffle(order)
+            for n in order + dev:
+                greedy_decode(model, torch.zeros(1, n, device="cuda"),
+                              torch.tensor([n], device="cuda"))
+            misses.append(RF.rel_tables.cache_info().misses - before)
+    torch.cuda.synchronize()
+    info, folds = RF.rel_tables.cache_info(), RF._fold_tables.cache_info()
+    check(misses[0] > 0 and info.hits > 0, f"rel_tables: {info}")
+    miss_ms = cuda_ms(lambda: RF.rel_tables.__wrapped__(401, 401, 168, 1, torch.device("cuda")),
+                      iters=5, warmup=1)
+    say("cli-buckets", config="EfficientConformerCTCSmall",
+        train_lengths_s=[e / SAMPLE_RATE for e in train],
+        eval_lengths_s=[round(e / SAMPLE_RATE, 3) for e in dev],
+        rel_tables_keys=info.currsize, capacity=info.maxsize, misses_epoch_1=misses[0],
+        misses_epoch_2=misses[1], fold_tables_misses=folds.misses, miss_ms=f"{miss_ms:.3f}",
+        card=f"'{card_line}'")
+
+
+def phase_cli_resume(cfg_path, cfg, saves, cli_ms):
+    """checkpoints_1.ckpt into a fresh trainer, bit for bit what was saved;
+    then -i 1 runs epoch 2, each step under the profiler: its device ms,
+    and the idle share of [cli-train]'s second epoch (the same batches)."""
+    from efficientconformer_torch.training.trainer import Trainer
+
+    cb = cfg["training_params"]["callback_path"]
+    path = os.path.join(cb, "checkpoints_1.ckpt")
+    trainer = Trainer(cfg, device="cuda", seed=SEED + 1)
+    trainer.load(path)
+    saved = saves[path]
+    check(trainer.step == saved["step"] == 2, f"step {trainer.step} / {saved['step']}")
+    check(same_state(trainer.model.state_dict(), saved["model"]),
+          "parameters or BatchNorm buffers differ from those saved")
+    opt = trainer.optimizer.state_dict()
+    check(len(opt["state"]) == len(list(trainer.model.parameters()))
+          and same_state(opt, saved["optimizer"]), "Adam state differs from that saved")
+    del trainer
+    with spied_trainer(profile=True) as (steps, _):
+        out = run_cli("-c", cfg_path, "-m", "training", "-i", 1, "--steps_per_epoch", 2,
+                      "--val_steps", 1)
+    epochs = epoch_lines(out)
+    check([e[0] for e in epochs] == [2] and len(steps) == 2, f"resumed epochs {epochs}")
+    from efficientconformer_torch.training import checkpoint
+
+    step = checkpoint.read(os.path.join(cb, "checkpoints_2.ckpt"))["step"]
+    check(step == 4, f"checkpoints_2.ckpt step {step}")
+    busy = [s["device_ms"] for s in steps]
+    check(all(ms > 0 for ms in busy), f"device ms of the resumed steps {busy}")
+    say("cli-resume", checkpoint="checkpoints_1.ckpt", step=saved["step"],
+        tensors=len(saved["model"]), adam_states=len(opt["state"]), bitwise=True,
+        resumed_epoch=epochs[0][0], loss=f"{epochs[0][1]:.4f}",
+        device_ms_per_step=[f"{ms:.2f}" for ms in busy], cli_ms_per_step=cli_ms,
+        idle_share=f"{1 - sum(busy) / len(busy) / cli_ms:.3f}")
+
+
+def phase_cli_test(cfg_path, cfg):
+    """test-clean, greedy: the WER line, and predictions string for string
+    those of greedy_decode over the same loader batches."""
+    from efficientconformer_torch import runtime
+    from efficientconformer_torch.data.datasets import LibriSpeechDataset
+    from efficientconformer_torch.data.loader import AsrBatchLoader
+    from efficientconformer_torch.models.model_ctc import greedy_decode
+    from efficientconformer_torch.training.trainer import Trainer
+    from efficientconformer_torch.utils.metrics import wer
+
+    t0 = time.perf_counter()
+    out = run_cli("-c", cfg_path, "-m", "test-clean", "-i", 2, "--gready", "--verbose_val")
+    cli_s = time.perf_counter() - t0
+    printed = [ast.literal_eval(line) for line in
+               re.findall(r"Predictions:\n (\[.*\])\n", out)]
+    got_wer = float(re.search(r"Greedy Search WER : ([\d.]+)%", out).group(1))
+    trainer = Trainer(cfg, device="cuda")
+    trainer.load(os.path.join(cfg["training_params"]["callback_path"], "checkpoints_2.ckpt"))
+    tok = runtime.load_tokenizer(cfg)
+    ds = LibriSpeechDataset(cfg["training_params"]["evaluation_dataset_path"], "test-clean",
+                            vocab_size=cfg["tokenizer_params"]["vocab_size"])
+    direct, truths, preds = [], [], []
+    for batch in AsrBatchLoader(ds, 8, shuffle=False, drop_last=False).epoch(0):
+        audio = torch.from_numpy(batch["audio"][0]).cuda()
+        toks, n = greedy_decode(trainer.model.eval(), audio,
+                                torch.from_numpy(batch["audio_len"][0]).cuda())
+        toks, n = toks.cpu().numpy(), n.cpu().numpy()
+        strings = tok.decode([toks[b, : n[b]].tolist() for b in range(len(n))])
+        direct.append(strings)
+        valid = int(batch["n_valid"][0])
+        preds += strings[:valid]
+        truths += tok.decode([batch["labels"][0, b, : batch["label_len"][0, b]].tolist()
+                              for b in range(valid)])
+    check(printed == direct, "the CLI's predictions differ from greedy_decode's")
+    want_wer = 100 * wer(truths, preds)
+    check(f"{got_wer:.2f}" == f"{want_wer:.2f}", f"WER {got_wer} vs {want_wer}")
+    say("cli-test", split="test-clean", utterances=len(preds), wer=f"{got_wer:.2f}",
+        tokens_per_utt=f"{np.mean([len(tok.encode(p)) for p in preds]):.1f}",
+        predictions_equal=True, seconds=f"{cli_s:.2f}")
+
+
+def phase_cli_swa(cfg_path, cfg):
+    """--swa over epochs 1-2: parameters the mean of the two checkpoints,
+    BatchNorm statistics refreshed, no optimizer."""
+    from efficientconformer_torch.training import checkpoint
+    from efficientconformer_torch.training.trainer import Trainer
+
+    cb = cfg["training_params"]["callback_path"]
+    t0 = time.perf_counter()
+    run_cli("-c", cfg_path, "-m", "training", "--swa", "--swa_epochs", 1, 2,
+            "--steps_per_epoch", 2)
+    cli_s = time.perf_counter() - t0
+    swa = checkpoint.read(os.path.join(cb, "checkpoints_swa-equal-1-2.ckpt"))
+    first, last = (checkpoint.read(os.path.join(cb, f"checkpoints_{e}.ckpt")) for e in (1, 2))
+    names = {n for n, _ in Trainer(cfg, device="cuda").model.named_parameters()}
+    err = max((swa["model"][k] - (first["model"][k] + last["model"][k]) / 2).abs().max().item()
+              for k in names)
+    stats = [k for k in swa["model"] if "running_" in k]
+    refreshed = sum(not torch.equal(swa["model"][k], last["model"][k]) for k in stats)
+    check(err <= SWA_TOL, f"SWA parameters {err} from the mean of the checkpoints")
+    check(refreshed == len(stats) > 0, f"{refreshed} of {len(stats)} statistics refreshed")
+    check(swa["optimizer"] is None and swa["step"] == last["step"], "SWA optimizer or step")
+    say("cli-swa", checkpoint="checkpoints_swa-equal-1-2.ckpt", param_err=f"{err:.3g}",
+        refreshed_stats=f"{refreshed}/{len(stats)}", optimizer=None, seconds=f"{cli_s:.2f}")
+
+
+def phase_cli_eval_time(cfg_path):
+    times = {}
+    for mode in ("eval_time", "eval_time_encoder"):
+        out = run_cli("-c", cfg_path, "-m", mode, "-i", 2, "--val_steps", 1)
+        times[mode] = float(re.search(r"eval time : ([\d.]+)s", out).group(1))
+    try:
+        run_cli("-c", cfg_path, "-m", "test-clean", "-i", 2)
+        refused = False
+    except NotImplementedError as e:
+        refused = "item 11" in str(e)
+    check(refused, "test-clean without --gready (beam_size 16) did not refuse beam search")
+    say("cli-eval-time", **{k: f"{v:.2f}s" for k, v in times.items()},
+        beam_search="NotImplementedError (ROADMAP item 11)")
+
+
+def phase_cli_transducer(tmp, card_line):
+    """Transducer Small through the CLI: its tokenizer (1000 pieces) and
+    manifests, 1 epoch of 1 step with validation, greedy test-clean,
+    eval_time_decoder."""
+    from efficientconformer_torch.config import load_config
+
+    cfg_path = cli_config(T_CONFIG, tmp, "transducer", 1)
+    cfg = load_config(cfg_path)
+    with spied_trainer() as (steps, _), native_bpe_spy() as bpe:
+        train_out = run_cli("-c", cfg_path, "-m", "training", "--create_tokenizer", "-p",
+                            "--steps_per_epoch", 1, "--val_steps", 1)
+    check(bpe == {"native": 1, "python": 0}, f"tokenizer trainings {bpe}")
+    accum = cfg["training_params"]["accumulated_steps"]
+    n_att = cfg["encoder_params"]["num_blocks"] * accum
+    check_steps("cli-transducer", steps, {0: n_att, 1: n_att, 2: n_att, 3: n_att, 4: accum,
+                                         5: 2 * accum}, 1)
+    wer_val = re.search(r"val: \{'WER': ([\d.]+)", train_out)
+    check(wer_val is not None, "the validation WER line")
+    out = run_cli("-c", cfg_path, "-m", "test-clean", "-i", 1, "--gready")
+    test_wer = float(re.search(r"Greedy Search WER : ([\d.]+)%", out).group(1))
+    out = run_cli("-c", cfg_path, "-m", "eval_time_decoder", "-i", 1, "--val_steps", 1)
+    dec_s = float(re.search(r"eval time : ([\d.]+)s", out).group(1))
+    from efficientconformer_torch.data.tokenizer import BpeTokenizer
+
+    pieces = BpeTokenizer.load(cfg["tokenizer_params"]["tokenizer_path"]).vocab_size()
+    (_, loss, _, step_ms), = epoch_lines(train_out)
+    say("cli-transducer", config="EfficientConformerTransducerSmall", bpe_pieces=pieces,
+        loss=f"{loss:.4f}", ms_per_step=step_ms, step_launches=steps[0]["launches"][:6],
+        step_shape=steps[0]["shape"], val_wer=float(wer_val.group(1)), test_wer=test_wer,
+        eval_time_decoder=f"{dec_s:.2f}s", card=f"'{card_line}'")
+
+
+def phase_cli_lm(tmp, card_line):
+    """LM-Transformer through the CLI: 1 step on the corpus with lm_mode
+    validation on the dev transcripts, then validation-clean."""
+    from efficientconformer_torch.config import load_config
+
+    corpus = os.path.join(tmp, "librispeech-lm-norm.txt")
+    cfg_path = cli_config(LM_CONFIG, tmp, "lm", 1)
+    cfg = load_config(cfg_path)
+    cfg["training_params"]["training_dataset_path"] = corpus
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    with spied_trainer() as (steps, _):
+        out = run_cli("-c", cfg_path, "-m", "training", "--steps_per_epoch", 1, "--val_steps", 1)
+    accum = cfg["training_params"]["accumulated_steps"]
+    n_att = cfg["lm_params"]["num_blocks"] * accum
+    check_steps("cli-lm", steps, {6: n_att, 7: n_att, 8: n_att, 9: n_att}, 1)
+    val = re.search(r"val: \{'MeanLoss': ([\d.]+)\}", out)
+    check(val is not None, "the lm_mode validation line")
+    (_, loss, _, step_ms), = epoch_lines(out)
+    out = run_cli("-c", cfg_path, "-m", "validation-clean", "-i", 1)
+    eval_loss, ppl = map(float, re.search(r"Eval Loss : (\S+) \| Perplexity : (\S+)",
+                                          out).groups())
+    check(math.isfinite(eval_loss), f"eval loss {eval_loss}")
+    say("cli-lm", config="LM-Transformer", loss=f"{loss:.4f}", ms_per_step=step_ms,
+        step_shape=steps[0]["shape"], step_launches=steps[0]["launches"][6:],
+        val_loss=float(val.group(1)), eval_loss=eval_loss, perplexity=ppl,
+        card=f"'{card_line}'")
+
+
+def phase_cli(card_line, train_rate_ms) -> tuple:
+    """The CLI phases in a temporary directory under build/ (removed after).
+    Every kernel's launches on the CLI's path (all_counts' order): the sum
+    over the CLI's runs, each counted from 0 (run_cli); the launches of
+    the checks made outside a run do not count."""
+    import tempfile
+
+    os.makedirs("build", exist_ok=True)
+    CLI_LAUNCHES[:] = [0] * len(CLI_LAUNCHES)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir="build", prefix="cli_smoke_") as tmp:
+        phase_cli_data(tmp)
+        cfg_path, cfg, saves, cli_ms = phase_cli_train(tmp, card_line, train_rate_ms)
+        phase_cli_buckets(card_line)
+        phase_cli_resume(cfg_path, cfg, saves, cli_ms)
+        phase_cli_test(cfg_path, cfg)
+        phase_cli_swa(cfg_path, cfg)
+        phase_cli_eval_time(cfg_path)
+        phase_cli_transducer(tmp, card_line)
+        phase_cli_lm(tmp, card_line)
+    counts = tuple(CLI_LAUNCHES)
+    say("cli", seconds=f"{time.perf_counter() - t0:.2f}", launches=counts)
+    return counts
+
+
 def wall_ms(fn, iters: int = 3) -> float:
     """Host-clock ms per call of ``fn`` after two warm-up calls."""
     for _ in range(2):
@@ -1517,12 +2120,11 @@ def wall_ms(fn, iters: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile(label: str, fn, wall: float, iters: int = 3) -> None:
-    """Device time by kernel over ``iters`` calls of ``fn``, and the
-    device's idle share: 1 - device time over ``wall``, the ms per call
-    timed without any profiler (the profiler's own host cost, which lingers
-    after a session, would inflate it). User-annotation ranges (the
-    optimizer's) are left out, since the kernels inside them count already."""
+def device_ms(fn, iters: int) -> tuple[float, list]:
+    """(device ms per call, the profiler's rows of device time by kernel)
+    over ``iters`` calls of ``fn``. User-annotation ranges (the
+    optimizer's) are left out, since the kernels inside them count
+    already."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(iters):
@@ -1531,7 +2133,15 @@ def profile(label: str, fn, wall: float, iters: int = 3) -> None:
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
             and not getattr(e, "is_user_annotation", False)]
-    busy = sum(e.self_device_time_total for e in rows) / 1e3 / iters
+    return sum(e.self_device_time_total for e in rows) / 1e3 / iters, rows
+
+
+def profile(label: str, fn, wall: float, iters: int = 3) -> None:
+    """Device time by kernel over ``iters`` calls of ``fn``, and the
+    device's idle share: 1 - device time over ``wall``, the ms per call
+    timed without any profiler (the profiler's own host cost, which lingers
+    after a session, would inflate it)."""
+    busy, rows = device_ms(fn, iters)
     say(f"profile-{label}", iters=iters, device_ms=f"{busy:.3f}", wall_ms=f"{wall:.3f}",
         idle_share=f"{1 - busy / wall:.3f}")
     rows.sort(key=lambda e: -e.self_device_time_total)
@@ -1635,7 +2245,7 @@ def main() -> int:
     phase_rate(card_line)
     phase_train_slice()
     phase_train_learns()
-    launches_bwd, tc_bwd = phase_train_rate(card_line)
+    launches_bwd, tc_bwd, train_rate_ms = phase_train_rate(card_line)
     (t_err, t_err16), (t_err_bwd, t_err16_bwd) = phase_t_kernel(t_cfg["encoder_params"])
     err_rnnt, times_rnnt, err_rnnt_bwd, times_rnnt_bwd = phase_rnnt_kernel(t_cfg)
     t_launches, t_tc = phase_t_requests()
@@ -1654,6 +2264,12 @@ def main() -> int:
     phase_lm_train_learns()
     lm_fwd, lm_bwd = phase_lm_train_rate(card_line)
     check(lm_score_launches > 0 and lm_fwd > 0 and lm_bwd > 0, "the LM paths missed a kernel")
+    cli = phase_cli(card_line, train_rate_ms)
+    cli_launches = {RA.KERNEL: cli[0], RA.KERNEL_BWD: cli[2], RL.KERNEL_FWD: cli[4],
+                    RL.KERNEL_BWD: cli[5], BA.KERNEL: cli[6], BA.KERNEL_BWD: cli[8]}
+    check(all(cli_launches.values()), f"the CLI's path missed a kernel: {cli_launches}")
+    check(cli[1] == cli[0] and cli[3] == cli[2] and cli[7] == cli[6] and cli[9] == cli[8],
+          f"a bf16 CLI path missed the tensor-core route: {cli}")
     if opts.profile:
         phase_profile()
 
@@ -1663,7 +2279,7 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n, "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
                 "bound_ms": t["bound"], "bound_by": t["bound_by"], "library_ms": t["library"],
-                **extra}
+                "cli_launches": cli_launches[name], **extra}
 
     # the rel-pos entries: ms and library_ms from CUDA graphs (device time),
     # eager_ms per eager call; max_abs_err fp32 (the FMA route), bf16_max_err

@@ -13,5 +13,8 @@ BatchNorm, CTC loss, gradient accumulation, torch-semantics Adam under the
 config's schedule, bf16 mixed precision). For the Transducers with an RNN
 prediction network: batched greedy decoding (models/transducer.py:
 build_model, greedy_decode) and the same training step with the RNN-T loss
-and variational noise.
+and variational noise. For the language models: scoring and training. And
+the CLI (``python -m efficientconformer_torch.main``, runtime.py) with the
+data path (data/), checkpoints and SWA (training/checkpoint.py) and the
+epoch loop (``Trainer.fit_epochs``).
 """

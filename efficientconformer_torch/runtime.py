@@ -1,0 +1,391 @@
+"""Runtime mode dispatch: the CLI's modes over the port.
+
+Counterpart of efficientconformer_tpu/runtime.py (reference main.py:27-178
+and Model.evaluate / eval_time* / swa, models/model.py:386-726): config ->
+tokenizer -> datasets -> Trainer, then the requested mode. Evaluation
+decodes on the device (batched greedy CTC or Transducer decoding),
+detokenises and scores the WER on the host. It covers the model types the
+port has: CTC, Transducer and LM (the LM trains on the LibriSpeechCorpus
+text and is evaluated on transcripts in ``lm_mode``).
+
+What the port does not have raises ``NotImplementedError`` naming its
+ROADMAP Queue 1 item, never falling back to something else: beam search
+(every shipped config's ``beam_size``; pass ``--gready``) [11], LM fusion
+``--initial_epoch_lm`` [10], tensor, sequence and data parallelism [14],
+``--profiler`` [13].
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from efficientconformer_torch.config import default_device, load_config
+from efficientconformer_torch.data.datasets import LibriSpeechDataset
+from efficientconformer_torch.data.loader import AsrBatchLoader, LmBatchLoader
+from efficientconformer_torch.data.tokenizer import BpeTokenizer
+from efficientconformer_torch.models import model_ctc as ctc_mod
+from efficientconformer_torch.models import transducer as rnnt_mod
+from efficientconformer_torch.models.layers import _BatchNorm
+from efficientconformer_torch.training import checkpoint
+from efficientconformer_torch.training.trainer import Trainer
+from efficientconformer_torch.utils.metrics import wer
+
+# mode -> (train split, eval split); mirrors reference functions.py:85-227
+EVAL_SPLITS = {
+    "training": "dev-clean",
+    "training-clean": "dev-clean",
+    "validation-clean": "dev-clean",
+    "validation-other": "dev-other",
+    "test-clean": "test-clean",
+    "test-other": "test-other",
+    "eval_time": "dev-clean",
+    "eval_time_encoder": "dev-clean",
+    "eval_time_decoder": "dev-clean",
+}
+TRAIN_SPLITS = {"training": "train", "training-clean": "train-clean"}
+
+
+def load_tokenizer(config: dict) -> Optional[BpeTokenizer]:
+    path = config["tokenizer_params"].get("tokenizer_path")
+    try:
+        return BpeTokenizer.load(path)
+    except (FileNotFoundError, TypeError, json.JSONDecodeError):
+        print("Tokenizer not found...")
+        return None
+
+
+def _microbatches(batch: dict) -> dict:
+    """A loader batch (A, B, ...) as one batch (A * B, ...)."""
+    return {k: v.reshape((-1,) + v.shape[2:]) for k, v in batch.items()}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _refuse_beam(beam_size: int) -> None:
+    if beam_size > 1:
+        raise NotImplementedError("beam search (beam_size > 1) is not ported: ROADMAP Queue 1 "
+                                  "item 11; pass --gready for greedy decoding")
+
+
+def decode_batch(trainer: Trainer, batch: dict, tokenizer, max_consec: int = 5,
+                 beam_size: int = 1) -> list:
+    """Greedy-decode one eval batch (audio (B, T), audio_len (B,), numpy or
+    tensors) -> list of B strings."""
+    _refuse_beam(beam_size)
+    dev = trainer.device
+    model = trainer.model.eval()
+    audio = torch.as_tensor(batch["audio"]).to(dev, non_blocking=True)
+    audio_len = torch.as_tensor(batch["audio_len"]).to(dev)
+    if trainer.config["model_type"] == "Transducer":
+        cap = rnnt_mod.greedy_token_cap(trainer.config["encoder_params"], audio.shape[1],
+                                        max_consec)
+        toks, n = rnnt_mod.greedy_decode(model, audio, audio_len, cap, max_consec)
+    else:
+        toks, n = ctc_mod.greedy_decode(model, audio, audio_len)
+    toks, n = toks.cpu().numpy(), n.cpu().numpy()
+    return tokenizer.decode([toks[b, : n[b]].tolist() for b in range(len(n))])
+
+
+def evaluate(trainer: Trainer, dataset, tokenizer, *, batch_size: int = 8,
+             eval_steps: Optional[int] = None, verbose: bool = False, max_consec: int = 5,
+             beam_size: int = 1, eval_loss: bool = False, num_workers: int = 0):
+    """(WER, truths, predictions, mean eval loss or None) over ``dataset``
+    (reference model.py:386-490). The loader repeats a partial tail's last
+    utterance to fill its microbatch; those repeats are dropped (``n_valid``)
+    before the WER, so each utterance counts once. The eval loss is the mean
+    over batches, repeats included, as in the JAX package."""
+    _refuse_beam(beam_size)
+    loader = AsrBatchLoader(dataset, batch_size, shuffle=False, drop_last=False,
+                            num_workers=num_workers)
+    truths, preds = [], []
+    total_loss, n_loss = 0.0, 0
+    for i, batch in enumerate(loader.epoch(0)):
+        n_valid = batch.pop("n_valid")
+        mb = _microbatches(batch)
+        batch_preds = decode_batch(trainer, mb, tokenizer, max_consec, beam_size)
+        batch_truths = tokenizer.decode(
+            [mb["labels"][b, : mb["label_len"][b]].tolist() for b in range(len(batch_preds))])
+        micro = mb["labels"].shape[0] // len(n_valid)
+        keep = [a * micro + j for a, nv in enumerate(n_valid) for j in range(int(nv))]
+        preds += [batch_preds[j] for j in keep]
+        truths += [batch_truths[j] for j in keep]
+        if eval_loss:
+            total_loss += float(trainer.eval_loss(mb))
+            n_loss += 1
+        if verbose:
+            print("Groundtruths:\n", batch_truths)
+            print("Predictions:\n", batch_preds)
+        if eval_steps and i + 1 >= eval_steps:
+            break
+    mean_loss = total_loss / n_loss if n_loss else None
+    return wer(truths, preds), truths, preds, mean_loss
+
+
+def evaluate_lm(trainer: Trainer, dataset, *, batch_size: int = 8,
+                eval_steps: Optional[int] = None) -> float:
+    """Mean eval cross entropy of an LM over labels-only transcripts
+    (reference lm_mode datasets and eval_loss, model.py:438-442)."""
+    loader = LmBatchLoader(dataset, batch_size, max_len=dataset.max_label_len,
+                           shuffle=False, drop_last=False)
+    total, n = 0.0, 0
+    for i, batch in enumerate(loader.epoch(0)):
+        total += float(trainer.eval_loss(_microbatches(batch)))
+        n += 1
+        if eval_steps and i + 1 >= eval_steps:
+            break
+    return total / n if n else float("nan")
+
+
+def bn_refresh(trainer: Trainer, dataset, steps: int = 100) -> int:
+    """Re-estimate the BatchNorm running statistics of ``trainer.model`` as
+    the cumulative average of the statistics of shuffled batches of 8
+    training utterances (seed 0, epoch 0), at most ``steps`` of them, in
+    training mode: torch.optim.swa_utils.update_bn's semantics (reference
+    model.py:534-557), as the JAX package's ``bn_refresh`` computes them.
+    Each batch's statistics are read directly: the momentum of batch n is
+    set to n / (n + 1), so the running value becomes the average of the
+    n + 1 batches so far. The number of batches; the statistics are left
+    as they were when there was none. BatchNorm lives in the encoder only,
+    so only the encoder runs."""
+    model = trainer.model
+    norms = [m for m in model.modules() if isinstance(m, _BatchNorm)]
+    if not norms:
+        return 0
+    loader = AsrBatchLoader(dataset, 8, shuffle=True)
+    generator = torch.Generator(device=trainer.device).manual_seed(0)
+    dev = trainer.device
+    n = 0
+    model.train()
+    try:
+        with torch.no_grad():
+            for i, batch in enumerate(loader.epoch(0)):
+                mb = _microbatches(batch)
+                for m in norms:
+                    m.MOMENTUM = n / (n + 1)
+                model.encoder(torch.as_tensor(mb["audio"]).to(dev),
+                              torch.as_tensor(mb["audio_len"]).to(dev), generator)
+                n += 1
+                if i + 1 >= steps:
+                    break
+    finally:
+        for m in norms:
+            m.__dict__.pop("MOMENTUM", None)
+        model.eval()
+    return n
+
+
+def _refuse(args) -> None:
+    """The flags whose work the port does not have."""
+    if args.initial_epoch_lm:
+        raise NotImplementedError("--initial_epoch_lm (LM shallow fusion) is not ported: "
+                                  "ROADMAP Queue 1 item 10")
+    if (args.model_parallel or 1) > 1 or (args.seq_parallel or 1) > 1:
+        raise NotImplementedError("--model_parallel / --seq_parallel are not ported: "
+                                  "ROADMAP Queue 1 item 14")
+    if args.distributed or args.parallel or (args.world_size or 1) > 1:
+        raise NotImplementedError("-d / --parallel / --world_size > 1 (more than one GPU) are "
+                                  "not ported: ROADMAP Queue 1 item 14")
+    if args.profiler:
+        raise NotImplementedError("--profiler is not ported: ROADMAP Queue 1 item 13")
+
+
+def run(args) -> int:
+    """Run the mode of the parsed CLI ``args`` (main.build_parser)."""
+    _refuse(args)
+    device = torch.device("cpu") if args.cpu else default_device()
+    config = load_config(args.config_file)
+    tp = config["training_params"]
+    tokenizer = None
+    if args.create_tokenizer:
+        from efficientconformer_torch.data.preparation import create_tokenizer
+
+        print("Creating Tokenizer")
+        tokenizer = create_tokenizer(tp, config["tokenizer_params"])
+    if tokenizer is None:
+        tokenizer = load_tokenizer(config)
+    if args.prepare_dataset:
+        from efficientconformer_torch.data.preparation import prepare_dataset
+
+        print("Preparing dataset")
+        prepare_dataset(tp, config["tokenizer_params"], tokenizer)
+
+    trainer = Trainer(config, device=device)
+    print(config["model_name"])
+    print("Model Parameters :", sum(p.numel() for p in trainer.model.parameters()))
+    if args.show_dict:
+        for name, p in trainer.model.named_parameters():
+            print(f"{name:<64} {str(tuple(p.shape)):<16} "
+                  f"mean {p.mean().item():<12.4f} std {p.std().item():<12.4f}")
+
+    cb_path = tp.get("callback_path", "callbacks/")
+    initial_epoch = 0
+    if args.initial_epoch is not None:
+        trainer.load(os.path.join(cb_path, f"checkpoints_{args.initial_epoch}.ckpt"))
+        initial_epoch = int(args.initial_epoch)
+    if args.initial_epoch_encoder is not None:
+        enc_path = tp.get("callback_path_encoder", cb_path)
+        checkpoint.load_encoder(
+            os.path.join(enc_path, f"checkpoints_{args.initial_epoch_encoder}.ckpt"),
+            trainer.model)
+
+    mode_base = args.mode.split("-")[0]
+    vocab_type = config["tokenizer_params"]["vocab_type"]
+    vocab_size = config["tokenizer_params"]["vocab_size"]
+
+    def eval_dataset():
+        return LibriSpeechDataset(
+            tp["evaluation_dataset_path"], EVAL_SPLITS.get(args.mode, "dev-clean"),
+            vocab_type=vocab_type, vocab_size=vocab_size,
+            audio_max_length=tp.get("eval_audio_max_length"),
+            label_max_length=tp.get("eval_label_max_length"),
+            lm_mode=bool(tp.get("lm_mode")))
+
+    def train_dataset(split):
+        return LibriSpeechDataset(
+            tp["training_dataset_path"], split, vocab_type=vocab_type, vocab_size=vocab_size,
+            audio_max_length=tp.get("train_audio_max_length"),
+            label_max_length=tp.get("train_label_max_length"))
+
+    if args.swa:
+        return _swa(args, trainer, cb_path, train_dataset("train"))
+    if mode_base == "training":
+        _train(args, trainer, tokenizer, cb_path, initial_epoch, eval_dataset, train_dataset)
+        return 0
+    if mode_base in ("validation", "test"):
+        ds = eval_dataset()
+        if config["model_type"] == "LM":
+            loss = evaluate_lm(trainer, ds, batch_size=args.batch_size_eval,
+                               eval_steps=args.val_steps)
+            print("Eval Loss : {:.4f} | Perplexity : {:.2f}".format(
+                loss, math.exp(min(loss, 30.0))))
+            return 0
+        beam = 1 if args.gready else config["decoding_params"].get("beam_size", 1)
+        w, _, _, _ = evaluate(
+            trainer, ds, tokenizer, batch_size=args.batch_size_eval, eval_steps=args.val_steps,
+            verbose=args.verbose_val, max_consec=args.rnnt_max_consec_dec_steps or 5,
+            beam_size=beam, eval_loss=args.eval_loss, num_workers=args.num_workers)
+        print("{} Search WER : {:.2f}%".format("Greedy" if beam <= 1 else "Beam", 100 * w))
+        return 0
+    if mode_base.startswith("eval_time"):
+        _eval_time(args, trainer, tokenizer, mode_base, eval_dataset())
+        return 0
+    raise ValueError(f"unknown mode {args.mode}")
+
+
+def _swa(args, trainer: Trainer, cb_path: str, train_ds) -> int:
+    """Average the checkpoints of the epochs asked for, refresh the
+    BatchNorm statistics over training data, save without the optimizer
+    (reference model.py:492-568)."""
+    epochs = ([int(e) for e in args.swa_epochs_list] if args.swa_epochs_list
+              else list(range(int(args.swa_epochs[0]), int(args.swa_epochs[1]) + 1)))
+    states = [checkpoint.read(os.path.join(cb_path, f"checkpoints_{e}.ckpt"), trainer.device)
+              for e in epochs]
+    names = [n for n, _ in trainer.model.named_parameters()]
+    average = (checkpoint.swa_average(states, names) if args.swa_type == "equal"
+               else checkpoint.swa_exp_average(states, names))
+    trainer.model.load_state_dict(average["model"], strict=True)
+    trainer.step = average["step"]
+    bn_refresh(trainer, train_ds, steps=args.steps_per_epoch or 100)
+    tag = f"swa-{args.swa_type}-{epochs[0]}-{epochs[-1]}"
+    trainer.save(os.path.join(cb_path, f"checkpoints_{tag}.ckpt"), save_optimizer=False)
+    return 0
+
+
+def _train(args, trainer: Trainer, tokenizer, cb_path: str, initial_epoch: int, eval_dataset,
+           train_dataset) -> None:
+    config = trainer.config
+    tp = config["training_params"]
+    if tp.get("training_dataset") == "LibriSpeechCorpus":
+        # LM training on the text corpus (reference functions.py:105-117)
+        from efficientconformer_torch.data.datasets import LibriSpeechCorpusDataset
+
+        corpus = LibriSpeechCorpusDataset(tp["training_dataset_path"], tokenizer,
+                                          max_len=tp.get("train_label_max_length"))
+        loader = LmBatchLoader(corpus, tp["batch_size"],
+                               max_len=tp.get("train_label_max_length") or 100,
+                               accum_steps=tp.get("accumulated_steps", 1))
+    else:
+        loader = AsrBatchLoader(train_dataset(TRAIN_SPLITS.get(args.mode, "train")),
+                                tp["batch_size"], accum_steps=tp.get("accumulated_steps", 1),
+                                num_workers=args.num_workers)
+    writer = None
+    try:
+        from tensorboardX import SummaryWriter
+
+        writer = SummaryWriter(os.path.join(cb_path, "logs"))
+    except ImportError:
+        pass
+
+    val_fn = None
+    try:
+        val_ds = eval_dataset()
+    except FileNotFoundError:
+        val_ds = None
+    if val_ds is not None and config["model_type"] == "LM":
+        def val_fn(tr):
+            return {"MeanLoss": evaluate_lm(tr, val_ds, batch_size=args.batch_size_eval,
+                                            eval_steps=args.val_steps)}
+    elif val_ds is not None and tokenizer is not None:
+        def val_fn(tr):
+            w, truths, preds, vloss = evaluate(tr, val_ds, tokenizer,
+                                               batch_size=args.batch_size_eval,
+                                               eval_steps=args.val_steps, eval_loss=True)
+            out = {"WER": 100.0 * w}
+            if vloss is not None:
+                out["MeanLoss"] = vloss
+            if truths and preds:
+                out["_text"] = "GroundTruth : " + truths[0] + " / Prediction : " + preds[0]
+            return out
+    try:
+        trainer.fit_epochs(loader.epoch, epochs=tp["epochs"],
+                           steps_per_epoch=args.steps_per_epoch, initial_epoch=initial_epoch,
+                           callback_path=cb_path, val_fn=val_fn,
+                           saving_period=args.saving_period, val_period=args.val_period,
+                           log_writer=writer)
+    finally:
+        if writer is not None:
+            writer.close()
+
+
+def _eval_time(args, trainer: Trainer, tokenizer, mode_base: str, ds) -> None:
+    """Time evaluation (reference model.py:570-726): the whole greedy
+    evaluation, the encoder alone (a CTC model's whole forward pass), or
+    the prediction network stepped token by token over the labels (a
+    Transducer's)."""
+    model, dev = trainer.model.eval(), trainer.device
+    t0 = time.perf_counter()
+    if mode_base == "eval_time":
+        evaluate(trainer, ds, tokenizer, batch_size=args.batch_size_eval,
+                 eval_steps=args.val_steps, max_consec=args.rnnt_max_consec_dec_steps or 5)
+    else:
+        if mode_base == "eval_time_decoder" and trainer.config["model_type"] != "Transducer":
+            raise ValueError("eval_time_decoder steps a Transducer's prediction network")
+        loader = AsrBatchLoader(ds, args.batch_size_eval, shuffle=False)
+        with torch.inference_mode():
+            for i, batch in enumerate(loader.epoch(0)):
+                mb = _microbatches(batch)
+                if mode_base == "eval_time_decoder":
+                    labels = torch.as_tensor(mb["labels"]).to(dev).long()
+                    carry = model.decoder.init_carry(labels.shape[0], dev)
+                    for u in range(labels.shape[1]):
+                        g, carry = model.decoder.step(labels[:, u], carry)
+                else:
+                    forward = (model.encoder if trainer.config["model_type"] == "Transducer"
+                               else model)
+                    forward(torch.as_tensor(mb["audio"]).to(dev),
+                            torch.as_tensor(mb["audio_len"]).to(dev))
+                _sync(dev)
+                if args.val_steps and i + 1 >= args.val_steps:
+                    break
+    _sync(dev)
+    print("eval time : {:.2f}s".format(time.perf_counter() - t0))

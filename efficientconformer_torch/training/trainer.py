@@ -19,14 +19,21 @@ microbatch of the step sees that draw (trainer.py:130-134, :263-266).
 The device is explicit and defaults to the card: without a GPU the default
 raises, and the trainer never moves to the CPU on its own. Dropout,
 SpecAugment and the variational noise draw from an explicit
-``torch.Generator`` on that device. Checkpoints, SWA, data loaders and the
-CLI are not ported (ROADMAP Queue 1 items 8 and 13).
+``torch.Generator`` on that device.
+
+``fit_epochs`` is the JAX package's epoch loop (``Trainer.fit``): epochs of
+loader batches, validation and a checkpoint every so many epochs;
+``save`` and ``load`` go through training/checkpoint.py, and a loaded
+checkpoint continues the step counter, which decides the variational noise
+and the encoder freezing.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Iterable, Optional, Union
+import os
+import time
+from typing import Callable, Iterable, Optional, Union
 
 import numpy as np
 import torch
@@ -37,7 +44,7 @@ from efficientconformer_torch.models.layers import (
     clear_variational_noise_,
     draw_variational_noise_,
 )
-from efficientconformer_torch.training import optimizers
+from efficientconformer_torch.training import checkpoint, optimizers
 
 
 class Trainer:
@@ -154,3 +161,96 @@ class Trainer:
         """``train_step`` over up to ``steps`` batches; the losses."""
         losses = [self.train_step(batch)[0] for batch in itertools.islice(batches, steps)]
         return [float(loss) for loss in losses]
+
+    def fit_epochs(self, epoch_batches: Callable[[int], Iterable[dict]], *, epochs: int,
+                   steps_per_epoch: Optional[int] = None, initial_epoch: int = 0,
+                   callback_path: Optional[str] = None,
+                   val_fn: Optional[Callable[["Trainer"], dict]] = None, saving_period: int = 1,
+                   val_period: int = 1, log_writer=None) -> list[dict]:
+        """The epoch loop (the JAX package's ``Trainer.fit``, trainer.py:214-358;
+        reference model.py:173-344): epochs ``initial_epoch`` .. ``epochs`` - 1,
+        each over ``epoch_batches(epoch)`` (a loader's ``epoch``), at most
+        ``steps_per_epoch`` steps. A batch's ``n_valid`` is dropped before the
+        step. ``val_fn(trainer) -> dict`` runs every ``val_period`` epochs;
+        ``checkpoints_{epoch}.ckpt`` is saved under ``callback_path`` every
+        ``saving_period`` epochs. The loss is read back to the host where the
+        JAX package reads it (the first step of an epoch, then every tenth,
+        for the progress bar and ``log_writer``), never every step: a
+        readback drains the device's queue. One record per epoch: its
+        number, mean loss, steps, seconds and validation metrics."""
+        history = []
+        try:
+            for epoch in range(initial_epoch, epochs):
+                t0 = time.perf_counter()
+                losses = []
+                batches = epoch_batches(epoch)
+                it, bar = batches, None
+                try:
+                    from tqdm import tqdm
+
+                    print(f"Epoch {epoch + 1}/{epochs}")
+                    it = bar = tqdm(batches, total=steps_per_epoch)
+                except ImportError:
+                    pass
+                try:
+                    for i, batch in enumerate(it):
+                        batch = {k: v for k, v in batch.items() if k != "n_valid"}
+                        loss, _ = self.train_step(batch)
+                        losses.append(loss)
+                        if bar is not None and ((i + 1) % 10 == 0 or i == 0):
+                            bar.set_description(
+                                "model step: {} - mean loss {:.4f} - batch loss: {:.4f} - "
+                                "learning rate: {:.6f}".format(
+                                    self.step, float(torch.stack(losses).mean()), float(loss),
+                                    self.schedule(self.step - 1)))
+                        if log_writer is not None and (i + 1) % 10 == 0:
+                            log_writer.add_scalar("Training/Loss", float(loss), self.step)
+                            log_writer.add_scalar("Training/LearningRate",
+                                                  self.schedule(self.step - 1), self.step)
+                        if steps_per_epoch and i + 1 >= steps_per_epoch:
+                            break
+                finally:
+                    if bar is not None:
+                        bar.close()
+                    if hasattr(batches, "close"):
+                        batches.close()        # stops a loader's prefetch thread
+                mean_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+                seconds = time.perf_counter() - t0
+                record = {"epoch": epoch + 1, "loss": mean_loss, "steps": len(losses),
+                          "seconds": seconds}
+                per_step = f", {seconds * 1e3 / len(losses):.1f} ms/step" if losses else ""
+                print(f"epoch {epoch + 1}/{epochs} loss {mean_loss:.4f} "
+                      f"({seconds:.1f}s, {len(losses)} steps{per_step})")
+                if log_writer is not None:
+                    log_writer.add_scalar("Training/MeanLoss", mean_loss, epoch + 1)
+                if val_fn is not None and (epoch + 1) % val_period == 0:
+                    metrics = val_fn(self)
+                    # "_text" carries an example prediction (reference model.py:326-328)
+                    text = metrics.pop("_text", None)
+                    record["val"] = metrics
+                    print("  val:", {k: round(float(v), 4) for k, v in metrics.items()})
+                    if log_writer is not None:
+                        for k, v in metrics.items():
+                            log_writer.add_scalar(f"Validation/{k}", float(v), epoch + 1)
+                        if text:
+                            log_writer.add_text("Validation/Predictions", text, epoch + 1)
+                if callback_path and (epoch + 1) % saving_period == 0:
+                    self.save(os.path.join(callback_path, f"checkpoints_{epoch + 1}.ckpt"))
+                history.append(record)
+        except Exception as e:
+            # the exception's text to TensorBoard before re-raising
+            # (reference model.py:336-344)
+            if log_writer is not None:
+                log_writer.add_text("Exceptions", str(e))
+            raise
+        return history
+
+    def save(self, path: str, save_optimizer: bool = True) -> None:
+        """Checkpoint the model, the optimizer (unless ``save_optimizer`` is
+        False, as for an SWA average) and the step at ``path``."""
+        checkpoint.save(path, self.model, self.optimizer if save_optimizer else None, self.step)
+
+    def load(self, path: str) -> None:
+        """Load a checkpoint into the model, the optimizer (kept as it is
+        when the file has none) and the step counter."""
+        self.step = checkpoint.load(path, self.model, self.optimizer)

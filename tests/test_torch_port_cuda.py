@@ -1,6 +1,8 @@
 """The port's CUDA kernels vs their plain PyTorch versions, on the card:
 the rel-pos attention forward and backward, the RNN-T lattice forward and
-backward, and the bias attention forward and backward.
+backward, and the bias attention forward and backward. Then the training
+runtime on the card: a checkpoint round trip and the loader's batches
+training the flagship.
 
 Every test here needs a CUDA device and skips without one. This file imports
 neither JAX nor the JAX package, so on a machine without JAX it runs with
@@ -612,3 +614,102 @@ def test_bias_tensor_core_backward_is_bitwise_repeatable(cuda, n, d):
     first = BA.bias_attention_bwd(*args[:4], o, do, lse, args[4])
     second = BA.bias_attention_bwd(*args[:4], o, do, lse, args[4])
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# ---------------------------------------------------------------- training runtime
+
+FLAGSHIP = "configs/EfficientConformerCTCSmall.json"
+STEP_RTOL = 1e-5   # loss and gradient norm of the same step from the same state
+
+
+def flagship_config(**training):
+    """The flagship at full width and its own training_params (bf16), with
+    dropout 0 and SpecAugment off so that two trainers draw no masks."""
+    from efficientconformer_torch.config import load_config
+
+    cfg = load_config(FLAGSHIP)
+    cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+    cfg["training_params"].update(training)
+    return cfg
+
+
+def flagship_batch(seed):
+    """Two microbatches of 4 utterances of 3-6 s with 20-token labels."""
+    gen = torch.Generator().manual_seed(seed)
+    audio_len = torch.tensor([[48000, 60000, 72000, 96000], [96000, 80000, 50000, 64000]])
+    audio = torch.randn(2, 4, 96000, generator=gen) * 0.1
+    audio *= torch.arange(96000)[None, None, :] < audio_len[..., None]
+    return {"audio": audio, "audio_len": audio_len,
+            "labels": torch.randint(1, 256, (2, 4, 20), generator=gen),
+            "label_len": torch.full((2, 4), 20)}
+
+
+def same(got, want):
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(same(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        return len(got) == len(want) and all(same(g, w) for g, w in zip(got, want))
+    if torch.is_tensor(want):
+        return got.dtype == want.dtype and got.device == want.device and torch.equal(got, want)
+    return got == want
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """Parameters, BatchNorm buffers, Adam state and step, bit for bit, in
+    a fresh trainer on the card; then both trainers take the same next
+    step (loss and gradient norm <= 1e-5 relative)."""
+    import copy
+
+    from efficientconformer_torch.training.trainer import Trainer
+
+    cfg = flagship_config()
+    trainer = Trainer(cfg, device=cuda, seed=0)
+    trainer.train_step(flagship_batch(0))
+    path = str(tmp_path / "checkpoints_1.ckpt")
+    trainer.save(path)
+    saved = copy.deepcopy({"model": trainer.model.state_dict(),
+                           "optimizer": trainer.optimizer.state_dict()})
+    fresh = Trainer(cfg, device=cuda, seed=5)
+    fresh.load(path)
+    assert fresh.step == trainer.step == 1
+    assert same(fresh.model.state_dict(), saved["model"])
+    assert same(fresh.optimizer.state_dict(), saved["optimizer"])
+    assert next(iter(fresh.optimizer.state.values()))["exp_avg"].device.type == "cuda"
+    batch = flagship_batch(1)
+    (loss, norm), (want_loss, want_norm) = fresh.train_step(batch), trainer.train_step(batch)
+    assert abs(float(loss) - float(want_loss)) <= STEP_RTOL * abs(float(want_loss))
+    assert abs(float(norm) - float(want_norm)) <= STEP_RTOL * abs(float(want_norm))
+
+
+@pytest.mark.gpu
+def test_loader_batches_train_the_flagship(cuda, tmp_path):
+    """The loader's numpy batches of a prepared mini-LibriSpeech, handed to
+    the flagship's epoch loop as they are: 2 steps of 2 microbatches, each
+    launching the rel-pos kernels once per block and microbatch, on the
+    tensor cores (bf16)."""
+    from test_e2e import make_dataset
+
+    from efficientconformer_torch.data import datasets, loader, preparation
+    from efficientconformer_torch.training.trainer import Trainer
+
+    root = str(tmp_path / "LibriSpeech")
+    make_dataset(root)
+    cfg = flagship_config(batch_size=2, accumulated_steps=2, training_dataset_path=root,
+                          epochs=1)
+    cfg["tokenizer_params"]["tokenizer_path"] = str(tmp_path / "bpe_256.model")
+    tp, kp = cfg["training_params"], cfg["tokenizer_params"]
+    preparation.prepare_dataset(tp, kp, preparation.create_tokenizer(tp, kp))
+    ds = datasets.LibriSpeechDataset(root, "train", vocab_size=256)
+    ld = loader.AsrBatchLoader(ds, 2, accum_steps=2, num_workers=2)
+    trainer = Trainer(cfg, device=cuda, seed=0)
+    RA.relpos_attention.launches = RA.relpos_attention.tc_launches = 0
+    RA.relpos_attention_bwd.launches = RA.relpos_attention_bwd.tc_launches = 0
+    history = trainer.fit_epochs(ld.epoch, epochs=1, steps_per_epoch=2,
+                                 callback_path=str(tmp_path / "cb"))
+    assert len(history) == 1 and history[0]["steps"] == 2
+    assert math.isfinite(history[0]["loss"]) and trainer.step == 2
+    n = 2 * 2 * cfg["encoder_params"]["num_blocks"]
+    assert (RA.relpos_attention.launches, RA.relpos_attention.tc_launches) == (n, n)
+    assert (RA.relpos_attention_bwd.launches, RA.relpos_attention_bwd.tc_launches) == (n, n)
+    assert (tmp_path / "cb" / "checkpoints_1.ckpt").exists()

@@ -1,8 +1,10 @@
 """Guards of the PyTorch port: the weight bridge round trip, that the port
-runs without JAX, that its entry points default to the card and never fall
-back to the CPU, and that chip_smoke.py has no CPU fallback."""
+and its CLI run without JAX, that its entry points default to the card and
+never fall back to the CPU, and that chip_smoke.py has no CPU fallback."""
 
+import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -240,3 +242,61 @@ def test_transducer_build_model_defaults_to_the_card_and_raises_without_one(monk
         transducer.build_model(TRANSDUCER)
     with pytest.raises(ValueError, match="CTC config"):
         transducer.build_model(FLAGSHIP, "cpu")
+
+
+CLI_CODE = textwrap.dedent("""
+    import json, os, sys
+    import torch
+    torch.set_num_threads(1)      # tiny models; the test workers share the cores
+    sys.path.insert(0, "tests")
+    from test_e2e import make_config, make_dataset
+    from efficientconformer_torch.main import main
+
+    tmp = sys.argv[1]
+    root = os.path.join(tmp, "LibriSpeech")
+    make_dataset(root)
+    cfg = make_config(root, tmp)
+    common = ["--cpu", "-c", cfg, "--batch_size_eval", "2"]
+    main(common + ["-m", "training", "--create_tokenizer", "-p", "--steps_per_epoch", "2",
+                   "--val_steps", "1"])
+    main(common + ["-m", "test-clean", "-i", "1", "--gready"])
+    main(common + ["-m", "training", "--swa", "--swa_epochs", "1", "2",
+                   "--steps_per_epoch", "2"])
+    main(common + ["-m", "eval_time", "-i", "2", "--val_steps", "1"])
+    print("FILES", sorted(os.listdir(os.path.join(tmp, "callbacks"))))
+    print("LOADED", sorted(m for m in sys.modules if m == "jax" or m.startswith(
+        ("jax.", "jaxlib", "flax", "efficientconformer_tpu"))))
+""")
+
+
+def test_cli_runs_without_jax(tmp_path):
+    """The port's CLI on the CPU (--cpu) through a user's workflow on the
+    tiny config: tokenizer and dataset preparation, two epochs of training
+    with validation and checkpoints, greedy test evaluation, SWA and
+    eval_time, in a fresh process that loads no module of JAX, flax or the
+    JAX package. Every epoch takes steps with a finite loss (a loader that
+    yields no batch would print loss nan and 0 steps)."""
+    out = subprocess.run([sys.executable, "-c", CLI_CODE, str(tmp_path)], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    epochs = re.findall(r"epoch (\d)/2 loss (\S+) \([\d.]+s, (\d+) steps", out.stdout)
+    assert [e[0] for e in epochs] == ["1", "2"], out.stdout
+    assert all(math.isfinite(float(x)) and int(n) >= 1 for _, x, n in epochs), epochs
+    assert re.search(r"val: \{'WER': [\d.]+, 'MeanLoss': [\d.]+\}", out.stdout)
+    assert re.search(r"Greedy Search WER : [\d.]+%", out.stdout)
+    assert re.search(r"eval time : [\d.]+s", out.stdout)
+    assert ("FILES ['checkpoints_1.ckpt', 'checkpoints_2.ckpt', "
+            "'checkpoints_swa-equal-1-2.ckpt'") in out.stdout, out.stdout
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_cli_raises_without_a_gpu_unless_asked_for_the_cpu(tmp_path):
+    """Without --cpu the CLI runs on the card, and without one it raises
+    rather than moving to the CPU."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "efficientconformer_torch.main", "-c",
+                          FLAGSHIP, "-m", "test-clean", "--gready"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "RuntimeError: no CUDA device" in out.stderr, out.stderr[-3000:]
+    assert "Model Parameters" not in out.stdout
