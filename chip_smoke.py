@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py [--profile]
 
-Drives the port's six paths at full width with seeded random weights: the
+Drives the port's paths at full width with seeded random weights: the
 flagship configs/EfficientConformerCTCSmall.json (batched greedy CTC
 inference, the CTC training step), configs/EfficientConformerTransducer
 Small.json (batched greedy Transducer decoding, the Transducer training
-step) and configs/LM-Transformer.json (scoring: eval loss and perplexity;
-the LM training step), each with its config's own training_params. Holds
+step), configs/LM-Transformer.json (scoring: eval loss and perplexity;
+the LM training step), each with its config's own training_params, and
+beam search with the configs' decoding_params (the CTC prefix beam with an
+n-gram, the Transducer beam with the LM-Transformer and an n-gram). Holds
 every hand-written kernel on those paths to its plain PyTorch version on
 the card. Phases, one line each; any failure exits non-zero:
 
@@ -95,7 +97,27 @@ the card. Phases, one line each; any failure exits non-zero:
                 step (60 / 60, all on the tensor-core route), model FLOPs
                 over the bf16 peak
 
- 25-32. the CLI (``python -m efficientconformer_torch.main``) driven in this
+ 25. ngram-device  the device n-gram scorer vs the host ArpaLM on seeded
+                random walks over a synthetic 6-gram at the shipped files'
+                shape (tests/ngram_synth.py: 256 tokens, ~360k entries):
+                scores <= 1e-6, nodes equal; entries, bytes on the card, ms
+                a lookup batch of the CTC beam's per-frame shape
+ 26. ctc-beam   CTC Small, bf16, 32 ragged utterances of up to 10 s, the
+                device prefix beam at W 16 with the 6-gram (alpha 0.3, beta
+                1): on seeded peaky log-probs the host C++ beam's tokens; on
+                the model's log-probs card vs CPU tokens equal or best
+                scores within 1e-4 (near-ties counted), agreement with the
+                C++ beam counted; ms a batch, audio-s/s, the beam's share,
+                rel-pos launches (15), host reads before the result (0)
+ 27. t-beam     Transducer Small with LM-Transformer (lm_weight 1) and a
+                synthetic 6-gram over 1000 tokens fused, W 16: card vs CPU
+                at 2 utterances of 4 and 3 s in fp32, Graves and ref_topk
+                routing, tokens equal or final scores within 1e-4 (counted);
+                then 4 x 10 s with the bf16 encoder: ms a batch, audio-s/s,
+                fast and slow frames, pops, host reads, rel-pos launches
+                (15), peak memory
+
+ 28-36. the CLI (``python -m efficientconformer_torch.main``) driven in this
                 process at the configs' published widths and depths, on a
                 synthetic LibriSpeech tree written under build/ (removed
                 after); only the dataset, tokenizer and callback paths are
@@ -121,19 +143,25 @@ the card. Phases, one line each; any failure exits non-zero:
                 for string greedy_decode's over the same loader batches
       cli-swa   --swa --swa_epochs 1 2: parameters the checkpoints' mean
                 (<= 1e-6), BatchNorm statistics refreshed, no optimizer
-      cli-eval-time  eval_time, eval_time_encoder; test-clean without
-                --gready refuses beam search (NotImplementedError)
+      cli-eval-time  eval_time, eval_time_encoder
       cli-transducer  Transducer Small: its own tokenizer and manifests,
                 1 step (RNN-T 4 / 8 and rel-pos 60 / 60 launches) with
                 validation, test-clean --gready, eval_time_decoder
       cli-lm    LM-Transformer: 1 step on the corpus (bias 60 / 60, all on
                 the tensor cores) with lm_mode validation, validation-clean
+      cli-beam  test-clean without --gready: CTC Small with the 6-gram at
+                the redirected ngram_path, and Transducer Small with
+                --initial_epoch_lm 1 ([cli-lm]'s checkpoint) and the 1000-token
+                6-gram; each prints its Beam Search WER, and its predictions
+                equal the device beam's called directly on the same batches
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 rel-pos entries also with their bf16 error, tensor-core launches and eager
-per-call ms; every entry with ``cli_launches``, its launches over the CLI's
-runs, each counted from 0), and last {"ok": true, "device": {...}}. With --profile it also prints a
-torch.profiler device-time breakdown of one batch or step of each path.
+per-call ms, the forward's with ``beam_launches`` of [ctc-beam] and
+[t-beam]; every entry with ``cli_launches``, its launches over the CLI's
+runs, each counted from 0), and last {"ok": true, "device": {...}}. With
+--profile it also prints a torch.profiler device-time breakdown of one
+batch or step of each path, the beams included.
 There is no CPU path: without a GPU the script exits non-zero and prints no
 result. Imports nothing of JAX.
 """
@@ -210,6 +238,14 @@ CLI_WORKERS = 8              # the CLI's default -j
 DEV_MAX_SECONDS = 33.0       # an evaluation split's longest utterance, from which its
                              # loader cuts its 8 buckets (assumed: no LibriSpeech here)
 SWA_TOL = 1e-6               # SWA parameters vs the mean of the checkpoints
+NGRAM_ORDER = 6              # the shipped 6gram_256.arpa / 6gram_1000.arpa's order
+NGRAM_TOL = 1e-6             # device n-gram scores vs the host ArpaLM: the same fp32 sums
+NGRAM_WALKS = (4096, 24)     # random token walks (count, steps) of [ngram-device]
+BEAM = 16                    # every shipped config's beam_size
+CTC_BEAM_BATCH = 32          # [ctc-beam]: 32 ragged utterances of up to 10 s
+T_BEAM_BATCH = 4             # [t-beam]: 4 x 10 s (the LM cache is 47.3 MB a hypothesis)
+T_BEAM_CHECK = (4.0, 3.0)    # [t-beam]'s card vs CPU check: 2 utterances, seconds
+BEAM_SCORE_TOL = 1e-4        # where two beams' tokens differ, their best scores must be this near
 
 
 def check(cond: bool, msg: str) -> None:
@@ -217,7 +253,12 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
+START = time.perf_counter()
+
+
 def say(phase: str, **fields) -> None:
+    """One phase line, ending with the seconds since the script started."""
+    fields["at"] = f"{time.perf_counter() - START:.1f}s"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -2012,14 +2053,7 @@ def phase_cli_eval_time(cfg_path):
     for mode in ("eval_time", "eval_time_encoder"):
         out = run_cli("-c", cfg_path, "-m", mode, "-i", 2, "--val_steps", 1)
         times[mode] = float(re.search(r"eval time : ([\d.]+)s", out).group(1))
-    try:
-        run_cli("-c", cfg_path, "-m", "test-clean", "-i", 2)
-        refused = False
-    except NotImplementedError as e:
-        refused = "item 11" in str(e)
-    check(refused, "test-clean without --gready (beam_size 16) did not refuse beam search")
-    say("cli-eval-time", **{k: f"{v:.2f}s" for k, v in times.items()},
-        beam_search="NotImplementedError (ROADMAP item 11)")
+    say("cli-eval-time", **{k: f"{v:.2f}s" for k, v in times.items()})
 
 
 def phase_cli_transducer(tmp, card_line):
@@ -2083,7 +2117,337 @@ def phase_cli_lm(tmp, card_line):
         card=f"'{card_line}'")
 
 
-def phase_cli(card_line, train_rate_ms) -> tuple:
+# ---------------------------------------------------------------- beam search
+
+
+def synth_ngram(vocab: int) -> str:
+    """A synthetic ARPA 6-gram over ``vocab`` char-mapped tokens at the
+    shipped files' shape (tests/ngram_synth.py, ~360k entries), written
+    under build/ngram/ once."""
+    import importlib.util
+
+    path = os.path.join("build", "ngram", f"synth_{NGRAM_ORDER}gram_{vocab}.arpa")
+    if not os.path.exists(path):
+        spec = importlib.util.spec_from_file_location("ngram_synth", "tests/ngram_synth.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        module.synth_arpa(path + ".tmp", vocab=vocab, order=NGRAM_ORDER, seed=SEED)
+        os.replace(path + ".tmp", path)
+    return path
+
+
+@contextlib.contextmanager
+def count_syncs():
+    """Counts the calls that make the host wait for the card (torch's sync
+    debug mode warns at each): yields a dict whose "n" is set on exit."""
+    import warnings
+
+    box = {"n": 0}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield box
+        box["n"] = sum("synchroniz" in str(w.message) for w in caught)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def phase_ngram_device():
+    """The device n-gram scorer on the card against the host ArpaLM, on
+    seeded random token walks over the synthetic 6-gram of 256 tokens:
+    scores within NGRAM_TOL, nodes (the host states, numbered as the
+    packing numbers them) equal, context_node equal to the walked node.
+    Then a lookup batch at the CTC beam's per-frame shape, timed."""
+    from efficientconformer_torch.decoding.ngram import ArpaLM
+    from efficientconformer_torch.decoding.ngram_device import DeviceNgram
+
+    t0 = time.perf_counter()
+    path = synth_ngram(256)
+    t1 = time.perf_counter()
+    arpa = ArpaLM(path)
+    t2 = time.perf_counter()
+    dev = DeviceNgram(arpa, 256, "cuda")
+    t3 = time.perf_counter()
+    node_id = {t: i for i, t in enumerate(
+        [()] + sorted(k for k in arpa.table if len(k) < arpa.order))}
+    n, steps = NGRAM_WALKS
+    walks = np.random.default_rng(SEED + 30).integers(0, 256, (n, steps))
+    tw = torch.from_numpy(walks).cuda()
+    node = dev.start_state((n,))
+    states = [arpa.start_state()] * n
+    err, wrong_nodes = 0.0, 0
+    for t in range(steps):
+        sc, node = dev.score(node, tw[:, t])
+        host = [arpa.score(states[i], int(walks[i, t])) for i in range(n)]
+        states = [h[1] for h in host]
+        err = max(err, float(np.abs(sc.cpu().numpy() - np.array([h[0] for h in host])).max()))
+        wrong_nodes += int((node.cpu().numpy() != np.array([node_id[s] for s in states])).sum())
+    ctx = dev.context_node(tw, torch.full((n,), steps, device="cuda"))
+    check(err <= NGRAM_TOL, f"[ngram-device] scores {err} from the host ArpaLM")
+    check(wrong_nodes == 0, f"[ngram-device] {wrong_nodes} nodes differ from the host states")
+    check(torch.equal(ctx, node), "[ngram-device] context_node differs from the walked node")
+    q_node = node[: CTC_BEAM_BATCH * BEAM].reshape(CTC_BEAM_BATCH, BEAM, 1).expand(-1, -1, 256)
+    q_tok = torch.arange(256, device="cuda").expand_as(q_node)
+    score_ms = cuda_ms(lambda: dev.score_from(q_node, q_tok))
+    advance_ms = cuda_ms(lambda: dev.advance_node(q_node, q_tok))
+    say("ngram-device", arpa=os.path.basename(path), order=dev.order, entries=dev.n_entries,
+        nodes=int(dev.length.numel()), device_bytes=dev.nbytes(), write_s=f"{t1 - t0:.2f}",
+        parse_s=f"{t2 - t1:.2f}", pack_s=f"{t3 - t2:.2f}", walks=f"{n}x{steps}",
+        max_score_err=f"{err:.3g}", nodes_equal=True,
+        lookup_batch=f"{CTC_BEAM_BATCH}x{BEAM}x256", score_from_ms=f"{score_ms:.3f}",
+        advance_node_ms=f"{advance_ms:.3f}")
+    return arpa, path
+
+
+def phase_ctc_beam(card_line, arpa, arpa_path):
+    """CTC Small, bf16 encoder, 32 ragged utterances of up to 10 s, the
+    device prefix beam at W 16 with the config's n-gram weights over the
+    synthetic 6-gram. Checks: on seeded peaky log-probs of the same shape
+    the tokens of the host C++ beam (cutoff_top_n 0), utterance by
+    utterance; on the model's own log-probs the tokens of the same search
+    on the CPU, or, where they differ, best scores within BEAM_SCORE_TOL (a
+    near-tie, counted). The device search accumulates in fp32 as the JAX
+    package's does, and the C++ beam in double, so on the model's flat
+    log-probs they may part at a near-tie of some frame and end far apart:
+    their agreement there is counted, not checked. Then the main path
+    timed: ms a batch, audio-s/s, the beam's share, rel-pos launches and
+    the host reads before the result."""
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.decoding import ctc_beam
+    from efficientconformer_torch.decoding.ctc_beam_device import (
+        ctc_beam_search_device,
+        prefix_beams,
+    )
+
+    dp = load_config(CONFIG)["decoding_params"]
+    kw = dict(ngram=arpa, alpha=dp["ngram_alpha"], beta=dp["ngram_beta"])
+    model = make_model("cuda", torch.bfloat16)
+    rng = np.random.default_rng(SEED + 31)
+    seconds = np.round(rng.uniform(5.0, TIME_SECONDS, CTC_BEAM_BATCH), 2)
+    seconds[0] = TIME_SECONDS
+    x, x_len = ragged_audio(seconds, "cuda", rng)
+
+    @torch.inference_mode()
+    def encode():
+        logits, n = model(x, x_len)
+        return torch.log_softmax(logits.float() / dp["tmp"], dim=-1), n
+
+    def host(lp, n):
+        return ctc_beam.beam_search_batch(lp.cpu().numpy(), n.cpu().numpy(), BEAM,
+                                          lm_path=arpa_path, alpha=kw["alpha"], beta=kw["beta"])
+
+    lp, n = encode()
+    logits = torch.from_numpy(rng.standard_normal(tuple(lp.shape)) * 3.0).float()
+    peaky = torch.log_softmax(logits, dim=-1).cuda()
+    got = ctc_beam_search_device(peaky, n, BEAM, **kw)
+    check(got == host(peaky, n), "[ctc-beam] peaky log-probs: the device beam's tokens differ "
+          "from the host C++ beam's")
+
+    def best(lp, n):
+        pref, plen, score = prefix_beams(lp, n, BEAM, **kw)
+        j = score.argmax(-1)
+        rows = torch.arange(len(j), device=j.device)
+        tokens, n_tok = pref[rows, j].cpu(), plen[rows, j].cpu()
+        return [tokens[i, : n_tok[i]].tolist() for i in range(len(j))], score.max(-1).values.cpu()
+
+    t0 = time.perf_counter()
+    (got, got_sc), (want, want_sc) = best(lp, n), best(lp.cpu(), n.cpu())
+    cpu_s = time.perf_counter() - t0
+    differ = [i for i in range(CTC_BEAM_BATCH) if got[i] != want[i]]
+    gap = max((abs(float(got_sc[i] - want_sc[i])) for i in differ), default=0.0)
+    check(gap <= BEAM_SCORE_TOL, f"[ctc-beam] card vs CPU: tokens differ with best scores "
+          f"{gap} apart")
+    near_ties = len(differ)
+    equal_host = sum(a == b for a, b in zip(got, host(lp, n)))
+
+    # the main path: counts from 0, host reads before the result
+    reset_rel_counts()
+    with count_syncs() as syncs:
+        state = prefix_beams(*encode(), BEAM, **kw)
+    launches = rel_counts()
+    torch.cuda.synchronize()
+    check(launches[0] == launches[1] > 0, f"[ctc-beam] rel-pos launches {launches}")
+
+    def run():
+        return ctc_beam_search_device(*encode(), BEAM, **kw)
+
+    def encode_only():
+        encode()
+        torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    batch_ms, enc_ms = wall_ms(run), wall_ms(encode_only)
+    audio_s = float(x_len.sum()) / SAMPLE_RATE
+    out = run()
+    say("ctc-beam", config="EfficientConformerCTCSmall", batch=CTC_BEAM_BATCH,
+        seconds=f"{seconds.min():.2f}-{seconds.max():.2f}", frames=int(n.max()), beam=BEAM,
+        alpha=kw["alpha"], beta=kw["beta"], peaky_tokens_equal_host=True,
+        card_vs_cpu_equal=CTC_BEAM_BATCH - near_ties, near_ties=near_ties,
+        card_vs_cpu_s=f"{cpu_s:.1f}", model_tokens_equal_host=f"{equal_host}/{CTC_BEAM_BATCH}",
+        ms_per_batch=f"{batch_ms:.2f}", encode_ms=f"{enc_ms:.2f}",
+        beam_share=f"{1 - enc_ms / batch_ms:.3f}", audio_s_per_s=f"{audio_s / batch_ms * 1e3:.1f}",
+        relpos_launches=launches[0], tc_launches=launches[1],
+        host_reads_before_result=syncs["n"], final_beams=tuple(state[0].shape),
+        tokens_per_utt=f"{np.mean([len(t) for t in out]):.1f}",
+        peak_mib=torch.cuda.max_memory_allocated() // 2 ** 20, card=f"'{card_line}'")
+    return launches[0], batch_ms
+
+
+def phase_t_beam(card_line):
+    """Transducer Small with LM-Transformer fused in (full width, random
+    weights from SEED; the config's lm_weight, lm_tmp) and the synthetic
+    6-gram over 1000 tokens (alpha 0.3, beta 1), W 16, tmp 1. Checks: card
+    vs CPU on the same fp32 weights at 2 utterances of 4 and 3 s, Graves and
+    ref_topk routing: tokens equal or, where they differ, final normalised
+    scores within BEAM_SCORE_TOL (counted). Then the main path: bf16
+    encoder, fp32 decode, 4 x 10 s: ms a batch, audio-s/s, fast and slow
+    frames, pops, host reads, rel-pos launches, peak memory."""
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.decoding.ngram import ArpaLM
+    from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
+    from efficientconformer_torch.models import lm as lm_mod
+    from efficientconformer_torch.models.transducer import greedy_token_cap
+
+    cfg = load_config(T_CONFIG)
+    dp = cfg["decoding_params"]
+    t0 = time.perf_counter()
+    arpa = ArpaLM(synth_ngram(1000))
+    ngram_s = time.perf_counter() - t0
+    fusion = dict(beam_size=BEAM, tmp=dp["tmp"], lm_weight=dp["lm_weight"], lm_tmp=dp["lm_tmp"],
+                  ngram=arpa, ngram_alpha=dp["ngram_alpha"], ngram_beta=dp["ngram_beta"])
+    rng = np.random.default_rng(SEED + 32)
+    x, x_len = ragged_audio(T_BEAM_CHECK, "cpu", rng)
+    cap = greedy_token_cap(cfg["encoder_params"], x.shape[1], MAX_CONSEC)
+    models = {side: (d, make_transducer(d, torch.float32),
+                     lm_mod.build_model(LM_CONFIG, d, torch.float32,
+                                        torch.Generator().manual_seed(SEED)))
+              for side, d in (("cpu", "cpu"), ("card", "cuda"))}
+    checks = {}
+    for ref_topk in (False, True):
+        out = {}
+        for side, (d, model, lm) in models.items():
+            t1 = time.perf_counter()
+            out[side] = beam_search_device(model, x.to(d), x_len.to(d), max_tokens=cap,
+                                           lm_model=lm, ref_topk=ref_topk, return_scores=True,
+                                           **fusion)
+            out[side + "_s"] = time.perf_counter() - t1
+        (got, got_sc), (want, want_sc) = out["card"], out["cpu"]
+        differ = [i for i in range(len(got)) if got[i] != want[i]]
+        err = max((abs(float(got_sc[i]) - float(want_sc[i])) for i in differ), default=0.0)
+        check(err <= BEAM_SCORE_TOL, f"[t-beam] ref_topk={ref_topk}: tokens differ from the "
+              f"CPU's with final scores {err} apart")
+        checks["ref_topk" if ref_topk else "graves"] = (
+            f"{len(got) - len(differ)}/{len(got)} equal, {len(differ)} near-ties, "
+            f"card {out['card_s']:.1f}s cpu {out['cpu_s']:.1f}s, "
+            f"tokens {[len(t) for t in got]}")
+    del models
+
+    lm = lm_mod.build_model(LM_CONFIG, "cuda", torch.float32, torch.Generator().manual_seed(SEED))
+    model = make_transducer("cuda", torch.bfloat16)
+    n = int(TIME_SECONDS * SAMPLE_RATE)
+    audio = (rng.standard_normal((T_BEAM_BATCH, n)) * 0.1).astype(np.float32)
+    x, x_len = torch.from_numpy(audio).cuda(), torch.full((T_BEAM_BATCH,), n, device="cuda")
+    cap = greedy_token_cap(cfg["encoder_params"], n, MAX_CONSEC)
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_rel_counts()
+    t1 = time.perf_counter()
+    out = beam_search_device(model, x, x_len, max_tokens=cap, lm_model=lm, stats=stats, **fusion)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t1) * 1e3
+    launches = rel_counts()
+    check(launches[0] == launches[1] > 0, f"[t-beam] rel-pos launches {launches}")
+    check(all(len(t) <= cap for t in out), "[t-beam] more tokens than the cap")
+    say("t-beam", config="EfficientConformerTransducerSmall+LM-Transformer", batch=T_BEAM_BATCH,
+        seconds=TIME_SECONDS, beam=BEAM, max_tokens=cap, lm_weight=dp["lm_weight"],
+        ngram_alpha=dp["ngram_alpha"], ngram_beta=dp["ngram_beta"], ngram_s=f"{ngram_s:.2f}",
+        check_graves=f"'{checks['graves']}'", check_ref_topk=f"'{checks['ref_topk']}'",
+        ms_per_batch=f"{batch_ms:.1f}",
+        audio_s_per_s=f"{T_BEAM_BATCH * TIME_SECONDS / batch_ms * 1e3:.3f}",
+        fast_frames=stats["fast_frames"], slow_frames=stats["slow_frames"], pops=stats["pops"],
+        ms_per_pop=f"{batch_ms / max(stats['pops'], 1):.2f}", host_reads=stats["host_reads"],
+        relpos_launches=launches[0], tc_launches=launches[1],
+        carry_store_mib=stats["carry_store_bytes"] // 2 ** 20,
+        peak_mib=torch.cuda.max_memory_allocated() // 2 ** 20,
+        tokens_per_utt=f"{np.mean([len(t) for t in out]):.1f}", card=f"'{card_line}'")
+    return launches[0], batch_ms
+
+
+def phase_cli_beam(tmp, ngram_paths):
+    """test-clean without --gready through the CLI, each with the synthetic
+    6-gram at the redirected ngram_path: CTC Small (-i 2 of [cli-train])
+    and Transducer Small (-i 1 of [cli-transducer]) with --initial_epoch_lm
+    1, the LM-Transformer checkpoint of [cli-lm]. Each prints its Beam
+    Search WER, and its predictions are those of the device beam called
+    directly on the same loader batches."""
+    from efficientconformer_torch import runtime
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.data.datasets import LibriSpeechDataset
+    from efficientconformer_torch.data.loader import AsrBatchLoader
+    from efficientconformer_torch.decoding.ctc_beam_device import ctc_beam_search_device
+    from efficientconformer_torch.decoding.ngram import try_load
+    from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
+    from efficientconformer_torch.models.transducer import greedy_token_cap
+    from efficientconformer_torch.training.trainer import Trainer
+
+    results = {}
+    for name, epoch, flags in (("ctc", 2, []), ("transducer", 1, ["--initial_epoch_lm", 1])):
+        cfg = load_config(os.path.join(tmp, f"{name}.json"))
+        dp = cfg["decoding_params"]
+        dp["ngram_path"] = ngram_paths[cfg["tokenizer_params"]["vocab_size"]]
+        dp["lm_config"] = os.path.join(tmp, "lm.json")
+        cfg_path = os.path.join(tmp, f"{name}_beam.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        t0 = time.perf_counter()
+        out = run_cli("-c", cfg_path, "-m", "test-clean", "-i", epoch, "--verbose_val", *flags)
+        cli_s = time.perf_counter() - t0
+        wer_line = re.search(r"Beam Search WER : ([\d.]+)%", out)
+        check(wer_line is not None, f"[cli-beam] {name}: no Beam Search WER line")
+        printed = [ast.literal_eval(block) for block in
+                   re.findall(r"Predictions:\n (\[.*\])\n", out)]
+
+        trainer = Trainer(cfg, device="cuda")
+        trainer.load(os.path.join(cfg["training_params"]["callback_path"],
+                                  f"checkpoints_{epoch}.ckpt"))
+        model = trainer.model.eval()
+        tok = runtime.load_tokenizer(cfg)
+        ngram = try_load(dp["ngram_path"], dp.get("ngram_offset", 100))
+        lm = runtime.load_lm_for_fusion(cfg, 1, "cuda") if flags else None
+        ds = LibriSpeechDataset(cfg["training_params"]["evaluation_dataset_path"], "test-clean",
+                                vocab_size=cfg["tokenizer_params"]["vocab_size"])
+        direct = []
+        for batch in AsrBatchLoader(ds, 8, shuffle=False, drop_last=False).epoch(0):
+            audio = torch.from_numpy(batch["audio"][0]).cuda()
+            audio_len = torch.from_numpy(batch["audio_len"][0]).cuda()
+            with torch.inference_mode():
+                if name == "ctc":
+                    logits, n = model(audio, audio_len)
+                    lists = ctc_beam_search_device(
+                        torch.log_softmax(logits.float() / dp["tmp"], dim=-1), n,
+                        dp["beam_size"], ngram=ngram, alpha=dp["ngram_alpha"],
+                        beta=dp["ngram_beta"])
+                else:
+                    lists = beam_search_device(
+                        model, audio, audio_len, beam_size=dp["beam_size"], tmp=dp["tmp"],
+                        max_tokens=greedy_token_cap(cfg["encoder_params"], audio.shape[1],
+                                                    MAX_CONSEC),
+                        lm_model=lm["model"], lm_weight=lm["weight"], lm_tmp=lm["tmp"],
+                        ngram=ngram, ngram_alpha=dp["ngram_alpha"],
+                        ngram_beta=dp["ngram_beta"])
+            direct.append(tok.decode(lists))
+        check(printed == direct, f"[cli-beam] {name}: the CLI's predictions differ from the "
+              "beam's")
+        results[name] = (float(wer_line.group(1)), cli_s, sum(map(len, direct)))
+    say("cli-beam", **{f"{k}_wer": f"{v[0]:.2f}" for k, v in results.items()},
+        **{f"{k}_seconds": f"{v[1]:.2f}" for k, v in results.items()},
+        utterances=results["ctc"][2], predictions_equal=True)
+
+
+def phase_cli(card_line, train_rate_ms, ngram_paths) -> tuple:
     """The CLI phases in a temporary directory under build/ (removed after).
     Every kernel's launches on the CLI's path (all_counts' order): the sum
     over the CLI's runs, each counted from 0 (run_cli); the launches of
@@ -2103,6 +2467,7 @@ def phase_cli(card_line, train_rate_ms) -> tuple:
         phase_cli_eval_time(cfg_path)
         phase_cli_transducer(tmp, card_line)
         phase_cli_lm(tmp, card_line)
+        phase_cli_beam(tmp, ngram_paths)
     counts = tuple(CLI_LAUNCHES)
     say("cli", seconds=f"{time.perf_counter() - t0:.2f}", launches=counts)
     return counts
@@ -2176,6 +2541,39 @@ def phase_profile():
     walls = {label: wall_ms(fn) for label, fn in paths.items()}
     for label, fn in paths.items():
         profile(label, fn, walls[label])
+    # the beams, one batch each: CTC b32 x 10 s with the 6-gram; the
+    # Transducer with LM-Transformer and the 6-gram at b4 x 2.5 s (a pop is
+    # ~600 launches, so a 10 s batch would trace ~10^6 events)
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.decoding.ctc_beam_device import ctc_beam_search_device
+    from efficientconformer_torch.decoding.ngram import ArpaLM
+    from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
+    from efficientconformer_torch.models import lm as lm_mod
+
+    dp = load_config(T_CONFIG)["decoding_params"]
+    arpa256, arpa1000 = ArpaLM(synth_ngram(256)), ArpaLM(synth_ngram(1000))
+    lm = lm_mod.build_model(LM_CONFIG, "cuda", torch.float32, torch.Generator().manual_seed(SEED))
+    xb, xb_len = x[:CTC_BEAM_BATCH], x_len[:CTC_BEAM_BATCH]
+    short = int(2.5 * SAMPLE_RATE)
+    t_cap = T.greedy_token_cap(t_encoder_params(), short, MAX_CONSEC)
+
+    @torch.inference_mode()
+    def ctc_beam():
+        logits, n = model(xb, xb_len)
+        return ctc_beam_search_device(torch.log_softmax(logits.float(), -1), n, BEAM,
+                                      ngram=arpa256, alpha=dp["ngram_alpha"],
+                                      beta=dp["ngram_beta"])
+
+    t_len = torch.full((T_BEAM_BATCH,), short, device="cuda")
+
+    def t_beam():
+        return beam_search_device(t_model, x[:T_BEAM_BATCH, :short], t_len, beam_size=BEAM,
+                                  max_tokens=t_cap, lm_model=lm, lm_weight=dp["lm_weight"],
+                                  ngram=arpa1000, ngram_alpha=dp["ngram_alpha"],
+                                  ngram_beta=dp["ngram_beta"])
+
+    profile("ctc-beam", ctc_beam, wall_ms(ctc_beam))
+    profile("t-beam", t_beam, wall_ms(t_beam, iters=1), iters=1)
 
 
 def main() -> int:
@@ -2264,7 +2662,10 @@ def main() -> int:
     phase_lm_train_learns()
     lm_fwd, lm_bwd = phase_lm_train_rate(card_line)
     check(lm_score_launches > 0 and lm_fwd > 0 and lm_bwd > 0, "the LM paths missed a kernel")
-    cli = phase_cli(card_line, train_rate_ms)
+    arpa256, arpa256_path = phase_ngram_device()
+    ctc_beam_launches, _ = phase_ctc_beam(card_line, arpa256, arpa256_path)
+    t_beam_launches, _ = phase_t_beam(card_line)
+    cli = phase_cli(card_line, train_rate_ms, {256: arpa256_path, 1000: synth_ngram(1000)})
     cli_launches = {RA.KERNEL: cli[0], RA.KERNEL_BWD: cli[2], RL.KERNEL_FWD: cli[4],
                     RL.KERNEL_BWD: cli[5], BA.KERNEL: cli[6], BA.KERNEL_BWD: cli[8]}
     check(all(cli_launches.values()), f"the CLI's path missed a kernel: {cli_launches}")
@@ -2288,7 +2689,8 @@ def main() -> int:
         entry(RA.KERNEL, "efficientconformer_torch/csrc/rel_attention_fwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:122", launches,
               max(max_err, t_err), times, bf16_max_err=max(err16, t_err16),
-              tc_launches=fwd_tc, graph_ms=times["kernel"], eager_ms=times["kernel_call"]),
+              tc_launches=fwd_tc, graph_ms=times["kernel"], eager_ms=times["kernel_call"],
+              beam_launches={"ctc-beam": ctc_beam_launches, "t-beam": t_beam_launches}),
         entry(RA.KERNEL_BWD, "efficientconformer_torch/csrc/rel_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:139", launches_bwd,
               max(max_err_bwd, t_err_bwd), times_bwd,

@@ -8,11 +8,12 @@ Makefile's flags by ``g++`` at first use into
 ``.gitignore``), the hash being that of the sources, so an edited source is
 rebuilt and a stale library never loaded. The sources are shared with the
 JAX package and not edited here. Bound: the FLAC decoder
-(``flac_decode.cpp``), the BPE encoder (``bpe_encode.cpp``) and the BPE
-trainer (``bpe_train.cpp``); the CTC beam's symbols wait for beam search
-(ROADMAP Queue 1 item 11). Nothing is compiled or loaded when this module
-is imported. ``load`` raises ``NativeUnavailable`` when there is no
-compiler or the build fails; each caller has its own fallback.
+(``flac_decode.cpp``), the BPE encoder (``bpe_encode.cpp``), the BPE
+trainer (``bpe_train.cpp``) and the CTC prefix beam search with its ARPA
+scorer (``ctc_beam.cpp``, the host beam of decoding/ctc_beam.py). Nothing is
+compiled or loaded when this module is imported. ``load`` raises
+``NativeUnavailable`` when there is no compiler or the build fails; the
+data path has its own fallback, the host CTC beam has none.
 """
 
 from __future__ import annotations
@@ -91,6 +92,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ecf_bpe_result.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p]
     lib.ecf_bpe_train_free.restype = None
     lib.ecf_bpe_train_free.argtypes = [ctypes.c_void_p]
+    lib.ecf_arpa_load.restype = ctypes.c_void_p
+    lib.ecf_arpa_load.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.ecf_arpa_free.restype = None
+    lib.ecf_arpa_free.argtypes = [ctypes.c_void_p]
+    lib.ecf_ctc_beam_search.restype = ctypes.c_int
+    lib.ecf_ctc_beam_search.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_double, ctypes.c_double, ctypes.c_int, c_int_p,
+        ctypes.c_int]
 
 
 def load() -> ctypes.CDLL:
@@ -172,3 +182,36 @@ class NativeBpe:
         if getattr(self, "_handle", None):
             self._lib.ecf_bpe_free(self._handle)
             self._handle = None
+
+
+class NativeArpa:
+    """An ARPA model loaded by the C++ scorer; FileNotFoundError when the
+    file cannot be read."""
+
+    def __init__(self, path: str, ngram_offset: int = 100):
+        self._lib = load()
+        self._handle = self._lib.ecf_arpa_load(path.encode(), ngram_offset)
+        if not self._handle:
+            raise FileNotFoundError(path)
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.ecf_arpa_free(self._handle)
+            self._handle = None
+
+
+def ctc_beam_search(log_probs: np.ndarray, seq_len: int, beam_size: int = 16, blank: int = 0,
+                    lm: "NativeArpa" = None, alpha: float = 0.0, beta: float = 0.0,
+                    cutoff_top_n: int = 0) -> List[int]:
+    """The C++ prefix beam search of one utterance's (T, V) natural-log
+    probabilities; ``cutoff_top_n`` 0 scores the whole vocabulary. The call
+    releases the interpreter lock."""
+    lib = load()
+    lp = np.ascontiguousarray(log_probs, np.float32)
+    t, v = lp.shape
+    out = np.zeros((t,), np.int32)
+    n = lib.ecf_ctc_beam_search(
+        lp.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), t, v, int(seq_len), beam_size, blank,
+        lm._handle if lm is not None else None, alpha, beta, cutoff_top_n,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), t)
+    return out[:n].tolist()

@@ -6,8 +6,10 @@
 
 Modes: training, training-clean, validation-{clean,other},
 test-{clean,other}, eval_time, eval_time_encoder, eval_time_decoder, and
---swa (runtime.py). It runs on the GPU, and raises without one unless
---cpu asks for the CPU. The flags whose work the port does not have raise
+--swa (runtime.py); validation and test decode with the config's beam
+search unless --gready asks for greedy decoding, and --initial_epoch_lm
+fuses the config's LM into the Transducer beam. It runs on the GPU, and
+raises without one unless --cpu asks for the CPU. The flags whose work the port does not have raise
 NotImplementedError naming their ROADMAP item.
 """
 
@@ -27,7 +29,7 @@ def build_parser():
     p.add_argument("-i", "--initial_epoch", type=str, default=None,
                    help="Load model from checkpoint")
     p.add_argument("--initial_epoch_lm", type=str, default=None,
-                   help="Load language model from checkpoint (not ported: ROADMAP item 10)")
+                   help="Load language model from checkpoint")
     p.add_argument("--initial_epoch_encoder", type=str, default=None,
                    help="Load model encoder from encoder checkpoint")
     p.add_argument("-p", "--prepare_dataset", action="store_true",

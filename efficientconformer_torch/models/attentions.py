@@ -16,7 +16,12 @@ branches the shipped configs take:
     (ops/attention.rel_to_abs_causal), scaled and added to the mask, and the
     resulting (B, H, T, T) bias goes to the bias attention
     (ops/bias_attention.py), a CUDA kernel in each direction on the card,
-    which returns the bias's gradient to the skewing path.
+    which returns the bias's gradient to the skewing path;
+  * the same causal layer's one-token ``step`` on a fixed-capacity KV cache
+    with per-row write positions (:177-227), which the beam searches drive
+    through the LM-Transformer: plain PyTorch, as the JAX package computes
+    it outside any Pallas kernel. The growing cache (:448-459), which only
+    the host Transducer beam needs, raises with its ROADMAP item.
 Every other variant raises NotImplementedError naming its ROADMAP item.
 
 Parameter names are the original PyTorch repo's (query_layer, key_layer,
@@ -26,7 +31,7 @@ value_layer, output_layer, pos_layer, u, v), so utils/weights.py maps them.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -63,6 +68,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.pos_layer = Linear(dim_model, dim_model)
         self.u = nn.Parameter(torch.zeros(dim_model))
         self.v = nn.Parameter(torch.zeros(dim_model))
+        self._step_table = None      # (key, table) of the last fixed-cache capacity
 
     def init_rel_biases_(self, generator: torch.Generator) -> None:
         """u and v: Xavier-uniform over (H, G*D/H), as the JAX package."""
@@ -141,3 +147,72 @@ class MultiHeadSelfAttention(nn.Module):
             bias = bias + mask * A.NEG_INF
         o, _ = BA.bias_attention(qu, kh, vh, bias, 1.0 / math.sqrt(dh))
         return self.output_layer(A.merge_heads(o))
+
+    def step(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             at: "StepPositions") -> torch.Tensor:
+        """One token through the causal layer on a fixed-capacity KV cache
+        (attentions.py:177-227). x (B, 1, D); k and v (B, L, D) fp32 caches,
+        into which the token's key and value are written in place, at the
+        positions of ``at`` (nothing is written once a row's position
+        reaches L, as XLA drops an out-of-bounds scatter); the token attends
+        to slots 0..pos_b, the rel-pos score of slot j taken at distance
+        pos_b - j, with an fp32 softmax. Returns (B, 1, D)."""
+        if not self.causal:
+            raise NotImplementedError("a KV-cache step of a non-causal layer")
+        d, h = self.dim_model, self.num_heads
+        dh = d // h
+        b, cap = k.shape[:2]
+        q = self.query_layer(x)[:, 0]
+        for cache, layer in ((k, self.key_layer), (v, self.value_layer)):
+            new = layer(x)[:, 0].to(cache.dtype)
+            cache[at.rows, at.at] = torch.where(at.inside, new, cache[at.rows, at.at])
+        qu = (q + self.u.to(x.dtype)).reshape(b, h, dh)
+        qv = (q + self.v.to(x.dtype)).reshape(b, h, dh)
+        content = torch.einsum("bhd,bjhd->bhj", qu, k.view(b, cap, h, dh).to(x.dtype))
+        rel = torch.einsum("bhd,lhd->bhl", qv, self._rel_table(cap, x.dtype, x.device))
+        rel = rel.gather(-1, at.rel_idx[:, None, :].expand(b, h, cap))
+        scores = ((content + rel) / math.sqrt(dh)).masked_fill(at.invalid, A.NEG_INF)
+        p_att = torch.softmax(scores.to(torch.float32), dim=-1)
+        o = torch.einsum("bhj,bjhd->bhd", p_att.to(v.dtype), v.view(b, cap, h, dh))
+        return self.output_layer(o.reshape(b, 1, d).to(x.dtype))
+
+    def _rel_table(self, cap: int, dtype, device) -> torch.Tensor:
+        """The pos projection of the causal window of ``cap`` distances,
+        (cap, H, dh). Outside autograd it is kept for the next step while
+        the pos layer's parameters are unchanged (their in-place updates
+        bump their versions)."""
+        w, bias = self.pos_layer.weight, self.pos_layer.bias
+        key = (cap, dtype, device, w.data_ptr(), w._version, bias._version)
+        if self._step_table is not None and self._step_table[0] == key:
+            return self._step_table[1]
+        d = self.dim_model
+        table = self.pos_layer(P.relative_encoding(cap, d, causal=True, device=device).to(dtype))
+        table = table.reshape(cap, self.num_heads, d // self.num_heads)
+        if not torch.is_grad_enabled():
+            self._step_table = (key, table)
+        return table
+
+
+class StepPositions(NamedTuple):
+    """Where a fixed-cache step writes and what it attends, the same for
+    every layer of one decoder step: rows (B,); at (B,), the write slot,
+    kept inside the cache; inside (B, 1), whether the position is; rel_idx
+    (B, L), the entry of the rel-pos table that slot j reads (the table's
+    entry i holds distance L-1 - i, so j + L-1 - pos_b); invalid (B, 1, L),
+    the slots past pos_b."""
+
+    rows: torch.Tensor
+    at: torch.Tensor
+    inside: torch.Tensor
+    rel_idx: torch.Tensor
+    invalid: torch.Tensor
+
+
+def step_positions(pos: torch.Tensor, cap: int) -> StepPositions:
+    """The StepPositions of rows at positions pos (B,) in caches of ``cap``
+    slots."""
+    slots = torch.arange(cap, device=pos.device)[None, :]
+    return StepPositions(
+        rows=torch.arange(pos.shape[0], device=pos.device), at=pos.clamp(max=cap - 1),
+        inside=(pos < cap)[:, None], rel_idx=(slots + (cap - 1) - pos[:, None]).clamp(0, cap - 1),
+        invalid=(slots > pos[:, None])[:, None])

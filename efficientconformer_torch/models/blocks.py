@@ -5,8 +5,9 @@ x + ½FFN -> x + MHSA -> residual + Conv -> x + ½FFN -> LayerNorm. The residual
 around the convolution module is a strided pointwise conv when the width
 expands, a strided slice when the block only strides. TransformerBlock (the
 LM-Transformer's): pre-LN, x + MHSA -> x + FFN (relu, no inner dropout), no
-final norm. The training state is the module's own (``train()``/``eval()``);
-the generator for dropout is handed down to each module.
+final norm; its ``step`` runs one token on a fixed-capacity KV cache. The
+training state is the module's own (``train()``/``eval()``); the generator
+for dropout is handed down to each module.
 """
 
 from __future__ import annotations
@@ -74,3 +75,12 @@ class TransformerBlock(nn.Module):
     def forward(self, x, mask=None, generator=None):
         x = x + self.multi_head_self_attention_module(x, mask, generator)
         return x + self.feed_forward_module(x, generator)
+
+    def step(self, x, k, v, at):
+        """One token x (B, 1, D) on the attention's KV cache k, v (B, L, D),
+        written in place at ``at`` (attentions.StepPositions; blocks.py
+        :105-125, train=False). In eval mode, where the dropouts are the
+        identity."""
+        att = self.multi_head_self_attention_module
+        x = x + att.dropout(att.mhsa.step(att.norm(x), k, v, at))
+        return x + self.feed_forward_module(x)

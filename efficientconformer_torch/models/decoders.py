@@ -7,9 +7,15 @@ Two entry points, as the JAX package's:
     sequence, cast to the compute dtype after the embedding
     (``_compute_cast``, decoders.py:28-35);
   * ``step(y_t, carry)``: one token with an explicit carry, for the decode
-    loops, which stay fp32 as in the JAX package. The RNN's carry is (h, c),
-    each (num_layers, B, H); the Transformer's KV-cache step is not ported
-    and raises with its ROADMAP item.
+    loops and the beam searches, which stay fp32 whatever the compute dtype,
+    as in the JAX package. The RNN's carry is (h, c), each (num_layers, B,
+    H); the Transformer's is a fixed-capacity KV cache (``init_carry_fixed``,
+    decoders.py:114-154) with per-row positions, so beam slots of
+    different lengths share a batch: {"k": (B, blocks, L, D), "v": (B,
+    blocks, L, D), "pos": (B,)}, the JAX package's per-block caches stacked
+    (every block's position is the same), so a beam moves one tensor, not
+    one a block. The growing cache (``step(y_t, None)``), which only the
+    host Transducer beam needs, raises with its ROADMAP item.
 The Conformer decoder raises with its ROADMAP item.
 """
 
@@ -20,6 +26,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from efficientconformer_torch.models.attentions import step_positions
 from efficientconformer_torch.models.blocks import TransformerBlock
 from efficientconformer_torch.models.layers import LSTM, Dropout, Embedding
 from efficientconformer_torch.ops.masks import streaming_mask
@@ -90,9 +97,26 @@ class TransformerDecoder(nn.Module):
             x = block(x, mask, generator)
         return x
 
-    def step(self, y_t, carry):
-        raise NotImplementedError(
-            "the Transformer decoder's KV-cache step: ROADMAP Queue 1 item 11")
+    def step(self, y_t: torch.Tensor, carry):
+        """y_t (B,) int -> ((B, D), new carry) on the fixed-capacity cache of
+        ``init_carry_fixed``, in fp32 (no compute cast), in eval mode."""
+        if carry is None:
+            raise NotImplementedError(
+                "the Transformer decoder's growing KV cache (the host Transducer beam's): "
+                "ROADMAP Queue 1 item 11")
+        k, v, pos = carry["k"].clone(), carry["v"].clone(), carry["pos"]
+        at = step_positions(pos, k.shape[2])
+        x = self.embedding(y_t[:, None])
+        for i, block in enumerate(self.blocks):
+            x = block.step(x, k[:, i], v[:, i], at)
+        return x[:, 0], {"k": k, "v": v, "pos": pos + 1}
+
+    def init_carry_fixed(self, batch: int, max_len: int, device) -> dict:
+        """An empty fp32 cache of ``max_len`` slots for every block, at
+        position 0."""
+        shape = (batch, len(self.blocks), max_len, self.params["dim_model"])
+        return {"k": torch.zeros(shape, device=device), "v": torch.zeros(shape, device=device),
+                "pos": torch.zeros((batch,), dtype=torch.long, device=device)}
 
 
 def make_decoder(params: dict, vn_std: Optional[float] = None):

@@ -4,10 +4,11 @@ Counterpart of efficientconformer_tpu/models/lm.py: ``LanguageModel`` runs
 the teacher-forced pass (a blank prepended to the tokens, logits for every
 position) over the RNN decoder (LM-RNN) or the causal rel-pos Transformer
 decoder (LM-Transformer), and ``ce_loss`` is its cross entropy. Users score
-an LM with its eval loss and perplexity (runtime.py:241-260, 549-558) and
-train it with ``training/trainer.py``. The single-token ``step`` with a
-KV cache, which LM-fused beam search drives, is not ported (ROADMAP Queue 1
-item 11).
+an LM with its eval loss and perplexity (runtime.py:241-260, 549-558),
+train it with ``training/trainer.py``, and fuse it into the Transducer beam
+(decoding/rnnt_beam_device.py) through the single-token ``step`` on a
+fixed-shape carry (``init_carry_fixed``: the RNN's state, or the
+Transformer's fixed-capacity KV cache), lm.py:35-50.
 """
 
 from __future__ import annotations
@@ -39,6 +40,24 @@ class LanguageModel(nn.Module):
         if x_len is not None:
             x_len = x_len + 1
         return self.fc(self.decoder(x, x_len, generator))
+
+    def step(self, y_t: torch.Tensor, carry):
+        """One decode step: tokens (B,) -> (logits (B, V), new carry)."""
+        h, carry = self.decoder.step(y_t, carry)
+        return self.fc(h), carry
+
+    def init_carry(self, batch: int, device):
+        """The RNN's zero state; None (a growing cache) for a Transformer."""
+        if hasattr(self.decoder, "init_carry"):
+            return self.decoder.init_carry(batch, device)
+        return None
+
+    def init_carry_fixed(self, batch: int, max_len: int, device):
+        """A fixed-shape carry for the beam's slots: the RNN's state, or a
+        Transformer's KV cache of ``max_len`` slots."""
+        if hasattr(self.decoder, "init_carry_fixed"):
+            return self.decoder.init_carry_fixed(batch, max_len, device)
+        return self.init_carry(batch, device)
 
 
 def ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,9 @@ advances the decoder. Two exact implementations of it, as in the JAX
 package: "label" (label-looping, one iteration per emission: the joint of
 one decoder state against all frames, blank runs skipped in one step) and
 "frame" (one iteration per frame or emission). The JAX ``while_loop``
-condition is a host check per iteration here.
+condition is a host check per iteration here. ``encode``, ``decode_step``,
+``joint_step`` and ``decoder_init_carry`` are the steps the beam search
+drives (decoding/rnnt_beam_device.py; transducer.py:60-81).
 """
 
 from __future__ import annotations
@@ -54,6 +56,21 @@ class Transducer(nn.Module):
         y_in = nn.functional.pad(y, (1, 0))
         g = self.decoder(y_in, y_len + 1)
         return self.joint_network(f, g), f_len
+
+    def encode(self, x, x_len):
+        """(B, T_audio) -> (frames (B, T, De), f_len) in the compute dtype."""
+        return self.encoder(x, x_len)
+
+    def decode_step(self, y_t, carry):
+        """One prediction-network step: (B,) tokens -> ((B, Dd), carry)."""
+        return self.decoder.step(y_t, carry)
+
+    def joint_step(self, f_t, g_t):
+        """(..., De) x (..., Dd) -> (..., V)."""
+        return self.joint_network.step(f_t, g_t)
+
+    def decoder_init_carry(self, batch: int, device):
+        return self.decoder.init_carry(batch, device)
 
 
 def build_model(config_path: str, device=None, dtype: torch.dtype = torch.float32,

@@ -25,8 +25,9 @@ def relative_encoding(seq_len: int, dim: int, causal: bool = False,
                       device=None) -> torch.Tensor:
     """The relative window, most distant past first: positions seq_len-1
     ... 0 when causal, shape (seq_len, dim); down to -(seq_len-1) otherwise,
-    shape (2 seq_len - 1, dim). (The JAX function's hidden_len, a KV cache's
-    history, waits for the cached decode step.)"""
+    shape (2 seq_len - 1, dim). The JAX function's causal window with a
+    cache history, relative_encoding(1, dim, hidden_len=L-1, causal=True),
+    is relative_encoding(L, dim, causal=True) here."""
     stop = 0 if causal else -(seq_len - 1)
     pos = torch.arange(seq_len - 1, stop - 1, -1, dtype=torch.float32, device=device)
     return _sinusoid(pos, dim)

@@ -3,16 +3,21 @@
 Counterpart of efficientconformer_tpu/runtime.py (reference main.py:27-178
 and Model.evaluate / eval_time* / swa, models/model.py:386-726): config ->
 tokenizer -> datasets -> Trainer, then the requested mode. Evaluation
-decodes on the device (batched greedy CTC or Transducer decoding),
-detokenises and scores the WER on the host. It covers the model types the
-port has: CTC, Transducer and LM (the LM trains on the LibriSpeechCorpus
-text and is evaluated on transcripts in ``lm_mode``).
+decodes on the device, detokenises and scores the WER on the host: greedy
+with ``--gready``, otherwise the beam search of the config's
+``decoding_params`` (every shipped config has ``beam_size`` 16, runtime.py
+:87-212): the CTC prefix beam with n-gram fusion and the Transducer beam
+with n-gram rescoring, both on the device (decoding/), and with
+``--initial_epoch_lm`` the LM of ``lm_config`` fused into the Transducer
+beam. ``ECF_HOST_BEAM=1`` selects the host C++ CTC beam instead, with
+``cutoff_top_n``. It covers the model types the port has: CTC, Transducer
+and LM (the LM trains on the LibriSpeechCorpus text and is evaluated on
+transcripts in ``lm_mode``).
 
 What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP Queue 1 item, never falling back to something else: beam search
-(every shipped config's ``beam_size``; pass ``--gready``) [11], LM fusion
-``--initial_epoch_lm`` [10], tensor, sequence and data parallelism [14],
-``--profiler`` [13].
+ROADMAP Queue 1 item, never falling back to something else: the host
+Transducer beam (``ECF_HOST_BEAM=1`` with a Transducer) [11], tensor,
+sequence and data parallelism [14], ``--profiler`` [13].
 """
 
 from __future__ import annotations
@@ -30,6 +35,10 @@ from efficientconformer_torch.config import default_device, load_config
 from efficientconformer_torch.data.datasets import LibriSpeechDataset
 from efficientconformer_torch.data.loader import AsrBatchLoader, LmBatchLoader
 from efficientconformer_torch.data.tokenizer import BpeTokenizer
+from efficientconformer_torch.decoding import ctc_beam
+from efficientconformer_torch.decoding.ctc_beam_device import ctc_beam_search_device
+from efficientconformer_torch.decoding.ngram import try_load
+from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
 from efficientconformer_torch.models import model_ctc as ctc_mod
 from efficientconformer_torch.models import transducer as rnnt_mod
 from efficientconformer_torch.models.layers import _BatchNorm
@@ -71,21 +80,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _refuse_beam(beam_size: int) -> None:
-    if beam_size > 1:
-        raise NotImplementedError("beam search (beam_size > 1) is not ported: ROADMAP Queue 1 "
-                                  "item 11; pass --gready for greedy decoding")
-
-
 def decode_batch(trainer: Trainer, batch: dict, tokenizer, max_consec: int = 5,
-                 beam_size: int = 1) -> list:
-    """Greedy-decode one eval batch (audio (B, T), audio_len (B,), numpy or
-    tensors) -> list of B strings."""
-    _refuse_beam(beam_size)
+                 beam_size: int = 1, lm: Optional[dict] = None) -> list:
+    """Decode one eval batch (audio (B, T), audio_len (B,), numpy or
+    tensors) -> list of B strings: greedy, or with ``beam_size`` > 1 the
+    beam search of the config's decoding_params (n-gram fusion when its
+    ARPA file exists; ``lm`` a bundle of ``load_lm_for_fusion``)."""
     dev = trainer.device
     model = trainer.model.eval()
     audio = torch.as_tensor(batch["audio"]).to(dev, non_blocking=True)
     audio_len = torch.as_tensor(batch["audio_len"]).to(dev)
+    if beam_size > 1:
+        return tokenizer.decode(beam_decode(trainer, audio, audio_len, beam_size, max_consec, lm))
     if trainer.config["model_type"] == "Transducer":
         cap = rnnt_mod.greedy_token_cap(trainer.config["encoder_params"], audio.shape[1],
                                         max_consec)
@@ -96,15 +102,66 @@ def decode_batch(trainer: Trainer, batch: dict, tokenizer, max_consec: int = 5,
     return tokenizer.decode([toks[b, : n[b]].tolist() for b in range(len(n))])
 
 
+@torch.inference_mode()
+def beam_decode(trainer: Trainer, audio: torch.Tensor, audio_len: torch.Tensor,
+                beam_size: int, max_consec: int = 5, lm: Optional[dict] = None) -> list:
+    """The token lists of the beam search of runtime.py:94-206. CTC: an fp32
+    log-softmax of logits / tmp feeds the device prefix beam with the
+    n-gram (or, with ECF_HOST_BEAM=1, the host C++ beam with
+    ``cutoff_top_n``). Transducer: the device beam with the LM of ``lm`` and
+    the n-gram, over at most ``greedy_token_cap`` tokens."""
+    dp = trainer.config["decoding_params"]
+    model = trainer.model.eval()
+    ngram = try_load(dp.get("ngram_path"), dp.get("ngram_offset", 100))
+    alpha, beta = dp.get("ngram_alpha", 0.0), dp.get("ngram_beta", 0.0)
+    host = bool(os.environ.get("ECF_HOST_BEAM"))
+    if trainer.config["model_type"] == "Transducer":
+        if host:
+            raise NotImplementedError("the host Transducer beam (ECF_HOST_BEAM=1): ROADMAP "
+                                      "Queue 1 item 11")
+        fusion = {}
+        if lm is not None:
+            fusion.update(lm_model=lm["model"], lm_weight=lm["weight"], lm_tmp=lm["tmp"])
+        if ngram is not None and alpha:
+            fusion.update(ngram=ngram, ngram_alpha=alpha, ngram_beta=beta)
+        cap = rnnt_mod.greedy_token_cap(trainer.config["encoder_params"], audio.shape[1],
+                                        max_consec)
+        return beam_search_device(model, audio, audio_len, beam_size=beam_size,
+                                  tmp=dp.get("tmp", 1.0), max_tokens=cap, **fusion)
+    logits, logits_len = model(audio, audio_len)
+    logp = torch.log_softmax(logits.float() / dp.get("tmp", 1.0), dim=-1)
+    if host:
+        return ctc_beam.beam_search_batch(
+            logp.cpu().numpy(), logits_len.cpu().numpy(), beam_size,
+            lm_path=dp.get("ngram_path"), alpha=alpha, beta=beta,
+            ngram_offset=dp.get("ngram_offset", 100), cutoff_top_n=dp.get("cutoff_top_n", 0))
+    return ctc_beam_search_device(logp, logits_len, beam_size, ngram=ngram, alpha=alpha,
+                                  beta=beta)
+
+
+def load_lm_for_fusion(config: dict, lm_epoch: str, device) -> dict:
+    """The shallow-fusion LM of decoding_params["lm_config"] from its
+    checkpoint of epoch ``lm_epoch`` (reference main.py:69-79, runtime.py
+    :219-238): {model, weight, tmp}."""
+    dp = config["decoding_params"]
+    lm_config = load_config(dp["lm_config"])
+    lm_trainer = Trainer(lm_config, device=device)
+    lm_cb = lm_config["training_params"].get("callback_path", "callbacks/")
+    lm_trainer.load(os.path.join(lm_cb, f"checkpoints_{lm_epoch}.ckpt"))
+    return {"model": lm_trainer.model.eval(), "weight": dp.get("lm_weight", 0.0),
+            "tmp": dp.get("lm_tmp", 1.0)}
+
+
 def evaluate(trainer: Trainer, dataset, tokenizer, *, batch_size: int = 8,
              eval_steps: Optional[int] = None, verbose: bool = False, max_consec: int = 5,
-             beam_size: int = 1, eval_loss: bool = False, num_workers: int = 0):
+             beam_size: int = 1, eval_loss: bool = False, num_workers: int = 0,
+             lm: Optional[dict] = None):
     """(WER, truths, predictions, mean eval loss or None) over ``dataset``
     (reference model.py:386-490). The loader repeats a partial tail's last
     utterance to fill its microbatch; those repeats are dropped (``n_valid``)
     before the WER, so each utterance counts once. The eval loss is the mean
-    over batches, repeats included, as in the JAX package."""
-    _refuse_beam(beam_size)
+    over batches, repeats included, as in the JAX package. ``beam_size``
+    and ``lm`` as in ``decode_batch``."""
     loader = AsrBatchLoader(dataset, batch_size, shuffle=False, drop_last=False,
                             num_workers=num_workers)
     truths, preds = [], []
@@ -112,7 +169,7 @@ def evaluate(trainer: Trainer, dataset, tokenizer, *, batch_size: int = 8,
     for i, batch in enumerate(loader.epoch(0)):
         n_valid = batch.pop("n_valid")
         mb = _microbatches(batch)
-        batch_preds = decode_batch(trainer, mb, tokenizer, max_consec, beam_size)
+        batch_preds = decode_batch(trainer, mb, tokenizer, max_consec, beam_size, lm)
         batch_truths = tokenizer.decode(
             [mb["labels"][b, : mb["label_len"][b]].tolist() for b in range(len(batch_preds))])
         micro = mb["labels"].shape[0] // len(n_valid)
@@ -186,9 +243,6 @@ def bn_refresh(trainer: Trainer, dataset, steps: int = 100) -> int:
 
 def _refuse(args) -> None:
     """The flags whose work the port does not have."""
-    if args.initial_epoch_lm:
-        raise NotImplementedError("--initial_epoch_lm (LM shallow fusion) is not ported: "
-                                  "ROADMAP Queue 1 item 10")
     if (args.model_parallel or 1) > 1 or (args.seq_parallel or 1) > 1:
         raise NotImplementedError("--model_parallel / --seq_parallel are not ported: "
                                   "ROADMAP Queue 1 item 14")
@@ -237,6 +291,9 @@ def run(args) -> int:
         checkpoint.load_encoder(
             os.path.join(enc_path, f"checkpoints_{args.initial_epoch_encoder}.ckpt"),
             trainer.model)
+    # the shallow-fusion LM (reference main.py:69-79)
+    lm = load_lm_for_fusion(config, args.initial_epoch_lm, device) if args.initial_epoch_lm \
+        else None
 
     mode_base = args.mode.split("-")[0]
     vocab_type = config["tokenizer_params"]["vocab_type"]
@@ -273,7 +330,7 @@ def run(args) -> int:
         w, _, _, _ = evaluate(
             trainer, ds, tokenizer, batch_size=args.batch_size_eval, eval_steps=args.val_steps,
             verbose=args.verbose_val, max_consec=args.rnnt_max_consec_dec_steps or 5,
-            beam_size=beam, eval_loss=args.eval_loss, num_workers=args.num_workers)
+            beam_size=beam, eval_loss=args.eval_loss, num_workers=args.num_workers, lm=lm)
         print("{} Search WER : {:.2f}%".format("Greedy" if beam <= 1 else "Beam", 100 * w))
         return 0
     if mode_base.startswith("eval_time"):

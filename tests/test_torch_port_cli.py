@@ -4,9 +4,12 @@ models: training with validation and a checkpoint every epoch, a resumed
 run equal to the uninterrupted one, greedy test evaluation against a direct
 ``evaluate``, SWA of both types against the averages of the checkpoints,
 the eval_time modes, the Transducer from a frozen CTC encoder, the LM on a
-text corpus, and the flags the port refuses.
+text corpus, beam-search evaluation (CTC with the n-gram on the device and
+on the host, the Transducer with the n-gram and a port LM checkpoint
+fused) against direct calls of the beams, and the flags the port refuses.
 """
 
+import ast
 import contextlib
 import io
 import json
@@ -17,6 +20,7 @@ import shutil
 import pytest
 import torch
 
+from ngram_synth import synth_arpa
 from test_e2e import SENTENCES
 from test_torch_port_checkpoint import tiny_config
 from test_torch_port_runtime import prepare
@@ -24,6 +28,12 @@ from test_torch_port_runtime import prepare
 from efficientconformer_torch import main as cli
 from efficientconformer_torch import runtime
 from efficientconformer_torch.data import datasets
+from efficientconformer_torch.data.loader import AsrBatchLoader
+from efficientconformer_torch.decoding import ctc_beam
+from efficientconformer_torch.decoding.ctc_beam_device import ctc_beam_search_device
+from efficientconformer_torch.decoding.ngram import ArpaLM
+from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
+from efficientconformer_torch.models.transducer import greedy_token_cap
 from efficientconformer_torch.training import checkpoint
 from efficientconformer_torch.training.trainer import Trainer
 
@@ -192,8 +202,6 @@ def test_cli_lm(setup, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    ([], "item 11"),
-    (["--gready", "--initial_epoch_lm", 1], "item 10"),
     (["--gready", "--model_parallel", 2], "item 14"),
     (["--gready", "--seq_parallel", 2], "item 14"),
     (["--gready", "-d"], "item 14"),
@@ -202,11 +210,119 @@ def test_cli_lm(setup, tmp_path):
     (["--gready", "--profiler"], "item 13"),
 ])
 def test_cli_refuses_what_it_lacks(setup, tmp_path, flags, item):
-    """Beam search (the shipped configs' beam_size without --gready), LM
-    fusion, parallelism and the profiler raise, naming their ROADMAP item."""
+    """Parallelism and the profiler raise, naming their ROADMAP item."""
     _, cfg, _ = setup
     cfg = json.loads(json.dumps(cfg))
     cfg["decoding_params"]["beam_size"] = 16
     path = write_config(cfg, tmp_path / "ctc.json", tmp_path / "cb")
     with pytest.raises(NotImplementedError, match=item):
         run_cli(path, "-m", "test-clean", "--batch_size_eval", 3, *flags)
+
+
+def beam_config(cfg, tmp_path, lm_callbacks=None):
+    """``cfg`` with the shipped configs' decoding_params at beam 4: a
+    synthetic 3-gram over its 48 tokens (alpha 0.3, beta 1) and, with
+    ``lm_callbacks``, a tiny LM-Transformer config whose checkpoints lie
+    there (lm_weight 0.5)."""
+    cfg = json.loads(json.dumps(cfg))
+    arpa = str(tmp_path / "lm3.arpa")
+    synth_arpa(arpa, vocab=48, order=3, counts=(0, 120, 200), seed=4)
+    dp = {"beam_size": 4, "tmp": 1, "ngram_path": arpa, "ngram_alpha": 0.3, "ngram_beta": 1,
+          "lm_weight": 0.5, "lm_tmp": 1}
+    if lm_callbacks is not None:
+        lm_cfg = {"model_name": "Tiny LM", "model_type": "LM",
+                  "lm_params": {"arch": "Transformer", "num_blocks": 2, "dim_model": 16,
+                                "ff_ratio": 2, "num_heads": 2, "vocab_size": 48,
+                                "relative_pos_enc": True, "max_pos_encoding": 64, "Pdrop": 0.1},
+                  "tokenizer_params": cfg["tokenizer_params"],
+                  "training_params": {"optimizer": "Adam", "beta1": 0.9, "beta2": 0.95,
+                                      "eps": 1e-8, "weight_decay": 0.0,
+                                      "lr_schedule": "Constant", "lr_value": 1e-3,
+                                      "mixed_precision": False},
+                  "decoding_params": {"beam_size": 4, "tmp": 1}}
+        dp["lm_config"] = write_config(lm_cfg, tmp_path / "lm.json", lm_callbacks)
+    cfg["decoding_params"] = dp
+    return cfg
+
+
+def predictions(out):
+    """Every batch's predictions that --verbose_val printed, in order."""
+    return [p for block in re.findall(r"Predictions:\n (\[.*?\])\n", out)
+            for p in ast.literal_eval(block)]
+
+
+def direct_beam(cfg, beam, batch_size=2):
+    """``beam(trainer, audio, audio_len)`` -> token lists over the
+    test-clean batches that evaluate() decodes, with the weights the CLI
+    draws (seed 0): the predictions as strings."""
+    trainer = Trainer(cfg, device="cpu")
+    ds = datasets.LibriSpeechDataset(cfg["training_params"]["evaluation_dataset_path"],
+                                     "test-clean", vocab_size=48)
+    tokenizer = runtime.load_tokenizer(cfg)
+    preds = []
+    for batch in AsrBatchLoader(ds, batch_size, shuffle=False, drop_last=False).epoch(0):
+        mb = {k: torch.as_tensor(v).reshape((-1,) + v.shape[2:]) for k, v in batch.items()
+              if k != "n_valid"}
+        with torch.inference_mode():
+            preds += tokenizer.decode(beam(trainer.model.eval(), mb["audio"], mb["audio_len"]))
+    return preds
+
+
+def test_cli_ctc_beam_search(setup, tmp_path, monkeypatch):
+    """test-clean without --gready: the device prefix beam with the n-gram;
+    with ECF_HOST_BEAM=1 the host C++ beam. Each prints its Beam Search WER
+    and predictions equal to the beam called directly."""
+    _, cfg, _ = setup
+    cfg = beam_config(cfg, tmp_path)
+    path = write_config(cfg, tmp_path / "ctc.json", tmp_path / "cb")
+    dp = cfg["decoding_params"]
+    arpa = ArpaLM(dp["ngram_path"])
+
+    def device(model, x, x_len):
+        logits, n = model(x, x_len)
+        return ctc_beam_search_device(logits.float().log_softmax(-1), n, 4, ngram=arpa,
+                                      alpha=0.3, beta=1)
+
+    def host(model, x, x_len):
+        logits, n = model(x, x_len)
+        return ctc_beam.beam_search_batch(logits.float().log_softmax(-1).numpy(), n.numpy(), 4,
+                                          lm_path=dp["ngram_path"], alpha=0.3, beta=1)
+
+    for env, beam in ((None, device), ("1", host)):
+        if env:
+            monkeypatch.setenv("ECF_HOST_BEAM", env)
+        out = run_cli(path, "-m", "test-clean", "--batch_size_eval", 2, "--verbose_val")
+        assert re.search(r"Beam Search WER : [\d.]+%", out)
+        got = predictions(out)
+        assert len(got) == 4 and got == direct_beam(cfg, beam)
+
+
+def test_cli_transducer_beam_search_with_lm_fusion(setup, tmp_path, monkeypatch):
+    """test-clean without --gready for the Transducer: the device beam with
+    the n-gram, and with --initial_epoch_lm 1 also the LM of lm_config from
+    a port checkpoint; the host Transducer beam (ECF_HOST_BEAM=1) raises,
+    naming its ROADMAP item."""
+    _, _, cfg = setup
+    lm_cb = tmp_path / "lm_cb"
+    cfg = beam_config(cfg, tmp_path, lm_callbacks=lm_cb)
+    path = write_config(cfg, tmp_path / "rnnt.json", tmp_path / "cb")
+    lm_trainer = Trainer(cfg["decoding_params"]["lm_config"], device="cpu", seed=3)
+    lm_trainer.save(str(lm_cb / "checkpoints_1.ckpt"))
+    lm_model = lm_trainer.model.eval()
+    arpa = ArpaLM(cfg["decoding_params"]["ngram_path"])
+
+    def beam(model, x, x_len, **fusion):
+        cap = greedy_token_cap(cfg["encoder_params"], x.shape[1], 5)
+        return beam_search_device(model, x, x_len, beam_size=4, max_tokens=cap, ngram=arpa,
+                                  ngram_alpha=0.3, ngram_beta=1, **fusion)
+
+    for flags, fusion in (([], {}), (["--initial_epoch_lm", 1],
+                                     {"lm_model": lm_model, "lm_weight": 0.5})):
+        out = run_cli(path, "-m", "test-clean", "--batch_size_eval", 2, "--verbose_val", *flags)
+        assert re.search(r"Beam Search WER : [\d.]+%", out)
+        got = predictions(out)
+        assert len(got) == 4 and got == direct_beam(
+            cfg, lambda m, x, n, f=fusion: beam(m, x, n, **f))
+    monkeypatch.setenv("ECF_HOST_BEAM", "1")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        run_cli(path, "-m", "test-clean", "--batch_size_eval", 2)

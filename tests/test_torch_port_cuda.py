@@ -2,7 +2,7 @@
 the rel-pos attention forward and backward, the RNN-T lattice forward and
 backward, and the bias attention forward and backward. Then the training
 runtime on the card: a checkpoint round trip and the loader's batches
-training the flagship.
+training the flagship. Then both device beams on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one. This file imports
 neither JAX nor the JAX package, so on a machine without JAX it runs with
@@ -713,3 +713,67 @@ def test_loader_batches_train_the_flagship(cuda, tmp_path):
     assert (RA.relpos_attention.launches, RA.relpos_attention.tc_launches) == (n, n)
     assert (RA.relpos_attention_bwd.launches, RA.relpos_attention_bwd.tc_launches) == (n, n)
     assert (tmp_path / "cb" / "checkpoints_1.ckpt").exists()
+
+
+@pytest.mark.gpu
+def test_device_beams_on_the_card_match_the_cpu(cuda, tmp_path):
+    """The CTC prefix beam (peaky log-probs, W 8, a synthetic 3-gram) and
+    the Transducer beam (a 2-block Transducer with the n-gram and an
+    LM-Transformer of width 16 in both routings, or an LM-RNN; fp32, W 4)
+    on the card give the CPU's tokens on the same inputs and weights, and
+    the Transducer's final normalised scores within 1e-4. On the card the
+    LM step and the n-gram rescoring run as CUDA graphs."""
+    import json
+
+    import numpy as np
+
+    from ngram_synth import synth_arpa
+
+    from efficientconformer_torch.decoding.ctc_beam_device import ctc_beam_search_device
+    from efficientconformer_torch.decoding.ngram import ArpaLM
+    from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
+    from efficientconformer_torch.models.lm import LanguageModel
+    from efficientconformer_torch.models.model_ctc import init_params_
+    from efficientconformer_torch.models.transducer import Transducer
+
+    synth_arpa(str(tmp_path / "lm3.arpa"), vocab=16, order=3, counts=(0, 40, 60), seed=1)
+    arpa = ArpaLM(str(tmp_path / "lm3.arpa"))
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((3, 30, 16)) * 3.0
+    lp = torch.from_numpy(logits).float().log_softmax(-1)
+    seq_len = torch.tensor([30, 24, 17])
+    want = ctc_beam_search_device(lp, seq_len, 8, ngram=arpa, alpha=0.4, beta=0.3)
+    got = ctc_beam_search_device(lp.to(cuda), seq_len.to(cuda), 8, ngram=arpa, alpha=0.4,
+                                 beta=0.3)
+    assert got == want
+
+    with open("configs/EfficientConformerTransducerSmall.json") as f:
+        cfg = json.load(f)
+    enc = dict(cfg["encoder_params"], num_blocks=2, dim_model=[24, 36], num_heads=4,
+               subsampling_filters=[8], strided_blocks=[1], expand_blocks=[1], kernel_size=7)
+    dec = dict(cfg["decoder_params"], dim_model=16, vocab_size=16)
+    model = Transducer(enc, dec, {"joint_mode": "sum", "dim_model": 12, "act": "tanh"}, 16)
+    lm = LanguageModel({"arch": "Transformer", "num_blocks": 2, "dim_model": 16, "ff_ratio": 2,
+                        "num_heads": 2, "vocab_size": 16, "relative_pos_enc": True,
+                        "max_pos_encoding": 64, "Pdrop": 0.0}, 16)
+    rnn_lm = LanguageModel({"arch": "RNN", "num_layers": 1, "dim_model": 12, "vocab_size": 16}, 16)
+    init_params_(model, torch.Generator().manual_seed(0))
+    init_params_(lm, torch.Generator().manual_seed(1))
+    init_params_(rnn_lm, torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        model.joint_network.linear_encoder.weight.mul_(4.0)
+        model.joint_network.linear_joint.bias[0] += 5.0
+    t = np.arange(640) / 16000
+    x = torch.from_numpy(np.concatenate([
+        rng.uniform(0.01, 1.0) * np.sin(2 * np.pi * rng.uniform(100, 6000) * t)
+        for _ in range(2 * 19)]).reshape(2, -1)[:, :12000].astype(np.float32))
+    x_len = torch.tensor([12000, 9000])
+    for ref_topk, lm_model in ((False, lm), (True, lm), (False, rnn_lm)):
+        kw = dict(beam_size=4, max_tokens=48, lm_weight=0.5, ngram=arpa, ngram_alpha=0.6,
+                  ngram_beta=0.4, ref_topk=ref_topk, return_scores=True)
+        want, want_sc = beam_search_device(model.eval(), x, x_len, lm_model=lm_model.eval(), **kw)
+        got, got_sc = beam_search_device(model.to(cuda), x.to(cuda), x_len.to(cuda),
+                                         lm_model=lm_model.to(cuda), **kw)
+        model.cpu(), lm_model.cpu()
+        assert got == want
+        assert torch.allclose(got_sc, want_sc, rtol=0, atol=1e-4)

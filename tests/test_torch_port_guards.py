@@ -68,9 +68,11 @@ def test_weight_bridge_loads_into_a_fresh_model():
                                    src(x, torch.tensor([6000]))[0], rtol=0, atol=0)
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
     """Greedy decoding and one train step of the port, CTC and Transducer,
-    in a fresh process load no module of JAX, flax or the JAX package."""
+    and both device beams with an n-gram (and the Transducer's with an
+    LM-Transformer) fused in, in a fresh process load no module of JAX,
+    flax or the JAX package."""
     code = textwrap.dedent(f"""
         import json, sys
         import torch
@@ -110,15 +112,38 @@ def test_port_runs_without_jax():
         trainer = Trainer(tcfg, device="cpu")
         loss, grad_norm = trainer.train_step(batch)
         assert torch.isfinite(loss) and torch.isfinite(grad_norm)
+
+        # both device beams, the n-gram fused, the Transducer's with an
+        # LM-Transformer too
+        sys.path.insert(0, "tests")
+        from ngram_synth import synth_arpa
+        from efficientconformer_torch.decoding.ctc_beam_device import ctc_beam_search_device
+        from efficientconformer_torch.decoding.ngram import ArpaLM
+        from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
+        from efficientconformer_torch.models.lm import LanguageModel
+        synth_arpa(sys.argv[1], vocab=16, order=3, counts=(0, 30, 40))
+        arpa = ArpaLM(sys.argv[1])
+        x, x_len = torch.randn(2, 8000), torch.tensor([8000, 5000])
+        with torch.no_grad():
+            logits, n = model.eval()(x, x_len)
+        ctc = ctc_beam_search_device(logits.log_softmax(-1), n, 4, ngram=arpa, alpha=0.3, beta=1)
+        lm = LanguageModel({{"arch": "Transformer", "num_blocks": 2, "dim_model": 16,
+                             "ff_ratio": 2, "num_heads": 2, "vocab_size": 16,
+                             "relative_pos_enc": True, "max_pos_encoding": 64,
+                             "Pdrop": 0.0}}, 16)
+        init_params_(lm, torch.Generator().manual_seed(1))
+        rnnt = beam_search_device(tmodel.eval(), x, x_len, beam_size=4, max_tokens=cap,
+                                  lm_model=lm.eval(), lm_weight=0.5, ngram=arpa,
+                                  ngram_alpha=0.3, ngram_beta=1)
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "jaxlib", "flax",
                                                        "efficientconformer_tpu")))
-        print("LOADED", loaded, tuple(tokens.shape), tuple(ttokens.shape))
+        print("LOADED", loaded, tuple(tokens.shape), tuple(ttokens.shape), len(ctc), len(rnnt))
     """)
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                         text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "lm3.arpa")], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "LOADED [] (2, 13) (2, 96)" in out.stdout, out.stdout
+    assert "LOADED [] (2, 13) (2, 96) 2 2" in out.stdout, out.stdout
 
 
 def test_lm_runs_without_jax():

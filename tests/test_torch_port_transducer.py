@@ -409,9 +409,10 @@ def test_trainer_draws_the_noise_once_per_step_from_vn_start_step():
 
 
 def test_unported_decoders_raise():
-    """The Transformer decoder builds (the LM-Transformer's), but its
-    KV-cache step, which the decode loops drive, raises, and so do a
-    Transformer decoder with variational noise and the Conformer decoder."""
+    """The Transformer decoder builds (the LM-Transformer's) and steps on a
+    fixed-capacity cache, but its growing-cache step (carry None, the host
+    Transducer beam's) raises, and so do a Transformer decoder with
+    variational noise and the Conformer decoder."""
     params = {"arch": "Transformer", "num_blocks": 1, "dim_model": 8, "ff_ratio": 2,
               "num_heads": 2, "Pdrop": 0.0, "relative_pos_enc": True, "max_pos_encoding": 16,
               "vocab_size": VOCAB}
