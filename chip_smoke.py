@@ -8,9 +8,11 @@ flagship configs/EfficientConformerCTCSmall.json (batched greedy CTC
 inference, the CTC training step), configs/EfficientConformerTransducer
 Small.json (batched greedy Transducer decoding, the Transducer training
 step), configs/LM-Transformer.json (scoring: eval loss and perplexity;
-the LM training step), each with its config's own training_params, and
-beam search with the configs' decoding_params (the CTC prefix beam with an
-n-gram, the Transducer beam with the LM-Transformer and an n-gram). Holds
+the LM training step), each with its config's own training_params, beam
+search with the configs' decoding_params (the CTC prefix beam with an
+n-gram, the Transducer beam with the LM-Transformer and an n-gram), and
+streaming: sessions over the flagship made causal or limited-context, and
+the slot-pool server over both Smalls. Holds
 every hand-written kernel on those paths to its plain PyTorch version on
 the card. Phases, one line each; any failure exits non-zero:
 
@@ -116,8 +118,46 @@ the card. Phases, one line each; any failure exits non-zero:
                 then 4 x 10 s with the bf16 encoder: ms a batch, audio-s/s,
                 fast and slow frames, pops, host reads, rel-pos launches
                 (15), peak memory
+ 28. stream-kernel  the bias forward kernel vs its plain version at the three
+                stage shapes of the flagship made causal (left context 64)
+                on a serving window (history 64, chunk 16, lookahead 4: 88
+                frames) at 32 slots of ragged lengths, fp32 and bf16, with
+                the error on the fully masked rows (past a row's length plus
+                the left context) on its own and against the mean of V;
+                [stream-kernel-time]: each shape timed in bf16 from CUDA
+                graphs beside the plain version, SDPA with the bias as its
+                mask and the bound
+ 29. stream-exact  the flagship made causal (left context 16), then
+                limited-context (left 16, right 2) at the suggested
+                lookahead: [stream-exact-kernel] holds the bias kernel to
+                its plain version at each session's window shapes, two rows,
+                fp32 and bf16; then two ragged rows streamed in fp32 through
+                StreamingEncoderSession at the suggested history in uneven
+                pushes: the streamed logits equal the batch forward on the
+                zero-padded utterance within 1e-3 (the limited encoder's
+                last lookahead frames apart: fully masked rows past the end
+                average V over the padding, and the JAX package's streamed
+                tail leaves its batch forward by as much); 15 bias launches
+                a window, no rel-pos launch
+ 30. serve-slice  [serve-kernel-ctc], [serve-kernel-transducer]: the rel-pos
+                forward kernel vs its plain version at the serving window's
+                stage shapes over 4 and 32 rows, fp32 and bf16; then
+                StreamingServer over the full-context flagship (CTC) and
+                Transducer Small, bf16, history 64, chunk 16, lookahead 4:
+                12 streams of 3-12 s through 4 slots, staggered pushes and
+                late submits; every stream's frames within 0.1 (CTC
+                logits) / 0.3 (Transducer encoder frames) of the
+                single-stream session's, the streams whose tokens
+                differ and the CTC frames whose argmax differs counted;
+                rel-pos launches, all on the tensor cores, and no bias launch
+ 31. serve-rate  serving_bench.py's defaults (32 slots, 96 streams of 10 s)
+                for both decoders, max_windows_per_tick None and 2: after a
+                warm-up pass, 7 timed passes of the 96 streams: audio-s/s
+                (median, min, max over the passes), tick p50/p95 over their
+                ticks; then one pass in sync debug mode (host syncs a tick)
+                and one profiled (device idle share)
 
- 28-36. the CLI (``python -m efficientconformer_torch.main``) driven in this
+ 32-40. the CLI (``python -m efficientconformer_torch.main``) driven in this
                 process at the configs' published widths and depths, on a
                 synthetic LibriSpeech tree written under build/ (removed
                 after); only the dataset, tokenizer and callback paths are
@@ -158,8 +198,11 @@ the card. Phases, one line each; any failure exits non-zero:
 Then one JSON line with each kernel's launches, error, times and bound (the
 rel-pos entries also with their bf16 error, tensor-core launches and eager
 per-call ms, the forward's with ``beam_launches`` of [ctc-beam] and
-[t-beam]; every entry with ``cli_launches``, its launches over the CLI's
-runs, each counted from 0), and last {"ok": true, "device": {...}}. With
+[t-beam]; the rel-pos and bias forward entries with ``serve_launches``
+of [stream-exact], [serve-slice] and [serve-rate], each counted from 0
+just before the phase's server or sessions run, the bias forward's with
+[stream-kernel-time]'s summed times as ``stream_*_ms``; every entry with
+``cli_launches``, its launches over the CLI's runs, each counted from 0), and last {"ok": true, "device": {...}}. With
 --profile it also prints a torch.profiler device-time breakdown of one
 batch or step of each path, the beams included.
 There is no CPU path: without a GPU the script exits non-zero and prints no
@@ -246,6 +289,24 @@ CTC_BEAM_BATCH = 32          # [ctc-beam]: 32 ragged utterances of up to 10 s
 T_BEAM_BATCH = 4             # [t-beam]: 4 x 10 s (the LM cache is 47.3 MB a hypothesis)
 T_BEAM_CHECK = (4.0, 3.0)    # [t-beam]'s card vs CPU check: 2 utterances, seconds
 BEAM_SCORE_TOL = 1e-4        # where two beams' tokens differ, their best scores must be this near
+SERVE_GEOMETRY = {"chunk_frames": 16, "history_frames": 64, "lookahead_frames": 4}
+                             # serving_bench.py's defaults: 66 / 18 / 4 after alignment, an
+                             # 88-frame (7.03 s) window
+STREAM_SLOTS = 32            # [stream-kernel]: a window step over 32 slots
+STREAM_LEFT = 64             # left_context of the causal flagship in [stream-kernel]
+STREAM_EXACT_LEFT = 16       # [stream-exact]'s left_context: a 272-frame suggested history
+STREAM_TOL = 1e-3            # fp32 streamed vs batch logits after 15 blocks (as SLICE_TOL)
+SERVE_SLOTS = 4              # [serve-slice]: 12 streams of 3-12 s through 4 slots
+SERVE_STREAMS = 12
+SERVE_SECONDS = (3.0, 12.0)
+SERVE_FRAME_TOL = {"ctc": 0.1, "transducer": 0.3}
+                             # bf16 server (4 rows) vs single-stream frames, max |diff|: about
+                             # 3x the largest readings on the H100 (CTC logits 0.0343,
+                             # Transducer encoder frames 0.109)
+RATE_SLOTS = 32              # [serve-rate]: serving_bench.py's 32 slots, 96 streams of 10 s
+RATE_STREAMS = 96
+RATE_SECONDS = 10.0
+RATE_PASSES = 7              # timed passes of the 96 streams: 21 ticks uncapped (3 a pass)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -474,16 +535,16 @@ def reset_rel_counts():
     RA.relpos_attention_bwd.launches = RA.relpos_attention_bwd.tc_launches = 0
 
 
-def check_forward(phase, enc_params, seconds, gen):
+def check_forward(phase, enc_params, seconds, gen, batch=CHECK_BATCH):
     """The rel-pos forward kernel vs its plain version at the stage shapes
-    of ``seconds`` of audio: fp32 (the FMA kernel) and bf16 (the
-    tensor-core kernel, by the route counters), each vs the fp32 plain
-    version on the same inputs. The largest fp32 and bf16 errors."""
+    of ``seconds`` of audio over ``batch`` rows: fp32 (the FMA kernel) and
+    bf16 (the tensor-core kernel, by the route counters), each vs the fp32
+    plain version on the same inputs. The largest fp32 and bf16 errors."""
     from efficientconformer_torch.ops import rel_attention as RA
 
     max_err = max_err16 = 0.0
     for name, n, dh, d, h, g in stage_shapes(enc_params, seconds):
-        args = attention_inputs(CHECK_BATCH, n, dh, d, h, g, "cuda", gen)
+        args = attention_inputs(batch, n, dh, d, h, g, "cuda", gen)
         reset_rel_counts()
         o_k, lse_k = RA.relpos_attention(*args)
         o_p, lse_p = RA.reference_relpos_attention(*args)
@@ -503,7 +564,7 @@ def check_forward(phase, enc_params, seconds, gen):
         check(o_b.dtype == torch.bfloat16 and err_b <= KERNEL_BF16_TOL,
               f"{name} bf16: |O| {err_b} > {KERNEL_BF16_TOL}")
         max_err, max_err16 = max(max_err, err_o, err_lse), max(max_err16, err_b)
-        say(phase, shape=name, B=CHECK_BATCH, N=n, dh=dh, D=d, H=h, G=g,
+        say(phase, shape=name, B=batch, N=n, dh=dh, D=d, H=h, G=g,
             fp32_err_o=f"{err_o:.3g}", fp32_err_lse=f"{err_lse:.3g}", bf16_err_o=f"{err_b:.3g}",
             route="fma/tensor-core")
     return max_err, max_err16
@@ -2376,6 +2437,500 @@ def phase_t_beam(card_line):
     return launches[0], batch_ms
 
 
+# ---------------------------------------------------------------- streaming and serving
+
+
+def stream_bias(b, h, frames, g, left, right, lengths, gen):
+    """The (B, H, N, N) bias a causal (right 0) or limited-context encoder
+    layer hands the bias kernel over ``frames`` stage frames, and its
+    (B, 1, N, N) mask: skewed rel-pos-like scores plus the streaming mask,
+    padded to a multiple of G with 1.0 and taken at each group's first
+    frame, times -1e9. Query rows past a row's length plus the left context
+    see no valid key. Group padding alone masks no whole row: the first
+    frame of a group is always a real one."""
+    from efficientconformer_torch.ops import masks as M
+    from efficientconformer_torch.ops.attention import NEG_INF
+
+    mask = M.pad_mask_to_multiple(M.streaming_mask(frames, lengths, left, right), g)
+    mask = mask[:, :, ::g, ::g]
+    n = mask.shape[-1]
+    return torch.randn(b, h, n, n, generator=gen) * 0.5 + mask * NEG_INF, mask
+
+
+def stream_stage_shapes(enc_params, window_frames):
+    """(stage frames, G, head width) of each stage of a window of
+    ``window_frames`` output frames."""
+    from efficientconformer_torch import streaming as S
+    from efficientconformer_torch.config import resolve_block_configs
+
+    sub = 2 ** enc_params.get("subsampling_layers", 1)
+    total = S.total_stride(enc_params)
+    shapes = []
+    for blk, s_in in zip(resolve_block_configs(enc_params), S._strides_per_stage(enc_params)):
+        shape = (window_frames * total // (sub * s_in), blk.att_group_size,
+                 blk.att_group_size * blk.dim_model // blk.num_heads)
+        if shape not in shapes:
+            shapes.append(shape)
+    return shapes
+
+
+def check_bias_window(phase, p, window_frames, b, left, right, gen):
+    """bias_attention_fwd vs reference_bias_attention at the stage shapes of
+    a ``window_frames`` window of the encoder ``p`` (left and right
+    context as given) over ``b`` rows of ragged lengths, fp32 and bf16, with
+    the error on the fully masked rows also on its own and those rows held
+    to the mean of V. Returns the largest fp32 error and, by shape, the
+    bf16 inputs (q, k, v, bias, scale) and (B, H, N, dh, G, stage frames)."""
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    h = p["num_heads"]
+    worst, shapes = 0.0, []
+    for frames, g, dh in stream_stage_shapes(p, window_frames):
+        lengths = torch.linspace(1, frames, b).round().long()
+        bias, mask = stream_bias(b, h, frames, g, left, right, lengths, gen)
+        n = bias.shape[-1]
+        dead = (mask == 1.0).all(-1)[:, 0].cuda()                  # (B, N)
+        rows = dead[:, None, :].expand(b, h, n)
+        check(bool(dead.any()), f"{phase} stage {frames}x{g}: no fully masked row")
+        q, k, v = (torch.randn(b, n, h, dh, generator=gen).cuda().transpose(1, 2)
+                   for _ in range(3))
+        bias, scale = bias.cuda(), 1.0 / math.sqrt(dh)
+        errs = {}
+        for dtype, tol in ((torch.float32, KERNEL_FP32_TOL), (torch.bfloat16, KERNEL_BF16_TOL)):
+            args = [t.to(dtype) for t in (q, k, v)]
+            reset_launch_counts()
+            o, lse = BA.bias_attention_fwd(*args, bias, scale)
+            check(BA.bias_attention.launches == 1 and
+                  BA.bias_attention.tc_launches == (dtype == torch.bfloat16),
+                  f"{phase} stage {frames}x{g} {dtype}: the wrong route")
+            want_o, want_lse = BA.reference_bias_attention(*args, bias, scale)
+            diff = (o.float() - want_o.float()).abs()
+            err, err_dead = diff.max().item(), diff[rows].max().item()
+            mean_v = args[2].float().mean(2, keepdim=True).expand(b, h, n, dh)
+            err_mean = (o.float() - mean_v).abs()[rows].max().item()
+            err_lse = (lse - want_lse).abs().max().item()
+            check(err <= tol and err_dead <= tol and err_mean <= tol,
+                  f"{phase} stage {frames}x{g} {dtype}: |O| {err}, masked rows {err_dead}, "
+                  f"vs mean V {err_mean} > {tol}")
+            if dtype == torch.float32:
+                check(err_lse <= KERNEL_FP32_TOL,
+                      f"{phase} stage {frames}x{g}: |LSE| {err_lse}")
+                worst = max(worst, err)
+            errs[str(dtype).removeprefix("torch.")] = (err, err_dead, err_mean)
+        say(phase, B=b, H=h, N=n, dh=dh, G=g, stage_frames=frames, left_context=left,
+            right_context=right, masked_rows=int(dead.sum()),
+            fp32_err=f"{errs['float32'][0]:.3g}", fp32_masked_row_err=f"{errs['float32'][1]:.3g}",
+            fp32_vs_mean_v=f"{errs['float32'][2]:.3g}", bf16_err=f"{errs['bfloat16'][0]:.3g}",
+            bf16_masked_row_err=f"{errs['bfloat16'][1]:.3g}", tol=f"{KERNEL_FP32_TOL}/{KERNEL_BF16_TOL}")
+        shapes.append(((*(t.to(torch.bfloat16) for t in (q, k, v)), bias, scale),
+                       (b, h, n, dh, g, frames)))
+    return worst, shapes
+
+
+def phase_stream_kernel():
+    """bias_attention_fwd vs reference_bias_attention at the three stage
+    shapes of the causal flagship (left context STREAM_LEFT) on a serving
+    window (history 64, chunk 16, lookahead 4: 88 output frames) at
+    STREAM_SLOTS rows (check_bias_window); then each shape timed in bf16
+    from CUDA graphs beside the plain version, SDPA with the bias as its
+    mask and the bound, as [lm-kernel-time]. Returns the largest fp32
+    error and the summed times."""
+    from efficientconformer_torch import streaming as S
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    p = load_config(CONFIG)["encoder_params"]
+    geo = S.WindowGeometry(p, **SERVE_GEOMETRY)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    worst, shapes = check_bias_window("stream-kernel", p, geo.window_frames, STREAM_SLOTS,
+                                      STREAM_LEFT, 0, gen)
+    totals = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+    flops = nbytes = 0.0
+    for (q16, k16, v16, bias, scale), (b, h, n, dh, g, frames) in shapes:
+        mask16 = bias.to(torch.bfloat16)
+        row = {"kernel": graph_ms(lambda: BA.bias_attention_fwd(q16, k16, v16, bias, scale)),
+               "plain": graph_ms(lambda: BA.reference_bias_attention(q16, k16, v16, bias, scale)),
+               "library": graph_ms(lambda: F.scaled_dot_product_attention(
+                   q16, k16, v16, attn_mask=mask16, scale=scale))}
+        cost = bias_cost(b, h, n, n, dh, dh, 2, False)
+        row["bound"], bound_by = bound(*cost)
+        flops, nbytes = flops + cost[0], nbytes + cost[1]
+        for key in totals:
+            totals[key] += row[key]
+        say("stream-kernel-time", B=b, H=h, N=n, dh=dh, G=g, stage_frames=frames,
+            bound_by=bound_by, library="sdpa fwd, bias as mask",
+            **{f"{k}_ms": f"{v:.4f}" for k, v in row.items()})
+    totals["bound"], totals["bound_by"] = bound(flops, nbytes)
+    return worst, totals
+
+
+def ctc_model(enc_params, dtype):
+    """A CTC model over ``enc_params`` at the flagship's vocabulary, on the
+    card, weights from SEED as make_model."""
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.models.model_ctc import ModelCTC, init_params_
+
+    p = dict(enc_params)
+    if dtype != torch.float32:
+        p["compute_dtype"] = str(dtype).removeprefix("torch.")
+    model = ModelCTC(p, load_config(CONFIG)["tokenizer_params"]["vocab_size"])
+    init_params_(model, torch.Generator().manual_seed(SEED))
+    return perturb_norms_(model.to("cuda").eval())
+
+
+def phase_stream_exact():
+    """The flagship made causal (left context STREAM_EXACT_LEFT), and made
+    limited-context (left STREAM_EXACT_LEFT, right 2) at the suggested
+    lookahead, streamed in fp32 through StreamingEncoderSession at the
+    suggested history over two ragged rows: the streamed logits equal the
+    batch forward on the zero-padded utterance on every valid frame within
+    STREAM_TOL (tests/test_streaming_runtime.py:55, :233), but for the
+    limited encoder's last suggested-lookahead frames, whose difference is
+    printed on its own (see below). Every attention layer takes the bias
+    kernel, which is first held to its plain version at each session's
+    window shapes (check_bias_window, two rows). Returns the bias and the
+    rel-pos launches of the two sessions and the largest fp32 kernel
+    error."""
+    from efficientconformer_torch import streaming as S
+    from efficientconformer_torch.config import encoder_output_frames, load_config
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    base = load_config(CONFIG)["encoder_params"]
+    rng = np.random.default_rng(SEED + 21)
+    gen = torch.Generator().manual_seed(SEED + 24)
+    launches = rel_launches = 0
+    worst = 0.0
+    for name, p, seconds in (
+            ("causal", dict(base, causal=True, left_context=STREAM_EXACT_LEFT), (30.0, 24.0)),
+            ("limited", dict(base, left_context=STREAM_EXACT_LEFT, right_context=2),
+             (40.0, 36.0))):
+        model = ctc_model(p, torch.float32)
+        causal = bool(p.get("causal"))
+        look = 2 if causal else S.suggested_lookahead_frames(p)
+        sess = S.StreamingEncoderSession(model, p, batch_size=2, chunk_frames=16,
+                                         lookahead_frames=look, device="cuda")
+        err, _ = check_bias_window("stream-exact-kernel", p, sess.window_frames, 2,
+                                   p["left_context"], 0 if causal else p["right_context"], gen)
+        worst = max(worst, err)
+        n = [int(s * SAMPLE_RATE) for s in seconds]
+        audio = (rng.standard_normal((2, n[0])) * 0.1).astype(np.float32)
+        audio[1, n[1]:] = 0.0
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ems, pos = [], 0
+        for bite in itertools.cycle((0.7, 1.9, 0.4)):
+            step = int(bite * SAMPLE_RATE)
+            ems += sess.push(audio[:, pos:pos + step])
+            pos += step
+            if pos >= n[0]:
+                break
+        ems += sess.finish(np.array(n))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got_launches, rel = BA.bias_attention.launches, rel_counts()[0]
+        launches, rel_launches = launches + got_launches, rel_launches + rel
+        check(got_launches == len(model.encoder.blocks) * len(ems) and rel == 0,
+              f"{name}: {got_launches} bias / {rel} rel-pos launches for {len(ems)} windows")
+        got = np.concatenate([em.valid for em in ems], axis=1)
+        padded = np.concatenate([audio, np.zeros((2, sess.window_samples), np.float32)], 1)
+        with torch.inference_mode():
+            want, _ = model(torch.from_numpy(padded).cuda(), torch.tensor(n, device="cuda"))
+        want = want.float().cpu().numpy()
+        # the limited encoder's last `look` frames: past a row's length
+        # plus the left context, query rows are fully masked and average V
+        # over every key of the row, the padding included, and the
+        # non-causal convs carry that into these frames; the batch forward
+        # pads otherwise than a window, so here streamed and batch differ in
+        # the JAX package too, by as much
+        # (tests/test_torch_port_streaming.py::test_finite_context_tail_matches_jax):
+        # held apart, not to the padded batch forward
+        tail = 0 if causal else look
+        errs, tail_errs, tail_over = [], [0.0], 0
+        for i in range(2):
+            cap = encoder_output_frames(p, n[i])
+            check(got.shape[1] >= cap, f"{name}: {got.shape[1]} frames emitted, {cap} expected")
+            errs.append(float(np.abs(got[i, :cap - tail] - want[i, :cap - tail]).max()))
+            if tail:
+                d = np.abs(got[i, cap - tail:cap] - want[i, cap - tail:cap]).max(-1)
+                tail_errs.append(float(d.max()))
+                tail_over += int((d > STREAM_TOL).sum())
+        agree = float(np.mean([(got[i, :c].argmax(-1) == want[i, :c].argmax(-1)).mean()
+                               for i, c in enumerate(encoder_output_frames(p, m) for m in n)]))
+        check(max(errs) <= STREAM_TOL, f"{name}: streamed vs batch |diff| {errs} > {STREAM_TOL}")
+        say("stream-exact", config=name, left_context=p["left_context"],
+            right_context=0 if causal else p["right_context"], seconds=list(seconds),
+            history=sess.history_frames, chunk=sess.chunk_frames, lookahead=look,
+            window_frames=sess.window_frames, windows=len(ems), dtype="float32",
+            max_abs_diff=f"{max(errs):.3g}", tol=STREAM_TOL, tail_frames=tail,
+            tail_max_abs_diff=f"{max(tail_errs):.3g}", tail_frames_over_tol=tail_over,
+            argmax_agreement=f"{agree:.6f}", bias_launches=got_launches, wall_s=f"{wall:.2f}")
+    return launches, rel_launches, worst
+
+
+def recorded_session(encode, params):
+    """A batch-1 StreamingEncoderSession at SERVE_GEOMETRY whose
+    ``emitted_frames()`` gives the frames it emitted, in order."""
+    from efficientconformer_torch import streaming as S
+
+    sess = S.StreamingEncoderSession(encode, params, device="cuda", **SERVE_GEOMETRY)
+    log, push, finish = [], sess.push, sess.finish
+
+    def push_(samples):
+        out = push(samples)
+        log.extend(out)
+        return out
+
+    def finish_(x_len=None):
+        out = finish(x_len)
+        log.extend(out)
+        return out
+
+    sess.push, sess.finish = push_, finish_
+    sess.emitted_frames = lambda: torch.cat([em.frames[0, em.first:em.last] for em in log])
+    return sess
+
+
+def recording(decoder, outputs):
+    """``decoder`` (a server decoder) that also keeps, for each window step,
+    which stream each row held and the frames it emitted; ``outputs`` is the
+    list the server's encode function appends each step's frames to. Its
+    ``emitted_frames(sid)`` is the stream's emitted frames, in order."""
+    consume, bind = decoder.consume, decoder.bind
+    log = []
+
+    def bind_(server):
+        decoder.server = server
+        bind(server)
+
+    def consume_(step_out, metas):
+        log.append([(decoder.server._slots[i].stream_id, i, f, l) for i, f, l in metas])
+        consume(step_out, metas)
+
+    def emitted_frames(sid):
+        return torch.cat([outputs[step][i, f:l] for step, metas in enumerate(log)
+                          for s, i, f, l in metas if s == sid])
+
+    decoder.bind, decoder.consume, decoder.emitted_frames = bind_, consume_, emitted_frames
+    return decoder
+
+
+def serve_schedule(srv, audios, rng):
+    """The staggered schedule of tests/test_serving.py:39 at serving scale:
+    four streams submitted at once, one more every other tick; each open
+    stream pushed a bite of 0.3-2 s a tick and ended once pushed whole.
+    Returns the results by stream and the ticks run."""
+    pos = {}
+    queue = list(range(len(audios)))
+    ticks = 0
+    while len(srv._results) < len(audios):
+        if queue and (ticks == 0 or ticks % 2 == 1):
+            for _ in range(4 if ticks == 0 else 1):
+                if queue:
+                    i = queue.pop(0)
+                    srv.submit(f"s{i}")
+                    pos[i] = 0
+        for i, at in list(pos.items()):
+            if at is None:
+                continue
+            step = int(rng.uniform(0.3, 2.0) * SAMPLE_RATE)
+            srv.push(f"s{i}", audios[i][at:at + step])
+            pos[i] = at + step
+            if pos[i] >= audios[i].size:
+                srv.end(f"s{i}")
+                pos[i] = None
+        srv.tick()
+        ticks += 1
+        check(ticks < 10_000, "the serving schedule did not finish")
+    return {sid: list(toks) for sid, toks in srv._results.items()}, ticks
+
+
+def near_ties(got, want):
+    """Frames where the argmax of two logit rows (frames, V) differ."""
+    return int((got.argmax(-1) != want.argmax(-1)).sum())
+
+
+def phase_serve_slice(card_line):
+    """StreamingServer over the full-context flagship (CTC) and Transducer
+    Small, bf16, history 64, chunk 16, lookahead 4: SERVE_STREAMS streams of
+    SERVE_SECONDS through SERVE_SLOTS slots on serve_schedule. First the
+    rel-pos forward kernel is held to its plain version at the window's
+    stage shapes over SERVE_SLOTS and RATE_SLOTS rows (check_forward). Each
+    stream's frames (the CTC logits, the Transducer's encoder frames) must
+    lie within SERVE_FRAME_TOL of the port's single-stream StreamingCTC /
+    StreamingTransducer on the same card and weights, so a CTC frame whose
+    argmax differs is a tie within twice the tolerance; the streams whose
+    tokens differ and those CTC frames are counted. The server's launches
+    are counted: rel-pos all on the tensor-core route, bias none. Returns
+    (rel-pos, bias) launches and the largest fp32 and bf16 kernel errors."""
+    from efficientconformer_torch import serving as SV
+    from efficientconformer_torch import streaming as S
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    rng = np.random.default_rng(SEED + 22)
+    seconds = np.linspace(*SERVE_SECONDS, SERVE_STREAMS)
+    rng.shuffle(seconds)
+    audios = [(rng.standard_normal(int(s * SAMPLE_RATE)) * 0.1).astype(np.float32)
+              for s in seconds]
+    gen = torch.Generator().manual_seed(SEED + 25)
+    launches = bias_launches = 0
+    errs = (0.0, 0.0)
+    for kind in ("ctc", "transducer"):
+        model = (make_model if kind == "ctc" else make_transducer)("cuda", torch.bfloat16)
+        encode = model if kind == "ctc" else model.encode
+        params = load_config(CONFIG if kind == "ctc" else T_CONFIG)["encoder_params"]
+        window_s = S.WindowGeometry(params, **SERVE_GEOMETRY).window_samples / SAMPLE_RATE
+        for rows in (SERVE_SLOTS, RATE_SLOTS):
+            got_errs = check_forward(f"serve-kernel-{kind}", params, window_s, gen, rows)
+            errs = tuple(map(max, errs, got_errs))
+        outputs = []
+
+        def recorded_encode(a, n):
+            out = encode(a, n)
+            outputs.append(out[0])
+            return out
+
+        decoder = recording(SV.CTCGreedyDecoder() if kind == "ctc" else
+                            SV.TransducerGreedyDecoder(model), outputs)
+        srv = SV.StreamingServer(recorded_encode, params, num_slots=SERVE_SLOTS,
+                                 decoder=decoder, device="cuda", **SERVE_GEOMETRY)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got, ticks = serve_schedule(srv, audios, np.random.default_rng(SEED + 23))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rel, rel_tc = rel_counts()[:2]
+        bias = BA.bias_attention.launches
+        launches, bias_launches = launches + rel, bias_launches + bias
+        check(rel > 0 and rel_tc == rel and bias == 0, f"serve-slice {kind}: rel-pos "
+              f"launches {rel}, {rel_tc} on the tensor cores, bias launches {bias}")
+        differ = ties = 0
+        worst = peak = 0.0
+        for i, a in enumerate(audios):
+            sess = recorded_session(encode, params)
+            if kind == "ctc":
+                oracle = S.StreamingCTC(sess)
+                oracle.push(a[None])
+                want = [int(t) for t in oracle.finish(np.array([a.size]))[0]]
+            else:
+                oracle = S.StreamingTransducer(model, sess)
+                oracle.push(a[None])
+                toks, cnt = oracle.finish(np.array([a.size]))
+                want = toks[0, :int(cnt[0])].tolist()
+            mine, theirs = decoder.emitted_frames(f"s{i}"), sess.emitted_frames()
+            check(mine.shape == theirs.shape, f"serve-slice {kind} s{i}: frames "
+                  f"{tuple(mine.shape)} vs {tuple(theirs.shape)}")
+            diff = (mine.float() - theirs.float()).abs().max().item()
+            check(diff <= SERVE_FRAME_TOL[kind], f"serve-slice {kind} s{i}: server vs "
+                  f"session |frames| {diff} > {SERVE_FRAME_TOL[kind]}")
+            worst, peak = max(worst, diff), max(peak, theirs.float().abs().max().item())
+            differ += got[f"s{i}"] != want
+            if kind == "ctc":
+                ties += near_ties(mine, theirs)
+        say("serve-slice", decoder=kind, streams=len(audios), slots=SERVE_SLOTS,
+            seconds=f"{SERVE_SECONDS[0]}-{SERVE_SECONDS[1]}", ticks=ticks, windows=len(outputs),
+            tokens=sum(map(len, got.values())), max_frame_diff=f"{worst:.3g}",
+            tol=SERVE_FRAME_TOL[kind], frame_max=f"{peak:.3g}", streams_differing=differ,
+            near_tie_frames=ties if kind == "ctc" else "n/a", rel_launches=rel,
+            tc_launches=rel_tc, bias_launches=bias, wall_s=f"{wall:.2f}",
+            card=f"'{card_line}'")
+    return launches, bias_launches, errs
+
+
+def serve_rate_run(kind, model, params, max_windows):
+    """serving_bench.py's workload: RATE_STREAMS streams of RATE_SECONDS,
+    all submitted and pushed whole up front, admitted as slots free, run to
+    the end once as a warm-up, then RATE_PASSES times more, each pass timed
+    whole; then one pass in torch's sync debug mode and one profiled.
+    Returns (tick seconds of the timed passes, each timed pass's wall
+    seconds, syncs a tick, device ms of the profiled pass)."""
+    from efficientconformer_torch import serving as SV
+
+    if kind == "ctc":
+        decoder = None
+        encode = lambda a, n: model(a, n)[0].argmax(-1)     # noqa: E731, ids as serving_bench
+    else:
+        decoder, encode = SV.TransducerGreedyDecoder(model), model.encode
+    srv = SV.StreamingServer(encode, params, num_slots=RATE_SLOTS, decoder=decoder,
+                             max_windows_per_tick=max_windows, device="cuda", **SERVE_GEOMETRY)
+    n = int(RATE_SECONDS * SAMPLE_RATE)
+    audio = (np.random.default_rng(SEED).standard_normal(n) * 0.1).astype(np.float32)
+    passes = iter(range(RATE_PASSES + 3))
+
+    def one_pass():
+        k = next(passes)
+        for i in range(RATE_STREAMS):
+            srv.submit(f"p{k}s{i}")
+            srv.push(f"p{k}s{i}", audio)
+            srv.end(f"p{k}s{i}", n)
+        lat = []
+        t0 = time.perf_counter()
+        while srv.active_streams or srv.queued_streams:
+            t1 = time.perf_counter()
+            srv.tick()
+            lat.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        check(len(srv._results) == (k + 1) * RATE_STREAMS, f"serve-rate pass {k} lost a stream")
+        return lat, time.perf_counter() - t0
+
+    one_pass()
+    lat, walls = [], []
+    for _ in range(RATE_PASSES):
+        got, wall = one_pass()
+        lat += got
+        walls.append(wall)
+    with count_syncs() as syncs:
+        ticks = len(one_pass()[0])
+    # the card's activity only: the device time is all this reads
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        one_pass()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+    check(busy > 0, "serve-rate: the profiler saw no device time")
+    return lat, walls, syncs["n"] / ticks, busy
+
+
+def phase_serve_rate(card_line):
+    """serving_bench.py's defaults (flagship, bf16, 32 slots, chunk 16,
+    history 64, lookahead 4, 96 streams of 10 s) for both decoders (the
+    Transducer on Transducer Small), max_windows_per_tick None and 2
+    (serve_rate_run): the audio-s/s of each timed pass (median, min, max),
+    tick p50/p95 over all their ticks, host syncs a tick, and the device
+    time of a pass over the timed passes' median wall: the busy share.
+    Returns the rel-pos and the bias launches of each run, by decoder and
+    cap."""
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    launches = {}
+    for kind in ("ctc", "transducer"):
+        model = (make_model if kind == "ctc" else make_transducer)("cuda", torch.bfloat16)
+        params = load_config(CONFIG if kind == "ctc" else T_CONFIG)["encoder_params"]
+        for cap in (None, 2):
+            reset_launch_counts()
+            lat, walls, syncs, busy = serve_rate_run(kind, model, params, cap)
+            rel, rel_tc = rel_counts()[:2]
+            bias = BA.bias_attention.launches
+            launches[f"{kind}-{cap}"] = rel, bias
+            check(rel > 0 and rel_tc == rel and bias == 0, f"serve-rate {kind} cap {cap}: "
+                  f"rel-pos launches {rel}, {rel_tc} on the tensor cores, bias launches {bias}")
+            rates = RATE_STREAMS * RATE_SECONDS / np.array(walls)
+            wall_ms = float(np.median(walls)) * 1e3
+            ms = np.array(lat) * 1e3
+            say("serve-rate", decoder=kind, max_windows_per_tick=cap, slots=RATE_SLOTS,
+                streams=RATE_STREAMS, seconds=RATE_SECONDS, timed_passes=len(walls),
+                timed_ticks=len(lat), audio_s_per_s=f"{np.median(rates):.1f}",
+                audio_s_per_s_min=f"{rates.min():.1f}", audio_s_per_s_max=f"{rates.max():.1f}",
+                tick_p50_ms=f"{np.percentile(ms, 50):.2f}",
+                tick_p95_ms=f"{np.percentile(ms, 95):.2f}", syncs_per_tick=f"{syncs:.2f}",
+                device_ms_per_pass=f"{busy:.1f}", wall_ms_per_pass=f"{wall_ms:.1f}",
+                idle_share=f"{1 - busy / wall_ms:.3f}", rel_launches=rel, bias_launches=bias,
+                card=f"'{card_line}'")
+    return ({key: rel for key, (rel, _) in launches.items()},
+            {key: bias for key, (_, bias) in launches.items()})
+
+
 def phase_cli_beam(tmp, ngram_paths):
     """test-clean without --gready through the CLI, each with the synthetic
     6-gram at the redirected ngram_path: CTC Small (-i 2 of [cli-train])
@@ -2665,6 +3220,11 @@ def main() -> int:
     arpa256, arpa256_path = phase_ngram_device()
     ctc_beam_launches, _ = phase_ctc_beam(card_line, arpa256, arpa256_path)
     t_beam_launches, _ = phase_t_beam(card_line)
+    err_stream, times_stream = phase_stream_kernel()
+    stream_launches, stream_rel, err_stream_exact = phase_stream_exact()
+    serve_rel, serve_bias, (err_serve, err16_serve) = phase_serve_slice(card_line)
+    rate_rel, rate_bias = phase_serve_rate(card_line)
+    check(stream_launches > 0 and serve_rel > 0, "the streaming paths missed a kernel")
     cli = phase_cli(card_line, train_rate_ms, {256: arpa256_path, 1000: synth_ngram(1000)})
     cli_launches = {RA.KERNEL: cli[0], RA.KERNEL_BWD: cli[2], RL.KERNEL_FWD: cli[4],
                     RL.KERNEL_BWD: cli[5], BA.KERNEL: cli[6], BA.KERNEL_BWD: cli[8]}
@@ -2688,9 +3248,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry(RA.KERNEL, "efficientconformer_torch/csrc/rel_attention_fwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:122", launches,
-              max(max_err, t_err), times, bf16_max_err=max(err16, t_err16),
+              max(max_err, t_err, err_serve), times,
+              bf16_max_err=max(err16, t_err16, err16_serve),
               tc_launches=fwd_tc, graph_ms=times["kernel"], eager_ms=times["kernel_call"],
-              beam_launches={"ctc-beam": ctc_beam_launches, "t-beam": t_beam_launches}),
+              beam_launches={"ctc-beam": ctc_beam_launches, "t-beam": t_beam_launches},
+              serve_launches={"stream-exact": stream_rel, "serve-slice": serve_rel,
+                              "serve-rate": sum(rate_rel.values())}),
         entry(RA.KERNEL_BWD, "efficientconformer_torch/csrc/rel_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:139", launches_bwd,
               max(max_err_bwd, t_err_bwd), times_bwd,
@@ -2702,7 +3265,12 @@ def main() -> int:
               "efficientconformer_tpu/ops/pallas_rnnt.py:96", rnnt_bwd, err_rnnt_bwd,
               times_rnnt_bwd),
         entry(BA.KERNEL, "efficientconformer_torch/csrc/bias_attention_fwd.cu",
-              "efficientconformer_tpu/ops/pallas_attention.py:55", lm_fwd, err_bias, times_bias),
+              "efficientconformer_tpu/ops/pallas_attention.py:55", lm_fwd,
+              max(err_bias, err_stream, err_stream_exact), times_bias,
+              serve_launches={"stream-exact": stream_launches, "serve-slice": serve_bias,
+                              "serve-rate": sum(rate_bias.values())},
+              stream_kernel_ms=times_stream["kernel"], stream_plain_ms=times_stream["plain"],
+              stream_bound_ms=times_stream["bound"], stream_library_ms=times_stream["library"]),
         entry(BA.KERNEL_BWD, "efficientconformer_torch/csrc/bias_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_attention.py:412", lm_bwd, err_bias_bwd,
               times_bias_bwd),

@@ -1,23 +1,31 @@
 """Multi-head self-attention: the relative-position branches.
 
 Counterpart of efficientconformer_tpu/models/attentions.py. The port has the
-branches the shipped configs take:
+branches the shipped configs, their causal and limited-context variants and
+the LM-Transformer take:
   * non-causal rel-pos attention with a key-only mask, either grouped with
     an odd group size G (efficientconformer_tpu/models/attentions.py:249-349)
     or plain (:448-519), every attention layer of the Efficient Conformer
-    encoders. Both call the fused rel-pos attention (ops/rel_attention.py),
-    a CUDA kernel in each direction on the card; its autograd Function
-    carries the gradients back to the query, key, value and pos projections
-    and to u and v (through delta = v - u and the folded weights W, whose
-    gather scatters dW back onto pos_layer.weight);
-  * causal plain rel-pos attention with any mask (:504-519), the
-    LM-Transformer's: the Transformer-XL skewing path. The rel-pos scores
-    qv . e over the causal window are skewed to absolute key positions
-    (ops/attention.rel_to_abs_causal), scaled and added to the mask, and the
-    resulting (B, H, T, T) bias goes to the bias attention
-    (ops/bias_attention.py), a CUDA kernel in each direction on the card,
-    which returns the bias's gradient to the skewing path;
-  * the same causal layer's one-token ``step`` on a fixed-capacity KV cache
+    encoders at full context. Both call the fused rel-pos attention
+    (ops/rel_attention.py), a CUDA kernel in each direction on the card; its
+    autograd Function carries the gradients back to the query, key, value
+    and pos projections and to u and v (through delta = v - u and the folded
+    weights W, whose gather scatters dW back onto pos_layer.weight). The JAX
+    package factorizes exactly these cases (``_factorize_on``, :80-90);
+  * every other rel-pos case with odd G, the Transformer-XL skewing path:
+    causal layers (a causal encoder, the LM-Transformer) and layers under a
+    full (T, T) mask (limited left/right context, streaming), grouped
+    (:332-348) or plain (:504-518). The rel-pos scores qv . e over the
+    relative window (grouped: the grouped window, folded G-fold into the head
+    dim) are skewed to absolute key positions (ops/attention.rel_to_abs_causal
+    or rel_to_abs_full), scaled and added to the mask (grouped: one entry
+    per group, ``mask[::G, ::G]``), and the resulting (B, H, Nq, Nk) bias goes
+    to the bias attention (ops/bias_attention.py), a CUDA kernel in each
+    direction on the card, which returns the bias's gradient to the skewing
+    path. Under a finite left context the query rows past a row's length
+    plus the left context see no valid key: such a row averages V over all
+    its keys, as the JAX package's does;
+  * the causal plain layer's one-token ``step`` on a fixed-capacity KV cache
     with per-row write positions (:177-227), which the beam searches drive
     through the LM-Transformer: plain PyTorch, as the JAX package computes
     it outside any Pallas kernel. The growing cache (:448-459), which only
@@ -56,9 +64,9 @@ class MultiHeadSelfAttention(nn.Module):
         if linear_att or kernel_size is not None or stride > 1:
             raise NotImplementedError(
                 "local, strided and linear attention: ROADMAP Queue 1 item 15")
-        if group_size % 2 == 0 or (causal and group_size > 1):
+        if group_size % 2 == 0:
             raise NotImplementedError(
-                "grouped attention with even G or causal: ROADMAP Queue 1 item 15")
+                "grouped attention with even G: ROADMAP Queue 1 item 15")
         self.dim_model, self.num_heads, self.group_size = dim_model, num_heads, group_size
         self.causal = causal
         self.query_layer = Linear(dim_model, dim_model)
@@ -79,13 +87,11 @@ class MultiHeadSelfAttention(nn.Module):
             self.v.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B, T, D); mask (B or 1, 1, 1, T) with 1.0 at padded keys, or
-        None; a causal layer also takes a full (B or 1, 1, T, T) mask."""
-        if self.causal:
-            return self._causal(x, mask)
-        if mask is not None and mask.shape[-2] != 1:
-            raise NotImplementedError(
-                "full (T, T) attention masks (streaming): ROADMAP Queue 1 item 12")
+        """x (B, T, D); mask (B or 1, 1, 1, T) with 1.0 at padded keys, a
+        full (B or 1, 1, T, T) mask with 1.0 where query i may not see key
+        j, or None."""
+        if self.causal or (mask is not None and mask.shape[-2] != 1):
+            return self._skewed(x, mask)
         d, h, g = self.dim_model, self.num_heads, self.group_size
         t_in = x.shape[1]
         q = self.query_layer(x)
@@ -126,27 +132,49 @@ class MultiHeadSelfAttention(nn.Module):
         # ungroup_time is merge_heads when G = 1
         return self.output_layer(A.ungroup_time(o, d)[:, :t_in])
 
-    def _causal(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """The Transformer-XL skewing path (attentions.py:448-459, 504-519):
-        qu = q + u attends to the keys under the bias rel_to_abs_causal(qv .
-        e) / sqrt(dh) + mask * NEG_INF, with qv = q + v and e the pos
-        projection of the causal relative window. In bf16 the rel scores are
-        bf16 and the mask fp32, so the bias is fp32, as in the JAX package."""
-        d, h = self.dim_model, self.num_heads
-        dh = d // h
-        t = x.shape[1]
+    def _skewed(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The Transformer-XL skewing path (attentions.py:332-348 grouped,
+        :504-518 plain): qu = q + u attends to the keys under the bias
+        rel_to_abs(qv . e) / sqrt(dh) + mask * NEG_INF, with qv = q + v and
+        e the pos projection of the relative window. In bf16 the rel scores
+        are bf16 and the mask fp32, so the bias is fp32; the JAX package's
+        ``_attend`` (:143) casts it to the scores' bf16, where the mask's
+        -1e9 swamps the rel scores of a masked key all the same."""
+        d, h, g = self.dim_model, self.num_heads, self.group_size
+        dh = g * d // h
+        if x.device.type != "cpu" and dh > BA.MAX_WIDTH:
+            raise NotImplementedError(
+                f"causal or limited-context attention at head width {dh}: the bias "
+                f"kernels take at most {BA.MAX_WIDTH} (ROADMAP Queue 2 items 3-5)")
+        t_in = x.shape[1]
         q = self.query_layer(x)
-        qu = A.split_heads(q + self.u.to(x.dtype), h)
-        qv = A.split_heads(q + self.v.to(x.dtype), h)
-        kh = A.split_heads(self.key_layer(x), h)
-        vh = A.split_heads(self.value_layer(x), h)
-        e = self.pos_layer(P.relative_encoding(t, d, causal=True, device=x.device).to(x.dtype))
-        rel = torch.einsum("bhqd,lhd->bhql", qv, e.reshape(t, h, dh))
-        bias = A.rel_to_abs_causal(rel) / math.sqrt(dh)
+        k = self.key_layer(x)
+        v = self.value_layer(x)
+        u, vb = self.u.to(x.dtype), self.v.to(x.dtype)
+        if g > 1:
+            q, _ = M.pad_to_multiple(q, g)
+            k, _ = M.pad_to_multiple(k, g)
+            v, _ = M.pad_to_multiple(v, g)
+            mask = M.pad_mask_to_multiple(mask, g)
+            if mask is not None:
+                mask = mask[:, :, ::g, ::g]
+            t = q.shape[1]
+            qu, qv = A.group_time(q + u, h, g), A.group_time(q + vb, h, g)
+            kh, vh = A.group_time(k, h, g), A.group_time(v, h, g)
+            window = P.grouped_relative_encoding(t, d, g, self.causal, x.device)
+        else:
+            qu, qv = A.split_heads(q + u, h), A.split_heads(q + vb, h)
+            kh, vh = A.split_heads(k, h), A.split_heads(v, h)
+            window = P.relative_encoding(t_in, d, self.causal, x.device)
+        e = self.pos_layer(window.to(x.dtype))
+        rel = torch.einsum("bhqd,lhd->bhql", qv, e.reshape(-1, h, dh))
+        skew = A.rel_to_abs_causal if self.causal else A.rel_to_abs_full
+        bias = skew(rel) / math.sqrt(dh)
         if mask is not None:
             bias = bias + mask * A.NEG_INF
         o, _ = BA.bias_attention(qu, kh, vh, bias, 1.0 / math.sqrt(dh))
-        return self.output_layer(A.merge_heads(o))
+        # ungroup_time is merge_heads when G = 1
+        return self.output_layer(A.ungroup_time(o, d)[:, :t_in])
 
     def step(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              at: "StepPositions") -> torch.Tensor:

@@ -38,7 +38,8 @@ class ConformerBlock(nn.Module):
             stride=c.att_stride, linear_att=c.linear_att,
         )
         self.convolution_module = ConvolutionModule(
-            c.dim_model, c.dim_expand, c.kernel_size, c.dropout, stride=c.conv_stride)
+            c.dim_model, c.dim_expand, c.kernel_size, c.dropout, stride=c.conv_stride,
+            causal=c.causal)
         if c.dim_model != c.dim_expand:
             self.conv_res = nn.Sequential(
                 Transpose(1, 2), Conv1d(c.dim_model, c.dim_expand, 1, stride=c.conv_stride),

@@ -3,11 +3,15 @@
 Counterpart of efficientconformer_tpu/models/encoders.py:ConformerEncoder:
 log-mel frontend (fp32) -> SpecAugment (training, fp32) -> optional cast to
 ``compute_dtype`` -> Conv2d subsampling -> key-padding mask -> linear
-projection -> dropout -> Conformer blocks. After a strided block the
-(B, 1, 1, T) mask is sliced ``[::s, ::s]`` and the lengths become
-(l-1)//s + 1. In training mode (``train()``) SpecAugment and dropout draw
-from the generator passed to ``forward`` and BatchNorm uses batch
-statistics; ``remat`` is not ported.
+projection -> dropout -> Conformer blocks. The mask is the (B, 1, 1, T)
+key-padding mask when the attention context (``left_context``,
+``right_context``, both ``max_pos_encoding`` by default; the right one 0 in
+a causal encoder) covers the T subsampled frames, and the (B, 1, T, T)
+window + padding mask (ops/masks.streaming_mask) otherwise
+(encoders.py:99-111). After a strided block the mask is sliced
+``[::s, ::s]`` and the lengths become (l-1)//s + 1. In training mode
+(``train()``) SpecAugment and dropout draw from the generator passed to
+``forward`` and BatchNorm uses batch statistics; ``remat`` is not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from efficientconformer_torch.models.modules import (
     Conv2dSubsampling,
     SpecAugment,
 )
-from efficientconformer_torch.ops.masks import padding_mask
+from efficientconformer_torch.ops.masks import padding_mask, streaming_mask
 
 
 class ConformerEncoder(nn.Module):
@@ -35,15 +39,14 @@ class ConformerEncoder(nn.Module):
         if p["subsampling_module"] != "Conv2d":
             raise NotImplementedError(
                 f"{p['subsampling_module']} subsampling: ROADMAP Queue 1 item 3")
-        if p.get("causal", False):
-            raise NotImplementedError("causal encoder: ROADMAP Queue 1 item 12")
         if p.get("remat"):
             raise NotImplementedError("remat (activation recomputation): ROADMAP Queue 1 item 8")
         blocks = resolve_block_configs(p)
         dtype = p.get("compute_dtype")
         self.compute_dtype = getattr(torch, dtype) if dtype else None
         self.left_context = p.get("left_context", p["max_pos_encoding"])
-        self.right_context = p.get("right_context", p["max_pos_encoding"])
+        self.right_context = 0 if p.get("causal", False) else p.get(
+            "right_context", p["max_pos_encoding"])
         self.preprocessing = AudioPreprocessing(
             p["sample_rate"], p["n_fft"], p["win_length_ms"], p["hop_length_ms"],
             p["n_mels"], p["normalize"], p["mean"], p["std"])
@@ -70,10 +73,10 @@ class ConformerEncoder(nn.Module):
             x = x.to(self.compute_dtype)
         x, x_len = self.subsampling_module(x, x_len)
         t = x.shape[1]
-        if self.left_context < t or self.right_context < t:
-            raise NotImplementedError(
-                "limited attention context (streaming mask): ROADMAP Queue 1 item 12")
-        mask = padding_mask(t, x_len)
+        if self.left_context >= t and self.right_context >= t:
+            mask = padding_mask(t, x_len)
+        else:
+            mask = streaming_mask(t, x_len, self.left_context, self.right_context, x.device)
         x = self.dropout(self.linear(x), generator)
         for block in self.blocks:
             x = block(x, mask, generator)

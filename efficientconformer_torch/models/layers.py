@@ -168,15 +168,21 @@ class LSTM(VariationalNoise, nn.LSTM):
 
 class Conv1d(nn.Conv1d):
     """Conv1d over (B, C, T) with symmetric 'same' padding (k-1)//2 unless
-    another padding is given."""
+    another padding is given: an int, or "causal", k-1 zeros on the left
+    and none on the right (layers.py:127-133), with any stride."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1, groups=1,
                  padding=None):
+        causal = padding == "causal"
+        if padding is None:
+            padding = (kernel_size - 1) // 2
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=(kernel_size - 1) // 2 if padding is None else padding,
-                         groups=groups)
+                         padding=0 if causal else padding, groups=groups)
+        self.causal = causal
 
     def forward(self, x):
+        if self.causal:
+            x = F.pad(x, (self.kernel_size[0] - 1, 0))
         return self._conv_forward(x, _cast(self.weight, x), _cast(self.bias, x))
 
 

@@ -146,17 +146,19 @@ class MultiHeadSelfAttentionModule(nn.Module):
 class ConvolutionModule(nn.Module):
     """LN -> pointwise(2E) -> GLU -> depthwise(k, stride) -> BN -> swish ->
     pointwise(E) -> drop. The first pointwise conv carries the width change
-    D -> E of an expand block, the depthwise conv the stage stride."""
+    D -> E of an expand block, the depthwise conv the stage stride; it pads
+    causally in a causal encoder (modules.py:313-346), "same" otherwise."""
 
     def __init__(self, dim_model: int, dim_expand: int, kernel_size: int, dropout: float,
-                 stride: int = 1):
+                 stride: int = 1, causal: bool = False):
         super().__init__()
         self.layers = nn.Sequential(
             LayerNorm(dim_model),
             Transpose(1, 2),
             Conv1d(dim_model, 2 * dim_expand, 1),
             Glu(dim=1),
-            Conv1d(dim_expand, dim_expand, kernel_size, stride=stride, groups=dim_expand),
+            Conv1d(dim_expand, dim_expand, kernel_size, stride=stride, groups=dim_expand,
+                   padding="causal" if causal else None),
             BatchNorm1d(dim_expand),
             Swish(),
             Conv1d(dim_expand, dim_expand, 1),

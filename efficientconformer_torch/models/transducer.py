@@ -13,6 +13,9 @@ one decoder state against all frames, blank runs skipped in one step) and
 condition is a host check per iteration here. ``encode``, ``decode_step``,
 ``joint_step`` and ``decoder_init_carry`` are the steps the beam search
 drives (decoding/rnnt_beam_device.py; transducer.py:60-81).
+``greedy_decode_stream`` runs either loop over a window of frames from a
+carried state (the streaming sessions and the server), and
+``reset_state_rows`` puts chosen rows of a state back to a template.
 """
 
 from __future__ import annotations
@@ -116,19 +119,60 @@ def decode_frames(model: Transducer, f: torch.Tensor, f_len: torch.Tensor, max_t
                   max_consec_dec_steps: int = 5, algo: str = "label"):
     """The greedy loop alone, over encoder frames f (B, T, De) with lengths
     f_len: (tokens (B, max_tokens), counts (B,))."""
+    state = greedy_decode_stream(model, f, f_len, None, max_tokens=max_tokens,
+                                 max_consec_dec_steps=max_consec_dec_steps, algo=algo)
+    return state[3][:, :max_tokens], state[4]
+
+
+@torch.inference_mode()
+def greedy_decode_stream(model: Transducer, f: torch.Tensor, f_len: torch.Tensor, state=None,
+                         *, f_start: Optional[torch.Tensor] = None, max_tokens: int,
+                         max_consec_dec_steps: int = 5, algo: str = "label"):
+    """Decode the frames f[b, f_start[b]:f_len[b]] of each row (f_start 0
+    by default) from a carried ``state`` (a fresh one when None) and return
+    the new state (transducer.py:154-190). Each row walks its frames in
+    order, so decoding an utterance window by window gives the tokens of
+    decoding it whole. The state is the tuple ``init_state`` builds: (g
+    (B, Dd), carry (h, c) each (L, B, Dd), consec (B,), tokens (B,
+    max_tokens + 1), the last column a spare that takes no token, n_tok
+    (B,)); the given state is left as it was."""
     if algo not in ("label", "frame"):
         raise ValueError(f"unknown greedy algo {algo!r}")
+    if state is None:
+        state = init_state(model, f.shape[0], max_tokens, f.device)
+    else:
+        # the loops write tokens in place
+        state = (*state[:3], state[3].clone(), state[4])
+    t = (torch.zeros(f.shape[0], dtype=torch.long, device=f.device) if f_start is None
+         else f_start.long().clone())
     loop = _label_loop if algo == "label" else _frame_loop
-    return loop(model, f, f_len.long(), max_tokens, max_consec_dec_steps)
+    return loop(model, f, f_len.long(), t, state, max_tokens, max_consec_dec_steps)
 
 
-def _init_state(model: Transducer, b: int, max_tokens: int, device):
+def init_state(model: Transducer, b: int, max_tokens: int, device):
+    """The greedy state of ``b`` rows before any frame (transducer.py
+    :125-131): the decoder stepped once on the blank."""
     carry = model.decoder.init_carry(b, device)
     g, carry = model.decoder.step(torch.zeros(b, dtype=torch.long, device=device), carry)
     zeros = torch.zeros(b, dtype=torch.long, device=device)
     # one spare column takes the writes of utterances that emit nothing
     tokens = torch.zeros((b, max_tokens + 1), dtype=torch.long, device=device)
     return g, carry, zeros.clone(), tokens, zeros.clone()
+
+
+def reset_state_rows(state, template, rows: torch.Tensor):
+    """``state`` with the rows where ``rows`` (B,) bool is true taken from
+    ``template`` (a state of as many rows): one ``torch.where`` per leaf
+    along its row axis, the carry's second (serving.py:161-177)."""
+    g, carry, consec, tokens, n_tok = state
+    tg, tcarry, tconsec, ttokens, tn = template
+
+    def pick(new, old, axis):
+        return torch.where(rows.view([-1 if i == axis else 1 for i in range(old.dim())]),
+                           new, old)
+
+    return (pick(tg, g, 0), tuple(pick(n, o, 1) for n, o in zip(tcarry, carry)),
+            pick(tconsec, consec, 0), pick(ttokens, tokens, 0), pick(tn, n_tok, 0))
 
 
 def _commit(model, emit, tok, state, max_tokens):
@@ -143,14 +187,14 @@ def _commit(model, emit, tok, state, max_tokens):
     return g, carry, tokens, n_tok + emit.long()
 
 
-def _label_loop(model, f, f_len, max_tokens, max_consec):
+def _label_loop(model, f, f_len, t, state, max_tokens, max_consec):
     """One iteration per emission (transducer.py:251-337): between two
     emissions the decoder state is constant, so the joint of that state
     against every frame is one (B, T, V) product, and the next emission is
-    at the first non-blank frame from t (from t + 1 once the cap is hit)."""
+    at the first non-blank frame from t (from t + 1 once the cap is hit).
+    Each iteration's loop condition is one host read."""
+    g, carry, consec, tokens, n_tok = state
     b, t_max = f.shape[:2]
-    g, carry, consec, tokens, n_tok = _init_state(model, b, max_tokens, f.device)
-    t = torch.zeros_like(n_tok)
     pf = model.joint_network.project_encoder(f)
     frames = torch.arange(t_max, device=f.device)[None, :]
     rows = torch.arange(b, device=f.device)
@@ -168,16 +212,15 @@ def _label_loop(model, f, f_len, max_tokens, max_consec):
                                           max_tokens)
         consec = torch.where(emit, torch.where(j == t, consec + 1, 1), 0)
         t = torch.where(emit, j, f_len)
-    return tokens[:, :max_tokens], n_tok
+    return g, carry, consec, tokens, n_tok
 
 
-def _frame_loop(model, f, f_len, max_tokens, max_consec):
+def _frame_loop(model, f, f_len, t, state, max_tokens, max_consec):
     """One iteration per frame advance or emission (transducer.py:192-248).
     The frames are projected once for all steps, as the label loop does,
     which is the same arithmetic as projecting each frame in its step."""
+    g, carry, consec, tokens, n_tok = state
     b, t_max = f.shape[:2]
-    g, carry, consec, tokens, n_tok = _init_state(model, b, max_tokens, f.device)
-    t = torch.zeros_like(n_tok)
     pf = model.joint_network.project_encoder(f)
     rows = torch.arange(b, device=f.device)
     while bool((t < f_len).any()):
@@ -189,4 +232,4 @@ def _frame_loop(model, f, f_len, max_tokens, max_consec):
                                           max_tokens)
         t = t + (active & ~emit).long()
         consec = torch.where(emit, consec + 1, 0)
-    return tokens[:, :max_tokens], n_tok
+    return g, carry, consec, tokens, n_tok

@@ -1,9 +1,9 @@
-"""Head and group layouts for attention, and the causal skewing.
+"""Head and group layouts for attention, and the rel-pos skewing.
 
-Counterpart of the layout helpers and ``rel_to_abs_causal`` of
-efficientconformer_tpu/ops/attention.py. The layout functions return views
-where the layout allows it; the attention kernels take strided (B, H, N, dh)
-inputs, so no copy is made on the way in.
+Counterpart of the layout helpers, ``rel_to_abs_causal`` and
+``rel_to_abs_full`` of efficientconformer_tpu/ops/attention.py. The layout
+functions return views where the layout allows it; the attention kernels
+take strided (B, H, N, dh) inputs, so no copy is made on the way in.
 """
 
 from __future__ import annotations
@@ -26,6 +26,18 @@ def rel_to_abs_causal(scores: torch.Tensor) -> torch.Tensor:
     s = F.pad(s, (l - t, 0))
     s = s.reshape(*lead, t + 1, l)
     return s[..., 1:, :]
+
+
+def rel_to_abs_full(scores: torch.Tensor) -> torch.Tensor:
+    """(..., T, Th + 2T - 1) scores indexed by relative position (column l
+    is offset T - 1 + Th - l, most distant past first) -> (..., T, Th + T)
+    indexed by absolute key position: pad, flatten, pad, reshape, slice."""
+    *lead, t, l = scores.shape
+    s = F.pad(scores, (0, 1))
+    s = s.reshape(*lead, t * (l + 1))
+    s = F.pad(s, (0, l - t))
+    s = s.reshape(*lead, t + 1, l)
+    return s[..., :t, t - 1:]
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:

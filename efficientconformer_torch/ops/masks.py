@@ -3,8 +3,8 @@
 Counterpart of efficientconformer_tpu/ops/masks.py. Masks are float tensors
 where 1.0 marks a masked (disallowed) position and 0.0 an attendable one;
 they are applied additively as ``scores + mask * NEG_INF``. The windowed
-mask serves the causal LM-Transformer; the encoder's attention still raises
-on a full (T, T) mask (streaming, ROADMAP Queue 1 item 12).
+mask serves the causal LM-Transformer and the causal and limited-context
+encoders.
 """
 
 from __future__ import annotations

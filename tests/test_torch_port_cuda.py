@@ -1,6 +1,7 @@
 """The port's CUDA kernels vs their plain PyTorch versions, on the card:
 the rel-pos attention forward and backward, the RNN-T lattice forward and
-backward, and the bias attention forward and backward. Then the training
+backward, and the bias attention forward and backward (also at the
+streaming encoders' shapes, with fully masked rows). Then the training
 runtime on the card: a checkpoint round trip and the loader's batches
 training the flagship. Then both device beams on the card against the CPU.
 
@@ -454,6 +455,74 @@ def test_bias_kernel_matches_plain_version(cuda, b, h, nq, nk, dqk, dv, layout):
     want16, _ = BA.reference_bias_attention(*[t.float() for t in a16], *args[3:])
     assert o16.dtype == torch.bfloat16
     torch.testing.assert_close(o16.float(), want16, rtol=0, atol=BF16_TOL)
+
+
+def streaming_bias(b, h, frames, g, left, right, lengths, gen):
+    """The bias a causal (right 0) or limited-context encoder layer hands
+    the kernel over ``frames`` stage frames: skewed rel-pos-like scores plus
+    its streaming mask, padded to a multiple of G with 1.0 and taken at each
+    group's first frame, times -1e9. Query rows past a row's length plus
+    the left context, and a padded query group, see no valid key."""
+    from efficientconformer_torch.ops import masks as M
+
+    mask = M.streaming_mask(frames, lengths, left, right)
+    mask = M.pad_mask_to_multiple(mask, g)[:, :, ::g, ::g]
+    n = mask.shape[-1]
+    return torch.randn(b, h, n, n, generator=gen) * 0.5 + mask * NEG_INF, mask
+
+
+STREAM_SHAPES = [   # EfficientConformerCTCSmall's stages on an 88-frame window
+    (352, 3, 90), (176, 1, 42), (88, 1, 60),   # (stage frames, G, head width)
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames,g,dh", STREAM_SHAPES)
+@pytest.mark.parametrize("right", [0, 2])
+def test_bias_kernel_at_streaming_shapes(cuda, frames, g, dh, right):
+    """The flagship's three stage shapes of a causal (right 0) and a
+    limited-context (right 2) window at left context 64, ragged lengths:
+    fp32 and bf16 O against the plain version, and on the fully masked rows
+    the mean of V over every key, as the JAX package's XLA route gives."""
+    b, h = 4, 4
+    gen = torch.Generator().manual_seed(frames + right)
+    lengths = torch.tensor([frames, frames // 2, frames // 5, 1])
+    bias, mask = streaming_bias(b, h, frames, g, 64, right, lengths, gen)
+    n = bias.shape[-1]
+    dead = (mask == 1.0).all(-1)[:, 0]                       # (B, N) fully masked rows
+    assert bool(dead.any())
+    q, k, v = (torch.randn(b, h, n, dh, generator=gen).to(cuda) for _ in range(3))
+    bias = bias.to(cuda)
+    scale = 1.0 / math.sqrt(dh)
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        args = [t.to(dtype) for t in (q, k, v)]
+        o, lse = BA.bias_attention(*args, bias, scale)
+        want_o, want_lse = BA.reference_bias_attention(*args, bias, scale)
+        torch.testing.assert_close(o.float(), want_o.float(), rtol=0, atol=tol)
+        if dtype == torch.float32:
+            torch.testing.assert_close(lse, want_lse, rtol=0, atol=FP32_TOL)
+        mean_v = args[2].float().mean(2, keepdim=True).expand(b, h, n, dh)
+        rows = dead.to(cuda)[:, None, :].expand(b, h, n)
+        torch.testing.assert_close(o.float()[rows], mean_v[rows], rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("context", [{"causal": True, "left_context": 64},
+                                     {"left_context": 64, "right_context": 8}])
+def test_wide_streaming_encoder_raises_on_the_card(cuda, context):
+    """EfficientConformer Medium's stage 1 (G 3 x 180 / 4 heads = head width
+    135), causal or limited-context, raises on the card with its ROADMAP
+    item: the bias kernels take widths up to 128, and nothing falls back."""
+    import json
+
+    from efficientconformer_torch.models.model_ctc import ModelCTC
+
+    with open("configs/EfficientConformerCTCMedium.json") as f:
+        cfg = json.load(f)
+    model = ModelCTC(dict(cfg["encoder_params"], **context), 256).to(cuda).eval()
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 items 3-5"):
+        with torch.no_grad():
+            model(torch.zeros(1, 16000, device=cuda), torch.tensor([16000], device=cuda))
 
 
 @pytest.mark.gpu

@@ -70,9 +70,10 @@ def test_weight_bridge_loads_into_a_fresh_model():
 
 def test_port_runs_without_jax(tmp_path):
     """Greedy decoding and one train step of the port, CTC and Transducer,
-    and both device beams with an n-gram (and the Transducer's with an
-    LM-Transformer) fused in, in a fresh process load no module of JAX,
-    flax or the JAX package."""
+    both device beams with an n-gram (and the Transducer's with an
+    LM-Transformer) fused in, and a causal encoder streamed through a
+    session and served through the slot-pool server, in a fresh process
+    load no module of JAX, flax or the JAX package."""
     code = textwrap.dedent(f"""
         import json, sys
         import torch
@@ -135,15 +136,47 @@ def test_port_runs_without_jax(tmp_path):
         rnnt = beam_search_device(tmodel.eval(), x, x_len, beam_size=4, max_tokens=cap,
                                   lm_model=lm.eval(), lm_weight=0.5, ngram=arpa,
                                   ngram_alpha=0.3, ngram_beta=1)
+        # streaming and serving a causal, limited-context encoder
+        from efficientconformer_torch import serving, streaming
+        cp = dict(p, causal=True, left_context=8)
+        causal = ModelCTC(cp, 16)
+        init_params_(causal, torch.Generator().manual_seed(0))
+        causal.eval()
+        session = streaming.StreamingCTC(streaming.StreamingEncoderSession(
+            causal, cp, chunk_frames=4, history_frames=8, device="cpu"))
+        session.push(torch.randn(1, 12000).numpy())
+        streamed = session.finish()
+        srv = serving.StreamingServer(causal, cp, num_slots=2, chunk_frames=4,
+                                      history_frames=8, device="cpu")
+        srv.submit("a"); srv.push("a", torch.randn(9000).numpy()); srv.end("a")
+        served = srv.drain()
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "jaxlib", "flax",
                                                        "efficientconformer_tpu")))
-        print("LOADED", loaded, tuple(tokens.shape), tuple(ttokens.shape), len(ctc), len(rnnt))
+        print("LOADED", loaded, tuple(tokens.shape), tuple(ttokens.shape), len(ctc), len(rnnt),
+              len(streamed), sorted(served))
     """)
     out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "lm3.arpa")], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "LOADED [] (2, 13) (2, 96) 2 2" in out.stdout, out.stdout
+    assert "LOADED [] (2, 13) (2, 96) 2 2 1 ['a']" in out.stdout, out.stdout
+
+
+def test_streaming_and_serving_need_a_card_or_the_cpu(monkeypatch):
+    """Without a card the session and the server raise rather than move to
+    the CPU; asked for the CPU, they run there."""
+    from efficientconformer_torch import serving, streaming
+
+    p = narrow_flagship()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        streaming.StreamingEncoderSession(None, p, history_frames=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.StreamingServer(None, p, history_frames=8)
+    sess = streaming.StreamingEncoderSession(None, p, history_frames=8, device="cpu")
+    srv = serving.StreamingServer(None, p, history_frames=8, device="cpu")
+    assert sess.device.type == srv.device.type == "cpu"
+    assert srv._buf.device.type == "cpu"
 
 
 def test_lm_runs_without_jax():

@@ -135,7 +135,7 @@ def test_attention_module_matches_jax(g, n):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=MODULE_TOL)
 
 
-@pytest.mark.parametrize("kwargs", [dict(relative_pos_enc=False), dict(causal=True, group_size=3),
+@pytest.mark.parametrize("kwargs", [dict(relative_pos_enc=False), dict(causal=True, group_size=2),
                                     dict(group_size=2), dict(kernel_size=4),
                                     dict(stride=2), dict(linear_att=True)])
 def test_unported_attention_variants_raise(kwargs):
@@ -145,9 +145,17 @@ def test_unported_attention_variants_raise(kwargs):
 
 
 def test_full_attention_mask_raises():
-    mod = port_mhsa(16, 2, 1, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mod(torch.zeros(1, 4, 16), torch.zeros(1, 1, 4, 4))
+    """A full (T, T) mask takes the skewing path to the bias attention,
+    whose kernels take head widths up to 128: off the CPU a wider layer
+    (EfficientConformer Medium/Large stage 1, 3 x 180 / 4 = 135) raises
+    with its ROADMAP item before any work, rather than falling back; on the
+    CPU the plain version takes it."""
+    mod = MultiHeadSelfAttention(180, 4, group_size=3, relative_pos_enc=True).eval()
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 items 3-5"):
+        mod(torch.zeros(1, 6, 180, device="meta"), torch.zeros(1, 1, 6, 6, device="meta"))
+    with torch.no_grad():
+        out = mod(torch.zeros(1, 6, 180), torch.zeros(1, 1, 6, 6))
+    assert out.shape == (1, 6, 180)
 
 
 # ------------------------------------------------------------------ backward
