@@ -10,7 +10,8 @@ Small.json (batched greedy Transducer decoding, the Transducer training
 step), configs/LM-Transformer.json (scoring: eval loss and perplexity;
 the LM training step), each with its config's own training_params, beam
 search with the configs' decoding_params (the CTC prefix beam with an
-n-gram, the Transducer beam with the LM-Transformer and an n-gram), and
+n-gram, the Transducer beam with the LM-Transformer and an n-gram, on the
+device and on the host, the latter on the growing KV cache), InterCTC, and
 streaming: sessions over the flagship made causal or limited-context, and
 the slot-pool server over both Smalls. Holds
 every hand-written kernel on those paths to its plain PyTorch version on
@@ -118,6 +119,26 @@ the card. Phases, one line each; any failure exits non-zero:
                 then 4 x 10 s with the bf16 encoder: ms a batch, audio-s/s,
                 fast and slow frames, pops, host reads, rel-pos launches
                 (15), peak memory
+ 27a. lm-step-kernel  the bias forward kernel vs its plain version at one
+                query row, the growing-cache LM step's shape (B 1 and 16, H
+                12, dh 64, Nk 1-1025 across the 64-key tile edges, past the
+                main path's longest cache), fp32 and bf16 (counted on the
+                tensor cores); [lm-step-kernel-time]: B
+                1, Nk 100, fp32 from CUDA graphs beside the plain version,
+                SDPA with the bias as its mask and the bound
+ 27b. growing-cache  LM-Transformer at full width, fp32: 40 tokens stepped on
+                the growing KV cache equal the fixed-capacity step, the
+                teacher-forced forward and the CPU's steps (<= 1e-4); 12
+                bias launches a step
+ 27c. t-host-beam  the host Transducer beams (ECF_HOST_BEAM=1): Transducer
+                Small with LM-Transformer through beam_search (the growing
+                cache) and with LM-RNN through beam_search_batched, the
+                6-gram over 1000 tokens, W 4, 2 utterances of 2 and 1.5 s:
+                card vs CPU and host vs device beam: tokens equal or scores
+                within 1e-4 (counted); then one 4 s utterance at W 16 with
+                LM-Transformer: ms a batch, pops, ms a pop, bias launches (12
+                a pop), rel-pos launches (15), the longest cache, and the
+                kernel vs its plain version at that cache length
  28. stream-kernel  the bias forward kernel vs its plain version at the three
                 stage shapes of the flagship made causal (left context 64)
                 on a serving window (history 64, chunk 16, lookahead 4: 88
@@ -181,9 +202,17 @@ the card. Phases, one line each; any failure exits non-zero:
                 the idle share of [cli-train]'s second epoch
       cli-test  test-clean -i 2 --gready: the WER line, predictions string
                 for string greedy_decode's over the same loader batches
+      import-ckpt  an original-style checkpoint of the flagship's seeded
+                weights and a pickled tokenizer through ``python -m
+                efficientconformer_torch.import_checkpoint --with-tokenizer``,
+                then test-clean -i 9 --gready: predictions those of the same
+                weights loaded in-process
       cli-swa   --swa --swa_epochs 1 2: parameters the checkpoints' mean
                 (<= 1e-6), BatchNorm statistics refreshed, no optimizer
       cli-eval-time  eval_time, eval_time_encoder
+      profiler  eval_time --profiler: the top-10 table of kernels by device
+                time names the rel-pos forward kernel; the trace under
+                callback_path/profile/
       cli-transducer  Transducer Small: its own tokenizer and manifests,
                 1 step (RNN-T 4 / 8 and rel-pos 60 / 60 launches) with
                 validation, test-clean --gready, eval_time_decoder
@@ -195,10 +224,20 @@ the card. Phases, one line each; any failure exits non-zero:
                 6-gram; each prints its Beam Search WER, and its predictions
                 equal the device beam's called directly on the same batches
 
+ 41. interctc-step  the flagship as InterCTC (taps after blocks 4 and 7): one
+                fp32 step through the kernels vs the plain versions and the
+                CPU; the config's bf16 step at 2 x 32 x 16 s: ms a step
+                beside [train-rate]'s, 30 / 30 rel-pos launches on the
+                tensor cores, device ms and host syncs a step beside the
+                CTC step's
+
 Then one JSON line with each kernel's launches, error, times and bound (the
 rel-pos entries also with their bf16 error, tensor-core launches and eager
 per-call ms, the forward's with ``beam_launches`` of [ctc-beam] and
-[t-beam]; the rel-pos and bias forward entries with ``serve_launches``
+[t-beam] and the rel-pos launches of [t-host-beam]; the rel-pos entries
+with ``interctc_launches`` of [interctc-step]'s bf16 step; the bias
+forward's with ``host_beam_launches`` of [t-host-beam] and [lm-step-kernel-
+time]'s times as ``step_*_ms``; the rel-pos and bias forward entries with ``serve_launches``
 of [stream-exact], [serve-slice] and [serve-rate], each counted from 0
 just before the phase's server or sessions run, the bias forward's with
 [stream-kernel-time]'s summed times as ``stream_*_ms``; every entry with
@@ -289,6 +328,16 @@ CTC_BEAM_BATCH = 32          # [ctc-beam]: 32 ragged utterances of up to 10 s
 T_BEAM_BATCH = 4             # [t-beam]: 4 x 10 s (the LM cache is 47.3 MB a hypothesis)
 T_BEAM_CHECK = (4.0, 3.0)    # [t-beam]'s card vs CPU check: 2 utterances, seconds
 BEAM_SCORE_TOL = 1e-4        # where two beams' tokens differ, their best scores must be this near
+# [lm-step-kernel]: Nk across the 64-key tile edges, past [t-host-beam]'s longest cache (~750)
+LM_STEP_KEYS = (1, 2, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257, 511, 512, 513, 767, 768,
+                769, 1023, 1024, 1025)
+LM_STEP_TIME_KEYS = 100      # its timed shape: one query row against 100 cached keys
+LM_CACHE_TOKENS = 40         # [growing-cache]: tokens stepped on the growing cache
+LM_RNN_CONFIG = "configs/LM-RNN.json"
+T_HOST_BEAM_CHECK = (2.0, 1.5)  # [t-host-beam]'s card vs CPU check: 2 utterances, seconds
+T_HOST_BEAM_W = 4            # its beam
+T_HOST_BEAM_SECONDS = 4.0    # its main path: one utterance at the config's beam
+INTERCTC_TAPS = (4, 7)       # [interctc-step]: the strided block 4 and block 7 of stage 2
 SERVE_GEOMETRY = {"chunk_frames": 16, "history_frames": 64, "lookahead_frames": 4}
                              # serving_bench.py's defaults: 66 / 18 / 4 after alignment, an
                              # 88-frame (7.03 s) window
@@ -2117,6 +2166,94 @@ def phase_cli_eval_time(cfg_path):
     say("cli-eval-time", **{k: f"{v:.2f}s" for k, v in times.items()})
 
 
+def phase_cli_profiler(cfg_path, cfg):
+    """eval_time with --profiler: the top-10 table of kernels by device time,
+    printed before the eval time, names the rel-pos forward kernel; the
+    trace lies under callback_path/profile/."""
+    out = run_cli("-c", cfg_path, "-m", "eval_time", "-i", 2, "--val_steps", 1, "--profiler")
+    head = re.search(r"profiler: top (\d+) kernels by device time \((.*)\):\n", out)
+    check(head is not None, "[profiler] no table")
+    table, rest = out[head.end():].split("\neval time : ")
+    rows = table.splitlines()[2:]
+    relpos = [row.split("  ")[0].strip() for row in rows if "relpos_fwd" in row]
+    check(len(rows) == int(head.group(1)) == 10, f"[profiler] {len(rows)} rows")
+    check(bool(relpos), f"[profiler] no rel-pos forward kernel among {rows}")
+    trace = os.path.join(head.group(2), "trace.json")
+    check(head.group(2) == os.path.join(cfg["training_params"]["callback_path"], "profile")
+          and os.path.getsize(trace) > 0, f"[profiler] trace {trace}")
+    say("profiler", mode="eval_time", rows=len(rows), relpos_rows=relpos,
+        top=f"'{rows[0][:60].strip()}'", trace_mib=f"{os.path.getsize(trace) / 2**20:.1f}",
+        eval_time=rest.split()[0])
+
+
+def phase_cli_import(tmp, cfg):
+    """An original-style checkpoint of the flagship's seeded weights (with
+    the frontend's torchaudio buffers the original saves and a pickled
+    sentencepiece processor of [cli-train]'s tokenizer) imported by
+    ``python -m efficientconformer_torch.import_checkpoint --with-tokenizer``
+    into a fresh callback path; then test-clean -i 9 --gready through the
+    CLI: its predictions those of the same weights loaded in-process."""
+    import subprocess
+
+    from efficientconformer_torch import runtime
+    from efficientconformer_torch.data.datasets import LibriSpeechDataset
+    from efficientconformer_torch.data.loader import AsrBatchLoader
+    from efficientconformer_torch.models.model_ctc import build_model, greedy_decode
+    from efficientconformer_torch.training.trainer import Trainer
+    from efficientconformer_torch.utils import spm_shim
+
+    weights = perturb_norms_(build_model(CONFIG, "cpu", torch.float32,
+                                         torch.Generator().manual_seed(SEED + 43))).state_dict()
+    p = cfg["encoder_params"]
+    win = p["sample_rate"] * p["win_length_ms"] // 1000
+    original = dict(weights)
+    original["encoder.preprocessing.Spectrogram.window"] = torch.hann_window(win)
+    original["encoder.preprocessing.MelScale.fb"] = torch.rand(p["n_fft"] // 2 + 1, p["n_mels"])
+    proc = spm_shim.install().SentencePieceProcessor(cfg["tokenizer_params"]["tokenizer_path"])
+    ckpt = os.path.join(tmp, "original.ckpt")
+    torch.save({"model_state_dict": original, "optimizer_state_dict": {}, "model_step": 4321,
+                "tokenizer": proc, "is_distributed": False}, ckpt)
+    imported = json.loads(json.dumps(cfg))
+    imported["tokenizer_params"]["tokenizer_path"] = os.path.join(tmp, "imported", "bpe.model")
+    imported["training_params"]["callback_path"] = os.path.join(tmp, "callbacks", "imported") + "/"
+    cfg_path = os.path.join(tmp, "imported.json")
+    with open(cfg_path, "w") as f:
+        json.dump(imported, f)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "efficientconformer_torch.import_checkpoint", "--config_file",
+         cfg_path, "--torch_ckpt", ckpt, "--out",
+         os.path.join(imported["training_params"]["callback_path"], "checkpoints_9.ckpt"),
+         "--with-tokenizer"], capture_output=True, text=True, timeout=600, check=False)
+    import_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"[import-ckpt] the importer failed:\n{res.stdout}{res.stderr}")
+    with open(imported["tokenizer_params"]["tokenizer_path"], "rb") as f:
+        check(f.read() == proc.serialized_model_proto(), "[import-ckpt] tokenizer bytes differ")
+    t0 = time.perf_counter()
+    out = run_cli("-c", cfg_path, "-m", "test-clean", "-i", 9, "--gready", "--verbose_val")
+    cli_s = time.perf_counter() - t0
+    printed = [ast.literal_eval(line) for line in re.findall(r"Predictions:\n (\[.*\])\n", out)]
+    got_wer = float(re.search(r"Greedy Search WER : ([\d.]+)%", out).group(1))
+
+    trainer = Trainer(imported, device="cuda")
+    trainer.model.load_state_dict(weights, strict=True)
+    tok = runtime.load_tokenizer(imported)
+    ds = LibriSpeechDataset(cfg["training_params"]["evaluation_dataset_path"], "test-clean",
+                            vocab_size=cfg["tokenizer_params"]["vocab_size"])
+    direct = []
+    for batch in AsrBatchLoader(ds, 8, shuffle=False, drop_last=False).epoch(0):
+        toks, n = greedy_decode(trainer.model.eval(), torch.from_numpy(batch["audio"][0]).cuda(),
+                                torch.from_numpy(batch["audio_len"][0]).cuda())
+        toks, n = toks.cpu().numpy(), n.cpu().numpy()
+        direct.append(tok.decode([toks[b, : n[b]].tolist() for b in range(len(n))]))
+    check(printed == direct, "[import-ckpt] the CLI's predictions differ from the in-process "
+          "model's")
+    say("import-ckpt", config="EfficientConformerCTCSmall", entries=len(original),
+        dropped=2, step=4321, import_s=f"{import_s:.2f}", cli_s=f"{cli_s:.2f}",
+        wer=f"{got_wer:.2f}", utterances=sum(map(len, direct)), predictions_equal=True,
+        importer=res.stdout.strip().splitlines()[0])
+
+
 def phase_cli_transducer(tmp, card_line):
     """Transducer Small through the CLI: its tokenizer (1000 pieces) and
     manifests, 1 epoch of 1 step with validation, greedy test-clean,
@@ -2434,7 +2571,244 @@ def phase_t_beam(card_line):
         carry_store_mib=stats["carry_store_bytes"] // 2 ** 20,
         peak_mib=torch.cuda.max_memory_allocated() // 2 ** 20,
         tokens_per_utt=f"{np.mean([len(t) for t in out]):.1f}", card=f"'{card_line}'")
-    return launches[0], batch_ms
+    return launches[0], batch_ms, arpa
+
+
+# ---------------------------------------------------------------- the host beams
+
+
+def lm_step_inputs(b, nk, gen):
+    """q (B, H, 1, dh), k and v (B, H, Nk, dh) as strided views of (B, N, H,
+    dh), a (B, H, 1, Nk) fp32 bias and the scale, at LM-Transformer's heads."""
+    p = lm_params()
+    h, dh = p["num_heads"], p["dim_model"] // p["num_heads"]
+
+    def heads(n):
+        return torch.randn(b, n, h, dh, generator=gen).cuda().transpose(1, 2)
+    bias = torch.randn(b, h, 1, nk, generator=gen).cuda()
+    return heads(1), heads(nk), heads(nk), bias, 1.0 / math.sqrt(dh)
+
+
+def check_lm_step_case(phase, b, nk, gen):
+    """The bias forward at one query row against Nk keys vs its fp32 plain
+    version, fp32 (the FMA kernel) and bf16 (the tensor-core kernel,
+    counted): the two largest errors, each held to its gate."""
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    q, k, v, bias, scale = lm_step_inputs(b, nk, gen)
+    reset_launch_counts()
+    o, lse = BA.bias_attention_fwd(q, k, v, bias, scale)
+    want_o, want_lse = BA.reference_bias_attention(q, k, v, bias, scale)
+    e32 = max((o - want_o).abs().max().item(), (lse - want_lse).abs().max().item())
+    q16, k16, v16 = (t.to(torch.bfloat16) for t in (q, k, v))
+    o16, _ = BA.bias_attention_fwd(q16, k16, v16, bias, scale)
+    want16, _ = BA.reference_bias_attention(q16, k16, v16, bias, scale)
+    e16 = (o16.float() - want16.float()).abs().max().item()
+    check(e32 <= KERNEL_FP32_TOL, f"[{phase}] B {b} Nk {nk} fp32: {e32}")
+    check(e16 <= KERNEL_BF16_TOL, f"[{phase}] B {b} Nk {nk} bf16: {e16}")
+    check(bias_launch_counts()[0] == 2 and bias_tc_counts()[0] == 1,
+          f"[{phase}] B {b} Nk {nk}: launches {bias_launch_counts()}, "
+          f"tensor-core {bias_tc_counts()}, expected the bf16 one on the tensor cores")
+    return e32, e16
+
+
+def phase_lm_step_kernel():
+    """The bias forward kernel at one query row, the growing-cache LM
+    step's shape (a (B, H, 1, Nk) bias of skewed rel-pos scores, no mask):
+    B 1 (the per-utterance host beam) and 16, H 12, dh 64, Nk across the
+    64-key tile edges up to past the longest cache of [t-host-beam]'s main
+    path, fp32 on the FMA kernel and bf16 on the tensor-core kernel
+    (counted), each vs the fp32 plain version on the same inputs. Then
+    timed at B 1, Nk 100 in fp32, the type the beam's LM step runs in, from
+    CUDA graphs beside the plain version, SDPA with the bias as its mask
+    and the byte bound."""
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    p = lm_params()
+    h, dh = p["num_heads"], p["dim_model"] // p["num_heads"]
+    gen = torch.Generator().manual_seed(SEED + 40)
+    err32 = err16 = 0.0
+    cases = 0
+    for b in (1, 16):
+        for nk in LM_STEP_KEYS:
+            e32, e16 = check_lm_step_case("lm-step-kernel", b, nk, gen)
+            err32, err16, cases = max(err32, e32), max(err16, e16), cases + 1
+    b, nk = 1, LM_STEP_TIME_KEYS
+    q, k, v, bias, scale = lm_step_inputs(b, nk, gen)
+    fns = {"kernel": lambda: BA.bias_attention_fwd(q, k, v, bias, scale),
+           "plain": lambda: BA.reference_bias_attention(q, k, v, bias, scale),
+           "library": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                             scale=scale)}
+    row = {name: graph_ms(fn) for name, fn in fns.items()}
+    row["bound"], row["bound_by"] = bound(*bias_cost(b, h, 1, nk, dh, dh, 4, False), FP32_PEAK)
+    say("lm-step-kernel", B="1,16", H=h, Nq=1, Nk=",".join(map(str, LM_STEP_KEYS)), dh=dh,
+        cases=cases, fp32_max_err=f"{err32:.3g}", bf16_max_err=f"{err16:.3g}",
+        bf16_route="tensor-core")
+    say("lm-step-kernel-time", B=b, H=h, Nq=1, Nk=nk, dh=dh, dtype="float32",
+        bound_by=row["bound_by"], library="sdpa fwd, bias as mask",
+        **{f"{key}_ms": f"{val:.4f}" for key, val in row.items() if key != "bound_by"})
+    return err32, err16, row
+
+
+def phase_growing_cache():
+    """LM-Transformer at full width and depth (12 x 768, 12 heads), fp32:
+    LM_CACHE_TOKENS tokens (a blank, then seeded tokens) stepped on the
+    growing cache from None equal, step by step, the fixed-capacity step
+    and the teacher-forced forward on the card, and the growing cache's
+    steps on the CPU. The bias launches of the growing steps, counted: 12
+    a step."""
+    import copy
+
+    lm_cpu = make_lm("cpu", torch.float32)
+    lm = copy.deepcopy(lm_cpu).cuda()
+    rng = np.random.default_rng(SEED + 41)
+    b, n = 2, LM_CACHE_TOKENS
+    x = torch.from_numpy(rng.integers(1, 256, (b, n - 1))).cuda()
+    feed = F.pad(x, (1, 0))
+    errs = {"fixed": 0.0, "forward": 0.0, "cpu": 0.0}
+    with torch.inference_mode():
+        teacher = lm(x)
+        fixed = lm.init_carry_fixed(b, n, "cuda")
+        grow = grow_cpu = None
+        launches = []
+        for t in range(n):
+            reset_launch_counts()
+            got, grow = lm.step(feed[:, t], grow)
+            torch.cuda.synchronize()
+            launches.append(bias_launch_counts()[0])
+            want, fixed = lm.step(feed[:, t], fixed)
+            cpu, grow_cpu = lm_cpu.step(feed[:, t].cpu(), grow_cpu)
+            errs["fixed"] = max(errs["fixed"], (got - want).abs().max().item())
+            errs["forward"] = max(errs["forward"], (got - teacher[:, t]).abs().max().item())
+            errs["cpu"] = max(errs["cpu"], (got.cpu() - cpu).abs().max().item())
+    blocks = lm_params()["num_blocks"]
+    check(max(errs.values()) <= KERNEL_FP32_TOL, f"[growing-cache] errors {errs}")
+    check(set(launches) == {blocks}, f"[growing-cache] bias launches a step {set(launches)}, "
+          f"expected {blocks}")
+    check(grow[0]["k"].shape == (b, n, lm_params()["dim_model"]), "[growing-cache] cache shape")
+    say("growing-cache", config="LM-Transformer", batch=b, tokens=n, dtype="float32",
+        **{f"vs_{key}_max_err": f"{val:.3g}" for key, val in errs.items()},
+        bias_launches_per_step=blocks, bias_launches=sum(launches))
+
+
+def host_vs(got, got_sc, want, want_sc):
+    """(utterances whose tokens differ, the largest gap of their best
+    normalised scores)."""
+    differ = [i for i in range(len(got)) if got[i] != want[i]]
+    return len(differ), max((abs(float(got_sc[i]) - float(want_sc[i])) for i in differ),
+                            default=0.0)
+
+
+def phase_t_host_beam(card_line, arpa):
+    """The host Transducer beams (decoding/rnnt_beam.py, ECF_HOST_BEAM=1):
+    Transducer Small (seeded random weights, fp32) with LM-Transformer fused
+    through ``beam_search`` (the growing cache) and with LM-RNN through
+    ``beam_search_batched``, each with the synthetic 6-gram over 1000 tokens
+    and the config's weights, W 4, at 2 utterances of 2 and 1.5 s: card vs
+    CPU tokens equal or final normalised scores within BEAM_SCORE_TOL (near
+    ties, counted); host beam vs the device beam on the card on the same
+    inputs and weights, held the same way. Then the main
+    path: one 4 s utterance at the config's W with the bf16 encoder and the
+    fp32 LM-Transformer: ms a batch, pops, ms a pop, the bias launches (12
+    a pop) and rel-pos launches (15), each counted from 0, and the longest
+    cache an LM step attended, where the bias kernel is held to its plain
+    version again."""
+    import copy
+
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.decoding import rnnt_beam
+    from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
+    from efficientconformer_torch.models import lm as lm_mod
+    from efficientconformer_torch.models.transducer import greedy_token_cap
+
+    t_phase = time.perf_counter()
+    cfg = load_config(T_CONFIG)
+    dp = cfg["decoding_params"]
+    ng = dict(ngram=arpa, ngram_alpha=dp["ngram_alpha"], ngram_beta=dp["ngram_beta"],
+              tmp=dp["tmp"])
+    rng = np.random.default_rng(SEED + 42)
+    x, x_len = ragged_audio(T_HOST_BEAM_CHECK, "cpu", rng)
+    cap = greedy_token_cap(cfg["encoder_params"], x.shape[1], MAX_CONSEC)
+    t_cpu = make_transducer("cpu", torch.float32)
+    lms_cpu = {"transformer": make_lm("cpu", torch.float32),
+               "rnn": lm_mod.build_model(LM_RNN_CONFIG, "cpu", torch.float32,
+                                         torch.Generator().manual_seed(SEED))}
+    sides = {"cpu": ("cpu", t_cpu, lms_cpu),
+             "card": ("cuda", copy.deepcopy(t_cpu).cuda(),
+                      {k: copy.deepcopy(m).cuda() for k, m in lms_cpu.items()})}
+    checks = {}
+    for name, fn in (("transformer", rnnt_beam.beam_search),
+                     ("rnn", rnnt_beam.beam_search_batched)):
+        out = {}
+        for side, (d, model, lms) in sides.items():
+            stats = {}
+            t1 = time.perf_counter()
+            toks = fn(model, x.to(d), x_len.to(d), beam_size=T_HOST_BEAM_W, lm_model=lms[name],
+                      lm_weight=dp["lm_weight"], lm_tmp=dp["lm_tmp"], stats=stats, **ng)
+            out[side] = (toks, stats["scores"], time.perf_counter() - t1, stats["pops"])
+        n_tie, gap = host_vs(out["card"][0], out["card"][1], out["cpu"][0], out["cpu"][1])
+        check(gap <= BEAM_SCORE_TOL, f"[t-host-beam] {name}: card vs CPU tokens differ with "
+              f"final scores {gap} apart")
+        _, model, lms = sides["card"]
+        dev_toks, dev_sc = beam_search_device(
+            model, x.cuda(), x_len.cuda(), beam_size=T_HOST_BEAM_W, max_tokens=cap,
+            lm_model=lms[name], lm_weight=dp["lm_weight"], lm_tmp=dp["lm_tmp"],
+            return_scores=True, **ng)
+        n_dev, dev_gap = host_vs(out["card"][0], out["card"][1], dev_toks, dev_sc.cpu())
+        check(dev_gap <= BEAM_SCORE_TOL, f"[t-host-beam] {name}: host vs device beam tokens "
+              f"differ with final scores {dev_gap} apart")
+        checks[name] = (f"{len(x) - n_tie}/{len(x)} equal, {n_tie} near-ties; vs device beam "
+                        f"{len(x) - n_dev}/{len(x)} equal, gap {dev_gap:.3g}; card "
+                        f"{out['card'][2]:.1f}s cpu {out['cpu'][2]:.1f}s, pops "
+                        f"{out['card'][3]}, tokens {[len(t) for t in out['card'][0]]}")
+    del sides, t_cpu, lms_cpu
+
+    lm = make_lm("cuda", torch.float32)
+    longest = [0]
+    lm_step = lm.step
+
+    def step_spy(tok, carry):
+        # the keys of each LM step of the main path: a shape, read on the host
+        out = lm_step(tok, carry)
+        longest[0] = max(longest[0], out[1][0]["k"].shape[1])
+        return out
+
+    lm.step = step_spy
+    model = make_transducer("cuda", torch.bfloat16)
+    n = int(T_HOST_BEAM_SECONDS * SAMPLE_RATE)
+    audio = torch.from_numpy((rng.standard_normal((1, n)) * 0.1).astype(np.float32)).cuda()
+    stats = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    out = rnnt_beam.beam_search(model, audio, torch.tensor([n], device="cuda"),
+                                beam_size=dp["beam_size"], lm_model=lm,
+                                lm_weight=dp["lm_weight"], lm_tmp=dp["lm_tmp"], stats=stats,
+                                **ng)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t1) * 1e3
+    rel, bias, bias_tc = rel_counts(), bias_launch_counts(), bias_tc_counts()
+    blocks = lm_params()["num_blocks"]
+    check(rel[0] == rel[1] > 0, f"[t-host-beam] rel-pos launches {rel}")
+    check(bias[0] == blocks * stats["pops"] > 0,
+          f"[t-host-beam] bias launches {bias[0]} for {stats['pops']} pops")
+    # the kernel at the main path's longest cache, beside [lm-step-kernel]'s
+    # grid of Nk, which must reach past it
+    check(longest[0] <= max(LM_STEP_KEYS), f"[t-host-beam] the longest cache {longest[0]} "
+          f"lies past [lm-step-kernel]'s largest Nk {max(LM_STEP_KEYS)}")
+    longest_err = check_lm_step_case("t-host-beam", 1, longest[0],
+                                     torch.Generator().manual_seed(SEED + 44))
+    say("t-host-beam", config="EfficientConformerTransducerSmall+LM-Transformer|LM-RNN",
+        check_beam=T_HOST_BEAM_W, check_seconds=T_HOST_BEAM_CHECK,
+        check_transformer=f"'{checks['transformer']}'", check_rnn=f"'{checks['rnn']}'",
+        seconds=T_HOST_BEAM_SECONDS, beam=dp["beam_size"], ms_per_batch=f"{batch_ms:.1f}",
+        pops=stats["pops"], ms_per_pop=f"{batch_ms / stats['pops']:.2f}",
+        bias_launches=bias[0], bias_tc_launches=bias_tc[0], relpos_launches=rel[0],
+        tokens=len(out[0]), longest_cache=longest[0],
+        longest_cache_max_err=f"'fp32 {longest_err[0]:.3g} bf16 {longest_err[1]:.3g}'",
+        phase_s=f"{time.perf_counter() - t_phase:.1f}",
+        card=f"'{card_line}'")
+    return bias[0], rel[0], batch_ms / stats["pops"]
 
 
 # ---------------------------------------------------------------- streaming and serving
@@ -3018,14 +3392,97 @@ def phase_cli(card_line, train_rate_ms, ngram_paths) -> tuple:
         phase_cli_buckets(card_line)
         phase_cli_resume(cfg_path, cfg, saves, cli_ms)
         phase_cli_test(cfg_path, cfg)
+        phase_cli_import(tmp, cfg)
         phase_cli_swa(cfg_path, cfg)
         phase_cli_eval_time(cfg_path)
+        phase_cli_profiler(cfg_path, cfg)
         phase_cli_transducer(tmp, card_line)
         phase_cli_lm(tmp, card_line)
         phase_cli_beam(tmp, ngram_paths)
     counts = tuple(CLI_LAUNCHES)
     say("cli", seconds=f"{time.perf_counter() - t0:.2f}", launches=counts)
     return counts
+
+
+# ---------------------------------------------------------------- InterCTC
+
+
+def interctc_config(**training) -> dict:
+    """The flagship as an InterCTC model with taps after blocks INTERCTC_TAPS
+    (the strided block 4 closing stage 1, and block 7 inside stage 2, ahead
+    of the stride of block 9, so its probabilities hold twice the final
+    frames), its training_params updated by ``training``."""
+    cfg = train_config(**training)
+    cfg["model_type"] = "InterCTC"
+    cfg["encoder_params"]["interctc_blocks"] = list(INTERCTC_TAPS)
+    return cfg
+
+
+def phase_interctc_step(card_line, train_rate_ms):
+    """One fp32 InterCTC step (as [train-slice]'s: 2 x 4 ragged utterances,
+    dropout 0, SpecAugment off) through the kernels vs the plain versions
+    on the card and vs the CPU; then the config's own bf16 step at
+    [train-rate]'s 2 x 32 x 16 s: ms a step beside [train-rate]'s, the
+    rel-pos launches of one step, all on the tensor cores, and the device
+    ms and host syncs of a step beside the CTC config's on the same batch."""
+    from efficientconformer_torch.training.trainer import Trainer
+
+    cfg = interctc_config(mixed_precision=False)
+    cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+    seconds = [[4.0, 5.5, 7.0, 8.0], [8.0, 6.5, 4.5, 5.0]]
+    batch = train_batch(2, 4, seconds, [12, 30, 0, 20], "cpu", np.random.default_rng(SEED + 44))
+    reset_rel_counts()
+    kernel = one_step(cfg, "cuda", batch)
+    torch.cuda.synchronize()
+    fwd, fwd_tc, bwd, bwd_tc = rel_counts()
+    n_att = cfg["encoder_params"]["num_blocks"] * 2
+    check(fwd == n_att and bwd == n_att and fwd_tc == bwd_tc == 0,
+          f"[interctc-step] fp32 launches {rel_counts()}, expected {n_att} each on the FMA route")
+    out = compare_steps(kernel, cfg, batch)
+
+    cfg = interctc_config()
+    tp = cfg["training_params"]
+    trainer = Trainer(cfg, device="cuda", seed=SEED)
+    big = train_batch(tp["accumulated_steps"], tp["batch_size"],
+                      tp["train_audio_max_length"] / SAMPLE_RATE, [80], "cuda",
+                      np.random.default_rng(SEED + 4))
+    trainer.train_step(big)
+    torch.cuda.synchronize()
+    reset_rel_counts()
+    trainer.train_step(big)
+    torch.cuda.synchronize()
+    launches = rel_counts()
+    n_att = cfg["encoder_params"]["num_blocks"] * tp["accumulated_steps"]
+    check(launches == (n_att, n_att, n_att, n_att),
+          f"[interctc-step] bf16 launches {launches}, expected {n_att} each on the tensor cores")
+    iters = 5
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss, grad_norm = trainer.train_step(big)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    check(math.isfinite(float(loss)) and math.isfinite(float(grad_norm)), f"loss {float(loss)}")
+    # device ms and host syncs a step, beside the CTC config's own step on
+    # the same batch: the wall clock of one step varies more between calls
+    # than the taps cost
+    ctc, _ = rate_trainer()
+    device, syncs = {}, {}
+    for name, tr in (("ctc", ctc), ("interctc", trainer)):
+        tr.train_step(big)
+        torch.cuda.synchronize()
+        with count_syncs() as box:
+            tr.train_step(big)
+            torch.cuda.synchronize()
+        syncs[name] = box["n"]
+        device[name] = device_ms(lambda tr=tr: tr.train_step(big), 2)[0]
+    say("interctc-step", config="EfficientConformerCTCSmall+InterCTC", taps=INTERCTC_TAPS,
+        interctc_lambda=tp.get("interctc_lambda", 0.5), fp32_loss=f"{kernel[0]:.6f}", **out,
+        bf16_ms_per_step=f"{dt * 1e3:.2f}", train_rate_ms_per_step=f"{train_rate_ms:.2f}",
+        device_ms_per_step=f"{device['interctc']:.2f}",
+        ctc_device_ms_per_step=f"{device['ctc']:.2f}", syncs_per_step=syncs["interctc"],
+        ctc_syncs_per_step=syncs["ctc"], bf16_loss=f"{float(loss):.4f}",
+        launches=launches[::2], tc_launches=launches[1::2], card=f"'{card_line}'")
+    return launches[0], launches[2]
 
 
 def wall_ms(fn, iters: int = 3) -> float:
@@ -3219,7 +3676,10 @@ def main() -> int:
     check(lm_score_launches > 0 and lm_fwd > 0 and lm_bwd > 0, "the LM paths missed a kernel")
     arpa256, arpa256_path = phase_ngram_device()
     ctc_beam_launches, _ = phase_ctc_beam(card_line, arpa256, arpa256_path)
-    t_beam_launches, _ = phase_t_beam(card_line)
+    t_beam_launches, _, arpa1000 = phase_t_beam(card_line)
+    step_err, step_err16, times_step = phase_lm_step_kernel()
+    phase_growing_cache()
+    host_bias, host_rel, _ = phase_t_host_beam(card_line, arpa1000)
     err_stream, times_stream = phase_stream_kernel()
     stream_launches, stream_rel, err_stream_exact = phase_stream_exact()
     serve_rel, serve_bias, (err_serve, err16_serve) = phase_serve_slice(card_line)
@@ -3231,6 +3691,7 @@ def main() -> int:
     check(all(cli_launches.values()), f"the CLI's path missed a kernel: {cli_launches}")
     check(cli[1] == cli[0] and cli[3] == cli[2] and cli[7] == cli[6] and cli[9] == cli[8],
           f"a bf16 CLI path missed the tensor-core route: {cli}")
+    interctc_fwd, interctc_bwd = phase_interctc_step(card_line, train_rate_ms)
     if opts.profile:
         phase_profile()
 
@@ -3251,14 +3712,17 @@ def main() -> int:
               max(max_err, t_err, err_serve), times,
               bf16_max_err=max(err16, t_err16, err16_serve),
               tc_launches=fwd_tc, graph_ms=times["kernel"], eager_ms=times["kernel_call"],
-              beam_launches={"ctc-beam": ctc_beam_launches, "t-beam": t_beam_launches},
+              beam_launches={"ctc-beam": ctc_beam_launches, "t-beam": t_beam_launches,
+                             "t-host-beam": host_rel},
               serve_launches={"stream-exact": stream_rel, "serve-slice": serve_rel,
-                              "serve-rate": sum(rate_rel.values())}),
+                              "serve-rate": sum(rate_rel.values())},
+              interctc_launches=interctc_fwd),
         entry(RA.KERNEL_BWD, "efficientconformer_torch/csrc/rel_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:139", launches_bwd,
               max(max_err_bwd, t_err_bwd), times_bwd,
               bf16_max_err=max(err16_bwd, t_err16_bwd), tc_launches=tc_bwd,
-              graph_ms=times_bwd["kernel"], eager_ms=times_bwd["kernel_call"]),
+              graph_ms=times_bwd["kernel"], eager_ms=times_bwd["kernel_call"],
+              interctc_launches=interctc_bwd),
         entry(RL.KERNEL_FWD, "efficientconformer_torch/csrc/rnnt_fwd.cu",
               "efficientconformer_tpu/ops/pallas_rnnt.py:73", rnnt_fwd, err_rnnt, times_rnnt),
         entry(RL.KERNEL_BWD, "efficientconformer_torch/csrc/rnnt_bwd.cu",
@@ -3266,11 +3730,14 @@ def main() -> int:
               times_rnnt_bwd),
         entry(BA.KERNEL, "efficientconformer_torch/csrc/bias_attention_fwd.cu",
               "efficientconformer_tpu/ops/pallas_attention.py:55", lm_fwd,
-              max(err_bias, err_stream, err_stream_exact), times_bias,
+              max(err_bias, err_stream, err_stream_exact, step_err), times_bias,
               serve_launches={"stream-exact": stream_launches, "serve-slice": serve_bias,
                               "serve-rate": sum(rate_bias.values())},
               stream_kernel_ms=times_stream["kernel"], stream_plain_ms=times_stream["plain"],
-              stream_bound_ms=times_stream["bound"], stream_library_ms=times_stream["library"]),
+              stream_bound_ms=times_stream["bound"], stream_library_ms=times_stream["library"],
+              host_beam_launches=host_bias, step_bf16_max_err=step_err16,
+              step_kernel_ms=times_step["kernel"], step_plain_ms=times_step["plain"],
+              step_bound_ms=times_step["bound"], step_library_ms=times_step["library"]),
         entry(BA.KERNEL_BWD, "efficientconformer_torch/csrc/bias_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_attention.py:412", lm_bwd, err_bias_bwd,
               times_bias_bwd),

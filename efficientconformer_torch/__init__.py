@@ -16,5 +16,8 @@ build_model, greedy_decode) and the same training step with the RNN-T loss
 and variational noise. For the language models: scoring and training. And
 the CLI (``python -m efficientconformer_torch.main``, runtime.py) with the
 data path (data/), checkpoints and SWA (training/checkpoint.py) and the
-epoch loop (``Trainer.fit_epochs``).
+epoch loop (``Trainer.fit_epochs``); InterCTC; beam search on the device and
+on the host (decoding/) with n-gram and LM fusion; streaming and serving;
+``--profiler`` (utils/profiling.py); and the import of the original repo's
+checkpoints (``python -m efficientconformer_torch.import_checkpoint``).
 """

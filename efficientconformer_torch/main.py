@@ -70,7 +70,7 @@ def build_parser():
     p.add_argument("--val_period", type=int, default=1,
                    help="Model validation every 'n' epochs")
     p.add_argument("--profiler", action="store_true",
-                   help="Enable profiler (not ported: ROADMAP item 13)")
+                   help="Profile the eval_time modes: a trace and a top-10 op table")
     p.add_argument("--model_parallel", type=int, default=None,
                    help="Tensor-parallel size (not ported: ROADMAP item 14)")
     p.add_argument("--seq_parallel", type=int, default=None,

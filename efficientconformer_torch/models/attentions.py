@@ -26,10 +26,15 @@ the LM-Transformer take:
     plus the left context see no valid key: such a row averages V over all
     its keys, as the JAX package's does;
   * the causal plain layer's one-token ``step`` on a fixed-capacity KV cache
-    with per-row write positions (:177-227), which the beam searches drive
-    through the LM-Transformer: plain PyTorch, as the JAX package computes
-    it outside any Pallas kernel. The growing cache (:448-459), which only
-    the host Transducer beam needs, raises with its ROADMAP item.
+    with per-row write positions (:177-227), which the device beam searches
+    drive through the LM-Transformer: plain PyTorch, as the JAX package
+    computes it outside any Pallas kernel;
+  * the plain skewing path on a growing KV cache (``forward_cached``,
+    :448-518), which the host Transducer beam drives through the
+    LM-Transformer one token at a time: the past keys and values are
+    prepended (by ``torch.cat``, so hypotheses may share a cache), the
+    relative window reaches back over them, and the bias attention runs
+    the token's one query row against every key.
 Every other variant raises NotImplementedError naming its ROADMAP item.
 
 Parameter names are the original PyTorch repo's (query_layer, key_layer,
@@ -91,7 +96,7 @@ class MultiHeadSelfAttention(nn.Module):
         full (B or 1, 1, T, T) mask with 1.0 where query i may not see key
         j, or None."""
         if self.causal or (mask is not None and mask.shape[-2] != 1):
-            return self._skewed(x, mask)
+            return self._skewed(x, mask)[0]
         d, h, g = self.dim_model, self.num_heads, self.group_size
         t_in = x.shape[1]
         q = self.query_layer(x)
@@ -132,14 +137,28 @@ class MultiHeadSelfAttention(nn.Module):
         # ungroup_time is merge_heads when G = 1
         return self.output_layer(A.ungroup_time(o, d)[:, :t_in])
 
-    def _skewed(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward_cached(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                       hidden: Optional[dict]):
+        """The plain skewing path on a growing KV cache (attentions.py
+        :448-518): x (B, T, D) attends to the cached keys and values of
+        ``hidden`` ({"k", "v"}, each (B, Th, D), or None for none) followed
+        by its own; ``mask``, if given, is (B or 1, 1, T, Th + T). Returns
+        (out (B, T, D), the new cache {"k", "v"} of (B, Th + T, D))."""
+        if self.group_size > 1:
+            raise NotImplementedError("a KV cache of grouped attention: ROADMAP Queue 1 item 15")
+        return self._skewed(x, mask, hidden)
+
+    def _skewed(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                hidden: Optional[dict] = None):
         """The Transformer-XL skewing path (attentions.py:332-348 grouped,
-        :504-518 plain): qu = q + u attends to the keys under the bias
+        :448-518 plain): qu = q + u attends to the keys under the bias
         rel_to_abs(qv . e) / sqrt(dh) + mask * NEG_INF, with qv = q + v and
-        e the pos projection of the relative window. In bf16 the rel scores
-        are bf16 and the mask fp32, so the bias is fp32; the JAX package's
-        ``_attend`` (:143) casts it to the scores' bf16, where the mask's
-        -1e9 swamps the rel scores of a masked key all the same."""
+        e the pos projection of the relative window, which reaches back over
+        the Th keys of a plain layer's cache ``hidden``. In bf16 the rel
+        scores are bf16 and the mask fp32, so the bias is fp32; the JAX
+        package's ``_attend`` (:143) casts it to the scores' bf16, where the
+        mask's -1e9 swamps the rel scores of a masked key all the same.
+        Returns (out, {"k", "v"}: the keys and values attended)."""
         d, h, g = self.dim_model, self.num_heads, self.group_size
         dh = g * d // h
         if x.device.type != "cpu" and dh > BA.MAX_WIDTH:
@@ -150,6 +169,10 @@ class MultiHeadSelfAttention(nn.Module):
         q = self.query_layer(x)
         k = self.key_layer(x)
         v = self.value_layer(x)
+        if hidden is not None:
+            k = torch.cat([hidden["k"], k], dim=1)
+            v = torch.cat([hidden["v"], v], dim=1)
+        new_hidden = {"k": k, "v": v}
         u, vb = self.u.to(x.dtype), self.v.to(x.dtype)
         if g > 1:
             q, _ = M.pad_to_multiple(q, g)
@@ -165,7 +188,8 @@ class MultiHeadSelfAttention(nn.Module):
         else:
             qu, qv = A.split_heads(q + u, h), A.split_heads(q + vb, h)
             kh, vh = A.split_heads(k, h), A.split_heads(v, h)
-            window = P.relative_encoding(t_in, d, self.causal, x.device)
+            window = P.relative_encoding(t_in, d, self.causal, x.device,
+                                         hidden_len=k.shape[1] - t_in)
         e = self.pos_layer(window.to(x.dtype))
         rel = torch.einsum("bhqd,lhd->bhql", qv, e.reshape(-1, h, dh))
         skew = A.rel_to_abs_causal if self.causal else A.rel_to_abs_full
@@ -174,7 +198,7 @@ class MultiHeadSelfAttention(nn.Module):
             bias = bias + mask * A.NEG_INF
         o, _ = BA.bias_attention(qu, kh, vh, bias, 1.0 / math.sqrt(dh))
         # ungroup_time is merge_heads when G = 1
-        return self.output_layer(A.ungroup_time(o, d)[:, :t_in])
+        return self.output_layer(A.ungroup_time(o, d)[:, :t_in]), new_hidden
 
     def step(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              at: "StepPositions") -> torch.Tensor:

@@ -5,7 +5,8 @@ x + ½FFN -> x + MHSA -> residual + Conv -> x + ½FFN -> LayerNorm. The residual
 around the convolution module is a strided pointwise conv when the width
 expands, a strided slice when the block only strides. TransformerBlock (the
 LM-Transformer's): pre-LN, x + MHSA -> x + FFN (relu, no inner dropout), no
-final norm; its ``step`` runs one token on a fixed-capacity KV cache. The
+final norm; it passes a growing KV cache in and out, as the JAX block does,
+and its ``step`` runs one token on a fixed-capacity KV cache. The
 training state is the module's own (``train()``/``eval()``); the generator
 for dropout is handed down to each module.
 """
@@ -73,9 +74,14 @@ class TransformerBlock(nn.Module):
         self.feed_forward_module = FeedForwardModule(
             dim_model, dim_model * ff_ratio, dropout, act="relu", inner_dropout=False)
 
-    def forward(self, x, mask=None, generator=None):
-        x = x + self.multi_head_self_attention_module(x, mask, generator)
-        return x + self.feed_forward_module(x, generator)
+    def forward(self, x, mask=None, generator=None, hidden=None):
+        """(x, the attention's new KV cache): x attends to the keys and
+        values of ``hidden`` ({"k", "v"} of (B, Th, D), or None) followed by
+        its own (blocks.py:105-125)."""
+        att = self.multi_head_self_attention_module
+        y, hidden = att.mhsa.forward_cached(att.norm(x), mask, hidden)
+        x = x + att.dropout(y, generator)
+        return x + self.feed_forward_module(x, generator), hidden
 
     def step(self, x, k, v, at):
         """One token x (B, 1, D) on the attention's KV cache k, v (B, L, D),

@@ -9,13 +9,15 @@ Two entry points, as the JAX package's:
   * ``step(y_t, carry)``: one token with an explicit carry, for the decode
     loops and the beam searches, which stay fp32 whatever the compute dtype,
     as in the JAX package. The RNN's carry is (h, c), each (num_layers, B,
-    H); the Transformer's is a fixed-capacity KV cache (``init_carry_fixed``,
-    decoders.py:114-154) with per-row positions, so beam slots of
-    different lengths share a batch: {"k": (B, blocks, L, D), "v": (B,
-    blocks, L, D), "pos": (B,)}, the JAX package's per-block caches stacked
-    (every block's position is the same), so a beam moves one tensor, not
-    one a block. The growing cache (``step(y_t, None)``), which only the
-    host Transducer beam needs, raises with its ROADMAP item.
+    H); the Transformer's is either a fixed-capacity KV cache
+    (``init_carry_fixed``, decoders.py:114-154) with per-row positions, so
+    beam slots of different lengths share a batch: {"k": (B, blocks, L,
+    D), "v": (B, blocks, L, D), "pos": (B,)}, the JAX package's per-block
+    caches stacked (every block's position is the same), so a beam moves
+    one tensor, not one a block; or the growing cache (decoders.py
+    :114-137) of the host Transducer beam: None before the first token,
+    then a tuple of one {"k": (B, t, D), "v": (B, t, D)} a block, which
+    each step extends by ``torch.cat``, so hypotheses share their caches.
 The Conformer decoder raises with its ROADMAP item.
 """
 
@@ -94,16 +96,21 @@ class TransformerDecoder(nn.Module):
             x = x.to(self.compute_dtype)
         x = self.dropout(x, generator)
         for block in self.blocks:
-            x = block(x, mask, generator)
+            x, _ = block(x, mask, generator)
         return x
 
     def step(self, y_t: torch.Tensor, carry):
-        """y_t (B,) int -> ((B, D), new carry) on the fixed-capacity cache of
-        ``init_carry_fixed``, in fp32 (no compute cast), in eval mode."""
-        if carry is None:
-            raise NotImplementedError(
-                "the Transformer decoder's growing KV cache (the host Transducer beam's): "
-                "ROADMAP Queue 1 item 11")
+        """y_t (B,) int -> ((B, D), new carry), in fp32 (no compute cast),
+        in eval mode: on the growing cache when ``carry`` is None or a tuple
+        of per-block {"k", "v"}, on the fixed-capacity cache of
+        ``init_carry_fixed`` when it is that dict."""
+        if carry is None or isinstance(carry, tuple):
+            x = self.embedding(y_t[:, None])
+            new_carry = []
+            for i, block in enumerate(self.blocks):
+                x, hidden = block(x, None, None, carry[i] if carry is not None else None)
+                new_carry.append(hidden)
+            return x[:, 0], tuple(new_carry)
         k, v, pos = carry["k"].clone(), carry["v"].clone(), carry["pos"]
         at = step_positions(pos, k.shape[2])
         x = self.embedding(y_t[:, None])
@@ -127,4 +134,4 @@ def make_decoder(params: dict, vn_std: Optional[float] = None):
         return TransformerDecoder(params)
     raise NotImplementedError(
         f"{arch} decoder{' with variational noise' if vn_std is not None else ''}: ROADMAP "
-        "Queue 1 items 10-11 (no shipped config uses it)")
+        "Queue 1 item 15 (no shipped config uses it)")

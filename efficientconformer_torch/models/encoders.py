@@ -12,11 +12,16 @@ window + padding mask (ops/masks.streaming_mask) otherwise
 ``[::s, ::s]`` and the lengths become (l-1)//s + 1. In training mode
 (``train()``) SpecAugment and dropout draw from the generator passed to
 ``forward`` and BatchNorm uses batch statistics; ``remat`` is not ported.
+InterCTC (encoders.py:150-166): after each block of ``interctc_blocks`` a
+tap takes p = softmax(linear_expand_i(x)) over the vocabulary and adds
+linear_proj_i(p) back to x; ``forward_taps`` also returns the taps' p, each
+at its block's frame rate (the original's names, ``linear_expand_{i}`` and
+``linear_proj_{i}``, i the block's index).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -33,7 +38,8 @@ from efficientconformer_torch.ops.masks import padding_mask, streaming_mask
 
 
 class ConformerEncoder(nn.Module):
-    def __init__(self, params: dict):
+    def __init__(self, params: dict, vocab_size: Optional[int] = None,
+                 interctc_blocks: Sequence[int] = ()):
         super().__init__()
         p = params
         if p["subsampling_module"] != "Conv2d":
@@ -61,12 +67,22 @@ class ConformerEncoder(nn.Module):
         self.linear = Linear(p["subsampling_filters"][-1] * mel, blocks[0].dim_model)
         self.dropout = Dropout(p["Pdrop"])
         self.blocks = nn.ModuleList(ConformerBlock(cfg) for cfg in blocks)
+        self.interctc_blocks = tuple(interctc_blocks)
+        for i in self.interctc_blocks:
+            self.add_module(f"linear_expand_{i}", Linear(blocks[i].dim_expand, vocab_size))
+            self.add_module(f"linear_proj_{i}", Linear(vocab_size, blocks[i].dim_expand))
 
     def forward(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
         """x: (B, T_audio) raw waveform -> (features (B, T, D), lengths).
         ``generator`` (on x's device) feeds SpecAugment and dropout in
         training mode."""
+        return self.forward_taps(x, x_len, generator)[:2]
+
+    def forward_taps(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None):
+        """``forward``'s (features, lengths) and the InterCTC taps'
+        probabilities, a list of (B, T_i, V) in the compute dtype."""
         x, x_len = self.preprocessing(x, x_len)
         x = self.augment(x, x_len, generator)
         if self.compute_dtype is not None:
@@ -78,7 +94,8 @@ class ConformerEncoder(nn.Module):
         else:
             mask = streaming_mask(t, x_len, self.left_context, self.right_context, x.device)
         x = self.dropout(self.linear(x), generator)
-        for block in self.blocks:
+        probs = []
+        for i, block in enumerate(self.blocks):
             x = block(x, mask, generator)
             s = block.cfg.stride
             if s > 1:
@@ -86,4 +103,8 @@ class ConformerEncoder(nn.Module):
                     mask = mask[:, :, ::s, ::s]
                 if x_len is not None:
                     x_len = (x_len - 1) // s + 1
-        return x, x_len
+            if i in self.interctc_blocks:
+                p = torch.softmax(getattr(self, f"linear_expand_{i}")(x), dim=-1)
+                probs.append(p)
+                x = x + getattr(self, f"linear_proj_{i}")(p)
+        return x, x_len, probs

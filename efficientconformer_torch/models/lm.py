@@ -5,10 +5,12 @@ the teacher-forced pass (a blank prepended to the tokens, logits for every
 position) over the RNN decoder (LM-RNN) or the causal rel-pos Transformer
 decoder (LM-Transformer), and ``ce_loss`` is its cross entropy. Users score
 an LM with its eval loss and perplexity (runtime.py:241-260, 549-558),
-train it with ``training/trainer.py``, and fuse it into the Transducer beam
-(decoding/rnnt_beam_device.py) through the single-token ``step`` on a
-fixed-shape carry (``init_carry_fixed``: the RNN's state, or the
-Transformer's fixed-capacity KV cache), lm.py:35-50.
+train it with ``training/trainer.py``, and fuse it into the Transducer beams
+through the single-token ``step``: the device beam
+(decoding/rnnt_beam_device.py) on a fixed-shape carry (``init_carry_fixed``:
+the RNN's state, or the Transformer's fixed-capacity KV cache), the host
+beams (decoding/rnnt_beam.py) on ``init_carry`` (the RNN's state, or None:
+the Transformer's growing KV cache), lm.py:35-50.
 """
 
 from __future__ import annotations

@@ -2,7 +2,10 @@
 
 Counterpart of efficientconformer_tpu/models/model_ctc.py: ModelCTC =
 ConformerEncoder + vocabulary projection; greedy decoding is argmax ->
-repeat/blank collapse -> left-compaction, batched on the device.
+repeat/blank collapse -> left-compaction, batched on the device. With
+``interctc_blocks`` it is the InterCTC model: the encoder's taps
+(models/encoders.py) return their probabilities beside the logits, for the
+loss (models/factory.py); decoding reads the logits only.
 """
 
 from __future__ import annotations
@@ -17,16 +20,24 @@ from efficientconformer_torch.models.layers import Linear, init_weights_
 
 
 class ModelCTC(nn.Module):
-    def __init__(self, encoder_params: dict, vocab_size: int):
+    """``interctc_blocks`` None builds the CTC model; a sequence of block
+    indices, empty too, the InterCTC model."""
+
+    def __init__(self, encoder_params: dict, vocab_size: int, interctc_blocks=None):
         super().__init__()
-        self.encoder = ConformerEncoder(encoder_params)
+        self.interctc = interctc_blocks is not None
+        self.encoder = ConformerEncoder(encoder_params, vocab_size, interctc_blocks or ())
         d = encoder_params["dim_model"]
         self.fc = Linear(d[-1] if isinstance(d, list) else d, vocab_size)
 
     def forward(self, x, x_len, generator=None):
-        """(B, T_audio) -> (logits (B, T, V), logits_len (B,)). ``generator``
-        feeds SpecAugment and dropout in training mode."""
-        enc, enc_len = self.encoder(x, x_len, generator)
+        """(B, T_audio) -> (logits (B, T, V), logits_len (B,)), and for the
+        InterCTC model also its taps' probabilities, a list of (B, T_i, V),
+        empty without taps (model_ctc.py:34-37). ``generator`` feeds
+        SpecAugment and dropout in training mode."""
+        enc, enc_len, probs = self.encoder.forward_taps(x, x_len, generator)
+        if self.interctc:
+            return self.fc(enc), enc_len, probs
         return self.fc(enc), enc_len
 
 
@@ -72,5 +83,5 @@ def ctc_greedy_collapse(preds: torch.Tensor, pred_len: torch.Tensor, blank: int 
 @torch.inference_mode()
 def greedy_decode(model: ModelCTC, x: torch.Tensor, x_len: torch.Tensor):
     """Greedy CTC decode: (token ids (B, T), counts (B,))."""
-    logits, logits_len = model(x, x_len)
+    logits, logits_len = model(x, x_len)[:2]
     return ctc_greedy_collapse(logits.argmax(dim=-1), logits_len)

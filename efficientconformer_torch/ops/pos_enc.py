@@ -23,14 +23,18 @@ def _sinusoid(pos: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def relative_encoding(seq_len: int, dim: int, causal: bool = False,
-                      device=None) -> torch.Tensor:
-    """The relative window, most distant past first: positions seq_len-1
-    ... 0 when causal, shape (seq_len, dim); down to -(seq_len-1) otherwise,
-    shape (2 seq_len - 1, dim). The JAX function's causal window with a
-    cache history, relative_encoding(1, dim, hidden_len=L-1, causal=True),
-    is relative_encoding(L, dim, causal=True) here."""
+                      device=None, hidden_len: int = 0) -> torch.Tensor:
+    """The relative window of ``seq_len`` queries after ``hidden_len``
+    cached keys, most distant past first: positions seq_len-1+hidden_len
+    ... 0 when causal, shape (hidden_len + seq_len, dim); down to
+    -(seq_len-1) otherwise, shape (hidden_len + 2 seq_len - 1, dim), as the
+    JAX function's. The fixed-capacity step's window of L slots is
+    relative_encoding(L, dim, causal=True), the growing cache's one token
+    after L-1 relative_encoding(1, dim, causal=True, hidden_len=L-1): the
+    same positions."""
     stop = 0 if causal else -(seq_len - 1)
-    pos = torch.arange(seq_len - 1, stop - 1, -1, dtype=torch.float32, device=device)
+    pos = torch.arange(seq_len - 1 + hidden_len, stop - 1, -1, dtype=torch.float32,
+                       device=device)
     return _sinusoid(pos, dim)
 
 

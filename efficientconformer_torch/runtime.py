@@ -9,19 +9,22 @@ with ``--gready``, otherwise the beam search of the config's
 :87-212): the CTC prefix beam with n-gram fusion and the Transducer beam
 with n-gram rescoring, both on the device (decoding/), and with
 ``--initial_epoch_lm`` the LM of ``lm_config`` fused into the Transducer
-beam. ``ECF_HOST_BEAM=1`` selects the host C++ CTC beam instead, with
-``cutoff_top_n``. It covers the model types the port has: CTC, Transducer
-and LM (the LM trains on the LibriSpeechCorpus text and is evaluated on
-transcripts in ``lm_mode``).
+beam. ``ECF_HOST_BEAM=1`` selects the host beams instead: the C++ CTC
+beam, with ``cutoff_top_n``, and the Transducer beams of
+decoding/rnnt_beam.py (per utterance with a Transformer LM's growing KV
+cache, batched otherwise). ``--profiler`` traces the eval_time modes
+(utils/profiling.py). It covers the model types the port has: CTC,
+InterCTC, Transducer and LM (the LM trains on the LibriSpeechCorpus text
+and is evaluated on transcripts in ``lm_mode``).
 
 What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP Queue 1 item, never falling back to something else: the host
-Transducer beam (``ECF_HOST_BEAM=1`` with a Transducer) [11], tensor,
-sequence and data parallelism [14], ``--profiler`` [13].
+ROADMAP Queue 1 item, never falling back to something else: tensor,
+sequence and data parallelism [14].
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -35,7 +38,7 @@ from efficientconformer_torch.config import default_device, load_config
 from efficientconformer_torch.data.datasets import LibriSpeechDataset
 from efficientconformer_torch.data.loader import AsrBatchLoader, LmBatchLoader
 from efficientconformer_torch.data.tokenizer import BpeTokenizer
-from efficientconformer_torch.decoding import ctc_beam
+from efficientconformer_torch.decoding import ctc_beam, rnnt_beam
 from efficientconformer_torch.decoding.ctc_beam_device import ctc_beam_search_device
 from efficientconformer_torch.decoding.ngram import try_load
 from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
@@ -44,6 +47,7 @@ from efficientconformer_torch.models import transducer as rnnt_mod
 from efficientconformer_torch.models.layers import _BatchNorm
 from efficientconformer_torch.training import checkpoint
 from efficientconformer_torch.training.trainer import Trainer
+from efficientconformer_torch.utils import profiling
 from efficientconformer_torch.utils.metrics import wer
 
 # mode -> (train split, eval split); mirrors reference functions.py:85-227
@@ -109,26 +113,31 @@ def beam_decode(trainer: Trainer, audio: torch.Tensor, audio_len: torch.Tensor,
     log-softmax of logits / tmp feeds the device prefix beam with the
     n-gram (or, with ECF_HOST_BEAM=1, the host C++ beam with
     ``cutoff_top_n``). Transducer: the device beam with the LM of ``lm`` and
-    the n-gram, over at most ``greedy_token_cap`` tokens."""
+    the n-gram, over at most ``greedy_token_cap`` tokens (or, with
+    ECF_HOST_BEAM=1, the host beams of decoding/rnnt_beam.py)."""
     dp = trainer.config["decoding_params"]
     model = trainer.model.eval()
     ngram = try_load(dp.get("ngram_path"), dp.get("ngram_offset", 100))
     alpha, beta = dp.get("ngram_alpha", 0.0), dp.get("ngram_beta", 0.0)
     host = bool(os.environ.get("ECF_HOST_BEAM"))
     if trainer.config["model_type"] == "Transducer":
-        if host:
-            raise NotImplementedError("the host Transducer beam (ECF_HOST_BEAM=1): ROADMAP "
-                                      "Queue 1 item 11")
         fusion = {}
         if lm is not None:
             fusion.update(lm_model=lm["model"], lm_weight=lm["weight"], lm_tmp=lm["tmp"])
+        if host:
+            # the host beams (runtime.py:131-156): per utterance when a
+            # Transformer LM's growing cache rides along, batched otherwise
+            fn = (rnnt_beam.beam_search if lm is not None and lm["arch"] == "Transformer"
+                  else rnnt_beam.beam_search_batched)
+            return fn(model, audio, audio_len, beam_size=beam_size, tmp=dp.get("tmp", 1.0),
+                      ngram=ngram, ngram_alpha=alpha, ngram_beta=beta, **fusion)
         if ngram is not None and alpha:
             fusion.update(ngram=ngram, ngram_alpha=alpha, ngram_beta=beta)
         cap = rnnt_mod.greedy_token_cap(trainer.config["encoder_params"], audio.shape[1],
                                         max_consec)
         return beam_search_device(model, audio, audio_len, beam_size=beam_size,
                                   tmp=dp.get("tmp", 1.0), max_tokens=cap, **fusion)
-    logits, logits_len = model(audio, audio_len)
+    logits, logits_len = model(audio, audio_len)[:2]
     logp = torch.log_softmax(logits.float() / dp.get("tmp", 1.0), dim=-1)
     if host:
         return ctc_beam.beam_search_batch(
@@ -142,14 +151,14 @@ def beam_decode(trainer: Trainer, audio: torch.Tensor, audio_len: torch.Tensor,
 def load_lm_for_fusion(config: dict, lm_epoch: str, device) -> dict:
     """The shallow-fusion LM of decoding_params["lm_config"] from its
     checkpoint of epoch ``lm_epoch`` (reference main.py:69-79, runtime.py
-    :219-238): {model, weight, tmp}."""
+    :219-238): {model, arch, weight, tmp}."""
     dp = config["decoding_params"]
     lm_config = load_config(dp["lm_config"])
     lm_trainer = Trainer(lm_config, device=device)
     lm_cb = lm_config["training_params"].get("callback_path", "callbacks/")
     lm_trainer.load(os.path.join(lm_cb, f"checkpoints_{lm_epoch}.ckpt"))
-    return {"model": lm_trainer.model.eval(), "weight": dp.get("lm_weight", 0.0),
-            "tmp": dp.get("lm_tmp", 1.0)}
+    return {"model": lm_trainer.model.eval(), "arch": lm_config["lm_params"]["arch"],
+            "weight": dp.get("lm_weight", 0.0), "tmp": dp.get("lm_tmp", 1.0)}
 
 
 def evaluate(trainer: Trainer, dataset, tokenizer, *, batch_size: int = 8,
@@ -249,8 +258,6 @@ def _refuse(args) -> None:
     if args.distributed or args.parallel or (args.world_size or 1) > 1:
         raise NotImplementedError("-d / --parallel / --world_size > 1 (more than one GPU) are "
                                   "not ported: ROADMAP Queue 1 item 14")
-    if args.profiler:
-        raise NotImplementedError("--profiler is not ported: ROADMAP Queue 1 item 13")
 
 
 def run(args) -> int:
@@ -334,7 +341,7 @@ def run(args) -> int:
         print("{} Search WER : {:.2f}%".format("Greedy" if beam <= 1 else "Beam", 100 * w))
         return 0
     if mode_base.startswith("eval_time"):
-        _eval_time(args, trainer, tokenizer, mode_base, eval_dataset())
+        _eval_time(args, trainer, tokenizer, mode_base, eval_dataset(), cb_path)
         return 0
     raise ValueError(f"unknown mode {args.mode}")
 
@@ -414,11 +421,25 @@ def _train(args, trainer: Trainer, tokenizer, cb_path: str, initial_epoch: int, 
             writer.close()
 
 
-def _eval_time(args, trainer: Trainer, tokenizer, mode_base: str, ds) -> None:
+def _eval_time(args, trainer: Trainer, tokenizer, mode_base: str, ds, cb_path: str) -> None:
     """Time evaluation (reference model.py:570-726): the whole greedy
     evaluation, the encoder alone (a CTC model's whole forward pass), or
     the prediction network stepped token by token over the labels (a
-    Transducer's)."""
+    Transducer's). With ``--profiler`` the timed work runs inside
+    torch.profiler, its trace written under ``<callback_path>/profile/``
+    and its top-10 table printed before the time (runtime.py:576-630)."""
+    dev = trainer.device
+    log_dir = os.path.join(cb_path, "profile")
+    with (profiling.trace(log_dir, dev) if args.profiler
+          else contextlib.nullcontext()) as prof:
+        seconds = _timed_eval(args, trainer, tokenizer, mode_base, ds)
+    if args.profiler:
+        profiling.print_trace_summary(prof, log_dir, dev)
+    print("eval time : {:.2f}s".format(seconds))
+
+
+def _timed_eval(args, trainer: Trainer, tokenizer, mode_base: str, ds) -> float:
+    """The work ``_eval_time`` times, in seconds."""
     model, dev = trainer.model.eval(), trainer.device
     t0 = time.perf_counter()
     if mode_base == "eval_time":
@@ -445,4 +466,4 @@ def _eval_time(args, trainer: Trainer, tokenizer, mode_base: str, ds) -> None:
                 if args.val_steps and i + 1 >= args.val_steps:
                     break
     _sync(dev)
-    print("eval time : {:.2f}s".format(time.perf_counter() - t0))
+    return time.perf_counter() - t0

@@ -1,5 +1,5 @@
-"""Trainer: the training step of the CTC, Transducer and LM models, and the
-eval loss.
+"""Trainer: the training step of the CTC, InterCTC, Transducer and LM
+models, and the eval loss.
 
 Counterpart of the train and eval steps of
 efficientconformer_tpu/training/trainer.py (``Trainer.train_step_fn``,
@@ -91,7 +91,7 @@ class Trainer:
             for mb, out_len in microbatches:
                 outputs = factory.apply_model(model, mb, True, self.generator)
                 if out_len is not None:
-                    outputs = (outputs[0], out_len)
+                    outputs = (outputs[0], out_len, *outputs[2:])
                 loss = self.loss_fn(outputs, mb)
                 (loss / len(microbatches)).backward()
                 total += loss.detach()

@@ -5,9 +5,12 @@ The port's ``state_dict`` has the original PyTorch repo's keys and layouts
 ``decoder.embedding.weight``, ``decoder.rnn.weight_ih_l0``,
 ``joint_network.linear_encoder.weight``, ...), so the JAX package's
 ``utils/torch_compat.convert_ctc`` / ``convert_transducer`` /
-``convert_lm(port.state_dict())`` is the port -> JAX map for the CTC, the
-Transducer and the RNN LM, and published reference checkpoints load into the
-port directly. ``from_jax`` is its inverse: the JAX ``{"params",
+``convert_lm(port.state_dict())`` is the port -> JAX map for the CTC (and
+InterCTC), the Transducer and the RNN LM. A checkpoint of the original repo
+reaches the port through ``python -m efficientconformer_torch.import_checkpoint``
+(import_checkpoint.py), which loads its ``model_state_dict`` strictly once
+the DDP prefix and the frontend's buffers are dropped, and writes a port
+checkpoint and the tokenizer. ``from_jax`` is the inverse map: the JAX ``{"params",
 "batch_stats"}`` tree of a ModelCTC, a Transducer or a LanguageModel (numpy
 or array leaves) -> a state dict the port loads. No Transformer LM
 checkpoint of the original exists (its TransformerBlock never built), so
@@ -28,6 +31,7 @@ Layouts, JAX -> torch:
   Conv1d kernel (k, in/g, out)            -> Conv1d weight (out, in/g, k)
   Conv2d kernel (k_time, k_mel, in, out)  -> Conv2d weight (out, in, k_mel, k_time)
   input projection, mel-major (mel*C, D)  -> weight (D, C*mel), channel-major
+  InterCTC interctc_fc_i / interctc_proj_i -> encoder.linear_expand_i / linear_proj_i
   scale/bias, batch_stats mean/var        -> weight/bias, running_mean/var
 """
 
@@ -168,6 +172,11 @@ def _encoder(sd, enc, enc_stats):
         if "conv_res" in blk:
             _conv1d(sd, f"{key}.conv_res.1", blk["conv_res"])
         _norm(sd, f"{key}.norm", blk["norm"])
+    # InterCTC taps, under the original's names (torch_compat.py:155-167)
+    for name, p in enc.items():
+        if m := re.fullmatch(r"interctc_(fc|proj)_(\d+)", name):
+            which = "expand" if m.group(1) == "fc" else "proj"
+            _dense(sd, f"encoder.linear_{which}_{m.group(2)}", p)
 
 
 def load_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module, mu, nu, count) -> None:

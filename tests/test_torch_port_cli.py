@@ -6,7 +6,8 @@ run equal to the uninterrupted one, greedy test evaluation against a direct
 the eval_time modes, the Transducer from a frozen CTC encoder, the LM on a
 text corpus, beam-search evaluation (CTC with the n-gram on the device and
 on the host, the Transducer with the n-gram and a port LM checkpoint
-fused) against direct calls of the beams, and the flags the port refuses.
+fused, on the device and on the host) against direct calls of the beams,
+``--profiler``'s table, and the flags the port refuses.
 """
 
 import ast
@@ -29,7 +30,7 @@ from efficientconformer_torch import main as cli
 from efficientconformer_torch import runtime
 from efficientconformer_torch.data import datasets
 from efficientconformer_torch.data.loader import AsrBatchLoader
-from efficientconformer_torch.decoding import ctc_beam
+from efficientconformer_torch.decoding import ctc_beam, rnnt_beam
 from efficientconformer_torch.decoding.ctc_beam_device import ctc_beam_search_device
 from efficientconformer_torch.decoding.ngram import ArpaLM
 from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
@@ -207,16 +208,35 @@ def test_cli_lm(setup, tmp_path):
     (["--gready", "-d"], "item 14"),
     (["--gready", "--parallel"], "item 14"),
     (["--gready", "--world_size", 2], "item 14"),
-    (["--gready", "--profiler"], "item 13"),
 ])
 def test_cli_refuses_what_it_lacks(setup, tmp_path, flags, item):
-    """Parallelism and the profiler raise, naming their ROADMAP item."""
+    """Parallelism raises, naming its ROADMAP item."""
     _, cfg, _ = setup
     cfg = json.loads(json.dumps(cfg))
     cfg["decoding_params"]["beam_size"] = 16
     path = write_config(cfg, tmp_path / "ctc.json", tmp_path / "cb")
     with pytest.raises(NotImplementedError, match=item):
         run_cli(path, "-m", "test-clean", "--batch_size_eval", 3, *flags)
+
+
+@pytest.mark.parametrize("model,mode", [("ctc", "eval_time_encoder"),
+                                        ("transducer", "eval_time_decoder")])
+def test_cli_profiler_prints_the_op_table(setup, tmp_path, model, mode):
+    """--profiler: the top-10 table of the timed work (ops by self CPU time
+    on the CPU), printed before the eval time line, and the trace under
+    callback_path/profile/."""
+    _, ctc_cfg, t_cfg = setup
+    cfg = ctc_cfg if model == "ctc" else t_cfg
+    path = write_config(cfg, tmp_path / f"{model}.json", tmp_path / "cb")
+    out = run_cli(path, "-m", mode, "--batch_size_eval", 3, "--val_steps", 1, "--profiler")
+    head = re.search(r"profiler: top (\d+) ops by self CPU time \((.*)\):\n", out)
+    assert head and head.group(2) == str(tmp_path / "cb" / "profile"), out
+    table, rest = out[head.end():].split("\neval time : ")
+    rows = table.splitlines()[2:]
+    assert len(rows) == int(head.group(1)) == 10 and re.match(r"[\d.]+s", rest)
+    totals = [float(row.split()[-4].removesuffix("ms")) for row in rows]
+    assert totals == sorted(totals, reverse=True) and totals[0] > 0
+    assert (tmp_path / "cb" / "profile" / "trace.json").stat().st_size > 0
 
 
 def beam_config(cfg, tmp_path, lm_callbacks=None):
@@ -300,8 +320,10 @@ def test_cli_ctc_beam_search(setup, tmp_path, monkeypatch):
 def test_cli_transducer_beam_search_with_lm_fusion(setup, tmp_path, monkeypatch):
     """test-clean without --gready for the Transducer: the device beam with
     the n-gram, and with --initial_epoch_lm 1 also the LM of lm_config from
-    a port checkpoint; the host Transducer beam (ECF_HOST_BEAM=1) raises,
-    naming its ROADMAP item."""
+    a port checkpoint; then with ECF_HOST_BEAM=1 the host beams, the batched
+    one with the n-gram alone and the per-utterance one with the
+    Transformer LM as well: each prints its predictions equal to the beam
+    called directly."""
     _, _, cfg = setup
     lm_cb = tmp_path / "lm_cb"
     cfg = beam_config(cfg, tmp_path, lm_callbacks=lm_cb)
@@ -324,5 +346,12 @@ def test_cli_transducer_beam_search_with_lm_fusion(setup, tmp_path, monkeypatch)
         assert len(got) == 4 and got == direct_beam(
             cfg, lambda m, x, n, f=fusion: beam(m, x, n, **f))
     monkeypatch.setenv("ECF_HOST_BEAM", "1")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_cli(path, "-m", "test-clean", "--batch_size_eval", 2)
+    ng = dict(beam_size=4, ngram=arpa, ngram_alpha=0.3, ngram_beta=1)
+    for flags, fn, fusion in (([], rnnt_beam.beam_search_batched, {}),
+                              (["--initial_epoch_lm", 1], rnnt_beam.beam_search,
+                               {"lm_model": lm_model, "lm_weight": 0.5})):
+        out = run_cli(path, "-m", "test-clean", "--batch_size_eval", 2, "--verbose_val", *flags)
+        assert re.search(r"Beam Search WER : [\d.]+%", out)
+        got = predictions(out)
+        assert len(got) == 4 and got == direct_beam(
+            cfg, lambda m, x, n, fn=fn, f=fusion: fn(m, x, n, **ng, **f))

@@ -457,6 +457,51 @@ def test_bias_kernel_matches_plain_version(cuda, b, h, nq, nk, dqk, dv, layout):
     torch.testing.assert_close(o16.float(), want16, rtol=0, atol=BF16_TOL)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,nk", [(1, 1), (1, 64), (1, 65), (1, 100), (16, 128), (16, 129),
+                                  (16, 200)])
+def test_bias_kernel_at_one_query_row(cuda, b, nk):
+    """The growing-cache LM step's shape (one query row, H 12, dh 64, keys
+    across the 64-key tile edges): fp32 O and LSE, then bf16 O on the
+    tensor-core route, against the plain version."""
+    args = bias_case(cuda, b, 12, 1, nk, 64, 64, "bhqk", seed=nk)
+    BA.bias_attention.launches = BA.bias_attention.tc_launches = 0
+    o, lse = BA.bias_attention(*args)
+    want_o, want_lse = BA.reference_bias_attention(*args)
+    torch.testing.assert_close(o, want_o, rtol=0, atol=FP32_TOL)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=FP32_TOL)
+    a16 = [t.to(torch.bfloat16) for t in args[:3]]
+    o16, _ = BA.bias_attention(*a16, *args[3:])
+    want16, _ = BA.reference_bias_attention(*[t.float() for t in a16], *args[3:])
+    torch.testing.assert_close(o16.float(), want16, rtol=0, atol=BF16_TOL)
+    assert (BA.bias_attention.launches, BA.bias_attention.tc_launches) == (2, 1)
+
+
+@pytest.mark.gpu
+def test_growing_cache_step_on_the_card_matches_the_cpu(cuda):
+    """A narrow LM-Transformer stepped 20 tokens on the growing cache on
+    the card (the bias kernel at one query row, counted) and on the CPU."""
+    from efficientconformer_torch.models.lm import LanguageModel
+    from efficientconformer_torch.models.model_ctc import init_params_
+
+    params = {"arch": "Transformer", "num_blocks": 2, "dim_model": 64, "ff_ratio": 2,
+              "num_heads": 4, "vocab_size": 32, "relative_pos_enc": True,
+              "max_pos_encoding": 64, "Pdrop": 0.0}
+    cpu = LanguageModel(params, 32)
+    init_params_(cpu, torch.Generator().manual_seed(0))
+    card = LanguageModel(params, 32).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(1, 32, (3, 20), generator=torch.Generator().manual_seed(1))
+    BA.bias_attention.launches = 0
+    with torch.no_grad():
+        got = want = None
+        for t in range(tokens.shape[1]):
+            logits, got = card.eval().step(tokens[:, t].to(cuda), got)
+            ref, want = cpu.eval().step(tokens[:, t], want)
+            torch.testing.assert_close(logits.cpu(), ref, rtol=0, atol=FP32_TOL)
+    assert BA.bias_attention.launches == 2 * tokens.shape[1]
+
+
 def streaming_bias(b, h, frames, g, left, right, lengths, gen):
     """The bias a causal (right 0) or limited-context encoder layer hands
     the kernel over ``frames`` stage frames: skewed rel-pos-like scores plus

@@ -85,8 +85,8 @@ def test_top_k_breaks_ties_as_jax(seed):
 
 def jax_and_port_lm(params, seed=3):
     jm = JaxLM(lm_params=params, vocab_size=VOCAB)
-    variables = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(seed),
-                                                 jnp.zeros((1, 4), jnp.int32), None, False))
+    init = jax.jit(lambda key: jm.init(key, jnp.zeros((1, 4), jnp.int32), None, False))
+    variables = jax.tree.map(np.asarray, init(jax.random.PRNGKey(seed)))
     model = LanguageModel(params, VOCAB)
     model.load_state_dict(from_jax(variables), strict=True)
     return jm, variables, model.eval()
@@ -149,10 +149,17 @@ def test_rnn_lm_step_matches_jax():
 
 
 def test_growing_cache_step_raises():
+    """The growing cache no longer raises: from init_carry's None a step
+    gives the fixed-capacity step's logits and a per-block cache
+    (tests/test_torch_port_host_beam.py holds it to JAX's)."""
     _, _, model = jax_and_port_lm(TRANSFORMER_LM)
     assert model.init_carry(2, "cpu") is None
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.step(torch.zeros(2, dtype=torch.long), None)
+    tok = torch.tensor([3, 7])
+    with torch.no_grad():
+        logits, carry = model.step(tok, None)
+        want, _ = model.step(tok, model.init_carry_fixed(2, 4, "cpu"))
+    torch.testing.assert_close(logits, want, rtol=0, atol=STEP_TOL)
+    assert len(carry) == TRANSFORMER_LM["num_blocks"] and carry[0]["k"].shape == (2, 1, 16)
 
 
 # ------------------------------------------------------------ n-gram scorers

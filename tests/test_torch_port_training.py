@@ -426,15 +426,22 @@ def test_optimizer_matches_optax_from_the_same_state(opt):
 
 
 def test_unported_training_options_raise():
-    """remat and the InterCTC model type raise with their ROADMAP items
-    (the LM is ported: tests/test_torch_port_lm.py). Variational noise is
-    ported, for the Transducer: a CTC model takes none, as in the JAX
-    package, whose ModelCTC has no vn_std."""
+    """remat raises with its ROADMAP item (the LM is ported:
+    tests/test_torch_port_lm.py; InterCTC too: an InterCTC config without
+    interctc_blocks builds the model with no taps, as in the JAX package,
+    tests/test_torch_port_interctc.py holds the taps and the step without
+    them; an unknown
+    model type raises). Variational noise is ported, for the Transducer: a
+    CTC model takes none, as in the JAX package, whose ModelCTC has no
+    vn_std."""
     cfg = copy.deepcopy(train_config())
     cfg["encoder_params"]["remat"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(dict(train_config(), model_type="InterCTC"), device="cpu")
+    inter = Trainer(dict(train_config(), model_type="InterCTC"), device="cpu").model
+    assert inter.encoder.interctc_blocks == () and not any(
+        "linear_expand" in n for n, _ in inter.named_parameters())
+    with pytest.raises(ValueError, match="unknown model type"):
+        Trainer(dict(train_config(), model_type="Other"), device="cpu")
     trainer = Trainer(train_config(vn_std=0.075, vn_start_step=0), device="cpu")
     assert all(getattr(m, "vn_std", None) is None for m in trainer.model.modules())

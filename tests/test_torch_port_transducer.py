@@ -410,14 +410,15 @@ def test_trainer_draws_the_noise_once_per_step_from_vn_start_step():
 
 def test_unported_decoders_raise():
     """The Transformer decoder builds (the LM-Transformer's) and steps on a
-    fixed-capacity cache, but its growing-cache step (carry None, the host
-    Transducer beam's) raises, and so do a Transformer decoder with
-    variational noise and the Conformer decoder."""
+    fixed-capacity cache and on the growing cache (carry None, the host
+    Transducer beam's), but a Transformer decoder with variational noise and
+    the Conformer decoder raise."""
     params = {"arch": "Transformer", "num_blocks": 1, "dim_model": 8, "ff_ratio": 2,
               "num_heads": 2, "Pdrop": 0.0, "relative_pos_enc": True, "max_pos_encoding": 16,
               "vocab_size": VOCAB}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_decoder(params).step(torch.zeros(2, dtype=torch.long), None)
+    with torch.no_grad():
+        out, carry = make_decoder(params).eval().step(torch.zeros(2, dtype=torch.long), None)
+    assert out.shape == (2, 8) and len(carry) == 1 and carry[0]["k"].shape == (2, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_decoder(params, vn_std=0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
