@@ -11,9 +11,11 @@ step), configs/LM-Transformer.json (scoring: eval loss and perplexity;
 the LM training step), each with its config's own training_params, beam
 search with the configs' decoding_params (the CTC prefix beam with an
 n-gram, the Transducer beam with the LM-Transformer and an n-gram, on the
-device and on the host, the latter on the growing KV cache), InterCTC, and
+device and on the host, the latter on the growing KV cache), InterCTC,
 streaming: sessions over the flagship made causal or limited-context, and
-the slot-pool server over both Smalls. Holds
+the slot-pool server over both Smalls, then remat, the encoder and decoder
+variants no shipped config uses, and EfficientConformerCTCMedium made
+causal, streamed at head width 135. Holds
 every hand-written kernel on those paths to its plain PyTorch version on
 the card. Phases, one line each; any failure exits non-zero:
 
@@ -230,6 +232,40 @@ the card. Phases, one line each; any failure exits non-zero:
                 beside [train-rate]'s, 30 / 30 rel-pos launches on the
                 tensor cores, device ms and host syncs a step beside the
                 CTC step's
+ 42. remat      encoder_params remat "full" and "dots" on the flagship:
+                [remat-fp32] one fp32 step at [train-slice]'s shape with
+                dropout 0.1 and SpecAugment on equal to the step without
+                remat (loss, gradients, BatchNorm statistics within 1e-5
+                relative, the generator's state equal); then the config's
+                bf16 step at [train-rate]'s 2 x 32 x 16 s with remat off,
+                full and dots (within 2e-2 of each other): ms a step, peak
+                memory, rel-pos launches a step (60 / 30 under remat: the
+                recompute runs the forward kernel again)
+ 43. variants   CTC Small's widths and depth with one change each: even G
+                [2, 1, 1], local attention (att_kernel_size 8), strided
+                attention (att_stride 2), absolute attention, linear
+                attention, and the Conv1d, Conv2dPool and VGG subsamplings:
+                fp32 logits of 4 ragged utterances through the kernels vs
+                the plain versions on the card and vs the CPU (<= 1e-3),
+                the bias and rel-pos launches each takes; for those on the
+                bias kernels one fp32 step vs the plain versions and a bf16
+                forward on the tensor-core route vs the plain versions on
+                the same bf16 model (<= 2e-2 of the largest logit); then
+                Transducer Small with a 2-block Conformer decoder: lattice
+                (fp32, and bf16 vs plain), one step, greedy tokens equal to
+                the plain versions', the device beam; [variants-greedy]:
+                the greedy loop's ms a decoder step beside the RNN
+                decoder's
+ 44. wide-kernel  both bias kernels vs their plain versions at head widths
+                135 (causal EfficientConformer Medium/Large stage 1) and 256
+                at Medium's stage-1 serving-window shape (32 slots, H 4),
+                fp32 and bf16 (tensor cores); [wide-kernel-time]: each timed
+                in bf16 from CUDA graphs beside the plain version, SDPA with
+                the bias as its mask and the bound
+ 45. stream-medium  EfficientConformerCTCMedium made causal (left context 16)
+                streamed in fp32 as [stream-exact]: [stream-medium-kernel]
+                at its window shapes, then the streamed logits within 1e-3
+                of the batch forward
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 rel-pos entries also with their bf16 error, tensor-core launches and eager
@@ -241,7 +277,11 @@ time]'s times as ``step_*_ms``; the rel-pos and bias forward entries with ``serv
 of [stream-exact], [serve-slice] and [serve-rate], each counted from 0
 just before the phase's server or sessions run, the bias forward's with
 [stream-kernel-time]'s summed times as ``stream_*_ms``; every entry with
-``cli_launches``, its launches over the CLI's runs, each counted from 0), and last {"ok": true, "device": {...}}. With
+``cli_launches``, its launches over the CLI's runs, each counted from 0;
+the rel-pos entries with ``remat_launches`` of [remat]'s remat "full"
+step; the bias entries with ``variants_launches`` of [variants]' fp32
+steps and [wide-kernel-time]'s rows as ``wide_{135,256}_*_ms``, the
+forward's with ``stream_medium_launches``), and last {"ok": true, "device": {...}}. With
 --profile it also prints a torch.profiler device-time breakdown of one
 batch or step of each path, the beams included.
 There is no CPU path: without a GPU the script exits non-zero and prints no
@@ -338,6 +378,14 @@ T_HOST_BEAM_CHECK = (2.0, 1.5)  # [t-host-beam]'s card vs CPU check: 2 utterance
 T_HOST_BEAM_W = 4            # its beam
 T_HOST_BEAM_SECONDS = 4.0    # its main path: one utterance at the config's beam
 INTERCTC_TAPS = (4, 7)       # [interctc-step]: the strided block 4 and block 7 of stage 2
+MEDIUM_CONFIG = "configs/EfficientConformerCTCMedium.json"
+REMAT_FP32_TOL = 1e-5        # remat vs none, fp32: the same arithmetic, recomputed
+REMAT_BF16_TOL = 2e-2        # the same in bf16 at the config's own step
+VARIANT_BF16_TOL = 2e-2      # [variants]' bf16 logits, kernels vs plain versions on the same
+                             # bf16 model and inputs, relative to max(max|logits|, 1): the
+                             # logits are bf16, whose step is 0.0156 at 2-4 (H100 readings:
+                             # 0.0312-0.0317 max |diff|, 0.0124-0.0138 relative, on the CTC
+                             # variants; 0.0176, 0.0107 on the Conformer decoder's lattice)
 SERVE_GEOMETRY = {"chunk_frames": 16, "history_frames": 64, "lookahead_frames": 4}
                              # serving_bench.py's defaults: 66 / 18 / 4 after alignment, an
                              # 88-frame (7.03 s) window
@@ -1385,7 +1433,7 @@ def bias_grad_errors(got, want):
             for n, g, w in zip(("dq", "dk", "dv", "ds"), got, want)}
 
 
-def check_bias_case(name, args, gen):
+def check_bias_case(name, args, gen, phase="lm-kernel"):
     """Both bias kernels vs their plain versions on ``args``: fp32 (O, LSE;
     the four gradients on the same dO), then bf16 on bf16-rounded q, k, v
     (the plain versions compute in fp32 from the same bf16 inputs, so the
@@ -1424,7 +1472,7 @@ def check_bias_case(name, args, gen):
     check(bias_launch_counts() == (2, 2) and bias_tc_counts() == (1, 1),
           f"{name}: launches {bias_launch_counts()}, tensor-core {bias_tc_counts()}, "
           "expected the bf16 pair on the tensor cores")
-    say("lm-kernel", case=name, B=q.shape[0], H=q.shape[1], Nq=q.shape[2], Nk=k.shape[2],
+    say(phase, case=name, B=q.shape[0], H=q.shape[1], Nq=q.shape[2], Nk=k.shape[2],
         dqk=q.shape[3], dv=v.shape[3], bias=tuple(bias.shape), fp32_err_o=f"{err_o:.3g}",
         fp32_err_lse=f"{err_lse:.3g}", fp32_bwd_rel_err=f"{max(err.values()):.3g}",
         bf16_err_o=f"{err16:.3g}", bf16_bwd_rel_err=f"{max(err16b.values()):.3g}")
@@ -2952,6 +3000,77 @@ def ctc_model(enc_params, dtype):
     return perturb_norms_(model.to("cuda").eval())
 
 
+def stream_exact_case(phase, name, p, seconds, rng, gen):
+    """One encoder ``p`` streamed as [stream-exact] streams it (see
+    phase_stream_exact): its bias kernel held to the plain version at the
+    session's window shapes, then two ragged rows of ``seconds`` streamed in
+    fp32 and held to the batch forward. Returns its bias and rel-pos
+    launches and the largest fp32 kernel error."""
+    from efficientconformer_torch import streaming as S
+    from efficientconformer_torch.config import encoder_output_frames
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    model = ctc_model(p, torch.float32)
+    causal = bool(p.get("causal"))
+    look = 2 if causal else S.suggested_lookahead_frames(p)
+    sess = S.StreamingEncoderSession(model, p, batch_size=2, chunk_frames=16,
+                                     lookahead_frames=look, device="cuda")
+    err, _ = check_bias_window(f"{phase}-kernel", p, sess.window_frames, 2,
+                               p["left_context"], 0 if causal else p["right_context"], gen)
+    n = [int(s * SAMPLE_RATE) for s in seconds]
+    audio = (rng.standard_normal((2, n[0])) * 0.1).astype(np.float32)
+    audio[1, n[1]:] = 0.0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ems, pos = [], 0
+    for bite in itertools.cycle((0.7, 1.9, 0.4)):
+        step = int(bite * SAMPLE_RATE)
+        ems += sess.push(audio[:, pos:pos + step])
+        pos += step
+        if pos >= n[0]:
+            break
+    ems += sess.finish(np.array(n))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got_launches, rel = BA.bias_attention.launches, rel_counts()[0]
+    check(got_launches == len(model.encoder.blocks) * len(ems) and rel == 0,
+          f"{name}: {got_launches} bias / {rel} rel-pos launches for {len(ems)} windows")
+    got = np.concatenate([em.valid for em in ems], axis=1)
+    padded = np.concatenate([audio, np.zeros((2, sess.window_samples), np.float32)], 1)
+    with torch.inference_mode():
+        want, _ = model(torch.from_numpy(padded).cuda(), torch.tensor(n, device="cuda"))
+    want = want.float().cpu().numpy()
+    # the limited encoder's last `look` frames: past a row's length
+    # plus the left context, query rows are fully masked and average V
+    # over every key of the row, the padding included, and the
+    # non-causal convs carry that into these frames; the batch forward
+    # pads otherwise than a window, so here streamed and batch differ in
+    # the JAX package too, by as much
+    # (tests/test_torch_port_streaming.py::test_finite_context_tail_matches_jax):
+    # held apart, not to the padded batch forward
+    tail = 0 if causal else look
+    errs, tail_errs, tail_over = [], [0.0], 0
+    for i in range(2):
+        cap = encoder_output_frames(p, n[i])
+        check(got.shape[1] >= cap, f"{name}: {got.shape[1]} frames emitted, {cap} expected")
+        errs.append(float(np.abs(got[i, :cap - tail] - want[i, :cap - tail]).max()))
+        if tail:
+            d = np.abs(got[i, cap - tail:cap] - want[i, cap - tail:cap]).max(-1)
+            tail_errs.append(float(d.max()))
+            tail_over += int((d > STREAM_TOL).sum())
+    agree = float(np.mean([(got[i, :c].argmax(-1) == want[i, :c].argmax(-1)).mean()
+                           for i, c in enumerate(encoder_output_frames(p, m) for m in n)]))
+    check(max(errs) <= STREAM_TOL, f"{name}: streamed vs batch |diff| {errs} > {STREAM_TOL}")
+    say(phase, config=name, left_context=p["left_context"],
+        right_context=0 if causal else p["right_context"], seconds=list(seconds),
+        history=sess.history_frames, chunk=sess.chunk_frames, lookahead=look,
+        window_frames=sess.window_frames, windows=len(ems), dtype="float32",
+        max_abs_diff=f"{max(errs):.3g}", tol=STREAM_TOL, tail_frames=tail,
+        tail_max_abs_diff=f"{max(tail_errs):.3g}", tail_frames_over_tol=tail_over,
+        argmax_agreement=f"{agree:.6f}", bias_launches=got_launches, wall_s=f"{wall:.2f}")
+    return got_launches, rel, err
+
+
 def phase_stream_exact():
     """The flagship made causal (left context STREAM_EXACT_LEFT), and made
     limited-context (left STREAM_EXACT_LEFT, right 2) at the suggested
@@ -2965,9 +3084,7 @@ def phase_stream_exact():
     window shapes (check_bias_window, two rows). Returns the bias and the
     rel-pos launches of the two sessions and the largest fp32 kernel
     error."""
-    from efficientconformer_torch import streaming as S
-    from efficientconformer_torch.config import encoder_output_frames, load_config
-    from efficientconformer_torch.ops import bias_attention as BA
+    from efficientconformer_torch.config import load_config
 
     base = load_config(CONFIG)["encoder_params"]
     rng = np.random.default_rng(SEED + 21)
@@ -2978,66 +3095,8 @@ def phase_stream_exact():
             ("causal", dict(base, causal=True, left_context=STREAM_EXACT_LEFT), (30.0, 24.0)),
             ("limited", dict(base, left_context=STREAM_EXACT_LEFT, right_context=2),
              (40.0, 36.0))):
-        model = ctc_model(p, torch.float32)
-        causal = bool(p.get("causal"))
-        look = 2 if causal else S.suggested_lookahead_frames(p)
-        sess = S.StreamingEncoderSession(model, p, batch_size=2, chunk_frames=16,
-                                         lookahead_frames=look, device="cuda")
-        err, _ = check_bias_window("stream-exact-kernel", p, sess.window_frames, 2,
-                                   p["left_context"], 0 if causal else p["right_context"], gen)
-        worst = max(worst, err)
-        n = [int(s * SAMPLE_RATE) for s in seconds]
-        audio = (rng.standard_normal((2, n[0])) * 0.1).astype(np.float32)
-        audio[1, n[1]:] = 0.0
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        ems, pos = [], 0
-        for bite in itertools.cycle((0.7, 1.9, 0.4)):
-            step = int(bite * SAMPLE_RATE)
-            ems += sess.push(audio[:, pos:pos + step])
-            pos += step
-            if pos >= n[0]:
-                break
-        ems += sess.finish(np.array(n))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got_launches, rel = BA.bias_attention.launches, rel_counts()[0]
-        launches, rel_launches = launches + got_launches, rel_launches + rel
-        check(got_launches == len(model.encoder.blocks) * len(ems) and rel == 0,
-              f"{name}: {got_launches} bias / {rel} rel-pos launches for {len(ems)} windows")
-        got = np.concatenate([em.valid for em in ems], axis=1)
-        padded = np.concatenate([audio, np.zeros((2, sess.window_samples), np.float32)], 1)
-        with torch.inference_mode():
-            want, _ = model(torch.from_numpy(padded).cuda(), torch.tensor(n, device="cuda"))
-        want = want.float().cpu().numpy()
-        # the limited encoder's last `look` frames: past a row's length
-        # plus the left context, query rows are fully masked and average V
-        # over every key of the row, the padding included, and the
-        # non-causal convs carry that into these frames; the batch forward
-        # pads otherwise than a window, so here streamed and batch differ in
-        # the JAX package too, by as much
-        # (tests/test_torch_port_streaming.py::test_finite_context_tail_matches_jax):
-        # held apart, not to the padded batch forward
-        tail = 0 if causal else look
-        errs, tail_errs, tail_over = [], [0.0], 0
-        for i in range(2):
-            cap = encoder_output_frames(p, n[i])
-            check(got.shape[1] >= cap, f"{name}: {got.shape[1]} frames emitted, {cap} expected")
-            errs.append(float(np.abs(got[i, :cap - tail] - want[i, :cap - tail]).max()))
-            if tail:
-                d = np.abs(got[i, cap - tail:cap] - want[i, cap - tail:cap]).max(-1)
-                tail_errs.append(float(d.max()))
-                tail_over += int((d > STREAM_TOL).sum())
-        agree = float(np.mean([(got[i, :c].argmax(-1) == want[i, :c].argmax(-1)).mean()
-                               for i, c in enumerate(encoder_output_frames(p, m) for m in n)]))
-        check(max(errs) <= STREAM_TOL, f"{name}: streamed vs batch |diff| {errs} > {STREAM_TOL}")
-        say("stream-exact", config=name, left_context=p["left_context"],
-            right_context=0 if causal else p["right_context"], seconds=list(seconds),
-            history=sess.history_frames, chunk=sess.chunk_frames, lookahead=look,
-            window_frames=sess.window_frames, windows=len(ems), dtype="float32",
-            max_abs_diff=f"{max(errs):.3g}", tol=STREAM_TOL, tail_frames=tail,
-            tail_max_abs_diff=f"{max(tail_errs):.3g}", tail_frames_over_tol=tail_over,
-            argmax_agreement=f"{agree:.6f}", bias_launches=got_launches, wall_s=f"{wall:.2f}")
+        got_launches, rel, err = stream_exact_case("stream-exact", name, p, seconds, rng, gen)
+        launches, rel_launches, worst = launches + got_launches, rel_launches + rel, max(worst, err)
     return launches, rel_launches, worst
 
 
@@ -3485,6 +3544,472 @@ def phase_interctc_step(card_line, train_rate_ms):
     return launches[0], launches[2]
 
 
+# ---------------------------------------------------------------- remat
+
+
+def remat_step(cfg, batch, remat):
+    """One step of a fresh trainer over ``cfg`` with encoder_params remat
+    ``remat`` (None: off): (loss, grad norm, gradients on the CPU, BatchNorm
+    statistics on the CPU, the generator's state after the step)."""
+    from efficientconformer_torch.training.trainer import Trainer
+
+    cfg = json.loads(json.dumps(cfg))
+    if remat:
+        cfg["encoder_params"]["remat"] = remat
+    trainer = Trainer(cfg, device="cuda", seed=SEED)
+    loss, grad_norm = trainer.train_step(batch)
+    grads = {n: p.grad.float().cpu() for n, p in trainer.model.named_parameters()}
+    stats = {n: b.cpu() for n, b in trainer.model.named_buffers() if "running" in n}
+    return float(loss), float(grad_norm), grads, stats, trainer.generator.get_state()
+
+
+def phase_remat(card_line):
+    """Activation recomputation on the flagship. fp32 at [train-slice]'s
+    shape with its config's dropout 0.1 and SpecAugment on: remat "full"
+    and "dots" give the step without remat (loss, gradients and BatchNorm
+    statistics within REMAT_FP32_TOL relative, the generator's state equal,
+    so the recompute drew the forward's masks and updated no statistic
+    twice). Then the config's own bf16 step at [train-rate]'s 2 x 32 x 16 s
+    with remat off, "full" and "dots": the three steps from the same
+    weights within REMAT_BF16_TOL of each other (loss, gradients, BatchNorm
+    statistics; the generator's state equal), then ms a step, peak
+    memory and rel-pos launches a step for each (twice the forward's: the
+    recompute runs the kernel again). Returns the rel-pos (forward,
+    backward) launches of one remat "full" bf16 step."""
+    cfg = train_config(mixed_precision=False)
+    seconds = [[4.0, 5.5, 7.0, 8.0], [8.0, 6.5, 4.5, 5.0]]
+    batch = train_batch(2, 4, seconds, [12, 30, 0, 20], "cpu", np.random.default_rng(SEED + 50))
+    base = remat_step(cfg, batch, None)
+    out = {}
+    for remat in ("full", "dots"):
+        got = remat_step(cfg, batch, remat)
+        loss_err = abs(got[0] - base[0]) / abs(base[0])
+        grad_err, stats_err = rel_diff(got[2], base[2]), rel_diff(got[3], base[3])
+        same_gen = torch.equal(got[4], base[4])
+        check(loss_err <= REMAT_FP32_TOL and grad_err <= REMAT_FP32_TOL
+              and stats_err <= REMAT_FP32_TOL and same_gen,
+              f"[remat] fp32 {remat}: loss {loss_err}, gradients {grad_err}, statistics "
+              f"{stats_err}, generator state equal {same_gen}")
+        out[remat] = (loss_err, grad_err, stats_err)
+    say("remat-fp32", config="EfficientConformerCTCSmall", dropout=cfg["encoder_params"]["Pdrop"],
+        spec_augment=cfg["encoder_params"]["spec_augment"],
+        **{f"{r}_{k}": f"{v:.3g}" for r, errs in out.items()
+           for k, v in zip(("loss_rel", "grad_rel", "stats_rel"), errs)},
+        generator_state_equal=True, tol=REMAT_FP32_TOL)
+
+    cfg = train_config()
+    tp = cfg["training_params"]
+    big = train_batch(tp["accumulated_steps"], tp["batch_size"],
+                      tp["train_audio_max_length"] / SAMPLE_RATE, [80], "cuda",
+                      np.random.default_rng(SEED + 4))
+    first = {}
+    full_launches = (0, 0)
+    for remat in (None, "full", "dots"):
+        first[remat] = remat_step(cfg, big, remat)
+        if remat:
+            b = first[None]
+            loss_err = abs(first[remat][0] - b[0]) / abs(b[0])
+            grad_err = rel_diff(first[remat][2], b[2])
+            stats_err = rel_diff(first[remat][3], b[3])
+            check(loss_err <= REMAT_BF16_TOL and grad_err <= REMAT_BF16_TOL
+                  and stats_err <= REMAT_BF16_TOL and torch.equal(first[remat][4], b[4]),
+                  f"[remat] bf16 {remat}: loss {loss_err}, gradients {grad_err}, statistics "
+                  f"{stats_err}, generator state equal {torch.equal(first[remat][4], b[4])}")
+        from efficientconformer_torch.training.trainer import Trainer
+
+        c = json.loads(json.dumps(cfg))
+        if remat:
+            c["encoder_params"]["remat"] = remat
+        trainer = Trainer(c, device="cuda", seed=SEED)
+        trainer.train_step(big)
+        torch.cuda.synchronize()
+        reset_rel_counts()
+        trainer.train_step(big)
+        torch.cuda.synchronize()
+        launches = rel_counts()
+        if remat == "full":
+            full_launches = (launches[0], launches[2])
+        torch.cuda.reset_peak_memory_stats()
+        iters = 3
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            loss, _ = trainer.train_step(big)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(math.isfinite(float(loss)), f"[remat] {remat}: loss {float(loss)}")
+        errs = {} if not remat else {
+            "loss_rel_vs_off": f"{abs(first[remat][0] - first[None][0]) / abs(first[None][0]):.3g}",
+            "grad_rel_vs_off": f"{rel_diff(first[remat][2], first[None][2]):.3g}",
+            "stats_rel_vs_off": f"{rel_diff(first[remat][3], first[None][3]):.3g}",
+            "generator_state_equal": torch.equal(first[remat][4], first[None][4])}
+        say("remat", config="EfficientConformerCTCSmall", remat=remat or "off",
+            microbatches=tp["accumulated_steps"], batch=tp["batch_size"], seconds=16.0,
+            dtype="bfloat16", ms_per_step=f"{dt * 1e3:.2f}", peak_mem_gib=f"{peak:.2f}",
+            rel_fwd_launches=launches[0], rel_bwd_launches=launches[2],
+            tc_launches=(launches[1], launches[3]), **errs, tol=REMAT_BF16_TOL,
+            card=f"'{card_line}'")
+        del trainer
+        torch.cuda.empty_cache()
+    return full_launches
+
+
+# ---------------------------------------------------------------- variants
+
+
+def variant_configs():
+    """(name, encoder_params) of EfficientConformer CTC Small's widths and
+    depth with one change each (G 1 where local or strided attention,
+    which the grouped layers do not take, is asked for)."""
+    from efficientconformer_torch.config import load_config
+
+    base = load_config(CONFIG)["encoder_params"]
+    return [
+        ("att_group_size_2", dict(base, att_group_size=[2, 1, 1])),
+        ("att_kernel_size_8", dict(base, att_group_size=1, att_kernel_size=8)),
+        ("att_stride_2", dict(base, att_group_size=1, conv_stride=1, att_stride=2)),
+        ("relative_pos_enc_false", dict(base, relative_pos_enc=False)),
+        ("linear_att", dict(base, relative_pos_enc=False, linear_att=True)),
+        ("subsampling_Conv1d", dict(base, subsampling_module="Conv1d",
+                                    subsampling_filters=[240])),
+        ("subsampling_Conv2dPool", dict(base, subsampling_module="Conv2dPool")),
+        ("subsampling_VGG", dict(base, subsampling_module="VGG")),
+    ]
+
+
+def conformer_decoder_params(t_cfg) -> dict:
+    """Transducer Small's prediction network as a Conformer decoder at its
+    width (320), 2 blocks of 4 heads, kernel 15, ff_ratio 4."""
+    return {"arch": "Conformer", "num_blocks": 2, "dim_model": t_cfg["decoder_params"]["dim_model"],
+            "ff_ratio": 4, "num_heads": 4, "kernel_size": 15, "Pdrop": 0.1,
+            "relative_pos_enc": True, "max_pos_encoding": 10000,
+            "vocab_size": t_cfg["decoder_params"]["vocab_size"]}
+
+
+def variant_forward(model, x, x_len):
+    with torch.inference_mode():
+        return model(x, x_len)[0].float().cpu()
+
+
+def attention_blocks(p) -> tuple[int, int]:
+    """(bias-kernel layers, rel-pos-kernel layers) of a full-context encoder
+    ``p`` under its key mask: absolute attention, and rel-pos attention with
+    an even G or a stride, take the bias kernel; the other rel-pos layers
+    the factorized rel-pos kernel; local and linear attention neither."""
+    from efficientconformer_torch.config import resolve_block_configs
+
+    bias = rel = 0
+    for c in resolve_block_configs(p):
+        if c.linear_att or c.att_kernel_size is not None:
+            continue
+        if not c.relative_pos_enc or c.att_group_size % 2 == 0 or c.att_stride > 1:
+            bias += 1
+        else:
+            rel += 1
+    return bias, rel
+
+
+def phase_variants(card_line):
+    """The configs the JAX package builds from encoder_params and
+    decoder_params that no shipped config uses: CTC Small with one change
+    each (variant_configs), fp32, one forward of 4 ragged utterances of 4-8
+    s through the kernels vs the plain versions on the card and vs the CPU
+    (logits within SLICE_TOL); for the variants on the bias kernels also
+    one fp32 training step (2 x 4 utterances, dropout 0, SpecAugment off)
+    vs the plain versions on the card, and a bf16 forward on the
+    tensor-core route vs the plain versions on the same bf16 model (logits
+    within VARIANT_BF16_TOL). Then Transducer Small with a Conformer
+    decoder: the lattice likewise (bf16 too), a training step, greedy
+    tokens through the kernels equal to those through the plain versions,
+    the device beam, and the greedy loop's ms a decoder step beside
+    Transducer Small's RNN decoder on the same frames. Bias launches on
+    each route are printed. Returns the bias forward and
+    backward launches over the variants' fp32 training steps."""
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.models import transducer as T
+    from efficientconformer_torch.models.model_ctc import ModelCTC, init_params_
+
+    rng = np.random.default_rng(SEED + 60)
+    x, x_len = ragged_audio((8.0, 6.5, 4.0, 5.5), "cpu", rng)
+    seconds = [[4.0, 5.5, 7.0, 8.0], [8.0, 6.5, 4.5, 5.0]]
+    batch = train_batch(2, 4, seconds, [12, 30, 0, 20], "cpu", np.random.default_rng(SEED + 61))
+    vocab = load_config(CONFIG)["tokenizer_params"]["vocab_size"]
+    train_launches = [0, 0]
+    for name, p in variant_configs():
+        n_bias, n_rel = attention_blocks(p)
+        model = ModelCTC(p, vocab)
+        init_params_(model, torch.Generator().manual_seed(SEED))
+        perturb_norms_(model.eval())
+        want_cpu = variant_forward(model, x, x_len)
+        model.cuda()
+        reset_launch_counts()
+        got = variant_forward(model, x.cuda(), x_len.cuda())
+        fwd32 = (bias_launch_counts()[0], bias_tc_counts()[0])
+        with plain_kernels():
+            plain = variant_forward(model, x.cuda(), x_len.cuda())
+        err_plain = (got - plain).abs().max().item()
+        err_cpu = (got - want_cpu).abs().max().item()
+        check(err_plain <= SLICE_TOL and err_cpu <= SLICE_TOL,
+              f"[variants] {name}: logits vs plain {err_plain}, vs CPU {err_cpu} > {SLICE_TOL}")
+        check(torch.isfinite(got).all().item(), f"[variants] {name}: non-finite logits")
+        check(fwd32[0] == n_bias and fwd32[1] == 0 and rel_counts()[0] == n_rel,
+              f"[variants] {name}: fp32 bias launches {fwd32}, rel-pos {rel_counts()[0]}")
+        fields = {}
+        if n_bias:
+            cfg = train_config(mixed_precision=False)
+            cfg["encoder_params"] = dict(p, Pdrop=0.0, spec_augment=False)
+            reset_launch_counts()
+            kernel = one_step(cfg, "cuda", batch)
+            torch.cuda.synchronize()
+            launches = bias_launch_counts()
+            train_launches[0] += launches[0]
+            train_launches[1] += launches[1]
+            plain_step = one_step(cfg, "cuda", batch, plain=True)
+            loss_err = abs(kernel[0] - plain_step[0]) / abs(plain_step[0])
+            grad_err = rel_diff(kernel[2], plain_step[2])
+            check(loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL,
+                  f"[variants] {name} step: loss {loss_err}, gradients {grad_err}")
+            check(launches[0] == launches[1] == 2 * n_bias,
+                  f"[variants] {name} step: bias launches {launches}")
+            model16 = ctc_model(p, torch.bfloat16)
+            reset_launch_counts()
+            out16 = variant_forward(model16, x.cuda(), x_len.cuda())
+            tc16 = bias_tc_counts()[0]
+            check(torch.isfinite(out16).all().item() and tc16 == bias_launch_counts()[0] == n_bias,
+                  f"[variants] {name} bf16: tensor-core launches {bias_tc_counts()}")
+            with plain_kernels():
+                plain16 = variant_forward(model16, x.cuda(), x_len.cuda())
+            err16, rel16 = bf16_logits_err(out16, plain16)
+            check(rel16 <= VARIANT_BF16_TOL,
+                  f"[variants] {name} bf16: logits vs plain {rel16} > {VARIANT_BF16_TOL}")
+            fields = {"step_loss_rel": f"{loss_err:.3g}", "step_grad_rel": f"{grad_err:.3g}",
+                      "step_bias_launches": launches, "bf16_tc_launches": tc16,
+                      "bf16_vs_plain": f"{err16:.3g}", "bf16_vs_plain_rel": f"{rel16:.3g}",
+                      "bf16_tol": VARIANT_BF16_TOL,
+                      "bf16_vs_fp32": f"{(out16 - got).abs().max().item():.3g}"}
+            del model16
+        say("variants", config=name, dtype="float32", B=4, vs_plain=f"{err_plain:.3g}",
+            vs_cpu=f"{err_cpu:.3g}", tol=SLICE_TOL, fp32_bias_launches=fwd32[0],
+            rel_launches=rel_counts()[0], **fields)
+        del model
+        torch.cuda.empty_cache()
+
+    # Transducer Small with a Conformer decoder
+    t_cfg = load_config(T_CONFIG)
+    dec = conformer_decoder_params(t_cfg)
+    enc = t_cfg["encoder_params"]
+    model = T.Transducer(enc, dec, t_cfg["joint_params"], dec["vocab_size"])
+    init_params_(model, torch.Generator().manual_seed(SEED))
+    perturb_norms_(model.eval())
+    y = torch.from_numpy(np.random.default_rng(SEED + 62).integers(1, dec["vocab_size"], (4, 20)))
+    y_len = torch.tensor([20, 12, 7, 16])
+    y = y * (torch.arange(20)[None] < y_len[:, None])
+    with torch.inference_mode():
+        want_cpu = model(x, y, x_len, y_len)[0].float()
+    model.cuda()
+    reset_launch_counts()
+    with torch.inference_mode():
+        got = model(x.cuda(), y.cuda(), x_len.cuda(), y_len.cuda())[0].float().cpu()
+        fwd32 = bias_launch_counts()[0]
+        with plain_kernels():
+            plain = model(x.cuda(), y.cuda(), x_len.cuda(), y_len.cuda())[0].float().cpu()
+    err_plain, err_cpu = (got - plain).abs().max().item(), (got - want_cpu).abs().max().item()
+    check(err_plain <= SLICE_TOL and err_cpu <= SLICE_TOL,
+          f"[variants] conformer decoder lattice vs plain {err_plain}, vs CPU {err_cpu}")
+    check(fwd32 == dec["num_blocks"], f"[variants] conformer decoder: bias launches {fwd32}")
+    bf16 = {"compute_dtype": "bfloat16"}
+    model16 = T.Transducer(dict(enc, **bf16), dict(dec, **bf16),
+                           dict(t_cfg["joint_params"], **bf16), dec["vocab_size"])
+    init_params_(model16, torch.Generator().manual_seed(SEED))
+    perturb_norms_(model16.cuda().eval())
+    reset_launch_counts()
+    with torch.inference_mode():
+        got16 = model16(x.cuda(), y.cuda(), x_len.cuda(), y_len.cuda())[0].float()
+        tc16 = bias_tc_counts()[0]
+        with plain_kernels():
+            plain16 = model16(x.cuda(), y.cuda(), x_len.cuda(), y_len.cuda())[0].float()
+    err16, rel16 = bf16_logits_err(got16, plain16)
+    check(torch.isfinite(got16).all().item() and tc16 == dec["num_blocks"]
+          and rel16 <= VARIANT_BF16_TOL,
+          f"[variants] conformer decoder bf16: lattice vs plain {rel16}, tensor-core launches {tc16}")
+    del model16, got16, plain16
+    cap = T.greedy_token_cap(enc, int(x_len.max()), MAX_CONSEC)
+    short = (x[:2, :int(2.5 * SAMPLE_RATE)].cuda(), torch.full((2,), int(2.5 * SAMPLE_RATE),
+                                                             device="cuda"))
+    short_cap = T.greedy_token_cap(enc, int(2.5 * SAMPLE_RATE), MAX_CONSEC)
+    reset_launch_counts()
+    tokens, counts = T.greedy_decode(model, *short, short_cap)
+    greedy_launches = bias_launch_counts()[0]
+    with plain_kernels():
+        want_tok, want_n = T.greedy_decode(model, *short, short_cap)
+    check(torch.equal(tokens, want_tok) and torch.equal(counts, want_n),
+          "[variants] conformer decoder: greedy tokens through the kernels differ from plain")
+    from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
+
+    beam = beam_search_device(model, *short, beam_size=4, max_tokens=short_cap)
+    check(len(beam) == 2, "[variants] conformer decoder: beam")
+    # the greedy loop's ms a decoder step, beside Transducer Small's own RNN
+    # decoder on the same frames
+    rnn = T.Transducer(enc, t_cfg["decoder_params"], t_cfg["joint_params"], dec["vocab_size"])
+    init_params_(rnn, torch.Generator().manual_seed(SEED))
+    rnn.encoder = model.encoder
+    step_ms = {name: greedy_step_ms(m, x.cuda(), x_len.cuda(), cap)
+               for name, m in (("conformer", model), ("rnn", rnn.cuda().eval()))}
+    del rnn
+    cfg = json.loads(json.dumps(t_cfg))
+    cfg["decoder_params"] = dict(dec, Pdrop=0.0)
+    cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+    cfg["training_params"].update(mixed_precision=False)
+    t_batch = train_batch(2, 4, seconds, [12, 30, 0, 20], "cpu", np.random.default_rng(SEED + 63))
+    reset_launch_counts()
+    kernel = one_step(cfg, "cuda", t_batch)
+    torch.cuda.synchronize()
+    step_launches = bias_launch_counts()
+    plain_step = one_step(cfg, "cuda", t_batch, plain=True)
+    loss_err = abs(kernel[0] - plain_step[0]) / abs(plain_step[0])
+    grad_err = rel_diff(kernel[2], plain_step[2])
+    check(loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL,
+          f"[variants] conformer decoder step: loss {loss_err}, gradients {grad_err}")
+    train_launches[0] += step_launches[0]
+    train_launches[1] += step_launches[1]
+    say("variants", config="transducer_conformer_decoder", decoder=dec, dtype="float32", B=4,
+        lattice_vs_plain=f"{err_plain:.3g}", lattice_vs_cpu=f"{err_cpu:.3g}", tol=SLICE_TOL,
+        lattice_bias_launches=fwd32, lattice_bf16_vs_plain=f"{err16:.3g}",
+        lattice_bf16_vs_plain_rel=f"{rel16:.3g}",
+        lattice_bf16_tc_launches=tc16, bf16_tol=VARIANT_BF16_TOL, greedy_tokens=counts.tolist(),
+        greedy_bias_launches=greedy_launches, beam_tokens=[len(b) for b in beam],
+        step_loss_rel=f"{loss_err:.3g}", step_grad_rel=f"{grad_err:.3g}",
+        step_bias_launches=step_launches, token_cap=cap, card=f"'{card_line}'")
+    for name, (ms, steps, tokens) in step_ms.items():
+        say("variants-greedy", decoder=name, B=4, seconds="8.0/6.5/4.0/5.5", dtype="float32",
+            token_cap=cap, tokens=tokens, decoder_steps=steps, ms=f"{ms:.2f}",
+            ms_per_step=f"{ms / steps:.3f}", card=f"'{card_line}'")
+    return tuple(train_launches)
+
+
+def bf16_logits_err(got, want) -> tuple[float, float]:
+    """max |got - want| of two logit tensors, and the same over
+    max(max |want|, 1)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1.0)
+
+
+def greedy_step_ms(model, x, x_len, cap):
+    """(ms, decoder steps, tokens) of the label-looping greedy loop over
+    the encoder frames of x (T.decode_frames, the encoder outside the
+    timing), after a warm-up run of the same loop."""
+    from efficientconformer_torch.models import transducer as T
+
+    calls = [0]
+    step = model.decoder.step
+
+    def counted(*args):
+        calls[0] += 1
+        return step(*args)
+
+    with torch.inference_mode():
+        f, f_len = model.encoder(x, x_len)
+        model.decoder.step = counted
+        try:
+            T.decode_frames(model, f, f_len, cap, MAX_CONSEC)
+            torch.cuda.synchronize()
+            calls[0] = 0
+            t0 = time.perf_counter()
+            _, counts = T.decode_frames(model, f, f_len, cap, MAX_CONSEC)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            del model.decoder.step
+    return ms, calls[0], counts.tolist()
+
+
+# ------------------------------------------------------------ wide kernels
+
+
+def phase_wide_kernel():
+    """Both bias kernels vs their plain versions at head widths 135 (the
+    causal EfficientConformer Medium/Large's stage 1) and 256, fp32 and
+    bf16 (on the tensor cores, by the route counters), at Medium's stage-1
+    window shape: 32 slots, H 4, N the grouped frames of a serving window
+    (history 64, chunk 16, lookahead 4) with its causal bias. Then each
+    timed in bf16 from CUDA graphs beside the plain version, SDPA with the
+    bias as its mask (on inputs zero-padded to a multiple of 8 columns) and
+    the bound. Returns the largest fp32 errors and the width-135 rows."""
+    from efficientconformer_torch import streaming as S
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    p = dict(load_config(MEDIUM_CONFIG)["encoder_params"], causal=True, left_context=STREAM_LEFT)
+    geo = S.WindowGeometry(p, **SERVE_GEOMETRY)
+    frames, g, dh = stream_stage_shapes(p, geo.window_frames)[0]
+    check(dh == 135, f"[wide-kernel] Medium's stage-1 head width is {dh}")
+    h = p["num_heads"]
+    gen = torch.Generator().manual_seed(SEED + 70)
+    err_f = err_b = 0.0
+    rows = {}
+    for width in (135, 256):
+        lengths = torch.linspace(1, frames, STREAM_SLOTS).round().long()
+        bias, _ = stream_bias(STREAM_SLOTS, h, frames, g, STREAM_LEFT, 0, lengths, gen)
+        n = bias.shape[-1]
+        args = bias_inputs(STREAM_SLOTS, h, n, n, width, width, "keymask", gen)
+        args = (*args[:3], bias.cuda(), args[4])
+        ef, eb = check_bias_case(f"width-{width}", args, gen, phase="wide-kernel")
+        err_f, err_b = max(err_f, ef), max(err_b, eb)
+        q, k, v, bias, scale = args
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        o, lse = BA.bias_attention_fwd(q, k, v, bias, scale)
+        do = torch.randn(o.shape, generator=gen).to("cuda", torch.bfloat16)
+        mask16 = bias.to(torch.bfloat16)
+        lq, lk, lv = (pad8(t).detach().requires_grad_() for t in (q, k, v))
+        lmask = mask16.detach().clone().requires_grad_()
+        ldo = pad8(do)
+
+        def library_fwd():
+            return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask16, scale=scale)
+
+        def library_bwd():
+            out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask, scale=scale)
+            return torch.autograd.grad(out, (lq, lk, lv, lmask), ldo)
+
+        calls = {"forward": {
+            "kernel": lambda: BA.bias_attention_fwd(q, k, v, bias, scale),
+            "plain": lambda: BA.reference_bias_attention(q, k, v, bias, scale),
+            "library": library_fwd}, "backward": {
+            "kernel": lambda: BA.bias_attention_bwd(q, k, v, bias, o, do, lse, scale),
+            "plain": lambda: BA.reference_bias_attention_bwd(q, k, v, bias, do, scale),
+            "library": library_bwd}}
+        for label, fns in calls.items():
+            backward = label == "backward"
+            row = {name: graph_ms(fn) for name, fn in fns.items()}
+            row["bound"], row["bound_by"] = bound(*bias_cost(STREAM_SLOTS, h, n, n, width,
+                                                             width, 2, backward))
+            say("wide-kernel-time", direction=label, B=STREAM_SLOTS, H=h, N=n, dh=width,
+                dtype="bfloat16", bound_by=row["bound_by"],
+                library="sdpa fwd" + (" + bwd, mask grad" if backward else "") + ", bias as mask",
+                **{f"{k}_ms": f"{v:.4f}" for k, v in row.items() if k != "bound_by"})
+            rows[(width, label)] = row
+    return err_f, err_b, rows
+
+
+# ---------------------------------------------------------------- Medium streamed
+
+
+def phase_stream_medium():
+    """EfficientConformerCTCMedium at its published widths and depth made
+    causal (left context STREAM_EXACT_LEFT), streamed in fp32 as
+    [stream-exact] streams the flagship (stream_exact_case): its stage-1
+    layers run the bias kernels at head width 135. Returns its bias
+    launches and the largest fp32 kernel error."""
+    from efficientconformer_torch.config import load_config
+
+    p = dict(load_config(MEDIUM_CONFIG)["encoder_params"], causal=True,
+             left_context=STREAM_EXACT_LEFT)
+    launches, rel, err = stream_exact_case("stream-medium", "medium-causal", p, (60.0, 50.0),
+                                           np.random.default_rng(SEED + 80),
+                                           torch.Generator().manual_seed(SEED + 81))
+    return launches, err
+
+
 def wall_ms(fn, iters: int = 3) -> float:
     """Host-clock ms per call of ``fn`` after two warm-up calls."""
     for _ in range(2):
@@ -3692,6 +4217,16 @@ def main() -> int:
     check(cli[1] == cli[0] and cli[3] == cli[2] and cli[7] == cli[6] and cli[9] == cli[8],
           f"a bf16 CLI path missed the tensor-core route: {cli}")
     interctc_fwd, interctc_bwd = phase_interctc_step(card_line, train_rate_ms)
+    remat_fwd, remat_bwd = phase_remat(card_line)
+    variant_fwd, variant_bwd = phase_variants(card_line)
+    err_wide, err_wide_bwd, wide_rows = phase_wide_kernel()
+    medium_launches, err_medium = phase_stream_medium()
+    check(variant_fwd > 0 and variant_bwd > 0 and medium_launches > 0,
+          "the variants' paths missed a bias kernel")
+
+    def wide(direction):
+        return {f"wide_{w}_{k}_ms": wide_rows[(w, direction)][k] for w in (135, 256)
+                for k in ("kernel", "plain", "bound", "library")}
     if opts.profile:
         phase_profile()
 
@@ -3716,13 +4251,13 @@ def main() -> int:
                              "t-host-beam": host_rel},
               serve_launches={"stream-exact": stream_rel, "serve-slice": serve_rel,
                               "serve-rate": sum(rate_rel.values())},
-              interctc_launches=interctc_fwd),
+              interctc_launches=interctc_fwd, remat_launches=remat_fwd),
         entry(RA.KERNEL_BWD, "efficientconformer_torch/csrc/rel_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:139", launches_bwd,
               max(max_err_bwd, t_err_bwd), times_bwd,
               bf16_max_err=max(err16_bwd, t_err16_bwd), tc_launches=tc_bwd,
               graph_ms=times_bwd["kernel"], eager_ms=times_bwd["kernel_call"],
-              interctc_launches=interctc_bwd),
+              interctc_launches=interctc_bwd, remat_launches=remat_bwd),
         entry(RL.KERNEL_FWD, "efficientconformer_torch/csrc/rnnt_fwd.cu",
               "efficientconformer_tpu/ops/pallas_rnnt.py:73", rnnt_fwd, err_rnnt, times_rnnt),
         entry(RL.KERNEL_BWD, "efficientconformer_torch/csrc/rnnt_bwd.cu",
@@ -3730,7 +4265,9 @@ def main() -> int:
               times_rnnt_bwd),
         entry(BA.KERNEL, "efficientconformer_torch/csrc/bias_attention_fwd.cu",
               "efficientconformer_tpu/ops/pallas_attention.py:55", lm_fwd,
-              max(err_bias, err_stream, err_stream_exact, step_err), times_bias,
+              max(err_bias, err_stream, err_stream_exact, step_err, err_wide, err_medium),
+              times_bias, variants_launches=variant_fwd, stream_medium_launches=medium_launches,
+              **wide("forward"),
               serve_launches={"stream-exact": stream_launches, "serve-slice": serve_bias,
                               "serve-rate": sum(rate_bias.values())},
               stream_kernel_ms=times_stream["kernel"], stream_plain_ms=times_stream["plain"],
@@ -3739,8 +4276,9 @@ def main() -> int:
               step_kernel_ms=times_step["kernel"], step_plain_ms=times_step["plain"],
               step_bound_ms=times_step["bound"], step_library_ms=times_step["library"]),
         entry(BA.KERNEL_BWD, "efficientconformer_torch/csrc/bias_attention_bwd.cu",
-              "efficientconformer_tpu/ops/pallas_attention.py:412", lm_bwd, err_bias_bwd,
-              times_bias_bwd),
+              "efficientconformer_tpu/ops/pallas_attention.py:412", lm_bwd,
+              max(err_bias_bwd, err_wide_bwd), times_bias_bwd, variants_launches=variant_bwd,
+              **wide("backward")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,11 +57,17 @@
 //     word at a time 65 (odd, so a half-warp's 16 neighbouring columns fall
 //     in distinct banks).
 //
+// Widths up to 256: the tensor-core passes at padded widths 64, 128, 144 and
+// 256, the last with two blocks a tile, each accumulating 128 columns of
+// dq (or of dk and dv) and both forming the same S and dP; the fp32 route
+// past 128, where the 64-row tiles outgrow shared memory, runs
+// bias_bwd_{q,k}_wide_kernel (16-row tiles, one score a thread).
+//
 // The tensor-core kernels run every product on mma.sync.m16n8k16 (bf16 in,
 // fp32 accumulate). q, k, v, O and dO stay bf16 in shared memory (rows
 // padded by 8 elements for conflict-free ldmatrix), copied with 16-byte
-// cp.async where every row is 16-byte aligned (the LM's rows are 1,536
-// bytes apart) and element by element otherwise, zero-padded to a width of
+// cp.async (every row, of the gradients too, 16-byte aligned: the entry
+// point refuses others, and the wrapper pads), zero-padded to a width of
 // 16; the two passes double-buffer their streamed tiles. The fp32 bias comes
 // in with 4-byte cp.async, a warp on 32 consecutive keys of a row (its rows
 // are 404 bytes apart at Nk 101, so no wider copy is aligned). P and dS
@@ -97,7 +103,7 @@ constexpr int BK = 64;          // keys per tile
 constexpr int NTHREADS = 256;   // a 16 x 16 grid of threads, each a 4 x 4 tile
 constexpr int LDV = 68;         // row stride of tiles read four rows at a time
 constexpr int LDS = 65;         // row stride of tiles read one word at a time
-constexpr int MAX_WIDTH = 128;
+constexpr int MAX_WIDTH = 256;
 constexpr size_t MAX_SMEM = 232448;  // 227 KB a block may use on sm_90
 
 static_assert(NTHREADS == 16 * 16 && BQ == 4 * 16 && BK == 4 * 16, "thread grid");
@@ -131,7 +137,6 @@ struct Params {
   int64_t dv_sb, dv_sh, dv_sn;
   int64_t bias_sb, bias_sh, bias_sn;
   float scale;
-  bool q_vec, k_vec, v_vec, o_vec, do_vec, dq_vec, dk_vec, dv_vec;  // tc::vec16 of each
 };
 
 __device__ __forceinline__ float load_bias(const Params& p, int64_t off) {
@@ -144,6 +149,7 @@ __host__ __device__ inline int jmax_for(int d) {
   return d <= 32 ? 2 : d <= 64 ? 4 : d <= 96 ? 6 : 8;
 }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 // regions start at multiples of 4 floats, so float4 loads stay aligned
 __host__ __device__ inline size_t r4(size_t floats) { return (floats + 3) & ~static_cast<size_t>(3); }
 
@@ -510,6 +516,223 @@ __global__ void __launch_bounds__(NTHREADS) bias_bwd_k_kernel(Params p) {
   }
 }
 
+// ------------------------------------------- fp32, widths past 128
+//
+// The tiled FMA kernels above hold the block's 64 rows (or keys) feature-
+// major beside a 64-wide streamed tile, which at widths past 128 outgrows
+// the 227 KB of shared memory. These two keep tiles of 16 rows and 16 keys,
+// row-major with an odd stride (16 * JW + 1 floats), so a block takes 68 KB
+// at width 256: a 16 x 16 thread grid forms one score and one dP a thread
+// (a row of q against a row of k, over the whole width), then each thread
+// accumulates JW feature columns of its row's (or key's) gradients.
+
+constexpr int WB = 16;            // rows (query side) or keys (key side) a block owns; tile size
+constexpr int W_THREADS = 256;    // a 16 x 16 grid
+
+__host__ __device__ inline int jw_for(int d) { return d <= 144 ? 9 : d <= 192 ? 12 : 16; }
+
+// the LSE and Di of 16 rows, four [16][16 JW + 1] tiles and two [16][17]
+__host__ __device__ inline size_t wide_smem_floats(int jw) {
+  return 3 * WB + 4 * static_cast<size_t>(WB) * (16 * jw + 1) + 2 * WB * (WB + 1);
+}
+
+// rows [row0, row0 + 16) of a (nrows, width) matrix into shared [16][LW],
+// zero past nrows and width up to 16 JW; a warp per row
+template <typename T, int JW>
+__device__ __forceinline__ void load_rows_wide(float* dst, const T* src, int64_t sn, int row0,
+                                               int nrows, int width) {
+  constexpr int LW = 16 * JW + 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < WB; r += W_THREADS / 32) {
+    const bool ok = row0 + r < nrows;
+    for (int f = lane; f < 16 * JW; f += 32) {
+      dst[r * LW + f] = ok && f < width ? to_f32(src[(row0 + r) * sn + f]) : 0.f;
+    }
+  }
+}
+
+template <typename T, int JW>
+__global__ void __launch_bounds__(W_THREADS) bias_bwd_q_wide_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int LW = 16 * JW + 1;
+  double* lse_s = reinterpret_cast<double*>(smem);   // [16]
+  float* di_s = smem + 2 * WB;                        // [16]
+  float* qs = di_s + WB;                              // [16][LW]: the block's q rows
+  float* dos = qs + WB * LW;                          // [16][LW]: their dO rows
+  float* ks = dos + WB * LW;                          // [16][LW]: a key tile
+  float* vs = ks + WB * LW;                           // [16][LW]: its values
+  float* dss = vs + WB * LW;                          // [16][17]: dS of the tile
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = blockIdx.x * WB;
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int64_t bh = static_cast<int64_t>(b) * heads + h;
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* op = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const int64_t bias_bh = b * p.bias_sb + h * p.bias_sh;
+
+  // 1. q and dO of the rows
+  load_rows_wide<T, JW>(qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_sn, q0,
+                        p.nq, p.dqk);
+  load_rows_wide<T, JW>(dos, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_sn,
+                        q0, p.nq, p.dvw);
+  __syncthreads();
+
+  // 2. Di = rowsum(dO * O) of row ty over the half-warp (written out for the
+  //    key side), and the row's LSE
+  const int qi = q0 + ty;
+  {
+    float acc = 0.f;
+    if (qi < p.nq) {
+      for (int f = tx; f < p.dvw; f += 16) acc = fmaf(dos[ty * LW + f], to_f32(op[qi * p.o_sn + f]), acc);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (tx == 0) {
+      di_s[ty] = acc;
+      lse_s[ty] = qi < p.nq ? p.lse[bh * p.nq + qi] : 0.0;
+      if (qi < p.nq) p.di[bh * p.nq + qi] = acc;
+    }
+  }
+
+  // 3. over the key tiles: dq += dS k, row ty, features tx + 16 j
+  float acc[JW];
+#pragma unroll
+  for (int j = 0; j < JW; ++j) acc[j] = 0.f;
+  for (int k0 = 0; k0 < p.nk; k0 += WB) {
+    // the previous tile's readers finished at the loop's last barrier
+    load_rows_wide<T, JW>(ks, kp, p.k_sn, k0, p.nk, p.dqk);
+    load_rows_wide<T, JW>(vs, vp, p.v_sn, k0, p.nk, p.dvw);
+    __syncthreads();
+
+    // S and dP of (row ty, key tx); dS, zero past Nq and Nk
+    float sc = 0.f, dp = 0.f;
+    const float* qr = qs + ty * LW;
+    const float* kr = ks + tx * LW;
+    for (int f = 0; f < p.dqk; ++f) sc = fmaf(qr[f], kr[f], sc);
+    const float* dr = dos + ty * LW;
+    const float* vr = vs + tx * LW;
+    for (int f = 0; f < p.dvw; ++f) dp = fmaf(dr[f], vr[f], dp);
+    const int kj = k0 + tx;
+    float g = 0.f;
+    if (qi < p.nq && kj < p.nk) {
+      const float bv = p.bias ? load_bias(p, bias_bh + qi * p.bias_sn + kj) : 0.f;
+      const float pr = expf(static_cast<float>(static_cast<double>(sc * p.scale + bv) - lse_s[ty]));
+      g = pr * (dp - di_s[ty]);
+      if (p.ds) p.ds[(bh * p.nq + qi) * p.nk + kj] = g;
+    }
+    dss[ty * (WB + 1) + tx] = g;
+    __syncthreads();
+
+    for (int c = 0; c < WB; ++c) {
+      const float gv = dss[ty * (WB + 1) + c];
+      const float* krow = ks + c * LW + tx;
+#pragma unroll
+      for (int j = 0; j < JW; ++j) acc[j] = fmaf(gv, krow[16 * j], acc[j]);
+    }
+    __syncthreads();
+  }
+
+  // 4. write dq = scale dS k (input type)
+  if (qi < p.nq) {
+    T* dq = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh + qi * p.dq_sn;
+#pragma unroll
+    for (int j = 0; j < JW; ++j) {
+      const int d = tx + 16 * j;
+      if (d < p.dqk) dq[d] = from_f32<T>(acc[j] * p.scale);
+    }
+  }
+}
+
+template <typename T, int JW>
+__global__ void __launch_bounds__(W_THREADS) bias_bwd_k_wide_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int LW = 16 * JW + 1;
+  double* lse_s = reinterpret_cast<double*>(smem);   // [16]: the tile's rows
+  float* di_s = smem + 2 * WB;                        // [16]
+  float* ks = di_s + WB;                              // [16][LW]: the block's keys
+  float* vs = ks + WB * LW;                           // [16][LW]: their values
+  float* qs = vs + WB * LW;                           // [16][LW]: a query tile
+  float* dos = qs + WB * LW;                          // [16][LW]: its dO rows
+  float* pt = dos + WB * LW;                          // [16][17]: P^T of the tile, [key][row]
+  float* dst = pt + WB * (WB + 1);                    // [16][17]: dS^T
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int k0 = blockIdx.x * WB;
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int64_t bh = static_cast<int64_t>(b) * heads + h;
+  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int64_t bias_bh = b * p.bias_sb + h * p.bias_sh;
+
+  // 1. the block's keys and values
+  load_rows_wide<T, JW>(ks, static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh, p.k_sn, k0,
+                        p.nk, p.dqk);
+  load_rows_wide<T, JW>(vs, static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh, p.v_sn, k0,
+                        p.nk, p.dvw);
+
+  // 2. over the query tiles: dv += P^T dO, dk += dS^T q, key ty, features
+  //    tx + 16 j
+  float dk[JW], dv[JW];
+#pragma unroll
+  for (int j = 0; j < JW; ++j) dk[j] = dv[j] = 0.f;
+  const int kj = k0 + ty;
+  for (int q0 = 0; q0 < p.nq; q0 += WB) {
+    // the previous tile's readers finished at the loop's last barrier
+    load_rows_wide<T, JW>(qs, qp, p.q_sn, q0, p.nq, p.dqk);
+    load_rows_wide<T, JW>(dos, dop, p.do_sn, q0, p.nq, p.dvw);
+    if (tid < WB) {
+      lse_s[tid] = q0 + tid < p.nq ? p.lse[bh * p.nq + q0 + tid] : 0.0;
+    } else if (tid < 2 * WB) {
+      di_s[tid - WB] = q0 + tid - WB < p.nq ? p.di[bh * p.nq + q0 + tid - WB] : 0.f;
+    }
+    __syncthreads();
+
+    // S and dP of (key ty, row tx); P and dS, zero past Nq and Nk
+    float sc = 0.f, dp = 0.f;
+    const float* kr = ks + ty * LW;
+    const float* qr = qs + tx * LW;
+    for (int f = 0; f < p.dqk; ++f) sc = fmaf(kr[f], qr[f], sc);
+    const float* vr = vs + ty * LW;
+    const float* dr = dos + tx * LW;
+    for (int f = 0; f < p.dvw; ++f) dp = fmaf(vr[f], dr[f], dp);
+    const int qi = q0 + tx;
+    float pr = 0.f;
+    if (qi < p.nq && kj < p.nk) {
+      const float bv = p.bias ? load_bias(p, bias_bh + qi * p.bias_sn + kj) : 0.f;
+      pr = expf(static_cast<float>(static_cast<double>(sc * p.scale + bv) - lse_s[tx]));
+    }
+    pt[ty * (WB + 1) + tx] = pr;
+    dst[ty * (WB + 1) + tx] = pr * (dp - di_s[tx]);
+    __syncthreads();
+
+    for (int r = 0; r < WB; ++r) {
+      const float pv = pt[ty * (WB + 1) + r], gv = dst[ty * (WB + 1) + r];
+      const float* orow = dos + r * LW + tx;
+      const float* qrow = qs + r * LW + tx;
+#pragma unroll
+      for (int j = 0; j < JW; ++j) {
+        dv[j] = fmaf(pv, orow[16 * j], dv[j]);
+        dk[j] = fmaf(gv, qrow[16 * j], dk[j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // 3. write dk (scaled) and dv (input type)
+  if (kj < p.nk) {
+    T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh + kj * p.dk_sn;
+    T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh + kj * p.dv_sn;
+#pragma unroll
+    for (int j = 0; j < JW; ++j) {
+      const int d = tx + 16 * j;
+      if (d < p.dqk) dkp[d] = from_f32<T>(dk[j] * p.scale);
+      if (d < p.dvw) dvp[d] = from_f32<T>(dv[j]);
+    }
+  }
+}
+
 // ------------------------------------------------ bf16: the tensor cores
 
 constexpr int TC_THREADS = 128;        // four warps, 16 rows (or keys) each
@@ -535,12 +758,16 @@ __host__ __device__ constexpr size_t tc_k_smem_bytes(int dmax) {
              (TC_LDK * sizeof(float) + sizeof(double) + sizeof(float));
 }
 
-// DMAX: the padded head width the registers are sized for (64 or 128); the
-// loops over features stop at the real widths rounded up to 16.
-template <int DMAX>
-__global__ void __launch_bounds__(TC_THREADS) bias_bwd_q_tc_kernel(Params p) {
+// DMAX: the padded head width of the shared tiles (64, 128, 144 or 256); the
+// loops over features stop at the real widths rounded up to 16. DOUT: the
+// dq columns a block accumulates in registers (DMAX, or 128 at 256). Past
+// DOUT the grid carries ceil(dqk / DOUT) blocks per row tile, each forming
+// the same S, dP and dS and its own DOUT columns of dq; the first writes Di
+// and dS.
+template <int DMAX, int DOUT>
+__global__ void __launch_bounds__(TC_THREADS) bias_bwd_q_tc_kernel(Params p, int nsplit) {
   using tc::bf16;
-  constexpr int LD = DMAX + 8, NT = TC_TILE / 8, DK = DMAX / 16;
+  constexpr int LD = DMAX + 8, NT = TC_TILE / 8, DK = DMAX / 16, DO = DOUT / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);       // [64][LD]
   bf16* dos = qs + TC_BLOCK * LD;                      // [64][LD]
@@ -549,7 +776,9 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_q_tc_kernel(Params p) {
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int q0 = blockIdx.x * TC_BLOCK;
+  const int split = blockIdx.x % nsplit, nb = split * DO;   // first dq column step
+  const float* ds_out = split == 0 ? p.ds : nullptr;
+  const int q0 = (blockIdx.x / nsplit) * TC_BLOCK;
   const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
   const int64_t bh = static_cast<int64_t>(b) * heads + h;
   const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -564,9 +793,9 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_q_tc_kernel(Params p) {
   auto load_keys = [&](int t) {
     const int buf = t % TC_STAGES;
     bf16* st = kv + buf * 2 * TC_TILE * LD;
-    tc::load_tile<TC_TILE, LD, DMAX, TC_THREADS>(st, kp, p.k_sn, t * TC_TILE, p.nk, p.dqk, p.k_vec);
+    tc::load_tile<TC_TILE, LD, DMAX, TC_THREADS>(st, kp, p.k_sn, t * TC_TILE, p.nk, p.dqk);
     tc::load_tile<TC_TILE, LD, DMAX, TC_THREADS>(st + TC_TILE * LD, vp, p.v_sn, t * TC_TILE, p.nk,
-                                           p.dvw, p.v_vec);
+                                           p.dvw);
     if (p.bias) {
       tc::load_bias_tile<TC_BLOCK, TC_TILE, TC_LDQ, TC_THREADS>(
           bs + buf * TC_BLOCK * TC_LDQ, p.bias, p.bias_bf16, bias_bh, p.bias_sn, q0,
@@ -577,9 +806,9 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_q_tc_kernel(Params p) {
   // 1. q, dO and O of the rows (O in the last stage, free until the loop
   //    starts), then the key tiles up to one short of the ring
   bf16* os = kv + (TC_STAGES - 1) * 2 * TC_TILE * LD;
-  tc::load_tile<TC_BLOCK, LD, DMAX, TC_THREADS>(qs, qp, p.q_sn, q0, p.nq, p.dqk, p.q_vec);
-  tc::load_tile<TC_BLOCK, LD, DMAX, TC_THREADS>(dos, dop, p.do_sn, q0, p.nq, p.dvw, p.do_vec);
-  tc::load_tile<TC_BLOCK, LD, DMAX, TC_THREADS>(os, op, p.o_sn, q0, p.nq, p.dvw, p.o_vec);
+  tc::load_tile<TC_BLOCK, LD, DMAX, TC_THREADS>(qs, qp, p.q_sn, q0, p.nq, p.dqk);
+  tc::load_tile<TC_BLOCK, LD, DMAX, TC_THREADS>(dos, dop, p.do_sn, q0, p.nq, p.dvw);
+  tc::load_tile<TC_BLOCK, LD, DMAX, TC_THREADS>(os, op, p.o_sn, q0, p.nq, p.dvw);
   tc::cp_async_commit();
 #pragma unroll
   for (int st = 0; st < TC_STAGES - 1; ++st) {
@@ -605,7 +834,7 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_q_tc_kernel(Params p) {
       acc = fmaf(a.x, o.x, fmaf(a.y, o.y, acc));
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if ((lane & 1) == 0 && q0 + rr < p.nq) p.di[bh * p.nq + q0 + rr] = acc;
+    if (split == 0 && (lane & 1) == 0 && q0 + rr < p.nq) p.di[bh * p.nq + q0 + rr] = acc;
     di[0] = __shfl_sync(0xffffffffu, acc, 2 * g);
     di[1] = __shfl_sync(0xffffffffu, acc, 2 * (g + 8));
 #pragma unroll
@@ -616,9 +845,9 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_q_tc_kernel(Params p) {
   }
 
   // 3. over the key tiles: dq += dS k, in registers
-  float dq[2 * DK][4];
+  float dq[2 * DO][4];
 #pragma unroll
-  for (int j = 0; j < 2 * DK; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  for (int j = 0; j < 2 * DO; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
 
   // this lane's ldmatrix addresses: the warp's q and dO rows, the first
   // stage's k and v
@@ -689,10 +918,10 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_q_tc_kernel(Params p) {
                                : 0.f;
           s[j][2 * hr + e] = pr * (dp[j][2 * hr + e] - di[hr]);
         }
-        if (p.ds) *reinterpret_cast<float2*>(slot) = make_float2(s[j][2 * hr], s[j][2 * hr + 1]);
+        if (ds_out) *reinterpret_cast<float2*>(slot) = make_float2(s[j][2 * hr], s[j][2 * hr + 1]);
       }
     }
-    if (p.ds) {   // the warp's 16 rows, a lane a key: whole 128-byte runs
+    if (ds_out) {   // the warp's 16 rows, a lane a key: whole 128-byte runs
       __syncwarp();
 #pragma unroll 4
       for (int rr = 0; rr < 16; ++rr) {
@@ -707,10 +936,10 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_q_tc_kernel(Params p) {
       uint32_t a[4];
       tc::acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-      for (int n2 = 0; n2 < DK; ++n2) {
-        if (n2 < kq) {
+      for (int n2 = 0; n2 < DO; ++n2) {
+        if (nb + n2 < kq) {
           uint32_t bf[4];
-          tc::ldsm_x4_t(bf, k_bt + st + tc::blk<LD>(kk, n2));
+          tc::ldsm_x4_t(bf, k_bt + st + tc::blk<LD>(kk, nb + n2));
           tc::mma_bf16(dq[2 * n2], a, bf[0], bf[1]);
           tc::mma_bf16(dq[2 * n2 + 1], a, bf[2], bf[3]);
         }
@@ -718,11 +947,13 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_q_tc_kernel(Params p) {
     }
   }
 
-  // 4. dq = scale dS k through the warp's own rows of the q tile
-  bf16* stage = qs + warp * 16 * LD;
+  // 4. this block's columns of dq = scale dS k through the warp's own rows
+  //    of the q tile
+  const int col0 = nb * 16;
+  bf16* stage = qs + warp * 16 * LD + col0;
 #pragma unroll
-  for (int j = 0; j < 2 * DK; ++j) {
-    if (j < 2 * kq) {
+  for (int j = 0; j < 2 * DO; ++j) {
+    if (2 * nb + j < 2 * kq) {
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8 * hr) * LD + j * 8 + 2 * c) =
@@ -731,14 +962,18 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_q_tc_kernel(Params p) {
     }
   }
   __syncwarp();
-  tc::store_rows<LD>(static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh, p.dq_sn, stage, 16,
-                     q0 + warp * 16, p.nq, p.dqk, p.dq_vec, lane, 32);
+  tc::store_rows<LD>(static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh + col0, p.dq_sn,
+                     stage, 16, q0 + warp * 16, p.nq, imin(p.dqk - col0, DOUT), lane,
+                     32);
 }
 
-template <int DMAX>
-__global__ void __launch_bounds__(TC_THREADS) bias_bwd_k_tc_kernel(Params p) {
+// DMAX and DOUT as the query side's: past DOUT the grid carries
+// ceil(max(dqk, dv) / DOUT) blocks per key tile, each forming the same P
+// and dS and its own DOUT columns of dk and dv.
+template <int DMAX, int DOUT>
+__global__ void __launch_bounds__(TC_THREADS) bias_bwd_k_tc_kernel(Params p, int nsplit) {
   using tc::bf16;
-  constexpr int LD = DMAX + 8, NT = TC_TILE / 8, DK = DMAX / 16;
+  constexpr int LD = DMAX + 8, NT = TC_TILE / 8, DK = DMAX / 16, DO = DOUT / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);        // [64][LD]
   bf16* vs = ks + TC_BLOCK * LD;                        // [64][LD]
@@ -749,7 +984,8 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_k_tc_kernel(Params p) {
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int k0 = blockIdx.x * TC_BLOCK;
+  const int nb = (blockIdx.x % nsplit) * DO;   // first dk and dv column step
+  const int k0 = (blockIdx.x / nsplit) * TC_BLOCK;
   const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
   const int64_t bh = static_cast<int64_t>(b) * heads + h;
   const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -763,9 +999,8 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_k_tc_kernel(Params p) {
   auto load_rows = [&](int t) {
     const int buf = t % TC_STAGES, r0 = t * TC_TILE;
     bf16* st = qd + buf * 2 * TC_TILE * LD;
-    tc::load_tile<TC_TILE, LD, DMAX, TC_THREADS>(st, qp, p.q_sn, r0, p.nq, p.dqk, p.q_vec);
-    tc::load_tile<TC_TILE, LD, DMAX, TC_THREADS>(st + TC_TILE * LD, dop, p.do_sn, r0, p.nq, p.dvw,
-                                           p.do_vec);
+    tc::load_tile<TC_TILE, LD, DMAX, TC_THREADS>(st, qp, p.q_sn, r0, p.nq, p.dqk);
+    tc::load_tile<TC_TILE, LD, DMAX, TC_THREADS>(st + TC_TILE * LD, dop, p.do_sn, r0, p.nq, p.dvw);
     if (p.bias) {
       tc::load_bias_tile<TC_TILE, TC_BLOCK, TC_LDK, TC_THREADS>(
           bs + buf * TC_TILE * TC_LDK, p.bias, p.bias_bf16, bias_bh, p.bias_sn, r0, k0, p.nq,
@@ -783,17 +1018,17 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_k_tc_kernel(Params p) {
 
   // 1. the block's keys and values, with query tile 0; then the next tiles
   //    up to one short of the ring
-  tc::load_tile<TC_BLOCK, LD, DMAX, TC_THREADS>(ks, kp, p.k_sn, k0, p.nk, p.dqk, p.k_vec);
-  tc::load_tile<TC_BLOCK, LD, DMAX, TC_THREADS>(vs, vp, p.v_sn, k0, p.nk, p.dvw, p.v_vec);
+  tc::load_tile<TC_BLOCK, LD, DMAX, TC_THREADS>(ks, kp, p.k_sn, k0, p.nk, p.dqk);
+  tc::load_tile<TC_BLOCK, LD, DMAX, TC_THREADS>(vs, vp, p.v_sn, k0, p.nk, p.dvw);
 #pragma unroll
   for (int st = 0; st < TC_STAGES - 1; ++st) {
     if (st < ntiles) load_rows(st);
     tc::cp_async_commit();
   }
 
-  float dk[2 * DK][4], dv[2 * DK][4];
+  float dk[2 * DO][4], dv[2 * DO][4];
 #pragma unroll
-  for (int j = 0; j < 2 * DK; ++j) {
+  for (int j = 0; j < 2 * DO; ++j) {
     dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
     dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
   }
@@ -874,20 +1109,20 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_k_tc_kernel(Params p) {
       uint32_t a[4];
       tc::acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-      for (int n2 = 0; n2 < DK; ++n2) {
-        if (n2 < kv_steps) {
+      for (int n2 = 0; n2 < DO; ++n2) {
+        if (nb + n2 < kv_steps) {
           uint32_t bf[4];
-          tc::ldsm_x4_t(bf, do_bt + st + tc::blk<LD>(kk, n2));
+          tc::ldsm_x4_t(bf, do_bt + st + tc::blk<LD>(kk, nb + n2));
           tc::mma_bf16(dv[2 * n2], a, bf[0], bf[1]);
           tc::mma_bf16(dv[2 * n2 + 1], a, bf[2], bf[3]);
         }
       }
       tc::acc_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
-      for (int n2 = 0; n2 < DK; ++n2) {
-        if (n2 < kq) {
+      for (int n2 = 0; n2 < DO; ++n2) {
+        if (nb + n2 < kq) {
           uint32_t bf[4];
-          tc::ldsm_x4_t(bf, q_bt + st + tc::blk<LD>(kk, n2));
+          tc::ldsm_x4_t(bf, q_bt + st + tc::blk<LD>(kk, nb + n2));
           tc::mma_bf16(dk[2 * n2], a, bf[0], bf[1]);
           tc::mma_bf16(dk[2 * n2 + 1], a, bf[2], bf[3]);
         }
@@ -895,29 +1130,31 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_k_tc_kernel(Params p) {
     }
   }
 
-  // 3. dk (scaled) and dv through the warp's own rows of the k and v tiles
-  bf16* kst = ks + warp * 16 * LD;
-  bf16* vst = vs + warp * 16 * LD;
+  // 3. this block's columns of dk (scaled) and dv through the warp's own
+  //    rows of the k and v tiles
+  const int col0 = nb * 16;
+  bf16* kst = ks + warp * 16 * LD + col0;
+  bf16* vst = vs + warp * 16 * LD + col0;
 #pragma unroll
-  for (int j = 0; j < 2 * DK; ++j) {
+  for (int j = 0; j < 2 * DO; ++j) {
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int off = (g + 8 * hr) * LD + j * 8 + 2 * c;
-      if (j < 2 * kq) {
+      if (2 * nb + j < 2 * kq) {
         *reinterpret_cast<__nv_bfloat162*>(kst + off) =
             __floats2bfloat162_rn(dk[j][2 * hr] * p.scale, dk[j][2 * hr + 1] * p.scale);
       }
-      if (j < 2 * kv_steps) {
+      if (2 * nb + j < 2 * kv_steps) {
         *reinterpret_cast<__nv_bfloat162*>(vst + off) =
             __floats2bfloat162_rn(dv[j][2 * hr], dv[j][2 * hr + 1]);
       }
     }
   }
   __syncwarp();
-  tc::store_rows<LD>(static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh, p.dk_sn, kst, 16,
-                     k0 + warp * 16, p.nk, p.dqk, p.dk_vec, lane, 32);
-  tc::store_rows<LD>(static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh, p.dv_sn, vst, 16,
-                     k0 + warp * 16, p.nk, p.dvw, p.dv_vec, lane, 32);
+  tc::store_rows<LD>(static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh + col0, p.dk_sn, kst,
+                     16, k0 + warp * 16, p.nk, imin(p.dqk - col0, DOUT), lane, 32);
+  tc::store_rows<LD>(static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh + col0, p.dv_sn, vst,
+                     16, k0 + warp * 16, p.nk, imin(p.dvw - col0, DOUT), lane, 32);
 }
 
 // --------------------- bf16, Nq, Nk <= 128 and widths <= 64: one pass
@@ -977,11 +1214,11 @@ __global__ void __launch_bounds__(FU_THREADS, 2) bias_bwd_fused_tc_kernel(Params
   const int kq = tc::round16(p.dqk) >> 4, kv_steps = tc::round16(p.dvw) >> 4;
 
   // 1. everything resident at once
-  tc::load_tile<FU_N, LD, FU_D, FU_THREADS>(qs, qp, p.q_sn, 0, p.nq, p.dqk, p.q_vec);
-  tc::load_tile<FU_N, LD, FU_D, FU_THREADS>(ks, kp, p.k_sn, 0, p.nk, p.dqk, p.k_vec);
-  tc::load_tile<FU_N, LD, FU_D, FU_THREADS>(vs, vp, p.v_sn, 0, p.nk, p.dvw, p.v_vec);
-  tc::load_tile<FU_N, LD, FU_D, FU_THREADS>(dos, dop, p.do_sn, 0, p.nq, p.dvw, p.do_vec);
-  tc::load_tile<FU_N, LD, FU_D, FU_THREADS>(os, op, p.o_sn, 0, p.nq, p.dvw, p.o_vec);
+  tc::load_tile<FU_N, LD, FU_D, FU_THREADS>(qs, qp, p.q_sn, 0, p.nq, p.dqk);
+  tc::load_tile<FU_N, LD, FU_D, FU_THREADS>(ks, kp, p.k_sn, 0, p.nk, p.dqk);
+  tc::load_tile<FU_N, LD, FU_D, FU_THREADS>(vs, vp, p.v_sn, 0, p.nk, p.dvw);
+  tc::load_tile<FU_N, LD, FU_D, FU_THREADS>(dos, dop, p.do_sn, 0, p.nq, p.dvw);
+  tc::load_tile<FU_N, LD, FU_D, FU_THREADS>(os, op, p.o_sn, 0, p.nq, p.dvw);
   if (tid < FU_N) {
     const bool ok = tid < p.nq;
     tc::cp_async8(lse_s + tid, ok ? p.lse + bh * p.nq + tid : p.lse, ok);
@@ -1181,16 +1418,8 @@ __global__ void __launch_bounds__(FU_THREADS, 2) bias_bwd_fused_tc_kernel(Params
       if (kj < p.nk) {
         bf16* dkp = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh + kj * p.dk_sn + f;
         bf16* dvp = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh + kj * p.dv_sn + f;
-        if (p.dk_vec && f + 8 <= p.dqk) {
-          *reinterpret_cast<uint4*>(dkp) = *reinterpret_cast<const uint4*>(src);
-        } else {
-          for (int e = 0; e < 8 && f + e < p.dqk; ++e) dkp[e] = src[e];
-        }
-        if (p.dv_vec && f + 8 <= p.dvw) {
-          *reinterpret_cast<uint4*>(dvp) = *reinterpret_cast<const uint4*>(src + 16);
-        } else {
-          for (int e = 0; e < 8 && f + e < p.dvw; ++e) dvp[e] = src[16 + e];
-        }
+        if (f < p.dqk) *reinterpret_cast<uint4*>(dkp) = *reinterpret_cast<const uint4*>(src);
+        if (f < p.dvw) *reinterpret_cast<uint4*>(dvp) = *reinterpret_cast<const uint4*>(src + 16);
       }
     }
     __syncthreads();   // before the next chunk's P and dS
@@ -1211,7 +1440,7 @@ __global__ void __launch_bounds__(FU_THREADS, 2) bias_bwd_fused_tc_kernel(Params
   }
   __syncwarp();
   tc::store_rows<LD>(static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh, p.dq_sn, qst, 16,
-                     warp * 16, p.nq, p.dqk, p.dq_vec, lane, 32);
+                     warp * 16, p.nq, p.dqk, lane, 32);
 }
 
 // ---------------------------------------------------------------- launch
@@ -1244,9 +1473,39 @@ cudaError_t launch_k(const Params& p, int batch, int heads, cudaStream_t stream)
   return cudaGetLastError();
 }
 
+// the wide FMA kernels: the query side, then the key side, which reads the
+// Di the query side writes (same stream, so in order)
+template <int JW>
+cudaError_t launch_wide(const Params& p, int batch, int heads, cudaStream_t stream) {
+  const size_t bytes = wide_smem_floats(JW) * sizeof(float);
+  const void* fq = reinterpret_cast<const void*>(&bias_bwd_q_wide_kernel<float, JW>);
+  const void* fk = reinterpret_cast<const void*>(&bias_bwd_k_wide_kernel<float, JW>);
+  cudaError_t err = prepare(fq, bytes);
+  if (err != cudaSuccess) return err;
+  bias_bwd_q_wide_kernel<float, JW>
+      <<<dim3((p.nq + WB - 1) / WB, heads, batch), W_THREADS, bytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = prepare(fk, bytes);
+  if (err != cudaSuccess) return err;
+  bias_bwd_k_wide_kernel<float, JW>
+      <<<dim3((p.nk + WB - 1) / WB, heads, batch), W_THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// widths past 128 take the wide kernels
+inline bool wide_fp32(int dqk, int dvw) { return imax(dqk, dvw) > 128; }
+
 cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stream) {
-  if (p.dqk > MAX_WIDTH || p.dvw > MAX_WIDTH ||
-      q_smem_floats(p.dqk, p.dvw) * sizeof(float) > MAX_SMEM ||
+  if (p.dqk > MAX_WIDTH || p.dvw > MAX_WIDTH) return cudaErrorInvalidValue;
+  if (wide_fp32(p.dqk, p.dvw)) {
+    switch (jw_for(imax(p.dqk, p.dvw))) {
+      case 9: return launch_wide<9>(p, batch, heads, stream);
+      case 12: return launch_wide<12>(p, batch, heads, stream);
+      default: return launch_wide<16>(p, batch, heads, stream);
+    }
+  }
+  if (q_smem_floats(p.dqk, p.dvw) * sizeof(float) > MAX_SMEM ||
       k_smem_floats(p.dqk, p.dvw) * sizeof(float) > MAX_SMEM) {
     return cudaErrorInvalidValue;
   }
@@ -1268,25 +1527,36 @@ cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stre
   }
 }
 
-// the padded width the tensor-core kernels' registers are sized for
-inline int tc_dmax(int dqk, int dvw) {
-  return imax(tc::round16(dqk), tc::round16(dvw)) <= 64 ? 64 : 128;
+inline int tc_max_width(const Params& p) {
+  return imax(tc::round16(p.dqk), tc::round16(p.dvw));
 }
 
-template <int DMAX>
+// the padded width of the tensor-core kernels' shared tiles
+inline int tc_dmax(int dqk, int dvw) {
+  const int d = imax(tc::round16(dqk), tc::round16(dvw));
+  return d <= 64 ? 64 : d <= 128 ? 128 : d <= 144 ? 144 : 256;
+}
+
+template <int DMAX, int DOUT>
 cudaError_t launch_tc_d(const Params& p, int batch, int heads, cudaStream_t stream) {
   const size_t qb = tc_q_smem_bytes(DMAX), kb = tc_k_smem_bytes(DMAX);
-  cudaError_t err = prepare(reinterpret_cast<const void*>(&bias_bwd_q_tc_kernel<DMAX>), qb);
+  const void* fq = reinterpret_cast<const void*>(&bias_bwd_q_tc_kernel<DMAX, DOUT>);
+  const void* fk = reinterpret_cast<const void*>(&bias_bwd_k_tc_kernel<DMAX, DOUT>);
+  cudaError_t err = prepare(fq, qb);
   if (err != cudaSuccess) return err;
-  bias_bwd_q_tc_kernel<DMAX>
-      <<<dim3((p.nq + TC_BLOCK - 1) / TC_BLOCK, heads, batch), TC_THREADS, qb, stream>>>(p);
+  const int qsplit = (tc::round16(p.dqk) + DOUT - 1) / DOUT;
+  bias_bwd_q_tc_kernel<DMAX, DOUT>
+      <<<dim3((p.nq + TC_BLOCK - 1) / TC_BLOCK * qsplit, heads, batch), TC_THREADS, qb,
+         stream>>>(p, qsplit);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // the key-side pass reads the Di the query-side pass writes: same stream
-  err = prepare(reinterpret_cast<const void*>(&bias_bwd_k_tc_kernel<DMAX>), kb);
+  err = prepare(fk, kb);
   if (err != cudaSuccess) return err;
-  bias_bwd_k_tc_kernel<DMAX>
-      <<<dim3((p.nk + TC_BLOCK - 1) / TC_BLOCK, heads, batch), TC_THREADS, kb, stream>>>(p);
+  const int ksplit = (tc_max_width(p) + DOUT - 1) / DOUT;
+  bias_bwd_k_tc_kernel<DMAX, DOUT>
+      <<<dim3((p.nk + TC_BLOCK - 1) / TC_BLOCK * ksplit, heads, batch), TC_THREADS, kb,
+         stream>>>(p, ksplit);
   return cudaGetLastError();
 }
 
@@ -1305,8 +1575,12 @@ cudaError_t launch_bf16(const Params& p, int batch, int heads, cudaStream_t stre
       tc_k_smem_bytes(dmax) > MAX_SMEM) {
     return cudaErrorInvalidValue;
   }
-  return dmax == 64 ? launch_tc_d<64>(p, batch, heads, stream)
-                    : launch_tc_d<128>(p, batch, heads, stream);
+  switch (dmax) {
+    case 64: return launch_tc_d<64, 64>(p, batch, heads, stream);
+    case 128: return launch_tc_d<128, 128>(p, batch, heads, stream);
+    case 144: return launch_tc_d<144, 144>(p, batch, heads, stream);
+    default: return launch_tc_d<256, 128>(p, batch, heads, stream);
+  }
 }
 
 }  // namespace
@@ -1330,14 +1604,16 @@ int ecf_bias_attention_bwd(
   Params p{q, k, v, bias, o, dout, lse, dq, dk, dv, di, ds, nq, nk, dqk, dvw, bias_bf16,
            q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, o_sb, o_sh, o_sn,
            do_sb, do_sh, do_sn, dq_sb, dq_sh, dq_sn, dk_sb, dk_sh, dk_sn, dv_sb, dv_sh, dv_sn,
-           bias_sb, bias_sh, bias_sn, scale,
-           tc::vec16(q, q_sb, q_sh, q_sn, dqk), tc::vec16(k, k_sb, k_sh, k_sn, dqk),
-           tc::vec16(v, v_sb, v_sh, v_sn, dvw), tc::vec16(o, o_sb, o_sh, o_sn, dvw),
-           tc::vec16(dout, do_sb, do_sh, do_sn, dvw), tc::vec16(dq, dq_sb, dq_sh, dq_sn, dqk),
-           tc::vec16(dk, dk_sb, dk_sh, dk_sn, dqk), tc::vec16(dv, dv_sb, dv_sh, dv_sn, dvw)};
+           bias_sb, bias_sh, bias_sn, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(launch_fp32(p, batch, heads, s));
-  if (dtype == 1) return static_cast<int>(launch_bf16(p, batch, heads, s));
+  // the tensor-core kernels copy rows in 16-byte pieces only
+  const bool rows16 =
+      tc::vec16(q, q_sb, q_sh, q_sn, dqk) && tc::vec16(k, k_sb, k_sh, k_sn, dqk) &&
+      tc::vec16(v, v_sb, v_sh, v_sn, dvw) && tc::vec16(o, o_sb, o_sh, o_sn, dvw) &&
+      tc::vec16(dout, do_sb, do_sh, do_sn, dvw) && tc::vec16(dq, dq_sb, dq_sh, dq_sn, dqk) &&
+      tc::vec16(dk, dk_sb, dk_sh, dk_sn, dqk) && tc::vec16(dv, dv_sb, dv_sh, dv_sn, dvw);
+  if (dtype == 1 && rows16) return static_cast<int>(launch_bf16(p, batch, heads, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1349,6 +1625,10 @@ long long ecf_bias_attention_bwd_smem(int dtype, int nq, int nk, int dqk, int dv
   Params p{};
   p.nq = nq, p.nk = nk, p.dqk = dqk, p.dvw = dvw;
   if (dtype == 1 && fused_applies(p)) return static_cast<long long>(FU_SMEM);
+  if (dtype == 0 && wide_fp32(dqk, dvw)) {
+    const long long w = wide_smem_floats(jw_for(imax(dqk, dvw))) * sizeof(float);
+    return w | (w << 32);
+  }
   const size_t q = dtype == 1 ? tc_q_smem_bytes(tc_dmax(dqk, dvw))
                               : q_smem_floats(dqk, dvw) * sizeof(float);
   const size_t k = dtype == 1 ? tc_k_smem_bytes(tc_dmax(dqk, dvw))

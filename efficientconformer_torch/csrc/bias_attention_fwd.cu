@@ -27,9 +27,10 @@
 //     warps per (64 query rows, head, batch), 1,536 blocks at the LM shape;
 //     each warp owns 16 query rows. q, k and v stay bf16 in shared memory
 //     (rows padded by 8 elements, so ldmatrix reads no two rows from one
-//     bank group), copied with 16-byte cp.async where every row is 16-byte
-//     aligned (the LM's rows are 1,536 bytes apart) and element by element
-//     otherwise (dqk 90, strided heads); widths are zero-padded to 16. Keys
+//     bank group), copied with 16-byte cp.async: every row is 16-byte
+//     aligned (the entry point refuses other rows; the wrapper pads widths
+//     such as 135 and 90 to a multiple of 8), and widths are zero-padded to
+//     16 in shared memory. Keys
 //     stream in tiles of 32, double-buffered: tile t + 1's copies are in
 //     flight while tile t's products run. S = q k^T and O += P v run on
 //     mma.sync.m16n8k16 (bf16 in, fp32 accumulate); k in row-major is the
@@ -48,6 +49,15 @@
 //     products would miss the fp32 checks, 1e-4, by an order). The q tile
 //     sits feature-major (4 rows are one 16-byte load); keys and values
 //     stream in tiles of 64; each thread owns a 4 x 4 tile of scores.
+//
+// Widths: dqk and dv up to 256 on both routes, as the TPU kernels take any
+// width that fits VMEM (the grouped head width 135 of the Efficient
+// Conformer Medium/Large's stage 1 among them). The FMA kernel holds up to
+// 16 output columns a thread (219 KB of shared memory at 256). The
+// tensor-core kernel is instantiated at padded widths 64, 128, 144 and 256;
+// at 256 its 64 fp32 accumulators a thread cover 128 output columns, so
+// two blocks share a query tile, each forming the same S and its own half
+// of O, and q's fragments are read from shared memory at each key tile.
 //
 // Both read the bias once, through its own strides: a broadcast
 // (B|1, H|1, Nq|1, Nk) bias or a key mask is never expanded. Keys past Nk
@@ -77,7 +87,7 @@ constexpr int NTHREADS = 256;   // a 16 x 16 grid: ty owns 4 rows, tx 4 key colu
 constexpr int LDQ = BQ + 4;     // qT row stride: [feature][query row], 16-byte rows
 constexpr int LDP = BQ + 4;     // psT row stride: [key][query row], 16-byte rows
 constexpr int LDK = BK + 1;     // kT row stride: [feature][key], odd for the stores
-constexpr int MAX_WIDTH = 128;
+constexpr int MAX_WIDTH = 256;
 constexpr size_t MAX_SMEM = 232448;  // 227 KB a block may use on sm_90
 
 static_assert(NTHREADS == 16 * 16 && BQ == 4 * 16 && BK == 4 * 16, "thread grid");
@@ -101,7 +111,6 @@ struct Params {
   int64_t o_sb, o_sh, o_sn;
   int64_t bias_sb, bias_sh, bias_sn;
   float scale;
-  bool q_vec, k_vec, v_vec, o_vec;   // rows copyable in 16-byte pieces (tc::vec16)
 };
 
 __device__ __forceinline__ float load_bias(const Params& p, int64_t off) {
@@ -111,7 +120,7 @@ __device__ __forceinline__ float load_bias(const Params& p, int64_t off) {
 
 // output columns per thread: dv <= 16 * jmax
 __host__ __device__ inline int jmax_for(int d) {
-  return d <= 32 ? 2 : d <= 64 ? 4 : d <= 96 ? 6 : 8;
+  return d <= 32 ? 2 : d <= 64 ? 4 : d <= 96 ? 6 : d <= 128 ? 8 : d <= 192 ? 12 : 16;
 }
 
 __host__ __device__ inline size_t r4(size_t floats) { return (floats + 3) & ~static_cast<size_t>(3); }
@@ -291,14 +300,22 @@ __host__ __device__ constexpr size_t tc_smem_bytes(int dmax) {
          TC_STAGES * static_cast<size_t>(TC_BQ) * TC_LDB * sizeof(float);
 }
 
-// DMAX: the padded head width the registers are sized for (64 or 128); the
-// loops over features stop at the real widths rounded up to 16.
-template <int DMAX>
-__global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_kernel(Params p) {
+// DMAX: the padded head width of the shared tiles (64, 128, 144 or 256); the
+// loops over features stop at the real widths rounded up to 16. DOUT: the
+// output columns a block accumulates in registers (DMAX, or 128 at 256: 64
+// fp32 accumulators a thread, not 128). Past DOUT the grid carries
+// ceil(dv / DOUT) blocks per query tile, each computing the same S and
+// softmax and its own DOUT columns of O; the first writes the LSE. At
+// DMAX 256 the q fragments are read from shared memory at each key tile
+// instead of being held in registers.
+template <int DMAX, int DOUT>
+__global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_kernel(Params p, int nsplit) {
   using tc::bf16;
   constexpr int LD = DMAX + 8;    // shared row stride, elements (16 bytes of padding)
   constexpr int NT = TC_BK / 8;   // 8-key tiles of a score tile
   constexpr int DK = DMAX / 16;   // 16-wide feature steps
+  constexpr int DO = DOUT / 16;   // 16-wide output column steps a block owns
+  constexpr bool QREG = DMAX <= 144;  // q fragments held in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);           // [TC_BQ][LD]
   bf16* ks = qs + TC_BQ * LD;                              // [TC_STAGES][TC_BK][LD]
@@ -307,7 +324,8 @@ __global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_kernel(Params p) {
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int q0 = blockIdx.x * TC_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x % nsplit, nb = split * DO;   // first output column step
+  const int q0 = (blockIdx.x / nsplit) * TC_BQ, h = blockIdx.y, b = blockIdx.z;
   const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
   const int64_t bias_bh = b * p.bias_sb + h * p.bias_sh;
@@ -317,9 +335,9 @@ __global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_kernel(Params p) {
   auto load_keys = [&](int t) {
     const int buf = t % TC_STAGES, k0 = t * TC_BK;
     tc::load_tile<TC_BK, LD, DMAX, TC_THREADS>(ks + buf * TC_BK * LD, kp, p.k_sn, k0, p.nk,
-                                               p.dqk, p.k_vec);
+                                               p.dqk);
     tc::load_tile<TC_BK, LD, DMAX, TC_THREADS>(vs + buf * TC_BK * LD, vp, p.v_sn, k0, p.nk,
-                                               p.dv, p.v_vec);
+                                               p.dv);
     if (p.bias) {
       tc::load_bias_tile<TC_BQ, TC_BK, TC_LDB, TC_THREADS>(
           bs + buf * TC_BQ * TC_LDB, p.bias, p.bias_bf16, bias_bh, p.bias_sn, q0, k0, p.nq, p.nk);
@@ -329,19 +347,18 @@ __global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_kernel(Params p) {
   // 1. copies in flight: the q tile with key tile 0, then the next tiles
   //    up to one short of the ring
   tc::load_tile<TC_BQ, LD, DMAX, TC_THREADS>(
-      qs, static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_sn, q0, p.nq, p.dqk,
-      p.q_vec);
+      qs, static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_sn, q0, p.nq, p.dqk);
 #pragma unroll
   for (int st = 0; st < TC_STAGES - 1; ++st) {
     if (st < ntiles) load_keys(st);
     tc::cp_async_commit();
   }
 
-  float o[2 * DK][4];
+  float o[2 * DO][4];
 #pragma unroll
-  for (int j = 0; j < 2 * DK; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < 2 * DO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8 of the warp
-  uint32_t qf[DK][4];
+  uint32_t qf[QREG ? DK : 1][4];
   const int r0 = warp * 16 + g;
   // this lane's ldmatrix addresses: the warp's q rows, the first stage of k and v
   constexpr uint32_t STAGE = TC_BK * LD * 2;   // bytes of a k or v stage
@@ -354,10 +371,10 @@ __global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_kernel(Params p) {
     __syncthreads();   // ... for every thread; every warp is done with tile t - 1
     if (t + TC_STAGES - 1 < ntiles) load_keys(t + TC_STAGES - 1);   // into tile t - 1's stage
     tc::cp_async_commit();
-    if (t == 0) {
+    if (QREG && t == 0) {
 #pragma unroll
       for (int kk = 0; kk < DK; ++kk) {
-        if (kk < kq) tc::ldsm_x4(qf[kk], q_a + tc::blk<LD>(0, kk));
+        if (kk < kq) tc::ldsm_x4(qf[QREG ? kk : 0], q_a + tc::blk<LD>(0, kk));
       }
     }
     const int buf = t % TC_STAGES, k0 = t * TC_BK;
@@ -371,12 +388,14 @@ __global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_kernel(Params p) {
 #pragma unroll
     for (int kk = 0; kk < DK; ++kk) {
       if (kk < kq) {
+        const int qk = QREG ? kk : 0;
+        if (!QREG) tc::ldsm_x4(qf[0], q_a + tc::blk<LD>(0, kk));
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
           uint32_t bf[4];
           tc::ldsm_x4(bf, kt_b + tc::blk<LD>(np, kk));
-          tc::mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-          tc::mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+          tc::mma_bf16(s[2 * np], qf[qk], bf[0], bf[1]);
+          tc::mma_bf16(s[2 * np + 1], qf[qk], bf[2], bf[3]);
         }
       }
     }
@@ -416,7 +435,7 @@ __global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_kernel(Params p) {
       l[hr] = l[hr] * alpha + sum;   // this lane's part; the quad is summed at the end
       m[hr] = m_new;
 #pragma unroll
-      for (int j = 0; j < 2 * DK; ++j) {
+      for (int j = 0; j < 2 * DO; ++j) {
         o[j][2 * hr] *= alpha;
         o[j][2 * hr + 1] *= alpha;
       }
@@ -428,10 +447,10 @@ __global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_kernel(Params p) {
       uint32_t a[4];
       tc::acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-      for (int n2 = 0; n2 < DK; ++n2) {
-        if (n2 < nv) {
+      for (int n2 = 0; n2 < DO; ++n2) {
+        if (nb + n2 < nv) {
           uint32_t bf[4];
-          tc::ldsm_x4_t(bf, vt_bt + tc::blk<LD>(kk, n2));
+          tc::ldsm_x4_t(bf, vt_bt + tc::blk<LD>(kk, nb + n2));
           tc::mma_bf16(o[2 * n2], a, bf[0], bf[1]);
           tc::mma_bf16(o[2 * n2 + 1], a, bf[2], bf[3]);
         }
@@ -439,8 +458,10 @@ __global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_kernel(Params p) {
     }
   }
 
-  // 3. normalise; O through the warp's own rows of the q tile (no other
-  //    warp reads them) to whole-row stores; the LSE in fp64
+  // 3. normalise; this block's columns of O through the warp's own rows of
+  //    the q tile (no other warp reads them) to whole-row stores; the LSE
+  //    in fp64, from the first block of the query tile
+  const int col0 = nb * 16;
   bf16* stage = qs + warp * 16 * LD;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -448,21 +469,22 @@ __global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_kernel(Params p) {
     l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
     const float inv = 1.f / l[hr];
 #pragma unroll
-    for (int j = 0; j < 2 * DK; ++j) {
-      if (j < 2 * nv) {
-        *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8 * hr) * LD + j * 8 + 2 * c) =
+    for (int j = 0; j < 2 * DO; ++j) {
+      if (nb * 2 + j < 2 * nv) {
+        *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8 * hr) * LD + col0 + j * 8 + 2 * c) =
             __floats2bfloat162_rn(o[j][2 * hr] * inv, o[j][2 * hr + 1] * inv);
       }
     }
     const int qi = q0 + r0 + 8 * hr;
-    if (c == 0 && qi < p.nq) {
+    if (split == 0 && c == 0 && qi < p.nq) {
       p.lse[(static_cast<int64_t>(b) * gridDim.y + h) * p.nq + qi] =
           static_cast<double>(m[hr]) + log(static_cast<double>(l[hr]));
     }
   }
   __syncwarp();
-  tc::store_rows<LD>(static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh, p.o_sn, stage, 16,
-                     q0 + warp * 16, p.nq, p.dv, p.o_vec, lane, 32);
+  const int width = p.dv - col0 < DOUT ? p.dv - col0 : DOUT;
+  tc::store_rows<LD>(static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh + col0, p.o_sn,
+                     stage + col0, 16, q0 + warp * 16, p.nq, width, lane, 32);
 }
 
 cudaError_t prepare(const void* fn, size_t bytes) {
@@ -489,23 +511,27 @@ cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stre
     case 2: return launch_j<2>(p, batch, heads, bytes, stream);
     case 4: return launch_j<4>(p, batch, heads, bytes, stream);
     case 6: return launch_j<6>(p, batch, heads, bytes, stream);
-    default: return launch_j<8>(p, batch, heads, bytes, stream);
+    case 8: return launch_j<8>(p, batch, heads, bytes, stream);
+    case 12: return launch_j<12>(p, batch, heads, bytes, stream);
+    default: return launch_j<16>(p, batch, heads, bytes, stream);
   }
 }
 
-// the padded width the tensor-core kernel's registers are sized for
+// the padded width of the tensor-core kernel's shared tiles
 inline int tc_dmax(int dqk, int dv) {
   const int d = tc::round16(dqk) > tc::round16(dv) ? tc::round16(dqk) : tc::round16(dv);
-  return d <= 64 ? 64 : 128;
+  return d <= 64 ? 64 : d <= 128 ? 128 : d <= 144 ? 144 : 256;
 }
 
-template <int DMAX>
+template <int DMAX, int DOUT>
 cudaError_t launch_tc_d(const Params& p, int batch, int heads, cudaStream_t stream) {
   const size_t bytes = tc_smem_bytes(DMAX);
-  cudaError_t err = prepare(reinterpret_cast<const void*>(&bias_fwd_tc_kernel<DMAX>), bytes);
+  const void* fn = reinterpret_cast<const void*>(&bias_fwd_tc_kernel<DMAX, DOUT>);
+  cudaError_t err = prepare(fn, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.nq + TC_BQ - 1) / TC_BQ, heads, batch);
-  bias_fwd_tc_kernel<DMAX><<<grid, TC_THREADS, bytes, stream>>>(p);
+  const int nsplit = (tc::round16(p.dv) + DOUT - 1) / DOUT;
+  const dim3 grid((p.nq + TC_BQ - 1) / TC_BQ * nsplit, heads, batch);
+  bias_fwd_tc_kernel<DMAX, DOUT><<<grid, TC_THREADS, bytes, stream>>>(p, nsplit);
   return cudaGetLastError();
 }
 
@@ -514,8 +540,12 @@ cudaError_t launch_bf16(const Params& p, int batch, int heads, cudaStream_t stre
   if (p.dqk > MAX_WIDTH || p.dv > MAX_WIDTH || tc_smem_bytes(dmax) > MAX_SMEM) {
     return cudaErrorInvalidValue;
   }
-  return dmax == 64 ? launch_tc_d<64>(p, batch, heads, stream)
-                    : launch_tc_d<128>(p, batch, heads, stream);
+  switch (dmax) {
+    case 64: return launch_tc_d<64, 64>(p, batch, heads, stream);
+    case 128: return launch_tc_d<128, 128>(p, batch, heads, stream);
+    case 144: return launch_tc_d<144, 144>(p, batch, heads, stream);
+    default: return launch_tc_d<256, 128>(p, batch, heads, stream);
+  }
 }
 
 }  // namespace
@@ -535,12 +565,13 @@ int ecf_bias_attention_fwd(
   }
   Params p{q, k, v, bias, o, lse, nq, nk, dqk, dv, bias_bf16,
            q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, o_sb, o_sh, o_sn,
-           bias_sb, bias_sh, bias_sn, scale,
-           tc::vec16(q, q_sb, q_sh, q_sn, dqk), tc::vec16(k, k_sb, k_sh, k_sn, dqk),
-           tc::vec16(v, v_sb, v_sh, v_sn, dv), tc::vec16(o, o_sb, o_sh, o_sn, dv)};
+           bias_sb, bias_sh, bias_sn, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(launch_fp32(p, batch, heads, s));
-  if (dtype == 1) return static_cast<int>(launch_bf16(p, batch, heads, s));
+  // the tensor-core kernels copy rows in 16-byte pieces only
+  const bool rows16 = tc::vec16(q, q_sb, q_sh, q_sn, dqk) && tc::vec16(k, k_sb, k_sh, k_sn, dqk) &&
+                      tc::vec16(v, v_sb, v_sh, v_sn, dv) && tc::vec16(o, o_sb, o_sh, o_sn, dv);
+  if (dtype == 1 && rows16) return static_cast<int>(launch_bf16(p, batch, heads, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -181,32 +181,25 @@ __device__ __forceinline__ void store_rows_rt(bf16* dst, int64_t ld_g, const bf1
 }
 
 // Rows [row0, row0 + ROWS) of a (nrows, width) bf16 matrix with row stride
-// ld_g into shared [ROWS][LD], by all NTHREADS threads; width <= DMAX.
-// Rows past nrows and columns in [width, round16(width)) are zero. With vec,
-// 16-byte cp.async (completion through cp_async_wait); otherwise 2-byte
-// loads and stores, done on return. The trip counts and divisors are
-// compile-time, so a copy costs a handful of instructions.
+// ld_g into shared [ROWS][LD], by all NTHREADS threads; width <= DMAX, and
+// every row 16-byte aligned (vec16: the callers pad, ops/bias_attention.py).
+// Rows past nrows and columns in [width, round16(width)) are zero; 16-byte
+// cp.async, completion through cp_async_wait. The trip counts and divisors
+// are compile-time, so a copy costs a handful of instructions; the last
+// sweep of the block is partial when ROWS * DMAX / 8 is not a multiple of
+// NTHREADS (DMAX 144).
 template <int ROWS, int LD, int DMAX, int NTHREADS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t ld_g, int row0,
-                                          int nrows, int width, bool vec) {
+                                          int nrows, int width) {
   constexpr int CH = DMAX / 8;   // 16-byte chunks of a row at the widest
-  static_assert((ROWS * CH) % NTHREADS == 0, "whole sweeps of the block");
+  constexpr int TOTAL = ROWS * CH;
   const int nch = round16(width) >> 3;
-  if (vec) {
 #pragma unroll
-    for (int k = 0; k < ROWS * CH / NTHREADS; ++k) {
-      const int i = threadIdx.x + k * NTHREADS, r = i / CH, ch = i % CH;
-      if (ch < nch) {
-        const bool ok = row0 + r < nrows && (ch << 3) < width;
-        cp_async16(dst + r * LD + (ch << 3), ok ? src + (row0 + r) * ld_g + (ch << 3) : src, ok);
-      }
-    }
-  } else {
-    const int wp = nch << 3;
-    for (int i = threadIdx.x; i < ROWS * wp; i += NTHREADS) {
-      const int r = i / wp, col = i - r * wp;
-      const bool ok = row0 + r < nrows && col < width;
-      dst[r * LD + col] = ok ? src[(row0 + r) * ld_g + col] : __float2bfloat16(0.f);
+  for (int k = 0; k < (TOTAL + NTHREADS - 1) / NTHREADS; ++k) {
+    const int i = threadIdx.x + k * NTHREADS, r = i / CH, ch = i % CH;
+    if ((TOTAL % NTHREADS == 0 || i < TOTAL) && ch < nch) {
+      const bool ok = row0 + r < nrows && (ch << 3) < width;
+      cp_async16(dst + r * LD + (ch << 3), ok ? src + (row0 + r) * ld_g + (ch << 3) : src, ok);
     }
   }
 }
@@ -245,24 +238,17 @@ __device__ __forceinline__ void load_bias_tile(float* dst, const void* bias, boo
 
 // Rows [0, rows) of shared [.][LD] to rows [row0, row0 + rows) of a
 // (nrows, width) bf16 matrix with row stride ld_g, by `nlanes` threads
-// numbered `lane`: 16-byte stores when vec, else 2-byte ones.
+// numbered `lane`, in 16-byte stores (the rows 16-byte aligned, as vec16).
 template <int LD>
 __device__ __forceinline__ void store_rows(bf16* dst, int64_t ld_g, const bf16* src, int rows,
-                                           int row0, int nrows, int width, bool vec, int lane,
+                                           int row0, int nrows, int width, int lane,
                                            int nlanes) {
-  if (vec) {
-    const int nch = width >> 3;
-    for (int i = lane; i < rows * nch; i += nlanes) {
-      const int r = i / nch, ch = i - r * nch;
-      if (row0 + r < nrows) {
-        *reinterpret_cast<uint4*>(dst + (row0 + r) * ld_g + (ch << 3)) =
-            *reinterpret_cast<const uint4*>(src + r * LD + (ch << 3));
-      }
-    }
-  } else {
-    for (int i = lane; i < rows * width; i += nlanes) {
-      const int r = i / width, col = i - r * width;
-      if (row0 + r < nrows) dst[(row0 + r) * ld_g + col] = src[r * LD + col];
+  const int nch = width >> 3;
+  for (int i = lane; i < rows * nch; i += nlanes) {
+    const int r = i / nch, ch = i - r * nch;
+    if (row0 + r < nrows) {
+      *reinterpret_cast<uint4*>(dst + (row0 + r) * ld_g + (ch << 3)) =
+          *reinterpret_cast<const uint4*>(src + r * LD + (ch << 3));
     }
   }
 }

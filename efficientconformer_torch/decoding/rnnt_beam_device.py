@@ -150,7 +150,7 @@ def beam_search_frames(model, f: torch.Tensor, f_len: torch.Tensor, *, beam_size
                                                else ngram.score_min)
 
     def dec_init(n):
-        return model.decoder_init_carry(n, dev)
+        return model.decoder_init_carry(n, dev, max_tokens + 1)
 
     zeros_tok = torch.zeros((b,), dtype=torch.long, device=dev)
     # the replay of the start hypothesis (blank on the initial carry),

@@ -7,7 +7,7 @@ their output back to the input dtype. Dropout draws from an explicit
 generator.
 
 Variational noise (the JAX package's ``vn_std``, layers.py:40-46): a Linear,
-Embedding or LSTM built with ``vn_std`` uses its weights as
+Conv1d, Embedding or LSTM built with ``vn_std`` uses its weights as
 w + vn_std * N(0, 1) while a draw is set on it. ``draw_variational_noise_``
 sets one draw from an explicit generator on every such layer of a module,
 ``clear_variational_noise_`` removes it; the trainer draws once per optimizer
@@ -20,7 +20,9 @@ original PyTorch repo's (``weight`` (out, in[, k...]), ``bias``,
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -166,24 +168,26 @@ class LSTM(VariationalNoise, nn.LSTM):
         return out, (h, c)
 
 
-class Conv1d(nn.Conv1d):
+class Conv1d(VariationalNoise, nn.Conv1d):
     """Conv1d over (B, C, T) with symmetric 'same' padding (k-1)//2 unless
     another padding is given: an int, or "causal", k-1 zeros on the left
-    and none on the right (layers.py:127-133), with any stride."""
+    and none on the right (layers.py:127-133), with any stride; variational
+    noise on the weight with ``vn_std``."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1, groups=1,
-                 padding=None):
+                 padding=None, vn_std: Optional[float] = None):
         causal = padding == "causal"
         if padding is None:
             padding = (kernel_size - 1) // 2
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=0 if causal else padding, groups=groups)
         self.causal = causal
+        self.vn_std = vn_std
 
     def forward(self, x):
         if self.causal:
             x = F.pad(x, (self.kernel_size[0] - 1, 0))
-        return self._conv_forward(x, _cast(self.weight, x), _cast(self.bias, x))
+        return self._conv_forward(x, _cast(self.noisy("weight"), x), _cast(self.bias, x))
 
 
 class Conv2d(nn.Conv2d):
@@ -203,14 +207,42 @@ class LayerNorm(nn.LayerNorm):
         return y.to(x.dtype)
 
 
+class ChannelLayerNorm(LayerNorm):
+    """LayerNorm over the channels of a (B, C, ...) layout (the subsamplings'
+    "layer" norm, which the JAX package takes over the channels of its
+    channels-last layout)."""
+
+    def forward(self, x):
+        return super().forward(x.movedim(1, -1)).movedim(-1, 1)
+
+
+_FROZEN_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_batch_stats():
+    """Inside it, BatchNorm in training mode normalises with the batch
+    statistics as always but leaves its running statistics alone: the
+    recompute of a block under remat (models/encoders.py), whose forward
+    updated them already. Per thread: the backward, and so the recompute,
+    may run on another thread than the forward."""
+    before = getattr(_FROZEN_STATS, "on", False)
+    _FROZEN_STATS.on = True
+    try:
+        yield
+    finally:
+        _FROZEN_STATS.on = before
+
+
 class _BatchNorm:
     """Batch norm (eps 1e-5) in fp32, output in the input dtype, with the JAX
     package's (flax) semantics. Eval: the running statistics. Training: the
     batch mean and *biased* variance over every axis but the features,
     padded frames included, and the running statistics updated as
     0.9 * old + 0.1 * batch with that biased variance (flax BatchNorm,
-    momentum 0.9). torch's own training-mode update would use the unbiased
-    variance for running_var, which differs at small batches."""
+    momentum 0.9), except inside ``frozen_batch_stats``. torch's own
+    training-mode update would use the unbiased variance for running_var,
+    which differs at small batches."""
 
     MOMENTUM = 0.9
 
@@ -221,6 +253,8 @@ class _BatchNorm:
                              False, 0.0, self.eps)
             return y.to(x.dtype)
         y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if getattr(_FROZEN_STATS, "on", False):
+            return y.to(x.dtype)
         with torch.no_grad():
             dims = [0] + list(range(2, x.dim()))
             var, mean = torch.var_mean(x32, dim=dims, correction=0)

@@ -57,7 +57,7 @@ class Transducer(nn.Module):
         in training mode."""
         f, f_len = self.encoder(x, x_len, generator)
         y_in = nn.functional.pad(y, (1, 0))
-        g = self.decoder(y_in, y_len + 1)
+        g = self.decoder(y_in, y_len + 1, generator)
         return self.joint_network(f, g), f_len
 
     def encode(self, x, x_len):
@@ -72,8 +72,11 @@ class Transducer(nn.Module):
         """(..., De) x (..., Dd) -> (..., V)."""
         return self.joint_network.step(f_t, g_t)
 
-    def decoder_init_carry(self, batch: int, device):
-        return self.decoder.init_carry(batch, device)
+    def decoder_init_carry(self, batch: int, device, max_tokens: Optional[int] = None):
+        """The prediction network's carry before any token; ``max_tokens``
+        sizes a Conformer decoder's history (the blank and the tokens a
+        decode loop may emit)."""
+        return self.decoder.init_carry(batch, device, max_tokens)
 
 
 def build_model(config_path: str, device=None, dtype: torch.dtype = torch.float32,
@@ -152,7 +155,7 @@ def greedy_decode_stream(model: Transducer, f: torch.Tensor, f_len: torch.Tensor
 def init_state(model: Transducer, b: int, max_tokens: int, device):
     """The greedy state of ``b`` rows before any frame (transducer.py
     :125-131): the decoder stepped once on the blank."""
-    carry = model.decoder.init_carry(b, device)
+    carry = model.decoder.init_carry(b, device, max_tokens + 1)
     g, carry = model.decoder.step(torch.zeros(b, dtype=torch.long, device=device), carry)
     zeros = torch.zeros(b, dtype=torch.long, device=device)
     # one spare column takes the writes of utterances that emit nothing

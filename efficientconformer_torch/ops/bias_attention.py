@@ -6,13 +6,14 @@ Counterpart of efficientconformer_tpu/ops/pallas_attention.py: it computes
 
 with the softmax in fp32. It serves the attention that cannot be factorized:
 the causal Transformer-XL rel-pos attention of the LM-Transformer, whose bias
-is the skewed rel-pos scores plus the causal and padding mask
-(models/attentions.py).
+is the skewed rel-pos scores plus the causal and padding mask, the causal,
+limited-context, even-G and strided rel-pos encoder layers, and the absolute
+attention (models/attentions.py).
 
 Layout contract:
   q:     (B, H, Nq, dqk)
   k:     (B, H, Nk, dqk)
-  v:     (B, H, Nk, dv)           dv may differ from dqk; both at most 128
+  v:     (B, H, Nk, dv)           dv may differ from dqk; both at most 256
   bias:  (B or 1, H or 1, Nq or 1, Nk), fp32 or bf16, or None; a bias with
          one row and one head, (B or 1, 1, 1, Nk), is a key mask
 
@@ -45,7 +46,7 @@ from efficientconformer_torch.ops import _kernels
 
 KERNEL = "bias_attention_fwd"
 KERNEL_BWD = "bias_attention_bwd"
-MAX_WIDTH = 128       # widest dqk and dv the kernels take
+MAX_WIDTH = 256       # widest dqk and dv the kernels take
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -224,9 +225,33 @@ def _raise_on(err: int, lib, kernel: str):
                            f"{lib.ecf_cuda_error_string(err).decode()} ({err})")
 
 
+def _rows16(t) -> bool:
+    """Whether every row of t (B, H, N, d) is 16-byte aligned, as the
+    tensor-core kernels copy them (csrc/mma_sm90.cuh, tc::vec16)."""
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0
+            and all(st % 8 == 0 for st in t.stride()[:3]))
+
+
+def _pad8(tensors):
+    """The bf16 tensors as the tensor-core kernels take them: when a row of
+    one is not 16-byte aligned (a width or a stride not a multiple of 8:
+    the grouped head width 135 of EfficientConformer Medium/Large), all as
+    contiguous copies, their widths zero-padded to a multiple of 8; the
+    zero columns change no score and give zero output columns, which the
+    caller drops. The kernels' entry points refuse other bf16 rows. fp32
+    tensors as they are."""
+    if all(t.dtype != torch.bfloat16 or _rows16(t) for t in tensors):
+        return tensors
+    return [torch.nn.functional.pad(t, (0, -t.shape[-1] % 8)).contiguous() for t in tensors]
+
+
 def _launch(q, k, v, bias, scale):
     """csrc/bias_attention_fwd.cu. O is written in (B, Nq, H, dv) memory
-    order, so merging the heads after the call is a view."""
+    order, so merging the heads after the call is a view. bf16 rows not
+    16-byte aligned are padded first (``_pad8``)."""
+    dv_out = v.shape[3]
+    _checked_inputs(q, k, v, bias)
+    q, k, v = _pad8([q, k, v])
     b, h, nq, dqk = q.shape
     nk, dv = k.shape[2], v.shape[3]
     dev = q.device
@@ -245,28 +270,32 @@ def _launch(q, k, v, bias, scale):
             float(scale), stream,
         )
     _raise_on(err, lib, KERNEL)
-    return o, lse
+    return o[..., :dv_out], lse
 
 
 def _launch_bwd(q, k, v, bias, o, do, lse, scale, need_dbias):
     """csrc/bias_attention_bwd.cu: one pass (bf16, Nq and Nk <= 128, widths
     <= 64) or two. q, k, v, o and dO are taken with their batch/head/row
     strides (dO as autograd hands it over); a dO without a unit feature
-    stride is copied. dq, dk and dv are written in (B, N, H, d) order, so
-    that merging heads is a view. Scratch: Di (B, H, Nq) fp32, which the
+    stride is copied, and bf16 rows not 16-byte aligned are padded to a
+    multiple of 8 (``_pad8``). dq, dk and dv are written in (B, N, H, d)
+    order, so that merging heads is a view. Scratch: Di (B, H, Nq) fp32, which the
     query-side pass writes for the key-side pass. ds (B, H, Nq, Nk) fp32 is
     written when asked for."""
-    b, h, nq, dqk = q.shape
-    nk, dv = k.shape[2], v.shape[3]
-    dev = q.device
-    bias, bias_strides, bias_bf16 = _checked_inputs(q, k, v, bias)
-    _check(o.shape == (b, h, nq, dv) and do.shape == o.shape, "o / dO do not match q and v")
+    b, h, nq, dqk_out = q.shape
+    dv_out = v.shape[3]
+    _checked_inputs(q, k, v, bias)
+    _check(o.shape == (b, h, nq, dv_out) and do.shape == o.shape, "o / dO do not match q and v")
     _check(o.dtype == q.dtype and o.stride(-1) == 1, "o must be the forward's output")
     _check(tuple(lse.shape) == (b, h, nq) and lse.dtype == torch.float64
            and lse.is_contiguous(), "lse must be the forward's (B, H, Nq) fp64 output")
     do = do.to(q.dtype)
     if do.stride(-1) != 1:
         do = do.contiguous()
+    q, k, v, o, do = _pad8([q, k, v, o, do])
+    nk, dqk, dv = k.shape[2], q.shape[3], v.shape[3]
+    dev = q.device
+    bias, bias_strides, bias_bf16 = _checked_inputs(q, k, v, bias)
     lib = _kernels.load(KERNEL_BWD)
     fn = _bind(lib, "ecf_bias_attention_bwd", 12, 7, 27)
     f32 = torch.float32
@@ -288,4 +317,4 @@ def _launch_bwd(q, k, v, bias, o, do, lse, scale, need_dbias):
             *bias_strides, float(scale), stream,
         )
     _raise_on(err, lib, KERNEL_BWD)
-    return dq, dk, dvo, ds
+    return dq[..., :dqk_out], dk[..., :dqk_out], dvo[..., :dv_out], ds

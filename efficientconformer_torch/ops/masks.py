@@ -1,6 +1,7 @@
 """Attention masks from sequence lengths.
 
-Counterpart of efficientconformer_tpu/ops/masks.py. Masks are float tensors
+Counterpart of efficientconformer_tpu/ops/masks.py (and of
+``_ensure_kv_mask`` of its models/attentions.py). Masks are float tensors
 where 1.0 marks a masked (disallowed) position and 0.0 an attendable one;
 they are applied additively as ``scores + mask * NEG_INF``. The windowed
 mask serves the causal LM-Transformer and the causal and limited-context
@@ -40,6 +41,31 @@ def streaming_mask(seq_len: int, x_len: Optional[torch.Tensor], left_context: in
     window = ((j > i + right_context) | (j < i - left_context)).to(torch.float32)[None, None]
     pad = padding_mask(seq_len, x_len)
     return window if pad is None else torch.maximum(window, pad)
+
+
+def local_block_diagonal(mask: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """The diagonal K x K blocks of a (B, 1, T, T) mask, (B, T/K, 1, K, K):
+    the masks of block-local attention; a key-only (B, 1, 1, T) mask gives
+    (B, T/K, 1, 1, K), broadcast over each block's queries."""
+    b, h, tq, tk = mask.shape
+    n = tk // kernel_size
+    if tq == 1:
+        return mask.reshape(b, h, 1, n, kernel_size).permute(0, 3, 1, 2, 4)
+    blocks = mask.reshape(b, h, n, kernel_size, n, kernel_size)
+    # (B, H, K, K, N) -> (B, N, H, K, K)
+    return torch.diagonal(blocks, dim1=2, dim2=4).permute(0, 4, 1, 2, 3)
+
+
+def ensure_kv_mask(mask: Optional[torch.Tensor], t_in: int, chunk: int,
+                   device=None) -> Optional[torch.Tensor]:
+    """A mask padded (with 1.0) to a multiple of ``chunk``; a key mask of
+    the padding alone when none is given but the input needs padding."""
+    if mask is None:
+        if t_in % chunk == 0:
+            return None
+        base = torch.zeros((1, 1, 1, t_in), device=device)
+        return F.pad(base, (0, (-t_in) % chunk), value=1.0)
+    return pad_mask_to_multiple(mask, chunk)
 
 
 def pad_to_multiple(x: torch.Tensor, chunk: int) -> tuple[torch.Tensor, int]:

@@ -1,12 +1,15 @@
-"""Sinusoidal relative positional encodings.
+"""Sinusoidal positional encodings: absolute, relative, grouped-relative.
 
 Counterpart of efficientconformer_tpu/ops/pos_enc.py (``_sinusoid``,
-``relative_encoding``): the encoding is evaluated on the window of relative
-positions an attention layer needs, with sin and cos interleaved. The
+``absolute_encoding``, ``relative_encoding``, ``grouped_relative_encoding``):
+the encoding is evaluated on the window of relative positions an attention
+layer needs, with sin and cos interleaved. The
 factorized rel-pos branches fold the same sinusoids into tables
 (ops/rel_factorize.py); the skewing branches (the LM-Transformer, causal and
-limited-context encoders) run the pos projection over this window, or over
-the grouped window (``grouped_relative_encoding``) in a grouped layer.
+limited-context encoders, even G, strided and local attention) run the pos
+projection over this window, or over the grouped window
+(``grouped_relative_encoding``) in a grouped layer. The absolute encoding
+is added to the input of the layers without rel-pos attention.
 """
 
 from __future__ import annotations
@@ -38,18 +41,36 @@ def relative_encoding(seq_len: int, dim: int, causal: bool = False,
     return _sinusoid(pos, dim)
 
 
+def absolute_encoding(seq_len: int, dim: int, device=None) -> torch.Tensor:
+    """(T, dim) absolute sinusoidal encoding of positions 0 ... T-1, the
+    input encoding of the encoders and decoders without rel-pos attention."""
+    return _sinusoid(torch.arange(seq_len, dtype=torch.float32, device=device), dim)
+
+
+def absolute_encoding_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """(B, dim) absolute encoding of the positions pos (B,), rows of
+    ``absolute_encoding`` taken on the device without reading pos back."""
+    return _sinusoid(pos, dim)
+
+
 def grouped_relative_encoding(seq_len: int, dim: int, group_size: int, causal: bool = False,
-                              device=None) -> torch.Tensor:
+                              device=None, hidden_len: int = 0) -> torch.Tensor:
     """The relative window of grouped attention over ``seq_len`` frames
-    (a multiple of G), most distant past first, as the JAX package's
-    ``grouped_relative_encoding`` with no cache history: drawn from the
-    table of positions seq_len-1 ... G%2 followed by 0 ... -(seq_len-1) (for
-    even G position 0 is in it twice), the causal window its first seq_len
-    entries, shape (seq_len, dim); the full window entries G//2 up to
-    2 seq_len - G%2 - G//2, shape (2 seq_len - G, dim). Folded G-fold into
-    the head dim, it gives 2 seq_len/G - 1 grouped positions."""
+    (a multiple of G) after ``hidden_len`` cached frames, most distant past
+    first, as the JAX package's ``grouped_relative_encoding``: drawn from
+    the table of positions L-1 ... G%2 followed by 0 ... -(L-1), L = seq_len
+    + hidden_len (for even G position 0 is in it twice); the causal window
+    its last seq_len + hidden_len entries of the first half, shape
+    (hidden_len + seq_len, dim); the full window entries L - seq_len + G//2
+    - hidden_len up to L - G%2 + seq_len - G//2, shape (hidden_len +
+    2 seq_len - G, dim). Folded G-fold into the head dim, the full window
+    gives hidden_len/G + 2 seq_len/G - 1 grouped positions."""
     g = group_size
-    pos = torch.cat([torch.arange(seq_len - 1, g % 2 - 1, -1, device=device),
-                     torch.arange(0, -seq_len, -1, device=device)]).to(torch.float32)
-    window = pos[:seq_len] if causal else pos[g // 2:2 * seq_len - g % 2 - g // 2]
+    lmax = seq_len + hidden_len
+    pos = torch.cat([torch.arange(lmax - 1, g % 2 - 1, -1, device=device),
+                     torch.arange(0, -lmax, -1, device=device)]).to(torch.float32)
+    if causal:
+        window = pos[lmax - seq_len - hidden_len:lmax]
+    else:
+        window = pos[lmax - seq_len + g // 2 - hidden_len:lmax - g % 2 + seq_len - g // 2]
     return _sinusoid(window, dim)

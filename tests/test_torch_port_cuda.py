@@ -434,6 +434,8 @@ def bias_case(device, b, h, nq, nk, dqk, dv, layout, seed, dtype=torch.float32,
     (3, 2, 37, 37, 64, 64, "batch"), (3, 2, 65, 130, 32, 32, "head"),
     (3, 2, 70, 70, 16, 16, "keymask"), (2, 2, 130, 65, 90, 70, "full"),
     (2, 3, 1, 1, 128, 128, "full"), (2, 2, 64, 64, 8, 24, "none"),
+    (2, 4, 90, 90, 135, 135, "full"),      # EfficientConformer Medium/Large's stage 1, causal
+    (2, 2, 70, 45, 256, 256, "keymask"), (2, 2, 33, 70, 200, 136, "full"),
 ])
 def test_bias_kernel_matches_plain_version(cuda, b, h, nq, nk, dqk, dv, layout):
     """fp32 O and LSE, then bf16 O on bf16-rounded inputs; a fully masked
@@ -554,20 +556,31 @@ def test_bias_kernel_at_streaming_shapes(cuda, frames, g, dh, right):
 @pytest.mark.gpu
 @pytest.mark.parametrize("context", [{"causal": True, "left_context": 64},
                                      {"left_context": 64, "right_context": 8}])
-def test_wide_streaming_encoder_raises_on_the_card(cuda, context):
+def test_wide_streaming_encoder_on_the_card(cuda, context):
     """EfficientConformer Medium's stage 1 (G 3 x 180 / 4 heads = head width
-    135), causal or limited-context, raises on the card with its ROADMAP
-    item: the bias kernels take widths up to 128, and nothing falls back."""
+    135), causal or limited-context, runs on the card through the bias
+    kernels (fp32 route) and matches the CPU's plain versions (logits within
+    1e-3)."""
     import json
 
-    from efficientconformer_torch.models.model_ctc import ModelCTC
+    from efficientconformer_torch.models.model_ctc import ModelCTC, init_params_
 
+    torch.backends.cudnn.allow_tf32 = False
     with open("configs/EfficientConformerCTCMedium.json") as f:
         cfg = json.load(f)
-    model = ModelCTC(dict(cfg["encoder_params"], **context), 256).to(cuda).eval()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 items 3-5"):
-        with torch.no_grad():
-            model(torch.zeros(1, 16000, device=cuda), torch.tensor([16000], device=cuda))
+    model = ModelCTC(dict(cfg["encoder_params"], **context), 256)
+    init_params_(model, torch.Generator().manual_seed(0))
+    model.eval()
+    x = torch.randn(2, 16000, generator=torch.Generator().manual_seed(1)) * 0.1
+    x_len = torch.tensor([16000, 12000])
+    with torch.no_grad():
+        want, want_len = model(x, x_len)
+        BA.bias_attention.launches = 0
+        got, got_len = model.to(cuda)(x.to(cuda), x_len.to(cuda))
+    assert BA.bias_attention.launches > 0
+    assert torch.equal(got_len.cpu(), want_len)
+    for i, n in enumerate(want_len.tolist()):
+        torch.testing.assert_close(got[i, :n].cpu(), want[i, :n], rtol=0, atol=1e-3)
 
 
 @pytest.mark.gpu
@@ -589,11 +602,19 @@ def test_bias_kernels_refuse_what_they_do_not_take(cuda):
     q, k, v, bias, scale = bias_case(cuda, 1, 2, 8, 8, 16, 16, "bhqk", seed=1)
     with pytest.raises(ValueError, match="dtype"):
         BA.bias_attention(q.half(), k.half(), v.half(), bias, scale)
-    with pytest.raises(ValueError, match="at most 128"):
-        wide = torch.zeros(1, 2, 8, 130, device=cuda)
+    with pytest.raises(ValueError, match="at most 256"):
+        wide = torch.zeros(1, 2, 8, 260, device=cuda)
         BA.bias_attention(wide, wide, v, bias, scale)
     with pytest.raises(ValueError, match="bias"):
         BA.bias_attention(q, k, v, bias[:, :, :3], scale)
+    # the tensor-core entry points take 16-byte rows only; the wrapper pads
+    # all others (_pad8), so without it width 20 is refused
+    odd = torch.zeros(1, 2, 8, 20, device=cuda, dtype=torch.bfloat16)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(BA, "_pad8", lambda tensors: tensors)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            BA.bias_attention_fwd(odd, odd, odd, None, scale)
+    assert BA.bias_attention_fwd(odd, odd, odd, None, scale)[0].shape == odd.shape
 
 
 def assert_bias_grads_close(got, want, tol):
@@ -609,6 +630,8 @@ def assert_bias_grads_close(got, want, tol):
     (8, 12, 101, 101, 64, 64, "full"), (3, 2, 37, 37, 64, 64, "batch"),
     (3, 2, 65, 130, 32, 32, "head"), (3, 2, 70, 70, 16, 16, "keymask"),
     (2, 2, 130, 65, 90, 70, "full"), (2, 3, 1, 1, 128, 128, "full"),
+    (2, 4, 90, 90, 135, 135, "full"), (2, 2, 70, 45, 256, 256, "keymask"),
+    (2, 2, 33, 70, 200, 136, "full"),
 ])
 def test_bias_backward_kernel_matches_plain_version(cuda, b, h, nq, nk, dqk, dv, layout):
     """fp32 dq, dk, dv and dS vs reference_bias_attention_bwd on the same
@@ -669,11 +692,16 @@ def heads_view(t):
 @pytest.mark.parametrize("b,h,nq,nk,dqk,dv,bias16", [
     (8, 12, 101, 101, 64, 64, False),      # the LM's shape and fp32 bias: the one-pass backward
     (8, 12, 101, 101, 64, 64, True),       # the same with a bf16 bias
-    (4, 4, 130, 130, 90, 70, False),       # two passes: N > 128, widths not multiples of 16,
-                                           # rows not 16-byte aligned
+    (4, 4, 130, 130, 90, 70, False),       # two passes: N > 128, widths not multiples of 8,
+                                           # so the rows are padded to 96 / 72
     (3, 2, 45, 70, 32, 48, False),         # one pass, Nq != Nk
-    (2, 3, 50, 50, 36, 20, False),         # one pass, rows copied element by element
+    (2, 3, 50, 50, 36, 20, False),         # one pass, rows padded to 40 / 24
     (2, 2, 40, 140, 64, 64, False),        # two passes: Nk > 128
+    (2, 4, 90, 90, 135, 135, False),       # width 135: padded to 136, the 144-wide instance
+    (2, 2, 70, 45, 256, 256, True),        # width 256: two full column blocks
+    (2, 3, 64, 64, 168, 168, False),       # width 168: at 256, the second column block
+                                           # holds 40 of its 128 columns
+    (2, 2, 33, 70, 200, 136, False),       # dqk != dv past 128
 ])
 def test_bias_tensor_core_route_matches_plain_version(cuda, b, h, nq, nk, dqk, dv, bias16):
     """bf16 forward and backward through the tensor-core kernels, on

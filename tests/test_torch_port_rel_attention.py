@@ -135,27 +135,62 @@ def test_attention_module_matches_jax(g, n):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=MODULE_TOL)
 
 
+def port_module(d, h, seed, **kwargs):
+    """An attention module of any variant with weights drawn from ``seed``,
+    and its params for the JAX module."""
+    mod = MultiHeadSelfAttention(d, h, **kwargs).eval()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+    params = {name: {"kernel": getattr(mod, f"{name}_layer").weight.detach().numpy().T,
+                     "bias": getattr(mod, f"{name}_layer").bias.detach().numpy()}
+              for name in ("query", "key", "value", "output", "pos")
+              if hasattr(mod, f"{name}_layer")}
+    if mod.relative_pos_enc:
+        params.update(u=mod.u.detach().numpy(), v=mod.v.detach().numpy())
+    return mod, jax.tree.map(jnp.asarray, params)
+
+
 @pytest.mark.parametrize("kwargs", [dict(relative_pos_enc=False), dict(causal=True, group_size=2),
                                     dict(group_size=2), dict(kernel_size=4),
                                     dict(stride=2), dict(linear_att=True)])
-def test_unported_attention_variants_raise(kwargs):
-    kwargs = {"relative_pos_enc": True, **kwargs}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiHeadSelfAttention(16, 2, **kwargs)
-
-
-def test_full_attention_mask_raises():
-    """A full (T, T) mask takes the skewing path to the bias attention,
-    whose kernels take head widths up to 128: off the CPU a wider layer
-    (EfficientConformer Medium/Large stage 1, 3 x 180 / 4 = 135) raises
-    with its ROADMAP item before any work, rather than falling back; on the
-    CPU the plain version takes it."""
-    mod = MultiHeadSelfAttention(180, 4, group_size=3, relative_pos_enc=True).eval()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 items 3-5"):
-        mod(torch.zeros(1, 6, 180, device="meta"), torch.zeros(1, 1, 6, 6, device="meta"))
+def test_attention_variants_match_jax(kwargs):
+    """The variants this file once held to a refusal (absolute attention,
+    even G causal and not, local, strided, linear) now match the JAX module
+    under a window + padding mask; tests/test_torch_port_variants.py holds
+    each branch in more cases."""
+    kwargs = {"relative_pos_enc": not kwargs.get("linear_att", False), **kwargs}
+    d, h, n = 16, 2, 14
+    x = rand(2, n, d, seed=41, scale=0.5)
+    mask = np.maximum((np.arange(n)[None, :] > np.arange(n)[:, None] + (
+        0 if kwargs.get("causal") else 3)).astype(np.float32),
+        (np.arange(n) >= np.array([[n], [n - 5]])).astype(np.float32)[:, None, :])[:, None]
+    mod, params = port_module(d, h, seed=7, **kwargs)
+    want, _ = JaxMHSA(dim_model=d, num_heads=h, fused=False, **kwargs).apply(
+        {"params": params}, jnp.asarray(x), jnp.asarray(mask))
     with torch.no_grad():
-        out = mod(torch.zeros(1, 6, 180), torch.zeros(1, 1, 6, 6))
-    assert out.shape == (1, 6, 180)
+        got = mod(torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=MODULE_TOL)
+
+
+def test_full_attention_mask_at_width_135():
+    """A full (T, T) mask takes the skewing path to the bias attention,
+    whose kernels take head widths up to 256: EfficientConformer
+    Medium/Large's stage 1 (3 x 180 / 4 = 135) is no longer refused before
+    the card (tests/test_torch_port_cuda.py runs it there), and on the CPU
+    its plain version matches the JAX module."""
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    assert BA.MAX_WIDTH >= 3 * 180 // 4
+    mod, params = port_module(180, 4, seed=8, group_size=3, relative_pos_enc=True)
+    x = rand(1, 7, 180, seed=9, scale=0.5)
+    mask = (np.arange(7)[None, :] > np.arange(7)[:, None]).astype(np.float32)[None, None]
+    want, _ = JaxMHSA(dim_model=180, num_heads=4, group_size=3, relative_pos_enc=True,
+                      fused=False).apply({"params": params}, jnp.asarray(x), jnp.asarray(mask))
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=MODULE_TOL)
 
 
 # ------------------------------------------------------------------ backward

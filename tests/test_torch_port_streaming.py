@@ -434,3 +434,39 @@ def test_streaming_transducer_tokens_match_jax(causal_transducer):
                             max_tokens)
     np.testing.assert_array_equal(n, whole[1].numpy())
     np.testing.assert_array_equal(toks, whole[0].numpy())
+
+
+# ------------------------------------------ local attention and even G
+
+LOCAL_ENC = dict(TINY_ENC, num_blocks=2, dim_model=16, num_heads=2, kernel_size=7,
+                 att_kernel_size=4, causal=True, left_context=8)
+EVEN_G_ENC = dict(CAUSAL_ENC, att_group_size=[2, 1])
+
+
+@pytest.mark.parametrize("enc,chunk,align", [(LOCAL_ENC, 8, 2), (EVEN_G_ENC, 9, 1)],
+                         ids=["local", "even-g"])
+def test_streaming_local_and_even_group_attention_exact(enc, chunk, align):
+    """tests/test_streaming_runtime.py::test_streaming_local_attention_exact
+    on the port, and the same with an even group size: window starts keep
+    the K-frame (or G-frame) tiling phase, and the streamed frames equal the
+    batch forward on the zero-padded utterance, the port's and the JAX
+    package's."""
+    pair = Pair("ctc", enc, 7)
+    t = 24000
+    audio = (np.random.default_rng(7).standard_normal((1, t)) * 0.1).astype(np.float32)
+    x_len = np.array([t], np.int64)
+    sess = S.StreamingEncoderSession(pair.port_encode, enc, batch_size=1, chunk_frames=chunk,
+                                     lookahead_frames=LOOK, device="cpu")
+    assert sess.align % align == 0
+    ems = sess.push(audio) + sess.finish(x_len)
+    got = np.concatenate([em.valid for em in ems], axis=1)
+    cap = encoder_output_frames(enc, t)
+    assert got.shape[1] == cap
+    padded = np.concatenate([audio, np.zeros((1, sess.window_samples), np.float32)], axis=1)
+    with torch.no_grad():
+        want, _ = pair.port(torch.from_numpy(padded), torch.from_numpy(x_len))
+    want_jax = pair.jax_encode(jnp.asarray(padded), jnp.asarray(x_len))[0]
+    np.testing.assert_allclose(got[0], want[0, :cap].numpy(), rtol=CAUSAL_STREAM_TOL,
+                               atol=CAUSAL_STREAM_TOL)
+    np.testing.assert_allclose(want[0, :cap].numpy(), np.asarray(want_jax)[0, :cap], rtol=0,
+                               atol=LOGITS_TOL)

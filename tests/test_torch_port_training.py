@@ -425,19 +425,28 @@ def test_optimizer_matches_optax_from_the_same_state(opt):
         torch.testing.assert_close(p.detach(), want[name], rtol=1e-5, atol=1e-6, msg=name)
 
 
-def test_unported_training_options_raise():
-    """remat raises with its ROADMAP item (the LM is ported:
-    tests/test_torch_port_lm.py; InterCTC too: an InterCTC config without
-    interctc_blocks builds the model with no taps, as in the JAX package,
-    tests/test_torch_port_interctc.py holds the taps and the step without
-    them; an unknown
-    model type raises). Variational noise is ported, for the Transducer: a
-    CTC model takes none, as in the JAX package, whose ModelCTC has no
-    vn_std."""
+def test_training_options():
+    """remat trains a step as the step without it (here the loss and the
+    weights after the update; tests/test_torch_port_remat.py holds the rest).
+    An InterCTC config without interctc_blocks builds the model with no
+    taps, as in the JAX package (tests/test_torch_port_interctc.py holds the
+    taps and the step without them); an unknown model type raises.
+    Variational noise is ported, for the Transducer: a CTC model takes none,
+    as in the JAX package, whose ModelCTC has no vn_std."""
     cfg = copy.deepcopy(train_config())
     cfg["encoder_params"]["remat"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, device="cpu")
+    batch = train_batch(seed=1)
+    batch["audio"] = batch["audio"][..., :4000]    # 0.25 s: the step's shape is not the point
+    batch["audio_len"] = np.minimum(batch["audio_len"], 4000)
+    batch["label_len"] = np.minimum(batch["label_len"], 2)
+    steps = []
+    for c in (cfg, train_config()):
+        trainer = Trainer(c, device="cpu", seed=0)
+        loss, _ = trainer.train_step(batch)
+        steps.append((loss.item(), trainer.model.state_dict()))
+    assert steps[0][0] == pytest.approx(steps[1][0], rel=1e-6)
+    for name, value in steps[1][1].items():
+        torch.testing.assert_close(steps[0][1][name], value, rtol=1e-5, atol=1e-7, msg=name)
     inter = Trainer(dict(train_config(), model_type="InterCTC"), device="cpu").model
     assert inter.encoder.interctc_blocks == () and not any(
         "linear_expand" in n for n, _ in inter.named_parameters())

@@ -408,18 +408,30 @@ def test_trainer_draws_the_noise_once_per_step_from_vn_start_step():
     assert trainer.model.joint_network.linear_joint.vn_std == 0.075
 
 
-def test_unported_decoders_raise():
+def test_every_decoder_builds_and_steps():
     """The Transformer decoder builds (the LM-Transformer's) and steps on a
     fixed-capacity cache and on the growing cache (carry None, the host
-    Transducer beam's), but a Transformer decoder with variational noise and
-    the Conformer decoder raise."""
+    Transducer beam's), with and without variational noise on its blocks;
+    the Conformer decoder builds and steps on its caches, its step the
+    last frame of its forward over the tokens
+    (tests/test_torch_port_variants.py holds both to the JAX package); an
+    unknown arch raises."""
     params = {"arch": "Transformer", "num_blocks": 1, "dim_model": 8, "ff_ratio": 2,
               "num_heads": 2, "Pdrop": 0.0, "relative_pos_enc": True, "max_pos_encoding": 16,
               "vocab_size": VOCAB}
     with torch.no_grad():
         out, carry = make_decoder(params).eval().step(torch.zeros(2, dtype=torch.long), None)
     assert out.shape == (2, 8) and len(carry) == 1 and carry[0]["k"].shape == (2, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_decoder(params, vn_std=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_decoder(dict(params, arch="Conformer"))
+    noisy = make_decoder(params, vn_std=0.1).eval()
+    assert noisy.blocks[0].feed_forward_module.layers[1].vn_std == 0.1
+    assert noisy.embedding.vn_std is None
+    conformer = make_decoder(dict(params, arch="Conformer", kernel_size=3)).eval()
+    y = torch.tensor([[0, 3, 1], [0, 2, 2]])
+    with torch.no_grad():
+        full = conformer(y, torch.tensor([3, 3]))
+        carry = conformer.init_carry(2, "cpu", 4)
+        for u in range(3):
+            g, carry = conformer.step(y[:, u], carry)
+    torch.testing.assert_close(g, full[:, 2], rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="arch"):
+        make_decoder(dict(params, arch="GRU"))
