@@ -14,8 +14,10 @@ n-gram, the Transducer beam with the LM-Transformer and an n-gram, on the
 device and on the host, the latter on the growing KV cache), InterCTC,
 streaming: sessions over the flagship made causal or limited-context, and
 the slot-pool server over both Smalls, then remat, the encoder and decoder
-variants no shipped config uses, and EfficientConformerCTCMedium made
-causal, streamed at head width 135. Holds
+variants no shipped config uses, EfficientConformerCTCMedium made
+causal, streamed at head width 135, and data parallelism (the flagship's
+step over two ranks sharing the card over gloo and over one NCCL rank,
+the CLI with -d). Holds
 every hand-written kernel on those paths to its plain PyTorch version on
 the card. Phases, one line each; any failure exits non-zero:
 
@@ -49,6 +51,17 @@ the card. Phases, one line each; any failure exits non-zero:
   9. train-learns  30 CTC steps on one batch: the loss falls
  10. train-rate the CTC config's own step, 2 x 32 x 16 s, bf16: ms per step,
                 audio-s/s, peak memory, launches per step
+ 10a. dp-slice  data parallelism: two ranks on the one card over gloo, each
+                on its 2 rows of train-slice's 2 x 4 utterances under DDP
+                and the globally synced BatchNorm, fp32 then bf16, vs the
+                one-process step over the global batch (loss and norm 1e-5,
+                parameters and statistics 1e-4 in fp32, all 2e-2 in bf16),
+                the running statistics equal across the ranks; rel-pos
+                launches per rank (15 / 15 a microbatch, FMA in fp32, tensor
+                cores in bf16)
+ 10b. dp-rate   one rank over NCCL through DDP on train-rate's step: the
+                parameters bit for bit those of the step without DDP; ms a
+                step with and without DDP in turns, beside train-rate's
  11. t-kernel   both rel-pos kernels vs their plain versions at Transducer
                 Small's 16 s stage shapes (head widths 75/35/50, rel widths
                 100/140/200, batch 8, ragged key masks), fp32 and bf16, as
@@ -204,6 +217,10 @@ the card. Phases, one line each; any failure exits non-zero:
                 the idle share of [cli-train]'s second epoch
       cli-test  test-clean -i 2 --gready: the WER line, predictions string
                 for string greedy_decode's over the same loader batches
+      cli-dp    -d (one rank over NCCL, DDP): one epoch of 2 steps with
+                validation and a checkpoint, whose test-clean WER with -d
+                equals the one-process run's; -d --world_size above the GPU
+                count refused
       import-ckpt  an original-style checkpoint of the flagship's seeded
                 weights and a pickled tokenizer through ``python -m
                 efficientconformer_torch.import_checkpoint --with-tokenizer``,
@@ -281,7 +298,9 @@ just before the phase's server or sessions run, the bias forward's with
 the rel-pos entries with ``remat_launches`` of [remat]'s remat "full"
 step; the bias entries with ``variants_launches`` of [variants]' fp32
 steps and [wide-kernel-time]'s rows as ``wide_{135,256}_*_ms``, the
-forward's with ``stream_medium_launches``), and last {"ok": true, "device": {...}}. With
+forward's with ``stream_medium_launches``; the rel-pos entries with
+``dp_launches`` of [dp-slice], over both ranks and steps, and of
+[dp-rate]'s counted DDP step), and last {"ok": true, "device": {...}}. With
 --profile it also prints a torch.profiler device-time breakdown of one
 batch or step of each path, the beams included.
 There is no CPU path: without a GPU the script exits non-zero and prints no
@@ -404,6 +423,12 @@ RATE_SLOTS = 32              # [serve-rate]: serving_bench.py's 32 slots, 96 str
 RATE_STREAMS = 96
 RATE_SECONDS = 10.0
 RATE_PASSES = 7              # timed passes of the 96 streams: 21 ticks uncapped (3 a pass)
+DP_RANKS = 2                 # [dp-slice]: two ranks on the one card, over gloo
+DP_LOSS_RTOL = 1e-5          # [dp-slice] fp32 loss and gradient norm vs the one-process step
+DP_FP32_TOL = 1e-4           # its fp32 parameters and BatchNorm statistics, relative to
+                             # max(|x|, 1): the global batch's sums in another order
+DP_BF16_TOL = 2e-2           # the bf16 step's loss, norm, parameters and statistics
+DP_TIMEOUT = 300             # seconds for [dp-slice]'s two ranks
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1055,6 +1080,168 @@ def phase_train_rate(card_line: str):
         loss=f"{float(loss):.4f}", grad_norm=f"{float(grad_norm):.4f}",
         fwd_launches=fwd, bwd_launches=bwd, tc_launches=(fwd_tc, bwd_tc), card=f"'{card_line}'")
     return bwd, bwd_tc, dt * 1e3
+
+
+# ---------------------------------------------------------------- data parallelism
+
+
+def dp_adam(cfg) -> tuple:
+    """A non-zero Adam state for ``cfg``'s model by parameter name, seeded,
+    after 10 updates: from a zero state every update is lr * g / |g|, and
+    the rounding noise of gradients that are 0 in exact arithmetic would
+    move their weights by +-lr."""
+    from efficientconformer_torch.models import factory
+
+    model, _ = factory.create_model(cfg, "cpu", torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 91)
+    shapes = [(n, p.shape) for n, p in model.named_parameters()]
+    mu = {n: (rng.standard_normal(s) * 1e-3).astype(np.float32) for n, s in shapes}
+    nu = {n: rng.uniform(1e-4, 1e-3, s).astype(np.float32) for n, s in shapes}
+    return mu, nu, 10
+
+
+def phase_dp_slice(card_line, ranks=DP_RANKS, backend="gloo", phase="dp-slice"):
+    """Data parallelism at full width: ``ranks`` ranks, by default two on
+    the one card over gloo (NCCL refuses two ranks on one device), each
+    stepping on its 2 rows of 2 microbatches of ragged utterances of 4-8 s
+    ([train-slice]'s at two ranks) under DDP and the globally synced
+    BatchNorm (dropout 0, SpecAugment off, Adam from a shared non-zero state
+    at a constant 1e-3), fp32 then bf16; each held to the one-process step
+    over the global batch on the (first) card: loss and gradient norm, the
+    updated parameters and BatchNorm's running statistics, the parameters
+    and statistics bit for bit equal across the ranks. ``backend`` None:
+    NCCL, one rank a GPU. Returns the rel-pos (forward, backward) launches
+    summed over the ranks and both steps."""
+    from efficientconformer_torch import dryrun
+    from efficientconformer_torch.parallel import mesh
+
+    seconds = np.resize([4.0, 5.5, 7.0, 8.0, 8.0, 6.5, 4.5, 5.0], (2, 2 * ranks))
+    batch = {k: v.numpy() for k, v in train_batch(2, 2 * ranks, seconds,
+                                                  np.resize([12, 30, 0, 20], 2 * ranks), "cpu",
+                                                  np.random.default_rng(SEED + 90)).items()}
+    cases = []
+    for mixed in (False, True):
+        cfg = train_config(mixed_precision=mixed, lr_schedule="Constant", lr_value=1e-3)
+        cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+        cases.append({"config": cfg, "batch": batch, "seed": SEED, "adam": dp_adam(cfg),
+                      "allow_tf32": False})
+    t0 = time.perf_counter()
+    outs = mesh.launch(dryrun.shard_steps, ranks, (cases,), device_type="cuda",
+                       backend=backend, timeout=DP_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    backend = backend or mesh.default_backend("cuda")
+    n_att = cases[0]["config"]["encoder_params"]["num_blocks"] * 2   # 2 microbatches
+    total = [0, 0]
+    for i, case in enumerate(cases):
+        fp32 = not case["config"]["training_params"]["mixed_precision"]
+        one = dryrun.shard_step(**case, device="cuda")
+        got = [r[i] for r in outs]
+        loss_err = max(abs(g["loss"] - one["loss"]) / abs(one["loss"]) for g in got)
+        norm_err = max(abs(g["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+                       for g in got)
+        stats = [{k: v for k, v in g["buffers"].items() if "running" in k} for g in got + [one]]
+        param_err = max(rel_diff(g["params"], one["params"]) for g in got)
+        stats_err = max(rel_diff(st, stats[-1]) for st in stats[:-1])
+        tol, loss_tol = (DP_FP32_TOL, DP_LOSS_RTOL) if fp32 else (DP_BF16_TOL, DP_BF16_TOL)
+        label = f"[{phase}] {'fp32' if fp32 else 'bf16'}"
+        check(loss_err <= loss_tol and norm_err <= loss_tol,
+              f"{label}: loss {[g['loss'] for g in got]} / {one['loss']}, "
+              f"norm {[g['grad_norm'] for g in got]} / {one['grad_norm']}")
+        check(param_err <= tol and stats_err <= tol,
+              f"{label}: parameters {param_err}, statistics {stats_err}")
+        check(all(torch.equal(st[k], stats[0][k]) for st in stats[1:-1] for k in stats[0]),
+              f"{label}: the ranks' running statistics differ")
+        check(all(torch.equal(g["params"][k], got[0]["params"][k]) for g in got[1:]
+                  for k in one["params"]), f"{label}: the ranks' parameters differ")
+        per_rank = []
+        for g in got:
+            c = g["launches"]
+            per_rank.append((c["relpos_fwd"], c["relpos_bwd"]))
+            tc = (c["relpos_fwd_tc"], c["relpos_bwd_tc"])
+            check(per_rank[-1] == (n_att, n_att) and tc == ((0, 0) if fp32 else (n_att, n_att)),
+                  f"{label} rank {g['rank']}: rel-pos launches {c}, expected "
+                  f"{n_att} / {n_att} on the {'FMA' if fp32 else 'tensor-core'} route")
+            check(g["ddp"] and g["world"] == ranks and g["ddp_all_reduces"] > 0
+                  and g["bn_all_reduces"] > 0,
+                  f"{label} rank {g['rank']}: DDP {g['ddp']}, world {g['world']}, "
+                  f"all-reduces {g['ddp_all_reduces']} / {g['bn_all_reduces']}")
+            total = [total[0] + c["relpos_fwd"], total[1] + c["relpos_bwd"]]
+        say(phase, dtype="float32" if fp32 else "bfloat16", ranks=ranks, backend=backend,
+            rows_per_rank=2, microbatches=2, loss=f"{got[0]['loss']:.6f}",
+            loss_rel=f"{loss_err:.3g}", norm_rel=f"{norm_err:.3g}",
+            param_rel=f"{param_err:.3g}", stats_rel=f"{stats_err:.3g}", tol=tol,
+            equal_across_ranks=True, relpos_launches_per_rank=per_rank,
+            route="fma" if fp32 else "tensor-core",
+            ddp_all_reduces=got[0]["ddp_all_reduces"], bn_all_reduces=got[0]["bn_all_reduces"],
+            ranks_seconds=f"{ranks_s:.2f}", card=f"'{card_line}'")
+    return tuple(total)
+
+
+def phase_dp_rate(card_line, train_rate_ms):
+    """One rank over NCCL through DDP on the flagship's own bf16 step
+    ([train-rate]'s 2 x 32 x 16 s, dropout 0.1, SpecAugment): its first
+    step's parameters and buffers bit for bit those of the step without DDP
+    from the same seed (and whether that step repeats itself bit for bit),
+    its rel-pos launches, then ms a step with and without DDP in turns
+    (plain, DDP, DDP, plain): DDP's own overhead on this card. Returns the
+    rel-pos (forward, backward) launches of one DDP step."""
+    import torch.distributed as dist
+
+    from efficientconformer_torch.parallel import mesh
+    from efficientconformer_torch.training.trainer import Trainer
+
+    cfg = train_config()
+    tp = cfg["training_params"]
+    batch = train_batch(tp["accumulated_steps"], tp["batch_size"],
+                        tp["train_audio_max_length"] / SAMPLE_RATE, [80], "cuda",
+                        np.random.default_rng(SEED + 4))
+    with mesh.process_group(0, 1, "cuda"):
+        backend = dist.get_backend()
+        trainers = {"ddp": Trainer(cfg, device="cuda", seed=SEED, ddp=True),
+                    "plain": Trainer(cfg, device="cuda", seed=SEED, ddp=False),
+                    "again": Trainer(cfg, device="cuda", seed=SEED, ddp=False)}
+        for t in trainers.values():
+            t.train_step(batch)
+        torch.cuda.synchronize()
+        state = {k: {**{n: p.detach() for n, p in t.model.named_parameters()},
+                     **dict(t.model.named_buffers())} for k, t in trainers.items()}
+        same = all(torch.equal(state["ddp"][n], v) for n, v in state["plain"].items())
+        repeat = all(torch.equal(state["again"][n], v) for n, v in state["plain"].items())
+        del trainers["again"], state
+        check(backend == "nccl" and trainers["ddp"].ddp is not None, f"[dp-rate] {backend}")
+        check(same, f"[dp-rate] the DDP step's parameters differ from the step without DDP "
+              f"(the step without DDP repeats itself bit for bit: {repeat})")
+        reset_rel_counts()
+        trainers["ddp"].train_step(batch)
+        torch.cuda.synchronize()
+        fwd, fwd_tc, bwd, bwd_tc = rel_counts()
+        n_att = cfg["encoder_params"]["num_blocks"] * tp["accumulated_steps"]
+        check((fwd, bwd) == (n_att, n_att) and (fwd_tc, bwd_tc) == (fwd, bwd),
+              f"[dp-rate] rel-pos launches {fwd} / {bwd}, tensor cores {fwd_tc} / {bwd_tc}")
+        ms = {"plain": [], "ddp": []}
+        iters = 3
+        for name in ("plain", "ddp", "ddp", "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                loss, _ = trainers[name].train_step(batch)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / iters)
+            check(math.isfinite(float(loss)), f"[dp-rate] {name}: loss {float(loss)}")
+        del trainers
+    torch.cuda.empty_cache()
+    check(not dist.is_initialized(), "[dp-rate] the process group outlived the phase")
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    say("dp-rate", ranks=1, backend=backend, microbatches=tp["accumulated_steps"],
+        batch=tp["batch_size"], seconds=batch["audio"].shape[-1] / SAMPLE_RATE,
+        dtype="bfloat16",
+        ms_per_step_ddp=f"{mean['ddp']:.2f}", ms_per_step_plain=f"{mean['plain']:.2f}",
+        ddp_overhead_ms=f"{mean['ddp'] - mean['plain']:.2f}",
+        runs_ms={k: [f"{x:.2f}" for x in v] for k, v in ms.items()},
+        train_rate_ms_per_step=f"{train_rate_ms:.2f}", params_bitwise_equal=same,
+        plain_repeats_bitwise=repeat, rel_fwd_launches=fwd, rel_bwd_launches=bwd,
+        tc_launches=(fwd_tc, bwd_tc), card=f"'{card_line}'")
+    return fwd, bwd
 
 
 # ---------------------------------------------------------------- Transducer
@@ -2179,6 +2366,52 @@ def phase_cli_test(cfg_path, cfg):
     say("cli-test", split="test-clean", utterances=len(preds), wer=f"{got_wer:.2f}",
         tokens_per_utt=f"{np.mean([len(tok.encode(p)) for p in preds]):.1f}",
         predictions_equal=True, seconds=f"{cli_s:.2f}")
+
+
+def phase_cli_dp(tmp):
+    """-d through the CLI on the one card: CTC Small over [cli-train]'s
+    tokenizer and manifests, one rank over NCCL, one epoch of 2 steps (DDP,
+    30 / 30 rel-pos launches a step) with validation and a checkpoint; the
+    checkpoint's test-clean WER with -d and without equal; -d with more
+    ranks than the visible GPUs refused before any rank starts."""
+    import torch.distributed as dist
+
+    from efficientconformer_torch.config import load_config
+
+    cfg_path = cli_config(CONFIG, tmp, "ctc-dp", 1)
+    cfg = load_config(cfg_path)
+    tp = cfg["training_params"]
+    t0 = time.perf_counter()
+    with spied_trainer() as (steps, _):
+        out = run_cli("-c", cfg_path, "-m", "training", "-d", "--steps_per_epoch", 2,
+                      "--val_steps", 1)
+    n_att = cfg["encoder_params"]["num_blocks"] * tp["accumulated_steps"]
+    check_steps("cli-dp", steps, {0: n_att, 1: n_att, 2: n_att, 3: n_att}, 2)
+    epochs = epoch_lines(out)
+    check([e[:1] + e[2:3] for e in epochs] == [(1, 2)], f"[cli-dp] epoch lines {epochs}")
+    val = re.findall(r"val: \{'WER': ([\d.]+)", out)
+    check(len(val) == 1, "[cli-dp] the validation WER line")
+    check(os.path.exists(os.path.join(tp["callback_path"], "checkpoints_1.ckpt")),
+          "[cli-dp] checkpoints_1.ckpt")
+    wers = [float(re.search(r"Greedy Search WER : ([\d.]+)%", run_cli(
+        "-c", cfg_path, "-m", "test-clean", "-i", 1, "--gready", *flags)).group(1))
+        for flags in (("-d",), ())]
+    check(wers[0] == wers[1], f"[cli-dp] test-clean WER with -d {wers[0]}, without {wers[1]}")
+    too_many = torch.cuda.device_count() + 1
+    try:
+        run_cli("-c", cfg_path, "-m", "test-clean", "-i", 1, "--gready", "-d", "--world_size",
+                too_many)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    check(refusal is not None and "visible" in refusal,
+          f"[cli-dp] --world_size {too_many} on {too_many - 1} GPU(s): {refusal}")
+    check(not dist.is_initialized(), "[cli-dp] the process group outlived the CLI")
+    say("cli-dp", config="EfficientConformerCTCSmall", ranks=1, backend="nccl",
+        seconds=f"{time.perf_counter() - t0:.2f}",
+        epochs=[(e, f"{x:.4f}", n) for e, x, n, _ in epochs], cli_ms_per_step=epochs[0][3],
+        val_wer=float(val[0]), step_launches=steps[0]["launches"][:4], test_wer_dp=wers[0],
+        test_wer_one_process=wers[1], refused=f"'{refusal}'")
 
 
 def phase_cli_swa(cfg_path, cfg):
@@ -3451,6 +3684,7 @@ def phase_cli(card_line, train_rate_ms, ngram_paths) -> tuple:
         phase_cli_buckets(card_line)
         phase_cli_resume(cfg_path, cfg, saves, cli_ms)
         phase_cli_test(cfg_path, cfg)
+        phase_cli_dp(tmp)
         phase_cli_import(tmp, cfg)
         phase_cli_swa(cfg_path, cfg)
         phase_cli_eval_time(cfg_path)
@@ -4181,6 +4415,8 @@ def main() -> int:
     phase_train_slice()
     phase_train_learns()
     launches_bwd, tc_bwd, train_rate_ms = phase_train_rate(card_line)
+    dp_slice = phase_dp_slice(card_line)
+    dp_rate = phase_dp_rate(card_line, train_rate_ms)
     (t_err, t_err16), (t_err_bwd, t_err16_bwd) = phase_t_kernel(t_cfg["encoder_params"])
     err_rnnt, times_rnnt, err_rnnt_bwd, times_rnnt_bwd = phase_rnnt_kernel(t_cfg)
     t_launches, t_tc = phase_t_requests()
@@ -4251,13 +4487,15 @@ def main() -> int:
                              "t-host-beam": host_rel},
               serve_launches={"stream-exact": stream_rel, "serve-slice": serve_rel,
                               "serve-rate": sum(rate_rel.values())},
-              interctc_launches=interctc_fwd, remat_launches=remat_fwd),
+              interctc_launches=interctc_fwd, remat_launches=remat_fwd,
+              dp_launches={"dp-slice": dp_slice[0], "dp-rate": dp_rate[0]}),
         entry(RA.KERNEL_BWD, "efficientconformer_torch/csrc/rel_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:139", launches_bwd,
               max(max_err_bwd, t_err_bwd), times_bwd,
               bf16_max_err=max(err16_bwd, t_err16_bwd), tc_launches=tc_bwd,
               graph_ms=times_bwd["kernel"], eager_ms=times_bwd["kernel_call"],
-              interctc_launches=interctc_bwd, remat_launches=remat_bwd),
+              interctc_launches=interctc_bwd, remat_launches=remat_bwd,
+              dp_launches={"dp-slice": dp_slice[1], "dp-rate": dp_rate[1]}),
         entry(RL.KERNEL_FWD, "efficientconformer_torch/csrc/rnnt_fwd.cu",
               "efficientconformer_tpu/ops/pallas_rnnt.py:73", rnnt_fwd, err_rnnt, times_rnnt),
         entry(RL.KERNEL_BWD, "efficientconformer_torch/csrc/rnnt_bwd.cu",

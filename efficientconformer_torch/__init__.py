@@ -18,6 +18,8 @@ the CLI (``python -m efficientconformer_torch.main``, runtime.py) with the
 data path (data/), checkpoints and SWA (training/checkpoint.py) and the
 epoch loop (``Trainer.fit_epochs``); InterCTC; beam search on the device and
 on the host (decoding/) with n-gram and LM fusion; streaming and serving;
-``--profiler`` (utils/profiling.py); and the import of the original repo's
-checkpoints (``python -m efficientconformer_torch.import_checkpoint``).
+``--profiler`` (utils/profiling.py); the import of the original repo's
+checkpoints (``python -m efficientconformer_torch.import_checkpoint``); and
+data parallelism over GPUs (parallel/mesh.py, DDP in the Trainer, the CLI's
+``-d``; dryrun.py).
 """

@@ -10,9 +10,11 @@ is decoded by a pool of ``num_workers`` threads (the native FLAC decoder
 releases the interpreter lock) on a background thread that prefetches
 ``prefetch`` batches ahead of the consumer.
 
-The JAX package's multi-host sharding (``shard_id``/``num_shards``) and
-``audio_pad_align`` serve its device mesh; the port runs on one GPU and
-raises if asked for either (ROADMAP Queue 1 item 14).
+Data parallelism (``shard_id``/``num_shards``, the JAX loader's multi-host
+sharding): every rank computes the same batches from the same seed, pads
+each to its bucket's length, and materialises only its slice of each
+microbatch (``batch_size`` / ``num_shards`` rows), so every rank gets the
+same shapes. ``audio_pad_align`` may round a bucket's pad length up.
 """
 
 from __future__ import annotations
@@ -55,12 +57,10 @@ class AsrBatchLoader:
         drop_last: bool = True,
         prefetch: int = 2,
         num_workers: int = 0,
+        shard_id: int = 0,
         num_shards: int = 1,
         audio_pad_align=None,
     ):
-        if num_shards != 1 or audio_pad_align is not None:
-            raise NotImplementedError("multi-host sharding and audio_pad_align serve a device "
-                                      "mesh: ROADMAP Queue 1 item 14")
         self.dataset = dataset
         self.batch_size = batch_size
         self.accum = accum_steps
@@ -69,6 +69,11 @@ class AsrBatchLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.num_workers = num_workers
+        # every rank computes the same batch composition (same seed) and
+        # materialises its slice of each microbatch (loader.py:65-72)
+        assert batch_size % num_shards == 0, (batch_size, num_shards)
+        self.shard_id = shard_id
+        self.num_shards = num_shards
 
         lens = [(u.audio_len, u.label_len) for u in dataset.utterances]
         max_audio = max(l[0] for l in lens)
@@ -77,6 +82,10 @@ class AsrBatchLoader:
         group = batch_size * accum_steps
         n_audio_buckets = max(1, min(n_audio_buckets, len(lens) // group or 1))
         self.audio_edges = make_buckets(max_audio, n_audio_buckets)
+        # each bucket's pad length, which ``audio_pad_align`` may round up;
+        # bucket membership still follows audio_edges
+        self.audio_pads = [audio_pad_align(e) if audio_pad_align is not None else e
+                           for e in self.audio_edges]
         # per audio bucket, the max label length defines the label pad
         self.label_pad = {}
         for al, ll in lens:
@@ -113,8 +122,14 @@ class AsrBatchLoader:
         n_valid = len(idxs)
         a_steps = max(1, -(-len(idxs) // micro))
         idxs = list(idxs) + [idxs[-1]] * (a_steps * micro - len(idxs))
+        if self.num_shards > 1:
+            local = micro // self.num_shards
+            idxs = [i for a in range(a_steps)
+                    for i in idxs[a * micro + self.shard_id * local:
+                                  a * micro + (self.shard_id + 1) * local]]
+            micro = local
         n = len(idxs)
-        audio = np.zeros((n, self.audio_edges[bucket]), np.float32)
+        audio = np.zeros((n, self.audio_pads[bucket]), np.float32)
         labels = np.zeros((n, self.label_pad[bucket]), np.int32)
         audio_len = np.zeros((n,), np.int32)
         label_len = np.zeros((n,), np.int32)
@@ -136,7 +151,8 @@ class AsrBatchLoader:
             "labels": stack(labels),
             "audio_len": stack(audio_len),
             "label_len": stack(label_len),
-            "n_valid": np.asarray([max(0, min(n_valid - a * micro, micro))
+            # valid utterances of each global microbatch
+            "n_valid": np.asarray([max(0, min(n_valid - a * self.batch_size, self.batch_size))
                                    for a in range(a_steps)], np.int32),
         }
 

@@ -9,8 +9,13 @@ test-{clean,other}, eval_time, eval_time_encoder, eval_time_decoder, and
 --swa (runtime.py); validation and test decode with the config's beam
 search unless --gready asks for greedy decoding, and --initial_epoch_lm
 fuses the config's LM into the Transducer beam. It runs on the GPU, and
-raises without one unless --cpu asks for the CPU. The flags whose work the port does not have raise
-NotImplementedError naming their ROADMAP item.
+raises without one unless --cpu asks for the CPU. -d or --parallel runs
+data parallelism, one rank a visible GPU or --world_size ranks (on --cpu,
+gloo processes: one unless --world_size says more); under torchrun
+(``torchrun --nproc_per_node N -m efficientconformer_torch.main ...``) each
+process is one rank. The flags whose work the port does not have
+(--model_parallel, --seq_parallel) raise NotImplementedError naming their
+ROADMAP item.
 """
 
 import argparse
@@ -25,7 +30,7 @@ def build_parser():
     p.add_argument("-m", "--mode", type=str, default="training",
                    help="Mode : training, validation-clean, test-clean, eval_time-dev-clean, ...")
     p.add_argument("-d", "--distributed", action="store_true",
-                   help="Distributed data parallelism (not ported: ROADMAP item 14)")
+                   help="Distributed data parallelism: one rank a GPU (DDP)")
     p.add_argument("-i", "--initial_epoch", type=str, default=None,
                    help="Load model from checkpoint")
     p.add_argument("--initial_epoch_lm", type=str, default=None,
@@ -46,7 +51,7 @@ def build_parser():
     p.add_argument("--steps_per_epoch", type=int, default=None,
                    help="Number of steps per epoch")
     p.add_argument("--world_size", type=int, default=None,
-                   help="Number of GPUs (more than one not ported: ROADMAP item 14)")
+                   help="Number of data-parallel ranks (default: the visible GPUs; 1 on --cpu)")
     p.add_argument("--cpu", action="store_true",
                    help="Run on cpu (the default is the GPU; without one the CLI raises)")
     p.add_argument("--show_dict", action="store_true", help="Show model dict summary")
@@ -58,7 +63,7 @@ def build_parser():
     p.add_argument("--swa_type", type=str, default="equal",
                    help="Stochastic weight averaging type (equal/exp)")
     p.add_argument("--parallel", action="store_true",
-                   help="Data parallelism (not ported: ROADMAP item 14)")
+                   help="Data parallelism (the same ranks as -d)")
     p.add_argument("--rnnt_max_consec_dec_steps", type=int, default=None,
                    help="Number of maximum consecutive transducer decoder steps during inference")
     p.add_argument("--eval_loss", action="store_true",
@@ -72,9 +77,9 @@ def build_parser():
     p.add_argument("--profiler", action="store_true",
                    help="Profile the eval_time modes: a trace and a top-10 op table")
     p.add_argument("--model_parallel", type=int, default=None,
-                   help="Tensor-parallel size (not ported: ROADMAP item 14)")
+                   help="Tensor-parallel size (not ported: ROADMAP item 22)")
     p.add_argument("--seq_parallel", type=int, default=None,
-                   help="Sequence-parallel size (not ported: ROADMAP item 14)")
+                   help="Sequence-parallel size (not ported: ROADMAP item 23)")
     return p
 
 

@@ -22,6 +22,7 @@ import contextlib
 
 import torch
 import torch.nn.functional as F
+from torch.nn.parallel import DistributedDataParallel
 
 from efficientconformer_torch.models.lm import LanguageModel, ce_loss
 from efficientconformer_torch.models.model_ctc import ModelCTC, init_params_
@@ -108,17 +109,26 @@ def lm_loss_fn(logits, batch) -> torch.Tensor:
     return ce_loss(logits, batch["targets"])
 
 
+# the number of terms the LM's mean runs over: under data parallelism the
+# Trainer weights each rank's mean by its count, for the global batch's mean
+lm_loss_fn.count = lambda batch: (batch["targets"] >= 0).sum()
+
+
 def apply_model(model, batch, train: bool, generator=None):
     """Forward pass in training or eval mode, dispatched on the model type:
     (logits, logits_len) of an ASR model (and the taps' probabilities of an
     InterCTC model), the logits of an LM. In training
     mode SpecAugment and dropout draw from ``generator`` and BatchNorm
-    updates its running statistics; eval runs without autograd."""
+    updates its running statistics; eval runs without autograd. A
+    DistributedDataParallel wrapper is dispatched on the model it wraps and
+    called itself, since DDP prepares its gradient reduction in its own
+    forward."""
     model.train(train)
+    inner = model.module if isinstance(model, DistributedDataParallel) else model
     with contextlib.nullcontext() if train else torch.no_grad():
-        if isinstance(model, LanguageModel):
+        if isinstance(inner, LanguageModel):
             return model(batch["tokens"], batch["token_len"], generator)
-        if isinstance(model, Transducer):
+        if isinstance(inner, Transducer):
             return model(batch["audio"], batch["labels"], batch["audio_len"],
                          batch["label_len"], generator)
         return model(batch["audio"], batch["audio_len"], generator)

@@ -16,6 +16,12 @@ step, so every microbatch of the step sees the same noise. Biases get none.
 The layers subclass torch's own, so parameter names and layouts are the
 original PyTorch repo's (``weight`` (out, in[, k...]), ``bias``,
 ``running_mean``...): see utils/weights.py.
+
+Under a process group of more than one rank (parallel/mesh.py), BatchNorm
+in training mode normalises with the statistics of the global batch, as the
+JAX package's data mesh does (mesh.py:7-9): each rank's per-channel count,
+mean and variance are gathered in fp32 by an all-reduce that autograd
+differentiates, so the backward sums over the ranks too, and combined.
 """
 
 from __future__ import annotations
@@ -26,8 +32,11 @@ import threading
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from efficientconformer_torch.parallel.mesh import all_reduce_sum
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -234,6 +243,28 @@ def frozen_batch_stats():
         _FROZEN_STATS.on = before
 
 
+_LOCAL_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def local_batch_stats():
+    """Inside it, BatchNorm in training mode takes the statistics of this
+    process's batch alone, with no collective, under a process group too:
+    the BN refresh, which every rank runs over the same batches
+    (runtime.bn_refresh)."""
+    before = getattr(_LOCAL_STATS, "on", False)
+    _LOCAL_STATS.on = True
+    try:
+        yield
+    finally:
+        _LOCAL_STATS.on = before
+
+
+def _global_stats() -> bool:
+    return (dist.is_initialized() and dist.get_world_size() > 1
+            and not getattr(_LOCAL_STATS, "on", False))
+
+
 class _BatchNorm:
     """Batch norm (eps 1e-5) in fp32, output in the input dtype, with the JAX
     package's (flax) semantics. Eval: the running statistics. Training: the
@@ -242,7 +273,8 @@ class _BatchNorm:
     0.9 * old + 0.1 * batch with that biased variance (flax BatchNorm,
     momentum 0.9), except inside ``frozen_batch_stats``. torch's own
     training-mode update would use the unbiased variance for running_var,
-    which differs at small batches."""
+    which differs at small batches. Under a process group of more than one
+    rank the batch is the global one (``_synced_forward``)."""
 
     MOMENTUM = 0.9
 
@@ -252,15 +284,48 @@ class _BatchNorm:
             y = F.batch_norm(x32, self.running_mean, self.running_var, self.weight, self.bias,
                              False, 0.0, self.eps)
             return y.to(x.dtype)
+        if _global_stats():
+            return self._synced_forward(x32).to(x.dtype)
         y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
         if getattr(_FROZEN_STATS, "on", False):
             return y.to(x.dtype)
         with torch.no_grad():
             dims = [0] + list(range(2, x.dim()))
             var, mean = torch.var_mean(x32, dim=dims, correction=0)
-            self.running_mean.lerp_(mean, 1.0 - self.MOMENTUM)
-            self.running_var.lerp_(var, 1.0 - self.MOMENTUM)
+            self._update_running(mean, var)
         return y.to(x.dtype)
+
+    def _update_running(self, mean, var):
+        self.running_mean.lerp_(mean, 1.0 - self.MOMENTUM)
+        self.running_var.lerp_(var, 1.0 - self.MOMENTUM)
+
+    def _synced_forward(self, x32):
+        """Training mode over the global batch: each rank's count, mean and
+        biased variance per channel (two passes over its rows), gathered by
+        one fp32 all-reduce of a (ranks, 2C + 1) table in which each rank
+        fills its row, then combined: the mean of the means, weighted by
+        the counts, and the weighted mean of each rank's variance plus its
+        mean's squared distance from the global mean (Chan et al.). The sum
+        of squares less the squared sum (flax's ``_compute_stats``) would
+        lose digits wherever a channel's mean is large beside its spread.
+        Every rank combines the same table in the same order, so the running
+        statistics stay equal across ranks."""
+        c = x32.shape[1]
+        dims = [0] + list(range(2, x32.dim()))
+        var_r, mean_r = torch.var_mean(x32, dim=dims, correction=0)
+        row = torch.cat([mean_r, var_r, x32.new_full((1,), x32.numel() // c)])
+        rank, world = dist.get_rank(), dist.get_world_size()
+        table = all_reduce_sum(F.pad(row[None], (0, 0, rank, world - rank - 1)))
+        means, variances, counts = table[:, :c], table[:, c:2 * c], table[:, 2 * c:]
+        total = counts.sum()
+        mean = (counts * means).sum(0) / total
+        var = (counts * (variances + (means - mean).square())).sum(0) / total
+        if not getattr(_FROZEN_STATS, "on", False):
+            with torch.no_grad():
+                self._update_running(mean, var)
+        shape = (1, c) + (1,) * (x32.dim() - 2)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x32 - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
 
 
 class BatchNorm1d(_BatchNorm, nn.BatchNorm1d):

@@ -17,9 +17,18 @@ cache, batched otherwise). ``--profiler`` traces the eval_time modes
 InterCTC, Transducer and LM (the LM trains on the LibriSpeechCorpus text
 and is evaluated on transcripts in ``lm_mode``).
 
+Data parallelism (``-d``, ``--parallel``, ``--world_size``; parallel/
+mesh.py): ``run`` spawns one rank a visible GPU (or ``--world_size`` ranks;
+on ``--cpu`` gloo processes, one unless ``--world_size`` says more), or
+joins the group torchrun set up, and every mode runs in every rank: the
+loaders shard each batch over the ranks, the Trainer wraps the model in
+DDP, evaluation gathers every rank's truths and predictions before the
+corpus WER, and rank 0 prepares the data, prints and writes. On the card
+it refuses more ranks than GPUs.
+
 What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP Queue 1 item, never falling back to something else: tensor,
-sequence and data parallelism [14].
+ROADMAP Queue 1 item, never falling back to something else: tensor [22]
+and sequence parallelism [23].
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from efficientconformer_torch.config import default_device, load_config
 from efficientconformer_torch.data.datasets import LibriSpeechDataset
@@ -44,7 +54,8 @@ from efficientconformer_torch.decoding.ngram import try_load
 from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
 from efficientconformer_torch.models import model_ctc as ctc_mod
 from efficientconformer_torch.models import transducer as rnnt_mod
-from efficientconformer_torch.models.layers import _BatchNorm
+from efficientconformer_torch.models.layers import _BatchNorm, local_batch_stats
+from efficientconformer_torch.parallel import mesh
 from efficientconformer_torch.training import checkpoint
 from efficientconformer_torch.training.trainer import Trainer
 from efficientconformer_torch.utils import profiling
@@ -65,12 +76,18 @@ EVAL_SPLITS = {
 TRAIN_SPLITS = {"training": "train", "training-clean": "train-clean"}
 
 
+def log(*args) -> None:
+    """print, from rank 0 alone under a process group."""
+    if mesh.is_main():
+        print(*args)
+
+
 def load_tokenizer(config: dict) -> Optional[BpeTokenizer]:
     path = config["tokenizer_params"].get("tokenizer_path")
     try:
         return BpeTokenizer.load(path)
     except (FileNotFoundError, TypeError, json.JSONDecodeError):
-        print("Tokenizer not found...")
+        log("Tokenizer not found...")
         return None
 
 
@@ -170,9 +187,14 @@ def evaluate(trainer: Trainer, dataset, tokenizer, *, batch_size: int = 8,
     utterance to fill its microbatch; those repeats are dropped (``n_valid``)
     before the WER, so each utterance counts once. The eval loss is the mean
     over batches, repeats included, as in the JAX package. ``beam_size``
-    and ``lm`` as in ``decode_batch``."""
+    and ``lm`` as in ``decode_batch``. Under a process group each rank
+    decodes its shard of every batch (runtime.py:276-300) and the truths and
+    predictions of every rank are gathered, rank 0's first, before the
+    corpus WER; the eval loss is the mean over the ranks: every rank
+    returns the same."""
+    rank, world = mesh.rank(), mesh.world_size()
     loader = AsrBatchLoader(dataset, batch_size, shuffle=False, drop_last=False,
-                            num_workers=num_workers)
+                            num_workers=num_workers, shard_id=rank, num_shards=world)
     truths, preds = [], []
     total_loss, n_loss = 0.0, 0
     for i, batch in enumerate(loader.epoch(0)):
@@ -181,8 +203,10 @@ def evaluate(trainer: Trainer, dataset, tokenizer, *, batch_size: int = 8,
         batch_preds = decode_batch(trainer, mb, tokenizer, max_consec, beam_size, lm)
         batch_truths = tokenizer.decode(
             [mb["labels"][b, : mb["label_len"][b]].tolist() for b in range(len(batch_preds))])
+        # this rank's valid rows of each microbatch of ``micro``
         micro = mb["labels"].shape[0] // len(n_valid)
-        keep = [a * micro + j for a, nv in enumerate(n_valid) for j in range(int(nv))]
+        keep = [a * micro + j for a, nv in enumerate(n_valid)
+                for j in range(min(max(int(nv) - rank * micro, 0), micro))]
         preds += [batch_preds[j] for j in keep]
         truths += [batch_truths[j] for j in keep]
         if eval_loss:
@@ -193,22 +217,29 @@ def evaluate(trainer: Trainer, dataset, tokenizer, *, batch_size: int = 8,
             print("Predictions:\n", batch_preds)
         if eval_steps and i + 1 >= eval_steps:
             break
-    mean_loss = total_loss / n_loss if n_loss else None
+    mean_loss = mesh.sum_over_ranks([total_loss / n_loss])[0] / world if n_loss else None
+    truths, preds = mesh.gather_strings(truths), mesh.gather_strings(preds)
     return wer(truths, preds), truths, preds, mean_loss
 
 
 def evaluate_lm(trainer: Trainer, dataset, *, batch_size: int = 8,
                 eval_steps: Optional[int] = None) -> float:
     """Mean eval cross entropy of an LM over labels-only transcripts
-    (reference lm_mode datasets and eval_loss, model.py:438-442)."""
+    (reference lm_mode datasets and eval_loss, model.py:438-442): the mean
+    over batches. Under a process group the ranks score the batches in
+    turn and the mean is taken over all of them: every rank returns the
+    one-rank value."""
     loader = LmBatchLoader(dataset, batch_size, max_len=dataset.max_label_len,
                            shuffle=False, drop_last=False)
+    rank, world = mesh.rank(), mesh.world_size()
     total, n = 0.0, 0
     for i, batch in enumerate(loader.epoch(0)):
-        total += float(trainer.eval_loss(_microbatches(batch)))
-        n += 1
+        if i % world == rank:
+            total += float(trainer.eval_loss(_microbatches(batch)))
+            n += 1
         if eval_steps and i + 1 >= eval_steps:
             break
+    total, n = mesh.sum_over_ranks([total, n])
     return total / n if n else float("nan")
 
 
@@ -222,7 +253,10 @@ def bn_refresh(trainer: Trainer, dataset, steps: int = 100) -> int:
     set to n / (n + 1), so the running value becomes the average of the
     n + 1 batches so far. The number of batches; the statistics are left
     as they were when there was none. BatchNorm lives in the encoder only,
-    so only the encoder runs."""
+    so only the encoder runs. Under a process group every rank runs every
+    batch, with no collective (``local_batch_stats``), as the JAX package's
+    unsharded refresh (runtime.py:637-675): the same statistics on every
+    rank."""
     model = trainer.model
     norms = [m for m in model.modules() if isinstance(m, _BatchNorm)]
     if not norms:
@@ -233,7 +267,7 @@ def bn_refresh(trainer: Trainer, dataset, steps: int = 100) -> int:
     n = 0
     model.train()
     try:
-        with torch.no_grad():
+        with torch.no_grad(), local_batch_stats():
             for i, batch in enumerate(loader.epoch(0)):
                 mb = _microbatches(batch)
                 for m in norms:
@@ -252,38 +286,72 @@ def bn_refresh(trainer: Trainer, dataset, steps: int = 100) -> int:
 
 def _refuse(args) -> None:
     """The flags whose work the port does not have."""
-    if (args.model_parallel or 1) > 1 or (args.seq_parallel or 1) > 1:
-        raise NotImplementedError("--model_parallel / --seq_parallel are not ported: "
-                                  "ROADMAP Queue 1 item 14")
-    if args.distributed or args.parallel or (args.world_size or 1) > 1:
-        raise NotImplementedError("-d / --parallel / --world_size > 1 (more than one GPU) are "
-                                  "not ported: ROADMAP Queue 1 item 14")
+    if (args.model_parallel or 1) > 1:
+        raise NotImplementedError("--model_parallel (tensor parallelism) is not ported: "
+                                  "ROADMAP Queue 1 item 22")
+    if (args.seq_parallel or 1) > 1:
+        raise NotImplementedError("--seq_parallel (sequence parallelism) is not ported: "
+                                  "ROADMAP Queue 1 item 23")
+
+
+def parallel_world(args) -> Optional[int]:
+    """The number of data-parallel ranks the flags ask for: with -d,
+    --parallel or --world_size > 1, --world_size, else one a visible GPU
+    (one on --cpu); None without them."""
+    if not (args.distributed or args.parallel or (args.world_size or 1) > 1):
+        return None
+    if args.world_size:
+        return args.world_size
+    return 1 if args.cpu else max(torch.cuda.device_count(), 1)
 
 
 def run(args) -> int:
-    """Run the mode of the parsed CLI ``args`` (main.build_parser)."""
+    """Run the mode of the parsed CLI ``args`` (main.build_parser): in this
+    process, or in every rank of a data-parallel group, which it spawns (or
+    joins, under torchrun)."""
     _refuse(args)
-    device = torch.device("cpu") if args.cpu else default_device()
+    device_type = "cpu" if args.cpu else "cuda"
+    if dist.is_initialized():
+        return _run(args)
+    if mesh.torchrun_env():
+        with mesh.init_from_env(device_type):
+            return _run(args)
+    world = parallel_world(args)
+    if world is None:
+        return _run(args)
+    mesh.check_world_size(world, device_type)
+    if world == 1:
+        with mesh.process_group(0, 1, device_type):
+            return _run(args)
+    return max(mesh.launch(_run, world, (args,), device_type=device_type))
+
+
+def _run(args) -> int:
+    """``run`` in this process, or in this rank."""
+    device = mesh.device() or (torch.device("cpu") if args.cpu else default_device())
     config = load_config(args.config_file)
     tp = config["training_params"]
     tokenizer = None
-    if args.create_tokenizer:
+    # rank 0 writes the tokenizer and the manifests; the others then read them
+    if args.create_tokenizer and mesh.is_main():
         from efficientconformer_torch.data.preparation import create_tokenizer
 
         print("Creating Tokenizer")
         tokenizer = create_tokenizer(tp, config["tokenizer_params"])
+    mesh.barrier()
     if tokenizer is None:
         tokenizer = load_tokenizer(config)
-    if args.prepare_dataset:
+    if args.prepare_dataset and mesh.is_main():
         from efficientconformer_torch.data.preparation import prepare_dataset
 
         print("Preparing dataset")
         prepare_dataset(tp, config["tokenizer_params"], tokenizer)
+    mesh.barrier()
 
     trainer = Trainer(config, device=device)
-    print(config["model_name"])
-    print("Model Parameters :", sum(p.numel() for p in trainer.model.parameters()))
-    if args.show_dict:
+    log(config["model_name"])
+    log("Model Parameters :", sum(p.numel() for p in trainer.model.parameters()))
+    if args.show_dict and mesh.is_main():
         for name, p in trainer.model.named_parameters():
             print(f"{name:<64} {str(tuple(p.shape)):<16} "
                   f"mean {p.mean().item():<12.4f} std {p.std().item():<12.4f}")
@@ -330,7 +398,7 @@ def run(args) -> int:
         if config["model_type"] == "LM":
             loss = evaluate_lm(trainer, ds, batch_size=args.batch_size_eval,
                                eval_steps=args.val_steps)
-            print("Eval Loss : {:.4f} | Perplexity : {:.2f}".format(
+            log("Eval Loss : {:.4f} | Perplexity : {:.2f}".format(
                 loss, math.exp(min(loss, 30.0))))
             return 0
         beam = 1 if args.gready else config["decoding_params"].get("beam_size", 1)
@@ -338,7 +406,7 @@ def run(args) -> int:
             trainer, ds, tokenizer, batch_size=args.batch_size_eval, eval_steps=args.val_steps,
             verbose=args.verbose_val, max_consec=args.rnnt_max_consec_dec_steps or 5,
             beam_size=beam, eval_loss=args.eval_loss, num_workers=args.num_workers, lm=lm)
-        print("{} Search WER : {:.2f}%".format("Greedy" if beam <= 1 else "Beam", 100 * w))
+        log("{} Search WER : {:.2f}%".format("Greedy" if beam <= 1 else "Beam", 100 * w))
         return 0
     if mode_base.startswith("eval_time"):
         _eval_time(args, trainer, tokenizer, mode_base, eval_dataset(), cb_path)
@@ -378,15 +446,22 @@ def _train(args, trainer: Trainer, tokenizer, cb_path: str, initial_epoch: int, 
         loader = LmBatchLoader(corpus, tp["batch_size"],
                                max_len=tp.get("train_label_max_length") or 100,
                                accum_steps=tp.get("accumulated_steps", 1))
+
+        def epoch_batches(epoch):
+            # this rank's slice of each global batch
+            return (mesh.shard_batch(b) for b in loader.epoch(epoch))
     else:
         loader = AsrBatchLoader(train_dataset(TRAIN_SPLITS.get(args.mode, "train")),
                                 tp["batch_size"], accum_steps=tp.get("accumulated_steps", 1),
-                                num_workers=args.num_workers)
+                                num_workers=args.num_workers, shard_id=mesh.rank(),
+                                num_shards=mesh.world_size())
+        epoch_batches = loader.epoch
     writer = None
     try:
         from tensorboardX import SummaryWriter
 
-        writer = SummaryWriter(os.path.join(cb_path, "logs"))
+        if mesh.is_main():
+            writer = SummaryWriter(os.path.join(cb_path, "logs"))
     except ImportError:
         pass
 
@@ -411,7 +486,7 @@ def _train(args, trainer: Trainer, tokenizer, cb_path: str, initial_epoch: int, 
                 out["_text"] = "GroundTruth : " + truths[0] + " / Prediction : " + preds[0]
             return out
     try:
-        trainer.fit_epochs(loader.epoch, epochs=tp["epochs"],
+        trainer.fit_epochs(epoch_batches, epochs=tp["epochs"],
                            steps_per_epoch=args.steps_per_epoch, initial_epoch=initial_epoch,
                            callback_path=cb_path, val_fn=val_fn,
                            saving_period=args.saving_period, val_period=args.val_period,
@@ -433,9 +508,9 @@ def _eval_time(args, trainer: Trainer, tokenizer, mode_base: str, ds, cb_path: s
     with (profiling.trace(log_dir, dev) if args.profiler
           else contextlib.nullcontext()) as prof:
         seconds = _timed_eval(args, trainer, tokenizer, mode_base, ds)
-    if args.profiler:
+    if args.profiler and mesh.is_main():
         profiling.print_trace_summary(prof, log_dir, dev)
-    print("eval time : {:.2f}s".format(seconds))
+    log("eval time : {:.2f}s".format(seconds))
 
 
 def _timed_eval(args, trainer: Trainer, tokenizer, mode_base: str, ds) -> float:

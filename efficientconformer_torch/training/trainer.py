@@ -26,10 +26,32 @@ loader batches, validation and a checkpoint every so many epochs;
 ``save`` and ``load`` go through training/checkpoint.py, and a loaded
 checkpoint continues the step counter, which decides the variational noise
 and the encoder freezing.
+
+Data parallelism (parallel/mesh.py; the JAX package's data mesh): inside a
+process group of more than one rank (or with ``ddp=True``) the model is
+wrapped in ``DistributedDataParallel`` and each rank steps on its shard of
+the global batch; BatchNorm takes the global batch's statistics
+(models/layers.py). DDP averages the gradients over the ranks in the last
+microbatch's backward (``no_sync`` before it); each rank's loss is weighted
+by its share of the global mean, so the gradients, the reported loss and
+the gradient norm are those of the global batch: for the ASR losses, means
+over equal shards, the weight is 1; for the LM's mean over the positions
+with a target, the rank's count over the global count. Parameters outside
+the loss (the pos layer's bias, which cancels in the softmax) get no
+gradient on any rank: DDP finds them every forward
+(``find_unused_parameters``) and leaves their gradients unset, and the
+trainer fills them with zeros after the reduction, as without DDP. The
+variational noise is drawn from a generator seeded from ``seed`` alone, the
+same on every rank (trainer.py:130-133); dropout and SpecAugment from one
+seeded by (seed, rank). At one rank every stream is the one without DDP.
+Checkpoints are written by rank 0, from the unwrapped model, and the
+epoch's lines printed by it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import itertools
 import os
 import time
@@ -37,6 +59,8 @@ from typing import Callable, Iterable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from efficientconformer_torch.config import default_device, encoder_output_frames, load_config
 from efficientconformer_torch.models import factory
@@ -44,24 +68,48 @@ from efficientconformer_torch.models.layers import (
     clear_variational_noise_,
     draw_variational_noise_,
 )
+from efficientconformer_torch.parallel import mesh
 from efficientconformer_torch.training import checkpoint, optimizers
 
 
 class Trainer:
     """Builds the model, optimizer and schedule of a config (a path, or the
-    parsed JSON dict) on ``device``, with weights drawn from ``seed``."""
+    parsed JSON dict) on ``device`` (by default the rank's device inside a
+    process group, else the card), with weights drawn from ``seed``.
+    ``ddp`` wraps the model in DistributedDataParallel: by default when a
+    process group of more than one rank is set up."""
 
     def __init__(self, config: Union[str, dict], device=None, seed: int = 0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, ddp: Optional[bool] = None):
         self.config = load_config(config) if isinstance(config, str) else config
         tp = self.config["training_params"]
-        self.device = torch.device(device) if device is not None else default_device()
+        self.device = torch.device(device) if device is not None else (
+            mesh.device() or default_device())
         self.model, self.loss_fn = factory.create_model(
             self.config, self.device, torch.Generator().manual_seed(seed))
         self.optimizer, self.schedule = optimizers.from_training_params(
             self.model.parameters(), tp)
+        rank, world = mesh.rank(), mesh.world_size()
+        # dropout and SpecAugment: a stream of each rank's own; the VN draw:
+        # one stream, the same on every rank (at one rank, the one stream)
+        own = seed + 1 if world == 1 else int(np.random.SeedSequence([seed, rank])
+                                              .generate_state(1)[0])
         self.generator = generator if generator is not None else torch.Generator(
+            device=self.device).manual_seed(own)
+        self.vn_generator = self.generator if world == 1 else torch.Generator(
             device=self.device).manual_seed(seed + 1)
+        self.ddp = None
+        if ddp if ddp is not None else world > 1:
+            if not dist.is_initialized():
+                raise RuntimeError("ddp=True needs a process group (parallel/mesh.py)")
+            mesh.check_same_parameters(self.model)
+            # every rank updates the running statistics from the same global
+            # statistics, so the buffers need no broadcast before a forward
+            no_buffer_sync = ({"forward_sync_buffers": False} if "forward_sync_buffers" in
+                              inspect.signature(DistributedDataParallel).parameters
+                              else {"broadcast_buffers": False})
+            self.ddp = DistributedDataParallel(self.model, find_unused_parameters=True,
+                                               **no_buffer_sync)
         self.encoder_frozen_steps = tp.get("encoder_frozen_steps")
         self.vn_start_step = tp.get("vn_start_step")
         self.step = 0
@@ -84,19 +132,30 @@ class Trainer:
         model.train()
         opt.zero_grad(set_to_none=True)
         if self.vn_start_step is not None and self.step >= self.vn_start_step:
-            draw_variational_noise_(model, self.generator)
+            draw_variational_noise_(model, self.vn_generator)
         total = torch.zeros((), device=self.device)
         microbatches = self._microbatches(batch)
+        net = self.ddp or model
         try:
-            for mb, out_len in microbatches:
-                outputs = factory.apply_model(model, mb, True, self.generator)
-                if out_len is not None:
-                    outputs = (outputs[0], out_len, *outputs[2:])
-                loss = self.loss_fn(outputs, mb)
-                (loss / len(microbatches)).backward()
+            for i, (mb, out_len) in enumerate(microbatches):
+                # DDP reduces the accumulated gradients in the last backward
+                last = self.ddp is None or i == len(microbatches) - 1
+                with contextlib.nullcontext() if last else self.ddp.no_sync():
+                    outputs = factory.apply_model(net, mb, True, self.generator)
+                    if out_len is not None:
+                        outputs = (outputs[0], out_len, *outputs[2:])
+                    loss = self.loss_fn(outputs, mb)
+                    share = self._share(mb)
+                    if share is not None:
+                        loss = loss * share
+                    (loss / len(microbatches)).backward()
                 total += loss.detach()
         finally:
             clear_variational_noise_(model)
+        if mesh.world_size() > 1:
+            # the global batch's mean loss, the same on every rank
+            dist.all_reduce(total)
+            total /= mesh.world_size()
 
         params = list(model.parameters())
         for p in params:
@@ -117,6 +176,21 @@ class Trainer:
                 p.copy_(old)
         self.step += 1
         return total / len(microbatches), grad_norm
+
+    def _share(self, mb: dict):
+        """The weight of this rank's loss: W times its share of the global
+        batch's mean over the W ranks (DDP averages). None (1) without a
+        group, and for a mean over the utterances of equal shards; for a mean
+        over counted terms (the LM's positions with a target,
+        ``loss_fn.count``) the rank's count times W over the global count."""
+        count = getattr(self.loss_fn, "count", None)
+        world = mesh.world_size()
+        if world == 1 or count is None:
+            return None
+        mine = count(mb).to(torch.float32)
+        every = mine.clone()
+        dist.all_reduce(every)
+        return mine * world / every.clamp(min=1.0)
 
     def _microbatches(self, batch: dict) -> list:
         """(microbatch on the device, the output lengths the loss takes) for
@@ -179,6 +253,7 @@ class Trainer:
         readback drains the device's queue. One record per epoch: its
         number, mean loss, steps, seconds and validation metrics."""
         history = []
+        main = mesh.is_main()      # under a process group, rank 0 prints
         try:
             for epoch in range(initial_epoch, epochs):
                 t0 = time.perf_counter()
@@ -188,8 +263,9 @@ class Trainer:
                 try:
                     from tqdm import tqdm
 
-                    print(f"Epoch {epoch + 1}/{epochs}")
-                    it = bar = tqdm(batches, total=steps_per_epoch)
+                    if main:
+                        print(f"Epoch {epoch + 1}/{epochs}")
+                        it = bar = tqdm(batches, total=steps_per_epoch)
                 except ImportError:
                     pass
                 try:
@@ -219,8 +295,9 @@ class Trainer:
                 record = {"epoch": epoch + 1, "loss": mean_loss, "steps": len(losses),
                           "seconds": seconds}
                 per_step = f", {seconds * 1e3 / len(losses):.1f} ms/step" if losses else ""
-                print(f"epoch {epoch + 1}/{epochs} loss {mean_loss:.4f} "
-                      f"({seconds:.1f}s, {len(losses)} steps{per_step})")
+                if main:
+                    print(f"epoch {epoch + 1}/{epochs} loss {mean_loss:.4f} "
+                          f"({seconds:.1f}s, {len(losses)} steps{per_step})")
                 if log_writer is not None:
                     log_writer.add_scalar("Training/MeanLoss", mean_loss, epoch + 1)
                 if val_fn is not None and (epoch + 1) % val_period == 0:
@@ -228,7 +305,8 @@ class Trainer:
                     # "_text" carries an example prediction (reference model.py:326-328)
                     text = metrics.pop("_text", None)
                     record["val"] = metrics
-                    print("  val:", {k: round(float(v), 4) for k, v in metrics.items()})
+                    if main:
+                        print("  val:", {k: round(float(v), 4) for k, v in metrics.items()})
                     if log_writer is not None:
                         for k, v in metrics.items():
                             log_writer.add_scalar(f"Validation/{k}", float(v), epoch + 1)
@@ -247,8 +325,13 @@ class Trainer:
 
     def save(self, path: str, save_optimizer: bool = True) -> None:
         """Checkpoint the model, the optimizer (unless ``save_optimizer`` is
-        False, as for an SWA average) and the step at ``path``."""
-        checkpoint.save(path, self.model, self.optimizer if save_optimizer else None, self.step)
+        False, as for an SWA average) and the step at ``path``: under a
+        process group rank 0 writes, from the unwrapped model (so the file
+        loads at any world size), and every rank waits until it has."""
+        if mesh.is_main():
+            checkpoint.save(path, self.model, self.optimizer if save_optimizer else None,
+                            self.step)
+        mesh.barrier()
 
     def load(self, path: str) -> None:
         """Load a checkpoint into the model, the optimizer (kept as it is

@@ -222,10 +222,17 @@ def load_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module, mu, nu,
     package's optax Adam state: ``mu`` and ``nu`` (trees shaped like the
     ModelCTC, Transducer or LanguageModel params, numpy leaves) and
     ``count`` (updates taken so far)."""
-    mu_sd, nu_sd = params_from_jax(mu), params_from_jax(nu)
+    set_adam_state(optimizer, model, params_from_jax(mu), params_from_jax(nu), count)
+
+
+def set_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module, mu: dict, nu: dict,
+                   count) -> None:
+    """Set ``optimizer``'s state for ``model``'s parameters: the moments
+    ``mu`` and ``nu`` by parameter name (tensors or arrays) after ``count``
+    updates."""
     for name, p in model.named_parameters():
         optimizer.state[p] = {
             "step": torch.tensor(float(np.asarray(count))),
-            "exp_avg": mu_sd[name].to(p.device, p.dtype).clone(),
-            "exp_avg_sq": nu_sd[name].to(p.device, p.dtype).clone(),
+            "exp_avg": torch.as_tensor(mu[name]).to(p.device, p.dtype).clone(),
+            "exp_avg_sq": torch.as_tensor(nu[name]).to(p.device, p.dtype).clone(),
         }

@@ -7,7 +7,8 @@ the eval_time modes, the Transducer from a frozen CTC encoder, the LM on a
 text corpus, beam-search evaluation (CTC with the n-gram on the device and
 on the host, the Transducer with the n-gram and a port LM checkpoint
 fused, on the device and on the host) against direct calls of the beams,
-``--profiler``'s table, and the flags the port refuses.
+``--profiler``'s table, the data-parallel flags on gloo ranks, and the flags
+the port refuses.
 """
 
 import ast
@@ -203,20 +204,34 @@ def test_cli_lm(setup, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--gready", "--model_parallel", 2], "item 14"),
-    (["--gready", "--seq_parallel", 2], "item 14"),
-    (["--gready", "-d"], "item 14"),
-    (["--gready", "--parallel"], "item 14"),
-    (["--gready", "--world_size", 2], "item 14"),
+    (["--gready", "--model_parallel", 2], "item 22"),
+    (["--gready", "--seq_parallel", 2], "item 23"),
 ])
 def test_cli_refuses_what_it_lacks(setup, tmp_path, flags, item):
-    """Parallelism raises, naming its ROADMAP item."""
+    """Tensor and sequence parallelism raise, naming their ROADMAP items."""
     _, cfg, _ = setup
     cfg = json.loads(json.dumps(cfg))
     cfg["decoding_params"]["beam_size"] = 16
     path = write_config(cfg, tmp_path / "ctc.json", tmp_path / "cb")
     with pytest.raises(NotImplementedError, match=item):
         run_cli(path, "-m", "test-clean", "--batch_size_eval", 3, *flags)
+
+
+@pytest.mark.parametrize("flags", [["-d"], ["--parallel"], ["--world_size", 2]])
+def test_cli_parallel_flags_evaluate(setup, tmp_path, capfd, flags):
+    """-d and --parallel (on --cpu one gloo rank, in this process) and
+    --world_size 2 (two spawned gloo ranks, each decoding its half of every
+    batch) run test-clean: rank 0 prints the WER of the run without them,
+    once."""
+    _, cfg, _ = setup
+    path = write_config(cfg, tmp_path / "ctc.json", tmp_path / "cb")
+    Trainer(cfg, device="cpu", seed=3).save(str(tmp_path / "cb" / "checkpoints_1.ckpt"))
+    args = ["-m", "test-clean", "-i", 1, "--gready", "--batch_size_eval", 2]
+    want = re.findall(r"Greedy Search WER : \S+%", run_cli(path, *args))
+    capfd.readouterr()
+    assert cli.main(["--cpu", "-c", path, *map(str, args + flags)]) == 0
+    got = re.findall(r"Greedy Search WER : \S+%", capfd.readouterr().out)
+    assert len(want) == 1 and got == want
 
 
 @pytest.mark.parametrize("model,mode", [("ctc", "eval_time_encoder"),

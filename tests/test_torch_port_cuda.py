@@ -4,6 +4,8 @@ backward, and the bias attention forward and backward (also at the
 streaming encoders' shapes, with fully masked rows). Then the training
 runtime on the card: a checkpoint round trip and the loader's batches
 training the flagship. Then both device beams on the card against the CPU.
+Then data parallelism on the one card: two gloo ranks against the
+one-process step, and DDP at one NCCL rank against the step without it.
 
 Every test here needs a CUDA device and skips without one. This file imports
 neither JAX nor the JAX package, so on a machine without JAX it runs with
@@ -919,3 +921,56 @@ def test_device_beams_on_the_card_match_the_cpu(cuda, tmp_path):
         model.cpu(), lm_model.cpu()
         assert got == want
         assert torch.allclose(got_sc, want_sc, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_the_card_match_the_one_process_step(cuda):
+    """Data parallelism on one card: two ranks over gloo (NCCL refuses two
+    ranks on one device), each stepping on its 2 rows of flagship_batch's
+    2 x 4 utterances under DDP and the globally synced BatchNorm (fp32, SGD
+    at 1e-3), give the one-process step over the global batch: loss and
+    gradient norm <= STEP_RTOL relative, the updated parameters and the
+    BatchNorm statistics <= FP32_TOL, equal across the ranks; each rank
+    launches the rel-pos kernels once a block and microbatch."""
+    from efficientconformer_torch import dryrun
+    from efficientconformer_torch.parallel import mesh
+
+    cfg = flagship_config(mixed_precision=False, optimizer="SGD", momentum=0.0,
+                          weight_decay=0.0, lr_schedule="Constant", lr_value=1e-3)
+    case = {"config": cfg, "batch": {k: v.numpy() for k, v in flagship_batch(2).items()},
+            "allow_tf32": False}
+    ranks = [r[0] for r in mesh.launch(dryrun.shard_steps, 2, ([case],), device_type="cuda",
+                                       backend="gloo", timeout=300)]
+    one = dryrun.shard_step(**case, device=cuda)
+    n = 2 * cfg["encoder_params"]["num_blocks"]
+    for r in ranks:
+        assert r["ddp"] and r["world"] == 2
+        assert abs(r["loss"] - one["loss"]) <= STEP_RTOL * abs(one["loss"])
+        assert abs(r["grad_norm"] - one["grad_norm"]) <= STEP_RTOL * abs(one["grad_norm"])
+        assert (r["launches"]["relpos_fwd"], r["launches"]["relpos_bwd"]) == (n, n)
+        for key in ("params", "buffers"):
+            for name, want in one[key].items():
+                if want.is_floating_point():
+                    scale = max(want.abs().max().item(), 1.0)
+                    assert (r[key][name] - want).abs().max().item() <= FP32_TOL * scale, name
+                assert torch.equal(r[key][name], ranks[0][key][name]), name
+
+
+@pytest.mark.gpu
+def test_one_nccl_rank_ddp_step_is_the_step_without_ddp(cuda):
+    """DDP at one rank over NCCL on the flagship's bf16 step: the loss,
+    gradient norm, parameters and buffers bit for bit those of the trainer
+    without DDP."""
+    from efficientconformer_torch import dryrun
+    from efficientconformer_torch.parallel import mesh
+
+    cfg = flagship_config()
+    batch = {k: v.numpy() for k, v in flagship_batch(3).items()}
+    with mesh.process_group(0, 1, "cuda"):
+        got = dryrun.shard_step(cfg, batch, device=cuda, ddp=True)
+    want = dryrun.shard_step(cfg, batch, device=cuda, ddp=False)
+    assert got["ddp"] and not want["ddp"] and got["ddp_all_reduces"] > 0
+    assert got["loss"] == want["loss"] and got["grad_norm"] == want["grad_norm"]
+    for key in ("params", "buffers"):
+        for name, w in want[key].items():
+            assert torch.equal(got[key][name], w), name

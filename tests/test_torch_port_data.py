@@ -304,10 +304,44 @@ def test_asr_loader_stops_its_thread_and_raises_its_errors(prepared):
     ds.utterances[5].audio_path = os.path.join(root, "missing.wav")
     with pytest.raises(FileNotFoundError):
         list(loader.AsrBatchLoader(ds, 1, shuffle=False).epoch(0))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        loader.AsrBatchLoader(ds, 2, num_shards=2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        loader.AsrBatchLoader(ds, 2, audio_pad_align=lambda n: n)
+    # the sharded loaders of a two-rank group: each rank gets its half of
+    # every microbatch, the halves together the one loader's rows
+    ds = datasets.LibriSpeechDataset(root, "train", vocab_size=VOCAB)
+    whole = list(loader.AsrBatchLoader(ds, 2, shuffle=False).epoch(0))
+    halves = [list(loader.AsrBatchLoader(ds, 2, shuffle=False, shard_id=r, num_shards=2)
+                   .epoch(0)) for r in range(2)]
+    assert len(halves[0]) == len(halves[1]) == len(whole)
+    for w, h0, h1 in zip(whole, *halves):
+        for k in ("audio", "labels", "audio_len", "label_len"):
+            np.testing.assert_array_equal(np.concatenate([h0[k], h1[k]], axis=1), w[k])
+        np.testing.assert_array_equal(h0["n_valid"], w["n_valid"])
+    with pytest.raises(AssertionError):
+        loader.AsrBatchLoader(ds, 3, num_shards=2)
+
+
+@pytest.mark.parametrize("shard_id,num_shards,batch_size", [(0, 2, 4), (1, 2, 4), (3, 4, 4)])
+def test_sharded_asr_loader_matches_jax(prepared, shard_id, num_shards, batch_size):
+    """A rank's shard of every batch, bit for bit the JAX loader's
+    (multi-host sharding): shuffled with accumulation, and in evaluation
+    order with a partial tail (n_valid) and pad lengths rounded up by
+    audio_pad_align."""
+    root, _ = prepared
+    ds = datasets.LibriSpeechDataset(root, "train", vocab_size=VOCAB)
+    jds = jax_datasets.LibriSpeechDataset(root, "train", vocab_size=VOCAB)
+    common = dict(shard_id=shard_id, num_shards=num_shards)
+    for kw in (dict(batch_size=batch_size // 2, accum_steps=2, shuffle=True, seed=3)
+               if batch_size // 2 % num_shards == 0 else dict(batch_size=batch_size, seed=1),
+               dict(batch_size=3 * num_shards, shuffle=False, drop_last=False,
+                    audio_pad_align=lambda n: -(-n // 640) * 640)):
+        got = loader.AsrBatchLoader(ds, **common, **kw)
+        want = jax_loader.AsrBatchLoader(jds, **common, **kw)
+        assert got.audio_pads == want.audio_pads
+        for epoch in (0, 1):
+            batches = list(got.epoch(epoch))
+            assert_batches_equal(batches, want.epoch(epoch))
+            assert all(b["audio"].shape[1] == kw["batch_size"] // num_shards for b in batches)
+        if not kw.get("drop_last", True):
+            assert any(b["n_valid"].min() < kw["batch_size"] for b in batches)
 
 
 @pytest.mark.parametrize("drop_last", [True, False])

@@ -252,6 +252,28 @@ def test_bias_probe_fails_without_a_gpu_and_loads_no_jax():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+@pytest.mark.parametrize("script", ["torch_ddp_probe.py", "torch_dp_multigpu.py"])
+def test_dp_scripts_fail_without_a_gpu_and_load_no_jax(script):
+    """The data-parallel measurements measure on a card only, and load
+    nothing of JAX or the JAX package."""
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        sys.argv = [{script!r}]
+        try:
+            runpy.run_path("scripts/{script}", run_name="__main__")
+        except SystemExit as exit_:
+            print("EXIT", exit_.code)
+        print("LOADED", sorted(m for m in sys.modules if m == "jax" or m.startswith(
+            ("jax.", "jaxlib", "flax", "efficientconformer_tpu"))))
+    """)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert f"EXIT {script.removesuffix('.py')}: no CUDA device" in out.stdout, \
+        out.stdout + out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_wrapper_has_no_path_for_other_devices():
     args = [torch.empty(1, 2, 3, 4, device="meta")] * 3
     with pytest.raises(ValueError, match="no kernel for device"):
