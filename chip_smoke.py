@@ -15,9 +15,11 @@ device and on the host, the latter on the growing KV cache), InterCTC,
 streaming: sessions over the flagship made causal or limited-context, and
 the slot-pool server over both Smalls, then remat, the encoder and decoder
 variants no shipped config uses, EfficientConformerCTCMedium made
-causal, streamed at head width 135, and data parallelism (the flagship's
+causal, streamed at head width 135, data parallelism (the flagship's
 step over two ranks sharing the card over gloo and over one NCCL rank,
-the CLI with -d). Holds
+the CLI with -d) and tensor parallelism (the flagship's and the
+LM-Transformer's steps over a model group of two ranks sharing the card
+over gloo, the kernels at a rank's head counts). Holds
 every hand-written kernel on those paths to its plain PyTorch version on
 the card. Phases, one line each; any failure exits non-zero:
 
@@ -62,6 +64,23 @@ the card. Phases, one line each; any failure exits non-zero:
  10b. dp-rate   one rank over NCCL through DDP on train-rate's step: the
                 parameters bit for bit those of the step without DDP; ms a
                 step with and without DDP in turns, beside train-rate's
+ 10c. tp-kernel  tensor parallelism's shapes: the rel-pos forward and
+                backward at the flagship's 16 s stage shapes on a rank's 2
+                and 1 heads, the bias forward and backward at the LM's
+                causal shape on 6 and 3 heads, vs their plain versions, fp32
+                on the FMA route and bf16 on the tensor cores (route
+                counters); the shared memory of each route at each stage
+ 10d. tp-slice  two ranks on the one card over gloo in one model group (data
+                1 x model 2): the flagship at full width, one fp32 and one
+                bf16 step, and the LM-Transformer's fp32 step, over 2 x 4
+                ragged rows, vs the one-process step at [dp-slice]'s gates;
+                replicated parameters bit for bit equal across the ranks;
+                launches a rank and a step (rel-pos 30 / 30 on 2 heads, bias
+                24 / 24 on 6), the model group's all-reduces and all-gathers
+                a step (gloo's all-gather takes the card's tensors)
+ 10e. tp-cli    -m training --model_parallel 2 on one GPU refused with the JAX
+                package's message (scripts/torch_tp_multigpu.py runs it on
+                four GPUs)
  11. t-kernel   both rel-pos kernels vs their plain versions at Transducer
                 Small's 16 s stage shapes (head widths 75/35/50, rel widths
                 100/140/200, batch 8, ragged key masks), fp32 and bf16, as
@@ -300,7 +319,10 @@ step; the bias entries with ``variants_launches`` of [variants]' fp32
 steps and [wide-kernel-time]'s rows as ``wide_{135,256}_*_ms``, the
 forward's with ``stream_medium_launches``; the rel-pos entries with
 ``dp_launches`` of [dp-slice], over both ranks and steps, and of
-[dp-rate]'s counted DDP step), and last {"ok": true, "device": {...}}. With
+[dp-rate]'s counted DDP step; the rel-pos and bias entries with
+``tp_launches`` of [tp-slice], over both ranks and its steps, and
+``tp_kernel_max_err``, [tp-kernel]'s largest fp32 error), and last
+{"ok": true, "device": {...}}. With
 --profile it also prints a torch.profiler device-time breakdown of one
 batch or step of each path, the beams included.
 There is no CPU path: without a GPU the script exits non-zero and prints no
@@ -385,7 +407,7 @@ NGRAM_WALKS = (4096, 24)     # random token walks (count, steps) of [ngram-devic
 BEAM = 16                    # every shipped config's beam_size
 CTC_BEAM_BATCH = 32          # [ctc-beam]: 32 ragged utterances of up to 10 s
 T_BEAM_BATCH = 4             # [t-beam]: 4 x 10 s (the LM cache is 47.3 MB a hypothesis)
-T_BEAM_CHECK = (4.0, 3.0)    # [t-beam]'s card vs CPU check: 2 utterances, seconds
+T_BEAM_CHECK = (2.0, 1.5)    # [t-beam]'s card vs CPU check: 2 utterances, seconds
 BEAM_SCORE_TOL = 1e-4        # where two beams' tokens differ, their best scores must be this near
 # [lm-step-kernel]: Nk across the 64-key tile edges, past [t-host-beam]'s longest cache (~750)
 LM_STEP_KEYS = (1, 2, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257, 511, 512, 513, 767, 768,
@@ -429,6 +451,10 @@ DP_FP32_TOL = 1e-4           # its fp32 parameters and BatchNorm statistics, rel
                              # max(|x|, 1): the global batch's sums in another order
 DP_BF16_TOL = 2e-2           # the bf16 step's loss, norm, parameters and statistics
 DP_TIMEOUT = 300             # seconds for [dp-slice]'s two ranks
+TP_RANKS = 2                 # [tp-slice]: two ranks on the one card over gloo, one model group
+TP_HEADS = (2, 1)            # [tp-kernel]: the flagship's heads a rank at model 2 and 4
+TP_LM_HEADS = (6, 3)         # and the LM-Transformer's
+TP_TIMEOUT = 420             # seconds for [tp-slice]'s ranks
 
 
 def check(cond: bool, msg: str) -> None:
@@ -602,6 +628,18 @@ def attention_inputs(b, n, dh, d, h, g, device, gen):
     return qu, k, v, delta, w, rowtab, keytab, bias, 1.0 / math.sqrt(dh)
 
 
+def rank_heads(args, heads):
+    """``attention_inputs`` cut to a rank's first ``heads`` heads under
+    tensor parallelism (qu, k, v, delta and the per-head W), as the
+    attention module cuts them: the head width and the tables stay."""
+    if heads is None:
+        return args
+    qu, k, v, delta, w = (t[:, :heads] if i < 3 else t[:heads]
+                          for i, t in enumerate(args[:5]))
+    return (qu.contiguous(), k.contiguous(), v.contiguous(), delta.contiguous(),
+            w.contiguous(), *args[5:])
+
+
 def ragged_audio(seconds, device, rng):
     n = [int(s * SAMPLE_RATE) for s in seconds]
     x = (rng.standard_normal((len(n), max(n))) * 0.1).astype(np.float32)
@@ -657,16 +695,18 @@ def reset_rel_counts():
     RA.relpos_attention_bwd.launches = RA.relpos_attention_bwd.tc_launches = 0
 
 
-def check_forward(phase, enc_params, seconds, gen, batch=CHECK_BATCH):
+def check_forward(phase, enc_params, seconds, gen, batch=CHECK_BATCH, heads=None):
     """The rel-pos forward kernel vs its plain version at the stage shapes
-    of ``seconds`` of audio over ``batch`` rows: fp32 (the FMA kernel) and
-    bf16 (the tensor-core kernel, by the route counters), each vs the fp32
-    plain version on the same inputs. The largest fp32 and bf16 errors."""
+    of ``seconds`` of audio over ``batch`` rows (``heads`` of them, a rank's
+    under tensor parallelism, when given): fp32 (the FMA kernel) and bf16
+    (the tensor-core kernel, by the route counters), each vs the fp32 plain
+    version on the same inputs. The largest fp32 and bf16 errors."""
     from efficientconformer_torch.ops import rel_attention as RA
 
     max_err = max_err16 = 0.0
     for name, n, dh, d, h, g in stage_shapes(enc_params, seconds):
-        args = attention_inputs(batch, n, dh, d, h, g, "cuda", gen)
+        args = rank_heads(attention_inputs(batch, n, dh, d, h, g, "cuda", gen), heads)
+        h = heads or h
         reset_rel_counts()
         o_k, lse_k = RA.relpos_attention(*args)
         o_p, lse_p = RA.reference_relpos_attention(*args)
@@ -730,18 +770,19 @@ def grad_errors(got, want):
             for n, g, w in zip(names, got, want)}
 
 
-def check_backward(phase, enc_params, seconds, gen):
+def check_backward(phase, enc_params, seconds, gen, heads=None):
     """The rel-pos backward kernels at the stage shapes of ``seconds`` of
-    audio: fp32 (the FMA kernels) against the plain backward on the same o,
-    LSE and dO; bf16 (the tensor-core kernels, by the route counters)
-    against the plain backward on the same bf16 inputs, twice, the second
-    bitwise equal to the first. The largest fp32 error
-    and the largest bf16 relative error."""
+    audio (``heads`` of them when given): fp32 (the FMA kernels) against the
+    plain backward on the same o, LSE and dO; bf16 (the tensor-core kernels,
+    by the route counters) against the plain backward on the same bf16
+    inputs, twice, the second bitwise equal to the first. The largest fp32
+    error and the largest bf16 relative error."""
     from efficientconformer_torch.ops import rel_attention as RA
 
     max_err = max_err16 = 0.0
     for name, n, dh, d, h, g in stage_shapes(enc_params, seconds):
-        args = attention_inputs(CHECK_BATCH, n, dh, d, h, g, "cuda", gen)
+        args = rank_heads(attention_inputs(CHECK_BATCH, n, dh, d, h, g, "cuda", gen), heads)
+        h = heads or h
         o, lse = RA.reference_relpos_attention(*args)
         do = torch.randn(o.shape, generator=gen).cuda()
         reset_rel_counts()
@@ -1242,6 +1283,214 @@ def phase_dp_rate(card_line, train_rate_ms):
         plain_repeats_bitwise=repeat, rel_fwd_launches=fwd, rel_bwd_launches=bwd,
         tc_launches=(fwd_tc, bwd_tc), card=f"'{card_line}'")
     return fwd, bwd
+
+
+# ---------------------------------------------------------------- tensor parallelism
+
+
+def phase_tp_kernel():
+    """[tp-kernel]: the kernels at a rank's head counts under tensor
+    parallelism, against their plain versions, as [kernel], [kernel-bwd] and
+    [lm-kernel] check them: the rel-pos forward and backward at the
+    flagship's three 16 s stage shapes on 2 and 1 heads (model 2 and 4), the
+    bias forward and backward at the LM's causal shape on 6 and 3 heads;
+    fp32 on the FMA route and bf16 on the tensor cores, by the route
+    counters; the shared memory each route takes at each stage shape (the
+    head count does not enter it). Returns the largest errors: rel-pos
+    forward (fp32, bf16), backward (fp32, bf16), bias forward, backward."""
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.ops import rel_attention as RA
+
+    enc_params = load_config(CONFIG)["encoder_params"]
+    gen = torch.Generator().manual_seed(SEED + 93)
+    fwd, bwd = [0.0, 0.0], [0.0, 0.0]
+    for heads in TP_HEADS:
+        e = check_forward("tp-kernel", enc_params, TRAIN_SECONDS, gen, heads=heads)
+        fwd = [max(a, b) for a, b in zip(fwd, e)]
+        e = check_backward("tp-kernel-bwd", enc_params, TRAIN_SECONDS, gen, heads=heads)
+        bwd = [max(a, b) for a, b in zip(bwd, e)]
+    for name, n, dh, d, h, g in stage_shapes(enc_params, TRAIN_SECONDS):
+        say("tp-kernel-smem", shape=name, dh=dh, rel_width=d, heads_per_rank=TP_HEADS,
+            tc_fwd_bwd_bytes=RA.smem_bytes(torch.bfloat16, dh, d),
+            fma_fwd_bwd_bytes=RA.smem_bytes(torch.float32, dh, d), limit=RA.SMEM_LIMIT)
+    p = lm_params()
+    dh = p["dim_model"] // p["num_heads"]
+    err_bf = err_bb = 0.0
+    for heads in TP_LM_HEADS:
+        args = bias_inputs(LM_CHECK_BATCH, heads, 101, 101, dh, dh, "causal", gen)
+        ef, eb = check_bias_case(f"lm-causal-{heads}-heads", args, gen, phase="tp-kernel")
+        err_bf, err_bb = max(err_bf, ef), max(err_bb, eb)
+    return fwd, bwd, err_bf, err_bb
+
+
+def tp_cases(ranks, model_parallel, lm=True) -> list:
+    """[tp-slice]'s steps: the flagship's fp32 and bf16 steps ([dp-slice]'s
+    settings: dropout 0, SpecAugment off, Adam from a shared non-zero state
+    at a constant 1e-3) and the LM-Transformer's fp32 step, over 2
+    microbatches of 4 ragged rows at one data rank (2 a data rank from two
+    on)."""
+    data = ranks // model_parallel
+    rows = max(4 // data, 2) * data
+    rng = np.random.default_rng(SEED + 94)
+    seconds = np.resize([4.0, 5.5, 7.0, 8.0, 8.0, 6.5, 4.5, 5.0], (2, rows))
+    batch = {k: v.numpy() for k, v in train_batch(2, rows, seconds,
+                                                  np.resize([12, 30, 0, 20], rows), "cpu",
+                                                  rng).items()}
+    cases = []
+    for mixed in (False, True):
+        cfg = train_config(mixed_precision=mixed, lr_schedule="Constant", lr_value=1e-3)
+        cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+        cases.append({"config": cfg, "batch": batch, "seed": SEED, "adam": dp_adam(cfg),
+                      "allow_tf32": False})
+    if lm:
+        cfg = train_config(LM_CONFIG, mixed_precision=False, lr_schedule="Constant",
+                           lr_value=1e-3)
+        cfg["lm_params"]["Pdrop"] = 0.0
+        lengths = np.resize([20, 55, 100, 10, 70, 35, 90, 45], (2, rows))
+        lbatch = {k: v.numpy() for k, v in lm_batch(2, rows, lengths, "cpu", rng).items()}
+        cases.append({"config": cfg, "batch": lbatch, "seed": SEED, "adam": dp_adam(cfg),
+                      "allow_tf32": False})
+    return cases
+
+
+@contextlib.contextmanager
+def float64_head():
+    """A CTC model's vocabulary projection computed in float64 and rounded
+    once to the activations' type: the same logits up to the rounding of
+    the fp32 product's sums, as splitting the product over ranks changes
+    that rounding."""
+    from efficientconformer_torch.models.model_ctc import ModelCTC
+
+    def forward(self, x, x_len, generator=None):
+        enc, enc_len, probs = self.encoder.forward_taps(x, x_len, generator)
+        w, b = self.fc.weight, self.fc.bias
+        logits = F.linear(enc.double(), w.double(), b.double()).to(enc.dtype)
+        return (logits, enc_len, probs) if self.interctc else (logits, enc_len)
+
+    with mock.patch.object(ModelCTC, "forward", forward):
+        yield
+
+
+def phase_tp_slice(card_line, ranks=TP_RANKS, model_parallel=2, backend="gloo",
+                   phase="tp-slice", lm=True):
+    """Tensor parallelism at full width: ``ranks`` ranks in model groups of
+    ``model_parallel`` (by default two on the one card over gloo, data 1 x
+    model 2; ``backend`` None: NCCL, one rank a GPU), each case of
+    ``tp_cases`` against the one-process step over the global batch on the
+    (first) card at [dp-slice]'s gates (fp32 loss and norm 1e-5, parameters
+    and statistics 1e-4; bf16 all 2e-2): the gathered parameters and
+    statistics equal across the ranks, the replicated parameters bit for
+    bit; the kernels' launches a rank and a step (rel-pos 30 / 30 on the
+    rank's heads, the LM's bias 24 / 24, on the FMA route in fp32 and the
+    tensor cores in bf16), the model groups' all-reduces and all-gathers a
+    step (over gloo, the all-gathers take the card's tensors as they are).
+    The fp32 CTC gradient moves with the rounding of the logits
+    (its posteriors are exp(alpha + beta - loss), the loss a few hundred
+    nats, whose fp32 ulp is ~3e-5), so the fp32 CTC norm is held to the
+    larger of 1e-5 and three times its noise floor: how far the one-process
+    step moves with its logits rounded from a float64 product
+    (``float64_head``).
+    Returns the kernels' launches over the ranks and steps:
+    {"relpos": (fwd, bwd), "bias": (fwd, bwd)}."""
+    from efficientconformer_torch import dryrun
+    from efficientconformer_torch.parallel import mesh
+
+    cases = tp_cases(ranks, model_parallel, lm)
+    sharded = []
+    for case in cases:
+        cfg = json.loads(json.dumps(case["config"]))
+        cfg["training_params"]["model_parallel"] = model_parallel
+        sharded.append(dict(case, config=cfg))
+    t0 = time.perf_counter()
+    outs = mesh.launch(dryrun.shard_steps, ranks, (sharded,), device_type="cuda",
+                       backend=backend, timeout=TP_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    backend = backend or mesh.default_backend("cuda")
+    total = {"relpos": [0, 0], "bias": [0, 0]}
+    for i, case in enumerate(cases):
+        cfg = case["config"]
+        is_lm = "lm_params" in cfg
+        fp32 = not cfg["training_params"]["mixed_precision"]
+        one = dryrun.shard_step(**case, device="cuda")
+        got = [o[i] for o in outs]
+        loss_err = max(abs(g["loss"] - one["loss"]) / abs(one["loss"]) for g in got)
+        norm_err = max(abs(g["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+                       for g in got)
+        stats = [{k: v for k, v in g["buffers"].items() if "running" in k} for g in got + [one]]
+        param_err = max(rel_diff(g["params"], one["params"]) for g in got)
+        stats_err = max(rel_diff(st, stats[-1]) for st in stats[:-1])
+        tol, loss_tol = (DP_FP32_TOL, DP_LOSS_RTOL) if fp32 else (DP_BF16_TOL, DP_BF16_TOL)
+        norm_tol, floor = loss_tol, None
+        if fp32 and not is_lm:
+            with float64_head():
+                moved = dryrun.shard_step(**case, device="cuda")
+            floor = abs(moved["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+            norm_tol = max(loss_tol, 3 * floor)
+        label = f"[{phase}] {'LM' if is_lm else 'CTC'} {'fp32' if fp32 else 'bf16'}"
+        check(loss_err <= loss_tol and norm_err <= norm_tol,
+              f"{label}: loss {[g['loss'] for g in got]} / {one['loss']}, "
+              f"norm {[g['grad_norm'] for g in got]} / {one['grad_norm']}")
+        check(param_err <= tol and stats_err <= tol,
+              f"{label}: parameters {param_err}, statistics {stats_err}")
+        differ = [(key, k, (g[key][k].double() - got[0][key][k].double()).abs().max().item())
+                  for g in got[1:] for key in ("params", "buffers") for k in got[0][key]
+                  if not torch.equal(g[key][k], got[0][key][k])]
+        check(not differ, f"{label}: the ranks' gathered parameters or statistics differ: "
+              f"{differ[:8]} ({len(differ)} in all)")
+        check(all(torch.equal(g["replicated"][k], got[0]["replicated"][k]) for g in got[1:]
+                  for k in got[0]["replicated"]) and got[0]["replicated"],
+              f"{label}: the ranks' replicated parameters differ")
+        kernel, n_att = (("bias", cfg["lm_params"]["num_blocks"] * 2) if is_lm else
+                         ("relpos", cfg["encoder_params"]["num_blocks"] * 2))
+        per_rank = []
+        for g in got:
+            c = g["launches"]
+            fwd, bwd = c[f"{kernel}_fwd"], c[f"{kernel}_bwd"]
+            tc = (c[f"{kernel}_fwd_tc"], c[f"{kernel}_bwd_tc"])
+            per_rank.append((fwd, bwd))
+            check((fwd, bwd) == (n_att, n_att) and tc == ((0, 0) if fp32 else (n_att, n_att)),
+                  f"{label} rank {g['rank']}: {kernel} launches {c}, expected {n_att} / "
+                  f"{n_att} on the {'FMA' if fp32 else 'tensor-core'} route")
+            check(g["model_size"] == model_parallel and g["tp_calls"]["all_reduce"] > 0
+                  and g["tp_calls"]["all_gather"] > 0 and g["ddp"] == (ranks > model_parallel),
+                  f"{label} rank {g['rank']}: model size {g['model_size']}, collectives "
+                  f"{g['tp_calls']}, DDP {g['ddp']}")
+            total[kernel] = [total[kernel][0] + fwd, total[kernel][1] + bwd]
+        say(phase, model="LM-Transformer" if is_lm else "EfficientConformerCTCSmall",
+            dtype="float32" if fp32 else "bfloat16", ranks=ranks,
+            grid=f"data{ranks // model_parallel}xmodel{model_parallel}", backend=backend,
+            rows=case["batch"]["audio" if not is_lm else "tokens"].shape[:2],
+            loss=f"{got[0]['loss']:.6f}", loss_rel=f"{loss_err:.3g}",
+            norm_rel=f"{norm_err:.3g}", norm_tol=f"{norm_tol:.3g}",
+            norm_floor="-" if floor is None else f"{floor:.3g}", param_rel=f"{param_err:.3g}",
+            stats_rel=f"{stats_err:.3g}", tol=tol, replicated_bitwise_equal=True,
+            **{f"{kernel}_launches_per_rank": per_rank},
+            route="fma" if fp32 else "tensor-core",
+            all_reduces_per_step=got[0]["tp_calls"]["all_reduce"],
+            all_gathers_per_step=got[0]["tp_calls"]["all_gather"],
+            ddp_all_reduces=got[0]["ddp_all_reduces"], bn_all_reduces=got[0]["bn_all_reduces"],
+            ranks_seconds=f"{ranks_s:.2f}", card=f"'{card_line}'")
+    return {k: tuple(v) for k, v in total.items()}
+
+
+def phase_tp_cli():
+    """[tp-cli]: ``-m training --model_parallel 2`` on a machine of one GPU
+    is refused before any rank starts, with the JAX package's message (the
+    CLI's ranks run one a GPU over NCCL; scripts/torch_tp_multigpu.py runs
+    it on four). Returns whether it ran (more than one GPU) or was refused."""
+    from efficientconformer_torch import main as cli_main
+
+    n = torch.cuda.device_count()
+    if n % 2 == 0:
+        say("tp-cli", gpus=n, note="run by scripts/torch_tp_multigpu.py")
+        return "not run"
+    try:
+        cli_main.main(["-c", CONFIG, "-m", "training", "--model_parallel", "2"])
+    except ValueError as e:
+        check(f"does not divide the {n} visible" in str(e), f"[tp-cli] {e}")
+        say("tp-cli", gpus=n, refused=f"'{e}'")
+        return "refused"
+    raise RuntimeError("[tp-cli] --model_parallel 2 on one GPU was not refused")
 
 
 # ---------------------------------------------------------------- Transducer
@@ -4417,6 +4666,9 @@ def main() -> int:
     launches_bwd, tc_bwd, train_rate_ms = phase_train_rate(card_line)
     dp_slice = phase_dp_slice(card_line)
     dp_rate = phase_dp_rate(card_line, train_rate_ms)
+    tp_fwd, tp_bwd, tp_bias_fwd, tp_bias_bwd = phase_tp_kernel()
+    tp_slice = phase_tp_slice(card_line)
+    phase_tp_cli()
     (t_err, t_err16), (t_err_bwd, t_err16_bwd) = phase_t_kernel(t_cfg["encoder_params"])
     err_rnnt, times_rnnt, err_rnnt_bwd, times_rnnt_bwd = phase_rnnt_kernel(t_cfg)
     t_launches, t_tc = phase_t_requests()
@@ -4488,14 +4740,18 @@ def main() -> int:
               serve_launches={"stream-exact": stream_rel, "serve-slice": serve_rel,
                               "serve-rate": sum(rate_rel.values())},
               interctc_launches=interctc_fwd, remat_launches=remat_fwd,
-              dp_launches={"dp-slice": dp_slice[0], "dp-rate": dp_rate[0]}),
+              dp_launches={"dp-slice": dp_slice[0], "dp-rate": dp_rate[0]},
+              tp_launches={"tp-slice": tp_slice["relpos"][0]},
+              tp_kernel_max_err=tp_fwd[0], tp_kernel_bf16_max_err=tp_fwd[1]),
         entry(RA.KERNEL_BWD, "efficientconformer_torch/csrc/rel_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:139", launches_bwd,
               max(max_err_bwd, t_err_bwd), times_bwd,
               bf16_max_err=max(err16_bwd, t_err16_bwd), tc_launches=tc_bwd,
               graph_ms=times_bwd["kernel"], eager_ms=times_bwd["kernel_call"],
               interctc_launches=interctc_bwd, remat_launches=remat_bwd,
-              dp_launches={"dp-slice": dp_slice[1], "dp-rate": dp_rate[1]}),
+              dp_launches={"dp-slice": dp_slice[1], "dp-rate": dp_rate[1]},
+              tp_launches={"tp-slice": tp_slice["relpos"][1]},
+              tp_kernel_max_err=tp_bwd[0], tp_kernel_bf16_max_err=tp_bwd[1]),
         entry(RL.KERNEL_FWD, "efficientconformer_torch/csrc/rnnt_fwd.cu",
               "efficientconformer_tpu/ops/pallas_rnnt.py:73", rnnt_fwd, err_rnnt, times_rnnt),
         entry(RL.KERNEL_BWD, "efficientconformer_torch/csrc/rnnt_bwd.cu",
@@ -4512,11 +4768,13 @@ def main() -> int:
               stream_bound_ms=times_stream["bound"], stream_library_ms=times_stream["library"],
               host_beam_launches=host_bias, step_bf16_max_err=step_err16,
               step_kernel_ms=times_step["kernel"], step_plain_ms=times_step["plain"],
-              step_bound_ms=times_step["bound"], step_library_ms=times_step["library"]),
+              step_bound_ms=times_step["bound"], step_library_ms=times_step["library"],
+              tp_launches={"tp-slice": tp_slice["bias"][0]}, tp_kernel_max_err=tp_bias_fwd),
         entry(BA.KERNEL_BWD, "efficientconformer_torch/csrc/bias_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_attention.py:412", lm_bwd,
               max(err_bias_bwd, err_wide_bwd), times_bias_bwd, variants_launches=variant_bwd,
-              **wide("backward")),
+              **wide("backward"), tp_launches={"tp-slice": tp_slice["bias"][1]},
+              tp_kernel_max_err=tp_bias_bwd),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

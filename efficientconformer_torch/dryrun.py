@@ -1,4 +1,4 @@
-"""A data-parallel dry run, and the step of one rank.
+"""A multi-rank dry run, and the step of one rank.
 
 ``dryrun_multichip(n)`` is the port's counterpart of
 ``__graft_entry__.dryrun_multichip``: n ranks (gloo processes on the CPU, or
@@ -6,10 +6,12 @@ one rank a GPU over NCCL), the flagship's config shrunk as there
 (``__graft_entry__.py:70-78``), and one full training step: the forward
 pass, the CTC loss, the backward with DDP's gradient all-reduce and the
 global BatchNorm statistics, and the Adam update, on a batch of 2
-utterances a rank. It prints the loss, the gradient norm and the
-all-reduces issued: DDP's gradient buckets and BatchNorm's statistics.
-Pure data parallelism: tensor and sequence parallelism are ROADMAP Queue 1
-items 22 and 23.
+utterances a data rank. As there (``__graft_entry__.py:82-104``), four or
+more ranks (an even count) run data n/2 x model 2, tensor parallelism's
+Megatron layers on model groups of two, and fewer pure data parallelism. It
+prints the loss, the gradient norm and the collectives issued: DDP's
+gradient buckets, BatchNorm's statistics and the model groups' all-reduces
+and all-gathers. Sequence parallelism is ROADMAP Queue 1 item 23.
 
     python -m efficientconformer_torch.dryrun [N] [--cpu]
 
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from efficientconformer_torch.config import load_config
-from efficientconformer_torch.parallel import mesh
+from efficientconformer_torch.parallel import mesh, tensor
 
 FLAGSHIP = "configs/EfficientConformerCTCSmall.json"
 # the shrunk encoder of __graft_entry__.py:70-78
@@ -88,34 +90,51 @@ def shard_step(config: dict, batch: dict, seed: int = 0, adam: Optional[tuple] =
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = allow_tf32
     trainer = Trainer(copy.deepcopy(config), device=device, seed=seed, ddp=ddp)
     if weights is not None:
-        trainer.model.load_state_dict(weights, strict=True)
+        trainer.model.load_state_dict(tensor.localize_state_dict(trainer.model, weights),
+                                      strict=True)
     if adam is not None:
         mu, nu, count = adam
         set_adam_state(trainer.optimizer, trainer.model, mu, nu, count)
         trainer.step = count
     counts = {"ddp": 0}
     if trainer.ddp is not None:
+        group = mesh.data_group()
+
         def counting_hook(state, bucket):
             state["ddp"] += 1
-            return default_hooks.allreduce_hook(None, bucket)
+            # over the data group, as DDP's own reduction (None: the world)
+            return default_hooks.allreduce_hook(group, bucket)
 
         trainer.ddp.register_comm_hook(counts, counting_hook)
     mine = mesh.shard_batch({k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()})
     mesh.all_reduce_sum.calls = 0
     for _ in range(steps):
         reset_kernel_launches()
+        tensor.reset_calls()
         loss, grad_norm = trainer.train_step(mine)
+    tp_calls = dict(tensor.calls)
     if trainer.device.type == "cuda":
         torch.cuda.synchronize(trainer.device)
     model = trainer.model
+
+    def host(tensors):
+        return {n: t.detach().cpu().clone() for n, t in tensors.items()}
+
+    # the full layout (gathered over the model group), and the replicated
+    # parameters as this rank holds them
+    named = dict(model.named_parameters())
     return {"loss": float(loss), "grad_norm": float(grad_norm),
-            "params": {n: p.detach().cpu().clone() for n, p in model.named_parameters()},
-            "grads": {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+            "params": host(tensor.gather_tensors(model, named)),
+            "grads": host(tensor.gather_tensors(model, {n: p.grad for n, p in named.items()}))
             if grads else None,
-            "buffers": {n: b.detach().cpu().clone() for n, b in model.named_buffers()},
+            "buffers": host(tensor.gather_tensors(model, dict(model.named_buffers()))),
+            "replicated": host({n: p for n, p in named.items()
+                                if getattr(p, "tp_shard", None) is None}),
             "launches": kernel_launches(), "ddp_all_reduces": counts["ddp"],
-            "bn_all_reduces": mesh.all_reduce_sum.calls, "rank": mesh.rank(),
-            "world": mesh.world_size(), "ddp": trainer.ddp is not None}
+            "bn_all_reduces": mesh.all_reduce_sum.calls, "tp_calls": tp_calls,
+            "rank": mesh.rank(), "world": mesh.world_size(), "data_rank": mesh.data_rank(),
+            "model_rank": mesh.model_rank(), "model_size": mesh.model_size(),
+            "ddp": trainer.ddp is not None}
 
 
 def shard_steps(cases: list) -> list:
@@ -144,13 +163,17 @@ def example_batch(batch_size: int, vocab: int) -> dict:
 
 
 def dryrun_multichip(n_devices: int, device_type: Optional[str] = None) -> dict:
-    """One data-parallel training step of the shrunk flagship over
-    ``n_devices`` ranks (the card's GPUs, or gloo processes on the CPU when
-    there is no card or ``device_type`` is "cpu"); prints and returns rank
-    0's loss, gradient norm and all-reduce counts."""
+    """One training step of the shrunk flagship over ``n_devices`` ranks
+    (the card's GPUs, or gloo processes on the CPU when there is no card or
+    ``device_type`` is "cpu"): data x model 2 at four or more (an even
+    count), data parallel otherwise; prints and returns rank 0's loss,
+    gradient norm and collective counts."""
     device_type = device_type or ("cuda" if torch.cuda.is_available() else "cpu")
+    model_parallel = 2 if n_devices >= 4 and n_devices % 2 == 0 else 1
     cfg = tiny_config()
-    batch = example_batch(2 * n_devices, cfg["tokenizer_params"]["vocab_size"])
+    cfg["training_params"]["model_parallel"] = model_parallel
+    batch = example_batch(2 * (n_devices // model_parallel),
+                          cfg["tokenizer_params"]["vocab_size"])
     outs = mesh.launch(shard_step, n_devices, (cfg, batch), device_type=device_type,
                        threads=1 if device_type == "cpu" else None)
     first = outs[0]
@@ -161,18 +184,24 @@ def dryrun_multichip(n_devices: int, device_type: Optional[str] = None) -> dict:
         for name, p in first["params"].items():
             if not torch.equal(o["params"][name], p):
                 raise RuntimeError(f"rank {o['rank']} updated {name} otherwise than rank 0")
-    result = {"world": n_devices, "device": device_type, "loss": first["loss"],
-              "grad_norm": first["grad_norm"],
+    result = {"world": n_devices, "device": device_type, "data": n_devices // model_parallel,
+              "model": model_parallel, "loss": first["loss"], "grad_norm": first["grad_norm"],
               "all_reduces": {"ddp_gradient_buckets": first["ddp_all_reduces"],
                               "batch_norm_statistics": first["bn_all_reduces"]}}
-    print(f"dryrun_multichip ok (data parallel over {n_devices} {device_type} rank(s)):",
+    if model_parallel > 1:
+        result["model_group"] = first["tp_calls"]
+        kind = f"data {result['data']} x model {model_parallel} over {n_devices}"
+    else:
+        kind = f"data parallel over {n_devices}"
+    print(f"dryrun_multichip ok ({kind} {device_type} rank(s)):",
           {"loss": result["loss"], "grad_norm": result["grad_norm"]},
-          "all-reduces:", result["all_reduces"], flush=True)
+          "all-reduces:", result["all_reduces"],
+          *(("model group:", result["model_group"]) if model_parallel > 1 else ()), flush=True)
     return result
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="one data-parallel step of the shrunk flagship")
+    p = argparse.ArgumentParser(description="one multi-rank step of the shrunk flagship")
     p.add_argument("n", nargs="?", type=int, default=None,
                    help="ranks (default: the visible GPUs; 2 on --cpu)")
     p.add_argument("--cpu", action="store_true", help="gloo ranks on the CPU")

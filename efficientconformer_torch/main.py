@@ -13,8 +13,9 @@ raises without one unless --cpu asks for the CPU. -d or --parallel runs
 data parallelism, one rank a visible GPU or --world_size ranks (on --cpu,
 gloo processes: one unless --world_size says more); under torchrun
 (``torchrun --nproc_per_node N -m efficientconformer_torch.main ...``) each
-process is one rank. The flags whose work the port does not have
-(--model_parallel, --seq_parallel) raise NotImplementedError naming their
+process is one rank. --model_parallel n splits the ranks into model groups
+of n that shard the model (tensor parallelism) in training; --seq_parallel,
+whose work the port does not have, raises NotImplementedError naming its
 ROADMAP item.
 """
 
@@ -51,7 +52,8 @@ def build_parser():
     p.add_argument("--steps_per_epoch", type=int, default=None,
                    help="Number of steps per epoch")
     p.add_argument("--world_size", type=int, default=None,
-                   help="Number of data-parallel ranks (default: the visible GPUs; 1 on --cpu)")
+                   help="Number of ranks (default: the visible GPUs; on --cpu 1, or the "
+                        "--model_parallel size)")
     p.add_argument("--cpu", action="store_true",
                    help="Run on cpu (the default is the GPU; without one the CLI raises)")
     p.add_argument("--show_dict", action="store_true", help="Show model dict summary")
@@ -77,7 +79,7 @@ def build_parser():
     p.add_argument("--profiler", action="store_true",
                    help="Profile the eval_time modes: a trace and a top-10 op table")
     p.add_argument("--model_parallel", type=int, default=None,
-                   help="Tensor-parallel size (not ported: ROADMAP item 22)")
+                   help="Tensor-parallel size: ranks a model group (training)")
     p.add_argument("--seq_parallel", type=int, default=None,
                    help="Sequence-parallel size (not ported: ROADMAP item 23)")
     return p

@@ -53,6 +53,22 @@ The combinations the JAX module refuses (local or strided grouped
 attention, linear attention with rel-pos encodings) raise ValueError in
 modules.MultiHeadSelfAttentionModule.
 
+Under tensor parallelism (``shard_``, from parallel/tensor.shard_model_)
+the query, key and value projections are column-parallel and the output
+projection row-parallel over the model group; the input enters the group
+once. Where a rank's columns are whole heads (G = 1 and H divisible by the
+model size) the factorized and skewing paths run the kernel on the rank's
+H/n heads, each rank taking its slices of u and v, and of the per-head
+pos weights (delta and W, or the pos projection's window) through
+``scatter_features``, whose backward gathers the gradients whole. Elsewhere
+(grouped layers, whose heads fold G frames across the column split, any H
+the model size does not divide, the strided and absolute paths) the gather
+path: q, k and v are gathered along the features, every head-indexed input
+of the kernel is cut to the rank's heads (zero heads pad an uneven split),
+the kernel runs on them, the heads' output is gathered and the rank's
+feature slice goes to the output projection. Local and linear attention,
+the KV caches and the one-token step raise (ROADMAP Queue 1 item 24).
+
 Parameter names are the original PyTorch repo's (query_layer, key_layer,
 value_layer, output_layer, and for rel-pos pos_layer, u, v), so
 utils/weights.py maps them. With ``vn_std`` the query, key, value and
@@ -75,6 +91,7 @@ from efficientconformer_torch.ops import masks as M
 from efficientconformer_torch.ops import pos_enc as P
 from efficientconformer_torch.ops import rel_attention as RA
 from efficientconformer_torch.ops import rel_factorize as RF
+from efficientconformer_torch.parallel import tensor as tp_ops
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -95,6 +112,77 @@ class MultiHeadSelfAttention(nn.Module):
             self.u = nn.Parameter(torch.zeros(dim_model))
             self.v = nn.Parameter(torch.zeros(dim_model))
         self._step_table = None      # (key, table) of the last fixed-cache capacity
+        self.tp = None               # the model group under tensor parallelism
+
+    def shard_(self, reg, placement: dict, name: str) -> None:
+        """This layer's tensor-parallel form over the model group ``reg``
+        (parallel/tensor.shard_model_, which then cuts the weights by
+        ``placement``)."""
+        if self.linear_att or self.kernel_size is not None:
+            raise NotImplementedError(f"{name}: local and linear attention under tensor "
+                                      f"parallelism ({tp_ops.ROADMAP_ITEM})")
+        layers = (self.query_layer, self.key_layer, self.value_layer, self.output_layer)
+        kinds = [placement[f"{name}.{lname}.weight"].kind
+                 for lname in ("query_layer", "key_layer", "value_layer", "output_layer")]
+        if kinds != ["column"] * 3 + ["row"]:
+            tp_ops._refuse(f"{name}'s attention", self.dim_model, reg.size)
+        for layer, mode in zip(layers, ("column",) * 3 + ("row",)):
+            layer.tp, layer.tp_mode = reg, mode
+        self.tp = reg
+
+    def _whole_heads(self) -> bool:
+        """Whether a rank's columns are whole heads (the kernel then runs on
+        them as they come, with no gather)."""
+        return (self.tp is not None and self.group_size == 1
+                and self.num_heads % self.tp.size == 0)
+
+    def _qkv(self, x, whole: bool):
+        """q, k and v of x: whole, this rank's columns (``whole``), or, on
+        the gather path, this rank's columns gathered whole."""
+        q, k, v = self.query_layer(x), self.key_layer(x), self.value_layer(x)
+        if self.tp is None or whole:
+            return q, k, v
+        return tuple(tp_ops.gather_features(t, self.tp) for t in (q, k, v))
+
+    def _uv(self, whole: bool):
+        """(u, v): this rank's slices when its columns are whole heads."""
+        if not whole:
+            return self.u, self.v
+        uv = tp_ops.scatter_features(torch.stack([self.u, self.v]), self.tp)
+        return uv[0], uv[1]
+
+    def _own_heads(self, t, dim: int, whole: bool):
+        """A replicated per-head tensor cut to this rank's heads (along
+        ``dim``) when its columns are whole heads."""
+        return tp_ops.scatter_features(t, self.tp, dim) if whole else t
+
+    def _attend(self, fn, args, head_dims, whole: bool):
+        """o (B, H, N, dh) of ``fn(*args)`` (a kernel returning (o, lse)).
+        On the gather path each argument with a head dim (``head_dims``,
+        None for none) of the H heads is cut to this rank's heads, padded
+        with zero heads to a multiple of the model size, and the heads'
+        outputs are gathered."""
+        if self.tp is None or whole:
+            return fn(*args)[0]
+        reg, h = self.tp, args[0].shape[1]
+        hp = -(-h // reg.size) * reg.size
+        mine = []
+        for a, d in zip(args, head_dims):
+            if d is not None and torch.is_tensor(a) and a.shape[d] == h:
+                if hp != h:
+                    pad = [0, 0] * (a.dim() - 1 - d) + [0, hp - h]
+                    a = torch.nn.functional.pad(a, pad)
+                a = tp_ops.scatter_features(a, reg, d)
+            mine.append(a)
+        return tp_ops.gather_features(fn(*mine)[0], reg, 1)[:, :h]
+
+    def _out(self, o, whole: bool):
+        """The output projection of o (B, T, D), or of this rank's columns
+        when they are whole heads: on the gather path the rank's feature
+        slice enters the row-parallel projection."""
+        if self.tp is not None and not whole:
+            o = tp_ops.scatter_features(o, self.tp)
+        return self.output_layer(o)
 
     def init_rel_biases_(self, generator: torch.Generator) -> None:
         """u and v: Xavier-uniform over (H, G*D/H), as the JAX package."""
@@ -110,6 +198,8 @@ class MultiHeadSelfAttention(nn.Module):
         """x (B, T, D) -> (B, T, D), or (B, ceil(T/S), D) in a strided layer;
         mask (B or 1, 1, 1, T) with 1.0 at padded keys, a full (B or 1, 1,
         T, T) mask with 1.0 where query i may not see key j, or None."""
+        if self.tp is not None:
+            x = tp_ops.copy_to_region(x, self.tp)
         if self.linear_att:
             return self._linear(x)
         if self.kernel_size is not None:
@@ -127,13 +217,13 @@ class MultiHeadSelfAttention(nn.Module):
         """The fused rel-pos attention (odd G, non-causal, key-only mask)."""
         d, h, g = self.dim_model, self.num_heads, self.group_size
         t_in = x.shape[1]
-        q = self.query_layer(x)
-        k = self.key_layer(x)
-        v = self.value_layer(x)
-        u = self.u.to(x.dtype)
+        whole = self._whole_heads()
+        q, k, v = self._qkv(x, whole)
+        u_p, v_p = self._uv(whole)
+        u = u_p.to(x.dtype)
         # the pos layer's (D_in, D_out) kernel; its bias cancels in the softmax
         pos_kernel = self.pos_layer.weight.T.to(torch.float32)
-        vu = (self.v - self.u).to(torch.float32)
+        vu = (v_p - u_p).to(torch.float32)
 
         if g > 1:
             qp, _ = M.pad_to_multiple(q, g)
@@ -152,18 +242,20 @@ class MultiHeadSelfAttention(nn.Module):
             w_h = RF.rel_w_grouped(h, dh, pos_kernel, g, d // 2)
         else:
             dh = d // h
-            qu = A.split_heads(q + u, h)
-            kh = A.split_heads(k, h)
-            vh = A.split_heads(v, h)
+            hl = h // self.tp.size if whole else h      # this rank's heads
+            qu = A.split_heads(q + u, hl)
+            kh = A.split_heads(k, hl)
+            vh = A.split_heads(v, hl)
             bias = mask * A.NEG_INF if mask is not None else None
-            delta = vu.reshape(h, dh)
-            w_h = RF.rel_w_plain(pos_kernel, h, d // 2)
+            delta = vu.reshape(hl, dh)
+            w_h = self._own_heads(RF.rel_w_plain(pos_kernel, h, d // 2), 0, whole)
 
         rowtab, keytab = RF.rel_tables(qu.shape[2], kh.shape[2], d, g, x.device)
-        o, _ = RA.relpos_attention(qu, kh, vh, delta, w_h, rowtab, keytab, bias,
-                                   1.0 / math.sqrt(dh))
+        o = self._attend(RA.relpos_attention, (qu, kh, vh, delta, w_h, rowtab, keytab, bias,
+                                               1.0 / math.sqrt(dh)),
+                         (1, 1, 1, 0, 0, None, None, 1, None), whole)
         # ungroup_time is merge_heads when G = 1
-        return self.output_layer(A.ungroup_time(o, d)[:, :t_in])
+        return self._out(A.ungroup_time(o, q.shape[-1])[:, :t_in], whole)
 
     def forward_cached(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                        hidden: Optional[dict]):
@@ -175,6 +267,11 @@ class MultiHeadSelfAttention(nn.Module):
         D))."""
         if self.linear_att or self.kernel_size is not None:
             raise ValueError("a KV cache of local or linear attention")
+        if self.tp is not None:
+            if hidden is not None:
+                raise NotImplementedError("a KV cache under tensor parallelism "
+                                          f"({tp_ops.ROADMAP_ITEM})")
+            x = tp_ops.copy_to_region(x, self.tp)
         if not self.relative_pos_enc:
             if self.group_size > 1 or self.stride > 1:
                 raise ValueError("a KV cache of grouped or strided absolute attention")
@@ -183,12 +280,11 @@ class MultiHeadSelfAttention(nn.Module):
             return self._strided(x, mask, hidden)
         return self._skewed(x, mask, hidden)
 
-    def _project(self, x, hidden, keep_from: int = 0):
-        """q, k and v of x, the cached keys and values from ``keep_from`` on
-        prepended to k and v, and the new cache (all of the old one and x's)."""
-        q = self.query_layer(x)
-        k = self.key_layer(x)
-        v = self.value_layer(x)
+    def _project(self, x, hidden, keep_from: int = 0, whole: bool = False):
+        """q, k and v of x (``_qkv``), the cached keys and values from
+        ``keep_from`` on prepended to k and v, and the new cache (all of the
+        old one and x's)."""
+        q, k, v = self._qkv(x, whole)
         if hidden is None:
             return q, k, v, {"k": k, "v": v}
         new_hidden = {"k": torch.cat([hidden["k"], k], dim=1),
@@ -213,8 +309,10 @@ class MultiHeadSelfAttention(nn.Module):
         dh = g * d // h
         t_in = x.shape[1]
         th = hidden["k"].shape[1] if hidden is not None else 0
-        q, k, v, new_hidden = self._project(x, hidden, th % g)
-        u, vb = self.u.to(x.dtype), self.v.to(x.dtype)
+        whole = self._whole_heads()
+        q, k, v, new_hidden = self._project(x, hidden, th % g, whole)
+        u, vb = (t.to(x.dtype) for t in self._uv(whole))
+        hl = h // self.tp.size if whole else h          # this rank's heads
         if g > 1:
             q, _ = M.pad_to_multiple(q, g)
             k, _ = M.pad_to_multiple(k, g)
@@ -228,19 +326,21 @@ class MultiHeadSelfAttention(nn.Module):
             window = P.grouped_relative_encoding(t, d, g, self.causal, x.device,
                                                  hidden_len=k.shape[1] - t)
         else:
-            qu, qv = A.split_heads(q + u, h), A.split_heads(q + vb, h)
-            kh, vh = A.split_heads(k, h), A.split_heads(v, h)
+            qu, qv = A.split_heads(q + u, hl), A.split_heads(q + vb, hl)
+            kh, vh = A.split_heads(k, hl), A.split_heads(v, hl)
             window = P.relative_encoding(t_in, d, self.causal, x.device,
                                          hidden_len=k.shape[1] - t_in)
         e = self.pos_layer(window.to(x.dtype))
-        rel = torch.einsum("bhqd,lhd->bhql", qv, e.reshape(-1, h, dh))
+        e = self._own_heads(e.reshape(-1, h, dh), 1, whole)
+        rel = torch.einsum("bhqd,lhd->bhql", qv, e)
         skew = A.rel_to_abs_causal if self.causal else A.rel_to_abs_full
         bias = skew(rel) / math.sqrt(dh)
         if mask is not None:
             bias = bias + mask * A.NEG_INF
-        o, _ = BA.bias_attention(qu, kh, vh, bias, 1.0 / math.sqrt(dh))
+        o = self._attend(BA.bias_attention, (qu, kh, vh, bias, 1.0 / math.sqrt(dh)),
+                         (1, 1, 1, 1, None), whole)
         # ungroup_time is merge_heads when G = 1
-        return self.output_layer(A.ungroup_time(o, d)[:, :t_in]), new_hidden
+        return self._out(A.ungroup_time(o, q.shape[-1])[:, :t_in], whole), new_hidden
 
     def _strided(self, x, mask, hidden=None):
         """Strided rel-pos attention (attentions.py:380-417): the queries of
@@ -266,9 +366,10 @@ class MultiHeadSelfAttention(nn.Module):
         bias = skew(rel, s) / math.sqrt(dh)
         if mask_p is not None:
             bias = bias + mask_p[:, :, ::s] * A.NEG_INF
-        o, _ = BA.bias_attention(qu, A.split_heads(kp, h), A.split_heads(vp, h), bias,
-                                 1.0 / math.sqrt(dh))
-        return self.output_layer(A.merge_heads(o)[:, :-(-t_in // s)]), new_hidden
+        o = self._attend(BA.bias_attention, (qu, A.split_heads(kp, h), A.split_heads(vp, h),
+                                             bias, 1.0 / math.sqrt(dh)),
+                         (1, 1, 1, 1, None), False)
+        return self._out(A.merge_heads(o)[:, :-(-t_in // s)], False), new_hidden
 
     def _local(self, x, mask):
         """Local attention, rel-pos or absolute, strided or not
@@ -324,8 +425,10 @@ class MultiHeadSelfAttention(nn.Module):
             mask_p = M.pad_mask_to_multiple(mask, g)
             dh = g * d // h
             bias = mask_p[:, :, ::g, ::g] * A.NEG_INF if mask_p is not None else None
-            o, _ = BA.bias_attention(A.group_time(qp, h, g), A.group_time(kp, h, g),
-                                     A.group_time(vp, h, g), bias, 1.0 / math.sqrt(dh))
+            o = self._attend(BA.bias_attention,
+                             (A.group_time(qp, h, g), A.group_time(kp, h, g),
+                              A.group_time(vp, h, g), bias, 1.0 / math.sqrt(dh)),
+                             (1, 1, 1, 1, None), False)
             o = A.ungroup_time(o, d)[:, :t_in]
         else:
             dh = d // h
@@ -333,10 +436,11 @@ class MultiHeadSelfAttention(nn.Module):
                 q = q[:, ::s]
                 mask = mask[:, :, ::s] if mask is not None else None
             bias = mask * A.NEG_INF if mask is not None else None
-            o, _ = BA.bias_attention(A.split_heads(q, h), A.split_heads(k, h),
-                                     A.split_heads(v, h), bias, 1.0 / math.sqrt(dh))
+            o = self._attend(BA.bias_attention,
+                             (A.split_heads(q, h), A.split_heads(k, h), A.split_heads(v, h),
+                              bias, 1.0 / math.sqrt(dh)), (1, 1, 1, 1, None), False)
             o = A.merge_heads(o)
-        out = self.output_layer(o)
+        out = self._out(o, False)
         return (out, new_hidden) if cached else out
 
     def _linear(self, x):
@@ -363,6 +467,9 @@ class MultiHeadSelfAttention(nn.Module):
         taken at distance pos_b - j, with an fp32 softmax. Returns (B, 1, D)."""
         if not self.causal:
             raise ValueError("a KV-cache step of a non-causal layer")
+        if self.tp is not None:
+            raise NotImplementedError("a KV-cache step under tensor parallelism "
+                                      f"({tp_ops.ROADMAP_ITEM})")
         d, h = self.dim_model, self.num_heads
         dh = d // h
         b, cap = k.shape[:2]

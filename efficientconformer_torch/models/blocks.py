@@ -13,7 +13,10 @@ LM-Transformer's): pre-LN, x + MHSA -> x + FFN (relu, no inner dropout), no
 final norm; it passes a growing KV cache in and out, as the JAX block does,
 and its ``step`` runs one token on a fixed-capacity KV cache. The
 training state is the module's own (``train()``/``eval()``); the generator
-for dropout is handed down to each module.
+for dropout is handed down to each module. Under tensor parallelism the
+blocks are unchanged: parallel/tensor.shard_model_ gives their feed-forward,
+attention and convolution modules the model group, and their residuals,
+LayerNorms and the strided convolution residual stay replicated.
 """
 
 from __future__ import annotations

@@ -7,6 +7,13 @@ one is set (bf16 under mixed precision, joint_networks.py:51-58). ``step``,
 ``project_encoder`` and ``row`` serve the greedy decode loops. Modes "sum"
 and "concat"; activations tanh, relu, swish or none; without ``dim_model``
 the frames and states enter unprojected.
+
+Under tensor parallelism (``tp`` set by parallel/tensor.shard_model_) every
+projection is column-parallel: the frame and state projections gathered
+whole before the broadcast join (never the (B, T, U+1, Dj) activations),
+the join's inputs entering the model group, and the vocabulary projection
+on the rank's slice of the vocabulary, its logits gathered whole for the
+RNN-T loss.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch
 from torch import nn
 
 from efficientconformer_torch.models.layers import Linear, swish
+from efficientconformer_torch.parallel import tensor as tp_ops
 
 _ACTS = {"tanh": torch.tanh, "relu": torch.relu, "swish": swish, None: lambda x: x}
 
@@ -40,6 +48,18 @@ class JointNetwork(nn.Module):
         self.linear_joint = Linear(dim_joint, vocab_size, vn_std=vn_std)
         dtype = p.get("compute_dtype")
         self.compute_dtype = getattr(torch, dtype) if dtype else None
+        self.tp = None
+
+    def _enter(self, f, g):
+        """f and g entering the model group under tensor parallelism."""
+        if self.tp is None:
+            return f, g
+        return tp_ops.copy_to_region(f, self.tp), tp_ops.copy_to_region(g, self.tp)
+
+    def _logits(self, z):
+        """The vocabulary projection, gathered whole under tensor parallelism."""
+        out = self.linear_joint(z)
+        return out if self.tp is None else tp_ops.gather_features(out, self.tp)
 
     def _join(self, f, g):
         if self.mode == "concat":
@@ -53,13 +73,14 @@ class JointNetwork(nn.Module):
             f, g = f.to(self.compute_dtype), g.to(self.compute_dtype)
         if self.linear_encoder is not None:
             f, g = self.linear_encoder(f), self.linear_decoder(g)
-        return self.linear_joint(self.act(self._join(f[:, :, None], g[:, None])))
+        f, g = self._enter(f, g)
+        return self._logits(self.act(self._join(f[:, :, None], g[:, None])))
 
     def step(self, f, g):
         """Decode mode: f (B, De), g (B, Dd) -> (B, V)."""
         if self.linear_encoder is not None:
             f, g = self.linear_encoder(f), self.linear_decoder(g)
-        return self.linear_joint(self.act(self._join(f, g)))
+        return self._logits(self.act(self._join(*self._enter(f, g))))
 
     def project_encoder(self, f):
         """(B, T, De) -> (B, T, Dj): the frames projected once, for ``row``."""
@@ -70,4 +91,5 @@ class JointNetwork(nn.Module):
         frames, g (B, Dd) -> (B, T, V); the ops of ``step`` per frame."""
         if self.linear_decoder is not None:
             g = self.linear_decoder(g)
-        return self.linear_joint(self.act(self._join(pf, g[:, None])))
+        pf, g = self._enter(pf, g)
+        return self._logits(self.act(self._join(pf, g[:, None])))

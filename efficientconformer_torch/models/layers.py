@@ -17,11 +17,24 @@ The layers subclass torch's own, so parameter names and layouts are the
 original PyTorch repo's (``weight`` (out, in[, k...]), ``bias``,
 ``running_mean``...): see utils/weights.py.
 
-Under a process group of more than one rank (parallel/mesh.py), BatchNorm
-in training mode normalises with the statistics of the global batch, as the
-JAX package's data mesh does (mesh.py:7-9): each rank's per-channel count,
-mean and variance are gathered in fp32 by an all-reduce that autograd
-differentiates, so the backward sums over the ranks too, and combined.
+Under a process group of more than one data rank (parallel/mesh.py),
+BatchNorm in training mode normalises with the statistics of the global
+batch, as the JAX package's data mesh does (mesh.py:7-9): each rank's
+per-channel count, mean and variance are gathered in fp32 by an all-reduce
+over the data group that autograd differentiates, so the backward sums over
+the data ranks too, and combined. The ranks of one model group hold other
+channels of the convolution module's BatchNorm under tensor parallelism,
+so the table never spans a model group.
+
+Tensor parallelism (parallel/tensor.py) gives Linear and Conv1d a parallel
+form, ``tp_mode``: "column" (this rank's output features; the input has
+entered the region), "row" (this rank's input features: the partial
+products summed over the model group, then the bias) or "gather" (a
+replicated input, this rank's output features, gathered whole). A sharded
+weight's variational noise is drawn at the whole weight's shape and cut to
+the rank's part, so the noise is the one-process draw; a Dropout with
+``tp`` set (inside a parallel region) draws the whole width's mask and keeps
+its slice likewise.
 """
 
 from __future__ import annotations
@@ -36,6 +49,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from efficientconformer_torch.parallel import mesh
+from efficientconformer_torch.parallel import tensor as tp_ops
 from efficientconformer_torch.parallel.mesh import all_reduce_sum
 
 
@@ -94,12 +109,15 @@ class VariationalNoise:
 
 def draw_variational_noise_(module: nn.Module, generator: torch.Generator) -> None:
     """One N(0, 1) draw from ``generator`` (on the weights' device) for every
-    weight of every layer of ``module`` built with a ``vn_std``."""
+    weight of every layer of ``module`` built with a ``vn_std``; a sharded
+    weight's at the whole weight's shape, cut to this rank's part."""
     for m in module.modules():
         if isinstance(m, VariationalNoise) and m.vn_std:
-            m.vn_noise = {name: torch.randn(getattr(m, name).shape, generator=generator,
-                                            device=getattr(m, name).device)
-                          for name in m.vn_weights()}
+            m.vn_noise = {}
+            for name in m.vn_weights():
+                w = getattr(m, name)
+                m.vn_noise[name] = tp_ops.local(
+                    w, torch.randn(tp_ops.full_shape(w), generator=generator, device=w.device))
 
 
 def clear_variational_noise_(module: nn.Module) -> None:
@@ -108,13 +126,37 @@ def clear_variational_noise_(module: nn.Module) -> None:
             m.vn_noise = None
 
 
-class Linear(VariationalNoise, nn.Linear):
+class Parallel:
+    """Mixin of the layers with a tensor-parallel form: ``tp_mode`` None
+    (whole), "column", "row" or "gather" over the model group ``tp``."""
+
+    tp_mode: Optional[str] = None
+    tp = None
+
+    def parallel(self, x, product, bias):
+        """``product(x)`` (without the bias) in this layer's parallel form,
+        ``bias`` broadcast over its output."""
+        mode, reg = self.tp_mode, self.tp
+        if mode == "row":
+            return tp_ops.reduce_from_region(product(x), reg) + bias
+        if mode == "gather":
+            return tp_ops.gather_features(product(tp_ops.copy_to_region(x, reg)) + bias, reg,
+                                          self.feature_dim)
+        return product(x) + bias
+
+
+class Linear(Parallel, VariationalNoise, nn.Linear):
+    feature_dim = -1
+
     def __init__(self, in_features: int, out_features: int, vn_std: Optional[float] = None):
         super().__init__(in_features, out_features)
         self.vn_std = vn_std
 
     def forward(self, x):
-        return F.linear(x, _cast(self.noisy("weight"), x), _cast(self.bias, x))
+        w, b = _cast(self.noisy("weight"), x), _cast(self.bias, x)
+        if self.tp_mode is None:
+            return F.linear(x, w, b)
+        return self.parallel(x, lambda y: F.linear(y, w), b)
 
 
 class Embedding(VariationalNoise, nn.Embedding):
@@ -177,11 +219,14 @@ class LSTM(VariationalNoise, nn.LSTM):
         return out, (h, c)
 
 
-class Conv1d(VariationalNoise, nn.Conv1d):
+class Conv1d(Parallel, VariationalNoise, nn.Conv1d):
     """Conv1d over (B, C, T) with symmetric 'same' padding (k-1)//2 unless
     another padding is given: an int, or "causal", k-1 zeros on the left
     and none on the right (layers.py:127-133), with any stride; variational
-    noise on the weight with ``vn_std``."""
+    noise on the weight with ``vn_std``. A pointwise conv has the parallel
+    forms of a Linear over its channels."""
+
+    feature_dim = 1
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1, groups=1,
                  padding=None, vn_std: Optional[float] = None):
@@ -196,7 +241,10 @@ class Conv1d(VariationalNoise, nn.Conv1d):
     def forward(self, x):
         if self.causal:
             x = F.pad(x, (self.kernel_size[0] - 1, 0))
-        return self._conv_forward(x, _cast(self.noisy("weight"), x), _cast(self.bias, x))
+        w, b = _cast(self.noisy("weight"), x), _cast(self.bias, x)
+        if self.tp_mode is None:
+            return self._conv_forward(x, w, b)
+        return self.parallel(x, lambda y: self._conv_forward(y, w, None), b[:, None])
 
 
 class Conv2d(nn.Conv2d):
@@ -261,7 +309,7 @@ def local_batch_stats():
 
 
 def _global_stats() -> bool:
-    return (dist.is_initialized() and dist.get_world_size() > 1
+    return (dist.is_initialized() and mesh.data_size() > 1
             and not getattr(_LOCAL_STATS, "on", False))
 
 
@@ -314,8 +362,9 @@ class _BatchNorm:
         dims = [0] + list(range(2, x32.dim()))
         var_r, mean_r = torch.var_mean(x32, dim=dims, correction=0)
         row = torch.cat([mean_r, var_r, x32.new_full((1,), x32.numel() // c)])
-        rank, world = dist.get_rank(), dist.get_world_size()
-        table = all_reduce_sum(F.pad(row[None], (0, 0, rank, world - rank - 1)))
+        rank, world = mesh.data_rank(), mesh.data_size()
+        table = all_reduce_sum(F.pad(row[None], (0, 0, rank, world - rank - 1)),
+                               mesh.data_group())
         means, variances, counts = table[:, :c], table[:, c:2 * c], table[:, 2 * c:]
         total = counts.sum()
         mean = (counts * means).sum(0) / total
@@ -339,7 +388,11 @@ class BatchNorm2d(_BatchNorm, nn.BatchNorm2d):
 class Dropout(nn.Module):
     """Dropout whose keep-mask is drawn from an explicit ``torch.Generator``
     (on the tensor's device), kept values scaled by 1/(1-p), as flax's
-    Dropout. The identity in eval mode or when p = 0."""
+    Dropout. The identity in eval mode or when p = 0. With ``tp`` set, x
+    holds this rank's slice of the last dim: the mask is drawn whole and
+    sliced."""
+
+    tp = None
 
     def __init__(self, p: float):
         super().__init__()
@@ -350,7 +403,12 @@ class Dropout(nn.Module):
             return x
         if generator is None:
             raise ValueError("Dropout in training mode needs a torch.Generator")
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=generator)
+        if self.tp is None:
+            keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=generator)
+        else:
+            shape = x.shape[:-1] + (x.shape[-1] * self.tp.size,)
+            keep = x.new_empty(shape).bernoulli_(1.0 - self.p, generator=generator)
+            keep = keep.narrow(-1, self.tp.rank * x.shape[-1], x.shape[-1])
         return x * keep / (1.0 - self.p)
 
 

@@ -10,7 +10,10 @@ through the single-token ``step``: the device beam
 (decoding/rnnt_beam_device.py) on a fixed-shape carry (``init_carry_fixed``:
 the RNN's state, or the Transformer's fixed-capacity KV cache), the host
 beams (decoding/rnnt_beam.py) on ``init_carry`` (the RNN's state, or None:
-the Transformer's growing KV cache), lm.py:35-50.
+the Transformer's growing KV cache), lm.py:35-50. Under tensor
+parallelism (parallel/tensor.shard_model_) the blocks' attention and
+feed-forward are column- and row-parallel and the vocabulary projection's
+logits are gathered whole before the cross entropy.
 """
 
 from __future__ import annotations

@@ -5,7 +5,10 @@ ConformerEncoder + vocabulary projection; greedy decoding is argmax ->
 repeat/blank collapse -> left-compaction, batched on the device. With
 ``interctc_blocks`` it is the InterCTC model: the encoder's taps
 (models/encoders.py) return their probabilities beside the logits, for the
-loss (models/factory.py); decoding reads the logits only.
+loss (models/factory.py); decoding reads the logits only. Under tensor
+parallelism (parallel/tensor.shard_model_) the vocabulary projection is
+column-parallel and its logits are gathered whole before the CTC loss and
+the greedy argmax.
 """
 
 from __future__ import annotations

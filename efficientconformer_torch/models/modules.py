@@ -10,6 +10,13 @@ convolution modules carry variational noise on their weights, as the JAX
 modules' (the Conformer decoder's blocks).
 In training mode BatchNorm uses batch statistics (models/layers.py) and
 dropout and SpecAugment draw from the generator passed to ``forward``.
+Under tensor parallelism (parallel/tensor.shard_model_, ``tp`` set) the
+feed-forward and convolution modules run Megatron's pair on the rank's
+columns: the LayerNorm replicated, its output entering the region, the first
+linear (pointwise conv) column-parallel, then the per-feature work (the
+activation and inner dropout; GLU, the depthwise conv, BatchNorm and swish)
+on the rank's features, the second row-parallel with one all-reduce, and
+the last dropout on the replicated output.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from efficientconformer_torch.models.layers import (
 )
 from efficientconformer_torch.ops import specaugment
 from efficientconformer_torch.ops.audio import log_mel_spectrogram
+from efficientconformer_torch.parallel import tensor as tp_ops
 
 
 def run_layers(layers: nn.Sequential, x, generator):
@@ -43,6 +51,15 @@ def run_layers(layers: nn.Sequential, x, generator):
     for layer in layers:
         x = layer(x, generator) if isinstance(layer, Dropout) else layer(x)
     return x
+
+
+def run_parallel(layers: nn.Sequential, x, generator, reg):
+    """``run_layers`` of a module whose first layer (the LayerNorm) is
+    replicated and whose output enters the model group ``reg`` (None:
+    whole)."""
+    if reg is None:
+        return run_layers(layers, x, generator)
+    return run_layers(layers[1:], tp_ops.copy_to_region(layers[0](x), reg), generator)
 
 
 class AudioPreprocessing(nn.Module):
@@ -241,9 +258,10 @@ class FeedForwardModule(nn.Module):
             Linear(dim_ffn, dim_model, vn_std),
             Dropout(dropout),
         )
+        self.tp = None
 
     def forward(self, x, generator=None):
-        return run_layers(self.layers, x, generator)
+        return run_parallel(self.layers, x, generator, self.tp)
 
 
 class MultiHeadSelfAttentionModule(nn.Module):
@@ -295,15 +313,19 @@ class ConvolutionModule(nn.Module):
             Dropout(dropout),
             Transpose(1, 2),
         )
+        self.tp = None
 
     def forward(self, x, generator=None):
-        return run_layers(self.layers, x, generator)
+        return run_parallel(self.layers, x, generator, self.tp)
 
     def step(self, x, state):
         """One frame x (B, 1, D) of a causal module with no stride, in eval
         mode, given the depthwise conv's last K-1 inputs ``state`` (B, E,
         K-1): (the frame's output (B, 1, E), the state shifted by its
         input)."""
+        if self.tp is not None:
+            raise NotImplementedError("the convolution module's streaming step under tensor "
+                                      f"parallelism ({tp_ops.ROADMAP_ITEM})")
         layers = self.layers
         g = run_layers(layers[:4], x, None)            # LN, pointwise, GLU: (B, E, 1)
         window = torch.cat([state.to(g.dtype), g], dim=2)

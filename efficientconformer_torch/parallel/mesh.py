@@ -1,5 +1,6 @@
 """Data parallelism: one process a GPU in a ``torch.distributed`` process
-group, ``DistributedDataParallel`` over the port's models.
+group, ``DistributedDataParallel`` over the port's models; the grid of data
+and model groups that tensor parallelism (parallel/tensor.py) runs on.
 
 Counterpart of efficientconformer_tpu/parallel/mesh.py's data axis
 (``make_mesh``, ``globalize``, ``shard_batch``) and of the JAX runtime's
@@ -20,9 +21,19 @@ spawn, NCCL, synced BatchNorm, a sharded sampler; mesh.py:3-12):
 - ``all_reduce_sum`` is an all-reduce that autograd differentiates: its
   backward sums the incoming gradients over the ranks too (the global
   BatchNorm statistics of models/layers.py).
+- ``make_grid(n)`` splits the world into data and model groups, the JAX
+  mesh's ("data", "model") axes (mesh.py:23-53): ``model`` is the innermost
+  axis, rank = data_idx * n + model_idx, so a model group is n neighbouring
+  ranks. ``data_rank``/``data_size``/``data_group`` and
+  ``model_rank``/``model_size``/``model_group`` read it; without a grid the
+  whole world is the data axis and the model axis has one rank, so data
+  parallelism alone reads the same accessors. The data-parallel helpers
+  (``shard_batch``, ``gather_strings``, ``sum_over_ranks``,
+  ``check_same_parameters``) work over the data axis: the ranks of one model
+  group take the same rows.
 
-Tensor and sequence parallelism (the JAX mesh's "model" and "seq" axes)
-are not ported: ROADMAP Queue 1 items 22 and 23.
+Sequence parallelism (the JAX mesh's "seq" axis) is not ported: ROADMAP
+Queue 1 item 23.
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ import queue
 import socket
 import time
 import traceback
-from typing import Callable, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -44,6 +55,23 @@ import torch.distributed as dist
 TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 _DEVICE: Optional[torch.device] = None   # this rank's device inside process_group
+
+
+class Grid(NamedTuple):
+    """This rank's place on the (data, model) grid: its index and the size
+    of each axis, and the process groups of its axes (None for an axis of
+    one rank, whose collectives are the identity; the data group None with
+    more than one rank is the whole world)."""
+
+    data_rank: int
+    data_size: int
+    model_rank: int
+    model_size: int
+    data_group: Optional[object]
+    model_group: Optional[object]
+
+
+_GRID: Optional[Grid] = None             # set by make_grid inside process_group
 
 
 def rank() -> int:
@@ -108,7 +136,7 @@ def process_group(rank_: int, world: int, device_type: str = "cuda",
     ``init_method`` is the group's address (``tcp://host:port`` or
     ``env://``); a group of one rank needs none. The group is destroyed on
     the way out."""
-    global _DEVICE
+    global _DEVICE, _GRID
     backend = backend or default_backend(device_type)
     local_rank = rank_ if local_rank is None else local_rank
     if device_type == "cuda":
@@ -125,7 +153,7 @@ def process_group(rank_: int, world: int, device_type: str = "cuda",
     try:
         yield dev
     finally:
-        _DEVICE = None
+        _DEVICE = _GRID = None
         dist.destroy_process_group()
 
 
@@ -136,6 +164,81 @@ def init_from_env(device_type: str = "cuda", backend: Optional[str] = None):
     check_world_size(int(os.environ.get("LOCAL_WORLD_SIZE", world)), device_type, backend)
     return process_group(int(os.environ["RANK"]), world, device_type, backend, "env://",
                          int(os.environ["LOCAL_RANK"]))
+
+
+def check_model_parallel(world: int, model_parallel: int) -> None:
+    """Refuse a model size that does not divide the world, with the JAX
+    package's message (``make_mesh``, mesh.py:40-45)."""
+    if model_parallel < 1:
+        raise ValueError(f"model_parallel={model_parallel}: at least one rank")
+    if world % model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} x seq_parallel=1 does not divide "
+                         f"the {world} visible device(s)")
+
+
+def make_grid(model_parallel: int) -> Grid:
+    """Split the world into ``model_parallel``-rank model groups and
+    world/``model_parallel``-rank data groups (every rank creates every
+    group, in the same order, as ``dist.new_group`` requires), and make it
+    this process's grid. The same grid again is returned as it is; another
+    raises. A world the model size does not divide is refused
+    (``check_model_parallel``)."""
+    global _GRID
+    n, world = int(model_parallel), world_size()
+    check_model_parallel(world, n)
+    if _GRID is not None:
+        if _GRID.model_size != n:
+            raise ValueError(f"a grid of model size {_GRID.model_size} is already set up; "
+                             f"model_parallel={n} asks for another")
+        return _GRID
+    r, n_data = rank(), world // n
+    model_group = data_group = None
+    if n > 1:
+        for d in range(n_data):
+            g = dist.new_group([d * n + m for m in range(n)])
+            if d == r // n:
+                model_group = g
+    if n_data > 1 and n > 1:
+        for m in range(n):
+            g = dist.new_group([d * n + m for d in range(n_data)])
+            if m == r % n:
+                data_group = g
+    _GRID = Grid(r // n, n_data, r % n, n, data_group, model_group)
+    return _GRID
+
+
+def grid() -> Grid:
+    """This process's grid: the one ``make_grid`` set up, else the whole
+    world on the data axis and one rank on the model axis."""
+    if _GRID is not None and dist.is_initialized():
+        return _GRID
+    return Grid(rank(), world_size(), 0, 1, None, None)
+
+
+def data_rank() -> int:
+    return grid().data_rank
+
+
+def data_size() -> int:
+    return grid().data_size
+
+
+def data_group():
+    """The data axis's process group (None: the whole world)."""
+    return grid().data_group
+
+
+def model_rank() -> int:
+    return grid().model_rank
+
+
+def model_size() -> int:
+    return grid().model_size
+
+
+def model_group():
+    """The model axis's process group (None: one rank, no collective)."""
+    return grid().model_group
 
 
 def barrier() -> None:
@@ -215,10 +318,12 @@ def shard_batch(batch: dict, rank_: Optional[int] = None, world: Optional[int] =
                 batch_axis: int = 1) -> dict:
     """This rank's slice of every microbatch of a global batch stacked (A,
     B, ...): rows rank * B/W .. (rank + 1) * B/W along ``batch_axis``, the
-    data axis the JAX package shards (mesh.py:shard_batch). Arrays without
-    that axis pass whole."""
-    rank_ = rank() if rank_ is None else rank_
-    world = world_size() if world is None else world
+    data axis the JAX package shards (mesh.py:shard_batch), rank and W by
+    default this process's data index and the data size, so that the ranks
+    of one model group take the same rows. Arrays without that axis pass
+    whole."""
+    rank_ = data_rank() if rank_ is None else rank_
+    world = data_size() if world is None else world
     if world == 1:
         return batch
 
@@ -235,61 +340,64 @@ def shard_batch(batch: dict, rank_: Optional[int] = None, world: Optional[int] =
 
 
 def gather_strings(strings: Sequence[str]) -> list:
-    """Every rank's strings, rank 0's first, on every rank (the corpus WER
-    over a sharded evaluation; runtime.py:318-339)."""
-    if world_size() == 1:
+    """Every data rank's strings, data rank 0's first, on every rank (the
+    corpus WER over a sharded evaluation; runtime.py:318-339)."""
+    if data_size() == 1:
         return list(strings)
-    parts: list = [None] * world_size()
-    dist.all_gather_object(parts, list(strings))
+    parts: list = [None] * data_size()
+    dist.all_gather_object(parts, list(strings), group=data_group())
     return [s for part in parts for s in part]
 
 
 def check_same_parameters(module: torch.nn.Module) -> None:
-    """Raise unless every rank holds the same parameters and buffers (each
-    tensor's float64 sum and sum of squares compared, a gather of two
-    numbers a tensor): the ranks draw their weights from one seed."""
-    if world_size() == 1:
+    """Raise unless every rank of this rank's data group holds the same
+    parameters and buffers (each tensor's float64 sum and sum of squares
+    compared, a gather of two numbers a tensor): the ranks draw their
+    weights from one seed."""
+    if data_size() == 1:
         return
     with torch.no_grad():
         tensors = list(module.parameters()) + list(module.buffers())
         mine = torch.stack([torch.stack([t.double().sum(), t.double().square().sum()])
                             for t in tensors]).cpu().tolist() if tensors else []
-    parts: list = [None] * world_size()
-    dist.all_gather_object(parts, mine)
+    parts: list = [None] * data_size()
+    dist.all_gather_object(parts, mine, group=data_group())
     for r, theirs in enumerate(parts):
         if theirs != parts[0]:
-            raise RuntimeError(f"rank {r} holds other weights than rank 0: the ranks must "
-                               "build the model from the same seed")
+            raise RuntimeError(f"data rank {r} holds other weights than data rank 0: the "
+                               "ranks must build the model from the same seed")
 
 
 def sum_over_ranks(values: Sequence[float]) -> list:
-    """Each of a few host numbers summed over the ranks, in rank order, so
-    every rank gets the same sums (an evaluation's losses and counts)."""
-    if world_size() == 1:
+    """Each of a few host numbers summed over the data ranks, in rank order,
+    so every rank gets the same sums (an evaluation's losses and counts)."""
+    if data_size() == 1:
         return [float(v) for v in values]
-    parts: list = [None] * world_size()
-    dist.all_gather_object(parts, [float(v) for v in values])
+    parts: list = [None] * data_size()
+    dist.all_gather_object(parts, [float(v) for v in values], group=data_group())
     return [sum(part[i] for part in parts) for i in range(len(values))]
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         x = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
         all_reduce_sum.calls += 1
         return x
 
     @staticmethod
     def backward(ctx, grad):
-        return _AllReduceSum.apply(grad)
+        return _AllReduceSum.apply(grad, ctx.group), None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, on every rank; autograd's backward
-    sums the gradients over the ranks as well. Each all-reduce, forward or
-    backward, adds one to ``all_reduce_sum.calls``."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (None: the world), on
+    every one of them; autograd's backward sums the gradients over them as
+    well. Each all-reduce, forward or backward, adds one to
+    ``all_reduce_sum.calls``."""
+    return _AllReduceSum.apply(x, group)
 
 
 all_reduce_sum.calls = 0

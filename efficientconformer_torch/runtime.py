@@ -26,9 +26,18 @@ DDP, evaluation gathers every rank's truths and predictions before the
 corpus WER, and rank 0 prepares the data, prints and writes. On the card
 it refuses more ranks than GPUs.
 
+Tensor parallelism (``--model_parallel n``; parallel/tensor.py): the ranks
+(``--world_size``, else one a visible GPU, or n on ``--cpu``) form data
+groups and model groups of n, a world n does not divide refused with the
+JAX package's message. As the JAX package shards the parameters only
+inside ``fit`` (trainer.py:243-246), ``-m training`` trains and validates
+the sharded model (every rank of a model group decodes the same rows, so
+they give the same tokens), and the other modes run the whole model data
+parallel over the ranks, which gives the WER they give without the flag.
+
 What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP Queue 1 item, never falling back to something else: tensor [22]
-and sequence parallelism [23].
+ROADMAP Queue 1 item, never falling back to something else: sequence
+parallelism [23].
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_devic
 from efficientconformer_torch.models import model_ctc as ctc_mod
 from efficientconformer_torch.models import transducer as rnnt_mod
 from efficientconformer_torch.models.layers import _BatchNorm, local_batch_stats
-from efficientconformer_torch.parallel import mesh
+from efficientconformer_torch.parallel import mesh, tensor
 from efficientconformer_torch.training import checkpoint
 from efficientconformer_torch.training.trainer import Trainer
 from efficientconformer_torch.utils import profiling
@@ -191,8 +200,9 @@ def evaluate(trainer: Trainer, dataset, tokenizer, *, batch_size: int = 8,
     decodes its shard of every batch (runtime.py:276-300) and the truths and
     predictions of every rank are gathered, rank 0's first, before the
     corpus WER; the eval loss is the mean over the ranks: every rank
-    returns the same."""
-    rank, world = mesh.rank(), mesh.world_size()
+    returns the same. The ranks are the data ranks: the ranks of one model
+    group of a sharded model decode the same rows together."""
+    rank, world = mesh.data_rank(), mesh.data_size()
     loader = AsrBatchLoader(dataset, batch_size, shuffle=False, drop_last=False,
                             num_workers=num_workers, shard_id=rank, num_shards=world)
     truths, preds = [], []
@@ -226,12 +236,12 @@ def evaluate_lm(trainer: Trainer, dataset, *, batch_size: int = 8,
                 eval_steps: Optional[int] = None) -> float:
     """Mean eval cross entropy of an LM over labels-only transcripts
     (reference lm_mode datasets and eval_loss, model.py:438-442): the mean
-    over batches. Under a process group the ranks score the batches in
-    turn and the mean is taken over all of them: every rank returns the
+    over batches. Under a process group the (data) ranks score the batches
+    in turn and the mean is taken over all of them: every rank returns the
     one-rank value."""
     loader = LmBatchLoader(dataset, batch_size, max_len=dataset.max_label_len,
                            shuffle=False, drop_last=False)
-    rank, world = mesh.rank(), mesh.world_size()
+    rank, world = mesh.data_rank(), mesh.data_size()
     total, n = 0.0, 0
     for i, batch in enumerate(loader.epoch(0)):
         if i % world == rank:
@@ -286,23 +296,24 @@ def bn_refresh(trainer: Trainer, dataset, steps: int = 100) -> int:
 
 def _refuse(args) -> None:
     """The flags whose work the port does not have."""
-    if (args.model_parallel or 1) > 1:
-        raise NotImplementedError("--model_parallel (tensor parallelism) is not ported: "
-                                  "ROADMAP Queue 1 item 22")
     if (args.seq_parallel or 1) > 1:
         raise NotImplementedError("--seq_parallel (sequence parallelism) is not ported: "
                                   "ROADMAP Queue 1 item 23")
 
 
 def parallel_world(args) -> Optional[int]:
-    """The number of data-parallel ranks the flags ask for: with -d,
-    --parallel or --world_size > 1, --world_size, else one a visible GPU
-    (one on --cpu); None without them."""
-    if not (args.distributed or args.parallel or (args.world_size or 1) > 1):
+    """The number of ranks the flags ask for: with -d, --parallel,
+    --world_size > 1 or --model_parallel > 1, --world_size, else one a
+    visible GPU (on --cpu the model size: one without --model_parallel);
+    None without them."""
+    model_parallel = args.model_parallel or 1
+    if not (args.distributed or args.parallel or (args.world_size or 1) > 1
+            or model_parallel > 1):
         return None
     if args.world_size:
         return args.world_size
-    return 1 if args.cpu else max(torch.cuda.device_count(), 1)
+    return model_parallel if args.cpu else max(torch.cuda.device_count(), 1)
+
 
 
 def run(args) -> int:
@@ -319,6 +330,7 @@ def run(args) -> int:
     world = parallel_world(args)
     if world is None:
         return _run(args)
+    mesh.check_model_parallel(world, args.model_parallel or 1)
     mesh.check_world_size(world, device_type)
     if world == 1:
         with mesh.process_group(0, 1, device_type):
@@ -331,6 +343,11 @@ def _run(args) -> int:
     device = mesh.device() or (torch.device("cpu") if args.cpu else default_device())
     config = load_config(args.config_file)
     tp = config["training_params"]
+    model_parallel = args.model_parallel or 1
+    mesh.check_model_parallel(mesh.world_size(), model_parallel)
+    if model_parallel > 1 and args.mode.split("-")[0] == "training" and not args.swa:
+        # the parameters are sharded inside fit only, as the JAX package's
+        tp["model_parallel"] = model_parallel
     tokenizer = None
     # rank 0 writes the tokenizer and the manifests; the others then read them
     if args.create_tokenizer and mesh.is_main():
@@ -350,7 +367,8 @@ def _run(args) -> int:
 
     trainer = Trainer(config, device=device)
     log(config["model_name"])
-    log("Model Parameters :", sum(p.numel() for p in trainer.model.parameters()))
+    log("Model Parameters :", sum(math.prod(tensor.full_shape(p))
+                                  for p in trainer.model.parameters()))
     if args.show_dict and mesh.is_main():
         for name, p in trainer.model.named_parameters():
             print(f"{name:<64} {str(tuple(p.shape)):<16} "
@@ -453,8 +471,8 @@ def _train(args, trainer: Trainer, tokenizer, cb_path: str, initial_epoch: int, 
     else:
         loader = AsrBatchLoader(train_dataset(TRAIN_SPLITS.get(args.mode, "train")),
                                 tp["batch_size"], accum_steps=tp.get("accumulated_steps", 1),
-                                num_workers=args.num_workers, shard_id=mesh.rank(),
-                                num_shards=mesh.world_size())
+                                num_workers=args.num_workers, shard_id=mesh.data_rank(),
+                                num_shards=mesh.data_size())
         epoch_batches = loader.epoch
     writer = None
     try:

@@ -13,7 +13,8 @@ save never corrupts the checkpoint already at the path. A checkpoint saved
 without its optimizer (an SWA average) loads with the template's optimizer
 state kept. The JAX package's msgpack and orbax files are not read here;
 a JAX state reaches the port through utils/weights.from_jax and
-load_adam_state.
+load_adam_state. A file holds the full layout; a model sharded by tensor
+parallelism (parallel/tensor.py) loads its shards of it.
 """
 
 from __future__ import annotations
@@ -23,15 +24,22 @@ from typing import Iterable, Optional
 
 import torch
 
+from efficientconformer_torch.parallel import tensor
+
 
 def save(path: str, model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer],
          step: int) -> None:
     """Write ``model``'s state, ``optimizer``'s (None: without it) and the
     step to ``path``."""
+    write(path, model.state_dict(), optimizer.state_dict() if optimizer is not None else None,
+          step)
+
+
+def write(path: str, model_state: dict, optimizer_state: Optional[dict], step: int) -> None:
+    """Write a model's and an optimizer's state dicts (None: no optimizer)
+    and the step to ``path``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    payload = {"model": model.state_dict(),
-               "optimizer": optimizer.state_dict() if optimizer is not None else None,
-               "step": int(step)}
+    payload = {"model": model_state, "optimizer": optimizer_state, "step": int(step)}
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -50,9 +58,10 @@ def load(path: str, model: torch.nn.Module,
     device, but for Adam's per-parameter step count, which must stay on the
     host (on the card every update would read each one back)."""
     ckpt = read(path)
-    model.load_state_dict(ckpt["model"], strict=True)
+    model.load_state_dict(tensor.localize_state_dict(model, ckpt["model"]), strict=True)
     if optimizer is not None and ckpt["optimizer"] is not None:
-        optimizer.load_state_dict(ckpt["optimizer"])
+        optimizer.load_state_dict(
+            tensor.localize_optimizer_state(ckpt["optimizer"], optimizer, model))
     return ckpt["step"]
 
 
@@ -61,7 +70,8 @@ def load_encoder(path: str, model: torch.nn.Module) -> None:
     buffers) of the checkpoint at ``path`` into ``model``, the rest left as
     it is: a CTC checkpoint's encoder into a Transducer."""
     ckpt = read(path)
-    encoder = {k: v for k, v in ckpt["model"].items() if k.startswith("encoder.")}
+    encoder = tensor.localize_state_dict(
+        model, {k: v for k, v in ckpt["model"].items() if k.startswith("encoder.")})
     state = model.state_dict()
     missing = [k for k in state if k.startswith("encoder.") and k not in encoder]
     unexpected = [k for k in encoder if k not in state]

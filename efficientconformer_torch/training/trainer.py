@@ -46,6 +46,25 @@ same on every rank (trainer.py:130-133); dropout and SpecAugment from one
 seeded by (seed, rank). At one rank every stream is the one without DDP.
 Checkpoints are written by rank 0, from the unwrapped model, and the
 epoch's lines printed by it.
+
+Tensor parallelism (``training_params["model_parallel"]`` n, as the JAX
+package's trainer.py:74-82 reads it; parallel/tensor.py): the world is split
+into data groups and model groups of n ranks (``mesh.make_grid``), the model
+is built whole from the seed on every rank and cut to the rank's shards
+(``tensor.shard_model_``) before the optimizer, whose state follows the
+shards, is made. Everything above that reads "rank" and "the ranks" then
+reads the data axis: DDP reduces over the data group, the loss's mean and
+the LM's shares over it, and the dropout and SpecAugment stream is seeded by
+the data index, so the replicated activations stay equal across a model
+group (the ranks of one group draw the same masks; a dropout inside a
+parallel region draws the whole width's mask and keeps its slice). The
+replicated parameters' gradients are averaged over the model group (one
+all-reduce: on the card, atomics may sum them in another order on each
+rank), so the replicas stay bit for bit equal. The gradient norm sums a
+sharded parameter's squares over the model group and counts a replicated
+one once. Checkpoints hold the full layout
+(``tensor.gather_state_dict``), written by rank 0 and cut to the shards on
+loading, so they load at any model size.
 """
 
 from __future__ import annotations
@@ -69,6 +88,7 @@ from efficientconformer_torch.models.layers import (
     draw_variational_noise_,
 )
 from efficientconformer_torch.parallel import mesh
+from efficientconformer_torch.parallel import tensor
 from efficientconformer_torch.training import checkpoint, optimizers
 
 
@@ -77,7 +97,9 @@ class Trainer:
     parsed JSON dict) on ``device`` (by default the rank's device inside a
     process group, else the card), with weights drawn from ``seed``.
     ``ddp`` wraps the model in DistributedDataParallel: by default when a
-    process group of more than one rank is set up."""
+    process group of more than one data rank is set up. With
+    ``training_params["model_parallel"]`` n > 1 the model is sharded over
+    model groups of n ranks of the process group."""
 
     def __init__(self, config: Union[str, dict], device=None, seed: int = 0,
                  generator: Optional[torch.Generator] = None, ddp: Optional[bool] = None):
@@ -85,13 +107,22 @@ class Trainer:
         tp = self.config["training_params"]
         self.device = torch.device(device) if device is not None else (
             mesh.device() or default_device())
+        model_parallel = int(tp.get("model_parallel") or 1)
+        if model_parallel > 1:
+            if not dist.is_initialized():
+                raise RuntimeError(f"model_parallel={model_parallel} needs a process group of "
+                                   "its ranks (parallel/mesh.py)")
+            mesh.make_grid(model_parallel)
         self.model, self.loss_fn = factory.create_model(
             self.config, self.device, torch.Generator().manual_seed(seed))
+        if model_parallel > 1:
+            tensor.shard_model_(self.model)
         self.optimizer, self.schedule = optimizers.from_training_params(
             self.model.parameters(), tp)
-        rank, world = mesh.rank(), mesh.world_size()
-        # dropout and SpecAugment: a stream of each rank's own; the VN draw:
-        # one stream, the same on every rank (at one rank, the one stream)
+        rank, world = mesh.data_rank(), mesh.data_size()
+        # dropout and SpecAugment: a stream of each data rank's own; the VN
+        # draw: one stream, the same on every rank (at one data rank, the one
+        # stream)
         own = seed + 1 if world == 1 else int(np.random.SeedSequence([seed, rank])
                                               .generate_state(1)[0])
         self.generator = generator if generator is not None else torch.Generator(
@@ -102,14 +133,16 @@ class Trainer:
         if ddp if ddp is not None else world > 1:
             if not dist.is_initialized():
                 raise RuntimeError("ddp=True needs a process group (parallel/mesh.py)")
+            if model_parallel > 1 and world == 1:
+                raise ValueError("ddp=True over one data rank under tensor parallelism")
             mesh.check_same_parameters(self.model)
             # every rank updates the running statistics from the same global
             # statistics, so the buffers need no broadcast before a forward
             no_buffer_sync = ({"forward_sync_buffers": False} if "forward_sync_buffers" in
                               inspect.signature(DistributedDataParallel).parameters
                               else {"broadcast_buffers": False})
-            self.ddp = DistributedDataParallel(self.model, find_unused_parameters=True,
-                                               **no_buffer_sync)
+            self.ddp = DistributedDataParallel(self.model, process_group=mesh.data_group(),
+                                               find_unused_parameters=True, **no_buffer_sync)
         self.encoder_frozen_steps = tp.get("encoder_frozen_steps")
         self.vn_start_step = tp.get("vn_start_step")
         self.step = 0
@@ -152,10 +185,10 @@ class Trainer:
                 total += loss.detach()
         finally:
             clear_variational_noise_(model)
-        if mesh.world_size() > 1:
+        if mesh.data_size() > 1:
             # the global batch's mean loss, the same on every rank
-            dist.all_reduce(total)
-            total /= mesh.world_size()
+            dist.all_reduce(total, group=mesh.data_group())
+            total /= mesh.data_size()
 
         params = list(model.parameters())
         for p in params:
@@ -164,10 +197,11 @@ class Trainer:
             # it as optax moves it
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        tensor.sync_replicated_grads(model)
         encoder = list(model.encoder.parameters()) if freeze_encoder else []
         for p in encoder:
             p.grad.zero_()
-        grad_norm = torch.nn.utils.get_total_norm([p.grad for p in params])
+        grad_norm = tensor.grad_norm(model, [p.grad for p in params])
         kept = [p.detach().clone() for p in encoder]
         optimizers.set_lr(opt, self.schedule(self.step))
         opt.step()
@@ -179,17 +213,17 @@ class Trainer:
 
     def _share(self, mb: dict):
         """The weight of this rank's loss: W times its share of the global
-        batch's mean over the W ranks (DDP averages). None (1) without a
+        batch's mean over the W data ranks (DDP averages). None (1) without a
         group, and for a mean over the utterances of equal shards; for a mean
         over counted terms (the LM's positions with a target,
         ``loss_fn.count``) the rank's count times W over the global count."""
         count = getattr(self.loss_fn, "count", None)
-        world = mesh.world_size()
+        world = mesh.data_size()
         if world == 1 or count is None:
             return None
         mine = count(mb).to(torch.float32)
         every = mine.clone()
-        dist.all_reduce(every)
+        dist.all_reduce(every, group=mesh.data_group())
         return mine * world / every.clamp(min=1.0)
 
     def _microbatches(self, batch: dict) -> list:
@@ -327,13 +361,18 @@ class Trainer:
         """Checkpoint the model, the optimizer (unless ``save_optimizer`` is
         False, as for an SWA average) and the step at ``path``: under a
         process group rank 0 writes, from the unwrapped model (so the file
-        loads at any world size), and every rank waits until it has."""
+        loads at any world size), in the full layout under tensor
+        parallelism (the model group gathers it), and every rank waits until
+        it has."""
+        model_state = tensor.gather_state_dict(self.model)
+        opt_state = (tensor.gather_optimizer_state(self.optimizer, self.model)
+                     if save_optimizer else None)
         if mesh.is_main():
-            checkpoint.save(path, self.model, self.optimizer if save_optimizer else None,
-                            self.step)
+            checkpoint.write(path, model_state, opt_state, self.step)
         mesh.barrier()
 
     def load(self, path: str) -> None:
         """Load a checkpoint into the model, the optimizer (kept as it is
-        when the file has none) and the step counter."""
+        when the file has none) and the step counter; under tensor
+        parallelism the rank's shards of the file's full layout."""
         self.step = checkpoint.load(path, self.model, self.optimizer)

@@ -21,7 +21,11 @@ fc2).
 ``load_adam_state`` carries optimizer state across too: the optax Adam
 moments (``mu``, ``nu``, trees shaped like the params) and ``count`` become
 ``torch.optim.Adam`` state, through the same layout map (moments are
-elementwise, so they transpose with their parameters).
+elementwise, so they transpose with their parameters). The weights cross
+over unchanged under tensor parallelism too: a sharded model loads
+``parallel.tensor.shard_state_dict(from_jax(...), model_rank, n)`` (or
+``localize_state_dict``), and ``load_adam_state`` cuts the moments to its
+shards.
 
 Layouts, JAX -> torch:
   Dense kernel (in, out)                  -> Linear weight (out, in)
@@ -43,6 +47,8 @@ import re
 
 import numpy as np
 import torch
+
+from efficientconformer_torch.parallel import tensor
 
 
 def _np(x) -> np.ndarray:
@@ -228,11 +234,13 @@ def load_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module, mu, nu,
 def set_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module, mu: dict, nu: dict,
                    count) -> None:
     """Set ``optimizer``'s state for ``model``'s parameters: the moments
-    ``mu`` and ``nu`` by parameter name (tensors or arrays) after ``count``
-    updates."""
+    ``mu`` and ``nu`` by parameter name (tensors or arrays, in the full
+    layout: a model sharded by tensor parallelism takes its shards of
+    them) after ``count`` updates."""
     for name, p in model.named_parameters():
         optimizer.state[p] = {
             "step": torch.tensor(float(np.asarray(count))),
-            "exp_avg": torch.as_tensor(mu[name]).to(p.device, p.dtype).clone(),
-            "exp_avg_sq": torch.as_tensor(nu[name]).to(p.device, p.dtype).clone(),
+            "exp_avg": tensor.local(p, torch.as_tensor(mu[name])).to(p.device, p.dtype).clone(),
+            "exp_avg_sq": tensor.local(p, torch.as_tensor(nu[name])).to(p.device,
+                                                                         p.dtype).clone(),
         }

@@ -7,8 +7,9 @@ the eval_time modes, the Transducer from a frozen CTC encoder, the LM on a
 text corpus, beam-search evaluation (CTC with the n-gram on the device and
 on the host, the Transducer with the n-gram and a port LM checkpoint
 fused, on the device and on the host) against direct calls of the beams,
-``--profiler``'s table, the data-parallel flags on gloo ranks, and the flags
-the port refuses.
+``--profiler``'s table, the data-parallel flags on gloo ranks, tensor
+parallelism's ``--model_parallel`` on gloo ranks, and the flags the port
+refuses.
 """
 
 import ast
@@ -204,17 +205,50 @@ def test_cli_lm(setup, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--gready", "--model_parallel", 2], "item 22"),
+    (["--gready", "--model_parallel", 3, "--world_size", 2], "item 22"),
     (["--gready", "--seq_parallel", 2], "item 23"),
 ])
 def test_cli_refuses_what_it_lacks(setup, tmp_path, flags, item):
-    """Tensor and sequence parallelism raise, naming their ROADMAP items."""
+    """Tensor parallelism (item 22, ported) refuses a model size that does
+    not divide the ranks, with the JAX package's message, before any rank
+    starts; sequence parallelism raises, naming its ROADMAP item."""
     _, cfg, _ = setup
     cfg = json.loads(json.dumps(cfg))
     cfg["decoding_params"]["beam_size"] = 16
     path = write_config(cfg, tmp_path / "ctc.json", tmp_path / "cb")
-    with pytest.raises(NotImplementedError, match=item):
+    error, match = ((ValueError, "model_parallel=3 x seq_parallel=1 does not divide the 2 "
+                     "visible device") if item == "item 22" else (NotImplementedError, item))
+    with pytest.raises(error, match=match):
         run_cli(path, "-m", "test-clean", "--batch_size_eval", 3, *flags)
+
+
+def test_cli_model_parallel_trains_validates_and_tests(setup, tmp_path, capfd):
+    """``--model_parallel 2 --world_size 2 -m training``: two gloo ranks in
+    one model group train 2 steps with validation (one epoch line, one
+    validation line, from rank 0); the checkpoint holds the full layout and
+    loads at one rank; test-clean with --model_parallel 2 (the whole model,
+    data parallel, as the JAX package evaluates) gives the WER without it."""
+    _, cfg, _ = setup
+    cfg = json.loads(json.dumps(cfg))
+    cfg["training_params"]["epochs"] = 1
+    path = write_config(cfg, tmp_path / "ctc.json", tmp_path / "cb")
+    capfd.readouterr()
+    assert cli.main(["--cpu", "-c", path, "-m", "training", "--model_parallel", "2",
+                     "--world_size", "2", "--steps_per_epoch", "2", "--val_steps", "1",
+                     "--batch_size_eval", "2"]) == 0
+    out = capfd.readouterr().out
+    (_, loss, steps), = epochs_of(out)
+    assert steps == 2 and math.isfinite(loss), out
+    assert len(re.findall(r"val: \{'WER'", out)) == 1 and out.count("Model Parameters :") == 1
+    trainer = Trainer(cfg, device="cpu")
+    trainer.load(str(tmp_path / "cb" / "checkpoints_1.ckpt"))
+    assert trainer.step == 2
+    args = ["-m", "test-clean", "-i", 1, "--gready", "--batch_size_eval", 2]
+    want = re.findall(r"Greedy Search WER : \S+%", run_cli(path, *args))
+    capfd.readouterr()
+    assert cli.main(["--cpu", "-c", path, *map(str, args + ["--model_parallel", 2])]) == 0
+    got = re.findall(r"Greedy Search WER : \S+%", capfd.readouterr().out)
+    assert len(want) == 1 and got == want
 
 
 @pytest.mark.parametrize("flags", [["-d"], ["--parallel"], ["--world_size", 2]])
