@@ -17,9 +17,12 @@ the slot-pool server over both Smalls, then remat, the encoder and decoder
 variants no shipped config uses, EfficientConformerCTCMedium made
 causal, streamed at head width 135, data parallelism (the flagship's
 step over two ranks sharing the card over gloo and over one NCCL rank,
-the CLI with -d) and tensor parallelism (the flagship's and the
-LM-Transformer's steps over a model group of two ranks sharing the card
-over gloo, the kernels at a rank's head counts). Holds
+the CLI with -d), tensor parallelism (the flagship's, Transducer Small's
+and the LM-Transformer's steps over a model group of two ranks sharing the
+card over gloo, the kernels at a rank's head counts) and sequence
+parallelism (the flagship's and Transducer Small's steps over a seq group
+of two ranks sharing the card over gloo, the rel-pos kernels at a rank's
+query rows against every key). Holds
 every hand-written kernel on those paths to its plain PyTorch version on
 the card. Phases, one line each; any failure exits non-zero:
 
@@ -72,14 +75,38 @@ the card. Phases, one line each; any failure exits non-zero:
                 counters); the shared memory of each route at each stage
  10d. tp-slice  two ranks on the one card over gloo in one model group (data
                 1 x model 2): the flagship at full width, one fp32 and one
-                bf16 step, and the LM-Transformer's fp32 step, over 2 x 4
-                ragged rows, vs the one-process step at [dp-slice]'s gates;
-                replicated parameters bit for bit equal across the ranks;
-                launches a rank and a step (rel-pos 30 / 30 on 2 heads, bias
-                24 / 24 on 6), the model group's all-reduces and all-gathers
-                a step (gloo's all-gather takes the card's tensors)
+                bf16 step, Transducer Small's fp32 step and the
+                LM-Transformer's fp32 step, over 2 x 4 ragged rows, vs the
+                one-process step at [dp-slice]'s gates; replicated parameters
+                bit for bit equal across the ranks; launches a rank and a
+                step (rel-pos 30 / 30 on 2 heads, bias 24 / 24 on 6), the
+                model group's all-reduces and all-gathers a step (gloo's
+                all-gather takes the card's tensors); the fp32 norms also
+                against the one-process step with its vocabulary product
+                split into the model group's column GEMMs (norm_rel_split)
  10e. tp-cli    -m training --model_parallel 2 on one GPU refused with the JAX
                 package's message (scripts/torch_tp_multigpu.py runs it on
+                four GPUs)
+ 10f. sp-kernel sequence parallelism's shapes: both rel-pos kernels at the
+                flagship's 16 s stage shapes (padded by sp_pad_align) with
+                the query rows of seq rank r of 2 (offsets 0, T/2) and of 4
+                (0, T/2, 3T/4) against all T keys, the grouped stage's rows
+                the groups covering a rank's frames (404 frames a rank at
+                seq 2: not a multiple of 3), vs their plain versions at
+                [kernel]'s gates, fp32 on the FMA route and bf16 on the
+                tensor cores (route counters)
+ 10g. sp-slice  two ranks on the one card over gloo in one seq group (data 1
+                x seq 2): the flagship at full width, one fp32 and one bf16
+                step, and Transducer Small's fp32 step, over 2 x 4 ragged
+                utterances of 4-8 s padded by sp_pad_align, and the
+                flagship's fp32 step at a length no point of whose encoder
+                divides by 2 (every point replicated), vs the one-process
+                step at [tp-slice]'s gates; the ranks' parameters bit for
+                bit equal; a rank's rel-pos launches a step, the seq group's
+                all-gathers, halos and reduce-scatters, and each rank's
+                peak memory beside the one-process step's
+ 10h. sp-cli    -m training --seq_parallel 2 on one GPU refused with the JAX
+                package's message (scripts/torch_sp_multigpu.py runs it on
                 four GPUs)
  11. t-kernel   both rel-pos kernels vs their plain versions at Transducer
                 Small's 16 s stage shapes (head widths 75/35/50, rel widths
@@ -455,6 +482,10 @@ TP_RANKS = 2                 # [tp-slice]: two ranks on the one card over gloo, 
 TP_HEADS = (2, 1)            # [tp-kernel]: the flagship's heads a rank at model 2 and 4
 TP_LM_HEADS = (6, 3)         # and the LM-Transformer's
 TP_TIMEOUT = 420             # seconds for [tp-slice]'s ranks
+SP_RANKS = 2                 # [sp-slice]: two ranks on the one card over gloo, one seq group
+SP_KERNEL_RANKS = {2: (0, 1), 4: (0, 2, 3)}   # [sp-kernel]: seq size -> the ranks checked
+SP_UNCOVERED = 92240         # samples: 289 / 145 / 73 frames, no point divides by 2
+SP_TIMEOUT = 420             # seconds for [sp-slice]'s ranks
 
 
 def check(cond: bool, msg: str) -> None:
@@ -592,7 +623,7 @@ def stage_shapes(enc_params: dict, seconds: float):
     from efficientconformer_torch.config import resolve_block_configs
 
     hop = enc_params["sample_rate"] * enc_params["hop_length_ms"] // 1000
-    t = int(seconds * SAMPLE_RATE) // hop + 1
+    t = round(seconds * SAMPLE_RATE) // hop + 1
     for _ in range(enc_params["subsampling_layers"]):
         t = (t - 1) // 2 + 1
     shapes, seen = [], set()
@@ -695,17 +726,21 @@ def reset_rel_counts():
     RA.relpos_attention_bwd.launches = RA.relpos_attention_bwd.tc_launches = 0
 
 
-def check_forward(phase, enc_params, seconds, gen, batch=CHECK_BATCH, heads=None):
+def check_forward(phase, enc_params, seconds, gen, batch=CHECK_BATCH, heads=None, cut=None):
     """The rel-pos forward kernel vs its plain version at the stage shapes
     of ``seconds`` of audio over ``batch`` rows (``heads`` of them, a rank's
-    under tensor parallelism, when given): fp32 (the FMA kernel) and bf16
-    (the tensor-core kernel, by the route counters), each vs the fp32 plain
-    version on the same inputs. The largest fp32 and bf16 errors."""
+    under tensor parallelism, when given; ``cut(name, args)`` the inputs
+    cut to a rank's query rows under sequence parallelism): fp32 (the FMA
+    kernel) and bf16 (the tensor-core kernel, by the route counters), each
+    vs the fp32 plain version on the same inputs. The largest fp32 and bf16
+    errors."""
     from efficientconformer_torch.ops import rel_attention as RA
 
     max_err = max_err16 = 0.0
     for name, n, dh, d, h, g in stage_shapes(enc_params, seconds):
         args = rank_heads(attention_inputs(batch, n, dh, d, h, g, "cuda", gen), heads)
+        if cut is not None:
+            args = cut(name, args)
         h = heads or h
         reset_rel_counts()
         o_k, lse_k = RA.relpos_attention(*args)
@@ -726,7 +761,7 @@ def check_forward(phase, enc_params, seconds, gen, batch=CHECK_BATCH, heads=None
         check(o_b.dtype == torch.bfloat16 and err_b <= KERNEL_BF16_TOL,
               f"{name} bf16: |O| {err_b} > {KERNEL_BF16_TOL}")
         max_err, max_err16 = max(max_err, err_o, err_lse), max(max_err16, err_b)
-        say(phase, shape=name, B=batch, N=n, dh=dh, D=d, H=h, G=g,
+        say(phase, shape=name, B=batch, N=n, Nq=args[0].shape[2], dh=dh, D=d, H=h, G=g,
             fp32_err_o=f"{err_o:.3g}", fp32_err_lse=f"{err_lse:.3g}", bf16_err_o=f"{err_b:.3g}",
             route="fma/tensor-core")
     return max_err, max_err16
@@ -770,9 +805,10 @@ def grad_errors(got, want):
             for n, g, w in zip(names, got, want)}
 
 
-def check_backward(phase, enc_params, seconds, gen, heads=None):
+def check_backward(phase, enc_params, seconds, gen, heads=None, cut=None):
     """The rel-pos backward kernels at the stage shapes of ``seconds`` of
-    audio (``heads`` of them when given): fp32 (the FMA kernels) against the
+    audio (``heads`` of them when given; ``cut`` as in check_forward): fp32
+    (the FMA kernels) against the
     plain backward on the same o, LSE and dO; bf16 (the tensor-core kernels,
     by the route counters) against the plain backward on the same bf16
     inputs, twice, the second bitwise equal to the first. The largest fp32
@@ -782,6 +818,8 @@ def check_backward(phase, enc_params, seconds, gen, heads=None):
     max_err = max_err16 = 0.0
     for name, n, dh, d, h, g in stage_shapes(enc_params, seconds):
         args = rank_heads(attention_inputs(CHECK_BATCH, n, dh, d, h, g, "cuda", gen), heads)
+        if cut is not None:
+            args = cut(name, args)
         h = heads or h
         o, lse = RA.reference_relpos_attention(*args)
         do = torch.randn(o.shape, generator=gen).cuda()
@@ -807,7 +845,7 @@ def check_backward(phase, enc_params, seconds, gen, heads=None):
         max_err = max(max_err, *[(a.float() - b.float()).abs().max().item()
                                  for a, b in zip(got, want)])
         max_err16 = max(max_err16, *err16.values())
-        say(phase, shape=name, B=CHECK_BATCH, N=n, dh=dh, D=d, H=h, G=g,
+        say(phase, shape=name, B=CHECK_BATCH, N=n, Nq=args[0].shape[2], dh=dh, D=d, H=h, G=g,
             fp32_rel_err=f"{max(err.values()):.3g}", bf16_rel_err=f"{max(err16.values()):.3g}",
             bf16_repeatable="bitwise")
     return max_err, max_err16
@@ -1323,12 +1361,12 @@ def phase_tp_kernel():
     return fwd, bwd, err_bf, err_bb
 
 
-def tp_cases(ranks, model_parallel, lm=True) -> list:
+def tp_cases(ranks, model_parallel, lm=True, transducer=True) -> list:
     """[tp-slice]'s steps: the flagship's fp32 and bf16 steps ([dp-slice]'s
     settings: dropout 0, SpecAugment off, Adam from a shared non-zero state
-    at a constant 1e-3) and the LM-Transformer's fp32 step, over 2
-    microbatches of 4 ragged rows at one data rank (2 a data rank from two
-    on)."""
+    at a constant 1e-3), Transducer Small's fp32 step and the
+    LM-Transformer's fp32 step, over 2 microbatches of 4 ragged rows at one
+    data rank (2 a data rank from two on)."""
     data = ranks // model_parallel
     rows = max(4 // data, 2) * data
     rng = np.random.default_rng(SEED + 94)
@@ -1342,6 +1380,15 @@ def tp_cases(ranks, model_parallel, lm=True) -> list:
         cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
         cases.append({"config": cfg, "batch": batch, "seed": SEED, "adam": dp_adam(cfg),
                       "allow_tf32": False})
+    # the fp32 CTC step again with its loss in float64 (``float64_loss``)
+    cases.append(dict(cases[0], float64_loss=True))
+    if transducer:
+        cfg = train_config(T_CONFIG, mixed_precision=False, lr_schedule="Constant",
+                           lr_value=1e-3)
+        cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+        cases.append({"config": cfg, "batch": batch, "seed": SEED, "adam": dp_adam(cfg),
+                      "allow_tf32": False})
+        cases.append(dict(cases[-1], float64_loss=True))
     if lm:
         cfg = train_config(LM_CONFIG, mixed_precision=False, lr_schedule="Constant",
                            lr_value=1e-3)
@@ -1354,21 +1401,114 @@ def tp_cases(ranks, model_parallel, lm=True) -> list:
 
 
 @contextlib.contextmanager
-def float64_head():
-    """A CTC model's vocabulary projection computed in float64 and rounded
-    once to the activations' type: the same logits up to the rounding of
-    the fp32 product's sums, as splitting the product over ranks changes
-    that rounding."""
+def vocabulary_product(product):
+    """A whole model's vocabulary projection (the CTC model's ``fc``, the
+    joint's ``linear_joint``) computed by ``product(x, w, b)`` and rounded
+    once to the activations' type."""
+    from efficientconformer_torch.models.joint_networks import JointNetwork
     from efficientconformer_torch.models.model_ctc import ModelCTC
 
     def forward(self, x, x_len, generator=None):
         enc, enc_len, probs = self.encoder.forward_taps(x, x_len, generator)
-        w, b = self.fc.weight, self.fc.bias
-        logits = F.linear(enc.double(), w.double(), b.double()).to(enc.dtype)
+        logits = product(enc, self.fc.weight, self.fc.bias).to(enc.dtype)
         return (logits, enc_len, probs) if self.interctc else (logits, enc_len)
 
-    with mock.patch.object(ModelCTC, "forward", forward):
+    def logits(self, z):
+        lin = self.linear_joint
+        return product(z, lin.weight.to(z.dtype), lin.bias.to(z.dtype)).to(z.dtype)
+
+    with mock.patch.object(ModelCTC, "forward", forward), \
+            mock.patch.object(JointNetwork, "_logits", logits):
         yield
+
+
+def float64_head():
+    """The vocabulary projection computed in float64 and rounded once: the
+    same logits up to the rounding of the fp32 product's sums, as splitting
+    the product over ranks changes that rounding."""
+    return vocabulary_product(lambda x, w, b: F.linear(x.double(), w.double(), b.double()))
+
+
+def rnnt_loss_float64(logits, labels, f_len, y_len):
+    """The RNN-T loss (B,) of the joint logits (B, T, U+1, V) in float64,
+    differentiated by autograd: the alpha recursion of ops/rnnt_loss.py's
+    plain version one anti-diagonal at a time, each a new tensor (no kernel:
+    a diagnostic of the fp32 lattice's rounding)."""
+    x = logits.double()
+    b, t_max, u1, _ = x.shape
+    dev = x.device
+    f_len, y_len = f_len.to(dev).long(), y_len.to(dev).long()
+    inside = torch.arange(labels.shape[1], device=dev)[None] < y_len[:, None]
+    lab = F.pad(torch.where(inside, labels.to(dev), 0).long(), (0, 1))
+    lse = torch.logsumexp(x, dim=-1)
+    blank = x[..., 0] - lse
+    emit = x.gather(3, lab[:, None, :, None].expand(-1, t_max, -1, 1))[..., 0] - lse
+    u = torch.arange(u1, device=dev)
+    neg = torch.full((b, u1), -1e30, dtype=torch.float64, device=dev)
+    diags = [torch.where(u[None] == 0, torch.zeros_like(neg), neg)]      # cell (0, 0)
+    for d in range(1, t_max + u1 - 1):
+        t = d - u
+        here = (t >= 0) & (t < t_max)
+        stay = torch.where((t >= 1) & (t <= t_max), diags[-1]
+                           + blank[:, (t - 1).clamp(0, t_max - 1), u], neg)
+        left = torch.cat([neg[:, :1], diags[-1][:, :-1]], dim=1)        # cell (t, u - 1)
+        move = torch.where(here & (u >= 1), left
+                           + emit[:, t.clamp(0, t_max - 1), (u - 1).clamp(min=0)], neg)
+        diags.append(torch.where(here, torch.logaddexp(stay, move), neg))
+    rows = torch.arange(b, device=dev)
+    last = torch.stack(diags)[f_len - 1 + y_len, rows, y_len]
+    return -(last + blank[rows, f_len - 1, y_len])
+
+
+@contextlib.contextmanager
+def float64_loss():
+    """The CTC and RNN-T losses (log-softmax and lattice) computed in
+    float64 from the fp32 logits: without the fp32 lattices' rounding (their
+    posteriors exp(alpha + beta - L), L a few hundred nats, carry an fp32
+    error of ~3e-5), which moves the gradient at every change of the
+    forward's rounding."""
+    from efficientconformer_torch.models import factory
+    from efficientconformer_torch.ops.ctc_loss import ctc_loss
+
+    def ctc_fn(outputs, batch):
+        logits, f_len = outputs
+        lp = F.log_softmax(logits.double(), dim=-1)
+        return ctc_loss(lp, batch["labels"], f_len, batch["label_len"]).mean().float()
+
+    def rnnt_fn(outputs, batch):
+        logits, f_len = outputs
+        return rnnt_loss_float64(logits, batch["labels"], f_len,
+                                 batch["label_len"]).mean().float()
+
+    ctc_fn.host_labels = True
+    with mock.patch.object(factory, "ctc_loss_fn", ctc_fn), \
+            mock.patch.object(factory, "transducer_loss_fn", rnnt_fn):
+        yield
+
+
+def rank_steps(cases):
+    """In a rank: ``dryrun.shard_step`` of each case in turn, under
+    ``float64_loss`` where the case sets "float64_loss"."""
+    return [one_process(case, None) for case in cases]
+
+
+def one_process(case, device="cuda"):
+    """``dryrun.shard_step`` of a case (on ``device``, None: the rank's),
+    under ``float64_loss`` where it sets "float64_loss"."""
+    from efficientconformer_torch import dryrun
+
+    case = dict(case)
+    f64 = case.pop("float64_loss", False)
+    with float64_loss() if f64 else contextlib.nullcontext():
+        return dryrun.shard_step(**case, device=device)
+
+
+def split_head(n):
+    """The vocabulary projection in tensor parallelism's layout: ``n`` column
+    GEMMs of V/n rows each, concatenated (ROADMAP Queue 3's check of the
+    fp32 norm gate)."""
+    return vocabulary_product(lambda x, w, b: torch.cat(
+        [F.linear(x, wi, bi) for wi, bi in zip(w.chunk(n), b.chunk(n))], dim=-1))
 
 
 def phase_tp_slice(card_line, ranks=TP_RANKS, model_parallel=2, backend="gloo",
@@ -1389,20 +1529,28 @@ def phase_tp_slice(card_line, ranks=TP_RANKS, model_parallel=2, backend="gloo",
     nats, whose fp32 ulp is ~3e-5), so the fp32 CTC norm is held to the
     larger of 1e-5 and three times its noise floor: how far the one-process
     step moves with its logits rounded from a float64 product
-    (``float64_head``).
+    (``float64_head``). The fp32 CTC step runs again with its loss in
+    float64 on both sides (``float64_loss``), its norm held to 1e-5:
+    the lattice's fp32 rounding, not the split, is what moves the norm. The
+    fp32 Transducer's norm, moved by its fp32 RNN-T lattice alike, is held
+    to 1e-4, and to 1e-5 with its loss in float64. Each fp32 norm also
+    stands beside the one-process step's with its vocabulary product split
+    into the model group's column GEMMs (``split_head``, norm_rel_split).
     Returns the kernels' launches over the ranks and steps:
-    {"relpos": (fwd, bwd), "bias": (fwd, bwd)}."""
+    {"relpos": (fwd, bwd), "bias": (fwd, bwd)}, and those norms by model
+    ("norm_rel_split")."""
     from efficientconformer_torch import dryrun
     from efficientconformer_torch.parallel import mesh
 
     cases = tp_cases(ranks, model_parallel, lm)
+    splits = {}
     sharded = []
     for case in cases:
         cfg = json.loads(json.dumps(case["config"]))
         cfg["training_params"]["model_parallel"] = model_parallel
         sharded.append(dict(case, config=cfg))
     t0 = time.perf_counter()
-    outs = mesh.launch(dryrun.shard_steps, ranks, (sharded,), device_type="cuda",
+    outs = mesh.launch(rank_steps, ranks, (sharded,), device_type="cuda",
                        backend=backend, timeout=TP_TIMEOUT)
     ranks_s = time.perf_counter() - t0
     backend = backend or mesh.default_backend("cuda")
@@ -1410,8 +1558,10 @@ def phase_tp_slice(card_line, ranks=TP_RANKS, model_parallel=2, backend="gloo",
     for i, case in enumerate(cases):
         cfg = case["config"]
         is_lm = "lm_params" in cfg
+        is_t = cfg["model_type"] == "Transducer"
+        f64 = case.get("float64_loss", False)
         fp32 = not cfg["training_params"]["mixed_precision"]
-        one = dryrun.shard_step(**case, device="cuda")
+        one = one_process(case)
         got = [o[i] for o in outs]
         loss_err = max(abs(g["loss"] - one["loss"]) / abs(one["loss"]) for g in got)
         norm_err = max(abs(g["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
@@ -1421,12 +1571,22 @@ def phase_tp_slice(card_line, ranks=TP_RANKS, model_parallel=2, backend="gloo",
         stats_err = max(rel_diff(st, stats[-1]) for st in stats[:-1])
         tol, loss_tol = (DP_FP32_TOL, DP_LOSS_RTOL) if fp32 else (DP_BF16_TOL, DP_BF16_TOL)
         norm_tol, floor = loss_tol, None
-        if fp32 and not is_lm:
+        split = None
+        if fp32 and not is_lm and not f64:
             with float64_head():
                 moved = dryrun.shard_step(**case, device="cuda")
             floor = abs(moved["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
-            norm_tol = max(loss_tol, 3 * floor)
-        label = f"[{phase}] {'LM' if is_lm else 'CTC'} {'fp32' if fp32 else 'bf16'}"
+            # the fp32 RNN-T lattice's rounding moves the Transducer's, as the
+            # CTC lattice's moves the CTC norm ([sp-slice])
+            norm_tol = DP_FP32_TOL if is_t else max(loss_tol, 3 * floor)
+            with split_head(model_parallel):
+                laid = dryrun.shard_step(**case, device="cuda")
+            split = max(abs(g["grad_norm"] - laid["grad_norm"]) / abs(laid["grad_norm"])
+                        for g in got)
+        name = "LM" if is_lm else "Transducer" if is_t else "CTC"
+        label = f"[{phase}] {name} {'fp32' if fp32 else 'bf16'}{' float64 loss' if f64 else ''}"
+        if split is not None:
+            splits[name] = split
         check(loss_err <= loss_tol and norm_err <= norm_tol,
               f"{label}: loss {[g['loss'] for g in got]} / {one['loss']}, "
               f"norm {[g['grad_norm'] for g in got]} / {one['grad_norm']}")
@@ -1456,13 +1616,16 @@ def phase_tp_slice(card_line, ranks=TP_RANKS, model_parallel=2, backend="gloo",
                   f"{label} rank {g['rank']}: model size {g['model_size']}, collectives "
                   f"{g['tp_calls']}, DDP {g['ddp']}")
             total[kernel] = [total[kernel][0] + fwd, total[kernel][1] + bwd]
-        say(phase, model="LM-Transformer" if is_lm else "EfficientConformerCTCSmall",
+        say(phase, model=cfg["model_name"].replace(" ", ""),
             dtype="float32" if fp32 else "bfloat16", ranks=ranks,
+            loss_type="float64" if f64 else "float32",
             grid=f"data{ranks // model_parallel}xmodel{model_parallel}", backend=backend,
             rows=case["batch"]["audio" if not is_lm else "tokens"].shape[:2],
             loss=f"{got[0]['loss']:.6f}", loss_rel=f"{loss_err:.3g}",
             norm_rel=f"{norm_err:.3g}", norm_tol=f"{norm_tol:.3g}",
-            norm_floor="-" if floor is None else f"{floor:.3g}", param_rel=f"{param_err:.3g}",
+            norm_floor="-" if floor is None else f"{floor:.3g}",
+            norm_rel_split="-" if split is None else f"{split:.3g}",
+            param_rel=f"{param_err:.3g}",
             stats_rel=f"{stats_err:.3g}", tol=tol, replicated_bitwise_equal=True,
             **{f"{kernel}_launches_per_rank": per_rank},
             route="fma" if fp32 else "tensor-core",
@@ -1470,7 +1633,9 @@ def phase_tp_slice(card_line, ranks=TP_RANKS, model_parallel=2, backend="gloo",
             all_gathers_per_step=got[0]["tp_calls"]["all_gather"],
             ddp_all_reduces=got[0]["ddp_all_reduces"], bn_all_reduces=got[0]["bn_all_reduces"],
             ranks_seconds=f"{ranks_s:.2f}", card=f"'{card_line}'")
-    return {k: tuple(v) for k, v in total.items()}
+    out = {k: tuple(v) for k, v in total.items()}
+    out["norm_rel_split"] = splits
+    return out
 
 
 def phase_tp_cli():
@@ -1491,6 +1656,240 @@ def phase_tp_cli():
         say("tp-cli", gpus=n, refused=f"'{e}'")
         return "refused"
     raise RuntimeError("[tp-cli] --model_parallel 2 on one GPU was not refused")
+
+
+# ---------------------------------------------------------------- sequence parallelism
+
+
+def sp_cut(enc_params, samples, seq, rank):
+    """``cut(name, args)`` for check_forward / check_backward: the inputs of
+    a stage cut to the query rows seq rank ``rank`` of ``seq`` computes at
+    ``samples`` of audio (its frames; in a grouped stage the groups that
+    cover them), the position table's rows from its first row on: Nq rows
+    against all Nk keys."""
+    from efficientconformer_torch.parallel import mesh, sequence
+    from efficientconformer_torch.parallel.tensor import Region
+
+    frames = sorted(set(mesh.seq_frame_schedule(enc_params, samples)[1:]), reverse=True)
+    names = [shape[0] for shape in stage_shapes(enc_params, samples / SAMPLE_RATE)]
+    rows = {}
+    for name, t, (_, _, _, _, _, g) in zip(names, frames,
+                                           stage_shapes(enc_params, samples / SAMPLE_RATE)):
+        span = sequence.even(t, Region(None, rank, seq))
+        rows[name] = (sequence.covering(span, g) if g > 1 else
+                      (span.start, span.start + span.length))
+
+    def cut(name, args):
+        r0, r1 = rows[name]
+        qu, rowtab = args[0][:, :, r0:r1].contiguous(), args[5][r0:r1]
+        return (qu, *args[1:5], rowtab, *args[6:])
+
+    return cut
+
+
+def phase_sp_kernel():
+    """[sp-kernel]: both rel-pos kernels at sequence parallelism's shapes,
+    the flagship's 16 s stage shapes padded by sp_pad_align with seq rank
+    r's query rows against all T keys (seq 2: ranks 0 and 1; seq 4: ranks
+    0, 2 and 3, offsets 0, T/2, 3T/4; the grouped stage's rows the groups
+    covering a rank's frames), against their plain versions as [kernel] and
+    [kernel-bwd] check them: fp32 on the FMA route and bf16 on the tensor
+    cores. Returns the largest errors: forward (fp32, bf16), backward (fp32,
+    bf16)."""
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.parallel import mesh
+
+    enc_params = load_config(CONFIG)["encoder_params"]
+    gen = torch.Generator().manual_seed(SEED + 95)
+    fwd, bwd = [0.0, 0.0], [0.0, 0.0]
+    for seq, ranks in SP_KERNEL_RANKS.items():
+        samples = mesh.sp_pad_align(enc_params, seq)(round(TRAIN_SECONDS * SAMPLE_RATE))
+        for rank in ranks:
+            cut = sp_cut(enc_params, samples, seq, rank)
+            say("sp-kernel-rows", seq=seq, rank=rank, samples=samples,
+                frames=sorted(set(mesh.seq_frame_schedule(enc_params, samples)[1:]),
+                              reverse=True))
+            e = check_forward("sp-kernel", enc_params, samples / SAMPLE_RATE, gen, cut=cut)
+            fwd = [max(a, b) for a, b in zip(fwd, e)]
+            e = check_backward("sp-kernel-bwd", enc_params, samples / SAMPLE_RATE, gen, cut=cut)
+            bwd = [max(a, b) for a, b in zip(bwd, e)]
+    return fwd, bwd
+
+
+def sp_batch(rows, seconds, samples, rng):
+    """2 microbatches of ``rows`` ragged utterances of ``seconds`` (2,
+    rows), labels of 0-30 tokens, on the host, padded to ``samples``."""
+    batch = {k: v.numpy() for k, v in train_batch(2, rows, seconds,
+                                                  np.resize([12, 30, 0, 20], rows), "cpu",
+                                                  rng).items()}
+    audio = batch["audio"]
+    batch["audio"] = np.pad(audio, [(0, 0), (0, 0), (0, samples - audio.shape[-1])])
+    return batch
+
+
+def sp_cases(ranks, seq, model=1) -> list:
+    """[sp-slice]'s steps ([dp-slice]'s settings: dropout 0, SpecAugment
+    off, Adam from a shared non-zero state at a constant 1e-3), 2
+    microbatches of 4 ragged utterances of 4-8 s a data rank: the
+    flagship's fp32 step and Transducer Small's (each twice: with the loss
+    in fp32 and in float64) and the flagship's bf16 step, padded by
+    sp_pad_align;
+    the flagship's fp32 step at SP_UNCOVERED samples, no point of the
+    encoder dividing by 2."""
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.parallel import mesh
+
+    rows = 4 * (ranks // (seq * model))
+    rng = np.random.default_rng(SEED + 96)
+    seconds = np.resize([4.0, 5.5, 7.0, 8.0, 8.0, 6.5, 4.5, 5.0], (2, rows))
+    enc_params = load_config(CONFIG)["encoder_params"]
+    aligned = sp_batch(rows, seconds, mesh.sp_pad_align(enc_params, seq)(128000), rng)
+    uncovered = sp_batch(rows, np.minimum(seconds, SP_UNCOVERED / SAMPLE_RATE), SP_UNCOVERED,
+                         rng)
+    cases = []
+    for path, mixed, batch in ((CONFIG, False, aligned), (CONFIG, True, aligned),
+                               (T_CONFIG, False, aligned), (CONFIG, False, uncovered)):
+        cfg = train_config(path, mixed_precision=mixed, lr_schedule="Constant", lr_value=1e-3)
+        cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+        cases.append({"config": cfg, "batch": batch, "seed": SEED, "adam": dp_adam(cfg),
+                      "allow_tf32": False})
+    # the fp32 steps again with their losses in float64 (``float64_loss``)
+    cases.insert(1, dict(cases[0], float64_loss=True))
+    cases.insert(4, dict(cases[3], float64_loss=True))
+    return cases
+
+
+def phase_sp_slice(card_line, ranks=SP_RANKS, seq=2, model=1, backend="gloo",
+                   phase="sp-slice"):
+    """Sequence parallelism at full width: ``ranks`` ranks on a grid of
+    data x ``seq`` x ``model`` (by default two on the one card over gloo,
+    data 1 x seq 2; ``backend`` None: NCCL, one rank a GPU), each case of
+    ``sp_cases`` against the one-process step over the global batch on the
+    (first) card at [tp-slice]'s gates (fp32 loss 1e-5 and norm the larger
+    of 1e-5 and three times its floor: how far the one-process step moves
+    with its logits from a float64 vocabulary product; parameters and
+    statistics 1e-4; bf16 all 2e-2), but for the fp32 norms: 1e-5 with the
+    CTC or RNN-T loss in float64 on both sides, and with it in fp32 1e-4, as
+    the fp32 lattice's rounding (~3e-5: posteriors exp(alpha + beta - L), L
+    a few hundred nats) moves it wherever the forward's rounding changes and
+    the float64 loss removes; the ranks' parameters and statistics
+    bit for bit equal; a rank's rel-pos launches a step (30 / 30 on its
+    query rows, FMA in fp32, tensor cores in bf16) and RNN-T launches; the
+    seq group's all-gathers, halos and reduce-scatters a step (none at the
+    uncovered length); each rank's peak memory beside the one-process
+    step's. Returns the rel-pos (forward, backward) launches over the ranks
+    and steps."""
+    from efficientconformer_torch import dryrun
+    from efficientconformer_torch.parallel import mesh
+
+    cases = sp_cases(ranks, seq, model)
+    gridded = []
+    for case in cases:
+        cfg = json.loads(json.dumps(case["config"]))
+        cfg["training_params"].update(seq_parallel=seq, model_parallel=model)
+        gridded.append(dict(case, config=cfg))
+    t0 = time.perf_counter()
+    outs = mesh.launch(rank_steps, ranks, (gridded,), device_type="cuda",
+                       backend=backend, timeout=SP_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    backend = backend or mesh.default_backend("cuda")
+    total = [0, 0]
+    for i, case in enumerate(cases):
+        cfg = case["config"]
+        is_t = cfg["model_type"] == "Transducer"
+        f64 = case.get("float64_loss", False)
+        fp32 = not cfg["training_params"]["mixed_precision"]
+        samples = case["batch"]["audio"].shape[-1]
+        covered = mesh.sp_coverage(cfg["encoder_params"], seq, samples)
+        one = one_process(case)
+        got = [o[i] for o in outs]
+        loss_err = max(abs(g["loss"] - one["loss"]) / abs(one["loss"]) for g in got)
+        norm_err = max(abs(g["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+                       for g in got)
+        stats = [{k: v for k, v in g["buffers"].items() if "running" in k} for g in got + [one]]
+        param_err = max(rel_diff(g["params"], one["params"]) for g in got)
+        stats_err = max(rel_diff(st, stats[-1]) for st in stats[:-1])
+        tol, loss_tol = (DP_FP32_TOL, DP_LOSS_RTOL) if fp32 else (DP_BF16_TOL, DP_BF16_TOL)
+        norm_tol, floor = loss_tol, None
+        if fp32 and not f64:
+            with float64_head():
+                moved = dryrun.shard_step(**case, device="cuda")
+            floor = abs(moved["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+            norm_tol = DP_FP32_TOL
+        label = (f"[{phase}] {'Transducer' if is_t else 'CTC'} {'fp32' if fp32 else 'bf16'}"
+                 f"{' float64 loss' if f64 else ''} {samples} samples")
+        check(loss_err <= loss_tol and norm_err <= norm_tol,
+              f"{label}: loss {[g['loss'] for g in got]} / {one['loss']}, "
+              f"norm {[g['grad_norm'] for g in got]} / {one['grad_norm']} (tol {norm_tol})")
+        check(param_err <= tol and stats_err <= tol,
+              f"{label}: parameters {param_err}, statistics {stats_err}")
+        differ = [(key, k) for g in got[1:] for key in ("params", "buffers") for k in got[0][key]
+                  if not torch.equal(g[key][k], got[0][key][k])]
+        check(not differ, f"{label}: the ranks' parameters or statistics differ: "
+              f"{differ[:8]} ({len(differ)} in all)")
+        n_att = cfg["encoder_params"]["num_blocks"] * 2
+        per_rank, calls = [], []
+        for g in got:
+            c = g["launches"]
+            fwd, bwd = c["relpos_fwd"], c["relpos_bwd"]
+            tc = (c["relpos_fwd_tc"], c["relpos_bwd_tc"])
+            per_rank.append((fwd, bwd))
+            calls.append(g["sp_calls"])
+            check((fwd, bwd) == (n_att, n_att) and tc == ((0, 0) if fp32 else (n_att, n_att)),
+                  f"{label} rank {g['rank']}: rel-pos launches {c}, expected {n_att} / "
+                  f"{n_att} on the {'FMA' if fp32 else 'tensor-core'} route")
+            check(not is_t or f64 or (c["rnnt_fwd"] > 0 and c["rnnt_bwd"] > 0),
+                  f"{label} rank {g['rank']}: RNN-T launches {c}")
+            sharded = covered[0] > 0
+            check(g["seq_size"] == seq and g["ddp"] and
+                  (all(v > 0 for v in g["sp_calls"].values()) if sharded else
+                   not any(g["sp_calls"].values())),
+                  f"{label} rank {g['rank']}: seq size {g['seq_size']}, DDP {g['ddp']}, "
+                  f"collectives {g['sp_calls']} at coverage {covered}")
+            total = [total[0] + fwd, total[1] + bwd]
+        say(phase, model=cfg["model_name"].replace(" ", ""),
+            dtype="float32" if fp32 else "bfloat16", ranks=ranks,
+            loss_type="float64" if f64 else "float32",
+            grid=f"data{ranks // (seq * model)}xseq{seq}" + (f"xmodel{model}" if model > 1
+                                                             else ""),
+            backend=backend, rows=case["batch"]["audio"].shape[:2], samples=samples,
+            coverage=f"{covered[0]}/{covered[1]}", loss=f"{got[0]['loss']:.6f}",
+            loss_rel=f"{loss_err:.3g}", norm_rel=f"{norm_err:.3g}", norm_tol=f"{norm_tol:.3g}",
+            norm_floor="-" if floor is None else f"{floor:.3g}", param_rel=f"{param_err:.3g}",
+            stats_rel=f"{stats_err:.3g}", tol=tol, bitwise_equal_across_ranks=True,
+            relpos_launches_per_rank=per_rank, route="fma" if fp32 else "tensor-core",
+            seq_collectives_per_step=calls[0],
+            model_collectives_per_step=got[0]["tp_calls"] if model > 1 else "-",
+            peak_gib_per_rank=[gib(g["peak_bytes"]) for g in got],
+            peak_gib_one_process=gib(one["peak_bytes"]),
+            ddp_all_reduces=got[0]["ddp_all_reduces"], bn_all_reduces=got[0]["bn_all_reduces"],
+            ranks_seconds=f"{ranks_s:.2f}", card=f"'{card_line}'")
+    return tuple(total)
+
+
+def gib(nbytes) -> str:
+    return "-" if nbytes is None else f"{nbytes / 2**30:.3f}"
+
+
+def phase_sp_cli():
+    """[sp-cli]: ``-m training --seq_parallel 2`` on a machine of one GPU is
+    refused before any rank starts, with the JAX package's message
+    (scripts/torch_sp_multigpu.py runs sequence parallelism on four).
+    Returns whether it was refused or not run (an even GPU count)."""
+    from efficientconformer_torch import main as cli_main
+
+    n = torch.cuda.device_count()
+    if n % 2 == 0:
+        say("sp-cli", gpus=n, note="run by scripts/torch_sp_multigpu.py")
+        return "not run"
+    try:
+        cli_main.main(["-c", CONFIG, "-m", "training", "--seq_parallel", "2"])
+    except ValueError as e:
+        check(f"model_parallel=1 x seq_parallel=2 does not divide the {n} visible" in str(e),
+              f"[sp-cli] {e}")
+        say("sp-cli", gpus=n, refused=f"'{e}'")
+        return "refused"
+    raise RuntimeError("[sp-cli] --seq_parallel 2 on one GPU was not refused")
 
 
 # ---------------------------------------------------------------- Transducer
@@ -4669,6 +5068,11 @@ def main() -> int:
     tp_fwd, tp_bwd, tp_bias_fwd, tp_bias_bwd = phase_tp_kernel()
     tp_slice = phase_tp_slice(card_line)
     phase_tp_cli()
+    t_sp = time.perf_counter()
+    sp_fwd, sp_bwd = phase_sp_kernel()
+    sp_slice = phase_sp_slice(card_line)
+    phase_sp_cli()
+    say("sp", seconds=f"{time.perf_counter() - t_sp:.2f}")
     (t_err, t_err16), (t_err_bwd, t_err16_bwd) = phase_t_kernel(t_cfg["encoder_params"])
     err_rnnt, times_rnnt, err_rnnt_bwd, times_rnnt_bwd = phase_rnnt_kernel(t_cfg)
     t_launches, t_tc = phase_t_requests()
@@ -4742,7 +5146,10 @@ def main() -> int:
               interctc_launches=interctc_fwd, remat_launches=remat_fwd,
               dp_launches={"dp-slice": dp_slice[0], "dp-rate": dp_rate[0]},
               tp_launches={"tp-slice": tp_slice["relpos"][0]},
-              tp_kernel_max_err=tp_fwd[0], tp_kernel_bf16_max_err=tp_fwd[1]),
+              tp_kernel_max_err=tp_fwd[0], tp_kernel_bf16_max_err=tp_fwd[1],
+              tp_norm_rel_split=tp_slice["norm_rel_split"],
+              sp_launches={"sp-slice": sp_slice[0]},
+              sp_kernel_max_err=sp_fwd[0], sp_kernel_bf16_max_err=sp_fwd[1]),
         entry(RA.KERNEL_BWD, "efficientconformer_torch/csrc/rel_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:139", launches_bwd,
               max(max_err_bwd, t_err_bwd), times_bwd,
@@ -4751,7 +5158,9 @@ def main() -> int:
               interctc_launches=interctc_bwd, remat_launches=remat_bwd,
               dp_launches={"dp-slice": dp_slice[1], "dp-rate": dp_rate[1]},
               tp_launches={"tp-slice": tp_slice["relpos"][1]},
-              tp_kernel_max_err=tp_bwd[0], tp_kernel_bf16_max_err=tp_bwd[1]),
+              tp_kernel_max_err=tp_bwd[0], tp_kernel_bf16_max_err=tp_bwd[1],
+              sp_launches={"sp-slice": sp_slice[1]},
+              sp_kernel_max_err=sp_bwd[0], sp_kernel_bf16_max_err=sp_bwd[1]),
         entry(RL.KERNEL_FWD, "efficientconformer_torch/csrc/rnnt_fwd.cu",
               "efficientconformer_tpu/ops/pallas_rnnt.py:73", rnnt_fwd, err_rnnt, times_rnnt),
         entry(RL.KERNEL_BWD, "efficientconformer_torch/csrc/rnnt_bwd.cu",

@@ -1,17 +1,20 @@
 """A multi-rank dry run, and the step of one rank.
 
 ``dryrun_multichip(n)`` is the port's counterpart of
-``__graft_entry__.dryrun_multichip``: n ranks (gloo processes on the CPU, or
-one rank a GPU over NCCL), the flagship's config shrunk as there
-(``__graft_entry__.py:70-78``), and one full training step: the forward
-pass, the CTC loss, the backward with DDP's gradient all-reduce and the
-global BatchNorm statistics, and the Adam update, on a batch of 2
-utterances a data rank. As there (``__graft_entry__.py:82-104``), four or
-more ranks (an even count) run data n/2 x model 2, tensor parallelism's
-Megatron layers on model groups of two, and fewer pure data parallelism. It
-prints the loss, the gradient norm and the collectives issued: DDP's
-gradient buckets, BatchNorm's statistics and the model groups' all-reduces
-and all-gathers. Sequence parallelism is ROADMAP Queue 1 item 23.
+``__graft_entry__.dryrun_multichip``: n ranks (one a GPU over NCCL, or with
+``device_type="cpu"`` gloo processes on the CPU; without a card the default
+raises), the flagship's config shrunk as there (``__graft_entry__.py
+:70-78``), and one full training step: the forward pass, the CTC loss, the
+backward with DDP's gradient all-reduce and the global BatchNorm
+statistics, and the Adam update, on a batch of 2 utterances a data rank. As
+there (``__graft_entry__.py:77-99``), four or more ranks (an even count)
+add a model axis of 2, tensor parallelism's Megatron layers, and eight or
+more (a multiple of 8) a seq axis of 2 between them, the encoder's
+activations split along time, on 20160-sample utterances (frames 64 / 32 /
+16 through the strided blocks: every point splits). It prints the grid,
+the loss, the gradient norm and the collectives issued: DDP's gradient
+buckets, BatchNorm's statistics, the model groups' all-reduces and
+all-gathers and the seq groups' all-gathers, halos and reduce-scatters.
 
     python -m efficientconformer_torch.dryrun [N] [--cpu]
 
@@ -30,9 +33,10 @@ import numpy as np
 import torch
 
 from efficientconformer_torch.config import load_config
-from efficientconformer_torch.parallel import mesh, tensor
+from efficientconformer_torch.parallel import mesh, sequence, tensor
 
 FLAGSHIP = "configs/EfficientConformerCTCSmall.json"
+SP_SAMPLES = 20160   # __graft_entry__.py:87-89: 127 mel frames -> 64 -> 32 -> 16
 # the shrunk encoder of __graft_entry__.py:70-78
 TINY_ENCODER = {"num_blocks": 5, "dim_model": [16, 24, 32], "num_heads": 2, "ff_ratio": 2,
                 "kernel_size": 7, "strided_blocks": [1, 3], "expand_blocks": [1, 3],
@@ -79,8 +83,9 @@ def shard_step(config: dict, batch: dict, seed: int = 0, adam: Optional[tuple] =
     given, sets TF32 for matmuls and cuDNN in this process. On the host:
     the last step's loss and gradient norm, the parameters and buffers after
     it (and its gradients, with ``grads``), the kernel launches of the last
-    step, and DDP's gradient all-reduces and BatchNorm's statistics
-    all-reduces over the steps."""
+    step, DDP's gradient all-reduces and BatchNorm's statistics
+    all-reduces over the steps, the model and seq groups' collectives of the
+    last step, and on the card the peak memory allocated over the steps."""
     from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
 
     from efficientconformer_torch.training.trainer import Trainer
@@ -98,23 +103,28 @@ def shard_step(config: dict, batch: dict, seed: int = 0, adam: Optional[tuple] =
         trainer.step = count
     counts = {"ddp": 0}
     if trainer.ddp is not None:
-        group = mesh.data_group()
+        group = mesh.replica_group()
 
         def counting_hook(state, bucket):
             state["ddp"] += 1
-            # over the data group, as DDP's own reduction (None: the world)
+            # over the data x seq group, as DDP's own reduction (None: the world)
             return default_hooks.allreduce_hook(group, bucket)
 
         trainer.ddp.register_comm_hook(counts, counting_hook)
     mine = mesh.shard_batch({k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()})
+    if trainer.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(trainer.device)
     mesh.all_reduce_sum.calls = 0
     for _ in range(steps):
         reset_kernel_launches()
         tensor.reset_calls()
+        sequence.reset_calls()
         loss, grad_norm = trainer.train_step(mine)
-    tp_calls = dict(tensor.calls)
+    tp_calls, sp_calls = dict(tensor.calls), dict(sequence.calls)
+    peak = None
     if trainer.device.type == "cuda":
         torch.cuda.synchronize(trainer.device)
+        peak = torch.cuda.max_memory_allocated(trainer.device)
     model = trainer.model
 
     def host(tensors):
@@ -132,9 +142,11 @@ def shard_step(config: dict, batch: dict, seed: int = 0, adam: Optional[tuple] =
                                 if getattr(p, "tp_shard", None) is None}),
             "launches": kernel_launches(), "ddp_all_reduces": counts["ddp"],
             "bn_all_reduces": mesh.all_reduce_sum.calls, "tp_calls": tp_calls,
-            "rank": mesh.rank(), "world": mesh.world_size(), "data_rank": mesh.data_rank(),
-            "model_rank": mesh.model_rank(), "model_size": mesh.model_size(),
-            "ddp": trainer.ddp is not None}
+            "sp_calls": sp_calls, "rank": mesh.rank(), "world": mesh.world_size(),
+            "data_rank": mesh.data_rank(), "seq_rank": mesh.seq_rank(),
+            "seq_size": mesh.seq_size(), "model_rank": mesh.model_rank(),
+            "model_size": mesh.model_size(), "ddp": trainer.ddp is not None,
+            "peak_bytes": peak}
 
 
 def shard_steps(cases: list) -> list:
@@ -151,29 +163,31 @@ def tiny_config() -> dict:
     return cfg
 
 
-def example_batch(batch_size: int, vocab: int) -> dict:
-    """The JAX runtime's ``example_microbatch`` (1 s of noise, 6 labels) as
-    one stacked microbatch."""
+def example_batch(batch_size: int, vocab: int, t: int = 16000) -> dict:
+    """The JAX runtime's ``example_microbatch`` (1 s of noise, 6 labels; ``t``
+    samples) as one stacked microbatch."""
     rng = np.random.default_rng(0)
-    t, u = 16000, 6
+    u = 6
     return {"audio": (rng.standard_normal((1, batch_size, t)) * 0.01).astype(np.float32),
             "labels": rng.integers(1, min(8, vocab), (1, batch_size, u)).astype(np.int32),
             "audio_len": np.full((1, batch_size), t, np.int32),
             "label_len": np.full((1, batch_size), u, np.int32)}
 
 
-def dryrun_multichip(n_devices: int, device_type: Optional[str] = None) -> dict:
-    """One training step of the shrunk flagship over ``n_devices`` ranks
-    (the card's GPUs, or gloo processes on the CPU when there is no card or
-    ``device_type`` is "cpu"): data x model 2 at four or more (an even
+def dryrun_multichip(n_devices: int, device_type: str = "cuda") -> dict:
+    """One training step of the shrunk flagship over ``n_devices`` ranks:
+    the card's GPUs (without a card this raises, as ``mesh.launch`` does), or
+    gloo processes on the CPU with ``device_type`` "cpu". Data x seq 2 x
+    model 2 at a multiple of 8, data x model 2 at four or more (an even
     count), data parallel otherwise; prints and returns rank 0's loss,
     gradient norm and collective counts."""
-    device_type = device_type or ("cuda" if torch.cuda.is_available() else "cpu")
     model_parallel = 2 if n_devices >= 4 and n_devices % 2 == 0 else 1
+    seq_parallel = 2 if n_devices >= 8 and n_devices % 8 == 0 else 1
     cfg = tiny_config()
-    cfg["training_params"]["model_parallel"] = model_parallel
-    batch = example_batch(2 * (n_devices // model_parallel),
-                          cfg["tokenizer_params"]["vocab_size"])
+    cfg["training_params"].update(model_parallel=model_parallel, seq_parallel=seq_parallel)
+    data = n_devices // (model_parallel * seq_parallel)
+    batch = example_batch(2 * data, cfg["tokenizer_params"]["vocab_size"],
+                          SP_SAMPLES if seq_parallel > 1 else 16000)
     outs = mesh.launch(shard_step, n_devices, (cfg, batch), device_type=device_type,
                        threads=1 if device_type == "cpu" else None)
     first = outs[0]
@@ -184,19 +198,26 @@ def dryrun_multichip(n_devices: int, device_type: Optional[str] = None) -> dict:
         for name, p in first["params"].items():
             if not torch.equal(o["params"][name], p):
                 raise RuntimeError(f"rank {o['rank']} updated {name} otherwise than rank 0")
-    result = {"world": n_devices, "device": device_type, "data": n_devices // model_parallel,
-              "model": model_parallel, "loss": first["loss"], "grad_norm": first["grad_norm"],
+    grid = {"data": data, "seq": seq_parallel, "model": model_parallel}
+    result = {"world": n_devices, "device": device_type, **grid,
+              "loss": first["loss"], "grad_norm": first["grad_norm"],
               "all_reduces": {"ddp_gradient_buckets": first["ddp_all_reduces"],
                               "batch_norm_statistics": first["bn_all_reduces"]}}
     if model_parallel > 1:
         result["model_group"] = first["tp_calls"]
-        kind = f"data {result['data']} x model {model_parallel} over {n_devices}"
+    if seq_parallel > 1:
+        result["seq_group"] = first["sp_calls"]
+    if model_parallel * seq_parallel > 1:
+        kind = " x ".join(f"{k} {v}" for k, v in grid.items() if k == "data" or v > 1) + \
+            f" over {n_devices}"
     else:
         kind = f"data parallel over {n_devices}"
     print(f"dryrun_multichip ok ({kind} {device_type} rank(s)):",
           {"loss": result["loss"], "grad_norm": result["grad_norm"]},
           "all-reduces:", result["all_reduces"],
-          *(("model group:", result["model_group"]) if model_parallel > 1 else ()), flush=True)
+          *(("model group:", result["model_group"]) if model_parallel > 1 else ()),
+          *(("seq group:", result["seq_group"]) if seq_parallel > 1 else ()), flush=True)
+    print("grid:", grid, flush=True)
     return result
 
 
@@ -207,6 +228,8 @@ def main(argv=None) -> int:
     p.add_argument("--cpu", action="store_true", help="gloo ranks on the CPU")
     a = p.parse_args(argv)
     device_type = "cpu" if a.cpu else "cuda"
+    if not a.cpu and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --cpu to run the ranks on the CPU over gloo")
     n = a.n or (2 if a.cpu else torch.cuda.device_count())
     dryrun_multichip(n, device_type)
     return 0

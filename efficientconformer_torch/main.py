@@ -81,7 +81,8 @@ def build_parser():
     p.add_argument("--model_parallel", type=int, default=None,
                    help="Tensor-parallel size: ranks a model group (training)")
     p.add_argument("--seq_parallel", type=int, default=None,
-                   help="Sequence-parallel size (not ported: ROADMAP item 23)")
+                   help="Sequence-parallel size: ranks a seq group, the encoder's "
+                        "activations split along time (training)")
     return p
 
 

@@ -69,6 +69,14 @@ the kernel runs on them, the heads' output is gathered and the rank's
 feature slice goes to the output projection. Local and linear attention,
 the KV caches and the one-token step raise (ROADMAP Queue 1 item 24).
 
+Under sequence parallelism (a ``span``, parallel/sequence.py) only the
+factorized path runs: each rank projects its own frames, the keys and values
+are gathered whole along time, and the kernel runs the rank's query rows
+against every key, its position table's rows starting at the rank's first
+row; a grouped layer gathers the queries too and computes the groups that
+cover the rank's frames, so a group straddling two ranks is computed on
+both. The other paths raise (ROADMAP Queue 1 item 25).
+
 Parameter names are the original PyTorch repo's (query_layer, key_layer,
 value_layer, output_layer, and for rel-pos pos_layer, u, v), so
 utils/weights.py maps them. With ``vn_std`` the query, key, value and
@@ -91,6 +99,7 @@ from efficientconformer_torch.ops import masks as M
 from efficientconformer_torch.ops import pos_enc as P
 from efficientconformer_torch.ops import rel_attention as RA
 from efficientconformer_torch.ops import rel_factorize as RF
+from efficientconformer_torch.parallel import sequence
 from efficientconformer_torch.parallel import tensor as tp_ops
 
 
@@ -194,12 +203,23 @@ class MultiHeadSelfAttention(nn.Module):
             self.u.uniform_(-bound, bound, generator=generator)
             self.v.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                span=None) -> torch.Tensor:
         """x (B, T, D) -> (B, T, D), or (B, ceil(T/S), D) in a strided layer;
         mask (B or 1, 1, 1, T) with 1.0 at padded keys, a full (B or 1, 1,
-        T, T) mask with 1.0 where query i may not see key j, or None."""
+        T, T) mask with 1.0 where query i may not see key j, or None. Under
+        sequence parallelism x holds this rank's frames ``span``
+        (parallel/sequence.Span) of a sequence that the mask covers whole,
+        and only the factorized path runs."""
         if self.tp is not None:
             x = tp_ops.copy_to_region(x, self.tp)
+        if span is not None:
+            if not self._factorizes(mask):
+                raise NotImplementedError("sequence parallelism: an attention layer off the "
+                                          "factorized path (a full (T, T) mask, causal, even "
+                                          f"G, strided, local, linear or absolute; "
+                                          f"{sequence.ROADMAP_ITEM})")
+            return self._factorized(x, mask, span)
         if self.linear_att:
             return self._linear(x)
         if self.kernel_size is not None:
@@ -208,17 +228,39 @@ class MultiHeadSelfAttention(nn.Module):
             return self._absolute(x, mask)
         if self.stride > 1:
             return self._strided(x, mask)[0]
-        if (self.causal or self.group_size % 2 == 0
-                or (mask is not None and mask.shape[-2] != 1)):
+        if not self._factorizes(mask):
             return self._skewed(x, mask)[0]
         return self._factorized(x, mask)
 
-    def _factorized(self, x, mask):
-        """The fused rel-pos attention (odd G, non-causal, key-only mask)."""
+    def _factorizes(self, mask) -> bool:
+        """Whether a full-sequence call takes the fused rel-pos attention:
+        rel-pos, odd G, non-causal, a key-only mask, not local, strided or
+        linear."""
+        return (self.relative_pos_enc and not self.linear_att and self.kernel_size is None
+                and self.stride == 1 and not self.causal and self.group_size % 2 == 1
+                and (mask is None or mask.shape[-2] == 1))
+
+    def _factorized(self, x, mask, span=None):
+        """The fused rel-pos attention (odd G, non-causal, key-only mask).
+        Under sequence parallelism (``span``) the keys and values are
+        gathered whole along time, and the rank's own query rows attend to
+        them: the position table's rows from the rank's first row on. In a
+        grouped layer the queries are gathered too and the rank takes the
+        groups that cover its frames (a group may straddle two ranks: both
+        compute it and each keeps its frames)."""
         d, h, g = self.dim_model, self.num_heads, self.group_size
         t_in = x.shape[1]
         whole = self._whole_heads()
         q, k, v = self._qkv(x, whole)
+        rows = None                       # the grouped rows this rank computes
+        if span is not None:
+            width = q.shape[-1]
+            if g > 1:
+                q, k, v = sequence.gather_time(torch.cat([q, k, v], -1), span.seq).split(
+                    width, -1)
+                rows = sequence.covering(span, g)
+            else:
+                k, v = sequence.gather_time(torch.cat([k, v], -1), span.seq).split(width, -1)
         u_p, v_p = self._uv(whole)
         u = u_p.to(x.dtype)
         # the pos layer's (D_in, D_out) kernel; its bias cancels in the softmax
@@ -231,6 +273,8 @@ class MultiHeadSelfAttention(nn.Module):
             vp, _ = M.pad_to_multiple(v, g)
             mask_p = M.pad_mask_to_multiple(mask, g)
             dh = g * d // h
+            if rows is not None:
+                qp = qp[:, rows[0] * g:rows[1] * g]
             qu = A.group_time(qp + u, h, g)
             kh = A.group_time(kp, h, g)
             vh = A.group_time(vp, h, g)
@@ -250,12 +294,22 @@ class MultiHeadSelfAttention(nn.Module):
             delta = vu.reshape(hl, dh)
             w_h = self._own_heads(RF.rel_w_plain(pos_kernel, h, d // 2), 0, whole)
 
-        rowtab, keytab = RF.rel_tables(qu.shape[2], kh.shape[2], d, g, x.device)
+        if span is None:
+            rowtab, keytab = RF.rel_tables(qu.shape[2], kh.shape[2], d, g, x.device)
+        else:
+            # the whole sequence's tables; the rank's rows start at its first
+            # (grouped: its first covering group's) position
+            rowtab, keytab = RF.rel_tables(kh.shape[2], kh.shape[2], d, g, x.device)
+            r0 = rows[0] if rows is not None else span.start
+            rowtab = rowtab[r0:r0 + qu.shape[2]]
         o = self._attend(RA.relpos_attention, (qu, kh, vh, delta, w_h, rowtab, keytab, bias,
                                                1.0 / math.sqrt(dh)),
                          (1, 1, 1, 0, 0, None, None, 1, None), whole)
         # ungroup_time is merge_heads when G = 1
-        return self._out(A.ungroup_time(o, q.shape[-1])[:, :t_in], whole)
+        o = A.ungroup_time(o, q.shape[-1])
+        if rows is not None:
+            o = o[:, span.start - rows[0] * g:]
+        return self._out(o[:, :t_in], whole)
 
     def forward_cached(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                        hidden: Optional[dict]):

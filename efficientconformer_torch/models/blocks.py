@@ -32,6 +32,7 @@ from efficientconformer_torch.models.modules import (
     FeedForwardModule,
     MultiHeadSelfAttentionModule,
 )
+from efficientconformer_torch.parallel import sequence
 
 
 class ConformerBlock(nn.Module):
@@ -57,19 +58,29 @@ class ConformerBlock(nn.Module):
             c.dim_expand, c.dim_expand * c.ff_ratio, c.dropout, vn_std=vn_std)
         self.norm = LayerNorm(c.dim_expand)
 
-    def forward(self, x, mask=None, generator=None):
+    def forward(self, x, mask=None, generator=None, span=None):
+        """x (B, T, D) -> (B, T', E); under sequence parallelism x holds
+        this rank's frames ``span`` (parallel/sequence.Span) and the output
+        the frames ``sequence.strided(span, conv_stride)``: the strided
+        residual keeps the frames at global multiples of the stride, from
+        the rank's first such frame on."""
         c = self.cfg
-        x = x + 0.5 * self.feed_forward_module1(x, generator)
-        att = self.multi_head_self_attention_module(x, mask, generator)
+        x = x + 0.5 * self.feed_forward_module1(x, generator, span)
+        att = self.multi_head_self_attention_module(x, mask, generator, span)
         if c.att_stride > 1:
             x = x[:, :: c.att_stride]
         x = x + att
+        first = 0
+        out = span
+        if span is not None:
+            first = -span.start % c.conv_stride
+            out = sequence.strided(span, c.conv_stride)
         if c.dim_model != c.dim_expand:
-            res = self.conv_res(x)
+            res = self.conv_res(x[:, first:])
         else:
-            res = x[:, :: c.conv_stride]
-        x = res + self.convolution_module(x, generator)
-        x = x + 0.5 * self.feed_forward_module2(x, generator)
+            res = x[:, first:: c.conv_stride]
+        x = res + self.convolution_module(x, generator, span)
+        x = x + 0.5 * self.feed_forward_module2(x, generator, out)
         return self.norm(x)
 
     def step(self, x, k, v, conv_state, at):

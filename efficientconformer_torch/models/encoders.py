@@ -34,6 +34,19 @@ chains around them. The recompute is the forward's own arithmetic:
   * variational noise, set on the weights for the whole step, is still
     there when the backward recomputes.
 The fused attention kernels inside a block run again in the recompute.
+
+Sequence parallelism (``seq``, set by parallel/sequence.shard_encoder_; the
+JAX package's ``seq_constraint`` points, encoders.py:78,96,155): the
+frontend and SpecAugment run on the whole audio on every rank of the seq
+group (their generator is shared), the Conv2d subsampling computes the
+rank's frames from a window of the whole mel, and at each point (after
+subsampling, after every block) an activation whose frame count divides by
+the seq size is split evenly along time; any other runs whole on every
+rank, and a block whose output would not split evenly gathers its input
+first. The mask and the lengths stay whole (the keys are gathered), the
+frame count and the rank's offset travel as a ``sequence.Span``, the
+InterCTC taps run on the rank's frames and gather their probabilities, and
+the output is gathered whole for the heads.
 """
 
 from __future__ import annotations
@@ -55,6 +68,7 @@ from efficientconformer_torch.models.modules import (
 )
 from efficientconformer_torch.ops.masks import padding_mask, streaming_mask
 from efficientconformer_torch.ops.pos_enc import absolute_encoding
+from efficientconformer_torch.parallel import sequence
 
 # the products whose outputs "dots" keeps: every matrix product and
 # convolution of a block reaches one of these
@@ -67,24 +81,25 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def remat_block(block: nn.Module, x, mask, generator, policy: str):
-    """``block(x, mask, generator)`` under activation recomputation
+def remat_block(block: nn.Module, x, mask, generator, policy: str, span=None):
+    """``block(x, mask, generator, span)`` under activation recomputation
     (``policy`` "full" or "dots"), with the recompute drawing the forward's
-    dropout masks and leaving BatchNorm's statistics alone."""
+    dropout masks and leaving BatchNorm's statistics alone. Under sequence
+    parallelism the recompute repeats the block's collectives."""
     state = generator.get_state() if generator is not None else None
     calls = []
 
     def run(x, mask):
         if not calls:                      # the forward
             calls.append(1)
-            return block(x, mask, generator)
+            return block(x, mask, generator, span)
         with frozen_batch_stats():         # the recompute
             if generator is None:
-                return block(x, mask, None)
+                return block(x, mask, None, span)
             after = generator.get_state()
             generator.set_state(state)
             try:
-                return block(x, mask, generator)
+                return block(x, mask, generator, span)
             finally:
                 generator.set_state(after)
 
@@ -125,6 +140,7 @@ class ConformerEncoder(nn.Module):
         self.absolute_pos_enc = not p["relative_pos_enc"]
         self.blocks = nn.ModuleList(ConformerBlock(cfg) for cfg in blocks)
         self.interctc_blocks = tuple(interctc_blocks)
+        self.seq = None              # the seq group under sequence parallelism
         for i in self.interctc_blocks:
             self.add_module(f"linear_expand_{i}", Linear(blocks[i].dim_expand, vocab_size))
             self.add_module(f"linear_proj_{i}", Linear(vocab_size, blocks[i].dim_expand))
@@ -144,30 +160,45 @@ class ConformerEncoder(nn.Module):
         x = self.augment(x, x_len, generator)
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        x, x_len = self.subsampling_module(x, x_len)
-        t = x.shape[1]
+        seq, span = self.seq, None
+        if seq is None:
+            x, x_len = self.subsampling_module(x, x_len)
+        else:
+            x, x_len, span = self.subsampling_module(x, x_len, seq)
+        # the frame count of the whole sequence, which the mask covers
+        t = span.total if span is not None else x.shape[1]
         if self.left_context >= t and self.right_context >= t:
             mask = padding_mask(t, x_len)
         else:
             mask = streaming_mask(t, x_len, self.left_context, self.right_context, x.device)
-        x = self.dropout(self.linear(x), generator)
+        x = self.dropout(self.linear(x), generator, span)
         if self.absolute_pos_enc:
             x = x + absolute_encoding(t, x.shape[-1], x.device).to(x.dtype)
         probs = []
         remat = self.remat if torch.is_grad_enabled() else None
         for i, block in enumerate(self.blocks):
-            if remat:
-                x = remat_block(block, x, mask, generator, remat)
-            else:
-                x = block(x, mask, generator)
             s = block.cfg.stride
+            if span is not None and not sequence.splits_evenly(t, s, seq.size):
+                # the block's output frames would not split evenly: it runs whole
+                x, span = sequence.gather_time(x, seq), None
+            if remat:
+                x = remat_block(block, x, mask, generator, remat, span)
+            else:
+                x = block(x, mask, generator, span)
             if s > 1:
+                t = (t - 1) // s + 1
+                span = sequence.strided(span, s) if span is not None else None
                 if mask is not None:
                     mask = mask[:, :, ::s, ::s]
                 if x_len is not None:
                     x_len = (x_len - 1) // s + 1
+            if seq is not None and span is None and t % seq.size == 0:
+                # the JAX package's seq_constraint: a point that divides is split
+                x, span = sequence.split_time(x, seq), sequence.even(t, seq)
             if i in self.interctc_blocks:
                 p = torch.softmax(getattr(self, f"linear_expand_{i}")(x), dim=-1)
-                probs.append(p)
+                probs.append(p if span is None else sequence.gather_time(p, seq))
                 x = x + getattr(self, f"linear_proj_{i}")(p)
+        if span is not None:
+            x = sequence.gather_time(x, seq)
         return x, x_len, probs

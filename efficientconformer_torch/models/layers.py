@@ -24,7 +24,9 @@ per-channel count, mean and variance are gathered in fp32 by an all-reduce
 over the data group that autograd differentiates, so the backward sums over
 the data ranks too, and combined. The ranks of one model group hold other
 channels of the convolution module's BatchNorm under tensor parallelism,
-so the table never spans a model group.
+so the table never spans a model group. Under sequence parallelism an input
+split along time (``sharded``) takes its statistics over the data x seq
+group instead, each rank counting its own frames.
 
 Tensor parallelism (parallel/tensor.py) gives Linear and Conv1d a parallel
 form, ``tp_mode``: "column" (this rank's output features; the input has
@@ -308,9 +310,17 @@ def local_batch_stats():
         _LOCAL_STATS.on = before
 
 
-def _global_stats() -> bool:
-    return (dist.is_initialized() and mesh.data_size() > 1
-            and not getattr(_LOCAL_STATS, "on", False))
+def _stats_group(sharded: bool):
+    """(group, this rank's index, size) over which BatchNorm's training
+    statistics are taken, or None for this process's batch alone: the data
+    group, or under sequence parallelism, for an input split along time,
+    the data x seq group (mesh.replica_group)."""
+    if not dist.is_initialized() or getattr(_LOCAL_STATS, "on", False):
+        return None
+    g = mesh.grid()
+    if sharded and g.seq_size > 1:
+        return (g.replica_group, g.replica_rank, g.replica_size)
+    return (g.data_group, g.data_rank, g.data_size) if g.data_size > 1 else None
 
 
 class _BatchNorm:
@@ -322,18 +332,21 @@ class _BatchNorm:
     momentum 0.9), except inside ``frozen_batch_stats``. torch's own
     training-mode update would use the unbiased variance for running_var,
     which differs at small batches. Under a process group of more than one
-    rank the batch is the global one (``_synced_forward``)."""
+    rank the batch is the global one (``_synced_forward``): over the data
+    ranks, or, with ``sharded`` (an input split along time under sequence
+    parallelism), over the data x seq ranks."""
 
     MOMENTUM = 0.9
 
-    def forward(self, x):
+    def forward(self, x, sharded: bool = False):
         x32 = x.to(torch.float32)
         if not self.training:
             y = F.batch_norm(x32, self.running_mean, self.running_var, self.weight, self.bias,
                              False, 0.0, self.eps)
             return y.to(x.dtype)
-        if _global_stats():
-            return self._synced_forward(x32).to(x.dtype)
+        group = _stats_group(sharded)
+        if group is not None:
+            return self._synced_forward(x32, *group).to(x.dtype)
         y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
         if getattr(_FROZEN_STATS, "on", False):
             return y.to(x.dtype)
@@ -347,11 +360,13 @@ class _BatchNorm:
         self.running_mean.lerp_(mean, 1.0 - self.MOMENTUM)
         self.running_var.lerp_(var, 1.0 - self.MOMENTUM)
 
-    def _synced_forward(self, x32):
-        """Training mode over the global batch: each rank's count, mean and
-        biased variance per channel (two passes over its rows), gathered by
-        one fp32 all-reduce of a (ranks, 2C + 1) table in which each rank
-        fills its row, then combined: the mean of the means, weighted by
+    def _synced_forward(self, x32, group, rank, world):
+        """Training mode over the global batch of ``group`` (``world``
+        ranks, this one ``rank``): each rank's count, mean and biased
+        variance per channel (two passes over its rows), gathered by one fp32
+        all-reduce of a (ranks, 2C + 1) table in which each rank fills its
+        row, then combined (the counts differ where time splits unevenly):
+        the mean of the means, weighted by
         the counts, and the weighted mean of each rank's variance plus its
         mean's squared distance from the global mean (Chan et al.). The sum
         of squares less the squared sum (flax's ``_compute_stats``) would
@@ -362,9 +377,7 @@ class _BatchNorm:
         dims = [0] + list(range(2, x32.dim()))
         var_r, mean_r = torch.var_mean(x32, dim=dims, correction=0)
         row = torch.cat([mean_r, var_r, x32.new_full((1,), x32.numel() // c)])
-        rank, world = mesh.data_rank(), mesh.data_size()
-        table = all_reduce_sum(F.pad(row[None], (0, 0, rank, world - rank - 1)),
-                               mesh.data_group())
+        table = all_reduce_sum(F.pad(row[None], (0, 0, rank, world - rank - 1)), group)
         means, variances, counts = table[:, :c], table[:, c:2 * c], table[:, 2 * c:]
         total = counts.sum()
         mean = (counts * means).sum(0) / total
@@ -389,26 +402,35 @@ class Dropout(nn.Module):
     """Dropout whose keep-mask is drawn from an explicit ``torch.Generator``
     (on the tensor's device), kept values scaled by 1/(1-p), as flax's
     Dropout. The identity in eval mode or when p = 0. With ``tp`` set, x
-    holds this rank's slice of the last dim: the mask is drawn whole and
-    sliced."""
+    holds this rank's slice of the last dim; with a ``span``
+    (parallel/sequence.Span), this rank's frames along ``time_dim``: the
+    mask is drawn whole and sliced, so that it is the one-process mask."""
 
     tp = None
 
-    def __init__(self, p: float):
+    def __init__(self, p: float, time_dim: int = 1):
         super().__init__()
         self.p = p
+        self.time_dim = time_dim
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, span=None):
         if not self.training or self.p == 0.0:
             return x
         if generator is None:
             raise ValueError("Dropout in training mode needs a torch.Generator")
-        if self.tp is None:
+        if self.tp is None and span is None:
             keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=generator)
         else:
-            shape = x.shape[:-1] + (x.shape[-1] * self.tp.size,)
+            shape = list(x.shape)
+            if self.tp is not None:
+                shape[-1] *= self.tp.size
+            if span is not None:
+                shape[self.time_dim] = span.total
             keep = x.new_empty(shape).bernoulli_(1.0 - self.p, generator=generator)
-            keep = keep.narrow(-1, self.tp.rank * x.shape[-1], x.shape[-1])
+            if self.tp is not None:
+                keep = keep.narrow(-1, self.tp.rank * x.shape[-1], x.shape[-1])
+            if span is not None:
+                keep = keep.narrow(self.time_dim, span.start, span.length)
         return x * keep / (1.0 - self.p)
 
 

@@ -43,23 +43,25 @@ from efficientconformer_torch.models.layers import (
 )
 from efficientconformer_torch.ops import specaugment
 from efficientconformer_torch.ops.audio import log_mel_spectrogram
+from efficientconformer_torch.parallel import sequence
 from efficientconformer_torch.parallel import tensor as tp_ops
 
 
-def run_layers(layers: nn.Sequential, x, generator):
-    """Apply ``layers`` in order, handing the generator to the dropouts."""
+def run_layers(layers: nn.Sequential, x, generator, span=None):
+    """Apply ``layers`` in order, handing the generator and this rank's
+    frames ``span`` (sequence parallelism; None: whole) to the dropouts."""
     for layer in layers:
-        x = layer(x, generator) if isinstance(layer, Dropout) else layer(x)
+        x = layer(x, generator, span) if isinstance(layer, Dropout) else layer(x)
     return x
 
 
-def run_parallel(layers: nn.Sequential, x, generator, reg):
+def run_parallel(layers: nn.Sequential, x, generator, reg, span=None):
     """``run_layers`` of a module whose first layer (the LayerNorm) is
     replicated and whose output enters the model group ``reg`` (None:
     whole)."""
     if reg is None:
-        return run_layers(layers, x, generator)
-    return run_layers(layers[1:], tp_ops.copy_to_region(layers[0](x), reg), generator)
+        return run_layers(layers, x, generator, span)
+    return run_layers(layers[1:], tp_ops.copy_to_region(layers[0](x), reg), generator, span)
 
 
 class AudioPreprocessing(nn.Module):
@@ -169,13 +171,41 @@ class Conv2dSubsampling(nn.Module):
             n_mels = (n_mels - 1) // 2 + 1
         return self.layers[-1][0].out_channels * n_mels
 
-    def forward(self, x, x_len):
+    def forward(self, x, x_len, seq=None):
+        """(features, lengths); with a seq group ``seq`` (sequence
+        parallelism) also the span of the frames returned (None: whole)."""
         x = x.transpose(1, 2)[:, None]                    # (B, 1, mel, T)
-        for layer in self.layers:
+        layers = self.layers if seq is None else self.layers[:-1]
+        for layer in layers:
             x = layer(x)
             if x_len is not None:
                 x_len = (x_len - 1) // 2 + 1
-        return _flatten(x), x_len
+        if seq is None:
+            return _flatten(x), x_len
+        return self._sharded_last(x, x_len, seq)
+
+    def _sharded_last(self, x, x_len, seq):
+        """The last layer under sequence parallelism: the whole input is on
+        every rank, so a rank whose output frames split evenly computes its
+        own [o, o + L) from the input window [2o - p, 2(o + L - 1) - p + k)
+        (zeros past the ends, as the conv's padding), with no collective;
+        its BatchNorm takes data x seq statistics. Otherwise the layer runs
+        whole. (features, lengths, span or None)."""
+        conv, norm, act = self.layers[-1]
+        if x_len is not None:
+            x_len = (x_len - 1) // 2 + 1
+        t_in = x.shape[-1]
+        total = (t_in - 1) // 2 + 1
+        if total % seq.size:
+            return _flatten(act(norm(conv(x)))), x_len, None
+        span = sequence.even(total, seq)
+        k, p = conv.kernel_size[1], conv.padding[1]
+        lo, hi = 2 * span.start - p, 2 * (span.start + span.length - 1) - p + k
+        window = F.pad(x[..., max(lo, 0):min(hi, t_in)], (max(-lo, 0), max(hi - t_in, 0)))
+        y = F.conv2d(window, conv.weight.to(x.dtype), conv.bias.to(x.dtype), stride=conv.stride,
+                     padding=(conv.padding[0], 0))
+        y = norm(y, sharded=True) if isinstance(norm, BatchNorm2d) else norm(y)
+        return _flatten(act(y)), x_len, span
 
 
 class Conv2dPoolSubsampling(Conv2dSubsampling):
@@ -260,8 +290,8 @@ class FeedForwardModule(nn.Module):
         )
         self.tp = None
 
-    def forward(self, x, generator=None):
-        return run_parallel(self.layers, x, generator, self.tp)
+    def forward(self, x, generator=None, span=None):
+        return run_parallel(self.layers, x, generator, self.tp, span)
 
 
 class MultiHeadSelfAttentionModule(nn.Module):
@@ -287,8 +317,8 @@ class MultiHeadSelfAttentionModule(nn.Module):
         )
         self.dropout = Dropout(dropout)
 
-    def forward(self, x, mask=None, generator=None):
-        return self.dropout(self.mhsa(self.norm(x), mask), generator)
+    def forward(self, x, mask=None, generator=None, span=None):
+        return self.dropout(self.mhsa(self.norm(x), mask, span), generator, span)
 
 
 class ConvolutionModule(nn.Module):
@@ -310,13 +340,24 @@ class ConvolutionModule(nn.Module):
             BatchNorm1d(dim_expand),
             Swish(),
             Conv1d(dim_expand, dim_expand, 1, vn_std=vn_std),
-            Dropout(dropout),
+            Dropout(dropout, time_dim=2),
             Transpose(1, 2),
         )
         self.tp = None
 
-    def forward(self, x, generator=None):
-        return run_parallel(self.layers, x, generator, self.tp)
+    def forward(self, x, generator=None, span=None):
+        """x (B, T, D) -> (B, T', E). Under sequence parallelism x holds
+        this rank's frames ``span`` of the sequence: the depthwise conv
+        takes its neighbours' edge frames (parallel/sequence.conv1d_time),
+        its output the frames ``sequence.strided(span, stride)``, and
+        BatchNorm the data x seq statistics."""
+        if span is None:
+            return run_parallel(self.layers, x, generator, self.tp)
+        layers = self.layers
+        y = run_parallel(layers[:4], x, generator, self.tp)      # LN, pointwise, GLU
+        y, out = sequence.conv1d_time(layers[4], y, span)
+        y = layers[7](layers[6](layers[5](y, sharded=True)))
+        return layers[9](layers[8](y, generator, out))
 
     def step(self, x, state):
         """One frame x (B, 1, D) of a causal module with no stride, in eval

@@ -1,6 +1,7 @@
 """Data parallelism: one process a GPU in a ``torch.distributed`` process
-group, ``DistributedDataParallel`` over the port's models; the grid of data
-and model groups that tensor parallelism (parallel/tensor.py) runs on.
+group, ``DistributedDataParallel`` over the port's models; the grid of data,
+seq and model groups that sequence parallelism (parallel/sequence.py) and
+tensor parallelism (parallel/tensor.py) run on.
 
 Counterpart of efficientconformer_tpu/parallel/mesh.py's data axis
 (``make_mesh``, ``globalize``, ``shard_batch``) and of the JAX runtime's
@@ -21,19 +22,26 @@ spawn, NCCL, synced BatchNorm, a sharded sampler; mesh.py:3-12):
 - ``all_reduce_sum`` is an all-reduce that autograd differentiates: its
   backward sums the incoming gradients over the ranks too (the global
   BatchNorm statistics of models/layers.py).
-- ``make_grid(n)`` splits the world into data and model groups, the JAX
-  mesh's ("data", "model") axes (mesh.py:23-53): ``model`` is the innermost
-  axis, rank = data_idx * n + model_idx, so a model group is n neighbouring
-  ranks. ``data_rank``/``data_size``/``data_group`` and
-  ``model_rank``/``model_size``/``model_group`` read it; without a grid the
-  whole world is the data axis and the model axis has one rank, so data
-  parallelism alone reads the same accessors. The data-parallel helpers
-  (``shard_batch``, ``gather_strings``, ``sum_over_ranks``,
-  ``check_same_parameters``) work over the data axis: the ranks of one model
-  group take the same rows.
-
-Sequence parallelism (the JAX mesh's "seq" axis) is not ported: ROADMAP
-Queue 1 item 23.
+- ``make_grid(model_parallel, seq_parallel)`` splits the world into data,
+  seq and model groups, the JAX mesh's ("data", "seq", "model") axes
+  (mesh.py:23-53): seq between data and model, model innermost, rank =
+  (data_idx * S + seq_idx) * M + model_idx, so a model group is M
+  neighbouring ranks and a seq group S ranks M apart.
+  ``data_rank``/``data_size``/``data_group``, ``seq_rank``/``seq_size``/
+  ``seq_group`` and ``model_rank``/``model_size``/``model_group`` read it,
+  and ``replica_group`` is the data x seq group of this rank's model index
+  (DDP's gradient average, the time-sharded BatchNorm statistics). Without
+  a grid the whole world is the data axis and the other axes have one rank,
+  so data parallelism alone reads the same accessors. The data-parallel
+  helpers (``shard_batch``, ``gather_strings``, ``sum_over_ranks``) work
+  over the data axis: the ranks of one seq or model group take the same
+  rows, as the JAX package's ``shard_batch`` shards over "data" alone
+  (mesh.py:281-283).
+- The sequence-parallel planners, copied from the JAX package's mesh.py
+  :124-236 (``seq_frame_schedule``, ``sp_audio_lengths``, ``sp_coverage``,
+  ``sp_pad_align``, ``sp_coverage_warn``): the frame count at each point
+  where the encoder shards time, and the loader pad lengths at which every
+  point divides by the seq size.
 """
 
 from __future__ import annotations
@@ -58,10 +66,12 @@ _DEVICE: Optional[torch.device] = None   # this rank's device inside process_gro
 
 
 class Grid(NamedTuple):
-    """This rank's place on the (data, model) grid: its index and the size
-    of each axis, and the process groups of its axes (None for an axis of
-    one rank, whose collectives are the identity; the data group None with
-    more than one rank is the whole world)."""
+    """This rank's place on the (data, seq, model) grid: its index and the
+    size of each axis, and the process groups of its axes (None for an axis
+    of one rank, whose collectives are the identity; the data group, or the
+    replica group, None with more than one rank is the whole world).
+    ``replica_group`` holds the data x seq ranks of this rank's model
+    index."""
 
     data_rank: int
     data_size: int
@@ -69,6 +79,19 @@ class Grid(NamedTuple):
     model_size: int
     data_group: Optional[object]
     model_group: Optional[object]
+    seq_rank: int = 0
+    seq_size: int = 1
+    seq_group: Optional[object] = None
+    replica_group: Optional[object] = None
+
+    @property
+    def replica_rank(self) -> int:
+        """This rank's index in its replica group: data_rank * S + seq_rank."""
+        return self.data_rank * self.seq_size + self.seq_rank
+
+    @property
+    def replica_size(self) -> int:
+        return self.data_size * self.seq_size
 
 
 _GRID: Optional[Grid] = None             # set by make_grid inside process_group
@@ -166,50 +189,74 @@ def init_from_env(device_type: str = "cuda", backend: Optional[str] = None):
                          int(os.environ["LOCAL_RANK"]))
 
 
-def check_model_parallel(world: int, model_parallel: int) -> None:
-    """Refuse a model size that does not divide the world, with the JAX
-    package's message (``make_mesh``, mesh.py:40-45)."""
-    if model_parallel < 1:
-        raise ValueError(f"model_parallel={model_parallel}: at least one rank")
-    if world % model_parallel:
-        raise ValueError(f"model_parallel={model_parallel} x seq_parallel=1 does not divide "
-                         f"the {world} visible device(s)")
+def check_model_parallel(world: int, model_parallel: int, seq_parallel: int = 1) -> None:
+    """Refuse model and seq sizes whose product does not divide the world,
+    with the JAX package's message (``make_mesh``, mesh.py:37-45)."""
+    for name, n in (("model_parallel", model_parallel), ("seq_parallel", seq_parallel)):
+        if n < 1:
+            raise ValueError(f"{name}={n}: at least one rank")
+    if world % (model_parallel * seq_parallel):
+        raise ValueError(f"model_parallel={model_parallel} x seq_parallel={seq_parallel} does "
+                         f"not divide the {world} visible device(s)")
 
 
-def make_grid(model_parallel: int) -> Grid:
-    """Split the world into ``model_parallel``-rank model groups and
-    world/``model_parallel``-rank data groups (every rank creates every
-    group, in the same order, as ``dist.new_group`` requires), and make it
-    this process's grid. The same grid again is returned as it is; another
-    raises. A world the model size does not divide is refused
-    (``check_model_parallel``)."""
+def _groups(lists: list, r: int):
+    """``dist.new_group`` of each rank list (every rank creates every group,
+    in the same order, as it requires): the one holding rank ``r``, None
+    for lists of one rank."""
+    mine = None
+    for ranks in lists:
+        if len(ranks) < 2:
+            continue
+        g = dist.new_group(ranks)
+        if r in ranks:
+            mine = g
+    return mine
+
+
+def make_grid(model_parallel: int, seq_parallel: int = 1) -> Grid:
+    """Split the world into data, seq and model groups, rank = (data_idx *
+    S + seq_idx) * M + model_idx (the JAX mesh's axis order), and the replica
+    (data x seq) groups, and make it this process's grid. The same grid
+    again is returned as it is; another raises. A world M * S does not
+    divide is refused (``check_model_parallel``). A group that spans the
+    whole world is None (the default group)."""
     global _GRID
-    n, world = int(model_parallel), world_size()
-    check_model_parallel(world, n)
+    m_size, s_size, world = int(model_parallel), int(seq_parallel), world_size()
+    check_model_parallel(world, m_size, s_size)
     if _GRID is not None:
-        if _GRID.model_size != n:
-            raise ValueError(f"a grid of model size {_GRID.model_size} is already set up; "
-                             f"model_parallel={n} asks for another")
+        if (_GRID.model_size, _GRID.seq_size) != (m_size, s_size):
+            raise ValueError(f"a grid of model size {_GRID.model_size} and seq size "
+                             f"{_GRID.seq_size} is already set up; model_parallel={m_size}, "
+                             f"seq_parallel={s_size} asks for another")
         return _GRID
-    r, n_data = rank(), world // n
-    model_group = data_group = None
-    if n > 1:
-        for d in range(n_data):
-            g = dist.new_group([d * n + m for m in range(n)])
-            if d == r // n:
-                model_group = g
-    if n_data > 1 and n > 1:
-        for m in range(n):
-            g = dist.new_group([d * n + m for d in range(n_data)])
-            if m == r % n:
-                data_group = g
-    _GRID = Grid(r // n, n_data, r % n, n, data_group, model_group)
+    r, d_size = rank(), world // (m_size * s_size)
+    dims = range(d_size), range(s_size), range(m_size)
+
+    def at(d, s, m):
+        return (d * s_size + s) * m_size + m
+
+    model_group = _groups([[at(d, s, m) for m in dims[2]] for d in dims[0] for s in dims[1]],
+                          r) if m_size > 1 else None
+    seq_group = _groups([[at(d, s, m) for s in dims[1]] for d in dims[0] for m in dims[2]],
+                        r) if s_size > 1 else None
+    data_group = _groups([[at(d, s, m) for d in dims[0]] for s in dims[1] for m in dims[2]],
+                         r) if m_size * s_size > 1 else None
+    # the replica (data x seq) group: the data group without a seq axis, the
+    # world without a model axis
+    replica_group = None
+    if m_size > 1:
+        replica_group = data_group if s_size == 1 else _groups(
+            [[at(d, s, m) for d in dims[0] for s in dims[1]] for m in dims[2]], r)
+    d_idx, rest = divmod(r, s_size * m_size)
+    _GRID = Grid(d_idx, d_size, rest % m_size, m_size, data_group, model_group,
+                 rest // m_size, s_size, seq_group, replica_group)
     return _GRID
 
 
 def grid() -> Grid:
     """This process's grid: the one ``make_grid`` set up, else the whole
-    world on the data axis and one rank on the model axis."""
+    world on the data axis and one rank on the seq and model axes."""
     if _GRID is not None and dist.is_initialized():
         return _GRID
     return Grid(rank(), world_size(), 0, 1, None, None)
@@ -226,6 +273,25 @@ def data_size() -> int:
 def data_group():
     """The data axis's process group (None: the whole world)."""
     return grid().data_group
+
+
+def seq_rank() -> int:
+    return grid().seq_rank
+
+
+def seq_size() -> int:
+    return grid().seq_size
+
+
+def seq_group():
+    """The seq axis's process group (None: one rank, no collective)."""
+    return grid().seq_group
+
+
+def replica_group():
+    """The data x seq group of this rank's model index (None: the whole
+    world)."""
+    return grid().replica_group
 
 
 def model_rank() -> int:
@@ -350,22 +416,23 @@ def gather_strings(strings: Sequence[str]) -> list:
 
 
 def check_same_parameters(module: torch.nn.Module) -> None:
-    """Raise unless every rank of this rank's data group holds the same
-    parameters and buffers (each tensor's float64 sum and sum of squares
-    compared, a gather of two numbers a tensor): the ranks draw their
-    weights from one seed."""
-    if data_size() == 1:
+    """Raise unless every rank of this rank's replica (data x seq) group
+    holds the same parameters and buffers (each tensor's float64 sum and sum
+    of squares compared, a gather of two numbers a tensor): the ranks draw
+    their weights from one seed."""
+    g = grid()
+    if g.replica_size == 1:
         return
     with torch.no_grad():
         tensors = list(module.parameters()) + list(module.buffers())
         mine = torch.stack([torch.stack([t.double().sum(), t.double().square().sum()])
                             for t in tensors]).cpu().tolist() if tensors else []
-    parts: list = [None] * data_size()
-    dist.all_gather_object(parts, mine, group=data_group())
+    parts: list = [None] * g.replica_size
+    dist.all_gather_object(parts, mine, group=g.replica_group)
     for r, theirs in enumerate(parts):
         if theirs != parts[0]:
-            raise RuntimeError(f"data rank {r} holds other weights than data rank 0: the "
-                               "ranks must build the model from the same seed")
+            raise RuntimeError(f"replica rank {r} holds other weights than replica rank 0: "
+                               "the ranks must build the model from the same seed")
 
 
 def sum_over_ranks(values: Sequence[float]) -> list:
@@ -401,3 +468,99 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 all_reduce_sum.calls = 0
+
+
+# ---------------------------------------------------------------- sequence-parallel planners
+
+
+def seq_frame_schedule(encoder_params: dict, t_audio: int) -> list:
+    """The frame count at each point where the encoder may shard time, for
+    raw audio length ``t_audio``: [after the frontend, after subsampling,
+    after each block] (the JAX package's mesh.py:124-144): frames T//hop + 1,
+    (l-1)//2 + 1 a subsampling layer (l//2 for VGG), (l-1)//s + 1 after a
+    block of stride s."""
+    from efficientconformer_torch.config import resolve_block_configs
+
+    p = encoder_params
+    hop = p["sample_rate"] * p["hop_length_ms"] // 1000
+    f = t_audio // hop + 1
+    schedule = [f]
+    vgg = p["subsampling_module"] == "VGG"
+    for _ in range(p["subsampling_layers"]):
+        f = f // 2 if vgg else (f - 1) // 2 + 1
+    schedule.append(f)
+    for cfg in resolve_block_configs(p):
+        if cfg.stride > 1:
+            f = (f - 1) // cfg.stride + 1
+        schedule.append(f)
+    return schedule
+
+
+def sp_audio_lengths(encoder_params: dict, seq_parallel: int, t_min: int, t_max: int,
+                     include_frontend: bool = False) -> list:
+    """Audio lengths in [t_min, t_max], on the hop grid, whose whole frame
+    schedule (the frontend's point only with ``include_frontend``) divides
+    by ``seq_parallel`` (mesh.py:147-169)."""
+    p = encoder_params
+    hop = p["sample_rate"] * p["hop_length_ms"] // 1000
+    out = []
+    for t in range(max(t_min - t_min % hop, hop), t_max + 1, hop):
+        sched = seq_frame_schedule(p, t)
+        pts = sched if include_frontend else sched[1:]
+        if all(f % seq_parallel == 0 for f in pts):
+            out.append(t)
+    return out
+
+
+def sp_coverage(encoder_params: dict, seq_parallel: int, t_audio: int,
+                include_frontend: bool = False) -> tuple:
+    """(points that divide by ``seq_parallel``, points) over the encoder's
+    points for raw length ``t_audio`` (mesh.py:172-180): 0 divisible points
+    means sequence parallelism shards nothing for this batch length."""
+    sched = seq_frame_schedule(encoder_params, t_audio)
+    pts = sched if include_frontend else sched[1:]
+    return sum(1 for f in pts if f % seq_parallel == 0), len(pts)
+
+
+def sp_pad_align(encoder_params: dict, seq_parallel: int, max_extra_frac: float = 0.3):
+    """The loaders' pad aligner under sequence parallelism (mesh.py
+    :183-212): a bucket's pad length to the smallest length at or above it,
+    on the hop grid, whose whole post-frontend schedule divides by
+    ``seq_parallel``. The padding is the host's, so the batch is the same
+    with and without sequence parallelism. Raises when no such length lies
+    within ``max_extra_frac`` above the target."""
+    p = encoder_params
+    hop = p["sample_rate"] * p["hop_length_ms"] // 1000
+
+    def align(t_pad: int) -> int:
+        t = t_pad + (-t_pad) % hop
+        limit = int(t_pad * (1 + max_extra_frac)) + 64 * hop
+        while t <= limit:
+            n_div, n_tot = sp_coverage(p, seq_parallel, t)
+            if n_div == n_tot:
+                return t
+            t += hop
+        raise ValueError(f"no seq_parallel={seq_parallel}-aligned audio length within "
+                         f"{max_extra_frac:.0%} above {t_pad}")
+
+    return align
+
+
+def sp_coverage_warn(encoder_params: dict, seq_parallel: int, t_audio: int) -> None:
+    """Warn when a training batch of raw length ``t_audio`` leaves every
+    point replicated at seq size ``seq_parallel`` (mesh.py:215-236): the
+    seq ranks then compute the same whole activations. Called by the
+    trainer once for each distinct length."""
+    if seq_parallel <= 1:
+        return
+    n_div, n_tot = sp_coverage(encoder_params, seq_parallel, t_audio)
+    if n_div == 0:
+        import warnings
+
+        warnings.warn(
+            f"sequence parallelism is INACTIVE for audio length {t_audio}: none of the "
+            f"{n_tot} encoder constraint points divide the seq axis ({seq_parallel}); "
+            "activations stay time-replicated and the run degrades to data parallelism "
+            "over fewer samples. Align loader pad lengths with parallel.mesh.sp_pad_align "
+            "(AsrBatchLoader audio_pad_align=...) or pick train_audio_max_length from "
+            "parallel.mesh.sp_audio_lengths.", RuntimeWarning, stacklevel=2)

@@ -77,27 +77,27 @@ def region() -> Region:
 # ---------------------------------------------------------------- collectives
 
 
-def _wire(x: torch.Tensor, group) -> torch.Tensor:
+def wire(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` as it travels: over gloo half precision as fp32."""
     if dist.get_backend(group) == "gloo" and x.dtype in (torch.bfloat16, torch.float16):
         x = x.float()
     return x.contiguous()
 
 
-def all_reduce(x: torch.Tensor, reg: Region) -> torch.Tensor:
-    """The sum of ``x`` over the region's ranks, a new tensor (no autograd)."""
-    calls["all_reduce"] += 1
-    y = _wire(x, reg.group)
+def reduce_parts(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``'s ranks, a new tensor (no autograd,
+    uncounted)."""
+    y = wire(x, group)
     if y is x:
         y = x.clone()
-    dist.all_reduce(y, group=reg.group)
+    dist.all_reduce(y, group=group)
     return y.to(x.device, x.dtype)
 
 
-def all_gather(x: torch.Tensor, reg: Region, dim: int) -> torch.Tensor:
-    """The ranks' ``x`` concatenated along ``dim`` in rank order (no autograd)."""
-    calls["all_gather"] += 1
-    y = _wire(x, reg.group)
+def gather_parts(x: torch.Tensor, reg) -> list:
+    """Every rank's ``x`` (one shape on every rank), in rank order, over the
+    group of ``reg`` (a Region: group, rank, size; no autograd, uncounted)."""
+    y = wire(x, reg.group)
     if dist.get_backend(reg.group) == "nccl":
         out = torch.empty((reg.size,) + tuple(y.shape), dtype=y.dtype, device=y.device)
         dist.all_gather_into_tensor(out, y, group=reg.group)
@@ -105,7 +105,19 @@ def all_gather(x: torch.Tensor, reg: Region, dim: int) -> torch.Tensor:
     else:
         parts = [torch.empty_like(y) for _ in range(reg.size)]
         dist.all_gather(parts, y, group=reg.group)
-    return torch.cat(parts, dim=dim).to(x.device, x.dtype)
+    return [t.to(x.device, x.dtype) for t in parts]
+
+
+def all_reduce(x: torch.Tensor, reg: Region) -> torch.Tensor:
+    """The sum of ``x`` over the region's ranks, a new tensor (no autograd)."""
+    calls["all_reduce"] += 1
+    return reduce_parts(x, reg.group)
+
+
+def all_gather(x: torch.Tensor, reg: Region, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (no autograd)."""
+    calls["all_gather"] += 1
+    return torch.cat(gather_parts(x, reg), dim=dim)
 
 
 def _slice(x: torch.Tensor, reg: Region, dim: int) -> torch.Tensor:

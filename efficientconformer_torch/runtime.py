@@ -35,9 +35,15 @@ the sharded model (every rank of a model group decodes the same rows, so
 they give the same tokens), and the other modes run the whole model data
 parallel over the ranks, which gives the WER they give without the flag.
 
-What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP Queue 1 item, never falling back to something else: sequence
-parallelism [23].
+Sequence parallelism (``--seq_parallel S``; parallel/sequence.py): the
+ranks (``--world_size``, else one a visible GPU, or M x S on ``--cpu``) form
+data, seq and model groups, a world M x S does not divide refused with the
+JAX package's message. ``-m training`` splits the encoder's activations
+along time over the seq groups, and, as the JAX package (runtime.py
+:394-405), pads the training and the evaluation loaders' buckets to lengths
+at which every point of the encoder divides by S (``mesh.sp_pad_align``);
+the other modes run the whole model data parallel over the ranks, as under
+``--model_parallel``.
 """
 
 from __future__ import annotations
@@ -190,7 +196,7 @@ def load_lm_for_fusion(config: dict, lm_epoch: str, device) -> dict:
 def evaluate(trainer: Trainer, dataset, tokenizer, *, batch_size: int = 8,
              eval_steps: Optional[int] = None, verbose: bool = False, max_consec: int = 5,
              beam_size: int = 1, eval_loss: bool = False, num_workers: int = 0,
-             lm: Optional[dict] = None):
+             lm: Optional[dict] = None, audio_pad_align=None):
     """(WER, truths, predictions, mean eval loss or None) over ``dataset``
     (reference model.py:386-490). The loader repeats a partial tail's last
     utterance to fill its microbatch; those repeats are dropped (``n_valid``)
@@ -201,10 +207,12 @@ def evaluate(trainer: Trainer, dataset, tokenizer, *, batch_size: int = 8,
     predictions of every rank are gathered, rank 0's first, before the
     corpus WER; the eval loss is the mean over the ranks: every rank
     returns the same. The ranks are the data ranks: the ranks of one model
-    group of a sharded model decode the same rows together."""
+    or seq group of a sharded model decode the same rows together.
+    ``audio_pad_align`` rounds the buckets' pad lengths up (the loader's)."""
     rank, world = mesh.data_rank(), mesh.data_size()
     loader = AsrBatchLoader(dataset, batch_size, shuffle=False, drop_last=False,
-                            num_workers=num_workers, shard_id=rank, num_shards=world)
+                            num_workers=num_workers, shard_id=rank, num_shards=world,
+                            audio_pad_align=audio_pad_align)
     truths, preds = [], []
     total_loss, n_loss = 0.0, 0
     for i, batch in enumerate(loader.epoch(0)):
@@ -294,33 +302,23 @@ def bn_refresh(trainer: Trainer, dataset, steps: int = 100) -> int:
     return n
 
 
-def _refuse(args) -> None:
-    """The flags whose work the port does not have."""
-    if (args.seq_parallel or 1) > 1:
-        raise NotImplementedError("--seq_parallel (sequence parallelism) is not ported: "
-                                  "ROADMAP Queue 1 item 23")
-
-
 def parallel_world(args) -> Optional[int]:
     """The number of ranks the flags ask for: with -d, --parallel,
-    --world_size > 1 or --model_parallel > 1, --world_size, else one a
-    visible GPU (on --cpu the model size: one without --model_parallel);
-    None without them."""
-    model_parallel = args.model_parallel or 1
-    if not (args.distributed or args.parallel or (args.world_size or 1) > 1
-            or model_parallel > 1):
+    --world_size > 1, --model_parallel > 1 or --seq_parallel > 1,
+    --world_size, else one a visible GPU (on --cpu the model size times
+    the seq size: one without either); None without them."""
+    grid = (args.model_parallel or 1) * (args.seq_parallel or 1)
+    if not (args.distributed or args.parallel or (args.world_size or 1) > 1 or grid > 1):
         return None
     if args.world_size:
         return args.world_size
-    return model_parallel if args.cpu else max(torch.cuda.device_count(), 1)
-
+    return grid if args.cpu else max(torch.cuda.device_count(), 1)
 
 
 def run(args) -> int:
     """Run the mode of the parsed CLI ``args`` (main.build_parser): in this
     process, or in every rank of a data-parallel group, which it spawns (or
     joins, under torchrun)."""
-    _refuse(args)
     device_type = "cpu" if args.cpu else "cuda"
     if dist.is_initialized():
         return _run(args)
@@ -330,7 +328,7 @@ def run(args) -> int:
     world = parallel_world(args)
     if world is None:
         return _run(args)
-    mesh.check_model_parallel(world, args.model_parallel or 1)
+    mesh.check_model_parallel(world, args.model_parallel or 1, args.seq_parallel or 1)
     mesh.check_world_size(world, device_type)
     if world == 1:
         with mesh.process_group(0, 1, device_type):
@@ -343,11 +341,18 @@ def _run(args) -> int:
     device = mesh.device() or (torch.device("cpu") if args.cpu else default_device())
     config = load_config(args.config_file)
     tp = config["training_params"]
-    model_parallel = args.model_parallel or 1
-    mesh.check_model_parallel(mesh.world_size(), model_parallel)
-    if model_parallel > 1 and args.mode.split("-")[0] == "training" and not args.swa:
-        # the parameters are sharded inside fit only, as the JAX package's
-        tp["model_parallel"] = model_parallel
+    model_parallel, seq_parallel = args.model_parallel or 1, args.seq_parallel or 1
+    mesh.check_model_parallel(mesh.world_size(), model_parallel, seq_parallel)
+    sp_pad = None
+    if args.mode.split("-")[0] == "training" and not args.swa:
+        # the parameters and activations are sharded inside fit only, as the
+        # JAX package's
+        if model_parallel > 1:
+            tp["model_parallel"] = model_parallel
+        if seq_parallel > 1:
+            tp["seq_parallel"] = seq_parallel
+            if "encoder_params" in config:
+                sp_pad = mesh.sp_pad_align(config["encoder_params"], seq_parallel)
     tokenizer = None
     # rank 0 writes the tokenizer and the manifests; the others then read them
     if args.create_tokenizer and mesh.is_main():
@@ -409,7 +414,8 @@ def _run(args) -> int:
     if args.swa:
         return _swa(args, trainer, cb_path, train_dataset("train"))
     if mode_base == "training":
-        _train(args, trainer, tokenizer, cb_path, initial_epoch, eval_dataset, train_dataset)
+        _train(args, trainer, tokenizer, cb_path, initial_epoch, eval_dataset, train_dataset,
+               sp_pad)
         return 0
     if mode_base in ("validation", "test"):
         ds = eval_dataset()
@@ -452,7 +458,8 @@ def _swa(args, trainer: Trainer, cb_path: str, train_ds) -> int:
 
 
 def _train(args, trainer: Trainer, tokenizer, cb_path: str, initial_epoch: int, eval_dataset,
-           train_dataset) -> None:
+           train_dataset, sp_pad=None) -> None:
+    """``sp_pad``: the loaders' pad aligner under sequence parallelism."""
     config = trainer.config
     tp = config["training_params"]
     if tp.get("training_dataset") == "LibriSpeechCorpus":
@@ -472,7 +479,7 @@ def _train(args, trainer: Trainer, tokenizer, cb_path: str, initial_epoch: int, 
         loader = AsrBatchLoader(train_dataset(TRAIN_SPLITS.get(args.mode, "train")),
                                 tp["batch_size"], accum_steps=tp.get("accumulated_steps", 1),
                                 num_workers=args.num_workers, shard_id=mesh.data_rank(),
-                                num_shards=mesh.data_size())
+                                num_shards=mesh.data_size(), audio_pad_align=sp_pad)
         epoch_batches = loader.epoch
     writer = None
     try:
@@ -496,7 +503,8 @@ def _train(args, trainer: Trainer, tokenizer, cb_path: str, initial_epoch: int, 
         def val_fn(tr):
             w, truths, preds, vloss = evaluate(tr, val_ds, tokenizer,
                                                batch_size=args.batch_size_eval,
-                                               eval_steps=args.val_steps, eval_loss=True)
+                                               eval_steps=args.val_steps, eval_loss=True,
+                                               audio_pad_align=sp_pad)
             out = {"WER": 100.0 * w}
             if vloss is not None:
                 out["MeanLoss"] = vloss

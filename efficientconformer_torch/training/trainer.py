@@ -65,6 +65,21 @@ sharded parameter's squares over the model group and counts a replicated
 one once. Checkpoints hold the full layout
 (``tensor.gather_state_dict``), written by rank 0 and cut to the shards on
 loading, so they load at any model size.
+
+Sequence parallelism (``training_params["seq_parallel"]`` S, as the JAX
+package's trainer.py:74-88 reads it; parallel/sequence.py): the grid gains
+a seq axis between data and model (``mesh.make_grid(M, S)``), and the
+encoder splits its activations along time over the seq group
+(``sequence.shard_encoder_``). The ranks of one seq group take the same rows
+and draw from the same dropout and SpecAugment stream (the stream is seeded
+by the data index), and every one of them computes the whole loss from the
+gathered frames. The parameters stay whole; DDP averages their gradients
+over the data x seq group (``mesh.replica_group``), whose seq ranks' parts
+sum to a data rank's gradient (parallel/sequence.py says how), so the step
+is the one-process step. The loss is reported once (averaged over the data
+group alone), and the LM's shares count data ranks only. A batch length at
+which no point of the encoder splits is warned about once
+(``mesh.sp_coverage_warn``), and runs replicated.
 """
 
 from __future__ import annotations
@@ -87,7 +102,7 @@ from efficientconformer_torch.models.layers import (
     clear_variational_noise_,
     draw_variational_noise_,
 )
-from efficientconformer_torch.parallel import mesh
+from efficientconformer_torch.parallel import mesh, sequence
 from efficientconformer_torch.parallel import tensor
 from efficientconformer_torch.training import checkpoint, optimizers
 
@@ -97,9 +112,11 @@ class Trainer:
     parsed JSON dict) on ``device`` (by default the rank's device inside a
     process group, else the card), with weights drawn from ``seed``.
     ``ddp`` wraps the model in DistributedDataParallel: by default when a
-    process group of more than one data rank is set up. With
+    process group of more than one data (or data x seq) rank is set up. With
     ``training_params["model_parallel"]`` n > 1 the model is sharded over
-    model groups of n ranks of the process group."""
+    model groups of n ranks of the process group, and with
+    ``training_params["seq_parallel"]`` S > 1 its encoder's activations
+    over seq groups of S ranks."""
 
     def __init__(self, config: Union[str, dict], device=None, seed: int = 0,
                  generator: Optional[torch.Generator] = None, ddp: Optional[bool] = None):
@@ -108,15 +125,21 @@ class Trainer:
         self.device = torch.device(device) if device is not None else (
             mesh.device() or default_device())
         model_parallel = int(tp.get("model_parallel") or 1)
-        if model_parallel > 1:
+        seq_parallel = int(tp.get("seq_parallel") or 1)
+        if model_parallel * seq_parallel > 1:
             if not dist.is_initialized():
-                raise RuntimeError(f"model_parallel={model_parallel} needs a process group of "
-                                   "its ranks (parallel/mesh.py)")
-            mesh.make_grid(model_parallel)
+                raise RuntimeError(f"model_parallel={model_parallel} x seq_parallel="
+                                   f"{seq_parallel} needs a process group of its ranks "
+                                   "(parallel/mesh.py)")
+            mesh.make_grid(model_parallel, seq_parallel)
         self.model, self.loss_fn = factory.create_model(
             self.config, self.device, torch.Generator().manual_seed(seed))
         if model_parallel > 1:
             tensor.shard_model_(self.model)
+        self.seq_parallel = seq_parallel
+        if seq_parallel > 1 and hasattr(self.model, "encoder"):
+            sequence.shard_encoder_(self.model.encoder, sequence.region())
+        self._seen_lengths: set = set()
         self.optimizer, self.schedule = optimizers.from_training_params(
             self.model.parameters(), tp)
         rank, world = mesh.data_rank(), mesh.data_size()
@@ -130,10 +153,11 @@ class Trainer:
         self.vn_generator = self.generator if world == 1 else torch.Generator(
             device=self.device).manual_seed(seed + 1)
         self.ddp = None
-        if ddp if ddp is not None else world > 1:
+        replicas = mesh.grid().replica_size
+        if ddp if ddp is not None else replicas > 1:
             if not dist.is_initialized():
                 raise RuntimeError("ddp=True needs a process group (parallel/mesh.py)")
-            if model_parallel > 1 and world == 1:
+            if model_parallel > 1 and replicas == 1:
                 raise ValueError("ddp=True over one data rank under tensor parallelism")
             mesh.check_same_parameters(self.model)
             # every rank updates the running statistics from the same global
@@ -141,7 +165,7 @@ class Trainer:
             no_buffer_sync = ({"forward_sync_buffers": False} if "forward_sync_buffers" in
                               inspect.signature(DistributedDataParallel).parameters
                               else {"broadcast_buffers": False})
-            self.ddp = DistributedDataParallel(self.model, process_group=mesh.data_group(),
+            self.ddp = DistributedDataParallel(self.model, process_group=mesh.replica_group(),
                                                find_unused_parameters=True, **no_buffer_sync)
         self.encoder_frozen_steps = tp.get("encoder_frozen_steps")
         self.vn_start_step = tp.get("vn_start_step")
@@ -162,6 +186,11 @@ class Trainer:
             raise ValueError("freeze_encoder: the model has no encoder")
         batch = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
                  for k, v in batch.items()}
+        if self.seq_parallel > 1 and "audio" in batch:
+            t_audio = int(batch["audio"].shape[-1])
+            if t_audio not in self._seen_lengths:
+                self._seen_lengths.add(t_audio)
+                mesh.sp_coverage_warn(self.config["encoder_params"], self.seq_parallel, t_audio)
         model.train()
         opt.zero_grad(set_to_none=True)
         if self.vn_start_step is not None and self.step >= self.vn_start_step:

@@ -206,19 +206,21 @@ def test_cli_lm(setup, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--gready", "--model_parallel", 3, "--world_size", 2], "item 22"),
-    (["--gready", "--seq_parallel", 2], "item 23"),
+    (["--gready", "--seq_parallel", 2, "--model_parallel", 2, "--world_size", 2], "item 23"),
 ])
 def test_cli_refuses_what_it_lacks(setup, tmp_path, flags, item):
-    """Tensor parallelism (item 22, ported) refuses a model size that does
+    """Tensor parallelism (item 22) and sequence parallelism (item 23), both
+    ported, refuse a model size, or a model size times a seq size, that does
     not divide the ranks, with the JAX package's message, before any rank
-    starts; sequence parallelism raises, naming its ROADMAP item."""
+    starts."""
     _, cfg, _ = setup
     cfg = json.loads(json.dumps(cfg))
     cfg["decoding_params"]["beam_size"] = 16
     path = write_config(cfg, tmp_path / "ctc.json", tmp_path / "cb")
-    error, match = ((ValueError, "model_parallel=3 x seq_parallel=1 does not divide the 2 "
-                     "visible device") if item == "item 22" else (NotImplementedError, item))
-    with pytest.raises(error, match=match):
+    match = ("model_parallel=3 x seq_parallel=1 does not divide the 2 visible device"
+             if item == "item 22" else
+             "model_parallel=2 x seq_parallel=2 does not divide the 2 visible device")
+    with pytest.raises(ValueError, match=match):
         run_cli(path, "-m", "test-clean", "--batch_size_eval", 3, *flags)
 
 
@@ -247,6 +249,37 @@ def test_cli_model_parallel_trains_validates_and_tests(setup, tmp_path, capfd):
     want = re.findall(r"Greedy Search WER : \S+%", run_cli(path, *args))
     capfd.readouterr()
     assert cli.main(["--cpu", "-c", path, *map(str, args + ["--model_parallel", 2])]) == 0
+    got = re.findall(r"Greedy Search WER : \S+%", capfd.readouterr().out)
+    assert len(want) == 1 and got == want
+
+
+def test_cli_seq_parallel_trains_validates_and_tests(setup, tmp_path, capfd):
+    """``--seq_parallel 2 -m training``: two gloo ranks in one seq group
+    train an epoch of 2 steps on buckets aligned by ``sp_pad_align``, with
+    validation (one epoch line, one validation line, from rank 0); the
+    checkpoint loads at one rank; ``test-clean --gready --seq_parallel 2``
+    (the whole model, data parallel over the two ranks) gives the WER
+    without the flag."""
+    _, cfg, _ = setup
+    cfg = json.loads(json.dumps(cfg))
+    cfg["training_params"]["epochs"] = 1
+    path = write_config(cfg, tmp_path / "ctc.json", tmp_path / "cb")
+    capfd.readouterr()
+    assert cli.main(["--cpu", "-c", path, "-m", "training", "--seq_parallel", "2",
+                     "--steps_per_epoch", "2", "--val_steps", "1",
+                     "--batch_size_eval", "2"]) == 0
+    out = capfd.readouterr().out
+    (_, loss, steps), = epochs_of(out)
+    assert steps == 2 and math.isfinite(loss), out
+    assert len(re.findall(r"val: \{'WER'", out)) == 1 and out.count("Model Parameters :") == 1
+    assert [f.name for f in (tmp_path / "cb").glob("*.ckpt")] == ["checkpoints_1.ckpt"]
+    trainer = Trainer(cfg, device="cpu")
+    trainer.load(str(tmp_path / "cb" / "checkpoints_1.ckpt"))
+    assert trainer.step == 2
+    args = ["-m", "test-clean", "-i", 1, "--gready", "--batch_size_eval", 2]
+    want = re.findall(r"Greedy Search WER : \S+%", run_cli(path, *args))
+    capfd.readouterr()
+    assert cli.main(["--cpu", "-c", path, *map(str, args + ["--seq_parallel", 2])]) == 0
     got = re.findall(r"Greedy Search WER : \S+%", capfd.readouterr().out)
     assert len(want) == 1 and got == want
 

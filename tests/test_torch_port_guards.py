@@ -72,9 +72,10 @@ def test_port_runs_without_jax(tmp_path):
     """Greedy decoding and one train step of the port, CTC and Transducer,
     both device beams with an n-gram (and the Transducer's with an
     LM-Transformer) fused in, a causal encoder streamed through a session
-    and served through the slot-pool server, and a tensor-parallel step
-    over two gloo ranks (parallel/tensor.py), in a fresh process load no
-    module of JAX, flax or the JAX package."""
+    and served through the slot-pool server, a tensor-parallel step over two
+    gloo ranks (parallel/tensor.py) and a sequence-parallel one
+    (parallel/sequence.py), in a fresh process load no module of JAX, flax
+    or the JAX package."""
     code = textwrap.dedent(f"""
         import json, sys
         import torch
@@ -161,16 +162,23 @@ def test_port_runs_without_jax(tmp_path):
                             threads=1, timeout=240)
         assert ranks[0]["loss"] == ranks[1]["loss"] and ranks[0]["model_size"] == 2
         assert ranks[0]["tp_calls"]["all_gather"] > 0 and tensor.ROADMAP_ITEM
+        # a sequence-parallel step: two gloo ranks in one seq group
+        sp_cfg = copy.deepcopy(cfg)
+        sp_cfg["training_params"]["seq_parallel"] = 2
+        sp_ranks = mesh.launch(dryrun.shard_step, 2, (sp_cfg, batch), device_type="cpu",
+                               threads=1, timeout=240)
+        assert sp_ranks[0]["loss"] == sp_ranks[1]["loss"] and sp_ranks[0]["seq_size"] == 2
+        assert sp_ranks[0]["sp_calls"]["halo"] > 0
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "jaxlib", "flax",
                                                        "efficientconformer_tpu")))
         print("LOADED", loaded, tuple(tokens.shape), tuple(ttokens.shape), len(ctc), len(rnnt),
-              len(streamed), sorted(served), "TP", len(ranks))
+              len(streamed), sorted(served), "TP", len(ranks), "SP", len(sp_ranks))
     """)
     out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "lm3.arpa")], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "LOADED [] (2, 13) (2, 96) 2 2 1 ['a'] TP 2" in out.stdout, out.stdout
+    assert "LOADED [] (2, 13) (2, 96) 2 2 1 ['a'] TP 2 SP 2" in out.stdout, out.stdout
 
 
 def test_streaming_and_serving_need_a_card_or_the_cpu(monkeypatch):
@@ -264,10 +272,10 @@ def test_bias_probe_fails_without_a_gpu_and_loads_no_jax():
 
 
 @pytest.mark.parametrize("script", ["torch_ddp_probe.py", "torch_dp_multigpu.py",
-                                    "torch_tp_multigpu.py"])
+                                    "torch_tp_multigpu.py", "torch_sp_multigpu.py"])
 def test_dp_scripts_fail_without_a_gpu_and_load_no_jax(script):
-    """The data- and tensor-parallel measurements measure on a card only,
-    and load nothing of JAX or the JAX package."""
+    """The data-, tensor- and sequence-parallel measurements measure on a
+    card only, and load nothing of JAX or the JAX package."""
     code = textwrap.dedent(f"""
         import runpy, sys
         sys.argv = [{script!r}]

@@ -296,7 +296,42 @@ def test_dryrun_multichip_prints_its_all_reduces():
     assert "dryrun_multichip ok (data parallel over 2 cpu rank(s))" in res.stdout
     assert ("all-reduces: {'ddp_gradient_buckets': 1, 'batch_norm_statistics': 12}"
             in res.stdout), res.stdout
+    assert "grid: {'data': 2, 'seq': 1, 'model': 1}" in res.stdout, res.stdout
     assert "LOADED []" in res.stdout, res.stdout
+
+
+def test_dryrun_multichip_runs_data_seq_model_at_8():
+    """``python -m efficientconformer_torch.dryrun 8 --cpu``: data 2 x seq 2
+    x model 2, as ``__graft_entry__.dryrun_multichip`` meshes 8 devices, on
+    20160-sample utterances, equal on every rank, printing the grid and
+    every group's collectives: DDP's one bucket over the data x seq group,
+    BatchNorm's 12, the model groups' all-reduces and all-gathers and the
+    seq groups' all-gathers, halos and reduce-scatters."""
+    code = "from efficientconformer_torch import dryrun; dryrun.main(['8', '--cpu'])"
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=RANK_TIMEOUT, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "dryrun_multichip ok (data 2 x seq 2 x model 2 over 8 cpu rank(s))" in res.stdout
+    assert "grid: {'data': 2, 'seq': 2, 'model': 2}" in res.stdout, res.stdout
+    assert ("all-reduces: {'ddp_gradient_buckets': 1, 'batch_norm_statistics': 12}"
+            in res.stdout), res.stdout
+    seq = re.search(r"seq group: \{'all_gather': (\d+), 'halo': (\d+), 'reduce_scatter': "
+                    r"(\d+)\}", res.stdout)
+    model = re.search(r"model group: \{'all_reduce': (\d+), 'all_gather': (\d+)\}",
+                      res.stdout)
+    assert seq and model, res.stdout
+    assert all(int(n) > 0 for n in seq.groups() + model.groups()), res.stdout
+
+
+def test_dryrun_without_a_card_raises():
+    """The dry run's default device is the card: without one it raises,
+    rather than run on the CPU (--cpu asks for that)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.dryrun_multichip(2)
 
 
 def test_parallel_flags_refuse_what_the_machine_lacks():
