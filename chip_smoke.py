@@ -330,6 +330,23 @@ the card. Phases, one line each; any failure exits non-zero:
                 at its window shapes, then the streamed logits within 1e-3
                 of the batch forward
 
+ 46. wide-fp32-kernel  both rel-pos kernels on the fp32 FMA route at the 16 s
+                stage shapes of the Medium and Large encoders wider than the
+                flagship's (a head over 128, or dh + D over 416; B 2) vs
+                the plain versions (forward 1e-4, gradients 1e-4 relative),
+                each call counted on the fp32 route; [wide-fp32-kernel-time]:
+                each direction timed from CUDA graphs beside the bf16 route,
+                SDPA's fp32 math path on the augmented features, the plain
+                version and the fp32 bound
+ 47. wide-fp32-slice  one fp32 training step of EfficientConformer CTC
+                Medium and Large, Conformer CTC Large and EfficientConformer
+                Transducer Medium at published widths and depth (2
+                utterances of 16 and 8 s, dropout 0, SpecAugment off) vs
+                the plain versions on the card (loss 1e-4, gradients 1e-3,
+                the gradient norm 1e-4 with the loss in float64 on both
+                sides): ms a step, peak memory, rel-pos launches (a block a
+                direction, all fp32)
+
 Then one JSON line with each kernel's launches, error, times and bound (the
 rel-pos entries also with their bf16 error, tensor-core launches and eager
 per-call ms, the forward's with ``beam_launches`` of [ctc-beam] and
@@ -348,7 +365,10 @@ forward's with ``stream_medium_launches``; the rel-pos entries with
 ``dp_launches`` of [dp-slice], over both ranks and steps, and of
 [dp-rate]'s counted DDP step; the rel-pos and bias entries with
 ``tp_launches`` of [tp-slice], over both ranks and its steps, and
-``tp_kernel_max_err``, [tp-kernel]'s largest fp32 error), and last
+``tp_kernel_max_err``, [tp-kernel]'s largest fp32 error; the rel-pos and
+RNN-T entries with ``wide_fp32_launches`` of [wide-fp32-slice], the
+rel-pos entries with ``wide_fp32_max_err`` and [wide-fp32-kernel-time]'s
+sums as ``wide_fp32_*_ms``), and last
 {"ok": true, "device": {...}}. With
 --profile it also prints a torch.profiler device-time breakdown of one
 batch or step of each path, the beams included.
@@ -486,6 +506,10 @@ SP_RANKS = 2                 # [sp-slice]: two ranks on the one card over gloo, 
 SP_KERNEL_RANKS = {2: (0, 1), 4: (0, 2, 3)}   # [sp-kernel]: seq size -> the ranks checked
 SP_UNCOVERED = 92240         # samples: 289 / 145 / 73 frames, no point divides by 2
 SP_TIMEOUT = 420             # seconds for [sp-slice]'s ranks
+WIDE_FP32_BATCH = 2          # [wide-fp32-kernel]: B at the wide stage shapes of 16 s
+WIDE_FP32_CONFIGS = ("EfficientConformerCTCMedium", "EfficientConformerCTCLarge",
+                     "ConformerCTCLarge", "EfficientConformerTransducerMedium")
+WIDE_FP32_SECONDS = (16.0, 8.0)   # [wide-fp32-slice]: one step of 2 utterances
 
 
 def check(cond: bool, msg: str) -> None:
@@ -556,15 +580,19 @@ def bound(flops: float, nbytes: float, peak: float = BF16_PEAK) -> tuple[float, 
 
 
 def attention_cost(b, n, dh, d, h, itemsize, backward):
-    """Semantic FLOPs (the JAX kernels' cost estimates,
-    ops/pallas_rel_attention.py:309 and :369-371, d_rel = D) and the bytes
-    each input read once and each output written once: qu, k, v (+ o, dO)
-    and the token outputs in the input type; LSE, delta, W, the tables and
-    the key bias in fp32; dW and ddelta in fp32 for the backward."""
+    """FLOPs of the products each direction must compute, 2 per
+    multiply-add, and the bytes each input read once and each output
+    written once: qu, k, v (+ o, dO) and the token outputs in the input
+    type; LSE, delta, W, the tables and the key bias in fp32; dW and ddelta
+    in fp32 for the backward. Forward, per (batch, head): A = rot((qu +
+    delta) W) (N dh D), S = [qu | A] [k | keytab]^T (N^2 (dh + D)), P V
+    (N^2 dh). Backward: S recomputed (N^2 (dh + D)), dP = dO V^T, dV = P^T
+    dO, dk = dS^T qu and dS k (N^2 dh each), dA = dS keytab (N^2 D), and
+    A recomputed, dpq W^T and dW = qv^T dpq (N dh D each)."""
     tok = b * h * n * dh * itemsize
     consts = (h * dh + h * dh * d + 2 * n * d + b * n) * 4 + b * h * n * 4
     if backward:
-        flops = 2 * b * h * n * (n * (6 * dh + 2 * d) + 3 * dh * d)
+        flops = 2 * b * h * n * (n * (5 * dh + 2 * d) + 3 * dh * d)
         return flops, 5 * tok + consts + 3 * tok + (h * dh * d + h * dh) * 4
     return 2 * b * h * n * (n * (2 * dh + d) + dh * d), 3 * tok + consts + tok
 
@@ -4935,6 +4963,195 @@ def profile(label: str, fn, wall: float, iters: int = 3) -> None:
               flush=True)
 
 
+# ------------------------------------------------------ wide fp32 rel-pos
+
+
+def wide_fp32_shapes():
+    """{(N, dh, D, H, G): [config names]} of the 16 s stage shapes of the
+    shipped ASR configs past the flagship's widths on the fp32 route: a
+    head wider than 128 or dh + D over 416 (EfficientConformer Medium and
+    Large, CTC and Transducer, and Conformer Large)."""
+    from efficientconformer_torch.config import load_config
+
+    out = {}
+    for path in ASR_CONFIGS:
+        for _, n, dh, d, h, g in stage_shapes(load_config(path)["encoder_params"], TRAIN_SECONDS):
+            if dh > 128 or dh + d > 416:
+                out.setdefault((n, dh, d, h, g), []).append(
+                    path.split("/")[-1].removesuffix(".json"))
+    return out
+
+
+def sdpa_fp32_math(args, do):
+    """(forward, forward and backward) of scaled_dot_product_attention's
+    fp32 math path on [qu | A], [k | keytab] and v (A formed with plain
+    torch, the key mask as an fp32 float mask): the library yardstick of
+    the fp32 route, computed nowhere in the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qa, ka, v, mask = augmented(args)
+    mask = mask.float()
+    lq, lk, lv = (t.detach().requires_grad_() for t in (qa, ka, v))
+    ldo = pad8(do)
+
+    def forward():
+        with sdpa_kernel(SDPBackend.MATH):
+            return F.scaled_dot_product_attention(qa, ka, v, attn_mask=mask, scale=args[8])
+
+    def backward():
+        with sdpa_kernel(SDPBackend.MATH):
+            out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask, scale=args[8])
+        return torch.autograd.grad(out, (lq, lk, lv), ldo)
+
+    return forward, backward
+
+
+def phase_wide_fp32_kernel():
+    """Both rel-pos kernels on the fp32 FMA route at wide_fp32_shapes, B
+    WIDE_FP32_BATCH at 16 s, vs the plain versions on the same inputs
+    (forward within KERNEL_FP32_TOL, gradients within GRAD_TOL), each call
+    counted on the fp32 route and none on the tensor cores. Then each timed
+    from CUDA graphs as [kernel-time] times the flagship: the kernel, the
+    bf16 route on the same inputs, SDPA's fp32 math path on the augmented
+    features, the plain version per eager call, and the fp32 bound. Returns
+    the largest forward error, the largest gradient error and the times
+    summed over the shapes, by direction."""
+    from efficientconformer_torch.ops import rel_attention as RA
+
+    gen = torch.Generator().manual_seed(SEED + 80)
+    err_f = err_b = 0.0
+    times = {label: {"kernel": 0.0, "plain": 0.0, "bf16": 0.0, "library": 0.0, "bound": 0.0}
+             for label in ("forward", "backward")}
+    for (n, dh, d, h, g), configs in wide_fp32_shapes().items():
+        b = WIDE_FP32_BATCH
+        args = attention_inputs(b, n, dh, d, h, g, "cuda", gen)
+        reset_rel_counts()
+        o, lse = RA.relpos_attention_fwd(*args)
+        o_p, lse_p = RA.reference_relpos_attention(*args)
+        do = torch.randn(o.shape, generator=gen).cuda()
+        got = RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
+        want = RA.reference_relpos_attention_bwd(*args[:8], do, lse, args[8])
+        torch.cuda.synchronize()
+        check(rel_counts() == (1, 0, 1, 0), f"[wide-fp32-kernel] dh {dh} D {d}: route counts "
+              f"{rel_counts()}, expected one launch a direction on the fp32 route")
+        ef = max((o - o_p).abs().max().item(), (lse - lse_p).abs().max().item())
+        eb = grad_errors(got, want)
+        check(ef <= KERNEL_FP32_TOL, f"[wide-fp32-kernel] dh {dh} D {d}: forward {ef}")
+        check(max(eb.values()) <= GRAD_TOL, f"[wide-fp32-kernel] dh {dh} D {d}: backward {eb}")
+        err_f, err_b = max(err_f, ef), max(err_b, *eb.values())
+        say("wide-fp32-kernel", configs=",".join(configs), B=b, N=n, dh=dh, D=d, H=h, G=g,
+            fp32_err=f"{ef:.3g}", bwd_rel_err=f"{max(eb.values()):.3g}",
+            fma_launches=rel_counts()[::2], tc_launches=rel_counts()[1::2], route="fma",
+            fwd_kernel="resident" if RA.fma_resident(dh, d) else "streamed",
+            tol=f"{KERNEL_FP32_TOL}/{GRAD_TOL}")
+
+        args16 = [t.to(torch.bfloat16) for t in args[:3]] + list(args[3:])
+        o16, lse16 = RA.relpos_attention_fwd(*args16)
+        do16 = do.bfloat16()
+        library_fwd, library_bwd = sdpa_fp32_math(args, do)
+        calls = {"forward": {
+            "kernel": lambda: RA.relpos_attention_fwd(*args),
+            "bf16": lambda: RA.relpos_attention_fwd(*args16),
+            "library": library_fwd}, "backward": {
+            "kernel": lambda: RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8],
+                                                      need_dbias=False),
+            "bf16": lambda: RA.relpos_attention_bwd(*args16[:8], o16, do16, lse16, args[8],
+                                                    need_dbias=False),
+            "library": library_bwd}}
+        plain = {"forward": lambda: RA.reference_relpos_attention(*args),
+                 "backward": lambda: RA.reference_relpos_attention_bwd(*args[:8], do, lse,
+                                                                       args[8])}
+        for label, fns in calls.items():
+            backward = label == "backward"
+            row = {name: graph_ms(fn) for name, fn in fns.items()}
+            row["plain"] = cuda_ms(plain[label])
+            row["bound"], bound_by = bound(*attention_cost(b, n, dh, d, h, 4, backward),
+                                           peak=FP32_PEAK)
+            for key, value in row.items():
+                times[label][key] += value
+            times[label]["bound_by"] = bound_by
+            say("wide-fp32-kernel-time", direction=label, configs=",".join(configs), B=b, N=n,
+                dh=dh, D=d, H=h, G=g, dtype="float32", bound_by=bound_by,
+                library="sdpa math fp32" + (" fwd+bwd" if backward else " fwd"),
+                **{f"{k}_ms": f"{v:.4f}" for k, v in row.items()})
+    return err_f, err_b, times
+
+
+def phase_wide_fp32_slice(card_line):
+    """One fp32 training step (mixed_precision false) of each of
+    WIDE_FP32_CONFIGS at its published widths and depth, through the
+    Trainer on WIDE_FP32_SECONDS of audio (dropout 0, SpecAugment off, VN
+    off), against the same step through the plain versions on the card:
+    loss within TRAIN_LOSS_RTOL, gradients within TRAIN_GRAD_TOL, BatchNorm
+    statistics within TRAIN_STATS_TOL. The gradient norm is held to
+    TRAIN_LOSS_RTOL with the CTC or RNN-T loss in float64 on both sides
+    (``float64_loss``): through the fp32 lattices (L ~700-1,400 nats at
+    random weights) it moves with every change of the logits' rounding, and
+    is printed beside it. Every
+    rel-pos launch on the fp32 route: one a block a direction. Prints ms a
+    step (a second step, warm), the first step's peak memory and the
+    launches; returns the launches summed over the configs (rel-pos
+    forward, backward, RNN-T alphas, gradients)."""
+    from efficientconformer_torch.training.trainer import Trainer
+
+    total = np.zeros(4, dtype=np.int64)
+    for i, name in enumerate(WIDE_FP32_CONFIGS):
+        path = f"configs/{name}.json"
+        transducer = "Transducer" in name
+        cfg = train_config(path, mixed_precision=False,
+                           **({"vn_start_step": None} if transducer else {}))
+        cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+        batch = train_batch(1, len(WIDE_FP32_SECONDS), [WIDE_FP32_SECONDS], [60, 30], "cpu",
+                            np.random.default_rng(SEED + 90 + i))
+        trainer = Trainer(cfg, device="cuda", seed=SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        loss, grad_norm = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        kernel = (float(loss), float(grad_norm),
+                  {n: p.grad.float().cpu() for n, p in trainer.model.named_parameters()},
+                  {n: b.cpu() for n, b in trainer.model.named_buffers() if "running" in n})
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        blocks = cfg["encoder_params"]["num_blocks"]
+        del trainer
+        torch.cuda.empty_cache()
+        check(counts[2:] == (blocks, blocks) and rel_counts()[1::2] == (0, 0),
+              f"[wide-fp32-slice] {name}: rel-pos launches {counts[2:]} (tensor cores "
+              f"{rel_counts()[1::2]}), expected {blocks} / {blocks} on the fp32 route")
+        check(not transducer or counts[:2] == (1, 2),
+              f"[wide-fp32-slice] {name}: RNN-T launches {counts[:2]}, expected (1, 2)")
+        plain = one_step(cfg, "cuda", batch, plain=True)
+        with float64_loss():
+            norm64 = [one_step(cfg, "cuda", batch, plain=p)[1] for p in (False, True)]
+        loss_err = abs(kernel[0] - plain[0]) / abs(plain[0])
+        norm_err = abs(kernel[1] - plain[1]) / abs(plain[1])
+        norm64_err = abs(norm64[0] - norm64[1]) / abs(norm64[1])
+        grad_err, stats_err = rel_diff(kernel[2], plain[2]), rel_diff(kernel[3], plain[3])
+        check(loss_err <= TRAIN_LOSS_RTOL and math.isfinite(kernel[0]),
+              f"[wide-fp32-slice] {name}: loss {kernel[0]} / {plain[0]}")
+        check(grad_err <= TRAIN_GRAD_TOL and stats_err <= TRAIN_STATS_TOL,
+              f"[wide-fp32-slice] {name}: gradients {grad_err}, statistics {stats_err}")
+        check(norm64_err <= TRAIN_LOSS_RTOL,
+              f"[wide-fp32-slice] {name}: gradient norm with the loss in float64 {norm64}")
+        total += np.asarray(counts)[[2, 3, 0, 1]]
+        say("wide-fp32-slice", config=name, dtype="float32", seconds=list(WIDE_FP32_SECONDS),
+            blocks=blocks, loss=f"{kernel[0]:.6f}", grad_norm=f"{kernel[1]:.6f}",
+            plain_loss_rel=f"{loss_err:.3g}", plain_norm_rel=f"{norm_err:.3g}",
+            plain_norm_rel_float64_loss=f"{norm64_err:.3g}",
+            plain_grad_rel=f"{grad_err:.3g}", plain_stats_rel=f"{stats_err:.3g}",
+            ms_per_step=f"{ms:.2f}", peak_mem_gib=f"{peak:.3f}", rel_fwd_launches=counts[2],
+            rel_bwd_launches=counts[3], rnnt_launches=counts[:2], route="fma",
+            tol=f"{TRAIN_LOSS_RTOL}/{TRAIN_GRAD_TOL}", card=f"'{card_line}'")
+        torch.cuda.empty_cache()
+    return tuple(int(x) for x in total)
+
+
 def phase_profile():
     from efficientconformer_torch.models import transducer as T
     from efficientconformer_torch.models.model_ctc import greedy_decode
@@ -5115,10 +5332,25 @@ def main() -> int:
     medium_launches, err_medium = phase_stream_medium()
     check(variant_fwd > 0 and variant_bwd > 0 and medium_launches > 0,
           "the variants' paths missed a bias kernel")
+    t_wide = time.perf_counter()
+    err_wide32, err_wide32_bwd, wide32_times = phase_wide_fp32_kernel()
+    wide32_launches = phase_wide_fp32_slice(card_line)
+    say("wide-fp32", seconds=f"{time.perf_counter() - t_wide:.2f}")
+    check(all(wide32_launches), f"the wide fp32 steps missed a kernel: {wide32_launches}")
 
     def wide(direction):
         return {f"wide_{w}_{k}_ms": wide_rows[(w, direction)][k] for w in (135, 256)
                 for k in ("kernel", "plain", "bound", "library")}
+
+    def wide32(direction, i):
+        """[wide-fp32-kernel-time]'s sums (the library: SDPA's fp32 math
+        path) and [wide-fp32-slice]'s launches of this direction."""
+        t = wide32_times[direction]
+        return {"wide_fp32_launches": wide32_launches[i],
+                "wide_fp32_max_err": err_wide32_bwd if i else err_wide32,
+                **{f"wide_fp32_{k}_ms": t[k] for k in ("kernel", "bf16", "plain", "library",
+                                                       "bound")},
+                "wide_fp32_bound_by": t["bound_by"]}
     if opts.profile:
         phase_profile()
 
@@ -5149,7 +5381,8 @@ def main() -> int:
               tp_kernel_max_err=tp_fwd[0], tp_kernel_bf16_max_err=tp_fwd[1],
               tp_norm_rel_split=tp_slice["norm_rel_split"],
               sp_launches={"sp-slice": sp_slice[0]},
-              sp_kernel_max_err=sp_fwd[0], sp_kernel_bf16_max_err=sp_fwd[1]),
+              sp_kernel_max_err=sp_fwd[0], sp_kernel_bf16_max_err=sp_fwd[1],
+              **wide32("forward", 0)),
         entry(RA.KERNEL_BWD, "efficientconformer_torch/csrc/rel_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:139", launches_bwd,
               max(max_err_bwd, t_err_bwd), times_bwd,
@@ -5160,12 +5393,14 @@ def main() -> int:
               tp_launches={"tp-slice": tp_slice["relpos"][1]},
               tp_kernel_max_err=tp_bwd[0], tp_kernel_bf16_max_err=tp_bwd[1],
               sp_launches={"sp-slice": sp_slice[1]},
-              sp_kernel_max_err=sp_bwd[0], sp_kernel_bf16_max_err=sp_bwd[1]),
+              sp_kernel_max_err=sp_bwd[0], sp_kernel_bf16_max_err=sp_bwd[1],
+              **wide32("backward", 1)),
         entry(RL.KERNEL_FWD, "efficientconformer_torch/csrc/rnnt_fwd.cu",
-              "efficientconformer_tpu/ops/pallas_rnnt.py:73", rnnt_fwd, err_rnnt, times_rnnt),
+              "efficientconformer_tpu/ops/pallas_rnnt.py:73", rnnt_fwd, err_rnnt, times_rnnt,
+              wide_fp32_launches=wide32_launches[2]),
         entry(RL.KERNEL_BWD, "efficientconformer_torch/csrc/rnnt_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rnnt.py:96", rnnt_bwd, err_rnnt_bwd,
-              times_rnnt_bwd),
+              times_rnnt_bwd, wide_fp32_launches=wide32_launches[3]),
         entry(BA.KERNEL, "efficientconformer_torch/csrc/bias_attention_fwd.cu",
               "efficientconformer_tpu/ops/pallas_attention.py:55", lm_fwd,
               max(err_bias, err_stream, err_stream_exact, step_err, err_wide, err_medium),

@@ -28,8 +28,8 @@
 // ddelta sums across a sequential batch grid axis. Hopper blocks run in
 // parallel and in no order, so the work is split into passes, as
 // FlashAttention-2 splits its backward; dW and ddelta are written as one
-// partial per (query tile, batch, head) and summed by the wrapper in a fixed
-// order: no atomics, the gradients are the same from run to run. Rows past N
+// partial per (query tile, batch, head), the fp32 route's dW one per (batch,
+// head), and summed by the wrapper in a fixed order: no atomics, the gradients are the same from run to run. Rows past N
 // and keys past Nk get P = 0 from the kernels themselves. Two routes, chosen
 // by the inputs' type:
 //
@@ -58,25 +58,39 @@
 //     block's shared memory (the widest shipped shape, D 720, takes 155,136
 //     bytes); dS^T costs a round trip through device memory (B H Nk N bf16,
 //     51 MB at the flagship's stage 2) and is read once per rel chunk.
-//   * fp32, relpos_bwd_{q,k}_kernel<float, J>: fp32 FMAs from shared memory
-//     (TF32 products would miss the fp32 checks). The query-side pass forms
-//     A, writes it and Di for the key side, and accumulates d[qu | A] in
-//     registers; the key-side pass reads the A rows, recomputes the scores,
-//     P and dS, and accumulates dv, dk and the dbias sums. Each thread owns
-//     a 4 x 4 tile of scores; tiles read four rows at a time have a row
-//     stride of 68 floats, tiles read one word at a time 65. It takes head
-//     widths up to 128 and dh + 2hd up to 416 (214,896 bytes in the
-//     query-side pass at the flagship's widest stage).
+//   * fp32, five passes of fp32 FMAs from shared memory (relpos_fma.cuh;
+//     TF32 products would miss the fp32 checks), each product a
+//     rfma::tile_product: 64 x 64 tiles, a 4 x 4 piece a thread, contracted
+//     in double-buffered chunks of 32, so no width is held whole:
+//     - rfma::prep_kernel, one block per (64 query rows, head, batch): the A
+//       rows (B, H, N, 2hd) and Di = rowsum(dO * O);
+//     - relpos_bwd_k_kernel<J>, one block per (64 keys, head, batch x head
+//       column group of at most 128): per query tile S^T = [k | keytab]
+//       [qu | A]^T and dP^T = v dO^T, P^T and dS^T, dv += P^T dO and dk +=
+//       dS^T qu over the group's columns in registers (J <= 8 a thread); the
+//       first group writes dS^T (B, H, Nk, N) fp32 and the dbias sums. A
+//       head wider than 128 costs its groups a recomputation of the scores;
+//     - relpos_bwd_da_kernel, one block per (64 query rows, 64 columns, batch
+//       x head): scale dS k into dqu, and scale dS keytab (32 paired columns
+//       of each half a block) rotated into dpq, written over the A rows;
+//     - relpos_bwd_dq_kernel: dqu += dpq W^T and the ddelta partials, the
+//       column sums of dpq W^T over each query tile;
+//     - relpos_bwd_dw_kernel: dW = qv^T dpq over each (batch, head)'s rows.
+//     Takes head widths up to 256 at any rel width: the largest pass, the
+//     prep's, needs 119,040 bytes of shared memory at dh 256 (relpos_fma.cuh).
+//     dS^T and dpq cost round trips through device memory (B H Nk N and
+//     B H N 2hd fp32: 10.3 and 9.3 MB at EfficientConformer Large's stages 2
+//     and 3, b2 x 16 s).
 //
 // Inputs: qu, k, v, o, dO (fp32 or bf16) with arbitrary batch/head/row
 // strides and unit feature stride; lse (B, H, N) fp32; the fp32 route takes
 // delta, w (H, dh, 2hd), wt = w^T per head, rowtab and keytab in fp32, the
 // bf16 route delta, w, rowtab and keytab in bf16 at the padded widths, all
 // contiguous; bias is fp32 (B or 1, Nk) with batch stride bias_sb. Outputs:
-// dqu, dk, dv in the input type (strided); dw_part (B * ceil(N/64), H, dh,
-// 2hd) and ddelta_part (B * ceil(N/64), H, dh) fp32, at the padded widths on
-// the bf16 route; di (B, H, N) fp32 and the route's scratch (see
-// ecf_relpos_attention_bwd); dbias (B, H, Nk) fp32, or null when not
+// dqu, dk, dv in the input type (strided); ddelta_part (B * ceil(N/64), H,
+// dh) and dw_part fp32, (B, H, dh, 2hd) on the fp32 route and (B *
+// ceil(N/64), H, dhp, 2hdp), at the padded widths, on the bf16 route; di
+// (B, H, N) fp32 and the route's scratch (see ecf_relpos_attention_bwd); dbias (B, H, Nk) fp32, or null when not
 // wanted. The kernels allocate nothing and do not synchronise; each pass
 // reads what the one before it wrote, in stream order.
 
@@ -84,30 +98,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "relpos_fma.cuh"
 #include "relpos_tc.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per tile
-constexpr int BK = 64;          // keys per tile
-constexpr int NTHREADS = 256;   // a 16 x 16 grid of threads, each a 4 x 4 tile
-constexpr int LDV = 68;         // row stride of tiles read four rows at a time
-constexpr int LDS = 65;         // row stride of tiles read one word at a time
-constexpr size_t MAX_SMEM = 232448;  // 227 KB a block may use on sm_90
-
-static_assert(NTHREADS == 16 * 16 && BQ == 4 * 16 && BK == 4 * 16, "thread grid");
-
-// the FMA kernels' element type is float (bf16 takes the tensor cores)
-__device__ __forceinline__ float to_f32(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+using rfma::BK;
+using rfma::BQ;
+using rfma::LDS;
+using rfma::LDV;
+using rfma::MAX_SMEM;
+using rfma::NTHREADS;
+using rfma::TILE_FLOATS;
 
 struct Params {
-  const void* qu;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
+  const float* qu;
+  const float* k;
+  const float* v;
+  const float* o;
+  const float* dout;
   const float* lse;     // (B, H, N)
   const float* delta;   // (H, dh)
   const float* w;       // (H, dh, d2)
@@ -115,15 +124,16 @@ struct Params {
   const float* rowtab;  // (N, d2)  [sin | cos]
   const float* keytab;  // (Nk, d2) [cos | sin]
   const float* bias;    // (B or 1, Nk) or null
-  void* dqu;
-  void* dk;
-  void* dv;
-  float* dw_part;       // (B * tiles, H, dh, d2)
-  float* ddelta_part;   // (B * tiles, H, dh)
+  float* dqu;
+  float* dk;
+  float* dv;
+  float* dw_part;       // (B, H, dh, d2)
+  float* ddelta_part;   // (B * ceil(N / 64), H, dh)
   float* di;            // (B, H, N)
-  float* atab;          // (B, H, N, d2): the A rows, from the query side to the key side
+  float* atab;          // (B, H, N, d2): the A rows from the prep pass, then dpq
+  float* ds;            // (B, H, Nk, N): dS^T from the key side
   float* dbias;         // (B, H, Nk) or null
-  int n, nk, dh, d2;
+  int heads, n, nk, dh, d2;
   int64_t qu_sb, qu_sh, qu_sn;
   int64_t k_sb, k_sh, k_sn;
   int64_t v_sb, v_sh, v_sn;
@@ -136,413 +146,58 @@ struct Params {
   float scale;
 };
 
-// augmented-feature columns per thread in the query-side pass: da <= 16 * ja
-__host__ __device__ inline int ja_for(int da) {
-  return da <= 64 ? 4 : da <= 128 ? 8 : da <= 224 ? 14 : da <= 320 ? 20 : 26;
+// The key side splits the head width into column groups of at most 128
+// (each group's blocks recompute the scores), so that dk and dv of a block's
+// 64 keys stay within 4 x 2 x 8 registers a thread: the group width, a
+// multiple of 16, and the head-width columns a thread owns (JD).
+__host__ __device__ inline int k_groups(int dh) { return (dh + 127) / 128; }
+__host__ __device__ inline int k_group_width(int dh) {
+  const int g = k_groups(dh);
+  return ((dh + g - 1) / g + 15) / 16 * 16;
 }
-// head-width columns per thread in the key-side pass: dh <= 16 * jd
-__host__ __device__ inline int jd_for(int dh) {
-  return dh <= 32 ? 2 : dh <= 64 ? 4 : dh <= 96 ? 6 : 8;
+__host__ __device__ inline int jd_for(int gw) {
+  return gw <= 32 ? 2 : gw <= 64 ? 4 : gw <= 96 ? 6 : 8;
 }
-__host__ __device__ inline size_t zmax(size_t a, size_t b) { return a > b ? a : b; }
-// regions start at multiples of 4 floats, so float4 loads stay aligned
-__host__ __device__ inline size_t r4(size_t floats) { return (floats + 3) & ~static_cast<size_t>(3); }
-
-// the key-tile region of the query-side pass: [k | keytab]^T (16*ja rows of
-// LDS), later dpq^T (d2 rows of LDV)
-__host__ __device__ inline size_t q_key_region(int dh, int d2) {
-  return zmax(static_cast<size_t>(16 * ja_for(dh + d2)) * LDS, static_cast<size_t>(d2) * LDV);
-}
-
-__host__ __device__ inline size_t q_smem_floats(int dh, int d2) {
-  const size_t da = dh + d2;
-  return da * LDV + dh * LDV + q_key_region(dh, d2) + r4(dh * LDS) + BK * LDV + 3 * BQ;
+// the key side's shared memory: tile_product's chunks (P and dS reuse them
+// between products), the group's dO and qu columns, LSE, Di and key bias
+__host__ __device__ inline size_t k_smem_floats(int dh) {
+  return TILE_FLOATS + 2 * static_cast<size_t>(16 * jd_for(k_group_width(dh))) * LDS + 3 * BQ;
 }
 
-__host__ __device__ inline size_t k_smem_floats(int dh, int d2) {
-  const size_t da = dh + d2, dhp = 16 * jd_for(dh);
-  return da * LDV + dh * LDV + r4(zmax(da, dhp) * LDS) + dhp * LDS + BQ * LDV + 3 * BQ;
-}
+// ------------------------------------------------------------ key side
 
-// The A rows of the query tile [q0, q0 + BQ): [P | Q] = (qu + delta) W_h,
-// rotated by the row table, written after qu in qa (feature-major, row
-// stride LDV). qu must be in qa and visible to all threads; ws is a free
-// region of at least 32 x 128 floats. A register-tiled product: thread
-// (ty, tx) forms rows tx + 16 i (i < 4) of columns ty + 16 m (m < 4) of both
-// halves, 64 columns of each at a time, with W staged through ws 32 rows at
-// a time, so each shared-memory load feeds 4 to 8 FMAs.
-constexpr int WCHUNK = 32;
-static_assert(WCHUNK * 128 <= BK * LDV, "the staged W chunk fits the dS tile's region");
-__device__ __forceinline__ void build_a(float* qa, float* ws, const Params& p, int q0, int h) {
-  const int dh = p.dh, d2 = p.d2, hd = d2 / 2;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* wh = p.w + static_cast<int64_t>(h) * dh * d2;
-  const float* dl = p.delta + h * dh;
-  for (int j0 = 0; j0 < hd; j0 += 64) {
-    float pacc[4][4], qacc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int m = 0; m < 4; ++m) pacc[i][m] = qacc[i][m] = 0.f;
-    for (int d0 = 0; d0 < dh; d0 += WCHUNK) {
-      const int dc = min(WCHUNK, dh - d0);
-      __syncthreads();   // the previous chunk's readers are done
-      for (int i = threadIdx.x; i < dc * 128; i += NTHREADS) {
-        const int row = i / 128, c = i % 128;
-        const int j = j0 + (c & 63);
-        ws[i] = j < hd ? wh[(d0 + row) * d2 + (c < 64 ? j : hd + j)] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int dd = 0; dd < dc; ++dd) {
-        const int d = d0 + dd;
-        const float dv = dl[d];
-        float x[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) x[i] = qa[d * LDV + tx + 16 * i] + dv;
-        const float* wrow = ws + dd * 128 + ty;
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const float wp = wrow[16 * m], wq = wrow[64 + 16 * m];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            pacc[i][m] = fmaf(x[i], wp, pacc[i][m]);
-            qacc[i][m] = fmaf(x[i], wq, qacc[i][m]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = tx + 16 * i;
-      const int qi = q0 + r;
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int j = j0 + ty + 16 * m;
-        if (j >= hd) continue;
-        float a_even = 0.f, a_odd = 0.f;
-        if (qi < p.n) {
-          const float sn = p.rowtab[static_cast<int64_t>(qi) * d2 + j];
-          const float cs = p.rowtab[static_cast<int64_t>(qi) * d2 + hd + j];
-          a_even = sn * pacc[i][m] + cs * qacc[i][m];
-          a_odd = sn * qacc[i][m] - cs * pacc[i][m];
-        }
-        qa[(dh + j) * LDV + r] = a_even;
-        qa[(dh + hd + j) * LDV + r] = a_odd;
-      }
-    }
-  }
-}
-
-// ------------------------------------------------------------ query side
-
-template <typename T, int JA>
-__global__ void __launch_bounds__(NTHREADS) relpos_bwd_q_kernel(Params p) {
+// One block per (64 keys, head, batch x column group), looping over query
+// tiles of 64 rows, transposed (rows are keys): S^T = [k | keytab] [qu | A]^T
+// and dP^T = v dO^T (tile_product), P^T and dS^T; dv += P^T dO and dk += dS^T
+// qu over the group's columns in registers; the first group also writes dS^T
+// (fp32, for the query side) and the dbias column sums of dS.
+template <int JD>
+__global__ void __launch_bounds__(NTHREADS) relpos_bwd_k_kernel(Params p, int gw) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int DAP = 16 * JA;      // padded augmented width (zero rows past da)
-  const int dh = p.dh, d2 = p.d2, hd = d2 / 2, da = dh + d2;
-  float* qaT = smem;                           // da x LDV: [qu | A]^T of the rows
-  float* doT = qaT + da * LDV;                 // dh x LDV: dO^T of the rows
-  float* kaT = doT + dh * LDV;                 // DAP x LDS: [k | keytab]^T of a key tile
-  float* dpqT = kaT;                           // d2 x LDV: dA^T, then dpq^T (after the loop)
-  float* vT = kaT + q_key_region(dh, d2);      // dh x LDS: V^T of the key tile
-  float* dsT = vT + r4(dh * LDS);              // BK x LDV: dS of the tile, key-major
-  float* lse_s = dsT + BK * LDV;
-  float* di_s = lse_s + BQ;
-  float* bias_s = di_s + BQ;
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int qt = blockIdx.x, q0 = qt * BQ;
-  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
-  const int64_t bh = static_cast<int64_t>(b) * heads + h;
-  const T* qu = static_cast<const T*>(p.qu) + b * p.qu_sb + h * p.qu_sh;
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* op = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
-
-  // 1. qu and dO of the rows, feature-major (zero past N), and the LSE; a
-  //    warp per row, a lane per feature
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < BQ; r += NTHREADS / 32) {
-    const int qi = q0 + r;
-    const bool ok = qi < p.n;
-    for (int d = lane; d < dh; d += 32) {
-      qaT[d * LDV + r] = ok ? to_f32(qu[qi * p.qu_sn + d]) : 0.f;
-      doT[d * LDV + r] = ok ? to_f32(dop[qi * p.do_sn + d]) : 0.f;
-    }
-  }
-  if (tid < BQ) lse_s[tid] = q0 + tid < p.n ? p.lse[bh * p.n + q0 + tid] : 0.f;
-  __syncthreads();
-
-  // 2. the A rows, and Di = rowsum(dO * O) with four threads per row
-  build_a(qaT, dsT, p, q0, h);
-  {
-    const int r = tid / 4, part = tid % 4;
-    const int qi = q0 + r;
-    float acc = 0.f;
-    if (qi < p.n) {
-      for (int d = part; d < dh; d += 4) {
-        acc = fmaf(doT[d * LDV + r], to_f32(op[qi * p.o_sn + d]), acc);
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if (part == 0) {
-      di_s[r] = acc;
-      if (qi < p.n) p.di[bh * p.n + qi] = acc;
-    }
-  }
-  __syncthreads();
-  // the A rows for the key-side pass (a warp per row, a lane per feature)
-  for (int r = warp; r < BQ && q0 + r < p.n; r += NTHREADS / 32) {
-    float* arow = p.atab + (bh * p.n + q0 + r) * d2;
-    for (int j = lane; j < d2; j += 32) arow[j] = qaT[(dh + j) * LDV + r];
-  }
-
-  // 3. over the key tiles: d[qu | A] += dS [k | keytab], in registers
-  float acc[4][JA];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < JA; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < p.nk; k0 += BK) {
-    // the previous tile's readers finished at the loop's last barrier
-    for (int c = warp; c < BK; c += NTHREADS / 32) {
-      const int kj = k0 + c;
-      const bool ok = kj < p.nk;
-      for (int f = lane; f < DAP; f += 32) {
-        float val = 0.f;
-        if (ok && f < da) {
-          val = f < dh ? to_f32(kp[kj * p.k_sn + f])
-                       : p.keytab[static_cast<int64_t>(kj) * d2 + (f - dh)];
-        }
-        kaT[f * LDS + c] = val;
-      }
-      for (int d = lane; d < dh; d += 32) vT[d * LDS + c] = ok ? to_f32(vp[kj * p.v_sn + d]) : 0.f;
-    }
-    if (tid < BK) bias_s[tid] = (bias && k0 + tid < p.nk) ? bias[k0 + tid] : 0.f;
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) s[i][cc] = dp[i][cc] = 0.f;
-#pragma unroll 4
-    for (int f = 0; f < da; ++f) {
-      const float4 a = *reinterpret_cast<const float4*>(qaT + f * LDV + ty * 4);
-      const float* krow = kaT + f * LDS + tx;
-      const float b0 = krow[0], b1 = krow[16], b2 = krow[32], b3 = krow[48];
-      s[0][0] = fmaf(a.x, b0, s[0][0]); s[0][1] = fmaf(a.x, b1, s[0][1]);
-      s[0][2] = fmaf(a.x, b2, s[0][2]); s[0][3] = fmaf(a.x, b3, s[0][3]);
-      s[1][0] = fmaf(a.y, b0, s[1][0]); s[1][1] = fmaf(a.y, b1, s[1][1]);
-      s[1][2] = fmaf(a.y, b2, s[1][2]); s[1][3] = fmaf(a.y, b3, s[1][3]);
-      s[2][0] = fmaf(a.z, b0, s[2][0]); s[2][1] = fmaf(a.z, b1, s[2][1]);
-      s[2][2] = fmaf(a.z, b2, s[2][2]); s[2][3] = fmaf(a.z, b3, s[2][3]);
-      s[3][0] = fmaf(a.w, b0, s[3][0]); s[3][1] = fmaf(a.w, b1, s[3][1]);
-      s[3][2] = fmaf(a.w, b2, s[3][2]); s[3][3] = fmaf(a.w, b3, s[3][3]);
-    }
-#pragma unroll 4
-    for (int d = 0; d < dh; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(doT + d * LDV + ty * 4);
-      const float* vrow = vT + d * LDS + tx;
-      const float b0 = vrow[0], b1 = vrow[16], b2 = vrow[32], b3 = vrow[48];
-      dp[0][0] = fmaf(a.x, b0, dp[0][0]); dp[0][1] = fmaf(a.x, b1, dp[0][1]);
-      dp[0][2] = fmaf(a.x, b2, dp[0][2]); dp[0][3] = fmaf(a.x, b3, dp[0][3]);
-      dp[1][0] = fmaf(a.y, b0, dp[1][0]); dp[1][1] = fmaf(a.y, b1, dp[1][1]);
-      dp[1][2] = fmaf(a.y, b2, dp[1][2]); dp[1][3] = fmaf(a.y, b3, dp[1][3]);
-      dp[2][0] = fmaf(a.z, b0, dp[2][0]); dp[2][1] = fmaf(a.z, b1, dp[2][1]);
-      dp[2][2] = fmaf(a.z, b2, dp[2][2]); dp[2][3] = fmaf(a.z, b3, dp[2][3]);
-      dp[3][0] = fmaf(a.w, b0, dp[3][0]); dp[3][1] = fmaf(a.w, b1, dp[3][1]);
-      dp[3][2] = fmaf(a.w, b2, dp[3][2]); dp[3][3] = fmaf(a.w, b3, dp[3][3]);
-    }
-
-    // dS = P (dP - Di), P recomputed from the LSE; zero past N and Nk
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int c = tx + 16 * cc;
-      const bool kvalid = k0 + c < p.nk;
-      const float kb = bias_s[c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        const float pr = (kvalid && q0 + r < p.n) ? expf(s[i][cc] * p.scale + kb - lse_s[r]) : 0.f;
-        s[i][cc] = pr * (dp[i][cc] - di_s[r]);
-      }
-      *reinterpret_cast<float4*>(dsT + c * LDV + ty * 4) =
-          make_float4(s[0][cc], s[1][cc], s[2][cc], s[3][cc]);
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int c = 0; c < BK; ++c) {
-      const float4 g = *reinterpret_cast<const float4*>(dsT + c * LDV + ty * 4);
-      const float* kcol = kaT + tx * LDS + c;
-#pragma unroll
-      for (int j = 0; j < JA; ++j) {
-        const float kv = kcol[16 * j * LDS];
-        acc[0][j] = fmaf(g.x, kv, acc[0][j]);
-        acc[1][j] = fmaf(g.y, kv, acc[1][j]);
-        acc[2][j] = fmaf(g.z, kv, acc[2][j]);
-        acc[3][j] = fmaf(g.w, kv, acc[3][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // 4. scale; dA to shared memory (feature-major), then through the rotation
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < JA; ++j) acc[i][j] *= p.scale;
-#pragma unroll
-  for (int j = 0; j < JA; ++j) {
-    const int f = tx + 16 * j;
-    if (f >= dh && f < da) {
-      *reinterpret_cast<float4*>(dpqT + (f - dh) * LDV + ty * 4) =
-          make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < BQ * hd; i += NTHREADS) {
-    const int r = i % BQ, j = i / BQ;
-    const int qi = q0 + r;
-    float sn = 0.f, cs = 0.f;
-    if (qi < p.n) {
-      sn = p.rowtab[static_cast<int64_t>(qi) * d2 + j];
-      cs = p.rowtab[static_cast<int64_t>(qi) * d2 + hd + j];
-    }
-    const float e = dpqT[j * LDV + r], od = dpqT[(hd + j) * LDV + r];
-    dpqT[j * LDV + r] = sn * e - cs * od;
-    dpqT[(hd + j) * LDV + r] = cs * e + sn * od;
-  }
-  __syncthreads();
-
-  // 5. dqu = scale dS k + dpq W^T, for the thread's rows and qu columns,
-  //    with W^T staged through the dS tile's region, fc rows at a time
-  const float* wt = p.wt + static_cast<int64_t>(h) * d2 * dh;
-  float* ws = dsT;
-  const int fc = min(d2, BK * LDV / dh);
-  for (int f0 = 0; f0 < d2; f0 += fc) {
-    const int nf = min(fc, d2 - f0);
-    __syncthreads();   // the previous chunk's readers are done
-    for (int i = tid; i < nf * dh; i += NTHREADS) ws[i] = wt[f0 * dh + i];
-    __syncthreads();
-#pragma unroll 2
-    for (int ff = 0; ff < nf; ++ff) {
-      const float4 g = *reinterpret_cast<const float4*>(dpqT + (f0 + ff) * LDV + ty * 4);
-#pragma unroll
-      for (int j = 0; j < JA; ++j) {
-        if (16 * j < dh) {
-          const int d = tx + 16 * j;
-          const float wv = d < dh ? ws[ff * dh + d] : 0.f;
-          acc[0][j] = fmaf(g.x, wv, acc[0][j]);
-          acc[1][j] = fmaf(g.y, wv, acc[1][j]);
-          acc[2][j] = fmaf(g.z, wv, acc[2][j]);
-          acc[3][j] = fmaf(g.w, wv, acc[3][j]);
-        }
-      }
-    }
-  }
-  T* dq = static_cast<T*>(p.dqu) + b * p.dqu_sb + h * p.dqu_sh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= p.n) continue;
-#pragma unroll
-    for (int j = 0; j < JA; ++j) {
-      const int d = tx + 16 * j;
-      if (d < dh) dq[qi * p.dqu_sn + d] = from_f32<T>(acc[i][j]);
-    }
-  }
-
-  // 6. this block's partial dW = qv^T dpq (rows past N have dpq = 0)
-  const int64_t part = (static_cast<int64_t>(b) * gridDim.x + qt) * heads + h;
-  float* dwp = p.dw_part + part * dh * d2;
-  const float* dl = p.delta + h * dh;
-  for (int o = tid; o < dh * d2; o += NTHREADS) {
-    const int d = o / d2, f = o - d * d2;
-    const float dlv = dl[d];
-    float sum = 0.f;
-#pragma unroll 4
-    for (int r = 0; r < BQ; r += 4) {
-      const float4 q4 = *reinterpret_cast<const float4*>(qaT + d * LDV + r);
-      const float4 g4 = *reinterpret_cast<const float4*>(dpqT + f * LDV + r);
-      sum = fmaf(q4.x + dlv, g4.x, sum);
-      sum = fmaf(q4.y + dlv, g4.y, sum);
-      sum = fmaf(q4.z + dlv, g4.z, sum);
-      sum = fmaf(q4.w + dlv, g4.w, sum);
-    }
-    dwp[o] = sum;
-  }
-
-  // 7. and its partial ddelta = (sum over rows of dpq) W^T
-  float* colsum = dsT;
-  __syncthreads();       // the staged W^T's readers are done
-  for (int f = tid; f < d2; f += NTHREADS) {
-    float sum = 0.f;
-    for (int r = 0; r < BQ; ++r) sum += dpqT[f * LDV + r];
-    colsum[f] = sum;
-  }
-  __syncthreads();
-  for (int d = tid; d < dh; d += NTHREADS) {
-    float sum = 0.f;
-    for (int f = 0; f < d2; ++f) sum = fmaf(colsum[f], wt[f * dh + d], sum);
-    p.ddelta_part[part * dh + d] = sum;
-  }
-}
-
-// -------------------------------------------------------------- key side
-
-template <typename T, int JD>
-__global__ void __launch_bounds__(NTHREADS) relpos_bwd_k_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int DHP = 16 * JD;      // padded head width (zero rows past dh)
+  constexpr int GWP = 16 * JD;            // padded group width (zero rows past it)
   const int dh = p.dh, d2 = p.d2, da = dh + d2;
-  const int qap = da > DHP ? da : DHP;
-  float* kaT = smem;                 // da x LDV: [k | keytab]^T of the block's keys
-  float* vT = kaT + da * LDV;        // dh x LDV: V^T of the keys
-  float* qaT = vT + dh * LDV;        // qap x LDS: [qu | A]^T of a query tile
-  float* doT = qaT + r4(qap * LDS);  // DHP x LDS: dO^T of the query tile
-  float* pT = doT + DHP * LDS;       // BQ x LDV: P, then dS, of the tile, row-major
-  float* lse_s = pT + BQ * LDV;
+  float* buf = smem;                      // tile_product's chunks
+  float* pT = smem;                       // BQ x LDV: P, then dS, row-major
+  float* doT = smem + TILE_FLOATS;        // GWP x LDS: dO^T of the tile, the group's columns
+  float* quT = doT + GWP * LDS;           // GWP x LDS: qu^T alike
+  float* lse_s = quT + GWP * LDS;
   float* di_s = lse_s + BQ;
   float* bias_s = di_s + BQ;
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
-  const int64_t bh = static_cast<int64_t>(b) * heads + h;
-  const T* qu = static_cast<const T*>(p.qu) + b * p.qu_sb + h * p.qu_sh;
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
-
-  // 1. the block's keys, V and key bias (a warp per key, a lane per
-  //    feature); the padding rows of the query tiles
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
-  for (int c = warp; c < BK; c += NTHREADS / 32) {
-    const int kj = k0 + c;
-    const bool ok = kj < p.nk;
-    for (int f = lane; f < da; f += 32) {
-      float val = 0.f;
-      if (ok) {
-        val = f < dh ? to_f32(kp[kj * p.k_sn + f])
-                     : p.keytab[static_cast<int64_t>(kj) * d2 + (f - dh)];
-      }
-      kaT[f * LDV + c] = val;
-    }
-    for (int d = lane; d < dh; d += 32) vT[d * LDV + c] = ok ? to_f32(vp[kj * p.v_sn + d]) : 0.f;
-  }
+  const int k0 = blockIdx.x * BK, h = blockIdx.y;
+  const int groups = (dh + gw - 1) / gw;
+  const int b = blockIdx.z / groups, grp = blockIdx.z % groups;
+  const int c0 = grp * gw, cw = min(gw, dh - c0);   // the group's columns [c0, c0 + cw)
+  const int64_t bh = static_cast<int64_t>(b) * p.heads + h;
+  const float* qu = p.qu + b * p.qu_sb + h * p.qu_sh;
+  const float* kp = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vp = p.v + b * p.v_sb + h * p.v_sh;
+  const float* dop = p.dout + b * p.do_sb + h * p.do_sh;
+  const float* ap = p.atab + bh * p.n * d2;
+  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
   if (tid < BK) bias_s[tid] = (bias && k0 + tid < p.nk) ? bias[k0 + tid] : 0.f;
-  for (int i = tid; i < (DHP - dh) * BQ; i += NTHREADS) doT[(dh + i / BQ) * LDS + i % BQ] = 0.f;
-  for (int i = tid; i < (qap - da) * BQ; i += NTHREADS) qaT[(da + i / BQ) * LDS + i % BQ] = 0.f;
 
   float dk[4][JD], dv[4][JD], db[4];
 #pragma unroll
@@ -551,61 +206,50 @@ __global__ void __launch_bounds__(NTHREADS) relpos_bwd_k_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < JD; ++j) dk[i][j] = dv[i][j] = 0.f;
   }
+  // [k | keytab] and v of key k0 + c
+  auto ka = [&](int f, int c) {
+    const int kj = k0 + c;
+    if (kj >= p.nk) return 0.f;
+    return f < dh ? kp[kj * p.k_sn + f] : p.keytab[static_cast<int64_t>(kj) * d2 + f - dh];
+  };
+  auto vk = [&](int d, int c) {
+    const int kj = k0 + c;
+    return kj < p.nk ? vp[kj * p.v_sn + d] : 0.f;
+  };
 
-  // 2. over the query tiles
   for (int q0 = 0; q0 < p.n; q0 += BQ) {
-    // the previous tile's readers finished at the loop's last barrier
-    for (int r = warp; r < BQ; r += NTHREADS / 32) {
-      const int qi = q0 + r;
-      const bool ok = qi < p.n;
-      for (int d = lane; d < dh; d += 32) {
-        qaT[d * LDS + r] = ok ? to_f32(qu[qi * p.qu_sn + d]) : 0.f;
-        doT[d * LDS + r] = ok ? to_f32(dop[qi * p.do_sn + d]) : 0.f;
-      }
-      const float* arow = p.atab + (bh * p.n + qi) * d2;
-      for (int j = lane; j < d2; j += 32) qaT[(dh + j) * LDS + r] = ok ? arow[j] : 0.f;
-    }
+    // the tile's LSE, Di and the group's columns of dO and qu (their previous
+    // readers finished at the loop's last barrier)
     if (tid < BQ) {
       const int qi = q0 + tid;
       lse_s[tid] = qi < p.n ? p.lse[bh * p.n + qi] : 0.f;
       di_s[tid] = qi < p.n ? p.di[bh * p.n + qi] : 0.f;
     }
-    __syncthreads();
-
-    // scores and dP, transposed: s[i][cc] is key ty*4+i, row tx+16cc
+    for (int r = warp; r < BQ; r += NTHREADS / 32) {
+      const int qi = q0 + r;
+      const bool ok = qi < p.n;
+      for (int lc = lane; lc < GWP; lc += 32) {
+        const bool in = ok && lc < cw;
+        doT[lc * LDS + r] = in ? dop[qi * p.do_sn + c0 + lc] : 0.f;
+        quT[lc * LDS + r] = in ? qu[qi * p.qu_sn + c0 + lc] : 0.f;
+      }
+    }
+    // [qu | A] and dO of query row q0 + r
+    auto qa = [&](int f, int r) {
+      const int qi = q0 + r;
+      if (qi >= p.n) return 0.f;
+      return f < dh ? qu[qi * p.qu_sn + f] : ap[static_cast<int64_t>(qi) * d2 + f - dh];
+    };
+    auto dq = [&](int d, int r) {
+      const int qi = q0 + r;
+      return qi < p.n ? dop[qi * p.do_sn + d] : 0.f;
+    };
+    // s[i][cc] and dp[i][cc] are key 4 ty + i, row tx + 16 cc
     float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) s[i][cc] = dp[i][cc] = 0.f;
-#pragma unroll 4
-    for (int f = 0; f < da; ++f) {
-      const float4 a = *reinterpret_cast<const float4*>(kaT + f * LDV + ty * 4);
-      const float* qrow = qaT + f * LDS + tx;
-      const float b0 = qrow[0], b1 = qrow[16], b2 = qrow[32], b3 = qrow[48];
-      s[0][0] = fmaf(a.x, b0, s[0][0]); s[0][1] = fmaf(a.x, b1, s[0][1]);
-      s[0][2] = fmaf(a.x, b2, s[0][2]); s[0][3] = fmaf(a.x, b3, s[0][3]);
-      s[1][0] = fmaf(a.y, b0, s[1][0]); s[1][1] = fmaf(a.y, b1, s[1][1]);
-      s[1][2] = fmaf(a.y, b2, s[1][2]); s[1][3] = fmaf(a.y, b3, s[1][3]);
-      s[2][0] = fmaf(a.z, b0, s[2][0]); s[2][1] = fmaf(a.z, b1, s[2][1]);
-      s[2][2] = fmaf(a.z, b2, s[2][2]); s[2][3] = fmaf(a.z, b3, s[2][3]);
-      s[3][0] = fmaf(a.w, b0, s[3][0]); s[3][1] = fmaf(a.w, b1, s[3][1]);
-      s[3][2] = fmaf(a.w, b2, s[3][2]); s[3][3] = fmaf(a.w, b3, s[3][3]);
-    }
-#pragma unroll 4
-    for (int d = 0; d < dh; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(vT + d * LDV + ty * 4);
-      const float* orow = doT + d * LDS + tx;
-      const float b0 = orow[0], b1 = orow[16], b2 = orow[32], b3 = orow[48];
-      dp[0][0] = fmaf(a.x, b0, dp[0][0]); dp[0][1] = fmaf(a.x, b1, dp[0][1]);
-      dp[0][2] = fmaf(a.x, b2, dp[0][2]); dp[0][3] = fmaf(a.x, b3, dp[0][3]);
-      dp[1][0] = fmaf(a.y, b0, dp[1][0]); dp[1][1] = fmaf(a.y, b1, dp[1][1]);
-      dp[1][2] = fmaf(a.y, b2, dp[1][2]); dp[1][3] = fmaf(a.y, b3, dp[1][3]);
-      dp[2][0] = fmaf(a.z, b0, dp[2][0]); dp[2][1] = fmaf(a.z, b1, dp[2][1]);
-      dp[2][2] = fmaf(a.z, b2, dp[2][2]); dp[2][3] = fmaf(a.z, b3, dp[2][3]);
-      dp[3][0] = fmaf(a.w, b0, dp[3][0]); dp[3][1] = fmaf(a.w, b1, dp[3][1]);
-      dp[3][2] = fmaf(a.w, b2, dp[3][2]); dp[3][3] = fmaf(a.w, b3, dp[3][3]);
-    }
+    rfma::zero(s);
+    rfma::zero(dp);
+    rfma::tile_product<true, true>(s, da, buf, ka, qa);
+    rfma::tile_product<true, true>(dp, dh, buf, vk, dq);
 
     // P (kept in s) and dS (in dp); zero past N and Nk
 #pragma unroll
@@ -620,6 +264,19 @@ __global__ void __launch_bounds__(NTHREADS) relpos_bwd_k_kernel(Params p) {
         s[i][cc] = pr;
         dp[i][cc] = pr * (dp[i][cc] - di_s[r]);
         db[i] += dp[i][cc];
+      }
+    }
+    if (grp == 0) {   // dS^T for the query side: 16 neighbouring rows a half-warp
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kj = k0 + ty * 4 + i;
+        if (kj >= p.nk) continue;
+        float* dsrow = p.ds + (bh * p.nk + kj) * p.n;
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const int qi = q0 + tx + 16 * cc;
+          if (qi < p.n) dsrow[qi] = dp[i][cc];
+        }
       }
     }
 #pragma unroll
@@ -653,7 +310,7 @@ __global__ void __launch_bounds__(NTHREADS) relpos_bwd_k_kernel(Params p) {
 #pragma unroll 2
     for (int r = 0; r < BQ; ++r) {
       const float4 g = *reinterpret_cast<const float4*>(pT + r * LDV + ty * 4);
-      const float* qcol = qaT + tx * LDS + r;
+      const float* qcol = quT + tx * LDS + r;
 #pragma unroll
       for (int j = 0; j < JD; ++j) {
         const float qv = qcol[16 * j * LDS];
@@ -666,9 +323,9 @@ __global__ void __launch_bounds__(NTHREADS) relpos_bwd_k_kernel(Params p) {
     __syncthreads();
   }
 
-  // 3. write dk, dv (input type) and the dbias column sums (fp32)
-  T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  // dk, dv of the group's columns, and the dbias column sums
+  float* dkp = p.dk + b * p.dk_sb + h * p.dk_sh;
+  float* dvp = p.dv + b * p.dv_sb + h * p.dv_sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + ty * 4 + i;
@@ -678,13 +335,166 @@ __global__ void __launch_bounds__(NTHREADS) relpos_bwd_k_kernel(Params p) {
     if (kj >= p.nk) continue;
 #pragma unroll
     for (int j = 0; j < JD; ++j) {
-      const int d = tx + 16 * j;
-      if (d < dh) {
-        dkp[kj * p.dk_sn + d] = from_f32<T>(dk[i][j] * p.scale);
-        dvp[kj * p.dv_sn + d] = from_f32<T>(dv[i][j]);
+      const int lc = tx + 16 * j;
+      if (lc < cw) {
+        dkp[kj * p.dk_sn + c0 + lc] = dk[i][j] * p.scale;
+        dvp[kj * p.dv_sn + c0 + lc] = dv[i][j];
       }
     }
-    if (tx == 0 && p.dbias) p.dbias[bh * p.nk + kj] = colsum;
+    if (tx == 0 && grp == 0 && p.dbias) p.dbias[bh * p.nk + kj] = colsum;
+  }
+}
+
+// ---------------------------------------------------------- query side
+
+// One block per (64 query rows, column tile, batch x head), over the keys:
+// d[qu | A] = scale dS [k | keytab] (tile_product of dS^T's rows and the key
+// features). A content tile (64 of the head's columns) writes dqu's first
+// term; a rel tile (32 paired columns of each half) rotates its dA into dpq
+// and writes dpq over the A rows (which the key side has finished reading).
+__global__ void __launch_bounds__(NTHREADS) relpos_bwd_da_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int dh = p.dh, d2 = p.d2, hd = d2 / 2;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = blockIdx.x * BQ, t = blockIdx.y;
+  const int64_t bh = blockIdx.z;
+  const int b = blockIdx.z / p.heads, h = blockIdx.z % p.heads;
+  const int nct = (dh + 63) / 64;   // content tiles
+  const float* dsp = p.ds + bh * p.nk * p.n;
+  auto dsl = [&](int kj, int r) {
+    const int qi = q0 + r;
+    return qi < p.n ? dsp[static_cast<int64_t>(kj) * p.n + qi] : 0.f;
+  };
+  float acc[4][4];
+  rfma::zero(acc);
+  if (t < nct) {
+    const int c0 = 64 * t;
+    const float* kp = p.k + b * p.k_sb + h * p.k_sh;
+    auto kc = [&](int kj, int lc) {
+      const int c = c0 + lc;
+      return c < dh ? kp[kj * p.k_sn + c] : 0.f;
+    };
+    rfma::tile_product<false, false>(acc, p.nk, smem, dsl, kc);
+    float* dq = p.dqu + b * p.dqu_sb + h * p.dqu_sh;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty * 4 + i;
+      if (qi >= p.n) continue;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int c = c0 + tx + 16 * cc;
+        if (c < dh) dq[qi * p.dqu_sn + c] = acc[i][cc] * p.scale;
+      }
+    }
+    return;
+  }
+  // local column lc < 32: even column j0 + lc; lc >= 32: odd column j0 + lc - 32
+  const int j0 = 32 * (t - nct);
+  auto tcol = [&](int kj, int lc) {
+    const int j = j0 + (lc & 31);
+    if (j >= hd) return 0.f;
+    return p.keytab[static_cast<int64_t>(kj) * d2 + (lc < 32 ? j : hd + j)];
+  };
+  rfma::tile_product<false, false>(acc, p.nk, smem, dsl, tcol);
+  // columns cc and cc + 2 of a thread are the two halves of column j
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    if (qi >= p.n) continue;
+    float* g = p.atab + (bh * p.n + qi) * d2;
+#pragma unroll
+    for (int pp = 0; pp < 2; ++pp) {
+      const int j = j0 + 16 * pp + tx;
+      if (j >= hd) continue;
+      const float e = acc[i][pp] * p.scale, od = acc[i][2 + pp] * p.scale;
+      const float sn = p.rowtab[static_cast<int64_t>(qi) * d2 + j];
+      const float cs = p.rowtab[static_cast<int64_t>(qi) * d2 + hd + j];
+      g[j] = sn * e - cs * od;
+      g[hd + j] = cs * e + sn * od;
+    }
+  }
+}
+
+// One block per (64 query rows, 64 head columns, batch x head): dqu += dpq
+// W^T, and the block's ddelta partial, the column sums of dpq W^T over its
+// rows (rows past N have none).
+__global__ void __launch_bounds__(NTHREADS) relpos_bwd_dq_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int dh = p.dh, d2 = p.d2;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int qt = blockIdx.x, q0 = qt * BQ, c0 = 64 * blockIdx.y;
+  const int64_t bh = blockIdx.z;
+  const int b = blockIdx.z / p.heads, h = blockIdx.z % p.heads;
+  const float* gp = p.atab + bh * p.n * d2;
+  const float* wt = p.wt + static_cast<int64_t>(h) * d2 * dh;
+  auto g = [&](int f, int r) {
+    const int qi = q0 + r;
+    return qi < p.n ? gp[static_cast<int64_t>(qi) * d2 + f] : 0.f;
+  };
+  auto wl = [&](int f, int lc) {
+    const int d = c0 + lc;
+    return d < dh ? wt[f * dh + d] : 0.f;
+  };
+  float acc[4][4];
+  rfma::zero(acc);
+  rfma::tile_product<true, false>(acc, d2, smem, g, wl);
+  float* dq = p.dqu + b * p.dqu_sb + h * p.dqu_sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    if (qi >= p.n) continue;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int d = c0 + tx + 16 * cc;
+      if (d < dh) dq[qi * p.dqu_sn + d] += acc[i][cc];
+    }
+  }
+  float* red = smem;   // 16 x 64: each row group's column sums (tile_product is done)
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) {
+    red[ty * 64 + tx + 16 * cc] = acc[0][cc] + acc[1][cc] + acc[2][cc] + acc[3][cc];
+  }
+  __syncthreads();
+  if (tid < 64 && c0 + tid < dh) {
+    float sum = 0.f;
+    for (int y = 0; y < 16; ++y) sum += red[y * 64 + tid];
+    p.ddelta_part[((static_cast<int64_t>(b) * gridDim.x + qt) * p.heads + h) * dh + c0 + tid] = sum;
+  }
+}
+
+// One block per (64 head columns, 64 rel columns, batch x head): this batch
+// and head's dW = qv^T dpq over all N rows, qv = qu + delta.
+__global__ void __launch_bounds__(NTHREADS) relpos_bwd_dw_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int dh = p.dh, d2 = p.d2;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int d0 = 64 * blockIdx.x, f0 = 64 * blockIdx.y;
+  const int64_t bh = blockIdx.z;
+  const int b = blockIdx.z / p.heads, h = blockIdx.z % p.heads;
+  const float* qu = p.qu + b * p.qu_sb + h * p.qu_sh;
+  const float* dl = p.delta + h * dh;
+  const float* gp = p.atab + bh * p.n * d2;
+  auto qv = [&](int qi, int r) {
+    const int d = d0 + r;
+    return d < dh ? qu[qi * p.qu_sn + d] + dl[d] : 0.f;
+  };
+  auto g = [&](int qi, int lc) {
+    const int f = f0 + lc;
+    return f < d2 ? gp[static_cast<int64_t>(qi) * d2 + f] : 0.f;
+  };
+  float acc[4][4];
+  rfma::zero(acc);
+  rfma::tile_product<false, false>(acc, p.n, smem, qv, g);
+  float* dwp = p.dw_part + bh * dh * d2;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int d = d0 + ty * 4 + i;
+    if (d >= dh) continue;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int f = f0 + tx + 16 * cc;
+      if (f < d2) dwp[static_cast<int64_t>(d) * d2 + f] = acc[i][cc];
+    }
   }
 }
 
@@ -1236,49 +1046,59 @@ cudaError_t prepare(const void* fn, size_t bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <int JA>
-cudaError_t launch_q(const Params& p, int batch, int heads, cudaStream_t stream) {
-  const size_t bytes = q_smem_floats(p.dh, p.d2) * sizeof(float);
-  cudaError_t err = prepare(reinterpret_cast<const void*>(&relpos_bwd_q_kernel<float, JA>), bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.n + BQ - 1) / BQ, heads, batch);
-  relpos_bwd_q_kernel<float, JA><<<grid, NTHREADS, bytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <int JD>
 cudaError_t launch_k(const Params& p, int batch, int heads, cudaStream_t stream) {
-  const size_t bytes = k_smem_floats(p.dh, p.d2) * sizeof(float);
-  cudaError_t err = prepare(reinterpret_cast<const void*>(&relpos_bwd_k_kernel<float, JD>), bytes);
+  const size_t bytes = k_smem_floats(p.dh) * sizeof(float);
+  cudaError_t err = prepare(reinterpret_cast<const void*>(&relpos_bwd_k_kernel<JD>), bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.nk + BK - 1) / BK, heads, batch);
-  relpos_bwd_k_kernel<float, JD><<<grid, NTHREADS, bytes, stream>>>(p);
+  const int gw = k_group_width(p.dh);
+  const dim3 grid((p.nk + BK - 1) / BK, heads, batch * ((p.dh + gw - 1) / gw));
+  relpos_bwd_k_kernel<JD><<<grid, NTHREADS, bytes, stream>>>(p, gw);
   return cudaGetLastError();
 }
 
+cudaError_t launch_tile(const void* fn, dim3 grid, const Params& p, cudaStream_t stream) {
+  const size_t bytes = TILE_FLOATS * sizeof(float);
+  cudaError_t err = prepare(fn, bytes);
+  if (err != cudaSuccess) return err;
+  void* args[] = {const_cast<Params*>(&p)};
+  return cudaLaunchKernel(fn, grid, dim3(NTHREADS), args, bytes, stream);
+}
+
+// the fp32 route's largest pass, in floats
+inline size_t fma_smem_floats(int dh) {
+  return smax(rfma::prep_smem_floats(dh), smax(k_smem_floats(dh), TILE_FLOATS));
+}
+
+// Five passes in stream order, each reading what the ones before it wrote:
+// prep (A rows, Di), key side (dk, dv, dbias, dS^T), dA (dqu's first term,
+// dpq over the A rows), dqu += dpq W^T with the ddelta partials, dW partials.
 cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stream) {
-  const int da = p.dh + p.d2;
-  if (p.dh > 128 || da > 16 * 26 || q_smem_floats(p.dh, p.d2) * sizeof(float) > MAX_SMEM ||
-      k_smem_floats(p.dh, p.d2) * sizeof(float) > MAX_SMEM) {
+  if (p.dh > rfma::MAX_DH || fma_smem_floats(p.dh) * sizeof(float) > MAX_SMEM) {
     return cudaErrorInvalidValue;
   }
-  // the key-side pass reads the Di that the query-side pass writes: same
-  // stream, so in order
-  cudaError_t err;
-  switch (ja_for(da)) {
-    case 4: err = launch_q<4>(p, batch, heads, stream); break;
-    case 8: err = launch_q<8>(p, batch, heads, stream); break;
-    case 14: err = launch_q<14>(p, batch, heads, stream); break;
-    case 20: err = launch_q<20>(p, batch, heads, stream); break;
-    default: err = launch_q<26>(p, batch, heads, stream); break;
+  const rfma::PrepParams pp{p.qu, p.o, p.dout, p.delta, p.w, p.rowtab, p.atab, p.di,
+                            p.n, p.dh, p.d2, p.qu_sb, p.qu_sh, p.qu_sn,
+                            p.o_sb, p.o_sh, p.o_sn, p.do_sb, p.do_sh, p.do_sn};
+  cudaError_t err = rfma::launch_prep(pp, batch, heads, stream);
+  if (err != cudaSuccess) return err;
+  switch (jd_for(k_group_width(p.dh))) {
+    case 2: err = launch_k<2>(p, batch, heads, stream); break;
+    case 4: err = launch_k<4>(p, batch, heads, stream); break;
+    case 6: err = launch_k<6>(p, batch, heads, stream); break;
+    default: err = launch_k<8>(p, batch, heads, stream); break;
   }
   if (err != cudaSuccess) return err;
-  switch (jd_for(p.dh)) {
-    case 2: return launch_k<2>(p, batch, heads, stream);
-    case 4: return launch_k<4>(p, batch, heads, stream);
-    case 6: return launch_k<6>(p, batch, heads, stream);
-    default: return launch_k<8>(p, batch, heads, stream);
-  }
+  const int qtiles = (p.n + BQ - 1) / BQ, ctiles = (p.dh + 63) / 64;
+  const int rtiles = (p.d2 / 2 + 31) / 32, bh = batch * heads;
+  err = launch_tile(reinterpret_cast<const void*>(&relpos_bwd_da_kernel),
+                    dim3(qtiles, ctiles + rtiles, bh), p, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_tile(reinterpret_cast<const void*>(&relpos_bwd_dq_kernel),
+                    dim3(qtiles, ctiles, bh), p, stream);
+  if (err != cudaSuccess) return err;
+  return launch_tile(reinterpret_cast<const void*>(&relpos_bwd_dw_kernel),
+                     dim3(ctiles, (p.d2 + 63) / 64, bh), p, stream);
 }
 
 // the bf16 route's padded widths, and the padded head width its registers
@@ -1336,12 +1156,14 @@ extern "C" {
 // width dh and rel width d2, in bytes.
 size_t ecf_relpos_attention_bwd_smem(int dtype, int dh, int d2) {
   if (dtype == 1) return tc_smem(tc_dhp(dh), tc_d2p(d2));
-  return zmax(q_smem_floats(dh, d2), k_smem_floats(dh, d2)) * sizeof(float);
+  return fma_smem_floats(dh) * sizeof(float);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 for qu, k, v, o, dO and the token
 // gradients. float32 takes delta, w, wt, rowtab and keytab in fp32 at widths
-// dh and d2, atab as its fp32 scratch of A rows, and no qa_do or ds; bfloat16
+// dh and d2, dw_part (B, H, dh, d2), two fp32 scratch buffers, atab (B, H, N,
+// d2) for the A rows and then dpq and ds (B, H, Nk, N) for dS^T, and no
+// qa_do; bfloat16
 // takes delta, w, rowtab and keytab in bf16, padded as relpos_tc.cuh
 // describes (d2 the padded rel width; wt unused), dw_part and ddelta_part at
 // the padded widths, and three bf16 scratch buffers: atab (B, H, np, dhp +
@@ -1365,10 +1187,14 @@ int ecf_relpos_attention_bwd(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    Params p{qu, k, v, o, dout, lse, static_cast<const float*>(delta),
-             static_cast<const float*>(w), static_cast<const float*>(wt),
-             static_cast<const float*>(rowtab), static_cast<const float*>(keytab), bias, dqu, dk,
-             dv, dw_part, ddelta_part, di, static_cast<float*>(atab), dbias, n, nk, dh, d2,
+    if (atab == nullptr || ds == nullptr || wt == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const auto f = [](const void* x) { return static_cast<const float*>(x); };
+    Params p{f(qu), f(k), f(v), f(o), f(dout), lse, f(delta), f(w), f(wt), f(rowtab), f(keytab),
+             bias, static_cast<float*>(dqu), static_cast<float*>(dk), static_cast<float*>(dv),
+             dw_part, ddelta_part, di, static_cast<float*>(atab), static_cast<float*>(ds), dbias,
+             heads, n, nk, dh, d2,
              qu_sb, qu_sh, qu_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, o_sb, o_sh, o_sn,
              do_sb, do_sh, do_sn, dqu_sb, dqu_sh, dqu_sn, dk_sb, dk_sh, dk_sn,
              dv_sb, dv_sh, dv_sn, bias_sb, scale};

@@ -38,61 +38,69 @@
 //     fp32 registers; P, rounded to bf16, is the A fragment of P v straight
 //     from the accumulators (FlashAttention-2's register reuse). About 100
 //     KB of shared memory at the flagship's shapes: two blocks an SM.
-//   * fp32, relpos_fwd_kernel<float, J>: fp32 FMAs from shared memory (TF32
-//     products would miss the fp32 checks). The block forms its A rows
-//     feature-major beside the qu tile as a register-tiled product; each
-//     thread owns a 4 x 4 tile of scores, one 16-byte and four 4-byte loads
-//     per 16 FMAs, keys in tiles of 64 and their augmented features in
-//     double-buffered chunks of 32. It takes head widths up to 128.
-//
+//   * fp32, fp32 FMAs from shared memory (TF32 products would miss the
+//     fp32 checks), one block of 256 threads per (64 query rows, head,
+//     batch), each thread a 4 x 4 tile of scores (one 16-byte and four
+//     4-byte loads per 16 FMAs) and J = ceil(dh / 16), rounded up to 2, 4,
+//     6, 8, 12 or 16, output columns; keys stream in tiles of 64, [k |
+//     keytab] in double-buffered chunks of 32 features, then O += P V from
+//     a V tile of 64 x 16 J floats. Two kernels, chosen by the widths
+//     (resident_fits):
+//       - relpos_fwd_resident_kernel<J> where the block's transposed [qu |
+//         A] tile, (dh + D) x 64 floats, fits in shared memory beside the
+//         key chunks and the V tile, and dh <= 128: the block forms its A
+//         rows there as a register-tiled product, W staged 32 rows at a
+//         time. It takes the flagship's shapes and every shipped shape
+//         but the two below (D up to 712 at dh 64, 181,248 bytes at (64,
+//         512)).
+//       - otherwise two passes (relpos_fma.cuh): rfma::prep_kernel writes
+//         the A rows (B, H, N, 2hd) to device memory, then
+//         relpos_fwd_kernel<J> streams [qu | A] in chunks of 32 too. No
+//         feature row is held whole, so the rel width is bounded by nothing
+//         but device memory; the head width by the V tile and O's
+//         registers: up to 256, where the largest pass, the prep's, takes
+//         119,040 bytes of shared memory. The A rows cost a round trip
+//         through device memory (B H N 2hd fp32: 9.3 MB at EfficientConformer
+//         Large's stage 3, b2 x 16 s) and [qu | A] is read again from L2 for
+//         every key tile, so it is slower where the resident kernel fits.
+//         It takes the shipped widths the resident kernel cannot: head 135
+//         (Medium and Large stage 1) and (90, 720) (Large stage 3).
+
 // Both keep the online softmax in registers, so no (N, Nk) tensor exists
 // anywhere; keys past Nk are excluded by the kernels themselves.
 //
 // Inputs: qu, k, v (fp32 or bf16) with arbitrary batch/head/row strides and
 // unit feature stride; the fp32 route takes delta, w, rowtab and keytab in
-// fp32, the bf16 route in bf16 at the padded widths of relpos_tc.cuh, all
-// contiguous; bias is fp32 (B or 1, Nk) with batch stride bias_sb (0 when it
-// broadcasts). The kernels allocate nothing and do not synchronise.
+// fp32 (and the streamed kernel a scratch buffer for the A rows), the bf16
+// route in bf16 at the padded widths of relpos_tc.cuh, all contiguous; bias
+// is fp32 (B or 1, Nk) with batch stride bias_sb (0 when it broadcasts). The kernels allocate nothing and do not synchronise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "relpos_fma.cuh"
 #include "relpos_tc.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per tile
-constexpr int DC = 32;          // augmented features per streamed chunk
-constexpr int NTHREADS = 256;   // a 16 x 16 grid: ty owns 4 rows, tx 4 key columns
-constexpr int LDQ = BQ;         // qaT row stride: [feature][query row]
-constexpr int LDP = BQ + 4;     // psT row stride: [key][query row], 16-byte rows
-constexpr int LDK = BK + 1;     // kaT row stride: [feature][key], odd for the stores
-constexpr int CHUNK_PER_THREAD = DC * BK / NTHREADS;
-constexpr float MASKED = -1e30f;
-constexpr size_t MAX_SMEM = 232448;  // 227 KB a block may use on sm_90
-constexpr int WCHUNK = 32;      // rows of W staged at a time while forming A
-
-static_assert(NTHREADS == 16 * 16 && BQ == 4 * 16 && BK == 4 * 16, "thread grid");
-static_assert(DC * BK % NTHREADS == 0 && NTHREADS % DC == 0, "chunk loader");
-
-// the FMA kernel's element type is float (bf16 takes the tensor cores)
-__device__ __forceinline__ float to_f32(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+using rfma::BK;
+using rfma::MAX_SMEM;
+using rfma::BQ;
+using rfma::NTHREADS;
 
 struct Params {
-  const void* qu;
-  const void* k;
-  const void* v;
+  const float* qu;
+  const float* k;
+  const float* v;
   const float* delta;   // (H, dh)
   const float* w;       // (H, dh, d2)
   const float* rowtab;  // (N, d2)  [sin | cos]
   const float* keytab;  // (Nk, d2) [cos | sin]
   const float* bias;    // (B or 1, Nk) or null
-  void* o;
+  float* o;
   float* lse;           // (B, H, N)
+  float* atab;          // (B, H, N, d2): the A rows from the prep pass (streamed only)
   int n, nk, dh, d2;
   int64_t qu_sb, qu_sh, qu_sn;
   int64_t k_sb, k_sh, k_sn;
@@ -104,20 +112,169 @@ struct Params {
 
 // output columns per thread: dh <= 16 * jmax
 __host__ __device__ inline int jmax_for(int dh) {
-  return dh <= 32 ? 2 : dh <= 64 ? 4 : dh <= 96 ? 6 : 8;
+  return dh <= 32 ? 2 : dh <= 64 ? 4 : dh <= 96 ? 6 : dh <= 128 ? 8 : dh <= 192 ? 12 : 16;
 }
 
+// the key loop's shared memory: tile_product's chunks (the probabilities
+// reuse them between products) and the V tile
+__host__ __device__ inline size_t smem_floats(int dh) {
+  return rfma::TILE_FLOATS + static_cast<size_t>(BK) * 16 * jmax_for(dh);
+}
+
+// One block per (64 query rows, head, batch), after the prep pass wrote the
+// A rows. For each tile of 64 keys: S = [qu | A] [k | keytab]^T streamed
+// over the augmented features in chunks of 32 (tile_product), the scale, key
+// bias and ragged key edge, the online softmax in registers, P to shared
+// memory, O += P V from the V tile.
+template <int JMAX>
+__global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int DHP = 16 * JMAX;         // padded V row
+  const int dh = p.dh, d2 = p.d2, da = dh + d2;
+  float* buf = smem;                     // tile_product's chunks
+  float* psT = smem;                     // BK x LDV: the probabilities, key-major
+  float* vs = smem + rfma::TILE_FLOATS;  // BK x DHP: the V tile, zero-padded
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int64_t bh = static_cast<int64_t>(b) * gridDim.y + h;
+  const float* qu = p.qu + b * p.qu_sb + h * p.qu_sh;
+  const float* kp = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vp = p.v + b * p.v_sb + h * p.v_sh;
+  const float* ap = p.atab + bh * p.n * d2;
+  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
+
+  float m[4], l[4], o[4][JMAX];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = rfma::MASKED;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < JMAX; ++j) o[i][j] = 0.f;
+  }
+  // [qu | A] of query row q0 + r, [k | keytab] of key k0 + c, at feature f
+  auto qa = [&](int f, int r) {
+    const int qi = q0 + r;
+    if (qi >= p.n) return 0.f;
+    return f < dh ? qu[qi * p.qu_sn + f] : ap[static_cast<int64_t>(qi) * d2 + f - dh];
+  };
+
+  for (int k0 = 0; k0 < p.nk; k0 += BK) {
+    auto ka = [&](int f, int c) {
+      const int kj = k0 + c;
+      if (kj >= p.nk) return 0.f;
+      return f < dh ? kp[kj * p.k_sn + f] : p.keytab[static_cast<int64_t>(kj) * d2 + f - dh];
+    };
+    // the V tile (its readers, P V, finished at the last barrier)
+    for (int i = tid; i < BK * DHP; i += NTHREADS) {
+      const int c = i / DHP, d = i - c * DHP;
+      const int kj = k0 + c;
+      vs[i] = (kj < p.nk && d < dh) ? vp[kj * p.v_sn + d] : 0.f;
+    }
+    float s[4][4];
+    rfma::zero(s);
+    rfma::tile_product<true, true>(s, da, buf, qa, ka);
+
+    // scale, key bias, and the ragged edge of the keys
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int kj = k0 + tx + 16 * cc;
+      const bool valid = kj < p.nk;
+      const float kb = (valid && bias) ? bias[kj] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i][cc] = valid ? s[i][cc] * p.scale + kb : rfma::MASKED;
+    }
+
+    // online softmax: the 16 threads of a row group are one half-warp.
+    // tile_product ended at a barrier, so psT may overwrite its chunks.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        s[i][cc] = expf(s[i][cc] - m_new);
+        sum += s[i][cc];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      const float alpha = expf(m[i] - m_new);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < JMAX; ++j) o[i][j] *= alpha;
+    }
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      *reinterpret_cast<float4*>(psT + (tx + 16 * cc) * rfma::LDV + ty * 4) =
+          make_float4(s[0][cc], s[1][cc], s[2][cc], s[3][cc]);
+    }
+    __syncthreads();
+
+    // O += P V over this key tile
+    for (int c = 0; c < BK; ++c) {
+      const float4 pr = *reinterpret_cast<const float4*>(psT + c * rfma::LDV + ty * 4);
+      const float* vrow = vs + c * DHP + tx;
+#pragma unroll
+      for (int j = 0; j < JMAX; ++j) {
+        const float vv = vrow[16 * j];
+        o[0][j] = fmaf(pr.x, vv, o[0][j]);
+        o[1][j] = fmaf(pr.y, vv, o[1][j]);
+        o[2][j] = fmaf(pr.z, vv, o[2][j]);
+        o[3][j] = fmaf(pr.w, vv, o[3][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // normalise and write O and the LSE
+  float* op = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    if (qi >= p.n) continue;
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int j = 0; j < JMAX; ++j) {
+      const int d = tx + 16 * j;
+      if (d < dh) op[qi * p.o_sn + d] = o[i][j] * inv;
+    }
+    if (tx == 0) p.lse[bh * p.n + qi] = m[i] + logf(l[i]);
+  }
+}
+
+// ---------------------------------- fp32: [qu | A] resident in shared memory
+
+// Where the block's whole transposed [qu | A] tile fits in shared memory
+// (resident_fits), the block forms its A rows there beside the qu tile and
+// streams only the keys: no prep pass and no A rows in device memory.
+constexpr int DC = rfma::DC;           // augmented features per streamed key chunk
+constexpr int WCHUNK = rfma::WCHUNK;   // rows of W staged at a time while forming A
+constexpr int LDQ = BQ;                // qaT row stride: [feature][query row]
+constexpr int LDP = rfma::LDV;         // psT row stride: [key][query row], 16-byte rows
+constexpr int LDK = rfma::LDS;         // kaT row stride: [feature][key], odd for the stores
+constexpr int CHUNK_PER_THREAD = DC * BK / NTHREADS;
+constexpr int RESIDENT_MAX_DH = 128;   // 8 output columns a thread
 // the key chunks and the probabilities are never live together: one region
 constexpr int SHARED_REGION = BK * LDP > 2 * DC * LDK ? BK * LDP : 2 * DC * LDK;
+static_assert(DC * BK % NTHREADS == 0 && NTHREADS % DC == 0, "chunk loader");
 static_assert(WCHUNK * 128 <= SHARED_REGION, "the staged W chunk fits the key-chunk region");
 
-__host__ __device__ inline size_t smem_floats(int dh, int d2) {
-  const size_t da = dh + d2;
-  return da * LDQ + SHARED_REGION + BK * 16 * jmax_for(dh);
+__host__ __device__ inline size_t resident_smem_floats(int dh, int d2) {
+  return static_cast<size_t>(dh + d2) * LDQ + SHARED_REGION + BK * 16 * jmax_for(dh);
+}
+__host__ __device__ inline bool resident_fits(int dh, int d2) {
+  return dh <= RESIDENT_MAX_DH && resident_smem_floats(dh, d2) * sizeof(float) <= MAX_SMEM;
 }
 
-template <typename T, int JMAX>
-__global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
+// One block per (64 query rows, head, batch): the qu tile and the A rows,
+// feature-major, then for each tile of 64 keys S = [qu | A] [k | keytab]^T
+// with [k | keytab] in double-buffered chunks of DC, the online softmax and
+// O += P V, as relpos_fwd_kernel does it.
+template <int JMAX>
+__global__ void __launch_bounds__(NTHREADS) relpos_fwd_resident_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   const int dh = p.dh, d2 = p.d2, hd = d2 / 2;
   const int da = dh + d2;          // augmented width: [qu | A] and [k | keytab]
@@ -131,9 +288,9 @@ __global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
   const int ty = tid / 16, tx = tid % 16;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
-  const T* qu = static_cast<const T*>(p.qu) + b * p.qu_sb + h * p.qu_sh;
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* qu = p.qu + b * p.qu_sb + h * p.qu_sh;
+  const float* kp = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vp = p.v + b * p.v_sb + h * p.v_sh;
   const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
   const float* dl = p.delta + h * dh;
 
@@ -142,7 +299,7 @@ __global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
   for (int i = tid; i < BQ * dh; i += NTHREADS) {
     const int r = i % BQ, d = i / BQ;
     const int qi = q0 + r;
-    qaT[d * LDQ + r] = qi < p.n ? to_f32(qu[qi * p.qu_sn + d]) : 0.f;
+    qaT[d * LDQ + r] = qi < p.n ? qu[qi * p.qu_sn + d] : 0.f;
   }
 
   // 2. the A rows: [P | Q] = (qu + delta) W_h, rotated by the row table.
@@ -211,7 +368,7 @@ __global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
   float m[4], l[4], o[4][JMAX];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    m[i] = MASKED;
+    m[i] = rfma::MASKED;
     l[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < JMAX; ++j) o[i][j] = 0.f;
@@ -232,7 +389,7 @@ __global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
         const int kj = k0 + ld_c0 + e * LD_CSTEP;
         float val = 0.f;
         if (kj < p.nk && f < da) {
-          val = f < dh ? to_f32(kp[kj * p.k_sn + f])
+          val = f < dh ? kp[kj * p.k_sn + f]
                        : p.keytab[static_cast<int64_t>(kj) * d2 + (f - dh)];
         }
         stage[e] = val;
@@ -250,7 +407,7 @@ __global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
     for (int i = tid; i < BK * DHP; i += NTHREADS) {
       const int c = i / DHP, d = i - c * DHP;
       const int kj = k0 + c;
-      vs[i] = (kj < p.nk && d < dh) ? to_f32(vp[kj * p.v_sn + d]) : 0.f;
+      vs[i] = (kj < p.nk && d < dh) ? vp[kj * p.v_sn + d] : 0.f;
     }
     load_chunk(0);
     store_chunk(0);
@@ -293,7 +450,7 @@ __global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
       const bool valid = kj < p.nk;
       const float kb = (valid && bias) ? bias[kj] : 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[i][cc] = valid ? s[i][cc] * p.scale + kb : MASKED;
+      for (int i = 0; i < 4; ++i) s[i][cc] = valid ? s[i][cc] * p.scale + kb : rfma::MASKED;
     }
 
     // online softmax: the 16 threads of a row group are one half-warp. The
@@ -342,7 +499,7 @@ __global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
   }
 
   // 4. normalise and write O (input type) and the LSE (fp32)
-  T* op = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  float* op = p.o + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
@@ -351,7 +508,7 @@ __global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < JMAX; ++j) {
       const int d = tx + 16 * j;
-      if (d < dh) op[qi * p.o_sn + d] = from_f32<T>(o[i][j] * inv);
+      if (d < dh) op[qi * p.o_sn + d] = o[i][j] * inv;
     }
     if (tx == 0) {
       p.lse[(static_cast<int64_t>(b) * gridDim.y + h) * p.n + qi] = m[i] + logf(l[i]);
@@ -589,23 +746,44 @@ cudaError_t prepare(const void* fn, size_t bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <int JMAX>
-cudaError_t launch_j(const Params& p, int batch, int heads, size_t bytes, cudaStream_t stream) {
-  cudaError_t err = prepare(reinterpret_cast<const void*>(&relpos_fwd_kernel<float, JMAX>), bytes);
+cudaError_t launch_kernel(const void* fn, const Params& p, int batch, int heads, size_t bytes,
+                          cudaStream_t stream) {
+  cudaError_t err = prepare(fn, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.n + BQ - 1) / BQ, heads, batch);
-  relpos_fwd_kernel<float, JMAX><<<grid, NTHREADS, bytes, stream>>>(p);
-  return cudaGetLastError();
+  void* args[] = {const_cast<Params*>(&p)};
+  return cudaLaunchKernel(fn, grid, dim3(NTHREADS), args, bytes, stream);
 }
 
+template <int JMAX>
+const void* streamed() { return reinterpret_cast<const void*>(&relpos_fwd_kernel<JMAX>); }
+template <int JMAX>
+const void* resident() { return reinterpret_cast<const void*>(&relpos_fwd_resident_kernel<JMAX>); }
+
 cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stream) {
-  const size_t bytes = smem_floats(p.dh, p.d2) * sizeof(float);
-  if (p.dh > 128 || bytes > MAX_SMEM) return cudaErrorInvalidValue;
+  if (resident_fits(p.dh, p.d2)) {
+    const size_t bytes = resident_smem_floats(p.dh, p.d2) * sizeof(float);
+    switch (jmax_for(p.dh)) {
+      case 2: return launch_kernel(resident<2>(), p, batch, heads, bytes, stream);
+      case 4: return launch_kernel(resident<4>(), p, batch, heads, bytes, stream);
+      case 6: return launch_kernel(resident<6>(), p, batch, heads, bytes, stream);
+      default: return launch_kernel(resident<8>(), p, batch, heads, bytes, stream);
+    }
+  }
+  // streamed, in stream order: the prep pass writes the A rows the key loop reads
+  const size_t bytes = smem_floats(p.dh) * sizeof(float);
+  if (p.dh > rfma::MAX_DH || bytes > MAX_SMEM || p.atab == nullptr) return cudaErrorInvalidValue;
+  const rfma::PrepParams pp{p.qu, nullptr, nullptr, p.delta, p.w, p.rowtab, p.atab, nullptr,
+                            p.n, p.dh, p.d2, p.qu_sb, p.qu_sh, p.qu_sn, 0, 0, 0, 0, 0, 0};
+  cudaError_t err = rfma::launch_prep(pp, batch, heads, stream);
+  if (err != cudaSuccess) return err;
   switch (jmax_for(p.dh)) {
-    case 2: return launch_j<2>(p, batch, heads, bytes, stream);
-    case 4: return launch_j<4>(p, batch, heads, bytes, stream);
-    case 6: return launch_j<6>(p, batch, heads, bytes, stream);
-    default: return launch_j<8>(p, batch, heads, bytes, stream);
+    case 2: return launch_kernel(streamed<2>(), p, batch, heads, bytes, stream);
+    case 4: return launch_kernel(streamed<4>(), p, batch, heads, bytes, stream);
+    case 6: return launch_kernel(streamed<6>(), p, batch, heads, bytes, stream);
+    case 8: return launch_kernel(streamed<8>(), p, batch, heads, bytes, stream);
+    case 12: return launch_kernel(streamed<12>(), p, batch, heads, bytes, stream);
+    default: return launch_kernel(streamed<16>(), p, batch, heads, bytes, stream);
   }
 }
 
@@ -641,21 +819,31 @@ inline int tc_d2p(int d2) { return 2 * rtc::round8(d2 / 2); }
 extern "C" {
 
 // Shared memory one block of the route for `dtype` (0 float32: the FMA
-// kernel, 1 bfloat16: the tensor-core kernel) needs at head width dh and rel
-// width d2, in bytes (ptxas reports none: it is sized at launch).
+// kernels, the resident kernel where it fits, else the larger of the prep
+// pass and the streamed key loop; 1 bfloat16: the tensor-core kernel) needs
+// at head width dh and rel width d2, in bytes (ptxas reports none: it is
+// sized at launch).
+// 1 where the fp32 route runs the resident kernel at widths dh and d2 (it
+// needs no atab), 0 where it runs the prep pass and the streamed kernel.
+int ecf_relpos_attention_fwd_resident(int dh, int d2) { return resident_fits(dh, d2) ? 1 : 0; }
+
 size_t ecf_relpos_attention_fwd_smem(int dtype, int dh, int d2) {
   if (dtype == 1) return tc_smem_bytes(tc_dhp(dh), tc_d2p(d2));
-  return smem_floats(dh, d2) * sizeof(float);
+  if (resident_fits(dh, d2)) return resident_smem_floats(dh, d2) * sizeof(float);
+  const size_t prep = rfma::prep_smem_floats(dh), loop = smem_floats(dh);
+  return (prep > loop ? prep : loop) * sizeof(float);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 for qu, k, v and o. float32 takes delta,
-// w, rowtab and keytab in fp32 at widths dh and d2; bfloat16 takes them in
-// bf16, padded as relpos_tc.cuh describes, with d2 the padded rel width.
+// w, rowtab and keytab in fp32 at widths dh and d2, and atab (B, H, N, d2)
+// fp32 as the scratch of the streamed kernel's A rows (null where the
+// resident kernel takes the widths: ecf_relpos_attention_fwd_resident); bfloat16 takes them in bf16, padded as
+// relpos_tc.cuh describes, with d2 the padded rel width, and no atab.
 // Returns a cudaError_t.
 int ecf_relpos_attention_fwd(
     int dtype, const void* qu, const void* k, const void* v, const void* delta,
     const void* w, const void* rowtab, const void* keytab, const float* bias,
-    void* o, float* lse, int batch, int heads, int n, int nk, int dh, int d2,
+    void* o, float* lse, float* atab, int batch, int heads, int n, int nk, int dh, int d2,
     int64_t qu_sb, int64_t qu_sh, int64_t qu_sn, int64_t k_sb, int64_t k_sh,
     int64_t k_sn, int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb,
     int64_t o_sh, int64_t o_sn, int64_t bias_sb, float scale, void* stream) {
@@ -664,8 +852,10 @@ int ecf_relpos_attention_fwd(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    Params p{qu, k, v, static_cast<const float*>(delta), static_cast<const float*>(w),
-             static_cast<const float*>(rowtab), static_cast<const float*>(keytab), bias, o, lse,
+    Params p{static_cast<const float*>(qu), static_cast<const float*>(k),
+             static_cast<const float*>(v), static_cast<const float*>(delta),
+             static_cast<const float*>(w), static_cast<const float*>(rowtab),
+             static_cast<const float*>(keytab), bias, static_cast<float*>(o), lse, atab,
              n, nk, dh, d2, qu_sb, qu_sh, qu_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn,
              o_sb, o_sh, o_sn, bias_sb, scale};
     return static_cast<int>(launch_fp32(p, batch, heads, s));

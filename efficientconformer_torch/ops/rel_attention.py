@@ -28,7 +28,13 @@ failure: bf16 runs the tensor-core kernels (mma.sync on bf16 tiles; counted
 in ``tc_launches``), which take delta, W and the tables in bf16 with the
 head width padded to a multiple of 16 and each half of the rel width to a
 multiple of 8 (``tc_layout``), as the JAX package casts the pos kernel and
-delta to the compute type; fp32 runs the FMA kernels in fp32 throughout.
+delta to the compute type; fp32 runs the FMA kernels in fp32 throughout,
+which take head widths up to 256 at any rel width: every width of the
+shipped Medium and Large encoders. Its forward holds the block's [qu | A]
+in shared memory where it fits (``fma_resident``) and otherwise streams it
+after a prep pass, as its backward always does (csrc/relpos_fma.cuh). What a route does not take is refused
+before the launch (``refusal``, computed here from the kernel files'
+constants, mirrored below), naming the ROADMAP item that would lift it.
 The forward returns (o in the dtype of qu, row log-sum-exp (B, H, N) fp32)
 and saves the log-sum-exp for the backward, which recomputes the
 probabilities from it. The tables get no gradient; the bias gets one only
@@ -51,9 +57,29 @@ KERNEL = "rel_attention_fwd"
 KERNEL_BWD = "rel_attention_bwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
-FMA_MAX_DH = 128      # widest head the fp32 kernels take
-FMA_MAX_DA = 416      # widest dh + rel width the fp32 backward takes (the forward: any)
+ROADMAP_ITEM = "ROADMAP [27]"   # the rel-pos widths the kernels do not take yet
+# The fp32 route's constants, as csrc/relpos_fma.cuh has them
+FMA_MAX_DH = 256      # widest head the fp32 kernels take, at any rel width
+FMA_BQ = 64           # query rows (and keys) of a tile
+FMA_DC = 32           # depth of tile_product's streamed chunks
+FMA_LDA = 68          # row strides of its two chunks
+FMA_LDB = 65
+FMA_LDV = 68          # row strides of tiles read four rows / one word at a time
+FMA_LDS = 65
+FMA_WCHUNK = 32       # rows of W staged at a time by the prep pass
+FMA_LDAS = 129        # row stride of the prep pass's A staging tile
+FMA_RESIDENT_MAX_DH = 128   # widest head of the forward's resident kernel (rel_attention_fwd.cu)
+# (widest head, output columns a thread) of the forward (jmax_for), and
+# (widest column group, columns a thread) of the backward's key side (jd_for)
+FMA_COLUMNS = ((32, 2), (64, 4), (96, 6), (128, 8), (192, 12), (256, 16))
+FMA_KEY_COLUMNS = ((32, 2), (64, 4), (96, 6), (128, 8))
+# The bf16 route's, as csrc/relpos_tc.cuh and the two kernel files have them
 TC_MAX_DHP = 144      # widest padded head the tensor-core kernels take
+TC_BQ = 64            # query rows a block (rtc::BQ)
+TC_KC = 64            # rel features a streamed chunk (rtc::KC)
+TC_LDC = TC_KC + 8    # its row stride (rtc::LDC)
+TC_BK = 64            # keys a tile
+TC_TQ = 32            # query rows a streamed tile of the backward's key side
 _BQ = 64              # query rows per block of the backward's query-side passes
 
 
@@ -246,39 +272,96 @@ def _lib(kernel: str, fn_name: str, n_ptrs: int, n_strides: int) -> tuple:
 
 
 def _bind():
-    return _lib(KERNEL, "ecf_relpos_attention_fwd", 10, 13)
+    return _lib(KERNEL, "ecf_relpos_attention_fwd", 11, 13)
 
 
 def _bind_bwd():
     return _lib(KERNEL_BWD, "ecf_relpos_attention_bwd", 22, 25)
 
 
+def _columns(width: int, table) -> int:
+    return next(j for w, j in table if width <= w)
+
+
+def fma_key_group(dh: int) -> tuple[int, int]:
+    """(group width, columns a thread) of the fp32 backward's key side,
+    which splits the head width into groups of at most 128 columns
+    (k_group_width, jd_for)."""
+    groups = -(-dh // 128)
+    gw = _round(-(-dh // groups), 16)
+    return gw, _columns(gw, FMA_KEY_COLUMNS)
+
+
+def _fma_resident_floats(dh: int, d2: int) -> int:
+    """Shared memory of the fp32 forward's resident kernel in floats:
+    [qu | A]^T of 64 rows, the key chunks or the probabilities, the V tile
+    (resident_smem_floats)."""
+    region = max(FMA_BQ * FMA_LDV, 2 * FMA_DC * FMA_LDS)
+    return (dh + d2) * FMA_BQ + region + FMA_BQ * 16 * _columns(dh, FMA_COLUMNS)
+
+
+def fma_resident(dh: int, d2: int) -> bool:
+    """Whether the fp32 forward runs its resident kernel, which holds the
+    block's [qu | A] whole in shared memory, at head width dh and rel width
+    d2 (resident_fits); else it runs the prep pass and the streamed kernel,
+    which needs the A rows' scratch."""
+    return dh <= FMA_RESIDENT_MAX_DH and 4 * _fma_resident_floats(dh, d2) <= SMEM_LIMIT
+
+
+def fma_smem_bytes(dh: int, d2: int) -> tuple[int, int]:
+    """Shared memory of the fp32 route's largest pass, (forward, backward),
+    in bytes at head width dh and rel width d2. Only the resident forward's
+    depends on the rel width."""
+    tile = 2 * FMA_DC * (FMA_LDA + FMA_LDB)                  # tile_product's chunks
+    prep = dh * FMA_LDV + FMA_WCHUNK * 128 + FMA_BQ * FMA_LDAS
+    key = tile + 2 * 16 * fma_key_group(dh)[1] * FMA_LDS + 3 * FMA_BQ
+    bwd = 4 * max(prep, key, tile)
+    if fma_resident(dh, d2):
+        return 4 * _fma_resident_floats(dh, d2), bwd
+    fwd = tile + FMA_BQ * 16 * _columns(min(dh, FMA_MAX_DH), FMA_COLUMNS)  # + V
+    return 4 * max(prep, fwd), bwd
+
+
+def tc_smem_bytes(dh: int, d2: int) -> tuple[int, int]:
+    """Shared memory of the bf16 route's largest pass, (forward, backward),
+    in bytes at its padded widths (tc_smem_bytes, tc_{prep,k,q}_smem)."""
+    dhp, hdp = tc_widths(dh, d2)
+    d2p = 2 * hdp
+    lda, ldt, ldx = dhp + d2p + 8, dhp + 8, max(dhp, 64) + 8
+    fwd = TC_BQ * lda + max(TC_BQ * ldt + dhp * TC_LDC, 2 * 2 * TC_BK * ldt + 2 * TC_BK * TC_LDC)
+    prep = TC_BQ * lda + max(TC_BQ * ldt + dhp * TC_LDC, 2 * TC_BQ * ldt)
+    key = 2 * (TC_BK * lda + TC_BK * ldt + 2 * 2 * TC_TQ * ldt + 2 * TC_TQ * TC_LDC) \
+        + 2 * 2 * TC_TQ * 4
+    query = 2 * (TC_BQ * ldt + 2 * TC_BK * (TC_LDC + ldx) + dhp * TC_LDC + TC_BQ * TC_LDC) \
+        + d2p * 4
+    return 2 * fwd, max(2 * prep, key, query)
+
+
 def smem_bytes(dtype, dh: int, d2: int) -> tuple[int, int]:
     """Shared memory a block of the route for ``dtype`` needs at head width
-    dh and rel width d2, (forward, the backward's largest pass), in bytes
-    (builds the kernels if needed)."""
-    code = _DTYPE_CODE[dtype]
-    return (_bind()[0].ecf_relpos_attention_fwd_smem(code, dh, d2),
-            _bind_bwd()[0].ecf_relpos_attention_bwd_smem(code, dh, d2))
+    dh and rel width d2, (forward, the backward's largest pass), in bytes,
+    as the kernel files size it at launch."""
+    _check(dtype in _DTYPE_CODE, f"unsupported dtype {dtype}")
+    return tc_smem_bytes(dh, d2) if dtype == torch.bfloat16 else fma_smem_bytes(dh, d2)
 
 
 @functools.lru_cache(maxsize=None)
 def refusal(dtype, dh: int, d2: int, backward: bool = False) -> str | None:
     """Why the route for ``dtype`` refuses head width dh and rel width d2 in
     the forward (or the backward): its widths, and its shared memory need
-    against the 227 KB a block may use. None when it takes them."""
-    need = smem_bytes(dtype, dh, d2)[int(backward)]
+    against the 227 KB a block may use, naming the ROADMAP item that would
+    lift it. None when it takes them."""
     if dtype == torch.bfloat16:
         dhp = tc_widths(dh, d2)[0]
         if dhp > TC_MAX_DHP:
-            return f"padded head width {dhp} > {TC_MAX_DHP}"
+            return f"padded head width {dhp} > {TC_MAX_DHP} ({ROADMAP_ITEM})"
     elif dh > FMA_MAX_DH:
-        return f"head width {dh} > {FMA_MAX_DH}"
-    elif backward and dh + d2 > FMA_MAX_DA:
-        return f"dh + rel width {dh + d2} > {FMA_MAX_DA} in the backward"
+        return f"head width {dh} > {FMA_MAX_DH} ({ROADMAP_ITEM})"
+    need = smem_bytes(dtype, dh, d2)[int(backward)]
     if need > SMEM_LIMIT:
         return (f"head width {dh} + rel width {d2} need {need} B of shared memory in the "
-                f"{'backward' if backward else 'forward'}, more than {SMEM_LIMIT}")
+                f"{'backward' if backward else 'forward'}, more than {SMEM_LIMIT} "
+                f"({ROADMAP_ITEM})")
     return None
 
 
@@ -339,13 +422,18 @@ def _launch(qu, k, v, delta, w, rowtab, keytab, bias, scale):
     # the call is a view
     o = torch.empty((b, n, h, dh), dtype=qu.dtype, device=dev).permute(0, 2, 1, 3)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=dev)
+    # the fp32 route's prep pass writes the A rows (B, H, N, 2hd) for its
+    # streamed kernel; the resident kernel forms them in shared memory
+    atab = (torch.empty((b, h, n, w.shape[-1]), dtype=torch.float32, device=dev)
+            if qu.dtype == torch.float32 and not fma_resident(dh, w.shape[-1]) else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             _DTYPE_CODE[qu.dtype], qu.data_ptr(), k.data_ptr(), v.data_ptr(),
             delta.data_ptr(), w.data_ptr(), rowtab.data_ptr(), keytab.data_ptr(),
             bias.data_ptr() if bias is not None else None,
-            o.data_ptr(), lse.data_ptr(), b, h, n, nk, dh, w.shape[-1],
+            o.data_ptr(), lse.data_ptr(), atab.data_ptr() if atab is not None else None,
+            b, h, n, nk, dh, w.shape[-1],
             *qu.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             bias_sb, float(scale), stream,
         )
@@ -359,12 +447,14 @@ def _launch_bwd(qu, k, v, delta, w, rowtab, keytab, bias, o, do, lse, scale, nee
     forward wrote O in (B, N, H, dh) order, so dO usually arrives in that
     order too); a dO without a unit feature stride is copied. dqu, dk and dv
     are written in (B, N, H, dh) order, so that merging heads is a view. The
-    kernels write one dW and one ddelta partial per (query tile, batch,
-    head); they are summed here, in a fixed order, so the gradients are the
-    same from run to run. Scratch: Di (B, H, N) fp32, and by route: fp32,
-    the A rows (B, H, N, 2hd) fp32; bf16, the [qu | A] rows (B, H, Np,
-    dhp + 2hdp), the padded dO rows (B, H, Np, dhp) and dS^T (B, H, Nkp, Np)
-    in bf16, Np and Nkp being N and Nk rounded up to 64."""
+    kernels write one ddelta partial per (query tile, batch, head) and one dW
+    partial per (query tile, batch, head) on the bf16 route, per (batch,
+    head) on the fp32 route; they are summed here, in a fixed order, so the
+    gradients are the same from run to run. Scratch: Di (B, H, N) fp32, and
+    by route: fp32, the A rows, later dpq, (B, H, N, 2hd) and dS^T (B, H, Nk,
+    N), fp32; bf16, the [qu | A] rows (B, H, Np, dhp + 2hdp), the padded dO
+    rows (B, H, Np, dhp) and dS^T (B, H, Nkp, Np) in bf16, Np and Nkp being N
+    and Nk rounded up to 64."""
     b, h, n, dh = qu.shape
     nk, d2 = k.shape[2], w.shape[-1]
     dev = qu.device
@@ -386,20 +476,22 @@ def _launch_bwd(qu, k, v, delta, w, rowtab, keytab, bias, o, do, lse, scale, nee
     dqu = torch.empty((b, n, h, dh), dtype=qu.dtype, device=dev).permute(0, 2, 1, 3)
     dk = torch.empty((b, nk, h, dh), dtype=qu.dtype, device=dev).permute(0, 2, 1, 3)
     dv = torch.empty((b, nk, h, dh), dtype=qu.dtype, device=dev).permute(0, 2, 1, 3)
-    dw_part = torch.empty((b * n_tiles, h, dhw, d2w), dtype=f32, device=dev)
     ddelta_part = torch.empty((b * n_tiles, h, dhw), dtype=f32, device=dev)
     di = torch.empty((b, h, n), dtype=f32, device=dev)
     dbias_hb = torch.empty((b, h, nk), dtype=f32, device=dev) if need_dbias else None
     if tc:
         n_p, nk_p = _round(n, 64), _round(nk, 64)
         wt = None
+        dw_part = torch.empty((b * n_tiles, h, dhw, d2w), dtype=f32, device=dev)
         atab = torch.empty((b, h, n_p, dhw + d2w), dtype=bf, device=dev)
         qa_do = torch.empty((b, h, n_p, dhw), dtype=bf, device=dev)
         ds = torch.empty((b, h, nk_p, n_p), dtype=bf, device=dev)
     else:
         wt = w.transpose(1, 2).contiguous()      # (H, 2hd, dh): W^T per head
+        dw_part = torch.empty((b, h, dh, d2), dtype=f32, device=dev)
         atab = torch.empty((b, h, n, d2), dtype=f32, device=dev)
-        qa_do = ds = None
+        qa_do = None
+        ds = torch.empty((b, h, nk, n), dtype=f32, device=dev)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None

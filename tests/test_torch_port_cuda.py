@@ -121,32 +121,51 @@ def test_kernel_takes_strided_heads(cuda):
 
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    """A dtype, a shape mismatch; fp32 past its widths (dh 135 of the
-    Medium and Large Efficient Conformers; in the backward dh + D = 576 of
-    Conformer Large), which the bf16 route takes both ways; bf16 past its
-    own (a padded head over 144, a rel width whose shared memory need
-    passes 227 KB), with the bytes named."""
+    """A dtype, a shape mismatch; fp32 now takes the widths of the Medium
+    and Large Efficient Conformers (dh 135) and of Conformer Large (dh + D =
+    576 in the backward) both ways, and refuses only a head past 256; bf16
+    past its own widths (a padded head over 144, a rel width whose shared
+    memory need passes 227 KB), with the bytes named. Each refusal names
+    its ROADMAP item; the shared memory the wrapper computes, and its
+    choice of the fp32 forward's kernel, are the kernels' own."""
     args = list(inputs(cuda, 1, 2, 8, 16, 1, 1))
     with pytest.raises(ValueError, match="dtype"):
         RA.relpos_attention(*[t.half() for t in args[:3]], *args[3:])
     with pytest.raises(ValueError, match="keytab"):
         RA.relpos_attention(*args[:6], args[6][:4], *args[7:])
     args = list(inputs(cuda, 1, 4, 20, 180, 3, 1))     # dh 135
-    with pytest.raises(ValueError, match="float32 route refuses: head width 135 > 128"):
-        RA.relpos_attention(*args)
+    o, lse = RA.relpos_attention(*args)
+    want_o, want_lse = RA.reference_relpos_attention(*args)
+    torch.testing.assert_close(o, want_o, rtol=0, atol=FP32_TOL)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=FP32_TOL)
     args, o, lse, do = bwd_case(cuda, 1, 8, 20, 512, 1, 1, seed=5)   # dh 64, D 512
-    with pytest.raises(ValueError, match="float32 route refuses: dh \\+ rel width 576"):
-        RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
-    assert RA.refusal(torch.float32, 64, 512) is None  # its forward fits
-    for dh, d in ((135, 180), (64, 512), (90, 720)):
-        assert RA.refusal(torch.bfloat16, dh, d) is None
-        assert RA.refusal(torch.bfloat16, dh, d, backward=True) is None
+    got = RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
+    want = RA.reference_relpos_attention_bwd(*args[:8], do, lse, args[8])
+    assert_grads_close(got, want, FP32_TOL, FP32_TOL)
+    for dh, d in ((135, 180), (64, 512), (90, 720), (135, 360), (256, 1024)):
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16 and dh > 144:
+                continue
+            assert RA.refusal(dtype, dh, d) is None
+            assert RA.refusal(dtype, dh, d, backward=True) is None
+    args = list(inputs(cuda, 1, 1, 8, 272, 1, 1))        # dh 272
+    with pytest.raises(ValueError, match=r"float32 route refuses: head width 272 > 256 "
+                                         r"\(ROADMAP \[27\]\)"):
+        RA.relpos_attention(*args)
     assert "padded head width 160" in RA.refusal(torch.bfloat16, 150, 64)
     why = RA.refusal(torch.bfloat16, 64, 4000, backward=True)
-    assert why is not None and "shared memory in the backward" in why
+    assert why is not None and "shared memory in the backward" in why and "ROADMAP [27]" in why
     args = list(inputs(cuda, 1, 1, 8, 200, 1, 1))        # dh 200
     with pytest.raises(ValueError, match="bfloat16 route refuses: padded head width 208"):
         RA.relpos_attention(*[t.to(torch.bfloat16) for t in args[:3]], *args[3:])
+    for dh, d in ((12, 24), (135, 180), (90, 360), (64, 712), (64, 720), (90, 720), (200, 64),
+                  (256, 1024), (64, 4000)):
+        for dtype, code in RA._DTYPE_CODE.items():
+            kernels = (RA._bind()[0].ecf_relpos_attention_fwd_smem(code, dh, d),
+                       RA._bind_bwd()[0].ecf_relpos_attention_bwd_smem(code, dh, d))
+            assert kernels == RA.smem_bytes(dtype, dh, d), (dh, d, dtype)
+        resident = RA._bind()[0].ecf_relpos_attention_fwd_resident(dh, d)
+        assert bool(resident) == RA.fma_resident(dh, d), (dh, d)
 
 
 # ------------------------------------------------------------ backward kernel
@@ -215,10 +234,11 @@ def test_backward_kernel_matches_plain_version(cuda, n, d, h, g, bias_b):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,d,h,g", [(267, 180, 4, 3), (401, 512, 8, 1), (201, 720, 8, 1)])
 def test_tensor_core_route_takes_the_medium_and_large_widths(cuda, n, d, h, g):
-    """The widths the fp32 route refuses: dh 135 (Efficient Conformer Medium
-    and Large, stage 1), D 512 (Conformer Large) and D 720 (Efficient
-    Conformer Large, stage 3), at their 16 s lengths, both directions on the
-    tensor cores vs the plain version on the same bf16 inputs."""
+    """dh 135 (Efficient Conformer Medium and Large, stage 1), D 512
+    (Conformer Large) and D 720 (Efficient Conformer Large, stage 3), at
+    their 16 s lengths, both directions: on the tensor cores vs the plain
+    version on the same bf16 inputs, and on the fp32 route (counted there,
+    none on the tensor cores) vs the plain version in fp32."""
     args, o, lse, do = bwd_case(cuda, 2, h, n, d, g, 2, seed=n, dtype=torch.bfloat16)
     o16, lse16 = RA.relpos_attention_fwd(*args)
     want_o, _ = RA.reference_relpos_attention(*[t.float() for t in args[:3]], *args[3:])
@@ -226,6 +246,18 @@ def test_tensor_core_route_takes_the_medium_and_large_widths(cuda, n, d, h, g):
     got = RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
     want = RA.reference_relpos_attention_bwd(*args[:8], do, lse, args[8])
     assert_grads_close(got, want, BF16_TOL, BF16_TOL, rel_token=True)
+
+    args, o, lse, do = bwd_case(cuda, 2, h, n, d, g, 2, seed=n + 1)
+    RA.relpos_attention.launches = RA.relpos_attention.tc_launches = 0
+    RA.relpos_attention_bwd.launches = RA.relpos_attention_bwd.tc_launches = 0
+    o32, lse32 = RA.relpos_attention_fwd(*args)
+    torch.testing.assert_close(o32, o, rtol=0, atol=FP32_TOL)
+    torch.testing.assert_close(lse32, lse, rtol=0, atol=FP32_TOL)
+    got = RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
+    want = RA.reference_relpos_attention_bwd(*args[:8], do, lse, args[8])
+    assert (RA.relpos_attention.launches, RA.relpos_attention.tc_launches) == (1, 0)
+    assert (RA.relpos_attention_bwd.launches, RA.relpos_attention_bwd.tc_launches) == (1, 0)
+    assert_grads_close(got, want, FP32_TOL, FP32_TOL)
 
 
 @pytest.mark.gpu
