@@ -175,9 +175,11 @@ the card. Phases, one line each; any failure exits non-zero:
                 rel-pos launches (15), host reads before the result (0)
  27. t-beam     Transducer Small with LM-Transformer (lm_weight 1) and a
                 synthetic 6-gram over 1000 tokens fused, W 16: card vs CPU
-                at 2 utterances of 4 and 3 s in fp32, Graves and ref_topk
-                routing, tokens equal or final scores within 1e-4 (counted);
-                then 4 x 10 s with the bf16 encoder: ms a batch, audio-s/s,
+                at 2 utterances of 2 and 1.5 s in fp32, Graves and ref_topk
+                routing, tokens equal or final scores within 1e-4 (counted;
+                the CPU side computed beside the card's phases in a process
+                started after the build, on weights and audio of the same
+                digest); then 4 x 10 s with the bf16 encoder: ms a batch, audio-s/s,
                 fast and slow frames, pops, host reads, rel-pos launches
                 (15), peak memory
  27a. lm-step-kernel  the bias forward kernel vs its plain version at one
@@ -195,8 +197,9 @@ the card. Phases, one line each; any failure exits non-zero:
                 Small with LM-Transformer through beam_search (the growing
                 cache) and with LM-RNN through beam_search_batched, the
                 6-gram over 1000 tokens, W 4, 2 utterances of 2 and 1.5 s:
-                card vs CPU and host vs device beam: tokens equal or scores
-                within 1e-4 (counted); then one 4 s utterance at W 16 with
+                card vs CPU (the CPU side as [t-beam]'s) and host vs device
+                beam: tokens equal or scores within 1e-4 (counted); then one
+                4 s utterance at W 16 with
                 LM-Transformer: ms a batch, pops, ms a pop, bias launches (12
                 a pop), rel-pos launches (15), the longest cache, and the
                 kernel vs its plain version at that cache length
@@ -346,6 +349,37 @@ the card. Phases, one line each; any failure exits non-zero:
                 the gradient norm 1e-4 with the loss in float64 on both
                 sides): ms a step, peak memory, rel-pos launches (a block a
                 direction, all fp32)
+ 48. wider-kernel  both rel-pos kernels, fp32 and bf16, at widths past the
+                kernels that hold [qu | A] whole or a 256-wide head (B 2):
+                the 16 s stage shapes of the two encoders of [wider-slice]
+                that reach a wide route, one of them at a seq rank's rows
+                (Nq = Nk / 2 from row Nk / 2), the four shapes the wrapper
+                refused before (257/64, 272/544, 150/64, 64/4,000) and
+                512/1,024 at H 4, N 201: vs the plain versions (fp32 1e-4,
+                gradients 1e-4 relative; bf16 2e-2, bitwise repeatable),
+                each call counted on the route ``route`` names;
+                [wider-kernel-time]: each direction and type on a wide route
+                timed from CUDA graphs beside the plain version, SDPA on the
+                augmented features (bf16 memory-efficient, fp32 math) and
+                the bound
+ 49. wide-bf16-slice  EfficientConformer CTC Medium and Large and
+                EfficientConformer Transducer Medium at published widths,
+                heads and depth in bf16 (mixed_precision as shipped): one
+                training step (2 utterances of 16 and 8 s, dropout 0,
+                SpecAugment off, VN off) and one greedy batch vs the plain
+                versions on the card: loss, norm and statistics within 2e-2
+                relative, the gradients no farther from the fp32 step's than
+                1.25x the plain versions' bf16 ones over all parameters and
+                3x for each parameter; CTC logits within 2e-2 of the largest,
+                Transducer frames within 0.3; every launch on the
+                tensor-core kernels that hold [qu | A] whole
+ 50. wider-slice  EfficientConformer CTC Large at 4 heads (heads 270 / 128 /
+                180) and Conformer CTC Large at width 1,024 (8 heads of
+                128, rel width 1,024; 6 of its 18 blocks), built from the
+                shipped configs with one field changed (printed): a bf16 and
+                an fp32 training step and a bf16 greedy batch vs the plain
+                versions, every launch counted on its route, the wide ones
+                where ``route`` names them
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 rel-pos entries also with their bf16 error, tensor-core launches and eager
@@ -368,7 +402,10 @@ forward's with ``stream_medium_launches``; the rel-pos entries with
 ``tp_kernel_max_err``, [tp-kernel]'s largest fp32 error; the rel-pos and
 RNN-T entries with ``wide_fp32_launches`` of [wide-fp32-slice], the
 rel-pos entries with ``wide_fp32_max_err`` and [wide-fp32-kernel-time]'s
-sums as ``wide_fp32_*_ms``), and last
+sums as ``wide_fp32_*_ms``, and their launches in [wide-bf16-slice] and
+[wider-slice]; then one entry a direction for the wide routes: launches
+their wide launches in [wider-slice], times [wider-kernel-time]'s sums
+over the wide rows), and last
 {"ok": true, "device": {...}}. With
 --profile it also prints a torch.profiler device-time breakdown of one
 batch or step of each path, the beams included.
@@ -382,15 +419,18 @@ import argparse
 import ast
 import concurrent.futures
 import contextlib
+import hashlib
 import io
 import itertools
 import json
 import math
+import multiprocessing
 import os
 import re
 import subprocess
 import sys
 import time
+import traceback
 from unittest import mock
 
 import numpy as np
@@ -455,6 +495,7 @@ BEAM = 16                    # every shipped config's beam_size
 CTC_BEAM_BATCH = 32          # [ctc-beam]: 32 ragged utterances of up to 10 s
 T_BEAM_BATCH = 4             # [t-beam]: 4 x 10 s (the LM cache is 47.3 MB a hypothesis)
 T_BEAM_CHECK = (2.0, 1.5)    # [t-beam]'s card vs CPU check: 2 utterances, seconds
+BEAM_REF_THREADS = 4         # CPU threads of the process that computes the beams' CPU sides
 BEAM_SCORE_TOL = 1e-4        # where two beams' tokens differ, their best scores must be this near
 # [lm-step-kernel]: Nk across the 64-key tile edges, past [t-host-beam]'s longest cache (~750)
 LM_STEP_KEYS = (1, 2, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257, 511, 512, 513, 767, 768,
@@ -510,6 +551,34 @@ WIDE_FP32_BATCH = 2          # [wide-fp32-kernel]: B at the wide stage shapes of
 WIDE_FP32_CONFIGS = ("EfficientConformerCTCMedium", "EfficientConformerCTCLarge",
                      "ConformerCTCLarge", "EfficientConformerTransducerMedium")
 WIDE_FP32_SECONDS = (16.0, 8.0)   # [wide-fp32-slice]: one step of 2 utterances
+WIDE_BF16_CONFIGS = ("EfficientConformerCTCMedium", "EfficientConformerCTCLarge",
+                     "EfficientConformerTransducerMedium")   # [wide-bf16-slice], as shipped
+# [wider-kernel] and [wider-slice]: two encoders past the widths the shipped
+# ones reach, each a shipped config with one field changed (name: config,
+# the change, the depth kept); heads 270 / 128 / 180 (G 3 in stage 1), and 8
+# heads of 128 at rel width 1,024 (the large Conformers of arXiv:2010.10504)
+WIDER_MODELS = {
+    "EfficientConformerCTCLarge_heads4": ("EfficientConformerCTCLarge", {"num_heads": 4}, None),
+    "ConformerCTCLarge_width1024": ("ConformerCTCLarge", {"dim_model": 1024}, 6),
+}
+# (dh, D) at H 4, N 201 (B 2): the four shapes the wrapper refused before the
+# wide routes, and dh 512 / D 1024
+WIDER_FREE_SHAPES = ((257, 64), (272, 544), (150, 64), (64, 4000), (512, 1024))
+BF16_GRAD_NOISE = 1.25       # a bf16 step's gradients through the kernels no farther from
+                             # the fp32 step's (global relative L2) than 1.25x the plain
+                             # versions' bf16 gradients are: through 15-16 bf16 blocks the
+                             # gradients move 1.6-2.7% from fp32, and one parameter's up to
+                             # ~10% of its largest (NVIDIA H100 80GB HBM3, 700 W: plain
+                             # 0.0274 / 0.0205 / 0.0158, kernels 0.0268 / 0.0206 / 0.0154
+                             # on EfficientConformer CTC Medium, Large, Transducer Medium)
+BF16_LEAF_NOISE = 3.0        # and each parameter's gradient no farther from its fp32 one (L2)
+                             # than 3x the plain versions' bf16 gradient of it is: clean
+                             # steps read <= 2.22, one layer's zeroed column group of dqu, dk
+                             # or dv, or head of dW or ddelta >= 5.12 (the same card)
+BF16_LEAF_FLOOR = 1e-3       # that distance floored at 1e-3 of the parameter's fp32 gradient
+BF16_LEAF_ZERO = 1e-4        # left out of it: gradients zero but for rounding, under 1e-4 of
+                             # an RMS-sized one (a key projection's bias under the softmax, a
+                             # conv's before a BatchNorm: <= 6.9e-6; the least other >= 1.7e-3)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -579,22 +648,24 @@ def bound(flops: float, nbytes: float, peak: float = BF16_PEAK) -> tuple[float, 
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def attention_cost(b, n, dh, d, h, itemsize, backward):
+def attention_cost(b, n, dh, d, h, itemsize, backward, nk=None):
     """FLOPs of the products each direction must compute, 2 per
     multiply-add, and the bytes each input read once and each output
     written once: qu, k, v (+ o, dO) and the token outputs in the input
     type; LSE, delta, W, the tables and the key bias in fp32; dW and ddelta
-    in fp32 for the backward. Forward, per (batch, head): A = rot((qu +
-    delta) W) (N dh D), S = [qu | A] [k | keytab]^T (N^2 (dh + D)), P V
-    (N^2 dh). Backward: S recomputed (N^2 (dh + D)), dP = dO V^T, dV = P^T
-    dO, dk = dS^T qu and dS k (N^2 dh each), dA = dS keytab (N^2 D), and
-    A recomputed, dpq W^T and dW = qv^T dpq (N dh D each)."""
-    tok = b * h * n * dh * itemsize
-    consts = (h * dh + h * dh * d + 2 * n * d + b * n) * 4 + b * h * n * 4
+    in fp32 for the backward. Forward, per (batch, head), N query rows and
+    Nk keys (Nk = N unless given): A = rot((qu + delta) W) (N dh D), S =
+    [qu | A] [k | keytab]^T (N Nk (dh + D)), P V (N Nk dh). Backward: S
+    recomputed (N Nk (dh + D)), dP = dO V^T, dV = P^T dO, dk = dS^T qu and
+    dS k (N Nk dh each), dA = dS keytab (N Nk D), and A recomputed, dpq W^T
+    and dW = qv^T dpq (N dh D each)."""
+    nk = n if nk is None else nk
+    tok, tok_k = b * h * n * dh * itemsize, b * h * nk * dh * itemsize
+    consts = (h * dh + h * dh * d + (n + nk) * d + b * nk) * 4 + b * h * n * 4
     if backward:
-        flops = 2 * b * h * n * (n * (5 * dh + 2 * d) + 3 * dh * d)
-        return flops, 5 * tok + consts + 3 * tok + (h * dh * d + h * dh) * 4
-    return 2 * b * h * n * (n * (2 * dh + d) + dh * d), 3 * tok + consts + tok
+        flops = 2 * b * h * n * (nk * (5 * dh + 2 * d) + 3 * dh * d)
+        return flops, 3 * tok + 2 * tok_k + consts + tok + 2 * tok_k + (h * dh * d + h * dh) * 4
+    return 2 * b * h * n * (nk * (2 * dh + d) + dh * d), tok + 2 * tok_k + consts + tok
 
 
 def augmented(args):
@@ -666,7 +737,11 @@ def stage_shapes(enc_params: dict, seconds: float):
     return shapes
 
 
-def attention_inputs(b, n, dh, d, h, g, device, gen):
+def attention_inputs(b, n, dh, d, h, g, device, gen, free_w=False):
+    """qu, k, v (B, H, N, dh), delta, W, the tables, a ragged key mask and
+    the scale. W folds a random pos kernel as the layer does (grouped where
+    G > 1), or with ``free_w`` is random at (H, dh, D) at the scale such a
+    kernel folds to (D^-1/2), for any head width."""
     from efficientconformer_torch.ops import rel_factorize as RF
     from efficientconformer_torch.ops.attention import NEG_INF
 
@@ -674,12 +749,15 @@ def attention_inputs(b, n, dh, d, h, g, device, gen):
         return (torch.randn(*shape, generator=gen) * scale).to(device)
 
     qu, k, v = randn(b, h, n, dh), randn(b, h, n, dh), randn(b, h, n, dh)
-    pos_kernel = randn(d, d, scale=d ** -0.5)
-    delta = randn(h, dh, scale=0.1)
-    if g > 1:
-        w = RF.rel_w_grouped(h, dh, pos_kernel, g, d // 2)
+    if free_w:
+        delta, w = randn(h, dh, scale=0.1), randn(h, dh, d, scale=d ** -0.5)
     else:
-        w = RF.rel_w_plain(pos_kernel, h, d // 2)
+        pos_kernel = randn(d, d, scale=d ** -0.5)
+        delta = randn(h, dh, scale=0.1)
+        if g > 1:
+            w = RF.rel_w_grouped(h, dh, pos_kernel, g, d // 2)
+        else:
+            w = RF.rel_w_plain(pos_kernel, h, d // 2)
     rowtab, keytab = RF.rel_tables(n, n, d, g, torch.device(device))
     lengths = torch.linspace(n // 2, n, b).long()
     mask = (torch.arange(n)[None, :] >= lengths[:, None]).float()[:, None, None, :]
@@ -750,8 +828,15 @@ def rel_counts():
 def reset_rel_counts():
     from efficientconformer_torch.ops import rel_attention as RA
 
-    RA.relpos_attention.launches = RA.relpos_attention.tc_launches = 0
-    RA.relpos_attention_bwd.launches = RA.relpos_attention_bwd.tc_launches = 0
+    for fn in (RA.relpos_attention, RA.relpos_attention_bwd):
+        fn.launches = fn.tc_launches = fn.wide_launches = 0
+
+
+def wide_counts():
+    """(forward, backward) launches on a wide route since the last reset."""
+    from efficientconformer_torch.ops import rel_attention as RA
+
+    return RA.relpos_attention.wide_launches, RA.relpos_attention_bwd.wide_launches
 
 
 def check_forward(phase, enc_params, seconds, gen, batch=CHECK_BATCH, heads=None, cut=None):
@@ -3287,8 +3372,9 @@ def synth_ngram(vocab: int) -> str:
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        module.synth_arpa(path + ".tmp", vocab=vocab, order=NGRAM_ORDER, seed=SEED)
-        os.replace(path + ".tmp", path)
+        tmp = f"{path}.{os.getpid()}.tmp"   # the beams' CPU references may write it too
+        module.synth_arpa(tmp, vocab=vocab, order=NGRAM_ORDER, seed=SEED)
+        os.replace(tmp, path)
     return path
 
 
@@ -3450,56 +3536,179 @@ def phase_ctc_beam(card_line, arpa, arpa_path):
     return launches[0], batch_ms
 
 
-def phase_t_beam(card_line):
-    """Transducer Small with LM-Transformer fused in (full width, random
-    weights from SEED; the config's lm_weight, lm_tmp) and the synthetic
-    6-gram over 1000 tokens (alpha 0.3, beta 1), W 16, tmp 1. Checks: card
-    vs CPU on the same fp32 weights at 2 utterances of 4 and 3 s, Graves and
-    ref_topk routing: tokens equal or, where they differ, final normalised
-    scores within BEAM_SCORE_TOL (counted). Then the main path: bf16
-    encoder, fp32 decode, 4 x 10 s: ms a batch, audio-s/s, fast and slow
-    frames, pops, host reads, rel-pos launches, peak memory."""
+def digest(*items) -> str:
+    """A hash of the bytes of tensors and of modules' state: the same
+    weights and inputs on both sides of a card-vs-CPU check."""
+    h = hashlib.sha256()
+    for item in items:
+        for t in item.state_dict().values() if isinstance(item, torch.nn.Module) else [item]:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def t_beam_setup():
+    """[t-beam]'s decoding config, its fusion arguments (the synthetic
+    6-gram over 1000 tokens), and its rng, which gives the card-vs-CPU
+    check's audio first."""
     from efficientconformer_torch.config import load_config
     from efficientconformer_torch.decoding.ngram import ArpaLM
-    from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
-    from efficientconformer_torch.models import lm as lm_mod
-    from efficientconformer_torch.models.transducer import greedy_token_cap
 
     cfg = load_config(T_CONFIG)
     dp = cfg["decoding_params"]
     t0 = time.perf_counter()
     arpa = ArpaLM(synth_ngram(1000))
-    ngram_s = time.perf_counter() - t0
     fusion = dict(beam_size=BEAM, tmp=dp["tmp"], lm_weight=dp["lm_weight"], lm_tmp=dp["lm_tmp"],
                   ngram=arpa, ngram_alpha=dp["ngram_alpha"], ngram_beta=dp["ngram_beta"])
-    rng = np.random.default_rng(SEED + 32)
+    return cfg, fusion, time.perf_counter() - t0, np.random.default_rng(SEED + 32)
+
+
+def t_host_beam_setup():
+    """[t-host-beam]'s config, its 6-gram arguments, its rng (which gives
+    the check's audio first) and its models on the CPU: Transducer Small,
+    LM-Transformer and LM-RNN."""
+    from efficientconformer_torch.config import load_config
+    from efficientconformer_torch.decoding.ngram import ArpaLM
+    from efficientconformer_torch.models import lm as lm_mod
+
+    cfg = load_config(T_CONFIG)
+    dp = cfg["decoding_params"]
+    ng = dict(ngram=ArpaLM(synth_ngram(1000)), ngram_alpha=dp["ngram_alpha"],
+              ngram_beta=dp["ngram_beta"], tmp=dp["tmp"])
+    lms = {"transformer": make_lm("cpu", torch.float32),
+           "rnn": lm_mod.build_model(LM_RNN_CONFIG, "cpu", torch.float32,
+                                     torch.Generator().manual_seed(SEED))}
+    return cfg, ng, np.random.default_rng(SEED + 42), make_transducer("cpu", torch.float32), lms
+
+
+def host_beams():
+    from efficientconformer_torch.decoding import rnnt_beam
+
+    return (("transformer", rnnt_beam.beam_search), ("rnn", rnnt_beam.beam_search_batched))
+
+
+def t_beam_reference() -> dict:
+    """[t-beam]'s CPU side: its fp32 models, weights and audio made as the
+    phase makes them, their digest, and (tokens, scores, seconds) of each
+    routing (Graves False, ref_topk True)."""
+    from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
+    from efficientconformer_torch.models import lm as lm_mod
+    from efficientconformer_torch.models.transducer import greedy_token_cap
+
+    cfg, fusion, _, rng = t_beam_setup()
     x, x_len = ragged_audio(T_BEAM_CHECK, "cpu", rng)
     cap = greedy_token_cap(cfg["encoder_params"], x.shape[1], MAX_CONSEC)
-    models = {side: (d, make_transducer(d, torch.float32),
-                     lm_mod.build_model(LM_CONFIG, d, torch.float32,
-                                        torch.Generator().manual_seed(SEED)))
-              for side, d in (("cpu", "cpu"), ("card", "cuda"))}
+    model = make_transducer("cpu", torch.float32)
+    lm = lm_mod.build_model(LM_CONFIG, "cpu", torch.float32, torch.Generator().manual_seed(SEED))
+    out = {"digest": digest(model, lm, x)}
+    for ref_topk in (False, True):
+        t1 = time.perf_counter()
+        toks, sc = beam_search_device(model, x, x_len, max_tokens=cap, lm_model=lm,
+                                      ref_topk=ref_topk, return_scores=True, **fusion)
+        out[ref_topk] = (toks, [float(v) for v in sc], time.perf_counter() - t1)
+    return out
+
+
+def t_host_beam_reference() -> dict:
+    """[t-host-beam]'s CPU side, as ``t_beam_reference``: (tokens, scores,
+    seconds) of each host beam by its LM's name."""
+    cfg, ng, rng, model, lms = t_host_beam_setup()
+    x, x_len = ragged_audio(T_HOST_BEAM_CHECK, "cpu", rng)
+    dp = cfg["decoding_params"]
+    out = {"digest": digest(model, *lms.values(), x)}
+    for name, fn in host_beams():
+        stats = {}
+        t1 = time.perf_counter()
+        toks = fn(model, x, x_len, beam_size=T_HOST_BEAM_W, lm_model=lms[name],
+                  lm_weight=dp["lm_weight"], lm_tmp=dp["lm_tmp"], stats=stats, **ng)
+        out[name] = (toks, [float(v) for v in stats["scores"]], time.perf_counter() - t1)
+    return out
+
+
+def beam_references(conn) -> None:
+    """In a process of its own, which never touches the card and runs
+    beside the card's phases: each beam phase's CPU side, sent down
+    ``conn`` as (phase, its dict or {"error": traceback}) once it is done."""
+    torch.set_num_threads(BEAM_REF_THREADS)
+    for phase, fn in (("t-beam", t_beam_reference), ("t-host-beam", t_host_beam_reference)):
+        try:
+            conn.send((phase, fn()))
+        except BaseException:
+            conn.send((phase, {"error": traceback.format_exc()}))
+    conn.close()
+
+
+class BeamReferences:
+    """``beam_references`` in a spawned process, started before the card's
+    phases; ``get`` waits for a phase's references."""
+
+    def __init__(self):
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, send = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=beam_references, args=(send,), daemon=True)
+        self.proc.start()
+        send.close()
+        self.got = {}
+
+    def get(self, phase: str) -> dict:
+        t0 = time.perf_counter()
+        while phase not in self.got:
+            try:
+                name, out = self.conn.recv()
+            except EOFError:
+                name, out = phase, {"error": f"the process ended, code {self.proc.exitcode}"}
+            self.got[name] = out
+        out = self.got[phase]
+        check("error" not in out, f"[{phase}] the CPU references failed: {out.get('error')}")
+        return dict(out, waited_s=time.perf_counter() - t0)
+
+    def stop(self) -> None:
+        self.proc.kill()
+        self.proc.join()
+
+
+def phase_t_beam(card_line, refs):
+    """Transducer Small with LM-Transformer fused in (full width, random
+    weights from SEED; the config's lm_weight, lm_tmp) and the synthetic
+    6-gram over 1000 tokens (alpha 0.3, beta 1), W 16, tmp 1. Checks: card
+    vs CPU on the same fp32 weights at 2 utterances of 2 and 1.5 s, Graves and
+    ref_topk routing: tokens equal or, where they differ, final normalised
+    scores within BEAM_SCORE_TOL (counted); the CPU side from ``refs``
+    (``beam_references``), on weights and audio of the same digest. Then
+    the main path: bf16 encoder, fp32 decode, 4 x 10 s: ms a batch,
+    audio-s/s, fast and slow frames, pops, host reads, rel-pos launches,
+    peak memory."""
+    from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
+    from efficientconformer_torch.models import lm as lm_mod
+    from efficientconformer_torch.models.transducer import greedy_token_cap
+
+    cfg, fusion, ngram_s, rng = t_beam_setup()
+    dp = cfg["decoding_params"]
+    arpa = fusion["ngram"]
+    x, x_len = ragged_audio(T_BEAM_CHECK, "cpu", rng)
+    cap = greedy_token_cap(cfg["encoder_params"], x.shape[1], MAX_CONSEC)
+    model = make_transducer("cuda", torch.float32)
+    lm = lm_mod.build_model(LM_CONFIG, "cuda", torch.float32, torch.Generator().manual_seed(SEED))
+    ref = refs.get("t-beam")
+    check(ref["digest"] == digest(model, lm, x),
+          "[t-beam] the CPU references ran on other weights or audio")
     checks = {}
     for ref_topk in (False, True):
-        out = {}
-        for side, (d, model, lm) in models.items():
-            t1 = time.perf_counter()
-            out[side] = beam_search_device(model, x.to(d), x_len.to(d), max_tokens=cap,
-                                           lm_model=lm, ref_topk=ref_topk, return_scores=True,
-                                           **fusion)
-            out[side + "_s"] = time.perf_counter() - t1
-        (got, got_sc), (want, want_sc) = out["card"], out["cpu"]
+        t1 = time.perf_counter()
+        got, got_sc = beam_search_device(model, x.cuda(), x_len.cuda(), max_tokens=cap,
+                                         lm_model=lm, ref_topk=ref_topk, return_scores=True,
+                                         **fusion)
+        card_s = time.perf_counter() - t1
+        want, want_sc, cpu_s = ref[ref_topk]
         differ = [i for i in range(len(got)) if got[i] != want[i]]
-        err = max((abs(float(got_sc[i]) - float(want_sc[i])) for i in differ), default=0.0)
+        err = max((abs(float(got_sc[i]) - want_sc[i]) for i in differ), default=0.0)
         check(err <= BEAM_SCORE_TOL, f"[t-beam] ref_topk={ref_topk}: tokens differ from the "
               f"CPU's with final scores {err} apart")
         checks["ref_topk" if ref_topk else "graves"] = (
             f"{len(got) - len(differ)}/{len(got)} equal, {len(differ)} near-ties, "
-            f"card {out['card_s']:.1f}s cpu {out['cpu_s']:.1f}s, "
+            f"card {card_s:.1f}s cpu {cpu_s:.1f}s, "
             f"tokens {[len(t) for t in got]}")
-    del models
+    del model
 
-    lm = lm_mod.build_model(LM_CONFIG, "cuda", torch.float32, torch.Generator().manual_seed(SEED))
     model = make_transducer("cuda", torch.bfloat16)
     n = int(TIME_SECONDS * SAMPLE_RATE)
     audio = (rng.standard_normal((T_BEAM_BATCH, n)) * 0.1).astype(np.float32)
@@ -3520,7 +3729,7 @@ def phase_t_beam(card_line):
         seconds=TIME_SECONDS, beam=BEAM, max_tokens=cap, lm_weight=dp["lm_weight"],
         ngram_alpha=dp["ngram_alpha"], ngram_beta=dp["ngram_beta"], ngram_s=f"{ngram_s:.2f}",
         check_graves=f"'{checks['graves']}'", check_ref_topk=f"'{checks['ref_topk']}'",
-        ms_per_batch=f"{batch_ms:.1f}",
+        cpu_wait_s=f"{ref['waited_s']:.1f}", ms_per_batch=f"{batch_ms:.1f}",
         audio_s_per_s=f"{T_BEAM_BATCH * TIME_SECONDS / batch_ms * 1e3:.3f}",
         fast_frames=stats["fast_frames"], slow_frames=stats["slow_frames"], pops=stats["pops"],
         ms_per_pop=f"{batch_ms / max(stats['pops'], 1):.2f}", host_reads=stats["host_reads"],
@@ -3656,14 +3865,15 @@ def host_vs(got, got_sc, want, want_sc):
                             default=0.0)
 
 
-def phase_t_host_beam(card_line, arpa):
+def phase_t_host_beam(card_line, refs):
     """The host Transducer beams (decoding/rnnt_beam.py, ECF_HOST_BEAM=1):
     Transducer Small (seeded random weights, fp32) with LM-Transformer fused
     through ``beam_search`` (the growing cache) and with LM-RNN through
     ``beam_search_batched``, each with the synthetic 6-gram over 1000 tokens
     and the config's weights, W 4, at 2 utterances of 2 and 1.5 s: card vs
     CPU tokens equal or final normalised scores within BEAM_SCORE_TOL (near
-    ties, counted); host beam vs the device beam on the card on the same
+    ties, counted), the CPU side from ``refs`` on weights and audio of the
+    same digest; host beam vs the device beam on the card on the same
     inputs and weights, held the same way. Then the main
     path: one 4 s utterance at the config's W with the bf16 encoder and the
     fp32 LM-Transformer: ms a batch, pops, ms a pop, the bias launches (12
@@ -3672,53 +3882,44 @@ def phase_t_host_beam(card_line, arpa):
     version again."""
     import copy
 
-    from efficientconformer_torch.config import load_config
     from efficientconformer_torch.decoding import rnnt_beam
     from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
-    from efficientconformer_torch.models import lm as lm_mod
     from efficientconformer_torch.models.transducer import greedy_token_cap
 
     t_phase = time.perf_counter()
-    cfg = load_config(T_CONFIG)
+    cfg, ng, rng, t_cpu, lms_cpu = t_host_beam_setup()
     dp = cfg["decoding_params"]
-    ng = dict(ngram=arpa, ngram_alpha=dp["ngram_alpha"], ngram_beta=dp["ngram_beta"],
-              tmp=dp["tmp"])
-    rng = np.random.default_rng(SEED + 42)
     x, x_len = ragged_audio(T_HOST_BEAM_CHECK, "cpu", rng)
     cap = greedy_token_cap(cfg["encoder_params"], x.shape[1], MAX_CONSEC)
-    t_cpu = make_transducer("cpu", torch.float32)
-    lms_cpu = {"transformer": make_lm("cpu", torch.float32),
-               "rnn": lm_mod.build_model(LM_RNN_CONFIG, "cpu", torch.float32,
-                                         torch.Generator().manual_seed(SEED))}
-    sides = {"cpu": ("cpu", t_cpu, lms_cpu),
-             "card": ("cuda", copy.deepcopy(t_cpu).cuda(),
-                      {k: copy.deepcopy(m).cuda() for k, m in lms_cpu.items()})}
+    ref = refs.get("t-host-beam")
+    check(ref["digest"] == digest(t_cpu, *lms_cpu.values(), x),
+          "[t-host-beam] the CPU references ran on other weights or audio")
+    model = copy.deepcopy(t_cpu).cuda()
+    lms = {k: copy.deepcopy(m).cuda() for k, m in lms_cpu.items()}
+    del t_cpu, lms_cpu
     checks = {}
-    for name, fn in (("transformer", rnnt_beam.beam_search),
-                     ("rnn", rnnt_beam.beam_search_batched)):
-        out = {}
-        for side, (d, model, lms) in sides.items():
-            stats = {}
-            t1 = time.perf_counter()
-            toks = fn(model, x.to(d), x_len.to(d), beam_size=T_HOST_BEAM_W, lm_model=lms[name],
-                      lm_weight=dp["lm_weight"], lm_tmp=dp["lm_tmp"], stats=stats, **ng)
-            out[side] = (toks, stats["scores"], time.perf_counter() - t1, stats["pops"])
-        n_tie, gap = host_vs(out["card"][0], out["card"][1], out["cpu"][0], out["cpu"][1])
+    for name, fn in host_beams():
+        stats = {}
+        t1 = time.perf_counter()
+        toks = fn(model, x.cuda(), x_len.cuda(), beam_size=T_HOST_BEAM_W, lm_model=lms[name],
+                  lm_weight=dp["lm_weight"], lm_tmp=dp["lm_tmp"], stats=stats, **ng)
+        card_s, pops = time.perf_counter() - t1, stats["pops"]
+        want, want_sc, cpu_s = ref[name]
+        n_tie, gap = host_vs(toks, stats["scores"], want, want_sc)
         check(gap <= BEAM_SCORE_TOL, f"[t-host-beam] {name}: card vs CPU tokens differ with "
               f"final scores {gap} apart")
-        _, model, lms = sides["card"]
         dev_toks, dev_sc = beam_search_device(
             model, x.cuda(), x_len.cuda(), beam_size=T_HOST_BEAM_W, max_tokens=cap,
             lm_model=lms[name], lm_weight=dp["lm_weight"], lm_tmp=dp["lm_tmp"],
             return_scores=True, **ng)
-        n_dev, dev_gap = host_vs(out["card"][0], out["card"][1], dev_toks, dev_sc.cpu())
+        n_dev, dev_gap = host_vs(toks, stats["scores"], dev_toks, dev_sc)
         check(dev_gap <= BEAM_SCORE_TOL, f"[t-host-beam] {name}: host vs device beam tokens "
               f"differ with final scores {dev_gap} apart")
         checks[name] = (f"{len(x) - n_tie}/{len(x)} equal, {n_tie} near-ties; vs device beam "
                         f"{len(x) - n_dev}/{len(x)} equal, gap {dev_gap:.3g}; card "
-                        f"{out['card'][2]:.1f}s cpu {out['cpu'][2]:.1f}s, pops "
-                        f"{out['card'][3]}, tokens {[len(t) for t in out['card'][0]]}")
-    del sides, t_cpu, lms_cpu
+                        f"{card_s:.1f}s cpu {cpu_s:.1f}s, pops "
+                        f"{pops}, tokens {[len(t) for t in toks]}")
+    del model, lms
 
     lm = make_lm("cuda", torch.float32)
     longest = [0]
@@ -3758,6 +3959,7 @@ def phase_t_host_beam(card_line, arpa):
     say("t-host-beam", config="EfficientConformerTransducerSmall+LM-Transformer|LM-RNN",
         check_beam=T_HOST_BEAM_W, check_seconds=T_HOST_BEAM_CHECK,
         check_transformer=f"'{checks['transformer']}'", check_rnn=f"'{checks['rnn']}'",
+        cpu_wait_s=f"{ref['waited_s']:.1f}",
         seconds=T_HOST_BEAM_SECONDS, beam=dp["beam_size"], ms_per_batch=f"{batch_ms:.1f}",
         pops=stats["pops"], ms_per_pop=f"{batch_ms / stats['pops']:.2f}",
         bias_launches=bias[0], bias_tc_launches=bias_tc[0], relpos_launches=rel[0],
@@ -3895,16 +4097,16 @@ def phase_stream_kernel():
     return worst, totals
 
 
-def ctc_model(enc_params, dtype):
-    """A CTC model over ``enc_params`` at the flagship's vocabulary, on the
-    card, weights from SEED as make_model."""
+def ctc_model(enc_params, dtype, vocab=None):
+    """A CTC model over ``enc_params`` at the flagship's vocabulary (or
+    ``vocab``), on the card, weights from SEED as make_model."""
     from efficientconformer_torch.config import load_config
     from efficientconformer_torch.models.model_ctc import ModelCTC, init_params_
 
     p = dict(enc_params)
     if dtype != torch.float32:
         p["compute_dtype"] = str(dtype).removeprefix("torch.")
-    model = ModelCTC(p, load_config(CONFIG)["tokenizer_params"]["vocab_size"])
+    model = ModelCTC(p, vocab or load_config(CONFIG)["tokenizer_params"]["vocab_size"])
     init_params_(model, torch.Generator().manual_seed(SEED))
     return perturb_norms_(model.to("cuda").eval())
 
@@ -5152,6 +5354,390 @@ def phase_wide_fp32_slice(card_line):
     return tuple(int(x) for x in total)
 
 
+# ------------------------------------------------ the wide rel-pos routes
+
+
+def wider_encoder(name: str) -> tuple[dict, dict]:
+    """(config, encoder_params) of WIDER_MODELS[name]: the shipped config
+    with its one field changed and its depth cut as the table says (the
+    stride and expansion blocks kept at their places)."""
+    from efficientconformer_torch.config import load_config
+
+    base, change, blocks = WIDER_MODELS[name]
+    cfg = load_config(f"configs/{base}.json")
+    cfg["encoder_params"].update(change)
+    if blocks is not None:
+        cfg["encoder_params"]["num_blocks"] = blocks
+    return cfg, cfg["encoder_params"]
+
+
+def wider_shapes(gen):
+    """[wider-kernel]'s cases, (label, args, (N, Nk, dh, D, H)): the 16 s
+    stage shapes of WIDER_MODELS that reach a wide route in some type or
+    direction (B WIDE_FP32_BATCH), WIDER_FREE_SHAPES, and the stage-1 shape
+    of the first at seq rank 1 of 2: its query rows [Nk/2, Nk) against
+    every key, as [sp-kernel] calls the kernels."""
+    from efficientconformer_torch.ops import rel_attention as RA
+
+    b = WIDE_FP32_BATCH
+    cases = []
+    for model in WIDER_MODELS:
+        enc = wider_encoder(model)[1]
+        for name, n, dh, d, h, g in stage_shapes(enc, TRAIN_SECONDS):
+            if any(RA.is_wide(dt, dh, d, bw) for dt in (torch.float32, torch.bfloat16)
+                   for bw in (False, True)):
+                args = attention_inputs(b, n, dh, d, h, g, "cuda", gen)
+                cases.append((f"{model}:{name}", args, (n, n, dh, d, h)))
+                if not cases[1:] and g > 1:
+                    r0 = n // 2
+                    qu, rowtab = args[0][:, :, r0:].contiguous(), args[5][r0:]
+                    cases.append((f"{model}:{name}:seq-rank-1-of-2",
+                                  (qu, *args[1:5], rowtab, *args[6:]), (n - r0, n, dh, d, h)))
+    for dh, d in WIDER_FREE_SHAPES:
+        cases.append((f"free:{dh}/{d}",
+                      attention_inputs(b, 201, dh, d, 4, 1, "cuda", gen, free_w=True),
+                      (201, 201, dh, d, 4)))
+    return cases
+
+
+def phase_wider_kernel():
+    """[wider-kernel]: both rel-pos kernels at wider_shapes, fp32 and bf16,
+    vs the plain versions on the same inputs (fp32: forward within
+    KERNEL_FP32_TOL, gradients within GRAD_TOL relative; bf16: the forward
+    within KERNEL_BF16_TOL of the fp32 plain version on the same bf16 qu, k,
+    v, gradients within GRAD_BF16_TOL relative, bitwise repeatable), each
+    call counted on the route ``route`` names: the tensor cores for bf16,
+    and a wide route wherever it names one. Then [wider-kernel-time]: each
+    (type, direction) on a wide route timed from CUDA graphs beside the
+    plain version (per eager call), SDPA on [qu | A], [k | keytab], v with A
+    given (bf16: its memory-efficient kernel; fp32: its math path) and the
+    bound. Returns (largest fp32 forward and gradient errors, largest bf16
+    ones, the times summed by direction over the wide rows, and by route)."""
+    from efficientconformer_torch.ops import rel_attention as RA
+
+    gen = torch.Generator().manual_seed(SEED + 110)
+    errs = {"fp32_fwd": 0.0, "fp32_bwd": 0.0, "bf16_fwd": 0.0, "bf16_bwd": 0.0}
+    times = {label: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0,
+                     "bound_ops": 0.0, "bound_bytes": 0.0, "tc_wide": 0.0, "fma_wide": 0.0}
+             for label in ("forward", "backward")}
+    for label, args, (n, nk, dh, d, h) in wider_shapes(gen):
+        b = args[0].shape[0]
+        row = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            a = [t.to(dtype) for t in args[:3]] + list(args[3:])
+            kinds = [RA.route(dtype, dh, d, bw) for bw in (False, True)]
+            reset_rel_counts()
+            o, lse = RA.relpos_attention_fwd(*a)
+            o_p, lse_p = RA.reference_relpos_attention(*[t.float() for t in a[:3]], *a[3:])
+            do = torch.randn(o.shape, generator=gen).to("cuda", dtype)
+            got = RA.relpos_attention_bwd(*a[:8], o, do, lse, a[8])
+            again = RA.relpos_attention_bwd(*a[:8], o, do, lse, a[8])
+            want = RA.reference_relpos_attention_bwd(*a[:8], do, lse, a[8])
+            torch.cuda.synchronize()
+            tc = int(dtype == torch.bfloat16)
+            wide = tuple(int(k.endswith("_wide")) * (1 + bw) for bw, k in enumerate(kinds))
+            check(rel_counts() == (1, tc, 2, 2 * tc) and wide_counts() == wide,
+                  f"[wider-kernel] {label} {dtype}: launches {rel_counts()}, wide "
+                  f"{wide_counts()}, expected the routes {kinds}")
+            ef = max((o.float() - o_p).abs().max().item(), (lse - lse_p).abs().max().item())
+            eb = max(grad_errors(got, want).values())
+            tol_f, tol_b = (KERNEL_FP32_TOL, GRAD_TOL) if not tc else (KERNEL_BF16_TOL,
+                                                                       GRAD_BF16_TOL)
+            check(ef <= tol_f and eb <= tol_b, f"[wider-kernel] {label} {dtype}: forward {ef} "
+                  f"> {tol_f} or gradients {eb} > {tol_b}")
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"[wider-kernel] {label} {dtype}: the backward is not bitwise repeatable")
+            key = "bf16" if tc else "fp32"
+            errs[f"{key}_fwd"], errs[f"{key}_bwd"] = (max(errs[f"{key}_fwd"], ef),
+                                                      max(errs[f"{key}_bwd"], eb))
+            row[key] = (ef, eb, kinds, a, o, lse, do)
+        say("wider-kernel", case=label, B=b, N=n, Nk=nk, dh=dh, D=d, H=h,
+            fp32_routes="/".join(row["fp32"][2]), bf16_routes="/".join(row["bf16"][2]),
+            fp32_err=f"{row['fp32'][0]:.3g}", fp32_bwd_rel_err=f"{row['fp32'][1]:.3g}",
+            bf16_err=f"{row['bf16'][0]:.3g}", bf16_bwd_rel_err=f"{row['bf16'][1]:.3g}",
+            tol=f"{KERNEL_FP32_TOL}/{GRAD_TOL} fp32, {KERNEL_BF16_TOL}/{GRAD_BF16_TOL} bf16",
+            bf16_repeatable="bitwise")
+
+        for key, (_, _, kinds, a, o, lse, do) in row.items():
+            tc = key == "bf16"
+            if tc:
+                library_fwd, _ = sdpa_yardstick(*augmented(a), a[8])
+                qa, ka, v, mask = augmented(a)
+                qa, ka, v = (t.detach().requires_grad_() for t in (qa, ka, v))
+                library_bwd, _ = sdpa_yardstick(qa, ka, v, mask, a[8], pad8(do))
+            else:
+                library_fwd, library_bwd = sdpa_fp32_math(a, do)
+            calls = {"forward": (lambda: RA.relpos_attention_fwd(*a), library_fwd,
+                                 lambda: RA.reference_relpos_attention(*a)),
+                     "backward": (lambda: RA.relpos_attention_bwd(*a[:8], o, do, lse, a[8],
+                                                                  need_dbias=False),
+                                  library_bwd,
+                                  lambda: RA.reference_relpos_attention_bwd(*a[:8], do, lse,
+                                                                            a[8]))}
+            for bw, (direction, (kernel, library, plain)) in enumerate(calls.items()):
+                if not kinds[bw].endswith("_wide"):
+                    continue
+                flops, nbytes = attention_cost(b, n, dh, d, h, 2 if tc else 4, bool(bw), nk=nk)
+                peak = BF16_PEAK if tc else FP32_PEAK
+                t = {"kernel": graph_ms(kernel, iters=10, replays=3),
+                     "plain": cuda_ms(plain, iters=5, warmup=1),
+                     "library": graph_ms(library, iters=10, replays=3)}
+                t["bound"], bound_by = bound(flops, nbytes, peak=peak)
+                for k, v in t.items():
+                    times[direction][k] += v
+                times[direction]["bound_ops"] += flops / peak * 1e3
+                times[direction]["bound_bytes"] += nbytes / HBM_RATE * 1e3
+                times[direction][kinds[bw]] += t["kernel"]
+                say("wider-kernel-time", case=label, direction=direction, route=kinds[bw],
+                    dtype=str(a[0].dtype).removeprefix("torch."), B=b, N=n, Nk=nk, dh=dh, D=d,
+                    H=h, bound_by=bound_by, library="sdpa " + ("memory-efficient bf16" if tc
+                                                               else "math fp32"),
+                    **{f"{k}_ms": f"{v:.4f}" for k, v in t.items()})
+    for t in times.values():
+        t["bound_by"] = "operations" if t["bound_ops"] >= t["bound_bytes"] else "bytes"
+    return errs, times
+
+
+def expected_routes(enc_params: dict, dtype) -> tuple[int, int]:
+    """(forward, backward) launches on a wide route in one pass of the
+    encoder over ``enc_params``: its attention layers at their widths."""
+    from efficientconformer_torch.config import resolve_block_configs
+    from efficientconformer_torch.ops import rel_attention as RA
+
+    shapes = [(b.att_group_size * b.dim_model // b.num_heads, b.dim_model)
+              for b in resolve_block_configs(enc_params)]
+    return tuple(sum(RA.is_wide(dtype, dh, d, bw) for dh, d in shapes) for bw in (False, True))
+
+
+def grad_gap(got: dict, want: dict) -> float:
+    """The gradients' relative L2 distance over every parameter, |got -
+    want| / |want|."""
+    num = sum(((got[k] - want[k]) ** 2).sum().item() for k in want)
+    return math.sqrt(num / sum((want[k] ** 2).sum().item() for k in want))
+
+
+def counted_step(cfg, batch, phase, name, dtype):
+    """One step of a fresh Trainer over ``cfg`` through the kernels, its
+    launches checked (a block a direction, all on the tensor cores in bf16
+    and none there in fp32, the wide ones where ``route`` names them), and
+    the same step through the plain versions on the card. The step's
+    numbers and its comparison with the plain versions': loss, gradient
+    norm, gradients (the largest of one parameter's, relative to its
+    largest) and BatchNorm statistics, relative; both steps' results."""
+    blocks = cfg["encoder_params"]["num_blocks"]
+    reset_launch_counts()
+    kernel = one_step(cfg, "cuda", batch)
+    torch.cuda.synchronize()
+    counts, wide, rnnt = rel_counts(), wide_counts(), launch_counts()[:2]
+    tc = blocks if dtype == torch.bfloat16 else 0
+    want = expected_routes(cfg["encoder_params"], dtype)
+    check(counts == (blocks, tc, blocks, tc) and wide == want,
+          f"[{phase}] {name} {dtype}: rel-pos launches {counts}, wide {wide}, expected "
+          f"{blocks} a direction, {tc} on the tensor cores, {want} wide")
+    plain = one_step(cfg, "cuda", batch, plain=True)
+    check(cfg["model_type"] != "Transducer" or rnnt == (1, 2),
+          f"[{phase}] {name} {dtype}: RNN-T launches {rnnt}, expected (1, 2)")
+    out = {"loss": kernel[0], "grad_norm": kernel[1],
+           "loss_rel": abs(kernel[0] - plain[0]) / abs(plain[0]),
+           "norm_rel": abs(kernel[1] - plain[1]) / abs(plain[1]),
+           "grad_rel": rel_diff(kernel[2], plain[2]), "stats_rel": rel_diff(kernel[3], plain[3]),
+           "launches": counts[::2], "wide": wide, "kernel": kernel, "plain": plain}
+    check(math.isfinite(kernel[0]), f"[{phase}] {name} {dtype}: loss {kernel[0]}")
+    return out
+
+
+def leaf_gap(got: dict, want: dict, ref: dict) -> tuple[float, str, int]:
+    """The largest over the parameters of |got - ref| / |want - ref| (L2
+    norms of one parameter's gradient; the denominator floored at
+    BF16_LEAF_FLOOR |ref|), that parameter's name, and how many parameters
+    were left out: those whose gradient ``ref`` is under BF16_LEAF_ZERO of
+    one of RMS size (|ref|_all sqrt(n / n_all)), zero in exact arithmetic
+    (the softmax and BatchNorm take no constant shift), rounding alone."""
+    def l2(t):
+        return t.double().norm().item()
+
+    norms = {k: l2(ref[k]) for k in ref}
+    rms = math.sqrt(sum(v * v for v in norms.values()) / sum(ref[k].numel() for k in ref))
+    kept = [k for k in ref if norms[k] >= BF16_LEAF_ZERO * rms * math.sqrt(ref[k].numel())]
+    ratios = {k: l2(got[k] - ref[k]) / max(l2(want[k] - ref[k]), BF16_LEAF_FLOOR * norms[k])
+              for k in kept}
+    worst = max(ratios, key=ratios.get)
+    return ratios[worst], worst, len(ref) - len(kept)
+
+
+def check_step(phase, name, dtype, out, fp32_grads=None):
+    """The step against the plain versions' at the gates of its type. fp32:
+    loss TRAIN_LOSS_RTOL, gradients TRAIN_GRAD_TOL, statistics
+    TRAIN_STATS_TOL. bf16: loss, gradient norm and statistics within
+    VARIANT_BF16_TOL; the gradients no farther from ``fp32_grads`` (the
+    plain versions' fp32 step) than BF16_GRAD_NOISE x the plain versions'
+    bf16 gradients are (grad_gap), and each parameter's no farther than
+    BF16_LEAF_NOISE x the plain versions' bf16 gradient of it (leaf_gap,
+    gradients zero but for rounding left out): a gradient's own bf16 noise
+    through the model is larger than the kernels' gates, so it is the
+    yardstick."""
+    keys = ("loss_rel", "norm_rel", "grad_rel", "stats_rel")
+    shown = {f"plain_{k}": f"{out[k]:.3g}" for k in keys}
+    if dtype == torch.float32:
+        tols = (TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_STATS_TOL)
+        errs = (out["loss_rel"], out["grad_rel"], out["stats_rel"])
+        check(all(e <= t for e, t in zip(errs, tols)),
+              f"[{phase}] {name} {dtype}: loss / gradients / statistics {errs} > {tols}")
+        return shown | {"tol": "/".join(map(str, tols))}
+    errs = (out["loss_rel"], out["norm_rel"], out["stats_rel"])
+    gaps = (grad_gap(out["kernel"][2], fp32_grads), grad_gap(out["plain"][2], fp32_grads))
+    leaf, worst, zero = leaf_gap(out["kernel"][2], out["plain"][2], fp32_grads)
+    check(all(e <= VARIANT_BF16_TOL for e in errs) and gaps[0] <= BF16_GRAD_NOISE * gaps[1]
+          and leaf <= BF16_LEAF_NOISE,
+          f"[{phase}] {name} bf16: loss / norm / statistics {errs} > {VARIANT_BF16_TOL}, or "
+          f"gradients {gaps[0]} from the fp32 step's against the plain versions' {gaps[1]}, "
+          f"or {worst}'s {leaf:.3g}x the plain versions' distance")
+    return shown | {"grad_gap_fp32": f"{gaps[0]:.4g}", "plain_grad_gap_fp32": f"{gaps[1]:.4g}",
+                    "leaf_gap": f"{leaf:.3g}", "leaf": worst, "leaves_zero": zero,
+                    "tol": f"{VARIANT_BF16_TOL}, gap x{BF16_GRAD_NOISE}, leaf x{BF16_LEAF_NOISE}"}
+
+
+def counted_inference(phase, name, model, enc_params, transducer=False):
+    """One bf16 greedy batch (2 utterances of WIDE_FP32_SECONDS) through the
+    kernels, counted, and the same through the plain versions on the card:
+    CTC logits within VARIANT_BF16_TOL of the plain versions' relative to
+    max(max|.|, 1), or the Transducer's encoder frames within
+    SERVE_FRAME_TOL["transducer"] (max |diff|, [serve-slice]'s gate for the
+    same frames); the rows whose tokens differ counted. Returns the
+    forward's launches (all, wide)."""
+    from efficientconformer_torch.models import transducer as T
+    from efficientconformer_torch.models.model_ctc import greedy_decode
+
+    x, x_len = ragged_audio(WIDE_FP32_SECONDS, "cuda", np.random.default_rng(SEED + 120))
+    cap = T.greedy_token_cap(enc_params, x.shape[1], MAX_CONSEC) if transducer else None
+
+    def decode():
+        with torch.inference_mode():
+            if transducer:
+                return T.greedy_decode(model, x, x_len, cap, MAX_CONSEC)
+            return greedy_decode(model, x, x_len)
+
+    def frames():
+        with torch.inference_mode():
+            return (model.encoder if transducer else model)(x, x_len)[0]
+
+    blocks = enc_params["num_blocks"]
+    reset_rel_counts()
+    tokens, counts = decode()
+    torch.cuda.synchronize()
+    launches, wide = rel_counts(), wide_counts()
+    want = expected_routes(enc_params, torch.bfloat16)[0]
+    check(launches[:2] == (blocks, blocks) and wide[0] == want,
+          f"[{phase}] {name} greedy: launches {launches[:2]}, wide {wide[0]}, expected "
+          f"{blocks} on the tensor cores, {want} wide")
+    got = frames()
+    with plain_kernels():
+        want_frames = frames()
+        p_tokens, p_counts = decode()
+    err, rel = bf16_logits_err(got, want_frames)
+    tol = SERVE_FRAME_TOL["transducer"] if transducer else VARIANT_BF16_TOL
+    check(bool(torch.isfinite(got.float()).all()) and (err if transducer else rel) <= tol,
+          f"[{phase}] {name} greedy: {'frames' if transducer else 'logits'} "
+          f"{err if transducer else rel} > {tol} of the plain versions'")
+    same = [bool(torch.equal(tokens[i, :c], p_tokens[i, :pc]))
+            for i, (c, pc) in enumerate(zip(counts.tolist(), p_counts.tolist()))]
+    return launches[0], wide[0], {"max_abs_diff": f"{err:.4g}", "rel_diff": f"{rel:.4g}",
+                                  "plain_max_abs": f"{want_frames.float().abs().max().item():.4g}",
+                                  "rows_tokens_equal": f"{sum(same)}/{len(same)}",
+                                  "tokens": counts.tolist(), "tol": tol}
+
+
+def phase_wide_bf16_slice(card_line):
+    """[wide-bf16-slice]: WIDE_BF16_CONFIGS at published widths, heads and
+    depth in the precision they ship (mixed_precision true: bf16): one
+    training step through the Trainer (2 utterances of 16 and 8 s, dropout
+    0, SpecAugment off, VN off) and one greedy batch, each against the same
+    run through the plain versions on the card (check_step,
+    counted_inference), every rel-pos launch on the tensor-core kernels
+    that hold [qu | A] whole (none wide). Returns the rel-pos launches
+    (forward, backward) summed over its runs."""
+    from efficientconformer_torch.models import transducer as T
+    from efficientconformer_torch.models.model_ctc import build_model
+
+    total = [0, 0]
+    for i, name in enumerate(WIDE_BF16_CONFIGS):
+        path = f"configs/{name}.json"
+        transducer = "Transducer" in name
+        cfg = train_config(path, **({"vn_start_step": None} if transducer else {}))
+        check(cfg["training_params"]["mixed_precision"], f"{name} ships in fp32")
+        cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+        batch = train_batch(1, len(WIDE_FP32_SECONDS), [WIDE_FP32_SECONDS], [60, 30], "cpu",
+                            np.random.default_rng(SEED + 130 + i))
+        out = counted_step(cfg, batch, "wide-bf16-slice", name, torch.bfloat16)
+        c32 = json.loads(json.dumps(cfg))
+        c32["training_params"]["mixed_precision"] = False
+        errs = check_step("wide-bf16-slice", name, torch.bfloat16, out,
+                          one_step(c32, "cuda", batch, plain=True)[2])
+        check(out["wide"] == (0, 0), f"[wide-bf16-slice] {name}: {out['wide']} wide launches")
+        build = T.build_model if transducer else build_model
+        model = perturb_norms_(build(path, "cuda", torch.bfloat16,
+                                     torch.Generator().manual_seed(SEED)))
+        fwd, wide, inf = counted_inference("wide-bf16-slice", name, model, cfg["encoder_params"],
+                                           transducer)
+        check(wide == 0, f"[wide-bf16-slice] {name} greedy: {wide} wide launches")
+        total[0] += out["launches"][0] + fwd
+        total[1] += out["launches"][1]
+        say("wide-bf16-slice", config=name, dtype="bfloat16", seconds=list(WIDE_FP32_SECONDS),
+            blocks=cfg["encoder_params"]["num_blocks"], loss=f"{out['loss']:.6f}",
+            grad_norm=f"{out['grad_norm']:.6f}", **errs, step_launches=out["launches"],
+            greedy_launches=fwd, route="tc", **{f"greedy_{k}": v for k, v in inf.items()},
+            card=f"'{card_line}'")
+        del model
+        torch.cuda.empty_cache()
+    return tuple(total)
+
+
+def phase_wider_slice(card_line):
+    """[wider-slice]: each of WIDER_MODELS (printed: what it changes and
+    cuts) at full width: one training step in bf16 and one in fp32 through
+    the Trainer (as [wide-bf16-slice]'s), and one bf16 greedy batch, each
+    against the same run through the plain versions on the card, every
+    rel-pos launch counted on the route it should take (wide where
+    ``route`` names a wide one). Returns the rel-pos launches (forward,
+    backward) and of them the wide ones, summed over its runs."""
+    from efficientconformer_torch.config import load_config, resolve_block_configs
+
+    total = np.zeros(4, dtype=np.int64)
+    for i, name in enumerate(WIDER_MODELS):
+        base, change, _ = WIDER_MODELS[name]
+        cfg, enc = wider_encoder(name)
+        enc.update(Pdrop=0.0, spec_augment=False)
+        heads = sorted({(b.att_group_size * b.dim_model // b.num_heads, b.dim_model)
+                        for b in resolve_block_configs(enc)})
+        say("wider-model", name=name, base=base, change=json.dumps(change).replace(" ", ""),
+            blocks=enc["num_blocks"],
+            published_blocks=load_config(f"configs/{base}.json")["encoder_params"]["num_blocks"],
+            heads_and_rel_widths=str(heads).replace(" ", ""))
+        batch = train_batch(1, len(WIDE_FP32_SECONDS), [WIDE_FP32_SECONDS], [60, 30], "cpu",
+                            np.random.default_rng(SEED + 140 + i))
+        fp32_grads = None
+        for dtype in (torch.float32, torch.bfloat16):   # fp32 first: the bf16 yardstick
+            c = json.loads(json.dumps(cfg))
+            c["training_params"]["mixed_precision"] = dtype == torch.bfloat16
+            out = counted_step(c, batch, "wider-slice", name, dtype)
+            errs = check_step("wider-slice", name, dtype, out, fp32_grads)
+            fp32_grads = out["plain"][2]
+            total += np.asarray([*out["launches"], *out["wide"]])
+            say("wider-slice", model=name, step=str(dtype).removeprefix("torch."),
+                loss=f"{out['loss']:.6f}", grad_norm=f"{out['grad_norm']:.6f}", **errs,
+                launches=out["launches"], wide_launches=out["wide"], card=f"'{card_line}'")
+            del out
+            torch.cuda.empty_cache()
+        model = ctc_model(enc, torch.bfloat16, cfg["tokenizer_params"]["vocab_size"])
+        fwd, wide, inf = counted_inference("wider-slice", name, model, enc)
+        total += np.asarray([fwd, 0, wide, 0])
+        say("wider-slice", model=name, greedy="bfloat16", launches=fwd, wide_launches=wide,
+            **inf)
+        del model
+        torch.cuda.empty_cache()
+    return tuple(int(x) for x in total)
+
+
 def phase_profile():
     from efficientconformer_torch.models import transducer as T
     from efficientconformer_torch.models.model_ctc import greedy_decode
@@ -5238,6 +5824,7 @@ def main() -> int:
     for name in kernels:
         _kernels.load(name)
     say("build", kernels=",".join(kernels), seconds=f"{time.perf_counter() - t0:.2f}")
+    refs = BeamReferences()   # the beams' CPU sides, beside the card's phases
     for line in "\n".join(reports).splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
@@ -5252,10 +5839,9 @@ def main() -> int:
             row = {}
             for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "fma")):
                 fwd_b, bwd_b = RA.smem_bytes(dtype, dh, d)
-                takes = [RA.refusal(dtype, dh, d, backward) is None for backward in (0, 1)]
                 row.update({f"{route}_fwd_bytes": fwd_b, f"{route}_bwd_bytes": bwd_b,
-                            f"{route}_takes": "both" if all(takes) else
-                            "forward" if takes[0] else "no"})
+                            f"{route}_kernels": "/".join(RA.route(dtype, dh, d, b)
+                                                         for b in (False, True))})
             say("build-smem", config=path.split("/")[-1].removesuffix(".json"), shape=name,
                 dh=dh, rel_width=d, limit=RA.SMEM_LIMIT, **row)
 
@@ -5310,10 +5896,11 @@ def main() -> int:
     check(lm_score_launches > 0 and lm_fwd > 0 and lm_bwd > 0, "the LM paths missed a kernel")
     arpa256, arpa256_path = phase_ngram_device()
     ctc_beam_launches, _ = phase_ctc_beam(card_line, arpa256, arpa256_path)
-    t_beam_launches, _, arpa1000 = phase_t_beam(card_line)
+    t_beam_launches, _, _ = phase_t_beam(card_line, refs)
     step_err, step_err16, times_step = phase_lm_step_kernel()
     phase_growing_cache()
-    host_bias, host_rel, _ = phase_t_host_beam(card_line, arpa1000)
+    host_bias, host_rel, _ = phase_t_host_beam(card_line, refs)
+    refs.stop()
     err_stream, times_stream = phase_stream_kernel()
     stream_launches, stream_rel, err_stream_exact = phase_stream_exact()
     serve_rel, serve_bias, (err_serve, err16_serve) = phase_serve_slice(card_line)
@@ -5337,10 +5924,38 @@ def main() -> int:
     wide32_launches = phase_wide_fp32_slice(card_line)
     say("wide-fp32", seconds=f"{time.perf_counter() - t_wide:.2f}")
     check(all(wide32_launches), f"the wide fp32 steps missed a kernel: {wide32_launches}")
+    t_wider = time.perf_counter()
+    wider_errs, wider_times = phase_wider_kernel()
+    wide16_launches = phase_wide_bf16_slice(card_line)
+    wider_launches = phase_wider_slice(card_line)
+    say("wider", seconds=f"{time.perf_counter() - t_wider:.2f}")
+    check(all(wide16_launches) and all(wider_launches),
+          f"the wide phases missed a kernel: {wide16_launches}, {wider_launches}")
 
     def wide(direction):
         return {f"wide_{w}_{k}_ms": wide_rows[(w, direction)][k] for w in (135, 256)
                 for k in ("kernel", "plain", "bound", "library")}
+
+    def wide_route(name, i, direction, kernels):
+        """The entry of a wide route: its launches in [wider-slice] (the main
+        path that reaches it), [wider-kernel]'s largest errors (fp32, bf16
+        relative for the backward) and [wider-kernel-time]'s sums over the
+        wide rows (the library: SDPA on the augmented features, bf16
+        memory-efficient or fp32 math)."""
+        t = wider_times[direction]
+        key = "bwd" if i else "fwd"
+        return {"name": name, "route": "cuda", "source": source[i], "kernels": kernels,
+                "replaces": replaces[i], "launches": wider_launches[2 + i],
+                "max_abs_err": wider_errs[f"fp32_{key}"],
+                "bf16_max_err": wider_errs[f"bf16_{key}"], "ms": t["kernel"],
+                "plain_ms": t["plain"], "bound_ms": t["bound"], "bound_by": t["bound_by"],
+                "library_ms": t["library"], "tc_wide_ms": t["tc_wide"],
+                "fma_wide_ms": t["fma_wide"]}
+
+    source = ("efficientconformer_torch/csrc/rel_attention_fwd.cu",
+              "efficientconformer_torch/csrc/rel_attention_bwd.cu")
+    replaces = ("efficientconformer_tpu/ops/pallas_rel_attention.py:122",
+                "efficientconformer_tpu/ops/pallas_rel_attention.py:139")
 
     def wide32(direction, i):
         """[wide-fp32-kernel-time]'s sums (the library: SDPA's fp32 math
@@ -5382,6 +5997,7 @@ def main() -> int:
               tp_norm_rel_split=tp_slice["norm_rel_split"],
               sp_launches={"sp-slice": sp_slice[0]},
               sp_kernel_max_err=sp_fwd[0], sp_kernel_bf16_max_err=sp_fwd[1],
+              wide_bf16_launches=wide16_launches[0], wider_launches=wider_launches[0],
               **wide32("forward", 0)),
         entry(RA.KERNEL_BWD, "efficientconformer_torch/csrc/rel_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rel_attention.py:139", launches_bwd,
@@ -5394,7 +6010,15 @@ def main() -> int:
               tp_kernel_max_err=tp_bwd[0], tp_kernel_bf16_max_err=tp_bwd[1],
               sp_launches={"sp-slice": sp_slice[1]},
               sp_kernel_max_err=sp_bwd[0], sp_kernel_bf16_max_err=sp_bwd[1],
+              wide_bf16_launches=wide16_launches[1], wider_launches=wider_launches[1],
               **wide32("backward", 1)),
+        wide_route("rel_attention_fwd:wide", 0, "forward",
+                   ["rtc::prep_wide_kernel", "relpos_fwd_wide_tc_kernel<64|128>",
+                    "rfma::prep_kernel<true>", "relpos_fwd_kernel<J> (column groups)"]),
+        wide_route("rel_attention_bwd:wide", 1, "backward",
+                   ["rtc::prep_wide_kernel", "relpos_bwd_k_wide_tc_kernel<64|128>",
+                    "relpos_bwd_q_wide_tc_kernel<64|128>", "rfma::prep_kernel<true>",
+                    "relpos_bwd_{k,da,dq,dw}_kernel"]),
         entry(RL.KERNEL_FWD, "efficientconformer_torch/csrc/rnnt_fwd.cu",
               "efficientconformer_tpu/ops/pallas_rnnt.py:73", rnnt_fwd, err_rnnt, times_rnnt,
               wide_fp32_launches=wide32_launches[2]),

@@ -54,10 +54,15 @@
 //       dA = scale dS keytab, the rotation to dpq in fp32, dpq rounded to
 //       bf16, dqu += dpq W^T, the block's dW partial qv^T dpq and the column
 //       sums of dpq, whose product with W^T is the ddelta partial.
-//     Streaming the rel features in chunks keeps every width within one
-//     block's shared memory (the widest shipped shape, D 720, takes 155,136
-//     bytes); dS^T costs a round trip through device memory (B H Nk N bf16,
-//     51 MB at the flagship's stage 2) and is read once per rel chunk.
+//     Streaming the rel features in chunks keeps every shipped width within
+//     one block's shared memory (the widest shipped shape, D 720, takes
+//     155,136 bytes); dS^T costs a round trip through device memory (B H Nk
+//     N bf16, 51 MB at the flagship's stage 2) and is read once per rel
+//     chunk. Past a padded head of 144, or tiles past 227 KB (tc_fits), the
+//     wide route: rtc::prep_wide_kernel (A rows, Di), then
+//     relpos_bwd_k_wide_tc_kernel and relpos_bwd_q_wide_tc_kernel stream
+//     every product in chunks of 64 columns and split dk, dv and dqu into
+//     column groups of at most 128 (at most 98,560 bytes at any width).
 //   * fp32, five passes of fp32 FMAs from shared memory (relpos_fma.cuh;
 //     TF32 products would miss the fp32 checks), each product a
 //     rfma::tile_product: 64 x 64 tiles, a 4 x 4 piece a thread, contracted
@@ -76,8 +81,9 @@
 //     - relpos_bwd_dq_kernel: dqu += dpq W^T and the ddelta partials, the
 //       column sums of dpq W^T over each query tile;
 //     - relpos_bwd_dw_kernel: dW = qv^T dpq over each (batch, head)'s rows.
-//     Takes head widths up to 256 at any rel width: the largest pass, the
-//     prep's, needs 119,040 bytes of shared memory at dh 256 (relpos_fma.cuh).
+//     Takes every head and rel width: the largest pass, the prep's, needs
+//     119,040 bytes of shared memory at dh 256 and stages qu in chunks past
+//     it (relpos_fma.cuh).
 //     dS^T and dpq cost round trips through device memory (B H Nk N and
 //     B H N 2hd fp32: 10.3 and 9.3 MB at EfficientConformer Large's stages 2
 //     and 3, b2 x 16 s).
@@ -518,7 +524,8 @@ struct TcParams {
   float* dw_part;       // (B * ceil(N/64), H, dhp, d2p)
   float* ddelta_part;   // (B * ceil(N/64), H, dhp)
   float* di;            // (B, H, N)
-  tc::bf16* qa;         // (B, H, np, dhp + d2p): [qu | A] rows, from the prep pass
+  tc::bf16* qa;         // (B, H, np, dhp + d2p): [qu | A] rows, from the prep pass; on the
+                        // wide route (B, H, N, d2p): the A rows, from rtc::prep_wide_kernel
   tc::bf16* dop;        // (B, H, np, dhp): dO rows, padded, from the prep pass
   tc::bf16* dst;        // (B, H, nkp, np): dS^T, from the key side to the query side
   float* dbias;         // (B, H, Nk) or null
@@ -552,6 +559,40 @@ __host__ __device__ inline size_t tc_q_smem(int dhp, int d2p) {
   const size_t ldt = dhp + 8, ldx = (dhp > 64 ? dhp : 64) + 8;
   return (rtc::BQ * ldt + 2 * TC_BK * (rtc::LDC + ldx) + dhp * rtc::LDC + rtc::BQ * rtc::LDC) *
              2 + d2p * sizeof(float);
+}
+
+// The key side's epilogue of a query tile, warp by warp (its 16 keys of
+// the block's 64 from k0, the tile's 32 rows from r0; accumulator layout:
+// s[j] holds rows 8j + 2c (+1) of keys g and g + 8): P^T = exp(S^T scale +
+// key bias - LSE) into s and dS^T = P^T (dP^T - Di) into dp, both zero past
+// N and Nk; the dbias column sums of dS into db; dS^T rounded to bf16 into
+// dst (the tile's corner of the (nkp, np) dS^T), unless dst is null.
+__device__ __forceinline__ void probs_tile(float (&s)[4][4], float (&dp)[4][4], float (&db)[2],
+                                           const float (&kbias)[2], const float* lt,
+                                           const float* dt, const TcParams& p, int k0, int r0,
+                                           tc::bf16* dst) {
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, c = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hr = e >> 1, key = warp * 16 + g + 8 * hr, row = j * 8 + 2 * c + (e & 1);
+      const bool ok = k0 + key < p.nk && r0 + row < p.n;
+      const float pr = ok ? __expf(s[j][e] * p.scale + kbias[hr] - lt[row]) : 0.f;
+      s[j][e] = pr;
+      dp[j][e] = pr * (dp[j][e] - dt[row]);
+      db[hr] += dp[j][e];
+    }
+    if (dst != nullptr) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int key = warp * 16 + g + 8 * hr;
+        *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<int64_t>(key) * p.np + j * 8 +
+                                           2 * c) =
+            __floats2bfloat162_rn(dp[j][2 * hr], dp[j][2 * hr + 1]);
+      }
+    }
+  }
 }
 
 // Pass 1, one block per (64 query rows, head, batch): the A rows (as the
@@ -734,27 +775,8 @@ __global__ void __launch_bounds__(rtc::THREADS) relpos_bwd_k_tc_kernel(TcParams 
 
     // P^T (in s) and dS^T (in dp); zero past N and Nk; dS^T out in bf16
     const int r0 = t * TC_TQ;
-    const float* lt = ls + (t & 1) * TC_TQ;
-    const float* dt = dis + (t & 1) * TC_TQ;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1, key = warp * 16 + g + 8 * hr, row = j * 8 + 2 * c + (e & 1);
-        const bool ok = k0 + key < p.nk && r0 + row < p.n;
-        const float pr = ok ? __expf(s[j][e] * p.scale + kbias[hr] - lt[row]) : 0.f;
-        s[j][e] = pr;
-        dp[j][e] = pr * (dp[j][e] - dt[row]);
-        db[hr] += dp[j][e];
-      }
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int key = warp * 16 + g + 8 * hr;
-        *reinterpret_cast<__nv_bfloat162*>(p.dst + (bh * p.nkp + k0 + key) * p.np + r0 + j * 8 +
-                                           2 * c) =
-            __floats2bfloat162_rn(dp[j][2 * hr], dp[j][2 * hr + 1]);
-      }
-    }
+    probs_tile(s, dp, db, kbias, ls + (t & 1) * TC_TQ, dis + (t & 1) * TC_TQ, p, k0, r0,
+               p.dst + (bh * p.nkp + k0) * p.np + r0);
     // dv += P^T dO and dk += dS^T qu, P^T and dS^T as bf16 A fragments
     const uint32_t tbt = t_bt + (t & 1) * tile_bytes;
 #pragma unroll
@@ -1036,6 +1058,445 @@ __global__ void __launch_bounds__(rtc::THREADS) relpos_bwd_q_tc_kernel(TcParams 
                     q0 + warp * 16, p.n, p.dh, p.dqu_bytes, lane, 32);
 }
 
+// ------------------------------------------- bf16: the wide route
+//
+// Past the passes above (a padded head over 144, or tiles past 227 KB; see
+// relpos_tc.cuh), after rtc::prep_wide_kernel wrote the A rows and Di: the
+// key side and the query side stream every product over the augmented
+// width in chunks of 64 columns and split dk, dv and dqu into column groups
+// of gw (rtc::wide_gw), a grid dimension; DMAX (64 or 128) sizes the
+// registers of a group. Every group's blocks compute the same P and dS;
+// the first writes dS^T and dbias. The rounding points are the passes
+// above's: qv, A, P, dS and dpq in bf16.
+
+// the key side's shared memory: a ring of two steps (k and v chunks, or a
+// keytab chunk, of the block's keys; qu and dO chunks, or an A chunk, of the
+// query tile), two tiles of the group's qu and dO columns, LSE and Di
+__host__ __device__ inline size_t tc_k_wide_smem(int dhp) {
+  const size_t ldg = rtc::wide_dmax(rtc::wide_gw(dhp)) + 8;
+  return (2 * (2 * TC_BK + 2 * TC_TQ) * rtc::LDC + 2 * 2 * TC_TQ * ldg) * 2 +
+         2 * 2 * TC_TQ * sizeof(float);
+}
+// the query side's: qv of the group's columns, a ring of two (dS^T tile, k
+// or keytab tile), a W chunk of the group's rows, a dpq chunk, its column sums
+__host__ __device__ inline size_t tc_q_wide_smem(int dhp) {
+  const size_t dmax = rtc::wide_dmax(rtc::wide_gw(dhp)), ldx = dmax + 8;
+  return (rtc::BQ * ldx + 2 * TC_BK * (rtc::LDC + ldx) + dmax * rtc::LDC + rtc::BQ * rtc::LDC) *
+             2 + rtc::BQ * sizeof(float);
+}
+
+// Key side, one block per (64 keys, head, batch x column group of gw), each
+// warp 16 keys, looping over query tiles of 32 rows. A tile's steps stream
+// the augmented width in chunks of 64: a content chunk brings k and v of the
+// block's keys and qu and dO of the tile (S^T += k qu^T, dP^T += v dO^T), a
+// rel chunk the keytab and A columns (S^T += keytab A^T); the tile's first
+// step also brings the group's qu and dO columns, its LSE and Di. Then P^T
+// and dS^T as relpos_bwd_k_tc_kernel forms them, dv += bf16(P^T) dO and dk
+// += bf16(dS^T) qu over the group's columns.
+template <int DMAX>
+__global__ void __launch_bounds__(rtc::THREADS) relpos_bwd_k_wide_tc_kernel(TcParams p, int gw) {
+  using tc::bf16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LDC = rtc::LDC, LDG = DMAX + 8;
+  constexpr int STAGE = (2 * TC_BK + 2 * TC_TQ) * LDC;
+  const int dhp = p.rt.dhp, d2p = 2 * p.rt.hdp;
+  const int nc = (dhp + 63) / 64, nsteps = nc + (d2p + 63) / 64;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);   // [2][k [64], v [64], qu [32], dO [32]][LDC]
+  bf16* gt = ring + 2 * STAGE;                      // [2][qu [32][LDG], dO [32][LDG]]
+  float* ls = reinterpret_cast<float*>(gt + 2 * 2 * TC_TQ * LDG);   // [2][32] LSE
+  float* dis = ls + 2 * TC_TQ;                                       // [2][32] Di
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int groups = (dhp + gw - 1) / gw;
+  const int k0 = blockIdx.x * TC_BK, h = blockIdx.y, b = blockIdx.z / groups;
+  const int g0 = (blockIdx.z % groups) * gw, ngd = min(gw, dhp - g0) >> 4;
+  const int64_t bh = static_cast<int64_t>(b) * gridDim.y + h;
+  const bf16* qp = p.qu + b * p.qu_sb + h * p.qu_sh;
+  const bf16* kp = p.k + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = p.v + b * p.v_sb + h * p.v_sh;
+  const bf16* dop = p.dout + b * p.do_sb + h * p.do_sh;
+  const bf16* ap = p.qa + bh * p.n * d2p;
+  const float* lse = p.lse + bh * p.n;
+  const float* di = p.di + bh * p.n;
+  float kbias[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int kj = k0 + warp * 16 + g + 8 * hr;
+    kbias[hr] = p.bias && kj < p.nk ? p.bias[b * p.bias_sb + kj] : 0.f;
+  }
+
+  const int total = (p.n + TC_TQ - 1) / TC_TQ * nsteps;
+  auto load_step = [&](int st) {
+    const int t = st / nsteps, f = st - t * nsteps, r0 = t * TC_TQ;
+    bf16* keys = ring + (st & 1) * STAGE;
+    bf16* vals = keys + TC_BK * LDC;
+    bf16* rows = vals + TC_BK * LDC;
+    bf16* drows = rows + TC_TQ * LDC;
+    if (f < nc) {
+      const int c0 = 64 * f;
+      rtc::load_rows<TC_BK, 8>(keys, LDC, kp + c0, p.k_sn, k0, p.nk, p.dh - c0, 8, p.k_bytes);
+      rtc::load_rows<TC_BK, 8>(vals, LDC, vp + c0, p.v_sn, k0, p.nk, p.dh - c0, 8, p.v_bytes);
+      rtc::load_rows<TC_TQ, 8>(rows, LDC, qp + c0, p.qu_sn, r0, p.n, p.dh - c0, 8, p.qu_bytes);
+      rtc::load_rows<TC_TQ, 8>(drows, LDC, dop + c0, p.do_sn, r0, p.n, p.dh - c0, 8, p.do_bytes);
+    } else {
+      const int c0 = 64 * (f - nc);
+      rtc::load_rows<TC_BK, 8>(keys, LDC, p.rt.keytab + c0, d2p, k0, p.nk, d2p - c0, 8, 16);
+      rtc::load_rows<TC_TQ, 8>(rows, LDC, ap + c0, d2p, r0, p.n, d2p - c0, 8, 16);
+    }
+    if (f == 0) {
+      bf16* gq = gt + (t & 1) * 2 * TC_TQ * LDG;
+      rtc::load_rows<TC_TQ, DMAX / 8>(gq, LDG, qp + g0, p.qu_sn, r0, p.n, p.dh - g0, gw >> 3,
+                                      p.qu_bytes);
+      rtc::load_rows<TC_TQ, DMAX / 8>(gq + TC_TQ * LDG, LDG, dop + g0, p.do_sn, r0, p.n,
+                                      p.dh - g0, gw >> 3, p.do_bytes);
+      const int i = tid & (TC_TQ - 1);
+      const bool ok = r0 + i < p.n;
+      if (tid < TC_TQ) {
+        tc::cp_async4(ls + (t & 1) * TC_TQ + i, ok ? lse + r0 + i : lse, ok);
+      } else if (tid < 2 * TC_TQ) {
+        tc::cp_async4(dis + (t & 1) * TC_TQ + i, ok ? di + r0 + i : di, ok);
+      }
+    }
+  };
+
+  float dk[DMAX / 8][4], dv[DMAX / 8][4], db[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) {
+    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+  }
+  float s[4][4], dp[4][4];
+  const uint32_t keys_a = tc::a_lane<LDC>(ring + warp * 16 * LDC, lane);
+  const uint32_t vals_a = keys_a + TC_BK * LDC * 2;
+  const uint32_t rows_b = tc::b_lane<LDC>(ring + 2 * TC_BK * LDC, lane);
+  const uint32_t drows_b = rows_b + TC_TQ * LDC * 2;
+  const uint32_t gq_bt = tc::bt_lane<LDG>(gt, lane), gd_bt = gq_bt + TC_TQ * LDG * 2;
+  constexpr uint32_t STAGE_BYTES = STAGE * 2, GT_BYTES = 2 * TC_TQ * LDG * 2;
+
+  load_step(0);
+  tc::cp_async_commit();
+  for (int st = 0; st < total; ++st) {
+    tc::cp_async_wait<0>();
+    __syncthreads();   // step st landed for every thread; step st - 1's buffers are free
+    if (st + 1 < total) load_step(st + 1);
+    tc::cp_async_commit();
+    const int t = st / nsteps, f = st - t * nsteps;
+    if (f == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+    }
+    const bool content = f < nc;
+    const int ksteps = (content ? min(64, dhp - 64 * f) : min(64, d2p - 64 * (f - nc))) >> 4;
+    const uint32_t sb = (st & 1) * STAGE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < ksteps) {
+        uint32_t a[4], bf[4];
+        tc::ldsm_x4(a, keys_a + sb + kk * 32);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          tc::ldsm_x4(bf, rows_b + sb + tc::blk<LDC>(np, kk));
+          tc::mma_bf16(s[2 * np], a, bf[0], bf[1]);
+          tc::mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+        }
+        if (content) {
+          tc::ldsm_x4(a, vals_a + sb + kk * 32);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            tc::ldsm_x4(bf, drows_b + sb + tc::blk<LDC>(np, kk));
+            tc::mma_bf16(dp[2 * np], a, bf[0], bf[1]);
+            tc::mma_bf16(dp[2 * np + 1], a, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    if (f != nsteps - 1) continue;
+
+    // P^T (in s) and dS^T (in dp); zero past N and Nk; dS^T out in bf16 by
+    // the first group
+    const int r0 = t * TC_TQ;
+    probs_tile(s, dp, db, kbias, ls + (t & 1) * TC_TQ, dis + (t & 1) * TC_TQ, p, k0, r0,
+               g0 == 0 ? p.dst + (bh * p.nkp + k0) * p.np + r0 : nullptr);
+    // dv += P^T dO and dk += dS^T qu over the group's columns
+    const uint32_t gb = (t & 1) * GT_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < TC_TQ / 16; ++kk) {
+      uint32_t a[4], bf[4];
+      tc::acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < DMAX / 16; ++n2) {
+        if (n2 < ngd) {
+          tc::ldsm_x4_t(bf, gd_bt + gb + tc::blk<LDG>(kk, n2));
+          tc::mma_bf16(dv[2 * n2], a, bf[0], bf[1]);
+          tc::mma_bf16(dv[2 * n2 + 1], a, bf[2], bf[3]);
+        }
+      }
+      tc::acc_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < DMAX / 16; ++n2) {
+        if (n2 < ngd) {
+          tc::ldsm_x4_t(bf, gq_bt + gb + tc::blk<LDG>(kk, n2));
+          tc::mma_bf16(dk[2 * n2], a, bf[0], bf[1]);
+          tc::mma_bf16(dk[2 * n2 + 1], a, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // dk (scaled) and dv through the ring (every warp is past its last read of
+  // it) to whole-row stores; the dbias column sums over the quad
+  __syncthreads();
+  bf16* kst = ring + warp * 2 * 16 * LDG;
+  bf16* vst = kst + 16 * LDG;
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) {
+    if (j < 2 * ngd) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int col = j * 8 + 2 * c, row = g + 8 * hr;
+        *reinterpret_cast<__nv_bfloat162*>(kst + row * LDG + col) =
+            __floats2bfloat162_rn(dk[j][2 * hr] * p.scale, dk[j][2 * hr + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(vst + row * LDG + col) =
+            __floats2bfloat162_rn(dv[j][2 * hr], dv[j][2 * hr + 1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float sum = db[hr];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int kj = k0 + warp * 16 + g + 8 * hr;
+    if (g0 == 0 && c == 0 && kj < p.nk && p.dbias) p.dbias[bh * p.nk + kj] = sum;
+  }
+  __syncwarp();
+  const int width = min(gw, p.dh - g0);
+  tc::store_rows_rt(p.dk + b * p.dk_sb + h * p.dk_sh + g0, p.dk_sn, kst, LDG, 16, k0 + warp * 16,
+                    p.nk, width, p.dk_bytes, lane, 32);
+  tc::store_rows_rt(p.dv + b * p.dv_sb + h * p.dv_sh + g0, p.dv_sn, vst, LDG, 16, k0 + warp * 16,
+                    p.nk, width, p.dv_bytes, lane, 32);
+}
+
+// Query side, one block per (64 query rows, head, batch x column group of
+// gw), each warp 16 rows: relpos_bwd_q_tc_kernel's passes over the key
+// tiles (dqu = scale dS k, then per chunk of 32 paired rel columns dA =
+// scale dS keytab, the rotation to dpq, dqu += dpq W^T, the dW partial qv^T
+// dpq), each over the group's columns: k's, qv's and W's rows of the group.
+// ddelta's partial, (sum of dpq) W^T, accumulates chunk by chunk.
+template <int DMAX>
+__global__ void __launch_bounds__(rtc::THREADS) relpos_bwd_q_wide_tc_kernel(TcParams p, int gw) {
+  using tc::bf16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LDC = rtc::LDC, LDX = DMAX + 8;
+  const int dhp = p.rt.dhp, hdp = p.rt.hdp, d2p = 2 * hdp;
+  bf16* qvs = reinterpret_cast<bf16*>(smem_raw);   // [64][LDX]: qv of the rows, the group's columns
+  bf16* ring = qvs + rtc::BQ * LDX;                // [2][dS^T [64][LDC], x [64][LDX]]
+  bf16* ws = ring + 2 * TC_BK * (LDC + LDX);       // [DMAX][LDC]: W rows of the group, a chunk
+  bf16* dpqs = ws + DMAX * LDC;                    // [64][LDC]: a dpq chunk
+  float* csum = reinterpret_cast<float*>(dpqs + rtc::BQ * LDC);   // [64]: its column sums
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int groups = (dhp + gw - 1) / gw, heads = gridDim.y;
+  const int q0 = blockIdx.x * rtc::BQ, h = blockIdx.y, b = blockIdx.z / groups;
+  const int g0 = (blockIdx.z % groups) * gw, gcols = min(gw, dhp - g0), ngd = gcols >> 4;
+  const int64_t bh = static_cast<int64_t>(b) * heads + h;
+  const int64_t part = static_cast<int64_t>(b) * gridDim.x + blockIdx.x;
+  const bf16* kp = p.k + b * p.k_sb + h * p.k_sh;
+  const bf16* ds_g = p.dst + bh * p.nkp * p.np + q0;
+  const bf16* wh = p.rt.w + static_cast<int64_t>(h) * dhp * d2p;
+
+  // 1. qv = bf16(qu + delta) of the rows, the group's columns
+  rtc::load_rows<rtc::BQ, DMAX / 8>(qvs, LDX, p.qu + b * p.qu_sb + h * p.qu_sh + g0, p.qu_sn, q0,
+                                    p.n, p.dh - g0, gw >> 3, p.qu_bytes);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  rtc::form_qv(qvs, LDX, qvs, LDX, p.rt.delta + h * dhp + g0, gcols);
+
+  // 2. over (pass, key tile): pass 0 streams (dS tile, k tile), pass 1 + i
+  //    (dS tile, keytab chunk i)
+  const int nchunk = (hdp + 31) / 32, nkt = p.nkp / TC_BK, total = (1 + nchunk) * nkt;
+  constexpr uint32_t STAGE_BYTES = TC_BK * (LDC + LDX) * 2;
+  auto load_step = [&](int st) {
+    const int pass = st / nkt, t = st - pass * nkt, k0 = t * TC_BK;
+    bf16* dsb = ring + (st & 1) * TC_BK * (LDC + LDX);
+    bf16* xb = dsb + TC_BK * LDC;
+    rtc::load_rows<TC_BK, 8>(dsb, LDC, ds_g, p.np, k0, p.nkp, p.n - q0, 8, 16);
+    if (pass == 0) {
+      rtc::load_rows<TC_BK, DMAX / 8>(xb, LDX, kp + g0, p.k_sn, k0, p.nk, p.dh - g0, gw >> 3,
+                                      p.k_bytes);
+    } else {
+      rtc::load_pairs<TC_BK>(xb, LDX, p.rt.keytab, k0, p.nk, hdp, (pass - 1) * 32);
+    }
+  };
+
+  float dq[DMAX / 8][4], acc[8][4], dd = 0.f;
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  const uint32_t ds_at = tc::b_lane<LDC>(ring, lane) + warp * 32;
+  const uint32_t x_bt = tc::bt_lane<LDX>(ring + TC_BK * LDC, lane);
+  const uint32_t dpq_a = tc::a_lane<LDC>(dpqs + warp * 16 * LDC, lane);
+  const uint32_t ws_b = tc::b_lane<LDC>(ws, lane), dpq_bt = tc::bt_lane<LDC>(dpqs, lane);
+  const uint32_t qv_at = tc::b_lane<LDX>(qvs, lane);
+
+  load_step(0);
+  tc::cp_async_commit();
+  for (int st = 0; st < total; ++st) {
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (st + 1 < total) load_step(st + 1);
+    tc::cp_async_commit();
+    const int pass = st / nkt, t = st - pass * nkt;
+    const uint32_t sb = (st & 1) * STAGE_BYTES;
+    if (pass == 0) {   // dq += dS k
+#pragma unroll
+      for (int kk = 0; kk < TC_BK / 16; ++kk) {
+        uint32_t a[4];
+        tc::ldsm_x4_t(a, ds_at + sb + tc::blk<LDC>(kk, 0));
+#pragma unroll
+        for (int n2 = 0; n2 < DMAX / 16; ++n2) {
+          if (n2 < ngd) {
+            uint32_t bf[4];
+            tc::ldsm_x4_t(bf, x_bt + sb + tc::blk<LDX>(kk, n2));
+            tc::mma_bf16(dq[2 * n2], a, bf[0], bf[1]);
+            tc::mma_bf16(dq[2 * n2 + 1], a, bf[2], bf[3]);
+          }
+        }
+      }
+      if (t == nkt - 1) {
+#pragma unroll
+        for (int j = 0; j < DMAX / 8; ++j) {
+          dq[j][0] *= p.scale; dq[j][1] *= p.scale; dq[j][2] *= p.scale; dq[j][3] *= p.scale;
+        }
+      }
+      continue;
+    }
+    // dA += dS keytab over this chunk's 32 + 32 columns
+    if (t == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      uint32_t a[4];
+      tc::ldsm_x4_t(a, ds_at + sb + tc::blk<LDC>(kk, 0));
+#pragma unroll
+      for (int n2 = 0; n2 < 4; ++n2) {
+        uint32_t bf[4];
+        tc::ldsm_x4_t(bf, x_bt + sb + tc::blk<LDX>(kk, n2));
+        tc::mma_bf16(acc[2 * n2], a, bf[0], bf[1]);
+        tc::mma_bf16(acc[2 * n2 + 1], a, bf[2], bf[3]);
+      }
+    }
+    if (t != nkt - 1) continue;
+
+    // the chunk's epilogue: dpq = rotation of scale dA, rounded to bf16
+    const int j0 = (pass - 1) * 32;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = warp * 16 + g + 8 * hr, qi = q0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = j0 + 8 * j + 2 * c;
+        float2 sn = make_float2(0.f, 0.f), cs = sn;
+        if (qi < p.n && j0 + 8 * j < hdp) {
+          const bf16* rr = p.rt.rowtab + static_cast<int64_t>(qi) * d2p;
+          sn = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rr + col));
+          cs = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rr + hdp + col));
+        }
+        const float e0 = acc[j][2 * hr] * p.scale, e1 = acc[j][2 * hr + 1] * p.scale;
+        const float o0 = acc[4 + j][2 * hr] * p.scale, o1 = acc[4 + j][2 * hr + 1] * p.scale;
+        *reinterpret_cast<__nv_bfloat162*>(dpqs + r * LDC + 8 * j + 2 * c) =
+            __floats2bfloat162_rn(sn.x * e0 - cs.x * o0, sn.y * e1 - cs.y * o1);
+        *reinterpret_cast<__nv_bfloat162*>(dpqs + r * LDC + 32 + 8 * j + 2 * c) =
+            __floats2bfloat162_rn(cs.x * e0 + sn.x * o0, cs.y * e1 + sn.y * o1);
+      }
+    }
+    rtc::stage_w_rows(ws, wh, g0, gcols, dhp, hdp, j0);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    __syncthreads();   // dpq of every row and the W chunk in place
+    // dq += dpq W^T (the warp's rows)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      tc::ldsm_x4(a, dpq_a + kk * 32);
+#pragma unroll
+      for (int n2 = 0; n2 < DMAX / 16; ++n2) {
+        if (n2 < ngd) {
+          uint32_t bf[4];
+          tc::ldsm_x4(bf, ws_b + tc::blk<LDC>(n2, kk));
+          tc::mma_bf16(dq[2 * n2], a, bf[0], bf[1]);
+          tc::mma_bf16(dq[2 * n2 + 1], a, bf[2], bf[3]);
+        }
+      }
+    }
+    // the block's dW partial qv^T dpq over this chunk, 16 of the group's qv
+    // features a warp
+    for (int mi = warp; mi < ngd; mi += 4) {
+      float w2[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) w2[j][0] = w2[j][1] = w2[j][2] = w2[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        tc::ldsm_x4_t(a, qv_at + tc::blk<LDX>(kk, mi));
+#pragma unroll
+        for (int n2 = 0; n2 < 4; ++n2) {
+          uint32_t bf[4];
+          tc::ldsm_x4_t(bf, dpq_bt + tc::blk<LDC>(kk, n2));
+          tc::mma_bf16(w2[2 * n2], a, bf[0], bf[1]);
+          tc::mma_bf16(w2[2 * n2 + 1], a, bf[2], bf[3]);
+        }
+      }
+      float* dwp = p.dw_part + ((part * heads + h) * dhp + g0 + mi * 16) * d2p;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int lc = 8 * j + 2 * c, jj = j0 + (lc & 31);
+        if (jj >= hdp) continue;
+        const int f = (lc < 32 ? 0 : hdp) + jj;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          *reinterpret_cast<float2*>(dwp + (g + 8 * hr) * d2p + f) =
+              make_float2(w2[j][2 * hr], w2[j][2 * hr + 1]);
+        }
+      }
+    }
+    if (tid < 64) {   // the chunk's column sums of dpq (zero past hdp)
+      float sum = 0.f;
+      if (j0 + (tid & 31) < hdp) {
+        for (int r = 0; r < rtc::BQ; ++r) sum += __bfloat162float(dpqs[r * LDC + tid]);
+      }
+      csum[tid] = sum;
+    }
+    __syncthreads();
+    if (tid < gcols) {   // ddelta's partial += (column sums) W^T, this chunk's columns
+      for (int l = 0; l < 64; ++l) dd = fmaf(csum[l], __bfloat162float(ws[tid * LDC + l]), dd);
+    }
+  }
+
+  // 3. ddelta's partial; dqu through the warp's own rows of qv
+  __syncthreads();
+  if (tid < gcols) p.ddelta_part[(part * heads + h) * dhp + g0 + tid] = dd;
+  bf16* stage = qvs + warp * 16 * LDX;
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) {
+    if (j < 2 * ngd) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8 * hr) * LDX + j * 8 + 2 * c) =
+            __floats2bfloat162_rn(dq[j][2 * hr], dq[j][2 * hr + 1]);
+      }
+    }
+  }
+  __syncwarp();
+  tc::store_rows_rt(p.dqu + b * p.dqu_sb + h * p.dqu_sh + g0, p.dqu_sn, stage, LDX, 16,
+                    q0 + warp * 16, p.n, min(gw, p.dh - g0), p.dqu_bytes, lane, 32);
+}
+
 // ---------------------------------------------------------------- launch
 
 cudaError_t prepare(const void* fn, size_t bytes) {
@@ -1074,9 +1535,7 @@ inline size_t fma_smem_floats(int dh) {
 // prep (A rows, Di), key side (dk, dv, dbias, dS^T), dA (dqu's first term,
 // dpq over the A rows), dqu += dpq W^T with the ddelta partials, dW partials.
 cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stream) {
-  if (p.dh > rfma::MAX_DH || fma_smem_floats(p.dh) * sizeof(float) > MAX_SMEM) {
-    return cudaErrorInvalidValue;
-  }
+  if (fma_smem_floats(p.dh) * sizeof(float) > MAX_SMEM) return cudaErrorInvalidValue;
   const rfma::PrepParams pp{p.qu, p.o, p.dout, p.delta, p.w, p.rowtab, p.atab, p.di,
                             p.n, p.dh, p.d2, p.qu_sb, p.qu_sh, p.qu_sn,
                             p.o_sb, p.o_sh, p.o_sn, p.do_sb, p.do_sh, p.do_sn};
@@ -1109,6 +1568,11 @@ inline int tc_dmax(int dhp) { return dhp <= 64 ? 64 : dhp <= 96 ? 96 : 144; }
 inline size_t tc_smem(int dhp, int d2p) {
   return smax(tc_prep_smem(dhp, d2p), smax(tc_k_smem(dhp, d2p), tc_q_smem(dhp, d2p)));
 }
+// whether the three passes above take padded widths dhp, d2p: their
+// registers hold a padded head of 144 and their tiles fit in shared memory
+inline bool tc_fits(int dhp, int d2p) { return dhp <= 144 && tc_smem(dhp, d2p) <= MAX_SMEM; }
+// the wide route's largest pass (the prep pass's is the smallest)
+inline size_t tc_wide_smem(int dhp) { return smax(tc_k_wide_smem(dhp), tc_q_wide_smem(dhp)); }
 
 template <int DMAX>
 cudaError_t launch_tc_d(const TcParams& p, int batch, int heads, cudaStream_t stream) {
@@ -1138,24 +1602,62 @@ cudaError_t launch_tc_d(const TcParams& p, int batch, int heads, cudaStream_t st
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16(const TcParams& p, int batch, int heads, cudaStream_t stream) {
-  if (p.rt.dhp > 144 || tc_smem(p.rt.dhp, 2 * p.rt.hdp) > MAX_SMEM) return cudaErrorInvalidValue;
-  switch (tc_dmax(p.rt.dhp)) {
-    case 64: return launch_tc_d<64>(p, batch, heads, stream);
-    case 96: return launch_tc_d<96>(p, batch, heads, stream);
-    default: return launch_tc_d<144>(p, batch, heads, stream);
+template <int DMAX>
+cudaError_t launch_wide_d(const TcParams& p, int batch, int heads, int gw, cudaStream_t stream) {
+  const int dhp = p.rt.dhp, groups = (dhp + gw - 1) / gw;
+  const dim3 qgrid((p.n + rtc::BQ - 1) / rtc::BQ, heads, batch * groups);
+  const dim3 kgrid((p.nk + TC_BK - 1) / TC_BK, heads, batch * groups);
+  size_t bytes = tc_k_wide_smem(dhp);
+  cudaError_t err = prepare(reinterpret_cast<const void*>(&relpos_bwd_k_wide_tc_kernel<DMAX>), bytes);
+  if (err != cudaSuccess) return err;
+  relpos_bwd_k_wide_tc_kernel<DMAX><<<kgrid, rtc::THREADS, bytes, stream>>>(p, gw);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bytes = tc_q_wide_smem(dhp);
+  if ((err = prepare(reinterpret_cast<const void*>(&relpos_bwd_q_wide_tc_kernel<DMAX>), bytes)) !=
+      cudaSuccess) {
+    return err;
   }
+  relpos_bwd_q_wide_tc_kernel<DMAX><<<qgrid, rtc::THREADS, bytes, stream>>>(p, gw);
+  return cudaGetLastError();
+}
+
+// the three passes above where they take the widths (tc_fits), else the
+// wide route, in stream order: prep (A rows, Di), key side (dk, dv, dbias,
+// dS^T), query side (dqu, dW and ddelta partials)
+cudaError_t launch_bf16(const TcParams& p, int batch, int heads, cudaStream_t stream) {
+  const int dhp = p.rt.dhp, d2p = 2 * p.rt.hdp;
+  if (tc_fits(dhp, d2p)) {
+    switch (tc_dmax(dhp)) {
+      case 64: return launch_tc_d<64>(p, batch, heads, stream);
+      case 96: return launch_tc_d<96>(p, batch, heads, stream);
+      default: return launch_tc_d<144>(p, batch, heads, stream);
+    }
+  }
+  const rtc::PrepWide pw{p.qu, p.o, p.dout, p.rt, p.qa, p.di, p.n, p.dh, p.qu_sb, p.qu_sh,
+                         p.qu_sn, p.o_sb, p.o_sh, p.o_sn, p.do_sb, p.do_sh, p.do_sn, p.qu_bytes};
+  cudaError_t err = rtc::launch_prep_wide(pw, batch, heads, stream);
+  if (err != cudaSuccess) return err;
+  const int gw = rtc::wide_gw(dhp);
+  if (rtc::wide_dmax(gw) == 64) return launch_wide_d<64>(p, batch, heads, gw, stream);
+  return launch_wide_d<rtc::WIDE_DMAX>(p, batch, heads, gw, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
+// 1 where the bf16 route runs the wide route at widths dh and d2 (its A
+// rows in atab (B, H, N, d2p), no qa_do), 0 where it runs the three passes
+// that hold [qu | A] whole.
+int ecf_relpos_attention_bwd_wide(int dh, int d2) { return tc_fits(tc_dhp(dh), tc_d2p(d2)) ? 0 : 1; }
+
 // Shared memory the largest pass of the route for `dtype` (0 float32: the
-// FMA kernels, 1 bfloat16: the tensor-core kernels) needs per block at head
-// width dh and rel width d2, in bytes.
+// FMA kernels, 1 bfloat16: the tensor-core kernels, the wide route's where
+// the others do not take the widths) needs per block at head width dh and
+// rel width d2, in bytes.
 size_t ecf_relpos_attention_bwd_smem(int dtype, int dh, int d2) {
-  if (dtype == 1) return tc_smem(tc_dhp(dh), tc_d2p(d2));
+  if (dtype == 1 && tc_fits(tc_dhp(dh), tc_d2p(d2))) return tc_smem(tc_dhp(dh), tc_d2p(d2));
+  if (dtype == 1) return tc_wide_smem(tc_dhp(dh));
   return fma_smem_floats(dh) * sizeof(float);
 }
 
@@ -1169,7 +1671,8 @@ size_t ecf_relpos_attention_bwd_smem(int dtype, int dh, int d2) {
 // the padded widths, and three bf16 scratch buffers: atab (B, H, np, dhp +
 // d2) for the [qu | A] rows, qa_do (B, H, np, dhp) for the padded dO rows
 // and ds (B, H, nkp, np) for dS^T, np and nkp being N and Nk rounded up to
-// 64. Returns a cudaError_t.
+// 64; on the wide route (ecf_relpos_attention_bwd_wide) atab (B, H, N, d2)
+// for the A rows, ds as above and no qa_do. Returns a cudaError_t.
 int ecf_relpos_attention_bwd(
     int dtype, const void* qu, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, const void* delta, const void* w, const void* wt,

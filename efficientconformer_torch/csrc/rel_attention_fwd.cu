@@ -37,7 +37,13 @@
 //     177,152 bytes). The online softmax keeps each row's max and sum in
 //     fp32 registers; P, rounded to bf16, is the A fragment of P v straight
 //     from the accumulators (FlashAttention-2's register reuse). About 100
-//     KB of shared memory at the flagship's shapes: two blocks an SM.
+//     KB of shared memory at the flagship's shapes: two blocks an SM. It
+//     takes a padded head up to 144 where [qu | A] and the ring fit in
+//     227 KB (tc_fits); past either, the wide route: rtc::prep_wide_kernel
+//     writes the A rows (B, H, N, D) in bf16, then relpos_fwd_wide_tc_kernel
+//     streams [qu | A] and [k | keytab] in chunks of 64 columns and splits
+//     O into column groups of at most 128 (rtc::wide_gw), each group's
+//     blocks computing the same scores; 71,680 bytes at any width.
 //   * fp32, fp32 FMAs from shared memory (TF32 products would miss the
 //     fp32 checks), one block of 256 threads per (64 query rows, head,
 //     batch), each thread a 4 x 4 tile of scores (one 16-byte and four
@@ -64,7 +70,10 @@
 //         Large's stage 3, b2 x 16 s) and [qu | A] is read again from L2 for
 //         every key tile, so it is slower where the resident kernel fits.
 //         It takes the shipped widths the resident kernel cannot: head 135
-//         (Medium and Large stage 1) and (90, 720) (Large stage 3).
+//         (Medium and Large stage 1) and (90, 720) (Large stage 3). Past a
+//         head of 256 the prep pass stages qu in chunks and the key loop
+//         splits O into column groups of at most 256 (fwd_group_width), so
+//         no width bounds it.
 
 // Both keep the online softmax in registers, so no (N, Nk) tensor exists
 // anywhere; keys past Nk are excluded by the kernels themselves.
@@ -115,19 +124,28 @@ __host__ __device__ inline int jmax_for(int dh) {
   return dh <= 32 ? 2 : dh <= 64 ? 4 : dh <= 96 ? 6 : dh <= 128 ? 8 : dh <= 192 ? 12 : 16;
 }
 
-// the key loop's shared memory: tile_product's chunks (the probabilities
-// reuse them between products) and the V tile
-__host__ __device__ inline size_t smem_floats(int dh) {
-  return rfma::TILE_FLOATS + static_cast<size_t>(BK) * 16 * jmax_for(dh);
+// the streamed kernel's column group: the whole head up to MAX_DH columns,
+// past it the fewest groups of at most MAX_DH, of equal width rounded up to
+// 16 (each group's blocks compute the same scores)
+__host__ __device__ inline int fwd_group_width(int dh) {
+  const int groups = (dh + rfma::MAX_DH - 1) / rfma::MAX_DH;
+  return ((dh + groups - 1) / groups + 15) / 16 * 16;
 }
 
-// One block per (64 query rows, head, batch), after the prep pass wrote the
-// A rows. For each tile of 64 keys: S = [qu | A] [k | keytab]^T streamed
-// over the augmented features in chunks of 32 (tile_product), the scale, key
-// bias and ragged key edge, the online softmax in registers, P to shared
-// memory, O += P V from the V tile.
+// the key loop's shared memory: tile_product's chunks (the probabilities
+// reuse them between products) and the V tile of a column group
+__host__ __device__ inline size_t smem_floats(int dh) {
+  return rfma::TILE_FLOATS + static_cast<size_t>(BK) * 16 * jmax_for(fwd_group_width(dh));
+}
+
+// One block per (64 query rows, head, batch x column group of gw), after
+// the prep pass wrote the A rows. For each tile of 64 keys: S = [qu | A] [k
+// | keytab]^T streamed over the augmented features in chunks of 32
+// (tile_product), the scale, key bias and ragged key edge, the online
+// softmax in registers, P to shared memory, O += P V over the group's
+// columns of the V tile. The first group writes the LSE.
 template <int JMAX>
-__global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
+__global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p, int gw) {
   extern __shared__ __align__(16) float smem[];
   constexpr int DHP = 16 * JMAX;         // padded V row
   const int dh = p.dh, d2 = p.d2, da = dh + d2;
@@ -135,7 +153,9 @@ __global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
   float* psT = smem;                     // BK x LDV: the probabilities, key-major
   float* vs = smem + rfma::TILE_FLOATS;  // BK x DHP: the V tile, zero-padded
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int groups = (dh + gw - 1) / gw;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z / groups;
+  const int c0 = (blockIdx.z % groups) * gw, cw = min(gw, dh - c0);   // columns [c0, c0 + cw)
   const int64_t bh = static_cast<int64_t>(b) * gridDim.y + h;
   const float* qu = p.qu + b * p.qu_sb + h * p.qu_sh;
   const float* kp = p.k + b * p.k_sb + h * p.k_sh;
@@ -168,7 +188,7 @@ __global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
     for (int i = tid; i < BK * DHP; i += NTHREADS) {
       const int c = i / DHP, d = i - c * DHP;
       const int kj = k0 + c;
-      vs[i] = (kj < p.nk && d < dh) ? vp[kj * p.v_sn + d] : 0.f;
+      vs[i] = (kj < p.nk && d < cw) ? vp[kj * p.v_sn + c0 + d] : 0.f;
     }
     float s[4][4];
     rfma::zero(s);
@@ -239,9 +259,9 @@ __global__ void __launch_bounds__(NTHREADS) relpos_fwd_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < JMAX; ++j) {
       const int d = tx + 16 * j;
-      if (d < dh) op[qi * p.o_sn + d] = o[i][j] * inv;
+      if (d < cw) op[qi * p.o_sn + c0 + d] = o[i][j] * inv;
     }
-    if (tx == 0) p.lse[bh * p.n + qi] = m[i] + logf(l[i]);
+    if (tx == 0 && c0 == 0) p.lse[bh * p.n + qi] = m[i] + logf(l[i]);
   }
 }
 
@@ -536,6 +556,7 @@ struct TcParams {
   int64_t bias_sb;
   float scale;
   int qu_bytes, k_bytes, v_bytes, o_bytes;   // widest copies the strides allow (tc::copy_bytes)
+  tc::bf16* atab;       // (B, H, N, d2p): the wide route's A rows (null on the resident route)
 };
 
 // bytes of shared memory: [qu | A] of the rows, then one region that first
@@ -546,6 +567,17 @@ __host__ __device__ inline size_t tc_smem_bytes(int dhp, int d2p) {
   const size_t prep = rtc::BQ * ldt + dhp * rtc::LDC;
   const size_t ring = 2 * 2 * TC_BK * ldt + 2 * TC_BK * rtc::LDC;
   return (rtc::BQ * lda + (prep > ring ? prep : ring)) * sizeof(tc::bf16);
+}
+// whether relpos_fwd_tc_kernel takes padded widths dhp, d2p: its registers
+// hold a padded head of 144 and its tiles fit in shared memory
+__host__ __device__ inline bool tc_fits(int dhp, int d2p) {
+  return dhp <= 144 && tc_smem_bytes(dhp, d2p) <= MAX_SMEM;
+}
+// the wide route's key loop: the ring of [qu | A] and [k | keytab] chunks,
+// and two V tiles of a column group (rtc::wide_gw)
+__host__ __device__ inline size_t tc_wide_smem_bytes(int dhp) {
+  const size_t ldv = rtc::wide_dmax(rtc::wide_gw(dhp)) + 8;
+  return (2 * 2 * rtc::BQ * rtc::LDC + 2 * TC_BK * ldv) * sizeof(tc::bf16);
 }
 
 // DMAX: the padded head width the registers are sized for (64, 96 or 144);
@@ -657,44 +689,8 @@ __global__ void __launch_bounds__(rtc::THREADS) relpos_fwd_tc_kernel(TcParams p)
     }
     if (f != nsteps - 1) continue;
 
-    // scale and key bias in the accumulator's layout; keys past Nk excluded
-    const int k0 = t * TC_BK;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kj = k0 + j * 8 + 2 * c + e;
-        const bool ok = kj < p.nk;
-        const float kb = ok && bias ? bias[kj] : 0.f;
-        s[j][e] = ok ? s[j][e] * p.scale + kb : -INFINITY;
-        s[j][2 + e] = ok ? s[j][2 + e] * p.scale + kb : -INFINITY;
-      }
-    }
-    // online softmax; the four lanes of a quad share a row
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[hr], mx);
-      const float alpha = __expf(m[hr] - m_new);   // key 0 is valid: m_new is finite
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[j][2 * hr] = __expf(s[j][2 * hr] - m_new);
-        s[j][2 * hr + 1] = __expf(s[j][2 * hr + 1] - m_new);
-        sum += s[j][2 * hr] + s[j][2 * hr + 1];
-      }
-      l[hr] = l[hr] * alpha + sum;   // this lane's part; the quad is summed at the end
-      m[hr] = m_new;
-#pragma unroll
-      for (int j = 0; j < DMAX / 8; ++j) {
-        o[j][2 * hr] *= alpha;
-        o[j][2 * hr + 1] *= alpha;
-      }
-    }
+    // scale, key bias and the online softmax; keys past Nk excluded
+    rtc::softmax_tile<DMAX / 8>(s, m, l, o, bias, t * TC_BK, p.nk, p.scale, c);
     // O += P v, P as bf16 A fragments straight from the registers
     const uint32_t vb = v_bt + (t & 1) * tile_bytes;
 #pragma unroll
@@ -738,6 +734,140 @@ __global__ void __launch_bounds__(rtc::THREADS) relpos_fwd_tc_kernel(TcParams p)
                     p.dh, p.o_bytes, lane, 32);
 }
 
+// The wide route (relpos_tc.cuh), after rtc::prep_wide_kernel wrote the A
+// rows: one block of four warps per (64 query rows, head, batch x column
+// group of gw), each warp 16 rows. For each tile of 64 keys, S = [qu | A]
+// [k | keytab]^T over the augmented width in steps of 64 columns, each step
+// a [qu | A] chunk (from qu, or the A rows) and a [k | keytab] chunk (from k,
+// or the table), double-buffered, the tile's V columns of the group coming
+// with its first step; then the scale, key bias, online softmax and O += P v
+// as relpos_fwd_tc_kernel does them. DMAX: the group width the registers
+// are sized for (64 or 128). The first group writes the LSE.
+template <int DMAX>
+__global__ void __launch_bounds__(rtc::THREADS) relpos_fwd_wide_tc_kernel(TcParams p, int gw) {
+  using tc::bf16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LDC = rtc::LDC, LDV = DMAX + 8, STAGE = 2 * rtc::BQ * LDC;
+  const int dhp = p.rt.dhp, d2p = 2 * p.rt.hdp;
+  const int nc = (dhp + 63) / 64, nsteps = nc + (d2p + 63) / 64;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);   // [2][rows [64][LDC], keys [64][LDC]]
+  bf16* vt = ring + 2 * STAGE;                      // [2][64][LDV]: V columns of the group
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int groups = (dhp + gw - 1) / gw;
+  const int q0 = blockIdx.x * rtc::BQ, h = blockIdx.y, b = blockIdx.z / groups;
+  const int g0 = (blockIdx.z % groups) * gw, ngd = min(gw, dhp - g0) >> 4;
+  const int64_t bh = static_cast<int64_t>(b) * gridDim.y + h;
+  const bf16* qp = p.qu + b * p.qu_sb + h * p.qu_sh;
+  const bf16* kp = p.k + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = p.v + b * p.v_sb + h * p.v_sh;
+  const bf16* ap = p.atab + bh * p.n * d2p;
+  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
+
+  const int total = (p.nk + TC_BK - 1) / TC_BK * nsteps;
+  auto load_step = [&](int st) {
+    const int t = st / nsteps, f = st - t * nsteps, k0 = t * TC_BK;
+    bf16* rows = ring + (st & 1) * STAGE;
+    bf16* keys = rows + rtc::BQ * LDC;
+    if (f < nc) {
+      const int c0 = 64 * f;
+      rtc::load_rows<rtc::BQ, 8>(rows, LDC, qp + c0, p.qu_sn, q0, p.n, p.dh - c0, 8, p.qu_bytes);
+      rtc::load_rows<TC_BK, 8>(keys, LDC, kp + c0, p.k_sn, k0, p.nk, p.dh - c0, 8, p.k_bytes);
+      if (f == 0) {
+        rtc::load_rows<TC_BK, DMAX / 8>(vt + (t & 1) * TC_BK * LDV, LDV, vp + g0, p.v_sn, k0, p.nk,
+                                        p.dh - g0, gw >> 3, p.v_bytes);
+      }
+    } else {
+      const int c0 = 64 * (f - nc);
+      rtc::load_rows<rtc::BQ, 8>(rows, LDC, ap + c0, d2p, q0, p.n, d2p - c0, 8, 16);
+      rtc::load_rows<TC_BK, 8>(keys, LDC, p.rt.keytab + c0, d2p, k0, p.nk, d2p - c0, 8, 16);
+    }
+  };
+
+  float o[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // rows g and g + 8 of the warp
+  float s[8][4];
+  const uint32_t rows_a = tc::a_lane<LDC>(ring + warp * 16 * LDC, lane);
+  const uint32_t keys_b = tc::b_lane<LDC>(ring + rtc::BQ * LDC, lane);
+  const uint32_t v_bt = tc::bt_lane<LDV>(vt, lane);
+  constexpr uint32_t STAGE_BYTES = STAGE * 2, VT_BYTES = TC_BK * LDV * 2;
+
+  load_step(0);
+  tc::cp_async_commit();
+  for (int st = 0; st < total; ++st) {
+    tc::cp_async_wait<0>();
+    __syncthreads();   // step st landed for every thread; step st - 1's buffers are free
+    if (st + 1 < total) load_step(st + 1);
+    tc::cp_async_commit();
+    const int t = st / nsteps, f = st - t * nsteps;
+    if (f == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    }
+    const int ksteps = (f < nc ? min(64, dhp - 64 * f) : min(64, d2p - 64 * (f - nc))) >> 4;
+    const uint32_t sb = (st & 1) * STAGE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < ksteps) {
+        uint32_t a[4];
+        tc::ldsm_x4(a, rows_a + sb + kk * 32);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bf[4];
+          tc::ldsm_x4(bf, keys_b + sb + tc::blk<LDC>(np, kk));
+          tc::mma_bf16(s[2 * np], a, bf[0], bf[1]);
+          tc::mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+        }
+      }
+    }
+    if (f != nsteps - 1) continue;
+
+    // scale, key bias and the online softmax; keys past Nk excluded
+    rtc::softmax_tile<DMAX / 8>(s, m, l, o, bias, t * TC_BK, p.nk, p.scale, c);
+    // O += P v over the group's columns, P as bf16 A fragments
+    const uint32_t vb = v_bt + (t & 1) * VT_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      uint32_t a[4];
+      tc::acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < DMAX / 16; ++n2) {
+        if (n2 < ngd) {
+          uint32_t bf[4];
+          tc::ldsm_x4_t(bf, vb + tc::blk<LDV>(kk, n2));
+          tc::mma_bf16(o[2 * n2], a, bf[0], bf[1]);
+          tc::mma_bf16(o[2 * n2 + 1], a, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // normalise; O through the ring (every warp is past its last read of it)
+  // to whole-row stores of the group's columns; the LSE in fp32
+  __syncthreads();
+  bf16* stage = ring + warp * 16 * LDV;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    const float inv = 1.f / l[hr];
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+      if (j < 2 * ngd) {
+        *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8 * hr) * LDV + j * 8 + 2 * c) =
+            __floats2bfloat162_rn(o[j][2 * hr] * inv, o[j][2 * hr + 1] * inv);
+      }
+    }
+    const int qi = q0 + warp * 16 + g + 8 * hr;
+    if (g0 == 0 && c == 0 && qi < p.n) p.lse[bh * p.n + qi] = m[hr] + logf(l[hr]);
+  }
+  __syncwarp();
+  tc::store_rows_rt(p.o + b * p.o_sb + h * p.o_sh + g0, p.o_sn, stage, LDV, 16, q0 + warp * 16,
+                    p.n, min(gw, p.dh - g0), p.o_bytes, lane, 32);
+}
+
 cudaError_t prepare(const void* fn, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
@@ -756,9 +886,17 @@ cudaError_t launch_kernel(const void* fn, const Params& p, int batch, int heads,
 }
 
 template <int JMAX>
-const void* streamed() { return reinterpret_cast<const void*>(&relpos_fwd_kernel<JMAX>); }
-template <int JMAX>
 const void* resident() { return reinterpret_cast<const void*>(&relpos_fwd_resident_kernel<JMAX>); }
+
+template <int JMAX>
+cudaError_t launch_streamed(const Params& p, int batch, int heads, int gw, size_t bytes,
+                            cudaStream_t stream) {
+  cudaError_t err = prepare(reinterpret_cast<const void*>(&relpos_fwd_kernel<JMAX>), bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n + BQ - 1) / BQ, heads, batch * ((p.dh + gw - 1) / gw));
+  relpos_fwd_kernel<JMAX><<<grid, NTHREADS, bytes, stream>>>(p, gw);
+  return cudaGetLastError();
+}
 
 cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stream) {
   if (resident_fits(p.dh, p.d2)) {
@@ -772,18 +910,19 @@ cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stre
   }
   // streamed, in stream order: the prep pass writes the A rows the key loop reads
   const size_t bytes = smem_floats(p.dh) * sizeof(float);
-  if (p.dh > rfma::MAX_DH || bytes > MAX_SMEM || p.atab == nullptr) return cudaErrorInvalidValue;
+  if (bytes > MAX_SMEM || p.atab == nullptr) return cudaErrorInvalidValue;
   const rfma::PrepParams pp{p.qu, nullptr, nullptr, p.delta, p.w, p.rowtab, p.atab, nullptr,
                             p.n, p.dh, p.d2, p.qu_sb, p.qu_sh, p.qu_sn, 0, 0, 0, 0, 0, 0};
   cudaError_t err = rfma::launch_prep(pp, batch, heads, stream);
   if (err != cudaSuccess) return err;
-  switch (jmax_for(p.dh)) {
-    case 2: return launch_kernel(streamed<2>(), p, batch, heads, bytes, stream);
-    case 4: return launch_kernel(streamed<4>(), p, batch, heads, bytes, stream);
-    case 6: return launch_kernel(streamed<6>(), p, batch, heads, bytes, stream);
-    case 8: return launch_kernel(streamed<8>(), p, batch, heads, bytes, stream);
-    case 12: return launch_kernel(streamed<12>(), p, batch, heads, bytes, stream);
-    default: return launch_kernel(streamed<16>(), p, batch, heads, bytes, stream);
+  const int gw = fwd_group_width(p.dh);
+  switch (jmax_for(gw)) {
+    case 2: return launch_streamed<2>(p, batch, heads, gw, bytes, stream);
+    case 4: return launch_streamed<4>(p, batch, heads, gw, bytes, stream);
+    case 6: return launch_streamed<6>(p, batch, heads, gw, bytes, stream);
+    case 8: return launch_streamed<8>(p, batch, heads, gw, bytes, stream);
+    case 12: return launch_streamed<12>(p, batch, heads, gw, bytes, stream);
+    default: return launch_streamed<16>(p, batch, heads, gw, bytes, stream);
   }
 }
 
@@ -800,14 +939,37 @@ cudaError_t launch_tc_d(const TcParams& p, int batch, int heads, size_t bytes,
   return cudaGetLastError();
 }
 
+template <int DMAX>
+cudaError_t launch_wide_d(const TcParams& p, int batch, int heads, int gw, size_t bytes,
+                          cudaStream_t stream) {
+  cudaError_t err = prepare(reinterpret_cast<const void*>(&relpos_fwd_wide_tc_kernel<DMAX>), bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n + rtc::BQ - 1) / rtc::BQ, heads, batch * ((p.rt.dhp + gw - 1) / gw));
+  relpos_fwd_wide_tc_kernel<DMAX><<<grid, rtc::THREADS, bytes, stream>>>(p, gw);
+  return cudaGetLastError();
+}
+
+// the resident kernel where it takes the widths (tc_fits), else the wide
+// route: in stream order, the prep pass writes the A rows the key loop reads
 cudaError_t launch_bf16(const TcParams& p, int batch, int heads, cudaStream_t stream) {
-  const size_t bytes = tc_smem_bytes(p.rt.dhp, 2 * p.rt.hdp);
-  if (p.rt.dhp > 144 || bytes > MAX_SMEM) return cudaErrorInvalidValue;
-  switch (tc_dmax(p.rt.dhp)) {
-    case 64: return launch_tc_d<64>(p, batch, heads, bytes, stream);
-    case 96: return launch_tc_d<96>(p, batch, heads, bytes, stream);
-    default: return launch_tc_d<144>(p, batch, heads, bytes, stream);
+  const int dhp = p.rt.dhp, d2p = 2 * p.rt.hdp;
+  if (tc_fits(dhp, d2p)) {
+    const size_t bytes = tc_smem_bytes(dhp, d2p);
+    switch (tc_dmax(dhp)) {
+      case 64: return launch_tc_d<64>(p, batch, heads, bytes, stream);
+      case 96: return launch_tc_d<96>(p, batch, heads, bytes, stream);
+      default: return launch_tc_d<144>(p, batch, heads, bytes, stream);
+    }
   }
+  if (p.atab == nullptr) return cudaErrorInvalidValue;
+  const rtc::PrepWide pw{p.qu, nullptr, nullptr, p.rt, p.atab, nullptr, p.n, p.dh, p.qu_sb,
+                         p.qu_sh, p.qu_sn, 0, 0, 0, 0, 0, 0, p.qu_bytes};
+  cudaError_t err = rtc::launch_prep_wide(pw, batch, heads, stream);
+  if (err != cudaSuccess) return err;
+  const int gw = rtc::wide_gw(dhp);
+  const size_t bytes = tc_wide_smem_bytes(dhp);
+  if (rtc::wide_dmax(gw) == 64) return launch_wide_d<64>(p, batch, heads, gw, bytes, stream);
+  return launch_wide_d<rtc::WIDE_DMAX>(p, batch, heads, gw, bytes, stream);
 }
 
 // the bf16 route's padded widths
@@ -818,17 +980,24 @@ inline int tc_d2p(int d2) { return 2 * rtc::round8(d2 / 2); }
 
 extern "C" {
 
-// Shared memory one block of the route for `dtype` (0 float32: the FMA
-// kernels, the resident kernel where it fits, else the larger of the prep
-// pass and the streamed key loop; 1 bfloat16: the tensor-core kernel) needs
-// at head width dh and rel width d2, in bytes (ptxas reports none: it is
-// sized at launch).
 // 1 where the fp32 route runs the resident kernel at widths dh and d2 (it
 // needs no atab), 0 where it runs the prep pass and the streamed kernel.
 int ecf_relpos_attention_fwd_resident(int dh, int d2) { return resident_fits(dh, d2) ? 1 : 0; }
 
+// 1 where the bf16 route runs the wide route at widths dh and d2 (the prep
+// pass and relpos_fwd_wide_tc_kernel, which need atab), 0 where it runs
+// relpos_fwd_tc_kernel.
+int ecf_relpos_attention_fwd_wide(int dh, int d2) { return tc_fits(tc_dhp(dh), tc_d2p(d2)) ? 0 : 1; }
+
+// Shared memory one block of the route for `dtype` (0 float32: the FMA
+// kernels, the resident kernel where it fits, else the larger of the prep
+// pass and the streamed key loop; 1 bfloat16: the tensor-core kernel where
+// it fits, else the larger of the wide route's prep pass and key loop) needs
+// at head width dh and rel width d2, in bytes (ptxas reports none: it is
+// sized at launch).
 size_t ecf_relpos_attention_fwd_smem(int dtype, int dh, int d2) {
-  if (dtype == 1) return tc_smem_bytes(tc_dhp(dh), tc_d2p(d2));
+  if (dtype == 1 && tc_fits(tc_dhp(dh), tc_d2p(d2))) return tc_smem_bytes(tc_dhp(dh), tc_d2p(d2));
+  if (dtype == 1) return tc_wide_smem_bytes(tc_dhp(dh));
   if (resident_fits(dh, d2)) return resident_smem_floats(dh, d2) * sizeof(float);
   const size_t prep = rfma::prep_smem_floats(dh), loop = smem_floats(dh);
   return (prep > loop ? prep : loop) * sizeof(float);
@@ -837,13 +1006,15 @@ size_t ecf_relpos_attention_fwd_smem(int dtype, int dh, int d2) {
 // dtype: 0 = float32, 1 = bfloat16 for qu, k, v and o. float32 takes delta,
 // w, rowtab and keytab in fp32 at widths dh and d2, and atab (B, H, N, d2)
 // fp32 as the scratch of the streamed kernel's A rows (null where the
-// resident kernel takes the widths: ecf_relpos_attention_fwd_resident); bfloat16 takes them in bf16, padded as
-// relpos_tc.cuh describes, with d2 the padded rel width, and no atab.
-// Returns a cudaError_t.
+// resident kernel takes the widths: ecf_relpos_attention_fwd_resident);
+// bfloat16 takes them in bf16, padded as relpos_tc.cuh describes, with d2
+// the padded rel width, and atab (B, H, N, d2) bf16 as the wide route's A
+// rows (null where relpos_fwd_tc_kernel takes the widths:
+// ecf_relpos_attention_fwd_wide). Returns a cudaError_t.
 int ecf_relpos_attention_fwd(
     int dtype, const void* qu, const void* k, const void* v, const void* delta,
     const void* w, const void* rowtab, const void* keytab, const float* bias,
-    void* o, float* lse, float* atab, int batch, int heads, int n, int nk, int dh, int d2,
+    void* o, float* lse, void* atab, int batch, int heads, int n, int nk, int dh, int d2,
     int64_t qu_sb, int64_t qu_sh, int64_t qu_sn, int64_t k_sb, int64_t k_sh,
     int64_t k_sn, int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb,
     int64_t o_sh, int64_t o_sn, int64_t bias_sb, float scale, void* stream) {
@@ -855,7 +1026,8 @@ int ecf_relpos_attention_fwd(
     Params p{static_cast<const float*>(qu), static_cast<const float*>(k),
              static_cast<const float*>(v), static_cast<const float*>(delta),
              static_cast<const float*>(w), static_cast<const float*>(rowtab),
-             static_cast<const float*>(keytab), bias, static_cast<float*>(o), lse, atab,
+             static_cast<const float*>(keytab), bias, static_cast<float*>(o), lse,
+             static_cast<float*>(atab),
              n, nk, dh, d2, qu_sb, qu_sh, qu_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn,
              o_sb, o_sh, o_sn, bias_sb, scale};
     return static_cast<int>(launch_fp32(p, batch, heads, s));
@@ -870,7 +1042,8 @@ int ecf_relpos_attention_fwd(
              bias, static_cast<bf16*>(o), lse, n, nk, dh, qu_sb, qu_sh, qu_sn, k_sb, k_sh, k_sn,
              v_sb, v_sh, v_sn, o_sb, o_sh, o_sn, bias_sb, scale,
              tc::copy_bytes(qu, qu_sb, qu_sh, qu_sn, dh), tc::copy_bytes(k, k_sb, k_sh, k_sn, dh),
-             tc::copy_bytes(v, v_sb, v_sh, v_sn, dh), tc::copy_bytes(o, o_sb, o_sh, o_sn, dh)};
+             tc::copy_bytes(v, v_sb, v_sh, v_sn, dh), tc::copy_bytes(o, o_sb, o_sh, o_sn, dh),
+             static_cast<bf16*>(atab)};
   return static_cast<int>(launch_bf16(p, batch, heads, s));
 }
 

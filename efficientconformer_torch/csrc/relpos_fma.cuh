@@ -8,16 +8,19 @@
 // no rel width is bounded by it:
 //   * prep_kernel forms the A rows of 64 query rows (the qu tile, a staged W
 //     chunk and a 64 x 128 staging tile of A in shared memory: 4 dh (68) +
-//     16,384 + 33,024 bytes, 119,040 at dh 256) and writes them to device
-//     memory, with Di = rowsum(dO * O) for the backward;
+//     16,384 + 33,024 bytes, 119,040 at dh 256; past MAX_DH it stages qu 32
+//     features at a time beside W, 58,112 bytes at any head) and writes them
+//     to device memory, with Di = rowsum(dO * O) for the backward;
 //   * tile_product is every product of the route: a 64 x 64 fp32 tile, each
 //     of 256 threads owning a 4 x 4 piece, contracted over any depth in
 //     double-buffered chunks of DC = 32 (34,048 bytes);
-//   * what a block keeps beside it is bounded by the head width: the V tile
-//     of the forward (64 x 16 JMAX floats, 65,536 bytes at dh 256) and the
-//     dO and qu columns of the backward's key side (two 16 JD x 65, JD <= 8).
-// So the largest pass needs 119,040 bytes at the widest head taken (256), at
-// any rel width, within the 232,448 bytes a block may use on sm_90.
+//   * what a block keeps beside it is bounded by a column group: the V tile
+//     of the forward (64 x 16 JMAX floats, 65,536 bytes at 256 columns; a
+//     head past MAX_DH is split into column groups of at most MAX_DH) and
+//     the dO and qu columns of the backward's key side (two 16 JD x 65, JD
+//     <= 8, groups of at most 128).
+// So the largest pass needs at most 119,040 bytes (at dh 256), at any head
+// and rel width, within the 232,448 bytes a block may use on sm_90.
 // ops/rel_attention.py mirrors these constants and sizes (fma_smem_bytes).
 
 #pragma once
@@ -39,7 +42,7 @@ constexpr int LDV = 68;         // row stride of tiles read four rows at a time
 constexpr int LDS = 65;         // row stride of tiles read one word at a time
 constexpr int WCHUNK = 32;      // rows of W staged at a time while forming A
 constexpr int LDAS = 129;       // row stride of prep's A staging tile (64 rows x 128 columns)
-constexpr int MAX_DH = 256;     // widest head: 16 output columns a thread in the forward
+constexpr int MAX_DH = 256;     // widest head the forward's blocks and prep's qu tile hold whole
 constexpr size_t MAX_SMEM = 232448;   // 227 KB a block may use on sm_90
 constexpr float MASKED = -1e30f;
 
@@ -47,8 +50,10 @@ static_assert(NTHREADS == 16 * 16 && BQ == 4 * 16 && BK == 4 * 16, "thread grid"
 static_assert(DC * BQ == 8 * NTHREADS && DC * BK == 8 * NTHREADS, "8 chunk elements a thread");
 static_assert(BK * LDV <= TILE_FLOATS, "a 64 x 68 tile fits tile_product's buffer");
 
+// the prep pass's shared memory: the qu tile (WCHUNK rows of it past
+// MAX_DH), a W chunk and the A staging tile
 __host__ __device__ inline size_t prep_smem_floats(int dh) {
-  return static_cast<size_t>(dh) * LDV + WCHUNK * 128 + BQ * LDAS;
+  return static_cast<size_t>(dh > MAX_DH ? WCHUNK : dh) * LDV + WCHUNK * 128 + BQ * LDAS;
 }
 
 // acc[i][c] += sum over depth kk < kdim of A(kk, 4 ty + i) * B(kk, tx + 16 c),
@@ -155,12 +160,14 @@ struct PrepParams {
 // tx + 16 i (i < 4) of columns ty + 16 m (m < 4) of both halves, 64 columns
 // of each at a time, with W staged 32 rows at a time, so each shared-memory
 // load feeds 4 to 8 FMAs; the 64 x 128 result goes out through a staging
-// tile as whole-row stores.
+// tile as whole-row stores. STREAM_QU (heads past MAX_DH): the qu tile is
+// staged WCHUNK features at a time beside the W chunk instead of whole.
+template <bool STREAM_QU>
 __global__ void __launch_bounds__(NTHREADS) prep_kernel(PrepParams p) {
   extern __shared__ __align__(16) float smem[];
   const int dh = p.dh, d2 = p.d2, hd = d2 / 2;
-  float* quT = smem;                        // dh x LDV: qu of the rows, feature-major
-  float* ws = quT + dh * LDV;               // WCHUNK x 128: a chunk of W's rows
+  float* quT = smem;                        // dh (or WCHUNK) x LDV: qu of the rows, feature-major
+  float* ws = quT + (STREAM_QU ? WCHUNK : dh) * LDV;   // WCHUNK x 128: a chunk of W's rows
   float* as = ws + WCHUNK * 128;            // BQ x LDAS: A of 64 paired columns
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
@@ -168,10 +175,15 @@ __global__ void __launch_bounds__(NTHREADS) prep_kernel(PrepParams p) {
   const int64_t bh = static_cast<int64_t>(b) * gridDim.y + h;
   const float* qu = p.qu + b * p.qu_sb + h * p.qu_sh;
 
-  for (int r = warp; r < BQ; r += NTHREADS / 32) {
-    const int qi = q0 + r;
-    for (int d = lane; d < dh; d += 32) quT[d * LDV + r] = qi < p.n ? qu[qi * p.qu_sn + d] : 0.f;
-  }
+  auto load_qu = [&](int d0, int dc) {   // features [d0, d0 + dc) to quT rows [0, dc)
+    for (int r = warp; r < BQ; r += NTHREADS / 32) {
+      const int qi = q0 + r;
+      for (int d = lane; d < dc; d += 32) {
+        quT[d * LDV + r] = qi < p.n ? qu[qi * p.qu_sn + d0 + d] : 0.f;
+      }
+    }
+  };
+  if (!STREAM_QU) load_qu(0, dh);
   if (p.di != nullptr) {   // Di, a warp a row
     const float* op = p.o + b * p.o_sb + h * p.o_sh;
     const float* dop = p.dout + b * p.do_sb + h * p.do_sh;
@@ -199,14 +211,16 @@ __global__ void __launch_bounds__(NTHREADS) prep_kernel(PrepParams p) {
         const int j = j0 + (c & 63);
         ws[i] = j < hd ? wh[(d0 + row) * d2 + (c < 64 ? j : hd + j)] : 0.f;
       }
+      if (STREAM_QU) load_qu(d0, dc);
       __syncthreads();
 #pragma unroll 4
       for (int dd = 0; dd < dc; ++dd) {
         const int d = d0 + dd;
         const float dv = dl[d];
+        const float* qrow = quT + (STREAM_QU ? dd : d) * LDV;
         float x[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) x[i] = quT[d * LDV + tx + 16 * i] + dv;
+        for (int i = 0; i < 4; ++i) x[i] = qrow[tx + 16 * i] + dv;
         const float* wrow = ws + dd * 128 + ty;
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
@@ -255,13 +269,14 @@ __global__ void __launch_bounds__(NTHREADS) prep_kernel(PrepParams p) {
 inline cudaError_t launch_prep(const PrepParams& p, int batch, int heads, cudaStream_t stream) {
   const size_t bytes = prep_smem_floats(p.dh) * sizeof(float);
   if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&prep_kernel),
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const void* fn = p.dh > MAX_DH ? reinterpret_cast<const void*>(&prep_kernel<true>)
+                                 : reinterpret_cast<const void*>(&prep_kernel<false>);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.n + BQ - 1) / BQ, heads, batch);
-  prep_kernel<<<grid, NTHREADS, bytes, stream>>>(p);
-  return cudaGetLastError();
+  void* args[] = {const_cast<PrepParams*>(&p)};
+  return cudaLaunchKernel(fn, grid, dim3(NTHREADS), args, bytes, stream);
 }
 
 }  // namespace rfma

@@ -22,26 +22,36 @@ Layout contract:
 ``relpos_attention`` is differentiable: forward and backward are one
 ``torch.autograd.Function``. Each direction runs its plain PyTorch version
 for CPU tensors and its CUDA kernels (csrc/rel_attention_fwd.cu,
-csrc/rel_attention_bwd.cu) for CUDA tensors; it has no other path. On the
-card the type of qu picks the route inside each kernel file, never a
-failure: bf16 runs the tensor-core kernels (mma.sync on bf16 tiles; counted
-in ``tc_launches``), which take delta, W and the tables in bf16 with the
-head width padded to a multiple of 16 and each half of the rel width to a
-multiple of 8 (``tc_layout``), as the JAX package casts the pos kernel and
-delta to the compute type; fp32 runs the FMA kernels in fp32 throughout,
-which take head widths up to 256 at any rel width: every width of the
-shipped Medium and Large encoders. Its forward holds the block's [qu | A]
-in shared memory where it fits (``fma_resident``) and otherwise streams it
-after a prep pass, as its backward always does (csrc/relpos_fma.cuh). What a route does not take is refused
-before the launch (``refusal``, computed here from the kernel files'
-constants, mirrored below), naming the ROADMAP item that would lift it.
-The forward returns (o in the dtype of qu, row log-sum-exp (B, H, N) fp32)
-and saves the log-sum-exp for the backward, which recomputes the
-probabilities from it. The tables get no gradient; the bias gets one only
-when it requires it. The plain versions compute in fp32 from the given
-inputs; the tensor-core kernels round where the TPU kernel rounds in bf16
-(qv, A before A keytab^T, P before P V and P^T dO, dS, dpq) and are held to
-the plain versions on the same bf16 qu, k, v.
+csrc/rel_attention_bwd.cu) for CUDA tensors; it has no other path. Every
+head width and every even rel width is taken, in both types and both
+directions; the type of qu and the widths pick the kernels (``route``,
+computed here from the kernel files' constants and size functions,
+mirrored below):
+  * bf16, the tensor cores (mma.sync on bf16 tiles; counted in
+    ``tc_launches``), which take delta, W and the tables in bf16 with the
+    head width padded to a multiple of 16 and each half of the rel width to
+    a multiple of 8 (``tc_layout``), as the JAX package casts the pos kernel
+    and delta to the compute type. Up to a padded head of 144, where the
+    block's [qu | A] fits in shared memory (``tc_fits``), kernels that hold
+    it whole ("tc"); past either, the wide route ("tc_wide",
+    csrc/relpos_tc.cuh): a prep pass writes the A rows, every product
+    streams the augmented width in chunks of 64, and the outputs split into
+    column groups of at most 128 (``tc_wide_group``);
+  * fp32, FMA kernels in fp32 throughout (csrc/relpos_fma.cuh). The
+    forward holds the block's [qu | A] in shared memory where it fits
+    ("fma_resident", ``fma_resident``) and otherwise streams it after a
+    prep pass ("fma_streamed"), as the backward always does ("fma"); past
+    a head of 256 the prep pass stages qu in chunks and the forward's
+    outputs split into column groups ("fma_wide").
+Launches on a wide route ("tc_wide", "fma_wide") are also counted in
+``wide_launches``. The forward returns (o in the dtype of qu, row
+log-sum-exp (B, H, N) fp32) and saves the log-sum-exp for the backward,
+which recomputes the probabilities from it. The tables get no gradient;
+the bias gets one only when it requires it. The plain versions compute in
+fp32 from the given inputs; the tensor-core kernels, both bf16 routes,
+round where the TPU kernel rounds in bf16 (qv, A before A keytab^T, P
+before P V and P^T dO, dS, dpq) and are held to the plain versions on the
+same bf16 qu, k, v.
 """
 
 from __future__ import annotations
@@ -57,9 +67,8 @@ KERNEL = "rel_attention_fwd"
 KERNEL_BWD = "rel_attention_bwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
-ROADMAP_ITEM = "ROADMAP [27]"   # the rel-pos widths the kernels do not take yet
 # The fp32 route's constants, as csrc/relpos_fma.cuh has them
-FMA_MAX_DH = 256      # widest head the fp32 kernels take, at any rel width
+FMA_MAX_DH = 256      # widest head the forward's blocks and the prep's qu tile hold whole
 FMA_BQ = 64           # query rows (and keys) of a tile
 FMA_DC = 32           # depth of tile_product's streamed chunks
 FMA_LDA = 68          # row strides of its two chunks
@@ -74,7 +83,8 @@ FMA_RESIDENT_MAX_DH = 128   # widest head of the forward's resident kernel (rel_
 FMA_COLUMNS = ((32, 2), (64, 4), (96, 6), (128, 8), (192, 12), (256, 16))
 FMA_KEY_COLUMNS = ((32, 2), (64, 4), (96, 6), (128, 8))
 # The bf16 route's, as csrc/relpos_tc.cuh and the two kernel files have them
-TC_MAX_DHP = 144      # widest padded head the tensor-core kernels take
+TC_MAX_DHP = 144      # widest padded head of the kernels that hold [qu | A] whole ("tc")
+TC_WIDE_DMAX = 128    # widest column group of the wide route (rtc::WIDE_DMAX)
 TC_BQ = 64            # query rows a block (rtc::BQ)
 TC_KC = 64            # rel features a streamed chunk (rtc::KC)
 TC_LDC = TC_KC + 8    # its row stride (rtc::LDC)
@@ -185,14 +195,16 @@ def relpos_attention(qu, k, v, delta, w, rowtab, keytab, bias, scale):
     return relpos_attention_fwd(qu, k, v, delta, w, rowtab, keytab, bias, scale)
 
 
-relpos_attention.launches = 0     # forward kernel launches since the caller last reset it
-relpos_attention.tc_launches = 0  # of those, the bf16 tensor-core route's
+relpos_attention.launches = 0       # forward kernel launches since the caller last reset it
+relpos_attention.tc_launches = 0    # of those, the bf16 tensor-core route's
+relpos_attention.wide_launches = 0  # and of those, the wide routes' ("tc_wide", "fma_wide")
 
 
 def relpos_attention_fwd(qu, k, v, delta, w, rowtab, keytab, bias, scale):
     """The forward alone: the plain version for CPU tensors, the kernel for
     CUDA tensors (counted in ``relpos_attention.launches``, the tensor-core
-    route's also in ``relpos_attention.tc_launches``)."""
+    route's also in ``relpos_attention.tc_launches``, a wide route's in
+    ``relpos_attention.wide_launches``)."""
     if qu.device.type == "cpu":
         return reference_relpos_attention(qu, k, v, delta, w, rowtab, keytab, bias, scale)
     if qu.device.type != "cuda":
@@ -200,6 +212,7 @@ def relpos_attention_fwd(qu, k, v, delta, w, rowtab, keytab, bias, scale):
     o, lse = _launch(qu, k, v, delta, w, rowtab, keytab, bias, scale)
     relpos_attention.launches += 1
     relpos_attention.tc_launches += qu.dtype == torch.bfloat16
+    relpos_attention.wide_launches += is_wide(qu.dtype, qu.shape[-1], w.shape[-1])
     return o, lse
 
 
@@ -208,8 +221,9 @@ def relpos_attention_bwd(qu, k, v, delta, w, rowtab, keytab, bias, o, do, lse, s
     """The backward alone, (dqu, dk, dv, ddelta, dw, dbias_hb): the plain
     version for CPU tensors, the kernel for CUDA tensors (counted in
     ``relpos_attention_bwd.launches``, the tensor-core route's also in
-    ``relpos_attention_bwd.tc_launches``). dbias_hb is None when the kernel
-    is not asked for it."""
+    ``relpos_attention_bwd.tc_launches``, a wide route's in
+    ``relpos_attention_bwd.wide_launches``). dbias_hb is None when the
+    kernel is not asked for it."""
     if qu.device.type == "cpu":
         return reference_relpos_attention_bwd(qu, k, v, delta, w, rowtab, keytab, bias, do,
                                               lse, scale)
@@ -218,11 +232,13 @@ def relpos_attention_bwd(qu, k, v, delta, w, rowtab, keytab, bias, o, do, lse, s
     grads = _launch_bwd(qu, k, v, delta, w, rowtab, keytab, bias, o, do, lse, scale, need_dbias)
     relpos_attention_bwd.launches += 1
     relpos_attention_bwd.tc_launches += qu.dtype == torch.bfloat16
+    relpos_attention_bwd.wide_launches += is_wide(qu.dtype, qu.shape[-1], w.shape[-1], True)
     return grads
 
 
-relpos_attention_bwd.launches = 0     # backward kernel launches since the caller last reset it
-relpos_attention_bwd.tc_launches = 0  # of those, the bf16 tensor-core route's
+relpos_attention_bwd.launches = 0       # backward kernel launches since the caller last reset it
+relpos_attention_bwd.tc_launches = 0    # of those, the bf16 tensor-core route's
+relpos_attention_bwd.wide_launches = 0  # and of those, the wide routes'
 
 
 class _RelPosAttention(torch.autograd.Function):
@@ -292,6 +308,22 @@ def fma_key_group(dh: int) -> tuple[int, int]:
     return gw, _columns(gw, FMA_KEY_COLUMNS)
 
 
+def fma_group_width(dh: int) -> int:
+    """The fp32 streamed forward's column group: the whole head up to
+    FMA_MAX_DH, past it the fewest groups of at most FMA_MAX_DH columns, of
+    equal width rounded up to 16 (fwd_group_width)."""
+    groups = -(-dh // FMA_MAX_DH)
+    return _round(-(-dh // groups), 16)
+
+
+def _fma_prep_floats(dh: int) -> int:
+    """The fp32 prep pass's shared memory in floats: its qu tile (FMA_WCHUNK
+    features of it past FMA_MAX_DH), a W chunk, the A staging tile
+    (prep_smem_floats)."""
+    return (dh if dh <= FMA_MAX_DH else FMA_WCHUNK) * FMA_LDV + FMA_WCHUNK * 128 \
+        + FMA_BQ * FMA_LDAS
+
+
 def _fma_resident_floats(dh: int, d2: int) -> int:
     """Shared memory of the fp32 forward's resident kernel in floats:
     [qu | A]^T of 64 rows, the key chunks or the probabilities, the V tile
@@ -311,20 +343,21 @@ def fma_resident(dh: int, d2: int) -> bool:
 def fma_smem_bytes(dh: int, d2: int) -> tuple[int, int]:
     """Shared memory of the fp32 route's largest pass, (forward, backward),
     in bytes at head width dh and rel width d2. Only the resident forward's
-    depends on the rel width."""
+    depends on the rel width; past FMA_MAX_DH none depends on the head."""
     tile = 2 * FMA_DC * (FMA_LDA + FMA_LDB)                  # tile_product's chunks
-    prep = dh * FMA_LDV + FMA_WCHUNK * 128 + FMA_BQ * FMA_LDAS
+    prep = _fma_prep_floats(dh)
     key = tile + 2 * 16 * fma_key_group(dh)[1] * FMA_LDS + 3 * FMA_BQ
     bwd = 4 * max(prep, key, tile)
     if fma_resident(dh, d2):
         return 4 * _fma_resident_floats(dh, d2), bwd
-    fwd = tile + FMA_BQ * 16 * _columns(min(dh, FMA_MAX_DH), FMA_COLUMNS)  # + V
+    fwd = tile + FMA_BQ * 16 * _columns(fma_group_width(dh), FMA_COLUMNS)  # + V
     return 4 * max(prep, fwd), bwd
 
 
 def tc_smem_bytes(dh: int, d2: int) -> tuple[int, int]:
-    """Shared memory of the bf16 route's largest pass, (forward, backward),
-    in bytes at its padded widths (tc_smem_bytes, tc_{prep,k,q}_smem)."""
+    """Shared memory of the largest pass of the bf16 kernels that hold [qu |
+    A] whole ("tc"), (forward, backward), in bytes at their padded widths
+    (tc_smem_bytes, tc_{prep,k,q}_smem)."""
     dhp, hdp = tc_widths(dh, d2)
     d2p = 2 * hdp
     lda, ldt, ldx = dhp + d2p + 8, dhp + 8, max(dhp, 64) + 8
@@ -337,32 +370,69 @@ def tc_smem_bytes(dh: int, d2: int) -> tuple[int, int]:
     return 2 * fwd, max(2 * prep, key, query)
 
 
-def smem_bytes(dtype, dh: int, d2: int) -> tuple[int, int]:
-    """Shared memory a block of the route for ``dtype`` needs at head width
-    dh and rel width d2, (forward, the backward's largest pass), in bytes,
-    as the kernel files size it at launch."""
+def tc_fits(dh: int, d2: int, backward: bool = False) -> bool:
+    """Whether the bf16 kernels that hold [qu | A] whole take head width dh
+    and rel width d2 in the forward (or the backward): a padded head of at
+    most TC_MAX_DHP, and their tiles within SMEM_LIMIT (tc_fits)."""
+    return (tc_widths(dh, d2)[0] <= TC_MAX_DHP
+            and tc_smem_bytes(dh, d2)[int(backward)] <= SMEM_LIMIT)
+
+
+def tc_wide_group(dh: int) -> int:
+    """The wide route's column group at head width dh: the fewest groups
+    of at most TC_WIDE_DMAX padded columns, of equal width rounded up to 16
+    (rtc::wide_gw)."""
+    dhp = tc_widths(dh, 2)[0]
+    groups = -(-dhp // TC_WIDE_DMAX)
+    return _round(-(-dhp // groups), 16)
+
+
+def tc_wide_smem_bytes(dh: int) -> tuple[int, int]:
+    """Shared memory of the bf16 wide route's largest pass, (forward,
+    backward), in bytes: no tile depends on the rel width, and only the
+    registers' group width (64 or TC_WIDE_DMAX) on the head
+    (tc_wide_smem_bytes, tc_{k,q}_wide_smem; the prep pass's 18,432 bytes
+    are the least)."""
+    dmax = 64 if tc_wide_group(dh) <= 64 else TC_WIDE_DMAX
+    ldg = dmax + 8
+    fwd = 2 * 2 * TC_BQ * TC_LDC + 2 * TC_BK * ldg
+    key = (2 * (2 * TC_BK + 2 * TC_TQ) * TC_LDC + 2 * 2 * TC_TQ * ldg) * 2 + 2 * 2 * TC_TQ * 4
+    query = (TC_BQ * ldg + 2 * TC_BK * (TC_LDC + ldg) + dmax * TC_LDC + TC_BQ * TC_LDC) * 2 \
+        + TC_BQ * 4
+    return 2 * fwd, max(key, query)
+
+
+@functools.lru_cache(maxsize=1024)
+def route(dtype, dh: int, d2: int, backward: bool = False) -> str:
+    """The kernels that take head width dh and rel width d2 in the forward
+    (or the backward) for ``dtype``: bf16 "tc" (they hold [qu | A] whole)
+    or "tc_wide"; fp32 forward "fma_resident", "fma_streamed" or "fma_wide",
+    fp32 backward "fma" or "fma_wide". Every width is taken."""
     _check(dtype in _DTYPE_CODE, f"unsupported dtype {dtype}")
-    return tc_smem_bytes(dh, d2) if dtype == torch.bfloat16 else fma_smem_bytes(dh, d2)
-
-
-@functools.lru_cache(maxsize=None)
-def refusal(dtype, dh: int, d2: int, backward: bool = False) -> str | None:
-    """Why the route for ``dtype`` refuses head width dh and rel width d2 in
-    the forward (or the backward): its widths, and its shared memory need
-    against the 227 KB a block may use, naming the ROADMAP item that would
-    lift it. None when it takes them."""
     if dtype == torch.bfloat16:
-        dhp = tc_widths(dh, d2)[0]
-        if dhp > TC_MAX_DHP:
-            return f"padded head width {dhp} > {TC_MAX_DHP} ({ROADMAP_ITEM})"
-    elif dh > FMA_MAX_DH:
-        return f"head width {dh} > {FMA_MAX_DH} ({ROADMAP_ITEM})"
-    need = smem_bytes(dtype, dh, d2)[int(backward)]
-    if need > SMEM_LIMIT:
-        return (f"head width {dh} + rel width {d2} need {need} B of shared memory in the "
-                f"{'backward' if backward else 'forward'}, more than {SMEM_LIMIT} "
-                f"({ROADMAP_ITEM})")
-    return None
+        return "tc" if tc_fits(dh, d2, backward) else "tc_wide"
+    if dh > FMA_MAX_DH:
+        return "fma_wide"
+    if backward:
+        return "fma"
+    return "fma_resident" if fma_resident(dh, d2) else "fma_streamed"
+
+
+def is_wide(dtype, dh: int, d2: int, backward: bool = False) -> bool:
+    """Whether ``route`` is a wide one, "tc_wide" or "fma_wide"."""
+    return route(dtype, dh, d2, backward).endswith("_wide")
+
+
+def smem_bytes(dtype, dh: int, d2: int) -> tuple[int, int]:
+    """Shared memory a block of the largest pass of the route for
+    ``dtype`` needs at head width dh and rel width d2, (forward, backward),
+    in bytes, as the kernel files size it at launch."""
+    _check(dtype in _DTYPE_CODE, f"unsupported dtype {dtype}")
+    if dtype == torch.float32:
+        return fma_smem_bytes(dh, d2)
+    fits = tc_smem_bytes(dh, d2)
+    wide = tc_wide_smem_bytes(dh)
+    return tuple(fits[i] if tc_fits(dh, d2, bool(i)) else wide[i] for i in (0, 1))
 
 
 def _check(cond: bool, msg: str):
@@ -370,7 +440,7 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"relpos_attention: {msg}")
 
 
-def _checked_inputs(qu, k, v, delta, w, rowtab, keytab, bias, backward=False):
+def _checked_inputs(qu, k, v, delta, w, rowtab, keytab, bias):
     """Shape, dtype and device checks shared by both kernels; returns delta,
     w, rowtab, keytab as the route takes them (fp32 and contiguous, or the
     bf16 route's padded layout, tc_layout), the bias as (B or 1, Nk) fp32
@@ -389,8 +459,6 @@ def _checked_inputs(qu, k, v, delta, w, rowtab, keytab, bias, backward=False):
         _check(t.stride(-1) == 1, f"{name} needs a unit feature stride")
     tensors = [qu, k, v, delta, w, rowtab, keytab] + ([bias] if bias is not None else [])
     _check(all(t.device == qu.device for t in tensors), "tensors lie on different devices")
-    why = refusal(qu.dtype, dh, d2, backward)
-    _check(why is None, f"the {qu.dtype} route refuses: {why}")
     if qu.dtype == torch.bfloat16:
         delta, w, rowtab, keytab = tc_layout(delta, w, rowtab, keytab)
     else:
@@ -415,6 +483,7 @@ def _launch(qu, k, v, delta, w, rowtab, keytab, bias, scale):
     b, h, n, dh = qu.shape
     nk = k.shape[2]
     dev = qu.device
+    kind = route(qu.dtype, dh, w.shape[-1])
     delta, w, rowtab, keytab, bias, bias_sb = _checked_inputs(
         qu, k, v, delta, w, rowtab, keytab, bias)
     lib, fn = _bind()
@@ -422,10 +491,10 @@ def _launch(qu, k, v, delta, w, rowtab, keytab, bias, scale):
     # the call is a view
     o = torch.empty((b, n, h, dh), dtype=qu.dtype, device=dev).permute(0, 2, 1, 3)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=dev)
-    # the fp32 route's prep pass writes the A rows (B, H, N, 2hd) for its
-    # streamed kernel; the resident kernel forms them in shared memory
-    atab = (torch.empty((b, h, n, w.shape[-1]), dtype=torch.float32, device=dev)
-            if qu.dtype == torch.float32 and not fma_resident(dh, w.shape[-1]) else None)
+    # the prep pass writes the A rows (B, H, N, 2hd at the route's widths)
+    # for the streamed kernels; the others form them in shared memory
+    atab = (torch.empty((b, h, n, w.shape[-1]), dtype=qu.dtype, device=dev)
+            if kind not in ("tc", "fma_resident") else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -454,13 +523,15 @@ def _launch_bwd(qu, k, v, delta, w, rowtab, keytab, bias, o, do, lse, scale, nee
     by route: fp32, the A rows, later dpq, (B, H, N, 2hd) and dS^T (B, H, Nk,
     N), fp32; bf16, the [qu | A] rows (B, H, Np, dhp + 2hdp), the padded dO
     rows (B, H, Np, dhp) and dS^T (B, H, Nkp, Np) in bf16, Np and Nkp being N
-    and Nk rounded up to 64."""
+    and Nk rounded up to 64; on the wide bf16 route the A rows (B, H, N,
+    2hdp) in place of the first two."""
     b, h, n, dh = qu.shape
     nk, d2 = k.shape[2], w.shape[-1]
     dev = qu.device
     tc = qu.dtype == torch.bfloat16
+    wide = is_wide(qu.dtype, dh, d2, backward=True)
     delta, w, rowtab, keytab, bias, bias_sb = _checked_inputs(
-        qu, k, v, delta, w, rowtab, keytab, bias, backward=True)
+        qu, k, v, delta, w, rowtab, keytab, bias)
     _check(o.shape == qu.shape and do.shape == qu.shape, "o / dO do not match qu")
     _check(o.dtype == qu.dtype and o.stride(-1) == 1, "o must be the forward's output")
     _check(tuple(lse.shape) == (b, h, n) and lse.dtype == torch.float32
@@ -483,8 +554,11 @@ def _launch_bwd(qu, k, v, delta, w, rowtab, keytab, bias, o, do, lse, scale, nee
         n_p, nk_p = _round(n, 64), _round(nk, 64)
         wt = None
         dw_part = torch.empty((b * n_tiles, h, dhw, d2w), dtype=f32, device=dev)
-        atab = torch.empty((b, h, n_p, dhw + d2w), dtype=bf, device=dev)
-        qa_do = torch.empty((b, h, n_p, dhw), dtype=bf, device=dev)
+        if wide:
+            atab, qa_do = torch.empty((b, h, n, d2w), dtype=bf, device=dev), None
+        else:
+            atab = torch.empty((b, h, n_p, dhw + d2w), dtype=bf, device=dev)
+            qa_do = torch.empty((b, h, n_p, dhw), dtype=bf, device=dev)
         ds = torch.empty((b, h, nk_p, n_p), dtype=bf, device=dev)
     else:
         wt = w.transpose(1, 2).contiguous()      # (H, 2hd, dh): W^T per head

@@ -121,13 +121,13 @@ def test_kernel_takes_strided_heads(cuda):
 
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    """A dtype, a shape mismatch; fp32 now takes the widths of the Medium
-    and Large Efficient Conformers (dh 135) and of Conformer Large (dh + D =
-    576 in the backward) both ways, and refuses only a head past 256; bf16
-    past its own widths (a padded head over 144, a rel width whose shared
-    memory need passes 227 KB), with the bytes named. Each refusal names
-    its ROADMAP item; the shared memory the wrapper computes, and its
-    choice of the fp32 forward's kernel, are the kernels' own."""
+    """A dtype and a shape mismatch are refused; every head and rel width is
+    taken: fp32 at the widths of the Medium and Large Efficient Conformers
+    (dh 135) and of Conformer Large (dh + D = 576 in the backward), both
+    ways, and past a head of 256 on its wide route; bf16 past a padded head
+    of 144 and past the shared memory of the kernels that hold [qu | A]
+    whole, on the wide route (launches counted there). The shared memory
+    the wrapper computes, and its choice of kernels, are the kernels' own."""
     args = list(inputs(cuda, 1, 2, 8, 16, 1, 1))
     with pytest.raises(ValueError, match="dtype"):
         RA.relpos_attention(*[t.half() for t in args[:3]], *args[3:])
@@ -142,30 +142,90 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     got = RA.relpos_attention_bwd(*args[:8], o, do, lse, args[8])
     want = RA.reference_relpos_attention_bwd(*args[:8], do, lse, args[8])
     assert_grads_close(got, want, FP32_TOL, FP32_TOL)
-    for dh, d in ((135, 180), (64, 512), (90, 720), (135, 360), (256, 1024)):
-        for dtype in (torch.float32, torch.bfloat16):
-            if dtype == torch.bfloat16 and dh > 144:
-                continue
-            assert RA.refusal(dtype, dh, d) is None
-            assert RA.refusal(dtype, dh, d, backward=True) is None
-    args = list(inputs(cuda, 1, 1, 8, 272, 1, 1))        # dh 272
-    with pytest.raises(ValueError, match=r"float32 route refuses: head width 272 > 256 "
-                                         r"\(ROADMAP \[27\]\)"):
-        RA.relpos_attention(*args)
-    assert "padded head width 160" in RA.refusal(torch.bfloat16, 150, 64)
-    why = RA.refusal(torch.bfloat16, 64, 4000, backward=True)
-    assert why is not None and "shared memory in the backward" in why and "ROADMAP [27]" in why
-    args = list(inputs(cuda, 1, 1, 8, 200, 1, 1))        # dh 200
-    with pytest.raises(ValueError, match="bfloat16 route refuses: padded head width 208"):
-        RA.relpos_attention(*[t.to(torch.bfloat16) for t in args[:3]], *args[3:])
+    args = list(inputs(cuda, 1, 1, 8, 272, 1, 1))        # dh 272: the fp32 wide route
+    RA.relpos_attention.wide_launches = 0
+    o, lse = RA.relpos_attention(*args)
+    want_o, want_lse = RA.reference_relpos_attention(*args)
+    assert RA.relpos_attention.wide_launches == 1
+    torch.testing.assert_close(o, want_o, rtol=0, atol=FP32_TOL)
+    args = list(inputs(cuda, 1, 1, 8, 200, 1, 1))        # dh 200: padded 208, bf16 wide
+    o, _ = RA.relpos_attention(*[t.to(torch.bfloat16) for t in args[:3]], *args[3:])
+    assert RA.relpos_attention.wide_launches == 2
+    torch.testing.assert_close(o.float(), want_wide(args)[0], rtol=0, atol=BF16_TOL)
     for dh, d in ((12, 24), (135, 180), (90, 360), (64, 712), (64, 720), (90, 720), (200, 64),
-                  (256, 1024), (64, 4000)):
+                  (256, 1024), (64, 4000), (270, 360), (128, 1024), (512, 1024), (257, 64)):
         for dtype, code in RA._DTYPE_CODE.items():
             kernels = (RA._bind()[0].ecf_relpos_attention_fwd_smem(code, dh, d),
                        RA._bind_bwd()[0].ecf_relpos_attention_bwd_smem(code, dh, d))
             assert kernels == RA.smem_bytes(dtype, dh, d), (dh, d, dtype)
+            assert max(kernels) <= RA.SMEM_LIMIT
         resident = RA._bind()[0].ecf_relpos_attention_fwd_resident(dh, d)
         assert bool(resident) == RA.fma_resident(dh, d), (dh, d)
+        wide = (RA._bind()[0].ecf_relpos_attention_fwd_wide(dh, d),
+                RA._bind_bwd()[0].ecf_relpos_attention_bwd_wide(dh, d))
+        assert wide == tuple(int(RA.is_wide(torch.bfloat16, dh, d, b)) for b in (0, 1)), (dh, d)
+
+
+def want_wide(args):
+    """The plain forward on bf16-rounded qu, k and v, in fp32."""
+    return RA.reference_relpos_attention(*[t.to(torch.bfloat16).float() for t in args[:3]],
+                                         *args[3:])
+
+
+def wide_inputs(device, b, h, nq, nk, dh, d, bias_b, row0, seed):
+    """Inputs at any head width dh and rel width D: W random at the scale a
+    pos kernel of width D folds to (D^-1/2), the tables of Nk positions,
+    the query rows [row0, row0 + Nq) of them (a seq rank's rows when Nq <
+    Nk), a key mask of ``bias_b`` rows."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    rowtab, keytab = RF.rel_tables(nk, nk, d, 1, device)
+    lengths = torch.linspace(max(nk // 3, 1), nk, bias_b).long()
+    bias = ((torch.arange(nk)[None] >= lengths[:, None]).float() * NEG_INF)[:, None, None, :]
+    return (randn(b, h, nq, dh), randn(b, h, nk, dh), randn(b, h, nk, dh),
+            randn(h, dh, scale=0.1), randn(h, dh, d, scale=d ** -0.5),
+            rowtab[row0:row0 + nq].contiguous(), keytab, bias.to(device), 1.0 / math.sqrt(dh))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,d,h,nq,nk,row0", [
+    (270, 360, 4, 134, 134, 0),    # EfficientConformer CTC Large at 4 heads, stage 1 (G 3)
+    (180, 720, 4, 101, 101, 0),    # its stage 3: bf16 wide, fp32 streamed
+    (128, 1024, 8, 100, 100, 0),   # Conformer CTC at width 1,024: bf16 forward wide
+    (257, 64, 2, 70, 70, 0),       # the four shapes refused before: odd head, 2-byte copies
+    (272, 544, 2, 70, 70, 0),
+    (150, 64, 2, 70, 70, 0),
+    (64, 4000, 1, 40, 40, 0),
+    (64, 1536, 2, 80, 80, 0),      # the wide route's 64-column registers
+    (512, 1024, 2, 65, 65, 0),
+    (270, 360, 4, 67, 134, 67),    # a seq rank's rows against every key
+])
+def test_wide_routes_match_plain_versions(cuda, dh, d, h, nq, nk, row0):
+    """Both directions, both types, at widths past the kernels that hold
+    [qu | A] whole or a 256-wide head: fp32 within FP32_TOL of the plain
+    versions (gradients relative), bf16 within BF16_TOL of them on the same
+    bf16 qu, k, v, and each call counted on the route ``route`` names."""
+    args = wide_inputs(cuda, 2, h, nq, nk, dh, d, 2, row0, seed=dh + d)
+    gen = torch.Generator().manual_seed(dh)
+    for dtype in (torch.float32, torch.bfloat16):
+        a = [t.to(dtype) for t in args[:3]] + list(args[3:])
+        RA.relpos_attention.wide_launches = RA.relpos_attention_bwd.wide_launches = 0
+        o, lse = RA.relpos_attention_fwd(*a)
+        want_o, want_lse = RA.reference_relpos_attention(*[t.float() for t in a[:3]], *a[3:])
+        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        torch.testing.assert_close(o.float(), want_o, rtol=0, atol=tol)
+        torch.testing.assert_close(lse, want_lse, rtol=0, atol=tol)
+        do = torch.randn(o.shape, generator=gen).to(device=cuda, dtype=dtype)
+        got = RA.relpos_attention_bwd(*a[:8], o, do, lse, a[8])
+        again = RA.relpos_attention_bwd(*a[:8], o, do, lse, a[8])
+        want = RA.reference_relpos_attention_bwd(*a[:8], do, lse, a[8])
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        assert_grads_close(got, want, tol, tol, rel_token=True)
+        assert (RA.relpos_attention.wide_launches, RA.relpos_attention_bwd.wide_launches) == \
+            tuple(int(RA.is_wide(dtype, dh, d, b)) * (1 + b) for b in (0, 1)), (dtype, dh, d)
 
 
 # ------------------------------------------------------------ backward kernel

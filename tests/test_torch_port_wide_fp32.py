@@ -1,21 +1,25 @@
-"""The fp32 rel-pos route at the widths of the shipped Medium and Large
-encoders, on the CPU.
+"""The rel-pos routes at every width, and the fp32 port at the widths of
+the shipped Medium and Large encoders and two wider ones, on the CPU.
 
-The wrapper's route table (ops/rel_attention.py: ``refusal``,
-``smem_bytes`` and ``fma_resident``) is computed in Python from the kernel
+The wrapper's route table (ops/rel_attention.py: ``route``, ``smem_bytes``,
+``fma_resident``, ``tc_fits``) is computed in Python from the kernel
 files' constants, so it is checked here without the compiled kernels: its
-copies of the constants, and its sizes against the kernel files' own size
-functions read as Python (``c_file``), then every shipped ASR config's
-stage shapes taken by both routes in both directions, at 16 s and at an evaluation split's
-33 s, and the shapes past the new limits refused with their ROADMAP item.
-Then the port held to the JAX package in fp32 at those widths, on weights
-carried by utils/weights.py: EfficientConformer CTC Medium's and Large's
-three stage widths with one block a stage, Conformer CTC Large's 512 / 8
-heads with one block. On the CPU the port's rel-pos attention runs its
+copies of the constants, and its sizes and choices against the kernel
+files' own size functions read as Python (``c_file``) over every head
+width 1-512 and even rel width 2-4,096 in both types and directions, then
+every shipped ASR config's stage shapes on the routes they took before the
+wide routes existed, at 16 s and at an evaluation split's 33 s, and the
+shapes once refused (ROADMAP [27]) on the wide routes. Then the port held to
+the JAX package in fp32 at those widths, on weights carried by
+utils/weights.py: EfficientConformer CTC Medium's and Large's three stage
+widths with one block a stage, Conformer CTC Large's 512 / 8 heads with
+one block, and the two encoders the card's [wider-slice] builds: Large at
+4 heads (heads 270 / 128 / 180) and Conformer CTC at width 1,024 (8 heads
+of 128, rel width 1,024). On the CPU the port's rel-pos attention runs its
 plain version; the JAX modules run their XLA route, as the JAX package's
 own tests run them off the TPU. The CUDA kernels are held to the plain
 versions on the card (tests/test_torch_port_cuda.py, chip_smoke.py's
-[wide-fp32-kernel] and [wide-fp32-slice]).
+[wide-fp32-kernel], [wide-fp32-slice], [wider-kernel] and [wider-slice]).
 """
 
 import functools
@@ -170,6 +174,7 @@ def constants(name: str) -> dict:
     ("TC_BK", "rel_attention_fwd.cu", "TC_BK"), ("TC_BK", "rel_attention_bwd.cu", "TC_BK"),
     ("TC_TQ", "rel_attention_bwd.cu", "TC_TQ"),
     ("FMA_RESIDENT_MAX_DH", "rel_attention_fwd.cu", "RESIDENT_MAX_DH"),
+    ("TC_WIDE_DMAX", "relpos_tc.cuh", "WIDE_DMAX"),
 ])
 def test_wrapper_constants_match_the_kernels(name, header, key):
     """The wrapper's copies of the kernels' compile-time constants agree
@@ -224,14 +229,18 @@ def stage_shapes(config: str, seconds: float):
 @pytest.mark.parametrize("config", ASR_CONFIGS)
 @pytest.mark.parametrize("seconds", SECONDS)
 def test_every_shipped_stage_shape_is_taken(config, seconds):
-    """Neither route refuses any stage shape of any shipped ASR config in
-    either direction, and each fits the 227 KB a block may use: fp32 Medium
-    and Large (dh 135, dh + D up to 810) included."""
+    """Every stage shape of every shipped ASR config keeps the kernels it
+    took before the wide routes existed, in both directions: bf16 the ones
+    that hold [qu | A] whole, fp32 the resident or streamed forward and the
+    five-pass backward (Medium and Large's dh 135 and dh + D up to 810
+    included), each within the 227 KB a block may use."""
     assert len(ASR_CONFIGS) == 12
     for _, dh, d in stage_shapes(config, seconds):
+        for backward in (False, True):
+            assert RA.route(torch.bfloat16, dh, d, backward) == "tc", (dh, d, backward)
+        assert RA.route(torch.float32, dh, d) in ("fma_resident", "fma_streamed"), (dh, d)
+        assert RA.route(torch.float32, dh, d, True) == "fma", (dh, d)
         for dtype in (torch.float32, torch.bfloat16):
-            for backward in (False, True):
-                assert RA.refusal(dtype, dh, d, backward) is None, (dtype, dh, d, backward)
             assert max(RA.smem_bytes(dtype, dh, d)) <= RA.SMEM_LIMIT
         assert_route_table_is_the_kernels(dh, d)
 
@@ -245,8 +254,8 @@ def test_fp32_shared_memory_fits_at_any_rel_width():
     the rest."""
     for d in (24, 720, 1024, 8192):
         assert RA.smem_bytes(torch.float32, RA.FMA_MAX_DH, d) == (119040, 119040)
-        assert RA.refusal(torch.float32, RA.FMA_MAX_DH, d, backward=True) is None
-        assert RA.refusal(torch.float32, 64, d) is None
+        assert RA.route(torch.float32, RA.FMA_MAX_DH, d, backward=True) == "fma"
+        assert RA.route(torch.float32, 64, d) in ("fma_resident", "fma_streamed")
     assert RA.smem_bytes(torch.float32, 90, 120)[1] == RA.smem_bytes(torch.float32, 90, 720)[1]
     assert RA.fma_resident(64, 712) and not RA.fma_resident(64, 720)
     assert RA.smem_bytes(torch.float32, 64, 712)[0] == RA.SMEM_LIMIT
@@ -265,12 +274,21 @@ def kernel_size_functions() -> tuple:
             fwd["ecf_relpos_attention_fwd_resident"])
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_wide_functions() -> tuple:
+    fwd, bwd = c_file("rel_attention_fwd.cu")[0], c_file("rel_attention_bwd.cu")[0]
+    return fwd["ecf_relpos_attention_fwd_wide"], bwd["ecf_relpos_attention_bwd_wide"]
+
+
 def assert_route_table_is_the_kernels(dh: int, d: int):
     fwd_smem, bwd_smem, resident = kernel_size_functions()
     for dtype, code in RA._DTYPE_CODE.items():
         assert (fwd_smem(code, dh, d), bwd_smem(code, dh, d)) == RA.smem_bytes(dtype, dh, d), \
             (dtype, dh, d)
     assert bool(resident(dh, d)) == RA.fma_resident(dh, d), (dh, d)
+    wide = tuple(bool(fn(dh, d)) for fn in kernel_wide_functions())
+    assert wide == (RA.route(torch.bfloat16, dh, d) == "tc_wide",
+                    RA.route(torch.bfloat16, dh, d, True) == "tc_wide"), (dh, d)
 
 
 @pytest.mark.parametrize("dh,d", SIZE_SHAPES)
@@ -283,18 +301,67 @@ def test_route_table_is_the_kernels_own(dh, d):
     assert_route_table_is_the_kernels(dh, d)
 
 
-@pytest.mark.parametrize("dtype,dh,d,backward,match", [
-    (torch.float32, 257, 64, False, r"head width 257 > 256 \(ROADMAP \[27\]\)"),
-    (torch.float32, 272, 544, True, r"head width 272 > 256 \(ROADMAP \[27\]\)"),
-    (torch.bfloat16, 150, 64, False, r"padded head width 160 > 144 \(ROADMAP \[27\]\)"),
-    (torch.bfloat16, 64, 4000, True, r"shared memory in the backward, more than 232448 "
-                                     r"\(ROADMAP \[27\]\)"),
+@pytest.mark.parametrize("dtype,dh,d,backward,kernels", [
+    (torch.float32, 257, 64, False, "fma_wide"),
+    (torch.float32, 272, 544, True, "fma_wide"),
+    (torch.bfloat16, 150, 64, False, "tc_wide"),
+    (torch.bfloat16, 64, 4000, True, "tc_wide"),
 ])
-def test_past_the_limits_is_refused_naming_its_roadmap_item(dtype, dh, d, backward, match):
-    why = RA.refusal(dtype, dh, d, backward)
-    assert why is not None and re.search(match, why), why
-    item = RA.ROADMAP_ITEM.removeprefix("ROADMAP ")     # an item of ROADMAP.md's queues
-    assert f"- **{item} " in (ROOT / "ROADMAP.md").read_text()
+def test_past_the_limits_is_refused_naming_its_roadmap_item(dtype, dh, d, backward, kernels):
+    """The four shapes the wrapper refused until ROADMAP [27] was done (an
+    fp32 head past 256 either way; a padded bf16 head past 144; [qu | A]
+    past the bf16 backward's shared memory) are now taken by a wide route,
+    within the 227 KB a block may use, while the kernels that took the
+    shipped shapes still do not take them."""
+    assert RA.route(dtype, dh, d, backward) == kernels
+    assert RA.smem_bytes(dtype, dh, d)[int(backward)] <= RA.SMEM_LIMIT
+    if dtype == torch.float32:
+        assert dh > RA.FMA_MAX_DH
+    else:
+        assert not RA.tc_fits(dh, d, backward)
+    assert "[27]" not in "".join(str(v) for v in vars(RA).values() if isinstance(v, str))
+
+
+# the grid of the route table: every head width 1-512 and even rel width
+# 2-4,096, cut by head width into cases
+GRID_HEADS = [(lo, lo + 63) for lo in range(1, 513, 64)]
+GRID_RELS = range(2, 4097, 2)
+
+
+@pytest.mark.parametrize("heads", GRID_HEADS, ids=lambda r: f"dh{r[0]}-{r[1]}")
+def test_every_width_has_a_route_within_shared_memory(heads):
+    """For every head width in ``heads`` and every even rel width 2-4,096,
+    in both types and both directions, the kernel files' own size functions
+    (read as Python) give the route's shared memory within the 232,448
+    bytes a block may use, and the wrapper's route table agrees with their
+    sizes and their choice of kernels. The bf16 functions read the widths
+    only padded (tc_dhp, tc_d2p, held here to ``tc_widths`` at every width),
+    so each padded pair is evaluated at one of its widths; the fp32 ones
+    read the rel width only in the forward's resident choice, which takes no
+    head past FMA_RESIDENT_MAX_DH, so past it and in the backward they are
+    evaluated at the narrowest and widest rel width."""
+    fwd_smem, bwd_smem, resident = kernel_size_functions()
+    fwd_wide, bwd_wide = kernel_wide_functions()
+    env = c_file("rel_attention_fwd.cu")[0]
+    heads = range(heads[0], heads[1] + 1)
+    dh_pad = {dh: env["tc_dhp"](dh) for dh in heads}
+    d2_pad = {d: env["tc_d2p"](d) for d in GRID_RELS}
+    assert all(p == RA.tc_widths(dh, 2)[0] for dh, p in dh_pad.items())
+    assert all(p == 2 * RA.tc_widths(16, d)[1] for d, p in d2_pad.items())
+    for dh in {p: dh for dh, p in dh_pad.items()}.values():
+        for d in {p: d for d, p in d2_pad.items()}.values():
+            sizes = (fwd_smem(1, dh, d), bwd_smem(1, dh, d))
+            assert max(sizes) <= RA.SMEM_LIMIT, (dh, d, sizes)
+            assert sizes == RA.smem_bytes(torch.bfloat16, dh, d), (dh, d)
+            assert (bool(fwd_wide(dh, d)), bool(bwd_wide(dh, d))) == \
+                tuple(RA.route(torch.bfloat16, dh, d, b) == "tc_wide" for b in (0, 1)), (dh, d)
+    for dh in heads:
+        for d in GRID_RELS if dh <= RA.FMA_RESIDENT_MAX_DH else (2, 4096):
+            sizes = (fwd_smem(0, dh, d), bwd_smem(0, dh, d))
+            assert max(sizes) <= RA.SMEM_LIMIT, (dh, d, sizes)
+            assert sizes == RA.fma_smem_bytes(dh, d), (dh, d)
+            assert bool(resident(dh, d)) == (RA.route(torch.float32, dh, d) == "fma_resident")
+        assert RA.route(torch.float32, dh, 4096, True) == ("fma" if dh <= 256 else "fma_wide")
 
 
 # ---------------------------------------------------- the port held to JAX
@@ -315,7 +382,19 @@ WIDE = {
     "EfficientConformerCTCLarge": dict(num_blocks=3, strided_blocks=[0, 1],
                                        expand_blocks=[0, 1]),
     "ConformerCTCLarge": dict(num_blocks=1),
+    # the card's [wider-slice] encoders: a shipped config with one field
+    # changed (heads 270 / 128 / 180; 8 heads of 128 at rel width 1,024)
+    "EfficientConformerCTCLarge_heads4": dict(config="EfficientConformerCTCLarge", num_heads=4,
+                                              num_blocks=3, strided_blocks=[0, 1],
+                                              expand_blocks=[0, 1]),
+    "ConformerCTCLarge_width1024": dict(config="ConformerCTCLarge", dim_model=1024,
+                                        num_blocks=1),
 }
+
+
+def wide_encoder(name: str) -> dict:
+    cut = dict(WIDE[name])
+    return encoder_params(cut.pop("config", name), **cut)
 
 
 @pytest.mark.parametrize("config", list(WIDE))
@@ -333,12 +412,14 @@ def test_wide_encoder_matches_jax_in_fp32(config, monkeypatch):
             calls[_key] += 1
             return _fn(*args)
         monkeypatch.setattr(RA, name, counted)
-    enc = encoder_params(config, **WIDE[config])
+    enc = wide_encoder(config)
     widths = {b.dim_model for b in resolve_block_configs(enc)}
     heads = {b.att_group_size * b.dim_model // b.num_heads for b in resolve_block_configs(enc)}
     assert widths == {"EfficientConformerCTCMedium": {180, 256, 360},
                       "EfficientConformerCTCLarge": {360, 512, 720},
-                      "ConformerCTCLarge": {512}}[config]
+                      "ConformerCTCLarge": {512},
+                      "EfficientConformerCTCLarge_heads4": {360, 512, 720},
+                      "ConformerCTCLarge_width1024": {1024}}[config]
     assert max(heads) > 128 or max(h + d for h, d in zip(sorted(heads), sorted(widths))) > 416
     jax_model = JaxModelCTC(encoder_params=enc, vocab_size=VOCAB)
     rng = np.random.default_rng(len(config))
