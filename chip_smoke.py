@@ -119,6 +119,22 @@ the card. Phases, one line each; any failure exits non-zero:
                 than 128 threads a block); both timed at the training shape
                 (device time from a CUDA graph, and per eager call) beside
                 the plain versions and the bound
+ 12a. rnnt-long-kernel  both RNN-T kernels past 1,024 label positions, on
+                their strip routes (a strip of 2, 4 or 8 positions a thread
+                in registers, or a wider one read back from the output),
+                vs their plain versions at (B, T, U+1) (2, 64, 1,025), (2,
+                64, 2,048), (1, 48, 3,700), (1, 32, 8,192) and (1, 16,
+                32,768): across the ring-depth edges and past the strips
+                held in registers; the geometry, ptxas' registers and
+                spills of each instantiation, whether they are equal bit for
+                bit, ms (CUDA graphs) beside the plain versions and the bound
+ 12b. t-long-eval  Transducer Small's evaluation loss (Trainer.eval_loss, the
+                CLI's --eval_loss and the per-epoch validation loss) at full
+                width in its own mixed precision on one 300 s utterance
+                carrying 1,100 labels: the lattice (1, 3,751, 1,101) on the
+                strip route, launches, the loss vs the plain versions on the
+                gathered log-probs (and the backward on them), ms, the
+                encoder's and the loss's share, peak memory
  13. t-requests the ragged batch decoded by the Transducer in bf16 with the
                 label-looping greedy loop: 15 forward launches, tokens equal
                 to the frame-synchronous loop's
@@ -471,6 +487,12 @@ T_RATE_BATCH = 16
 RNNT_LOSS_RTOL = 1e-5        # RNN-T kernels vs plain: the same fp32 recursion, same order
 RNNT_GRAD_TOL = 1e-5         # their gradients are probabilities, at most 1
 RNNT_WIDE = (4, 60, 150)     # (B, T, U+1) with U+1 > 128: more than 128 threads a block
+# [rnnt-long-kernel]: (B, T, U+1) past one thread a label position: strips of
+# 2 (1,025, 2,048), 4 past the ring of 8 (3,700: 7), 8 (8,192: a ring of 3)
+# and read back (32,768); T short where U+1 is long, so the plain versions stay quick
+RNNT_LONG_SHAPES = ((2, 64, 1025), (2, 64, 2048), (1, 48, 3700), (1, 32, 8192), (1, 16, 32768))
+T_LONG_SECONDS = 300.0       # [t-long-eval]: one long-form utterance (3,751 encoder frames)
+T_LONG_LABELS = 1100         # carrying 1,100 labels (U+1 1,101, ~3.7 BPE-1000 tokens a second)
 LM_CHECK_BATCH = 8
 LM_TIME_BATCH = 64           # the LM config's batch_size
 LM_SLICE_LENGTHS = (10, 100)  # ragged sequences of 10..100 tokens
@@ -494,7 +516,7 @@ NGRAM_WALKS = (4096, 24)     # random token walks (count, steps) of [ngram-devic
 BEAM = 16                    # every shipped config's beam_size
 CTC_BEAM_BATCH = 32          # [ctc-beam]: 32 ragged utterances of up to 10 s
 T_BEAM_BATCH = 4             # [t-beam]: 4 x 10 s (the LM cache is 47.3 MB a hypothesis)
-T_BEAM_CHECK = (2.0, 1.5)    # [t-beam]'s card vs CPU check: 2 utterances, seconds
+T_BEAM_CHECK = (4.0, 3.0)    # [t-beam]'s card vs CPU check: 2 utterances, seconds
 BEAM_REF_THREADS = 4         # CPU threads of the process that computes the beams' CPU sides
 BEAM_SCORE_TOL = 1e-4        # where two beams' tokens differ, their best scores must be this near
 # [lm-step-kernel]: Nk across the 64-key tile edges, past [t-host-beam]'s longest cache (~750)
@@ -503,7 +525,7 @@ LM_STEP_KEYS = (1, 2, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257, 511, 512, 5
 LM_STEP_TIME_KEYS = 100      # its timed shape: one query row against 100 cached keys
 LM_CACHE_TOKENS = 40         # [growing-cache]: tokens stepped on the growing cache
 LM_RNN_CONFIG = "configs/LM-RNN.json"
-T_HOST_BEAM_CHECK = (2.0, 1.5)  # [t-host-beam]'s card vs CPU check: 2 utterances, seconds
+T_HOST_BEAM_CHECK = (4.0, 3.0)  # [t-host-beam]'s card vs CPU check: 2 utterances, seconds
 T_HOST_BEAM_W = 4            # its beam
 T_HOST_BEAM_SECONDS = 4.0    # its main path: one utterance at the config's beam
 INTERCTC_TAPS = (4, 7)       # [interctc-step]: the strided block 4 and block 7 of stage 2
@@ -2018,12 +2040,13 @@ def phase_t_kernel(t_enc):
 def rnnt_inputs(b, t, u1, seed):
     """Gathered blank / emit log-probs (B, T, U+1) of about the size a
     1000-token vocabulary gives, and ragged lengths on the card: the first
-    utterance has f_len = T and y_len = U, the last y_len = 0."""
+    utterance has f_len = T and y_len = U, the last of two or more y_len =
+    0."""
     gen = torch.Generator().manual_seed(seed)
     lp = (torch.randn(b, t, u1, 3, generator=gen) * 2).log_softmax(-1) - math.log(333.0)
     f_len = torch.linspace(t, max(t // 3, 1), b).round().int()
     y_len = torch.linspace(0, u1 - 1, b).round().int().flip(0)
-    y_len[-1] = 0
+    y_len[-1] = 0 if b > 1 else u1 - 1
     return [x.cuda() for x in (lp[..., 0].contiguous(), lp[..., 1].contiguous(), f_len, y_len)]
 
 
@@ -2056,28 +2079,12 @@ def phase_rnnt_kernel(t_cfg):
     for i, (b, t, u1) in enumerate((shape, RNNT_WIDE)):
         blank, emit, f_len, y_len = rnnt_inputs(b, t, u1, SEED + 6 + i)
         alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
-        want_a, want_l = plain_rnnt_alphas(blank, emit, f_len, y_len)
         grads = RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
-        want_g = RL.reference_rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
-        torch.cuda.synchronize()
-        alpha_err = (alphas - want_a).abs().max().item()
-        alpha_rel = alpha_err / max(want_a.abs().max().item(), 1.0)
-        loss_rel = ((loss - want_l).abs() / want_l.abs()).max().item()
-        grad_err = max((g - w).abs().max().item() for g, w in zip(grads, want_g))
-        check(loss_rel <= RNNT_LOSS_RTOL and alpha_rel <= RNNT_LOSS_RTOL,
-              f"RNN-T forward {b}x{t}x{u1}: loss {loss_rel}, alphas {alpha_rel} > {RNNT_LOSS_RTOL}")
-        check(grad_err <= RNNT_GRAD_TOL, f"RNN-T backward {b}x{t}x{u1}: {grad_err}")
-        inside = ((torch.arange(t, device="cuda")[None, :, None] < f_len[:, None, None].long())
-                  & (torch.arange(u1, device="cuda")[None, None, :] <= y_len[:, None, None].long()))
-        check(all(bool((g[~inside] == 0).all()) for g in grads), "non-zero outside a lattice")
-        err_f = max(err_f, alpha_err, (loss - want_l).abs().max().item())
-        err_b = max(err_b, grad_err)
-        bitwise = (torch.equal(alphas, want_a) and torch.equal(loss, want_l)
-                   and all(torch.equal(g, w) for g, w in zip(grads, want_g)))
+        e_f, e_b, fields = rnnt_check(b, t, u1, blank, emit, f_len, y_len, alphas, loss, grads,
+                                      "rnnt-kernel")
+        err_f, err_b = max(err_f, e_f), max(err_b, e_b)
         say("rnnt-kernel", B=b, T=t, U1=u1, f_len=f"{int(f_len.min())}..{int(f_len.max())}",
-            y_len=f"{int(y_len.min())}..{int(y_len.max())}", loss_rel_err=f"{loss_rel:.3g}",
-            alpha_abs_err=f"{alpha_err:.3g}", alpha_rel_err=f"{alpha_rel:.3g}",
-            grad_abs_err=f"{grad_err:.3g}", bitwise_equal=bitwise)
+            y_len=f"{int(y_len.min())}..{int(y_len.max())}", **fields)
 
     blank, emit, f_len, y_len = rnnt_inputs(*shape, SEED + 6)
     alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
@@ -2092,7 +2099,7 @@ def phase_rnnt_kernel(t_cfg):
                "library": None}
         row["bound"], row["bound_by"] = bound(*rnnt_cost(blank, f_len, y_len, backward),
                                               peak=FP32_PEAK)
-        threads, ring, smem = RL.launch_geometry(shape[2])
+        threads, _, ring, smem = RL.launch_geometry(shape[2])
         say("rnnt-kernel-time", direction="backward" if backward else "forward",
             B=shape[0], T=shape[1], U1=shape[2], threads=threads, ring=ring, smem_bytes=smem,
             bound_by=row["bound_by"], kernel_ms=f"{row['kernel']:.4f}",
@@ -2102,6 +2109,231 @@ def phase_rnnt_kernel(t_cfg):
             us_per_diagonal=f"{1e3 * row['kernel'] / n_diags[backward]:.3f}")
         times.append(row)
     return err_f, times[0], err_b, times[1]
+
+
+def ptxas_rows(report: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} of the RNN-T
+    kernels from nvcc's -Xptxas -v report, by name and template argument
+    (rnnt_fwd_strip_kernel<2>, rnnt_grad_kernel<int64>)."""
+    rows, name, spill = {}, None, (0, 0)
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            k = re.search(r"(rnnt_[a-z_]+_kernel)(?:I(?:Li(\d+)E|([il]))E)?", entry.group(1))
+            arg = k and (k.group(2) or {"i": "int", "l": "int64", None: ""}[k.group(3)])
+            name = k and k.group(1) + (f"<{arg}>" if arg else "")
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if found:
+            spill = (int(found.group(1)), int(found.group(2)))
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name:
+            rows[name], name = (int(found.group(1)), *spill), None
+    return rows
+
+
+def rnnt_check(b, t, u1, blank, emit, f_len, y_len, alphas, loss, grads, phase):
+    """(forward error, backward error, line fields) of both RNN-T kernels'
+    outputs vs their plain versions on the same inputs (the backward on the
+    kernel's alphas and loss), the plain versions' ms on the host clock;
+    exact zeros outside each lattice checked."""
+    from efficientconformer_torch.ops import rnnt_loss as RL
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_a, want_l = plain_rnnt_alphas(blank, emit, f_len, y_len)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want_g = RL.reference_rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    alpha_err = (alphas - want_a).abs().max().item()
+    alpha_rel = alpha_err / max(want_a.abs().max().item(), 1.0)
+    loss_rel = ((loss - want_l).abs() / want_l.abs()).max().item()
+    grad_err = max((g - w).abs().max().item() for g, w in zip(grads, want_g))
+    check(loss_rel <= RNNT_LOSS_RTOL and alpha_rel <= RNNT_LOSS_RTOL,
+          f"[{phase}] {b}x{t}x{u1}: loss {loss_rel}, alphas {alpha_rel} > {RNNT_LOSS_RTOL}")
+    check(grad_err <= RNNT_GRAD_TOL, f"[{phase}] backward {b}x{t}x{u1}: {grad_err}")
+    inside = ((torch.arange(t, device="cuda")[None, :, None] < f_len[:, None, None].long())
+              & (torch.arange(u1, device="cuda")[None, None, :] <= y_len[:, None, None].long()))
+    check(all(bool((g[~inside] == 0).all()) for g in grads),
+          f"[{phase}] non-zero gradient outside a lattice")
+    bitwise = (torch.equal(alphas, want_a) and torch.equal(loss, want_l)
+               and all(torch.equal(g, w) for g, w in zip(grads, want_g)))
+    fields = {"loss_rel_err": f"{loss_rel:.3g}", "alpha_abs_err": f"{alpha_err:.3g}",
+              "alpha_rel_err": f"{alpha_rel:.3g}", "grad_abs_err": f"{grad_err:.3g}",
+              "bitwise_equal": bitwise, "plain_fwd_ms": f"{1e3 * (t1 - t0):.1f}",
+              "plain_bwd_ms": f"{1e3 * (t2 - t1):.1f}"}
+    return max(alpha_err, (loss - want_l).abs().max().item()), grad_err, fields
+
+
+def phase_rnnt_long_kernel(ptxas):
+    """Both RNN-T kernels on their strip routes vs their plain versions at
+    RNNT_LONG_SHAPES, each call on the route launch_geometry names (strip
+    launches counted); ptxas' registers and spills of the strip, read-back
+    and gradient kernels; both timed (device time from CUDA graphs of 5
+    calls) beside the plain versions (host clock, one call) and the bound,
+    and where the strip is held in registers, beside the same strips read
+    back (readback_ms, forward/backward; results equal bit for bit).
+    Returns (forward error, backward error, {shape: times})."""
+    from efficientconformer_torch.ops import rnnt_loss as RL
+
+    for name, (regs, stores, loads) in sorted(ptxas.items()):
+        say("rnnt-long-ptxas", kernel=name, registers=regs, spill_stores=stores,
+            spill_loads=loads)
+    err_f = err_b = 0.0
+    rows = {}
+    for i, (b, t, u1) in enumerate(RNNT_LONG_SHAPES):
+        blank, emit, f_len, y_len = rnnt_inputs(b, t, u1, SEED + 20 + i)
+        threads, strip, ring, smem = RL.launch_geometry(u1)
+        RL.rnnt_alphas.strip_launches = RL.rnnt_grads.strip_launches = 0
+        alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
+        grads = RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+        check(RL.rnnt_alphas.strip_launches == 1 and RL.rnnt_grads.strip_launches == 1,
+              f"[rnnt-long-kernel] U+1 {u1} missed the strip route")
+        e_f, e_b, fields = rnnt_check(b, t, u1, blank, emit, f_len, y_len, alphas, loss, grads,
+                                      "rnnt-long-kernel")
+        err_f, err_b = max(err_f, e_f), max(err_b, e_b)
+        row = {"fwd": graph_ms(lambda: RL.rnnt_alphas(blank, emit, f_len, y_len), 5, 3),
+               "bwd": graph_ms(lambda: RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss),
+                               5, 3),
+               "plain_fwd": float(fields["plain_fwd_ms"]),
+               "plain_bwd": float(fields["plain_bwd_ms"])}
+        for key, backward in (("fwd", False), ("bwd", True)):
+            row[f"{key}_bound"], row[f"{key}_bound_by"] = bound(
+                *rnnt_cost(blank, f_len, y_len, backward), peak=FP32_PEAK)
+        readback = "none"
+        if strip <= RL.STRIP_MAX:   # the same strips read back, no ring: what registers buy
+            with mock.patch.object(RL, "launch_geometry",
+                                   lambda n: (threads, strip, 0, 4 * RL.EDGE)):
+                rb = RL.rnnt_alphas(blank, emit, f_len, y_len)
+                rb_g = RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+                check(all(torch.equal(x, y) for x, y in zip((*rb, *rb_g), (alphas, loss, *grads))),
+                      f"[rnnt-long-kernel] U+1 {u1}: the read-back route differs")
+                row["readback_fwd"] = graph_ms(lambda: RL.rnnt_alphas(blank, emit, f_len, y_len),
+                                               5, 3)
+                row["readback_bwd"] = graph_ms(
+                    lambda: RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss), 5, 3)
+                readback = f"{row['readback_fwd']:.4f}/{row['readback_bwd']:.4f}"
+        n_diag = (t + u1 - 1, int((f_len + y_len).max()))
+        rows[(b, t, u1)] = row
+        say("rnnt-long-kernel", B=b, T=t, U1=u1, threads=threads, strip=strip, ring=ring,
+            smem_bytes=smem, route="strip" if strip <= RL.STRIP_MAX else "readback",
+            f_len=f"{int(f_len.min())}..{int(f_len.max())}",
+            y_len=f"{int(y_len.min())}..{int(y_len.max())}", **fields,
+            fwd_ms=f"{row['fwd']:.4f}", bwd_ms=f"{row['bwd']:.4f}",
+            readback_ms=readback, fwd_bound_ms=f"{row['fwd_bound']:.6f}",
+            bwd_bound_ms=f"{row['bwd_bound']:.6f}",
+            bound_by=f"{row['fwd_bound_by']}/{row['bwd_bound_by']}",
+            us_per_diagonal=f"{1e3 * row['fwd'] / n_diag[0]:.3f}/"
+                            f"{1e3 * row['bwd'] / n_diag[1]:.3f}")
+    return err_f, err_b, rows
+
+
+def phase_t_long_eval(card_line):
+    """Transducer Small's evaluation loss, Trainer.eval_loss as the CLI's
+    --eval_loss and the per-epoch validation loss call it, at full width in
+    the config's own mixed precision (bf16 model, the fp32 lattice), random
+    weights from SEED, on one T_LONG_SECONDS utterance carrying
+    T_LONG_LABELS labels: its encoder runs the limited-context attention the
+    config's max_pos_encoding gives past 200 s (the skewing path onto the
+    bias kernel), and the (1, 3,751, 1,101) lattice the strip route. One
+    warm-up call, then the counted and timed one: launches, ms, the
+    encoder's and the loss's share (synchronised around each), the kernel's
+    ms, peak memory. The loss vs the plain versions on the gathered
+    log-probs the path handed the lattice, and the backward on them.
+    Returns (the path's forward launches on the strip route, forward error,
+    backward error, {ms})."""
+    from efficientconformer_torch.ops import bias_attention as BA
+    from efficientconformer_torch.ops import rnnt_loss as RL
+    from efficientconformer_torch.training.trainer import Trainer
+
+    trainer = Trainer(T_CONFIG, device="cuda", seed=SEED)
+    perturb_norms_(trainer.model)
+    rng = np.random.default_rng(SEED + 30)
+    n = int(T_LONG_SECONDS * SAMPLE_RATE)
+    batch = {"audio": torch.from_numpy((rng.standard_normal((1, n)) * 0.1).astype(np.float32)),
+             "audio_len": torch.tensor([n]),
+             "labels": torch.from_numpy(rng.integers(1, 1000, (1, T_LONG_LABELS))),
+             "label_len": torch.tensor([T_LONG_LABELS])}
+    seen, ms = {}, {}
+    real = RL.rnnt_loss_from_gathered
+
+    def gathered(blank_lp, emit_lp, f_len, y_len):
+        seen.update(blank=blank_lp, emit=emit_lp, f_len=f_len.to(blank_lp.device, torch.int32),
+                    y_len=y_len.to(blank_lp.device, torch.int32))
+        return real(blank_lp, emit_lp, f_len, y_len)
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    encoder = trainer.model.encoder
+    with mock.patch.object(RL, "rnnt_loss_from_gathered", gathered), \
+            mock.patch.object(encoder, "forward", timed("encoder", encoder.forward)), \
+            mock.patch.object(trainer, "loss_fn", timed("loss", trainer.loss_fn)):
+        trainer.eval_loss(batch)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        RL.rnnt_alphas.strip_launches = RL.rnnt_grads.strip_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = trainer.eval_loss(batch)
+        torch.cuda.synchronize()
+        ms["eval"] = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        fwd, bwd, rel_fwd, rel_bwd = launch_counts()
+        strip = RL.rnnt_alphas.strip_launches
+        bias = BA.bias_attention.launches
+    blank, emit, f_len, y_len = (seen[k] for k in ("blank", "emit", "f_len", "y_len"))
+    b, t, u1 = blank.shape
+    check(bool(torch.isfinite(loss)), f"[t-long-eval] loss {float(loss)}")
+    check(u1 == T_LONG_LABELS + 1 and fwd == 1 and strip == 1 and bwd == 0,
+          f"[t-long-eval] lattice {tuple(blank.shape)}, RNN-T launches {fwd} / {bwd}, "
+          f"strip {strip}")
+    alphas, k_loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
+    grads = RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -k_loss)
+    check(torch.equal(k_loss.mean(), loss.float()),
+          f"[t-long-eval] the path's loss {float(loss)} is not the kernel's {float(k_loss)}")
+    e_f, e_b, fields = rnnt_check(b, t, u1, blank, emit, f_len, y_len, alphas, k_loss, grads,
+                                  "t-long-eval")
+    ms["kernel"] = graph_ms(lambda: RL.rnnt_alphas(blank, emit, f_len, y_len), 5, 3)
+    ms["kernel_bwd"] = graph_ms(lambda: RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -k_loss),
+                                5, 3)
+    bound_ms, bound_by = bound(*rnnt_cost(blank, f_len, y_len, False), peak=FP32_PEAK)
+    threads, strip_width, ring, smem = RL.launch_geometry(u1)
+    with mock.patch.object(RL, "launch_geometry",
+                           lambda n: (threads, strip_width, 0, 4 * RL.EDGE)):
+        rb = RL.rnnt_alphas(blank, emit, f_len, y_len)
+        rb_g = RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -k_loss)
+        check(all(torch.equal(x, y) for x, y in zip((*rb, *rb_g), (alphas, k_loss, *grads))),
+              "[t-long-eval] the read-back route differs")
+        ms["readback"] = graph_ms(lambda: RL.rnnt_alphas(blank, emit, f_len, y_len), 5, 3)
+        ms["readback_bwd"] = graph_ms(
+            lambda: RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -k_loss), 5, 3)
+    say("t-long-eval", config="EfficientConformerTransducerSmall", seconds=T_LONG_SECONDS,
+        B=b, T=t, U1=u1, threads=threads, strip=strip_width, ring=ring, smem_bytes=smem,
+        loss=f"{float(loss):.4f}", rnnt_fwd_launches=fwd, strip_launches=strip,
+        rnnt_bwd_launches=bwd, relpos_launches=f"{rel_fwd}/{rel_bwd}", bias_launches=bias,
+        **fields, eval_ms=f"{ms['eval']:.1f}", encoder_ms=f"{ms['encoder']:.1f}",
+        loss_ms=f"{ms['loss']:.1f}", kernel_ms=f"{ms['kernel']:.4f}",
+        kernel_bwd_ms=f"{ms['kernel_bwd']:.4f}",
+        readback_ms=f"{ms['readback']:.4f}/{ms['readback_bwd']:.4f}",
+        kernel_bound_ms=f"{bound_ms:.6f}", bound_by=bound_by,
+        us_per_diagonal=f"{1e3 * ms['kernel'] / (t + u1 - 1):.3f}",
+        encoder_share=f"{ms['encoder'] / ms['eval']:.3f}",
+        loss_share=f"{ms['loss'] / ms['eval']:.3f}",
+        kernel_share=f"{ms['kernel'] / ms['eval']:.4f}",
+        peak_mem_gib=f"{peak / 2**30:.2f}", card=f"'{card_line}'")
+    del trainer, seen, blank, emit, alphas, grads
+    torch.cuda.empty_cache()
+    return strip, e_f, e_b, ms
 
 
 def t_batch_labels(n, u_max, seed):
@@ -5823,7 +6055,10 @@ def main() -> int:
         reports = list(pool.map(_kernels.build, kernels))
     for name in kernels:
         _kernels.load(name)
-    say("build", kernels=",".join(kernels), seconds=f"{time.perf_counter() - t0:.2f}")
+    say("build", kernels=",".join(kernels), seconds=f"{time.perf_counter() - t0:.2f}",
+        rnnt_kernels="rnnt_fwd_kernel,rnnt_fwd_strip_kernel<2|4|8>,rnnt_fwd_readback_kernel,"
+                     "rnnt_bwd_kernel,rnnt_bwd_strip_kernel<2|4|8>,rnnt_bwd_readback_kernel,"
+                     "rnnt_grad_kernel<int|int64>")
     refs = BeamReferences()   # the beams' CPU sides, beside the card's phases
     for line in "\n".join(reports).splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -5853,10 +6088,12 @@ def main() -> int:
                 N=n, dh=dh, fwd_bytes=fwd_b,
                 bwd_bytes="/".join(map(str, bwd_b)) + (" (one pass)" if len(bwd_b) == 1 else ""))
 
-    for u1 in (91, 150, 1024):   # the Transducer's U+1, RNNT_WIDE's, and the most taken
-        threads, ring, smem = RL.launch_geometry(u1)
-        say("build-smem", kernels="rnnt_fwd,rnnt_bwd", U1=u1, threads=threads, ring=ring,
-            bytes=smem, limit=RL.SMEM_LIMIT)
+    # the Transducer's U+1, RNNT_WIDE's, the most one thread a position takes,
+    # [rnnt-long-kernel]'s and [t-long-eval]'s
+    for u1 in (91, 150, 1024, *sorted({u for _, _, u in RNNT_LONG_SHAPES} | {T_LONG_LABELS + 1})):
+        threads, strip, ring, smem = RL.launch_geometry(u1)
+        say("build-smem", kernels="rnnt_fwd,rnnt_bwd", U1=u1, threads=threads, strip=strip,
+            ring=ring, bytes=smem, limit=RL.SMEM_LIMIT)
 
     max_err, err16, times = phase_kernel(enc_params)
     max_err_bwd, err16_bwd, times_bwd = phase_kernel_bwd(enc_params)
@@ -5878,6 +6115,12 @@ def main() -> int:
     say("sp", seconds=f"{time.perf_counter() - t_sp:.2f}")
     (t_err, t_err16), (t_err_bwd, t_err16_bwd) = phase_t_kernel(t_cfg["encoder_params"])
     err_rnnt, times_rnnt, err_rnnt_bwd, times_rnnt_bwd = phase_rnnt_kernel(t_cfg)
+    t_long = time.perf_counter()
+    ptxas = ptxas_rows(reports[kernels.index(RL.KERNEL_FWD)]
+                       + reports[kernels.index(RL.KERNEL_BWD)])
+    err_long, err_long_bwd, long_rows = phase_rnnt_long_kernel(ptxas)
+    long_launches, err_long_eval, err_long_eval_bwd, long_eval_ms = phase_t_long_eval(card_line)
+    say("rnnt-long", seconds=f"{time.perf_counter() - t_long:.2f}")
     t_launches, t_tc = phase_t_requests()
     phase_t_slice()
     phase_t_rate(card_line)
@@ -5966,6 +6209,23 @@ def main() -> int:
                 **{f"wide_fp32_{k}_ms": t[k] for k in ("kernel", "bf16", "plain", "library",
                                                        "bound")},
                 "wide_fp32_bound_by": t["bound_by"]}
+    def long_route(i):
+        """The strip routes past 1,024 label positions: [t-long-eval]'s
+        launches on them (an evaluation runs no backward), the largest
+        errors of [rnnt-long-kernel] and [t-long-eval], and
+        [rnnt-long-kernel]'s ms, plain ms and bound at each shape, and
+        the read-back route's ms where the strip is held in registers."""
+        key = ("fwd", "bwd")[i]
+        errs = ((err_long, err_long_eval), (err_long_bwd, err_long_eval_bwd))[i]
+        return {"long_eval_strip_launches": long_launches if i == 0 else 0,
+                "long_max_abs_err": max(errs),
+                "long_eval_kernel_ms": long_eval_ms["kernel"] if i == 0 else None,
+                "long_ms": {"x".join(map(str, k)): {"ms": r[key], "plain_ms": r[f"plain_{key}"],
+                                                   "bound_ms": r[f"{key}_bound"],
+                                                   "bound_by": r[f"{key}_bound_by"],
+                                                   "readback_ms": r.get(f"readback_{key}")}
+                            for k, r in long_rows.items()}}
+
     if opts.profile:
         phase_profile()
 
@@ -6021,10 +6281,10 @@ def main() -> int:
                     "relpos_bwd_{k,da,dq,dw}_kernel"]),
         entry(RL.KERNEL_FWD, "efficientconformer_torch/csrc/rnnt_fwd.cu",
               "efficientconformer_tpu/ops/pallas_rnnt.py:73", rnnt_fwd, err_rnnt, times_rnnt,
-              wide_fp32_launches=wide32_launches[2]),
+              wide_fp32_launches=wide32_launches[2], **long_route(0)),
         entry(RL.KERNEL_BWD, "efficientconformer_torch/csrc/rnnt_bwd.cu",
               "efficientconformer_tpu/ops/pallas_rnnt.py:96", rnnt_bwd, err_rnnt_bwd,
-              times_rnnt_bwd, wide_fp32_launches=wide32_launches[3]),
+              times_rnnt_bwd, wide_fp32_launches=wide32_launches[3], **long_route(1)),
         entry(BA.KERNEL, "efficientconformer_torch/csrc/bias_attention_fwd.cu",
               "efficientconformer_tpu/ops/pallas_attention.py:55", lm_fwd,
               max(err_bias, err_stream, err_stream_exact, step_err, err_wide, err_medium),

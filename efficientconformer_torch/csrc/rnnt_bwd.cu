@@ -50,11 +50,20 @@
 //    before the barrier, and stores it after.
 //  - rnnt_grad_kernel then writes both gradients of every cell, one thread
 //    each across the whole card, exact zeros outside the lattice included,
-//    with the same expressions in the same order.
+//    with the same expressions in the same order (its index is 64-bit where
+//    T x U+1 passes 2^31 cells).
+//
+// Past MAX_THREADS label positions the betas take the forward's two other
+// routes (rnnt_fwd.cu's head comment), mirrored: in rnnt_bwd_strip_kernel<K>
+// a thread's cell j reads beta[t+1, u] from its own cell j and beta[t, u+1]
+// from its own cell j + 1; only the strip's last cell needs the thread
+// above (__shfl_down_sync and the edge slots); rnnt_bwd_readback_kernel
+// reads both back from the betas scratch it writes. The gradient kernel is
+// the same for every route.
 //
 // Inputs: blank, emit, alphas (B, T, U1) fp32 contiguous; f_len, y_len (B,)
 // int32; ll (B,) fp32; the launch geometry of rnnt_loss.launch_geometry
-// (threads, RING, shared bytes). Outputs: g_blank, g_emit (B, T, U1) fp32;
+// (threads, strip, ring, shared bytes). Outputs: g_blank, g_emit (B, T, U1) fp32;
 // betas (B, T, U1) fp32 is the caller's scratch, written inside each
 // lattice only. The kernels allocate nothing and do not synchronise.
 
@@ -139,8 +148,11 @@ __global__ void __launch_bounds__(MAX_THREADS)
 }
 
 // the gradients of every cell (b, t, u), one thread each, from the betas of
-// rnnt_bwd_kernel: exact zeros outside the lattice, beta = LOG_EPS past its
-// edge, beta[t+1, u] := 0 at the terminal cell
+// the beta kernel: exact zeros outside the lattice, beta = LOG_EPS past its
+// edge, beta[t+1, u] := 0 at the terminal cell. Index is int where T x U+1
+// fits in it (every lattice up to U+1 1024 the kernels took before the
+// strips) and int64_t past it.
+template <typename Index>
 __global__ void __launch_bounds__(GRAD_THREADS)
     rnnt_grad_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
                      const float* __restrict__ alphas, const float* __restrict__ betas,
@@ -148,9 +160,9 @@ __global__ void __launch_bounds__(GRAD_THREADS)
                      const float* __restrict__ ll, float* __restrict__ g_blank,
                      float* __restrict__ g_emit, int t_max, int u1) {
   const int b = blockIdx.y;
-  const int i = blockIdx.x * GRAD_THREADS + threadIdx.x;
-  if (i >= t_max * u1) return;
-  const int t = i / u1, u = i - t * u1;
+  const Index i = static_cast<Index>(blockIdx.x) * GRAD_THREADS + threadIdx.x;
+  if (i >= static_cast<Index>(t_max) * u1) return;
+  const int t = static_cast<int>(i / u1), u = static_cast<int>(i - static_cast<Index>(t) * u1);
   const int f = f_len[b], y = y_len[b];
   const int64_t at = static_cast<int64_t>(b) * t_max * u1 + i;
   float g_b = 0.f, g_e = 0.f;
@@ -165,33 +177,198 @@ __global__ void __launch_bounds__(GRAD_THREADS)
   g_emit[at] = g_e;
 }
 
-}  // namespace
+// U+1 past MAX_THREADS: a strip of K positions a thread in registers, the
+// operands staged in a ring of `ring` diagonals (1 <= ring <= RING)
+template <int K>
+__global__ void __launch_bounds__(MAX_THREADS)
+    rnnt_bwd_strip_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
+                          const int* __restrict__ f_len, const int* __restrict__ y_len,
+                          float* __restrict__ betas, int t_max, int u1, int ring) {
+  extern __shared__ float smem[];   // edge (EDGE) | ring (ring x (blank, emit) x K x threads)
+  const int nt = blockDim.x, i = threadIdx.x, lane = i & 31, warp = i >> 5;
+  const int u0 = i * K;
+  const int b = blockIdx.x;
+  const int64_t base = static_cast<int64_t>(b) * t_max * u1;
+  const float* bl = blank + base;
+  const float* em = emit + base;
+  float* be = betas + base;
+  const int f = f_len[b], y = y_len[b];
+  const uint32_t edge = smem_addr(smem);   // warp w's first beta of diagonal d at (d & 1) * 32 + w
+  const uint32_t mine_slot = edge + 4 * (EDGE + i);
+  // operand o (0 blank, 1 emit) of cell j on diagonal d >= -ring
+  auto slot = [&](int d, int o, int j) {
+    return mine_slot + 4 * nt * (((d + ring) % ring) * OPERANDS * K + o * K + j);
+  };
+  const int64_t step = u1 - 1;   // cell j's offset is cell 0's less j * step
 
-extern "C" {
+  // copy blank and emit of the strip's cells on diagonal d inside the
+  // utterance's lattice (as rnnt_bwd_kernel's stage), then close the group
+  const int d_final = f - 1 + y;
+  int64_t at = static_cast<int64_t>(d_final - u0) * u1 + u0;   // cell 0 on diagonal d_final
+  auto stage = [&](int d) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int u = u0 + j;
+      const bool cell =
+          u <= y && d >= 0 && static_cast<unsigned>(d - u) < static_cast<unsigned>(f);
+      cp_async4_if(slot(d, 0, j), bl + at - j * step, cell);
+      cp_async4_if(slot(d, 1, j), em + at - j * step, cell);
+    }
+    cp_async_commit();
+    at -= u1;
+  };
 
-// Returns a cudaError_t. threads, ring and smem are the launch geometry:
-// threads a multiple of 32 that covers u1, ring equal to RING, smem at least
-// what they need. Launches two kernels: the betas, then the gradients.
-int ecf_rnnt_bwd(const float* blank, const float* emit, const float* alphas, const int* f_len,
-                 const int* y_len, const float* ll, float* g_blank, float* g_emit, float* betas,
-                 int batch, int t_max, int u1, int threads, int ring, int smem, void* stream) {
-  if (batch <= 0 || batch > 65535 || t_max <= 0 ||
-      !geometry_ok(u1, threads, ring, smem, OPERANDS)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  for (int k = 0; k < ring; ++k) stage(d_final - k);
+  if (i < EDGE) smem[i] = LOG_EPS;
+  float own[K];   // beta[t+1, u]: the strip's betas on the last diagonal
+#pragma unroll
+  for (int j = 0; j < K; ++j) own[j] = LOG_EPS;
+  cp_async_wait_dyn(ring - 1);
+  float sb[K], se[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    sb[j] = ld_shared(slot(d_final, 0, j));
+    se[j] = ld_shared(slot(d_final, 1, j));
+  }
+  float right = LOG_EPS;   // beta[t, u0+K]
+  int64_t row = static_cast<int64_t>(d_final - u0) * u1 + u0;   // cell 0 on diagonal d
+  __syncthreads();
+  for (int d = d_final; d >= 0; --d) {
+    if (lane == 31) {
+      right = warp + 1 < nt / 32 ? ld_shared(edge + 4 * (((d + 1) & 1) * 32 + warp + 1))
+                                 : LOG_EPS;
+    }
+    float next[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int u = u0 + j, t = d - u;
+      const bool cell = u <= y && static_cast<unsigned>(t) < static_cast<unsigned>(f);
+      const float up = j == K - 1 ? right : own[j + 1];
+      const float beta = t == f - 1 && u == y ? sb[j] : logaddexp(sb[j] + own[j], se[j] + up);
+      next[j] = cell ? beta : LOG_EPS;
+    }
+    if (lane == 0) st_shared(edge + 4 * ((d & 1) * 32 + warp), next[0]);
+    right = __shfl_down_sync(0xffffffffu, next[0], 1);
+#pragma unroll
+    for (int j = 0; j < K; ++j) own[j] = next[j];
+    stage(d - ring);   // into the slots of diagonal d, read already
+    cp_async_wait_dyn(ring - 1);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      sb[j] = ld_shared(slot(d - 1, 0, j));
+      se[j] = ld_shared(slot(d - 1, 1, j));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < K; ++j) {   // after the barrier, off the chain
+      const int u = u0 + j;
+      if (u <= y && static_cast<unsigned>(d - u) < static_cast<unsigned>(f)) {
+        be[row - j * step] = own[j];
+      }
+    }
+    row -= u1;
+  }
+  cp_async_wait<0>();
+}
+
+// no ring: a strip of `strip` positions a thread, beta[t+1, u] and
+// beta[t, u+1] read back from the betas written (not restrict: the kernel
+// reads what it writes), the operands from global memory
+__global__ void __launch_bounds__(MAX_THREADS)
+    rnnt_bwd_readback_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
+                             const int* __restrict__ f_len, const int* __restrict__ y_len,
+                             float* betas, int t_max, int u1, int strip) {
+  const int b = blockIdx.x;
+  const int f = f_len[b], y = y_len[b];
+  const int u0 = threadIdx.x * strip, u_end = min(u0 + strip, y + 1);
+  const int64_t base = static_cast<int64_t>(b) * t_max * u1;
+  const float* bl = blank + base;
+  const float* em = emit + base;
+  float* be = betas + base;
+  for (int d = f - 1 + y; d >= 0; --d) {
+    for (int u = u0; u < u_end; ++u) {
+      const int t = d - u;
+      if (static_cast<unsigned>(t) >= static_cast<unsigned>(f)) continue;
+      const int64_t c = static_cast<int64_t>(t) * u1 + u;
+      const float below = t + 1 < f ? be[c + u1] : LOG_EPS;   // beta[t+1, u]
+      const float up = u < y ? be[c + 1] : LOG_EPS;           // beta[t, u+1]
+      be[c] = t == f - 1 && u == y ? bl[c] : logaddexp(bl[c] + below, em[c] + up);
+    }
+    __syncthreads();   // the diagonal's betas, visible to the block
+  }
+}
+
+template <int K>
+cudaError_t launch_strip(const float* blank, const float* emit, const int* f_len,
+                         const int* y_len, float* betas, int batch, int t_max, int u1,
+                         int threads, int ring, int smem, cudaStream_t stream) {
+  const auto kernel = rnnt_bwd_strip_kernel<K>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<batch, threads, smem, stream>>>(blank, emit, f_len, y_len, betas, t_max, u1, ring);
+  return cudaGetLastError();
+}
+
+// the betas by the route of the geometry
+cudaError_t launch_betas(const float* blank, const float* emit, const int* f_len,
+                         const int* y_len, float* betas, int batch, int t_max, int u1,
+                         int threads, int strip, int ring, int smem, cudaStream_t s) {
+  if (ring == 0) {
+    rnnt_bwd_readback_kernel<<<batch, threads, 0, s>>>(blank, emit, f_len, y_len, betas, t_max,
+                                                       u1, strip);
+    return cudaGetLastError();
+  }
+  switch (strip) {
+    case 2: return launch_strip<2>(blank, emit, f_len, y_len, betas, batch, t_max, u1, threads,
+                                   ring, smem, s);
+    case 4: return launch_strip<4>(blank, emit, f_len, y_len, betas, batch, t_max, u1, threads,
+                                   ring, smem, s);
+    case 8: return launch_strip<8>(blank, emit, f_len, y_len, betas, batch, t_max, u1, threads,
+                                   ring, smem, s);
   }
   const auto kernel = rnnt_bwd_kernel;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<batch, threads, smem, s>>>(blank, emit, f_len, y_len, betas, t_max, u1);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns a cudaError_t. threads, strip, ring and smem are the launch
+// geometry (rnnt_wavefront.cuh, geometry_ok). Launches two kernels: the
+// betas by the geometry's route, then the gradients.
+int ecf_rnnt_bwd(const float* blank, const float* emit, const float* alphas, const int* f_len,
+                 const int* y_len, const float* ll, float* g_blank, float* g_emit, float* betas,
+                 int batch, int t_max, int u1, int threads, int strip, int ring, int smem,
+                 void* stream) {
+  const int64_t cells = static_cast<int64_t>(t_max) * u1;
+  const int64_t blocks = (cells + GRAD_THREADS - 1) / GRAD_THREADS;
+  if (batch <= 0 || batch > 65535 || t_max <= 0 || blocks > INT32_MAX ||
+      !geometry_ok(u1, threads, strip, ring, smem, OPERANDS)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  kernel<<<batch, threads, smem, s>>>(blank, emit, f_len, y_len, betas, t_max, u1);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_betas(blank, emit, f_len, y_len, betas, batch, t_max, u1, threads,
+                                 strip, ring, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((t_max * u1 + GRAD_THREADS - 1) / GRAD_THREADS, batch);
-  rnnt_grad_kernel<<<grid, GRAD_THREADS, 0, s>>>(blank, emit, alphas, betas, f_len, y_len, ll,
-                                                 g_blank, g_emit, t_max, u1);
+  const dim3 grid(static_cast<unsigned>(blocks), batch);
+  if (cells + GRAD_THREADS <= INT32_MAX) {
+    rnnt_grad_kernel<int><<<grid, GRAD_THREADS, 0, s>>>(blank, emit, alphas, betas, f_len, y_len,
+                                                        ll, g_blank, g_emit, t_max, u1);
+  } else {
+    rnnt_grad_kernel<int64_t><<<grid, GRAD_THREADS, 0, s>>>(blank, emit, alphas, betas, f_len,
+                                                            y_len, ll, g_blank, g_emit, t_max,
+                                                            u1);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,6 +31,11 @@ Both versions run the same arithmetic in the same order: cells are visited
 one anti-diagonal d = t + u at a time, and logaddexp(a, b) is
 max(a, b) + log1p(exp(-|a - b|)).
 
+The kernels take any U+1 (``launch_geometry``): up to MAX_THREADS label
+positions one thread each, past them a strip of STRIPS positions a thread
+in registers, and past STRIP_MAX x MAX_THREADS a wider strip whose last
+diagonal is read back from the kernel's output (csrc/rnnt_wavefront.cuh).
+
 Labels inside y_len must lie in [1, V): the JAX loss would read an
 out-of-range label as a clipped gather, the port refuses it (on the host
 for CPU labels, with a device-side assert for labels on the card).
@@ -48,9 +53,13 @@ from efficientconformer_torch.ops import _kernels
 LOG_EPS = -1e30
 KERNEL_FWD = "rnnt_fwd"
 KERNEL_BWD = "rnnt_bwd"
-MAX_U1 = 1024   # one thread per label position, at most 1024 threads a block
-RING = 8        # diagonals staged ahead of the chain, as the kernels' RING (rnnt_wavefront.cuh)
-SMEM_LIMIT = 232448   # shared memory a block may use on the H100 (227 KB), as the kernels check
+# the kernels' compile-time constants (csrc/rnnt_wavefront.cuh)
+MAX_THREADS = 1024   # threads a block: one per label position up to this U+1
+RING = 8             # diagonals staged ahead of the chain (the most, past MAX_THREADS)
+SMEM_LIMIT = 232448  # shared memory a block may use on the H100 (227 KB), as the kernels check
+EDGE = 64            # fp32 slots that carry a value a diagonal across each warp boundary
+STRIPS = (2, 4, 8)   # label positions a thread holds in registers past MAX_THREADS
+STRIP_MAX = STRIPS[-1]
 
 
 def _logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -58,33 +67,38 @@ def _logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return m + torch.log1p(torch.exp(-(a - b).abs()))
 
 
-def _diagonal(d: int, t_max: int, u1: int, device):
-    """(t, u, valid) of the cells t + u = d of a (t_max, u1) lattice."""
-    u = torch.arange(u1, device=device)
-    t = d - u
-    return t, u, (t >= 0) & (t < t_max)
+def _diagonal(x: torch.Tensor, d: int, lo: int, hi: int, shift: int = 0) -> torch.Tensor:
+    """The cells (d - u, u), u = hi down to lo, of a contiguous (B, T', U')
+    tensor as a strided view (B, hi - lo + 1), each moved ``shift`` elements
+    along its row-major storage: -U' is the cell above, -1 the one to the
+    left. No gather and no mask read back from the device."""
+    b, t_, u_ = x.shape
+    return x.as_strided((b, hi - lo + 1), (t_ * u_, u_ - 1),
+                        x.storage_offset() + (d - hi) * u_ + hi + shift)
 
 
 def reference_rnnt_alphas(blank_lp: torch.Tensor, emit_lp: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the forward: the alphas (B, T, U+1) fp32 of
     the whole lattice, one anti-diagonal at a time."""
-    blank_lp, emit_lp = blank_lp.float(), emit_lp.float()
+    blank_lp, emit_lp = blank_lp.float().contiguous(), emit_lp.float().contiguous()
     b, t_max, u1 = blank_lp.shape
     dev = blank_lp.device
     alphas = torch.empty((b, t_max, u1), dtype=torch.float32, device=dev)
     alphas[:, 0, 0] = 0.0
-    neg = torch.full((b, 1), LOG_EPS, device=dev)
     for d in range(1, t_max + u1 - 1):
-        t, u, valid = _diagonal(d, t_max, u1, dev)
-        tc, uc = t[valid], u[valid]
+        lo, hi = max(0, d - t_max + 1), min(d, u1 - 1)   # the diagonal's cells, u = hi .. lo
         # stay: from (t-1, u); move: from (t, u-1); LOG_EPS off the lattice
-        stay_ok = tc >= 1
-        stay = torch.where(stay_ok, alphas[:, (tc - 1).clamp(min=0), uc]
-                           + blank_lp[:, (tc - 1).clamp(min=0), uc], neg)
-        move_ok = uc >= 1
-        move = torch.where(move_ok, alphas[:, tc, (uc - 1).clamp(min=0)]
-                           + emit_lp[:, tc, (uc - 1).clamp(min=0)], neg)
-        alphas[:, tc, uc] = _logaddexp(stay, move)
+        # (at the diagonal's cell t = 0, first, and u = 0, last)
+        stay = torch.full((b, hi - lo + 1), LOG_EPS, device=dev)
+        move = torch.full_like(stay, LOG_EPS)
+        first = int(hi == d)
+        if hi - first >= lo:
+            stay[:, first:] = (_diagonal(alphas, d, lo, hi - first, -u1)
+                               + _diagonal(blank_lp, d, lo, hi - first, -u1))
+        if hi >= max(lo, 1):
+            move[:, :hi - max(lo, 1) + 1] = (_diagonal(alphas, d, max(lo, 1), hi, -1)
+                                             + _diagonal(emit_lp, d, max(lo, 1), hi, -1))
+        _diagonal(alphas, d, lo, hi).copy_(_logaddexp(stay, move))
     return alphas
 
 
@@ -99,33 +113,39 @@ def reference_rnnt_grads(blank_lp, emit_lp, alphas, f_len, y_len, ll):
     """Plain PyTorch version of the backward: (d ll / d blank, d ll / d emit),
     each (B, T, U+1) fp32, the arithmetic of the TPU kernel's _bwd_kernel
     written out per cell: beta from each utterance's terminal cell down,
-    beta[t+1, u] := 0 at that cell, LOG_EPS off the utterance's lattice,
-    and exact zeros there in both gradients."""
-    blank_lp, emit_lp = blank_lp.float(), emit_lp.float()
+    one anti-diagonal at a time, LOG_EPS off the utterance's lattice; then
+    both gradients of every cell, beta[t+1, u] := 0 at the terminal cell,
+    and exact zeros off the lattice."""
+    blank_lp, emit_lp = blank_lp.float().contiguous(), emit_lp.float().contiguous()
+    alphas = alphas.float()
     b, t_max, u1 = blank_lp.shape
     dev = blank_lp.device
     f_len = f_len.to(dev).long()[:, None]
     y_len = y_len.to(dev).long()[:, None]
-    ll = ll.to(dev).float()[:, None]
-    g_blank = torch.empty((b, t_max, u1), dtype=torch.float32, device=dev)
-    g_emit = torch.empty_like(g_blank)
-    beta_next = torch.full((b, u1), LOG_EPS, device=dev)   # diagonal d + 1, by u
-    eps_col = torch.full((b, 1), LOG_EPS, device=dev)
+    ll = ll.to(dev).float()[:, None, None]
+    # the betas, with a row below and a column right of LOG_EPS: beta[t+1, u]
+    # and beta[t, u+1] of every cell lie inside it
+    betas = torch.full((b, t_max + 1, u1 + 1), LOG_EPS, device=dev)
+    u_down = torch.arange(u1 - 1, -1, -1, device=dev)     # u of a diagonal's cells, from hi
     zero = torch.zeros((), device=dev)
     for d in range(t_max + u1 - 2, -1, -1):
-        t, u, valid = _diagonal(d, t_max, u1, dev)
-        tc = t.clamp(0, t_max - 1)
-        inside = valid[None] & (t[None] < f_len) & (u[None] <= y_len)
+        lo, hi = max(0, d - t_max + 1), min(d, u1 - 1)
+        u = u_down[u1 - 1 - hi:u1 - lo]
+        t = d - u
+        inside = (t[None] < f_len) & (u[None] <= y_len)
         final = (t[None] == f_len - 1) & (u[None] == y_len)
-        a, bl, em = alphas[:, tc, u], blank_lp[:, tc, u], emit_lp[:, tc, u]
-        beta_up = torch.cat([beta_next[:, 1:], eps_col], dim=1)        # beta[t, u+1]
-        bn = torch.where(final, zero, beta_next)                       # beta[t+1, u]
-        gb = torch.where(inside, torch.exp(a + bl + bn - ll), zero)
-        ge = torch.where(inside, torch.exp(a + em + beta_up - ll), zero)
-        beta = torch.where(final, bl, _logaddexp(bl + beta_next, em + beta_up))
-        beta_next = torch.where(inside, beta, LOG_EPS)
-        g_blank[:, t[valid], u[valid]] = gb[:, valid]
-        g_emit[:, t[valid], u[valid]] = ge[:, valid]
+        bl, em = _diagonal(blank_lp, d, lo, hi), _diagonal(emit_lp, d, lo, hi)
+        below = _diagonal(betas, d, lo, hi, u1 + 1)            # beta[t+1, u]
+        right = _diagonal(betas, d, lo, hi, 1)                 # beta[t, u+1]
+        beta = torch.where(final, bl, _logaddexp(bl + below, em + right))
+        _diagonal(betas, d, lo, hi).copy_(torch.where(inside, beta, LOG_EPS))
+    t = torch.arange(t_max, device=dev)[None, :, None]
+    u = torch.arange(u1, device=dev)[None, None, :]
+    inside = (t < f_len[:, :, None]) & (u <= y_len[:, :, None])
+    final = (t == f_len[:, :, None] - 1) & (u == y_len[:, :, None])
+    below = torch.where(final, zero, betas[:, 1:, :u1])
+    g_blank = torch.where(inside, torch.exp(alphas + blank_lp + below - ll), zero)
+    g_emit = torch.where(inside, torch.exp(alphas + emit_lp + betas[:, :t_max, 1:] - ll), zero)
     return g_blank, g_emit
 
 
@@ -145,34 +165,40 @@ def _check_lengths(f_len, y_len, b, t_max, u1):
 def rnnt_alphas(blank_lp, emit_lp, f_len, y_len):
     """(alphas (B, T, U+1), per-utterance loss (B,)), both fp32: the plain
     version for CPU tensors, the kernel for CUDA tensors (counted in
-    ``rnnt_alphas.launches``)."""
+    ``rnnt_alphas.launches``, and those with a strip of label positions a
+    thread also in ``rnnt_alphas.strip_launches``)."""
     if blank_lp.device.type == "cpu":
         alphas = reference_rnnt_alphas(blank_lp, emit_lp)
         return alphas, loss_from_alphas(alphas, blank_lp, f_len, y_len)
     if blank_lp.device.type != "cuda":
         raise ValueError(f"rnnt_alphas: no kernel for device {blank_lp.device}")
-    out = _launch_fwd(blank_lp, emit_lp, f_len, y_len)
+    alphas, loss, strip = _launch_fwd(blank_lp, emit_lp, f_len, y_len)
     rnnt_alphas.launches += 1
-    return out
+    rnnt_alphas.strip_launches += int(strip > 1)
+    return alphas, loss
 
 
 rnnt_alphas.launches = 0  # forward kernel launches since the caller last reset it
+rnnt_alphas.strip_launches = 0   # of them, past one thread a label position
 
 
 def rnnt_grads(blank_lp, emit_lp, alphas, f_len, y_len, ll):
     """(d ll / d blank, d ll / d emit): the plain version for CPU tensors, the
     two kernels for CUDA tensors, the betas then the gradients (each counted
-    in ``rnnt_grads.launches``)."""
+    in ``rnnt_grads.launches``; the betas with a strip of label positions a
+    thread also in ``rnnt_grads.strip_launches``)."""
     if blank_lp.device.type == "cpu":
         return reference_rnnt_grads(blank_lp, emit_lp, alphas, f_len, y_len, ll)
     if blank_lp.device.type != "cuda":
         raise ValueError(f"rnnt_grads: no kernel for device {blank_lp.device}")
-    out = _launch_bwd(blank_lp, emit_lp, alphas, f_len, y_len, ll)
+    g_blank, g_emit, strip = _launch_bwd(blank_lp, emit_lp, alphas, f_len, y_len, ll)
     rnnt_grads.launches += 2
-    return out
+    rnnt_grads.strip_launches += int(strip > 1)
+    return g_blank, g_emit
 
 
 rnnt_grads.launches = 0  # backward kernel launches (two a call) since the caller last reset it
+rnnt_grads.strip_launches = 0   # of them, the betas past one thread a label position
 
 
 class _RNNTLoss(torch.autograd.Function):
@@ -235,22 +261,37 @@ def rnnt_loss(logits: torch.Tensor, labels: torch.Tensor, f_len: torch.Tensor,
 # ---------------------------------------------------------------- launch
 
 
-def launch_geometry(u1: int) -> tuple[int, int, int]:
-    """(threads, ring, shared bytes) of one block of either kernel at
-    U+1 = u1: one thread per label position, rounded up to whole warps; a
-    ring of RING diagonals of the two staged operands (blank and emit), one
-    fp32 slot per thread each; and 2 x 32 slots that carry a value a
-    diagonal across each warp boundary."""
-    if not 1 <= u1 <= MAX_U1:
-        raise ValueError(f"rnnt: U+1 = {u1} outside [1, {MAX_U1}] label positions")
-    threads = -(-u1 // 32) * 32
-    return threads, RING, 4 * (2 * 32 + RING * 2 * threads)
+def launch_geometry(u1: int) -> tuple[int, int, int, int]:
+    """(threads, strip, ring, shared bytes) of one block of either kernel at
+    U+1 = u1, as the C entry points check it (rnnt_wavefront.cuh).
+
+    Each thread owns ``strip`` consecutive label positions, the fewest that
+    let at most MAX_THREADS threads cover u1: 1 up to MAX_THREADS, then 2, 4
+    or 8 (held in registers), then any wider strip. Threads are whole
+    warps, as few as cover u1 at that strip. The ring stages RING diagonals
+    of the two operands (blank and emit), one fp32 slot per position each;
+    past MAX_THREADS it is as deep as SMEM_LIMIT allows (RING down to 1),
+    and the strips wider than STRIP_MAX have none: their kernels read the
+    last diagonal back from their output. Shared memory holds the ring and
+    EDGE slots (csrc/rnnt_wavefront.cuh: smem_bytes)."""
+    if u1 < 1:
+        raise ValueError(f"rnnt: U+1 = {u1}: a lattice needs at least 1 label position")
+    strip = next((k for k in (1, *STRIPS) if k * MAX_THREADS >= u1), -(-u1 // MAX_THREADS))
+    strips = -(-u1 // strip)
+    threads = -(-strips // 32) * 32
+    if strip == 1:
+        ring = RING
+    elif strip <= STRIP_MAX:
+        ring = min(RING, (SMEM_LIMIT - 4 * EDGE) // (4 * 2 * strip * threads))
+    else:
+        ring = 0
+    return threads, strip, ring, 4 * (EDGE + ring * 2 * strip * threads)
 
 
 def _bind(lib: ctypes.CDLL, name: str, n_ptr: int):
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.ecf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ecf_cuda_error_string.restype = ctypes.c_char_p
@@ -261,8 +302,6 @@ def _checked(name, blank_lp, emit_lp, *others):
     b, t_max, u1 = blank_lp.shape
     if emit_lp.shape != blank_lp.shape:
         raise ValueError(f"{name}: emit {tuple(emit_lp.shape)} != blank {tuple(blank_lp.shape)}")
-    if u1 > MAX_U1:
-        raise ValueError(f"{name}: U+1 = {u1} > {MAX_U1} label positions")
     if any(t.device != blank_lp.device for t in (emit_lp, *others)):
         raise ValueError(f"{name}: tensors lie on different devices")
     return b, t_max, u1
@@ -282,12 +321,13 @@ def _launch_fwd(blank_lp, emit_lp, f_len, y_len):
     fn = _bind(lib, "ecf_rnnt_fwd", 6)
     alphas = torch.empty((b, t_max, u1), dtype=torch.float32, device=blank_lp.device)
     loss = torch.empty((b,), dtype=torch.float32, device=blank_lp.device)
+    geometry = launch_geometry(u1)
     with torch.cuda.device(blank_lp.device):
         stream = torch.cuda.current_stream(blank_lp.device).cuda_stream
         err = fn(blank_lp.data_ptr(), emit_lp.data_ptr(), f_len.data_ptr(), y_len.data_ptr(),
-                 alphas.data_ptr(), loss.data_ptr(), b, t_max, u1, *launch_geometry(u1), stream)
+                 alphas.data_ptr(), loss.data_ptr(), b, t_max, u1, *geometry, stream)
     _raise_on(err, lib, KERNEL_FWD)
-    return alphas, loss
+    return alphas, loss, geometry[1]
 
 
 def _launch_bwd(blank_lp, emit_lp, alphas, f_len, y_len, ll):
@@ -302,10 +342,11 @@ def _launch_bwd(blank_lp, emit_lp, alphas, f_len, y_len, ll):
     g_blank = torch.empty((b, t_max, u1), dtype=torch.float32, device=blank_lp.device)
     g_emit = torch.empty_like(g_blank)
     betas = torch.empty_like(g_blank)   # scratch: the kernel's betas inside each lattice
+    geometry = launch_geometry(u1)
     with torch.cuda.device(blank_lp.device):
         stream = torch.cuda.current_stream(blank_lp.device).cuda_stream
         err = fn(blank_lp.data_ptr(), emit_lp.data_ptr(), alphas.data_ptr(), f_len.data_ptr(),
                  y_len.data_ptr(), ll.data_ptr(), g_blank.data_ptr(), g_emit.data_ptr(),
-                 betas.data_ptr(), b, t_max, u1, *launch_geometry(u1), stream)
+                 betas.data_ptr(), b, t_max, u1, *geometry, stream)
     _raise_on(err, lib, KERNEL_BWD)
-    return g_blank, g_emit
+    return g_blank, g_emit, geometry[1]

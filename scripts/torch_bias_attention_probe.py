@@ -21,7 +21,8 @@ instead, with the rel-pos kernels' profile rows; with ``--rnnt`` the RNN-T
 lattice kernels' training step first (t-train-rate), then their phase
 (rnnt-kernel) and both kernels' device time from a CUDA graph
 (``[rnnt-ab]``, the same measure in both checkouts) at the Transducer's
-training shape and at the widest lattice the kernels take (U+1 1024). Make the parent's checkout with
+training shape and at U+1 1024, the widest lattice of one thread a label
+position. Make the parent's checkout with
 ``git archive <commit> | tar -x -C build/parent``.
 
 Imports nothing of JAX; exits non-zero without a GPU.
@@ -89,7 +90,7 @@ cfg = load_config(C.T_CONFIG)
 C.phase_rnnt_kernel(cfg)
 tp = cfg["training_params"]
 t = encoder_output_frames(cfg["encoder_params"], tp["train_audio_max_length"])
-for u1 in (tp["train_label_max_length"] + 1, RL.MAX_U1):   # the training shape, the widest
+for u1 in (tp["train_label_max_length"] + 1, 1024):   # training; one thread a position
     blank, emit, f_len, y_len = C.rnnt_inputs(tp["batch_size"], t, u1, C.SEED + 6)
     alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
     fwd = lambda: RL.rnnt_alphas(blank, emit, f_len, y_len)

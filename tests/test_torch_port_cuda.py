@@ -470,19 +470,89 @@ def test_rnnt_loss_through_both_kernels(cuda):
 
 @pytest.mark.gpu
 def test_rnnt_kernels_refuse_what_they_do_not_take(cuda):
+    """A shape mismatch is refused; a lattice one label position past a
+    thread each (MAX_THREADS + 1), once refused, runs on the first strip."""
     blank, emit, f_len, y_len = rnnt_case(cuda, 2, 5, 4, seed=0)
     with pytest.raises(ValueError, match="emit"):
         RL.rnnt_alphas(blank, emit[:, :, :3], f_len, y_len)
-    wide = torch.zeros(1, 2, RL.MAX_U1 + 1, device=cuda)
-    one = torch.ones(1, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="label positions"):
-        RL.rnnt_alphas(wide, wide, one, one)
+    blank, emit, f_len, y_len = rnnt_case(cuda, 1, 2, RL.MAX_THREADS + 1, seed=0)
+    RL.rnnt_alphas.strip_launches = 0
+    alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
+    assert RL.rnnt_alphas.strip_launches == 1
+    want = RL.reference_rnnt_alphas(blank, emit)
+    torch.testing.assert_close(alphas, want, rtol=RNNT_LOSS_RTOL, atol=RNNT_GRAD_TOL)
+    torch.testing.assert_close(loss, RL.loss_from_alphas(want, blank, f_len, y_len),
+                               rtol=RNNT_LOSS_RTOL, atol=0)
+
+
+def strip_geometry(threads, strip, ring):
+    return threads, strip, ring, 4 * (RL.EDGE + ring * 2 * strip * threads)
+
+
+# (B, T, U+1, the geometry forced on both kernels): each strip route at
+# small shapes, where the plain versions are quick: one warp and several,
+# a ring of 1 to RING, T shorter than the ring, T = 1, read back (no ring)
+# at strips of 2, 9 and 16, the last with threads past the lattice; then
+# the wrapper's own geometry at U+1 1,025 (strip 2), 2,049 (strip 4) and
+# 4,200 (strip 8)
+STRIP_CASES = [(3, 7, 40, strip_geometry(32, 2, 3)), (3, 9, 100, strip_geometry(64, 2, 8)),
+               (4, 12, 130, strip_geometry(64, 4, 1)), (3, 5, 150, strip_geometry(32, 8, 5)),
+               (2, 1, 70, strip_geometry(64, 2, 2)), (3, 9, 100, strip_geometry(64, 2, 0)),
+               (3, 10, 200, strip_geometry(32, 9, 0)), (3, 6, 77, strip_geometry(64, 16, 0)),
+               (2, 8, 1025, None), (2, 6, 2049, None), (1, 5, 4200, None)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("geometry", [(64, 8, 4 * (64 + 8 * 2 * 96)),   # fewer threads than U+1
-                                      (96, 3, 4 * (64 + 3 * 2 * 96)),   # another ring than the kernels'
-                                      (96, 8, 4 * 64)])                 # too little shared memory
+@pytest.mark.parametrize("b,t,u1,geometry", STRIP_CASES)
+def test_rnnt_strip_routes_match_plain_versions(cuda, monkeypatch, b, t, u1, geometry):
+    """Both kernels on a strip route vs reference_rnnt_alphas / _grads on
+    the card, as test_rnnt_kernels_match_plain_versions holds the one thread
+    a position route: alphas, loss, both gradients, exact zeros outside each
+    lattice; the strip launches counted."""
+    if geometry is not None:
+        monkeypatch.setattr(RL, "launch_geometry", lambda n: geometry)
+    blank, emit, f_len, y_len = rnnt_case(cuda, b, t, u1, seed=t + u1)
+    RL.rnnt_alphas.strip_launches = RL.rnnt_grads.strip_launches = 0
+    alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
+    want_alphas = RL.reference_rnnt_alphas(blank, emit)
+    torch.testing.assert_close(alphas, want_alphas, rtol=RNNT_LOSS_RTOL, atol=RNNT_GRAD_TOL)
+    torch.testing.assert_close(loss, RL.loss_from_alphas(want_alphas, blank, f_len, y_len),
+                               rtol=RNNT_LOSS_RTOL, atol=0)
+    got = RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+    want = RL.reference_rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+    assert RL.rnnt_alphas.strip_launches == 1 and RL.rnnt_grads.strip_launches == 1
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=0, atol=RNNT_GRAD_TOL)
+        for i in range(b):
+            f, y = int(f_len[i]), int(y_len[i])
+            assert (g_[i, f:] == 0).all() and (g_[i, :, y + 1:] == 0).all()
+
+
+@pytest.mark.gpu
+def test_rnnt_strip_route_equals_plain_versions_bitwise(cuda):
+    """On the first strip (B 2, T 64, U+1 1,025) both kernels still run the
+    plain versions' fp32 arithmetic in the same order, cell for cell."""
+    blank, emit, f_len, y_len = rnnt_case(cuda, 2, 64, 1025, seed=0)
+    alphas, loss = RL.rnnt_alphas(blank, emit, f_len, y_len)
+    want_alphas = RL.reference_rnnt_alphas(blank, emit)
+    assert torch.equal(alphas, want_alphas)
+    assert torch.equal(loss, RL.loss_from_alphas(want_alphas, blank, f_len, y_len))
+    got = RL.rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+    want = RL.reference_rnnt_grads(blank, emit, alphas, f_len, y_len, -loss)
+    assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+
+
+@pytest.mark.gpu
+# (threads, strip, ring, shared bytes) at U+1 91: fewer threads than U+1,
+# another ring than the kernels', too little shared memory, strips short of
+# U+1, a strip no kernel holds in registers with a ring, a ring deeper than
+# RING, a strip of 9 with a ring
+@pytest.mark.parametrize("geometry", [(64, 1, 8, 4 * (64 + 8 * 2 * 96)),
+                                      (96, 1, 3, 4 * (64 + 3 * 2 * 96)), (96, 1, 8, 4 * 64),
+                                      (32, 2, 8, 4 * (64 + 8 * 2 * 2 * 32)),
+                                      (64, 3, 4, 4 * (64 + 4 * 2 * 3 * 64)),
+                                      (64, 2, 9, 4 * (64 + 9 * 2 * 2 * 64)),
+                                      (64, 9, 2, 4 * (64 + 2 * 2 * 9 * 64))])
 def test_rnnt_entry_points_refuse_a_geometry_they_do_not_take(cuda, monkeypatch, geometry):
     """The C entry points check the launch geometry the wrapper hands them
     and launch nothing on what they do not take; the wrapper raises."""

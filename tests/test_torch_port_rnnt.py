@@ -174,26 +174,105 @@ def test_wrappers_have_no_path_for_other_devices():
         RL.rnnt_grads(x, x, x, lengths, lengths, torch.empty(1, device="meta"))
 
 
-@pytest.mark.parametrize("u1", [1, 32, 33, 91, 1024])
+# U+1 on each side of every edge of the route table: past one thread a
+# position (1,024), a strip (2,048, 4,096), a ring depth (3,584, 4,608,
+# 5,632, 7,168) and the strips held in registers (8,192), and the most the
+# table is held to
+ROUTE_EDGES = (1024, 2048, 3584, 4096, 4608, 5632, 7168, 8192)
+COVERAGE = (1025, 2048, 2049, 3584, 3585, 4096, 4097, 4608, 4609, 5632, 5633, 7168, 7169, 8192,
+            8193, 65536)
+
+
+def header_geometry():
+    """csrc/rnnt_wavefront.cuh's constants and functions (geometry_ok,
+    smem_bytes, register_strip) read as Python."""
+    from test_torch_port_wide_fp32 import c_file
+
+    return c_file("rnnt_wavefront.cuh")[0]
+
+
+def assert_geometry(u1, geometry):
+    """One block at U+1 = u1: whole warps whose strips cover every label
+    position with no warp to spare, the fewest positions a thread (1, then
+    the strips held in registers, then wider ones), the ring as deep as
+    shared memory allows up to RING (none past the strips held in
+    registers), and shared memory for the ring and the edge slots within
+    what a block may use."""
+    threads, strip, ring, smem = geometry
+    assert threads % 32 == 0 and 32 <= threads <= RL.MAX_THREADS
+    assert threads * strip >= u1 > (threads - 32) * strip
+    held = [k for k in (1, *RL.STRIPS) if k * RL.MAX_THREADS >= u1]
+    assert strip == (held[0] if held else -(-u1 // RL.MAX_THREADS))
+    per_ring = 4 * 2 * strip * threads   # blank and emit of every position, one diagonal
+    assert smem == 4 * RL.EDGE + ring * per_ring <= RL.SMEM_LIMIT
+    if strip == 1:
+        assert ring == RL.RING
+    elif strip <= RL.STRIP_MAX:
+        assert 1 <= ring <= RL.RING and (ring == RL.RING or smem + per_ring > RL.SMEM_LIMIT)
+    else:
+        assert ring == 0
+
+
+@pytest.mark.parametrize("u1", [1, 32, 33, 91, 1024, *COVERAGE])
 def test_launch_geometry_covers_the_lattice(u1):
-    """The kernels' block at U+1 = u1: whole warps, one thread per label
-    position with no warp to spare, the kernels' ring of at least one
-    diagonal, and shared memory within what a block may use (the C entry
-    points refuse anything else)."""
-    threads, ring, smem = RL.launch_geometry(u1)
-    assert threads % 32 == 0 and u1 <= threads < u1 + 32
-    assert ring == RL.RING >= 1
-    assert 4 * ring * 2 * threads < smem <= RL.SMEM_LIMIT   # blank and emit a diagonal
+    """The kernels' block at U+1 = u1 (assert_geometry); up to 1,024 one
+    thread per position with the ring of RING diagonals, as the kernels have
+    taken since their redesign, and the C entry points take it."""
+    geometry = RL.launch_geometry(u1)
+    assert_geometry(u1, geometry)
+    if u1 <= RL.MAX_THREADS:
+        threads = -(-u1 // 32) * 32
+        assert geometry == (threads, 1, RL.RING, 4 * (RL.EDGE + RL.RING * 2 * threads))
+    assert header_geometry()["geometry_ok"](u1, *geometry, 2)
 
 
-@pytest.mark.parametrize("u1", [0, 1025])
+@pytest.mark.parametrize("u1", [0])
 def test_launch_geometry_refuses_more_label_positions_than_threads(u1):
-    with pytest.raises(ValueError, match="label positions"):
+    with pytest.raises(ValueError, match="label position"):
         RL.launch_geometry(u1)
 
 
+def test_route_table_covers_every_label_length():
+    """The route table over U+1 1-65,536: every geometry as
+    assert_geometry asks (inlined: threads, cover, ring, shared memory),
+    accepted by the header's own geometry_ok, and its edges are the
+    ROUTE_EDGES that COVERAGE straddles."""
+    ok = header_geometry()["geometry_ok"]
+    edges, last = [], None
+    for u1 in range(1, 65537):
+        threads, strip, ring, smem = geometry = RL.launch_geometry(u1)
+        assert threads % 32 == 0 and threads <= RL.MAX_THREADS, u1
+        assert threads * strip >= u1 > (threads - 32) * strip, u1
+        assert smem == 4 * (RL.EDGE + ring * 2 * strip * threads) <= RL.SMEM_LIMIT, u1
+        assert (ring == RL.RING) if strip == 1 else (ring >= 1) == (strip <= RL.STRIP_MAX), u1
+        assert ok(u1, *geometry, 2), u1
+        if last is not None and (strip, ring) != last:
+            edges.append(u1 - 1)
+        last = (strip, ring)
+    held = RL.STRIP_MAX * RL.MAX_THREADS
+    assert tuple(e for e in edges if e <= held) == ROUTE_EDGES
+    assert [e for e in edges if e > held] == list(range(held + RL.MAX_THREADS, 65536,
+                                                        RL.MAX_THREADS))   # wider strips only
+    assert set(COVERAGE) >= {e for e in ROUTE_EDGES if e > RL.MAX_THREADS} | {
+        e + 1 for e in ROUTE_EDGES}
+
+
+def test_entry_points_take_the_strips_the_wrapper_names():
+    """The header's register_strip holds RL.STRIPS, and both entry points
+    switch each of them to its strip kernel."""
+    env = header_geometry()
+    assert tuple(k for k in range(1, 65) if env["register_strip"](k)) == RL.STRIPS
+    csrc = Path(RL.__file__).parents[1] / "csrc"
+    for name in ("rnnt_fwd.cu", "rnnt_bwd.cu"):
+        cases = re.findall(r"case (\d+): return (?:static_cast<int>\()?launch_strip<(\d+)>",
+                           (csrc / name).read_text())
+        assert [(int(a), int(b)) for a, b in cases] == [(k, k) for k in RL.STRIPS], name
+
+
 @pytest.mark.parametrize("name,header_name", [("RING", "RING"), ("SMEM_LIMIT", "MAX_SMEM"),
-                                              ("MAX_U1", "MAX_THREADS"), ("LOG_EPS", "LOG_EPS")])
+                                              ("MAX_THREADS", "MAX_THREADS"),
+                                              ("STRIP_MAX", "STRIP_MAX"), ("EDGE", "EDGE"),
+                                              ("LOG_EPS", "LOG_EPS")])
 def test_wrapper_constants_match_the_kernels_header(name, header_name):
     """The wrapper's copies of the kernels' compile-time constants agree with
     csrc/rnnt_wavefront.cuh: a ring or a limit that differs would make the C
@@ -201,4 +280,4 @@ def test_wrapper_constants_match_the_kernels_header(name, header_name):
     header = (Path(RL.__file__).parents[1] / "csrc" / "rnnt_wavefront.cuh").read_text()
     found = re.search(rf"constexpr (?:int|float) {header_name} = ([^;]+);", header)
     assert found, header_name
-    assert float(found.group(1).rstrip("f")) == getattr(RL, name)
+    assert float(eval(found.group(1).rstrip("f"))) == getattr(RL, name)   # "2 * 32", "-1e30f"
