@@ -96,8 +96,9 @@ the card. Phases, one line each; any failure exits non-zero:
                 [kernel]'s gates, fp32 on the FMA route and bf16 on the
                 tensor cores (route counters)
  10g. sp-slice  two ranks on the one card over gloo in one seq group (data 1
-                x seq 2): the flagship at full width, one fp32 and one bf16
-                step, and Transducer Small's fp32 step, over 2 x 4 ragged
+                x seq 2): the flagship at full width (one block a stage since
+                PR 20), one fp32 and one bf16 step, and Transducer Small's
+                fp32 step (one block a stage), over 2 x 4 ragged
                 utterances of 4-8 s padded by sp_pad_align, and the
                 flagship's fp32 step at a length no point of whose encoder
                 divides by 2 (every point replicated), vs the one-process
@@ -323,7 +324,8 @@ the card. Phases, one line each; any failure exits non-zero:
                 full and dots (within 2e-2 of each other): ms a step, peak
                 memory, rel-pos launches a step (60 / 30 under remat: the
                 recompute runs the forward kernel again)
- 43. variants   CTC Small's widths and depth with one change each: even G
+ 43. variants   CTC Small's widths (one block a stage since PR 20) with one
+                change each: even G
                 [2, 1, 1], local attention (att_kernel_size 8), strided
                 attention (att_stride 2), absolute attention, linear
                 attention, and the Conv1d, Conv2dPool and VGG subsamplings:
@@ -359,7 +361,8 @@ the card. Phases, one line each; any failure exits non-zero:
                 version and the fp32 bound
  47. wide-fp32-slice  one fp32 training step of EfficientConformer CTC
                 Medium and Large, Conformer CTC Large and EfficientConformer
-                Transducer Medium at published widths and depth (2
+                Transducer Medium at published widths, one block a stage
+                since PR 20 (2
                 utterances of 16 and 8 s, dropout 0, SpecAugment off) vs
                 the plain versions on the card (loss 1e-4, gradients 1e-3,
                 the gradient norm 1e-4 with the loss in float64 on both
@@ -396,6 +399,31 @@ the card. Phases, one line each; any failure exits non-zero:
                 an fp32 training step and a bf16 greedy batch vs the plain
                 versions, every launch counted on its route, the wide ones
                 where ``route`` names them
+ 51. widest-kernel  both bias kernels on their chunked routes (past a width of
+                256, bf16 padded to 16) vs their plain versions, fp32 and
+                bf16, at (dqk, dv) 257, 270, 272, 384, 512, 1,024 (each both
+                ways), 270/135, 64/512, 512/64: at the causal 4-head Large's
+                stage-1 serving window (32 slots, H 4, N 118) with its causal
+                window bias, a key mask, a head-broadcast bias and none, and
+                at one query row against 100 / 513 / 1,025 keys (B 1, H 12);
+                the backward with and without dS; each call counted on the
+                route ``route`` names, held to the compiled kernel files' own
+                choice and sizes; [widest-kernel-time]: each width at that
+                window and at the training step's stage 1 (2 x 8 s), forward
+                and backward, bf16 and fp32, from CUDA graphs beside the
+                plain version, SDPA with the bias as its mask (fp32: its
+                math path) and the bound
+ 52. causal-wide-slice  EfficientConformer CTC Large at 4 heads made causal
+                (left context 64; heads 270 / 128 / 180) at published widths
+                and depth: an fp32 and a bf16 training step (2 x 4 ragged
+                utterances of 4-8 s, dropout 0, SpecAugment off) vs the plain
+                versions on the card at [wide-fp32-slice]'s and
+                [wide-bf16-slice]'s gates, then a bf16 and an fp32 stream
+                through StreamingCTC at the serving geometry over two
+                utterances (12 and 9 s), logits and tokens vs the same stream
+                through the plain versions; every bias launch counted by
+                width and route (head 270 on the chunked kernels both ways);
+                ms a step, ms a window step, peak memory
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 rel-pos entries also with their bf16 error, tensor-core launches and eager
@@ -421,7 +449,9 @@ rel-pos entries with ``wide_fp32_max_err`` and [wide-fp32-kernel-time]'s
 sums as ``wide_fp32_*_ms``, and their launches in [wide-bf16-slice] and
 [wider-slice]; then one entry a direction for the wide routes: launches
 their wide launches in [wider-slice], times [wider-kernel-time]'s sums
-over the wide rows), and last
+over the wide rows; then one entry a direction for the bias kernels'
+chunked routes: launches their chunked launches in [causal-wide-slice],
+the error [widest-kernel]'s, times [widest-kernel-time]'s sums), and last
 {"ok": true, "device": {...}}. With
 --profile it also prints a torch.profiler device-time breakdown of one
 batch or step of each path, the beams included.
@@ -586,6 +616,14 @@ WIDER_MODELS = {
 # (dh, D) at H 4, N 201 (B 2): the four shapes the wrapper refused before the
 # wide routes, and dh 512 / D 1024
 WIDER_FREE_SHAPES = ((257, 64), (272, 544), (150, 64), (64, 4000), (512, 1024))
+# [widest-kernel]: the bias kernels past a width of 256, (dqk, dv); and
+# [causal-wide-slice], the path that sends them 270: WIDER_MODELS' Large at 4
+# heads made causal
+WIDEST_WIDTHS = ((257, 257), (270, 270), (272, 272), (384, 384), (512, 512), (1024, 1024),
+                 (270, 135), (64, 512), (512, 64))
+WIDEST_STEP_KEYS = (100, 513, 1025)   # one query row (the LM's KV-cache step, B 1) and Nk
+CAUSAL_WIDE_MODEL = "EfficientConformerCTCLarge_heads4"
+CAUSAL_WIDE_STREAM_SECONDS = (12.0, 9.0)   # its two streamed utterances
 BF16_GRAD_NOISE = 1.25       # a bf16 step's gradients through the kernels no farther from
                              # the fp32 step's (global relative L2) than 1.25x the plain
                              # versions' bf16 gradients are: through 15-16 bf16 blocks the
@@ -1124,6 +1162,18 @@ def train_config(path=CONFIG, **training) -> dict:
     cfg = load_config(path)
     cfg["training_params"].update(training)
     return cfg
+
+
+def one_block_a_stage(enc: dict) -> dict:
+    """``enc`` cut to one block a stage, its published widths, heads, groups
+    and kernels kept: the stride and the expansion after blocks 0, 1, ...
+    (as the CPU tests cut the Medium and Large encoders); one block for a
+    single-stage encoder."""
+    cut = dict(enc, num_blocks=len(enc.get("strided_blocks") or []) + 1)
+    for key in ("strided_blocks", "expand_blocks"):
+        if enc.get(key):
+            cut[key] = list(range(len(enc[key])))
+    return cut
 
 
 def train_batch(accum, batch, seconds, label_len, device, rng):
@@ -1862,7 +1912,7 @@ def sp_batch(rows, seconds, samples, rng):
     return batch
 
 
-def sp_cases(ranks, seq, model=1) -> list:
+def sp_cases(ranks, seq, model=1, cut=False) -> list:
     """[sp-slice]'s steps ([dp-slice]'s settings: dropout 0, SpecAugment
     off, Adam from a shared non-zero state at a constant 1e-3), 2
     microbatches of 4 ragged utterances of 4-8 s a data rank: the
@@ -1870,7 +1920,8 @@ def sp_cases(ranks, seq, model=1) -> list:
     in fp32 and in float64) and the flagship's bf16 step, padded by
     sp_pad_align;
     the flagship's fp32 step at SP_UNCOVERED samples, no point of the
-    encoder dividing by 2."""
+    encoder dividing by 2. With ``cut`` the encoders at one block a stage,
+    at full width (the stages' strides, and so the padding, unchanged)."""
     from efficientconformer_torch.config import load_config
     from efficientconformer_torch.parallel import mesh
 
@@ -1886,6 +1937,8 @@ def sp_cases(ranks, seq, model=1) -> list:
                                (T_CONFIG, False, aligned), (CONFIG, False, uncovered)):
         cfg = train_config(path, mixed_precision=mixed, lr_schedule="Constant", lr_value=1e-3)
         cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+        if cut:
+            cfg["encoder_params"] = one_block_a_stage(cfg["encoder_params"])
         cases.append({"config": cfg, "batch": batch, "seed": SEED, "adam": dp_adam(cfg),
                       "allow_tf32": False})
     # the fp32 steps again with their losses in float64 (``float64_loss``)
@@ -1895,7 +1948,7 @@ def sp_cases(ranks, seq, model=1) -> list:
 
 
 def phase_sp_slice(card_line, ranks=SP_RANKS, seq=2, model=1, backend="gloo",
-                   phase="sp-slice"):
+                   phase="sp-slice", cut=False):
     """Sequence parallelism at full width: ``ranks`` ranks on a grid of
     data x ``seq`` x ``model`` (by default two on the one card over gloo,
     data 1 x seq 2; ``backend`` None: NCCL, one rank a GPU), each case of
@@ -1912,12 +1965,12 @@ def phase_sp_slice(card_line, ranks=SP_RANKS, seq=2, model=1, backend="gloo",
     query rows, FMA in fp32, tensor cores in bf16) and RNN-T launches; the
     seq group's all-gathers, halos and reduce-scatters a step (none at the
     uncovered length); each rank's peak memory beside the one-process
-    step's. Returns the rel-pos (forward, backward) launches over the ranks
-    and steps."""
+    step's. With ``cut`` the encoders' depth is cut (``sp_cases``). Returns
+    the rel-pos (forward, backward) launches over the ranks and steps."""
     from efficientconformer_torch import dryrun
     from efficientconformer_torch.parallel import mesh
 
-    cases = sp_cases(ranks, seq, model)
+    cases = sp_cases(ranks, seq, model, cut=cut)
     gridded = []
     for case in cases:
         cfg = json.loads(json.dumps(case["config"]))
@@ -2465,6 +2518,8 @@ def reset_launch_counts():
     reset_rel_counts()
     BA.bias_attention.launches = BA.bias_attention_bwd.launches = 0
     BA.bias_attention.tc_launches = BA.bias_attention_bwd.tc_launches = 0
+    BA.bias_attention.routes.clear()
+    BA.bias_attention_bwd.routes.clear()
 
 
 def bias_tc_counts():
@@ -2653,7 +2708,8 @@ def check_bias_case(name, args, gen, phase="lm-kernel"):
           f"{name}: launches {bias_launch_counts()}, tensor-core {bias_tc_counts()}, "
           "expected the bf16 pair on the tensor cores")
     say(phase, case=name, B=q.shape[0], H=q.shape[1], Nq=q.shape[2], Nk=k.shape[2],
-        dqk=q.shape[3], dv=v.shape[3], bias=tuple(bias.shape), fp32_err_o=f"{err_o:.3g}",
+        dqk=q.shape[3], dv=v.shape[3],
+        bias=tuple(bias.shape) if bias is not None else None, fp32_err_o=f"{err_o:.3g}",
         fp32_err_lse=f"{err_lse:.3g}", fp32_bwd_rel_err=f"{max(err.values()):.3g}",
         bf16_err_o=f"{err16:.3g}", bf16_bwd_rel_err=f"{max(err16b.values()):.3g}")
     return max(err_o, err_lse), max((a.float() - b.float()).abs().max().item()
@@ -5002,12 +5058,13 @@ def phase_remat(card_line):
 
 
 def variant_configs():
-    """(name, encoder_params) of EfficientConformer CTC Small's widths and
-    depth with one change each (G 1 where local or strided attention,
-    which the grouped layers do not take, is asked for)."""
+    """(name, encoder_params) of EfficientConformer CTC Small's widths, one
+    block a stage (one_block_a_stage), with one change each (G 1 where
+    local or strided attention, which the grouped layers do not take, is
+    asked for)."""
     from efficientconformer_torch.config import load_config
 
-    base = load_config(CONFIG)["encoder_params"]
+    base = one_block_a_stage(load_config(CONFIG)["encoder_params"])
     return [
         ("att_group_size_2", dict(base, att_group_size=[2, 1, 1])),
         ("att_kernel_size_8", dict(base, att_group_size=1, att_kernel_size=8)),
@@ -5517,7 +5574,8 @@ def phase_wide_fp32_slice(card_line):
     Trainer on WIDE_FP32_SECONDS of audio (dropout 0, SpecAugment off, VN
     off), against the same step through the plain versions on the card:
     loss within TRAIN_LOSS_RTOL, gradients within TRAIN_GRAD_TOL, BatchNorm
-    statistics within TRAIN_STATS_TOL. The gradient norm is held to
+    statistics within TRAIN_STATS_TOL. Each encoder at one block a stage
+    (one_block_a_stage). The gradient norm is held to
     TRAIN_LOSS_RTOL with the CTC or RNN-T loss in float64 on both sides
     (``float64_loss``): through the fp32 lattices (L ~700-1,400 nats at
     random weights) it moves with every change of the logits' rounding, and
@@ -5535,6 +5593,8 @@ def phase_wide_fp32_slice(card_line):
         cfg = train_config(path, mixed_precision=False,
                            **({"vn_start_step": None} if transducer else {}))
         cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+        published = cfg["encoder_params"]["num_blocks"]
+        cfg["encoder_params"] = one_block_a_stage(cfg["encoder_params"])
         batch = train_batch(1, len(WIDE_FP32_SECONDS), [WIDE_FP32_SECONDS], [60, 30], "cpu",
                             np.random.default_rng(SEED + 90 + i))
         trainer = Trainer(cfg, device="cuda", seed=SEED)
@@ -5575,7 +5635,8 @@ def phase_wide_fp32_slice(card_line):
               f"[wide-fp32-slice] {name}: gradient norm with the loss in float64 {norm64}")
         total += np.asarray(counts)[[2, 3, 0, 1]]
         say("wide-fp32-slice", config=name, dtype="float32", seconds=list(WIDE_FP32_SECONDS),
-            blocks=blocks, loss=f"{kernel[0]:.6f}", grad_norm=f"{kernel[1]:.6f}",
+            blocks=blocks, published_blocks=published, loss=f"{kernel[0]:.6f}",
+            grad_norm=f"{kernel[1]:.6f}",
             plain_loss_rel=f"{loss_err:.3g}", plain_norm_rel=f"{norm_err:.3g}",
             plain_norm_rel_float64_loss=f"{norm64_err:.3g}",
             plain_grad_rel=f"{grad_err:.3g}", plain_stats_rel=f"{stats_err:.3g}",
@@ -5970,6 +6031,377 @@ def phase_wider_slice(card_line):
     return tuple(int(x) for x in total)
 
 
+# ------------------------------------------------ the bias kernels past 256
+
+
+def causal_wide_encoder() -> tuple[dict, dict]:
+    """(config, encoder_params) of [causal-wide-slice]: WIDER_MODELS'
+    EfficientConformer CTC Large at 4 heads at its published widths and
+    depth, made causal with left context STREAM_LEFT as [stream-kernel]
+    makes the flagship: every attention layer on the skewing path onto the
+    bias kernels, stage 1's grouped head 3 x 360 / 4 = 270."""
+    from efficientconformer_torch.config import load_config
+
+    base, change, _ = WIDER_MODELS[CAUSAL_WIDE_MODEL]
+    cfg = load_config(f"configs/{base}.json")
+    cfg["encoder_params"].update(change, causal=True, left_context=STREAM_LEFT)
+    return cfg, cfg["encoder_params"]
+
+
+def widest_shapes(gen):
+    """[widest-kernel]'s two timed shapes of the causal 4-head Large's stage
+    1, by label: its serving window (SERVE_GEOMETRY, STREAM_SLOTS slots of
+    ragged lengths) and its training step's (2 utterances of 8 s, one of
+    them 6 s), each (B, H, N, the causal (B, H, N, N) bias on the card)."""
+    from efficientconformer_torch import streaming as S
+
+    p = causal_wide_encoder()[1]
+    h = p["num_heads"]
+    frames, g, dh = stream_stage_shapes(p, S.WindowGeometry(p, **SERVE_GEOMETRY).window_frames)[0]
+    check(dh == 270, f"[widest-kernel] the causal 4-head Large's stage-1 head is {dh}")
+    out = {}
+    lengths = torch.linspace(1, frames, STREAM_SLOTS).round().long()
+    bias, _ = stream_bias(STREAM_SLOTS, h, frames, g, STREAM_LEFT, 0, lengths, gen)
+    out["window"] = (STREAM_SLOTS, h, bias.shape[-1], bias.cuda())
+    _, n, dh, _, _, g = stage_shapes(p, 8.0)[0]
+    frames = n * g
+    lengths = torch.tensor([frames, frames * 3 // 4])
+    bias, _ = stream_bias(2, h, frames, g, STREAM_LEFT, 0, lengths, gen)
+    out["train"] = (2, h, bias.shape[-1], bias.cuda())
+    return out
+
+
+def check_widest_case(name, args, gen):
+    """check_bias_case on ``args`` (both kernels, fp32 and bf16, at their
+    gates), each call counted on the route ``route`` names and that route
+    the compiled kernel files' own; then the backward without dS gives
+    dq, dk and dv bit for bit as with it. The largest fp32 errors and the
+    checked calls' launches by route, (forward, backward)."""
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    q, k, v, bias, scale = args
+    nq, nk, dqk, dv = q.shape[2], k.shape[2], q.shape[3], v.shape[3]
+    err = check_bias_case(name, args, gen, phase="widest-kernel")
+    routes = (dict(BA.bias_attention.routes), dict(BA.bias_attention_bwd.routes))
+    for backward, counter in zip((False, True), routes):
+        want = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            r = BA.route(dtype, nq, nk, dqk, dv, backward)
+            pad = (lambda x: -(-x // 8) * 8) if dtype == torch.bfloat16 else int
+            check(BA.kernel_route(dtype, nq, nk, pad(dqk), pad(dv), backward)
+                  == (r.name, tuple(b for _, b in r.kernels)),
+                  f"[widest-kernel] {name}: the route table is not the kernel files' own")
+            want[r.name] = want.get(r.name, 0) + 1
+        check(dict(counter) == want and all(n.endswith("_chunked") for n in want),
+              f"[widest-kernel] {name}: routes {dict(counter)}, expected {want}")
+    for dtype in (torch.float32, torch.bfloat16):
+        a = [t.to(dtype) for t in (q, k, v)]
+        o, lse = BA.bias_attention_fwd(*a, bias, scale)
+        do = torch.randn(o.shape, generator=gen).to("cuda", dtype)
+        with_ds = BA.bias_attention_bwd(*a, bias, o, do, lse, scale)
+        no_ds = BA.bias_attention_bwd(*a, bias, o, do, lse, scale, need_dbias=False)
+        check(no_ds[3] is None and all(torch.equal(x, y) for x, y in zip(with_ds[:3], no_ds[:3])),
+              f"[widest-kernel] {name} {dtype}: the backward without dS differs")
+    return err, routes
+
+
+def phase_widest_kernel():
+    """[widest-kernel]: both bias kernels past a width of 256, on their
+    chunked routes, vs their plain versions (check_widest_case: fp32 1e-4,
+    gradients 1e-4 relative; bf16 KERNEL_BF16_TOL, gradients GRAD_BF16_TOL)
+    at WIDEST_WIDTHS: at the causal 4-head Large's stage-1 serving window
+    (32 slots, H 4) with its causal window bias, a key mask, a
+    head-broadcast bias and none; and one query row against
+    WIDEST_STEP_KEYS keys (B 1, H 12: the LM's KV-cache step shape).
+    [widest-kernel-time]: each width at the window and at the training
+    step's stage-1 shape, forward and backward (with dS), bf16 and fp32,
+    from CUDA graphs, beside the plain version, SDPA (the bias as its mask
+    and, backward, given a gradient, on inputs zero-padded to a multiple of
+    8 columns; fp32 through its math path) and the bound. Returns the
+    largest fp32 errors (forward, backward) and the timed rows."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    gen = torch.Generator().manual_seed(SEED + 150)
+    shapes = widest_shapes(gen)
+    b, h, n, window = shapes["window"]
+    err_f = err_b = 0.0
+    cases = 0
+    launches = ({}, {})
+
+    def checked(name, args):
+        nonlocal err_f, err_b, cases
+        (ef, eb), routes = check_widest_case(name, args, gen)
+        err_f, err_b, cases = max(err_f, ef), max(err_b, eb), cases + 1
+        for total, counted in zip(launches, routes):
+            for route, n_calls in counted.items():
+                total[route] = total.get(route, 0) + n_calls
+
+    for dqk, dv in WIDEST_WIDTHS:
+        for layout in ("causal", "keymask", "head", "none"):
+            args = bias_inputs(b, h, n, n, dqk, dv, "head" if layout == "head" else "keymask",
+                               gen)
+            bias = {"causal": window, "none": None}.get(layout, args[3])
+            checked(f"{dqk}/{dv}-{layout}", (*args[:3], bias, args[4]))
+        for nk in WIDEST_STEP_KEYS:
+            heads = lm_params()["num_heads"]
+            q, k, v = (torch.randn(1, heads, m, w, generator=gen).cuda()
+                       for m, w in ((1, dqk), (nk, dqk), (nk, dv)))
+            bias = torch.randn(1, heads, 1, nk, generator=gen).cuda()
+            checked(f"{dqk}/{dv}-row-{nk}", (q, k, v, bias, 1.0 / math.sqrt(dqk)))
+    say("widest-kernel", cases=cases, widths=" ".join(f"{a}/{c}" for a, c in WIDEST_WIDTHS),
+        window=f"B{b}xH{h}xN{n}", row_keys=",".join(map(str, WIDEST_STEP_KEYS)),
+        fp32_max_err=f"{err_f:.3g}", fp32_bwd_max_abs_err=f"{err_b:.3g}",
+        launches_fwd=launches[0], launches_bwd=launches[1],
+        tol=f"{KERNEL_FP32_TOL}/{GRAD_TOL}/{KERNEL_BF16_TOL}/{GRAD_BF16_TOL}")
+
+    rows = {}
+    for label, (b, h, n, bias) in shapes.items():
+        for dqk, dv in WIDEST_WIDTHS:
+            args = bias_inputs(b, h, n, n, dqk, dv, "keymask", gen)
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v = (t.to(dtype) for t in args[:3])
+                scale = args[4]
+                o, lse = BA.bias_attention_fwd(q, k, v, bias, scale)
+                do = torch.randn(o.shape, generator=gen).to("cuda", dtype)
+                mask = bias.to(dtype)
+                lq, lk, lv = (pad8(t).detach().requires_grad_() for t in (q, k, v))
+                lmask = mask.detach().clone().requires_grad_()
+                ldo = pad8(do)
+                fp32 = dtype == torch.float32
+
+                def library_fwd():
+                    with sdpa_kernel(SDPBackend.MATH) if fp32 else contextlib.nullcontext():
+                        return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                                              scale=scale)
+
+                def library_bwd():
+                    with sdpa_kernel(SDPBackend.MATH) if fp32 else contextlib.nullcontext():
+                        out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask,
+                                                             scale=scale)
+                    return torch.autograd.grad(out, (lq, lk, lv, lmask), ldo)
+
+                calls = {"forward": {
+                    "kernel": lambda: BA.bias_attention_fwd(q, k, v, bias, scale),
+                    "plain": lambda: BA.reference_bias_attention(q, k, v, bias, scale),
+                    "library": library_fwd}, "backward": {
+                    "kernel": lambda: BA.bias_attention_bwd(q, k, v, bias, o, do, lse, scale),
+                    "plain": lambda: BA.reference_bias_attention_bwd(q, k, v, bias, do, scale),
+                    "library": library_bwd}}
+                for direction, fns in calls.items():
+                    backward = direction == "backward"
+                    row = {name: graph_ms(fn, iters=5, replays=2) for name, fn in fns.items()}
+                    itemsize = 2 if dtype == torch.bfloat16 else 4
+                    row["bound"], row["bound_by"] = bound(
+                        *bias_cost(b, h, n, n, dqk, dv, itemsize, backward),
+                        BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK)
+                    kind = str(dtype).removeprefix("torch.")
+                    route = BA.route(dtype, n, n, dqk, dv, backward).name
+                    say("widest-kernel-time", shape=label, direction=direction, B=b, H=h, N=n,
+                        dqk=dqk, dv=dv, dtype=kind, route=route, bound_by=row["bound_by"],
+                        library="sdpa " + ("math" if fp32 else "default") + ", bias as mask"
+                        + (", mask grad" if backward else ""),
+                        **{f"{key}_ms": f"{val:.4f}" for key, val in row.items()
+                           if key != "bound_by"})
+                    rows[(label, dqk, dv, kind, direction)] = row
+    return err_f, err_b, rows
+
+
+def spied_bias_routes():
+    """A context in which every bias kernel launch is also counted by (head
+    width, route, direction), read where the wrappers count it (``route``,
+    which they call once a launch): {(dqk, route name, "fwd" | "bwd"):
+    launches}."""
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    seen = {}
+    route = BA.route
+
+    def spy(dtype, nq, nk, dqk, dv, backward=False):
+        r = route(dtype, nq, nk, dqk, dv, backward)
+        key = (dqk, r.name, "bwd" if backward else "fwd")
+        seen[key] = seen.get(key, 0) + 1
+        return r
+
+    return seen, mock.patch.object(BA, "route", spy)
+
+
+def causal_wide_step(cfg, batch, dtype, fp32_grads):
+    """One training step of a fresh Trainer over ``cfg`` through the bias
+    kernels, counted (a block a direction a microbatch, none on the rel-pos
+    kernels; by width and route), its ms (a second step, warm) and peak
+    memory, and the same step through the plain versions on the card, held
+    at check_step's gates of its type."""
+    from efficientconformer_torch.ops import bias_attention as BA
+    from efficientconformer_torch.training.trainer import Trainer
+
+    trainer = Trainer(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen, spy = spied_bias_routes()
+    reset_launch_counts()
+    with spy:
+        loss, grad_norm = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    counts, rel = bias_launch_counts(), rel_counts()
+    routes = (dict(BA.bias_attention.routes), dict(BA.bias_attention_bwd.routes))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kernel = (float(loss), float(grad_norm),
+              {n: p.grad.float().cpu() for n, p in trainer.model.named_parameters()},
+              {n: b.cpu().clone() for n, b in trainer.model.named_buffers() if "running" in n})
+    t0 = time.perf_counter()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    del trainer
+    torch.cuda.empty_cache()
+    plain = one_step(cfg, "cuda", batch, plain=True)
+    out = {"loss_rel": abs(kernel[0] - plain[0]) / abs(plain[0]),
+           "norm_rel": abs(kernel[1] - plain[1]) / abs(plain[1]),
+           "grad_rel": rel_diff(kernel[2], plain[2]), "stats_rel": rel_diff(kernel[3], plain[3]),
+           "kernel": kernel, "plain": plain}
+    check(math.isfinite(kernel[0]), f"[causal-wide-slice] {dtype}: loss {kernel[0]}")
+    errs = check_step("causal-wide-slice", CAUSAL_WIDE_MODEL, dtype, out, fp32_grads)
+    return out, errs, counts, rel, routes, seen, ms, peak
+
+
+def stream_ctc(model, p, audio, n, plain):
+    """Two rows streamed through StreamingCTC at SERVE_GEOMETRY in uneven
+    pushes, through the kernels or the plain versions: (tokens, the emitted
+    logits (2, frames, V) on the host, windows, wall seconds)."""
+    from efficientconformer_torch import streaming as S
+
+    sess = S.StreamingEncoderSession(model, p, batch_size=2, device="cuda", **SERVE_GEOMETRY)
+    rec = S.StreamingCTC(sess)
+    ems = []
+    push, finish = sess.push, sess.finish
+
+    def recorded(fn):
+        def call(*args):
+            out = fn(*args)
+            ems.extend(out)
+            return out
+        return call
+
+    sess.push, sess.finish = recorded(push), recorded(finish)
+    t0 = time.perf_counter()
+    with plain_kernels() if plain else contextlib.nullcontext():
+        pos = 0
+        for bite in itertools.cycle((0.7, 1.9, 0.4)):
+            step = int(bite * SAMPLE_RATE)
+            rec.push(audio[:, pos:pos + step])
+            pos += step
+            if pos >= n[0]:
+                break
+        rec.finish(np.array(n))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return rec.tokens, np.concatenate([em.valid for em in ems], axis=1), len(ems), wall
+
+
+def phase_causal_wide_slice(card_line):
+    """[causal-wide-slice]: EfficientConformer CTC Large at 4 heads made
+    causal (causal_wide_encoder) at its published widths and depth. One
+    fp32 and one bf16 training step (2 x 4 ragged utterances of 4-8 s, as
+    [train-slice]; dropout 0, SpecAugment off) against the same step through
+    the plain versions on the card at check_step's gates (fp32:
+    TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_STATS_TOL; bf16: VARIANT_BF16_TOL,
+    BF16_GRAD_NOISE, BF16_LEAF_NOISE against the plain fp32 step); then the
+    model streamed in bf16 and in fp32 through StreamingCTC at
+    SERVE_GEOMETRY over two utterances of CAUSAL_WIDE_STREAM_SECONDS, its
+    logits held to the same stream through the plain versions (fp32:
+    STREAM_TOL and the tokens equal; bf16: VARIANT_BF16_TOL of the largest
+    logit, the rows whose tokens are equal counted). Every bias launch
+    counted by width and route: stage 1's head 270 on the chunked kernels in
+    both directions and both types. Prints ms a step, ms a window step and
+    peak memory. Returns the launches (forward, backward) and, of them, on
+    the chunked routes."""
+    from efficientconformer_torch.config import resolve_block_configs
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    cfg, enc = causal_wide_encoder()
+    enc.update(Pdrop=0.0, spec_augment=False)
+    blocks = enc["num_blocks"]
+    heads = [b.att_group_size * b.dim_model // b.num_heads for b in resolve_block_configs(enc)]
+    seconds = [[4.0, 5.5, 7.0, 8.0], [8.0, 6.5, 4.5, 5.0]]
+    batch = train_batch(2, 4, seconds, [12, 30, 0, 20], "cpu", np.random.default_rng(SEED + 160))
+    micro = batch["audio"].shape[0]
+    say("causal-wide-model", name=CAUSAL_WIDE_MODEL, causal=True, left_context=STREAM_LEFT,
+        blocks=blocks, heads=",".join(map(str, heads)))
+    total = np.zeros(4, dtype=np.int64)
+    fp32_grads = None
+    for dtype in (torch.float32, torch.bfloat16):   # fp32 first: the bf16 yardstick
+        c = json.loads(json.dumps(cfg))
+        c["training_params"]["mixed_precision"] = dtype == torch.bfloat16
+        out, errs, counts, rel, routes, seen, ms, peak = causal_wide_step(c, batch, dtype,
+                                                                           fp32_grads)
+        fp32_grads = out["plain"][2]
+        want = {}
+        for dh in heads:
+            for bw in (False, True):
+                key = (dh, BA.route(dtype, 1000, 1000, dh, dh, bw).name, "bwd" if bw else "fwd")
+                want[key] = want.get(key, 0) + micro
+        chunked = tuple(r.get("tc_chunked", 0) + r.get("fma_chunked", 0) for r in routes)
+        check(counts == (blocks * micro, blocks * micro) and rel == (0, 0, 0, 0) and seen == want
+              and chunked == (heads.count(270) * micro,) * 2,
+              f"[causal-wide-slice] {dtype}: bias launches {counts}, rel-pos {rel}, by width "
+              f"and route {seen}, expected {want}")
+        total += np.asarray([*counts, *chunked])
+        say("causal-wide-slice", step=str(dtype).removeprefix("torch."),
+            loss=f"{out['kernel'][0]:.6f}", grad_norm=f"{out['kernel'][1]:.6f}", **errs,
+            launches=list(counts), routes_fwd=routes[0], routes_bwd=routes[1],
+            by_width=" ".join(f"{dh}:{r}:{d}={n}" for (dh, r, d), n in sorted(seen.items())),
+            ms_per_step=f"{ms:.2f}", peak_mem_gib=f"{peak:.3f}", card=f"'{card_line}'")
+        del out
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 161)
+    n = [int(s * SAMPLE_RATE) for s in CAUSAL_WIDE_STREAM_SECONDS]
+    audio = (rng.standard_normal((2, n[0])) * 0.1).astype(np.float32)
+    audio[1, n[1]:] = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        model = ctc_model(enc, dtype, cfg["tokenizer_params"]["vocab_size"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seen, spy = spied_bias_routes()
+        reset_launch_counts()
+        with spy:
+            tokens, logits, windows, wall = stream_ctc(model, enc, audio, n, plain=False)
+        counts, rel = bias_launch_counts(), rel_counts()
+        routes = dict(BA.bias_attention.routes)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        p_tokens, p_logits, p_windows, _ = stream_ctc(model, enc, audio, n, plain=True)
+        chunked = routes.get("tc_chunked", 0) + routes.get("fma_chunked", 0)
+        check(counts == (blocks * windows, 0) and rel[0] == 0
+              and chunked == heads.count(270) * windows and p_windows == windows,
+              f"[causal-wide-slice] stream {dtype}: bias launches {counts}, rel-pos {rel[0]}, "
+              f"routes {routes} over {windows} windows")
+        err = float(np.abs(logits - p_logits).max())
+        scale = max(float(np.abs(p_logits).max()), 1.0)
+        same = [a == b for a, b in zip(tokens, p_tokens)]
+        if dtype == torch.float32:
+            check(np.isfinite(logits).all() and err <= STREAM_TOL and all(same),
+                  f"[causal-wide-slice] stream fp32: logits {err} > {STREAM_TOL} or tokens differ")
+        else:
+            check(np.isfinite(logits).all() and err / scale <= VARIANT_BF16_TOL,
+                  f"[causal-wide-slice] stream bf16: logits {err / scale} > {VARIANT_BF16_TOL} "
+                  "of the plain versions' largest")
+        total += np.asarray([counts[0], 0, chunked, 0])
+        say("causal-wide-slice", stream=str(dtype).removeprefix("torch."),
+            seconds=list(CAUSAL_WIDE_STREAM_SECONDS), **SERVE_GEOMETRY, windows=windows,
+            frames=logits.shape[1], max_abs_diff=f"{err:.4g}", rel_diff=f"{err / scale:.4g}",
+            tol=STREAM_TOL if dtype == torch.float32 else VARIANT_BF16_TOL,
+            rows_tokens_equal=f"{sum(same)}/{len(same)}", tokens=[len(t) for t in tokens],
+            launches=counts[0], routes=routes,
+            by_width=" ".join(f"{dh}:{r}={c}" for (dh, r, _), c in sorted(seen.items())),
+            ms_per_window=f"{wall * 1e3 / windows:.2f}", peak_mem_gib=f"{peak:.3f}",
+            card=f"'{card_line}'")
+        del model
+        torch.cuda.empty_cache()
+    return tuple(int(x) for x in total)
+
+
 def phase_profile():
     from efficientconformer_torch.models import transducer as T
     from efficientconformer_torch.models.model_ctc import greedy_decode
@@ -6110,7 +6542,7 @@ def main() -> int:
     phase_tp_cli()
     t_sp = time.perf_counter()
     sp_fwd, sp_bwd = phase_sp_kernel()
-    sp_slice = phase_sp_slice(card_line)
+    sp_slice = phase_sp_slice(card_line, cut=True)
     phase_sp_cli()
     say("sp", seconds=f"{time.perf_counter() - t_sp:.2f}")
     (t_err, t_err16), (t_err_bwd, t_err16_bwd) = phase_t_kernel(t_cfg["encoder_params"])
@@ -6174,6 +6606,11 @@ def main() -> int:
     say("wider", seconds=f"{time.perf_counter() - t_wider:.2f}")
     check(all(wide16_launches) and all(wider_launches),
           f"the wide phases missed a kernel: {wide16_launches}, {wider_launches}")
+    t_widest = time.perf_counter()
+    err_widest, err_widest_bwd, widest_rows = phase_widest_kernel()
+    causal_wide = phase_causal_wide_slice(card_line)
+    say("widest", seconds=f"{time.perf_counter() - t_widest:.2f}")
+    check(all(causal_wide), f"[causal-wide-slice] missed a chunked kernel: {causal_wide}")
 
     def wide(direction):
         return {f"wide_{w}_{k}_ms": wide_rows[(w, direction)][k] for w in (135, 256)
@@ -6225,6 +6662,25 @@ def main() -> int:
                                                    "bound_by": r[f"{key}_bound_by"],
                                                    "readback_ms": r.get(f"readback_{key}")}
                             for k, r in long_rows.items()}}
+
+    def chunked_route(i, direction, kernels):
+        """The entry of a bias kernel's chunked route (past a width of 256):
+        its launches in [causal-wide-slice] (the main path that reaches it),
+        [widest-kernel]'s largest fp32 error and [widest-kernel-time]'s sums
+        over its rows (every width, both shapes and types; the library: SDPA
+        with the bias as its mask, fp32 through its math path)."""
+        rows = [r for key, r in widest_rows.items() if key[4] == direction]
+        by = [r["bound_by"] for r in rows]
+        return {"name": f"{(BA.KERNEL, BA.KERNEL_BWD)[i]}:chunked", "route": "cuda",
+                "source": f"efficientconformer_torch/csrc/{(BA.KERNEL, BA.KERNEL_BWD)[i]}.cu",
+                "kernels": kernels,
+                "replaces": ("efficientconformer_tpu/ops/pallas_attention.py:55",
+                             "efficientconformer_tpu/ops/pallas_attention.py:412")[i],
+                "launches": causal_wide[2 + i], "max_abs_err": (err_widest, err_widest_bwd)[i],
+                "ms": sum(r["kernel"] for r in rows), "plain_ms": sum(r["plain"] for r in rows),
+                "bound_ms": sum(r["bound"] for r in rows), "bound_by": max(set(by), key=by.count),
+                "library_ms": sum(r["library"] for r in rows), "rows": len(rows),
+                "causal_wide_launches": causal_wide[i]}
 
     if opts.profile:
         phase_profile()
@@ -6303,6 +6759,10 @@ def main() -> int:
               max(err_bias_bwd, err_wide_bwd), times_bias_bwd, variants_launches=variant_bwd,
               **wide("backward"), tp_launches={"tp-slice": tp_slice["bias"][1]},
               tp_kernel_max_err=tp_bias_bwd),
+        chunked_route(0, "forward", ["bias_fwd_tc_chunked_kernel", "bias_fwd_chunked_kernel"]),
+        chunked_route(1, "backward", ["bias_bwd_q_tc_chunked_kernel",
+                                      "bias_bwd_k_tc_chunked_kernel",
+                                      "bias_bwd_q_chunked_kernel", "bias_bwd_k_chunked_kernel"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,11 +57,13 @@
 //     word at a time 65 (odd, so a half-warp's 16 neighbouring columns fall
 //     in distinct banks).
 //
-// Widths up to 256: the tensor-core passes at padded widths 64, 128, 144 and
-// 256, the last with two blocks a tile, each accumulating 128 columns of
-// dq (or of dk and dv) and both forming the same S and dP; the fp32 route
-// past 128, where the 64-row tiles outgrow shared memory, runs
-// bias_bwd_{q,k}_wide_kernel (16-row tiles, one score a thread).
+// Widths up to 256 (bf16: padded to 16): the tensor-core passes at padded
+// widths 64, 128, 144 and 256, the last with two blocks a tile, each
+// accumulating 128 columns of dq (or of dk and dv) and both forming the
+// same S and dP; the fp32 route past 128, where the 64-row tiles outgrow
+// shared memory, runs bias_bwd_{q,k}_wide_kernel (16-row tiles, one score
+// a thread). Every wider width takes the chunked kernels (bias_bwd_{q,k}_
+// tc_chunked_kernel, bias_bwd_{q,k}_chunked_kernel; see their section).
 //
 // The tensor-core kernels run every product on mma.sync.m16n8k16 (bf16 in,
 // fp32 accumulate). q, k, v, O and dO stay bf16 in shared memory (rows
@@ -103,7 +105,7 @@ constexpr int BK = 64;          // keys per tile
 constexpr int NTHREADS = 256;   // a 16 x 16 grid of threads, each a 4 x 4 tile
 constexpr int LDV = 68;         // row stride of tiles read four rows at a time
 constexpr int LDS = 65;         // row stride of tiles read one word at a time
-constexpr int MAX_WIDTH = 256;
+constexpr int WHOLE_WIDTH = 256;   // widest dqk and dv the kernels that hold a row whole take
 constexpr size_t MAX_SMEM = 232448;  // 227 KB a block may use on sm_90
 
 static_assert(NTHREADS == 16 * 16 && BQ == 4 * 16 && BK == 4 * 16, "thread grid");
@@ -749,11 +751,11 @@ constexpr int TC_LDK = TC_BLOCK + 4;   // key side's bias tile [32 rows][64 keys
 // and of the fp32 bias tile. Key side: k and v of the keys, the stages of
 // (q, dO) tiles, of the fp32 bias tile, of the LSE (fp64) and of Di.
 __host__ __device__ constexpr size_t tc_q_smem_bytes(int dmax) {
-  return (2 + TC_STAGES) * static_cast<size_t>(TC_BLOCK) * (dmax + 8) * sizeof(__nv_bfloat16) +
+  return (2 + TC_STAGES) * static_cast<size_t>(TC_BLOCK) * (dmax + 8) * sizeof(tc::bf16) +
          TC_STAGES * static_cast<size_t>(TC_BLOCK) * TC_LDQ * sizeof(float);
 }
 __host__ __device__ constexpr size_t tc_k_smem_bytes(int dmax) {
-  return (2 + TC_STAGES) * static_cast<size_t>(TC_BLOCK) * (dmax + 8) * sizeof(__nv_bfloat16) +
+  return (2 + TC_STAGES) * static_cast<size_t>(TC_BLOCK) * (dmax + 8) * sizeof(tc::bf16) +
          TC_STAGES * static_cast<size_t>(TC_TILE) *
              (TC_LDK * sizeof(float) + sizeof(double) + sizeof(float));
 }
@@ -1170,14 +1172,17 @@ constexpr int FU_LDS = FU_KC + 4;    // fp32 row stride of a warp's dS staging
 
 // q, k, v, dO and O resident ([128][72] bf16 each; O's rows become the
 // warps' dS staging once Di is formed), the P and dS chunks, the LSE and Di
-constexpr size_t FU_SMEM = 5 * static_cast<size_t>(FU_N) * FU_LD * sizeof(__nv_bfloat16) +
-                           2 * static_cast<size_t>(FU_N) * FU_LDC * sizeof(__nv_bfloat16) +
+constexpr size_t FU_SMEM = 5 * static_cast<size_t>(FU_N) * FU_LD * sizeof(tc::bf16) +
+                           2 * static_cast<size_t>(FU_N) * FU_LDC * sizeof(tc::bf16) +
                            FU_N * (sizeof(double) + sizeof(float));
-static_assert(8 * 16 * FU_LDS * sizeof(float) == FU_N * FU_LD * sizeof(__nv_bfloat16),
+static_assert(8 * 16 * FU_LDS * sizeof(float) == FU_N * FU_LD * sizeof(tc::bf16),
               "a warp's dS staging is exactly its 16 rows of the O tile");
 
+__host__ __device__ inline bool fused_fits(int nq, int nk, int dqk, int dvw) {
+  return nq <= FU_N && nk <= FU_N && dqk <= FU_D && dvw <= FU_D;
+}
 __host__ __device__ inline bool fused_applies(const Params& p) {
-  return p.nq <= FU_N && p.nk <= FU_N && p.dqk <= FU_D && p.dvw <= FU_D;
+  return fused_fits(p.nq, p.nk, p.dqk, p.dvw);
 }
 
 // One block per (head, batch) holds all of q, k, v and dO, so each product
@@ -1443,6 +1448,600 @@ __global__ void __launch_bounds__(FU_THREADS, 2) bias_bwd_fused_tc_kernel(Params
                      warp * 16, p.nq, p.dqk, lane, 32);
 }
 
+// ------------------------------------------- past a width of 256: chunked
+//
+// Past a width of 256 (bf16: padded to 16) neither the tensor-core passes'
+// rows of q, k, v, O and dO whole in shared memory nor the FMA kernels' 16
+// feature columns a thread fit any more. Four chunked kernels take every
+// wider width, dqk and dv independently, in two passes as above (the query
+// side writes Di for the key side; no atomics, each output written by one
+// block):
+//   * bf16, bias_bwd_{q,k}_tc_chunked_kernel: S (dqk) and dP (dv) formed
+//     over a ring of 64-feature chunks (the block's rows or keys, and the
+//     streamed tile's), double-buffered with cp.async; dq, or dk and dv, in
+//     column groups of 128, a block a group, each forming the same S and
+//     dP, its group's columns of k (or q and dO) brought with the tile.
+//     64 KB (query side) and 79 KB (key side) a block at any width.
+//   * fp32, bias_bwd_{q,k}_chunked_kernel: the wide FMA kernels' 16-row
+//     tiles with the scores formed over chunks of 256 features and the
+//     gradients in column groups of 256 (16 a thread): 49 KB and 67 KB.
+// The query side forms Di: the bf16 one from P and dP in fp32, in a first
+// pass over the keys (rowsum(dO * O) from the bf16 O would leave each row of
+// dS summing to a bf16 rounding instead of 0), the fp32 one from dO and O.
+// The key side adds dS^T's bf16 rounding residual to dk. What bounds them is
+// as above (the bytes at the encoders' shapes); the column groups and the
+// first pass recompute S and dP, and the chunks read the block's own rows
+// again at every tile, from L2.
+
+__host__ __device__ inline int tc_width(int dqk, int dvw) {
+  return imax(tc::round16(dqk), tc::round16(dvw));
+}
+__host__ __device__ inline bool tc_chunked(int dqk, int dvw) { return tc_width(dqk, dvw) > WHOLE_WIDTH; }
+__host__ __device__ inline bool fma_chunked(int dqk, int dvw) { return imax(dqk, dvw) > WHOLE_WIDTH; }
+
+constexpr int CK_KC = 64;            // features of a streamed chunk
+constexpr int CK_LDC = CK_KC + 8;    // its bf16 row stride (16 bytes of padding)
+constexpr int CK_DOUT = 128;         // gradient columns a block owns: a column group
+constexpr int CK_LDG = CK_DOUT + 8;  // bf16 row stride of a column group's tile
+constexpr int CK_STAGES = 2;         // chunk stages in the ring
+
+// bytes: the ring of (the block's chunk [64][LDC], the tile's [32][LDC])
+// bf16 stages; for two tiles, query side: k's column group [32][LDG] (bf16),
+// the fp32 bias / dS tile [64][TC_LDQ]; key side: q's and dO's column
+// groups, the fp32 bias tile [32][TC_LDK], the LSE (fp64) and Di (fp32)
+constexpr size_t TC_CK_RING = static_cast<size_t>(CK_STAGES) * (TC_BLOCK + TC_TILE) * CK_LDC * 2;
+constexpr size_t TC_CKQ_SMEM = TC_CK_RING + 2 * (static_cast<size_t>(TC_TILE) * CK_LDG * 2 +
+                                                 static_cast<size_t>(TC_BLOCK) * TC_LDQ * 4);
+constexpr size_t TC_CKK_SMEM = TC_CK_RING + 2 * (2 * static_cast<size_t>(TC_TILE) * CK_LDG * 2 +
+                                                 static_cast<size_t>(TC_TILE) * (TC_LDK * 4 + 8 + 4));
+
+// The steps (tile t, chunk c): c < ceil(dqk / 64) are q k^T's chunks, the
+// rest dO v^T's. They run twice over the key tiles. The first pass forms
+// Di = rowsum(P * dP) from the recomputed P and dP in fp32 (written out for
+// the key side), not rowsum(dO * O) from the bf16 O: each row of dS = P (dP
+// - Di) then sums to 0 to fp32 rounding, as the plain version's does, and
+// the gradients that read that sum (the bias's along a broadcast, a
+// projection's bias under the softmax) keep it. The second forms dS and dq.
+// A tile's first chunk also brings its bias tile and, in the second pass,
+// its k column group, into the buffers of its place in both passes (& 1).
+__global__ void __launch_bounds__(TC_THREADS) bias_bwd_q_tc_chunked_kernel(Params p, int nsplit) {
+  using tc::bf16;
+  constexpr int NT = TC_TILE / 8, DO = CK_DOUT / 16;
+  constexpr uint32_t STAGE = (TC_BLOCK + TC_TILE) * CK_LDC * 2, GBUF = TC_TILE * CK_LDG * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);              // [STAGES][rows | keys]
+  bf16* kg = ring + CK_STAGES * (TC_BLOCK + TC_TILE) * CK_LDC;  // [2][TC_TILE][LDG]
+  float* bs = reinterpret_cast<float*>(kg + 2 * TC_TILE * CK_LDG);  // [2][TC_BLOCK][TC_LDQ]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int split = blockIdx.x % nsplit, col0 = split * CK_DOUT;
+  const float* ds_out = split == 0 ? p.ds : nullptr;
+  const int q0 = (blockIdx.x / nsplit) * TC_BLOCK;
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int64_t bh = static_cast<int64_t>(b) * heads + h;
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dop = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int64_t bias_bh = b * p.bias_sb + h * p.bias_sh;
+  const int ncq = (p.dqk + CK_KC - 1) / CK_KC, nchunks = ncq + (p.dvw + CK_KC - 1) / CK_KC;
+  const int ntiles = (p.nk + TC_TILE - 1) / TC_TILE, nsteps = ntiles * nchunks;
+  const int nq16 = imin(tc::round16(p.dqk) - col0, CK_DOUT) >> 4;   // the group's dq steps
+
+  // step s of both passes: the place (s / nchunks) picks the tile buffers,
+  // so consecutive tiles alternate across the passes' seam too
+  auto load_step = [&](int s) {
+    const int place = s / nchunks, t = place % ntiles, ch = s - place * nchunks;
+    const int k0 = t * TC_TILE;
+    const bool qk = ch < ncq;
+    const int f0 = (qk ? ch : ch - ncq) * CK_KC, w = (qk ? p.dqk : p.dvw) - f0;
+    bf16* st = ring + (s % CK_STAGES) * (TC_BLOCK + TC_TILE) * CK_LDC;
+    tc::load_tile<TC_BLOCK, CK_LDC, CK_KC, TC_THREADS>(st, (qk ? qp : dop) + f0,
+                                                       qk ? p.q_sn : p.do_sn, q0, p.nq, w);
+    tc::load_tile<TC_TILE, CK_LDC, CK_KC, TC_THREADS>(st + TC_BLOCK * CK_LDC, (qk ? kp : vp) + f0,
+                                                      qk ? p.k_sn : p.v_sn, k0, p.nk, w);
+    if (ch == 0 && place >= ntiles) {
+      tc::load_tile<TC_TILE, CK_LDG, CK_DOUT, TC_THREADS>(kg + (place & 1) * TC_TILE * CK_LDG,
+                                                          kp + col0, p.k_sn, k0, p.nk,
+                                                          p.dqk - col0);
+    }
+    if (ch == 0 && p.bias) {
+      tc::load_bias_tile<TC_BLOCK, TC_TILE, TC_LDQ, TC_THREADS>(
+          bs + (place & 1) * TC_BLOCK * TC_LDQ, p.bias, p.bias_bf16, bias_bh, p.bias_sn, q0, k0,
+          p.nq, p.nk);
+    }
+  };
+  load_step(0);
+  tc::cp_async_commit();
+
+  // this thread's rows are r0 and r0 + 8, with their LSE and Di (this
+  // lane's part of the row sum until the first pass ends)
+  const int r0 = warp * 16 + g;
+  float di[2] = {0.f, 0.f};
+  double lse[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qi = q0 + r0 + 8 * hr;
+    lse[hr] = qi < p.nq ? p.lse[bh * p.nq + qi] : 0.0;
+  }
+
+  float dq[2 * DO][4];
+#pragma unroll
+  for (int j = 0; j < 2 * DO; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  float s[NT][4], dp[NT][4];
+  const uint32_t a_a = tc::a_lane<CK_LDC>(ring + warp * 16 * CK_LDC, lane);
+  const uint32_t b_b = tc::b_lane<CK_LDC>(ring + TC_BLOCK * CK_LDC, lane);
+  const uint32_t kg_bt = tc::bt_lane<CK_LDG>(kg, lane);
+
+  for (int step = 0; step < 2 * nsteps; ++step) {
+    tc::cp_async_wait<0>();
+    __syncthreads();   // this step's chunks landed for every thread; the last step's are free
+    if (step + 1 < 2 * nsteps) load_step(step + 1);
+    tc::cp_async_commit();
+    const int place = step / nchunks, t = place % ntiles, ch = step - place * nchunks;
+    const bool second = place >= ntiles;
+    if (ch == 0) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+    }
+    // S = q k^T and dP = dO v^T, 16 rows x 32 keys a warp, a chunk a step
+    const uint32_t st = (step % CK_STAGES) * STAGE;
+    if (ch < ncq) {
+      tc::mma_rows<CK_LDC, NT, CK_KC / 16>(s, a_a + st, b_b + st,
+                                            imin(tc::round16(p.dqk - ch * CK_KC), CK_KC) >> 4);
+    } else {
+      tc::mma_rows<CK_LDC, NT, CK_KC / 16>(
+          dp, a_a + st, b_b + st, imin(tc::round16(p.dvw - (ch - ncq) * CK_KC), CK_KC) >> 4);
+    }
+    if (ch + 1 < nchunks) continue;
+
+    // P from the LSE with S - LSE in fp64, zero past Nq and Nk; the first
+    // pass sums P * dP into Di, the second forms dS = P (dP - Di), which
+    // (fp32) replaces the bias in the tile the thread read it from
+    const int k0 = t * TC_TILE;
+    float* bt = bs + (place & 1) * TC_BLOCK * TC_LDQ;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = r0 + 8 * hr, col = j * 8 + 2 * c;
+        float* slot = bt + row * TC_LDQ + col;
+        const float2 bv = p.bias ? *reinterpret_cast<const float2*>(slot) : make_float2(0.f, 0.f);
+        const bool row_ok = q0 + row < p.nq;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = s[j][2 * hr + e] * p.scale + (e ? bv.y : bv.x);
+          const float pr = row_ok && k0 + col + e < p.nk
+                               ? __expf(static_cast<float>(static_cast<double>(x) - lse[hr]))
+                               : 0.f;
+          if (second) {
+            s[j][2 * hr + e] = pr * (dp[j][2 * hr + e] - di[hr]);
+          } else {
+            di[hr] = fmaf(pr, dp[j][2 * hr + e], di[hr]);
+          }
+        }
+        if (second && ds_out) {
+          *reinterpret_cast<float2*>(slot) = make_float2(s[j][2 * hr], s[j][2 * hr + 1]);
+        }
+      }
+    }
+    if (!second) {
+      if (place + 1 == ntiles) {   // the first pass is done: Di of the rows, whole
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          di[hr] += __shfl_xor_sync(0xffffffffu, di[hr], 1);
+          di[hr] += __shfl_xor_sync(0xffffffffu, di[hr], 2);
+          const int qi = q0 + r0 + 8 * hr;
+          if (split == 0 && c == 0 && qi < p.nq) p.di[bh * p.nq + qi] = di[hr];
+        }
+      }
+      continue;
+    }
+    if (ds_out) {   // the warp's 16 rows, a lane a key: whole 128-byte runs
+      __syncwarp();
+#pragma unroll 4
+      for (int rr = 0; rr < 16; ++rr) {
+        const int row = warp * 16 + rr, qi = q0 + row, kj = k0 + lane;
+        if (qi < p.nq && kj < p.nk) p.ds[(bh * p.nq + qi) * p.nk + kj] = bt[row * TC_LDQ + lane];
+      }
+    }
+    // dq += dS k over the group's columns, dS as bf16 A fragments
+    tc::mma_pv<CK_LDG, NT, DO>(dq, s, kg_bt + (place & 1) * GBUF, nq16);
+  }
+
+  // the group's columns of dq = scale dS k, staged through the warp's own
+  // rows of the ring (free once every warp is done with it)
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  bf16* stage = ring + warp * 16 * CK_LDG;
+#pragma unroll
+  for (int j = 0; j < 2 * DO; ++j) {
+    if (j < 2 * nq16) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8 * hr) * CK_LDG + j * 8 + 2 * c) =
+            __floats2bfloat162_rn(dq[j][2 * hr] * p.scale, dq[j][2 * hr + 1] * p.scale);
+      }
+    }
+  }
+  __syncwarp();
+  tc::store_rows<CK_LDG>(static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh + col0, p.dq_sn,
+                         stage, 16, q0 + warp * 16, p.nq, imin(p.dqk - col0, CK_DOUT), lane, 32);
+}
+
+// The key side, transposed: rows are the block's keys, columns a tile's
+// query rows. dk and dv in column groups of CK_DOUT, ceil(max(dqk, dv) /
+// CK_DOUT) blocks a key tile, each forming the same P^T and dS^T.
+__global__ void __launch_bounds__(TC_THREADS) bias_bwd_k_tc_chunked_kernel(Params p, int nsplit) {
+  using tc::bf16;
+  constexpr int NT = TC_TILE / 8, DO = CK_DOUT / 16;
+  constexpr uint32_t STAGE = (TC_BLOCK + TC_TILE) * CK_LDC * 2, GBUF = TC_TILE * CK_LDG * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);              // [STAGES][keys | rows]
+  bf16* qg = ring + CK_STAGES * (TC_BLOCK + TC_TILE) * CK_LDC;  // [2][TC_TILE][LDG]
+  bf16* dog = qg + 2 * TC_TILE * CK_LDG;                        // [2][TC_TILE][LDG]
+  float* bs = reinterpret_cast<float*>(dog + 2 * TC_TILE * CK_LDG);   // [2][TC_TILE][TC_LDK]
+  double* lse_s = reinterpret_cast<double*>(bs + 2 * TC_TILE * TC_LDK);  // [2][TC_TILE]
+  float* di_s = reinterpret_cast<float*>(lse_s + 2 * TC_TILE);           // [2][TC_TILE]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int col0 = (blockIdx.x % nsplit) * CK_DOUT;
+  const int k0 = (blockIdx.x / nsplit) * TC_BLOCK;
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int64_t bh = static_cast<int64_t>(b) * heads + h;
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dop = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int64_t bias_bh = b * p.bias_sb + h * p.bias_sh;
+  const int ncq = (p.dqk + CK_KC - 1) / CK_KC, nchunks = ncq + (p.dvw + CK_KC - 1) / CK_KC;
+  const int nsteps = (p.nq + TC_TILE - 1) / TC_TILE * nchunks;
+  // the group's 16-column steps of dk and of dv (none past a width)
+  const int nk16 = imin(tc::round16(p.dqk) - col0, CK_DOUT) >> 4;
+  const int nv16 = imin(tc::round16(p.dvw) - col0, CK_DOUT) >> 4;
+
+  auto load_step = [&](int s) {
+    const int t = s / nchunks, ch = s - t * nchunks, r0 = t * TC_TILE, buf = t & 1;
+    const bool qk = ch < ncq;
+    const int f0 = (qk ? ch : ch - ncq) * CK_KC, w = (qk ? p.dqk : p.dvw) - f0;
+    bf16* st = ring + (s % CK_STAGES) * (TC_BLOCK + TC_TILE) * CK_LDC;
+    tc::load_tile<TC_BLOCK, CK_LDC, CK_KC, TC_THREADS>(st, (qk ? kp : vp) + f0,
+                                                       qk ? p.k_sn : p.v_sn, k0, p.nk, w);
+    tc::load_tile<TC_TILE, CK_LDC, CK_KC, TC_THREADS>(st + TC_BLOCK * CK_LDC, (qk ? qp : dop) + f0,
+                                                      qk ? p.q_sn : p.do_sn, r0, p.nq, w);
+    if (ch == 0) {
+      tc::load_tile<TC_TILE, CK_LDG, CK_DOUT, TC_THREADS>(qg + buf * TC_TILE * CK_LDG, qp + col0,
+                                                          p.q_sn, r0, p.nq, p.dqk - col0);
+      tc::load_tile<TC_TILE, CK_LDG, CK_DOUT, TC_THREADS>(dog + buf * TC_TILE * CK_LDG,
+                                                          dop + col0, p.do_sn, r0, p.nq,
+                                                          p.dvw - col0);
+      if (p.bias) {
+        tc::load_bias_tile<TC_TILE, TC_BLOCK, TC_LDK, TC_THREADS>(
+            bs + buf * TC_TILE * TC_LDK, p.bias, p.bias_bf16, bias_bh, p.bias_sn, r0, k0, p.nq,
+            p.nk);
+      }
+      if (tid < TC_TILE) {
+        const bool ok = r0 + tid < p.nq;
+        tc::cp_async8(lse_s + buf * TC_TILE + tid, ok ? p.lse + bh * p.nq + r0 + tid : p.lse, ok);
+      } else if (tid < 2 * TC_TILE) {
+        const int i = tid - TC_TILE;
+        const bool ok = r0 + i < p.nq;
+        tc::cp_async4(di_s + buf * TC_TILE + i, ok ? p.di + bh * p.nq + r0 + i : p.di, ok);
+      }
+    }
+  };
+  load_step(0);
+  tc::cp_async_commit();
+
+  float dk[2 * DO][4], dv[2 * DO][4];
+#pragma unroll
+  for (int j = 0; j < 2 * DO; ++j) {
+    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+  }
+  float s[NT][4], dp[NT][4];
+  const int c0 = warp * 16 + g;   // this thread's keys c0 and c0 + 8 of the block
+  const uint32_t a_a = tc::a_lane<CK_LDC>(ring + warp * 16 * CK_LDC, lane);
+  const uint32_t b_b = tc::b_lane<CK_LDC>(ring + TC_BLOCK * CK_LDC, lane);
+  const uint32_t q_bt = tc::bt_lane<CK_LDG>(qg, lane), do_bt = tc::bt_lane<CK_LDG>(dog, lane);
+
+  for (int step = 0; step < nsteps; ++step) {
+    tc::cp_async_wait<0>();
+    __syncthreads();   // this step's chunks landed for every thread; the last step's are free
+    if (step + 1 < nsteps) load_step(step + 1);
+    tc::cp_async_commit();
+    const int t = step / nchunks, ch = step - t * nchunks, buf = t & 1;
+    if (ch == 0) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+    }
+    // S^T = k q^T and dP^T = v dO^T, 16 keys x 32 rows a warp, a chunk a step
+    const uint32_t st = (step % CK_STAGES) * STAGE;
+    if (ch < ncq) {
+      tc::mma_rows<CK_LDC, NT, CK_KC / 16>(s, a_a + st, b_b + st,
+                                            imin(tc::round16(p.dqk - ch * CK_KC), CK_KC) >> 4);
+    } else {
+      tc::mma_rows<CK_LDC, NT, CK_KC / 16>(
+          dp, a_a + st, b_b + st, imin(tc::round16(p.dvw - (ch - ncq) * CK_KC), CK_KC) >> 4);
+    }
+    if (ch + 1 < nchunks) continue;
+
+    // P^T (in s) and dS^T (in dp); zero past Nq and Nk
+    const int r0 = t * TC_TILE;
+    const float* bt = bs + buf * TC_TILE * TC_LDK;
+    const double* ls = lse_s + buf * TC_TILE;
+    const float* dis = di_s + buf * TC_TILE;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = c0 + 8 * (e >> 1), row = j * 8 + 2 * c + (e & 1);
+        const float x = s[j][e] * p.scale + (p.bias ? bt[row * TC_LDK + key] : 0.f);
+        const float pr = k0 + key < p.nk && r0 + row < p.nq
+                             ? __expf(static_cast<float>(static_cast<double>(x) - ls[row]))
+                             : 0.f;
+        s[j][e] = pr;
+        dp[j][e] = pr * (dp[j][e] - dis[row]);
+      }
+    }
+    // dv += P^T dO and dk += dS^T q over the group's columns. dS^T enters
+    // dk twice, as bf16 and as its bf16 rounding residual: each row of dS
+    // sums to 0, so sum_j dk_j = sum_i q_i sum_j dS_ij cancels exactly, and
+    // a gradient that reads that sum (a key projection's bias under grouped
+    // padding: the padded frames' share) keeps ~16 bits of dS instead of 8
+    tc::mma_pv<CK_LDG, NT, DO>(dv, s, do_bt + buf * GBUF, nv16);
+    tc::mma_pv<CK_LDG, NT, DO>(dk, dp, q_bt + buf * GBUF, nk16);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] -= __bfloat162float(__float2bfloat16_rn(dp[j][e]));
+    }
+    tc::mma_pv<CK_LDG, NT, DO>(dk, dp, q_bt + buf * GBUF, nk16);
+  }
+
+  // the group's columns of dk (scaled) and dv, staged through the warp's
+  // own rows of shared memory (free once every warp is done with it)
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  bf16* kst = ring + warp * 16 * CK_LDG;
+  bf16* vst = kst + TC_BLOCK * CK_LDG;
+#pragma unroll
+  for (int j = 0; j < 2 * DO; ++j) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int off = (g + 8 * hr) * CK_LDG + j * 8 + 2 * c;
+      if (j < 2 * nk16) {
+        *reinterpret_cast<__nv_bfloat162*>(kst + off) =
+            __floats2bfloat162_rn(dk[j][2 * hr] * p.scale, dk[j][2 * hr + 1] * p.scale);
+      }
+      if (j < 2 * nv16) {
+        *reinterpret_cast<__nv_bfloat162*>(vst + off) =
+            __floats2bfloat162_rn(dv[j][2 * hr], dv[j][2 * hr + 1]);
+      }
+    }
+  }
+  __syncwarp();
+  tc::store_rows<CK_LDG>(static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh + col0, p.dk_sn, kst,
+                         16, k0 + warp * 16, p.nk, imin(p.dqk - col0, CK_DOUT), lane, 32);
+  tc::store_rows<CK_LDG>(static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh + col0, p.dv_sn, vst,
+                         16, k0 + warp * 16, p.nk, imin(p.dvw - col0, CK_DOUT), lane, 32);
+}
+
+constexpr int WC_J = 16;                 // fp32: columns a thread of a column group of 256
+constexpr int WC_LW = 16 * WC_J + 1;     // row stride of its [16][256] tiles (odd)
+
+// fp32, query side: the LSE and Di of 16 rows, a chunk of the rows and of
+// the key tile, k's column group ([16][WC_LW] each), dS [16][17]. Key side:
+// the LSE and Di of the tile's rows, two chunks, q's and dO's column
+// groups, P^T and dS^T [16][17].
+constexpr size_t WC_Q_SMEM_FLOATS = 3 * WB + 3 * WB * WC_LW + WB * (WB + 1);
+constexpr size_t WC_K_SMEM_FLOATS = 3 * WB + 4 * WB * WC_LW + 2 * WB * (WB + 1);
+static_assert(TC_CKQ_SMEM <= MAX_SMEM && TC_CKK_SMEM <= MAX_SMEM &&
+                  WC_K_SMEM_FLOATS * sizeof(float) <= MAX_SMEM,
+              "the chunked kernels' blocks fit the 227 KB a block may use");
+
+// acc += a row of `as` (row ar) . a row of `bsm` (row br) over [0, width)
+__device__ __forceinline__ float row_dot(const float* as, int ar, const float* bsm, int br,
+                                         int width, float acc) {
+  const float* x = as + ar * WC_LW;
+  const float* y = bsm + br * WC_LW;
+  for (int f = 0; f < width; ++f) acc = fmaf(x[f], y[f], acc);
+  return acc;
+}
+
+// bias_bwd_q_wide_kernel with S and dP formed over chunks of 16 WC_J
+// features (a row of q against a row of k, then dO against v: one score a
+// thread) and dq in column groups of 16 WC_J, nsplit blocks a row tile, each
+// forming the same dS; the first writes Di and dS.
+__global__ void __launch_bounds__(W_THREADS) bias_bwd_q_chunked_kernel(Params p, int nsplit) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int FW = 16 * WC_J;
+  double* lse_s = reinterpret_cast<double*>(smem);   // [16]
+  float* di_s = smem + 2 * WB;                        // [16]
+  float* as = di_s + WB;                              // [16][WC_LW]: a chunk of the rows
+  float* bsm = as + WB * WC_LW;                       // [16][WC_LW]: a chunk of the key tile
+  float* kg = bsm + WB * WC_LW;                       // [16][WC_LW]: the tile's k group
+  float* dss = kg + WB * WC_LW;                       // [16][17]: dS of the tile
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int split = blockIdx.x % nsplit, col0 = split * FW;
+  const int q0 = (blockIdx.x / nsplit) * WB;
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int64_t bh = static_cast<int64_t>(b) * heads + h;
+  const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* op = static_cast<const float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* dop = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int64_t bias_bh = b * p.bias_sb + h * p.bias_sh;
+
+  // Di = rowsum(dO * O) of row ty over the half-warp, from device memory
+  // (written out for the key side), and the row's LSE
+  const int qi = q0 + ty;
+  {
+    float acc = 0.f;
+    if (qi < p.nq) {
+      for (int f = tx; f < p.dvw; f += 16) acc = fmaf(dop[qi * p.do_sn + f], op[qi * p.o_sn + f], acc);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (tx == 0) {
+      di_s[ty] = acc;
+      lse_s[ty] = qi < p.nq ? p.lse[bh * p.nq + qi] : 0.0;
+      if (split == 0 && qi < p.nq) p.di[bh * p.nq + qi] = acc;
+    }
+  }
+
+  float acc[WC_J];
+#pragma unroll
+  for (int j = 0; j < WC_J; ++j) acc[j] = 0.f;
+  for (int k0 = 0; k0 < p.nk; k0 += WB) {
+    // S and dP of (row ty, key tx) over the chunks; every copy follows a
+    // barrier after the last readers of its tile
+    float sc = 0.f, dp = 0.f;
+    for (int f0 = 0; f0 < p.dqk; f0 += FW) {
+      __syncthreads();
+      load_rows_wide<float, WC_J>(as, qp + f0, p.q_sn, q0, p.nq, p.dqk - f0);
+      load_rows_wide<float, WC_J>(bsm, kp + f0, p.k_sn, k0, p.nk, p.dqk - f0);
+      __syncthreads();
+      sc = row_dot(as, ty, bsm, tx, imin(FW, p.dqk - f0), sc);
+    }
+    for (int f0 = 0; f0 < p.dvw; f0 += FW) {
+      __syncthreads();
+      load_rows_wide<float, WC_J>(as, dop + f0, p.do_sn, q0, p.nq, p.dvw - f0);
+      load_rows_wide<float, WC_J>(bsm, vp + f0, p.v_sn, k0, p.nk, p.dvw - f0);
+      __syncthreads();
+      dp = row_dot(as, ty, bsm, tx, imin(FW, p.dvw - f0), dp);
+    }
+    load_rows_wide<float, WC_J>(kg, kp + col0, p.k_sn, k0, p.nk, p.dqk - col0);
+    // dS, zero past Nq and Nk
+    const int kj = k0 + tx;
+    float g = 0.f;
+    if (qi < p.nq && kj < p.nk) {
+      const float bv = p.bias ? load_bias(p, bias_bh + qi * p.bias_sn + kj) : 0.f;
+      const float pr = expf(static_cast<float>(static_cast<double>(sc * p.scale + bv) - lse_s[ty]));
+      g = pr * (dp - di_s[ty]);
+      if (split == 0 && p.ds) p.ds[(bh * p.nq + qi) * p.nk + kj] = g;
+    }
+    dss[ty * (WB + 1) + tx] = g;
+    __syncthreads();
+    for (int cc = 0; cc < WB; ++cc) {
+      const float gv = dss[ty * (WB + 1) + cc];
+      const float* krow = kg + cc * WC_LW + tx;
+#pragma unroll
+      for (int j = 0; j < WC_J; ++j) acc[j] = fmaf(gv, krow[16 * j], acc[j]);
+    }
+  }
+
+  // the group's columns of dq = scale dS k
+  if (qi < p.nq) {
+    float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh + qi * p.dq_sn + col0;
+#pragma unroll
+    for (int j = 0; j < WC_J; ++j) {
+      const int d = tx + 16 * j;
+      if (col0 + d < p.dqk) dq[d] = acc[j] * p.scale;
+    }
+  }
+}
+
+// bias_bwd_k_wide_kernel likewise: the scores of (key ty, row tx) over
+// chunks, dk and dv in column groups of 16 WC_J (ceil(max(dqk, dv) / FW)
+// blocks a key tile).
+__global__ void __launch_bounds__(W_THREADS) bias_bwd_k_chunked_kernel(Params p, int nsplit) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int FW = 16 * WC_J;
+  double* lse_s = reinterpret_cast<double*>(smem);   // [16]: the tile's rows
+  float* di_s = smem + 2 * WB;                        // [16]
+  float* as = di_s + WB;                              // [16][WC_LW]: a chunk of the keys
+  float* bsm = as + WB * WC_LW;                       // [16][WC_LW]: a chunk of the tile's rows
+  float* qg = bsm + WB * WC_LW;                       // [16][WC_LW]: the tile's q group
+  float* dog = qg + WB * WC_LW;                       // [16][WC_LW]: its dO group
+  float* pt = dog + WB * WC_LW;                       // [16][17]: P^T, [key][row]
+  float* dst = pt + WB * (WB + 1);                    // [16][17]: dS^T
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int col0 = (blockIdx.x % nsplit) * FW;
+  const int k0 = (blockIdx.x / nsplit) * WB;
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int64_t bh = static_cast<int64_t>(b) * heads + h;
+  const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dop = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int64_t bias_bh = b * p.bias_sb + h * p.bias_sh;
+
+  float dk[WC_J], dv[WC_J];
+#pragma unroll
+  for (int j = 0; j < WC_J; ++j) dk[j] = dv[j] = 0.f;
+  const int kj = k0 + ty;
+  for (int q0 = 0; q0 < p.nq; q0 += WB) {
+    float sc = 0.f, dp = 0.f;
+    for (int f0 = 0; f0 < p.dqk; f0 += FW) {
+      __syncthreads();
+      load_rows_wide<float, WC_J>(as, kp + f0, p.k_sn, k0, p.nk, p.dqk - f0);
+      load_rows_wide<float, WC_J>(bsm, qp + f0, p.q_sn, q0, p.nq, p.dqk - f0);
+      __syncthreads();
+      sc = row_dot(as, ty, bsm, tx, imin(FW, p.dqk - f0), sc);
+    }
+    for (int f0 = 0; f0 < p.dvw; f0 += FW) {
+      __syncthreads();
+      load_rows_wide<float, WC_J>(as, vp + f0, p.v_sn, k0, p.nk, p.dvw - f0);
+      load_rows_wide<float, WC_J>(bsm, dop + f0, p.do_sn, q0, p.nq, p.dvw - f0);
+      __syncthreads();
+      dp = row_dot(as, ty, bsm, tx, imin(FW, p.dvw - f0), dp);
+    }
+    load_rows_wide<float, WC_J>(qg, qp + col0, p.q_sn, q0, p.nq, p.dqk - col0);
+    load_rows_wide<float, WC_J>(dog, dop + col0, p.do_sn, q0, p.nq, p.dvw - col0);
+    if (tid < WB) {
+      lse_s[tid] = q0 + tid < p.nq ? p.lse[bh * p.nq + q0 + tid] : 0.0;
+    } else if (tid < 2 * WB) {
+      di_s[tid - WB] = q0 + tid - WB < p.nq ? p.di[bh * p.nq + q0 + tid - WB] : 0.f;
+    }
+    __syncthreads();
+
+    // P and dS of (key ty, row tx), zero past Nq and Nk
+    const int qi = q0 + tx;
+    float pr = 0.f;
+    if (qi < p.nq && kj < p.nk) {
+      const float bv = p.bias ? load_bias(p, bias_bh + qi * p.bias_sn + kj) : 0.f;
+      pr = expf(static_cast<float>(static_cast<double>(sc * p.scale + bv) - lse_s[tx]));
+    }
+    pt[ty * (WB + 1) + tx] = pr;
+    dst[ty * (WB + 1) + tx] = pr * (dp - di_s[tx]);
+    __syncthreads();
+    for (int r = 0; r < WB; ++r) {
+      const float pv = pt[ty * (WB + 1) + r], gv = dst[ty * (WB + 1) + r];
+      const float* orow = dog + r * WC_LW + tx;
+      const float* qrow = qg + r * WC_LW + tx;
+#pragma unroll
+      for (int j = 0; j < WC_J; ++j) {
+        dv[j] = fmaf(pv, orow[16 * j], dv[j]);
+        dk[j] = fmaf(gv, qrow[16 * j], dk[j]);
+      }
+    }
+  }
+
+  // the group's columns of dk (scaled) and dv
+  if (kj < p.nk) {
+    float* dkp = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh + kj * p.dk_sn + col0;
+    float* dvp = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh + kj * p.dv_sn + col0;
+#pragma unroll
+    for (int j = 0; j < WC_J; ++j) {
+      const int d = tx + 16 * j;
+      if (col0 + d < p.dqk) dkp[d] = dk[j] * p.scale;
+      if (col0 + d < p.dvw) dvp[d] = dv[j];
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 cudaError_t prepare(const void* fn, size_t bytes) {
@@ -1496,18 +2095,36 @@ cudaError_t launch_wide(const Params& p, int batch, int heads, cudaStream_t stre
 // widths past 128 take the wide kernels
 inline bool wide_fp32(int dqk, int dvw) { return imax(dqk, dvw) > 128; }
 
+// a chunked pair: the query side over nsplit groups of dq's columns, then
+// the key side (which reads the Di the query side writes: same stream, so
+// in order) over the groups of dk's and dv's
+cudaError_t launch_chunked_pair(void (*fq)(Params, int), size_t qb, void (*fk)(Params, int),
+                                size_t kb, int rows, int nthreads, int group, const Params& p,
+                                int batch, int heads, cudaStream_t stream) {
+  cudaError_t err = prepare(reinterpret_cast<const void*>(fq), qb);
+  if (err != cudaSuccess) return err;
+  const int qsplit = (p.dqk + group - 1) / group, ksplit = (imax(p.dqk, p.dvw) + group - 1) / group;
+  fq<<<dim3((p.nq + rows - 1) / rows * qsplit, heads, batch), nthreads, qb, stream>>>(p, qsplit);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = prepare(reinterpret_cast<const void*>(fk), kb);
+  if (err != cudaSuccess) return err;
+  fk<<<dim3((p.nk + rows - 1) / rows * ksplit, heads, batch), nthreads, kb, stream>>>(p, ksplit);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stream) {
-  if (p.dqk > MAX_WIDTH || p.dvw > MAX_WIDTH) return cudaErrorInvalidValue;
+  if (fma_chunked(p.dqk, p.dvw)) {
+    return launch_chunked_pair(bias_bwd_q_chunked_kernel, WC_Q_SMEM_FLOATS * sizeof(float),
+                               bias_bwd_k_chunked_kernel, WC_K_SMEM_FLOATS * sizeof(float), WB,
+                               W_THREADS, 16 * WC_J, p, batch, heads, stream);
+  }
   if (wide_fp32(p.dqk, p.dvw)) {
     switch (jw_for(imax(p.dqk, p.dvw))) {
       case 9: return launch_wide<9>(p, batch, heads, stream);
       case 12: return launch_wide<12>(p, batch, heads, stream);
       default: return launch_wide<16>(p, batch, heads, stream);
     }
-  }
-  if (q_smem_floats(p.dqk, p.dvw) * sizeof(float) > MAX_SMEM ||
-      k_smem_floats(p.dqk, p.dvw) * sizeof(float) > MAX_SMEM) {
-    return cudaErrorInvalidValue;
   }
   // the key-side pass reads the Di that the query-side pass writes: same
   // stream, so in order
@@ -1527,13 +2144,9 @@ cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stre
   }
 }
 
-inline int tc_max_width(const Params& p) {
-  return imax(tc::round16(p.dqk), tc::round16(p.dvw));
-}
-
-// the padded width of the tensor-core kernels' shared tiles
+// the padded width of the tensor-core kernels' shared tiles, up to WHOLE_WIDTH
 inline int tc_dmax(int dqk, int dvw) {
-  const int d = imax(tc::round16(dqk), tc::round16(dvw));
+  const int d = tc_width(dqk, dvw);
   return d <= 64 ? 64 : d <= 128 ? 128 : d <= 144 ? 144 : 256;
 }
 
@@ -1553,7 +2166,7 @@ cudaError_t launch_tc_d(const Params& p, int batch, int heads, cudaStream_t stre
   // the key-side pass reads the Di the query-side pass writes: same stream
   err = prepare(fk, kb);
   if (err != cudaSuccess) return err;
-  const int ksplit = (tc_max_width(p) + DOUT - 1) / DOUT;
+  const int ksplit = (tc_width(p.dqk, p.dvw) + DOUT - 1) / DOUT;
   bias_bwd_k_tc_kernel<DMAX, DOUT>
       <<<dim3((p.nk + TC_BLOCK - 1) / TC_BLOCK * ksplit, heads, batch), TC_THREADS, kb,
          stream>>>(p, ksplit);
@@ -1570,12 +2183,12 @@ cudaError_t launch_fused(const Params& p, int batch, int heads, cudaStream_t str
 
 cudaError_t launch_bf16(const Params& p, int batch, int heads, cudaStream_t stream) {
   if (fused_applies(p)) return launch_fused(p, batch, heads, stream);
-  const int dmax = tc_dmax(p.dqk, p.dvw);
-  if (p.dqk > MAX_WIDTH || p.dvw > MAX_WIDTH || tc_q_smem_bytes(dmax) > MAX_SMEM ||
-      tc_k_smem_bytes(dmax) > MAX_SMEM) {
-    return cudaErrorInvalidValue;
+  if (tc_chunked(p.dqk, p.dvw)) {
+    return launch_chunked_pair(bias_bwd_q_tc_chunked_kernel, TC_CKQ_SMEM,
+                               bias_bwd_k_tc_chunked_kernel, TC_CKK_SMEM, TC_BLOCK, TC_THREADS,
+                               CK_DOUT, p, batch, heads, stream);
   }
-  switch (dmax) {
+  switch (tc_dmax(p.dqk, p.dvw)) {
     case 64: return launch_tc_d<64, 64>(p, batch, heads, stream);
     case 128: return launch_tc_d<128, 128>(p, batch, heads, stream);
     case 144: return launch_tc_d<144, 144>(p, batch, heads, stream);
@@ -1617,23 +2230,38 @@ int ecf_bias_attention_bwd(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory a block of each backward kernel on the route for
-// `dtype` takes at these sizes, in bytes: the query side's (or the one-pass
-// kernel's) in the low 32 bits, the key side's in the high (0 for the one
-// pass). ptxas reports none: it is sized at launch.
-long long ecf_bias_attention_bwd_smem(int dtype, int nq, int nk, int dqk, int dvw) {
-  Params p{};
-  p.nq = nq, p.nk = nk, p.dqk = dqk, p.dvw = dvw;
-  if (dtype == 1 && fused_applies(p)) return static_cast<long long>(FU_SMEM);
-  if (dtype == 0 && wide_fp32(dqk, dvw)) {
-    const long long w = wide_smem_floats(jw_for(imax(dqk, dvw))) * sizeof(float);
-    return w | (w << 32);
-  }
-  const size_t q = dtype == 1 ? tc_q_smem_bytes(tc_dmax(dqk, dvw))
-                              : q_smem_floats(dqk, dvw) * sizeof(float);
-  const size_t k = dtype == 1 ? tc_k_smem_bytes(tc_dmax(dqk, dvw))
-                              : k_smem_floats(dqk, dvw) * sizeof(float);
-  return static_cast<long long>(q) | (static_cast<long long>(k) << 32);
+// The kernels the route for `dtype` runs at these sizes: 0 the FMA pair,
+// 1 the chunked FMA pair, 4 the wide FMA pair (fp32); 2 the tensor-core
+// pair, 3 the chunked tensor-core pair, 5 the one-pass kernel (bf16).
+int ecf_bias_attention_bwd_route(int dtype, int nq, int nk, int dqk, int dvw) {
+  if (dtype == 1 && fused_fits(nq, nk, dqk, dvw)) return 5;
+  if (dtype == 1 && tc_chunked(dqk, dvw)) return 3;
+  if (dtype == 1) return 2;
+  if (fma_chunked(dqk, dvw)) return 1;
+  if (wide_fp32(dqk, dvw)) return 4;
+  return 0;
+}
+
+// Dynamic shared memory a block of that route's query-side pass (or of the
+// one-pass kernel) takes at these sizes, in bytes (ptxas reports none: it
+// is sized at launch)
+size_t ecf_bias_attention_bwd_q_smem(int dtype, int nq, int nk, int dqk, int dvw) {
+  if (dtype == 1 && fused_fits(nq, nk, dqk, dvw)) return FU_SMEM;
+  if (dtype == 1 && tc_chunked(dqk, dvw)) return TC_CKQ_SMEM;
+  if (dtype == 1) return tc_q_smem_bytes(tc_dmax(dqk, dvw));
+  if (fma_chunked(dqk, dvw)) return WC_Q_SMEM_FLOATS * sizeof(float);
+  if (wide_fp32(dqk, dvw)) return wide_smem_floats(jw_for(imax(dqk, dvw))) * sizeof(float);
+  return q_smem_floats(dqk, dvw) * sizeof(float);
+}
+
+// ... and of its key-side pass (0: the one-pass kernel has none)
+size_t ecf_bias_attention_bwd_k_smem(int dtype, int nq, int nk, int dqk, int dvw) {
+  if (dtype == 1 && fused_fits(nq, nk, dqk, dvw)) return 0;
+  if (dtype == 1 && tc_chunked(dqk, dvw)) return TC_CKK_SMEM;
+  if (dtype == 1) return tc_k_smem_bytes(tc_dmax(dqk, dvw));
+  if (fma_chunked(dqk, dvw)) return WC_K_SMEM_FLOATS * sizeof(float);
+  if (wide_fp32(dqk, dvw)) return wide_smem_floats(jw_for(imax(dqk, dvw))) * sizeof(float);
+  return k_smem_floats(dqk, dvw) * sizeof(float);
 }
 
 const char* ecf_cuda_error_string(int err) {

@@ -50,14 +50,36 @@
 //     sits feature-major (4 rows are one 16-byte load); keys and values
 //     stream in tiles of 64; each thread owns a 4 x 4 tile of scores.
 //
-// Widths: dqk and dv up to 256 on both routes, as the TPU kernels take any
-// width that fits VMEM (the grouped head width 135 of the Efficient
-// Conformer Medium/Large's stage 1 among them). The FMA kernel holds up to
-// 16 output columns a thread (219 KB of shared memory at 256). The
-// tensor-core kernel is instantiated at padded widths 64, 128, 144 and 256;
-// at 256 its 64 fp32 accumulators a thread cover 128 output columns, so
-// two blocks share a query tile, each forming the same S and its own half
-// of O, and q's fragments are read from shared memory at each key tile.
+// Widths up to 256 (bf16: padded to 16) on both routes as above. The FMA
+// kernel holds up to 16 output columns a thread (219 KB of shared memory at
+// 256). The tensor-core kernel is instantiated at padded widths 64, 128,
+// 144 and 256; at 256 its 64 fp32 accumulators a thread cover 128 output
+// columns, so two blocks share a query tile, each forming the same S and
+// its own half of O, and q's fragments are read from shared memory at each
+// key tile.
+//
+// Past 256 the TPU kernels go on as before (they pad dqk and dv to 128
+// lanes and take any width that fits VMEM), but here neither the rows of q,
+// k and v whole in shared memory nor 16 output columns a thread fit any
+// more. Two chunked kernels take every wider width, dqk and dv
+// independently, at no more shared memory than at 256:
+//   * bf16, bias_fwd_tc_chunked_kernel: S = q k^T streamed in chunks of 64
+//     features (a q chunk of the block's 64 rows and a k chunk of the key
+//     tile, double-buffered with cp.async), the online softmax as above,
+//     and O in column groups of 128: each group is a block of its own that
+//     forms the same S (the 256 kernel's split, generalised) and reads only
+//     its group's columns of V. 64 KB a block at any width.
+//   * fp32, bias_fwd_chunked_kernel: the FMA kernel's tiles with q and k
+//     streamed in chunks of 64 features and O in column groups of 128
+//     (8 columns a thread); 82 KB a block at any width.
+// What bounds them: the bytes still, at the shapes the encoders give (head
+// 270 at N 118-134: q, k, v, O and the fp32 bias ~40 MB a call at 32 slots
+// x 4 heads, 0.012 ms at 3.35 TB/s), but they recompute S once a column
+// group and read q again at every key tile (from L2): ceil(dv / 128) times
+// the score products, and q Nk / 32 (bf16) or Nk / 64 (fp32) times. A
+// block that wrote P once for every group to read would trade the
+// recomputation for an (Nq, Nk) round trip through device memory; at
+// these widths S is at most half a group's work, so the groups recompute.
 //
 // Both read the bias once, through its own strides: a broadcast
 // (B|1, H|1, Nq|1, Nk) bias or a key mask is never expanded. Keys past Nk
@@ -87,7 +109,7 @@ constexpr int NTHREADS = 256;   // a 16 x 16 grid: ty owns 4 rows, tx 4 key colu
 constexpr int LDQ = BQ + 4;     // qT row stride: [feature][query row], 16-byte rows
 constexpr int LDP = BQ + 4;     // psT row stride: [key][query row], 16-byte rows
 constexpr int LDK = BK + 1;     // kT row stride: [feature][key], odd for the stores
-constexpr int MAX_WIDTH = 256;
+constexpr int WHOLE_WIDTH = 256;   // widest dqk and dv the kernels that hold a row whole take
 constexpr size_t MAX_SMEM = 232448;  // 227 KB a block may use on sm_90
 
 static_assert(NTHREADS == 16 * 16 && BQ == 4 * 16 && BK == 4 * 16, "thread grid");
@@ -296,7 +318,7 @@ constexpr int TC_LDB = TC_BK + 8;  // bias tile row stride (floats): a half-warp
 // bytes of shared memory at padded width dmax: q and the stages of k and v
 // (bf16, rows of dmax + 8) and of the fp32 bias tile
 __host__ __device__ constexpr size_t tc_smem_bytes(int dmax) {
-  return static_cast<size_t>(TC_BQ + 2 * TC_STAGES * TC_BK) * (dmax + 8) * sizeof(__nv_bfloat16) +
+  return static_cast<size_t>(TC_BQ + 2 * TC_STAGES * TC_BK) * (dmax + 8) * sizeof(tc::bf16) +
          TC_STAGES * static_cast<size_t>(TC_BQ) * TC_LDB * sizeof(float);
 }
 
@@ -487,6 +509,341 @@ __global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_kernel(Params p, int n
                      stage + col0, 16, q0 + warp * 16, p.nq, width, lane, 32);
 }
 
+// ------------------------------------------- past a width of 256: chunked
+
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+
+// the padded width the tensor-core kernels see: the wider of dqk and dv,
+// each rounded up to 16
+__host__ __device__ inline int tc_width(int dqk, int dv) {
+  return tc::round16(dqk) > tc::round16(dv) ? tc::round16(dqk) : tc::round16(dv);
+}
+__host__ __device__ inline bool tc_chunked(int dqk, int dv) { return tc_width(dqk, dv) > WHOLE_WIDTH; }
+__host__ __device__ inline bool fma_chunked(int dqk, int dv) { return dqk > WHOLE_WIDTH || dv > WHOLE_WIDTH; }
+
+constexpr int CK_KC = 64;            // features of a streamed chunk of q and k
+constexpr int CK_LDC = CK_KC + 8;    // its bf16 row stride (16 bytes of padding)
+constexpr int CK_DOUT = 128;         // output columns a block owns: a column group
+constexpr int CK_LDG = CK_DOUT + 8;  // bf16 row stride of a column group's tile
+constexpr int CK_STAGES = 2;         // chunk stages in the ring
+
+// bf16 (2 bytes): the ring of (q chunk [64][LDC], k chunk [32][LDC])
+// stages, and for two key tiles the V column group [32][LDG] and the fp32
+// bias tile
+constexpr size_t TC_CK_SMEM = static_cast<size_t>(CK_STAGES) * (TC_BQ + TC_BK) * CK_LDC * 2 +
+                              2 * (static_cast<size_t>(TC_BK) * CK_LDG * 2 +
+                                   static_cast<size_t>(TC_BQ) * TC_LDB * sizeof(float));
+
+// O in column groups of CK_DOUT, nsplit blocks a query tile; the first
+// writes the LSE. The steps of the ring walk (key tile t, chunk c): a
+// step's q and k chunks land while the previous step's products run; the
+// first chunk of a tile also brings its V group and bias tile, into the
+// tile's own buffers (t & 1), which the tile's last step reads.
+__global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_chunked_kernel(Params p, int nsplit) {
+  using tc::bf16;
+  constexpr int NT = TC_BK / 8, DO = CK_DOUT / 16;
+  constexpr uint32_t STAGE = (TC_BQ + TC_BK) * CK_LDC * 2, VBUF = TC_BK * CK_LDG * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);               // [STAGES][q | k]
+  bf16* vg = ring + CK_STAGES * (TC_BQ + TC_BK) * CK_LDC;      // [2][TC_BK][LDG]
+  float* bs = reinterpret_cast<float*>(vg + 2 * TC_BK * CK_LDG);  // [2][TC_BQ][TC_LDB]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int split = blockIdx.x % nsplit, col0 = split * CK_DOUT;
+  const int q0 = (blockIdx.x / nsplit) * TC_BQ, h = blockIdx.y, b = blockIdx.z;
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int64_t bias_bh = b * p.bias_sb + h * p.bias_sh;
+  const int nchunks = (p.dqk + CK_KC - 1) / CK_KC;
+  const int nsteps = (p.nk + TC_BK - 1) / TC_BK * nchunks;
+  const int nv = imin(tc::round16(p.dv) - col0, CK_DOUT) >> 4;   // the group's 16-column steps
+
+  auto load_step = [&](int s) {
+    const int t = s / nchunks, f0 = (s - t * nchunks) * CK_KC, k0 = t * TC_BK;
+    bf16* st = ring + (s % CK_STAGES) * (TC_BQ + TC_BK) * CK_LDC;
+    tc::load_tile<TC_BQ, CK_LDC, CK_KC, TC_THREADS>(st, qp + f0, p.q_sn, q0, p.nq, p.dqk - f0);
+    tc::load_tile<TC_BK, CK_LDC, CK_KC, TC_THREADS>(st + TC_BQ * CK_LDC, kp + f0, p.k_sn, k0,
+                                                    p.nk, p.dqk - f0);
+    if (f0 == 0) {
+      tc::load_tile<TC_BK, CK_LDG, CK_DOUT, TC_THREADS>(vg + (t & 1) * TC_BK * CK_LDG, vp + col0,
+                                                        p.v_sn, k0, p.nk, p.dv - col0);
+      if (p.bias) {
+        tc::load_bias_tile<TC_BQ, TC_BK, TC_LDB, TC_THREADS>(
+            bs + (t & 1) * TC_BQ * TC_LDB, p.bias, p.bias_bf16, bias_bh, p.bias_sn, q0, k0, p.nq,
+            p.nk);
+      }
+    }
+  };
+
+  load_step(0);
+  tc::cp_async_commit();
+  float o[2 * DO][4];
+#pragma unroll
+  for (int j = 0; j < 2 * DO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8 of the warp
+  float s[NT][4];
+  const int r0 = warp * 16 + g;
+  const uint32_t q_a = tc::a_lane<CK_LDC>(ring + warp * 16 * CK_LDC, lane);
+  const uint32_t k_b = tc::b_lane<CK_LDC>(ring + TC_BQ * CK_LDC, lane);
+  const uint32_t v_bt = tc::bt_lane<CK_LDG>(vg, lane);
+
+  for (int step = 0; step < nsteps; ++step) {
+    tc::cp_async_wait<0>();   // this step's chunks (and at a tile's first, its V and bias)
+    __syncthreads();          // ... for every thread; every warp is done with the last step
+    if (step + 1 < nsteps) load_step(step + 1);
+    tc::cp_async_commit();
+    const int t = step / nchunks, f0 = (step - t * nchunks) * CK_KC;
+    if (f0 == 0) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    }
+    // S += q k^T over this chunk, 16 rows x 32 keys a warp
+    const uint32_t st = (step % CK_STAGES) * STAGE;
+    tc::mma_rows<CK_LDC, NT, CK_KC / 16>(s, q_a + st, k_b + st,
+                                          imin(tc::round16(p.dqk - f0), CK_KC) >> 4);
+    if (f0 + CK_KC < p.dqk) continue;
+
+    // scale and bias, in the accumulator's layout; keys past Nk excluded
+    // outright. Rows past Nq keep a finite score (never written).
+    const int k0 = t * TC_BK;
+    const float* bt = bs + (t & 1) * TC_BQ * TC_LDB;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int col = j * 8 + 2 * c;
+        float2 bv = make_float2(0.f, 0.f);
+        if (p.bias) bv = *reinterpret_cast<const float2*>(bt + (r0 + 8 * hr) * TC_LDB + col);
+        s[j][2 * hr] = k0 + col < p.nk ? s[j][2 * hr] * p.scale + bv.x : -INFINITY;
+        s[j][2 * hr + 1] = k0 + col + 1 < p.nk ? s[j][2 * hr + 1] * p.scale + bv.y : -INFINITY;
+      }
+    }
+    // online softmax; the four lanes of a quad share a row
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // a tile of -inf scores
+      const float alpha = __expf(m[hr] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][2 * hr] = __expf(s[j][2 * hr] - m_use);
+        s[j][2 * hr + 1] = __expf(s[j][2 * hr + 1] - m_use);
+        sum += s[j][2 * hr] + s[j][2 * hr + 1];
+      }
+      l[hr] = l[hr] * alpha + sum;   // this lane's part; the quad is summed at the end
+      m[hr] = m_new;
+#pragma unroll
+      for (int j = 0; j < 2 * DO; ++j) {
+        o[j][2 * hr] *= alpha;
+        o[j][2 * hr + 1] *= alpha;
+      }
+    }
+    // O += P v over the group's columns, P as bf16 A fragments from the registers
+    tc::mma_pv<CK_LDG, NT, DO>(o, s, v_bt + (t & 1) * VBUF, nv);
+  }
+
+  // normalise; the group's columns of O staged through the warp's own rows
+  // of the ring (free once every warp is done with it) to whole-row
+  // stores; the LSE in fp64, from the first block of the query tile
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  bf16* stage = ring + warp * 16 * CK_LDG;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    const float inv = 1.f / l[hr];
+#pragma unroll
+    for (int j = 0; j < 2 * DO; ++j) {
+      if (j < 2 * nv) {
+        *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8 * hr) * CK_LDG + j * 8 + 2 * c) =
+            __floats2bfloat162_rn(o[j][2 * hr] * inv, o[j][2 * hr + 1] * inv);
+      }
+    }
+    const int qi = q0 + r0 + 8 * hr;
+    if (split == 0 && c == 0 && qi < p.nq) {
+      p.lse[(static_cast<int64_t>(b) * gridDim.y + h) * p.nq + qi] =
+          static_cast<double>(m[hr]) + log(static_cast<double>(l[hr]));
+    }
+  }
+  __syncwarp();
+  tc::store_rows<CK_LDG>(static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh + col0, p.o_sn, stage,
+                         16, q0 + warp * 16, p.nq, imin(p.dv - col0, CK_DOUT), lane, 32);
+}
+
+constexpr int FC_KC = 64;     // fp32: features of a streamed chunk of q and k
+constexpr int FC_JMAX = 8;    // fp32: output columns a thread, a column group of 16 FC_JMAX
+
+// fp32: the q and k chunks (feature-major), the V column group and P
+constexpr size_t FC_SMEM_FLOATS = static_cast<size_t>(FC_KC) * LDQ + FC_KC * LDK +
+                                  BK * 16 * FC_JMAX + BK * LDP;
+static_assert(FC_KC * LDK % 4 == 0, "V's region starts 16-byte aligned");
+static_assert(TC_CK_SMEM <= MAX_SMEM && FC_SMEM_FLOATS * sizeof(float) <= MAX_SMEM &&
+                  tc_smem_bytes(WHOLE_WIDTH) <= MAX_SMEM,
+              "every route's block fits the 227 KB a block may use");
+
+// bias_fwd_kernel<float, FC_JMAX> with q and k streamed in chunks of FC_KC
+// features (a barrier a chunk) and O in column groups of 16 FC_JMAX, nsplit
+// blocks a query tile, each forming the same S; the first writes the LSE.
+__global__ void __launch_bounds__(NTHREADS) bias_fwd_chunked_kernel(Params p, int nsplit) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int DVP = 16 * FC_JMAX;             // a column group
+  float* qT = smem;                              // FC_KC x LDQ: q^T of a chunk of the rows
+  float* kT = qT + FC_KC * LDQ;                  // FC_KC x LDK: k^T of a chunk of the key tile
+  float* vs = kT + FC_KC * LDK;                  // BK x DVP: the tile's V group, zero-padded
+  float* psT = vs + BK * DVP;                    // BK x LDP: the probabilities, key-major
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const int warp = tid / 32, lane = tid % 32;
+  const int split = blockIdx.x % nsplit, col0 = split * DVP;
+  const int q0 = (blockIdx.x / nsplit) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh + col0;
+  const int64_t bias_bh = b * p.bias_sb + h * p.bias_sh;
+
+  float m[4], l[4], o[4][FC_JMAX];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < FC_JMAX; ++j) o[i][j] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < p.nk; k0 += BK) {
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) s[i][cc] = 0.f;
+    // S over the chunks; the readers of the last chunk (or tile) finished
+    // at the barrier before each copy
+    for (int f0 = 0; f0 < p.dqk; f0 += FC_KC) {
+      const int fw = imin(FC_KC, p.dqk - f0);
+      if (f0) __syncthreads();
+      for (int r = warp; r < BQ; r += NTHREADS / 32) {
+        const int qi = q0 + r;
+        const bool ok = qi < p.nq;
+        for (int d = lane; d < fw; d += 32) qT[d * LDQ + r] = ok ? qp[qi * p.q_sn + f0 + d] : 0.f;
+      }
+      for (int cc = warp; cc < BK; cc += NTHREADS / 32) {
+        const int kj = k0 + cc;
+        const bool ok = kj < p.nk;
+        for (int d = lane; d < fw; d += 32) kT[d * LDK + cc] = ok ? kp[kj * p.k_sn + f0 + d] : 0.f;
+        if (f0 == 0) {
+          for (int d = lane; d < DVP; d += 32) {
+            vs[cc * DVP + d] = (ok && col0 + d < p.dv) ? vp[kj * p.v_sn + d] : 0.f;
+          }
+        }
+      }
+      __syncthreads();
+      const float* qt = qT + ty * 4;
+#pragma unroll 4
+      for (int d = 0; d < fw; ++d) {
+        const float4 a = *reinterpret_cast<const float4*>(qt + d * LDQ);
+        const float* krow = kT + d * LDK + tx;
+        const float b0 = krow[0], b1 = krow[16], b2 = krow[32], b3 = krow[48];
+        s[0][0] = fmaf(a.x, b0, s[0][0]); s[0][1] = fmaf(a.x, b1, s[0][1]);
+        s[0][2] = fmaf(a.x, b2, s[0][2]); s[0][3] = fmaf(a.x, b3, s[0][3]);
+        s[1][0] = fmaf(a.y, b0, s[1][0]); s[1][1] = fmaf(a.y, b1, s[1][1]);
+        s[1][2] = fmaf(a.y, b2, s[1][2]); s[1][3] = fmaf(a.y, b3, s[1][3]);
+        s[2][0] = fmaf(a.z, b0, s[2][0]); s[2][1] = fmaf(a.z, b1, s[2][1]);
+        s[2][2] = fmaf(a.z, b2, s[2][2]); s[2][3] = fmaf(a.z, b3, s[2][3]);
+        s[3][0] = fmaf(a.w, b0, s[3][0]); s[3][1] = fmaf(a.w, b1, s[3][1]);
+        s[3][2] = fmaf(a.w, b2, s[3][2]); s[3][3] = fmaf(a.w, b3, s[3][3]);
+      }
+    }
+
+    // scale and bias; keys past Nk excluded outright
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty * 4 + i;
+      const bool row_ok = qi < p.nq;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int kj = k0 + tx + 16 * cc;
+        if (kj >= p.nk) {
+          s[i][cc] = -INFINITY;
+        } else {
+          const float bv = (p.bias && row_ok) ? load_bias(p, bias_bh + qi * p.bias_sn + kj) : 0.f;
+          s[i][cc] = s[i][cc] * p.scale + bv;
+        }
+      }
+    }
+    // online softmax over the half-warp of a row group
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        s[i][cc] = expf(s[i][cc] - m_new);
+        sum += s[i][cc];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      const float alpha = expf(m[i] - m_new);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < FC_JMAX; ++j) o[i][j] *= alpha;
+    }
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      *reinterpret_cast<float4*>(psT + (tx + 16 * cc) * LDP + ty * 4) =
+          make_float4(s[0][cc], s[1][cc], s[2][cc], s[3][cc]);
+    }
+    __syncthreads();
+
+    // O += P V over this key tile and the group's columns
+    for (int cc = 0; cc < BK; ++cc) {
+      const float4 pr = *reinterpret_cast<const float4*>(psT + cc * LDP + ty * 4);
+      const float* vrow = vs + cc * DVP + tx;
+#pragma unroll
+      for (int j = 0; j < FC_JMAX; ++j) {
+        const float vv = vrow[16 * j];
+        o[0][j] = fmaf(pr.x, vv, o[0][j]);
+        o[1][j] = fmaf(pr.y, vv, o[1][j]);
+        o[2][j] = fmaf(pr.z, vv, o[2][j]);
+        o[3][j] = fmaf(pr.w, vv, o[3][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // normalise and write the group's columns of O, and the LSE (fp64)
+  float* op = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + col0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    if (qi >= p.nq) continue;
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int j = 0; j < FC_JMAX; ++j) {
+      const int d = tx + 16 * j;
+      if (col0 + d < p.dv) op[qi * p.o_sn + d] = o[i][j] * inv;
+    }
+    if (split == 0 && tx == 0) {
+      p.lse[(static_cast<int64_t>(b) * gridDim.y + h) * p.nq + qi] =
+          static_cast<double>(m[i]) + log(static_cast<double>(l[i]));
+    }
+  }
+}
+
 cudaError_t prepare(const void* fn, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
@@ -504,9 +861,23 @@ cudaError_t launch_j(const Params& p, int batch, int heads, size_t bytes, cudaSt
   return cudaGetLastError();
 }
 
+// the chunked kernels, nsplit column groups a query tile
+cudaError_t launch_chunked(void (*kernel)(Params, int), size_t bytes, int rows, int nthreads,
+                           int group, const Params& p, int batch, int heads, cudaStream_t stream) {
+  cudaError_t err = prepare(reinterpret_cast<const void*>(kernel), bytes);
+  if (err != cudaSuccess) return err;
+  const int nsplit = (p.dv + group - 1) / group;
+  const dim3 grid((p.nq + rows - 1) / rows * nsplit, heads, batch);
+  kernel<<<grid, nthreads, bytes, stream>>>(p, nsplit);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stream) {
+  if (fma_chunked(p.dqk, p.dv)) {
+    return launch_chunked(bias_fwd_chunked_kernel, FC_SMEM_FLOATS * sizeof(float), BQ, NTHREADS,
+                          16 * FC_JMAX, p, batch, heads, stream);
+  }
   const size_t bytes = smem_floats(p.dqk, p.dv) * sizeof(float);
-  if (p.dqk > MAX_WIDTH || p.dv > MAX_WIDTH || bytes > MAX_SMEM) return cudaErrorInvalidValue;
   switch (jmax_for(p.dv)) {
     case 2: return launch_j<2>(p, batch, heads, bytes, stream);
     case 4: return launch_j<4>(p, batch, heads, bytes, stream);
@@ -517,9 +888,9 @@ cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stre
   }
 }
 
-// the padded width of the tensor-core kernel's shared tiles
+// the padded width of the tensor-core kernel's shared tiles, up to WHOLE_WIDTH
 inline int tc_dmax(int dqk, int dv) {
-  const int d = tc::round16(dqk) > tc::round16(dv) ? tc::round16(dqk) : tc::round16(dv);
+  const int d = tc_width(dqk, dv);
   return d <= 64 ? 64 : d <= 128 ? 128 : d <= 144 ? 144 : 256;
 }
 
@@ -536,11 +907,11 @@ cudaError_t launch_tc_d(const Params& p, int batch, int heads, cudaStream_t stre
 }
 
 cudaError_t launch_bf16(const Params& p, int batch, int heads, cudaStream_t stream) {
-  const int dmax = tc_dmax(p.dqk, p.dv);
-  if (p.dqk > MAX_WIDTH || p.dv > MAX_WIDTH || tc_smem_bytes(dmax) > MAX_SMEM) {
-    return cudaErrorInvalidValue;
+  if (tc_chunked(p.dqk, p.dv)) {
+    return launch_chunked(bias_fwd_tc_chunked_kernel, TC_CK_SMEM, TC_BQ, TC_THREADS, CK_DOUT, p,
+                          batch, heads, stream);
   }
-  switch (dmax) {
+  switch (tc_dmax(p.dqk, p.dv)) {
     case 64: return launch_tc_d<64, 64>(p, batch, heads, stream);
     case 128: return launch_tc_d<128, 128>(p, batch, heads, stream);
     case 144: return launch_tc_d<144, 144>(p, batch, heads, stream);
@@ -575,11 +946,23 @@ int ecf_bias_attention_fwd(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory a block of the route for `dtype` takes at these
-// widths, in bytes (ptxas reports none: it is sized at launch).
-long long ecf_bias_attention_fwd_smem(int dtype, int dqk, int dv) {
-  if (dtype == 1) return static_cast<long long>(tc_smem_bytes(tc_dmax(dqk, dv)));
-  return static_cast<long long>(smem_floats(dqk, dv) * sizeof(float));
+// The kernel the route for `dtype` runs at these widths: 0 the FMA kernel,
+// 1 the chunked FMA kernel (fp32); 2 the tensor-core kernel, 3 the chunked
+// tensor-core kernel (bf16).
+int ecf_bias_attention_fwd_route(int dtype, int dqk, int dv) {
+  if (dtype == 1 && tc_chunked(dqk, dv)) return 3;
+  if (dtype == 1) return 2;
+  if (fma_chunked(dqk, dv)) return 1;
+  return 0;
+}
+
+// Dynamic shared memory a block of that kernel takes at these widths, in
+// bytes (ptxas reports none: it is sized at launch).
+size_t ecf_bias_attention_fwd_smem(int dtype, int dqk, int dv) {
+  if (dtype == 1 && tc_chunked(dqk, dv)) return TC_CK_SMEM;
+  if (dtype == 1) return tc_smem_bytes(tc_dmax(dqk, dv));
+  if (fma_chunked(dqk, dv)) return FC_SMEM_FLOATS * sizeof(float);
+  return smem_floats(dqk, dv) * sizeof(float);
 }
 
 const char* ecf_cuda_error_string(int err) {

@@ -116,6 +116,53 @@ __device__ __forceinline__ constexpr uint32_t blk(int i, int j) {
   return static_cast<uint32_t>((i * 16 * LD + j * 16) * 2);
 }
 
+// acc (16 rows x 8 NT columns) += A B^T over `ksteps` 16-wide feature steps
+// (at most KMAX): A the warp's 16 rows and B the product's columns, both
+// stored row-major over the features with row stride LD; a_addr and b_addr
+// are this lane's a_lane / b_lane addresses of their first feature step.
+template <int LD, int NT, int KMAX>
+__device__ __forceinline__ void mma_rows(float (&acc)[NT][4], uint32_t a_addr, uint32_t b_addr,
+                                         int ksteps) {
+#pragma unroll
+  for (int kk = 0; kk < KMAX; ++kk) {
+    if (kk < ksteps) {
+      uint32_t a[4];
+      ldsm_x4(a, a_addr + blk<LD>(0, kk));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_x4(bf, b_addr + blk<LD>(np, kk));
+        mma_bf16(acc[2 * np], a, bf[0], bf[1]);
+        mma_bf16(acc[2 * np + 1], a, bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// acc (16 rows x 16 DO columns) += P B over the 16 NT / 2 depth steps of P,
+// P the fp32 accumulators p (16 rows x 8 NT columns) rounded to bf16 A
+// fragments, B stored row-major [depth][column] with row stride LD (read
+// transposed, bt_addr this lane's bt_lane address); only the first `nsteps`
+// 16-column steps of B are formed.
+template <int LD, int NT, int DO>
+__device__ __forceinline__ void mma_pv(float (&acc)[2 * DO][4], const float (&p)[NT][4],
+                                       uint32_t bt_addr, int nsteps) {
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    uint32_t a[4];
+    acc_to_a(a, p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+    for (int n2 = 0; n2 < DO; ++n2) {
+      if (n2 < nsteps) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, bt_addr + blk<LD>(kk, n2));
+        mma_bf16(acc[2 * n2], a, bf[0], bf[1]);
+        mma_bf16(acc[2 * n2 + 1], a, bf[2], bf[3]);
+      }
+    }
+  }
+}
+
 // True when every row of a strided bf16 matrix can be copied in 16-byte
 // pieces: the base, the batch, head and row strides (in elements) and the
 // width are all multiples of 8 elements.

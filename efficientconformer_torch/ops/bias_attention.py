@@ -13,7 +13,7 @@ attention (models/attentions.py).
 Layout contract:
   q:     (B, H, Nq, dqk)
   k:     (B, H, Nk, dqk)
-  v:     (B, H, Nk, dv)           dv may differ from dqk; both at most 256
+  v:     (B, H, Nk, dv)           dv may differ from dqk; any widths
   bias:  (B or 1, H or 1, Nq or 1, Nk), fp32 or bf16, or None; a bias with
          one row and one head, (B or 1, 1, 1, Nk), is a key mask
 
@@ -23,7 +23,11 @@ for CPU tensors and its CUDA kernel (csrc/bias_attention_fwd.cu,
 csrc/bias_attention_bwd.cu) for CUDA tensors; it has no other path. On the
 card the inputs' type picks the route inside each kernel file, never a
 failure: bf16 runs the tensor-core kernels (mma.sync, bf16 tiles; counted
-in ``tc_launches``), fp32 the fp32 FMA kernels, which keep fp32 products. The
+in ``tc_launches``), fp32 the fp32 FMA kernels, which keep fp32 products.
+Past a width of 256 (bf16: padded to 16) each type takes its chunked
+kernels, which stream the features in chunks and form the outputs in column
+groups; ``route`` names the kernels each call runs and ``routes`` counts
+the calls by route. The
 forward returns (O in the dtype of q, LSE (B, H, Nq)) and saves the LSE for
 the backward kernel, which recomputes the probabilities from it; the plain
 backward recomputes them with a softmax, as the TPU launcher's _fused_bwd.
@@ -38,7 +42,9 @@ come out that many times too large. Scores and probabilities stay fp32.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 
@@ -46,8 +52,44 @@ from efficientconformer_torch.ops import _kernels
 
 KERNEL = "bias_attention_fwd"
 KERNEL_BWD = "bias_attention_bwd"
-MAX_WIDTH = 256       # widest dqk and dv the kernels take
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The kernel files' compile-time constants that size each route
+# (csrc/bias_attention_fwd.cu, csrc/bias_attention_bwd.cu; held to them by
+# tests/test_torch_port_bias_widths.py).
+SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90 (MAX_SMEM)
+WHOLE_WIDTH = 256     # widest dqk and dv (bf16: padded to 16) the kernels that hold a row whole take
+FMA_BQ = 64           # fp32: query rows (and keys) of a tile (BQ, BK)
+FMA_LDQ = 68          # fp32 forward's row strides: q^T, k^T, P^T (LDQ, LDK, LDP)
+FMA_LDK = 65
+FMA_LDP = 68
+FMA_LDV = 68          # fp32 backward's row strides (LDV, LDS)
+FMA_LDS = 65
+FMA_COLUMNS = ((32, 2), (64, 4), (96, 6), (128, 8), (192, 12), (256, 16))  # forward jmax_for
+FMA_BWD_COLUMNS = ((32, 2), (64, 4), (96, 6), (128, 8))   # backward jmax_for
+FMA_WIDE_COLUMNS = ((144, 9), (192, 12), (256, 16))        # jw_for, past 128
+FMA_WIDE_ROWS = 16    # rows (or keys) of the wide and chunked fp32 backward's tiles (WB)
+FMA_CHUNK = 64        # fp32 forward past WHOLE_WIDTH: features a chunk (FC_KC)
+FMA_CHUNK_COLUMNS = 8     # ... output columns a thread (FC_JMAX): column groups of 128
+FMA_WIDE_CHUNK_COLUMNS = 16   # fp32 backward past WHOLE_WIDTH: columns a thread (WC_J)
+TC_DMAX = (64, 128, 144, 256)   # padded widths of the tensor-core kernels
+TC_BQ = 64            # forward: query rows a block (TC_BQ)
+TC_BK = 32            # forward: keys a tile (TC_BK)
+TC_LDB = TC_BK + 8    # forward: bias tile row stride (TC_LDB)
+TC_STAGES = 2         # key tiles in the ring (TC_STAGES)
+TC_BLOCK = 64         # backward: rows (or keys) a block (TC_BLOCK)
+TC_TILE = 32          # backward: keys (or rows) a tile (TC_TILE)
+TC_LDQ = TC_TILE + 8  # backward's bias tile strides (TC_LDQ, TC_LDK)
+TC_LDK = TC_BLOCK + 4
+FU_N = 128            # the one-pass backward: most rows and keys (FU_N), widest head (FU_D)
+FU_D = 64
+FU_LD = FU_D + 8
+FU_LDC = 32 + 8
+CK_KC = 64            # bf16 past WHOLE_WIDTH: features a chunk (CK_KC)
+CK_LDC = CK_KC + 8
+CK_DOUT = 128         # ... output columns a block: a column group (CK_DOUT)
+CK_LDG = CK_DOUT + 8
+CK_STAGES = 2
 
 
 def _scores(q, k, bias, scale):
@@ -89,6 +131,139 @@ def fold_bias_grad(ds: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return (ds.sum(axes, keepdim=True) if axes else ds).to(bias.dtype)
 
 
+Route = collections.namedtuple("Route", "name kernels")
+Route.__doc__ = """The kernels a call runs: ``name`` ("fma", "fma_wide", "fma_chunked",
+"tc", "tc_chunked" or "fused") and ``kernels``, a (kernel, dynamic shared
+memory in bytes) pair for each kernel it launches, in order."""
+ROUTES_FWD = ("fma", "fma_chunked", "tc", "tc_chunked")   # ecf_bias_attention_fwd_route's codes
+ROUTES_BWD = ("fma", "fma_chunked", "tc", "tc_chunked", "fma_wide", "fused")
+
+
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def _columns(d: int, table) -> int:
+    return next((j for w, j in table if d <= w), table[-1][1])
+
+
+def tc_width(dqk: int, dv: int) -> int:
+    """The padded width the tensor-core kernels see: the wider of dqk and
+    dv, each rounded up to 16."""
+    return max(_round16(dqk), _round16(dv))
+
+
+def tc_dmax(dqk: int, dv: int) -> int:
+    """The padded width of the tensor-core kernels' shared tiles."""
+    return next(d for d in TC_DMAX if tc_width(dqk, dv) <= d or d == TC_DMAX[-1])
+
+
+def _tc_smem(rows: int, tiles: int, dmax: int) -> int:
+    return rows * (dmax + 8) * 2 + tiles
+
+
+def _r4(floats: int) -> int:
+    return (floats + 3) // 4 * 4
+
+
+def _fwd_route(dtype, dqk: int, dv: int) -> Route:
+    if dtype == torch.bfloat16 and tc_width(dqk, dv) > WHOLE_WIDTH:
+        ring = CK_STAGES * (TC_BQ + TC_BK) * CK_LDC * 2
+        return Route("tc_chunked", (("bias_fwd_tc_chunked_kernel",
+                                     ring + 2 * (TC_BK * CK_LDG * 2 + TC_BQ * TC_LDB * 4)),))
+    if dtype == torch.bfloat16:
+        d = tc_dmax(dqk, dv)
+        smem = _tc_smem(TC_BQ + 2 * TC_STAGES * TC_BK, TC_STAGES * TC_BQ * TC_LDB * 4, d)
+        return Route("tc", ((f"bias_fwd_tc_kernel<{d},{128 if d == 256 else d}>", smem),))
+    if max(dqk, dv) > WHOLE_WIDTH:
+        floats = FMA_CHUNK * (FMA_LDQ + FMA_LDK) + FMA_BQ * 16 * FMA_CHUNK_COLUMNS \
+            + FMA_BQ * FMA_LDP
+        return Route("fma_chunked", (("bias_fwd_chunked_kernel", 4 * floats),))
+    j = _columns(dv, FMA_COLUMNS)
+    floats = dqk * FMA_LDQ + _r4(dqk * FMA_LDK) + FMA_BQ * 16 * j + FMA_BQ * FMA_LDP
+    return Route("fma", ((f"bias_fwd_kernel<float,{j}>", 4 * floats),))
+
+
+def _bwd_route(dtype, nq: int, nk: int, dqk: int, dv: int) -> Route:
+    if dtype == torch.bfloat16:
+        if nq <= FU_N and nk <= FU_N and dqk <= FU_D and dv <= FU_D:
+            smem = 5 * FU_N * FU_LD * 2 + 2 * FU_N * FU_LDC * 2 + FU_N * 12
+            return Route("fused", (("bias_bwd_fused_tc_kernel", smem),))
+        if tc_width(dqk, dv) > WHOLE_WIDTH:
+            ring = CK_STAGES * (TC_BLOCK + TC_TILE) * CK_LDC * 2
+            q = ring + 2 * (TC_TILE * CK_LDG * 2 + TC_BLOCK * TC_LDQ * 4)
+            k = ring + 2 * (2 * TC_TILE * CK_LDG * 2 + TC_TILE * (TC_LDK * 4 + 12))
+            return Route("tc_chunked", (("bias_bwd_q_tc_chunked_kernel", q),
+                                        ("bias_bwd_k_tc_chunked_kernel", k)))
+        d = tc_dmax(dqk, dv)
+        out = 128 if d == 256 else d
+        q = _tc_smem((2 + TC_STAGES) * TC_BLOCK, TC_STAGES * TC_BLOCK * TC_LDQ * 4, d)
+        k = _tc_smem((2 + TC_STAGES) * TC_BLOCK, TC_STAGES * TC_TILE * (TC_LDK * 4 + 12), d)
+        return Route("tc", ((f"bias_bwd_q_tc_kernel<{d},{out}>", q),
+                            (f"bias_bwd_k_tc_kernel<{d},{out}>", k)))
+    wb = FMA_WIDE_ROWS
+    if max(dqk, dv) > WHOLE_WIDTH:
+        lw = 16 * FMA_WIDE_CHUNK_COLUMNS + 1
+        return Route("fma_chunked", (
+            ("bias_bwd_q_chunked_kernel", 4 * (3 * wb + 3 * wb * lw + wb * (wb + 1))),
+            ("bias_bwd_k_chunked_kernel", 4 * (3 * wb + 4 * wb * lw + 2 * wb * (wb + 1)))))
+    if max(dqk, dv) > 128:
+        j = _columns(max(dqk, dv), FMA_WIDE_COLUMNS)
+        smem = 4 * (3 * wb + 4 * wb * (16 * j + 1) + 2 * wb * (wb + 1))
+        return Route("fma_wide", ((f"bias_bwd_q_wide_kernel<float,{j}>", smem),
+                                  (f"bias_bwd_k_wide_kernel<float,{j}>", smem)))
+    jq, jd = _columns(dqk, FMA_BWD_COLUMNS), _columns(max(dqk, dv), FMA_BWD_COLUMNS)
+    q = dqk * FMA_LDV + dv * FMA_LDV + _r4(16 * jq * FMA_LDS) + _r4(dv * FMA_LDS) \
+        + FMA_BQ * FMA_LDV + 3 * FMA_BQ
+    k = dqk * FMA_LDV + dv * FMA_LDV + 2 * _r4(16 * jd * FMA_LDS) + _r4(FMA_BQ * FMA_LDS) \
+        + FMA_BQ * FMA_LDV + 3 * FMA_BQ
+    return Route("fma", ((f"bias_bwd_q_kernel<float,{jq}>", 4 * q),
+                         (f"bias_bwd_k_kernel<float,{jd}>", 4 * k)))
+
+
+@functools.lru_cache(maxsize=4096)
+def route(dtype, nq: int, nk: int, dqk: int, dv: int, backward: bool = False) -> Route:
+    """The kernels a call at these sizes runs in the forward (or the
+    backward) for ``dtype``, each with its dynamic shared memory, computed
+    from the kernel files' constants as they size them at launch. Every
+    width is taken: past WHOLE_WIDTH the chunked kernels. The widths are the
+    caller's; the bf16 rows ``_pad8`` pads to a multiple of 8 round up to
+    the same tiles."""
+    _check(dtype in _DTYPE_CODE, f"unsupported dtype {dtype}")
+    _check(min(nq, nk, dqk, dv) > 0, "empty input")
+    return _bwd_route(dtype, nq, nk, dqk, dv) if backward else _fwd_route(dtype, dqk, dv)
+
+
+def smem_bytes(dtype, n, dqk, dv):
+    """Dynamic shared memory a block of each kernel takes on the route for
+    ``dtype`` at Nq = Nk = n and these widths, in bytes: (forward, backward),
+    the backward a tuple of one entry per kernel it launches (the bf16 route
+    at N <= 128 and widths <= 64 runs one pass)."""
+    return (route(dtype, n, n, dqk, dv).kernels[0][1],
+            tuple(b for _, b in route(dtype, n, n, dqk, dv, True).kernels))
+
+
+def kernel_route(dtype, nq, nk, dqk, dv, backward=False) -> tuple:
+    """(route name, shared memory of each kernel) as the compiled kernel
+    files choose and size them (ecf_bias_attention_{fwd,bwd}_route and
+    _smem); builds the kernels if needed (a CUDA machine). ``route`` is held
+    to it on the card."""
+    code = _DTYPE_CODE[dtype]
+    if not backward:
+        lib = _kernels.load(KERNEL)
+        fn, smem = lib.ecf_bias_attention_fwd_route, lib.ecf_bias_attention_fwd_smem
+        fn.argtypes = smem.argtypes = [ctypes.c_int] * 3
+        fn.restype, smem.restype = ctypes.c_int, ctypes.c_size_t
+        return ROUTES_FWD[fn(code, dqk, dv)], (smem(code, dqk, dv),)
+    lib = _kernels.load(KERNEL_BWD)
+    fn = lib.ecf_bias_attention_bwd_route
+    q, k = lib.ecf_bias_attention_bwd_q_smem, lib.ecf_bias_attention_bwd_k_smem
+    fn.argtypes = q.argtypes = k.argtypes = [ctypes.c_int] * 5
+    fn.restype, q.restype, k.restype = ctypes.c_int, ctypes.c_size_t, ctypes.c_size_t
+    args = (code, nq, nk, dqk, dv)
+    return ROUTES_BWD[fn(*args)], tuple(b for b in (q(*args), k(*args)) if b)
+
+
 def bias_attention(q, k, v, bias, scale):
     """(o, lse), differentiable in q, k, v and bias: the plain versions for
     CPU tensors, the CUDA kernels for CUDA tensors."""
@@ -100,12 +275,14 @@ def bias_attention(q, k, v, bias, scale):
 
 bias_attention.launches = 0  # forward kernel launches since the caller last reset it
 bias_attention.tc_launches = 0  # of those, the bf16 tensor-core route's
+bias_attention.routes = collections.Counter()  # of those, by route name (``route``)
 
 
 def bias_attention_fwd(q, k, v, bias, scale):
     """The forward alone: the plain version for CPU tensors, the kernel for
-    CUDA tensors (counted in ``bias_attention.launches``, and the bf16
-    tensor-core route's also in ``bias_attention.tc_launches``)."""
+    CUDA tensors (counted in ``bias_attention.launches``, the bf16
+    tensor-core route's also in ``bias_attention.tc_launches``, and each in
+    ``bias_attention.routes`` under its route's name)."""
     if q.device.type == "cpu":
         return reference_bias_attention(q, k, v, bias, scale)
     if q.device.type != "cuda":
@@ -113,6 +290,7 @@ def bias_attention_fwd(q, k, v, bias, scale):
     o, lse = _launch(q, k, v, bias, scale)
     bias_attention.launches += 1
     bias_attention.tc_launches += q.dtype == torch.bfloat16
+    bias_attention.routes[route(q.dtype, q.shape[2], k.shape[2], q.shape[3], v.shape[3]).name] += 1
     return o, lse
 
 
@@ -129,11 +307,14 @@ def bias_attention_bwd(q, k, v, bias, o, do, lse, scale, need_dbias=True):
     grads = _launch_bwd(q, k, v, bias, o, do, lse, scale, need_dbias)
     bias_attention_bwd.launches += 1
     bias_attention_bwd.tc_launches += q.dtype == torch.bfloat16
+    bias_attention_bwd.routes[route(q.dtype, q.shape[2], k.shape[2], q.shape[3], v.shape[3],
+                                    True).name] += 1
     return grads
 
 
 bias_attention_bwd.launches = 0  # backward kernel launches since the caller last reset it
 bias_attention_bwd.tc_launches = 0  # of those, the bf16 tensor-core route's
+bias_attention_bwd.routes = collections.Counter()  # of those, by route name (``route``)
 
 
 class _BiasAttention(torch.autograd.Function):
@@ -186,8 +367,6 @@ def _checked_inputs(q, k, v, bias):
     _check(k.shape == (b, h, nk, dqk) and v.shape == (b, h, nk, dv),
            f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
     _check(nq > 0 and nk > 0 and dqk > 0 and dv > 0, "empty input")
-    _check(dqk <= MAX_WIDTH and dv <= MAX_WIDTH,
-           f"head widths dqk {dqk} / dv {dv}: the kernels take at most {MAX_WIDTH}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t.stride(-1) == 1, f"{name} needs a unit feature stride")
     tensors = [q, k, v] + ([bias] if bias is not None else [])
@@ -202,21 +381,6 @@ def _checked_inputs(q, k, v, bias):
         bias = bias.contiguous()
     strides = tuple(bias.stride(i) if bias.shape[i] > 1 else 0 for i in range(3))
     return bias, strides, bias.dtype == torch.bfloat16
-
-
-def smem_bytes(dtype, n, dqk, dv):
-    """Dynamic shared memory a block of each kernel takes on the route for
-    ``dtype`` at Nq = Nk = n and these widths, in bytes: (forward, backward),
-    the backward a tuple of one entry per kernel it launches (the bf16 route
-    at N <= 128 and widths <= 64 runs one pass). Builds the kernels if
-    needed (a CUDA machine)."""
-    fwd_fn = _kernels.load(KERNEL).ecf_bias_attention_fwd_smem
-    bwd_fn = _kernels.load(KERNEL_BWD).ecf_bias_attention_bwd_smem
-    fwd_fn.argtypes, fwd_fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-    bwd_fn.argtypes, bwd_fn.restype = [ctypes.c_int] * 5, ctypes.c_longlong
-    code = _DTYPE_CODE[dtype]
-    bwd = bwd_fn(code, n, n, dqk, dv)
-    return fwd_fn(code, dqk, dv), tuple(x for x in (bwd & 0xFFFFFFFF, bwd >> 32) if x)
 
 
 def _raise_on(err: int, lib, kernel: str):

@@ -11,8 +11,10 @@ fp32 bias) by torch.profiler's device time per kernel name, beside
 scaled_dot_product_attention (the bias as a bf16 mask), and at N 256 and
 1024 the useful TFLOP/s of the kernels and of SDPA without a mask.
 
-``ab`` runs chip_smoke.py's LM phases (lm-score-rate, lm-train-rate) and a
-device-time profile of one scoring batch and one training step in each
+``ab`` runs chip_smoke.py's LM phases (lm-score-rate, lm-train-rate), a
+device-time profile of one scoring batch and one training step, and the bias
+kernels' timed phases up to a width of 256 (lm-kernel-time, wide-kernel-time
+at widths 135 and 256, stream-kernel-time) in each
 checkout, in turns (parent, change, change, parent), each in its own
 process from the checkout's root, so that both are measured on the same
 card within one call; with ``--ctc`` the CTC flagship's phases (rate,
@@ -51,6 +53,9 @@ C.profile("lm-train", step, C.wall_ms(step))
 scorer, mb = C.lm_score_setup()
 score = lambda: scorer.eval_loss(mb)
 C.profile("lm-score", score, C.wall_ms(score))
+C.phase_lm_kernel()
+C.phase_wide_kernel()
+C.phase_stream_kernel()
 """
 
 AB_PHASES_CTC = """

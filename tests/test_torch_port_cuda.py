@@ -763,12 +763,18 @@ def test_bias_kernel_takes_strided_heads_and_a_bf16_bias(cuda):
 
 @pytest.mark.gpu
 def test_bias_kernels_refuse_what_they_do_not_take(cuda):
+    """The dtype and bias refusals; a head width of 260, once refused, is
+    taken on the chunked kernels and matches the plain version."""
     q, k, v, bias, scale = bias_case(cuda, 1, 2, 8, 8, 16, 16, "bhqk", seed=1)
     with pytest.raises(ValueError, match="dtype"):
         BA.bias_attention(q.half(), k.half(), v.half(), bias, scale)
-    with pytest.raises(ValueError, match="at most 256"):
-        wide = torch.zeros(1, 2, 8, 260, device=cuda)
-        BA.bias_attention(wide, wide, v, bias, scale)
+    wide = torch.randn(1, 2, 8, 260, generator=torch.Generator().manual_seed(2)).to(cuda)
+    BA.bias_attention.routes.clear()
+    o, lse = BA.bias_attention(wide, wide, v, bias, scale)
+    want_o, want_lse = BA.reference_bias_attention(wide, wide, v, bias, scale)
+    torch.testing.assert_close(o, want_o, rtol=0, atol=FP32_TOL)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=FP32_TOL)
+    assert BA.bias_attention.routes == {"fma_chunked": 1}
     with pytest.raises(ValueError, match="bias"):
         BA.bias_attention(q, k, v, bias[:, :, :3], scale)
     # the tensor-core entry points take 16-byte rows only; the wrapper pads
@@ -920,6 +926,80 @@ def test_bias_tensor_core_backward_is_bitwise_repeatable(cuda, n, d):
     first = BA.bias_attention_bwd(*args[:4], o, do, lse, args[4])
     second = BA.bias_attention_bwd(*args[:4], o, do, lse, args[4])
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# (B, H, Nq, Nk, dqk, dv, bias layout) past a width of 256: the chunked
+# kernels. Stage 1's grouped head of EfficientConformer CTC Large at 4 heads
+# made causal (270, padded to 272 in bf16), 384 and 512, dqk != dv either
+# way, one query row (the LM's KV-cache step) against many keys, Nq != Nk,
+# rows past one 64-row tile, and every bias form
+WIDE_BIAS_CASES = [
+    (2, 4, 40, 40, 270, 270, "full"), (1, 2, 70, 33, 270, 135, "batch"),
+    (2, 2, 9, 75, 384, 384, "keymask"), (2, 2, 65, 20, 512, 512, "head"),
+    (1, 3, 1, 130, 257, 257, "full"), (2, 2, 30, 30, 64, 512, "none"),
+    (2, 2, 30, 41, 512, 64, "keymask"), (1, 1, 1, 1025, 1024, 1024, "keymask"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,nq,nk,dqk,dv,layout", WIDE_BIAS_CASES)
+def test_bias_chunked_kernels_match_plain_version(cuda, b, h, nq, nk, dqk, dv, layout):
+    """Both directions on the chunked kernels, fp32 then bf16, on strided
+    heads with one fully masked row where the bias has rows: O and LSE, dq,
+    dk, dv and dS vs the plain versions on the same inputs, each call
+    counted on its chunked route; the backward bitwise repeatable."""
+    masked = BIAS_LAYOUTS[layout] is not None and BIAS_LAYOUTS[layout][2] == "q"
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        q, k, v, bias, scale = bias_case(cuda, b, h, nq, nk, dqk, dv, BIAS_LAYOUTS[layout],
+                                         seed=nq + dqk, dtype=dtype, masked_row=masked)
+        q, k, v = (heads_view(t) for t in (q, k, v))
+        BA.bias_attention.routes.clear()
+        BA.bias_attention_bwd.routes.clear()
+        o, lse = BA.bias_attention_fwd(q, k, v, bias, scale)
+        want_o, want_lse = BA.reference_bias_attention(q, k, v, bias, scale)
+        torch.testing.assert_close(o.float(), want_o.float(), rtol=0, atol=tol)
+        torch.testing.assert_close(lse, want_lse, rtol=0, atol=tol)
+        if masked and nq > 1:
+            torch.testing.assert_close(o[0, 0, 1].float(), v[0, 0].float().mean(0), rtol=0,
+                                       atol=tol)
+        do = torch.randn(o.shape, generator=torch.Generator().manual_seed(nk)).to(cuda, dtype)
+        got = BA.bias_attention_bwd(q, k, v, bias, o, do, lse, scale)
+        want = BA.reference_bias_attention_bwd(q, k, v, bias, do, scale)
+        assert_bias_grads_close(got, want, tol)
+        again = BA.bias_attention_bwd(q, k, v, bias, o, do, lse, scale)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        route = "tc_chunked" if dtype == torch.bfloat16 else "fma_chunked"
+        assert BA.bias_attention.routes == {route: 1}
+        assert BA.bias_attention_bwd.routes == {route: 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_route_table_is_the_compiled_kernels(cuda, dtype):
+    """The wrapper's route table against the compiled kernel files' own
+    route and size exports (kernel_route), at widths 1-1,024 on both sides
+    of every edge and unequal pairs, at one query row and at 201 against
+    100 and 1,025 keys; then the counters: a call at a width on each route
+    is counted under the name ``route`` gives."""
+    widths = sorted({1, 8, 24, 64, 65, 128, 129, 135, 144, 145, 200, 256, 257, 264, 270, 272,
+                     384, 512, 1024})
+    for dqk in widths:
+        for dv in (dqk, 64, 270):
+            for nq, nk in ((1, 100), (201, 1025), (64, 64)):
+                for backward in (False, True):
+                    want = BA.route(dtype, nq, nk, dqk, dv, backward)
+                    pad = (lambda x: -(-x // 8) * 8) if dtype == torch.bfloat16 else int
+                    got = BA.kernel_route(dtype, nq, nk, pad(dqk), pad(dv), backward)
+                    assert got == (want.name, tuple(b for _, b in want.kernels)), \
+                        (dtype, nq, nk, dqk, dv, backward)
+    for d in (64, 200, 270):
+        args = bias_case(cuda, 1, 2, 20, 20, d, d, "bhqk", seed=d, dtype=dtype)
+        BA.bias_attention.routes.clear()
+        BA.bias_attention_bwd.routes.clear()
+        o, lse = BA.bias_attention_fwd(*args)
+        BA.bias_attention_bwd(*args[:4], o, torch.ones_like(o), lse, args[4])
+        assert BA.bias_attention.routes == {BA.route(dtype, 20, 20, d, d).name: 1}
+        assert BA.bias_attention_bwd.routes == {BA.route(dtype, 20, 20, d, d, True).name: 1}
 
 
 # ---------------------------------------------------------------- training runtime

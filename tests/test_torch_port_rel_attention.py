@@ -176,13 +176,16 @@ def test_attention_variants_match_jax(kwargs):
 
 def test_full_attention_mask_at_width_135():
     """A full (T, T) mask takes the skewing path to the bias attention,
-    whose kernels take head widths up to 256: EfficientConformer
-    Medium/Large's stage 1 (3 x 180 / 4 = 135) is no longer refused before
-    the card (tests/test_torch_port_cuda.py runs it there), and on the CPU
-    its plain version matches the JAX module."""
+    whose kernels take every head width: EfficientConformer Medium/Large's
+    stage 1 (3 x 180 / 4 = 135) is not refused before the card
+    (tests/test_torch_port_cuda.py runs it there), on the kernels that hold
+    a row whole in both types, and on the CPU its plain version matches the
+    JAX module."""
     from efficientconformer_torch.ops import bias_attention as BA
 
-    assert BA.MAX_WIDTH >= 3 * 180 // 4
+    dh = 3 * 180 // 4
+    for dtype, name in ((torch.float32, "fma"), (torch.bfloat16, "tc")):
+        assert BA.route(dtype, 7, 7, dh, dh).name == name
     mod, params = port_module(180, 4, seed=8, group_size=3, relative_pos_enc=True)
     x = rand(1, 7, 180, seed=9, scale=0.5)
     mask = (np.arange(7)[None, :] > np.arange(7)[:, None]).astype(np.float32)[None, None]

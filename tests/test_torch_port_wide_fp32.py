@@ -58,7 +58,7 @@ VOCAB = 32
 # The kernel files' size helpers, read as Python: each constexpr constant and
 # each function of int (or size_t) arguments whose body is `return`, `if (..)
 # return` and `const` declarations, in C's own arithmetic (integer division,
-# ?:, static_cast, sizeof of float and bf16), so that the wrapper's mirrors
+# ?:, static_cast, sizeof of float, bf16 and double), so that the wrapper's mirrors
 # are held to the formulas the kernels are launched with, not only to their
 # constants.
 C_FUNCTION = re.compile(r"^(?:__host__ __device__ )?(?:constexpr )?(?:inline )?"
@@ -108,6 +108,7 @@ def _ternary(s: str) -> str:
 def c_expr(expr: str) -> str:
     expr = re.sub(r"static_cast<[\w:]+>", "", expr)
     expr = expr.replace("sizeof(float)", "4").replace("sizeof(tc::bf16)", "2")
+    expr = expr.replace("sizeof(double)", "8")
     expr = re.sub(r"(\w+)::(\w+)", r"\1_\2", expr).replace("/", "//")
     return _ternary(expr.replace("&&", " and ").replace("||", " or ")).strip()
 
@@ -140,7 +141,7 @@ def c_file(name: str) -> tuple[dict, dict]:
         if f"{space}_{key}" in env:          # not a type
             env[key] = env[f"{space}_{key}"]
     for key, expr in re.findall(r"^constexpr (?:int|size_t) (\w+) = ([^;]+);", text, re.M):
-        env[key] = eval(c_expr(expr), env)
+        env[key] = eval(c_expr(" ".join(expr.split())), env)
         own.append(key)
     for fn, args, body in C_FUNCTION.findall(text):
         names = ", ".join(a.split()[-1] for a in args.split(", ") if a)
