@@ -62,7 +62,7 @@ the card. Phases, one line each; any failure exits non-zero:
                 one-process step over the global batch (loss and norm 1e-5,
                 parameters and statistics 1e-4 in fp32, all 2e-2 in bf16),
                 the running statistics equal across the ranks; rel-pos
-                launches per rank (15 / 15 a microbatch, FMA in fp32, tensor
+                launches per rank (a block a microbatch, FMA in fp32, tensor
                 cores in bf16)
  10b. dp-rate   one rank over NCCL through DDP on train-rate's step: the
                 parameters bit for bit those of the step without DDP; ms a
@@ -76,7 +76,9 @@ the card. Phases, one line each; any failure exits non-zero:
  10d. tp-slice  two ranks on the one card over gloo in one model group (data
                 1 x model 2): the flagship at full width, one fp32 and one
                 bf16 step, Transducer Small's fp32 step and the
-                LM-Transformer's fp32 step, over 2 x 4 ragged rows, vs the
+                LM-Transformer's fp32 step (all but the flagship's fp32 step
+                with its loss in fp32 one block a stage, the LM one block),
+                over 2 x 4 ragged rows, vs the
                 one-process step at [dp-slice]'s gates; replicated parameters
                 bit for bit equal across the ranks; launches a rank and a
                 step (rel-pos 30 / 30 on 2 heads, bias 24 / 24 on 6), the
@@ -84,6 +86,12 @@ the card. Phases, one line each; any failure exits non-zero:
                 all-gather takes the card's tensors); the fp32 norms also
                 against the one-process step with its vocabulary product
                 split into the model group's column GEMMs (norm_rel_split)
+ 10d'. tp3-slice three ranks on the card over gloo, data 1 x model 3:
+                Conformer CTC Small (every layer replicated) fp32 and bf16,
+                EfficientConformer CTC Small (its fc replicated) fp32, one
+                block a stage, vs the one-process step at [tp-slice]'s gates
+                (the fp32 losses in float64); the replicated parameters
+                counted against placement_of and bit for bit equal
  10e. tp-cli    -m training --model_parallel 2 on one GPU refused with the JAX
                 package's message (scripts/torch_tp_multigpu.py runs it on
                 four GPUs)
@@ -94,7 +102,10 @@ the card. Phases, one line each; any failure exits non-zero:
                 the groups covering a rank's frames (404 frames a rank at
                 seq 2: not a multiple of 3), vs their plain versions at
                 [kernel]'s gates, fp32 on the FMA route and bf16 on the
-                tensor cores (route counters)
+                tensor cores (route counters); both bias kernels
+                at the causal 4-head Large's stage shapes (8 s) at seq rank
+                r of 2's rows (from 0 and N/2) against all N keys under the
+                causal bias's rows, at [lm-kernel]'s gates (sp-kernel-bias)
  10g. sp-slice  two ranks on the one card over gloo in one seq group (data 1
                 x seq 2): the flagship at full width (one block a stage since
                 PR 20), one fp32 and one bf16 step, and Transducer Small's
@@ -109,6 +120,13 @@ the card. Phases, one line each; any failure exits non-zero:
  10h. sp-cli    -m training --seq_parallel 2 on one GPU refused with the JAX
                 package's message (scripts/torch_sp_multigpu.py runs it on
                 four GPUs)
+ 10i. sp-skew-slice  two ranks on the card over gloo, data 1 x seq 2:
+                [causal-wide-slice]'s causal 4-head Large, one block a stage,
+                through the bias kernels at each rank's rows (the rel scores
+                skewed at its row offset; head 270 chunked), an fp32 (loss in
+                float64) and a bf16 step vs the one-process step at
+                [sp-slice]'s gates; launches and routes a rank, the seq
+                group's exchanges
  11. t-kernel   both rel-pos kernels vs their plain versions at Transducer
                 Small's 16 s stage shapes (head widths 75/35/50, rel widths
                 100/140/200, batch 8, ragged key masks), fp32 and bf16, as
@@ -254,8 +272,9 @@ the card. Phases, one line each; any failure exits non-zero:
                 rel-pos launches, all on the tensor cores, and no bias launch
  31. serve-rate  serving_bench.py's defaults (32 slots, 96 streams of 10 s)
                 for both decoders, max_windows_per_tick None and 2: after a
-                warm-up pass, 7 timed passes of the 96 streams: audio-s/s
-                (median, min, max over the passes), tick p50/p95 over their
+                warm-up pass, 5 timed passes of the 96
+                streams: audio-s/s (median, min, max over the passes), tick
+                p50/p95 over their
                 ticks; then one pass in sync debug mode (host syncs a tick)
                 and one profiled (device idle share)
 
@@ -311,7 +330,8 @@ the card. Phases, one line each; any failure exits non-zero:
 
  41. interctc-step  the flagship as InterCTC (taps after blocks 4 and 7): one
                 fp32 step through the kernels vs the plain versions and the
-                CPU; the config's bf16 step at 2 x 32 x 16 s: ms a step
+                CPU (one block a stage, taps after its two strided
+                blocks); the config's bf16 step at 2 x 32 x 16 s: ms a step
                 beside [train-rate]'s, 30 / 30 rel-pos launches on the
                 tensor cores, device ms and host syncs a step beside the
                 CTC step's
@@ -424,6 +444,9 @@ the card. Phases, one line each; any failure exits non-zero:
                 through the plain versions; every bias launch counted by
                 width and route (head 270 on the chunked kernels both ways);
                 ms a step, ms a window step, peak memory
+ 53. contextnet ContextNetSubsampling (80 mels, 240 features, kernel 5) on 2 x
+                10 s of features, fp32 on the card vs the CPU, train and
+                eval BatchNorm
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 rel-pos entries also with their bf16 error, tensor-core launches and eager
@@ -442,7 +465,7 @@ steps and [wide-kernel-time]'s rows as ``wide_{135,256}_*_ms``, the
 forward's with ``stream_medium_launches``; the rel-pos entries with
 ``dp_launches`` of [dp-slice], over both ranks and steps, and of
 [dp-rate]'s counted DDP step; the rel-pos and bias entries with
-``tp_launches`` of [tp-slice], over both ranks and its steps, and
+``tp_launches`` of [tp-slice] and of [tp3-slice], over the ranks and steps, and
 ``tp_kernel_max_err``, [tp-kernel]'s largest fp32 error; the rel-pos and
 RNN-T entries with ``wide_fp32_launches`` of [wide-fp32-slice], the
 rel-pos entries with ``wide_fp32_max_err`` and [wide-fp32-kernel-time]'s
@@ -451,7 +474,9 @@ sums as ``wide_fp32_*_ms``, and their launches in [wide-bf16-slice] and
 their wide launches in [wider-slice], times [wider-kernel-time]'s sums
 over the wide rows; then one entry a direction for the bias kernels'
 chunked routes: launches their chunked launches in [causal-wide-slice],
-the error [widest-kernel]'s, times [widest-kernel-time]'s sums), and last
+the error [widest-kernel]'s, times [widest-kernel-time]'s sums; the bias
+entries with ``sp_launches`` of [sp-skew-slice] and ``sp_kernel_max_err``
+of [sp-kernel]'s bias rows, the chunked ones with ``sp_skew_launches``), and last
 {"ok": true, "device": {...}}. With
 --profile it also prints a torch.profiler device-time breakdown of one
 batch or step of each path, the beams included.
@@ -465,6 +490,7 @@ import argparse
 import ast
 import concurrent.futures
 import contextlib
+import copy
 import hashlib
 import io
 import itertools
@@ -559,6 +585,7 @@ T_HOST_BEAM_CHECK = (4.0, 3.0)  # [t-host-beam]'s card vs CPU check: 2 utterance
 T_HOST_BEAM_W = 4            # its beam
 T_HOST_BEAM_SECONDS = 4.0    # its main path: one utterance at the config's beam
 INTERCTC_TAPS = (4, 7)       # [interctc-step]: the strided block 4 and block 7 of stage 2
+INTERCTC_CUT_TAPS = (0, 1)   # its fp32 check at one block a stage: the two strided blocks
 MEDIUM_CONFIG = "configs/EfficientConformerCTCMedium.json"
 REMAT_FP32_TOL = 1e-5        # remat vs none, fp32: the same arithmetic, recomputed
 REMAT_BF16_TOL = 2e-2        # the same in bf16 at the config's own step
@@ -584,7 +611,7 @@ SERVE_FRAME_TOL = {"ctc": 0.1, "transducer": 0.3}
 RATE_SLOTS = 32              # [serve-rate]: serving_bench.py's 32 slots, 96 streams of 10 s
 RATE_STREAMS = 96
 RATE_SECONDS = 10.0
-RATE_PASSES = 7              # timed passes of the 96 streams: 21 ticks uncapped (3 a pass)
+RATE_PASSES = 5              # timed passes of the 96 streams: 15 ticks uncapped (3 a pass)
 DP_RANKS = 2                 # [dp-slice]: two ranks on the one card, over gloo
 DP_LOSS_RTOL = 1e-5          # [dp-slice] fp32 loss and gradient norm vs the one-process step
 DP_FP32_TOL = 1e-4           # its fp32 parameters and BatchNorm statistics, relative to
@@ -595,10 +622,14 @@ TP_RANKS = 2                 # [tp-slice]: two ranks on the one card over gloo, 
 TP_HEADS = (2, 1)            # [tp-kernel]: the flagship's heads a rank at model 2 and 4
 TP_LM_HEADS = (6, 3)         # and the LM-Transformer's
 TP_TIMEOUT = 420             # seconds for [tp-slice]'s ranks
+TP3_RANKS = 3                # [tp3-slice]: three ranks on the one card over gloo, one model group
+TP3_CONFIG = "configs/ConformerCTCSmall.json"   # width 176: every layer replicated at model 3
 SP_RANKS = 2                 # [sp-slice]: two ranks on the one card over gloo, one seq group
 SP_KERNEL_RANKS = {2: (0, 1), 4: (0, 2, 3)}   # [sp-kernel]: seq size -> the ranks checked
 SP_UNCOVERED = 92240         # samples: 289 / 145 / 73 frames, no point divides by 2
 SP_TIMEOUT = 420             # seconds for [sp-slice]'s ranks
+CONTEXTNET = (80, 240, 5)    # [contextnet]: ContextNetSubsampling's mels, features and kernel
+CONTEXTNET_TOL = 1e-4        # fp32 on the card vs the CPU, relative to max(|y|, 1)
 WIDE_FP32_BATCH = 2          # [wide-fp32-kernel]: B at the wide stage shapes of 16 s
 WIDE_FP32_CONFIGS = ("EfficientConformerCTCMedium", "EfficientConformerCTCLarge",
                      "ConformerCTCLarge", "EfficientConformerTransducerMedium")
@@ -1364,21 +1395,21 @@ def dp_adam(cfg) -> tuple:
     return mu, nu, 10
 
 
-def phase_dp_slice(card_line, ranks=DP_RANKS, backend="gloo", phase="dp-slice"):
-    """Data parallelism at full width: ``ranks`` ranks, by default two on
-    the one card over gloo (NCCL refuses two ranks on one device), each
-    stepping on its 2 rows of 2 microbatches of ragged utterances of 4-8 s
-    ([train-slice]'s at two ranks) under DDP and the globally synced
-    BatchNorm (dropout 0, SpecAugment off, Adam from a shared non-zero state
-    at a constant 1e-3), fp32 then bf16; each held to the one-process step
-    over the global batch on the (first) card: loss and gradient norm, the
-    updated parameters and BatchNorm's running statistics, the parameters
-    and statistics bit for bit equal across the ranks. ``backend`` None:
-    NCCL, one rank a GPU. Returns the rel-pos (forward, backward) launches
-    summed over the ranks and both steps."""
-    from efficientconformer_torch import dryrun
-    from efficientconformer_torch.parallel import mesh
+# a case's "adam" drawn in the rank by ``dp_adam``: the moments of a full-width
+# model are hundreds of MB, which spawning the ranks would pickle to each
+ADAM_IN_RANK = "dp_adam"
 
+
+def in_rank(case: dict) -> dict:
+    """``case`` with its Adam state drawn again in the rank (``one_process``)."""
+    return dict(case, adam=ADAM_IN_RANK)
+
+
+def dp_cases(ranks=DP_RANKS) -> list:
+    """[dp-slice]'s steps: 2 rows a rank of 2 microbatches of ragged
+    utterances of 4-8 s, the flagship at full width and depth (cut to one
+    block a stage, its fp32 norm lies 1.4e-5 from one process's, past its
+    gate), fp32 then bf16."""
     seconds = np.resize([4.0, 5.5, 7.0, 8.0, 8.0, 6.5, 4.5, 5.0], (2, 2 * ranks))
     batch = {k: v.numpy() for k, v in train_batch(2, 2 * ranks, seconds,
                                                   np.resize([12, 30, 0, 20], 2 * ranks), "cpu",
@@ -1389,10 +1420,35 @@ def phase_dp_slice(card_line, ranks=DP_RANKS, backend="gloo", phase="dp-slice"):
         cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
         cases.append({"config": cfg, "batch": batch, "seed": SEED, "adam": dp_adam(cfg),
                       "allow_tf32": False})
-    t0 = time.perf_counter()
-    outs = mesh.launch(dryrun.shard_steps, ranks, (cases,), device_type="cuda",
-                       backend=backend, timeout=DP_TIMEOUT)
-    ranks_s = time.perf_counter() - t0
+    return cases
+
+
+def phase_dp_slice(card_line, ranks=DP_RANKS, backend="gloo", phase="dp-slice", cases=None,
+                   launched=None):
+    """Data parallelism at full width: ``ranks`` ranks, by default two on
+    the one card over gloo (NCCL refuses two ranks on one device), each
+    stepping on its 2 rows of 2 microbatches of ragged utterances of 4-8 s
+    ([train-slice]'s at two ranks) under DDP and the globally synced
+    BatchNorm (dropout 0, SpecAugment off, Adam from a shared non-zero state
+    at a constant 1e-3), fp32 then bf16; each held to the one-process step
+    over the global batch on the (first) card: loss and gradient norm, the
+    updated parameters and BatchNorm's running statistics, the parameters
+    and statistics bit for bit equal across the ranks. ``backend`` None:
+    NCCL, one rank a GPU. ``cases`` (``dp_cases``') may have run already in
+    another phase's launch of the same ranks: ``launched`` is then (each
+    rank's results, that launch's seconds). Returns the rel-pos (forward,
+    backward) launches summed over the ranks and both steps."""
+    from efficientconformer_torch import dryrun
+    from efficientconformer_torch.parallel import mesh
+
+    cases = dp_cases(ranks) if cases is None else cases
+    shared = launched is not None
+    if launched is None:
+        t0 = time.perf_counter()
+        outs = mesh.launch(rank_steps, ranks, ([in_rank(c) for c in cases],),
+                           device_type="cuda", backend=backend, timeout=DP_TIMEOUT)
+        launched = outs, time.perf_counter() - t0
+    outs, ranks_s = launched
     backend = backend or mesh.default_backend("cuda")
     n_att = cases[0]["config"]["encoder_params"]["num_blocks"] * 2   # 2 microbatches
     total = [0, 0]
@@ -1437,7 +1493,7 @@ def phase_dp_slice(card_line, ranks=DP_RANKS, backend="gloo", phase="dp-slice"):
             equal_across_ranks=True, relpos_launches_per_rank=per_rank,
             route="fma" if fp32 else "tensor-core",
             ddp_all_reduces=got[0]["ddp_all_reduces"], bn_all_reduces=got[0]["bn_all_reduces"],
-            ranks_seconds=f"{ranks_s:.2f}", card=f"'{card_line}'")
+            ranks_seconds=f"{ranks_s:.2f}", shared_launch=shared, card=f"'{card_line}'")
     return tuple(total)
 
 
@@ -1546,38 +1602,49 @@ def phase_tp_kernel():
     return fwd, bwd, err_bf, err_bb
 
 
-def tp_cases(ranks, model_parallel, lm=True, transducer=True) -> list:
+def tp_rows(ranks, model_parallel, rng) -> dict:
+    """2 microbatches of 4 ragged rows of 4-8 s at one data rank (2 a data
+    rank from two on), on the host."""
+    data = ranks // model_parallel
+    rows = max(4 // data, 2) * data
+    seconds = np.resize([4.0, 5.5, 7.0, 8.0, 8.0, 6.5, 4.5, 5.0], (2, rows))
+    return {k: v.numpy() for k, v in train_batch(2, rows, seconds,
+                                                 np.resize([12, 30, 0, 20], rows), "cpu",
+                                                 rng).items()}
+
+
+def tp_cases(ranks, model_parallel, lm=True, transducer=True, cut=False) -> list:
     """[tp-slice]'s steps: the flagship's fp32 and bf16 steps ([dp-slice]'s
     settings: dropout 0, SpecAugment off, Adam from a shared non-zero state
     at a constant 1e-3), Transducer Small's fp32 step and the
     LM-Transformer's fp32 step, over 2 microbatches of 4 ragged rows at one
-    data rank (2 a data rank from two on)."""
-    data = ranks // model_parallel
-    rows = max(4 // data, 2) * data
+    data rank (2 a data rank from two on), at full width. With ``cut``
+    every step but the flagship's fp32 step with its loss in fp32 at one
+    block a stage (the LM at one block): cut too, that step's norm lies
+    2.8e-5 from one process's, past its gate)."""
     rng = np.random.default_rng(SEED + 94)
-    seconds = np.resize([4.0, 5.5, 7.0, 8.0, 8.0, 6.5, 4.5, 5.0], (2, rows))
-    batch = {k: v.numpy() for k, v in train_batch(2, rows, seconds,
-                                                  np.resize([12, 30, 0, 20], rows), "cpu",
-                                                  rng).items()}
+    batch = tp_rows(ranks, model_parallel, rng)
+    rows = batch["audio"].shape[1]
     cases = []
-    for mixed in (False, True):
-        cfg = train_config(mixed_precision=mixed, lr_schedule="Constant", lr_value=1e-3)
+    # the flagship fp32, bf16, and fp32 with its loss in float64
+    # (``float64_loss``); Transducer Small fp32, and with its loss in float64
+    for path, mixed, f64, whole in ((CONFIG, False, False, True), (CONFIG, True, False, False),
+                                    (CONFIG, False, True, False), (T_CONFIG, False, False, False),
+                                    (T_CONFIG, False, True, False)):
+        if path == T_CONFIG and not transducer:
+            continue
+        cfg = train_config(path, mixed_precision=mixed, lr_schedule="Constant", lr_value=1e-3)
         cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+        if cut and not whole:
+            cfg["encoder_params"] = one_block_a_stage(cfg["encoder_params"])
         cases.append({"config": cfg, "batch": batch, "seed": SEED, "adam": dp_adam(cfg),
-                      "allow_tf32": False})
-    # the fp32 CTC step again with its loss in float64 (``float64_loss``)
-    cases.append(dict(cases[0], float64_loss=True))
-    if transducer:
-        cfg = train_config(T_CONFIG, mixed_precision=False, lr_schedule="Constant",
-                           lr_value=1e-3)
-        cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
-        cases.append({"config": cfg, "batch": batch, "seed": SEED, "adam": dp_adam(cfg),
-                      "allow_tf32": False})
-        cases.append(dict(cases[-1], float64_loss=True))
+                      "allow_tf32": False, **({"float64_loss": True} if f64 else {})})
     if lm:
         cfg = train_config(LM_CONFIG, mixed_precision=False, lr_schedule="Constant",
                            lr_value=1e-3)
         cfg["lm_params"]["Pdrop"] = 0.0
+        if cut:
+            cfg["lm_params"]["num_blocks"] = 1
         lengths = np.resize([20, 55, 100, 10, 70, 35, 90, 45], (2, rows))
         lbatch = {k: v.numpy() for k, v in lm_batch(2, rows, lengths, "cpu", rng).items()}
         cases.append({"config": cfg, "batch": lbatch, "seed": SEED, "adam": dp_adam(cfg),
@@ -1672,18 +1739,30 @@ def float64_loss():
 
 
 def rank_steps(cases):
-    """In a rank: ``dryrun.shard_step`` of each case in turn, under
-    ``float64_loss`` where the case sets "float64_loss"."""
-    return [one_process(case, None) for case in cases]
+    """In a rank: ``one_process`` of each case in turn, with the bias
+    kernels' launches by route of its step (``routes``)."""
+    from efficientconformer_torch.ops import bias_attention as BA
+
+    out = []
+    for case in cases:
+        BA.bias_attention.routes.clear()
+        BA.bias_attention_bwd.routes.clear()
+        o = one_process(case, None)
+        o["routes"] = (dict(BA.bias_attention.routes), dict(BA.bias_attention_bwd.routes))
+        out.append(o)
+    return out
 
 
 def one_process(case, device="cuda"):
     """``dryrun.shard_step`` of a case (on ``device``, None: the rank's),
-    under ``float64_loss`` where it sets "float64_loss"."""
+    under ``float64_loss`` where it sets "float64_loss", its Adam state
+    drawn here where it is ``ADAM_IN_RANK``."""
     from efficientconformer_torch import dryrun
 
     case = dict(case)
     f64 = case.pop("float64_loss", False)
+    if case["adam"] == ADAM_IN_RANK:
+        case["adam"] = dp_adam(case["config"])
     with float64_loss() if f64 else contextlib.nullcontext():
         return dryrun.shard_step(**case, device=device)
 
@@ -1697,7 +1776,7 @@ def split_head(n):
 
 
 def phase_tp_slice(card_line, ranks=TP_RANKS, model_parallel=2, backend="gloo",
-                   phase="tp-slice", lm=True):
+                   phase="tp-slice", lm=True, cases=None, cut=False, extra=()):
     """Tensor parallelism at full width: ``ranks`` ranks in model groups of
     ``model_parallel`` (by default two on the one card over gloo, data 1 x
     model 2; ``backend`` None: NCCL, one rank a GPU), each case of
@@ -1721,23 +1800,33 @@ def phase_tp_slice(card_line, ranks=TP_RANKS, model_parallel=2, backend="gloo",
     to 1e-4, and to 1e-5 with its loss in float64. Each fp32 norm also
     stands beside the one-process step's with its vocabulary product split
     into the model group's column GEMMs (``split_head``, norm_rel_split).
-    Returns the kernels' launches over the ranks and steps:
-    {"relpos": (fwd, bwd), "bias": (fwd, bwd)}, and those norms by model
-    ("norm_rel_split")."""
+    ``cut`` cuts ``tp_cases``' depth. ``cases`` (by default ``tp_cases``'s)
+    may hold layers whose width the model size does not divide: they run
+    replicated, and the line prints
+    the replicated tensors a rank holds against ``placement_of``'s count
+    (the model group all-gathers only where something is split). The
+    ``extra`` cases ([dp-slice]'s, whose ranks set no grid) run first in the
+    same launch of ranks. Returns the kernels' launches over the ranks and
+    steps: {"relpos": (fwd, bwd), "bias": (fwd, bwd)}, those norms by model
+    ("norm_rel_split"), and the extra cases' results of each rank and the
+    launch's seconds ("extra")."""
     from efficientconformer_torch import dryrun
-    from efficientconformer_torch.parallel import mesh
+    from efficientconformer_torch.models import factory
+    from efficientconformer_torch.parallel import mesh, tensor
 
-    cases = tp_cases(ranks, model_parallel, lm)
+    cases = tp_cases(ranks, model_parallel, lm, cut=cut) if cases is None else cases
     splits = {}
     sharded = []
     for case in cases:
         cfg = json.loads(json.dumps(case["config"]))
         cfg["training_params"]["model_parallel"] = model_parallel
-        sharded.append(dict(case, config=cfg))
+        sharded.append(in_rank(dict(case, config=cfg)))
     t0 = time.perf_counter()
-    outs = mesh.launch(rank_steps, ranks, (sharded,), device_type="cuda",
-                       backend=backend, timeout=TP_TIMEOUT)
+    outs = mesh.launch(rank_steps, ranks, ([in_rank(c) for c in extra] + sharded,),
+                       device_type="cuda", backend=backend, timeout=TP_TIMEOUT + DP_TIMEOUT)
     ranks_s = time.perf_counter() - t0
+    extra_outs = [o[:len(extra)] for o in outs]
+    outs = [o[len(extra):] for o in outs]
     backend = backend or mesh.default_backend("cuda")
     total = {"relpos": [0, 0], "bias": [0, 0]}
     for i, case in enumerate(cases):
@@ -1787,6 +1876,15 @@ def phase_tp_slice(card_line, ranks=TP_RANKS, model_parallel=2, backend="gloo",
               f"{label}: the ranks' replicated parameters differ")
         kernel, n_att = (("bias", cfg["lm_params"]["num_blocks"] * 2) if is_lm else
                          ("relpos", cfg["encoder_params"]["num_blocks"] * 2))
+        model, _ = factory.create_model(cfg, "cpu", torch.Generator().manual_seed(SEED))
+        placement = tensor.param_placement(model, model_parallel)
+        names = {n for n, _ in model.named_parameters()}
+        replicated = sum(placement[n].kind == "replicated" for n in names)
+        n_split = len(names) - replicated
+        del model
+        check(all(len(g["replicated"]) == replicated for g in got),
+              f"{label}: replicated parameters {[len(g['replicated']) for g in got]}, "
+              f"placement_of replicates {replicated}")
         per_rank = []
         for g in got:
             c = g["launches"]
@@ -1797,7 +1895,8 @@ def phase_tp_slice(card_line, ranks=TP_RANKS, model_parallel=2, backend="gloo",
                   f"{label} rank {g['rank']}: {kernel} launches {c}, expected {n_att} / "
                   f"{n_att} on the {'FMA' if fp32 else 'tensor-core'} route")
             check(g["model_size"] == model_parallel and g["tp_calls"]["all_reduce"] > 0
-                  and g["tp_calls"]["all_gather"] > 0 and g["ddp"] == (ranks > model_parallel),
+                  and (g["tp_calls"]["all_gather"] > 0) == (n_split > 0)
+                  and g["ddp"] == (ranks > model_parallel),
                   f"{label} rank {g['rank']}: model size {g['model_size']}, collectives "
                   f"{g['tp_calls']}, DDP {g['ddp']}")
             total[kernel] = [total[kernel][0] + fwd, total[kernel][1] + bwd]
@@ -1812,6 +1911,8 @@ def phase_tp_slice(card_line, ranks=TP_RANKS, model_parallel=2, backend="gloo",
             norm_rel_split="-" if split is None else f"{split:.3g}",
             param_rel=f"{param_err:.3g}",
             stats_rel=f"{stats_err:.3g}", tol=tol, replicated_bitwise_equal=True,
+            replicated_params=replicated, split_params=n_split,
+            blocks=cfg.get("encoder_params", cfg.get("lm_params"))["num_blocks"],
             **{f"{kernel}_launches_per_rank": per_rank},
             route="fma" if fp32 else "tensor-core",
             all_reduces_per_step=got[0]["tp_calls"]["all_reduce"],
@@ -1820,7 +1921,33 @@ def phase_tp_slice(card_line, ranks=TP_RANKS, model_parallel=2, backend="gloo",
             ranks_seconds=f"{ranks_s:.2f}", card=f"'{card_line}'")
     out = {k: tuple(v) for k, v in total.items()}
     out["norm_rel_split"] = splits
+    out["extra"] = (extra_outs, ranks_s)
     return out
+
+
+def phase_tp3_slice(card_line):
+    """[tp3-slice]: tensor parallelism where the model size does not divide
+    the widths, as the JAX mesh runs it: three ranks on the one card over
+    gloo, one model group (data 1 x model 3). Conformer CTC Small (width
+    176, FFN 704, 4 heads, 256 words: every layer replicated) one fp32 and
+    one bf16 step, EfficientConformer CTC Small (120 / 168 / 240 split, 4
+    heads on the gather path, its 256-word ``fc`` replicated) one fp32 step,
+    each at one block a stage and at full width, the fp32 steps with the
+    CTC loss in float64; held by ``phase_tp_slice`` to the one-process step
+    at [tp-slice]'s gates, the replicated parameters bit for bit equal
+    across the ranks and counted against ``placement_of``. Returns the
+    rel-pos launches over the ranks and steps."""
+    rng = np.random.default_rng(SEED + 98)
+    batch = tp_rows(TP3_RANKS, TP3_RANKS, rng)
+    cases = []
+    for path, mixed in ((TP3_CONFIG, False), (TP3_CONFIG, True), (CONFIG, False)):
+        cfg = train_config(path, mixed_precision=mixed, lr_schedule="Constant", lr_value=1e-3)
+        cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+        cfg["encoder_params"] = one_block_a_stage(cfg["encoder_params"])
+        cases.append({"config": cfg, "batch": batch, "seed": SEED, "adam": dp_adam(cfg),
+                      "allow_tf32": False, "float64_loss": not mixed})
+    return phase_tp_slice(card_line, ranks=TP3_RANKS, model_parallel=TP3_RANKS,
+                          phase="tp3-slice", cases=cases)["relpos"]
 
 
 def phase_tp_cli():
@@ -1898,7 +2025,31 @@ def phase_sp_kernel():
             fwd = [max(a, b) for a, b in zip(fwd, e)]
             e = check_backward("sp-kernel-bwd", enc_params, samples / SAMPLE_RATE, gen, cut=cut)
             bwd = [max(a, b) for a, b in zip(bwd, e)]
-    return fwd, bwd
+    return fwd, bwd, sp_bias_kernel(gen)
+
+
+def sp_bias_kernel(gen):
+    """[sp-kernel]'s bias rows: both bias kernels at the causal 4-head
+    Large's stage shapes (causal_wide_encoder, B 2, 8 s at sp_pad_align's
+    length; stage 1 grouped, head 270: the chunked routes) with the query
+    rows of seq rank r of 2 (rows from 0 and from N/2) against all N keys
+    under the causal bias's rows, fp32 and bf16, forward and backward,
+    against their plain versions at [lm-kernel]'s gates (check_bias_case).
+    Returns the largest fp32 errors, (forward, backward)."""
+    from efficientconformer_torch.parallel import mesh
+
+    p = causal_wide_encoder()[1]
+    samples = mesh.sp_pad_align(p, 2)(8 * SAMPLE_RATE)
+    err = [0.0, 0.0]
+    for name, n, dh, _, h, _ in stage_shapes(p, samples / SAMPLE_RATE):
+        q, k, v, bias, scale = bias_inputs(2, h, n, n, dh, dh, "causal", gen)
+        for rank in range(2):
+            r0, r1 = rank * n // 2, (rank + 1) * n // 2
+            e = check_bias_case(f"causal-large-{name}-seq2-rank{rank}",
+                                (q[:, :, r0:r1], k, v, bias[:, :, r0:r1], scale), gen,
+                                phase="sp-kernel-bias")
+            err = [max(a, b) for a, b in zip(err, e)]
+    return err
 
 
 def sp_batch(rows, seconds, samples, rng):
@@ -1948,7 +2099,7 @@ def sp_cases(ranks, seq, model=1, cut=False) -> list:
 
 
 def phase_sp_slice(card_line, ranks=SP_RANKS, seq=2, model=1, backend="gloo",
-                   phase="sp-slice", cut=False):
+                   phase="sp-slice", cut=False, extra=()):
     """Sequence parallelism at full width: ``ranks`` ranks on a grid of
     data x ``seq`` x ``model`` (by default two on the one card over gloo,
     data 1 x seq 2; ``backend`` None: NCCL, one rank a GPU), each case of
@@ -1965,8 +2116,11 @@ def phase_sp_slice(card_line, ranks=SP_RANKS, seq=2, model=1, backend="gloo",
     query rows, FMA in fp32, tensor cores in bf16) and RNN-T launches; the
     seq group's all-gathers, halos and reduce-scatters a step (none at the
     uncovered length); each rank's peak memory beside the one-process
-    step's. With ``cut`` the encoders' depth is cut (``sp_cases``). Returns
-    the rel-pos (forward, backward) launches over the ranks and steps."""
+    step's. With ``cut`` the encoders' depth is cut (``sp_cases``). The
+    ``extra`` cases ([sp-skew-slice]'s) run in the same launch of ranks.
+    Returns the rel-pos (forward, backward) launches over the ranks and
+    steps, and the extra cases' results of each rank and the launch's
+    seconds."""
     from efficientconformer_torch import dryrun
     from efficientconformer_torch.parallel import mesh
 
@@ -1975,7 +2129,8 @@ def phase_sp_slice(card_line, ranks=SP_RANKS, seq=2, model=1, backend="gloo",
     for case in cases:
         cfg = json.loads(json.dumps(case["config"]))
         cfg["training_params"].update(seq_parallel=seq, model_parallel=model)
-        gridded.append(dict(case, config=cfg))
+        gridded.append(in_rank(dict(case, config=cfg)))
+    gridded += [in_rank(case) for case in extra]
     t0 = time.perf_counter()
     outs = mesh.launch(rank_steps, ranks, (gridded,), device_type="cuda",
                        backend=backend, timeout=SP_TIMEOUT)
@@ -2029,8 +2184,9 @@ def phase_sp_slice(card_line, ranks=SP_RANKS, seq=2, model=1, backend="gloo",
             check(not is_t or f64 or (c["rnnt_fwd"] > 0 and c["rnnt_bwd"] > 0),
                   f"{label} rank {g['rank']}: RNN-T launches {c}")
             sharded = covered[0] > 0
+            exchanges = [g["sp_calls"][k] for k in ("all_gather", "halo", "reduce_scatter")]
             check(g["seq_size"] == seq and g["ddp"] and
-                  (all(v > 0 for v in g["sp_calls"].values()) if sharded else
+                  (all(exchanges) and not g["sp_calls"]["all_reduce"] if sharded else
                    not any(g["sp_calls"].values())),
                   f"{label} rank {g['rank']}: seq size {g['seq_size']}, DDP {g['ddp']}, "
                   f"collectives {g['sp_calls']} at coverage {covered}")
@@ -2052,11 +2208,151 @@ def phase_sp_slice(card_line, ranks=SP_RANKS, seq=2, model=1, backend="gloo",
             peak_gib_one_process=gib(one["peak_bytes"]),
             ddp_all_reduces=got[0]["ddp_all_reduces"], bn_all_reduces=got[0]["bn_all_reduces"],
             ranks_seconds=f"{ranks_s:.2f}", card=f"'{card_line}'")
-    return tuple(total)
+    return tuple(total), [o[len(cases):] for o in outs], ranks_s
 
 
 def gib(nbytes) -> str:
     return "-" if nbytes is None else f"{nbytes / 2**30:.3f}"
+
+
+def sp_skew_cases(seq=2) -> list:
+    """[sp-skew-slice]'s steps: [causal-wide-slice]'s causal 4-head
+    EfficientConformer CTC Large at full width, one block a stage, on a data
+    1 x seq ``seq`` grid: one fp32 step (its CTC loss in float64) and one
+    bf16 step over 2 x 4 ragged rows of 4-8 s padded by sp_pad_align (dropout
+    0, SpecAugment off, Adam from dp_adam's state at a constant 1e-3)."""
+    from efficientconformer_torch.parallel import mesh
+
+    cfg0, p = causal_wide_encoder()
+    p = one_block_a_stage(dict(p, Pdrop=0.0, spec_augment=False))
+    rng = np.random.default_rng(SEED + 99)
+    seconds = np.resize([4.0, 5.5, 7.0, 8.0, 8.0, 6.5, 4.5, 5.0], (2, 4))
+    batch = sp_batch(4, seconds, mesh.sp_pad_align(p, seq)(128000), rng)
+    cases = []
+    for mixed in (False, True):
+        cfg = json.loads(json.dumps(cfg0))
+        cfg["encoder_params"] = p
+        cfg["training_params"].update(mixed_precision=mixed, lr_schedule="Constant",
+                                      lr_value=1e-3, seq_parallel=seq, model_parallel=1)
+        cases.append({"config": cfg, "batch": batch, "seed": SEED, "adam": dp_adam(cfg),
+                      "allow_tf32": False, "float64_loss": not mixed})
+    return cases
+
+
+def phase_sp_skew_slice(card_line, cases, outs, ranks_s, seq=2):
+    """[sp-skew-slice]: sequence parallelism through the skewing path on
+    the card: ``sp_skew_cases``' steps, run on two ranks sharing the card
+    over gloo (data 1 x seq 2) in [sp-slice]'s launch (``outs``: each
+    rank's results, ``ranks_s`` that launch's seconds): each rank's query
+    rows (stage 1's covering groups, head 270: the chunked routes) against
+    the gathered keys on the bias kernels (Nq < Nk), the rel scores skewed
+    at the rank's row offset; held to the one-process step at [sp-slice]'s
+    gates (fp32: loss and norm 1e-5, parameters and statistics 1e-4; bf16
+    2e-2), the ranks' parameters and statistics bit for bit equal; a
+    rank's bias launches (a block a direction a microbatch, none on the
+    rel-pos kernels) and their routes, and the seq group's exchanges.
+    Returns the bias launches over the ranks and steps, and the chunked
+    ones: (fwd, bwd, chunked fwd, chunked bwd)."""
+    total = [0, 0, 0, 0]
+    for i, case in enumerate(cases):
+        p = case["config"]["encoder_params"]
+        n_att = p["num_blocks"] * 2
+        fp32 = not case["config"]["training_params"]["mixed_precision"]
+        one_case = json.loads(json.dumps(case["config"]))
+        one_case["training_params"].update(seq_parallel=1)
+        one = one_process(dict(case, config=one_case))
+        got = [o[i] for o in outs]
+        label = f"[sp-skew-slice] {'fp32 float64 loss' if fp32 else 'bf16'}"
+        tol, loss_tol = (DP_FP32_TOL, DP_LOSS_RTOL) if fp32 else (DP_BF16_TOL, DP_BF16_TOL)
+        loss_err = max(abs(g["loss"] - one["loss"]) / abs(one["loss"]) for g in got)
+        norm_err = max(abs(g["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+                       for g in got)
+        stats = [{k: v for k, v in g["buffers"].items() if "running" in k} for g in got + [one]]
+        param_err = max(rel_diff(g["params"], one["params"]) for g in got)
+        stats_err = max(rel_diff(st, stats[-1]) for st in stats[:-1])
+        check(all(math.isfinite(g["loss"]) for g in got), f"{label}: loss {got[0]['loss']}")
+        check(loss_err <= loss_tol and norm_err <= loss_tol,
+              f"{label}: loss {[g['loss'] for g in got]} / {one['loss']}, "
+              f"norm {[g['grad_norm'] for g in got]} / {one['grad_norm']}")
+        check(param_err <= tol and stats_err <= tol,
+              f"{label}: parameters {param_err}, statistics {stats_err}")
+        differ = [(key, k) for g in got[1:] for key in ("params", "buffers") for k in got[0][key]
+                  if not torch.equal(g[key][k], got[0][key][k])]
+        check(not differ, f"{label}: the ranks' parameters or statistics differ: {differ[:8]}")
+        per_rank, routes = [], []
+        for g in got:
+            c = g["launches"]
+            chunked = tuple(sum(v for r, v in d.items() if r.endswith("_chunked"))
+                            for d in g["routes"])
+            per_rank.append((c["bias_fwd"], c["bias_bwd"]))
+            routes.append(g["routes"])
+            check((c["bias_fwd"], c["bias_bwd"]) == (n_att, n_att)
+                  and (c["relpos_fwd"], c["relpos_bwd"]) == (0, 0) and chunked == (2, 2),
+                  f"{label} rank {g['rank']}: launches {c}, routes {g['routes']}, expected "
+                  f"{n_att} / {n_att} on the bias kernels, 2 / 2 of them chunked")
+            calls = g["sp_calls"]
+            check(g["seq_size"] == seq and calls["all_gather"] > 0 and calls["halo"] > 0
+                  and calls["reduce_scatter"] > 0,
+                  f"{label} rank {g['rank']}: seq collectives {calls}")
+            total = [total[0] + c["bias_fwd"], total[1] + c["bias_bwd"],
+                     total[2] + chunked[0], total[3] + chunked[1]]
+        say("sp-skew-slice", model=CAUSAL_WIDE_MODEL, causal=True, blocks=p["num_blocks"],
+            dtype="float32" if fp32 else "bfloat16", loss_type="float64" if fp32 else "bfloat16",
+            ranks=len(got), grid=f"data1xseq{seq}", rows=case["batch"]["audio"].shape[:2],
+            samples=case["batch"]["audio"].shape[-1], loss=f"{got[0]['loss']:.6f}",
+            loss_rel=f"{loss_err:.3g}", norm_rel=f"{norm_err:.3g}",
+            param_rel=f"{param_err:.3g}", stats_rel=f"{stats_err:.3g}", tol=tol,
+            bitwise_equal_across_ranks=True, bias_launches_per_rank=per_rank,
+            routes_per_rank=routes, seq_collectives_per_step=got[0]["sp_calls"],
+            peak_gib_per_rank=[gib(g["peak_bytes"]) for g in got],
+            peak_gib_one_process=gib(one["peak_bytes"]),
+            shared_launch_seconds=f"{ranks_s:.2f}", card=f"'{card_line}'")
+    return tuple(total)
+
+
+def phase_contextnet():
+    """[contextnet]: ContextNetSubsampling (CONTEXTNET: 80 mels, 240
+    features, kernel 5; eight blocks, two of stride 2) on 2 x 10 s of random
+    features (1,001 frames, one row 8 s long), fp32 on the card against the
+    same module on the CPU within CONTEXTNET_TOL, in train mode (batch
+    statistics; the running statistics it leaves behind too) and in eval
+    mode (the running statistics moved off their init); the lengths equal.
+    Returns the largest error."""
+    from efficientconformer_torch.models.layers import init_weights_
+    from efficientconformer_torch.models.modules import ContextNetSubsampling
+
+    mels, features, kernel = CONTEXTNET
+    gen = torch.Generator().manual_seed(SEED + 97)
+    module = ContextNetSubsampling(mels, features, kernel)
+    init_weights_(module, gen)
+    perturb_norms_(module)
+    x = torch.randn(2, 1001, mels, generator=gen)
+    x_len = torch.tensor([1001, 801])
+    worst = 0.0
+    for train in (True, False):
+        cpu = copy.deepcopy(module).train(train)
+        card = copy.deepcopy(module).cuda().train(train)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y, y_len = card(x.cuda(), x_len.cuda())
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            want, want_len = cpu(x, x_len)
+        err = (y.cpu() - want).abs().max().item() / max(want.abs().max().item(), 1.0)
+        stats = 0.0
+        if train:
+            stats = rel_diff({k: v.cpu() for k, v in card.state_dict().items() if "running" in k},
+                             {k: v for k, v in cpu.state_dict().items() if "running" in k})
+        check(y_len.cpu().tolist() == want_len.tolist() and err <= CONTEXTNET_TOL
+              and stats <= CONTEXTNET_TOL,
+              f"[contextnet] {'train' if train else 'eval'}: output {err}, statistics {stats}, "
+              f"lengths {y_len.tolist()} / {want_len.tolist()}")
+        worst = max(worst, err, stats)
+        say("contextnet", mode="train" if train else "eval", input=tuple(x.shape),
+            features=features, kernel=kernel, output=tuple(y.shape), lengths=y_len.tolist(),
+            rel_err=f"{err:.3g}", stats_rel_err=f"{stats:.3g}", tol=CONTEXTNET_TOL,
+            card_ms=f"{ms:.2f}")
+    return worst
 
 
 def phase_sp_cli():
@@ -4879,8 +5175,9 @@ def interctc_config(**training) -> dict:
 
 def phase_interctc_step(card_line, train_rate_ms):
     """One fp32 InterCTC step (as [train-slice]'s: 2 x 4 ragged utterances,
-    dropout 0, SpecAugment off) through the kernels vs the plain versions
-    on the card and vs the CPU; then the config's own bf16 step at
+    dropout 0, SpecAugment off; one block a stage at full width, the taps
+    INTERCTC_CUT_TAPS) through the kernels vs the plain
+    versions on the card and vs the CPU; then the config's own bf16 step at
     [train-rate]'s 2 x 32 x 16 s: ms a step beside [train-rate]'s, the
     rel-pos launches of one step, all on the tensor cores, and the device
     ms and host syncs of a step beside the CTC config's on the same batch."""
@@ -4888,13 +5185,16 @@ def phase_interctc_step(card_line, train_rate_ms):
 
     cfg = interctc_config(mixed_precision=False)
     cfg["encoder_params"].update(Pdrop=0.0, spec_augment=False)
+    cfg["encoder_params"] = dict(one_block_a_stage(cfg["encoder_params"]),
+                                 interctc_blocks=list(INTERCTC_CUT_TAPS))
     seconds = [[4.0, 5.5, 7.0, 8.0], [8.0, 6.5, 4.5, 5.0]]
     batch = train_batch(2, 4, seconds, [12, 30, 0, 20], "cpu", np.random.default_rng(SEED + 44))
     reset_rel_counts()
     kernel = one_step(cfg, "cuda", batch)
     torch.cuda.synchronize()
     fwd, fwd_tc, bwd, bwd_tc = rel_counts()
-    n_att = cfg["encoder_params"]["num_blocks"] * 2
+    n_cut = cfg["encoder_params"]["num_blocks"]
+    n_att = n_cut * 2
     check(fwd == n_att and bwd == n_att and fwd_tc == bwd_tc == 0,
           f"[interctc-step] fp32 launches {rel_counts()}, expected {n_att} each on the FMA route")
     out = compare_steps(kernel, cfg, batch)
@@ -4935,6 +5235,7 @@ def phase_interctc_step(card_line, train_rate_ms):
         syncs[name] = box["n"]
         device[name] = device_ms(lambda tr=tr: tr.train_step(big), 2)[0]
     say("interctc-step", config="EfficientConformerCTCSmall+InterCTC", taps=INTERCTC_TAPS,
+        fp32_check_taps=INTERCTC_CUT_TAPS, fp32_check_blocks=n_cut,
         interctc_lambda=tp.get("interctc_lambda", 0.5), fp32_loss=f"{kernel[0]:.6f}", **out,
         bf16_ms_per_step=f"{dt * 1e3:.2f}", train_rate_ms_per_step=f"{train_rate_ms:.2f}",
         device_ms_per_step=f"{device['interctc']:.2f}",
@@ -6535,16 +6836,31 @@ def main() -> int:
     phase_train_slice()
     phase_train_learns()
     launches_bwd, tc_bwd, train_rate_ms = phase_train_rate(card_line)
-    dp_slice = phase_dp_slice(card_line)
+    # [dp-slice]'s two ranks run its steps first in [tp-slice]'s launch
+    t_tp = time.perf_counter()
+    shared = dp_cases()
+    tp_slice = phase_tp_slice(card_line, cut=True, extra=shared)
+    say("tp-slice-time", seconds=f"{time.perf_counter() - t_tp:.2f}",
+        note="the launch ran [dp-slice]'s steps too")
+    dp_slice = phase_dp_slice(card_line, cases=shared, launched=tp_slice["extra"])
     dp_rate = phase_dp_rate(card_line, train_rate_ms)
     tp_fwd, tp_bwd, tp_bias_fwd, tp_bias_bwd = phase_tp_kernel()
-    tp_slice = phase_tp_slice(card_line)
+    t_tp3 = time.perf_counter()
+    tp3_slice = phase_tp3_slice(card_line)
+    say("tp3", seconds=f"{time.perf_counter() - t_tp3:.2f}")
+    check(all(tp3_slice), f"[tp3-slice] missed a rel-pos kernel: {tp3_slice}")
     phase_tp_cli()
     t_sp = time.perf_counter()
-    sp_fwd, sp_bwd = phase_sp_kernel()
-    sp_slice = phase_sp_slice(card_line, cut=True)
+    sp_fwd, sp_bwd, sp_bias = phase_sp_kernel()
+    skew_cases = sp_skew_cases()
+    sp_slice, skew_outs, sp_ranks_s = phase_sp_slice(card_line, cut=True, extra=skew_cases)
+    t_skew = time.perf_counter()
+    sp_skew = phase_sp_skew_slice(card_line, skew_cases, skew_outs, sp_ranks_s)
+    say("sp-skew", seconds=f"{time.perf_counter() - t_skew:.2f}",
+        note="its ranks ran in [sp-slice]'s launch")
     phase_sp_cli()
     say("sp", seconds=f"{time.perf_counter() - t_sp:.2f}")
+    check(all(sp_skew), f"[sp-skew-slice] missed a bias kernel: {sp_skew}")
     (t_err, t_err16), (t_err_bwd, t_err16_bwd) = phase_t_kernel(t_cfg["encoder_params"])
     err_rnnt, times_rnnt, err_rnnt_bwd, times_rnnt_bwd = phase_rnnt_kernel(t_cfg)
     t_long = time.perf_counter()
@@ -6611,6 +6927,9 @@ def main() -> int:
     causal_wide = phase_causal_wide_slice(card_line)
     say("widest", seconds=f"{time.perf_counter() - t_widest:.2f}")
     check(all(causal_wide), f"[causal-wide-slice] missed a chunked kernel: {causal_wide}")
+    t_ctx = time.perf_counter()
+    err_contextnet = phase_contextnet()
+    say("contextnet-time", seconds=f"{time.perf_counter() - t_ctx:.2f}")
 
     def wide(direction):
         return {f"wide_{w}_{k}_ms": wide_rows[(w, direction)][k] for w in (135, 256)
@@ -6680,7 +6999,7 @@ def main() -> int:
                 "ms": sum(r["kernel"] for r in rows), "plain_ms": sum(r["plain"] for r in rows),
                 "bound_ms": sum(r["bound"] for r in rows), "bound_by": max(set(by), key=by.count),
                 "library_ms": sum(r["library"] for r in rows), "rows": len(rows),
-                "causal_wide_launches": causal_wide[i]}
+                "causal_wide_launches": causal_wide[i], "sp_skew_launches": sp_skew[2 + i]}
 
     if opts.profile:
         phase_profile()
@@ -6708,9 +7027,9 @@ def main() -> int:
                               "serve-rate": sum(rate_rel.values())},
               interctc_launches=interctc_fwd, remat_launches=remat_fwd,
               dp_launches={"dp-slice": dp_slice[0], "dp-rate": dp_rate[0]},
-              tp_launches={"tp-slice": tp_slice["relpos"][0]},
+              tp_launches={"tp-slice": tp_slice["relpos"][0], "tp3-slice": tp3_slice[0]},
               tp_kernel_max_err=tp_fwd[0], tp_kernel_bf16_max_err=tp_fwd[1],
-              tp_norm_rel_split=tp_slice["norm_rel_split"],
+              tp_norm_rel_split=tp_slice["norm_rel_split"], contextnet_max_err=err_contextnet,
               sp_launches={"sp-slice": sp_slice[0]},
               sp_kernel_max_err=sp_fwd[0], sp_kernel_bf16_max_err=sp_fwd[1],
               wide_bf16_launches=wide16_launches[0], wider_launches=wider_launches[0],
@@ -6722,7 +7041,7 @@ def main() -> int:
               graph_ms=times_bwd["kernel"], eager_ms=times_bwd["kernel_call"],
               interctc_launches=interctc_bwd, remat_launches=remat_bwd,
               dp_launches={"dp-slice": dp_slice[1], "dp-rate": dp_rate[1]},
-              tp_launches={"tp-slice": tp_slice["relpos"][1]},
+              tp_launches={"tp-slice": tp_slice["relpos"][1], "tp3-slice": tp3_slice[1]},
               tp_kernel_max_err=tp_bwd[0], tp_kernel_bf16_max_err=tp_bwd[1],
               sp_launches={"sp-slice": sp_slice[1]},
               sp_kernel_max_err=sp_bwd[0], sp_kernel_bf16_max_err=sp_bwd[1],
@@ -6753,12 +7072,14 @@ def main() -> int:
               host_beam_launches=host_bias, step_bf16_max_err=step_err16,
               step_kernel_ms=times_step["kernel"], step_plain_ms=times_step["plain"],
               step_bound_ms=times_step["bound"], step_library_ms=times_step["library"],
-              tp_launches={"tp-slice": tp_slice["bias"][0]}, tp_kernel_max_err=tp_bias_fwd),
+              tp_launches={"tp-slice": tp_slice["bias"][0]}, tp_kernel_max_err=tp_bias_fwd,
+              sp_launches={"sp-skew-slice": sp_skew[0]}, sp_kernel_max_err=sp_bias[0]),
         entry(BA.KERNEL_BWD, "efficientconformer_torch/csrc/bias_attention_bwd.cu",
               "efficientconformer_tpu/ops/pallas_attention.py:412", lm_bwd,
               max(err_bias_bwd, err_wide_bwd), times_bias_bwd, variants_launches=variant_bwd,
               **wide("backward"), tp_launches={"tp-slice": tp_slice["bias"][1]},
-              tp_kernel_max_err=tp_bias_bwd),
+              tp_kernel_max_err=tp_bias_bwd, sp_launches={"sp-skew-slice": sp_skew[1]},
+              sp_kernel_max_err=sp_bias[1]),
         chunked_route(0, "forward", ["bias_fwd_tc_chunked_kernel", "bias_fwd_chunked_kernel"]),
         chunked_route(1, "backward", ["bias_bwd_q_tc_chunked_kernel",
                                       "bias_bwd_k_tc_chunked_kernel",

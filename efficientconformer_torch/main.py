@@ -14,9 +14,10 @@ data parallelism, one rank a visible GPU or --world_size ranks (on --cpu,
 gloo processes: one unless --world_size says more); under torchrun
 (``torchrun --nproc_per_node N -m efficientconformer_torch.main ...``) each
 process is one rank. --model_parallel n splits the ranks into model groups
-of n that shard the model (tensor parallelism) in training; --seq_parallel,
-whose work the port does not have, raises NotImplementedError naming its
-ROADMAP item.
+of n that shard the model (tensor parallelism) in training, a layer whose
+width n does not divide replicated; --seq_parallel S splits the encoder's
+activations along time over seq groups of S (sequence parallelism) in
+training, through every layer and subsampling.
 """
 
 import argparse

@@ -61,14 +61,15 @@ class ConformerBlock(nn.Module):
     def forward(self, x, mask=None, generator=None, span=None):
         """x (B, T, D) -> (B, T', E); under sequence parallelism x holds
         this rank's frames ``span`` (parallel/sequence.Span) and the output
-        the frames ``sequence.strided(span, conv_stride)``: the strided
-        residual keeps the frames at global multiples of the stride, from
-        the rank's first such frame on."""
+        the frames ``sequence.strided(span, stride)``: a strided residual
+        (of the attention or of the convolution) keeps the frames at global
+        multiples of its stride, from the rank's first such frame on."""
         c = self.cfg
         x = x + 0.5 * self.feed_forward_module1(x, generator, span)
         att = self.multi_head_self_attention_module(x, mask, generator, span)
         if c.att_stride > 1:
-            x = x[:, :: c.att_stride]
+            x = x[:, (-span.start % c.att_stride if span is not None else 0):: c.att_stride]
+            span = sequence.strided(span, c.att_stride) if span is not None else None
         x = x + att
         first = 0
         out = span

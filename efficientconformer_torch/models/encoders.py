@@ -38,15 +38,17 @@ The fused attention kernels inside a block run again in the recompute.
 Sequence parallelism (``seq``, set by parallel/sequence.shard_encoder_; the
 JAX package's ``seq_constraint`` points, encoders.py:78,96,155): the
 frontend and SpecAugment run on the whole audio on every rank of the seq
-group (their generator is shared), the Conv2d subsampling computes the
-rank's frames from a window of the whole mel, and at each point (after
-subsampling, after every block) an activation whose frame count divides by
-the seq size is split evenly along time; any other runs whole on every
-rank, and a block whose output would not split evenly gathers its input
-first. The mask and the lengths stay whole (the keys are gathered), the
-frame count and the rank's offset travel as a ``sequence.Span``, the
-InterCTC taps run on the rank's frames and gather their probabilities, and
-the output is gathered whole for the heads.
+group (their generator is shared), every subsampling computes the rank's
+frames from its window of the whole mel (models/modules.py), and at each
+point (after subsampling, after every block) an activation whose frame
+count divides by the seq size is split evenly along time; any other runs
+whole on every rank, and a block whose output would not split evenly
+gathers its input first. The mask and the lengths stay whole (the keys are
+gathered), the frame count and the rank's offset travel as a
+``sequence.Span`` through every block kind (a strided block's output span
+is ``sequence.strided(span, stride)``), the absolute encoding adds its rows
+at the rank's offset, the InterCTC taps run on the rank's frames and gather
+their probabilities, and the output is gathered whole for the heads.
 """
 
 from __future__ import annotations
@@ -173,7 +175,10 @@ class ConformerEncoder(nn.Module):
             mask = streaming_mask(t, x_len, self.left_context, self.right_context, x.device)
         x = self.dropout(self.linear(x), generator, span)
         if self.absolute_pos_enc:
-            x = x + absolute_encoding(t, x.shape[-1], x.device).to(x.dtype)
+            enc = absolute_encoding(t, x.shape[-1], x.device)
+            if span is not None:
+                enc = enc[span.start:span.start + span.length]
+            x = x + enc.to(x.dtype)
         probs = []
         remat = self.remat if torch.is_grad_enabled() else None
         for i, block in enumerate(self.blocks):

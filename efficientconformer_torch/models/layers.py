@@ -161,6 +161,21 @@ class Linear(Parallel, VariationalNoise, nn.Linear):
         return self.parallel(x, lambda y: F.linear(y, w), b)
 
 
+class IdentityProjection(nn.Module):
+    """The input followed by a learned projection of it to the remaining
+    ``features`` - ``in_features`` features (layers.py:267-279, a ContextNet
+    helper): (..., in_features) -> (..., features)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        if features <= in_features:
+            raise ValueError(f"IdentityProjection to {features} features from {in_features}")
+        self.linear = Linear(in_features, features - in_features)
+
+    def forward(self, x):
+        return torch.cat([x, self.linear(x)], dim=-1)
+
+
 class Embedding(VariationalNoise, nn.Embedding):
     """Token embedding whose id 0 embeds to zeros, by a mask on the output
     (layers.py:188-196): the table's row 0 is a drawn row like any other, so

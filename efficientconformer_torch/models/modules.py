@@ -21,6 +21,7 @@ the last dropout on the replicated output.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -40,6 +41,7 @@ from efficientconformer_torch.models.layers import (
     Linear,
     Swish,
     Transpose,
+    swish,
 )
 from efficientconformer_torch.ops import specaugment
 from efficientconformer_torch.ops.audio import log_mel_spectrogram
@@ -123,6 +125,16 @@ def _flatten(x):
     return x.reshape(b, c * m, t).transpose(1, 2)
 
 
+def _sharded_norm(norm, y):
+    """A subsampling norm of the rank's frames under sequence parallelism:
+    BatchNorm over the data x seq group, each rank counting its own."""
+    return norm(y, sharded=True) if isinstance(norm, (BatchNorm1d, BatchNorm2d)) else norm(y)
+
+
+def _weights(conv, x):
+    return conv.weight.to(x.dtype), conv.bias.to(x.dtype)
+
+
 class Conv1dSubsampling(nn.Module):
     """Stride-2 Conv1d -> norm -> activation layers over (B, mel, time),
     'same' padding (k-1)//2, lengths (l-1)//2 + 1 per layer (modules.py
@@ -140,13 +152,30 @@ class Conv1dSubsampling(nn.Module):
     def out_features(self, n_mels: int) -> int:
         return self.layers[-1][0].out_channels
 
-    def forward(self, x, x_len):
+    def forward(self, x, x_len, seq=None):
+        """(features, lengths); with a seq group ``seq`` (sequence
+        parallelism) also the span of the frames returned (None: whole):
+        the layers but the last run whole, and the last computes the rank's
+        frames from their window of its input, as Conv2dSubsampling's."""
         x = x.transpose(1, 2)                             # (B, mel, T)
-        for layer in self.layers:
+        for layer in self.layers if seq is None else self.layers[:-1]:
             x = layer(x)
             if x_len is not None:
                 x_len = (x_len - 1) // 2 + 1
-        return x.transpose(1, 2), x_len
+        if seq is None:
+            return x.transpose(1, 2), x_len
+        conv, norm, act = self.layers[-1]
+        if x_len is not None:
+            x_len = (x_len - 1) // 2 + 1
+        total = (x.shape[-1] - 1) // 2 + 1
+        if total % seq.size:
+            return act(norm(conv(x))).transpose(1, 2), x_len, None
+        span = sequence.even(total, seq)
+        k, p = conv.kernel_size[0], conv.padding[0]
+        lo = 2 * span.start - p
+        y = F.conv1d(sequence.window(x, lo, lo + 2 * (span.length - 1) + k), *_weights(conv, x),
+                     stride=2)
+        return act(_sharded_norm(norm, y)).transpose(1, 2), x_len, span
 
 
 class Conv2dSubsampling(nn.Module):
@@ -200,12 +229,10 @@ class Conv2dSubsampling(nn.Module):
             return _flatten(act(norm(conv(x)))), x_len, None
         span = sequence.even(total, seq)
         k, p = conv.kernel_size[1], conv.padding[1]
-        lo, hi = 2 * span.start - p, 2 * (span.start + span.length - 1) - p + k
-        window = F.pad(x[..., max(lo, 0):min(hi, t_in)], (max(-lo, 0), max(hi - t_in, 0)))
-        y = F.conv2d(window, conv.weight.to(x.dtype), conv.bias.to(x.dtype), stride=conv.stride,
-                     padding=(conv.padding[0], 0))
-        y = norm(y, sharded=True) if isinstance(norm, BatchNorm2d) else norm(y)
-        return _flatten(act(y)), x_len, span
+        lo = 2 * span.start - p
+        y = F.conv2d(sequence.window(x, lo, lo + 2 * (span.length - 1) + k), *_weights(conv, x),
+                     stride=conv.stride, padding=(conv.padding[0], 0))
+        return _flatten(act(_sharded_norm(norm, y))), x_len, span
 
 
 class Conv2dPoolSubsampling(Conv2dSubsampling):
@@ -222,13 +249,36 @@ class Conv2dPoolSubsampling(Conv2dSubsampling):
         for layer in self.layers:
             layer[0].stride = (1, 1)
 
-    def forward(self, x, x_len):
+    def forward(self, x, x_len, seq=None):
+        """(features, lengths); with a seq group ``seq`` also the span of the
+        frames returned (None: whole): the last layer's pool computes the
+        rank's frames from the conv outputs under its windows (-inf past the
+        ends), the conv those from their window of its input (zeros)."""
         x = x.transpose(1, 2)[:, None]
-        for conv, norm, act in self.layers:
+        for conv, norm, act in self.layers if seq is None else self.layers[:-1]:
             x = act(norm(F.max_pool2d(conv(x), 3, stride=2, padding=1)))
             if x_len is not None:
                 x_len = (x_len - 1) // 2 + 1
-        return _flatten(x), x_len
+        if seq is None:
+            return _flatten(x), x_len
+        conv, norm, act = self.layers[-1]
+        if x_len is not None:
+            x_len = (x_len - 1) // 2 + 1
+        t_in = x.shape[-1]
+        total = (t_in - 1) // 2 + 1
+        if total % seq.size:
+            return _flatten(act(norm(F.max_pool2d(conv(x), 3, stride=2, padding=1)))), x_len, None
+        span = sequence.even(total, seq)
+        # the pool's outputs [o, o + L) read the conv's [2o - 1, 2(o + L)),
+        # of which [a, b) lie inside the sequence
+        lo, hi = 2 * span.start - 1, 2 * (span.start + span.length)
+        a, b = max(lo, 0), min(hi, t_in)
+        k, p = conv.kernel_size[1], conv.padding[1]
+        y = F.conv2d(sequence.window(x, a - p, b - p + k - 1), *_weights(conv, x),
+                     padding=(conv.padding[0], 0))
+        y = F.pad(y, (a - lo, hi - b), value=-math.inf)
+        y = F.max_pool2d(y, 3, stride=2, padding=(1, 0))
+        return _flatten(act(_sharded_norm(norm, y))), x_len, span
 
 
 class VGGSubsampling(nn.Module):
@@ -254,13 +304,47 @@ class VGGSubsampling(nn.Module):
     def out_features(self, n_mels: int) -> int:
         return self.layers[-1][0].out_channels * (n_mels >> len(self.layers))
 
-    def forward(self, x, x_len):
+    def forward(self, x, x_len, seq=None):
+        """(features, lengths); with a seq group ``seq`` also the span of the
+        frames returned (None: whole), from ``_sharded_last``."""
         x = x.transpose(1, 2)[:, None]
-        for layer in self.layers:
+        for layer in self.layers if seq is None else self.layers[:-1]:
             x = layer(x)
             if x_len is not None:
                 x_len = x_len // 2
-        return _flatten(x), x_len
+        if seq is None:
+            return _flatten(x), x_len
+        return self._sharded_last(x, x_len, seq)
+
+    def _sharded_last(self, x, x_len, seq):
+        """The last stage under sequence parallelism, the whole input on
+        every rank: a rank whose pooled frames [o, o + L) split evenly runs
+        the first conv on the frames [2o, 2o + 2L) it pools (the last rank
+        to the end: the frame the pool drops still counts in BatchNorm's
+        statistics) from their window of the input, its BatchNorm over the
+        data x seq group; takes the first conv's activations at the second
+        conv's reach from its neighbours (``sequence.halo``, zeros past the
+        ends as that conv's padding); runs the second conv, its BatchNorm
+        and the pool on its frames. Otherwise the stage runs whole.
+        (features, lengths, span or None)."""
+        conv_a, norm_a, act_a, conv_b, norm_b, act_b, pool = self.layers[-1]
+        if x_len is not None:
+            x_len = x_len // 2
+        t_in = x.shape[-1]
+        total = t_in // 2
+        p = conv_b.padding[1]
+        span = sequence.even(total, seq) if total % seq.size == 0 else None
+        if span is None or 2 * span.length < p:
+            return _flatten(self.layers[-1](x)), x_len, None
+        lo = 2 * span.start
+        hi = t_in if span.start + span.length == total else lo + 2 * span.length
+        k, pa = conv_a.kernel_size[1], conv_a.padding[1]
+        y = F.conv2d(sequence.window(x, lo - pa, hi - pa + k - 1), *_weights(conv_a, x),
+                     padding=(conv_a.padding[0], 0))
+        y = sequence.halo(act_a(_sharded_norm(norm_a, y)), p, p, seq, dim=3)
+        y = F.conv2d(y, *_weights(conv_b, y), padding=(conv_b.padding[0], 0))
+        y = act_b(_sharded_norm(norm_b, y))
+        return _flatten(pool(y[..., :2 * span.length])), x_len, span
 
 
 SUBSAMPLING = {
@@ -318,7 +402,11 @@ class MultiHeadSelfAttentionModule(nn.Module):
         self.dropout = Dropout(dropout)
 
     def forward(self, x, mask=None, generator=None, span=None):
-        return self.dropout(self.mhsa(self.norm(x), mask, span), generator, span)
+        """Under sequence parallelism x holds this rank's frames ``span``,
+        the output its rows (``sequence.strided(span, S)`` in a strided
+        layer)."""
+        out = span if span is None else sequence.strided(span, self.mhsa.stride)
+        return self.dropout(self.mhsa(self.norm(x), mask, span), generator, out)
 
 
 class ConvolutionModule(nn.Module):
@@ -363,12 +451,109 @@ class ConvolutionModule(nn.Module):
         """One frame x (B, 1, D) of a causal module with no stride, in eval
         mode, given the depthwise conv's last K-1 inputs ``state`` (B, E,
         K-1): (the frame's output (B, 1, E), the state shifted by its
-        input)."""
-        if self.tp is not None:
-            raise NotImplementedError("the convolution module's streaming step under tensor "
-                                      f"parallelism ({tp_ops.ROADMAP_ITEM})")
+        input). Under tensor parallelism the state holds the rank's E/n
+        channels, as its depthwise conv does."""
         layers = self.layers
-        g = run_layers(layers[:4], x, None)            # LN, pointwise, GLU: (B, E, 1)
+        g = run_parallel(layers[:4], x, None, self.tp)  # LN, pointwise, GLU: (B, E, 1)
         window = torch.cat([state.to(g.dtype), g], dim=2)
         y = layers[4](window)[..., -1:]                # the causal conv's output at this frame
         return run_layers(layers[5:], y, None), window[..., 1:]
+
+
+# ---------------------------------------------------------------- ContextNet
+
+
+def _channels_first(layer, x):
+    """``layer`` (a Conv1d or BatchNorm1d over (B, C, T)) of x (B, T, C)."""
+    return layer(x.transpose(1, 2)).transpose(1, 2)
+
+
+class SqueezeAndExcitationModule(nn.Module):
+    """x (B, T, D) scaled per channel by sigmoid(fc2(act(fc1(mean_T x))))
+    (modules.py:352-363): the mean over every frame, padded ones included,
+    as the JAX module's."""
+
+    def __init__(self, dim: int, reduction_ratio: int, inner_act: str = "relu"):
+        super().__init__()
+        self.fc1 = Linear(dim, dim // reduction_ratio)
+        self.act = _act(inner_act)
+        self.fc2 = Linear(dim // reduction_ratio, dim)
+
+    def forward(self, x):
+        scale = self.fc2(self.act(self.fc1(x.mean(dim=1, keepdim=True))))
+        return x * torch.sigmoid(scale)
+
+
+class DepthwiseSeparableConv1d(nn.Module):
+    """x (B, T, C) -> depthwise Conv1d (kernel, stride; 'same' or causal
+    padding) -> pointwise projection to ``features`` -> BatchNorm -> swish
+    (modules.py:366-382)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int, stride: int = 1,
+                 causal: bool = False):
+        super().__init__()
+        self.dw = Conv1d(in_channels, in_channels, kernel_size, stride=stride,
+                         groups=in_channels, padding="causal" if causal else None)
+        self.pw = Linear(in_channels, features)
+        self.bn = BatchNorm1d(features)
+
+    def forward(self, x):
+        return swish(_channels_first(self.bn, self.pw(_channels_first(self.dw, x))))
+
+
+class ContextNetBlock(nn.Module):
+    """``num_layers`` depthwise-separable convs (the last with the stride),
+    squeeze-and-excitation (swish inside) when ``se_ratio`` is set, and with
+    ``residual`` swish(y + BatchNorm(pointwise strided conv of x))
+    (modules.py:385-411). x (B, T, C) -> (B, T', features)."""
+
+    def __init__(self, in_features: int, num_layers: int, features: int, kernel_size: int,
+                 stride: int = 1, causal: bool = False, se_ratio: Optional[int] = None,
+                 residual: bool = True):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"conv_{i}", DepthwiseSeparableConv1d(
+                in_features if i == 0 else features, features, kernel_size,
+                stride=stride if i == num_layers - 1 else 1, causal=causal))
+        self.se = (SqueezeAndExcitationModule(features, se_ratio, "swish")
+                   if se_ratio is not None else None)
+        self.residual = residual
+        if residual:
+            self.res = Conv1d(in_features, features, 1, stride=stride)
+            self.res_bn = BatchNorm1d(features)
+
+    def forward(self, x):
+        y = x
+        for i in range(self.num_layers):
+            y = getattr(self, f"conv_{i}")(y)
+        if self.se is not None:
+            y = self.se(y)
+        if self.residual:
+            y = swish(y + _channels_first(self.res_bn, _channels_first(self.res, x)))
+        return y
+
+
+class ContextNetSubsampling(nn.Module):
+    """Eight ContextNet blocks of ``dim_model`` features, blocks 3 and 7 of
+    stride 2 (modules.py:414-438): block 0 one conv with neither SE nor
+    residual, the others five convs with SE (ratio 8) and the residual;
+    lengths (l-1)//2 + 1 twice. x (B, T, in_features) -> ((B, T', D),
+    lengths). The JAX package registers it in no subsampling table, and
+    neither does the port."""
+
+    def __init__(self, in_features: int, dim_model: int, kernel_size: int, causal: bool = False):
+        super().__init__()
+        for block_id in range(8):
+            self.add_module(f"block_{block_id}", ContextNetBlock(
+                in_features if block_id == 0 else dim_model,
+                num_layers=1 if block_id == 0 else 5, features=dim_model,
+                kernel_size=kernel_size, stride=2 if block_id in (3, 7) else 1, causal=causal,
+                se_ratio=None if block_id == 0 else 8, residual=block_id != 0))
+
+    def forward(self, x, x_len=None):
+        for block_id in range(8):
+            x = getattr(self, f"block_{block_id}")(x)
+        if x_len is not None:
+            x_len = ((x_len - 1) // 2 + 1 - 1) // 2 + 1
+        return x, x_len

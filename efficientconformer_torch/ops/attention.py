@@ -3,7 +3,8 @@ plain softmax attention of the local variants.
 
 Counterpart of efficientconformer_tpu/ops/attention.py: the layout helpers,
 every ``rel_to_abs_*`` (plain, strided, local and strided local, causal and
-full) and ``softmax_attention``. The layout functions return views where
+full; ``rel_to_abs_rows``, some rows of the plain and strided ones, for
+sequence parallelism) and ``softmax_attention``. The layout functions return views where
 the layout allows it; the attention kernels take strided (B, H, N, dh)
 inputs, so no copy is made on the way in. The local variants follow the JAX
 package's intended transpose of the block axis, not the original PyTorch
@@ -63,6 +64,37 @@ def rel_to_abs_strided_causal(scores: torch.Tensor, stride: int) -> torch.Tensor
     s = F.pad(s, (l - stride * tq, 0))
     s = s.reshape(*lead, tq + 1, l)
     return s[..., 1:, :]
+
+
+def rel_to_abs_rows(scores: torch.Tensor, first: int, keys: int, stride: int = 1,
+                    causal: bool = False, rows: int = None) -> torch.Tensor:
+    """Rows ``first`` .. ``first`` + n - 1 of ``rel_to_abs_full`` /
+    ``rel_to_abs_causal`` (``stride`` 1) or of their strided forms, without
+    the other rows, entry for entry: (..., n, L) scores of the queries at
+    frames (first + i) * stride, indexed by relative position over a window
+    of ``keys`` keys (most distant past first) -> (..., n, keys) indexed by
+    absolute key position, entry (i, j) the score at column keys - 1 -
+    (first + i) * stride + j. Past a causal row's window (a future key,
+    which the causal mask hides, but whose gradient a row with every key
+    masked still carries) the whole skew reads zeros and then the next
+    row's scores: a causal call passes ``rows`` = n and the scores of the
+    row after them too, where one follows. A gather, so autograd
+    differentiates it. Sequence parallelism's rows of a rank."""
+    n = scores.shape[-2] if rows is None else rows
+    l = scores.shape[-1]
+    # a zero column after every row, and a zero row where none follows
+    ext = F.pad(scores, (0, 1, 0, n + 1 - scores.shape[-2]))
+    i = torch.arange(n, device=scores.device)[:, None]
+    j = torch.arange(keys, device=scores.device)[None, :]
+    at = (first + i) * stride
+    row, col = i.expand(n, keys), keys - 1 - at + j
+    if causal:
+        later = j > at + stride
+        row = torch.where(later, i + 1, row)
+        col = torch.where(later, j - at - stride - 1, torch.where(j > at, l, col))
+    lead = scores.shape[:-2]
+    idx = (row * (l + 1) + col).reshape(-1).expand(*lead, n * keys)
+    return ext.flatten(-2).gather(-1, idx).view(*lead, n, keys)
 
 
 def _blocks(scores: torch.Tensor, rows: int) -> torch.Tensor:

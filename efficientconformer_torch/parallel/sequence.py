@@ -19,7 +19,11 @@ each is an explicit ``autograd.Function`` over a seq group (a
   side, zeros past the sequence's ends as the convolution's own padding gives
   (an all-gather of the edge frames; of the whole tensor when a rank holds
   fewer frames than the halo); its backward returns each edge's gradient to
-  its owner, which adds it to its own.
+  its owner, which adds it to its own;
+- ``all_reduce``: the sum over the seq group of each rank's part of a
+  quantity summed over time (linear attention's softmax denominators and
+  k^T v); its backward sums the gradient over the group likewise, since each
+  rank's part feeds every rank's rows.
 
 The gradients follow one rule: every rank's gradient of a parameter is its
 part of a sum over the seq group, so that DDP's average over the data x seq
@@ -35,15 +39,18 @@ Over gloo (the CPU, or ranks sharing one card) half-precision tensors travel
 as fp32, as parallel/tensor.py sends them; the reduce-scatter is an
 all-reduce and a slice on every backend, so NCCL and gloo give the same
 numbers. Each collective adds one to ``calls["all_gather"]``,
-``calls["halo"]`` or ``calls["reduce_scatter"]``.
+``calls["halo"]``, ``calls["reduce_scatter"]`` or ``calls["all_reduce"]``.
 
 ``Span`` is where a rank's frames lie: ``even(total, seq)`` the even split
 of a point whose frame count divides; ``strided(span, s)`` the frames a
 convolution of stride s leaves the rank (the outputs whose input frame
 j * s it holds, so a rank whose offset is odd starts one frame later);
 ``conv1d_time`` runs a depthwise (any) Conv1d on the rank's frames through a
-halo. ``shard_encoder_`` turns sequence parallelism on in an encoder, and
-raises for the layers it does not take (ROADMAP Queue 1 item 25).
+halo; ``window`` cuts a replicated tensor's frames with the padding past its
+ends, where a subsampling computes the rank's frames from the whole input.
+``shard_encoder_`` turns sequence parallelism on in an encoder: every layer
+the JAX package's seq mesh runs computes on the rank's frames (models/
+modules.py, attentions.py, encoders.py say how each exchanges what it needs).
 """
 
 from __future__ import annotations
@@ -51,15 +58,14 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from efficientconformer_torch.parallel import mesh
 from efficientconformer_torch.parallel import tensor as tp_ops
 from efficientconformer_torch.parallel.tensor import Region
 
-ROADMAP_ITEM = "ROADMAP Queue 1 item 25"
-
-calls = {"all_gather": 0, "halo": 0, "reduce_scatter": 0}
+calls = {"all_gather": 0, "halo": 0, "reduce_scatter": 0, "all_reduce": 0}
 
 
 def reset_calls() -> None:
@@ -165,6 +171,54 @@ def gather_time(x: torch.Tensor, seq: Region, dim: int = 1) -> torch.Tensor:
     return _GatherTime.apply(x, seq, dim % x.dim())
 
 
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seq):
+        ctx.seq = seq
+        calls["all_reduce"] += 1
+        return tp_ops.reduce_parts(x, seq.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        calls["all_reduce"] += 1
+        return tp_ops.reduce_parts(grad.contiguous(), ctx.seq.group), None
+
+
+def all_reduce(x: torch.Tensor, seq: Region) -> torch.Tensor:
+    """The sum over the seq group of each rank's ``x`` (its frames' part of
+    a sum over time); the gradient summed over the group likewise."""
+    return _AllReduce.apply(x, seq)
+
+
+def softmax_time_product(k: torch.Tensor, v: torch.Tensor, seq: Region) -> torch.Tensor:
+    """softmax over time (dim -2) of ``k`` transposed against ``v``, over
+    every rank's frames of the seq group: k (..., T_r, dk), v (..., T_r, dv)
+    of this rank's frames -> (..., dk, dv), in v's dtype. The shift is the
+    group's maximum (by an uncounted all-reduce, outside autograd: the
+    softmax does not depend on it); each rank's sum of exp(k - max) and of
+    its products with v travel in one ``all_reduce``, in fp32."""
+    k32 = k.float()
+    top = k32.detach().amax(dim=-2, keepdim=True)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=seq.group)
+    w = torch.exp(k32 - top)
+    part = torch.cat([torch.einsum("...td,...te->...de", w, v.float()),
+                      w.sum(dim=-2)[..., None]], dim=-1)
+    total = all_reduce(part, seq)
+    return (total[..., :-1] / total[..., -1:]).to(v.dtype)
+
+
+def window(x: torch.Tensor, lo: int, hi: int, dim: int = -1, value: float = 0.0):
+    """Frames [lo, hi) along ``dim`` of a tensor every rank holds whole,
+    ``value`` past its ends (a convolution's zeros, a max-pool's -inf)."""
+    n = x.shape[dim]
+    part = x.narrow(dim, max(lo, 0), max(min(hi, n) - max(lo, 0), 0))
+    before, after = max(-lo, 0), max(hi - n, 0)
+    if before == after == 0:
+        return part
+    pad = [0, 0] * (x.dim() - 1 - dim % x.dim()) + [before, after]
+    return F.pad(part, pad, value=value)
+
+
 def _zeros_like_along(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     shape = list(x.shape)
     shape[dim] = n
@@ -248,37 +302,13 @@ def conv1d_time(conv, x: torch.Tensor, span: Span):
 # ---------------------------------------------------------------- the encoder
 
 
-def _refuse(what: str):
-    raise NotImplementedError(f"sequence parallelism: {what} ({ROADMAP_ITEM})")
-
-
 def shard_encoder_(encoder, seq: Region) -> None:
     """Turn sequence parallelism over the seq group ``seq`` on in
-    ``encoder`` (models/encoders.ConformerEncoder), after checking that it
-    takes each of its layers: the Conv2d subsampling, and blocks whose
-    attention takes the factorized path (rel-pos, non-causal, odd G, not
-    local, strided or linear) and whose convolution module pads 'same'.
-    Remat runs under it (the recompute repeats the block's collectives)."""
-    from efficientconformer_torch.models.modules import Conv2dSubsampling, SUBSAMPLING
-
-    if seq.size == 1:
-        return
-    sub = encoder.subsampling_module
-    if type(sub) is not Conv2dSubsampling:
-        name = next(k for k, v in SUBSAMPLING.items() if type(sub) is v)
-        _refuse(f"the {name} subsampling")
-    if encoder.absolute_pos_enc:
-        _refuse("absolute positional encodings")
-    for i, block in enumerate(encoder.blocks):
-        c = block.cfg
-        for cond, what in ((c.linear_att, "linear attention"),
-                           (c.att_kernel_size is not None, "local attention"),
-                           (c.att_stride > 1, "strided attention"),
-                           (c.causal, "causal attention"),
-                           (c.att_group_size % 2 == 0, "grouped attention of even G")):
-            if cond:
-                _refuse(f"block {i}'s {what}")
-    encoder.seq = seq
+    ``encoder`` (models/encoders.ConformerEncoder): its subsampling, blocks
+    and encodings then compute on the rank's frames. Remat runs under it
+    (the recompute repeats the block's collectives)."""
+    if seq.size > 1:
+        encoder.seq = seq
 
 
 def covering(span: Span, group: int) -> tuple[int, int]:

@@ -22,7 +22,8 @@ Megatron-LM, since DTensor has no sharding rule for the port's kernel
   replicated, and a width the model size does not divide replicated too.
   Two departures, by channel where the JAX package replicates: the
   convolution module's depthwise conv and BatchNorm, which act per channel
-  on the rank's channels. ``pw1``'s column split keeps GLU's halves
+  on the rank's channels (where its width splits; replicated with the rest
+  of the module otherwise). ``pw1``'s column split keeps GLU's halves
   aligned: rank r holds value channels [rE/n, (r+1)E/n) and the same gate
   channels E + [rE/n, (r+1)E/n);
 - ``shard_state_dict`` and ``gather_state_dict`` between the full layout
@@ -31,9 +32,12 @@ Megatron-LM, since DTensor has no sharding rule for the port's kernel
 - ``shard_model_``, which takes a model built whole (from the same seed on
   every rank) to this rank's shards and sets each layer's parallel form
   (models/layers.py, modules.py, attentions.py, model_ctc.py, lm.py,
-  joint_networks.py). A width that does not split raises, naming ROADMAP
-  Queue 1 item 24, rather than running replicated; an attention layer whose
-  heads are not whole on a rank takes the gather path (models/attentions.py).
+  joint_networks.py). A layer whose width the model size does not divide
+  runs replicated, as the JAX package's GSPMD runs it: its weights whole on
+  every rank, its input entering no region, its gradients averaged over the
+  model group with the other replicated parameters'. An attention layer
+  whose heads are not whole on a rank takes the gather path
+  (models/attentions.py).
 
 Over gloo (the CPU, or ranks sharing one card, where gloo takes the CUDA
 tensors as they are) half-precision tensors travel as fp32. Each collective
@@ -50,8 +54,6 @@ import torch.distributed as dist
 from torch import nn
 
 from efficientconformer_torch.parallel import mesh
-
-ROADMAP_ITEM = "ROADMAP Queue 1 item 24"
 
 calls = {"all_reduce": 0, "all_gather": 0}
 
@@ -402,35 +404,30 @@ def sync_replicated_grads(model: nn.Module) -> None:
 
 def grad_norm(model: nn.Module, grads: list) -> torch.Tensor:
     """The global L2 norm of ``model``'s parameter gradients ``grads`` (in
-    ``model.parameters()`` order): a sharded parameter's squares summed over
-    the model group, a replicated one's counted once, so it equals the
-    one-process norm."""
-    params = list(model.parameters())
+    ``model.parameters()`` order), from their squares summed in float64 (an
+    fp32 sum over a tensor of millions of entries loses ~1e-4 of it): a
+    sharded parameter's squares summed over the model group, a replicated
+    one's counted once, so it equals the one-process norm."""
+    def squares(gs):
+        return (torch.stack([g.double().square().sum() for g in gs]).sum() if gs
+                else torch.zeros((), dtype=torch.float64, device=grads[0].device))
+
     if not is_sharded(model):
-        return torch.nn.utils.get_total_norm(grads)
-    sharded = [g for p, g in zip(params, grads) if getattr(p, "tp_shard", None) is not None]
-    whole = [g for p, g in zip(params, grads) if getattr(p, "tp_shard", None) is None]
-    dev = grads[0].device
-    sq = torch.stack([g.double().square().sum() for g in sharded]).sum() if sharded \
-        else torch.zeros((), dtype=torch.float64, device=dev)
-    sq = all_reduce(sq, model.tp_region)
-    if whole:
-        sq = sq + torch.stack([g.double().square().sum() for g in whole]).sum()
-    return sq.sqrt().to(torch.float32)
+        return squares(grads).sqrt().to(torch.float32)
+    split = [getattr(p, "tp_shard", None) is not None for p in model.parameters()]
+    sq = all_reduce(squares([g for s, g in zip(split, grads) if s]), model.tp_region)
+    return (sq + squares([g for s, g in zip(split, grads) if not s])).sqrt().to(torch.float32)
 
 
 # ---------------------------------------------------------------- the model
 
 
-def _refuse(what: str, width: int, n: int):
-    raise ValueError(f"tensor parallelism: {what} of width {width} does not split over "
-                     f"{n} ranks; the port does not run it replicated ({ROADMAP_ITEM})")
-
-
 def shard_model_(model: nn.Module, reg: Optional[Region] = None) -> nn.Module:
     """Take ``model`` (built whole, the same on every rank) to this rank's
     shards over the model group ``reg`` (by default the grid's), in place,
-    and set its layers' parallel forms. Returns the model."""
+    and set its layers' parallel forms. A layer whose placement is
+    replicated (a width ``reg.size`` does not divide) keeps its whole form.
+    Returns the model."""
     from efficientconformer_torch.models.attentions import MultiHeadSelfAttention
     from efficientconformer_torch.models.joint_networks import JointNetwork
     from efficientconformer_torch.models.layers import Dropout
@@ -450,8 +447,8 @@ def shard_model_(model: nn.Module, reg: Optional[Region] = None) -> nn.Module:
     for name, m in model.named_modules():
         if isinstance(m, FeedForwardModule):
             linears = [x for x in m.layers if isinstance(x, nn.Linear)]
-            if not (sharded(linears[0], "column") and sharded(linears[1], "row")):
-                _refuse(f"{name}'s feed-forward", linears[0].out_features, n)
+            if not sharded(linears[0], "column"):
+                continue
             m.tp = linears[0].tp = linears[1].tp = reg
             linears[0].tp_mode, linears[1].tp_mode = "column", "row"
             # the inner dropout draws the whole width's mask and keeps its slice
@@ -460,8 +457,8 @@ def shard_model_(model: nn.Module, reg: Optional[Region] = None) -> nn.Module:
                     x.tp = reg
         elif isinstance(m, ConvolutionModule):
             pw1, dw, bn, pw2 = m.layers[2], m.layers[4], m.layers[5], m.layers[7]
-            if not (sharded(pw1, "column") and sharded(dw, "channel") and sharded(pw2, "row")):
-                _refuse(f"{name}'s convolution module", dw.out_channels, n)
+            if not sharded(pw1, "column"):
+                continue
             m.tp = reg
             pw1.tp_mode, pw2.tp_mode = "column", "row"
             pw1.tp = pw2.tp = reg
@@ -470,17 +467,15 @@ def shard_model_(model: nn.Module, reg: Optional[Region] = None) -> nn.Module:
         elif isinstance(m, MultiHeadSelfAttention):
             m.shard_(reg, placement, name)
         elif isinstance(m, JointNetwork):
-            for lin in (m.linear_encoder, m.linear_decoder, m.linear_joint):
-                if lin is not None and not sharded(lin, "column"):
-                    _refuse(f"{name}'s {names[lin]}", lin.out_features, n)
-                if lin is not None:
+            for lin in (m.linear_encoder, m.linear_decoder):
+                if lin is not None and sharded(lin, "column"):
                     lin.tp, lin.tp_mode = reg, "gather"
-            m.linear_joint.tp_mode = "column"
-            m.tp = reg
+            if sharded(m.linear_joint, "column"):
+                m.linear_joint.tp, m.linear_joint.tp_mode = reg, "column"
+                m.tp = reg
         elif hasattr(m, "fc") and isinstance(m.fc, nn.Linear) and name == "":
-            if not sharded(m.fc, "column"):
-                _refuse("the vocabulary projection fc", m.fc.out_features, n)
-            m.fc.tp, m.fc.tp_mode = reg, "gather"
+            if sharded(m.fc, "column"):
+                m.fc.tp, m.fc.tp_mode = reg, "gather"
 
     with torch.no_grad():
         for pname, p in model.named_parameters():

@@ -29,7 +29,9 @@ it refuses more ranks than GPUs.
 Tensor parallelism (``--model_parallel n``; parallel/tensor.py): the ranks
 (``--world_size``, else one a visible GPU, or n on ``--cpu``) form data
 groups and model groups of n, a world n does not divide refused with the
-JAX package's message. As the JAX package shards the parameters only
+JAX package's message; any model then shards, a layer whose width n does
+not divide running replicated, as the JAX mesh runs it. As the JAX
+package shards the parameters only
 inside ``fit`` (trainer.py:243-246), ``-m training`` trains and validates
 the sharded model (every rank of a model group decodes the same rows, so
 they give the same tokens), and the other modes run the whole model data
@@ -39,7 +41,8 @@ Sequence parallelism (``--seq_parallel S``; parallel/sequence.py): the
 ranks (``--world_size``, else one a visible GPU, or M x S on ``--cpu``) form
 data, seq and model groups, a world M x S does not divide refused with the
 JAX package's message. ``-m training`` splits the encoder's activations
-along time over the seq groups, and, as the JAX package (runtime.py
+along time over the seq groups, through every layer and subsampling the
+JAX package's seq mesh runs, and, as the JAX package (runtime.py
 :394-405), pads the training and the evaluation loaders' buckets to lengths
 at which every point of the encoder divides by S (``mesh.sp_pad_align``);
 the other modes run the whole model data parallel over the ranks, as under

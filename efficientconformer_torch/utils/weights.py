@@ -39,6 +39,7 @@ Layouts, JAX -> torch:
   input projection, mel-major (mel*C, D)  -> weight (D, C*mel), channel-major
   InterCTC interctc_fc_i / interctc_proj_i -> encoder.linear_expand_i / linear_proj_i
   scale/bias, batch_stats mean/var        -> weight/bias, running_mean/var
+  ContextNet modules (``module_from_jax``) -> the same names, the same layouts
 """
 
 from __future__ import annotations
@@ -221,6 +222,32 @@ def _encoder(sd, enc, enc_stats):
         if m := re.fullmatch(r"interctc_(fc|proj)_(\d+)", name):
             which = "expand" if m.group(1) == "fc" else "proj"
             _dense(sd, f"encoder.linear_{which}_{m.group(2)}", p)
+
+
+def module_from_jax(variables) -> dict[str, torch.Tensor]:
+    """The JAX variables of one ContextNet module (ContextNetSubsampling,
+    ContextNetBlock, DepthwiseSeparableConv1d, SqueezeAndExcitationModule)
+    or IdentityProjection -> the port module's ``state_dict`` (the JAX
+    names: block_i, conv_i, se, res, res_bn; dw, pw, bn; fc1, fc2; linear).
+    No JAX model holds them, so ``from_jax`` never meets them."""
+    sd: dict = {}
+    _contextnet(sd, "", variables["params"], variables.get("batch_stats"))
+    return {k: torch.as_tensor(np.array(v, order="C")) for k, v in sd.items()}
+
+
+def _contextnet(sd, key, p, stats):
+    pre = f"{key}." if key else ""
+    for name in ("linear", "fc1", "fc2", "pw"):
+        if name in p:
+            _dense(sd, pre + name, p[name])
+    for conv, norm in (("dw", "bn"), ("res", "res_bn")):
+        if conv in p:
+            _conv1d(sd, pre + conv, p[conv])
+            _batch_norm(sd, pre + norm, p[norm], stats[norm] if stats is not None else None)
+    for name in p:
+        if re.fullmatch(r"(block|conv)_\d+|se", name):
+            _contextnet(sd, pre + name, p[name],
+                        stats.get(name, {}) if stats is not None else None)
 
 
 def load_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module, mu, nu, count) -> None:

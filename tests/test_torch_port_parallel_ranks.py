@@ -316,7 +316,7 @@ def test_dryrun_multichip_runs_data_seq_model_at_8():
     assert ("all-reduces: {'ddp_gradient_buckets': 1, 'batch_norm_statistics': 12}"
             in res.stdout), res.stdout
     seq = re.search(r"seq group: \{'all_gather': (\d+), 'halo': (\d+), 'reduce_scatter': "
-                    r"(\d+)\}", res.stdout)
+                    r"(\d+), 'all_reduce': 0\}", res.stdout)
     model = re.search(r"model group: \{'all_reduce': (\d+), 'all_gather': (\d+)\}",
                       res.stdout)
     assert seq and model, res.stdout

@@ -22,9 +22,9 @@ a checkpoint round trip against the one-process step; the operators (a
 depthwise conv's halo at stride 1 and 2 with odd offsets and with fewer
 frames a rank than the halo, ``gather_time`` and ``split_time``, a grouped
 attention layer whose groups straddle the ranks) against the whole layers;
-the planners against JAX's on every shipped ASR config at seq 2 and 4; and
-the layers sequence parallelism does not take, refused naming ROADMAP
-item 25. Dropout 0 and SpecAugment off against JAX, since random masks
+and the planners against JAX's on every shipped ASR config at seq 2 and 4
+(the layers this file's flagship does not reach: test_torch_port_sp_remainder.py).
+Dropout 0 and SpecAugment off against JAX, since random masks
 cannot match across frameworks. The ranks run in three launches
 (tests/torch_sp_ranks.py, which imports nothing of JAX) while JAX compiles
 its steps here.
@@ -56,9 +56,7 @@ from efficientconformer_tpu.parallel import mesh as mesh_lib
 from efficientconformer_tpu.training.trainer import Trainer as JaxTrainer
 from efficientconformer_tpu.training.trainer import TrainerState
 from efficientconformer_torch import dryrun
-from efficientconformer_torch.models.encoders import ConformerEncoder
-from efficientconformer_torch.parallel import mesh, sequence
-from efficientconformer_torch.parallel.tensor import Region
+from efficientconformer_torch.parallel import mesh
 from efficientconformer_torch.training.trainer import Trainer
 from efficientconformer_torch.utils.weights import from_jax, params_from_jax
 
@@ -282,7 +280,8 @@ def test_uncovered_length_warns_and_runs_replicated(cases):
     assert_matches_one_process(ranks, cases["one"]["uncovered"])
     for r in ranks:
         assert len(r["warnings"]) == 1 and "INACTIVE" in r["warnings"][0]
-        assert r["sp_calls"] == {"all_gather": 0, "halo": 0, "reduce_scatter": 0}
+        assert r["sp_calls"] == {"all_gather": 0, "halo": 0, "reduce_scatter": 0,
+                                 "all_reduce": 0}
 
 
 def test_checkpoints_cross_between_seq_2_and_one_process(cases):
@@ -351,7 +350,7 @@ def test_gather_and_split_time(cases):
         torch.testing.assert_close(g["dx_gather"], 2 * dy[:, 4 * r:4 * r + 4], rtol=0, atol=0)
         assert torch.equal(g["split"], whole[:, 4 * r:4 * r + 4])
         torch.testing.assert_close(g["dx_split"], dy / 2, rtol=0, atol=0)
-        assert g["calls"] == {"all_gather": 2, "halo": 0, "reduce_scatter": 1}
+        assert g["calls"] == {"all_gather": 2, "halo": 0, "reduce_scatter": 1, "all_reduce": 0}
 
 
 def test_grouped_attention_straddling_the_ranks(cases):
@@ -372,7 +371,7 @@ def test_grouped_attention_straddling_the_ranks(cases):
         assert a["grads"].keys() == want.keys()
         for n, g in want.items():
             torch.testing.assert_close(a["grads"][n], g, rtol=0, atol=ONE_TOL * 10, msg=n)
-        assert a["calls"] == {"all_gather": 1, "halo": 0, "reduce_scatter": 1}
+        assert a["calls"] == {"all_gather": 1, "halo": 0, "reduce_scatter": 1, "all_reduce": 0}
 
 
 def asr_configs() -> list:
@@ -402,24 +401,6 @@ def test_planners_match_jax(path, sp):
         mesh_lib.sp_audio_lengths(enc, sp, 150000, 170000)
     align, want = mesh.sp_pad_align(enc, sp), mesh_lib.sp_pad_align(enc, sp)
     assert [align(e) for e in edges] == [want(e) for e in edges]
-
-
-@pytest.mark.parametrize("kwargs,what", [
-    ({"subsampling_module": "Conv1d"}, "Conv1d subsampling"),
-    ({"subsampling_module": "VGG"}, "VGG subsampling"),
-    ({"relative_pos_enc": False}, "absolute positional encodings"),
-    ({"linear_att": True, "relative_pos_enc": False}, "absolute"),
-    ({"att_group_size": 1, "att_kernel_size": 4}, "local attention"),
-    ({"att_stride": 2, "conv_stride": 1, "att_group_size": 1}, "strided attention"),
-    ({"causal": True}, "causal attention"),
-    ({"att_group_size": [2, 1, 1]}, "grouped attention of even G"),
-])
-def test_layers_sequence_parallelism_does_not_take_raise(kwargs, what):
-    """Turning sequence parallelism on in an encoder with a layer it does
-    not take raises, naming the layer and ROADMAP item 25."""
-    enc = dict(dryrun.tiny_config()["encoder_params"], **kwargs)
-    with pytest.raises(NotImplementedError, match=f"{what}.*item 25"):
-        sequence.shard_encoder_(ConformerEncoder(enc), Region(None, 0, 2))
 
 
 def test_grid_sizes_that_do_not_divide_are_refused():

@@ -107,3 +107,61 @@ def attention_rank(name):
 def attention_ranks(names):
     mesh.make_grid(2)
     return [attention_rank(name) for name in names]
+
+
+CACHE_HEADS = {"whole-heads": 4, "gather": 3}   # heads of the (D 24) causal layer: 2 or 1.5 a rank
+CACHE_FRAMES, CACHE_SLOTS, CONV_KERNEL = 6, 8, 5
+
+
+def cache_layers(heads, state):
+    """A causal rel-pos attention layer (D 24, ``heads`` heads) and a causal
+    convolution module (D 24, kernel CONV_KERNEL) in eval mode, named as a
+    block holds them (``mhsa``, ``convolution_module``), with the weights of
+    ``state``."""
+    from torch import nn
+
+    from efficientconformer_torch.models.attentions import MultiHeadSelfAttention
+    from efficientconformer_torch.models.modules import ConvolutionModule
+
+    layers = nn.ModuleDict({
+        "mhsa": MultiHeadSelfAttention(24, heads, causal=True, relative_pos_enc=True),
+        "convolution_module": ConvolutionModule(24, 24, CONV_KERNEL, 0.0, causal=True)})
+    layers.load_state_dict(state, strict=True)
+    return layers.eval()
+
+
+def run_cached(layers, x):
+    """The attention's growing cache over two chunks (4 + 2 frames, no
+    mask), its fixed-capacity step token by token (CACHE_SLOTS slots), the
+    convolution module's step frame by frame: outputs and cache widths."""
+    from efficientconformer_torch.models.attentions import step_positions
+
+    att, conv = layers["mhsa"], layers["convolution_module"]
+    b = x.shape[0]
+    with torch.no_grad():
+        o1, hidden = att.forward_cached(x[:, :4], None, None)
+        o2, hidden = att.forward_cached(x[:, 4:], None, hidden)
+        width = att.cache_width()
+        k, v = torch.zeros(b, CACHE_SLOTS, width), torch.zeros(b, CACHE_SLOTS, width)
+        state = torch.zeros(b, conv.layers[4].in_channels, CONV_KERNEL - 1)
+        steps, convs = [], []
+        for t in range(x.shape[1]):
+            steps.append(att.step(x[:, t:t + 1], k, v, step_positions(torch.full((b,), t),
+                                                                     CACHE_SLOTS)))
+            y, state = conv.step(x[:, t:t + 1], state)
+            convs.append(y)
+    return {"cached": torch.cat([o1, o2], 1), "step": torch.cat(steps, 1),
+            "conv": torch.cat(convs, 1), "hidden_width": hidden["k"].shape[-1],
+            "cache_width": width, "state_width": state.shape[1]}
+
+
+def cached_ranks(states, x):
+    """At model size 2: ``run_cached`` of each CACHE_HEADS case on this
+    rank's shards, from the whole layers' weights ``states``."""
+    mesh.make_grid(2)
+    out = {}
+    for name, heads in CACHE_HEADS.items():
+        layers = cache_layers(heads, states[name])
+        tensor.shard_model_(layers, tensor.Region(mesh.model_group(), mesh.model_rank(), 2))
+        out[name] = run_cached(layers, x)
+    return out
