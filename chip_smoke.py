@@ -7080,10 +7080,12 @@ def main() -> int:
               **wide("backward"), tp_launches={"tp-slice": tp_slice["bias"][1]},
               tp_kernel_max_err=tp_bias_bwd, sp_launches={"sp-skew-slice": sp_skew[1]},
               sp_kernel_max_err=sp_bias[1]),
-        chunked_route(0, "forward", ["bias_fwd_tc_chunked_kernel", "bias_fwd_chunked_kernel"]),
+        chunked_route(0, "forward", ["bias_fwd_tc_chunked_kernel", "bias_fwd_chunked_scores_kernel",
+                                     "bias_fwd_chunked_out_kernel"]),
         chunked_route(1, "backward", ["bias_bwd_q_tc_chunked_kernel",
                                       "bias_bwd_k_tc_chunked_kernel",
-                                      "bias_bwd_q_chunked_kernel", "bias_bwd_k_chunked_kernel"]),
+                                      "bias_bwd_chunked_scores_kernel",
+                                      "bias_bwd_chunked_grads_kernel"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,9 @@
 // in one pass, 11 in two passes that recompute S and dP), 0.005-0.011 ms on
 // the bf16 tensor cores. The bound is the bytes; dS alone is a fifth of them.
 //
-// No (N, Nk) tensor other than the requested dS reaches device memory, no
-// atomics are used, and each output element is written by exactly one
+// No (N, Nk) tensor other than the requested dS (and the fp32 chunked
+// route's scratch) reaches device memory, no atomics are used, and each
+// output element is written by exactly one
 // block, so the gradients are the same from run to run. Rows past Nq and
 // keys past Nk get P = 0 from the kernels themselves. Three kernels, chosen
 // by the inputs' type and size, never by a failure:
@@ -63,7 +64,8 @@
 // same S and dP; the fp32 route past 128, where the 64-row tiles outgrow
 // shared memory, runs bias_bwd_{q,k}_wide_kernel (16-row tiles, one score
 // a thread). Every wider width takes the chunked kernels (bias_bwd_{q,k}_
-// tc_chunked_kernel, bias_bwd_{q,k}_chunked_kernel; see their section).
+// tc_chunked_kernel, bias_bwd_chunked_{scores,grads}_kernel; see their
+// section).
 //
 // The tensor-core kernels run every product on mma.sync.m16n8k16 (bf16 in,
 // fp32 accumulate). q, k, v, O and dO stay bf16 in shared memory (rows
@@ -88,14 +90,16 @@
 // stride; LSE (B, H, Nq) fp64; bias fp32 or bf16 with unit key stride and
 // (batch, head, row) strides that are 0 along broadcast axes, or null.
 // Outputs: dq, dk, dv of type T (strided); Di (B, H, Nq) fp32 scratch; dS
-// (B, H, Nq, Nk) fp32, or null when not wanted. The kernels allocate nothing
-// and do not synchronise; a key-side pass reads the Di its query-side pass
-// wrote, in stream order.
+// (B, H, Nq, Nk) fp32, or null when not wanted; the fp32 chunked route's
+// scratch (ecf_bias_attention_bwd_work). The kernels allocate nothing and
+// do not synchronise; a second kernel reads what the first wrote (Di, the
+// scratch), in stream order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bias_fma.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -1452,26 +1456,40 @@ __global__ void __launch_bounds__(FU_THREADS, 2) bias_bwd_fused_tc_kernel(Params
 //
 // Past a width of 256 (bf16: padded to 16) neither the tensor-core passes'
 // rows of q, k, v, O and dO whole in shared memory nor the FMA kernels' 16
-// feature columns a thread fit any more. Four chunked kernels take every
-// wider width, dqk and dv independently, in two passes as above (the query
-// side writes Di for the key side; no atomics, each output written by one
-// block):
-//   * bf16, bias_bwd_{q,k}_tc_chunked_kernel: S (dqk) and dP (dv) formed
+// feature columns a thread fit any more. The chunked kernels take every
+// wider width, dqk and dv independently (no atomics, each output written
+// by one block):
+//   * bf16, bias_bwd_{q,k}_tc_chunked_kernel, two passes as above (the
+//     query side writes Di for the key side): S (dqk) and dP (dv) formed
 //     over a ring of 64-feature chunks (the block's rows or keys, and the
 //     streamed tile's), double-buffered with cp.async; dq, or dk and dv, in
 //     column groups of 128, a block a group, each forming the same S and
 //     dP, its group's columns of k (or q and dO) brought with the tile.
-//     64 KB (query side) and 79 KB (key side) a block at any width.
-//   * fp32, bias_bwd_{q,k}_chunked_kernel: the wide FMA kernels' 16-row
-//     tiles with the scores formed over chunks of 256 features and the
-//     gradients in column groups of 256 (16 a thread): 49 KB and 67 KB.
-// The query side forms Di: the bf16 one from P and dP in fp32, in a first
-// pass over the keys (rowsum(dO * O) from the bf16 O would leave each row of
-// dS summing to a bf16 rounding instead of 0), the fp32 one from dO and O.
-// The key side adds dS^T's bf16 rounding residual to dk. What bounds them is
-// as above (the bytes at the encoders' shapes); the column groups and the
-// first pass recompute S and dP, and the chunks read the block's own rows
-// again at every tile, from L2.
+//     64 KB (query side) and 79 KB (key side) a block at any width. The
+//     query side forms Di from P and dP in fp32, in a first pass over the
+//     keys (rowsum(dO * O) from the bf16 O would leave each row of dS
+//     summing to a bf16 rounding instead of 0); the key side adds dS^T's
+//     bf16 rounding residual to dk. Score products per (row, key) pair:
+//     (dqk + dv) x (2 ceil(dqk / 128) + ceil(max(dqk, dv) / 128)).
+//   * fp32, two kernels on bias_fma.cuh's register-tiled 64 x 64 tiles (a
+//     thread's 8 x 4 micro-tile of FMAs, operands through a 3-stage
+//     cp.async ring). bias_bwd_chunked_scores_kernel, a block per (query
+//     tile, key tile), forms S and dP once, in one ring of 32-feature
+//     chunks (dqk + dv score products per (row, key) pair, in the whole
+//     backward: PR 20's kernels formed them once per 256-column group on
+//     each side, 19,456 multiply-adds per pair at 1,024 where these take
+//     5,120), and from them P and dS, with Di = rowsum(dO * O) in fp32. It
+//     writes P, dS and dS^T into an fp32 scratch the wrapper allocates (3 x
+//     64 x 64 floats a tile pair), and dS to the caller when asked. The key
+//     side reads dS and P from that scratch instead of forming S^T and dP^T
+//     again: bias_bwd_chunked_grads_kernel, one launch, a block per 64 x 64
+//     tile of dq (= scale dS k, over the keys), of dk (= scale dS^T q) and
+//     of dv (= P^T dO, both over the query rows), each from its scratch
+//     tiles and one strided matrix in chunks of 32 (dqk, dqk and dv
+//     multiply-adds per pair). 55 KB and 50 KB a block at any width.
+// What bounds them at the encoders' shapes: bf16 the bytes, as above; fp32
+// the products (2 B H Nq Nk (3 dqk + 2 dv) FLOP, 0.0575-0.2724 ms at 67
+// TFLOP/s over 270-1,024 at the causal 4-head Large's serving window).
 
 __host__ __device__ inline int tc_width(int dqk, int dvw) {
   return imax(tc::round16(dqk), tc::round16(dvw));
@@ -1835,211 +1853,206 @@ __global__ void __launch_bounds__(TC_THREADS) bias_bwd_k_tc_chunked_kernel(Param
                          16, k0 + warp * 16, p.nk, imin(p.dvw - col0, CK_DOUT), lane, 32);
 }
 
-constexpr int WC_J = 16;                 // fp32: columns a thread of a column group of 256
-constexpr int WC_LW = 16 * WC_J + 1;     // row stride of its [16][256] tiles (odd)
-
-// fp32, query side: the LSE and Di of 16 rows, a chunk of the rows and of
-// the key tile, k's column group ([16][WC_LW] each), dS [16][17]. Key side:
-// the LSE and Di of the tile's rows, two chunks, q's and dO's column
-// groups, P^T and dS^T [16][17].
-constexpr size_t WC_Q_SMEM_FLOATS = 3 * WB + 3 * WB * WC_LW + WB * (WB + 1);
-constexpr size_t WC_K_SMEM_FLOATS = 3 * WB + 4 * WB * WC_LW + 2 * WB * (WB + 1);
+// fp32 past WHOLE_WIDTH (bias_fma.cuh's tiles): the scores kernel's ring
+// with its rows' LSE (fp64) and Di, and the gradient kernel's ring
+constexpr size_t WC_SCORES_SMEM = bfma::SCORES_RING + bfma::T * (sizeof(double) + sizeof(float));
+constexpr size_t WC_GRADS_SMEM = bfma::PRODUCT_RING;
 static_assert(TC_CKQ_SMEM <= MAX_SMEM && TC_CKK_SMEM <= MAX_SMEM &&
-                  WC_K_SMEM_FLOATS * sizeof(float) <= MAX_SMEM,
+                  WC_SCORES_SMEM <= MAX_SMEM && WC_GRADS_SMEM <= MAX_SMEM,
               "the chunked kernels' blocks fit the 227 KB a block may use");
 
-// acc += a row of `as` (row ar) . a row of `bsm` (row br) over [0, width)
-__device__ __forceinline__ float row_dot(const float* as, int ar, const float* bsm, int br,
-                                         int width, float acc) {
-  const float* x = as + ar * WC_LW;
-  const float* y = bsm + br * WC_LW;
-  for (int f = 0; f < width; ++f) acc = fmaf(x[f], y[f], acc);
-  return acc;
-}
-
-// bias_bwd_q_wide_kernel with S and dP formed over chunks of 16 WC_J
-// features (a row of q against a row of k, then dO against v: one score a
-// thread) and dq in column groups of 16 WC_J, nsplit blocks a row tile, each
-// forming the same dS; the first writes Di and dS.
-__global__ void __launch_bounds__(W_THREADS) bias_bwd_q_chunked_kernel(Params p, int nsplit) {
+// fp32 past WHOLE_WIDTH, first kernel: a block per (query tile, key tile,
+// head, batch) forms S = q k^T * scale + bias (dqk features) and dP = dO v^T
+// (dv) over its 64 x 64 tile pair, once, in one ring of KC-feature chunks
+// (q and k's, then dO and v's); then P = exp(S - LSE) (S - LSE in fp64) and
+// dS = P (dP - Di), with Di = rowsum(dO * O) of its rows formed from device
+// memory while the first chunks land (the same sums in the same order in
+// every block of a row tile; the first key tile's block writes them out).
+// It writes P and dS row-major and dS key-major into the pair's scratch
+// tiles, the gradient kernel's depth-major operands, and dS into the
+// caller's (B, H, Nq, Nk) buffer when asked. Rows past Nq and keys past Nk
+// get P = dS = 0.
+__global__ void __launch_bounds__(bfma::THREADS) bias_bwd_chunked_scores_kernel(Params p,
+                                                                                float* work) {
+  using bfma::KC;
+  using bfma::LDT;
+  using bfma::T;
   extern __shared__ __align__(16) float smem[];
-  constexpr int FW = 16 * WC_J;
-  double* lse_s = reinterpret_cast<double*>(smem);   // [16]
-  float* di_s = smem + 2 * WB;                        // [16]
-  float* as = di_s + WB;                              // [16][WC_LW]: a chunk of the rows
-  float* bsm = as + WB * WC_LW;                       // [16][WC_LW]: a chunk of the key tile
-  float* kg = bsm + WB * WC_LW;                       // [16][WC_LW]: the tile's k group
-  float* dss = kg + WB * WC_LW;                       // [16][17]: dS of the tile
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int split = blockIdx.x % nsplit, col0 = split * FW;
-  const int q0 = (blockIdx.x / nsplit) * WB;
-  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
-  const int64_t bh = static_cast<int64_t>(b) * heads + h;
+  double* lse_s = reinterpret_cast<double*>(smem + bfma::SCORES_RING / sizeof(float));   // [T]
+  float* di_s = reinterpret_cast<float*>(lse_s + T);                                       // [T]
+  const int ntq = bfma::tiles(p.nq), ntk = bfma::tiles(p.nk);
+  const int qt = blockIdx.x / ntk, kt = blockIdx.x - qt * ntk;
+  const int q0 = qt * T, k0 = kt * T, h = blockIdx.y, b = blockIdx.z;
+  const int64_t bh = static_cast<int64_t>(b) * gridDim.y + h;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int warp = tid >> 5, lane = tid & 31;
   const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* op = static_cast<const float*>(p.o) + b * p.o_sb + h * p.o_sh;
   const float* dop = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const int64_t bias_bh = b * p.bias_sb + h * p.bias_sh;
 
-  // Di = rowsum(dO * O) of row ty over the half-warp, from device memory
-  // (written out for the key side), and the row's LSE
-  const int qi = q0 + ty;
+  const int nqc = (p.dqk + KC - 1) / KC, nsteps = nqc + (p.dvw + KC - 1) / KC;
+  auto load = [&](int s, int st) {
+    float* d = smem + st * 2 * KC * LDT;
+    if (s < nqc) {
+      bfma::load_t(d, qp, p.q_sn, q0, p.nq, s * KC, p.dqk);
+      bfma::load_t(d + KC * LDT, kp, p.k_sn, k0, p.nk, s * KC, p.dqk);
+    } else {
+      const int f0 = (s - nqc) * KC;
+      bfma::load_t(d, dop, p.do_sn, q0, p.nq, f0, p.dvw);
+      bfma::load_t(d + KC * LDT, vp, p.v_sn, k0, p.nk, f0, p.dvw);
+    }
+  };
+  bfma::ring_start(nsteps, load);
+
+  // the rows' LSE and Di (the ring's first barrier publishes them): warp w
+  // sums rows 16 w .. 16 w + 15 at once, a lane every 32nd feature, so that
+  // 32 loads a lane are in flight
   {
-    float acc = 0.f;
-    if (qi < p.nq) {
-      for (int f = tx; f < p.dvw; f += 16) acc = fmaf(dop[qi * p.do_sn + f], op[qi * p.o_sn + f], acc);
+    constexpr int RW = T / (bfma::THREADS / 32);   // rows a warp
+    const int r0 = warp * RW;
+    float acc[RW];
+#pragma unroll
+    for (int r = 0; r < RW; ++r) acc[r] = 0.f;
+    for (int f = lane; f < p.dvw; f += 32) {
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const int qi = q0 + r0 + r;
+        if (qi < p.nq) acc[r] = fmaf(dop[qi * p.do_sn + f], op[qi * p.o_sn + f], acc[r]);
+      }
     }
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (tx == 0) {
-      di_s[ty] = acc;
-      lse_s[ty] = qi < p.nq ? p.lse[bh * p.nq + qi] : 0.0;
-      if (split == 0 && qi < p.nq) p.di[bh * p.nq + qi] = acc;
-    }
-  }
-
-  float acc[WC_J];
+    for (int r = 0; r < RW; ++r) {
 #pragma unroll
-  for (int j = 0; j < WC_J; ++j) acc[j] = 0.f;
-  for (int k0 = 0; k0 < p.nk; k0 += WB) {
-    // S and dP of (row ty, key tx) over the chunks; every copy follows a
-    // barrier after the last readers of its tile
-    float sc = 0.f, dp = 0.f;
-    for (int f0 = 0; f0 < p.dqk; f0 += FW) {
-      __syncthreads();
-      load_rows_wide<float, WC_J>(as, qp + f0, p.q_sn, q0, p.nq, p.dqk - f0);
-      load_rows_wide<float, WC_J>(bsm, kp + f0, p.k_sn, k0, p.nk, p.dqk - f0);
-      __syncthreads();
-      sc = row_dot(as, ty, bsm, tx, imin(FW, p.dqk - f0), sc);
-    }
-    for (int f0 = 0; f0 < p.dvw; f0 += FW) {
-      __syncthreads();
-      load_rows_wide<float, WC_J>(as, dop + f0, p.do_sn, q0, p.nq, p.dvw - f0);
-      load_rows_wide<float, WC_J>(bsm, vp + f0, p.v_sn, k0, p.nk, p.dvw - f0);
-      __syncthreads();
-      dp = row_dot(as, ty, bsm, tx, imin(FW, p.dvw - f0), dp);
-    }
-    load_rows_wide<float, WC_J>(kg, kp + col0, p.k_sn, k0, p.nk, p.dqk - col0);
-    // dS, zero past Nq and Nk
-    const int kj = k0 + tx;
-    float g = 0.f;
-    if (qi < p.nq && kj < p.nk) {
-      const float bv = p.bias ? load_bias(p, bias_bh + qi * p.bias_sn + kj) : 0.f;
-      const float pr = expf(static_cast<float>(static_cast<double>(sc * p.scale + bv) - lse_s[ty]));
-      g = pr * (dp - di_s[ty]);
-      if (split == 0 && p.ds) p.ds[(bh * p.nq + qi) * p.nk + kj] = g;
-    }
-    dss[ty * (WB + 1) + tx] = g;
-    __syncthreads();
-    for (int cc = 0; cc < WB; ++cc) {
-      const float gv = dss[ty * (WB + 1) + cc];
-      const float* krow = kg + cc * WC_LW + tx;
-#pragma unroll
-      for (int j = 0; j < WC_J; ++j) acc[j] = fmaf(gv, krow[16 * j], acc[j]);
-    }
-  }
-
-  // the group's columns of dq = scale dS k
-  if (qi < p.nq) {
-    float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh + qi * p.dq_sn + col0;
-#pragma unroll
-    for (int j = 0; j < WC_J; ++j) {
-      const int d = tx + 16 * j;
-      if (col0 + d < p.dqk) dq[d] = acc[j] * p.scale;
-    }
-  }
-}
-
-// bias_bwd_k_wide_kernel likewise: the scores of (key ty, row tx) over
-// chunks, dk and dv in column groups of 16 WC_J (ceil(max(dqk, dv) / FW)
-// blocks a key tile).
-__global__ void __launch_bounds__(W_THREADS) bias_bwd_k_chunked_kernel(Params p, int nsplit) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int FW = 16 * WC_J;
-  double* lse_s = reinterpret_cast<double*>(smem);   // [16]: the tile's rows
-  float* di_s = smem + 2 * WB;                        // [16]
-  float* as = di_s + WB;                              // [16][WC_LW]: a chunk of the keys
-  float* bsm = as + WB * WC_LW;                       // [16][WC_LW]: a chunk of the tile's rows
-  float* qg = bsm + WB * WC_LW;                       // [16][WC_LW]: the tile's q group
-  float* dog = qg + WB * WC_LW;                       // [16][WC_LW]: its dO group
-  float* pt = dog + WB * WC_LW;                       // [16][17]: P^T, [key][row]
-  float* dst = pt + WB * (WB + 1);                    // [16][17]: dS^T
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int col0 = (blockIdx.x % nsplit) * FW;
-  const int k0 = (blockIdx.x / nsplit) * WB;
-  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
-  const int64_t bh = static_cast<int64_t>(b) * heads + h;
-  const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* dop = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const int64_t bias_bh = b * p.bias_sb + h * p.bias_sh;
-
-  float dk[WC_J], dv[WC_J];
-#pragma unroll
-  for (int j = 0; j < WC_J; ++j) dk[j] = dv[j] = 0.f;
-  const int kj = k0 + ty;
-  for (int q0 = 0; q0 < p.nq; q0 += WB) {
-    float sc = 0.f, dp = 0.f;
-    for (int f0 = 0; f0 < p.dqk; f0 += FW) {
-      __syncthreads();
-      load_rows_wide<float, WC_J>(as, kp + f0, p.k_sn, k0, p.nk, p.dqk - f0);
-      load_rows_wide<float, WC_J>(bsm, qp + f0, p.q_sn, q0, p.nq, p.dqk - f0);
-      __syncthreads();
-      sc = row_dot(as, ty, bsm, tx, imin(FW, p.dqk - f0), sc);
-    }
-    for (int f0 = 0; f0 < p.dvw; f0 += FW) {
-      __syncthreads();
-      load_rows_wide<float, WC_J>(as, vp + f0, p.v_sn, k0, p.nk, p.dvw - f0);
-      load_rows_wide<float, WC_J>(bsm, dop + f0, p.do_sn, q0, p.nq, p.dvw - f0);
-      __syncthreads();
-      dp = row_dot(as, ty, bsm, tx, imin(FW, p.dvw - f0), dp);
-    }
-    load_rows_wide<float, WC_J>(qg, qp + col0, p.q_sn, q0, p.nq, p.dqk - col0);
-    load_rows_wide<float, WC_J>(dog, dop + col0, p.do_sn, q0, p.nq, p.dvw - col0);
-    if (tid < WB) {
-      lse_s[tid] = q0 + tid < p.nq ? p.lse[bh * p.nq + q0 + tid] : 0.0;
-    } else if (tid < 2 * WB) {
-      di_s[tid - WB] = q0 + tid - WB < p.nq ? p.di[bh * p.nq + q0 + tid - WB] : 0.f;
-    }
-    __syncthreads();
-
-    // P and dS of (key ty, row tx), zero past Nq and Nk
-    const int qi = q0 + tx;
-    float pr = 0.f;
-    if (qi < p.nq && kj < p.nk) {
-      const float bv = p.bias ? load_bias(p, bias_bh + qi * p.bias_sn + kj) : 0.f;
-      pr = expf(static_cast<float>(static_cast<double>(sc * p.scale + bv) - lse_s[tx]));
-    }
-    pt[ty * (WB + 1) + tx] = pr;
-    dst[ty * (WB + 1) + tx] = pr * (dp - di_s[tx]);
-    __syncthreads();
-    for (int r = 0; r < WB; ++r) {
-      const float pv = pt[ty * (WB + 1) + r], gv = dst[ty * (WB + 1) + r];
-      const float* orow = dog + r * WC_LW + tx;
-      const float* qrow = qg + r * WC_LW + tx;
-#pragma unroll
-      for (int j = 0; j < WC_J; ++j) {
-        dv[j] = fmaf(pv, orow[16 * j], dv[j]);
-        dk[j] = fmaf(gv, qrow[16 * j], dk[j]);
+      for (int off = 16; off > 0; off >>= 1) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+      const int qi = q0 + r0 + r;
+      if (lane == r) {
+        di_s[r0 + r] = acc[r];
+        lse_s[r0 + r] = qi < p.nq ? p.lse[bh * p.nq + qi] : 0.0;
+        if (kt == 0 && qi < p.nq) p.di[bh * p.nq + qi] = acc[r];
       }
     }
   }
 
-  // the group's columns of dk (scaled) and dv
-  if (kj < p.nk) {
-    float* dkp = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh + kj * p.dk_sn + col0;
-    float* dvp = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh + kj * p.dv_sn + col0;
+  float sc[8][4], dp[8][4];
 #pragma unroll
-    for (int j = 0; j < WC_J; ++j) {
-      const int d = tx + 16 * j;
-      if (col0 + d < p.dqk) dkp[d] = dk[j] * p.scale;
-      if (col0 + d < p.dvw) dvp[d] = dv[j];
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+  }
+  bfma::ring_run(nsteps, load, [&](int s, int st) {
+    const float* d = smem + st * 2 * KC * LDT;
+    if (s < nqc) {
+      bfma::fma_chunk<LDT, LDT>(sc, d + 8 * ty, d + KC * LDT + 4 * tx);
+    } else {
+      bfma::fma_chunk<LDT, LDT>(dp, d + 8 * ty, d + KC * LDT + 4 * tx);
+    }
+  });
+
+  // P and dS, zero past Nq and Nk
+  const int64_t bias_bh = b * p.bias_sb + h * p.bias_sh;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * ty + i, qi = q0 + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kj = k0 + 4 * tx + j;
+      float pr = 0.f;
+      if (qi < p.nq && kj < p.nk) {
+        const float bv = p.bias ? load_bias(p, bias_bh + qi * p.bias_sn + kj) : 0.f;
+        pr = expf(static_cast<float>(static_cast<double>(sc[i][j] * p.scale + bv) - lse_s[r]));
+      }
+      sc[i][j] = pr;
+      dp[i][j] = pr * (dp[i][j] - di_s[r]);
+      if (p.ds && qi < p.nq && kj < p.nk) p.ds[(bh * p.nq + qi) * p.nk + kj] = dp[i][j];
     }
   }
+  float* wb = work + bh * bfma::bwd_work(p.nq, p.nk);
+  const int64_t tile = (static_cast<int64_t>(qt) * ntk + kt) * bfma::TILE;
+  const int64_t array = static_cast<int64_t>(ntq) * ntk * bfma::TILE;   // floats of P's tiles
+  bfma::put_tile(wb + tile, sc, false);                 // P [row][key]
+  bfma::put_tile(wb + array + tile, dp, false);         // dS [row][key]
+  bfma::put_tile(wb + 2 * array + tile, dp, true);      // dS [key][row]
+}
+
+// fp32 past WHOLE_WIDTH, second kernel: every gradient's 64 x 64 tiles,
+// each a block, from the scratch tiles and one strided matrix, in chunks of
+// KC along the depth. Block x is, in order, one of ntq x ceil(dqk / 64)
+// tiles of dq = scale dS k (depth: the keys, dS [key][row]), ntk x
+// ceil(dqk / 64) of dk = scale dS^T q (depth: the query rows, dS
+// [row][key]) and ntk x ceil(dv / 64) of dv = P^T dO. vec_k, vec_q and
+// vec_do: the pieces their rows copy in (bfma::vec_floats).
+__global__ void __launch_bounds__(bfma::THREADS) bias_bwd_chunked_grads_kernel(Params p,
+                                                                               const float* work,
+                                                                               int vec_k,
+                                                                               int vec_q,
+                                                                               int vec_do) {
+  using bfma::KC;
+  using bfma::LDX;
+  using bfma::T;
+  extern __shared__ __align__(16) float smem[];
+  const int ntq = bfma::tiles(p.nq), ntk = bfma::tiles(p.nk);
+  const int ctq = bfma::tiles(p.dqk), ctv = bfma::tiles(p.dvw);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int64_t bh = static_cast<int64_t>(b) * gridDim.y + h;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const float* wb = work + bh * bfma::bwd_work(p.nq, p.nk);
+  const int64_t array = static_cast<int64_t>(ntq) * ntk * bfma::TILE;
+
+  // the block's gradient: A's first tile and the step to the next along
+  // the depth, the depth's tiles, X, the output, its rows and columns
+  int x = blockIdx.x, ndt, xrows, width, vec, r0, c0, nrows;
+  const float* a;
+  const float* xp;
+  float* out;
+  int64_t a_step, x_sn, o_sn;
+  float alpha;
+  if (x < ntq * ctq) {   // dq: row tile x / ctq, over the key tiles
+    const int rt = x / ctq;
+    c0 = (x - rt * ctq) * T;
+    a = wb + 2 * array + static_cast<int64_t>(rt) * ntk * bfma::TILE;
+    a_step = bfma::TILE;
+    ndt = ntk;
+    xp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+    x_sn = p.k_sn, xrows = p.nk, width = p.dqk, vec = vec_k;
+    out = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+    o_sn = p.dq_sn, r0 = rt * T, nrows = p.nq, alpha = p.scale;
+  } else {
+    x -= ntq * ctq;
+    const bool is_dk = x < ntk * ctq;
+    if (!is_dk) x -= ntk * ctq;
+    const int ct = is_dk ? ctq : ctv, rt = x / ct;   // key tile rt, over the query tiles
+    c0 = (x - rt * ct) * T;
+    a = wb + (is_dk ? array : 0) + static_cast<int64_t>(rt) * bfma::TILE;
+    a_step = static_cast<int64_t>(ntk) * bfma::TILE;
+    ndt = ntq;
+    xp = is_dk ? static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh
+               : static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+    x_sn = is_dk ? p.q_sn : p.do_sn, xrows = p.nq;
+    width = is_dk ? p.dqk : p.dvw, vec = is_dk ? vec_q : vec_do;
+    out = is_dk ? static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh
+                : static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+    o_sn = is_dk ? p.dk_sn : p.dv_sn, r0 = rt * T, nrows = p.nk;
+    alpha = is_dk ? p.scale : 1.f;
+  }
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int nsteps = ndt * (T / KC);
+  auto load = [&](int s, int st) {
+    float* d = smem + st * KC * (T + LDX);
+    const int t = s / (T / KC), d0 = (s - t * (T / KC)) * KC;
+    bfma::load_a(d, a + t * a_step + d0 * T);
+    bfma::load_x(d + KC * T, xp, x_sn, t * T + d0, xrows, c0, width, vec);
+  };
+  bfma::ring_start(nsteps, load);
+  bfma::ring_run(nsteps, load, [&](int, int st) {
+    const float* d = smem + st * KC * (T + LDX);
+    bfma::fma_chunk<T, LDX>(acc, d + 8 * ty, d + KC * T + 4 * tx);
+  });
+  bfma::store_tile(out, o_sn, r0, nrows, c0, width, alpha, acc);
 }
 
 // ---------------------------------------------------------------- launch
@@ -2095,30 +2108,53 @@ cudaError_t launch_wide(const Params& p, int batch, int heads, cudaStream_t stre
 // widths past 128 take the wide kernels
 inline bool wide_fp32(int dqk, int dvw) { return imax(dqk, dvw) > 128; }
 
-// a chunked pair: the query side over nsplit groups of dq's columns, then
-// the key side (which reads the Di the query side writes: same stream, so
-// in order) over the groups of dk's and dv's
-cudaError_t launch_chunked_pair(void (*fq)(Params, int), size_t qb, void (*fk)(Params, int),
-                                size_t kb, int rows, int nthreads, int group, const Params& p,
-                                int batch, int heads, cudaStream_t stream) {
-  cudaError_t err = prepare(reinterpret_cast<const void*>(fq), qb);
+// the bf16 chunked pair: the query side over nsplit groups of dq's
+// columns, then the key side (which reads the Di the query side writes:
+// same stream, so in order) over the groups of dk's and dv's
+cudaError_t launch_tc_chunked_pair(const Params& p, int batch, int heads, cudaStream_t stream) {
+  cudaError_t err = prepare(reinterpret_cast<const void*>(&bias_bwd_q_tc_chunked_kernel),
+                            TC_CKQ_SMEM);
   if (err != cudaSuccess) return err;
-  const int qsplit = (p.dqk + group - 1) / group, ksplit = (imax(p.dqk, p.dvw) + group - 1) / group;
-  fq<<<dim3((p.nq + rows - 1) / rows * qsplit, heads, batch), nthreads, qb, stream>>>(p, qsplit);
+  const int qsplit = (p.dqk + CK_DOUT - 1) / CK_DOUT;
+  const int ksplit = (imax(p.dqk, p.dvw) + CK_DOUT - 1) / CK_DOUT;
+  bias_bwd_q_tc_chunked_kernel<<<dim3((p.nq + TC_BLOCK - 1) / TC_BLOCK * qsplit, heads, batch),
+                                 TC_THREADS, TC_CKQ_SMEM, stream>>>(p, qsplit);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = prepare(reinterpret_cast<const void*>(fk), kb);
+  err = prepare(reinterpret_cast<const void*>(&bias_bwd_k_tc_chunked_kernel), TC_CKK_SMEM);
   if (err != cudaSuccess) return err;
-  fk<<<dim3((p.nk + rows - 1) / rows * ksplit, heads, batch), nthreads, kb, stream>>>(p, ksplit);
+  bias_bwd_k_tc_chunked_kernel<<<dim3((p.nk + TC_BLOCK - 1) / TC_BLOCK * ksplit, heads, batch),
+                                 TC_THREADS, TC_CKK_SMEM, stream>>>(p, ksplit);
   return cudaGetLastError();
 }
 
-cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stream) {
-  if (fma_chunked(p.dqk, p.dvw)) {
-    return launch_chunked_pair(bias_bwd_q_chunked_kernel, WC_Q_SMEM_FLOATS * sizeof(float),
-                               bias_bwd_k_chunked_kernel, WC_K_SMEM_FLOATS * sizeof(float), WB,
-                               W_THREADS, 16 * WC_J, p, batch, heads, stream);
-  }
+// fp32 past WHOLE_WIDTH: the scores kernel over every tile pair, then the
+// gradient kernel over every gradient's tiles (same stream, so it reads the
+// scratch complete)
+cudaError_t launch_fp32_chunked(const Params& p, float* work, int batch, int heads,
+                                cudaStream_t stream) {
+  const int ntq = bfma::tiles(p.nq), ntk = bfma::tiles(p.nk);
+  cudaError_t err =
+      prepare(reinterpret_cast<const void*>(&bias_bwd_chunked_scores_kernel), WC_SCORES_SMEM);
+  if (err != cudaSuccess) return err;
+  bias_bwd_chunked_scores_kernel<<<dim3(ntq * ntk, heads, batch), bfma::THREADS, WC_SCORES_SMEM,
+                                   stream>>>(p, work);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = prepare(reinterpret_cast<const void*>(&bias_bwd_chunked_grads_kernel), WC_GRADS_SMEM);
+  if (err != cudaSuccess) return err;
+  const int ctq = bfma::tiles(p.dqk), ctv = bfma::tiles(p.dvw);
+  bias_bwd_chunked_grads_kernel<<<dim3((ntq + ntk) * ctq + ntk * ctv, heads, batch),
+                                  bfma::THREADS, WC_GRADS_SMEM, stream>>>(
+      p, work, bfma::vec_floats(p.k, p.k_sb, p.k_sh, p.k_sn, p.dqk),
+      bfma::vec_floats(p.q, p.q_sb, p.q_sh, p.q_sn, p.dqk),
+      bfma::vec_floats(p.dout, p.do_sb, p.do_sh, p.do_sn, p.dvw));
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fp32(const Params& p, float* work, int batch, int heads,
+                        cudaStream_t stream) {
+  if (fma_chunked(p.dqk, p.dvw)) return launch_fp32_chunked(p, work, batch, heads, stream);
   if (wide_fp32(p.dqk, p.dvw)) {
     switch (jw_for(imax(p.dqk, p.dvw))) {
       case 9: return launch_wide<9>(p, batch, heads, stream);
@@ -2184,9 +2220,7 @@ cudaError_t launch_fused(const Params& p, int batch, int heads, cudaStream_t str
 cudaError_t launch_bf16(const Params& p, int batch, int heads, cudaStream_t stream) {
   if (fused_applies(p)) return launch_fused(p, batch, heads, stream);
   if (tc_chunked(p.dqk, p.dvw)) {
-    return launch_chunked_pair(bias_bwd_q_tc_chunked_kernel, TC_CKQ_SMEM,
-                               bias_bwd_k_tc_chunked_kernel, TC_CKK_SMEM, TC_BLOCK, TC_THREADS,
-                               CK_DOUT, p, batch, heads, stream);
+    return launch_tc_chunked_pair(p, batch, heads, stream);
   }
   switch (tc_dmax(p.dqk, p.dvw)) {
     case 64: return launch_tc_d<64, 64>(p, batch, heads, stream);
@@ -2201,11 +2235,12 @@ cudaError_t launch_bf16(const Params& p, int batch, int heads, cudaStream_t stre
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 for q, k, v, O, dO and the gradients;
-// bias_bf16: the bias's type. Returns a cudaError_t.
+// bias_bf16: the bias's type; work: fp32 scratch of ecf_bias_attention_bwd_work
+// floats per (batch, head), or null when that is 0. Returns a cudaError_t.
 int ecf_bias_attention_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* bias, const void* o,
     const void* dout, const double* lse, void* dq, void* dk, void* dv, float* di, float* ds,
-    int batch, int heads, int nq, int nk, int dqk, int dvw, int bias_bf16,
+    float* work, int batch, int heads, int nq, int nk, int dqk, int dvw, int bias_bf16,
     int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn,
     int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh, int64_t o_sn,
     int64_t do_sb, int64_t do_sh, int64_t do_sn, int64_t dq_sb, int64_t dq_sh, int64_t dq_sn,
@@ -2219,7 +2254,10 @@ int ecf_bias_attention_bwd(
            do_sb, do_sh, do_sn, dq_sb, dq_sh, dq_sn, dk_sb, dk_sh, dk_sn, dv_sb, dv_sh, dv_sn,
            bias_sb, bias_sh, bias_sn, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch_fp32(p, batch, heads, s));
+  if (dtype == 0 && fma_chunked(dqk, dvw) && work == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 0) return static_cast<int>(launch_fp32(p, work, batch, heads, s));
   // the tensor-core kernels copy rows in 16-byte pieces only
   const bool rows16 =
       tc::vec16(q, q_sb, q_sh, q_sn, dqk) && tc::vec16(k, k_sb, k_sh, k_sn, dqk) &&
@@ -2231,7 +2269,8 @@ int ecf_bias_attention_bwd(
 }
 
 // The kernels the route for `dtype` runs at these sizes: 0 the FMA pair,
-// 1 the chunked FMA pair, 4 the wide FMA pair (fp32); 2 the tensor-core
+// 1 the chunked FMA scores and gradient kernels, 4 the wide FMA pair
+// (fp32); 2 the tensor-core
 // pair, 3 the chunked tensor-core pair, 5 the one-pass kernel (bf16).
 int ecf_bias_attention_bwd_route(int dtype, int nq, int nk, int dqk, int dvw) {
   if (dtype == 1 && fused_fits(nq, nk, dqk, dvw)) return 5;
@@ -2242,26 +2281,33 @@ int ecf_bias_attention_bwd_route(int dtype, int nq, int nk, int dqk, int dvw) {
   return 0;
 }
 
-// Dynamic shared memory a block of that route's query-side pass (or of the
-// one-pass kernel) takes at these sizes, in bytes (ptxas reports none: it
-// is sized at launch)
+// Dynamic shared memory a block of that route's query-side pass (the
+// chunked FMA route's scores kernel, the one-pass kernel) takes at these
+// sizes, in bytes (ptxas reports none: it is sized at launch)
 size_t ecf_bias_attention_bwd_q_smem(int dtype, int nq, int nk, int dqk, int dvw) {
   if (dtype == 1 && fused_fits(nq, nk, dqk, dvw)) return FU_SMEM;
   if (dtype == 1 && tc_chunked(dqk, dvw)) return TC_CKQ_SMEM;
   if (dtype == 1) return tc_q_smem_bytes(tc_dmax(dqk, dvw));
-  if (fma_chunked(dqk, dvw)) return WC_Q_SMEM_FLOATS * sizeof(float);
+  if (fma_chunked(dqk, dvw)) return WC_SCORES_SMEM;
   if (wide_fp32(dqk, dvw)) return wide_smem_floats(jw_for(imax(dqk, dvw))) * sizeof(float);
   return q_smem_floats(dqk, dvw) * sizeof(float);
 }
 
-// ... and of its key-side pass (0: the one-pass kernel has none)
+// ... and of its key-side pass (the chunked FMA route's gradient kernel;
+// 0: the one-pass kernel has none)
 size_t ecf_bias_attention_bwd_k_smem(int dtype, int nq, int nk, int dqk, int dvw) {
   if (dtype == 1 && fused_fits(nq, nk, dqk, dvw)) return 0;
   if (dtype == 1 && tc_chunked(dqk, dvw)) return TC_CKK_SMEM;
   if (dtype == 1) return tc_k_smem_bytes(tc_dmax(dqk, dvw));
-  if (fma_chunked(dqk, dvw)) return WC_K_SMEM_FLOATS * sizeof(float);
+  if (fma_chunked(dqk, dvw)) return WC_GRADS_SMEM;
   if (wide_fp32(dqk, dvw)) return wide_smem_floats(jw_for(imax(dqk, dvw))) * sizeof(float);
   return k_smem_floats(dqk, dvw) * sizeof(float);
+}
+
+// fp32 scratch the route takes per (batch, head), in floats (0: none)
+size_t ecf_bias_attention_bwd_work(int dtype, int nq, int nk, int dqk, int dvw) {
+  if (dtype == 0 && fma_chunked(dqk, dvw)) return bfma::bwd_work(nq, nk);
+  return 0;
 }
 
 const char* ecf_cuda_error_string(int err) {

@@ -61,44 +61,58 @@
 // Past 256 the TPU kernels go on as before (they pad dqk and dv to 128
 // lanes and take any width that fits VMEM), but here neither the rows of q,
 // k and v whole in shared memory nor 16 output columns a thread fit any
-// more. Two chunked kernels take every wider width, dqk and dv
+// more. The chunked kernels take every wider width, dqk and dv
 // independently, at no more shared memory than at 256:
 //   * bf16, bias_fwd_tc_chunked_kernel: S = q k^T streamed in chunks of 64
 //     features (a q chunk of the block's 64 rows and a k chunk of the key
 //     tile, double-buffered with cp.async), the online softmax as above,
 //     and O in column groups of 128: each group is a block of its own that
 //     forms the same S (the 256 kernel's split, generalised) and reads only
-//     its group's columns of V. 64 KB a block at any width.
-//   * fp32, bias_fwd_chunked_kernel: the FMA kernel's tiles with q and k
-//     streamed in chunks of 64 features and O in column groups of 128
-//     (8 columns a thread); 82 KB a block at any width.
-// What bounds them: the bytes still, at the shapes the encoders give (head
-// 270 at N 118-134: q, k, v, O and the fp32 bias ~40 MB a call at 32 slots
-// x 4 heads, 0.012 ms at 3.35 TB/s), but they recompute S once a column
-// group and read q again at every key tile (from L2): ceil(dv / 128) times
-// the score products, and q Nk / 32 (bf16) or Nk / 64 (fp32) times. A
-// block that wrote P once for every group to read would trade the
-// recomputation for an (Nq, Nk) round trip through device memory; at
-// these widths S is at most half a group's work, so the groups recompute.
+//     its group's columns of V. 64 KB a block at any width. Score products
+//     per (row, key) pair: dqk x ceil(dv / 128).
+//   * fp32, two kernels on bias_fma.cuh's register-tiled 64 x 64 tiles (a
+//     thread's 8 x 4 micro-tile of FMAs, operands through a 3-stage
+//     cp.async ring), which form S once per (query tile, key tile) whatever
+//     dv is: score products per (row, key) pair dqk, then dv for O.
+//     bias_fwd_chunked_scores_kernel, a block per tile pair, forms S over
+//     chunks of 32 features and writes E = exp(S - m) (m the row's max over
+//     the tile's keys) into an fp32 scratch the wrapper allocates, 64 x 64
+//     floats a tile pair (8.7 MB at the causal 4-head Large's serving
+//     window, B 32 x H 4 x N 118; ~3 us at 3.35 TB/s), with each row's m and
+//     sum of E. bias_fwd_chunked_out_kernel, a block per (query tile, 64
+//     output columns), reads the query tile's E tiles and v's rows over the
+//     keys in chunks of 32, and folds each key tile's product in with its
+//     rows' weight exp(m - M) / L (M, L over all keys, from the tiles'
+//     statistics), so O comes out normalised; it writes the LSE. 54 KB and
+//     50 KB a block at any width. The scratch traded a recomputed S for an
+//     (Nq, Nk) round trip: S costs dqk / 128 of a 128-column group's product
+//     (2.1x at 270, 8x at 1,024), so recomputing it per group (PR 20's
+//     kernel) did 2x-4.5x the products at those widths.
+// What bounds them at the encoders' shapes (head 270 at N 118-134): bf16
+// the bytes (q, k, v, O and the fp32 bias ~40 MB a call at 32 slots x 4
+// heads, 0.012 ms at 3.35 TB/s); fp32 the products (2 B H Nq Nk (dqk + dv)
+// FLOP, 0.0215-0.1090 ms at 67 TFLOP/s over 270-1,024 at that window).
 //
-// Both read the bias once, through its own strides: a broadcast
+// Every kernel reads the bias once, through its own strides: a broadcast
 // (B|1, H|1, Nq|1, Nk) bias or a key mask is never expanded. Keys past Nk
 // (the tile's ragged edge) are excluded outright (-inf, probability exactly
 // 0), so a row whose real keys all carry the -1e9 mask averages over the real
 // keys only, as the plain version does. No (N, Nk) tensor reaches device
-// memory.
+// memory but the fp32 chunked route's scratch.
 //
-// Inputs: q, k, v of type T (float for the FMA kernel, bf16 for the
-// tensor-core one) with arbitrary batch/head/row strides and unit feature
+// Inputs: q, k, v of type T (float for the FMA kernels, bf16 for the
+// tensor-core ones) with arbitrary batch/head/row strides and unit feature
 // stride; bias fp32 or bf16 with unit key stride and
-// (batch, head, row) strides that are 0 along broadcast axes, or null. The
-// kernel allocates nothing and does not synchronise.
+// (batch, head, row) strides that are 0 along broadcast axes, or null; the
+// fp32 chunked route's scratch (ecf_bias_attention_fwd_work). The kernels
+// allocate nothing and do not synchronise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bias_fma.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -679,169 +693,168 @@ __global__ void __launch_bounds__(TC_THREADS) bias_fwd_tc_chunked_kernel(Params 
                          16, q0 + warp * 16, p.nq, imin(p.dv - col0, CK_DOUT), lane, 32);
 }
 
-constexpr int FC_KC = 64;     // fp32: features of a streamed chunk of q and k
-constexpr int FC_JMAX = 8;    // fp32: output columns a thread, a column group of 16 FC_JMAX
-
-// fp32: the q and k chunks (feature-major), the V column group and P
-constexpr size_t FC_SMEM_FLOATS = static_cast<size_t>(FC_KC) * LDQ + FC_KC * LDK +
-                                  BK * 16 * FC_JMAX + BK * LDP;
-static_assert(FC_KC * LDK % 4 == 0, "V's region starts 16-byte aligned");
-static_assert(TC_CK_SMEM <= MAX_SMEM && FC_SMEM_FLOATS * sizeof(float) <= MAX_SMEM &&
+// fp32 past WHOLE_WIDTH (bias_fma.cuh's tiles): the scores kernel's ring,
+// and the output kernel's with each row's max and 1 / sum over all keys
+constexpr size_t FC_SCORES_SMEM = bfma::SCORES_RING;
+constexpr size_t FC_OUT_SMEM = bfma::PRODUCT_RING + 2 * bfma::T * sizeof(float);
+static_assert(TC_CK_SMEM <= MAX_SMEM && FC_SCORES_SMEM <= MAX_SMEM && FC_OUT_SMEM <= MAX_SMEM &&
                   tc_smem_bytes(WHOLE_WIDTH) <= MAX_SMEM,
               "every route's block fits the 227 KB a block may use");
 
-// bias_fwd_kernel<float, FC_JMAX> with q and k streamed in chunks of FC_KC
-// features (a barrier a chunk) and O in column groups of 16 FC_JMAX, nsplit
-// blocks a query tile, each forming the same S; the first writes the LSE.
-__global__ void __launch_bounds__(NTHREADS) bias_fwd_chunked_kernel(Params p, int nsplit) {
+// fp32 past WHOLE_WIDTH, first kernel: a block per (query tile, key tile,
+// head, batch) forms S = q k^T * scale + bias over its 64 x 64 tile pair,
+// once, in chunks of KC features, and writes E = exp(S - m) key-major
+// ([key][row], the output kernel's depth-major operand) into the pair's
+// scratch tile, m the row's max over the tile's keys, with each row's m and
+// sum of E (stats, [key tile][row]). Keys past Nk give E = 0; a row whose
+// keys in the tile all score -inf gives m = -inf and E = 0 (no NaN).
+__global__ void __launch_bounds__(bfma::THREADS) bias_fwd_chunked_scores_kernel(Params p,
+                                                                                float* work) {
+  using bfma::KC;
+  using bfma::LDT;
+  using bfma::T;
   extern __shared__ __align__(16) float smem[];
-  constexpr int DVP = 16 * FC_JMAX;             // a column group
-  float* qT = smem;                              // FC_KC x LDQ: q^T of a chunk of the rows
-  float* kT = qT + FC_KC * LDQ;                  // FC_KC x LDK: k^T of a chunk of the key tile
-  float* vs = kT + FC_KC * LDK;                  // BK x DVP: the tile's V group, zero-padded
-  float* psT = vs + BK * DVP;                    // BK x LDP: the probabilities, key-major
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const int split = blockIdx.x % nsplit, col0 = split * DVP;
-  const int q0 = (blockIdx.x / nsplit) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int ntq = bfma::tiles(p.nq), ntk = bfma::tiles(p.nk);
+  const int qt = blockIdx.x / ntk, kt = blockIdx.x - qt * ntk;
+  const int q0 = qt * T, k0 = kt * T, h = blockIdx.y, b = blockIdx.z;
+  const int64_t bh = static_cast<int64_t>(b) * gridDim.y + h;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh + col0;
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int nsteps = (p.dqk + KC - 1) / KC;
+  auto load = [&](int s, int st) {
+    float* d = smem + st * 2 * KC * LDT;
+    bfma::load_t(d, qp, p.q_sn, q0, p.nq, s * KC, p.dqk);
+    bfma::load_t(d + KC * LDT, kp, p.k_sn, k0, p.nk, s * KC, p.dqk);
+  };
+  bfma::ring_start(nsteps, load);
+  bfma::ring_run(nsteps, load, [&](int, int st) {
+    const float* d = smem + st * 2 * KC * LDT;
+    bfma::fma_chunk<LDT, LDT>(acc, d + 8 * ty, d + KC * LDT + 4 * tx);
+  });
+
+  // scale and bias; the row's max and sum over the tile's keys, over the
+  // 16 threads (a half-warp) that share its rows
+  float* wb = work + bh * bfma::fwd_work(p.nq, p.nk);
+  float2* stats = reinterpret_cast<float2*>(wb + static_cast<int64_t>(ntq) * ntk * bfma::TILE) +
+                  static_cast<int64_t>(kt) * ntq * T;
   const int64_t bias_bh = b * p.bias_sb + h * p.bias_sh;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int qi = q0 + 8 * ty + i;
+    const bool row_ok = qi < p.nq;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kj = k0 + 4 * tx + j;
+      float sc = -INFINITY;
+      if (kj < p.nk) {
+        const float bv = (p.bias && row_ok) ? load_bias(p, bias_bh + qi * p.bias_sn + kj) : 0.f;
+        sc = acc[i][j] * p.scale + bv;
+      }
+      acc[i][j] = sc;
+      mx = fmaxf(mx, sc);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_use = mx == -INFINITY ? 0.f : mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[i][j] = expf(acc[i][j] - m_use);
+      sum += acc[i][j];
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (tx == 0) stats[q0 + 8 * ty + i] = make_float2(mx, sum);
+  }
+  bfma::put_tile(wb + (static_cast<int64_t>(qt) * ntk + kt) * bfma::TILE, acc, true);
+}
 
-  float m[4], l[4], o[4][FC_JMAX];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < FC_JMAX; ++j) o[i][j] = 0.f;
+// fp32 past WHOLE_WIDTH, second kernel: a block per (query tile, column
+// tile of 64, head, batch) forms its 64 x 64 tile of O from the query
+// tile's E tiles and v's rows, in chunks of KC keys. The rows' max M and sum
+// L over all keys come from the stats first (M the max of the tiles' m, L
+// the sum of their sums times exp(m - M), in key-tile order); each key
+// tile's partial product is folded in as O += exp(m - M) / L (E v), so O
+// comes out normalised. The first column tile writes the LSE, M + log L in
+// fp64.
+__global__ void __launch_bounds__(bfma::THREADS) bias_fwd_chunked_out_kernel(Params p,
+                                                                             const float* work,
+                                                                             int vec) {
+  using bfma::KC;
+  using bfma::LDX;
+  using bfma::T;
+  extern __shared__ __align__(16) float smem[];
+  float* row_max = smem + bfma::PRODUCT_RING / sizeof(float);   // [T]
+  float* row_inv = row_max + T;                                  // [T]: 1 / L
+  const int ntq = bfma::tiles(p.nq), ntk = bfma::tiles(p.nk), nct = bfma::tiles(p.dv);
+  const int qt = blockIdx.x / nct, ct = blockIdx.x - qt * nct;
+  const int q0 = qt * T, c0 = ct * T, h = blockIdx.y, b = blockIdx.z;
+  const int64_t bh = static_cast<int64_t>(b) * gridDim.y + h;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* wb = work + bh * bfma::fwd_work(p.nq, p.nk);
+  const float* et = wb + static_cast<int64_t>(qt) * ntk * bfma::TILE;   // its key tiles in turn
+  const float2* stats = reinterpret_cast<const float2*>(wb + static_cast<int64_t>(ntq) * ntk *
+                                                                 bfma::TILE) + q0;
+  const int64_t stat_step = static_cast<int64_t>(ntq) * T;   // from one key tile's to the next
+
+  const int nsteps = ntk * (T / KC);
+  auto load = [&](int s, int st) {
+    float* d = smem + st * KC * (T + LDX);
+    const int t = s / (T / KC), d0 = (s - t * (T / KC)) * KC;
+    bfma::load_a(d, et + static_cast<int64_t>(t) * bfma::TILE + d0 * T);
+    bfma::load_x(d + KC * T, vp, p.v_sn, t * T + d0, p.nk, c0, p.dv, vec);
+  };
+  bfma::ring_start(nsteps, load);
+
+  // the rows' M and L while the first chunks land (the ring's first barrier
+  // publishes them)
+  if (tid < T) {
+    float mx = -INFINITY, l = 0.f;
+    for (int t = 0; t < ntk; ++t) mx = fmaxf(mx, stats[t * stat_step + tid].x);
+    for (int t = 0; t < ntk; ++t) {
+      const float2 ml = stats[t * stat_step + tid];
+      l += ml.y * expf(ml.x - mx);
+    }
+    row_max[tid] = mx;
+    row_inv[tid] = 1.f / l;
+    if (ct == 0 && q0 + tid < p.nq) {
+      p.lse[bh * p.nq + q0 + tid] = static_cast<double>(mx) + log(static_cast<double>(l));
+    }
   }
 
-  for (int k0 = 0; k0 < p.nk; k0 += BK) {
-    float s[4][4];
+  float acc[8][4], part[8][4], m_t[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  bfma::ring_run(nsteps, load, [&](int s, int st) {
+    const float* d = smem + st * KC * (T + LDX);
+    if (s % (T / KC) == 0) {   // a key tile's first chunk: its rows' m, read ahead of the fold
+      const float2* st_t = stats + (s / (T / KC)) * stat_step + 8 * ty;
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) s[i][cc] = 0.f;
-    // S over the chunks; the readers of the last chunk (or tile) finished
-    // at the barrier before each copy
-    for (int f0 = 0; f0 < p.dqk; f0 += FC_KC) {
-      const int fw = imin(FC_KC, p.dqk - f0);
-      if (f0) __syncthreads();
-      for (int r = warp; r < BQ; r += NTHREADS / 32) {
-        const int qi = q0 + r;
-        const bool ok = qi < p.nq;
-        for (int d = lane; d < fw; d += 32) qT[d * LDQ + r] = ok ? qp[qi * p.q_sn + f0 + d] : 0.f;
-      }
-      for (int cc = warp; cc < BK; cc += NTHREADS / 32) {
-        const int kj = k0 + cc;
-        const bool ok = kj < p.nk;
-        for (int d = lane; d < fw; d += 32) kT[d * LDK + cc] = ok ? kp[kj * p.k_sn + f0 + d] : 0.f;
-        if (f0 == 0) {
-          for (int d = lane; d < DVP; d += 32) {
-            vs[cc * DVP + d] = (ok && col0 + d < p.dv) ? vp[kj * p.v_sn + d] : 0.f;
-          }
-        }
-      }
-      __syncthreads();
-      const float* qt = qT + ty * 4;
-#pragma unroll 4
-      for (int d = 0; d < fw; ++d) {
-        const float4 a = *reinterpret_cast<const float4*>(qt + d * LDQ);
-        const float* krow = kT + d * LDK + tx;
-        const float b0 = krow[0], b1 = krow[16], b2 = krow[32], b3 = krow[48];
-        s[0][0] = fmaf(a.x, b0, s[0][0]); s[0][1] = fmaf(a.x, b1, s[0][1]);
-        s[0][2] = fmaf(a.x, b2, s[0][2]); s[0][3] = fmaf(a.x, b3, s[0][3]);
-        s[1][0] = fmaf(a.y, b0, s[1][0]); s[1][1] = fmaf(a.y, b1, s[1][1]);
-        s[1][2] = fmaf(a.y, b2, s[1][2]); s[1][3] = fmaf(a.y, b3, s[1][3]);
-        s[2][0] = fmaf(a.z, b0, s[2][0]); s[2][1] = fmaf(a.z, b1, s[2][1]);
-        s[2][2] = fmaf(a.z, b2, s[2][2]); s[2][3] = fmaf(a.z, b3, s[2][3]);
-        s[3][0] = fmaf(a.w, b0, s[3][0]); s[3][1] = fmaf(a.w, b1, s[3][1]);
-        s[3][2] = fmaf(a.w, b2, s[3][2]); s[3][3] = fmaf(a.w, b3, s[3][3]);
+      for (int i = 0; i < 8; ++i) {
+        m_t[i] = st_t[i].x;
+        part[i][0] = part[i][1] = part[i][2] = part[i][3] = 0.f;
       }
     }
-
-    // scale and bias; keys past Nk excluded outright
+    bfma::fma_chunk<T, LDX>(part, d + 8 * ty, d + KC * T + 4 * tx);
+    if (s % (T / KC) == T / KC - 1) {   // its last chunk: fold its product in
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      const bool row_ok = qi < p.nq;
+      for (int i = 0; i < 8; ++i) {
+        const int r = 8 * ty + i;
+        const float g = expf(m_t[i] - row_max[r]) * row_inv[r];
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const int kj = k0 + tx + 16 * cc;
-        if (kj >= p.nk) {
-          s[i][cc] = -INFINITY;
-        } else {
-          const float bv = (p.bias && row_ok) ? load_bias(p, bias_bh + qi * p.bias_sn + kj) : 0.f;
-          s[i][cc] = s[i][cc] * p.scale + bv;
-        }
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(g, part[i][j], acc[i][j]);
       }
     }
-    // online softmax over the half-warp of a row group
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        s[i][cc] = expf(s[i][cc] - m_new);
-        sum += s[i][cc];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < FC_JMAX; ++j) o[i][j] *= alpha;
-    }
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      *reinterpret_cast<float4*>(psT + (tx + 16 * cc) * LDP + ty * 4) =
-          make_float4(s[0][cc], s[1][cc], s[2][cc], s[3][cc]);
-    }
-    __syncthreads();
-
-    // O += P V over this key tile and the group's columns
-    for (int cc = 0; cc < BK; ++cc) {
-      const float4 pr = *reinterpret_cast<const float4*>(psT + cc * LDP + ty * 4);
-      const float* vrow = vs + cc * DVP + tx;
-#pragma unroll
-      for (int j = 0; j < FC_JMAX; ++j) {
-        const float vv = vrow[16 * j];
-        o[0][j] = fmaf(pr.x, vv, o[0][j]);
-        o[1][j] = fmaf(pr.y, vv, o[1][j]);
-        o[2][j] = fmaf(pr.z, vv, o[2][j]);
-        o[3][j] = fmaf(pr.w, vv, o[3][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // normalise and write the group's columns of O, and the LSE (fp64)
-  float* op = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + col0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= p.nq) continue;
-    const float inv = 1.f / l[i];
-#pragma unroll
-    for (int j = 0; j < FC_JMAX; ++j) {
-      const int d = tx + 16 * j;
-      if (col0 + d < p.dv) op[qi * p.o_sn + d] = o[i][j] * inv;
-    }
-    if (split == 0 && tx == 0) {
-      p.lse[(static_cast<int64_t>(b) * gridDim.y + h) * p.nq + qi] =
-          static_cast<double>(m[i]) + log(static_cast<double>(l[i]));
-    }
-  }
+  });
+  bfma::store_tile(static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh, p.o_sn, q0, p.nq, c0,
+                   p.dv, 1.f, acc);
 }
 
 cudaError_t prepare(const void* fn, size_t bytes) {
@@ -861,22 +874,39 @@ cudaError_t launch_j(const Params& p, int batch, int heads, size_t bytes, cudaSt
   return cudaGetLastError();
 }
 
-// the chunked kernels, nsplit column groups a query tile
-cudaError_t launch_chunked(void (*kernel)(Params, int), size_t bytes, int rows, int nthreads,
-                           int group, const Params& p, int batch, int heads, cudaStream_t stream) {
-  cudaError_t err = prepare(reinterpret_cast<const void*>(kernel), bytes);
+// the bf16 chunked kernel, nsplit column groups a query tile
+cudaError_t launch_tc_chunked(const Params& p, int batch, int heads, cudaStream_t stream) {
+  cudaError_t err = prepare(reinterpret_cast<const void*>(&bias_fwd_tc_chunked_kernel), TC_CK_SMEM);
   if (err != cudaSuccess) return err;
-  const int nsplit = (p.dv + group - 1) / group;
-  const dim3 grid((p.nq + rows - 1) / rows * nsplit, heads, batch);
-  kernel<<<grid, nthreads, bytes, stream>>>(p, nsplit);
+  const int nsplit = (p.dv + CK_DOUT - 1) / CK_DOUT;
+  const dim3 grid((p.nq + TC_BQ - 1) / TC_BQ * nsplit, heads, batch);
+  bias_fwd_tc_chunked_kernel<<<grid, TC_THREADS, TC_CK_SMEM, stream>>>(p, nsplit);
   return cudaGetLastError();
 }
 
-cudaError_t launch_fp32(const Params& p, int batch, int heads, cudaStream_t stream) {
-  if (fma_chunked(p.dqk, p.dv)) {
-    return launch_chunked(bias_fwd_chunked_kernel, FC_SMEM_FLOATS * sizeof(float), BQ, NTHREADS,
-                          16 * FC_JMAX, p, batch, heads, stream);
-  }
+// fp32 past WHOLE_WIDTH: the scores kernel over every tile pair, then the
+// output kernel (same stream, so it reads the scratch complete)
+cudaError_t launch_fp32_chunked(const Params& p, float* work, int batch, int heads,
+                                cudaStream_t stream) {
+  const int ntq = bfma::tiles(p.nq), ntk = bfma::tiles(p.nk);
+  cudaError_t err =
+      prepare(reinterpret_cast<const void*>(&bias_fwd_chunked_scores_kernel), FC_SCORES_SMEM);
+  if (err != cudaSuccess) return err;
+  bias_fwd_chunked_scores_kernel<<<dim3(ntq * ntk, heads, batch), bfma::THREADS, FC_SCORES_SMEM,
+                                   stream>>>(p, work);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = prepare(reinterpret_cast<const void*>(&bias_fwd_chunked_out_kernel), FC_OUT_SMEM);
+  if (err != cudaSuccess) return err;
+  const int vec = bfma::vec_floats(p.v, p.v_sb, p.v_sh, p.v_sn, p.dv);
+  bias_fwd_chunked_out_kernel<<<dim3(ntq * bfma::tiles(p.dv), heads, batch), bfma::THREADS,
+                                FC_OUT_SMEM, stream>>>(p, work, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fp32(const Params& p, float* work, int batch, int heads,
+                        cudaStream_t stream) {
+  if (fma_chunked(p.dqk, p.dv)) return launch_fp32_chunked(p, work, batch, heads, stream);
   const size_t bytes = smem_floats(p.dqk, p.dv) * sizeof(float);
   switch (jmax_for(p.dv)) {
     case 2: return launch_j<2>(p, batch, heads, bytes, stream);
@@ -908,8 +938,7 @@ cudaError_t launch_tc_d(const Params& p, int batch, int heads, cudaStream_t stre
 
 cudaError_t launch_bf16(const Params& p, int batch, int heads, cudaStream_t stream) {
   if (tc_chunked(p.dqk, p.dv)) {
-    return launch_chunked(bias_fwd_tc_chunked_kernel, TC_CK_SMEM, TC_BQ, TC_THREADS, CK_DOUT, p,
-                          batch, heads, stream);
+    return launch_tc_chunked(p, batch, heads, stream);
   }
   switch (tc_dmax(p.dqk, p.dv)) {
     case 64: return launch_tc_d<64, 64>(p, batch, heads, stream);
@@ -924,10 +953,12 @@ cudaError_t launch_bf16(const Params& p, int batch, int heads, cudaStream_t stre
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 for q, k, v and o; bias_bf16: the bias's
-// type. Returns a cudaError_t.
+// type; work: fp32 scratch of ecf_bias_attention_fwd_work floats per (batch,
+// head), or null when that is 0. Returns a cudaError_t.
 int ecf_bias_attention_fwd(
     int dtype, const void* q, const void* k, const void* v, const void* bias, void* o,
-    double* lse, int batch, int heads, int nq, int nk, int dqk, int dv, int bias_bf16,
+    double* lse, float* work, int batch, int heads, int nq, int nk, int dqk, int dv,
+    int bias_bf16,
     int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn,
     int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh, int64_t o_sn,
     int64_t bias_sb, int64_t bias_sh, int64_t bias_sn, float scale, void* stream) {
@@ -938,7 +969,10 @@ int ecf_bias_attention_fwd(
            q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, o_sb, o_sh, o_sn,
            bias_sb, bias_sh, bias_sn, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch_fp32(p, batch, heads, s));
+  if (dtype == 0 && fma_chunked(dqk, dv) && work == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 0) return static_cast<int>(launch_fp32(p, work, batch, heads, s));
   // the tensor-core kernels copy rows in 16-byte pieces only
   const bool rows16 = tc::vec16(q, q_sb, q_sh, q_sn, dqk) && tc::vec16(k, k_sb, k_sh, k_sn, dqk) &&
                       tc::vec16(v, v_sb, v_sh, v_sn, dv) && tc::vec16(o, o_sb, o_sh, o_sn, dv);
@@ -956,13 +990,25 @@ int ecf_bias_attention_fwd_route(int dtype, int dqk, int dv) {
   return 0;
 }
 
-// Dynamic shared memory a block of that kernel takes at these widths, in
-// bytes (ptxas reports none: it is sized at launch).
+// Dynamic shared memory a block of that route's (first) kernel takes at
+// these widths, in bytes (ptxas reports none: it is sized at launch).
 size_t ecf_bias_attention_fwd_smem(int dtype, int dqk, int dv) {
   if (dtype == 1 && tc_chunked(dqk, dv)) return TC_CK_SMEM;
   if (dtype == 1) return tc_smem_bytes(tc_dmax(dqk, dv));
-  if (fma_chunked(dqk, dv)) return FC_SMEM_FLOATS * sizeof(float);
+  if (fma_chunked(dqk, dv)) return FC_SCORES_SMEM;
   return smem_floats(dqk, dv) * sizeof(float);
+}
+
+// ... and of its second kernel (0: the route runs one)
+size_t ecf_bias_attention_fwd_out_smem(int dtype, int dqk, int dv) {
+  if (dtype == 0 && fma_chunked(dqk, dv)) return FC_OUT_SMEM;
+  return 0;
+}
+
+// fp32 scratch the route takes per (batch, head), in floats (0: none)
+size_t ecf_bias_attention_fwd_work(int dtype, int nq, int nk, int dqk, int dv) {
+  if (dtype == 0 && fma_chunked(dqk, dv)) return bfma::fwd_work(nq, nk);
+  return 0;
 }
 
 const char* ecf_cuda_error_string(int err) {

@@ -135,6 +135,23 @@ def _weights(conv, x):
     return conv.weight.to(x.dtype), conv.bias.to(x.dtype)
 
 
+def _max_pool(x, kernel: int, stride: int, padding=(0, 0)):
+    """F.max_pool2d of (B, C, mel, T) with its window scanned time-major,
+    as the JAX package's reduce_window over (T, mel): among a window's tied
+    maxima the gradient goes to the first in that order, as XLA's
+    select_and_scatter routes it; a mel-major scan, the layout's own, picks
+    another one. ``padding`` is (mel, T)."""
+    y = F.max_pool2d(x.transpose(2, 3), kernel, stride, (padding[1], padding[0]))
+    return y.transpose(2, 3)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """nn.MaxPool2d (square window, no padding) through ``_max_pool``."""
+
+    def forward(self, x):
+        return _max_pool(x, self.kernel_size, self.stride)
+
+
 class Conv1dSubsampling(nn.Module):
     """Stride-2 Conv1d -> norm -> activation layers over (B, mel, time),
     'same' padding (k-1)//2, lengths (l-1)//2 + 1 per layer (modules.py
@@ -256,7 +273,7 @@ class Conv2dPoolSubsampling(Conv2dSubsampling):
         ends), the conv those from their window of its input (zeros)."""
         x = x.transpose(1, 2)[:, None]
         for conv, norm, act in self.layers if seq is None else self.layers[:-1]:
-            x = act(norm(F.max_pool2d(conv(x), 3, stride=2, padding=1)))
+            x = act(norm(_max_pool(conv(x), 3, 2, (1, 1))))
             if x_len is not None:
                 x_len = (x_len - 1) // 2 + 1
         if seq is None:
@@ -267,7 +284,7 @@ class Conv2dPoolSubsampling(Conv2dSubsampling):
         t_in = x.shape[-1]
         total = (t_in - 1) // 2 + 1
         if total % seq.size:
-            return _flatten(act(norm(F.max_pool2d(conv(x), 3, stride=2, padding=1)))), x_len, None
+            return _flatten(act(norm(_max_pool(conv(x), 3, 2, (1, 1))))), x_len, None
         span = sequence.even(total, seq)
         # the pool's outputs [o, o + L) read the conv's [2o - 1, 2(o + L)),
         # of which [a, b) lie inside the sequence
@@ -277,7 +294,7 @@ class Conv2dPoolSubsampling(Conv2dSubsampling):
         y = F.conv2d(sequence.window(x, a - p, b - p + k - 1), *_weights(conv, x),
                      padding=(conv.padding[0], 0))
         y = F.pad(y, (a - lo, hi - b), value=-math.inf)
-        y = F.max_pool2d(y, 3, stride=2, padding=(1, 0))
+        y = _max_pool(y, 3, 2, (1, 0))
         return _flatten(act(_sharded_norm(norm, y))), x_len, span
 
 
@@ -298,7 +315,7 @@ class VGGSubsampling(nn.Module):
                 _norm(norm, chans[i + 1], 2), _act(act),
                 Conv2d(chans[i + 1], chans[i + 1], kernel_size, padding=p),
                 _norm(norm, chans[i + 1], 2), _act(act),
-                nn.MaxPool2d(2))
+                MaxPool2d(2))
             for i in range(num_layers))
 
     def out_features(self, n_mels: int) -> int:

@@ -25,10 +25,13 @@ card the inputs' type picks the route inside each kernel file, never a
 failure: bf16 runs the tensor-core kernels (mma.sync, bf16 tiles; counted
 in ``tc_launches``), fp32 the fp32 FMA kernels, which keep fp32 products.
 Past a width of 256 (bf16: padded to 16) each type takes its chunked
-kernels, which stream the features in chunks and form the outputs in column
-groups; ``route`` names the kernels each call runs and ``routes`` counts
-the calls by route. The
-forward returns (O in the dtype of q, LSE (B, H, Nq)) and saves the LSE for
+kernels: bf16 streams the features in chunks and forms the outputs in column
+groups; fp32 forms the scores of each 64 x 64 (query, key) tile pair once
+into an fp32 scratch the wrapper allocates (``work_floats`` per batch and
+head: E and its row statistics forward, P, dS and dS^T backward), from
+which a second kernel forms every 64-column tile of the outputs. ``route``
+names the kernels each call runs and ``routes`` counts the calls by route.
+The forward returns (O in the dtype of q, LSE (B, H, Nq)) and saves the LSE for
 the backward kernel, which recomputes the probabilities from it; the plain
 backward recomputes them with a softmax, as the TPU launcher's _fused_bwd.
 The bias gets a gradient only when it requires one: dS summed over the
@@ -68,10 +71,12 @@ FMA_LDS = 65
 FMA_COLUMNS = ((32, 2), (64, 4), (96, 6), (128, 8), (192, 12), (256, 16))  # forward jmax_for
 FMA_BWD_COLUMNS = ((32, 2), (64, 4), (96, 6), (128, 8))   # backward jmax_for
 FMA_WIDE_COLUMNS = ((144, 9), (192, 12), (256, 16))        # jw_for, past 128
-FMA_WIDE_ROWS = 16    # rows (or keys) of the wide and chunked fp32 backward's tiles (WB)
-FMA_CHUNK = 64        # fp32 forward past WHOLE_WIDTH: features a chunk (FC_KC)
-FMA_CHUNK_COLUMNS = 8     # ... output columns a thread (FC_JMAX): column groups of 128
-FMA_WIDE_CHUNK_COLUMNS = 16   # fp32 backward past WHOLE_WIDTH: columns a thread (WC_J)
+FMA_WIDE_ROWS = 16    # rows (or keys) of the wide fp32 backward's tiles (WB)
+FC_TILE = 64          # fp32 past WHOLE_WIDTH (csrc/bias_fma.cuh): rows, keys, columns of a tile (T)
+FC_KC = 32            # ... depth of a ring stage (KC)
+FC_STAGES = 3         # ... stages of the ring (STAGES)
+FC_LDT = FC_TILE + 8  # ... row strides of a transposed and a row-major chunk (LDT, LDX)
+FC_LDX = FC_TILE + 4
 TC_DMAX = (64, 128, 144, 256)   # padded widths of the tensor-core kernels
 TC_BQ = 64            # forward: query rows a block (TC_BQ)
 TC_BK = 32            # forward: keys a tile (TC_BK)
@@ -166,6 +171,11 @@ def _r4(floats: int) -> int:
     return (floats + 3) // 4 * 4
 
 
+# bytes of the fp32 chunked kernels' rings (SCORES_RING, PRODUCT_RING)
+_FC_SCORES_RING = FC_STAGES * 2 * FC_KC * FC_LDT * 4
+_FC_PRODUCT_RING = FC_STAGES * FC_KC * (FC_TILE + FC_LDX) * 4
+
+
 def _fwd_route(dtype, dqk: int, dv: int) -> Route:
     if dtype == torch.bfloat16 and tc_width(dqk, dv) > WHOLE_WIDTH:
         ring = CK_STAGES * (TC_BQ + TC_BK) * CK_LDC * 2
@@ -176,9 +186,9 @@ def _fwd_route(dtype, dqk: int, dv: int) -> Route:
         smem = _tc_smem(TC_BQ + 2 * TC_STAGES * TC_BK, TC_STAGES * TC_BQ * TC_LDB * 4, d)
         return Route("tc", ((f"bias_fwd_tc_kernel<{d},{128 if d == 256 else d}>", smem),))
     if max(dqk, dv) > WHOLE_WIDTH:
-        floats = FMA_CHUNK * (FMA_LDQ + FMA_LDK) + FMA_BQ * 16 * FMA_CHUNK_COLUMNS \
-            + FMA_BQ * FMA_LDP
-        return Route("fma_chunked", (("bias_fwd_chunked_kernel", 4 * floats),))
+        return Route("fma_chunked", (("bias_fwd_chunked_scores_kernel", _FC_SCORES_RING),
+                                     ("bias_fwd_chunked_out_kernel",
+                                      _FC_PRODUCT_RING + 2 * FC_TILE * 4)))
     j = _columns(dv, FMA_COLUMNS)
     floats = dqk * FMA_LDQ + _r4(dqk * FMA_LDK) + FMA_BQ * 16 * j + FMA_BQ * FMA_LDP
     return Route("fma", ((f"bias_fwd_kernel<float,{j}>", 4 * floats),))
@@ -203,10 +213,9 @@ def _bwd_route(dtype, nq: int, nk: int, dqk: int, dv: int) -> Route:
                             (f"bias_bwd_k_tc_kernel<{d},{out}>", k)))
     wb = FMA_WIDE_ROWS
     if max(dqk, dv) > WHOLE_WIDTH:
-        lw = 16 * FMA_WIDE_CHUNK_COLUMNS + 1
-        return Route("fma_chunked", (
-            ("bias_bwd_q_chunked_kernel", 4 * (3 * wb + 3 * wb * lw + wb * (wb + 1))),
-            ("bias_bwd_k_chunked_kernel", 4 * (3 * wb + 4 * wb * lw + 2 * wb * (wb + 1)))))
+        return Route("fma_chunked", (("bias_bwd_chunked_scores_kernel",
+                                      _FC_SCORES_RING + FC_TILE * (8 + 4)),
+                                     ("bias_bwd_chunked_grads_kernel", _FC_PRODUCT_RING)))
     if max(dqk, dv) > 128:
         j = _columns(max(dqk, dv), FMA_WIDE_COLUMNS)
         smem = 4 * (3 * wb + 4 * wb * (16 * j + 1) + 2 * wb * (wb + 1))
@@ -234,6 +243,19 @@ def route(dtype, nq: int, nk: int, dqk: int, dv: int, backward: bool = False) ->
     return _bwd_route(dtype, nq, nk, dqk, dv) if backward else _fwd_route(dtype, dqk, dv)
 
 
+def work_floats(dtype, nq: int, nk: int, dqk: int, dv: int, backward: bool = False) -> int:
+    """fp32 scratch the route at these sizes takes per (batch, head), in
+    floats, as the kernel files size it (ecf_bias_attention_{fwd,bwd}_work):
+    on the fp32 chunked route a 64 x 64 tile per (query tile, key tile), of
+    E and each row's max and sum in the forward, of P, dS and dS^T in the
+    backward; none on the others. It does not call ``route``, which counts
+    as one call a launch where chip_smoke.py spies on it."""
+    if dtype != torch.float32 or max(dqk, dv) <= WHOLE_WIDTH:
+        return 0
+    pairs = -(-nq // FC_TILE) * -(-nk // FC_TILE)
+    return pairs * (3 * FC_TILE * FC_TILE if backward else FC_TILE * FC_TILE + 2 * FC_TILE)
+
+
 def smem_bytes(dtype, n, dqk, dv):
     """Dynamic shared memory a block of each kernel takes on the route for
     ``dtype`` at Nq = Nk = n and these widths, in bytes: (forward, backward),
@@ -252,9 +274,11 @@ def kernel_route(dtype, nq, nk, dqk, dv, backward=False) -> tuple:
     if not backward:
         lib = _kernels.load(KERNEL)
         fn, smem = lib.ecf_bias_attention_fwd_route, lib.ecf_bias_attention_fwd_smem
-        fn.argtypes = smem.argtypes = [ctypes.c_int] * 3
-        fn.restype, smem.restype = ctypes.c_int, ctypes.c_size_t
-        return ROUTES_FWD[fn(code, dqk, dv)], (smem(code, dqk, dv),)
+        out = lib.ecf_bias_attention_fwd_out_smem
+        fn.argtypes = smem.argtypes = out.argtypes = [ctypes.c_int] * 3
+        fn.restype, smem.restype, out.restype = ctypes.c_int, ctypes.c_size_t, ctypes.c_size_t
+        args = (code, dqk, dv)
+        return ROUTES_FWD[fn(*args)], tuple(b for b in (smem(*args), out(*args)) if b)
     lib = _kernels.load(KERNEL_BWD)
     fn = lib.ecf_bias_attention_bwd_route
     q, k = lib.ecf_bias_attention_bwd_q_smem, lib.ecf_bias_attention_bwd_k_smem
@@ -409,6 +433,12 @@ def _pad8(tensors):
     return [torch.nn.functional.pad(t, (0, -t.shape[-1] % 8)).contiguous() for t in tensors]
 
 
+def _work(dtype, b, h, nq, nk, dqk, dv, backward, dev):
+    """The route's fp32 scratch for B x H (``work_floats``), or None."""
+    n = work_floats(dtype, nq, nk, dqk, dv, backward)
+    return torch.empty(b * h * n, dtype=torch.float32, device=dev) if n else None
+
+
 def _launch(q, k, v, bias, scale):
     """csrc/bias_attention_fwd.cu. O is written in (B, Nq, H, dv) memory
     order, so merging the heads after the call is a view. bf16 rows not
@@ -421,14 +451,16 @@ def _launch(q, k, v, bias, scale):
     dev = q.device
     bias, bias_strides, bias_bf16 = _checked_inputs(q, k, v, bias)
     lib = _kernels.load(KERNEL)
-    fn = _bind(lib, "ecf_bias_attention_fwd", 6, 7, 15)
+    fn = _bind(lib, "ecf_bias_attention_fwd", 7, 7, 15)
     o = torch.empty((b, nq, h, dv), dtype=q.dtype, device=dev).permute(0, 2, 1, 3)
     lse = torch.empty((b, h, nq), dtype=torch.float64, device=dev)
+    work = _work(q.dtype, b, h, nq, nk, dqk, dv, False, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None, o.data_ptr(), lse.data_ptr(),
+            work.data_ptr() if work is not None else None,
             b, h, nq, nk, dqk, dv, int(bias_bf16),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], *bias_strides,
             float(scale), stream,
@@ -461,13 +493,14 @@ def _launch_bwd(q, k, v, bias, o, do, lse, scale, need_dbias):
     dev = q.device
     bias, bias_strides, bias_bf16 = _checked_inputs(q, k, v, bias)
     lib = _kernels.load(KERNEL_BWD)
-    fn = _bind(lib, "ecf_bias_attention_bwd", 12, 7, 27)
+    fn = _bind(lib, "ecf_bias_attention_bwd", 13, 7, 27)
     f32 = torch.float32
     dq = torch.empty((b, nq, h, dqk), dtype=q.dtype, device=dev).permute(0, 2, 1, 3)
     dk = torch.empty((b, nk, h, dqk), dtype=q.dtype, device=dev).permute(0, 2, 1, 3)
     dvo = torch.empty((b, nk, h, dv), dtype=q.dtype, device=dev).permute(0, 2, 1, 3)
     di = torch.empty((b, h, nq), dtype=f32, device=dev)
     ds = torch.empty((b, h, nq, nk), dtype=f32, device=dev) if need_dbias else None
+    work = _work(q.dtype, b, h, nq, nk, dqk, dv, True, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -475,6 +508,7 @@ def _launch_bwd(q, k, v, bias, o, do, lse, scale, need_dbias):
             bias.data_ptr() if bias is not None else None, o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvo.data_ptr(), di.data_ptr(),
             ds.data_ptr() if ds is not None else None,
+            work.data_ptr() if work is not None else None,
             b, h, nq, nk, dqk, dv, int(bias_bf16),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dvo.stride()[:3],

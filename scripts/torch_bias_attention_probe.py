@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Device-time probe of the PyTorch port's bias-attention kernels, and an
-A/B of the LM, CTC or RNN-T paths between two checkouts, on one NVIDIA GPU.
+A/B of the LM, CTC or RNN-T paths, or of the bias kernels past a head
+width of 256, between two checkouts, on one NVIDIA GPU.
 
     python3 scripts/torch_bias_attention_probe.py probe
-    python3 scripts/torch_bias_attention_probe.py ab PARENT_DIR [CHANGE_DIR] [--ctc | --rnnt]
+    python3 scripts/torch_bias_attention_probe.py ab PARENT_DIR [CHANGE_DIR] [--ctc | --rnnt | --widest]
 
 ``probe`` times the bias attention's forward and backward at the
 LM-Transformer's training shape (B 64, H 12, N 101, dh 64, bf16, the causal
@@ -24,7 +25,13 @@ lattice kernels' training step first (t-train-rate), then their phase
 (rnnt-kernel) and both kernels' device time from a CUDA graph
 (``[rnnt-ab]``, the same measure in both checkouts) at the Transducer's
 training shape and at U+1 1024, the widest lattice of one thread a label
-position. Make the parent's checkout with
+position; with ``--widest`` the bias kernels past a head width of 256:
+widest-kernel (its checks, then [widest-kernel-time]: every width at the
+causal 4-head Large's serving window and training step, both types and
+directions, beside the plain version, SDPA and the bound) and
+causal-wide-slice (that model's fp32 and bf16 steps and streams, ms a step
+and a window step), then the bias kernels' timed phases up to 256 as
+``ab`` runs them. Make the parent's checkout with
 ``git archive <commit> | tar -x -C build/parent``.
 
 Imports nothing of JAX; exits non-zero without a GPU.
@@ -106,6 +113,23 @@ for u1 in (tp["train_label_max_length"] + 1, 1024):   # training; one thread a p
 """
 
 
+AB_PHASES_WIDEST = """
+import concurrent.futures, torch, chip_smoke as C
+from efficientconformer_torch.ops import _kernels, bias_attention as BA
+card = C.card()
+print(card, flush=True)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    list(pool.map(_kernels.build, (BA.KERNEL, BA.KERNEL_BWD)))
+C.phase_widest_kernel()
+C.phase_causal_wide_slice(card)
+C.phase_lm_kernel()
+C.phase_wide_kernel()
+C.phase_stream_kernel()
+"""
+
+
 def device_ms(fn, iters: int = 30) -> dict[str, float]:
     """Device ms per call of ``fn`` by kernel name (torch.profiler)."""
     import torch
@@ -163,10 +187,11 @@ def probe() -> None:
                 lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)), flops)
 
 
-def ab(parent: str, change: str, phases: str = AB_PHASES, kernels: str = "bias_") -> int:
+def ab(parent: str, change: str, phases: str = AB_PHASES, kernels: str = "bias_",
+       width: int = 240) -> int:
     """``phases`` (Python run from each checkout's root) in parent, change,
     change, parent; prints the phase lines, the card and the profile rows
-    that name ``kernels``."""
+    that name ``kernels``, each cut to ``width`` characters."""
     failed = 0
     for label, where in (("parent", parent), ("change", change), ("change", change),
                          ("parent", parent)):
@@ -175,7 +200,7 @@ def ab(parent: str, change: str, phases: str = AB_PHASES, kernels: str = "bias_"
                              text=True, check=False)
         for line in res.stdout.splitlines():
             if line.startswith(("[", "NVIDIA")) or kernels in line:
-                print(line[:240], flush=True)
+                print(line[:width], flush=True)
         if res.returncode:
             print(res.stderr[-3000:], flush=True)
             failed = 1
@@ -190,13 +215,15 @@ def main() -> int:
     if len(sys.argv) >= 2 and sys.argv[1] == "probe":
         probe()
         return 0
-    args = [a for a in sys.argv[1:] if a not in ("--ctc", "--rnnt")]
+    args = [a for a in sys.argv[1:] if a not in ("--ctc", "--rnnt", "--widest")]
     if len(args) >= 2 and args[0] == "ab":
         change = args[2] if len(args) > 2 else str(ROOT)
         if "--ctc" in sys.argv:
             return ab(args[1], change, AB_PHASES_CTC, "relpos_")
         if "--rnnt" in sys.argv:
             return ab(args[1], change, AB_PHASES_RNNT, "rnnt_")
+        if "--widest" in sys.argv:
+            return ab(args[1], change, AB_PHASES_WIDEST, "bias_", width=4000)
         return ab(args[1], change)
     raise SystemExit(__doc__)
 

@@ -64,9 +64,9 @@ def kernels(name: str) -> dict:
     ("FMA_LDQ", "bias_attention_fwd.cu", "LDQ"), ("FMA_LDK", "bias_attention_fwd.cu", "LDK"),
     ("FMA_LDP", "bias_attention_fwd.cu", "LDP"), ("FMA_LDV", "bias_attention_bwd.cu", "LDV"),
     ("FMA_LDS", "bias_attention_bwd.cu", "LDS"), ("FMA_WIDE_ROWS", "bias_attention_bwd.cu", "WB"),
-    ("FMA_CHUNK", "bias_attention_fwd.cu", "FC_KC"),
-    ("FMA_CHUNK_COLUMNS", "bias_attention_fwd.cu", "FC_JMAX"),
-    ("FMA_WIDE_CHUNK_COLUMNS", "bias_attention_bwd.cu", "WC_J"),
+    ("FC_TILE", "bias_fma.cuh", "T"), ("FC_KC", "bias_fma.cuh", "KC"),
+    ("FC_STAGES", "bias_fma.cuh", "STAGES"), ("FC_LDT", "bias_fma.cuh", "LDT"),
+    ("FC_LDX", "bias_fma.cuh", "LDX"),
     ("TC_BQ", "bias_attention_fwd.cu", "TC_BQ"), ("TC_BK", "bias_attention_fwd.cu", "TC_BK"),
     ("TC_LDB", "bias_attention_fwd.cu", "TC_LDB"),
     ("TC_STAGES", "bias_attention_fwd.cu", "TC_STAGES"),
@@ -122,12 +122,15 @@ PAIRS = [(a, b) for a in (1, 8, 24, 64, 90, 135, 136, 144, 200, 256, 257, 264, 2
 
 def assert_route_is_the_kernels(dtype, nq, nk, dqk, dv, backward):
     """The wrapper's route for these sizes: the kernel files' own choice
-    (ecf_bias_attention_{fwd,bwd}_route read as Python) and sizes
-    (ecf_bias_attention_fwd_smem, _bwd_q_smem, _bwd_k_smem), each within
-    the shared memory a block may use. The kernels see bf16 widths padded
-    to a multiple of 8 (_pad8); the route is the same at either."""
+    (ecf_bias_attention_{fwd,bwd}_route read as Python), sizes
+    (ecf_bias_attention_fwd_smem, _fwd_out_smem, _bwd_q_smem, _bwd_k_smem),
+    each within the shared memory a block may use, and scratch
+    (ecf_bias_attention_{fwd,bwd}_work against ``work_floats``). The
+    kernels see bf16 widths padded to a multiple of 8 (_pad8); the route is
+    the same at either."""
     code = BA._DTYPE_CODE[dtype]
     got = BA.route(dtype, nq, nk, dqk, dv, backward)
+    work = BA.work_floats(dtype, nq, nk, dqk, dv, backward)
     if dtype == torch.bfloat16:
         dqk, dv = -(-dqk // 8) * 8, -(-dv // 8) * 8
     if backward:
@@ -136,10 +139,13 @@ def assert_route_is_the_kernels(dtype, nq, nk, dqk, dv, backward):
         name = BA.ROUTES_BWD[env["ecf_bias_attention_bwd_route"](*args)]
         sizes = tuple(b for b in (env["ecf_bias_attention_bwd_q_smem"](*args),
                                   env["ecf_bias_attention_bwd_k_smem"](*args)) if b)
+        assert work == env["ecf_bias_attention_bwd_work"](*args)
     else:
         env = kernels("bias_attention_fwd.cu")
         name = BA.ROUTES_FWD[env["ecf_bias_attention_fwd_route"](code, dqk, dv)]
-        sizes = (env["ecf_bias_attention_fwd_smem"](code, dqk, dv),)
+        sizes = tuple(b for b in (env["ecf_bias_attention_fwd_smem"](code, dqk, dv),
+                                  env["ecf_bias_attention_fwd_out_smem"](code, dqk, dv)) if b)
+        assert work == env["ecf_bias_attention_fwd_work"](code, nq, nk, dqk, dv)
     assert (got.name, tuple(b for _, b in got.kernels)) == (name, sizes), \
         (dtype, nq, nk, dqk, dv, backward)
     assert 0 < max(sizes) <= BA.SMEM_LIMIT, (dtype, nq, nk, dqk, dv, backward, sizes)
@@ -193,6 +199,66 @@ def test_nothing_is_refused_for_width():
         v, bias = torch.zeros(1, 2, 5, dv), torch.zeros(1, 1, 1, 5)
         assert BA._checked_inputs(q, k, v, bias)[0] is bias
         assert BA._checked_inputs(q.bfloat16(), k.bfloat16(), v.bfloat16(), None)[0] is None
+
+
+def fp32_tiles_forward(q, k, v, bias, scale):
+    """The fp32 chunked forward's arithmetic in torch, tile by tile as
+    csrc/bias_attention_fwd.cu's two kernels run it: per (query tile, key
+    tile) S once, its rows' max m over the tile's keys (-inf when they all
+    score -inf) and E = exp(S - m) with its sum l; then per row M, the max
+    of the m, L = sum of l exp(m - M) in key-tile order, O = sum over the
+    key tiles of exp(m - M) / L (E v), LSE = M + log L in fp64."""
+    t = BA.FC_TILE
+    nq, nk = q.shape[2], k.shape[2]
+    s = q @ k.transpose(-1, -2) * scale + (0.0 if bias is None else bias)
+    tiles = [s[..., k0:k0 + t] for k0 in range(0, nk, t)]
+    ms = [x.amax(-1, keepdim=True) for x in tiles]
+    es = [torch.exp(x - torch.where(m == -torch.inf, 0.0, m)) for x, m in zip(tiles, ms)]
+    big = torch.stack(ms).amax(0)
+    total = sum(e.sum(-1, keepdim=True) * torch.exp(m - big) for e, m in zip(es, ms))
+    o = sum(torch.exp(m - big) / total * (e @ v[..., k0:k0 + t, :])
+            for e, m, k0 in zip(es, ms, range(0, nk, t)))
+    assert o.shape == (*q.shape[:3], v.shape[-1]) and nq == q.shape[2]
+    return o, big[..., 0].double() + total[..., 0].double().log()
+
+
+def fp32_tiles_backward(q, k, v, bias, do, scale):
+    """The fp32 chunked backward's arithmetic as csrc/bias_attention_bwd.cu's
+    two kernels run it: P = exp(S - LSE) (fp64 difference) and dS = P (dP -
+    Di) once per tile pair, Di = rowsum(dO * O); then dq = scale dS k, dk =
+    scale dS^T q, dv = P^T dO from those tiles."""
+    o, lse = fp32_tiles_forward(q, k, v, bias, scale)
+    s = q @ k.transpose(-1, -2) * scale + (0.0 if bias is None else bias)
+    p = torch.exp((s.double() - lse[..., None]).float())
+    ds = p * (do @ v.transpose(-1, -2) - (do * o).sum(-1, keepdim=True))
+    return (scale * ds @ k, scale * ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do, ds)
+
+
+@pytest.mark.parametrize("name", ["w270", "w270-135", "w384-keymask", "w512-64-head"])
+def test_fp32_chunked_tile_arithmetic_matches_the_plain_version(name):
+    """The tile decomposition of the fp32 chunked kernels (scores once per
+    64 x 64 tile pair, the rows' statistics folded across key tiles, the
+    gradients from the score tiles) against the plain versions, fp32 1e-5:
+    at 130 keys (three key tiles, the last ragged), a row whose real keys
+    all carry the -1e9 mask (it averages v), and one query row."""
+    q, k, v, bias, scale = (torch.as_tensor(a) if isinstance(a, np.ndarray) else a
+                            for a in wide_inputs(name))
+    rng = np.random.default_rng(5)
+    b, h, nq, dqk = q.shape
+    for nk in (130, 1):
+        keys = torch.as_tensor(rng.standard_normal((b, h, nk, dqk)).astype(np.float32))
+        vals = torch.as_tensor(rng.standard_normal((b, h, nk, v.shape[-1])).astype(np.float32))
+        mask = torch.as_tensor(rng.standard_normal((b, 1, nq, nk)).astype(np.float32))
+        mask[:, :, 1] = NEG_INF
+        for rows in (nq, 1):
+            args = (q[:, :, :rows], keys, vals, mask[:, :, :rows], scale)
+            got, want = fp32_tiles_forward(*args), BA.reference_bias_attention(*args)
+            torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5)
+            torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+            do = torch.as_tensor(rng.standard_normal(got[0].shape).astype(np.float32))
+            for g, w in zip(fp32_tiles_backward(*args[:4], do, scale),
+                            BA.reference_bias_attention_bwd(*args[:4], do, scale)):
+                torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
 
 
 # ------------------------------------------ the plain versions past 256, vs JAX

@@ -24,6 +24,7 @@ from efficientconformer_tpu.models.decoders import ConformerDecoder as JaxConfor
 from efficientconformer_tpu.models.decoders import TransformerDecoder as JaxTransformerDecoder
 from efficientconformer_tpu.models.model_ctc import ModelCTC as JaxModelCTC
 from efficientconformer_tpu.models.modules import SUBSAMPLING as JAX_SUBSAMPLING
+from efficientconformer_tpu.models.modules import _max_pool_2d as _jax_max_pool_2d
 from efficientconformer_tpu.models.transducer import Transducer as JaxTransducer
 from efficientconformer_torch.decoding import rnnt_beam
 from efficientconformer_torch.decoding.rnnt_beam_device import beam_search_device
@@ -31,7 +32,7 @@ from efficientconformer_torch.models import layers
 from efficientconformer_torch.models import transducer as T
 from efficientconformer_torch.models.decoders import ConformerDecoder, make_decoder
 from efficientconformer_torch.models.model_ctc import ModelCTC
-from efficientconformer_torch.models.modules import SUBSAMPLING
+from efficientconformer_torch.models.modules import SUBSAMPLING, MaxPool2d, _max_pool
 from efficientconformer_torch.utils import weights as W
 from efficientconformer_torch.utils.weights import from_jax
 from test_torch_port_model import ragged_audio, valid_frames
@@ -94,6 +95,35 @@ def test_subsampling_matches_jax(module, norm, act, layers_, t):
         # two-pass one, through two layers
         np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=TOL,
                                    atol=TRAIN_BN_TOL if train else TOL)
+
+
+@pytest.mark.parametrize("window,stride,pad", [(2, 2, 0), (3, 2, 1)])
+def test_max_pool_routes_tied_gradients_as_jax(window, stride, pad):
+    """The subsamplings' max-pools (VGG's 2 x 2, Conv2dPool's 3 x 3 with
+    -inf padding) on integer mels, whose windows hold tied maxima off their
+    first position: the port's gradient equals JAX's reduce_window gradient
+    exactly, each window's to its first maximum in time-major order (XLA's
+    select_and_scatter). Scanned mel-major, as the (B, C, mel, T) layout
+    lies, torch sent it elsewhere."""
+    rng = np.random.default_rng(window)
+    x = rng.integers(0, 3, (2, 10, 8)).astype(np.float32)       # (B, T, mel), many ties
+    def jax_pool(a):
+        return _jax_max_pool_2d(a[..., None], (window, window), (stride, stride),
+                                ((pad, pad), (pad, pad)))[..., 0]
+    want, vjp = jax.vjp(jax_pool, jnp.asarray(x))
+    g = rng.standard_normal(want.shape).astype(np.float32)
+    want_grad = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.from_numpy(x).transpose(1, 2)[:, None].requires_grad_()   # (B, 1, mel, T)
+    gt = torch.from_numpy(g).transpose(1, 2)[:, None]
+    pools = [lambda a: _max_pool(a, window, stride, (pad, pad))]
+    if pad == 0:
+        pools.append(MaxPool2d(window))     # VGG's layer
+    for pool in pools:
+        got = pool(xt)
+        (grad,) = torch.autograd.grad(got, xt, gt)
+        np.testing.assert_array_equal(got.detach()[:, 0].transpose(1, 2).numpy(),
+                                      np.asarray(want))
+        np.testing.assert_array_equal(grad[:, 0].transpose(1, 2).numpy(), want_grad)
 
 
 def test_subsampling_rejects_an_unknown_activation():
